@@ -1,0 +1,38 @@
+"""tensorflowonspark_tpu_torch — the PyTorch/CUDA port of tensorflowonspark_tpu.
+
+The JAX package (``tensorflowonspark_tpu``) is the reference this port
+is held against; the port imports nothing of it. Module names mirror
+the reference so each counterpart is easy to find:
+
+- :mod:`~tensorflowonspark_tpu_torch.device_info` — CUDA discovery.
+- :mod:`~tensorflowonspark_tpu_torch.convert` — flax ``DecoderLM``
+  params <-> the port's ``state_dict``.
+- :mod:`~tensorflowonspark_tpu_torch.ops.paged_attention` — paged
+  attention through a block table (hand-written Hopper kernel + plain
+  PyTorch versions).
+- :mod:`~tensorflowonspark_tpu_torch.models.decoder` — ``DecoderLM``,
+  paged decode path.
+- :mod:`~tensorflowonspark_tpu_torch.paging` — host block allocator.
+- :mod:`~tensorflowonspark_tpu_torch.generation` — paged prefill/decode
+  step functions and sampling.
+- :mod:`~tensorflowonspark_tpu_torch.serving` — continuous-batching
+  ``DecodeEngine`` and an engine-only ``ModelServer``.
+
+Import discipline: nothing here imports torch at package scope, so the
+package is cheap to import in processes that never touch a device.
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy submodule access (``tensorflowonspark_tpu_torch.serving``
+    etc.) without importing torch at package-import time."""
+    import importlib
+
+    if name.startswith("_"):
+        raise AttributeError(name)
+    try:
+        return importlib.import_module("tensorflowonspark_tpu_torch." + name)
+    except ModuleNotFoundError:
+        raise AttributeError(name)

@@ -1,0 +1,166 @@
+"""Decoder-only causal LM, paged decode path — the port of
+``tensorflowonspark_tpu/models/decoder.py``.
+
+GPT-style: learned token and position embeddings, pre-LN blocks with a
+4x GELU MLP, a final LayerNorm and an untied head. This module carries
+only the PAGED decode path the serving engine runs: every call writes
+the step's K/V for logical positions ``[idx, idx + s)`` through the
+block table into the layer's pool, then attends through the table
+(``ops.paged_attention``). ``s == 1`` is a decode step; ``s > 1`` a
+prefill tail, cold (``idx == 0``) or continuing mid-sequence after a
+shared prefix.
+
+The cache is plain tensors owned by the caller (generation.py's
+:func:`~tensorflowonspark_tpu_torch.generation.init_paged_cache`): per
+layer the pools ``cached_key``/``cached_value`` ``[P, bs, N, D]`` and,
+for int8 KV, ``key_scale``/``value_scale`` ``[P, bs, N]``; writes
+update them in place. Pool row 0 is scratch.
+
+Three flax defaults are matched explicitly, because torch's differ:
+LayerNorm epsilon 1e-6, GELU in its tanh approximation, and the
+attention projections as ``DenseGeneral`` contractions over ``(N, D)``
+(here ``nn.Linear`` over the flattened ``N * D``; convert.py maps the
+kernels). The full-sequence (training) forward is not part of this
+module yet.
+"""
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from tensorflowonspark_tpu_torch.ops import paged_attention as pa
+
+#: flax ``nn.LayerNorm``'s default epsilon
+LN_EPS = 1e-6
+
+ATTN_IMPLS = ("fused", "gather")
+
+
+class CausalSelfAttention(nn.Module):
+    """Paged write-then-attend self-attention."""
+
+    def __init__(self, hidden, num_heads, device=None):
+        super(CausalSelfAttention, self).__init__()
+        if hidden % num_heads:
+            raise ValueError(
+                "hidden size {} not divisible by num_heads {}".format(
+                    hidden, num_heads))
+        self.num_heads = num_heads
+        self.head_dim = hidden // num_heads
+        self.query = nn.Linear(hidden, hidden, device=device)
+        self.key = nn.Linear(hidden, hidden, device=device)
+        self.value = nn.Linear(hidden, hidden, device=device)
+        self.out = nn.Linear(hidden, hidden, device=device)
+
+    def forward(self, x, layer_cache, pos, tables, attn_impl="fused"):
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError("attn_impl must be 'fused' or 'gather', got "
+                             "{!r}".format(attn_impl))
+        b, s, h = x.shape
+        n, d = self.num_heads, self.head_dim
+        q = self.query(x).view(b, s, n, d)
+        k = self.key(x).view(b, s, n, d)
+        v = self.value(x).view(b, s, n, d)
+        pk = layer_cache["cached_key"]
+        pv = layer_cache["cached_value"]
+        bs_blk = pk.shape[1]
+        mb = tables.shape[1]
+        blk_idx = (pos // bs_blk).long()                      # [B, s]
+        blk = torch.gather(tables, 1, blk_idx.clamp(max=mb - 1)).long()
+        # positions past the table's capacity (bucket-padded prefill
+        # tails) write to the scratch row 0: a clamped write would land
+        # on a visible offset of whatever block the last entry holds
+        blk = torch.where(blk_idx < mb, blk, torch.zeros_like(blk))
+        off = (pos % bs_blk).long()
+        ksc = layer_cache.get("key_scale")
+        vsc = layer_cache.get("value_scale")
+        if ksc is not None:
+            # int8 KV: quantize at write time, codes and scales routed
+            # through the same (block, offset) as float K/V would be
+            qk, sk = pa.quantize_kv(k)
+            qv, sv = pa.quantize_kv(v)
+            pk[blk, off] = qk
+            pv[blk, off] = qv
+            ksc[blk, off] = sk
+            vsc[blk, off] = sv
+        else:
+            pk[blk, off] = k.to(pk.dtype)
+            pv[blk, off] = v.to(pv.dtype)
+        ctx = pa.paged_attention(
+            q, pk, pv, tables, pos, scale=d ** -0.5,
+            impl=None if attn_impl == "fused" else "gather",
+            k_scale=ksc, v_scale=vsc)
+        return self.out(ctx.reshape(b, s, n * d))
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, hidden, num_heads, device=None):
+        super(DecoderBlock, self).__init__()
+        self.ln1 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
+        self.attn = CausalSelfAttention(hidden, num_heads, device=device)
+        self.ln2 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
+        self.mlp_in = nn.Linear(hidden, 4 * hidden, device=device)
+        self.mlp_out = nn.Linear(4 * hidden, hidden, device=device)
+
+    def forward(self, x, layer_cache, pos, tables, attn_impl="fused"):
+        x = x + self.attn(self.ln1(x), layer_cache, pos, tables,
+                          attn_impl=attn_impl)
+        y = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
+        return x + self.mlp_out(y)
+
+
+class DecoderLM(nn.Module):
+    """GPT-style LM: learned positions, pre-LN blocks, untied head."""
+
+    def __init__(self, vocab, hidden=64, num_heads=4, num_layers=2,
+                 max_len=512, device=None):
+        super(DecoderLM, self).__init__()
+        self.vocab = int(vocab)
+        self.hidden = int(hidden)
+        self.num_heads = int(num_heads)
+        self.num_layers = int(num_layers)
+        self.max_len = int(max_len)
+        self.tok_embed = nn.Embedding(vocab, hidden, device=device)
+        self.pos_embed = nn.Parameter(
+            torch.zeros(max_len, hidden, device=device))
+        self.blocks = nn.ModuleList(
+            DecoderBlock(hidden, num_heads, device=device)
+            for _ in range(num_layers))
+        self.ln_f = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
+        self.head = nn.Linear(hidden, vocab, device=device)
+
+    @property
+    def head_dim(self):
+        return self.hidden // self.num_heads
+
+    def init_weights(self, generator, std=0.02):
+        """Random weights from ``generator``: normal(0, ``std``) for
+        embeddings and projections, zero biases, unit LayerNorm
+        scales. ``generator`` must live on the parameters' device."""
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if name.endswith("bias"):
+                    p.zero_()
+                elif ".ln" in name or name.startswith("ln_f"):
+                    p.fill_(1.0)
+                else:
+                    p.normal_(0.0, std, generator=generator)
+        return self
+
+    def forward(self, tokens, cache_layers, idx, tables,
+                attn_impl="fused"):
+        """``tokens [B, s]`` at positions ``idx[b] + 0..s-1`` (``idx
+        [B]`` int32 per-row cursors) -> logits ``[B, s, vocab]``,
+        writing the step's K/V into ``cache_layers`` through ``tables
+        [B, MB]`` int32."""
+        b, s = tokens.shape
+        pos = idx.to(torch.int32)[:, None] + torch.arange(
+            s, dtype=torch.int32, device=tokens.device)[None, :]
+        # clamped lookup (the reference's mode="clip"): bucket-pad rows
+        # past max_len get a finite embedding; their K/V is invisible,
+        # and a non-finite one would poison attention through 0 * NaN
+        x = self.tok_embed(tokens.long()) \
+            + self.pos_embed[pos.clamp(0, self.max_len - 1).long()]
+        for block, layer in zip(self.blocks, cache_layers):
+            x = block(x, layer, pos, tables, attn_impl=attn_impl)
+        return self.head(self.ln_f(x))

@@ -1,0 +1,935 @@
+"""Continuous-batching decode serving — the port of the paged
+``DecodeEngine`` and the ``:generate`` surface of
+``tensorflowonspark_tpu/serving.py``.
+
+:class:`DecodeEngine` owns a paged KV cache (one block pool per layer,
+shared by ``slots`` rows through per-slot block tables) and a scheduler
+thread. Requests enter freed slots at decode-step boundaries, prefill
+only the tail their resident shared prefix does not cover, grow one
+block at a time as they decode, and leave individually on EOS or
+length; under pool exhaustion the youngest admission is preempted and
+re-enters later with a continuation prefill. Attention runs through
+``ops.paged_attention``: the hand-written CUDA kernel on the card
+(``attn_impl="fused"``), or the materialized-view oracle
+(``attn_impl="gather"``).
+
+:class:`ModelServer` mounts an engine on ``http.server``::
+
+    POST /v1/models/<name>:generate  {"prompt": [...] or [[...], ...],
+                                      "max_new_tokens": N}
+                                  -> {"tokens": [...] or [[...], ...]}
+    GET  /healthz
+
+Error taxonomy on the wire: malformed body 400, :class:`QueueFull` 429,
+:class:`Retriable` (:class:`Shed`, :class:`Draining`,
+:class:`EngineFailed`) 503 with ``Retry-After``,
+:class:`DeadlineExceeded` 504, :class:`Cancelled` 499.
+
+Left out of this port so far (see ROADMAP.md): speculative decoding,
+KV ship/splice, the QoS fair scheduler (admission here is the
+block-gated FIFO the reference runs with one priority class), SLO and
+chaos hooks, the flight recorder and ``/metrics``.
+"""
+
+import collections
+import contextlib
+import itertools
+import json
+import logging
+import math
+import queue as queue_mod
+import threading
+import time
+
+import numpy as np
+import torch
+
+from tensorflowonspark_tpu_torch import device_info
+from tensorflowonspark_tpu_torch import generation
+from tensorflowonspark_tpu_torch import paging
+from tensorflowonspark_tpu_torch import tracing
+
+logger = logging.getLogger(__name__)
+
+_STREAM_DONE = object()
+
+
+class Retriable(RuntimeError):
+    """The request failed for a TRANSIENT serving-side reason; the
+    client should retry (HTTP 503 with ``Retry-After``)."""
+
+    #: advisory seconds before a retry is worth attempting
+    retry_after = 1.0
+
+
+class Shed(Retriable):
+    """Admission refused the request because its deadline is
+    infeasible."""
+
+    def __init__(self, msg, retry_after=1.0):
+        super(Shed, self).__init__(msg)
+        self.retry_after = max(1.0, float(retry_after))
+
+
+class Draining(Retriable):
+    """The engine/server is draining: new work must go elsewhere."""
+
+    retry_after = 5.0
+
+
+class EngineFailed(Retriable):
+    """The decode scheduler died; outstanding handles fail with this."""
+
+
+class Cancelled(RuntimeError):
+    """The request was cancelled (``handle.cancel()``, an abandoned
+    :meth:`GenerationHandle.stream`, or a disconnected HTTP client);
+    its slot was freed at the next decode-step boundary."""
+
+
+class DeadlineExceeded(Cancelled):
+    """The request's deadline passed before it completed; the engine
+    evicted it at the next decode-step boundary."""
+
+
+class QueueFull(RuntimeError):
+    """The engine's admission queue is at ``max_queue`` — backpressure
+    (HTTP 429)."""
+
+
+class GenerationHandle(object):
+    """One in-flight generation request against a :class:`DecodeEngine`.
+
+    The scheduler thread emits tokens into the handle as each step
+    completes; clients iterate :meth:`stream` or block on
+    :meth:`result`. ``deadline`` (absolute ``time.monotonic``) and
+    :meth:`cancel` evict the request at the next step boundary."""
+
+    def __init__(self, prompt, max_new_tokens, deadline=None):
+        self.prompt = list(prompt)
+        self.max_new_tokens = max_new_tokens
+        self.deadline = deadline
+        self.submitted = time.monotonic()
+        self.completed = None
+        self._tokens = []
+        self._q = queue_mod.Queue()
+        self._done = threading.Event()
+        self._error = None
+        self._cancel_requested = False
+        self._last_emit_at = None   # monotonic of the last emitted token
+        self._admitted = False      # first admission done (queue wait)
+
+    # -- scheduler side --------------------------------------------------
+
+    def _emit(self, token):
+        self._tokens.append(int(token))
+        self._q.put(int(token))
+
+    def _finish(self, error=None):
+        self._error = error
+        self.completed = time.monotonic()
+        self._done.set()
+        self._q.put(_STREAM_DONE)
+
+    def _evictable(self, now):
+        """Why the scheduler should evict this request now, or None."""
+        if self._cancel_requested:
+            return Cancelled("request cancelled")
+        if self.deadline is not None and now > self.deadline:
+            return DeadlineExceeded(
+                "deadline exceeded after {} of {} tokens".format(
+                    len(self._tokens), self.max_new_tokens))
+        return None
+
+    # -- client side -----------------------------------------------------
+
+    def cancel(self):
+        """Ask the engine to stop generating. Returns False if the
+        request had already completed. Idempotent."""
+        if self._done.is_set():
+            return False
+        self._cancel_requested = True
+        return True
+
+    def stream(self, timeout=600.0):
+        """Yield generated tokens as the engine emits them; ``timeout``
+        bounds the wait for EACH token. Abandoning the generator cancels
+        the request."""
+        while True:
+            try:
+                item = self._q.get(timeout=timeout)
+            except queue_mod.Empty:
+                raise TimeoutError("no token within {}s".format(timeout))
+            if item is _STREAM_DONE:
+                if self._error is not None:
+                    raise self._error
+                return
+            try:
+                yield item
+            except GeneratorExit:
+                self.cancel()
+                raise
+
+    def result(self, timeout=600.0):
+        """Block until complete; returns prompt + generated tokens."""
+        if not self._done.wait(timeout):
+            raise TimeoutError(
+                "generation did not complete within {}s".format(timeout))
+        if self._error is not None:
+            raise self._error
+        return list(self.prompt) + list(self._tokens)
+
+
+class DecodeEngine(object):
+    """Continuous batching over a paged KV cache for a port
+    ``DecoderLM``.
+
+    ``model`` is moved to ``device`` (``None``: the card; ``"cpu"`` must
+    be asked for). ``kv_block_size`` (None: the largest divisor of
+    ``total_len`` up to 16) must divide ``total_len``; ``kv_blocks``
+    (None: ``slots * total_len / kv_block_size``, capacity parity with
+    a contiguous cache) is the pool size without the scratch row.
+    ``attn_impl``: ``"fused"`` (kernel on the card, plain blockwise
+    version on the CPU) or ``"gather"`` (the oracle). ``kv_dtype``:
+    None/``"float32"`` or ``"int8"``. ``generator``: a seeded
+    ``torch.Generator`` on ``device``, required when ``temperature >
+    0``."""
+
+    def __init__(self, model, slots=8, total_len=None, buckets=None,
+                 temperature=0.0, top_k=None, top_p=None, eos_token=None,
+                 generator=None, max_queue=1024, kv_block_size=None,
+                 kv_blocks=None, prefix_cache=True, attn_impl=None,
+                 kv_dtype=None, device=None):
+        self.device = device_info.default_device(device)
+        total_len = int(total_len or model.max_len)
+        if total_len > model.max_len:
+            raise ValueError(
+                "total_len {} exceeds model.max_len {}".format(
+                    total_len, model.max_len))
+        if int(slots) < 1:
+            raise ValueError("slots must be >= 1, got {}".format(slots))
+        self.model = model.to(self.device).eval()
+        self.slots = int(slots)
+        self.total_len = total_len
+        self.buckets = tuple(sorted(int(b) for b in buckets)) if buckets \
+            else generation.default_buckets(total_len)
+        if self.buckets[-1] > total_len:
+            raise ValueError(
+                "largest bucket {} exceeds total_len {}".format(
+                    self.buckets[-1], total_len))
+        self.eos_token = None if eos_token is None else int(eos_token)
+        self.max_queue = None if max_queue is None else int(max_queue)
+        generation.check_sampling_config(temperature, top_k, top_p,
+                                         generator)
+        self._temperature = float(temperature)
+        self._top_k = None if top_k is None else int(top_k)
+        self._top_p = None if top_p is None else float(top_p)
+        self._generator = generator
+        self.counters = tracing.Counters()
+        self.timers = tracing.StageTimers()
+        #: latency distributions (seconds), scheduler-thread written
+        self.histograms = {name: tracing.Histogram() for name in (
+            "ttft", "token", "decode_step", "queue_wait", "request")}
+        if kv_block_size is None:
+            kv_block_size = next(b for b in range(16, 0, -1)
+                                 if total_len % b == 0)
+        self.kv_block_size = int(kv_block_size)
+        if self.kv_block_size < 1 or total_len % self.kv_block_size:
+            raise ValueError(
+                "kv_block_size {} must divide total_len {}".format(
+                    self.kv_block_size, total_len))
+        if kv_dtype in ("fp32", "float32"):
+            kv_dtype = None
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                "kv_dtype must be None/'fp32'/'float32' or 'int8', "
+                "got {!r}".format(kv_dtype))
+        self._blocks_per_slot = total_len // self.kv_block_size
+        self.kv_blocks = int(kv_blocks) if kv_blocks is not None \
+            else self.slots * self._blocks_per_slot
+        if self.kv_blocks < 1:
+            raise ValueError("kv_blocks must be >= 1, got {}".format(
+                self.kv_blocks))
+        self.prefix_cache = bool(prefix_cache)
+        if attn_impl is None:
+            attn_impl = "fused"
+        if attn_impl not in ("fused", "gather"):
+            raise ValueError(
+                "attn_impl must be 'fused' or 'gather', got {!r}".format(
+                    attn_impl))
+        self.attn_impl = attn_impl
+        self.kv_dtype = "int8" if kv_dtype == "int8" else "float32"
+        self._pool = paging.BlockPool(self.kv_blocks, self.kv_block_size,
+                                      kv_dtype=self.kv_dtype)
+        self._cache = generation.init_paged_cache(
+            self.model, self.slots, total_len, self.kv_blocks,
+            self.kv_block_size, kv_dtype=kv_dtype, device=self.device)
+        self._last_tallies = {}
+        self._head_block_memo = None
+        self._queue = collections.deque()
+        self._cv = threading.Condition()
+        self._stopping = False
+        self._broken = None
+        self._qwait_ewma = None
+        self._ewma_alpha = 0.3
+        self._slot_req = [None] * self.slots
+        # host-authoritative cursors and block tables: row s mirrors
+        # _slot_blocks[s] padded with scratch (0); a freed slot's row
+        # resets to scratch and its cursor to 0, so the idle slot's
+        # per-step write lands in the scratch block
+        self._idx = np.zeros(self.slots, np.int32)
+        self._last = np.zeros(self.slots, np.int32)
+        self._slot_blocks = [[] for _ in range(self.slots)]
+        self._tables = np.zeros((self.slots, self._blocks_per_slot),
+                                np.int32)
+        self._admit_seq = itertools.count()
+        self._slot_seq = [0] * self.slots
+        # leading FULL blocks of each slot's sequence already published
+        # to the prefix registry
+        self._slot_registered = [0] * self.slots
+        self._publish_kv_gauges()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="tfos-torch-decode-engine")
+        self._thread.start()
+
+    # -- client API ------------------------------------------------------
+
+    def validate(self, prompt, max_new_tokens):
+        """Raise ValueError/TypeError if the request cannot be served;
+        returns the normalized ``(prompt, max_new)``."""
+        prompt = [int(t) for t in prompt]
+        max_new = int(max_new_tokens)
+        if not prompt:
+            raise ValueError("prompt must be non-empty")
+        vocab = self.model.vocab
+        bad = next((t for t in prompt if not 0 <= t < vocab), None)
+        if bad is not None:
+            raise ValueError(
+                "prompt token {} outside vocab [0, {})".format(bad, vocab))
+        if max_new < 0:
+            raise ValueError(
+                "max_new_tokens must be >= 0, got {}".format(max_new))
+        generation.bucket_for(len(prompt), self.buckets)
+        if len(prompt) + max_new > self.total_len:
+            raise ValueError(
+                "prompt {} + max_new_tokens {} exceeds total_len {}".format(
+                    len(prompt), max_new, self.total_len))
+        need = self._pool.blocks_for(len(prompt) + max_new)
+        if need > self.kv_blocks:
+            raise ValueError(
+                "request needs up to {} KV blocks but the pool has "
+                "{} (kv_blocks)".format(need, self.kv_blocks))
+        return prompt, max_new
+
+    def submit(self, prompt, max_new_tokens, deadline_s=None):
+        """Queue one request; returns its :class:`GenerationHandle`.
+        ``deadline_s`` (seconds from now) evicts the request at the
+        first step boundary past it."""
+        return self._submit_many([self.validate(prompt, max_new_tokens)],
+                                 deadline_s=deadline_s)[0]
+
+    def _submit_many(self, vetted, deadline_s=None):
+        """Atomically queue a whole vetted body: every request is queued
+        or none is. ``max_new == 0`` requests complete inline."""
+        if deadline_s is not None:
+            deadline_s = float(deadline_s)
+            if not deadline_s > 0:
+                raise ValueError(
+                    "deadline_s must be > 0, got {}".format(deadline_s))
+        with self._cv:
+            if self._stopping:
+                raise RuntimeError("engine stopped")
+            if self._broken is not None:
+                raise EngineFailed("engine failed: {}".format(self._broken))
+            queueing = sum(1 for _, mn in vetted if mn > 0)
+            if self.max_queue is not None and \
+                    len(self._queue) + queueing > self.max_queue:
+                raise QueueFull(
+                    "admission queue full ({} waiting, max_queue {})"
+                    .format(len(self._queue), self.max_queue))
+            deadline = None if deadline_s is None \
+                else time.monotonic() + deadline_s
+            handles = []
+            for prompt, max_new in vetted:
+                handle = GenerationHandle(prompt, max_new, deadline=deadline)
+                if max_new == 0:
+                    handle._finish()
+                else:
+                    self._queue.append(handle)
+                handles.append(handle)
+            if queueing:
+                self.counters.gauge("queue_depth", len(self._queue))
+                self._cv.notify()
+        return handles
+
+    def generate(self, prompt, max_new_tokens, timeout=600.0):
+        """Blocking convenience: submit + result."""
+        return self.submit(prompt, max_new_tokens).result(timeout)
+
+    def healthy(self):
+        """{alive, scheduler_thread, stopping, broken}: ``alive`` is
+        False once the scheduler died or the engine was stopped."""
+        with self._cv:
+            broken = self._broken
+            stopping = self._stopping
+        thread_alive = self._thread.is_alive()
+        return {"alive": thread_alive and not stopping and broken is None,
+                "scheduler_thread": thread_alive,
+                "stopping": stopping,
+                "broken": str(broken) if broken is not None else None}
+
+    def load_stats(self):
+        """Live load gauges: queue depth, slot occupancy, queue-wait
+        EWMA, pool headroom and prefix-cache hit rate, plus the
+        engine's attention and KV configuration."""
+        with self._cv:
+            queue_depth = len(self._queue)
+            occupancy = len(self._active_slots())
+            qwait = self._qwait_ewma
+        ps = self._pool.stats()
+        return {"device": str(self.device),
+                "queue_depth": queue_depth,
+                "slot_occupancy": occupancy,
+                "slots": self.slots,
+                "queue_wait_ewma_s": round(qwait, 6)
+                if qwait is not None else 0.0,
+                "alive": self.healthy()["alive"],
+                "attn_impl": self.attn_impl,
+                "kv_dtype": self.kv_dtype,
+                "kv_blocks_total": ps["total"],
+                "kv_blocks_free": ps["free"],
+                "prefix_hit_rate": round(ps["hit_rate"], 4),
+                "generated_prefix_hit_blocks": ps["generated_hits"],
+                "generated_prefix_registered": ps["generated_registered"]}
+
+    def stop(self):
+        """Stop the scheduler; queued and in-flight requests fail with
+        RuntimeError. Idempotent."""
+        with self._cv:
+            if self._stopping:
+                return
+            self._stopping = True
+            self._cv.notify_all()
+        self._thread.join(timeout=30)
+        if self._thread.is_alive():
+            logger.warning("decode engine scheduler still inside a device "
+                           "call after 30s")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    # -- scheduler loop --------------------------------------------------
+
+    def _active_slots(self):
+        return [s for s in range(self.slots)
+                if self._slot_req[s] is not None]
+
+    def _evict(self, handle, err):
+        handle._finish(err)
+        self.counters.inc("deadline_exceeded"
+                          if isinstance(err, DeadlineExceeded)
+                          else "cancelled")
+
+    def _prune_queue_locked(self, now):
+        """Drop cancelled/expired requests from the admission queue
+        (caller holds ``_cv``)."""
+        if not any(h._evictable(now) for h in self._queue):
+            return
+        kept = collections.deque()
+        for handle in self._queue:
+            err = handle._evictable(now)
+            if err is None:
+                kept.append(handle)
+            else:
+                self._evict(handle, err)
+        self._queue = kept
+
+    def _evict_expired(self, now):
+        """Free every active slot whose request is cancelled or past its
+        deadline, before the step computes for it."""
+        for s in self._active_slots():
+            err = self._slot_req[s]._evictable(now)
+            if err is not None:
+                self._evict(self._slot_req[s], err)
+                self._slot_req[s] = None
+                self._release_slot(s)
+
+    def _plan_admission_locked(self):
+        """Block-gated FIFO admission (caller holds ``_cv``): the queue
+        head enters a free slot only when its prefill blocks are
+        obtainable now, judged from one ``plan_admission`` snapshot;
+        there is no bypass past a block-starved head. While the head
+        waits, an unchanged pool epoch means the old verdict stands."""
+        admits = []
+        free = [s for s in range(self.slots) if self._slot_req[s] is None]
+        planned_blocks = 0
+        while free and self._queue:
+            head = self._queue[0]
+            if self._head_block_memo == (head, self._pool.epoch()):
+                break
+            _, need, lru_shared, allocatable, epoch = \
+                self._pool.plan_admission(head.prompt + head._tokens)
+            if need + lru_shared + planned_blocks > allocatable:
+                self._head_block_memo = (head, epoch)
+                break
+            self._head_block_memo = None
+            planned_blocks += need + lru_shared
+            s = free.pop(0)
+            self._queue.popleft()
+            # occupy the slot at pop time, so the failure paths find it
+            self._slot_req[s] = head
+            admits.append((s, head))
+        return admits
+
+    def _loop(self):
+        ctx = torch.cuda.device(self.device) \
+            if self.device.type == "cuda" else contextlib.nullcontext()
+        try:
+            with ctx, torch.no_grad():
+                self._run()
+        except BaseException as e:  # noqa: BLE001 - fail every client
+            logger.exception("decode engine loop died")
+            with self._cv:
+                self._broken = e
+                self._fail_outstanding(
+                    EngineFailed("decode engine failed: {}".format(e)))
+
+    def _run(self):
+        while True:
+            with self._cv:
+                while (not self._stopping and not self._queue
+                       and not self._active_slots()):
+                    self._cv.wait()
+                if self._stopping:
+                    self._fail_outstanding(RuntimeError("engine stopped"))
+                    return
+                self._prune_queue_locked(time.monotonic())
+                admits = self._plan_admission_locked()
+                self.counters.gauge("queue_depth", len(self._queue))
+            # prefill outside the lock: submit() never waits on the card
+            for s, handle in admits:
+                self._admit(s, handle)
+            self._evict_expired(time.monotonic())
+            self._grow_active_blocks()
+            active = self._active_slots()
+            self.counters.gauge("slot_occupancy", len(active))
+            if not active:
+                continue
+            t0 = time.monotonic()
+            with self.timers.timed("decode_step"):
+                toks = generation.paged_decode_step(
+                    self.model, self._cache, self._last, self._idx,
+                    self._tables, temperature=self._temperature,
+                    top_k=self._top_k, top_p=self._top_p,
+                    generator=self._generator, attn_impl=self.attn_impl)
+                toks = toks.cpu().numpy()  # the per-step host sync
+            self.histograms["decode_step"].observe(time.monotonic() - t0)
+            self.counters.inc("decode_steps")
+            with self.timers.timed("host_schedule"):
+                for s in active:
+                    # the step wrote the fed token at _idx[s]: advance
+                    # the cursor, then deliver the emission
+                    self._idx[s] += 1
+                    self._deliver(s, int(toks[s]))
+                self.counters.inc("tokens", len(active))
+                # decode_tokens excludes prefill-emitted firsts, so
+                # decode_tokens / decode_steps is the mean occupancy
+                self.counters.inc("decode_tokens", len(active))
+                self.counters.gauge("slot_occupancy",
+                                    len(self._active_slots()))
+
+    def _fail_outstanding(self, err):
+        """Fail every queued and in-flight handle (caller holds
+        ``_cv``)."""
+        failed = [self._slot_req[s] for s in self._active_slots()]
+        for s in range(self.slots):
+            self._slot_req[s] = None
+            self._release_slot(s)
+        failed.extend(self._queue)
+        self._queue.clear()
+        for handle in failed:
+            handle._finish(err)
+        self.counters.gauge("queue_depth", 0)
+        self.counters.gauge("slot_occupancy", 0)
+
+    def _publish_kv_gauges(self):
+        """Refresh the pool gauges and roll the pool's monotonic tallies
+        (prefix hits/misses, LRU evictions, generated-prefix
+        registrations and hits) into the counters."""
+        stats = self._pool.stats()
+        self.counters.gauge("kv_blocks_total", stats["total"])
+        self.counters.gauge("kv_blocks_free", stats["free"])
+        self.counters.gauge("kv_blocks_cached", stats["cached"])
+        for counter, tally in (
+                ("prefix_evictions", "evictions"),
+                ("prefix_hit_blocks", "hits"),
+                ("prefix_miss_blocks", "misses"),
+                ("generated_prefix_registered", "generated_registered"),
+                ("generated_prefix_hit_blocks", "generated_hits")):
+            delta = stats[tally] - self._last_tallies.get(tally, 0)
+            if delta > 0:
+                self.counters.inc(counter, delta)
+                self._last_tallies[tally] = stats[tally]
+
+    def _release_slot(self, slot):
+        """Return a freed slot's blocks to the pool and park its table
+        row on scratch and its cursor at 0."""
+        if self._slot_blocks[slot]:
+            self._pool.release(self._slot_blocks[slot])
+            self._slot_blocks[slot] = []
+        self._tables[slot][:] = 0
+        self._idx[slot] = 0
+        self._slot_registered[slot] = 0
+        self._publish_kv_gauges()
+
+    def _register_generated(self, slot, handle):
+        """Publish every not-yet-registered FULL block of ``slot``'s
+        sequence into the prefix registry (a block decode filled holds
+        the K/V of ``(prompt + emitted)[:block_end]``). Must run while
+        the slot still holds its block references."""
+        if not self.prefix_cache:
+            return
+        bs = self.kv_block_size
+        full = min(int(self._idx[slot]) // bs, len(self._slot_blocks[slot]))
+        if full <= self._slot_registered[slot]:
+            return
+        chain = handle.prompt + handle._tokens
+        n_prompt = len(handle.prompt)
+        for j in range(self._slot_registered[slot], full):
+            end = (j + 1) * bs
+            self._pool.register(
+                chain, end, self._slot_blocks[slot][j],
+                origin="prompt" if end <= n_prompt else "generated")
+        self._slot_registered[slot] = full
+        self._publish_kv_gauges()
+
+    def _preempt(self, slot):
+        """Free a slot's blocks under pool exhaustion and requeue its
+        request at the queue FRONT; it re-enters with a continuation
+        prefill of prompt + emitted tokens, so its stream continues
+        (token-identical at temperature 0)."""
+        handle = self._slot_req[slot]
+        self._slot_req[slot] = None
+        self._release_slot(slot)
+        with self._cv:
+            self._queue.appendleft(handle)
+            self.counters.gauge("queue_depth", len(self._queue))
+        self.counters.inc("preemptions")
+        logger.info("preempted request after %d/%d tokens (kv pool "
+                    "pressure); requeued at front", len(handle._tokens),
+                    handle.max_new_tokens)
+
+    def _grow_active_blocks(self):
+        """Give every active slot the block its next write lands in,
+        allocating as sequences cross block boundaries. Under
+        exhaustion the YOUNGEST admission is preempted, so the oldest
+        always progresses (``validate`` guarantees a lone request's
+        worst case fits the pool)."""
+        bs = self.kv_block_size
+        for s in sorted(self._active_slots(),
+                        key=lambda v: self._slot_seq[v]):
+            handle = self._slot_req[s]
+            if handle is None:
+                continue  # preempted by an earlier slot's growth
+            self._register_generated(s, handle)
+            need = min(int(self._idx[s]) // bs + 1, self._blocks_per_slot)
+            while self._slot_req[s] is not None \
+                    and len(self._slot_blocks[s]) < need:
+                try:
+                    with self.timers.timed("block_alloc"):
+                        new_id = self._pool.alloc(1)[0]
+                except paging.PoolExhausted:
+                    # preempting s itself ends the while
+                    self._preempt(max(self._active_slots(),
+                                      key=lambda v: self._slot_seq[v]))
+                    continue
+                self._tables[s][len(self._slot_blocks[s])] = new_id
+                self._slot_blocks[s].append(new_id)
+            self._publish_kv_gauges()
+
+    def _admit(self, slot, handle):
+        """Paged admission: point the slot's table at resident shared
+        prefix blocks, allocate private blocks for the rest, prefill
+        only the un-shared tail, and emit the first token. Also the
+        preemption re-entry path (prompt + emitted tokens)."""
+        full = handle.prompt + handle._tokens
+        n = len(full)
+        bs = self.kv_block_size
+        shared = []
+        if self.prefix_cache:
+            with self.timers.timed("prefix_lookup"):
+                # a preemption continuation re-walks onto its own
+                # blocks: not multi-turn reuse, so not counted as such
+                shared = self._pool.match_prefix(
+                    full, count_generated=not handle._admitted)
+        start = len(shared) * bs
+        with self.timers.timed("block_alloc"):
+            # acquire BEFORE alloc: an LRU-resident shared block must
+            # not be evicted by this very admission's alloc
+            self._pool.acquire(shared)
+            try:
+                new_ids = self._pool.alloc(
+                    self._pool.blocks_for(n) - len(shared))
+            except paging.PoolExhausted:
+                self._pool.release(shared)
+                raise
+        ids = list(shared) + new_ids
+        self._slot_blocks[slot] = ids
+        row = self._tables[slot]
+        row[:] = 0
+        row[:len(ids)] = ids
+        self._slot_seq[slot] = next(self._admit_seq)
+        tail = full[start:]
+        try:
+            bucket = generation.bucket_for(len(tail), self.buckets)
+        except ValueError:
+            # a continuation's prompt+generated tail can outgrow custom
+            # buckets (validate vets only the original prompt)
+            bucket = self.total_len
+        toks = np.zeros(bucket, np.int32)
+        toks[:len(tail)] = tail
+        t0 = time.monotonic()
+        if not handle._admitted:
+            wait = t0 - handle.submitted
+            self.histograms["queue_wait"].observe(wait)
+            self._qwait_ewma = wait if self._qwait_ewma is None else \
+                self._ewma_alpha * wait \
+                + (1.0 - self._ewma_alpha) * self._qwait_ewma
+            handle._admitted = True
+        with self.timers.timed("prefill"):
+            first = int(generation.paged_prefill_into_slot(
+                self.model, self._cache, row, toks, len(tail), start,
+                temperature=self._temperature, top_k=self._top_k,
+                top_p=self._top_p, generator=self._generator,
+                attn_impl=self.attn_impl))
+        self.counters.inc("prefills")
+        if self.prefix_cache:
+            # publish every FULL block of the admitted sequence; blocks
+            # past the original prompt exist only on preemption re-entry
+            for j in range(n // bs):
+                end = (j + 1) * bs
+                self._pool.register(
+                    full, end, ids[j],
+                    origin="prompt" if end <= len(handle.prompt)
+                    else "generated")
+            self._slot_registered[slot] = n // bs
+        else:
+            self._slot_registered[slot] = 0
+        self._publish_kv_gauges()
+        self._idx[slot] = n
+        self._last[slot] = first
+        self._deliver(slot, first)
+        self.counters.inc("tokens")
+
+    def _deliver(self, slot, token):
+        """Append one emitted token to the slot's request; complete and
+        free the slot on EOS or length. ``_idx[slot]`` always holds the
+        position where ``_last[slot]`` is written by the NEXT step."""
+        handle = self._slot_req[slot]
+        handle._emit(token)
+        now = time.monotonic()
+        if handle._last_emit_at is None:
+            self.histograms["ttft"].observe(now - handle.submitted)
+        else:
+            self.histograms["token"].observe(now - handle._last_emit_at)
+        handle._last_emit_at = now
+        self._last[slot] = token
+        done = (self.eos_token is not None and token == self.eos_token) \
+            or len(handle._tokens) >= handle.max_new_tokens
+        if done:
+            # a sequence can finish with its last decode-filled block
+            # complete: publish it before the slot releases it
+            self._register_generated(slot, handle)
+            handle._finish()
+            self._slot_req[slot] = None
+            self._release_slot(slot)
+            self.counters.inc("requests_completed")
+            self.histograms["request"].observe(
+                handle.completed - handle.submitted)
+
+
+class _BadRequest(ValueError):
+    """A malformed ``:generate`` body (HTTP 400)."""
+
+
+class ModelServer(object):
+    """Engine-only HTTP server: ``POST /v1/models/<name>:generate`` and
+    ``GET /healthz`` over ``http.server`` (one thread per connection;
+    requests share the engine's decode steps)."""
+
+    def __init__(self, engine, name="model", host="127.0.0.1", port=0):
+        self.engine = engine
+        self.name = str(name)
+        self._host = host
+        self._port = int(port)
+        self._httpd = None
+        self._thread = None
+
+    @property
+    def address(self):
+        """``(host, port)`` the server listens on (after :meth:`start`)."""
+        return self._host, self._port
+
+    def generate(self, payload, client_gone=None):
+        """``{"prompt": [[...], ...] or [...], "max_new_tokens": N}`` ->
+        ``{"tokens": ...}`` (prompt + generated tokens per prompt; a flat
+        prompt is answered un-nested). The whole body is vetted before
+        any of it is queued, and queued atomically."""
+        if not isinstance(payload, dict) or "prompt" not in payload:
+            raise _BadRequest("request needs a 'prompt' field")
+        prompts = payload["prompt"]
+        if not isinstance(prompts, list) or not prompts:
+            raise _BadRequest("'prompt' must be a non-empty list")
+        flat = not isinstance(prompts[0], (list, tuple))
+        if flat:
+            prompts = [prompts]
+        try:
+            max_new = int(payload.get("max_new_tokens", 16))
+        except (TypeError, ValueError):
+            raise _BadRequest("max_new_tokens must be an integer")
+        deadline_s = payload.get("deadline_s")
+        if deadline_s is not None:
+            try:
+                deadline_s = float(deadline_s)
+            except (TypeError, ValueError):
+                raise _BadRequest("deadline_s must be a number")
+            if not deadline_s > 0:
+                raise _BadRequest("deadline_s must be > 0")
+        try:
+            vetted = [self.engine.validate(p, max_new) for p in prompts]
+        except (ValueError, TypeError) as e:
+            raise _BadRequest(str(e))
+        handles = self.engine._submit_many(vetted, deadline_s=deadline_s)
+        try:
+            tokens = [self._await_handle(h, handles, client_gone)
+                      for h in handles]
+        except BaseException:
+            # an error answers the WHOLE body: stop its siblings
+            for h in handles:
+                h.cancel()
+            raise
+        return {"tokens": tokens[0] if flat else tokens}
+
+    @staticmethod
+    def _await_handle(handle, body, client_gone, poll_s=0.05,
+                      timeout=600.0):
+        """``result()`` that also watches the client's socket: a client
+        that disconnected cancels the whole body's requests."""
+        if client_gone is None:
+            return handle.result(timeout)
+        deadline = time.monotonic() + timeout
+        while not handle._done.wait(poll_s):
+            if client_gone():
+                for h in body:
+                    h.cancel()
+                raise Cancelled("client disconnected")
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    "generation did not complete within {}s".format(
+                        timeout))
+        return handle.result(0.1)
+
+    def healthz(self):
+        """``(status, body)``: 200 while the engine is alive, else 503."""
+        stats = self.engine.load_stats()
+        ok = stats["alive"]
+        stats["status"] = "ok" if ok else "unhealthy"
+        return (200 if ok else 503), stats
+
+    def start(self):
+        """Serve in a daemon thread; returns ``(host, port)``."""
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def _send(self, code, obj, headers=None):
+                body = json.dumps(obj).encode("utf-8")
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                for name, value in (headers or {}).items():
+                    self.send_header(name, value)
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _client_gone(self):
+                """True once the client closed its connection."""
+                import select
+                import socket
+                try:
+                    readable, _, _ = select.select(
+                        [self.connection], [], [], 0)
+                    if not readable:
+                        return False
+                    return self.connection.recv(
+                        1, socket.MSG_PEEK) == b""
+                except (OSError, ValueError):
+                    return True
+
+            def do_GET(self):
+                if self.path == "/healthz":
+                    return self._send(*server.healthz())
+                return self._send(404, {"error": "not found: %s"
+                                        % self.path})
+
+            def do_POST(self):
+                if self.path != "/v1/models/%s:generate" % server.name:
+                    return self._send(404, {"error": "not found: %s"
+                                            % self.path})
+                try:
+                    n = int(self.headers.get("Content-Length", "0"))
+                    payload = json.loads(self.rfile.read(n) or b"{}")
+                    return self._send(200, server.generate(
+                        payload, client_gone=self._client_gone))
+                except (_BadRequest, json.JSONDecodeError) as e:
+                    return self._send(400, {"error": str(e)})
+                except QueueFull as e:
+                    return self._send(429, {"error": str(e)})
+                except DeadlineExceeded as e:
+                    return self._send(504, {"error": str(e)})
+                except Cancelled as e:
+                    try:
+                        return self._send(499, {"error": str(e)})
+                    except OSError:
+                        return
+                except Retriable as e:
+                    return self._send(
+                        503, {"error": str(e), "kind": type(e).__name__},
+                        headers={"Retry-After":
+                                 str(int(math.ceil(e.retry_after)))})
+                except Exception as e:  # noqa: BLE001 - surface as 500
+                    logger.exception("%s failed", self.path)
+                    return self._send(500, {"error": str(e)})
+
+            def log_message(self, fmt, *args):  # quiet by default
+                logger.debug("serving: " + fmt, *args)
+
+        self._httpd = ThreadingHTTPServer((self._host, self._port), Handler)
+        self._port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="tfos-torch-serving",
+            daemon=True)
+        self._thread.start()
+        logger.info("serving %r on %s:%d", self.name, self._host, self._port)
+        return self._host, self._port
+
+    def stop(self):
+        """Stop the HTTP server (the engine is the caller's to stop)."""
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
