@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``tensorflowonspark_tpu_torch``) on one
-NVIDIA card, end to end, and hold its CUDA kernels against their plain
-PyTorch versions.
+NVIDIA card, end to end — serving and training — and hold its CUDA
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
 Phases, stopping with a non-zero exit at the first failure:
 
 1. card — the ``nvidia-smi`` name and power limit;
-2. build — every kernel of the port, compiled from ``csrc/`` with nvcc;
+2. build — every kernel source of the port (``paged_attention.cu``,
+   ``flash_attention.cu``), compiled from ``csrc/`` with nvcc, all at
+   once;
 3. kernel against plain version — ``paged_attention``'s CUDA kernel
    against ``_blockwise`` on the card, fp32 and int8 pools, S_q in
    {1, 16, 128}, mixed row depths, rows whose positions overshoot the
@@ -17,7 +19,17 @@ Phases, stopping with a non-zero exit at the first failure:
    time at the serving decode shape beside the plain version's, a
    ``scaled_dot_product_attention`` yardstick over the pre-gathered
    contiguous view (timed here only; the port never calls it), and
-   the byte bound;
+   the byte bound. Then the three flash-attention kernels (forward, dQ,
+   dK/dV) through the public autograd path, each against its plain
+   version on the inputs it was given, on four cases: (a) the training
+   shape, B 8, S 1024, 12 heads of 64, causal, float32; (b) non-causal
+   rectangular S_q 128, S_k 384 with a key mask that leaves one batch
+   row fully masked (lse -inf, out and grads 0); (c) case (a) in
+   bfloat16; (d) a ragged S 48 at block 16. The backward takes a random dO and a
+   nonzero lse cotangent. Each kernel's time at shape (a) beside the
+   plain version's, one ``scaled_dot_product_attention(is_causal=True)``
+   call and its autograd backward (timed here only; the port never
+   calls it), and the bound;
 4. serving — a GPT-2-small-shaped ``DecoderLM`` (vocab 50257, hidden
    768, 12 heads, 12 layers, max_len 1024; random weights from a seed)
    behind the port's ``ModelServer``: 16 ``:generate`` requests from 4
@@ -29,7 +41,18 @@ Phases, stopping with a non-zero exit at the first failure:
    grow, and the tokens must equal an ``attn_impl="gather"`` engine's
    on the same weights (a divergence is accepted only at a top-2 logit
    tie, gap below 1e-4);
-5. the ``{"kernels": [...]}`` line, the card line, and last the
+5. training — the same GPT-2-small ``DecoderLM`` at full depth, float32
+   with TF32 off, random weights from the seed. First one forward and
+   backward on the initial weights and the first batch, once through
+   the kernels and once with attention routed to the plain versions:
+   same loss and gradients. Then the port's ``Trainer`` with
+   ``adamw(3e-4)`` (optax's defaults, weight decay 1e-4) trains 10
+   steps on batches of 8 x 1024 tokens fed through
+   ``infeed.device_batches``: rows that repeat a random motif, ``y``
+   ``x`` shifted by one. Every loss finite, the mean of the last 3
+   below the first, each flash kernel launched exactly 12 times per
+   step;
+6. the ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 ``--out-dir DIR`` also writes every number of the run to
@@ -61,7 +84,41 @@ TIE_GAP = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
+#: flash kernel against plain version, each on the inputs the kernel
+#: was given. lse is float32 in every dtype, and float32 outputs are held
+#: as max |kernel - plain| <= 1e-4 max(1, max |plain|): both sides compute
+#: the same float32 products and differ only in summation order (sums of
+#: up to 1024 terms, ~1e-6 relative). bfloat16 outputs are held element
+#: by element. Each side rounds a float32 result once to bfloat16 (7
+#: stored mantissa bits: two roundings of values that differ in order
+#: land at most one ulp, 2^-7 relative, apart). dq, dk, dv: |kernel -
+#: plain| <= 2^-7 |plain| + 1e-3 max |plain|, the floor for order noise
+#: where a sum cancels. out: both sides also round each P entry to
+#: bfloat16 before P V, at different scales (the kernel against its
+#: running row max, the plain version against the final lse), half an
+#: ulp (2^-9 relative) each, so the products differ by at most 2^-8
+#: sum_j p_j |v_j|: |kernel - plain| <= 2^-7 (|plain| + sum_j p_j |v_j|),
+#: a factor 2 over that. A bfloat16 kernel that dropped one 64-key tile
+#: from late rows moves lse by ~0.07 and fails the float32 limit.
+FLASH_F32_RTOL = 1e-4
+BF16_RTOL, BF16_FLOOR = 2.0 ** -7, 1e-3
+#: kernel-attention vs plain-attention step: loss within 1e-4 relative;
+#: gradients within 1e-3 of each parameter's largest, as max |kernel -
+#: plain| over max |plain|. The attention runs in float32 on both routes
+#: and differs in summation order only (~1e-6 relative per layer); 12
+#: layers of backward and the 50257-way softmax spread that over every
+#: gradient, and a key projection's gradient is a sum over positions
+#: whose position-mean part cancels exactly (the key bias's gradient is
+#: zero), which raises its relative error where hidden states share a
+#: large mean. Checked on the initial weights.
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3
+
 VOCAB, HIDDEN, HEADS, LAYERS, MAX_LEN = 50257, 768, 12, 12, 1024
+#: the training path's attention shape (batch, sequence)
+TRAIN_BATCH, TRAIN_SEQ = 8, MAX_LEN
+TRAIN_STEPS = 10
+TRAIN_LR = 3e-4
 SLOTS, BLOCK = 8, 16
 #: the preemption leg's pool: one slot's worth of blocks, where the 8
 #: requests it serves need 164 blocks at their full lengths
@@ -264,6 +321,194 @@ def kernel_timing(torch, pa, dev, quant):
             "live_tokens": live_tokens, "kv_bytes": kv_bytes}
 
 
+# -- phase 3b: flash kernels against plain versions ---------------------
+
+
+def flash_inputs(torch, rng, b, s_q, s_k, dtype, dev, masked_row=None):
+    """q, k, v, dO, lse cotangent and key mask at 12 heads of 64."""
+    n, d = HEADS, HIDDEN // HEADS
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype("float32")).to(
+            dev, dtype)
+
+    q, k, v, dout = t(b, s_q, n, d), t(b, s_k, n, d), t(b, s_k, n, d), \
+        t(b, s_q, n, d)
+    g_lse = torch.from_numpy(rng.randn(b, n, s_q).astype("float32")).to(dev)
+    mask = None
+    if masked_row is not None:
+        mask = torch.from_numpy(rng.rand(b, s_k) > 0.25)
+        mask[:, 0] = True
+        mask[masked_row] = False
+        mask = mask.to(dev)
+    return q, k, v, dout, g_lse, mask
+
+
+def flash_run(torch, fa, inputs, causal, block):
+    """Forward and backward through the public autograd path; returns
+    out, lse, dq, dk, dv."""
+    q, k, v, dout, g_lse, mask = inputs
+    q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out, lse = fa.flash_attention_lse(q, k, v, causal=causal, key_mask=mask,
+                                      block_q=block, block_k=block)
+    torch.autograd.backward([out, lse], [dout, g_lse])
+    return out.detach(), lse.detach(), q.grad, k.grad, v.grad
+
+
+def flash_plain(fa, inputs, causal, out, lse):
+    """Each kernel's plain version on the inputs that kernel was given:
+    the forward on q, k, v; dQ and dK/dV also on the kernel's lse and
+    the delta the backward formed from the kernel's out. Returns out,
+    lse, dq, dk, dv and ``sum_j p_j |v_j|`` (the forward on |v|)."""
+    q, k, v, dout, g_lse, mask = inputs
+    b, s_q, n, d = q.shape
+    scale = d ** -0.5
+    bias = fa._mask_to_bias(mask)
+    want_out, want_lse = fa._reference_lse(q, k, v, causal, scale, bias)
+    lse = lse.reshape(b * n, s_q)
+    delta = fa._delta(out, dout, g_lse)
+    dq = fa._dq_plain(q, k, v, bias, dout, lse, delta, causal, scale)
+    dk, dv = fa._dkv_plain(q, k, v, bias, dout, lse, delta, causal, scale)
+    pv, _ = fa._reference_lse(q, k, v.abs(), causal, scale, bias)
+    return (want_out, want_lse, dq, dk, dv), pv
+
+
+FLASH_CASES = [
+    # (label, b, s_q, s_k, causal, dtype, masked batch row, block)
+    ("a: B8 S1024 causal fp32", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True,
+     "float32", None, 128),
+    ("b: S_q128 S_k384 key mask", 2, 128, 384, False, "float32", 1, 128),
+    ("c: B8 S1024 causal bf16", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True,
+     "bfloat16", None, 128),
+    ("d: S48 block16 causal", 2, 48, 48, True, "float32", None, 16),
+]
+
+
+def flash_error(torch, name, got, want, dtype, pv):
+    """``(max |got - want|, largest |got - want| over its limit)`` over
+    the entries where ``want`` is finite (see FLASH_F32_RTOL); ``pv`` is
+    ``sum_j p_j |v_j|`` per output entry."""
+    fin = torch.isfinite(want)
+    g, w = got.float()[fin], want.float()[fin]
+    diff = (g - w).abs()
+    top = w.abs().max().item()
+    if dtype != "bfloat16" or name == "lse":
+        limit = torch.full_like(w, FLASH_F32_RTOL * max(1.0, top))
+    elif name == "out":
+        limit = BF16_RTOL * (w.abs() + pv.float()[fin])
+    else:
+        limit = BF16_RTOL * w.abs() + BF16_FLOOR * top
+    over = torch.where(diff > 0, diff / limit, torch.zeros_like(diff))
+    return diff.max().item(), over.max().item()
+
+
+def flash_cases(torch, fa, dev):
+    """Hold the three kernels against the plain versions on every case;
+    returns the largest |kernel - plain| per case letter and kernel."""
+    rng = np.random.RandomState(SEED + 4)
+    worst = {}
+    for label, b, s_q, s_k, causal, dtype, masked, block in FLASH_CASES:
+        inputs = flash_inputs(torch, rng, b, s_q, s_k,
+                              getattr(torch, dtype), dev, masked)
+        before = dict(fa.launches)
+        got = flash_run(torch, fa, inputs, causal, block)
+        torch.cuda.synchronize()
+        check(fa.launches == {k: before[k] + 1 for k in before},
+              "case {}: the kernels were not each launched once".format(
+                  label))
+        want, pv = flash_plain(fa, inputs, causal, got[0], got[1])
+        torch.cuda.synchronize()
+        check(fa.launches == {k: before[k] + 1 for k in before},
+              "the plain versions launched a kernel")
+        errs = {}
+        for name, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+            check(torch.equal(torch.isneginf(g), torch.isneginf(w)),
+                  "case {}: {} -inf pattern differs".format(label, name))
+            fin = torch.isfinite(w)
+            check(bool(torch.isfinite(g[fin]).all()),
+                  "case {}: {} not finite".format(label, name))
+            errs[name] = flash_error(torch, name, g, w, dtype, pv)
+        if masked is not None:
+            out, lse, dq = got[0], got[1], got[2]
+            check(bool(torch.isneginf(lse[masked]).all())
+                  and bool((out[masked] == 0).all())
+                  and bool((dq[masked] == 0).all()),
+                  "case {}: the fully masked row is not lse -inf, out 0, "
+                  "dq 0".format(label))
+        over = max(v[1] for v in errs.values())
+        log("flash vs plain  {:<28} ".format(label) + "  ".join(
+            "{} {:.2e}".format(k, v[0]) for k, v in errs.items())
+            + "  (error/limit " + " ".join(
+                "{:.2g}".format(v[1]) for v in errs.values()) + ")")
+        check(over <= 1.0, "case {}: flash kernel disagrees with plain "
+              "version".format(label))
+        worst[label[0]] = {"fwd": max(errs["out"][0], errs["lse"][0]),
+                           "dq": errs["dq"][0],
+                           "dkv": max(errs["dk"][0], errs["dv"][0])}
+    return worst
+
+
+def flash_timing(torch, fa, dev):
+    """Each kernel's time at the training shape (a) beside its plain
+    version, the SDPA yardstick and the bound."""
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(SEED + 5)
+    b, s, n, d = TRAIN_BATCH, TRAIN_SEQ, HEADS, HIDDEN // HEADS
+    q, k, v, dout, g_lse, _ = flash_inputs(torch, rng, b, s, s,
+                                           torch.float32, dev)
+    scale = d ** -0.5
+    out, lse = fa._kernel_fwd(q, k, v, None, True, scale)
+    delta = fa._delta(out, dout, g_lse)
+    fns = {
+        "fwd": (lambda: fa._kernel_fwd(q, k, v, None, True, scale),
+                lambda: fa._reference_lse(q, k, v, True, scale)),
+        "dq": (lambda: fa._kernel_dq(q, k, v, None, dout, lse, delta, True,
+                                     scale),
+               lambda: fa._dq_plain(q, k, v, None, dout, lse, delta, True,
+                                    scale)),
+        "dkv": (lambda: fa._kernel_dkv(q, k, v, None, dout, lse, delta, True,
+                                       scale),
+                lambda: fa._dkv_plain(q, k, v, None, dout, lse, delta, True,
+                                      scale)),
+    }
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dout_t = dout.transpose(1, 2).contiguous()
+    library = {
+        "fwd": lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True),
+        "dq": lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
+                                          retain_graph=True),
+    }
+    # what each kernel must do on these inputs: every (query, key) pair
+    # with key <= query, 2 flops per multiply-add of each product it
+    # computes (forward: Q K^T, P V; dQ: Q K^T, dO V^T, dS K; dK/dV:
+    # K Q^T, V dO^T, P^T dO, dS^T Q); each input read once, each output
+    # written once (float32; lse and delta [B*N, S])
+    pairs = b * n * s * (s + 1) // 2
+    tensor = b * s * n * d * 4
+    row = b * n * s * 4
+    work = {"fwd": (4 * pairs * d, 4 * tensor + row),
+            "dq": (6 * pairs * d, 5 * tensor + 2 * row),
+            "dkv": (8 * pairs * d, 6 * tensor + 2 * row)}
+    res = {}
+    for name, (kern, plain) in fns.items():
+        flops, nbytes = work[name]
+        t_ops = flops / FP32_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = {
+            "ms": time_ms(torch, kern, [()], reps=20),
+            "plain_ms": time_ms(torch, plain, [()], reps=5),
+            "library_ms": (time_ms(torch, library[name], [()], reps=20)
+                           if name in library else None),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+    return res
+
+
 # -- phase 4: serving at full width -------------------------------------
 
 
@@ -449,6 +694,126 @@ def preemption_leg(torch, serving, generation, model, reqs, want, dev):
             "prefills": counts.get("prefills", 0)}
 
 
+# -- phase 5: training at full width ------------------------------------
+
+
+def motif_batches(steps, batch, seq):
+    """A seeded, learnable stream: each row repeats a random motif of
+    16-64 tokens drawn from a pool of 256 token ids; ``y`` is ``x``
+    shifted by one."""
+    rng = np.random.RandomState(SEED + 3)
+    pool = rng.choice(VOCAB, size=256, replace=False)
+    out = []
+    for _ in range(steps):
+        rows = np.empty((batch, seq + 1), np.int64)
+        for r in range(batch):
+            motif = pool[rng.randint(0, len(pool),
+                                     size=rng.randint(16, 65))]
+            rows[r] = np.resize(motif, seq + 1)
+        out.append({"x": rows[:, :-1].copy(), "y": rows[:, 1:].copy()})
+    return out
+
+
+def loss_and_grads(torch, training, model, batch, attn_impl):
+    model.zero_grad(set_to_none=True)
+    logits = model(batch["x"], attn_impl=attn_impl)
+    loss = training.softmax_xent(logits, batch)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def plain_step_check(torch, training, fa, model, batch, dev):
+    """One forward and backward on the initial weights and the first
+    batch, attention through the kernels and then through the plain
+    versions: same loss, same gradients."""
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    before = dict(fa.launches)
+    k_loss, k_grads = loss_and_grads(torch, training, model, batch, "fused")
+    check(all(fa.launches[k] == before[k] + LAYERS for k in before),
+          "the kernel step did not launch each flash kernel once a layer")
+    p_loss, p_grads = loss_and_grads(torch, training, model, batch,
+                                     "gather")
+    check(fa.launches == {k: before[k] + LAYERS for k in before},
+          "the plain step launched a flash kernel")
+    rel_loss = abs(k_loss - p_loss) / abs(p_loss)
+    worst_name, worst = "", -1.0
+    top = max(g.abs().max().item() for g in p_grads.values())
+    for name, want in p_grads.items():
+        got = k_grads[name]
+        check(bool(torch.isfinite(got).all()), name + " grad not finite")
+        if name.endswith("attn.key.bias"):
+            # a key bias shifts every logit of a row alike: its gradient
+            # is zero in exact arithmetic, and both routes return
+            # rounding noise — held small against the largest gradient
+            check(max(got.abs().max().item(), want.abs().max().item())
+                  <= 1e-4 * top, name + " gradient is not at noise level")
+            continue
+        rel = (got - want).abs().max().item() / want.abs().max().item()
+        if rel > worst:
+            worst_name, worst = name, rel
+    log("kernel vs plain attention step: loss {:.6f} vs {:.6f} (rel "
+        "{:.2e}, tol {:.0e}); worst gradient {} rel {:.2e} (tol {:.0e})"
+        .format(k_loss, p_loss, rel_loss, STEP_LOSS_RTOL, worst_name, worst,
+                STEP_GRAD_RTOL))
+    check(rel_loss <= STEP_LOSS_RTOL, "kernel and plain losses differ")
+    check(worst <= STEP_GRAD_RTOL, "kernel and plain gradients differ")
+    return {"loss_rel": rel_loss, "grad_rel": worst, "grad_worst": worst_name}
+
+
+def training_phase(torch, dev):
+    from tensorflowonspark_tpu_torch import infeed, training
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    model = DecoderLM(VOCAB, hidden=HIDDEN, num_heads=HEADS,
+                      num_layers=LAYERS, max_len=MAX_LEN, device=dev)
+    trainer = training.Trainer(model, training.adamw(TRAIN_LR), device=dev)
+    state = trainer.init(torch.Generator(device=dev).manual_seed(SEED))
+    batches = motif_batches(TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    plain_step = plain_step_check(torch, training, fa, model, batches[0],
+                                  dev)
+    losses, step_s, counts = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # THE main path: counts at zero just before, read just after
+    for name in fa.launches:
+        fa.launches[name] = 0
+    t0 = time.monotonic()
+    for batch in infeed.device_batches(iter(batches), device=dev):
+        ts = time.monotonic()
+        state, metrics = trainer.step(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        step_s.append(time.monotonic() - ts)
+        counts.append(dict(fa.launches))
+    wall = time.monotonic() - t0
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(len(losses) == TRAIN_STEPS, "the feed did not yield every batch")
+    log("training losses: " + " ".join("{:.4f}".format(x) for x in losses))
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    check(np.mean(losses[-3:]) < losses[0],
+          "the loss did not fall (first {:.4f}, mean of last 3 {:.4f})"
+          .format(losses[0], np.mean(losses[-3:])))
+    for i, c in enumerate(counts):
+        check(all(c[k] == LAYERS * (i + 1) for k in c),
+              "step {}: flash launches {} are not {} per kernel per step"
+              .format(i + 1, c, LAYERS))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    p50 = float(np.median(step_s))
+    log("training step p50 {:.4f}s  tokens/s {:.1f} (p50)  {:.1f} (10-step "
+        "wall {:.2f}s)  max_memory_allocated {:.2f} GiB".format(
+            p50, tokens / p50, tokens * TRAIN_STEPS / wall, wall,
+            peak / 2 ** 30))
+    log("training flash launches per kernel: {} over {} steps".format(
+        launches, TRAIN_STEPS))
+    return launches, {"losses": losses, "step_s": step_s, "p50_s": p50,
+                      "tokens_per_s": tokens / p50, "wall_s": wall,
+                      "max_memory_allocated": peak,
+                      "plain_step": plain_step}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -461,8 +826,9 @@ def main():
               file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isfile(os.path.join(here, "tensorflowonspark_tpu_torch",
-                                       "csrc", "paged_attention.cu")):
+    if not all(os.path.isfile(os.path.join(
+            here, "tensorflowonspark_tpu_torch", "csrc", name + ".cu"))
+            for name in ("paged_attention", "flash_attention")):
         print("the port's package is not beside chip_smoke.py",
               file=sys.stderr)
         return 2
@@ -471,6 +837,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     from tensorflowonspark_tpu_torch import device_info
     from tensorflowonspark_tpu_torch.ops import _build
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
     from tensorflowonspark_tpu_torch.ops import paged_attention as pa
 
     t_start = time.monotonic()
@@ -499,7 +866,20 @@ def main():
                                 t["library_ms"], t["bound_ms"],
                                 t["live_tokens"], t["kv_bytes"]))
 
+    flash_err = flash_cases(torch, fa, dev)
+    flash_t = flash_timing(torch, fa, dev)
+    for name, ft in flash_t.items():
+        log("flash {:<3} at B8 S1024 causal fp32: kernel {:.4f} ms  plain "
+            "{:.4f} ms  sdpa {}  bound {:.4f} ms ({}; {:.3g} flop, {:.3g} "
+            "B)".format(name, ft["ms"], ft["plain_ms"],
+                        "-" if ft["library_ms"] is None
+                        else "{:.4f} ms".format(ft["library_ms"]),
+                        ft["bound_ms"], ft["bound_by"], ft["flops"],
+                        ft["bytes"]))
+
     launches, runs, preempt = serving_phase(torch, dev)
+    torch.cuda.empty_cache()
+    flash_launches, train = training_phase(torch, dev)
     t = timing[False]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -513,16 +893,40 @@ def main():
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}]}
+    for name, replaces, note in (
+            ("fwd", 83, "scaled_dot_product_attention(is_causal=True)"),
+            ("dq", 137, "autograd backward of that call: dq, dk and dv "
+                        "together"),
+            ("dkv", 186, "covered by the flash_dq row's library_ms")):
+        ft = flash_t[name]
+        kernels["kernels"].append({
+            "name": "flash_" + name,
+            "route": "cuda",
+            "source": "tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "tensorflowonspark_tpu/ops/flash_attention.py:{}"
+                        .format(replaces),
+            "launches": flash_launches[name],
+            # case (a), the main path's shape and dtype; every case below
+            "max_abs_err": flash_err["a"][name],
+            "max_abs_err_by_case": {c: e[name] for c, e in flash_err.items()},
+            "ms": ft["ms"],
+            "plain_ms": ft["plain_ms"],
+            "bound_ms": ft["bound_ms"],
+            "bound_by": ft["bound_by"],
+            "library_ms": ft["library_ms"],
+            "library": note})
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernels["kernels"],
                        "timing": {"float32": timing[False],
                                   "int8": timing[True]},
+                       "flash_timing": flash_t,
                        "serving": {kv or "float32": {
                            k: v for k, v in r.items() if k != "out"}
                            for kv, r in runs.items()},
                        "preemption": preempt,
+                       "training": train,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     log("total: {:.1f}s".format(time.monotonic() - t_start))
     print(json.dumps(kernels))

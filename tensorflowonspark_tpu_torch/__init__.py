@@ -10,13 +10,23 @@ the reference so each counterpart is easy to find:
 - :mod:`~tensorflowonspark_tpu_torch.ops.paged_attention` — paged
   attention through a block table (hand-written Hopper kernel + plain
   PyTorch versions).
-- :mod:`~tensorflowonspark_tpu_torch.models.decoder` — ``DecoderLM``,
-  paged decode path.
+- :mod:`~tensorflowonspark_tpu_torch.ops.flash_attention` — fused
+  attention forward and backward (three hand-written Hopper kernels +
+  plain PyTorch versions, one ``torch.autograd.Function``).
+- :mod:`~tensorflowonspark_tpu_torch.models.decoder` — ``DecoderLM``:
+  full-sequence (training) forward and paged decode path.
 - :mod:`~tensorflowonspark_tpu_torch.paging` — host block allocator.
 - :mod:`~tensorflowonspark_tpu_torch.generation` — paged prefill/decode
   step functions and sampling.
 - :mod:`~tensorflowonspark_tpu_torch.serving` — continuous-batching
   ``DecodeEngine`` and an engine-only ``ModelServer``.
+- :mod:`~tensorflowonspark_tpu_torch.training` — one-card ``Trainer``,
+  ``softmax_xent``, ``adamw``.
+- :mod:`~tensorflowonspark_tpu_torch.infeed` — ``prefetch`` and
+  ``device_batches`` (pinned staging, side-stream copies).
+
+``flash_attention``, ``flash_attention_lse`` and ``Trainer`` are also
+reachable from the package itself.
 
 Import discipline: nothing here imports torch at package scope, so the
 package is cheap to import in processes that never touch a device.
@@ -24,14 +34,26 @@ package is cheap to import in processes that never touch a device.
 
 __version__ = "0.1.0"
 
+#: package attribute -> (module, name), imported at first access
+_EXPORTS = {
+    "flash_attention": ("ops.flash_attention", "flash_attention"),
+    "flash_attention_lse": ("ops.flash_attention", "flash_attention_lse"),
+    "Trainer": ("training", "Trainer"),
+}
+
 
 def __getattr__(name):
     """Lazy submodule access (``tensorflowonspark_tpu_torch.serving``
-    etc.) without importing torch at package-import time."""
+    etc.) and the exports above, without importing torch at
+    package-import time."""
     import importlib
 
     if name.startswith("_"):
         raise AttributeError(name)
+    if name in _EXPORTS:
+        module, attr = _EXPORTS[name]
+        return getattr(importlib.import_module(
+            "tensorflowonspark_tpu_torch." + module), attr)
     try:
         return importlib.import_module("tensorflowonspark_tpu_torch." + name)
     except ModuleNotFoundError:

@@ -1,14 +1,21 @@
-"""Decoder-only causal LM, paged decode path — the port of
+"""Decoder-only causal LM — the port of
 ``tensorflowonspark_tpu/models/decoder.py``.
 
 GPT-style: learned token and position embeddings, pre-LN blocks with a
-4x GELU MLP, a final LayerNorm and an untied head. This module carries
-only the PAGED decode path the serving engine runs: every call writes
-the step's K/V for logical positions ``[idx, idx + s)`` through the
-block table into the layer's pool, then attends through the table
-(``ops.paged_attention``). ``s == 1`` is a decode step; ``s > 1`` a
-prefill tail, cold (``idx == 0``) or continuing mid-sequence after a
-shared prefix.
+4x GELU MLP, a final LayerNorm and an untied head. Two paths, chosen by
+whether a cache is passed:
+
+- **full sequence** (``model(tokens)``, training): positions
+  ``0..s-1``; each block attends causally through
+  ``ops.flash_attention`` when ``s`` is a multiple of 128, else through
+  the plain ``_reference`` — the reference's dispatch
+  (``decoder.py:289-294``).
+- **paged decode** (``model(tokens, cache, idx, tables)``, serving):
+  every call writes the step's K/V for logical positions ``[idx, idx +
+  s)`` through the block table into the layer's pool, then attends
+  through the table (``ops.paged_attention``). ``s == 1`` is a decode
+  step; ``s > 1`` a prefill tail, cold (``idx == 0``) or continuing
+  mid-sequence after a shared prefix.
 
 The cache is plain tensors owned by the caller (generation.py's
 :func:`~tensorflowonspark_tpu_torch.generation.init_paged_cache`): per
@@ -20,24 +27,29 @@ Three flax defaults are matched explicitly, because torch's differ:
 LayerNorm epsilon 1e-6, GELU in its tanh approximation, and the
 attention projections as ``DenseGeneral`` contractions over ``(N, D)``
 (here ``nn.Linear`` over the flattened ``N * D``; convert.py maps the
-kernels). The full-sequence (training) forward is not part of this
-module yet.
+kernels).
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tensorflowonspark_tpu_torch.ops import flash_attention as fa
 from tensorflowonspark_tpu_torch.ops import paged_attention as pa
 
 #: flax ``nn.LayerNorm``'s default epsilon
 LN_EPS = 1e-6
 
+#: "fused": the kernels on the card (plain versions on the CPU);
+#: "gather": the plain oracles on any device — paged attention through
+#: the materialized view, full-sequence attention through the flash
+#: plain versions
 ATTN_IMPLS = ("fused", "gather")
 
 
 class CausalSelfAttention(nn.Module):
-    """Paged write-then-attend self-attention."""
+    """Causal self-attention: full-sequence, or paged write-then-attend
+    when a layer cache is given."""
 
     def __init__(self, hidden, num_heads, device=None):
         super(CausalSelfAttention, self).__init__()
@@ -52,7 +64,8 @@ class CausalSelfAttention(nn.Module):
         self.value = nn.Linear(hidden, hidden, device=device)
         self.out = nn.Linear(hidden, hidden, device=device)
 
-    def forward(self, x, layer_cache, pos, tables, attn_impl="fused"):
+    def forward(self, x, layer_cache=None, pos=None, tables=None,
+                attn_impl="fused"):
         if attn_impl not in ATTN_IMPLS:
             raise ValueError("attn_impl must be 'fused' or 'gather', got "
                              "{!r}".format(attn_impl))
@@ -61,6 +74,16 @@ class CausalSelfAttention(nn.Module):
         q = self.query(x).view(b, s, n, d)
         k = self.key(x).view(b, s, n, d)
         v = self.value(x).view(b, s, n, d)
+        if layer_cache is None:
+            if s % fa.DEFAULT_BLOCK_Q == 0:
+                ctx = fa.flash_attention(
+                    q, k, v, causal=True,
+                    impl=None if attn_impl == "fused" else "plain")
+            else:
+                # the reference's dispatch: lengths the kernel's blocks
+                # do not divide take the exact plain attention
+                ctx = fa._reference(q, k, v, True, d ** -0.5)
+            return self.out(ctx.reshape(b, s, n * d))
         pk = layer_cache["cached_key"]
         pv = layer_cache["cached_value"]
         bs_blk = pk.shape[1]
@@ -102,7 +125,8 @@ class DecoderBlock(nn.Module):
         self.mlp_in = nn.Linear(hidden, 4 * hidden, device=device)
         self.mlp_out = nn.Linear(4 * hidden, hidden, device=device)
 
-    def forward(self, x, layer_cache, pos, tables, attn_impl="fused"):
+    def forward(self, x, layer_cache=None, pos=None, tables=None,
+                attn_impl="fused"):
         x = x + self.attn(self.ln1(x), layer_cache, pos, tables,
                           attn_impl=attn_impl)
         y = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
@@ -147,13 +171,24 @@ class DecoderLM(nn.Module):
                     p.normal_(0.0, std, generator=generator)
         return self
 
-    def forward(self, tokens, cache_layers, idx, tables,
+    def forward(self, tokens, cache_layers=None, idx=None, tables=None,
                 attn_impl="fused"):
-        """``tokens [B, s]`` at positions ``idx[b] + 0..s-1`` (``idx
-        [B]`` int32 per-row cursors) -> logits ``[B, s, vocab]``,
-        writing the step's K/V into ``cache_layers`` through ``tables
-        [B, MB]`` int32."""
+        """``tokens [B, s]`` -> logits ``[B, s, vocab]``.
+
+        Without ``cache_layers``: the full-sequence forward at positions
+        ``0..s-1`` (``s <= max_len``). With them: the paged path at
+        positions ``idx[b] + 0..s-1`` (``idx [B]`` int32 per-row
+        cursors), writing the step's K/V into ``cache_layers`` through
+        ``tables [B, MB]`` int32."""
         b, s = tokens.shape
+        if cache_layers is None:
+            if s > self.max_len:
+                raise ValueError("sequence length {} exceeds max_len "
+                                 "{}".format(s, self.max_len))
+            x = self.tok_embed(tokens.long()) + self.pos_embed[:s][None]
+            for block in self.blocks:
+                x = block(x, attn_impl=attn_impl)
+            return self.head(self.ln_f(x))
         pos = idx.to(torch.int32)[:, None] + torch.arange(
             s, dtype=torch.int32, device=tokens.device)[None, :]
         # clamped lookup (the reference's mode="clip"): bucket-pad rows

@@ -2,7 +2,9 @@
 
 Each source is compiled by ``nvcc`` into a shared library with a plain
 C interface and loaded with ``ctypes`` — seconds per source, where a
-build that includes PyTorch's headers takes minutes. Builds happen at
+build that includes PyTorch's headers takes minutes. One source may
+export several C functions (``flash_attention.cu``: forward, dQ and
+dK/dV); :data:`KERNELS` lists each source's symbols. Builds happen at
 first use (never at import, so the CPU tests import every module on a
 machine without ``nvcc``), from the sources in the package alone, into
 ``_build/`` beside them (git-ignored). A library's file name carries a
@@ -30,12 +32,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-#: kernel name -> (C symbol, argtypes); every pointer and the stream
-#: are ``c_void_p`` so ctypes never narrows them to 32 bits
+_F = ctypes.c_float
+
+#: source name (``csrc/<name>.cu``) -> {C symbol: argtypes}; every
+#: pointer and the stream are ``c_void_p`` so ctypes never narrows them
+#: to 32 bits
 KERNELS = {
-    "paged_attention": (
-        "tfos_paged_attention",
-        [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P]),
+    "paged_attention": {
+        "tfos_paged_attention": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    },
+    "flash_attention": {
+        "tfos_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+        "tfos_flash_dq": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+        "tfos_flash_dkv": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -68,7 +78,7 @@ def library_path(name):
 
 
 def build(names=None):
-    """Compile ``names`` (default: every kernel) that are not built yet,
+    """Compile ``names`` (default: every source) that are not built yet,
     all ``nvcc`` processes started together. Returns ``{name:
     {"seconds": wall, "ptxas": register/spill report}}`` for the ones
     it built; raises with the compiler's output on any failure."""
@@ -103,8 +113,8 @@ def build(names=None):
 
 
 def load(name):
-    """The loaded library of kernel ``name`` (built first if needed),
-    with its C function's argument and return types set."""
+    """The loaded library of source ``name`` (built first if needed),
+    with every C function's argument and return types set."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -112,9 +122,9 @@ def load(name):
             if not os.path.exists(path):
                 build([name])
             lib = ctypes.CDLL(path)
-            symbol, argtypes = KERNELS[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for symbol, argtypes in KERNELS[name].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib

@@ -1,0 +1,391 @@
+"""Fused flash attention, forward and backward — the port of
+``tensorflowonspark_tpu/ops/flash_attention.py``.
+
+Blocked online-softmax attention that keeps the ``[S, S]`` score matrix
+out of device memory, with a FlashAttention-2 backward: dQ (loop over
+KV tiles) and dK/dV (loop over Q tiles), both recomputing P from the
+saved per-row logsumexp (lse). ``delta = rowsum(dO * O) - g_lse`` is a
+torch op between the two halves, as the reference computes it in XLA.
+
+Layout: ``q [B, S_q, N, D]``, ``k``/``v [B, S_k, N, D]``; out
+``[B, S_q, N, D]``, lse ``[B, N, S_q]`` at the public functions
+(``[B*N, S_q]`` inside). Masking: causal (needs ``S_q == S_k``) and/or
+a per-key padding mask ``key_mask [B, S_k]`` bool (True = attend),
+carried as an additive 0/-inf float32 bias row. A row that attends to
+nothing has out 0 and lse -inf. Rectangular ``S_q != S_k`` is taken
+without causal masking.
+
+Two formulations share that contract:
+
+- the **kernels** — hand-written CUDA C++ for Hopper
+  (``csrc/flash_attention.cu``), built with ``nvcc`` at first launch and
+  bound through ``ctypes``: ``tfos_flash_fwd`` replaces the Pallas
+  ``_fwd_kernel``, ``tfos_flash_dq`` ``_dq_kernel``, ``tfos_flash_dkv``
+  ``_dkv_kernel``. Bound on the H100: OPERATIONS (float32 products on
+  CUDA cores above the flop/byte ridge at the training shape); the
+  design is in the source's header and its measured share in PERF.md.
+  Head dims 16/32/64/128, float32 or bfloat16 inputs with float32
+  statistics and accumulators.
+- the **plain versions** — :func:`_reference_lse` (forward),
+  :func:`_dq_plain` and :func:`_dkv_plain` (backward, the kernels'
+  FlashAttention-2 formulas on the whole score matrix), and
+  :func:`reference_attention`, the ``finfo.min``-masked softmax oracle.
+
+:class:`_FlashPair` is the ``torch.autograd.Function`` that reproduces
+the reference's ``custom_vjp``: gradients flow through both outputs,
+and the lse cotangent folds into delta (``ds = p * (dp - delta +
+g_lse)``) with no extra kernel. On a CPU tensor it takes the plain
+versions; on a CUDA tensor it launches the kernels or raises — there is
+no fallback. ``impl="plain"`` routes a CUDA tensor through the plain
+versions on purpose (the oracle a kernel is held against).
+"""
+
+import ctypes
+import threading
+
+import torch
+
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 128
+
+#: head dims the kernels are instantiated for (a template parameter)
+HEAD_DIMS = (16, 32, 64, 128)
+
+#: input dtypes the kernels take (statistics are float32 either way)
+DTYPES = (torch.float32, torch.bfloat16)
+
+#: kernel launches per kernel, added to only where each is launched —
+#: how a run shows that its path went through the kernels
+launches = {"fwd": 0, "dq": 0, "dkv": 0}
+_launches_lock = threading.Lock()
+
+IMPLS = (None, "plain")
+
+
+def reference_attention(q, k, v, causal=False, scale=None):
+    """Plain full-sequence attention (the correctness oracle): one
+    softmax over ``finfo.min``-masked float32 logits."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
+    if causal:
+        logits = torch.where(_tril(q.shape[1], k.shape[1], q.device),
+                             logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bnqk,bknd->bqnd", probs, v)
+
+
+def _tril(s_q, s_k, device):
+    return torch.ones((s_q, s_k), dtype=torch.bool, device=device).tril()
+
+
+def _reference(q, k, v, causal, scale, bias=None):
+    if bias is None:
+        return reference_attention(q, k, v, causal=causal, scale=scale)
+    out, _ = _reference_lse(q, k, v, causal, scale, bias)
+    return out
+
+
+def _scores(q, k, bias, causal, scale):
+    """Masked float32 scores ``[B, N, S_q, S_k]``: ``scale q k^T`` plus
+    the ``[B, S_k]`` bias row, -inf above the diagonal under causal."""
+    s = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    if causal:
+        s = s.masked_fill(~_tril(q.shape[1], k.shape[1], q.device),
+                          float("-inf"))
+    return s
+
+
+def _reference_lse(q, k, v, causal, scale, bias=None):
+    """Plain ``(out, lse [B, N, S_q])`` pair — the kernels' contract,
+    with -inf masking (a fully masked row: out 0, lse -inf).
+
+    ``bias``: optional ``[B, S_k]`` additive float32 row (0 / -inf)."""
+    logits = _scores(q, k, bias, causal, scale)
+    lse = torch.logsumexp(logits, dim=-1)                 # [b, n, q]
+    safe = lse.masked_fill(torch.isneginf(lse), 0.0)
+    p = torch.exp(logits - safe[..., None]).masked_fill(
+        torch.isneginf(logits), 0.0)
+    out = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype), v)
+    return out.to(q.dtype), lse
+
+
+def _probs(q, k, bias, lse, causal, scale):
+    """P recomputed from the saved lse (``[B*N, S_q]``), as the backward
+    kernels do: ``exp(s - lse)`` with masked entries 0 and a -inf lse
+    read as 0. Returns ``[B, N, S_q, S_k]`` float32."""
+    b, s_q, n, _ = q.shape
+    s = _scores(q, k, bias, causal, scale)
+    lse = lse.reshape(b, n, s_q)
+    safe = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    return torch.exp(s - safe[..., None]).masked_fill(torch.isneginf(s), 0.0)
+
+
+def _delta(out, dout, g_lse=None):
+    """``rowsum(dO * O) - g_lse`` as ``[B*N, S_q]`` float32 — the torch
+    op between the forward's residuals and the backward kernels."""
+    b, s_q, n, _ = out.shape
+    delta = (dout.float() * out.float()).sum(-1)          # [B, S_q, N]
+    delta = delta.permute(0, 2, 1).reshape(b * n, s_q)
+    if g_lse is not None:
+        delta = delta - g_lse.float().reshape(b * n, s_q)
+    return delta.contiguous()
+
+
+def _ds(q, k, v, bias, dout, lse, delta, causal, scale):
+    b, s_q, n, _ = q.shape
+    p = _probs(q, k, bias, lse, causal, scale)
+    dp = torch.einsum("bqnd,bknd->bnqk", dout.float(), v.float())
+    return p, p * (dp - delta.reshape(b, n, s_q)[..., None])
+
+
+def _dq_plain(q, k, v, bias, dout, lse, delta, causal, scale):
+    """The dQ kernel's plain version: ``scale * dS K``."""
+    _, ds = _ds(q, k, v, bias, dout, lse, delta, causal, scale)
+    dq = torch.einsum("bnqk,bknd->bqnd", ds, k.float()) * scale
+    return dq.to(q.dtype)
+
+
+def _dkv_plain(q, k, v, bias, dout, lse, delta, causal, scale):
+    """The dK/dV kernel's plain version: ``dS^T (scale Q)`` and
+    ``P^T dO``."""
+    p, ds = _ds(q, k, v, bias, dout, lse, delta, causal, scale)
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, q.float() * scale)
+    dv = torch.einsum("bnqk,bqnd->bknd", p, dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_plain(q, k, v, bias, out, lse, dout, g_lse, causal, scale):
+    """Plain backward ``(dq, dk, dv)`` with the kernels' formulas:
+    ``delta = rowsum(dO * O) - g_lse``, ``ds = p (dO V^T - delta)``,
+    ``dq = scale ds K``, ``dk = ds^T (scale Q)``, ``dv = p^T dO``."""
+    delta = _delta(out, dout, g_lse)
+    dq = _dq_plain(q, k, v, bias, dout, lse, delta, causal, scale)
+    dk, dv = _dkv_plain(q, k, v, bias, dout, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+def _check_blocks(s_q, s_k, block_q, block_k):
+    """Clamp the blocks to the lengths and require that they divide
+    them (the reference's contract; the kernels themselves take any S).
+    Raises AssertionError, as the reference's assert does."""
+    block_q = min(block_q, s_q)
+    block_k = min(block_k, s_k)
+    if s_q % block_q or s_k % block_k:
+        raise AssertionError(
+            "seq lens ({}, {}) must be divisible by block sizes ({}, {})"
+            .format(s_q, s_k, block_q, block_k))
+    return block_q, block_k
+
+
+def _mask_to_bias(key_mask):
+    """``[B, S_k]`` bool -> ``[B, S_k]`` float32 additive row (True =
+    attend)."""
+    if key_mask is None:
+        return None
+    zero = torch.zeros((), dtype=torch.float32, device=key_mask.device)
+    return torch.where(key_mask.bool(), zero, float("-inf"))
+
+
+# -- the kernels ---------------------------------------------------------
+
+
+def _check(cond, msg):
+    if not cond:
+        raise ValueError("flash_attention kernel: " + msg)
+
+
+def _check_inputs(q, k, v, bias, causal, extra=()):
+    tensors = [q, k, v] + ([bias] if bias is not None else []) + list(extra)
+    _check(all(t.is_cuda for t in tensors), "every tensor must be CUDA")
+    _check(len({t.device for t in tensors}) == 1,
+           "tensors on different devices")
+    _check(all(t.is_contiguous() for t in tensors),
+           "tensors must be contiguous")
+    _check(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
+           "q must be [B, S_q, N, D] and k, v equal [B, S_k, N, D]")
+    b, s_q, n, d = q.shape
+    s_k = k.shape[1]
+    _check(k.shape[0] == b and tuple(k.shape[2:]) == (n, d),
+           "k/v batch, heads or head_dim differ from q's")
+    _check(q.dtype in DTYPES and k.dtype == v.dtype == q.dtype,
+           "q, k, v must share a dtype in {}".format(DTYPES))
+    _check(d in HEAD_DIMS, "head_dim must be one of {}".format(HEAD_DIMS))
+    _check(not causal or s_q == s_k, "causal needs equal q/kv lengths")
+    _check(bias is None or (bias.dtype == torch.float32
+                            and tuple(bias.shape) == (b, s_k)),
+           "bias must be float32 [B, S_k]")
+    _check(0 < b * n <= 65535, "B * N must be in [1, 65535]")
+    _check(s_q > 0 and s_k > 0, "sequence lengths must be positive")
+    return b, s_q, s_k, n, d
+
+
+def _check_bwd_inputs(q, k, v, bias, dout, lse, delta, causal):
+    dims = _check_inputs(q, k, v, bias, causal, (dout, lse, delta))
+    b, s_q, _, n, _ = dims
+    _check(dout.shape == q.shape and dout.dtype == q.dtype,
+           "dO must match q")
+    _check(lse.dtype == delta.dtype == torch.float32
+           and tuple(lse.shape) == tuple(delta.shape) == (b * n, s_q),
+           "lse and delta must be float32 [B*N, S_q]")
+    return dims
+
+
+def _vp(t):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def _launched(kind, rc):
+    if rc != 0:
+        raise RuntimeError(
+            "flash_attention {} kernel launch failed: CUDA error {}".format(
+                kind, rc))
+    with _launches_lock:
+        launches[kind] += 1
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _kernel_fwd(q, k, v, bias, causal, scale):
+    """Launch ``tfos_flash_fwd``; returns ``(out, lse [B*N, S_q])``."""
+    from tensorflowonspark_tpu_torch.ops import _build
+
+    b, s_q, s_k, n, d = _check_inputs(q, k, v, bias, causal)
+    out = torch.empty_like(q)
+    lse = torch.empty((b * n, s_q), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention")
+    rc = lib.tfos_flash_fwd(
+        _vp(q), _vp(k), _vp(v), _vp(bias), _vp(out), _vp(lse), b, s_q, s_k,
+        n, d, int(causal), ctypes.c_float(scale),
+        int(q.dtype == torch.bfloat16), _stream(q))
+    _launched("fwd", rc)
+    return out, lse
+
+
+def _kernel_dq(q, k, v, bias, dout, lse, delta, causal, scale):
+    """Launch ``tfos_flash_dq``; returns dq in q's dtype."""
+    from tensorflowonspark_tpu_torch.ops import _build
+
+    b, s_q, s_k, n, d = _check_bwd_inputs(q, k, v, bias, dout, lse, delta,
+                                          causal)
+    dq = torch.empty_like(q)
+    lib = _build.load("flash_attention")
+    rc = lib.tfos_flash_dq(
+        _vp(q), _vp(k), _vp(v), _vp(bias), _vp(dout), _vp(lse), _vp(delta),
+        _vp(dq), b, s_q, s_k, n, d, int(causal), ctypes.c_float(scale),
+        int(q.dtype == torch.bfloat16), _stream(q))
+    _launched("dq", rc)
+    return dq
+
+
+def _kernel_dkv(q, k, v, bias, dout, lse, delta, causal, scale):
+    """Launch ``tfos_flash_dkv``; returns (dk, dv) in k's dtype."""
+    from tensorflowonspark_tpu_torch.ops import _build
+
+    b, s_q, s_k, n, d = _check_bwd_inputs(q, k, v, bias, dout, lse, delta,
+                                          causal)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _build.load("flash_attention")
+    rc = lib.tfos_flash_dkv(
+        _vp(q), _vp(k), _vp(v), _vp(bias), _vp(dout), _vp(lse), _vp(delta),
+        _vp(dk), _vp(dv), b, s_q, s_k, n, d, int(causal),
+        ctypes.c_float(scale), int(q.dtype == torch.bfloat16), _stream(q))
+    _launched("dkv", rc)
+    return dk, dv
+
+
+# -- dispatch and autograd ----------------------------------------------
+
+
+def _route(t, impl):
+    """``"kernel"`` or ``"plain"`` for a tensor: None picks the kernel
+    for CUDA tensors and the plain versions for CPU tensors."""
+    if impl not in IMPLS:
+        raise ValueError("unknown flash-attention impl {!r}; expected None "
+                         "or 'plain'".format(impl))
+    if impl == "plain":
+        return impl
+    if t.device.type == "cuda":
+        return "kernel"
+    if t.device.type == "cpu":
+        return "plain"
+    raise ValueError("flash_attention has no kernel for device {}".format(
+        t.device))
+
+
+def _fwd(q, k, v, bias, causal, scale, impl):
+    """``(out, lse [B*N, S_q])`` through the kernel or the plain version."""
+    if _route(q, impl) == "kernel":
+        return _kernel_fwd(q, k, v, bias, causal, scale)
+    b, s_q, n, _ = q.shape
+    out, lse = _reference_lse(q, k, v, causal, scale, bias)
+    return out, lse.reshape(b * n, s_q)
+
+
+class _FlashPair(torch.autograd.Function):
+    """``(out, lse [B*N, S_q])`` with the FlashAttention-2 backward —
+    the reference's ``_flash_pair`` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, scale, impl):
+        out, lse = _fwd(q, k, v, bias, causal, scale, impl)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.causal, ctx.scale, ctx.impl = causal, scale, impl
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        causal, scale = ctx.causal, ctx.scale
+        g = g.contiguous()
+        delta = _delta(out, g, g_lse)
+        if _route(q, ctx.impl) == "kernel":
+            dq = _kernel_dq(q, k, v, bias, g, lse, delta, causal, scale)
+            dk, dv = _kernel_dkv(q, k, v, bias, g, lse, delta, causal, scale)
+        else:
+            dq = _dq_plain(q, k, v, bias, g, lse, delta, causal, scale)
+            dk, dv = _dkv_plain(q, k, v, bias, g, lse, delta, causal, scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_lse(q, k, v, causal=False, scale=None, key_mask=None,
+                        block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K,
+                        impl=None):
+    """Fused attention returning ``(out [B,S,N,D], lse [B,N,S])``.
+
+    Two partials over disjoint KV merge exactly as ``lse =
+    logaddexp(lse_a, lse_b)``, ``out = out_a exp(lse_a - lse) + out_b
+    exp(lse_b - lse)``. Differentiable in q/k/v, through the lse output
+    too. Rows that attend to nothing have lse -inf and out 0.
+
+    ``key_mask``: optional ``[B, S_k]`` bool, True = attend. ``block_q``
+    / ``block_k`` must divide the lengths (the reference's contract).
+    ``impl``: None (kernels for CUDA tensors, plain versions for CPU
+    tensors) or ``"plain"`` (the plain versions on any device)."""
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    b, s_q, n, _ = q.shape
+    s_k = k.shape[1]
+    if causal and s_q != s_k:
+        raise AssertionError("causal needs equal q/kv lengths")
+    _check_blocks(s_q, s_k, block_q, block_k)
+    bias = _mask_to_bias(key_mask)
+    out, lse = _FlashPair.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous(), bias, bool(causal), scale,
+                                impl)
+    return out, lse.reshape(b, n, s_q)
+
+
+def flash_attention(q, k, v, causal=False, scale=None, key_mask=None,
+                    block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K,
+                    impl=None):
+    """Fused attention, ``[B, S, N, D]`` in and out: the out half of
+    :func:`flash_attention_lse` (the unused lse contributes a zero
+    cotangent, folded into delta)."""
+    out, _ = flash_attention_lse(q, k, v, causal=causal, scale=scale,
+                                 key_mask=key_mask, block_q=block_q,
+                                 block_k=block_k, impl=impl)
+    return out

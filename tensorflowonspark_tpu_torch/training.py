@@ -1,0 +1,180 @@
+"""Training harness on one card — the port of
+``tensorflowonspark_tpu/training.py``.
+
+The reference's ``Trainer`` jit-compiles one data-parallel step over a
+device mesh. On one card there is no mesh, no sharding and no donation:
+the step runs eagerly, and the model and optimizer update their tensors
+in place (the reference returns new pytrees; the port keeps PyTorch's
+in-place optimizer step, which holds one copy of the parameters and the
+optimizer moments instead of two). ``state`` keeps the reference's keys
+so code written against it reads the same.
+
+Typical ``map_fun`` body::
+
+    trainer = training.Trainer(model, training.adamw(3e-4))
+    state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+    for batch in infeed.device_batches(feed_batches, trainer.device):
+        state, metrics = trainer.step(state, batch)
+
+Left for later slices: data parallelism across cards
+(``torch.distributed``), the dropout key (``dropout_rng``), and the
+goodput ledger ``train_loop`` charges in the reference.
+"""
+
+import logging
+import time
+
+import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as _checkpoint
+
+from tensorflowonspark_tpu_torch import device_info
+
+logger = logging.getLogger(__name__)
+
+
+def softmax_xent(logits, batch):
+    """Mean softmax cross-entropy; expects integer labels in
+    ``batch["y"]`` (every leading axis of ``logits`` is averaged)."""
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                           batch["y"].reshape(-1).long())
+
+
+def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4):
+    """An optimizer factory with optax ``adamw``'s defaults (note the
+    weight decay: 1e-4, where ``torch.optim.AdamW`` defaults to 1e-2).
+    Every parameter is decayed, biases and LayerNorm scales included, as
+    optax does without a mask: one parameter group."""
+
+    def make(params):
+        return torch.optim.AdamW(params, lr=learning_rate, betas=(b1, b2),
+                                 eps=eps, weight_decay=weight_decay)
+
+    return make
+
+
+class Trainer(object):
+    """One-card trainer.
+
+    Args:
+      model: an ``nn.Module`` called with the batch's ``input_keys``
+        values, in order.
+      optimizer: a factory ``params -> torch.optim.Optimizer`` (e.g.
+        :func:`adamw`), called once by :meth:`init`.
+      loss_fn: ``(logits, batch) -> scalar loss``.
+      input_keys: batch keys passed positionally to the model; only
+        trailing keys may be absent.
+      remat: recompute the forward pass in the backward
+        (``torch.utils.checkpoint``) instead of storing activations.
+      device: where the model trains (:func:`device_info.default_device`:
+        the card unless ``"cpu"`` is asked for).
+    """
+
+    def __init__(self, model, optimizer, loss_fn=softmax_xent,
+                 input_keys=("x",), remat=False, device=None):
+        self.model = model
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.input_keys = tuple(input_keys)
+        self.remat = remat
+        self.device = device_info.default_device(device)
+
+    def _inputs(self, batch):
+        if not isinstance(batch, dict):
+            return (batch,)
+        # Positional binding: only TRAILING keys may be absent — a missing
+        # middle key would silently shift later arrays into the wrong
+        # model argument.
+        values = []
+        missing = None
+        for k in self.input_keys:
+            if k in batch:
+                if missing is not None:
+                    raise KeyError(
+                        "batch is missing input key {!r} but provides the "
+                        "later key {!r}; positional binding would be "
+                        "corrupted".format(missing, k))
+                values.append(batch[k])
+            elif missing is None:
+                missing = k
+        return tuple(values)
+
+    def _on_device(self, batch):
+        def put(x):
+            if not torch.is_tensor(x):
+                x = torch.as_tensor(x)
+            return x.to(self.device, non_blocking=True)
+
+        if isinstance(batch, dict):
+            return {k: put(v) for k, v in batch.items()}
+        return put(batch)
+
+    def init(self, generator=None):
+        """Train state ``{params, extra, opt_state, step}`` on the
+        trainer's device. ``generator`` (a ``torch.Generator`` on that
+        device) re-initialises the weights through the model's
+        ``init_weights``; without one the model keeps the weights it
+        has (e.g. loaded with ``load_state_dict``). ``params``/``extra``
+        are the model's own parameters and buffers, ``opt_state`` the
+        optimizer built over them."""
+        self.model.to(self.device)
+        if generator is not None:
+            init = getattr(self.model, "init_weights", None)
+            if init is None:
+                raise TypeError("{} has no init_weights(generator)".format(
+                    type(self.model).__name__))
+            init(generator)
+        params = dict(self.model.named_parameters())
+        return {"params": params,
+                "extra": dict(self.model.named_buffers()),
+                "opt_state": self.optimizer(list(params.values())),
+                "step": 0}
+
+    def step(self, state, batch):
+        """One training step; returns ``(state, {"loss": loss})`` with the
+        loss a 0-d tensor on the device (reading it synchronises)."""
+        self.model.train()
+        batch = self._on_device(batch)
+        inputs = self._inputs(batch)
+        opt = state["opt_state"]
+        opt.zero_grad(set_to_none=True)
+        if self.remat:
+            logits = _checkpoint.checkpoint(self.model, *inputs,
+                                            use_reentrant=False)
+        else:
+            logits = self.model(*inputs)
+        loss = self.loss_fn(logits, batch)
+        loss.backward()
+        opt.step()
+        state["step"] += 1
+        return state, {"loss": loss.detach()}
+
+    def train_loop(self, state, batches, log_every=50, hooks=()):
+        """Drive steps over a batch iterator. Returns ``(state,
+        total_steps, examples/sec)``. ``hooks``: callables ``(step_no,
+        state, metrics) -> None``."""
+        n = 0
+        examples = 0
+        t0 = time.monotonic()
+        metrics = None
+        for batch in batches:
+            state, metrics = self.step(state, batch)
+            n += 1
+            examples += _batch_size(batch)
+            for hook in hooks:
+                hook(n, state, metrics)
+            if log_every and n % log_every == 0:
+                loss = float(metrics["loss"])
+                dt = time.monotonic() - t0
+                logger.info("step %d loss %.4f (%.1f ex/s)", n, loss,
+                            examples / dt)
+        if metrics is not None:
+            float(metrics["loss"])  # wait for the last step's work
+        dt = max(time.monotonic() - t0, 1e-9)
+        return state, n, examples / dt
+
+
+def _batch_size(batch):
+    if isinstance(batch, dict):
+        batch = next(iter(batch.values()))
+    return batch.shape[0]

@@ -1,12 +1,14 @@
-"""The port's CUDA paged-attention kernel against its plain PyTorch
-version, on the card (``cuda`` marker; skips where torch sees no CUDA
-device). ``chip_smoke.py`` runs the same comparison at the serving
-widths; this is the small-shape version for ``pytest -m cuda``."""
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card (``cuda`` marker; skips where torch sees no CUDA device):
+paged attention, and the three flash-attention kernels (forward, dQ,
+dK/dV). ``chip_smoke.py`` runs the same comparisons at the main paths'
+widths; these are the small-shape versions for ``pytest -m cuda``."""
 
 import numpy as np
 import pytest
 import torch
 
+from tensorflowonspark_tpu_torch.ops import flash_attention as fa
 from tensorflowonspark_tpu_torch.ops import paged_attention as pa
 
 #: same fp32 online softmax on both sides; only summation order differs
@@ -50,3 +52,84 @@ def test_kernel_matches_blockwise(cuda, s_q, quant):
     want = pa.paged_attention(*args, impl="blockwise", **scales)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL
+
+
+#: flash kernels against their plain versions on the same inputs. lse
+#: (float32 in every dtype) and float32 outputs: max |kernel - plain| <=
+#: 1e-4 max(1, max |plain|), as only the summation order differs.
+#: bfloat16 outputs, element by element, as each side rounds a float32
+#: result once (at most one ulp, 2^-7 relative, apart): gradients within
+#: 2^-7 |plain| + 1e-3 max |plain| (the floor for order noise where a sum
+#: cancels); out within 2^-7 (|plain| + sum_j p_j |v_j|), as both sides
+#: also round each P entry to bfloat16 at different scales (2^-8 relative
+#: apart at most, a factor 2 under that)
+FLASH_F32_RTOL = 1e-4
+BF16_RTOL, BF16_FLOOR = 2.0 ** -7, 1e-3
+
+#: (b, s_q, s_k, n, d, causal, masked, dtype)
+FLASH_CASES = [
+    (2, 80, 80, 2, 16, True, False, torch.float32),      # ragged tiles
+    (2, 64, 160, 3, 32, False, True, torch.float32),     # rect + full row
+    (2, 128, 128, 2, 64, True, True, torch.bfloat16),
+    (1, 72, 72, 1, 128, True, False, torch.float32),
+]
+
+
+def _assert_close(got, want, pv=None):
+    """``pv``: ``sum_j p_j |v_j|`` where ``got`` is a bfloat16 out."""
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert fin.any()
+    g, w = got.float()[fin], want.float()[fin]
+    top = w.abs().max().item()
+    if got.dtype == torch.bfloat16 and pv is not None:
+        limit = BF16_RTOL * (w.abs() + pv.float()[fin])
+    elif got.dtype == torch.bfloat16:
+        limit = BF16_RTOL * w.abs() + BF16_FLOOR * top
+    else:
+        limit = FLASH_F32_RTOL * max(1.0, top)
+    assert ((g - w).abs() <= limit).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=["causal-ragged", "rect-mask", "bf16",
+                              "d128"])
+def test_flash_kernels_match_plain(cuda, case):
+    b, s_q, s_k, n, d, causal, masked, dtype = case
+    rng = np.random.RandomState(s_q + d)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            cuda, dtype).contiguous()
+
+    q, k, v = t(b, s_q, n, d), t(b, s_k, n, d), t(b, s_k, n, d)
+    dout = t(b, s_q, n, d)
+    g_lse = torch.from_numpy(rng.randn(b * n, s_q).astype(np.float32)).to(
+        cuda)
+    bias = None
+    if masked:
+        m = torch.from_numpy(rng.rand(b, s_k) > 0.3)
+        m[:, 0] = True
+        m[-1] = False  # the last batch row attends to nothing
+        bias = fa._mask_to_bias(m.to(cuda))
+    scale = d ** -0.5
+    before = dict(fa.launches)
+    out, lse = fa._kernel_fwd(q, k, v, bias, causal, scale)
+    delta = fa._delta(out, dout, g_lse)
+    dq = fa._kernel_dq(q, k, v, bias, dout, lse, delta, causal, scale)
+    dk, dv = fa._kernel_dkv(q, k, v, bias, dout, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.launches == {k_: before[k_] + 1 for k_ in before}
+    want_out, want_lse = fa._reference_lse(q, k, v, causal, scale, bias)
+    want_dq = fa._dq_plain(q, k, v, bias, dout, lse, delta, causal, scale)
+    want_dk, want_dv = fa._dkv_plain(q, k, v, bias, dout, lse, delta,
+                                     causal, scale)
+    pv, _ = fa._reference_lse(q, k, v.abs(), causal, scale, bias)
+    _assert_close(lse, want_lse.reshape(b * n, s_q))
+    for got, want, row in ((out, want_out, pv), (dq, want_dq, None),
+                           (dk, want_dk, None), (dv, want_dv, None)):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        _assert_close(got, want, row)
+    if masked:
+        assert (out[-1] == 0).all() and (dq[-1] == 0).all()
