@@ -29,7 +29,10 @@ Phases, stopping with a non-zero exit at the first failure:
    nonzero lse cotangent. Each kernel's time at shape (a) beside the
    plain version's, one ``scaled_dot_product_attention(is_causal=True)``
    call and its autograd backward (timed here only; the port never
-   calls it), and the bound;
+   calls it), the bound at the float32-accurate tensor-core rate and,
+   beside it, at the CUDA-core float32 rate; dQ + dK/dV over SDPA's
+   backward; and the backward kernels' registers, spills and CTAs per
+   SM at D 64;
 4. serving — a GPT-2-small-shaped ``DecoderLM`` (vocab 50257, hidden
    768, 12 heads, 12 layers, max_len 1024; random weights from a seed)
    behind the port's ``ModelServer``: 16 ``:generate`` requests from 4
@@ -83,12 +86,19 @@ TIE_GAP = 1e-4
 #: H100 SXM device-memory rate and fp32 (non-tensor-core) peak
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+#: the float32-accurate tensor-core rate: dense TF32 (495 TFLOP/s) over
+#: the three passes of the 3xTF32 split — the flash rows' yardstick
+TF32X3_FLOPS = 495e12 / 3
 
 #: flash kernel against plain version, each on the inputs the kernel
 #: was given. lse is float32 in every dtype, and float32 outputs are held
-#: as max |kernel - plain| <= 1e-4 max(1, max |plain|): both sides compute
-#: the same float32 products and differ only in summation order (sums of
-#: up to 1024 terms, ~1e-6 relative). bfloat16 outputs are held element
+#: as max |kernel - plain| <= 1e-4 max(1, max |plain|): the forward
+#: computes the same float32 products in another summation order (sums of
+#: up to 1024 terms, ~1e-6 relative); the backward's 3xTF32 tensor-core
+#: products are float32-accurate (each term to ~2^-21 relative; up to
+#: 1.3e-5 of max |plain| measured at case (a)), where a single TF32 pass
+#: would miss this limit (tests/test_torch_flash_attention.py emulates
+#: both). bfloat16 outputs are held element
 #: by element. Each side rounds a float32 result once to bfloat16 (7
 #: stored mantissa bits: two roundings of values that differ in order
 #: land at most one ulp, 2^-7 relative, apart). dq, dk, dv: |kernel -
@@ -486,7 +496,9 @@ def flash_timing(torch, fa, dev):
     # with key <= query, 2 flops per multiply-add of each product it
     # computes (forward: Q K^T, P V; dQ: Q K^T, dO V^T, dS K; dK/dV:
     # K Q^T, V dO^T, P^T dO, dS^T Q); each input read once, each output
-    # written once (float32; lse and delta [B*N, S])
+    # written once (float32; lse and delta [B*N, S]). The operations are
+    # timed at the float32-accurate tensor-core rate (bound_ms) and at
+    # the CUDA-core rate (bound_simt_ms)
     pairs = b * n * s * (s + 1) // 2
     tensor = b * s * n * d * 4
     row = b * n * s * 4
@@ -496,7 +508,7 @@ def flash_timing(torch, fa, dev):
     res = {}
     for name, (kern, plain) in fns.items():
         flops, nbytes = work[name]
-        t_ops = flops / FP32_FLOPS * 1e3
+        t_ops = flops / TF32X3_FLOPS * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         res[name] = {
             "ms": time_ms(torch, kern, [()], reps=20),
@@ -505,8 +517,25 @@ def flash_timing(torch, fa, dev):
                            if name in library else None),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_simt_ms": max(flops / FP32_FLOPS * 1e3, t_bytes),
             "flops": flops, "bytes": nbytes}
     return res
+
+
+def bwd_budget(torch, fa):
+    """Registers, spills and CTAs per SM of the backward kernels at the
+    training head dim, as the card reports them."""
+    out = {}
+    for kind in ("dq", "dkv"):
+        for dtype in ("float32", "bfloat16"):
+            got = fa.bwd_budget(kind, HIDDEN // HEADS, getattr(torch, dtype))
+            out["{} {}".format(kind, dtype)] = got
+            log("budget {:<3} D{} {:<8}: {} registers, {} spill bytes, {} "
+                "KB shared, {} CTAs/SM".format(
+                    kind, HIDDEN // HEADS, dtype, got["registers"],
+                    got["spill_bytes"], got["smem_bytes"] // 1024,
+                    got["ctas_per_sm"]))
+    return out
 
 
 # -- phase 4: serving at full width -------------------------------------
@@ -866,16 +895,23 @@ def main():
                                 t["library_ms"], t["bound_ms"],
                                 t["live_tokens"], t["kv_bytes"]))
 
+    budget = bwd_budget(torch, fa)
     flash_err = flash_cases(torch, fa, dev)
     flash_t = flash_timing(torch, fa, dev)
     for name, ft in flash_t.items():
         log("flash {:<3} at B8 S1024 causal fp32: kernel {:.4f} ms  plain "
-            "{:.4f} ms  sdpa {}  bound {:.4f} ms ({}; {:.3g} flop, {:.3g} "
-            "B)".format(name, ft["ms"], ft["plain_ms"],
-                        "-" if ft["library_ms"] is None
-                        else "{:.4f} ms".format(ft["library_ms"]),
-                        ft["bound_ms"], ft["bound_by"], ft["flops"],
-                        ft["bytes"]))
+            "{:.4f} ms  sdpa {}  bound {:.4f} ms ({}, 3xTF32 at 165 TFLOP/s; "
+            "{:.4f} ms at 67; {:.3g} flop, {:.3g} B)".format(
+                name, ft["ms"], ft["plain_ms"],
+                "-" if ft["library_ms"] is None
+                else "{:.4f} ms".format(ft["library_ms"]),
+                ft["bound_ms"], ft["bound_by"], ft["bound_simt_ms"],
+                ft["flops"], ft["bytes"]))
+    bwd_ms = flash_t["dq"]["ms"] + flash_t["dkv"]["ms"]
+    log("flash backward at B8 S1024 causal fp32: dQ + dK/dV {:.4f} ms, "
+        "SDPA backward {:.4f} ms, ratio {:.3f}".format(
+            bwd_ms, flash_t["dq"]["library_ms"],
+            bwd_ms / flash_t["dq"]["library_ms"]))
 
     launches, runs, preempt = serving_phase(torch, dev)
     torch.cuda.empty_cache()
@@ -913,6 +949,7 @@ def main():
             "plain_ms": ft["plain_ms"],
             "bound_ms": ft["bound_ms"],
             "bound_by": ft["bound_by"],
+            "bound_simt_ms": ft["bound_simt_ms"],
             "library_ms": ft["library_ms"],
             "library": note})
     if args.out_dir:
@@ -922,6 +959,7 @@ def main():
                        "timing": {"float32": timing[False],
                                   "int8": timing[True]},
                        "flash_timing": flash_t,
+                       "flash_bwd_budget": budget,
                        "serving": {kv or "float32": {
                            k: v for k, v in r.items() if k != "out"}
                            for kv, r in runs.items()},

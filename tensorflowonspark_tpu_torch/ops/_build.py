@@ -3,10 +3,11 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain
 C interface and loaded with ``ctypes`` — seconds per source, where a
 build that includes PyTorch's headers takes minutes. One source may
-export several C functions (``flash_attention.cu``: forward, dQ and
-dK/dV); :data:`KERNELS` lists each source's symbols. Builds happen at
-first use (never at import, so the CPU tests import every module on a
-machine without ``nvcc``), from the sources in the package alone, into
+export several C functions (``flash_attention.cu``: forward, dQ, dK/dV
+and the backward's resource query); :data:`KERNELS` lists each
+source's symbols. Builds happen at first use (never at import, so the
+CPU tests import every module on a machine without ``nvcc``), from the
+sources in the package alone, into
 ``_build/`` beside them (git-ignored). A library's file name carries a
 hash of its source and flags, so an edited source rebuilds; the output
 is written to a temporary name and renamed into place, so concurrent
@@ -45,6 +46,7 @@ KERNELS = {
         "tfos_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
         "tfos_flash_dq": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
         "tfos_flash_dkv": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
+        "tfos_flash_bwd_budget": [_I] * 3 + [_P],
     },
 }
 

@@ -21,11 +21,14 @@ Two formulations share that contract:
   (``csrc/flash_attention.cu``), built with ``nvcc`` at first launch and
   bound through ``ctypes``: ``tfos_flash_fwd`` replaces the Pallas
   ``_fwd_kernel``, ``tfos_flash_dq`` ``_dq_kernel``, ``tfos_flash_dkv``
-  ``_dkv_kernel``. Bound on the H100: OPERATIONS (float32 products on
-  CUDA cores above the flop/byte ridge at the training shape); the
-  design is in the source's header and its measured share in PERF.md.
-  Head dims 16/32/64/128, float32 or bfloat16 inputs with float32
-  statistics and accumulators.
+  ``_dkv_kernel``. Bound on the H100: OPERATIONS at the training shape.
+  The forward multiplies float32 on CUDA cores; dQ and dK/dV run their
+  five products on the tensor cores (``mma.sync`` TF32) with the 3xTF32
+  split, so they stay float32-accurate (P and dS too; cuBLAS's TF32
+  stays off), and stream their tiles through a two-stage ``cp.async``
+  ring. The design is in the source's header and the measured share of
+  the bound in PERF.md. Head dims 16/32/64/128, float32 or bfloat16
+  inputs with float32 statistics and accumulators.
 - the **plain versions** — :func:`_reference_lse` (forward),
   :func:`_dq_plain` and :func:`_dkv_plain` (backward, the kernels'
   FlashAttention-2 formulas on the whole score matrix), and
@@ -229,6 +232,8 @@ def _check_bwd_inputs(q, k, v, bias, dout, lse, delta, causal):
     _check(lse.dtype == delta.dtype == torch.float32
            and tuple(lse.shape) == tuple(delta.shape) == (b * n, s_q),
            "lse and delta must be float32 [B*N, S_q]")
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, dout)),
+           "q, k, v and dO must start on a 16-byte boundary (cp.async)")
     return dims
 
 
@@ -296,6 +301,27 @@ def _kernel_dkv(q, k, v, bias, dout, lse, delta, causal, scale):
         ctypes.c_float(scale), int(q.dtype == torch.bfloat16), _stream(q))
     _launched("dkv", rc)
     return dk, dv
+
+
+def bwd_budget(kind, d, dtype):
+    """The resources of one backward kernel instantiation on the current
+    card: ``{"ctas_per_sm", "registers", "spill_bytes", "smem_bytes"}``
+    for ``kind`` "dq" or "dkv", head dim ``d`` and input ``dtype``
+    (registers and local-memory bytes per thread as the compiler left
+    them; CTAs per SM from the card's occupancy calculator)."""
+    from tensorflowonspark_tpu_torch.ops import _build
+
+    _check(kind in ("dq", "dkv") and d in HEAD_DIMS and dtype in DTYPES,
+           "no backward kernel {} at head_dim {} in {}".format(kind, d,
+                                                              dtype))
+    out = (ctypes.c_int * 4)()
+    rc = _build.load("flash_attention").tfos_flash_bwd_budget(
+        int(kind == "dkv"), d, int(dtype == torch.bfloat16), out)
+    if rc != 0:
+        raise RuntimeError("flash_attention budget query failed: CUDA error "
+                           "{}".format(rc))
+    return dict(zip(("ctas_per_sm", "registers", "spill_bytes",
+                     "smem_bytes"), out))
 
 
 # -- dispatch and autograd ----------------------------------------------

@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (``cuda`` marker; skips where torch sees no CUDA device):
 paged attention, and the three flash-attention kernels (forward, dQ,
-dK/dV). ``chip_smoke.py`` runs the same comparisons at the main paths'
-widths; these are the small-shape versions for ``pytest -m cuda``."""
+dK/dV), with the backward's two-stage copy ring run through many tiles
+and a ragged last one, its 32-row tiles at D 128, its determinism (no
+atomics) and its register budget at D 64. ``chip_smoke.py`` runs the
+same comparisons at the main paths' widths; these are the small-shape
+versions for ``pytest -m cuda``."""
 
 import numpy as np
 import pytest
@@ -56,7 +59,8 @@ def test_kernel_matches_blockwise(cuda, s_q, quant):
 
 #: flash kernels against their plain versions on the same inputs. lse
 #: (float32 in every dtype) and float32 outputs: max |kernel - plain| <=
-#: 1e-4 max(1, max |plain|), as only the summation order differs.
+#: 1e-4 max(1, max |plain|): the forward differs in summation order only,
+#: the backward's 3xTF32 tensor-core products are float32-accurate.
 #: bfloat16 outputs, element by element, as each side rounds a float32
 #: result once (at most one ulp, 2^-7 relative, apart): gradients within
 #: 2^-7 |plain| + 1e-3 max |plain| (the floor for order noise where a sum
@@ -72,7 +76,13 @@ FLASH_CASES = [
     (2, 64, 160, 3, 32, False, True, torch.float32),     # rect + full row
     (2, 128, 128, 2, 64, True, True, torch.bfloat16),
     (1, 72, 72, 1, 128, True, False, torch.float32),
+    # the backward's cp.async ring through 9 tiles, the last one ragged
+    (1, 520, 520, 2, 64, True, False, torch.bfloat16),
+    # D 128: 32-row streamed tiles; rectangular, key mask, ragged S_k
+    (2, 256, 200, 2, 128, False, True, torch.float32),
 ]
+FLASH_IDS = ["causal-ragged", "rect-mask", "bf16", "d128",
+             "bf16-many-tiles", "d128-rect-mask"]
 
 
 def _assert_close(got, want, pv=None):
@@ -91,28 +101,32 @@ def _assert_close(got, want, pv=None):
     assert ((g - w).abs() <= limit).all()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", FLASH_CASES,
-                         ids=["causal-ragged", "rect-mask", "bf16",
-                              "d128"])
-def test_flash_kernels_match_plain(cuda, case):
+def _flash_inputs(dev, case):
     b, s_q, s_k, n, d, causal, masked, dtype = case
     rng = np.random.RandomState(s_q + d)
 
     def t(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
-            cuda, dtype).contiguous()
+            dev, dtype).contiguous()
 
     q, k, v = t(b, s_q, n, d), t(b, s_k, n, d), t(b, s_k, n, d)
     dout = t(b, s_q, n, d)
     g_lse = torch.from_numpy(rng.randn(b * n, s_q).astype(np.float32)).to(
-        cuda)
+        dev)
     bias = None
     if masked:
         m = torch.from_numpy(rng.rand(b, s_k) > 0.3)
         m[:, 0] = True
         m[-1] = False  # the last batch row attends to nothing
-        bias = fa._mask_to_bias(m.to(cuda))
+        bias = fa._mask_to_bias(m.to(dev))
+    return q, k, v, dout, g_lse, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=FLASH_IDS)
+def test_flash_kernels_match_plain(cuda, case):
+    b, s_q, s_k, n, d, causal, masked, dtype = case
+    q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
     scale = d ** -0.5
     before = dict(fa.launches)
     out, lse = fa._kernel_fwd(q, k, v, bias, causal, scale)
@@ -133,3 +147,35 @@ def test_flash_kernels_match_plain(cuda, case):
         _assert_close(got, want, row)
     if masked:
         assert (out[-1] == 0).all() and (dq[-1] == 0).all()
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic(cuda):
+    """dQ and dK/dV have one writer per output tile and no atomics: two
+    launches on the same inputs are bitwise equal."""
+    case = (2, 200, 200, 3, 64, True, False, torch.float32)
+    q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
+    scale = 64 ** -0.5
+    out, lse = fa._kernel_fwd(q, k, v, bias, True, scale)
+    delta = fa._delta(out, dout, g_lse)
+    first = (fa._kernel_dq(q, k, v, bias, dout, lse, delta, True, scale),
+             *fa._kernel_dkv(q, k, v, bias, dout, lse, delta, True, scale))
+    second = (fa._kernel_dq(q, k, v, bias, dout, lse, delta, True, scale),
+              *fa._kernel_dkv(q, k, v, bias, dout, lse, delta, True, scale))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+def test_flash_backward_budget_at_d64(cuda, kind, dtype):
+    """At the training head dim the backward kernels keep every value in
+    registers (no local-memory spills) and fit at least one CTA per SM
+    within the card's shared memory."""
+    got = fa.bwd_budget(kind, 64, dtype)
+    assert got["spill_bytes"] == 0
+    assert got["ctas_per_sm"] >= 1
+    assert 0 < got["smem_bytes"] <= 227 * 1024

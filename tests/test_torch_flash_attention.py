@@ -9,6 +9,10 @@ and backward (dq, dk, dv through both outputs, with a nonzero lse
 cotangent) agree within 2e-4, the JAX tests' own tolerance: both are
 float32 with only the summation order different. The plain backward is
 also held against torch autograd of the plain forward at 1e-5.
+
+The backward kernels multiply on the tensor cores in TF32 with the
+3xTF32 split; an emulation of that arithmetic here pins why three
+passes (and not one) keep them within the card's float32 limits.
 """
 
 import jax
@@ -164,3 +168,115 @@ def test_mask_to_bias():
     assert bias[0, 0] == 0 and torch.isneginf(bias[0, 1])
     assert torch.isneginf(bias[1]).all()
     assert fa._mask_to_bias(None) is None
+
+
+# -- the backward kernels' tensor-core arithmetic, emulated -------------
+
+#: the card's limit for a float32 kernel against its plain version, as
+#: max |kernel - plain| over max(1, max |plain|) (chip_smoke.py)
+FLASH_F32_RTOL = 1e-4
+
+
+def _tf32(x):
+    """float32 -> TF32 as ``cvt.rna.tf32.f32`` rounds, and as the kernels
+    round an operand's hi part: to nearest, ties away from zero, 10 stored
+    mantissa bits (the low 13 of the float32 bit pattern cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_read(x):
+    """The TF32 value a tensor-core mma reads from a float32 register: the
+    low 13 bits ignored (toward zero)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a, b, a_lo=True, b_lo=True):
+    """``a @ b`` as the kernels' ``mma3_rows`` computes it: each operand
+    split into ``hi = tf32(x)`` and ``lo = x - hi`` (of which the mma
+    reads the TF32 part), the products ``lo.hi`` and ``hi.lo`` summed
+    first and ``hi.hi`` last, in float32. ``a_lo``/``b_lo`` False drop a
+    pass, as the kernels do at compile time for a bfloat16 operand; both
+    False is a single TF32 pass."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    if a_lo:
+        out = out + _tf32_read(a - ah) @ bh
+    if b_lo:
+        out = out + ah @ _tf32_read(b - bh)
+    return out + ah @ bh
+
+
+def _emulated_bwd(q, k, v, dout, lse, delta, causal, scale, passes=3,
+                  input_lo=True):
+    """dQ, dK, dV (``[B, S, N, D]``) with the kernels' formulas and
+    products: ``passes`` 3 is 3xTF32 (``input_lo`` False drops the lo
+    parts of q, k, v, dO, as the bfloat16 kernels do; P and dS are always
+    split), 1 a single TF32 pass everywhere."""
+
+    def mm(a, b, a_input, b_input):
+        if passes == 1:
+            return _mm(a, b, False, False)
+        return _mm(a, b, input_lo or not a_input, input_lo or not b_input)
+
+    b, s_q, n, _ = q.shape
+    qf, kf, vf, of = (x.permute(0, 2, 1, 3) for x in (q, k, v, dout))
+    s = mm(qf, kf.transpose(-1, -2), True, True) * scale
+    if causal:
+        s = s.masked_fill(~fa._tril(s_q, k.shape[1], q.device),
+                          float("-inf"))
+    lse = lse.reshape(b, n, s_q, 1)
+    p = torch.exp(s - torch.where(torch.isfinite(lse), lse,
+                                  torch.zeros_like(lse)))
+    p = p.masked_fill(torch.isneginf(s), 0.0)
+    dp = mm(of, vf.transpose(-1, -2), True, True)
+    ds = p * (dp - delta.reshape(b, n, s_q, 1))
+    dq = mm(ds, kf, False, True) * scale
+    dk = mm(ds.transpose(-1, -2), qf, False, True) * scale
+    dv = mm(p.transpose(-1, -2), of, False, True)
+    return tuple(x.permute(0, 2, 1, 3) for x in (dq, dk, dv))
+
+
+def _bwd_case(seed, b=1, s=128, n=2, d=64, round_bf16=False):
+    q, k, v, _, g, g_lse = _inputs(b, s, s, n, d, False, seed)
+    q, k, v, g = (_t(x) for x in (q, k, v, g))
+    if round_bf16:
+        q, k, v, g = (x.to(torch.bfloat16).float() for x in (q, k, v, g))
+    scale = d ** -0.5
+    out, lse = fa._reference_lse(q, k, v, True, scale)
+    lse = lse.reshape(b * n, s)
+    delta = fa._delta(out, g, _t(g_lse))
+    want = (fa._dq_plain(q, k, v, None, g, lse, delta, True, scale),
+            *fa._dkv_plain(q, k, v, None, g, lse, delta, True, scale))
+    return (q, k, v, g, lse, delta, True, scale), want
+
+
+def _rel_errors(got, want):
+    return [((x - w).abs().max() / max(1.0, w.abs().max().item())).item()
+            for x, w in zip(got, want)]
+
+
+def test_three_tf32_passes_hold_float32_limits_one_does_not():
+    """The kernels' 3xTF32 products keep dQ, dK and dV within 1e-5 of
+    max |plain| (10x under the card's FLASH_F32_RTOL) at a causal S 128,
+    D 64 shape; a single TF32 pass misses FLASH_F32_RTOL, which is why
+    the kernels pay for three."""
+    args, want = _bwd_case(0)
+    for err in _rel_errors(_emulated_bwd(*args, passes=3), want):
+        assert err <= 1e-5
+    for err in _rel_errors(_emulated_bwd(*args, passes=1), want):
+        assert err > FLASH_F32_RTOL
+
+
+def test_bfloat16_inputs_drop_their_lo_passes_exactly():
+    """A bfloat16 value is exact in TF32 (lo = 0), so the kernels' one
+    pass for Q K^T and dO V^T and two for the products with P or dS give
+    the same bits as all three; the scale multiplies the product, not Q,
+    because a scaled bfloat16 Q is not exact in TF32 at D 32 or 128."""
+    args, _ = _bwd_case(1, round_bf16=True)
+    q = args[0]
+    assert torch.equal(_tf32(q), q)
+    assert not torch.equal(_tf32(q * 32 ** -0.5), q * 32 ** -0.5)
+    for x, y in zip(_emulated_bwd(*args, passes=3),
+                    _emulated_bwd(*args, passes=3, input_lo=False)):
+        assert torch.equal(x, y)
