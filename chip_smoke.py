@@ -11,28 +11,34 @@ Phases, stopping with a non-zero exit at the first failure:
 2. build — every kernel source of the port (``paged_attention.cu``,
    ``flash_attention.cu``), compiled from ``csrc/`` with nvcc, all at
    once;
-3. kernel against plain version — ``paged_attention``'s CUDA kernel
-   against ``_blockwise`` on the card, fp32 and int8 pools, S_q in
-   {1, 16, 128}, mixed row depths, rows whose positions overshoot the
-   table, an all-scratch (inactive) row; NaN-poisoned dead pool rows
-   must leave the kernel's output bitwise unchanged. Then the kernel's
-   time at the serving decode shape beside the plain version's, a
-   ``scaled_dot_product_attention`` yardstick over the pre-gathered
-   contiguous view (timed here only; the port never calls it), and
-   the byte bound. Then the three flash-attention kernels (forward, dQ,
+3. kernel against plain version — ``paged_attention``'s CUDA kernels
+   against ``_blockwise`` on the card, fp32 and int8 pools, S_q 1 (the
+   split-KV route) and S_q 16 and 128 (the query-tiled route),
+   mixed row depths, rows whose positions overshoot the table, an
+   all-scratch (inactive) row; a second call must be bitwise equal, and
+   NaN-poisoned dead pool rows must leave the output bitwise unchanged.
+   Then the kernels' times at the serving decode shape (split route)
+   and at a prefill shape (one row, a 256-token tail at positions
+   256..511; tiled route): time per eager call, as the flash kernels
+   are timed, and device time through CUDA-graph replays beside it;
+   the plain version's time; a ``scaled_dot_product_attention``
+   yardstick over the pre-gathered contiguous view, timed both ways
+   (timed here only; the port never calls it); and the bound, at the
+   float32-accurate tensor-core rate as for the flash kernels and at
+   the CUDA-core float32 rate beside it. Then the three flash-attention kernels (forward, dQ,
    dK/dV) through the public autograd path, each against its plain
    version on the inputs it was given, on four cases: (a) the training
    shape, B 8, S 1024, 12 heads of 64, causal, float32; (b) non-causal
    rectangular S_q 128, S_k 384 with a key mask that leaves one batch
    row fully masked (lse -inf, out and grads 0); (c) case (a) in
-   bfloat16; (d) a ragged S 48 at block 16. The backward takes a random dO and a
-   nonzero lse cotangent. Each kernel's time at shape (a) beside the
-   plain version's, one ``scaled_dot_product_attention(is_causal=True)``
-   call and its autograd backward (timed here only; the port never
-   calls it), the bound at the float32-accurate tensor-core rate and,
-   beside it, at the CUDA-core float32 rate; dQ + dK/dV over SDPA's
-   backward; and the backward kernels' registers, spills and CTAs per
-   SM at D 64;
+   bfloat16; (d) a ragged S 48 at block 16. The backward takes a random
+   dO and a nonzero lse cotangent. Each kernel's time at shape (a)
+   beside the plain version's, one
+   ``scaled_dot_product_attention(is_causal=True)`` call and its
+   autograd backward (timed here only; the port never calls it), the
+   bound at the float32-accurate tensor-core rate and, beside it, at
+   the CUDA-core float32 rate; dQ + dK/dV over SDPA's backward; and the
+   three kernels' registers, spills and CTAs per SM at D 64;
 4. serving — a GPT-2-small-shaped ``DecoderLM`` (vocab 50257, hidden
    768, 12 heads, 12 layers, max_len 1024; random weights from a seed)
    behind the port's ``ModelServer``: 16 ``:generate`` requests from 4
@@ -43,7 +49,8 @@ Phases, stopping with a non-zero exit at the first failure:
    requests are preempted and resumed. The kernel's launch count must
    grow, and the tokens must equal an ``attn_impl="gather"`` engine's
    on the same weights (a divergence is accepted only at a top-2 logit
-   tie, gap below 1e-4);
+   tie, gap below 1e-4). Every decode step must have taken the
+   split-KV route and every prefill the query-tiled one, once a layer;
 5. training — the same GPT-2-small ``DecoderLM`` at full depth, float32
    with TF32 off, random weights from the seed. First one forward and
    backward on the initial weights and the first batch, once through
@@ -87,7 +94,7 @@ TIE_GAP = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 #: the float32-accurate tensor-core rate: dense TF32 (495 TFLOP/s) over
-#: the three passes of the 3xTF32 split — the flash rows' yardstick
+#: the three passes of the 3xTF32 split — the attention rows' yardstick
 TF32X3_FLOPS = 495e12 / 3
 
 #: flash kernel against plain version, each on the inputs the kernel
@@ -198,8 +205,9 @@ def live_rows(table, pos, bs):
 
 
 def kernel_cases(torch, pa, dev):
-    """Hold the kernel against ``_blockwise`` on every case; returns the
-    largest |difference|."""
+    """Hold the kernels against ``_blockwise`` on every case, on both
+    routes (split-KV at S_q = 1, query-tiled above), with a second call
+    bitwise equal to the first; returns the largest |difference|."""
     rng = np.random.RandomState(SEED)
     worst = 0.0
     mb = MAX_LEN // BLOCK
@@ -209,8 +217,12 @@ def kernel_cases(torch, pa, dev):
                 torch, rng, SLOTS, s_q, mb, quant, dev, overshoot_row=1,
                 scratch_row=SLOTS - 1)
             scale = (HIDDEN // HEADS) ** -0.5
+            before = dict(pa.route_launches)
             got = pa.paged_attention(*args, scale=scale, impl="kernel",
                                      k_scale=ks, v_scale=vs)
+            route = "split" if s_q <= pa.SPLIT_MAX_QUERIES else "tiled"
+            check(pa.route_launches[route] == before[route] + 1,
+                  "s_q={} did not take the {} route".format(s_q, route))
             want = pa.paged_attention(*args, scale=scale, impl="blockwise",
                                       k_scale=ks, v_scale=vs)
             torch.cuda.synchronize()
@@ -218,8 +230,13 @@ def kernel_cases(torch, pa, dev):
                   "kernel output not finite (s_q={}, int8={})".format(
                       s_q, quant))
             err = (got - want).abs().max().item()
-            log("kernel vs plain  int8={:<5} s_q={:<3} max_abs_err={:.3e} "
-                "(tol {:.0e})".format(quant, s_q, err, KERNEL_TOL))
+            again = pa.paged_attention(*args, scale=scale, impl="kernel",
+                                       k_scale=ks, v_scale=vs)
+            check(torch.equal(again, got), "two kernel calls on the same "
+                  "inputs differ (s_q={}, int8={})".format(s_q, quant))
+            log("kernel vs plain  int8={:<5} s_q={:<3} route={:<5} "
+                "max_abs_err={:.3e} (tol {:.0e})".format(
+                    quant, s_q, route, err, KERNEL_TOL))
             check(err <= KERNEL_TOL, "kernel disagrees with plain version")
             worst = max(worst, err)
             # never reads a dead pool row: poison them, output unchanged
@@ -251,7 +268,9 @@ def kernel_cases(torch, pa, dev):
 def time_ms(torch, fn, sets, reps=20):
     """Mean milliseconds per call, cycling over ``sets`` argument sets
     whose live K/V together exceed the 50 MB L2 (a layer's pool is cold
-    when the serving step reaches it)."""
+    when the serving step reaches it). Calls are issued from the host one
+    by one, so a call whose host work outlasts its kernels measures the
+    host."""
     for a in sets:
         fn(*a)
     torch.cuda.synchronize()
@@ -266,21 +285,52 @@ def time_ms(torch, fn, sets, reps=20):
     return start.elapsed_time(end) / (reps * len(sets))
 
 
-def kernel_timing(torch, pa, dev, quant):
-    """Times at the serving decode shape: 8 slots, S_q = 1, rows at
-    depths 32..640 (what the traffic's prompts plus generated tokens
-    reach), block 16, table width 64."""
+def graph_ms(torch, fn, sets, reps=20):
+    """Mean device milliseconds per call: one call per argument set,
+    captured once into a CUDA graph and replayed ``reps`` times, so no
+    host work sits between the kernels (each call's own allocations are
+    replayed from the graph's pool)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in sets:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for a in sets:
+            fn(*a)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(sets))
+
+
+def paged_timing(torch, pa, dev, quant, s_q, depths, copies):
+    """Times of one paged-attention call over ``len(depths)`` rows of
+    ``s_q`` queries ending at ``depths`` (block 16, table width 64),
+    cycling over ``copies`` pools: the kernel's time per eager call
+    (``ms``) and its device time through CUDA-graph replays
+    (``device_ms``), the plain version's, an SDPA yardstick timed both
+    ways, and the bound."""
     import torch.nn.functional as F
 
-    rng = np.random.RandomState(SEED + 1)
+    rng = np.random.RandomState(SEED + 1 + s_q)
+    b, n, d = len(depths), HEADS, HIDDEN // HEADS
     mb = MAX_LEN // BLOCK
-    depths = rng.randint(32, 641, size=SLOTS)
     sets = []
-    for _ in range(6):
-        args, (ks, vs) = make_case(torch, rng, SLOTS, 1, mb, quant, dev,
+    for _ in range(copies):
+        args, (ks, vs) = make_case(torch, rng, b, s_q, mb, quant, dev,
                                    depths=depths)
         sets.append(args + [ks, vs])
-    scale = (HIDDEN // HEADS) ** -0.5
+    scale = d ** -0.5
 
     def kernel(q, kp, vp, t, p, ks, vs):
         return pa.paged_attention(q, kp, vp, t, p, scale=scale,
@@ -291,19 +341,20 @@ def kernel_timing(torch, pa, dev, quant):
                                   impl="blockwise", k_scale=ks, v_scale=vs)
 
     # the library yardstick: one SDPA call over the contiguous view,
-    # gathered (and dequantized) beforehand, outside the timed call
+    # gathered (and dequantized) beforehand, outside the timed call, with
+    # each query's visibility as a boolean mask
     lib_sets = []
-    width = int(depths.max())
+    width = min(int(depths.max()), mb * BLOCK)
     for q, kp, vp, t, p, ks, vs in sets:
         k = kp[t.long()]
         v = vp[t.long()]
         if quant:
             k = pa.dequantize_kv(k, ks[t.long()])
             v = pa.dequantize_kv(v, vs[t.long()])
-        k = k.reshape(SLOTS, -1, HEADS, HIDDEN // HEADS)[:, :width]
-        v = v.reshape(SLOTS, -1, HEADS, HIDDEN // HEADS)[:, :width]
-        mask = (torch.arange(width, device=dev)[None, :]
-                <= p[:, :1].long())[:, None, None, :]
+        k = k.reshape(b, -1, n, d)[:, :width]
+        v = v.reshape(b, -1, n, d)[:, :width]
+        mask = (torch.arange(width, device=dev)[None, None, :]
+                <= p[:, :, None].long())[:, None]
         lib_sets.append((q.transpose(1, 2).contiguous(),
                          k.transpose(1, 2).contiguous(),
                          v.transpose(1, 2).contiguous(), mask))
@@ -312,23 +363,50 @@ def kernel_timing(torch, pa, dev, quant):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                               scale=scale)
 
+    before = dict(pa.route_launches)
+    kernel(*sets[0])
+    route = [r for r in before if pa.route_launches[r] != before[r]][0]
     ms = time_ms(torch, kernel, sets)
+    device_ms = graph_ms(torch, kernel, sets)
     plain_ms = time_ms(torch, plain, sets, reps=5)
     library_ms = time_ms(torch, library, lib_sets)
-    # the bound: each input read once, the output written once
-    d = HIDDEN // HEADS
-    live_tokens = int(depths.sum())  # keys at positions 0..depth-1
-    kv_bytes = 2 * live_tokens * HEADS * d * (1 if quant else 4)
+    library_device_ms = graph_ms(torch, library, lib_sets)
+    # the bound: each input read once (the live K/V and scales, q, the
+    # table, pos), the output written once; the products' flops on the
+    # visible (query, key) pairs at the float32-accurate tensor-core rate
+    # (bound_ms), and at the CUDA-core float32 rate (bound_simt_ms)
+    pos = sets[0][4].cpu().numpy()
+    live_tokens = int(sum(min(int(r.max()) + 1, mb * BLOCK) for r in pos))
+    pairs = int((np.minimum(pos, mb * BLOCK - 1) + 1).sum())
+    kv_bytes = 2 * live_tokens * n * d * (1 if quant else 4)
     if quant:
-        kv_bytes += 2 * live_tokens * HEADS * 4
-    io_bytes = 2 * SLOTS * HEADS * d * 4 + SLOTS * (mb + 1) * 4
-    flops = 4.0 * live_tokens * HEADS * d
+        kv_bytes += 2 * live_tokens * n * 4
+    io_bytes = 2 * b * s_q * n * d * 4 + b * (mb + s_q) * 4
+    flops = 4.0 * pairs * n * d
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    t_ops = flops / TF32X3_FLOPS * 1e3
+    return {"route": route, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "live_tokens": live_tokens, "kv_bytes": kv_bytes}
+            "bound_simt_ms": max(t_bytes, flops / FP32_FLOPS * 1e3),
+            "live_tokens": live_tokens, "kv_bytes": kv_bytes,
+            "flops": flops}
+
+
+def kernel_timing(torch, pa, dev, quant):
+    """Times at the serving decode shape: 8 slots, S_q = 1, rows at
+    depths 32..640 (what the traffic's prompts plus generated tokens
+    reach), over 6 pool copies so the live K/V does not sit in L2."""
+    depths = np.random.RandomState(SEED + 1).randint(32, 641, size=SLOTS)
+    return paged_timing(torch, pa, dev, quant, 1, depths, 6)
+
+
+def prefill_timing(torch, pa, dev, quant):
+    """Times at a prefill shape: one row, a 256-token tail at positions
+    256..511 (a prompt whose first 256 tokens hit the prefix cache)."""
+    return paged_timing(torch, pa, dev, quant, 256, np.array([512]), 6)
 
 
 # -- phase 3b: flash kernels against plain versions ---------------------
@@ -522,13 +600,13 @@ def flash_timing(torch, fa, dev):
     return res
 
 
-def bwd_budget(torch, fa):
-    """Registers, spills and CTAs per SM of the backward kernels at the
+def kernel_budget(torch, fa):
+    """Registers, spills and CTAs per SM of the flash kernels at the
     training head dim, as the card reports them."""
     out = {}
-    for kind in ("dq", "dkv"):
+    for kind in ("fwd", "dq", "dkv"):
         for dtype in ("float32", "bfloat16"):
-            got = fa.bwd_budget(kind, HIDDEN // HEADS, getattr(torch, dtype))
+            got = fa.budget(kind, HIDDEN // HEADS, getattr(torch, dtype))
             out["{} {}".format(kind, dtype)] = got
             log("budget {:<3} D{} {:<8}: {} registers, {} spill bytes, {} "
                 "KB shared, {} CTAs/SM".format(
@@ -651,6 +729,8 @@ def serving_phase(torch, dev):
     runs = {}
     # THE main path: counts at zero just before, read just after
     pa.launches = 0
+    for route in pa.route_launches:
+        pa.route_launches[route] = 0
     for kv in (None, "int8"):
         engine = serving.DecodeEngine(model, slots=SLOTS, total_len=MAX_LEN,
                                       kv_block_size=BLOCK, kv_dtype=kv,
@@ -666,7 +746,20 @@ def serving_phase(torch, dev):
     preempt = preemption_leg(torch, serving, generation, model, reqs[:8],
                              runs[None]["out"][:8], dev)
     launches = pa.launches
+    route_launches = dict(pa.route_launches)
     check(launches > 0, "the serving path never launched the kernel")
+    # every decode step (S_q = 1) takes the split-KV route and every
+    # prefill (a bucket of >= 8 tokens) the query-tiled one, once a layer
+    steps = sum(r["counts"].get("decode_steps", 0) for r in runs.values())
+    steps += preempt["decode_steps"]
+    prefills = sum(r["counts"].get("prefills", 0) for r in runs.values())
+    prefills += preempt["prefills"]
+    log("serving paged launches by route: {} (decode steps {}, prefills {}, "
+        "{} layers)".format(route_launches, steps, prefills, LAYERS))
+    check(route_launches == {"split": LAYERS * steps,
+                             "tiled": LAYERS * prefills},
+          "decode steps did not all take the split route and prefills the "
+          "tiled one")
     for kv in (None, "int8"):
         r = runs[kv]
         gen = sum(n for _, n in reqs)
@@ -694,7 +787,7 @@ def serving_phase(torch, dev):
             "tie)".format(kv or "float32", len(reqs) - r["ties"], len(reqs),
                           r["ties"]))
     check(pa.launches == launches, "the gather oracle launched the kernel")
-    return launches, runs, preempt
+    return launches, route_launches, runs, preempt
 
 
 def preemption_leg(torch, serving, generation, model, reqs, want, dev):
@@ -720,7 +813,8 @@ def preemption_leg(torch, serving, generation, model, reqs, want, dev):
     log("preemption kv=float32 equal to the unpressured run on {}/{} "
         "requests ({} at a tie)".format(len(reqs) - ties, len(reqs), ties))
     return {"preemptions": preempted, "wall": wall, "ties": ties,
-            "prefills": counts.get("prefills", 0)}
+            "prefills": counts.get("prefills", 0),
+            "decode_steps": counts.get("decode_steps", 0)}
 
 
 # -- phase 5: training at full width ------------------------------------
@@ -885,17 +979,25 @@ def main():
                 log("  {}: {}".format(name, line.strip()))
 
     max_err = kernel_cases(torch, pa, dev)
-    timing = {}
-    for quant in (False, True):
-        timing[quant] = kernel_timing(torch, pa, dev, quant)
-        t = timing[quant]
-        log("decode shape int8={:<5} kernel {:.4f} ms  plain {:.4f} ms  "
-            "sdpa {:.4f} ms  bound {:.4f} ms ({} live tokens, {} KV bytes / "
-            "3.35 TB/s)".format(quant, t["ms"], t["plain_ms"],
-                                t["library_ms"], t["bound_ms"],
-                                t["live_tokens"], t["kv_bytes"]))
+    timing = {"decode": {}, "prefill": {}}
+    for shape, fn in (("decode", kernel_timing), ("prefill", prefill_timing)):
+        for quant in (False, True):
+            t = timing[shape][quant] = fn(torch, pa, dev, quant)
+            log("{} shape int8={:<5} {} kernel {:.4f} ms per eager call "
+                "({:.4f} ms device time)  plain {:.4f} ms  sdpa {:.4f} ms "
+                "({:.4f} ms device time)  bound {:.4f} ms ({}, 3xTF32 at "
+                "165 TFLOP/s; {:.4f} ms at 67; {} live tokens, {} KV bytes, "
+                "{:.3g} flop)".format(
+                    shape, quant, t["route"], t["ms"], t["device_ms"],
+                    t["plain_ms"], t["library_ms"], t["library_device_ms"],
+                    t["bound_ms"], t["bound_by"], t["bound_simt_ms"],
+                    t["live_tokens"], t["kv_bytes"], t["flops"]))
+    check(timing["decode"][False]["route"] == "split"
+          and timing["prefill"][False]["route"] == "tiled",
+          "the decode shape must take the split route, the prefill shape "
+          "the tiled one")
 
-    budget = bwd_budget(torch, fa)
+    budget = kernel_budget(torch, fa)
     flash_err = flash_cases(torch, fa, dev)
     flash_t = flash_timing(torch, fa, dev)
     for name, ft in flash_t.items():
@@ -913,10 +1015,10 @@ def main():
             bwd_ms, flash_t["dq"]["library_ms"],
             bwd_ms / flash_t["dq"]["library_ms"]))
 
-    launches, runs, preempt = serving_phase(torch, dev)
+    launches, route_launches, runs, preempt = serving_phase(torch, dev)
     torch.cuda.empty_cache()
     flash_launches, train = training_phase(torch, dev)
-    t = timing[False]
+    t = timing["decode"][False]
     kernels = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
@@ -924,11 +1026,32 @@ def main():
         "replaces": "tensorflowonspark_tpu/ops/paged_attention.py:210",
         "launches": launches,
         "max_abs_err": max_err,
+        # the decode shape (split-KV route), the main path's decode
+        # steps; ms and library_ms per eager call, as for the flash rows,
+        # with the device times (CUDA-graph replays) beside them
         "ms": t["ms"],
+        "device_ms": t["device_ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"]}]}
+        "bound_simt_ms": t["bound_simt_ms"],
+        "library_ms": t["library_ms"],
+        "library_device_ms": t["library_device_ms"],
+        # launches: calls of the wrapper, one per layer per step; a split
+        # call launches two kernels, a tiled call one
+        "paged_routes": {
+            "split": {"kernels": ["paged_split_kernel",
+                                  "paged_combine_kernel"],
+                      "calls": route_launches["split"],
+                      "kernel_launches": 2 * route_launches["split"],
+                      "shape": "decode"},
+            "tiled": {"kernels": ["paged_attention_kernel"],
+                      "calls": route_launches["tiled"],
+                      "kernel_launches": route_launches["tiled"],
+                      "shape": "prefill"}},
+        "by_shape": {shape: {"float32": timing[shape][False],
+                             "int8": timing[shape][True]}
+                     for shape in timing}}]}
     for name, replaces, note in (
             ("fwd", 83, "scaled_dot_product_attention(is_causal=True)"),
             ("dq", 137, "autograd backward of that call: dq, dk and dv "
@@ -956,10 +1079,12 @@ def main():
         os.makedirs(args.out_dir, exist_ok=True)
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernels["kernels"],
-                       "timing": {"float32": timing[False],
-                                  "int8": timing[True]},
+                       "paged_timing": {
+                           shape: {"float32": timing[shape][False],
+                                   "int8": timing[shape][True]}
+                           for shape in timing},
                        "flash_timing": flash_t,
-                       "flash_bwd_budget": budget,
+                       "flash_budget": budget,
                        "serving": {kv or "float32": {
                            k: v for k, v in r.items() if k != "out"}
                            for kv, r in runs.items()},

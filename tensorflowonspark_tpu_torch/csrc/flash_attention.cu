@@ -43,57 +43,66 @@
 // FMAs, or 165 TFLOP/s of float32-accurate tensor-core math, over 3.35
 // TB/s), so the bound is OPERATIONS.
 //
-// The forward: a CTA of 256 threads stages each tile as float32 in
-// shared memory and runs every product as a shared-memory GEMM on CUDA
-// cores, a thread owning a 4 x (cols/16) register block (rows ty + 16 i,
-// columns tx + 16 j); row statistics reduce over the 16 lanes of a row.
-//
-// The backward (dQ and dK/dV) runs its five products on the tensor
-// cores, float32-accurate:
-//   S^T/S = scale (Q K^T), dP = dO V^T, dQ = scale (dS K),
-//   dK = scale (dS^T Q), dV = P^T dO
-// (Q enters unscaled and the scale multiplies the float32 result, as the
-// plain versions order it, so a bfloat16 Q stays exact in TF32).
+// All three run their seven products on the tensor cores,
+// float32-accurate:
+//   forward: S = scale (Q K^T), out = P V;
+//   backward: S^T/S = scale (Q K^T), dP = dO V^T, dQ = scale (dS K),
+//             dK = scale (dS^T Q), dV = P^T dO.
+// Q enters unscaled and the scale multiplies the float32 product, where
+// the TPU forward scales Q first. A bfloat16 Q then stays exact in TF32
+// (a scaled one is not, at D 32 or 128), and the forward's scores are the
+// same float32 numbers the backward recomputes P from, so P = exp(s -
+// lse) there sums to 1 as closely as the forward's row sum l.
 // - mma.sync.m16n8k8 TF32 with the 3xTF32 split: each float32 operand is
 //   x = hi + lo, hi = x rounded to TF32 as cvt.rna.tf32.f32 rounds (done
 //   in two integer operations), lo = x - hi (exact; the mma reads its
 //   TF32 part, ignoring the low 13 bits), and a b is accumulated in
 //   float32 as lo.hi + hi.lo first and hi.hi last. A bfloat16 input is
 //   exact in TF32 (lo = 0), so those passes are dropped at compile time:
-//   one pass for Q K^T and dO V^T, two for the products with P or dS. P
-//   and dS stay float32 operands, as in the TPU kernels (FlashAttention-2
-//   rounds them to 16 bits; this does not). P = 2^((s - lse) log2 e)
-//   through ex2.approx (2 ulp).
+//   one pass for Q K^T and dO V^T, two for the products with dS or the
+//   backward's P. The backward's P and dS stay float32 operands, as in
+//   the TPU kernels (FlashAttention-2 rounds them to 16 bits; this does
+//   not). The forward's P enters P V in V's dtype, as the TPU kernel
+//   casts it: float32 P is split like any float32 operand; bfloat16 P is
+//   exact in TF32, so P V is one pass. P = 2^((s - m) log2 e) through
+//   ex2.approx (2 ulp), m the running row max (forward) or lse.
 // - The passes run pass-major: all 8 lo.hi mmas of an 8-wide k step over
 //   a warp's 8 independent accumulators, then all hi.lo, then all hi.hi,
 //   so back-to-back mmas never wait on each other's accumulator (issued
 //   accumulator by accumulator, the three passes form a dependent chain,
 //   which ran markedly slower on the card).
-// - A CTA of 4 warps owns 64 rows (query rows in dQ, key rows in dK/dV),
-//   a warp 16 of them. dK/dV computes S^T = K Q^T directly, so P^T and
-//   dS^T come out with the warp's key rows. A sum over k takes its terms
-//   in any order A and B share: within each 8-wide k step, k slot t is
-//   column 2t and slot t + 4 column 2t + 1. A lane's two slots are then
-//   adjacent in a shared-memory row (one 8-byte read of Q, K, V or dO),
-//   and a product's C fragment (P, dS) is already the next product's A
-//   fragment, with no data moved between lanes.
-// - The resident tile (Q, dO in dQ; K, V in dK/dV) and a two-stage ring
-//   of streamed tiles (K/V in dQ; Q/dO with their lse/delta slices in
-//   dK/dV) are filled by 16-byte cp.async copies (4-byte for lse and
-//   delta); the next tile's copy overlaps this tile's products, and rows
-//   past S are zero-filled by the copy. Tiles keep the input dtype in
-//   shared memory, rows of D elements whose 16-byte chunks are
-//   XOR-swizzled by the row (sw() below): the pair reads along rows and
-//   the 4-byte reads down columns (the B operand of dS K, P^T dO, dS^T Q)
-//   both hit distinct banks at D >= 32 (float32) or D >= 64 (bfloat16).
+// - A CTA of 4 warps owns 64 rows (query rows in the forward and dQ, key
+//   rows in dK/dV), a warp 16 of them. dK/dV computes S^T = K Q^T
+//   directly, so P^T and dS^T come out with the warp's key rows. A sum
+//   over k takes its terms in any order A and B share: within each
+//   8-wide k step, k slot t is column 2t and slot t + 4 column 2t + 1. A
+//   lane's two slots are then adjacent in a shared-memory row (one 8-byte
+//   read of Q, K, V or dO), and a product's C fragment (P, dS) is already
+//   the next product's A fragment, with no data moved between lanes.
+// - The resident tile (Q in the forward; Q, dO in dQ; K, V in dK/dV) and
+//   a two-stage ring of streamed tiles (K/V in the forward and dQ; Q/dO
+//   with their lse/delta slices in dK/dV) are filled by 16-byte cp.async
+//   copies (4-byte for lse and delta); the next tile's copy overlaps this
+//   tile's products, and rows past S are zero-filled by the copy. Tiles
+//   keep the input dtype in shared memory, rows of D elements whose
+//   16-byte chunks are XOR-swizzled by the row (sw() below): the pair
+//   reads along rows and the 4-byte reads down columns (the B operand of
+//   P V, dS K, P^T dO, dS^T Q) both hit distinct banks at D >= 32
+//   (float32) or D >= 64 (bfloat16).
 // - Streamed tiles have 64 rows, or 32 at D 128: there the 16 x 128
 //   accumulators per warp leave too few registers for 64-wide score
 //   tiles, and two 32-row stages keep shared memory at 128 KB. At D 64,
-//   float32: 96 KB (dQ) and 97 KB (dK/dV) of shared memory, two CTAs per
-//   SM, no spills; tfos_flash_bwd_budget reads back every
+//   float32: 80 KB (forward), 96 KB (dQ) and 97 KB (dK/dV) of shared
+//   memory, two CTAs per SM; tfos_flash_budget reads back every
 //   instantiation's registers, spills and CTAs per SM. (32-row tiles at
 //   D 64 fit three dQ CTAs per SM but ran no faster on the card, and
 //   dK/dV slower.)
+// - The forward keeps its online softmax in registers: row g of a C
+//   fragment lies on the 4 lanes of a quad, so a row max takes two
+//   __shfl_xor_sync steps; the accumulator is rescaled by the running
+//   max's correction, each lane sums l over its own columns (the quad's
+//   sum is taken once, at the end), and P goes from C fragment to A
+//   fragment in registers, never through shared memory.
 // - Under causal masking a warp also skips the 8-column score tiles that
 //   lie wholly on the masked side of its own 16 rows.
 //
@@ -112,13 +121,6 @@
 
 namespace {
 
-constexpr int TILE = 64;             // rows of a Q tile and of a KV tile
-constexpr int TX = 16;               // threads across a tile's columns
-constexpr int TY = 16;               // threads across a tile's rows
-constexpr int THREADS = TX * TY;
-constexpr int RM = TILE / TY;        // tile rows per thread
-constexpr int RN = TILE / TX;        // score columns per thread
-constexpr int LP = TILE + 1;         // padded row of a score tile
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -126,177 +128,7 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// reductions over the 16 lanes that hold one tile row
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = TX / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = TX / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-// Rows [r0, r0 + TILE) of one (batch, head) slice of a [B, S, N, D]
-// tensor (``src`` at row 0 of that slice, rows ``stride`` apart) into
-// shared memory [TILE][LD] as float32 times ``mul``; rows past S read 0.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int r0, int S, int stride, float mul) {
-  for (int e = threadIdx.x; e < TILE * D; e += THREADS) {
-    const int r = e / D;
-    const int d = e % D;
-    const int s = r0 + r;
-    dst[r * LD + d] = s < S ? to_f(src[(size_t)s * stride + d]) * mul : 0.f;
-  }
-}
-
-// c[i][j] += sum_k A(ty + TY i, k) * B(k, tx + TX j) over shared memory,
-// with A(m, k) = A[m * AM + k * AK] and B(k, n) = B[k * BKS + n * BN].
-template <int NI, int NJ, int K, int AM, int AK, int BKS, int BN>
-__device__ __forceinline__ void mma(float (&c)[NI][NJ], const float* A,
-                                    const float* B) {
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[NI], b[NJ];
-#pragma unroll
-    for (int i = 0; i < NI; ++i) a[i] = A[(ty + TY * i) * AM + k * AK];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) b[j] = B[k * BKS + (tx + TX * j) * BN];
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
-  }
-}
-
-template <int NI, int NJ>
-__device__ __forceinline__ void zero(float (&c)[NI][NJ]) {
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) c[i][j] = 0.f;
-}
-
-// KV tiles a Q tile starting at row i0 must visit
-__device__ __forceinline__ int kv_tiles(int i0, int S_k, int causal) {
-  const int n = (S_k + TILE - 1) / TILE;
-  return causal ? min(n, (i0 + TILE - 1) / TILE + 1) : n;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ out, float* __restrict__ lse, int S_q,
-                 int S_k, int N, int causal, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int NJ = D / TX;
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // [TILE][LD], scaled
-  float* Ks = Qs + TILE * LD;        // [TILE][LD]
-  float* Vs = Ks + TILE * LD;        // [TILE][LD]
-  float* Ps = Vs + TILE * LD;        // [TILE][LP]
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / N;
-  const int h = bh % N;
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int stride = N * D;
-  const int i0 = qt * TILE;
-  const T* kb = k + ((size_t)b * S_k * N + h) * D;
-  const T* vb = v + ((size_t)b * S_k * N + h) * D;
-  const float* brow = bias ? bias + (size_t)b * S_k : nullptr;
-
-  load_tile<T, D, LD>(Qs, q + ((size_t)b * S_q * N + h) * D, i0, S_q, stride,
-                      scale);
-  float m[RM], l[RM], acc[RM][NJ];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  zero(acc);
-
-  const int n_kv = kv_tiles(i0, S_k, causal);
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int j0 = kt * TILE;
-    __syncthreads();                 // the last tile's readers are done
-    load_tile<T, D, LD>(Ks, kb, j0, S_k, stride, 1.f);
-    load_tile<T, D, LD>(Vs, vb, j0, S_k, stride, 1.f);
-    __syncthreads();
-    float s[RM][RN];
-    zero(s);
-    mma<RM, RN, D, LD, 1, 1, LD>(s, Qs, Ks);
-    float bj[RN];
-    bool kin[RN];
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int col = j0 + tx + TX * j;
-      kin[j] = col < S_k;
-      bj[j] = (brow != nullptr && kin[j]) ? brow[col] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int row = i0 + ty + TY * i;
-      float mb = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int col = j0 + tx + TX * j;
-        const bool ok = kin[j] && (!causal || col <= row);
-        s[i][j] = ok ? s[i][j] + bj[j] : -INFINITY;
-        mb = fmaxf(mb, s[i][j]);
-      }
-      mb = row_max(mb);
-      const float m_new = fmaxf(m[i], mb);
-      const float safe = (m_new == -INFINITY) ? 0.f : m_new;
-      const float corr = (m[i] == -INFINITY) ? 0.f : expf(m[i] - safe);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const float p = (s[i][j] == -INFINITY) ? 0.f : expf(s[i][j] - safe);
-        ps += p;
-        // P enters the P V product in V's dtype, as in the TPU kernel
-        Ps[(ty + TY * i) * LP + tx + TX * j] = to_f(from_f<T>(p));
-      }
-      l[i] = l[i] * corr + row_sum(ps);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-    mma<RM, NJ, TILE, LP, 1, LD, 1>(acc, Ps, Vs);
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = i0 + ty + TY * i;
-    if (row >= S_q) continue;
-    const float ls = (l[i] == 0.f) ? 1.f : l[i];
-    T* o = out + (((size_t)b * S_q + row) * N + h) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) o[tx + TX * j] = from_f<T>(acc[i][j] / ls);
-    if (tx == 0)
-      lse[(size_t)bh * S_q + row] = (l[i] == 0.f) ? -INFINITY : m[i] + logf(ls);
-  }
-}
-
-// -- backward: tensor cores (mma.sync TF32, 3xTF32) and a cp.async ring --
+// -- tensor cores (mma.sync TF32, 3xTF32) and a cp.async ring --
 
 constexpr int BWD_WARPS = 4;
 constexpr int BWD_THREADS = 32 * BWD_WARPS;
@@ -532,8 +364,9 @@ __device__ __forceinline__ void rows_by_rows(float (&c)[NT][4], const T* A,
 }
 
 // c[n] += A B[n] for every 8-column block n of the D columns of tile B,
-// whose rows k0..k0 + 7 are the contraction (A from a C fragment)
-template <typename T, int D>
+// whose rows k0..k0 + 7 are the contraction (A from a C fragment; ALO
+// false: A is exact in TF32, its lo pass is dropped)
+template <typename T, int D, bool ALO = true>
 __device__ __forceinline__ void a_by_cols(float (&c)[D / 8][4],
                                           const uint32_t (&ah)[4],
                                           const uint32_t (&al)[4], const T* B,
@@ -542,7 +375,7 @@ __device__ __forceinline__ void a_by_cols(float (&c)[D / 8][4],
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
     load_b_cols<T, D>(bh[n], bl[n], B, k0, 8 * n, g, t);
-  mma3_rows<true, is_f32<T>()>(c, ah, al, bh, bl, 0, D / 8);
+  mma3_rows<ALO, is_f32<T>()>(c, ah, al, bh, bl, 0, D / 8);
 }
 
 template <int NI>
@@ -563,6 +396,166 @@ template <>
 __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float x,
                                                       float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// p as P V takes it: in V's dtype, as the reference casts P before P V
+template <typename T>
+__device__ __forceinline__ float in_dtype(float p) {
+  return is_f32<T>() ? p : __bfloat162float(__float2bfloat16(p));
+}
+
+// shared memory of the forward: the resident 64-row Q tile and two
+// stages of the streamed K and V tiles
+template <typename T, int D>
+constexpr size_t fwd_smem() {
+  return (size_t)(BWD_ROWS * D + 4 * stream_rows<D>() * D) * sizeof(T);
+}
+
+// The forward shares the backward's CTA shape (BWD_WARPS warps of 16
+// query rows) and the dQ kernel's loop over streamed K/V tiles.
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ bias,
+                 T* __restrict__ out, float* __restrict__ lse, int S_q,
+                 int S_k, int N, int causal, float scale) {
+  constexpr int BM = BWD_ROWS;            // query rows of the CTA
+  constexpr int BN = stream_rows<D>();    // keys of a streamed tile
+  constexpr int NT = BN / 8;              // 8-key score tiles
+  constexpr int DT = D / 8;               // 8-wide steps over D
+  constexpr bool F32 = is_f32<T>();
+  extern __shared__ __align__(16) unsigned char fwd_smem_buf[];
+  T* Qs = reinterpret_cast<T*>(fwd_smem_buf);  // [BM][D], resident
+  T* Ks = Qs + BM * D;                         // [2][BN][D], ring
+  T* Vs = Ks + 2 * BN * D;                     // [2][BN][D], ring
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // most KV tiles first
+  const int b = bh / N;
+  const int h = bh % N;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int stride = N * D;
+  const int i0 = qt * BM;
+  const int wr = 16 * warp;                // the warp's first row in the tile
+  const T* kb = k + ((size_t)b * S_k * N + h) * D;
+  const T* vb = v + ((size_t)b * S_k * N + h) * D;
+  const float* brow = bias ? bias + (size_t)b * S_k : nullptr;
+  const int n_all = (S_k + BN - 1) / BN;
+  const int n_kv = causal ? min(n_all, (i0 + BM - 1) / BN + 1) : n_all;
+
+  stage<T, D, BM>(Qs, q + ((size_t)b * S_q * N + h) * D, i0, S_q, stride);
+  stage<T, D, BN>(Ks, kb, 0, S_k, stride);
+  stage<T, D, BN>(Vs, vb, 0, S_k, stride);
+  cp_commit();
+
+  // online softmax of rows g and g + 8 of the warp's 16: the running max
+  // m is shared by the row's quad (lanes 4g..4g + 3); l is this lane's
+  // share of the row sum, over its own columns, reduced at the end
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  const int last_row = i0 + wr + 15;
+  float acc[DT][4];
+  zero4(acc);
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    if (kt + 1 < n_kv) {
+      const int nxt = (kt + 1) & 1;
+      stage<T, D, BN>(Ks + nxt * BN * D, kb, (kt + 1) * BN, S_k, stride);
+      stage<T, D, BN>(Vs + nxt * BN * D, vb, (kt + 1) * BN, S_k, stride);
+      cp_commit();
+      cp_wait<1>();                        // tile kt has landed
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int j0 = kt * BN;
+    const T* Kt = Ks + (kt & 1) * BN * D;
+    const T* Vt = Vs + (kt & 1) * BN * D;
+    // causal: score tiles whose keys all follow the warp's last row are
+    // masked whole
+    const int nt =
+        !causal ? NT : (last_row < j0 ? 0 : min(NT, (last_row - j0) / 8 + 1));
+    if (nt > 0) {
+      float s[NT][4];
+      zero4(s);
+      rows_by_rows<T, D, NT>(s, Qs, Kt, wr, 0, nt, g, t);    // Q K^T
+      // s = scale S + bias, -inf where masked; the tile's row maxima
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = i0 + wr + g + 8 * (e >> 1);
+          const int col = j0 + 8 * j + 2 * t + (e & 1);
+          const bool kin = col < S_k;
+          const bool ok = kin && (!causal || col <= row);
+          const float sv =
+              ok ? s[j][e] * scale + ((brow != nullptr) ? brow[col] : 0.f)
+                 : -INFINITY;
+          s[j][e] = sv;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+        }
+      }
+      float safe[2], corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        safe[i] = (m_new == -INFINITY) ? 0.f : m_new;
+        corr[i] = (m[i] == -INFINITY) ? 0.f : ex2((m[i] - safe[i]) * LOG2E);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+      // P in place in s: l sums the float32 P, P V takes it in V's dtype
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float sv = s[j][e];
+          const float p = (sv == -INFINITY)
+                              ? 0.f
+                              : ex2((sv - safe[e >> 1]) * LOG2E);
+          l[e >> 1] += p;
+          s[j][e] = in_dtype<T>(p);
+        }
+      }
+      // acc += P V: the 8 keys of score tile j are one k step
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j < nt) {
+          uint32_t ah[4], al[4];
+          c_to_a(s[j], ah, al);
+          a_by_cols<T, D, F32>(acc, ah, al, Vt, 8 * j, g, t);
+        }
+      }
+    }
+    __syncthreads();                       // stage kt & 1 is refilled next
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
+    const int row = i0 + wr + g + 8 * i;
+    if (row >= S_q) continue;
+    const float ls = (l[i] == 0.f) ? 1.f : l[i];
+    T* o = out + (((size_t)b * S_q + row) * N + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      store2<T>(o + 8 * n, acc[n][2 * i] / ls, acc[n][2 * i + 1] / ls);
+    if (t == 0)
+      lse[(size_t)bh * S_q + row] = (l[i] == 0.f) ? -INFINITY : m[i] + logf(ls);
+  }
 }
 
 // shared memory of the backward kernels: the resident 64-row tiles (2),
@@ -844,11 +837,11 @@ template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, const float* bias,
         void* out, float* lse, int B, int S_q, int S_k, int N, int causal,
         float scale, cudaStream_t st) {
-  const size_t smem = (size_t)(3 * TILE * (D + 1) + TILE * LP) * sizeof(float);
+  const size_t smem = fwd_smem<T, D>();
   auto kern = flash_fwd_kernel<T, D>;
   if (int e = prepare(kern, smem)) return e;
-  const dim3 grid((S_q + TILE - 1) / TILE, B * N);
-  kern<<<grid, THREADS, smem, st>>>(
+  const dim3 grid(B * N, (S_q + BWD_ROWS - 1) / BWD_ROWS);
+  kern<<<grid, BWD_THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<T*>(out), lse, S_q, S_k, N,
       causal, scale);
@@ -889,7 +882,7 @@ int dkv(const void* q, const void* k, const void* v, const float* bias,
 }
 
 // out = {CTAs per SM, registers per thread, local (spill) bytes per
-// thread, dynamic shared bytes} of one backward instantiation
+// thread, dynamic shared bytes} of one kernel instantiation
 template <typename K>
 int budget(K kern, size_t smem, int* out) {
   if (int e = prepare(kern, smem)) return e;
@@ -905,6 +898,11 @@ int budget(K kern, size_t smem, int* out) {
   out[2] = static_cast<int>(a.localSizeBytes);
   out[3] = static_cast<int>(smem);
   return 0;
+}
+
+template <typename T, int D>
+int fwd_budget(int* out) {
+  return budget(flash_fwd_kernel<T, D>, fwd_smem<T, D>(), out);
 }
 
 template <typename T, int D>
@@ -976,10 +974,11 @@ extern "C" int tfos_flash_dkv(const void* q, const void* k, const void* v,
                       dv_out, B, S_q, S_k, N, causal, scale, st);
 }
 
-// The resource budget of the dQ (``kernel`` 0) or dK/dV (1) kernel for
-// head dim D and dtype: out[4] = {CTAs per SM, registers per thread,
-// local (spill) bytes per thread, dynamic shared-memory bytes}.
-extern "C" int tfos_flash_bwd_budget(int kernel, int D, int bf16, int* out) {
+// The resource budget of the dQ (``kernel`` 0), dK/dV (1) or forward (2)
+// kernel for head dim D and dtype: out[4] = {CTAs per SM, registers per
+// thread, local (spill) bytes per thread, dynamic shared-memory bytes}.
+extern "C" int tfos_flash_budget(int kernel, int D, int bf16, int* out) {
   if (kernel == 0) TFOS_FLASH_DISPATCH(dq_budget, bf16, D, out);
-  TFOS_FLASH_DISPATCH(dkv_budget, bf16, D, out);
+  if (kernel == 1) TFOS_FLASH_DISPATCH(dkv_budget, bf16, D, out);
+  TFOS_FLASH_DISPATCH(fwd_budget, bf16, D, out);
 }

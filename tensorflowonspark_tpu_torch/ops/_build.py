@@ -4,7 +4,7 @@ Each source is compiled by ``nvcc`` into a shared library with a plain
 C interface and loaded with ``ctypes`` — seconds per source, where a
 build that includes PyTorch's headers takes minutes. One source may
 export several C functions (``flash_attention.cu``: forward, dQ, dK/dV
-and the backward's resource query); :data:`KERNELS` lists each
+and the kernels' resource query); :data:`KERNELS` lists each
 source's symbols. Builds happen at first use (never at import, so the
 CPU tests import every module on a machine without ``nvcc``), from the
 sources in the package alone, into
@@ -41,12 +41,13 @@ _F = ctypes.c_float
 KERNELS = {
     "paged_attention": {
         "tfos_paged_attention": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+        "tfos_paged_attention_split": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
     },
     "flash_attention": {
         "tfos_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
         "tfos_flash_dq": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
         "tfos_flash_dkv": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
-        "tfos_flash_bwd_budget": [_I] * 3 + [_P],
+        "tfos_flash_budget": [_I] * 3 + [_P],
     },
 }
 

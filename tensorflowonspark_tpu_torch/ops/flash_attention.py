@@ -22,12 +22,12 @@ Two formulations share that contract:
   bound through ``ctypes``: ``tfos_flash_fwd`` replaces the Pallas
   ``_fwd_kernel``, ``tfos_flash_dq`` ``_dq_kernel``, ``tfos_flash_dkv``
   ``_dkv_kernel``. Bound on the H100: OPERATIONS at the training shape.
-  The forward multiplies float32 on CUDA cores; dQ and dK/dV run their
-  five products on the tensor cores (``mma.sync`` TF32) with the 3xTF32
-  split, so they stay float32-accurate (P and dS too; cuBLAS's TF32
+  All three run their products on the tensor cores (``mma.sync`` TF32)
+  with the 3xTF32 split, so they stay float32-accurate (cuBLAS's TF32
   stays off), and stream their tiles through a two-stage ``cp.async``
-  ring. The design is in the source's header and the measured share of
-  the bound in PERF.md. Head dims 16/32/64/128, float32 or bfloat16
+  ring; the forward keeps its online softmax in registers. The design is
+  in the source's header and the measured share of the bound in
+  PERF.md. Head dims 16/32/64/128, float32 or bfloat16
   inputs with float32 statistics and accumulators.
 - the **plain versions** — :func:`_reference_lse` (forward),
   :func:`_dq_plain` and :func:`_dkv_plain` (backward, the kernels'
@@ -224,6 +224,11 @@ def _check_inputs(q, k, v, bias, causal, extra=()):
     return b, s_q, s_k, n, d
 
 
+def _check_aligned(tensors, names):
+    _check(all(t.data_ptr() % 16 == 0 for t in tensors),
+           names + " must start on a 16-byte boundary (cp.async)")
+
+
 def _check_bwd_inputs(q, k, v, bias, dout, lse, delta, causal):
     dims = _check_inputs(q, k, v, bias, causal, (dout, lse, delta))
     b, s_q, _, n, _ = dims
@@ -232,8 +237,7 @@ def _check_bwd_inputs(q, k, v, bias, dout, lse, delta, causal):
     _check(lse.dtype == delta.dtype == torch.float32
            and tuple(lse.shape) == tuple(delta.shape) == (b * n, s_q),
            "lse and delta must be float32 [B*N, S_q]")
-    _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, dout)),
-           "q, k, v and dO must start on a 16-byte boundary (cp.async)")
+    _check_aligned((q, k, v, dout), "q, k, v and dO")
     return dims
 
 
@@ -259,6 +263,7 @@ def _kernel_fwd(q, k, v, bias, causal, scale):
     from tensorflowonspark_tpu_torch.ops import _build
 
     b, s_q, s_k, n, d = _check_inputs(q, k, v, bias, causal)
+    _check_aligned((q, k, v), "q, k and v")
     out = torch.empty_like(q)
     lse = torch.empty((b * n, s_q), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
@@ -303,20 +308,23 @@ def _kernel_dkv(q, k, v, bias, dout, lse, delta, causal, scale):
     return dk, dv
 
 
-def bwd_budget(kind, d, dtype):
-    """The resources of one backward kernel instantiation on the current
-    card: ``{"ctas_per_sm", "registers", "spill_bytes", "smem_bytes"}``
-    for ``kind`` "dq" or "dkv", head dim ``d`` and input ``dtype``
+#: the kernels :func:`budget` reads, in the C interface's order
+BUDGET_KINDS = ("dq", "dkv", "fwd")
+
+
+def budget(kind, d, dtype):
+    """The resources of one kernel instantiation on the current card:
+    ``{"ctas_per_sm", "registers", "spill_bytes", "smem_bytes"}`` for
+    ``kind`` "fwd", "dq" or "dkv", head dim ``d`` and input ``dtype``
     (registers and local-memory bytes per thread as the compiler left
     them; CTAs per SM from the card's occupancy calculator)."""
     from tensorflowonspark_tpu_torch.ops import _build
 
-    _check(kind in ("dq", "dkv") and d in HEAD_DIMS and dtype in DTYPES,
-           "no backward kernel {} at head_dim {} in {}".format(kind, d,
-                                                              dtype))
+    _check(kind in BUDGET_KINDS and d in HEAD_DIMS and dtype in DTYPES,
+           "no kernel {} at head_dim {} in {}".format(kind, d, dtype))
     out = (ctypes.c_int * 4)()
-    rc = _build.load("flash_attention").tfos_flash_bwd_budget(
-        int(kind == "dkv"), d, int(dtype == torch.bfloat16), out)
+    rc = _build.load("flash_attention").tfos_flash_budget(
+        BUDGET_KINDS.index(kind), d, int(dtype == torch.bfloat16), out)
     if rc != 0:
         raise RuntimeError("flash_attention budget query failed: CUDA error "
                            "{}".format(rc))

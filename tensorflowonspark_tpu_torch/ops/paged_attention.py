@@ -14,22 +14,33 @@ formulation.
 
 Three formulations share that contract:
 
-- the **kernel** (:func:`_kernel`) — hand-written CUDA C++ for Hopper
+- the **kernels** (:func:`_kernel`) — hand-written CUDA C++ for Hopper
   (``csrc/paged_attention.cu``), built with ``nvcc`` at first launch
-  and bound through ``ctypes``. It replaces the TPU Pallas kernel
+  and bound through ``ctypes``. They replace the TPU Pallas kernel
   ``tensorflowonspark_tpu/ops/paged_attention.py::_paged_kernel``
-  (wrapper ``_pallas``). Bound on the H100: BYTES — a decode step does
-  ~2 flops per K/V byte it reads, far below the ~20 flop/byte ridge of
-  fp32 CUDA-core math, so the floor is the live K/V (+ scales) over
-  3.35 TB/s. What the design does about it: each CTA walks only its
-  row's LIVE blocks through the table (dead slots are never loaded,
-  so traffic tracks live tokens, not table width), int8 pools are
-  loaded as int8 and dequantized in shared memory (a quarter of the
-  fp32 bytes), and K/V are read once per query tile rather than once
-  per query row. It is the simple first version: fp32 math on CUDA
-  cores, no tensor cores, no TMA, no split-KV, so a decode step with
-  few rows leaves most SMs idle (see PERF.md for its measured share
-  of the bound).
+  (wrapper ``_pallas``). Bound on the H100: BYTES at decode — a step
+  does ~2 flops per K/V byte it reads, so the floor is the live K/V
+  (+ scales) over 3.35 TB/s. Two routes, chosen by the call's shape
+  (:func:`_route`):
+
+  - **split-KV** (S_q = :data:`SPLIT_MAX_QUERIES` = 1: every decode
+    step): the flash-decoding schedule. One CTA per
+    :data:`SPLIT_BLOCKS` consecutive live pool blocks of a (row, head),
+    so a decode step of 8 rows x 12 heads still spreads over every SM;
+    16-byte loads of K/V rows straight into registers (int8 codes
+    dequantized there), dots reduced across lanes by shuffles; each
+    split's partial (m, l, acc) goes to a float32 workspace allocated
+    here, and a second kernel merges a (row, head)'s splits in split
+    order, so the result is deterministic;
+  - **query-tiled** (every call with more than one query per row:
+    prefill tails): one CTA per 16-query tile walks the row's live
+    blocks, staging each in shared memory.
+
+  Both walk only a row's LIVE blocks through the table (dead slots are
+  never loaded, so traffic tracks live tokens, not table width) and
+  load int8 pools as int8 (a quarter of the float bytes). The design is
+  in the source's header and the measured share of the bound in
+  PERF.md.
 - :func:`_blockwise` — the same online-softmax recurrence in plain
   PyTorch, one live block per row per iteration; the CPU path and the
   kernel's oracle on the card.
@@ -45,21 +56,41 @@ import threading
 
 import torch
 
-#: kernel launches made by :func:`_kernel` (the only place that adds
-#: to it) — how a run shows that its path went through the kernel
+#: calls of :func:`_kernel` that launched (the only place that adds to
+#: it) — how a run shows that its path went through the kernels
 launches = 0
+#: the same calls by route: "split" (two kernel launches a call: the
+#: split-KV kernel, then the combine kernel) or "tiled" (one launch of
+#: the query-tiled kernel)
+route_launches = {"split": 0, "tiled": 0}
 _launches_lock = threading.Lock()  # engines launch from their own threads
 
-#: query rows one CTA of the kernel handles (csrc/paged_attention.cu
-#: ``QT``); prefill tails longer than this go through the grid's
-#: query-tile dimension
+#: query rows one CTA of the query-tiled kernel handles
+#: (csrc/paged_attention.cu ``QT``); prefill tails longer than this go
+#: through the grid's query-tile dimension
 QUERY_TILE = 16
 
-#: largest block_size the kernel takes (one key per lane of a warp)
+#: calls with at most this many queries per row take the split-KV
+#: route: every decode step (S_q = 1), the only shape the kernel is built
+#: for (it holds the row's one query and accumulator in registers)
+SPLIT_MAX_QUERIES = 1
+
+#: pool blocks one CTA of the split-KV kernel takes (C): a decode step of
+#: 8 rows x 12 heads at depths 32..640 (block 16) has ~400 live CTAs
+#: at C = 4, about 3 per SM of the H100's 132, and each of a CTA's 4
+#: warps streams one block
+SPLIT_BLOCKS = 4
+
+#: head dims the split-KV kernel is instantiated for (a key row splits
+#: into a power of two of 16-byte lanes); others take the tiled route
+SPLIT_HEAD_DIMS = (16, 32, 64, 128)
+
+#: largest block_size the kernels take (the tiled kernel scores one key
+#: per lane of a warp)
 MAX_BLOCK_SIZE = 32
 
-#: largest head_dim the kernel takes (eight accumulator registers per
-#: lane per query row)
+#: largest head_dim the kernels take (the tiled kernel keeps eight
+#: accumulator registers per lane per query row)
 MAX_HEAD_DIM = 256
 
 
@@ -175,11 +206,20 @@ def _check(cond, msg):
         raise ValueError("paged_attention kernel: " + msg)
 
 
+def _route(s_q, head_dim):
+    """``"split"`` or ``"tiled"``: the kernel a call with ``s_q`` queries
+    per row at ``head_dim`` launches."""
+    if s_q <= SPLIT_MAX_QUERIES and head_dim in SPLIT_HEAD_DIMS:
+        return "split"
+    return "tiled"
+
+
 def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
             v_scale=None):
-    """Launch ``csrc/paged_attention.cu`` on PyTorch's current stream.
-    Checks everything the kernel does not take and raises on it; the
-    output is allocated here. Table entries must be pool rows
+    """Launch ``csrc/paged_attention.cu`` on PyTorch's current stream,
+    on the route :func:`_route` picks. Checks everything the kernels do
+    not take and raises on it; the output (and the split route's
+    workspace) is allocated here. Table entries must be pool rows
     ``0..P-1`` (inactive slots point at the scratch row 0)."""
     global launches
     from tensorflowonspark_tpu_torch.ops import _build
@@ -216,26 +256,44 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
            "block_size must be in [1, {}]".format(MAX_BLOCK_SIZE))
     _check(1 <= d <= MAX_HEAD_DIM,
            "head_dim must be in [1, {}]".format(MAX_HEAD_DIM))
-    _check(2 * bs_blk * (d + 1) * 4 + QUERY_TILE * d * 4 <= 48 * 1024,
-           "block_size x head_dim too large for shared memory")
+    route = _route(s_q, d)
+    mb = block_table.shape[1]
+    if route == "split":
+        _check(mb >= 1, "block_table needs at least one column")
+        _check(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
+               "pools must start on a 16-byte boundary (16-byte loads)")
+    else:
+        _check(2 * bs_blk * (d + 1) * 4 + QUERY_TILE * d * 4 <= 48 * 1024,
+               "block_size x head_dim too large for shared memory")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     lib = _build.load("paged_attention")
     vp = ctypes.c_void_p
-    rc = lib.tfos_paged_attention(
-        vp(q.data_ptr()), vp(k_pool.data_ptr()), vp(v_pool.data_ptr()),
-        vp(k_scale.data_ptr() if quantized else 0),
-        vp(v_scale.data_ptr() if quantized else 0),
-        vp(block_table.data_ptr()), vp(pos.data_ptr()),
-        vp(out.data_ptr()), b, s_q, n, d, p_rows, bs_blk,
-        block_table.shape[1], ctypes.c_float(scale), int(quantized),
-        vp(torch.cuda.current_stream(q.device).cuda_stream))
+    common = (vp(q.data_ptr()), vp(k_pool.data_ptr()), vp(v_pool.data_ptr()),
+              vp(k_scale.data_ptr() if quantized else 0),
+              vp(v_scale.data_ptr() if quantized else 0),
+              vp(block_table.data_ptr()), vp(pos.data_ptr()))
+    stream = vp(torch.cuda.current_stream(q.device).cuda_stream)
+    if route == "split":
+        splits = -(-mb // SPLIT_BLOCKS)
+        ws = torch.empty((b, n, splits, d + 2), dtype=torch.float32,
+                         device=q.device)
+        rc = lib.tfos_paged_attention_split(
+            *common, vp(ws.data_ptr()), vp(out.data_ptr()), b, n, d, p_rows,
+            bs_blk, mb, SPLIT_BLOCKS, ctypes.c_float(scale), int(quantized),
+            stream)
+    else:
+        rc = lib.tfos_paged_attention(
+            *common, vp(out.data_ptr()), b, s_q, n, d, p_rows, bs_blk, mb,
+            ctypes.c_float(scale), int(quantized), stream)
     if rc != 0:
         raise RuntimeError(
-            "paged_attention kernel launch failed: CUDA error {}".format(rc))
+            "paged_attention {} kernel launch failed: CUDA error {}".format(
+                route, rc))
     with _launches_lock:
         launches += 1
+        route_launches[route] += 1
     return out
 
 
@@ -243,8 +301,8 @@ def paged_attention(q, k_pool, v_pool, block_table, pos, scale=None,
                     impl=None, k_scale=None, v_scale=None):
     """Attend ``q`` against paged K/V through ``block_table``.
 
-    ``impl``: None picks the kernel for CUDA tensors and
-    :func:`_blockwise` for CPU tensors; ``"kernel"`` forces the kernel
+    ``impl``: None picks the kernels for CUDA tensors and
+    :func:`_blockwise` for CPU tensors; ``"kernel"`` forces the kernels
     (CUDA tensors only), ``"blockwise"``/``"gather"`` the plain
     versions on any device. ``k_scale``/``v_scale`` (both or neither)
     mark the pools as int8 codes."""

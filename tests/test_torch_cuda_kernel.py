@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (``cuda`` marker; skips where torch sees no CUDA device):
-paged attention, and the three flash-attention kernels (forward, dQ,
-dK/dV), with the backward's two-stage copy ring run through many tiles
-and a ragged last one, its 32-row tiles at D 128, its determinism (no
-atomics) and its register budget at D 64. ``chip_smoke.py`` runs the
+paged attention on both routes (split-KV and query-tiled), with depths
+on and off split boundaries, its determinism and NaN-poisoned dead pool
+rows; and the three flash-attention kernels (forward, dQ, dK/dV), with
+the two-stage copy ring run through many tiles and a ragged last one,
+32-row tiles at D 128, the backward's determinism (no atomics) and the
+register budgets at D 64. ``chip_smoke.py`` runs the
 same comparisons at the main paths' widths; these are the small-shape
 versions for ``pytest -m cuda``."""
 
@@ -26,12 +28,10 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
-@pytest.mark.parametrize("s_q", [1, 8, 40])
-def test_kernel_matches_blockwise(cuda, s_q, quant):
-    rng = np.random.RandomState(s_q)
-    b, n, d, bs, mb = 3, 4, 16, 8, 6
+def _paged_case(dev, rng, s_q, quant, depths, b=3, n=4, d=16, bs=8, mb=6,
+                scratch_row=None):
+    """Pools, a table of distinct pool rows per row (scratch 0 past each
+    row's live blocks) and positions ending at each row's depth."""
     pool = b * mb + 1
     q = torch.from_numpy(rng.randn(b, s_q, n, d).astype(np.float32))
     kp = torch.from_numpy(rng.randn(pool, bs, n, d).astype(np.float32))
@@ -39,22 +39,117 @@ def test_kernel_matches_blockwise(cuda, s_q, quant):
     table = torch.from_numpy(
         (rng.permutation(pool - 1)[:b * mb] + 1).reshape(b, mb)
         .astype(np.int32))
-    table[2] = 0  # an inactive slot: all scratch
-    depth = torch.tensor([[mb * bs - 3], [mb * bs + 5], [s_q]])
+    if scratch_row is not None:
+        table[scratch_row] = 0  # an inactive slot: all scratch
+    depth = torch.tensor(depths)[:, None]
     pos = (depth - s_q + torch.arange(s_q)[None, :]).to(torch.int32)
+    for r in range(b):
+        live = min((int(pos[r].max()) + bs) // bs, mb)
+        table[r, live:] = 0
     scales = {}
     if quant:
         kp, ks = pa.quantize_kv(kp)
         vp, vs = pa.quantize_kv(vp)
-        scales = {"k_scale": ks.to(cuda), "v_scale": vs.to(cuda)}
-    args = [t.to(cuda) for t in (q, kp, vp, table, pos)]
-    before = pa.launches
+        scales = {"k_scale": ks.to(dev), "v_scale": vs.to(dev)}
+    return [t.to(dev) for t in (q, kp, vp, table, pos)], scales
+
+
+def _launch(args, scales):
+    """One kernel call; returns the output and the route it took."""
+    before = dict(pa.route_launches)
     got = pa.paged_attention(*args, **scales)
     torch.cuda.synchronize()
+    moved = [r for r in before if pa.route_launches[r] != before[r]]
+    assert len(moved) == 1 and pa.route_launches[moved[0]] == \
+        before[moved[0]] + 1
+    return got, moved[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("s_q", [1, 2, 4, 8, 16, 40])
+def test_kernel_matches_blockwise(cuda, s_q, quant):
+    """Both routes: split-KV for decode (S_q = 1), query-tiled for every
+    wider window; rows at depth mid-table, overshooting the table, and
+    all scratch."""
+    rng = np.random.RandomState(s_q)
+    mb, bs = 6, 8
+    args, scales = _paged_case(cuda, rng, s_q, quant,
+                               [mb * bs - 3, mb * bs + 5, s_q], mb=mb, bs=bs,
+                               scratch_row=2)
+    before = pa.launches
+    got, route = _launch(args, scales)
     assert pa.launches == before + 1
+    assert route == ("split" if s_q <= pa.SPLIT_MAX_QUERIES else "tiled")
     want = pa.paged_attention(*args, impl="blockwise", **scales)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_split_route_depths_on_and_off_split_boundaries(cuda, d, quant):
+    """Rows whose depth ends exactly on a split boundary (C blocks), one
+    token past it, one short of it, and mid-block, at every head dim the
+    split kernel is built for; block 16 and a table wider than the
+    deepest row, so some splits hold no live block."""
+    rng = np.random.RandomState(d)
+    bs, mb = 16, 20
+    span = pa.SPLIT_BLOCKS * bs
+    depths = [span, span + 1, 2 * span - 1, 2 * span + bs // 2, 1]
+    args, scales = _paged_case(cuda, rng, 1, quant, depths, b=len(depths),
+                               n=2, d=d, bs=bs, mb=mb)
+    got, route = _launch(args, scales)
+    assert route == "split"
+    want = pa.paged_attention(*args, impl="blockwise", **scales)
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_q", [1, 16], ids=["split", "tiled"])
+def test_paged_kernel_is_deterministic(cuda, s_q):
+    """The split route merges its partial states in a fixed order (no
+    atomics): two calls on the same inputs are bitwise equal."""
+    rng = np.random.RandomState(7)
+    args, scales = _paged_case(cuda, rng, s_q, False, [90, 47, 120],
+                               bs=16, mb=8)
+    first, _ = _launch(args, scales)
+    second, _ = _launch(args, scales)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_split_route_never_reads_dead_rows(cuda, quant):
+    """Pool rows outside every row's live blocks are NaN-poisoned (int8:
+    their scales): one read would turn an output NaN, so the split
+    route's output must stay bitwise unchanged."""
+    rng = np.random.RandomState(11)
+    bs, mb = 8, 6
+    args, scales = _paged_case(cuda, rng, 1, quant, [13, mb * bs + 5, 1],
+                               bs=bs, mb=mb, scratch_row=2)
+    clean, route = _launch(args, scales)
+    assert route == "split"
+    table, pos = args[3].cpu(), args[4].cpu()
+    live = set()
+    for r in range(table.shape[0]):
+        nblk = min((int(pos[r].max()) + bs) // bs, mb)
+        live |= set(int(x) for x in table[r, :nblk])
+    dead = torch.tensor(sorted(set(range(args[1].shape[0])) - live),
+                        device=cuda, dtype=torch.long)
+    assert dead.numel() > 0
+    if quant:
+        scales = {k: v.clone() for k, v in scales.items()}
+        for v in scales.values():
+            v[dead] = float("nan")
+    else:
+        args = list(args)
+        args[1], args[2] = args[1].clone(), args[2].clone()
+        args[1][dead] = float("nan")
+        args[2][dead] = float("nan")
+    poisoned, _ = _launch(args, scales)
+    assert torch.equal(poisoned, clean)
 
 
 #: flash kernels against their plain versions on the same inputs. lse
@@ -175,7 +270,20 @@ def test_flash_backward_budget_at_d64(cuda, kind, dtype):
     """At the training head dim the backward kernels keep every value in
     registers (no local-memory spills) and fit at least one CTA per SM
     within the card's shared memory."""
-    got = fa.bwd_budget(kind, 64, dtype)
+    got = fa.budget(kind, 64, dtype)
     assert got["spill_bytes"] == 0
     assert got["ctas_per_sm"] >= 1
+    assert 0 < got["smem_bytes"] <= 227 * 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_forward_budget_at_d64(cuda, dtype):
+    """The forward on the tensor cores keeps its scores, online softmax
+    and accumulators in registers at the training head dim: no spills,
+    and at least two CTAs per SM."""
+    got = fa.budget("fwd", 64, dtype)
+    assert got["spill_bytes"] == 0
+    assert got["ctas_per_sm"] >= 2
     assert 0 < got["smem_bytes"] <= 227 * 1024

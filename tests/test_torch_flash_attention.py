@@ -280,3 +280,72 @@ def test_bfloat16_inputs_drop_their_lo_passes_exactly():
     for x, y in zip(_emulated_bwd(*args, passes=3),
                     _emulated_bwd(*args, passes=3, input_lo=False)):
         assert torch.equal(x, y)
+
+
+# -- the forward kernel's tensor-core arithmetic, emulated --------------
+
+
+def _emulated_fwd(q, k, v, causal, scale, qk_passes=3, pv_passes=3,
+                  input_lo=True, bf16_p=False):
+    """(out [B, S, N, D], lse [B, N, S]) in the forward kernel's order:
+    S = Q K^T on the unscaled Q through ``qk_passes`` TF32 passes (3:
+    3xTF32; ``input_lo`` False drops the lo parts of q, k, v, as the
+    bfloat16 kernel does), the scale on the float32 S, P = exp(s - m) in
+    float32 with l its float32 row sum, P cast to V's dtype (``bf16_p``:
+    rounded to bfloat16, whose lo part the kernel drops), then P V
+    through ``pv_passes`` passes over l."""
+
+    def mm(a, b, passes, a_lo, b_lo):
+        if passes == 1:
+            return _mm(a, b, False, False)
+        return _mm(a, b, a_lo, b_lo)
+
+    s_q, s_k = q.shape[1], k.shape[1]
+    qf, kf, vf = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    s = mm(qf, kf.transpose(-1, -2), qk_passes, input_lo, input_lo) * scale
+    if causal:
+        s = s.masked_fill(~fa._tril(s_q, s_k, q.device), float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isneginf(m), torch.zeros_like(m), m))
+    p = p.masked_fill(torch.isneginf(s), 0.0)
+    l = p.sum(-1, keepdim=True)
+    if bf16_p:
+        p = p.to(torch.bfloat16).float()
+    acc = mm(p, vf, pv_passes, not bf16_p, input_lo)
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    lse = torch.where(l == 0, torch.full_like(l, float("-inf")),
+                      m + torch.log(l_safe))
+    return (acc / l_safe).permute(0, 2, 1, 3), lse[..., 0]
+
+
+def test_forward_three_tf32_passes_hold_float32_limits_one_on_pv_does_not():
+    """The forward kernel's 3xTF32 products keep out and lse within 1e-5
+    of max |reference| (10x under the card's FLASH_F32_RTOL) of the JAX
+    package's interpreted Pallas forward at a causal S 128, D 64 shape;
+    a single TF32 pass on P V (with Q K^T still 3xTF32) misses
+    FLASH_F32_RTOL on out, which is why the kernel splits P as well."""
+    q, k, v, _, _, _ = _inputs(1, 128, 128, 2, 64, False, 5)
+    want_out, want_lse = (torch.from_numpy(np.array(x)) for x in jax_flash_lse(
+        q, k, v, causal=True, block_q=64, block_k=64, force_pallas=True,
+        interpret=True))
+    args = (_t(q), _t(k), _t(v), True, 64 ** -0.5)
+    out, lse = _emulated_fwd(*args)
+    for err in _rel_errors((out, lse), (want_out, want_lse)):
+        assert err <= 1e-5
+    out, _ = _emulated_fwd(*args, pv_passes=1)
+    assert _rel_errors((out,), (want_out,))[0] > FLASH_F32_RTOL
+
+
+def test_forward_bfloat16_p_and_v_need_one_pass_exactly():
+    """With bfloat16 inputs and P rounded to bfloat16 before P V (as the
+    kernel casts P to V's dtype), both operands of both products are
+    exact in TF32: the kernel's single passes give the same bits as all
+    three."""
+    q, k, v, _, _, _ = _inputs(2, 96, 96, 2, 32, False, 6)
+    q, k, v = (_t(x).to(torch.bfloat16).float() for x in (q, k, v))
+    args = (q, k, v, True, 32 ** -0.5)
+    out3, lse3 = _emulated_fwd(*args, bf16_p=True)
+    out1, lse1 = _emulated_fwd(*args, input_lo=False, bf16_p=True)
+    p = torch.rand(64, 64).to(torch.bfloat16).float()
+    assert torch.equal(_tf32(p), p)
+    assert torch.equal(out1, out3) and torch.equal(lse1, lse3)

@@ -130,7 +130,7 @@ def test_kernel_module_imports_without_nvcc():
         assert set(_build.KERNELS) == {"paged_attention", "flash_attention"}
         assert set(_build.KERNELS["flash_attention"]) == {
             "tfos_flash_fwd", "tfos_flash_dq", "tfos_flash_dkv",
-            "tfos_flash_bwd_budget"}
+            "tfos_flash_budget"}
         for name in _build.KERNELS:
             assert _build.library_path(name).endswith(".so")
         print("OK")

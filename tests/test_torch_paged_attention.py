@@ -171,3 +171,119 @@ def test_dispatcher_cpu_takes_plain_version_and_validates():
     with pytest.raises(ValueError, match="together"):
         tpa.paged_attention(*t, k_scale=torch.ones(11, 8, 4))
     assert tpa.launches == before
+
+
+# -- the split-KV route's schedule and merge, emulated ------------------
+
+
+def _split_case(seed, quant):
+    """Four decode rows (one query each) at the edges the split route
+    meets: position mid-block (row 0), past the table (row 1), an
+    inactive all-scratch row at position 0 (row 2), one short of the
+    table's end (row 3)."""
+    b, n, d, bs, mb = 4, 2, 16, 8, 6
+    rng = np.random.RandomState(seed)
+    pool = b * mb + 1
+    q = rng.randn(b, 1, n, d).astype(np.float32)
+    kp = rng.randn(pool, bs, n, d).astype(np.float32)
+    vp = rng.randn(pool, bs, n, d).astype(np.float32)
+    table = (rng.permutation(pool - 1)[:b * mb] + 1).reshape(b, mb)
+    pos = np.array([[20], [mb * bs], [0], [mb * bs - 2]])
+    table[2] = 0                                    # all scratch
+    case = (q, kp, vp, table.astype(np.int32), pos.astype(np.int32))
+    return _int8(case) if quant else case
+
+
+def _split_partials(q, kp, vp, table, pos, scale, c, k_scale=None,
+                    v_scale=None):
+    """Per row, the (m [S_q, N], l [S_q, N], acc [S_q, N, D]) that the
+    split kernel writes for each of its C-block splits over the row's
+    live blocks (splits past them are never launched)."""
+    b, s_q, n, d = q.shape
+    bs = kp.shape[1]
+    nblk = tpa._nblocks(pos, bs, table.shape[1])
+    out = []
+    for r in range(b):
+        parts = []
+        for j0 in range(0, max(0, int(nblk[r])), c):
+            blocks = table[r, j0:min(j0 + c, int(nblk[r]))].long()
+            k, v = kp[blocks], vp[blocks]
+            if k_scale is not None:
+                k = tpa.dequantize_kv(k, k_scale[blocks])
+                v = tpa.dequantize_kv(v, v_scale[blocks])
+            k, v = k.reshape(-1, n, d).float(), v.reshape(-1, n, d).float()
+            kpos = torch.arange(j0 * bs, j0 * bs + k.shape[0])
+            s = torch.einsum("qnd,knd->qnk", q[r], k) * scale
+            vis = (kpos[None, :] <= pos[r][:, None])[:, None, :]
+            s = torch.where(vis, s, torch.full_like(s, float("-inf")))
+            m = s.amax(-1)
+            safe = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+            p = torch.where(torch.isneginf(s), torch.zeros_like(s),
+                            torch.exp(s - safe[..., None]))
+            parts.append((m, p.sum(-1), torch.einsum("qnk,knd->qnd", p, v)))
+        out.append(parts)
+    return out
+
+
+def _merge_in_order(parts, shape):
+    """The combine kernel: per row, M = max m_s, then sum e^(m_s - M) l_s
+    and e^(m_s - M) acc_s in split order; no visible key gives 0."""
+    out = torch.zeros(shape)
+    for r, row in enumerate(parts):
+        if not row:
+            continue
+        big = torch.stack([m for m, _, _ in row]).amax(0)
+        safe = torch.where(torch.isneginf(big), torch.zeros_like(big), big)
+        l_sum = torch.zeros_like(big)
+        acc = torch.zeros(shape[1:])
+        for m, l, a in row:
+            w = torch.where(torch.isneginf(m), torch.zeros_like(m),
+                            torch.exp(m - safe))
+            l_sum = l_sum + w * l
+            acc = acc + w[..., None] * a
+        out[r] = acc / torch.where(l_sum == 0, torch.ones_like(l_sum),
+                                   l_sum)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_split_kv_schedule_matches_gather_and_jax(c, quant):
+    """Partial softmax states over C-block splits of each decode row's
+    live blocks (S_q = 1, the route's one shape), merged in split order,
+    equal the port's gather oracle and the JAX package's reference on the
+    same seeded inputs: depth mid-block, past the table, an all-scratch
+    row; C = 8 puts a row's live blocks in one split. Every split the
+    kernel launches holds a visible key (its first key sits at or below
+    the query's position), so the merge never meets an empty one."""
+    case = _split_case(20 + c, quant)
+    t = [torch.from_numpy(np.array(a)) for a in case]
+    scales = t[5:] if quant else [None, None]
+    scale = t[0].shape[-1] ** -0.5
+    parts = _split_partials(*t[:5], scale, c, *scales)
+    got = _merge_in_order(parts, tuple(t[0].shape)).numpy()
+    tol = INT8_TOL if quant else FP32_TOL
+    np.testing.assert_allclose(got, _torch(case, "gather"), atol=tol,
+                               rtol=tol)
+    np.testing.assert_allclose(got, _jax(case, "gather"), atol=tol,
+                               rtol=tol)
+    for row in parts:
+        for m, l, _ in row:
+            assert torch.isfinite(m).all() and (l > 0).all()
+    # the all-scratch row reads its one live block (pool row 0) only
+    assert len(parts[2]) == 1
+
+
+def test_route_picks_split_kv_for_decode():
+    """Decode (S_q = 1) takes the split-KV route at the head dims it is
+    built for; any wider window, prefill tails and other head dims the
+    query-tiled one. On CPU tensors neither route launches."""
+    assert tpa.SPLIT_MAX_QUERIES == 1
+    assert tpa._route(1, 64) == "split"
+    assert tpa._route(1, 128) == "split"
+    assert tpa._route(2, 64) == "tiled"
+    assert tpa._route(1, 48) == "tiled"
+    assert tpa._route(256, 64) == "tiled"
+    before = dict(tpa.route_launches)
+    _torch(_case(2, s_q=1))
+    assert tpa.route_launches == before
