@@ -13,20 +13,23 @@ Phases, stopping with a non-zero exit at the first failure:
    once;
 3. kernel against plain version — ``paged_attention``'s CUDA kernels
    against ``_blockwise`` on the card, fp32 and int8 pools, S_q 1 (the
-   split-KV route) and S_q 16 and 128 (the query-tiled route),
-   mixed row depths, rows whose positions overshoot the table, an
-   all-scratch (inactive) row; a second call must be bitwise equal, and
-   NaN-poisoned dead pool rows must leave the output bitwise unchanged.
-   Then the kernels' times at the serving decode shape (split route)
-   and at a prefill shape (one row, a 256-token tail at positions
-   256..511; tiled route): time per eager call, as the flash kernels
-   are timed, and device time through CUDA-graph replays beside it;
-   the plain version's time; a ``scaled_dot_product_attention``
-   yardstick over the pre-gathered contiguous view, timed both ways
-   (timed here only; the port never calls it); and the bound, at the
-   float32-accurate tensor-core rate as for the flash kernels and at
-   the CUDA-core float32 rate beside it. Then the three flash-attention kernels (forward, dQ,
-   dK/dV) through the public autograd path, each against its plain
+   split-KV route) and S_q 16 and 128 (the tensor-core query-tiled
+   route) at 12 heads of 64, and S_q 16 at 4 heads of 192 (the
+   CUDA-core tiled route), mixed row depths, rows whose positions
+   overshoot the table, an all-scratch (inactive) row; a second call
+   must be bitwise equal, and NaN-poisoned dead pool rows must leave the
+   output bitwise unchanged. Then the kernels' times at the serving
+   decode shape (split route) and at two prefill shapes of one row
+   (tiled route): a 256-token tail at positions 256..511 and a cold
+   512-token prompt at 0..511, the traffic's commonest prefill; time
+   per eager call, as the flash kernels are timed, and device time
+   through CUDA-graph replays beside it; the plain version's time; a
+   ``scaled_dot_product_attention`` yardstick over the pre-gathered
+   contiguous view, timed both ways (timed here only; the port never
+   calls it); and the bound, at the float32-accurate tensor-core rate
+   as for the flash kernels and at the CUDA-core float32 rate beside
+   it. Then the three flash-attention kernels (forward, dQ, dK/dV)
+   through the public autograd path, each against its plain
    version on the inputs it was given, on four cases: (a) the training
    shape, B 8, S 1024, 12 heads of 64, causal, float32; (b) non-causal
    rectangular S_q 128, S_k 384 with a key mask that leaves one batch
@@ -38,7 +41,8 @@ Phases, stopping with a non-zero exit at the first failure:
    autograd backward (timed here only; the port never calls it), the
    bound at the float32-accurate tensor-core rate and, beside it, at
    the CUDA-core float32 rate; dQ + dK/dV over SDPA's backward; and the
-   three kernels' registers, spills and CTAs per SM at D 64;
+   registers, spills, shared memory and CTAs per SM at D 64 of the
+   three flash kernels and of the tensor-core tiled paged kernel;
 4. serving — a GPT-2-small-shaped ``DecoderLM`` (vocab 50257, hidden
    768, 12 heads, 12 layers, max_len 1024; random weights from a seed)
    behind the port's ``ModelServer``: 16 ``:generate`` requests from 4
@@ -50,7 +54,8 @@ Phases, stopping with a non-zero exit at the first failure:
    grow, and the tokens must equal an ``attn_impl="gather"`` engine's
    on the same weights (a divergence is accepted only at a top-2 logit
    tie, gap below 1e-4). Every decode step must have taken the
-   split-KV route and every prefill the query-tiled one, once a layer;
+   split-KV route and every prefill the tensor-core tiled one, once a
+   layer;
 5. training — the same GPT-2-small ``DecoderLM`` at full depth, float32
    with TF32 off, random weights from the seed. First one forward and
    backward on the initial weights and the first batch, once through
@@ -160,10 +165,12 @@ def check(cond, msg):
 
 
 def make_case(torch, rng, b, s_q, mb, quant, dev, depths=None,
-              overshoot_row=None, scratch_row=None):
-    """Pools, tables and positions at the serving widths: each row owns
-    distinct pool rows for its live blocks (scratch 0 elsewhere)."""
-    n, d, bs = HEADS, HIDDEN // HEADS, BLOCK
+              overshoot_row=None, scratch_row=None, n=HEADS,
+              d=HIDDEN // HEADS):
+    """Pools, tables and positions (the serving widths unless ``n``/``d``
+    say otherwise): each row owns distinct pool rows for its live blocks
+    (scratch 0 elsewhere)."""
+    bs = BLOCK
     pool = b * mb + 1
     q = torch.from_numpy(rng.randn(b, s_q, n, d).astype("float32"))
     kp = torch.from_numpy(rng.randn(pool, bs, n, d).astype("float32"))
@@ -204,23 +211,36 @@ def live_rows(table, pos, bs):
     return live
 
 
+#: (queries per row, heads, head dim, table width) of the kernel cases:
+#: the split route at decode, the tensor-core tiled route at two windows
+#: of the serving widths, the CUDA-core tiled route at a head dim above
+#: 128 (a table of 8 blocks keeps its staged block in 48 KB)
+PAGED_CASES = [(1, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK),
+               (16, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK),
+               (128, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK),
+               (16, 4, 192, 8)]
+
+
 def kernel_cases(torch, pa, dev):
-    """Hold the kernels against ``_blockwise`` on every case, on both
-    routes (split-KV at S_q = 1, query-tiled above), with a second call
-    bitwise equal to the first; returns the largest |difference|."""
+    """Hold the kernels against ``_blockwise`` on every case, on every
+    route (split-KV at S_q = 1, query-tiled above: tensor cores up to
+    D 128, CUDA cores beyond), with a second call bitwise equal to the
+    first; returns the largest |difference| per route."""
     rng = np.random.RandomState(SEED)
-    worst = 0.0
-    mb = MAX_LEN // BLOCK
+    worst = {route: 0.0 for route in pa.route_launches}
     for quant in (False, True):
-        for s_q in (1, 16, 128):
+        for s_q, n, d, mb in PAGED_CASES:
             args, (ks, vs) = make_case(
                 torch, rng, SLOTS, s_q, mb, quant, dev, overshoot_row=1,
-                scratch_row=SLOTS - 1)
-            scale = (HIDDEN // HEADS) ** -0.5
+                scratch_row=SLOTS - 1, n=n, d=d)
+            scale = d ** -0.5
             before = dict(pa.route_launches)
             got = pa.paged_attention(*args, scale=scale, impl="kernel",
                                      k_scale=ks, v_scale=vs)
-            route = "split" if s_q <= pa.SPLIT_MAX_QUERIES else "tiled"
+            route = pa._route(s_q, d)
+            check(route == ("split" if s_q == 1 else "tiled" if d <= 128
+                            else "tiled_simt"),
+                  "s_q={} D={} maps to the {} route".format(s_q, d, route))
             check(pa.route_launches[route] == before[route] + 1,
                   "s_q={} did not take the {} route".format(s_q, route))
             want = pa.paged_attention(*args, scale=scale, impl="blockwise",
@@ -234,11 +254,11 @@ def kernel_cases(torch, pa, dev):
                                        k_scale=ks, v_scale=vs)
             check(torch.equal(again, got), "two kernel calls on the same "
                   "inputs differ (s_q={}, int8={})".format(s_q, quant))
-            log("kernel vs plain  int8={:<5} s_q={:<3} route={:<5} "
+            log("kernel vs plain  int8={!s:<5} s_q={:<3} D={:<3} route={:<10} "
                 "max_abs_err={:.3e} (tol {:.0e})".format(
-                    quant, s_q, route, err, KERNEL_TOL))
+                    quant, s_q, d, route, err, KERNEL_TOL))
             check(err <= KERNEL_TOL, "kernel disagrees with plain version")
-            worst = max(worst, err)
+            worst[route] = max(worst[route], err)
             # never reads a dead pool row: poison them, output unchanged
             table = args[3].cpu().numpy()
             live = live_rows(table, args[4].cpu().numpy(), BLOCK)
@@ -285,34 +305,6 @@ def time_ms(torch, fn, sets, reps=20):
     return start.elapsed_time(end) / (reps * len(sets))
 
 
-def graph_ms(torch, fn, sets, reps=20):
-    """Mean device milliseconds per call: one call per argument set,
-    captured once into a CUDA graph and replayed ``reps`` times, so no
-    host work sits between the kernels (each call's own allocations are
-    replayed from the graph's pool)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for a in sets:
-            fn(*a)
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for a in sets:
-            fn(*a)
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * len(sets))
-
-
 def paged_timing(torch, pa, dev, quant, s_q, depths, copies):
     """Times of one paged-attention call over ``len(depths)`` rows of
     ``s_q`` queries ending at ``depths`` (block 16, table width 64),
@@ -321,6 +313,8 @@ def paged_timing(torch, pa, dev, quant, s_q, depths, copies):
     (``device_ms``), the plain version's, an SDPA yardstick timed both
     ways, and the bound."""
     import torch.nn.functional as F
+
+    from tensorflowonspark_tpu_torch.profile_paged import graph_ms, sdpa_sets
 
     rng = np.random.RandomState(SEED + 1 + s_q)
     b, n, d = len(depths), HEADS, HIDDEN // HEADS
@@ -341,23 +335,8 @@ def paged_timing(torch, pa, dev, quant, s_q, depths, copies):
                                   impl="blockwise", k_scale=ks, v_scale=vs)
 
     # the library yardstick: one SDPA call over the contiguous view,
-    # gathered (and dequantized) beforehand, outside the timed call, with
-    # each query's visibility as a boolean mask
-    lib_sets = []
-    width = min(int(depths.max()), mb * BLOCK)
-    for q, kp, vp, t, p, ks, vs in sets:
-        k = kp[t.long()]
-        v = vp[t.long()]
-        if quant:
-            k = pa.dequantize_kv(k, ks[t.long()])
-            v = pa.dequantize_kv(v, vs[t.long()])
-        k = k.reshape(b, -1, n, d)[:, :width]
-        v = v.reshape(b, -1, n, d)[:, :width]
-        mask = (torch.arange(width, device=dev)[None, None, :]
-                <= p[:, :, None].long())[:, None]
-        lib_sets.append((q.transpose(1, 2).contiguous(),
-                         k.transpose(1, 2).contiguous(),
-                         v.transpose(1, 2).contiguous(), mask))
+    # gathered (and dequantized) beforehand, outside the timed call
+    lib_sets = sdpa_sets(torch, pa, sets)
 
     def library(q, k, v, mask):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
@@ -407,6 +386,12 @@ def prefill_timing(torch, pa, dev, quant):
     """Times at a prefill shape: one row, a 256-token tail at positions
     256..511 (a prompt whose first 256 tokens hit the prefix cache)."""
     return paged_timing(torch, pa, dev, quant, 256, np.array([512]), 6)
+
+
+def cold_prefill_timing(torch, pa, dev, quant):
+    """Times at the traffic's commonest prefill: one row, a cold
+    512-token prompt at positions 0..511."""
+    return paged_timing(torch, pa, dev, quant, 512, np.array([512]), 6)
 
 
 # -- phase 3b: flash kernels against plain versions ---------------------
@@ -600,10 +585,19 @@ def flash_timing(torch, fa, dev):
     return res
 
 
-def kernel_budget(torch, fa):
-    """Registers, spills and CTAs per SM of the flash kernels at the
-    training head dim, as the card reports them."""
+def kernel_budget(torch, fa, pa):
+    """Registers, spills, shared memory and CTAs per SM of the flash
+    kernels and of the tensor-core tiled paged kernel at the models'
+    head dim, as the card reports them."""
     out = {}
+    for quant in (False, True):
+        got = pa.budget(HIDDEN // HEADS, quant)
+        out["paged_tiled {}".format("int8" if quant else "float32")] = got
+        log("budget paged_tiled D{} {:<7}: {} registers, {} spill bytes, {} "
+            "KB shared, {} CTAs/SM".format(
+                HIDDEN // HEADS, "int8" if quant else "float32",
+                got["registers"], got["spill_bytes"],
+                got["smem_bytes"] // 1024, got["ctas_per_sm"]))
     for kind in ("fwd", "dq", "dkv"):
         for dtype in ("float32", "bfloat16"):
             got = fa.budget(kind, HIDDEN // HEADS, getattr(torch, dtype))
@@ -757,7 +751,7 @@ def serving_phase(torch, dev):
     log("serving paged launches by route: {} (decode steps {}, prefills {}, "
         "{} layers)".format(route_launches, steps, prefills, LAYERS))
     check(route_launches == {"split": LAYERS * steps,
-                             "tiled": LAYERS * prefills},
+                             "tiled": LAYERS * prefills, "tiled_simt": 0},
           "decode steps did not all take the split route and prefills the "
           "tiled one")
     for kv in (None, "int8"):
@@ -979,11 +973,12 @@ def main():
                 log("  {}: {}".format(name, line.strip()))
 
     max_err = kernel_cases(torch, pa, dev)
-    timing = {"decode": {}, "prefill": {}}
-    for shape, fn in (("decode", kernel_timing), ("prefill", prefill_timing)):
+    timing = {"decode": {}, "prefill": {}, "prefill_cold": {}}
+    for shape, fn in (("decode", kernel_timing), ("prefill", prefill_timing),
+                      ("prefill_cold", cold_prefill_timing)):
         for quant in (False, True):
             t = timing[shape][quant] = fn(torch, pa, dev, quant)
-            log("{} shape int8={:<5} {} kernel {:.4f} ms per eager call "
+            log("{} shape int8={!s:<5} {} kernel {:.4f} ms per eager call "
                 "({:.4f} ms device time)  plain {:.4f} ms  sdpa {:.4f} ms "
                 "({:.4f} ms device time)  bound {:.4f} ms ({}, 3xTF32 at "
                 "165 TFLOP/s; {:.4f} ms at 67; {} live tokens, {} KV bytes, "
@@ -992,12 +987,21 @@ def main():
                     t["plain_ms"], t["library_ms"], t["library_device_ms"],
                     t["bound_ms"], t["bound_by"], t["bound_simt_ms"],
                     t["live_tokens"], t["kv_bytes"], t["flops"]))
-    check(timing["decode"][False]["route"] == "split"
-          and timing["prefill"][False]["route"] == "tiled",
-          "the decode shape must take the split route, the prefill shape "
-          "the tiled one")
+    check(all(timing[shape][quant]["route"] == route
+              for shape, route in (("decode", "split"), ("prefill", "tiled"),
+                                   ("prefill_cold", "tiled"))
+              for quant in (False, True)),
+          "the decode shape must take the split route, the prefill shapes "
+          "the tensor-core tiled one")
+    for quant in (False, True):
+        t = timing["prefill"][quant]
+        log("prefill shape int8={!s:<5} tiled device time {:.4f} ms = {:.3f}"
+            " x SDPA's {:.4f} ms; {:.2f}% of the {:.4f} ms bound".format(
+                quant, t["device_ms"], t["device_ms"] / t["library_device_ms"],
+                t["library_device_ms"], 100.0 * t["bound_ms"] / t["device_ms"],
+                t["bound_ms"]))
 
-    budget = kernel_budget(torch, fa)
+    budget = kernel_budget(torch, fa, pa)
     flash_err = flash_cases(torch, fa, dev)
     flash_t = flash_timing(torch, fa, dev)
     for name, ft in flash_t.items():
@@ -1025,7 +1029,7 @@ def main():
         "source": "tensorflowonspark_tpu_torch/csrc/paged_attention.cu",
         "replaces": "tensorflowonspark_tpu/ops/paged_attention.py:210",
         "launches": launches,
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err.values()),
         # the decode shape (split-KV route), the main path's decode
         # steps; ms and library_ms per eager call, as for the flash rows,
         # with the device times (CUDA-graph replays) beside them
@@ -1045,13 +1049,39 @@ def main():
                       "calls": route_launches["split"],
                       "kernel_launches": 2 * route_launches["split"],
                       "shape": "decode"},
-            "tiled": {"kernels": ["paged_attention_kernel"],
+            "tiled": {"kernels": ["paged_tiled_kernel"],
                       "calls": route_launches["tiled"],
                       "kernel_launches": route_launches["tiled"],
-                      "shape": "prefill"}},
+                      "shape": "prefill"},
+            "tiled_simt": {"kernels": ["paged_attention_kernel"],
+                           "calls": route_launches["tiled_simt"],
+                           "kernel_launches": route_launches["tiled_simt"],
+                           "shape": "head dims 129-256 (none served)"}},
         "by_shape": {shape: {"float32": timing[shape][False],
                              "int8": timing[shape][True]}
                      for shape in timing}}]}
+    t = timing["prefill"][False]
+    kernels["kernels"].append({
+        "name": "paged_attention_tiled",
+        "route": "cuda",
+        "source": "tensorflowonspark_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "tensorflowonspark_tpu/ops/paged_attention.py:210",
+        # the tensor-core query-tiled kernel: the serving legs' prefills
+        "launches": route_launches["tiled"],
+        "max_abs_err": max_err["tiled"],
+        # the 256-token tail, float32; ms per eager call, device time
+        # through CUDA-graph replays beside it; int8 and the cold 512
+        # prompt in the paged_attention row's by_shape
+        "ms": t["ms"],
+        "device_ms": t["device_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "bound_simt_ms": t["bound_simt_ms"],
+        "library_ms": t["library_ms"],
+        "library_device_ms": t["library_device_ms"],
+        "budget_d64": {k.split()[1]: v for k, v in budget.items()
+                       if k.startswith("paged_tiled")}})
     for name, replaces, note in (
             ("fwd", 83, "scaled_dot_product_attention(is_causal=True)"),
             ("dq", 137, "autograd backward of that call: dq, dk and dv "
@@ -1084,7 +1114,7 @@ def main():
                                    "int8": timing[shape][True]}
                            for shape in timing},
                        "flash_timing": flash_t,
-                       "flash_budget": budget,
+                       "budget": budget,
                        "serving": {kv or "float32": {
                            k: v for k, v in r.items() if k != "out"}
                            for kv, r in runs.items()},

@@ -11,12 +11,16 @@ sources in the package alone, into
 ``_build/`` beside them (git-ignored). A library's file name carries a
 hash of its source and flags, so an edited source rebuilds; the output
 is written to a temporary name and renamed into place, so concurrent
-builders never load a half-written file.
+builds never load a half-written file. The hash covers the headers
+a source includes from ``csrc/`` (``#include "name.cuh"``, followed
+through the headers), so an edited header rebuilds every source that
+includes it.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -40,8 +44,10 @@ _F = ctypes.c_float
 #: to 32 bits
 KERNELS = {
     "paged_attention": {
-        "tfos_paged_attention": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+        "tfos_paged_attention_tiled": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+        "tfos_paged_attention_simt": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
         "tfos_paged_attention_split": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
+        "tfos_paged_budget": [_I] * 2 + [_P],
     },
     "flash_attention": {
         "tfos_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
@@ -72,12 +78,38 @@ def source(name):
     return os.path.join(CSRC, name + ".cu")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path):
+    """``path`` and every header it includes from beside it, followed
+    through the headers, each once, in first-include order."""
+    seen, todo = [], [path]
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        with open(p, "rb") as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            dep = os.path.join(os.path.dirname(p), inc.decode())
+            if os.path.isfile(dep):
+                todo.append(dep)
+    return seen
+
+
 def library_path(name):
-    """Where ``name``'s library is (or will be) built."""
-    with open(source(name), "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, "lib{}-{}.so".format(name, digest))
+    """Where ``name``'s library is (or will be) built: the file name
+    carries a hash of the source, the ``csrc/`` headers it includes and
+    the flags."""
+    h = hashlib.sha256()
+    for p in _sources(source(name)):
+        with open(p, "rb") as f:
+            h.update(os.path.basename(p).encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, "lib{}-{}.so".format(
+        name, h.hexdigest()[:16]))
 
 
 def build(names=None):
@@ -124,10 +156,16 @@ def load(name):
             path = library_path(name)
             if not os.path.exists(path):
                 build([name])
-            lib = ctypes.CDLL(path)
-            for symbol, argtypes in KERNELS[name].items():
-                fn = getattr(lib, symbol)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _libs[name] = lib
+            lib = _libs[name] = bind(path, name)
         return lib
+
+
+def bind(path, name):
+    """The library at ``path`` loaded with source ``name``'s C functions'
+    argument and return types set."""
+    lib = ctypes.CDLL(path)
+    for symbol, argtypes in KERNELS[name].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -20,23 +20,32 @@ Three formulations share that contract:
   ``tensorflowonspark_tpu/ops/paged_attention.py::_paged_kernel``
   (wrapper ``_pallas``). Bound on the H100: BYTES at decode — a step
   does ~2 flops per K/V byte it reads, so the floor is the live K/V
-  (+ scales) over 3.35 TB/s. Two routes, chosen by the call's shape
-  (:func:`_route`):
+  (+ scales) over 3.35 TB/s; OPERATIONS at a prefill tail, whose keys
+  are each read by hundreds of queries. Three routes, chosen by the
+  call's shape (:func:`_route`):
 
-  - **split-KV** (S_q = :data:`SPLIT_MAX_QUERIES` = 1: every decode
-    step): the flash-decoding schedule. One CTA per
-    :data:`SPLIT_BLOCKS` consecutive live pool blocks of a (row, head),
-    so a decode step of 8 rows x 12 heads still spreads over every SM;
-    16-byte loads of K/V rows straight into registers (int8 codes
-    dequantized there), dots reduced across lanes by shuffles; each
-    split's partial (m, l, acc) goes to a float32 workspace allocated
-    here, and a second kernel merges a (row, head)'s splits in split
-    order, so the result is deterministic;
-  - **query-tiled** (every call with more than one query per row:
-    prefill tails): one CTA per 16-query tile walks the row's live
-    blocks, staging each in shared memory.
+  - **split-KV** (S_q = :data:`SPLIT_MAX_QUERIES` = 1 at a head dim in
+    :data:`SPLIT_HEAD_DIMS`: every decode step): the flash-decoding
+    schedule. One CTA per :data:`SPLIT_BLOCKS` consecutive live pool
+    blocks of a (row, head), so a decode step of 8 rows x 12 heads still
+    spreads over every SM; 16-byte loads of K/V rows straight into
+    registers (int8 codes dequantized there), dots reduced across lanes
+    by shuffles; each split's partial (m, l, acc) goes to a float32
+    workspace allocated here, and a second kernel merges a (row, head)'s
+    splits in split order, so the result is deterministic;
+  - **tiled** (every other call at head dim <= :data:`TILED_MAX_HEAD_DIM`:
+    prefill tails): tensor cores. One CTA of 4 warps per
+    :data:`QUERY_TILE`-query tile, the warps splitting the keys; key
+    tiles that cross pool blocks stream through a two-stage ``cp.async``
+    ring (int8 pools as codes), S = Q K^T and P V run as ``mma.sync``
+    TF32 with the 3xTF32 split (2 passes on int8 codes, which are exact
+    in TF32, the scales folded into S's and P's columns), float32-
+    accurate; :func:`budget` reads its registers and occupancy;
+  - **tiled_simt** (head dims above :data:`TILED_MAX_HEAD_DIM`, up to
+    :data:`MAX_HEAD_DIM`): the first query-tiled kernel, on CUDA cores,
+    one pool block at a time staged in shared memory.
 
-  Both walk only a row's LIVE blocks through the table (dead slots are
+  All walk only a row's LIVE keys through the table (dead slots are
   never loaded, so traffic tracks live tokens, not table width) and
   load int8 pools as int8 (a quarter of the float bytes). The design is
   in the source's header and the measured share of the bound in
@@ -60,14 +69,15 @@ import torch
 #: it) — how a run shows that its path went through the kernels
 launches = 0
 #: the same calls by route: "split" (two kernel launches a call: the
-#: split-KV kernel, then the combine kernel) or "tiled" (one launch of
-#: the query-tiled kernel)
-route_launches = {"split": 0, "tiled": 0}
+#: split-KV kernel, then the combine kernel), "tiled" (one launch of the
+#: tensor-core query-tiled kernel) or "tiled_simt" (one launch of the
+#: CUDA-core query-tiled kernel)
+route_launches = {"split": 0, "tiled": 0, "tiled_simt": 0}
 _launches_lock = threading.Lock()  # engines launch from their own threads
 
-#: query rows one CTA of the query-tiled kernel handles
-#: (csrc/paged_attention.cu ``QT``); prefill tails longer than this go
-#: through the grid's query-tile dimension
+#: query rows one CTA of either query-tiled kernel handles
+#: (csrc/paged_attention.cu ``TC_ROWS``, ``QT``); longer calls go through
+#: the grid's query-tile dimension
 QUERY_TILE = 16
 
 #: calls with at most this many queries per row take the split-KV
@@ -85,12 +95,16 @@ SPLIT_BLOCKS = 4
 #: into a power of two of 16-byte lanes); others take the tiled route
 SPLIT_HEAD_DIMS = (16, 32, 64, 128)
 
-#: largest block_size the kernels take (the tiled kernel scores one key
-#: per lane of a warp)
+#: largest head_dim the tensor-core tiled kernel takes: instantiated at
+#: 16, 32, 64 and 128, a head dim in between zero-padded to the next
+TILED_MAX_HEAD_DIM = 128
+
+#: largest block_size the kernels take (the CUDA-core tiled kernel scores
+#: one key per lane of a warp)
 MAX_BLOCK_SIZE = 32
 
-#: largest head_dim the kernels take (the tiled kernel keeps eight
-#: accumulator registers per lane per query row)
+#: largest head_dim the kernels take (the CUDA-core tiled kernel keeps
+#: eight accumulator registers per lane per query row)
 MAX_HEAD_DIM = 256
 
 
@@ -207,11 +221,35 @@ def _check(cond, msg):
 
 
 def _route(s_q, head_dim):
-    """``"split"`` or ``"tiled"``: the kernel a call with ``s_q`` queries
-    per row at ``head_dim`` launches."""
+    """``"split"``, ``"tiled"`` or ``"tiled_simt"``: the kernel a call
+    with ``s_q`` queries per row at ``head_dim`` launches."""
     if s_q <= SPLIT_MAX_QUERIES and head_dim in SPLIT_HEAD_DIMS:
         return "split"
-    return "tiled"
+    if head_dim <= TILED_MAX_HEAD_DIM:
+        return "tiled"
+    return "tiled_simt"
+
+
+def budget(head_dim, quantized=False):
+    """The tensor-core tiled kernel's resources on the current card, for
+    the instantiation ``head_dim`` takes and float32 or int8
+    (``quantized``) pools: ``{"ctas_per_sm", "registers", "spill_bytes",
+    "smem_bytes"}`` (registers and local-memory bytes per thread as the
+    compiler left them; CTAs per SM from the card's occupancy
+    calculator)."""
+    from tensorflowonspark_tpu_torch.ops import _build
+    import ctypes
+
+    _check(1 <= head_dim <= TILED_MAX_HEAD_DIM,
+           "no tiled kernel at head_dim {}".format(head_dim))
+    out = (ctypes.c_int * 4)()
+    rc = _build.load("paged_attention").tfos_paged_budget(
+        head_dim, int(quantized), out)
+    if rc != 0:
+        raise RuntimeError("paged_attention budget query failed: CUDA error "
+                           "{}".format(rc))
+    return dict(zip(("ctas_per_sm", "registers", "spill_bytes",
+                     "smem_bytes"), out))
 
 
 def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
@@ -262,7 +300,7 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
         _check(mb >= 1, "block_table needs at least one column")
         _check(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
                "pools must start on a 16-byte boundary (16-byte loads)")
-    else:
+    elif route == "tiled_simt":
         _check(2 * bs_blk * (d + 1) * 4 + QUERY_TILE * d * 4 <= 48 * 1024,
                "block_size x head_dim too large for shared memory")
     out = torch.empty_like(q)
@@ -284,9 +322,10 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
             bs_blk, mb, SPLIT_BLOCKS, ctypes.c_float(scale), int(quantized),
             stream)
     else:
-        rc = lib.tfos_paged_attention(
-            *common, vp(out.data_ptr()), b, s_q, n, d, p_rows, bs_blk, mb,
-            ctypes.c_float(scale), int(quantized), stream)
+        launch = (lib.tfos_paged_attention_tiled if route == "tiled"
+                  else lib.tfos_paged_attention_simt)
+        rc = launch(*common, vp(out.data_ptr()), b, s_q, n, d, p_rows, bs_blk,
+                    mb, ctypes.c_float(scale), int(quantized), stream)
     if rc != 0:
         raise RuntimeError(
             "paged_attention {} kernel launch failed: CUDA error {}".format(

@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (``cuda`` marker; skips where torch sees no CUDA device):
-paged attention on both routes (split-KV and query-tiled), with depths
-on and off split boundaries, its determinism and NaN-poisoned dead pool
-rows; and the three flash-attention kernels (forward, dQ, dK/dV), with
+paged attention on its three routes (split-KV; query-tiled on the tensor
+cores at block sizes 8-32, windows 2-300 and head dims 16-128; the
+CUDA-core tiled kernel above 128), with depths on and off split
+boundaries, positions that are not consecutive, its determinism,
+NaN-poisoned dead pool rows and the tiled kernel's register budget; and
+the three flash-attention kernels (forward, dQ, dK/dV), with
 the two-stage copy ring run through many tiles and a ragged last one,
 32-row tiles at D 128, the backward's determinism (no atomics) and the
 register budgets at D 64. ``chip_smoke.py`` runs the
@@ -107,16 +110,41 @@ def test_split_route_depths_on_and_off_split_boundaries(cuda, d, quant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s_q", [1, 16], ids=["split", "tiled"])
+@pytest.mark.parametrize("s_q", [1, 16, 300],
+                         ids=["split", "tiled", "tiled-300"])
 def test_paged_kernel_is_deterministic(cuda, s_q):
-    """The split route merges its partial states in a fixed order (no
-    atomics): two calls on the same inputs are bitwise equal."""
+    """The split route merges its partial states in split order, the
+    tiled route its warps' states in warp order (no atomics): two calls
+    on the same inputs are bitwise equal."""
     rng = np.random.RandomState(7)
-    args, scales = _paged_case(cuda, rng, s_q, False, [90, 47, 120],
-                               bs=16, mb=8)
+    args, scales = _paged_case(cuda, rng, s_q, False, [390, 347, 320],
+                               bs=16, mb=26)
     first, _ = _launch(args, scales)
     second, _ = _launch(args, scales)
     assert torch.equal(first, second)
+
+
+def _poison_dead(dev, args, scales, bs):
+    """The case with every pool row outside all rows' live blocks
+    NaN-poisoned (int8: their scales, as codes cannot hold NaN)."""
+    table, pos = args[3].cpu(), args[4].cpu()
+    live = set()
+    for r in range(table.shape[0]):
+        nblk = min((int(pos[r].max()) + bs) // bs, table.shape[1])
+        live |= set(int(x) for x in table[r, :nblk])
+    dead = torch.tensor(sorted(set(range(args[1].shape[0])) - live),
+                        device=dev, dtype=torch.long)
+    assert dead.numel() > 0
+    args = list(args)
+    if scales:
+        scales = {k: v.clone() for k, v in scales.items()}
+        for v in scales.values():
+            v[dead] = float("nan")
+    else:
+        args[1], args[2] = args[1].clone(), args[2].clone()
+        args[1][dead] = float("nan")
+        args[2][dead] = float("nan")
+    return args, scales
 
 
 @pytest.mark.cuda
@@ -131,25 +159,99 @@ def test_split_route_never_reads_dead_rows(cuda, quant):
                                bs=bs, mb=mb, scratch_row=2)
     clean, route = _launch(args, scales)
     assert route == "split"
-    table, pos = args[3].cpu(), args[4].cpu()
-    live = set()
-    for r in range(table.shape[0]):
-        nblk = min((int(pos[r].max()) + bs) // bs, mb)
-        live |= set(int(x) for x in table[r, :nblk])
-    dead = torch.tensor(sorted(set(range(args[1].shape[0])) - live),
-                        device=cuda, dtype=torch.long)
-    assert dead.numel() > 0
-    if quant:
-        scales = {k: v.clone() for k, v in scales.items()}
-        for v in scales.values():
-            v[dead] = float("nan")
-    else:
-        args = list(args)
-        args[1], args[2] = args[1].clone(), args[2].clone()
-        args[1][dead] = float("nan")
-        args[2][dead] = float("nan")
-    poisoned, _ = _launch(args, scales)
+    poisoned, _ = _launch(*_poison_dead(cuda, args, scales, bs))
     assert torch.equal(poisoned, clean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("s_q", [16, 40])
+def test_tiled_route_never_reads_dead_rows(cuda, s_q, quant):
+    """The tensor-core tiled route under the same poison, at a block size
+    (12) that does not divide its key tiles, with rows mid-table,
+    overshooting the table and all scratch: its copies stop at each
+    tile's key limit, so the output stays bitwise unchanged."""
+    rng = np.random.RandomState(12 + s_q)
+    bs, mb = 12, 8
+    args, scales = _paged_case(cuda, rng, s_q, quant,
+                               [5 * bs + 3, mb * bs + 5, s_q], bs=bs, mb=mb,
+                               scratch_row=2)
+    clean, route = _launch(args, scales)
+    assert route == "tiled"
+    poisoned, _ = _launch(*_poison_dead(cuda, args, scales, bs))
+    assert torch.isfinite(poisoned).all()
+    assert torch.equal(poisoned, clean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("s_q", [2, 16, 40, 300])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_tiled_route_block_sizes_and_windows(cuda, bs, s_q, quant):
+    """Key tiles that cross pool blocks at block sizes 8, 16 and 32, and
+    windows from 2 queries to 300 (19 query tiles of 16, the last one
+    ragged), against ``_blockwise``: rows deep in the table, overshooting
+    it and all scratch."""
+    rng = np.random.RandomState(1000 * bs + s_q)
+    mb = -(-(s_q + 40) // bs)
+    args, scales = _paged_case(cuda, rng, s_q, quant,
+                               [mb * bs - 3, mb * bs + 5, s_q], n=2, d=64,
+                               bs=bs, mb=mb, scratch_row=2)
+    got, route = _launch(args, scales)
+    assert route == "tiled"
+    want = pa.paged_attention(*args, impl="blockwise", **scales)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("d", [16, 18, 20, 48, 64, 128, 192])
+def test_tiled_routes_head_dims(cuda, d, quant):
+    """The tensor-core tiled kernel at its instantiations (16, 64, 128)
+    and at 18, 20 and 48, zero-padded in shared memory: rows of 72 float
+    bytes take 4-byte copies, int8 rows of 20 codes 4-byte and of 18
+    codes byte copies; above 128 the CUDA-core tiled kernel (192)."""
+    rng = np.random.RandomState(d)
+    bs, mb, s_q = 16, 6, 40
+    args, scales = _paged_case(cuda, rng, s_q, quant, [mb * bs - 7, 50, s_q],
+                               n=2, d=d, bs=bs, mb=mb)
+    got, route = _launch(args, scales)
+    assert route == ("tiled" if d <= pa.TILED_MAX_HEAD_DIM else "tiled_simt")
+    want = pa.paged_attention(*args, impl="blockwise", **scales)
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_tiled_route_positions_not_consecutive(cuda, quant):
+    """Per-query positions with gaps, out of order and repeated within a
+    query tile (as a verify window or a packed batch may send them):
+    each query sees the keys up to its own position."""
+    rng = np.random.RandomState(5)
+    bs, mb, s_q = 16, 8, 40
+    args, scales = _paged_case(cuda, rng, s_q, quant, [mb * bs - 1, 90, 60],
+                               n=2, bs=bs, mb=mb)
+    pos = np.stack([rng.choice(depth, size=s_q, replace=False)
+                    for depth in (mb * bs, 90, 60)])
+    pos[1, :4] = pos[1, 4]                      # repeated positions
+    args[4] = torch.from_numpy(pos.astype(np.int32)).to(cuda)
+    got, route = _launch(args, scales)
+    assert route == "tiled"
+    want = pa.paged_attention(*args, impl="blockwise", **scales)
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_tiled_budget_at_d64(cuda, quant):
+    """At the serving head dim the tensor-core tiled kernel keeps its
+    scores, softmax state and accumulators in registers (no spills) and
+    fits at least two CTAs per SM."""
+    got = pa.budget(64, quant)
+    assert got["spill_bytes"] == 0
+    assert got["ctas_per_sm"] >= 2
+    assert 0 < got["smem_bytes"] <= 227 * 1024
 
 
 #: flash kernels against their plain versions on the same inputs. lse

@@ -17,6 +17,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+# the kernels' TF32 rounding of an operand's hi part, and what an mma
+# reads of a float32 register (the flash kernels' emulation)
+from test_torch_flash_attention import _tf32, _tf32_read
 
 from tensorflowonspark_tpu_torch.ops import paged_attention as tpa
 
@@ -276,14 +279,191 @@ def test_split_kv_schedule_matches_gather_and_jax(c, quant):
 
 def test_route_picks_split_kv_for_decode():
     """Decode (S_q = 1) takes the split-KV route at the head dims it is
-    built for; any wider window, prefill tails and other head dims the
-    query-tiled one. On CPU tensors neither route launches."""
+    built for; any wider window, prefill tails and other head dims up to
+    128 the tensor-core tiled one; head dims above 128 (to 256) the
+    CUDA-core tiled one, whatever the window. On CPU tensors no route
+    launches."""
     assert tpa.SPLIT_MAX_QUERIES == 1
+    assert tpa.TILED_MAX_HEAD_DIM == 128
     assert tpa._route(1, 64) == "split"
     assert tpa._route(1, 128) == "split"
     assert tpa._route(2, 64) == "tiled"
     assert tpa._route(1, 48) == "tiled"
     assert tpa._route(256, 64) == "tiled"
+    assert tpa._route(300, 128) == "tiled"
+    assert tpa._route(16, 129) == "tiled_simt"
+    assert tpa._route(1, 192) == "tiled_simt"
+    assert tpa._route(40, 256) == "tiled_simt"
+    assert set(tpa.route_launches) == {"split", "tiled", "tiled_simt"}
     before = dict(tpa.route_launches)
     _torch(_case(2, s_q=1))
+    _torch(_case(2, s_q=8, d=192))
     assert tpa.route_launches == before
+
+
+# -- the tensor-core tiled route's schedule and arithmetic, emulated ----
+
+#: the card's limit for a paged kernel against ``_blockwise``
+#: (chip_smoke.py KERNEL_TOL, tests/test_torch_cuda_kernel.py TOL)
+KERNEL_TOL = 1e-5
+
+
+def _mm(a, b, passes, b_exact=False):
+    """``a @ b`` as ``mma3_rows`` computes it: ``passes`` 3 sums lo.hi,
+    hi.lo, then hi.hi in float32 (``b_exact``: b is exact in TF32, as int8
+    codes are, and its hi.lo pass is dropped: 2 passes); 1 is one TF32
+    pass."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    if passes > 1:
+        out = out + _tf32_read(a - ah) @ bh
+        if not b_exact:
+            out = out + ah @ _tf32_read(b - bh)
+    return out + ah @ bh
+
+
+def _emulated_tiled(q, kp, vp, table, pos, scale, passes=3, k_scale=None,
+                    v_scale=None, bn=64, warps=4, rows=16):
+    """The tiled kernel's schedule on CPU tensors: per (row, 16-query
+    tile) the key limit min(nblk bs, the tile's highest position + 1);
+    keys addressed one by one through the table (key j: pool row
+    table[b, j // bs], token j % bs), so a key tile crosses pool blocks;
+    D zero-padded to the kernel's instantiation; the ``bn``-key tiles
+    taken from tile ``x mod tiles`` on, wrapping around (``x`` the query
+    tile's CTA, deepest first), split between ``warps`` warps, each with
+    its own online softmax per tile; S = Q K^T and P V through ``_mm``
+    (int8: codes are exact, the scales fold into S's and P's columns);
+    the warps merged in order."""
+    quant = k_scale is not None
+    b, s_q, n, d = q.shape
+    bs = kp.shape[1]
+    dp = next(x for x in (16, 32, 64, 128) if x >= d)
+    kw = bn // warps
+    nblk = tpa._nblocks(pos, bs, table.shape[1])
+    out = torch.zeros(b, s_q, n, d)
+    for r in range(b):
+        for i0 in range(0, s_q, rows):
+            pr = torch.full((rows,), torch.iinfo(torch.int32).min)
+            live = pos[r, i0:i0 + rows]
+            pr[:len(live)] = live
+            n_keys = max(0, min(int(nblk[r]) * bs, int(live.max()) + 1))
+            key = torch.arange(n_keys)
+            blk = table[r, key // bs].long()
+            tok = key % bs
+            k, v = kp[blk, tok].float(), vp[blk, tok].float()  # [K, n, d]
+            pad = (0, dp - d)
+            k = torch.nn.functional.pad(k, pad).permute(1, 0, 2)
+            v = torch.nn.functional.pad(v, pad).permute(1, 0, 2)
+            qt = torch.zeros(rows, n, dp)
+            qt[:len(live), :, :d] = q[r, i0:i0 + rows]
+            qt = qt.permute(1, 0, 2)                         # [n, 16, dp]
+            m = torch.full((warps, n, rows), float("-inf"))
+            l = torch.zeros(warps, n, rows)
+            acc = torch.zeros(warps, n, rows, dp)
+            n_kv = -(-n_keys // bn)
+            cta = -(-s_q // rows) - 1 - i0 // rows
+            for it in range(n_kv):
+                j0 = (it + cta % n_kv) % n_kv * bn
+                for w in range(warps):
+                    sel = torch.arange(min(j0 + w * kw, n_keys),
+                                       min(j0 + (w + 1) * kw, n_keys))
+                    if len(sel) == 0:
+                        continue
+                    s = _mm(qt, k[:, sel].transpose(-1, -2), passes,
+                            b_exact=quant)
+                    if quant:
+                        s = s * k_scale[blk[sel], tok[sel]].T[:, None, :]
+                    s = s * scale
+                    vis = sel[None, :] <= pr[:, None]        # [16, kw]
+                    s = torch.where(vis[None], s, float("-inf"))
+                    m_new = torch.maximum(m[w], s.amax(-1))
+                    safe = torch.where(torch.isneginf(m_new),
+                                       torch.zeros_like(m_new), m_new)
+                    corr = torch.where(torch.isneginf(m[w]),
+                                       torch.zeros_like(m_new),
+                                       torch.exp(m[w] - safe))
+                    p = torch.where(torch.isneginf(s), torch.zeros_like(s),
+                                    torch.exp(s - safe[..., None]))
+                    l[w] = l[w] * corr + p.sum(-1)
+                    if quant:
+                        p = p * v_scale[blk[sel], tok[sel]].T[:, None, :]
+                    acc[w] = acc[w] * corr[..., None] + _mm(
+                        p, v[:, sel], passes, b_exact=quant)
+                    m[w] = m_new
+            big = m.amax(0)
+            safe = torch.where(torch.isneginf(big), torch.zeros_like(big),
+                               big)
+            cw = torch.where(torch.isneginf(m), torch.zeros_like(m),
+                             torch.exp(m - safe))
+            L = (cw * l).sum(0)
+            A = (cw[..., None] * acc).sum(0)
+            o = A / torch.where(L == 0, torch.ones_like(L), L)[..., None]
+            out[r, i0:i0 + rows] = o.permute(1, 0, 2)[:len(live), :, :d]
+    return out
+
+
+def _tiled_case(seed, bs, quant, d=48, s_q=40):
+    """Three rows of ``s_q`` queries crossing three 16-query tiles: row 0
+    deep in the table at positions with gaps, out of order and repeated;
+    row 1 an overshooting pad row (positions past the table); row 2 an
+    inactive all-scratch row at positions 0..s_q-1. Depths span two to
+    three 64-key tiles, so key tiles cross pool blocks at any block
+    size."""
+    b, n = 3, 2
+    mb = -(-150 // bs)
+    rng = np.random.RandomState(seed)
+    pool = b * mb + 1
+    q = rng.randn(b, s_q, n, d).astype(np.float32)
+    kp = rng.randn(pool, bs, n, d).astype(np.float32)
+    vp = rng.randn(pool, bs, n, d).astype(np.float32)
+    table = (rng.permutation(pool - 1)[:b * mb] + 1).reshape(b, mb)
+    pos = np.zeros((b, s_q), np.int64)
+    pos[0] = rng.choice(np.arange(40, mb * bs - 5), size=s_q, replace=False)
+    pos[0, :3] = pos[0, 3]
+    pos[1] = mb * bs - s_q // 2 + np.arange(s_q)
+    pos[2] = np.arange(s_q)
+    table[2] = 0
+    case = (q, kp, vp, table.astype(np.int32), pos.astype(np.int32))
+    return _int8(case) if quant else case
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("bs", [8, 12, 16, 32])
+def test_tiled_schedule_matches_gather_and_jax(bs, quant):
+    """The tiled kernel's schedule and tensor-core arithmetic on CPU:
+    key tiles that cross pool blocks (block sizes 8, 16, 32 and 12, which
+    does not divide a 64-key tile), per-query positions that are not
+    consecutive, an overshooting pad row and an all-scratch row, D 48
+    padded to 64. 3xTF32 (float pools) and 2 passes on the exact int8
+    codes with the scales folded into S's and P's columns hold the
+    card's 1e-5 limit against the port's gather oracle and the JAX
+    package's reference; one TF32 pass misses it, which is why the
+    kernel pays for more."""
+    case = _tiled_case(100 + bs, bs, quant)
+    t = [torch.from_numpy(np.array(a)) for a in case]
+    scales = t[5:] if quant else [None, None]
+    scale = t[0].shape[-1] ** -0.5
+    want_port = _torch(case, "gather")
+    want_jax = _jax(case, "gather")
+    got = _emulated_tiled(*t[:5], scale, 3 if not quant else 2,
+                          *scales).numpy()
+    for want in (want_port, want_jax):
+        assert np.abs(got - want).max() <= KERNEL_TOL
+    one = _emulated_tiled(*t[:5], scale, 1, *scales).numpy()
+    assert np.abs(one - want_port).max() > KERNEL_TOL
+
+
+def test_tiled_schedule_int8_codes_need_two_passes_exactly():
+    """int8 codes are exact in TF32 (|code| <= 127): the hi.lo pass on
+    the codes adds exactly 0, so the kernel's 2 passes give the bits of
+    all 3."""
+    case = _tiled_case(7, 16, True)
+    t = [torch.from_numpy(np.array(a)) for a in case]
+    codes = t[1].float()
+    assert torch.equal(_tf32(codes), codes)
+    scale = t[0].shape[-1] ** -0.5
+    q = t[0][0, :16, 0]
+    k = codes[1, :, 0]
+    assert torch.equal(_mm(q, k.T, 2, b_exact=True), _mm(q, k.T, 3))
+    a = _emulated_tiled(*t[:5], scale, 2, *t[5:])
+    assert torch.isfinite(a).all()
