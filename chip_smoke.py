@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``tensorflowonspark_tpu_torch``) on one
-NVIDIA card, end to end — serving and training — and hold its CUDA
-kernels against their plain PyTorch versions.
+NVIDIA card, end to end — serving, training, and training fed through
+the cluster plane — and hold its CUDA kernels against their plain
+PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -67,7 +68,25 @@ Phases, stopping with a non-zero exit at the first failure:
    ``x`` shifted by one. Every loss finite, the mean of the last 3
    below the first, each flash kernel launched exactly 12 times per
    step;
-6. the ``{"kernels": [...]}`` line, the card line, and last the
+6. cluster — the paper's own path on the port: an engine ``Context``
+   with one executor, ``cluster.run(..., InputMode.SPARK)`` with
+   ``TFOS_FEED_TRANSPORT=shm``, the 10 batches of phase 5 as 80 records
+   of 1025 token ids in 4 partitions through ``tfc.train``. The trainer,
+   forked from the executor, builds phase 5's model from the same seed
+   on ``cuda:0`` (``NodeContext.initialize_torch``), reads the records
+   with ``DataFeed.numpy_batches(8)`` and trains through
+   ``infeed.device_batches`` and ``Trainer.train_loop`` with the goodput
+   ledger (``cluster_map_fun``, shipped by value from ``__main__``).
+   Exactly 10 steps; each record delivered once, in order; the shm ring
+   used; each flash kernel launched 12 times per step; losses equal to
+   phase 5's within 1e-4 relative; the executor holds no CUDA context
+   after training; ``tfc.metrics()`` carries the executor's feed
+   counters; ``shutdown`` raises nothing and ``sc.stop`` leaves no
+   process. Printed: bootstrap seconds, feed rate over ``tfc.train``,
+   ``DataFeed`` wait per step, the cluster-fed step p50 beside phase
+   5's, and the goodput ledger's productive share;
+7. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
+   counts as ``launches_cluster``), the card line, and last the
    ``{"ok": true, ...}`` line.
 
 ``--out-dir DIR`` also writes every number of the run to
@@ -77,7 +96,7 @@ script.
 """
 
 import argparse
-
+import gc
 import http.client
 import json
 import os
@@ -734,6 +753,7 @@ def serving_phase(torch, dev):
             counts = engine.counters.snapshot()["counts"]
             runs[kv] = {"out": out, "wall": wall, "counts": counts,
                         "stages": engine.timers.snapshot(),
+                        "stage_samples": engine.timers.counts(),
                         "ttft_p50": engine.histograms["ttft"].quantile(0.5),
                         "step_p50": engine.histograms["decode_step"]
                         .quantile(0.5)}
@@ -765,7 +785,7 @@ def serving_phase(torch, dev):
                 r["counts"].get("preemptions", 0),
                 r["counts"].get("decode_steps", 0)))
         log("  stages: " + ", ".join(
-            "{} {:.3f}s/{}".format(k, v["seconds"], v["samples"])
+            "{} {:.3f}s/{}".format(k, v, r["stage_samples"][k])
             for k, v in sorted(r["stages"].items())))
         check(r["counts"].get("prefix_hit_blocks", 0) > 0,
               "shared-prefix requests never hit the prefix cache")
@@ -931,6 +951,263 @@ def training_phase(torch, dev):
                       "plain_step": plain_step}
 
 
+# -- phase 6: the cluster-fed trainer -----------------------------------
+
+
+#: phase 6's partitions of the 80 records (10 batches of 8): each a
+#: multiple of the batch, since a batch never straddles a partition
+CLUSTER_PARTITIONS = (16, 24, 16, 24)
+
+
+def row_digest(row):
+    import hashlib
+    return hashlib.blake2b(np.ascontiguousarray(row).tobytes(),
+                           digest_size=8).hexdigest()
+
+
+def cluster_map_fun(args, ctx):
+    """The trainer of phase 6, run by the port's cluster in a process
+    forked from the executor (this function ships by value from
+    ``__main__``): phase 5's model and optimizer from the same seed,
+    fed by ``DataFeed`` through ``infeed.device_batches`` into
+    ``Trainer.train_loop`` with the goodput ledger; writes what it saw to
+    ``args["out"]``."""
+    import json
+    import time
+
+    # wall-clock marks of the trainer's start-up, for the breakdown
+    marks = [("start", time.time())]
+    import torch
+    from tensorflowonspark_tpu_torch import goodput, infeed, training
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+    from tensorflowonspark_tpu_torch.ops import _build
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    marks.append(("imports", time.time()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prebuilt = os.path.exists(_build.library_path("flash_attention"))
+    dev = ctx.initialize_torch(args["device"])
+    torch.zeros(1, device=dev).sum().item()  # the CUDA context exists
+    marks.append(("device", time.time()))
+    cfg = args["model"]
+    model = DecoderLM(cfg["vocab"], hidden=cfg["hidden"],
+                      num_heads=cfg["heads"], num_layers=cfg["layers"],
+                      max_len=cfg["max_len"], device=dev)
+    marks.append(("model", time.time()))
+    trainer = training.Trainer(model, training.adamw(args["lr"]), device=dev)
+    gen = (torch.Generator(device=dev) if dev.type == "cuda"
+           else torch.Generator())
+    state = trainer.init(gen.manual_seed(args["seed"]))
+    float(next(model.parameters()).sum())  # the init has run
+    marks.append(("init", time.time()))
+    feed = ctx.get_data_feed(train_mode=True,
+                             input_mapping={"tokens": "tokens"})
+    marks.append(("feed", time.time()))
+    digests, pulled = [], []
+
+    def batches():
+        for b in feed.numpy_batches(args["batch"]):
+            pulled.append(time.time())
+            rows = b["tokens"]  # the feed's staging buffer, reused
+            digests.extend(row_digest(r) for r in rows)
+            yield {"x": rows[:, :-1], "y": rows[:, 1:]}
+
+    losses, step_s, counts, at_step = [], [], [], {}
+    clock = [None]
+
+    def hook(n, st, metrics):
+        losses.append(float(metrics["loss"]))  # waits for the step
+        now = time.monotonic()
+        step_s.append(now - clock[0])
+        clock[0] = now
+        counts.append(dict(fa.launches))
+        # the feed and the ledger as of this step: after the last one
+        # the loop still waits for the end-of-feed marker shutdown sends
+        at_step.update(feed=feed.stats(), goodput=goodput.ledger().report())
+
+    # THE main path of this phase: counts at zero just before
+    for name in fa.launches:
+        fa.launches[name] = 0
+    clock[0] = time.monotonic()
+    state, steps, _ = trainer.train_loop(
+        state, infeed.device_batches(batches(), device=dev), log_every=0,
+        hooks=(hook,))
+    with open(args["out"], "w") as f:
+        json.dump({"steps": steps, "losses": losses, "step_s": step_s,
+                   "flash_launches": counts, "digests": digests,
+                   "pulled_wall": pulled, "startup_marks": marks,
+                   "feed_stats": feed.stats(),
+                   "feed_stats_at_last_step": at_step.get("feed"),
+                   "goodput_at_last_step": at_step.get("goodput"),
+                   "goodput_final": goodput.ledger().report(),
+                   "transport": ctx.mgr.get("feed_transport"),
+                   "ring": feed._ring is not None,
+                   "device": str(dev), "kernels_prebuilt": prebuilt,
+                   "pid": os.getpid()}, f)
+
+
+def cuda_probe(iterator):
+    """Run as a task in the executor after training: its CUDA state and
+    the foreign modules it holds (none may be there)."""
+    import torch
+    list(iterator)
+    return [{"cuda_initialized": torch.cuda.is_initialized(),
+             "pid": os.getpid(),
+             "foreign": sorted(m for m in sys.modules
+                               if m.split(".")[0] in (
+                                   "jax", "flax", "optax", "cloudpickle",
+                                   "tensorflowonspark_tpu")
+                               and sys.modules[m] is not None)}]
+
+
+def cluster_phase(device, phase5, parent):
+    """``cluster.run(InputMode.SPARK)`` with one executor, the 10 motif
+    batches of phase 5 as 80 records in 4 partitions through
+    ``tfc.train``, a CUDA probe in the executor, ``shutdown`` and
+    ``sc.stop``; every check of phase 6. The engine's work directory is
+    a ``.tfos-cluster-*`` directory under ``parent``, removed at the
+    end."""
+    import shutil
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import cluster
+    from tensorflowonspark_tpu_torch.engine import Context
+
+    batches = motif_batches(TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    rows = np.concatenate([np.concatenate([b["x"], b["y"][:, -1:]], axis=1)
+                           for b in batches])
+    records = [{"tokens": r} for r in rows]
+    check(len(records) == sum(CLUSTER_PARTITIONS), "partition sizes")
+    work = tempfile.mkdtemp(prefix=".tfos-cluster-", dir=parent)
+    out = os.path.join(work, "trainer.json")
+    args = {"device": device, "seed": SEED, "lr": TRAIN_LR,
+            "batch": TRAIN_BATCH, "out": out,
+            "model": {"vocab": VOCAB, "hidden": HIDDEN, "heads": HEADS,
+                      "layers": LAYERS, "max_len": MAX_LEN}}
+    t0 = time.monotonic()
+    sc = Context(num_executors=1, work_root=os.path.join(work, "engine"),
+                 executor_env={"TFOS_FEED_TRANSPORT": "shm"})
+    try:
+        t_ctx = time.monotonic() - t0
+        t0 = time.monotonic()
+        tfc = cluster.run(sc, cluster_map_fun, args, 1,
+                          input_mode=cluster.InputMode.SPARK)
+        bootstrap = time.monotonic() - t0
+        parts, start = [], 0
+        for n in CLUSTER_PARTITIONS:
+            parts.append(sc.parallelize(records[start:start + n], 1))
+            start += n
+        rdd = sc.union(parts)
+        check(rdd.getNumPartitions() == len(CLUSTER_PARTITIONS),
+              "the records are not in {} partitions".format(
+                  len(CLUSTER_PARTITIONS)))
+        t0, wall0 = time.monotonic(), time.time()
+        tfc.train(rdd, num_epochs=1)
+        feed_s = time.monotonic() - t0
+        probe = sc.parallelize([0], 1).mapPartitions(cuda_probe).collect()
+        leases = tfc.server.lease_snapshot()
+        t0 = time.monotonic()
+        tfc.shutdown()
+        shutdown_s = time.monotonic() - t0
+        metrics = tfc.metrics()
+    finally:
+        sc.stop()
+    alive = [p.pid for p in sc._procs if p.poll() is None]
+    check(not alive, "executors alive after sc.stop(): {}".format(alive))
+    with open(out) as f:
+        got = json.load(f)
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        os.kill(got["pid"], 0)
+        trainer_alive = True
+    except ProcessLookupError:
+        trainer_alive = False
+    check(not trainer_alive, "the trainer outlived shutdown")
+    check(got["device"] == "cuda:0" or device == "cpu",
+          "the trainer ran on {}".format(got["device"]))
+    check(got["kernels_prebuilt"], "the trainer found no built kernel")
+    transports = {v["payload"].get("feed_transport")
+                  for v in leases.values()}
+    check(got["transport"] == "shm" and got["ring"]
+          and transports == {"shm"},
+          "the feed did not ride the shm ring (trainer {}, ring {}, "
+          "leases {})".format(got["transport"], got["ring"], transports))
+    check(got["steps"] == TRAIN_STEPS and len(got["losses"]) == TRAIN_STEPS,
+          "the trainer took {} steps, not {}".format(got["steps"],
+                                                     TRAIN_STEPS))
+    stats = got["feed_stats_at_last_step"]
+    check(got["feed_stats"]["records"] == len(records),
+          "DataFeed counted {} records, not {}".format(
+              got["feed_stats"]["records"], len(records)))
+    check(got["digests"] == [row_digest(r) for r in rows],
+          "the records were not each delivered once, in order")
+    for i, c in enumerate(got["flash_launches"]):
+        check(all(c[k] == LAYERS * (i + 1) for k in c),
+              "cluster step {}: flash launches {} are not {} per kernel "
+              "per step".format(i + 1, c, LAYERS))
+    want = phase5["losses"]
+    rel = [abs(g - w) / abs(w) for g, w in zip(got["losses"], want)]
+    check(max(rel) <= STEP_LOSS_RTOL,
+          "cluster-fed losses differ from phase 5's (worst rel {:.2e})"
+          .format(max(rel)))
+    check(probe and probe[0]["cuda_initialized"] is False,
+          "the executor holds a CUDA context: {}".format(probe))
+    check(probe[0]["foreign"] == [], "the executor imported {}".format(
+        probe[0]["foreign"]))
+    merged = metrics["cluster"]["merged"]["counters"].get("tfos_feed", {})
+    records_seen = merged.get("counts", {}).get("records")
+    check(records_seen == len(records),
+          "tfc.metrics() shows {} fed records".format(records_seen))
+    nbytes = rows.nbytes
+    steps = len(got["step_s"])
+    p50 = float(np.median(got["step_s"]))
+    share = got["goodput_at_last_step"]
+    log("cluster losses: " + " ".join("{:.4f}".format(x)
+                                      for x in got["losses"]))
+    log("cluster vs phase 5 losses: worst rel {:.2e} (tol {:.0e})".format(
+        max(rel), STEP_LOSS_RTOL))
+    log("cluster bootstrap {:.3f}s (cluster.run to formed; executor start "
+        "{:.3f}s), shutdown {:.3f}s".format(bootstrap, t_ctx, shutdown_s))
+    first_lag = got["pulled_wall"][0] - wall0
+    log("cluster feed over tfc.train: {} records, {} bytes in {:.3f}s: "
+        "{:.1f} records/s, {:.3f} MB/s; transport {}; the first batch "
+        "reached the trainer {:.3f}s after tfc.train began (its start-up: "
+        "imports, CUDA context, model init)".format(
+            len(records), nbytes, feed_s, len(records) / feed_s,
+            nbytes / feed_s / 1e6, got["transport"], first_lag))
+    marks = got["startup_marks"]
+    log("cluster trainer start-up: {}; first batch {:.3f}s after the "
+        "feed was ready".format(", ".join(
+            "{} {:.3f}s".format(name, t - marks[i][1])
+            for i, (name, t) in enumerate(marks[1:])),
+            got["pulled_wall"][0] - marks[-1][1]))
+    log("cluster DataFeed wait {:.4f}s per step ({:.3f}s over {} steps); "
+        "stages {}".format(stats["wait_s"] / steps, stats["wait_s"], steps,
+                           {k: round(v, 4) for k, v in
+                            stats["stages"].items()}))
+    log("cluster-fed step p50 {:.4f}s vs phase 5 {:.4f}s (ratio {:.3f})"
+        .format(p50, phase5["p50_s"], p50 / phase5["p50_s"]))
+    log("cluster goodput at step {}: productive share {:.4f} of {:.3f}s "
+        "(compile {:.3f}s, feed_wait {:.3f}s, idle {:.3f}s)".format(
+            share["steps"] + 1, share["goodput_ratio"], share["wall_s"],
+            share["badput"]["compile"], share["badput"]["feed_wait"],
+            share["badput"]["idle"]))
+    log("cluster executor CUDA initialized: {}; flash launches per kernel "
+        "{}".format(probe[0]["cuda_initialized"], got["flash_launches"][-1]))
+    return {"bootstrap_s": bootstrap, "executor_start_s": t_ctx,
+            "shutdown_s": shutdown_s, "feed_s": feed_s,
+            "records": len(records), "bytes": int(nbytes),
+            "records_per_s": len(records) / feed_s,
+            "first_batch_lag_s": first_lag,
+            "mb_per_s": nbytes / feed_s / 1e6,
+            "wait_s_per_step": stats["wait_s"] / steps,
+            "p50_s": p50, "phase5_p50_s": phase5["p50_s"],
+            "loss_rel_worst": max(rel), "probe": probe[0],
+            "trainer": {k: v for k, v in got.items()
+                        if k not in ("digests", "pulled_wall")}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -1022,6 +1299,13 @@ def main():
     launches, route_launches, runs, preempt = serving_phase(torch, dev)
     torch.cuda.empty_cache()
     flash_launches, train = training_phase(torch, dev)
+    # phase 5's model and optimizer were locals of training_phase: free
+    # their memory before the trainer process of phase 6 takes the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("before the cluster phase: {:.2f} GiB allocated in this process"
+        .format(torch.cuda.memory_allocated(dev) / 2 ** 30))
+    clus = cluster_phase(None, train, here)
     t = timing["decode"][False]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -1095,6 +1379,8 @@ def main():
             "replaces": "tensorflowonspark_tpu/ops/flash_attention.py:{}"
                         .format(replaces),
             "launches": flash_launches[name],
+            # the same kernel's launches in phase 6's cluster-fed trainer
+            "launches_cluster": clus["trainer"]["flash_launches"][-1][name],
             # case (a), the main path's shape and dtype; every case below
             "max_abs_err": flash_err["a"][name],
             "max_abs_err_by_case": {c: e[name] for c, e in flash_err.items()},
@@ -1120,6 +1406,7 @@ def main():
                            for kv, r in runs.items()},
                        "preemption": preempt,
                        "training": train,
+                       "cluster": clus,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     log("total: {:.1f}s".format(time.monotonic() - t_start))
     print(json.dumps(kernels))

@@ -24,6 +24,25 @@ the reference so each counterpart is easy to find:
   ``softmax_xent``, ``adamw``.
 - :mod:`~tensorflowonspark_tpu_torch.infeed` — ``prefetch`` and
   ``device_batches`` (pinned staging, side-stream copies).
+- The cluster and feed plane, each the port's own copy of the module of
+  the same name: :mod:`~tensorflowonspark_tpu_torch.cluster`
+  (``run``, ``InputMode``, ``TFCluster``),
+  :mod:`~tensorflowonspark_tpu_torch.node` (bootstrap, feed helpers,
+  ``NodeContext.initialize_torch``),
+  :mod:`~tensorflowonspark_tpu_torch.engine` (local Spark-shaped
+  engine and its closure serializer),
+  :mod:`~tensorflowonspark_tpu_torch.reservation`,
+  :mod:`~tensorflowonspark_tpu_torch.manager`,
+  :mod:`~tensorflowonspark_tpu_torch.datafeed` (and ``tfnode``),
+  :mod:`~tensorflowonspark_tpu_torch.shm` (the native ring, built into
+  ``_build/``), :mod:`~tensorflowonspark_tpu_torch.frames`,
+  :mod:`~tensorflowonspark_tpu_torch.marker`,
+  :mod:`~tensorflowonspark_tpu_torch.goodput`,
+  :mod:`~tensorflowonspark_tpu_torch.chaos`,
+  :mod:`~tensorflowonspark_tpu_torch.fs` and
+  :mod:`~tensorflowonspark_tpu_torch.util`;
+  :mod:`~tensorflowonspark_tpu_torch.tracing` holds the metrics
+  registry, event log and flight recorder they report through.
 
 ``flash_attention``, ``flash_attention_lse`` and ``Trainer`` are also
 reachable from the package itself.

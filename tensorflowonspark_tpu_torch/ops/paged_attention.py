@@ -99,8 +99,10 @@ SPLIT_HEAD_DIMS = (16, 32, 64, 128)
 #: 16, 32, 64 and 128, a head dim in between zero-padded to the next
 TILED_MAX_HEAD_DIM = 128
 
-#: largest block_size the kernels take (the CUDA-core tiled kernel scores
-#: one key per lane of a warp)
+#: largest block_size the CUDA-core tiled route (``"tiled_simt"``) takes:
+#: it scores one key per lane of a warp. The split-KV route loops over a
+#: block's tokens and the tensor-core tiled route finds each key row
+#: through the table, so both take any block size.
 MAX_BLOCK_SIZE = 32
 
 #: largest head_dim the kernels take (the CUDA-core tiled kernel keeps
@@ -266,7 +268,6 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
     quantized = k_scale is not None
     tensors = [q, k_pool, v_pool, block_table, pos] + (
         [k_scale, v_scale] if quantized else [])
-    _check(all(t.is_cuda for t in tensors), "every tensor must be CUDA")
     _check(len({t.device for t in tensors}) == 1,
            "tensors on different devices")
     _check(all(t.is_contiguous() for t in tensors),
@@ -290,8 +291,7 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
            and block_table.shape[0] == b, "block_table must be int32 [B, MB]")
     _check(pos.dtype == torch.int32 and tuple(pos.shape) == (b, s_q),
            "pos must be int32 [B, S_q]")
-    _check(1 <= bs_blk <= MAX_BLOCK_SIZE,
-           "block_size must be in [1, {}]".format(MAX_BLOCK_SIZE))
+    _check(bs_blk >= 1, "block_size must be at least 1")
     _check(1 <= d <= MAX_HEAD_DIM,
            "head_dim must be in [1, {}]".format(MAX_HEAD_DIM))
     route = _route(s_q, d)
@@ -301,8 +301,12 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
         _check(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
                "pools must start on a 16-byte boundary (16-byte loads)")
     elif route == "tiled_simt":
+        _check(bs_blk <= MAX_BLOCK_SIZE,
+               "block_size must be in [1, {}] on the tiled_simt route "
+               "(head_dim > {})".format(MAX_BLOCK_SIZE, TILED_MAX_HEAD_DIM))
         _check(2 * bs_blk * (d + 1) * 4 + QUERY_TILE * d * 4 <= 48 * 1024,
                "block_size x head_dim too large for shared memory")
+    _check(all(t.is_cuda for t in tensors), "every tensor must be CUDA")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -17,8 +17,7 @@ Typical ``map_fun`` body::
         state, metrics = trainer.step(state, batch)
 
 Left for later slices: data parallelism across cards
-(``torch.distributed``), the dropout key (``dropout_rng``), and the
-goodput ledger ``train_loop`` charges in the reference.
+(``torch.distributed``) and the dropout key (``dropout_rng``).
 """
 
 import logging
@@ -149,16 +148,40 @@ class Trainer(object):
         state["step"] += 1
         return state, {"loss": loss.detach()}
 
-    def train_loop(self, state, batches, log_every=50, hooks=()):
+    def train_loop(self, state, batches, log_every=50, hooks=(),
+                   ledger=None):
         """Drive steps over a batch iterator. Returns ``(state,
         total_steps, examples/sec)``. ``hooks``: callables ``(step_no,
-        state, metrics) -> None``."""
+        state, metrics) -> None``.
+
+        Goodput accounting (goodput.py), as in the reference: each
+        step-call window is charged to the ledger as ``productive_step``
+        — the FIRST of a process's life as ``compile`` (it loads the
+        kernels and warms the allocator and cuBLAS) — and mirrored into
+        the flight recorder as a ``train_step``/``compile`` span. The
+        step returns once its work is queued on the card; the queue is
+        bounded, so successive call windows cover the card's time
+        without a synchronisation that would stall the pipeline.
+        ``ledger=None`` charges the process-global ledger (the one the
+        DataFeed's heartbeat snapshot carries to the driver);
+        ``ledger=False`` opts out. A custom ledger receives only this
+        loop's step envelopes; the feed's waits always charge
+        ``goodput.ledger()``.
+        """
+        from tensorflowonspark_tpu_torch import goodput
+
+        if ledger is None:
+            ledger = goodput.ledger()
         n = 0
         examples = 0
         t0 = time.monotonic()
         metrics = None
         for batch in batches:
-            state, metrics = self.step(state, batch)
+            if ledger:
+                with ledger.step_span():
+                    state, metrics = self.step(state, batch)
+            else:
+                state, metrics = self.step(state, batch)
             n += 1
             examples += _batch_size(batch)
             for hook in hooks:

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (``cuda`` marker; skips where torch sees no CUDA device):
 paged attention on its three routes (split-KV; query-tiled on the tensor
-cores at block sizes 8-32, windows 2-300 and head dims 16-128; the
-CUDA-core tiled kernel above 128), with depths on and off split
+cores at block sizes 8-128, windows 2-300 and head dims 16-128; the
+CUDA-core tiled kernel above 128, which alone keeps the 32-token block
+limit), with depths on and off split
 boundaries, positions that are not consecutive, its determinism,
 NaN-poisoned dead pool rows and the tiled kernel's register budget; and
 the three flash-attention kernels (forward, dQ, dK/dV), with
@@ -202,6 +203,43 @@ def test_tiled_route_block_sizes_and_windows(cuda, bs, s_q, quant):
     want = pa.paged_attention(*args, impl="blockwise", **scales)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("s_q", [1, 40], ids=["split", "tiled"])
+@pytest.mark.parametrize("bs", [64, 128])
+def test_routes_take_block_sizes_above_32(cuda, bs, s_q, quant):
+    """Block sizes past the CUDA-core route's 32 on the split and the
+    tensor-core tiled routes (``DecodeEngine(kv_block_size=64)``'s
+    pools): within TOL of ``_blockwise`` for a row mid-table, one
+    overshooting the table and an all-scratch one, and NaN-poisoned
+    dead pool rows leave the output bitwise unchanged."""
+    rng = np.random.RandomState(bs + s_q)
+    mb = 5
+    args, scales = _paged_case(cuda, rng, s_q, quant,
+                               [2 * bs + 7, mb * bs + 5, s_q], n=2, d=64,
+                               bs=bs, mb=mb, scratch_row=2)
+    got, route = _launch(args, scales)
+    assert route == ("split" if s_q == 1 else "tiled")
+    want = pa.paged_attention(*args, impl="blockwise", **scales)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    poisoned, _ = _launch(*_poison_dead(cuda, args, scales, bs))
+    assert torch.equal(poisoned, got)
+
+
+@pytest.mark.cuda
+def test_simt_route_refuses_block_64(cuda):
+    """The CUDA-core route (head dims above 128) scores one key per
+    lane, so it alone keeps the 32-token block limit."""
+    rng = np.random.RandomState(64)
+    args, _ = _paged_case(cuda, rng, 16, False, [100, 40, 16], n=1, d=192,
+                          bs=64, mb=3)
+    before = dict(pa.route_launches)
+    with pytest.raises(ValueError, match="tiled_simt"):
+        pa.paged_attention(*args)
+    assert pa.route_launches == before
 
 
 @pytest.mark.cuda

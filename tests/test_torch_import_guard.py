@@ -1,7 +1,7 @@
-"""The port stands alone: it imports nothing of JAX, flax or the JAX
-package, and its kernel modules import (and serve and train on the CPU)
-without a CUDA compiler — kernels build at their first launch on a
-card."""
+"""The port stands alone: it imports nothing of JAX, flax, optax, the JAX
+package or cloudpickle, and its kernel modules import (and serve, train
+and run a cluster on the CPU) without a CUDA compiler — kernels build at
+their first launch on a card."""
 
 import ast
 import os
@@ -11,7 +11,13 @@ import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "tensorflowonspark_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tensorflowonspark_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tensorflowonspark_tpu",
+             "cloudpickle")
+#: the cluster and feed plane's modules (each the port's own copy)
+PLANE = ("util", "marker", "fs", "frames", "shm", "manager", "tracing",
+         "goodput", "chaos", "datafeed", "tfnode", "reservation", "node",
+         "cluster", "engine/__init__", "engine/serializer", "engine/rdd",
+         "engine/context", "engine/executor")
 
 
 def _run(code):
@@ -107,6 +113,77 @@ def test_no_port_file_imports_jax_or_the_reference():
     bad = [(f, mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_plane_modules_are_the_ports_own_and_import_no_torch():
+    """Every module of the cluster and feed plane exists in the port,
+    imports nothing forbidden, and none imports torch at module scope:
+    the executor process that runs them forks the trainer, which must
+    be the first process to touch CUDA."""
+    for name in PLANE:
+        path = os.path.join(PORT, name + ".py")
+        assert os.path.isfile(path), path
+        mods = list(_imports(path))
+        assert not [m for m in mods if m.split(".")[0] in FORBIDDEN], name
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                      ast.ImportFrom))]
+        scoped = [a.name for n in top if isinstance(n, ast.Import)
+                  for a in n.names] + [n.module for n in top
+                                       if isinstance(n, ast.ImportFrom)
+                                       and n.module]
+        assert not [m for m in scoped if m.split(".")[0] == "torch"], name
+
+
+def test_cluster_runs_with_jax_unimportable(tmp_path):
+    """A one-executor SPARK-mode job, driven from a process where jax,
+    flax, optax, the JAX package and cloudpickle cannot be imported: the
+    trainer sums its feed and the executor never creates a CUDA
+    context."""
+    res = _run("""
+        import json, os, sys
+        for name in ("jax", "jaxlib", "flax", "optax",
+                     "tensorflowonspark_tpu", "cloudpickle"):
+            sys.modules[name] = None  # any import of them now fails
+        from tensorflowonspark_tpu_torch import cluster
+        from tensorflowonspark_tpu_torch.engine import Context
+
+        out = {out!r}
+
+        def map_fun(args, ctx):
+            feed = ctx.get_data_feed(train_mode=True)
+            total = 0
+            for batch in feed.numpy_batches(4):
+                total += sum(batch)
+            with open(args["out"], "w") as f:
+                json.dump({{"total": total}}, f)
+
+        def probe(it):
+            import torch
+            list(it)
+            return [torch.cuda.is_initialized()]
+
+        sc = Context(num_executors=1, work_root={root!r})
+        try:
+            tfc = cluster.run(sc, map_fun, {{"out": out}}, 1)
+            tfc.train(sc.parallelize(list(range(30)), 3))
+            cuda = sc.parallelize([0], 1).mapPartitions(probe).collect()
+            tfc.shutdown()
+        finally:
+            sc.stop()
+        assert json.load(open(out)) == {{"total": sum(range(30))}}
+        assert cuda == [False], cuda
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "flax", "cloudpickle",
+                                         "tensorflowonspark_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("OK")
+    """.format(out=str(tmp_path / "total.json"),
+               root=str(tmp_path / "engine")))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
 
 
 def test_kernel_module_imports_without_nvcc():

@@ -176,6 +176,20 @@ def test_dispatcher_cpu_takes_plain_version_and_validates():
     assert tpa.launches == before
 
 
+@pytest.mark.parametrize("d,route", [(192, "tiled_simt"), (64, "tiled")])
+def test_only_the_simt_route_limits_block_size(d, route):
+    """Block 64 is past the CUDA-core route's one-key-per-lane limit
+    (``MAX_BLOCK_SIZE``): a head dim above 128 (``tiled_simt``) refuses
+    it, while the tensor-core tiled route takes it and the wrapper goes
+    on to its device check (CPU tensors stop there)."""
+    case = _case(6, s_q=8, d=d, bs=64, mb=2)
+    t = [torch.from_numpy(a) for a in case]
+    assert tpa._route(8, d) == route
+    match = "tiled_simt" if route == "tiled_simt" else "must be CUDA"
+    with pytest.raises(ValueError, match=match):
+        tpa._kernel(*t, scale=d ** -0.5)
+
+
 # -- the split-KV route's schedule and merge, emulated ------------------
 
 
@@ -428,7 +442,7 @@ def _tiled_case(seed, bs, quant, d=48, s_q=40):
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
-@pytest.mark.parametrize("bs", [8, 12, 16, 32])
+@pytest.mark.parametrize("bs", [8, 12, 16, 32, 64, 128])
 def test_tiled_schedule_matches_gather_and_jax(bs, quant):
     """The tiled kernel's schedule and tensor-core arithmetic on CPU:
     key tiles that cross pool blocks (block sizes 8, 16, 32 and 12, which

@@ -80,6 +80,20 @@ def test_mixed_lengths_identical_tokens(lm):
     assert eng.load_stats()["kv_blocks_free"] == eng.kv_blocks
 
 
+def test_block_size_64_identical_tokens(lm):
+    """A block size past the CUDA-core kernel's 32 (one 64-token block
+    per row at total_len 64) serves as the reference's engine does: the
+    port's split and tensor-core tiled routes take any block size."""
+    rng = np.random.RandomState(64)
+    reqs = [(rng.randint(0, V, size=rng.randint(3, 30)).tolist(),
+             int(rng.randint(2, 12))) for _ in range(4)]
+    want, got, _, tcounts, eng = _both(lm, reqs, slots=2, kv_block_size=64)
+    assert got == want
+    assert eng.kv_block_size == 64
+    assert tcounts["requests_completed"] == 4
+    assert eng._pool.live_refs() == {}
+
+
 def test_shared_prefix_hits_identical_tokens(lm):
     rng = np.random.RandomState(3)
     sys_prompt = rng.randint(0, V, size=20).tolist()  # 2 full 8-blocks

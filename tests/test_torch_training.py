@@ -16,6 +16,9 @@
 - ``infeed``: ``prefetch`` order, error re-raise and early close (the
   reference's ``tests/test_training.py`` cases), and ``device_batches``
   copying a reused host buffer.
+- ``train_loop``'s goodput envelopes: both trainers charge a custom
+  ledger the same kinds in the same order (``compile`` first, then
+  ``productive_step``), and ``ledger=False`` charges nothing.
 """
 
 import threading
@@ -198,6 +201,47 @@ def test_train_loop_returns_steps_rate_and_runs_hooks(flax_params):
         hooks=[lambda i, s, m: seen.append((i, float(m["loss"])))])
     assert n == 3 and rate > 0 and [i for i, _ in seen] == [1, 2, 3]
     assert state["step"] == 3
+
+
+def test_train_loop_charges_the_reference_envelopes(flax_params):
+    from tensorflowonspark_tpu import goodput as jgoodput
+    from tensorflowonspark_tpu import tracing as jtracing
+    from tensorflowonspark_tpu_torch import goodput, tracing
+
+    batches = _batches(n=3)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    jt = jtraining.Trainer(
+        JaxLM(vocab=V, hidden=H, num_heads=NH, num_layers=L, max_len=T),
+        optax.adamw(LR), mesh, loss_fn=jtraining.softmax_xent)
+    jstate = jt.init(jax.random.PRNGKey(0), batches[0]["x"])
+    jflight = jtracing.FlightRecorder()
+    jled = jgoodput.GoodputLedger(flight=jflight)
+    jt.train_loop(jstate, iter(batches), log_every=0, ledger=jled)
+    want = [e["name"] for e in jflight.events()]
+
+    tt = training.Trainer(_port_model(flax_params), training.adamw(LR),
+                          device="cpu")
+    flight = tracing.FlightRecorder()
+    led = goodput.GoodputLedger(flight=flight)
+    tt.train_loop(tt.init(), iter(batches), log_every=0, ledger=led)
+    names, rep = [e["name"] for e in flight.events()], led.report()
+    assert names == want == ["compile", "train_step", "train_step"]
+    jrep = jled.report()
+    assert rep["steps"] == jrep["steps"] == 2
+    assert rep["badput"]["compile"] > 0 and rep["productive_s"] > 0
+    assert set(rep) == set(jrep)
+
+    goodput.reset()
+    try:
+        process = goodput.ledger()
+        before = process.report()
+        tt.train_loop(tt.init(), iter(batches), log_every=0, ledger=False)
+        after = process.report()
+        assert after["steps"] == before["steps"] == 0
+        assert after["badput"]["compile"] == 0.0
+        assert after["productive_s"] == 0.0
+    finally:
+        goodput.reset()
 
 
 def test_trainer_init_from_generator_and_without_card():
