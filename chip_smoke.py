@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``tensorflowonspark_tpu_torch``) on one
-NVIDIA card, end to end — serving, training, and training fed through
-the cluster plane — and hold its CUDA kernels against their plain
-PyTorch versions.
+NVIDIA card, end to end — serving, training, training fed through the
+cluster plane, and the pipeline (TFRecords, data-parallel fit with
+checkpoint and resume, export, transform) — and hold its CUDA kernels
+against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -85,8 +86,39 @@ Phases, stopping with a non-zero exit at the first failure:
    process. Printed: bootstrap seconds, feed rate over ``tfc.train``,
    ``DataFeed`` wait per step, the cluster-fed step p50 beside phase
    5's, and the goodput ledger's productive share;
-7. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
-   counts as ``launches_cluster``), the card line, and last the
+7. pipeline — the slice a TFoS user runs end to end: phase 5's 80 rows
+   through the port's ``Context.createDataFrame(num_slices=4)`` and
+   ``dfutil.saveAsTFRecords`` into ``part-00000..3``;
+   ``TFEstimator(pipeline_train_fn).setInputMode("tensorflow").fit(df)``
+   on one executor, whose trainer (forked from the executor) joins a
+   one-rank NCCL group so the ``Trainer`` runs in
+   ``DistributedDataParallel``, reads the shards with the native
+   TFRecord codec, trains phase 5's model from the same seed 5 steps
+   with ``checkpoint.hook(every_steps=5)`` (``torch.distributed
+   .checkpoint``), restores step 5 into a fresh model from another seed
+   and trains steps 6-10, exports with ``tfnode.export_saved_model``
+   and scores 16 held-out rows with its own model; then
+   ``TFModel.transform`` of those rows in the executor from the export,
+   on the card. Exactly 10 steps; losses equal to phase 5's within 1e-4
+   relative across the resume; the restored parameters and AdamW
+   moments bitwise equal to the saved ones (digests); DDP over NCCL;
+   each flash kernel launched 12 times per step; the native codec read
+   every shard and ``part-*`` holds 80 records; ``transform``'s 16 rows
+   agree with the trainer's (``next_token`` equal but at a top-2 tie
+   below 1e-4, ``next_logit`` within 1e-4 relative) and ran the flash
+   forward 12 times a batch, and a second (warm) ``transform`` gives the
+   same rows; the port's ``tfrecord``, ``checkpoint``,
+   ``export`` and ``pipeline`` loaded and nothing of JAX, in the driver,
+   the executor and the trainer; no process left after ``sc.stop``; the
+   work directory (~2 GB: checkpoint and export) removed. Printed: the
+   step p50 beside phase 5's, checkpoint bytes and save / restore
+   seconds, the goodput ledger's ``checkpoint_save`` and ``restore``,
+   export bytes and seconds, ``load_model`` seconds, ``transform``
+   rows/s cold and warm, TFRecord write and read MB/s, and the phase's
+   wall;
+8. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
+   counts as ``launches_cluster`` and phase 7's as
+   ``launches_pipeline``), the card line, and last the
    ``{"ok": true, ...}`` line.
 
 ``--out-dir DIR`` also writes every number of the run to
@@ -1208,6 +1240,459 @@ def cluster_phase(device, phase5, parent):
                         if k not in ("digests", "pulled_wall")}}
 
 
+# -- phase 7: the pipeline (TFRecords -> fit -> checkpoint -> export ->
+# transform) -------------------------------------------------------------
+
+#: the DataFrame's slices, so saveAsTFRecords writes part-00000..3
+PIPELINE_SLICES = 4
+#: held-out rows scored by TFModel.transform, and its batch
+HELD_ROWS, TRANSFORM_BATCH = 16, 8
+#: steps before the checkpoint; the rest run on the restored model
+RESUME_AT = 5
+#: transform's last-position logit against the trainer's own, relative:
+#: the same weights through the same kernels, one on the trainer's model
+#: and one on the export's variables
+TRANSFORM_RTOL = 1e-4
+
+
+def state_digest(state):
+    """sha256 over every parameter and every optimizer moment and step
+    count, in parameter-name order: equal digests are a bitwise equal
+    state."""
+    import hashlib
+
+    h = hashlib.sha256()
+    names = {id(p): n for n, p in state["params"].items()}
+    for name, p in sorted(state["params"].items()):
+        h.update(name.encode())
+        h.update(p.detach().cpu().numpy().tobytes())
+    opt = state["opt_state"]
+    for p, st in sorted(opt.state.items(), key=lambda kv: names[id(kv[0])]):
+        for k in sorted(st):
+            h.update(k.encode())
+            h.update(st[k].detach().cpu().numpy().tobytes())
+    h.update(str(int(state["step"])).encode())
+    return h.hexdigest()
+
+
+def make_apply_fn(cfg):
+    """The export's ``apply_fn``: a ``DecoderLM`` skeleton on the
+    ``meta`` device, run on the loaded variables through
+    ``torch.func.functional_call``; the last position's arg-max token
+    and its logit."""
+
+    def apply_fn(variables, batch):
+        import torch
+        from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+        skeleton = DecoderLM(cfg["vocab"], hidden=cfg["hidden"],
+                             num_heads=cfg["heads"],
+                             num_layers=cfg["layers"],
+                             max_len=cfg["max_len"], device="meta")
+        with torch.no_grad():
+            logits = torch.func.functional_call(skeleton, variables,
+                                                (batch["x"],))
+        last = logits[:, -1]
+        return {"next_token": last.argmax(-1), "next_logit": last.max(-1)[0]}
+
+    return apply_fn
+
+
+def pipeline_train_fn(args, ctx):
+    """Phase 7's trainer, run by ``TFEstimator.fit`` in a process forked
+    from the executor (``InputMode.TENSORFLOW``; ships by value from
+    ``__main__``): joins a one-rank group (NCCL on the card) so the
+    ``Trainer`` takes its DDP path, reads the ``part-*`` TFRecords with
+    the native codec, trains phase 5's model from the same seed for
+    ``RESUME_AT`` steps with a checkpoint hook, restores that step into a
+    fresh model from another seed, trains the rest, exports from the
+    chief and scores the held-out rows with its own live model."""
+    import gc
+    import json
+    import sys
+    import time
+
+    marks = [("start", time.time())]
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tensorflowonspark_tpu_torch import (checkpoint, goodput, infeed,
+                                             tfnode, tfrecord, training)
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    marks.append(("imports", time.time()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = ctx.initialize_torch(args.device)
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method="tcp://" + ctx.coordinator_address(),
+            world_size=1, rank=0)
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else lambda: None)
+    torch.zeros(1, device=dev).sum().item()  # the context exists
+    marks.append(("device", time.time()))
+
+    files = tfrecord.list_tfrecord_files(args.tfrecord_dir)
+    t0 = time.monotonic()
+    rows = np.concatenate([
+        tfrecord.read_batch(f, {"tokens": ("int64", args.seq + 1)})["tokens"]
+        for f in files])
+    read_s = time.monotonic() - t0
+    read_bytes = sum(os.path.getsize(f) for f in files)
+    bs = args.batch_size
+    # batches of bs rows, cut across file boundaries
+    batches = [{"x": rows[i:i + bs, :-1], "y": rows[i:i + bs, 1:]}
+               for i in range(0, len(rows), bs)]
+    cfg = args.model
+
+    def build(seed):
+        model = DecoderLM(cfg["vocab"], hidden=cfg["hidden"],
+                          num_heads=cfg["heads"], num_layers=cfg["layers"],
+                          max_len=cfg["max_len"], device=dev)
+        trainer = training.Trainer(model, training.adamw(args.lr),
+                                   device=dev)
+        gen = (torch.Generator(device=dev) if dev.type == "cuda"
+               else torch.Generator())
+        return model, trainer, trainer.init(gen.manual_seed(seed))
+
+    losses, step_s, counts = [], [], []
+    clock = [None]
+
+    def record(n, st, metrics):
+        losses.append(float(metrics["loss"]))  # waits for the step
+        now = time.monotonic()
+        step_s.append(now - clock[0])
+        clock[0] = now
+        counts.append(dict(fa.launches))
+
+    ckpt = checkpoint.Checkpointer(args.model_dir, chief=True)
+    save_s = []
+    save_hook = checkpoint.hook(ckpt, every_steps=RESUME_AT)
+
+    def timed_save(n, st, metrics):
+        t = time.monotonic()
+        save_hook(n, st, metrics)
+        sync()
+        if n % RESUME_AT == 0:
+            save_s.append(time.monotonic() - t)
+        clock[0] = time.monotonic()  # the save is not the next step's
+
+    model, trainer, state = build(args.seed)
+    float(next(model.parameters()).sum())  # the init has run
+    marks.append(("model", time.time()))
+    ddp = [isinstance(trainer.net, torch.nn.parallel.DistributedDataParallel)]
+    # THE main path of this phase: counts at zero just before
+    for name in fa.launches:
+        fa.launches[name] = 0
+    clock[0] = time.monotonic()
+    state, steps_a, _ = trainer.train_loop(
+        state, infeed.device_batches(iter(batches[:RESUME_AT]), device=dev),
+        log_every=0, hooks=(record, timed_save))
+    saved_digest = state_digest(state)
+    step_dir = os.path.join(args.model_dir, str(RESUME_AT))
+    ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs_ in os.walk(step_dir) for f in fs_)
+    del model, trainer, state, save_hook
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    model, trainer, state = build(args.seed + 1000)
+    fresh_digest = state_digest(state)
+    sync()
+    t0 = time.monotonic()
+    state = ckpt.restore(state, step=RESUME_AT)
+    sync()
+    restore_s = time.monotonic() - t0
+    restored_digest = state_digest(state)
+    ddp.append(isinstance(trainer.net,
+                          torch.nn.parallel.DistributedDataParallel))
+    clock[0] = time.monotonic()
+    state, steps_b, _ = trainer.train_loop(
+        state, infeed.device_batches(iter(batches[RESUME_AT:]), device=dev),
+        log_every=0, hooks=(record,))
+    launches = dict(fa.launches)
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0)
+
+    out = {}
+    if ctx.job_name == "chief":
+        sync()
+        t0 = time.monotonic()
+        tfnode.export_saved_model(
+            args.export_dir, args.apply_fn, model.state_dict(),
+            {"inputs": ["x"], "outputs": ["next_token", "next_logit"]})
+        out["export_s"] = time.monotonic() - t0
+        out["export_bytes"] = sum(
+            os.path.getsize(os.path.join(args.export_dir, f))
+            for f in os.listdir(args.export_dir))
+        held = np.load(args.held)
+        model.eval()
+        tokens, logits, gaps = [], [], []
+        with torch.no_grad():
+            for i in range(0, len(held), TRANSFORM_BATCH):
+                x = torch.from_numpy(held[i:i + TRANSFORM_BATCH]).to(dev)
+                last = model(x)[:, -1]
+                top2 = last.topk(2, dim=-1).values
+                tokens += last.argmax(-1).tolist()
+                logits += top2[:, 0].tolist()
+                gaps += (top2[:, 0] - top2[:, 1]).tolist()
+        out.update(held_tokens=tokens, held_logits=logits, held_gaps=gaps)
+    with open(args.out, "w") as f:
+        json.dump(dict(
+            out, steps=steps_a + steps_b, losses=losses, step_s=step_s,
+            flash_launches=counts, launches=launches, ddp=ddp,
+            backend=dist.get_backend(), world=dist.get_world_size(),
+            saved_digest=saved_digest, fresh_digest=fresh_digest,
+            restored_digest=restored_digest, restored_step=RESUME_AT,
+            ckpt_bytes=ckpt_bytes, save_s=save_s, restore_s=restore_s,
+            read_s=read_s, read_bytes=read_bytes, rows=len(rows),
+            codec_reads=dict(tfrecord.codec_reads),
+            goodput=goodput.ledger().report(),
+            max_memory_allocated_after_restore=peak,
+            startup_marks=marks, device=str(dev), pid=os.getpid(),
+            modules=sorted(m for m in sys.modules
+                           if m.startswith("tensorflowonspark_tpu_torch.")),
+            foreign=sorted(m for m in sys.modules
+                           if m.split(".")[0] in (
+                               "jax", "flax", "optax", "orbax",
+                               "cloudpickle", "tensorflowonspark_tpu")
+                           and sys.modules[m] is not None)), f)
+    dist.destroy_process_group()
+
+
+def executor_probe(args):
+    """A task in the executor: load the export (timed; ``TFModel``
+    then finds it in the per-process cache) or read what the executor
+    holds — its flash launches, its modules, the foreign ones."""
+
+    def probe(iterator):
+        import time
+
+        from tensorflowonspark_tpu_torch import export
+        from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+        list(iterator)
+        out = {"pid": os.getpid(), "fwd": fa.launches["fwd"]}
+        if args.get("load"):
+            t0 = time.monotonic()
+            export.load_model(args["load"], device=args["device"])
+            out["load_s"] = time.monotonic() - t0
+        out["modules"] = sorted(m for m in sys.modules if m.startswith(
+            "tensorflowonspark_tpu_torch."))
+        out["foreign"] = sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                   "cloudpickle", "tensorflowonspark_tpu")
+            and sys.modules[m] is not None)
+        return [out]
+
+    return probe
+
+
+def pipeline_phase(device, phase5, parent):
+    """Phase 7: the 80 rows of phase 5 to ``part-*`` TFRecords through
+    ``createDataFrame`` + ``dfutil.saveAsTFRecords``,
+    ``TFEstimator.fit`` in TENSORFLOW mode (``pipeline_train_fn``), then
+    ``TFModel.transform`` of 16 held-out rows from the export; every
+    check of phase 7. The work directory (TFRecords, the ~2 GB
+    checkpoint, the export) is a ``.tfos-pipeline-*`` directory under
+    ``parent``, removed at the end."""
+    import shutil
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import dfutil, pipeline, tfrecord
+    from tensorflowonspark_tpu_torch.engine import Context
+
+    t_phase = time.monotonic()
+    batches = motif_batches(TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    rows = np.concatenate([np.concatenate([b["x"], b["y"][:, -1:]], axis=1)
+                           for b in batches])
+    held = np.random.RandomState(SEED + 7).randint(
+        0, VOCAB, (HELD_ROWS, TRAIN_SEQ)).astype(np.int64)
+    work = tempfile.mkdtemp(prefix=".tfos-pipeline-", dir=parent)
+    paths = {k: os.path.join(work, k) for k in (
+        "records", "ckpt", "export", "engine")}
+    held_path = os.path.join(work, "held.npy")
+    np.save(held_path, held)
+    out = os.path.join(work, "trainer.json")
+    cfg = {"vocab": VOCAB, "hidden": HIDDEN, "heads": HEADS,
+           "layers": LAYERS, "max_len": MAX_LEN}
+    sc = Context(num_executors=1, work_root=paths["engine"])
+    try:
+        df = sc.createDataFrame([{"tokens": r} for r in rows],
+                                num_slices=PIPELINE_SLICES)
+        t0 = time.monotonic()
+        written = dfutil.saveAsTFRecords(df, paths["records"])
+        write_s = time.monotonic() - t0
+        files = tfrecord.list_tfrecord_files(paths["records"])
+        write_bytes = sum(os.path.getsize(f) for f in files)
+        counted = sum(tfrecord.count_records(f) for f in files)
+        est = (pipeline.TFEstimator(pipeline_train_fn, {
+            "device": device, "seed": SEED, "lr": TRAIN_LR,
+            "seq": TRAIN_SEQ, "model": cfg, "held": held_path, "out": out,
+            "apply_fn": make_apply_fn(cfg)})
+            .setClusterSize(1).setInputMode("tensorflow")
+            .setTfrecordDir(paths["records"]).setModelDir(paths["ckpt"])
+            .setExportDir(paths["export"]).setBatchSize(TRAIN_BATCH))
+        t0 = time.monotonic()
+        fitted = est.fit(df)
+        fit_s = time.monotonic() - t0
+        # the trainer has exited: the executor now takes the card
+        model = pipeline.TFModel(vars(fitted.merged_args()), device=device)
+        model.setInputMapping({"tokens": "x"}).setOutputMapping(
+            {"next_token": "next_token", "next_logit": "next_logit"})
+        model.setBatchSize(TRANSFORM_BATCH)
+        held_df = sc.createDataFrame([{"tokens": r} for r in held],
+                                     num_slices=HELD_ROWS // TRANSFORM_BATCH)
+        one = sc.parallelize([0], 1)
+        loaded = one.mapPartitions(executor_probe(
+            {"load": paths["export"], "device": device})).collect()[0]
+        t0 = time.monotonic()
+        scored_df = model.transform(held_df)
+        scored = scored_df.collect()
+        transform_s = time.monotonic() - t0
+        after = one.mapPartitions(executor_probe({})).collect()[0]
+        # again, warm: the executor's first forward is behind it
+        t0 = time.monotonic()
+        warm = model.transform(held_df).collect()
+        warm_s = time.monotonic() - t0
+        schema = scored_df.schema  # inferred from one more row
+    finally:
+        sc.stop()
+    alive = [p.pid for p in sc._procs if p.poll() is None]
+    check(not alive, "executors alive after sc.stop(): {}".format(alive))
+    with open(out) as f:
+        got = json.load(f)
+    shutil.rmtree(work, ignore_errors=True)
+    check(not os.path.exists(work), "the pipeline's work directory stayed")
+    try:
+        os.kill(got["pid"], 0)
+        trainer_alive = True
+    except ProcessLookupError:
+        trainer_alive = False
+    check(not trainer_alive, "the trainer outlived the fit")
+    check(written == counted == len(rows) and len(files) == PIPELINE_SLICES,
+          "part-* holds {} records in {} files ({} written), not {} in {}"
+          .format(counted, len(files), written, len(rows), PIPELINE_SLICES))
+    check(got["steps"] == TRAIN_STEPS and len(got["losses"]) == TRAIN_STEPS,
+          "the pipeline trainer took {} steps, not {}".format(
+              got["steps"], TRAIN_STEPS))
+    check(got["rows"] == len(rows), "the trainer read {} rows".format(
+        got["rows"]))
+    check(got["codec_reads"] == {"native": PIPELINE_SLICES, "python": 0},
+          "the trainer's TFRecord reads were not all native: {}".format(
+              got["codec_reads"]))
+    check(got["ddp"] == [True, True] and got["world"] == 1
+          and (got["backend"] == "nccl" or device == "cpu"),
+          "the trainer did not run in DDP over NCCL ({} {} {})".format(
+              got["ddp"], got["backend"], got["world"]))
+    check(got["restored_digest"] == got["saved_digest"]
+          != got["fresh_digest"],
+          "the restored parameters and AdamW moments are not the saved "
+          "ones bitwise")
+    for i, c in enumerate(got["flash_launches"]):
+        check(all(c[k] == LAYERS * (i + 1) for k in c),
+              "pipeline step {}: flash launches {} are not {} per kernel "
+              "per step".format(i + 1, c, LAYERS))
+    want = phase5["losses"]
+    rel = [abs(g - w) / abs(w) for g, w in zip(got["losses"], want)]
+    check(max(rel) <= STEP_LOSS_RTOL,
+          "pipeline losses differ from phase 5's (worst rel {:.2e}; steps "
+          "{}-{} after the restore)".format(max(rel), RESUME_AT + 1,
+                                            TRAIN_STEPS))
+    check(len(scored) == HELD_ROWS, "transform returned {} rows".format(
+        len(scored)))
+    check(sorted(schema) == [("next_logit", "float32"),
+                             ("next_token", "int64")],
+          "transform's schema is {}".format(schema))
+    ties = 0
+    for i, row in enumerate(scored):
+        if row["next_token"] != got["held_tokens"][i]:
+            check(got["held_gaps"][i] < TIE_GAP,
+                  "transform row {}: token {} vs the trainer's {} (top-2 "
+                  "gap {:.2e})".format(i, row["next_token"],
+                                       got["held_tokens"][i],
+                                       got["held_gaps"][i]))
+            ties += 1
+    check(warm == scored, "a second transform gave other outputs")
+    logit_rel = max(abs(r["next_logit"] - w) / abs(w)
+                    for r, w in zip(scored, got["held_logits"]))
+    check(logit_rel <= TRANSFORM_RTOL,
+          "transform's logits differ from the trainer's (rel {:.2e})".format(
+              logit_rel))
+    check(after["fwd"] == LAYERS * HELD_ROWS // TRANSFORM_BATCH
+          or device == "cpu",
+          "transform launched the flash forward {} times, not {}".format(
+              after["fwd"], LAYERS * HELD_ROWS // TRANSFORM_BATCH))
+    port = "tensorflowonspark_tpu_torch."
+    need = {"trainer": (got["modules"], ("tfrecord", "checkpoint",
+                                         "export")),
+            "executor": (after["modules"], ("pipeline", "export")),
+            "driver": (sorted(sys.modules), ("pipeline", "dfutil",
+                                             "tfrecord"))}
+    for where, (mods, names) in need.items():
+        missing = [n for n in names if port + n not in mods]
+        check(not missing, "the {} did not use the port's {}".format(
+            where, missing))
+    driver_foreign = sorted(
+        m for m in sys.modules if m.split(".")[0] in (
+            "jax", "flax", "optax", "orbax", "cloudpickle",
+            "tensorflowonspark_tpu") and sys.modules[m] is not None)
+    check(got["foreign"] == after["foreign"] == driver_foreign == [],
+          "foreign modules: trainer {}, executor {}, driver {}".format(
+              got["foreign"], after["foreign"], driver_foreign))
+    wall = time.monotonic() - t_phase
+    p50 = float(np.median(got["step_s"]))
+    led = got["goodput"]["badput"]
+    log("pipeline losses: " + " ".join("{:.4f}".format(x)
+                                       for x in got["losses"]))
+    log("pipeline vs phase 5 losses: worst rel {:.2e} (tol {:.0e}); steps "
+        "{}-{} ran on a fresh model restored from step {}".format(
+            max(rel), STEP_LOSS_RTOL, RESUME_AT + 1, TRAIN_STEPS, RESUME_AT))
+    log("pipeline step p50 {:.4f}s vs phase 5 {:.4f}s (ratio {:.3f}); DDP "
+        "over {} with {} rank".format(p50, phase5["p50_s"],
+                                      p50 / phase5["p50_s"], got["backend"],
+                                      got["world"]))
+    log("pipeline checkpoint: {} bytes, save {:.3f}s, restore {:.3f}s; "
+        "restored state bitwise equal to the saved one; goodput ledger "
+        "checkpoint_save {:.3f}s, restore {:.3f}s; max_memory_allocated "
+        "after the restore {:.2f} GiB".format(
+            got["ckpt_bytes"], got["save_s"][0], got["restore_s"],
+            led["checkpoint_save"], led["restore"],
+            got["max_memory_allocated_after_restore"] / 2 ** 30))
+    log("pipeline export: {} bytes in {:.3f}s; load_model {:.3f}s in the "
+        "executor".format(got["export_bytes"], got["export_s"],
+                          loaded["load_s"]))
+    log("pipeline TFRecords: write {} bytes in {:.3f}s ({:.2f} MB/s, "
+        "createDataFrame + saveAsTFRecords), read {} bytes in {:.4f}s "
+        "({:.2f} MB/s, native codec)".format(
+            write_bytes, write_s, write_bytes / write_s / 1e6,
+            got["read_bytes"], got["read_s"],
+            got["read_bytes"] / got["read_s"] / 1e6))
+    log("pipeline transform: {} rows in {:.3f}s cold ({:.2f} rows/s; the "
+        "export already loaded, the executor's first forward), {:.3f}s warm "
+        "({:.2f} rows/s, the same outputs); next_token equal on {} of {} "
+        "rows ({} top-2 ties), next_logit worst rel {:.2e} (tol {:.0e})"
+        .format(len(scored), transform_s, len(scored) / transform_s, warm_s,
+                len(scored) / warm_s, len(scored) - ties, len(scored), ties,
+                logit_rel, TRANSFORM_RTOL))
+    log("pipeline phase wall {:.1f}s (fit {:.1f}s)".format(wall, fit_s))
+    return {"wall_s": wall, "fit_s": fit_s, "p50_s": p50,
+            "phase5_p50_s": phase5["p50_s"], "loss_rel_worst": max(rel),
+            "write_s": write_s, "write_bytes": write_bytes,
+            "transform_s": transform_s, "rows_per_s":
+            len(scored) / transform_s, "transform_warm_s": warm_s,
+            "warm_rows_per_s": len(scored) / warm_s,
+            "load_s": loaded["load_s"],
+            "ties": ties, "logit_rel": logit_rel,
+            "executor_fwd_launches": after["fwd"],
+            "trainer": {k: v for k, v in got.items()
+                        if not k.startswith("held_")}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -1306,6 +1791,7 @@ def main():
     log("before the cluster phase: {:.2f} GiB allocated in this process"
         .format(torch.cuda.memory_allocated(dev) / 2 ** 30))
     clus = cluster_phase(None, train, here)
+    pipe = pipeline_phase(None, train, here)
     t = timing["decode"][False]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -1381,6 +1867,8 @@ def main():
             "launches": flash_launches[name],
             # the same kernel's launches in phase 6's cluster-fed trainer
             "launches_cluster": clus["trainer"]["flash_launches"][-1][name],
+            # and in phase 7's pipeline trainer (DDP, checkpoint, resume)
+            "launches_pipeline": pipe["trainer"]["launches"][name],
             # case (a), the main path's shape and dtype; every case below
             "max_abs_err": flash_err["a"][name],
             "max_abs_err_by_case": {c: e[name] for c, e in flash_err.items()},
@@ -1407,6 +1895,7 @@ def main():
                        "preemption": preempt,
                        "training": train,
                        "cluster": clus,
+                       "pipeline": pipe,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     log("total: {:.1f}s".format(time.monotonic() - t_start))
     print(json.dumps(kernels))

@@ -20,8 +20,17 @@ the reference so each counterpart is easy to find:
   step functions and sampling.
 - :mod:`~tensorflowonspark_tpu_torch.serving` — continuous-batching
   ``DecodeEngine`` and an engine-only ``ModelServer``.
-- :mod:`~tensorflowonspark_tpu_torch.training` — one-card ``Trainer``,
+- :mod:`~tensorflowonspark_tpu_torch.training` — the data-parallel
+  ``Trainer`` (DDP under a process group, one card per rank),
   ``softmax_xent``, ``adamw``.
+- :mod:`~tensorflowonspark_tpu_torch.checkpoint` — ``Checkpointer`` on
+  ``torch.distributed.checkpoint``; :mod:`~tensorflowonspark_tpu_torch.export`
+  — the model export directory (``tfos-torch-export-v1``).
+- :mod:`~tensorflowonspark_tpu_torch.tfrecord` (with the native codec
+  :mod:`~tensorflowonspark_tpu_torch._tfrecord_native`, built into
+  ``_build/``), :mod:`~tensorflowonspark_tpu_torch.dfutil` and
+  :mod:`~tensorflowonspark_tpu_torch.pipeline` (``TFEstimator``,
+  ``TFModel``) — the data I/O and the ML-pipeline layer.
 - :mod:`~tensorflowonspark_tpu_torch.infeed` — ``prefetch`` and
   ``device_batches`` (pinned staging, side-stream copies).
 - The cluster and feed plane, each the port's own copy of the module of
@@ -30,7 +39,7 @@ the reference so each counterpart is easy to find:
   :mod:`~tensorflowonspark_tpu_torch.node` (bootstrap, feed helpers,
   ``NodeContext.initialize_torch``),
   :mod:`~tensorflowonspark_tpu_torch.engine` (local Spark-shaped
-  engine and its closure serializer),
+  engine, its closure serializer and ``DataFrame``),
   :mod:`~tensorflowonspark_tpu_torch.reservation`,
   :mod:`~tensorflowonspark_tpu_torch.manager`,
   :mod:`~tensorflowonspark_tpu_torch.datafeed` (and ``tfnode``),

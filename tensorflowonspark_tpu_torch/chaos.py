@@ -3,18 +3,18 @@ the port's copy of ``tensorflowonspark_tpu/chaos.py`` (same spec
 grammar, same ``TFOS_CHAOS`` variable, same seeded plans).
 
 The port's sites are the feed plane's (``DataFeed``'s ``on_batch``,
-the heartbeat publishers' ``on_heartbeat``) and the reservation
+the heartbeat publishers' ``on_heartbeat``), the reservation
 server's (``on_reservation_beat``, and ``on_net`` around every
-reservation message). Left for later slices, with the sites that fire
-them: the step, serving, router and checkpoint points
+reservation message) and the checkpointer's (``on_checkpoint_saved``,
+with the corruption helpers it calls). Left for later slices, with the
+sites that fire them: the step, serving and router points
 (``kill_trainer_at_step``, ``drop_executor_then_return_after``,
 ``kill_scheduler_at_step``, ``stall_decode_for``,
 ``disconnect_client_at_token``, ``kill_serving_executor_at_request``,
-``kill_router_at_request``, ``restart_reservation_after``,
-``corrupt_checkpoint``) and the driver-side choreography helpers
-(``schedule_executor_return``, ``kill_when``, checkpoint corruption);
-the port's parser refuses those points instead of arming a site that
-never fires.
+``kill_router_at_request``, ``restart_reservation_after``; ROADMAP Queue
+1 items 10-11) and the driver-side choreography helpers
+(``schedule_executor_return``, ``kill_when``); the port's parser refuses
+those points instead of arming a site that never fires.
 
 Fault-injection suites need failures that land at an exact, repeatable
 moment — "SIGKILL the trainer right after step 3", not "sleep 0.5s and
@@ -66,6 +66,9 @@ Injection points (each checked at an instrumented framework site):
   killing anything.
 - ``kill_reservation_server=N`` — the reservation server crashes in
   place at its N-th BEAT (:func:`on_reservation_beat`).
+- ``corrupt_checkpoint=N`` — after ``Checkpointer.save`` commits step N,
+  garble every file of that step on disk (fired by checkpoint.py); the
+  restore-with-fallback path is the recovery under test.
 Network fault plane (fired at the transport site
 ``reservation.MessageSocket.send`` wraps around every reservation
 message, via :func:`on_net`; the reference also fires it around the
@@ -127,7 +130,7 @@ NET_POINTS = ("net_drop", "net_delay", "net_dup", "net_partition")
 #: spec keys that accept the generic grammar above
 POINTS = ("kill_trainer_at_batch", "kill_trainer_when_queued",
           "stall_consumer_for", "stall_ring_slot", "drop_heartbeats_for",
-          "kill_reservation_server") + NET_POINTS
+          "kill_reservation_server", "corrupt_checkpoint") + NET_POINTS
 
 
 class NetPartitioned(ConnectionError):
@@ -525,3 +528,38 @@ def net_armed():
     per-exchange bookkeeping entirely in production)."""
     cur = _current()
     return any(p in cur for p in NET_POINTS)
+
+
+def on_checkpoint_saved(step, directory, wait=None):
+    """Checkpointer site, after a successful save of ``step``."""
+    inj = armed("corrupt_checkpoint")
+    if inj is None or int(step) != int(inj.value):
+        return
+    if wait is not None:
+        wait()  # an asynchronous commit must land before we garble it
+    inj.mark_fired()
+    corrupt_step(directory, int(step))
+
+
+def corrupt_step(directory, step):
+    """Garble every regular file of checkpoint ``step`` in place
+    (overwrite leading bytes + truncate): a restore of this step must
+    fail, which is exactly what the fallback-restore path recovers
+    from. Returns the number of files corrupted."""
+    step_dir = os.path.join(directory, str(step))
+    count = 0
+    for root, _dirs, files in os.walk(step_dir):
+        for name in files:
+            path = os.path.join(root, name)
+            try:
+                size = os.path.getsize(path)
+                with open(path, "r+b") as f:
+                    f.write(b"\xde\xad\xbe\xef" * 4)
+                    f.truncate(max(16, size // 2))
+                count += 1
+            except OSError:
+                continue
+    logger.warning("CHAOS corrupted checkpoint step %s under %s "
+                   "(%d files)", step, directory, count)
+    return count
+

@@ -155,7 +155,7 @@ class TFCluster(object):
                 shutdown_error = e
 
         # Wait for the node-bootstrap job itself (in TENSORFLOW mode this is
-        # where inline map_fun errors surface).
+        # where foreground map_fun errors surface).
         bootstrap_error = None
         try:
             self.async_result.get(timeout=timeout)

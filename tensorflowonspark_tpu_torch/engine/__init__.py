@@ -19,9 +19,11 @@ Pieces:
   accepts executors, schedules tasks, surfaces errors.
 - :mod:`~tensorflowonspark_tpu_torch.engine.serializer` — the port's own
   by-value closure pickler (no ``cloudpickle``).
+- :mod:`~tensorflowonspark_tpu_torch.engine.dataframe` — named, typed
+  columns over a row RDD (``Context.createDataFrame``).
 
-Left for later slices: ``dataframe`` (``Context.createDataFrame``),
-``streaming`` and ``spark_adapter``.
+Left for a later slice: ``streaming`` and ``spark_adapter`` (ROADMAP
+Queue 1 item 4c).
 """
 
 from tensorflowonspark_tpu_torch.engine.context import Context  # noqa: F401

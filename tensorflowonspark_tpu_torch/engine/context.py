@@ -13,8 +13,8 @@ and the error (with the executor-side traceback) re-raises on the driver
 when the job result is awaited — the reference's error-propagation story
 (SURVEY.md §3.5) depends on exactly this.
 
-Left for later slices: ``createDataFrame`` (with ``engine/dataframe``)
-and ``revive_executor`` (the supervision plane's elastic regrow).
+Left for a later slice: ``revive_executor`` (the supervision plane's
+elastic regrow, ROADMAP Queue 1 item 11).
 """
 
 import logging
@@ -391,6 +391,12 @@ class Context(object):
             parts.append(_Partition(data[start:end]))
             start = end
         return RDD(self, parts)
+
+    def createDataFrame(self, data, schema=None, num_slices=None):
+        """Rows -> DataFrame (see engine/dataframe.py for row/schema forms)."""
+        from tensorflowonspark_tpu_torch.engine.dataframe import (
+            create_dataframe)
+        return create_dataframe(self, data, schema, num_slices)
 
     def union(self, rdds):
         out = rdds[0]

@@ -7,7 +7,7 @@ derives the node ordinal, starts the per-node queue broker, binds the
 accelerator, reserves the ports the node will serve on, registers with the
 driver's reservation barrier, blocks until the whole cluster is formed,
 then runs the user ``map_fun`` — in a background process for
-``InputMode.SPARK`` (the queue-fed path) or inline for
+``InputMode.SPARK`` (the queue-fed path), or in the foreground for
 ``InputMode.TENSORFLOW`` (direct file reads).
 
 Differences from the reference:
@@ -30,10 +30,16 @@ Differences from the reference:
   message with its EndPartition marker — the per-message fixed costs the
   small-batch regime otherwise pays per chunk.
 
+- **InputMode.TENSORFLOW forks too.** The reference runs the user fn
+  inline in the executor; the port runs it in the forked trainer and
+  the bootstrap task waits for it, so the executor stays free of CUDA
+  in both modes (see :func:`run`).
+- **One card per rank.** :meth:`NodeContext.initialize_torch` gives each
+  rank of a host its own card (:func:`local_device_index`).
+
 Left for later slices: ``serve_replica``/``stop_replica`` (executor-hosted
-serving, with the fleet plane) and ``NodeContext.mesh`` (with the
-port's ``parallel`` package); multi-rank data parallelism in the
-``Trainer`` is the next slice.
+serving, with the fleet plane, ROADMAP Queue 1 item 11) and
+``NodeContext.mesh`` (with the port's ``parallel`` package, item 6).
 """
 
 import logging
@@ -194,7 +200,13 @@ class NodeContext(object):
         returns the ``torch.device``. The ``start_cluster_server`` analog.
 
         ``device`` is :func:`device_info.default_device`'s argument: None
-        means the card (raising when there is none), ``"cpu"`` the CPU.
+        means this rank's card (raising when there is none), ``"cpu"``
+        the CPU, and an explicit device wins. This rank's card is
+        ``cuda:<i>`` with ``i`` its position among the participants on
+        its host, modulo the cards it sees (:func:`local_device_index`),
+        so ranks that share a host take different cards (the reference
+        gave each process its own local devices); it becomes the current
+        device (``torch.cuda.set_device``) before the group forms.
         With more than one participant and ``TFOS_TPU_DISTRIBUTED`` on
         (the default), this calls ``torch.distributed.init_process_group``
         at :meth:`coordinator_address` with rank = this node's index among
@@ -205,19 +217,25 @@ class NodeContext(object):
         the first CUDA call of a process creates its CUDA context, and
         the trainer is forked from the executor.
         """
+        import torch
+
         from tensorflowonspark_tpu_torch import device_info
 
-        device = device_info.default_device(device)
         participants = self.participants()
         ids = [n["executor_id"] for n in participants]
+        if device is None and torch.cuda.is_available():
+            device = "cuda:{}".format(local_device_index(
+                participants if self.executor_id in ids
+                else self.cluster_info, self.executor_id,
+                torch.cuda.device_count()))
+        device = device_info.default_device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
         if (len(participants) > 1 and self.executor_id in ids
                 and _distributed_enabled()):
-            import torch
             import torch.distributed as dist
 
             if not dist.is_initialized():
-                if device.type == "cuda":
-                    torch.cuda.set_device(device)
                 dist.init_process_group(
                     backend="nccl" if device.type == "cuda" else "gloo",
                     init_method="tcp://" + self.coordinator_address(),
@@ -234,6 +252,26 @@ class NodeContext(object):
                 return i
         raise RuntimeError(
             "executor {} not present in cluster_info".format(self.executor_id))
+
+
+def local_device_index(nodes, executor_id, visible):
+    """The card index of ``executor_id``'s trainer: its position among
+    the ``nodes`` (cluster_info entries, in rank order) whose ``host``
+    equals its own, modulo ``visible`` cards. One host of N ranks and N
+    cards gives each rank its own card; more ranks than cards share them
+    round-robin; a host with one rank takes card 0."""
+    if visible < 1:
+        raise ValueError("no visible card to choose from")
+    host = None
+    for n in nodes:
+        if n["executor_id"] == executor_id:
+            host = n["host"]
+            break
+    else:
+        raise ValueError("executor {} is not among the nodes".format(
+            executor_id))
+    local = [n["executor_id"] for n in nodes if n["host"] == host]
+    return local.index(executor_id) % visible
 
 
 def _distributed_enabled():
@@ -404,34 +442,12 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
         mgr.set("metrics", tracing_mod.MetricsRegistry().snapshot())
         _start_beat_thread(cluster_meta, mgr, executor_id)
 
+        proc = _start_trainer(fn, tf_args, executor_id, job_name,
+                              task_index, cluster_info, cluster_meta, mgr)
         if background:
             # InputMode.SPARK: the trainer runs in a child process (it will
             # own the card); this bootstrap task returns so the executor's
             # task slot frees up for feed tasks (SURVEY.md §3.2).
-            # Start method: fork (default) is safe *because this executor
-            # process never initializes CUDA* — the child is the first
-            # CUDA toucher — and it inherits the user fn without pickling.
-            # spawn (TFOS_TRAINER_START_METHOD=spawn) is available for
-            # paranoid isolation; it ships one opaque serializer payload,
-            # since mp re-pickles spawn args with *standard* pickle, which
-            # cannot handle dynamically-defined closures.
-            method = os.environ.get("TFOS_TRAINER_START_METHOD", "fork")
-            if method == "fork":
-                proc = multiprocessing.get_context("fork").Process(
-                    target=_trainer_main_fork,
-                    args=(fn, tf_args, executor_id, job_name, task_index,
-                          cluster_info, cluster_meta, list(mgr.address)),
-                    name="tfos-trainer-%s" % executor_id)
-            else:
-                from tensorflowonspark_tpu_torch.engine import serializer
-                payload = serializer.dumps(
-                    (fn, tf_args, executor_id, job_name, task_index,
-                     cluster_info, cluster_meta, list(mgr.address)))
-                proc = multiprocessing.get_context("spawn").Process(
-                    target=_trainer_main, args=(payload,),
-                    name="tfos-trainer-%s" % executor_id)
-            proc.daemon = True
-            proc.start()
             _state()["trainer_proc"] = proc
             logger.info("spawned background trainer pid %d", proc.pid)
 
@@ -464,18 +480,52 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
             threading.Thread(target=_watch, name="trainer-watchdog",
                              daemon=True).start()
         else:
-            # InputMode.TENSORFLOW: run inline; exceptions go to the error
-            # queue AND re-raise to fail the task (driver sees both).
-            try:
-                fn(tf_args, ctx)
-            except BaseException as e:  # noqa: BLE001
-                import traceback
-                tb = traceback.format_exc()
-                logger.error("user map_fun failed:\n%s", tb)
-                mgr.get_queue("error").put(tb)
-                raise
+            # InputMode.TENSORFLOW: the user fn runs in the foreground —
+            # this task waits for the trainer — but in the forked trainer
+            # process, not inline as in the reference, so the executor
+            # never holds a CUDA context (a later trainer forked from it
+            # could not use the card) and the card's memory is released
+            # when the trainer exits. Errors reach the error queue (the
+            # trainer puts its traceback there) AND fail this task.
+            _state()["trainer_proc"] = proc
+            proc.join()
+            mgr.set("trainer_exit", proc.exitcode)
+            if proc.exitcode != 0:
+                raise RuntimeError(
+                    "trainer on executor {} exited with code {}:\n{}".format(
+                        executor_id, proc.exitcode,
+                        mgr.get("trainer_error") or "(no traceback)"))
 
     return _mapfn
+
+
+def _start_trainer(fn, tf_args, executor_id, job_name, task_index,
+                   cluster_info, cluster_meta, mgr):
+    """Start the trainer process of this node (it will own the card).
+
+    Start method: fork (default) is safe *because this executor process
+    never initializes CUDA* — the child is the first CUDA toucher — and
+    it inherits the user fn without pickling. spawn
+    (TFOS_TRAINER_START_METHOD=spawn) is available for paranoid
+    isolation; it ships one opaque serializer payload, since mp
+    re-pickles spawn args with *standard* pickle, which cannot handle
+    dynamically-defined closures.
+    """
+    method = os.environ.get("TFOS_TRAINER_START_METHOD", "fork")
+    args = (fn, tf_args, executor_id, job_name, task_index, cluster_info,
+            cluster_meta, list(mgr.address))
+    if method == "fork":
+        proc = multiprocessing.get_context("fork").Process(
+            target=_trainer_main_fork, args=args,
+            name="tfos-trainer-%s" % executor_id)
+    else:
+        from tensorflowonspark_tpu_torch.engine import serializer
+        proc = multiprocessing.get_context("spawn").Process(
+            target=_trainer_main, args=(serializer.dumps(args),),
+            name="tfos-trainer-%s" % executor_id)
+    proc.daemon = True
+    proc.start()
+    return proc
 
 
 #: default seconds between heartbeat-lease beats (env: TFOS_BEAT_INTERVAL;
@@ -674,6 +724,7 @@ def _trainer_main_fork(fn, tf_args, executor_id, job_name, task_index,
         logger.error("trainer failed:\n%s", tb)
         try:
             ctx.mgr.get_queue("error").put(tb)
+            ctx.mgr.set("trainer_error", tb)
             ctx.mgr.set("state", "error")
         except Exception:
             pass

@@ -9,8 +9,8 @@ ports with an import swap::
     from tensorflowonspark_tpu_torch import tfnode as TFNode
     feed = TFNode.DataFeed(ctx.mgr, train_mode=True)
 
-Left for a later slice: ``export_saved_model``, which comes with the
-port's export module.
+Nothing is left out: ``export_saved_model`` delegates to the port's
+:mod:`export` module.
 """
 
 import logging
@@ -42,3 +42,14 @@ def start_cluster_server(ctx, num_devices=1, protocol=None):
                        "collective backend is torch.distributed's); "
                        "ignoring", protocol)
     return ctx.initialize_torch()
+
+
+def export_saved_model(export_dir, apply_fn, variables, signature=None):
+    """Chief-side model export (reference: ``TFNode.export_saved_model``).
+
+    Thin delegate to :func:`tensorflowonspark_tpu_torch.export.save_model`;
+    the caller runs it on the chief.
+    """
+    from tensorflowonspark_tpu_torch import export
+
+    export.save_model(export_dir, apply_fn, variables, signature)

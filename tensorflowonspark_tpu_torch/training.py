@@ -1,29 +1,41 @@
-"""Training harness on one card — the port of
+"""Data-parallel training harness — the port of
 ``tensorflowonspark_tpu/training.py``.
 
 The reference's ``Trainer`` jit-compiles one data-parallel step over a
-device mesh. On one card there is no mesh, no sharding and no donation:
-the step runs eagerly, and the model and optimizer update their tensors
-in place (the reference returns new pytrees; the port keeps PyTorch's
+device mesh: params replicated, the batch split over the ``data`` axis,
+the gradient all-reduce emitted by XLA. The port runs the step eagerly,
+one process per card: when ``torch.distributed`` is initialized (by
+:meth:`NodeContext.initialize_torch`, or by the caller), :meth:`init`
+wraps the model in ``DistributedDataParallel``, whose broadcast at
+construction is the reference's replicated init and whose bucketed
+all-reduce averages the gradients. Each rank steps on its own local
+batch, so the global batch is world x local, as
+``make_array_from_process_local_data`` assembles it in the reference;
+the returned loss is the global mean (an all-reduce average), the same
+on every rank. With no process group the step is the one-card step.
+There is no donation: the model and optimizer update their tensors in
+place (the reference returns new pytrees; the port keeps PyTorch's
 in-place optimizer step, which holds one copy of the parameters and the
 optimizer moments instead of two). ``state`` keeps the reference's keys
 so code written against it reads the same.
 
 Typical ``map_fun`` body::
 
-    trainer = training.Trainer(model, training.adamw(3e-4))
-    state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+    dev = ctx.initialize_torch()
+    trainer = training.Trainer(model, training.adamw(3e-4), device=dev)
+    state = trainer.init(torch.Generator(device=dev).manual_seed(0))
     for batch in infeed.device_batches(feed_batches, trainer.device):
         state, metrics = trainer.step(state, batch)
 
-Left for later slices: data parallelism across cards
-(``torch.distributed``) and the dropout key (``dropout_rng``).
+Left for a later slice: the dropout key (``dropout_rng``, ROADMAP Queue
+1 item 5, with BERT).
 """
 
 import logging
 import time
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils import checkpoint as _checkpoint
 
@@ -52,8 +64,43 @@ def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4):
     return make
 
 
+class TrainState(dict):
+    """The train state: a dict with the reference's keys (``params``,
+    ``extra``, ``opt_state``, ``step``) that also carries the module it
+    was built from (``.model``, never a DDP wrapper), which
+    ``checkpoint.Checkpointer`` needs to name the optimizer's state."""
+
+    def __init__(self, model, *args, **kwargs):
+        super(TrainState, self).__init__(*args, **kwargs)
+        self.model = model
+
+
+class _Remat(nn.Module):
+    """Recompute ``inner``'s forward in the backward
+    (``torch.utils.checkpoint``); DDP wraps this module, so its hooks
+    see one forward per step."""
+
+    def __init__(self, inner):
+        super(_Remat, self).__init__()
+        self.inner = inner
+
+    def forward(self, *inputs):
+        return _checkpoint.checkpoint(self.inner, *inputs,
+                                      use_reentrant=False)
+
+
+def _world():
+    """(initialized, world size) of the default process group."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return True, dist.get_world_size()
+    return False, 1
+
+
 class Trainer(object):
-    """One-card trainer.
+    """Data-parallel trainer: one process per card, DDP when a process
+    group is initialized, the one-card step otherwise.
 
     Args:
       model: an ``nn.Module`` called with the batch's ``input_keys``
@@ -77,6 +124,11 @@ class Trainer(object):
         self.input_keys = tuple(input_keys)
         self.remat = remat
         self.device = device_info.default_device(device)
+        #: what a step calls: the model, under ``_Remat`` and DDP as
+        #: configured (built by :meth:`init`)
+        self.net = None
+        #: ranks in the process group a step all-reduces over (1 alone)
+        self.world_size = 1
 
     def _inputs(self, batch):
         if not isinstance(batch, dict):
@@ -110,12 +162,15 @@ class Trainer(object):
 
     def init(self, generator=None):
         """Train state ``{params, extra, opt_state, step}`` on the
-        trainer's device. ``generator`` (a ``torch.Generator`` on that
-        device) re-initialises the weights through the model's
-        ``init_weights``; without one the model keeps the weights it
-        has (e.g. loaded with ``load_state_dict``). ``params``/``extra``
-        are the model's own parameters and buffers, ``opt_state`` the
-        optimizer built over them."""
+        trainer's device (a :class:`TrainState`). ``generator`` (a
+        ``torch.Generator`` on that device) re-initialises the weights
+        through the model's ``init_weights``; without one the model keeps
+        the weights it has (e.g. loaded with ``load_state_dict``).
+        ``params``/``extra`` are the model's own parameters and buffers,
+        ``opt_state`` the optimizer built over them. Under an initialized
+        process group the model is wrapped in ``DistributedDataParallel``
+        here, which broadcasts rank 0's weights to every rank: the
+        reference's replicated init."""
         self.model.to(self.device)
         if generator is not None:
             init = getattr(self.model, "init_weights", None)
@@ -123,36 +178,52 @@ class Trainer(object):
                 raise TypeError("{} has no init_weights(generator)".format(
                     type(self.model).__name__))
             init(generator)
+        net = _Remat(self.model) if self.remat else self.model
+        distributed, self.world_size = _world()
+        if distributed:
+            net = nn.parallel.DistributedDataParallel(
+                net, device_ids=([self.device.index]
+                                 if self.device.type == "cuda" else None),
+                find_unused_parameters=False)
+        self.net = net
         params = dict(self.model.named_parameters())
-        return {"params": params,
-                "extra": dict(self.model.named_buffers()),
-                "opt_state": self.optimizer(list(params.values())),
-                "step": 0}
+        return TrainState(self.model, {
+            "params": params,
+            "extra": dict(self.model.named_buffers()),
+            "opt_state": self.optimizer(list(params.values())),
+            "step": 0})
 
     def step(self, state, batch):
-        """One training step; returns ``(state, {"loss": loss})`` with the
-        loss a 0-d tensor on the device (reading it synchronises)."""
-        self.model.train()
+        """One training step on this rank's local batch; returns
+        ``(state, {"loss": loss})`` with the loss a 0-d tensor on the
+        device (reading it synchronises): the mean over the global
+        batch, the same on every rank."""
+        if self.net is None:
+            raise RuntimeError("Trainer.step before Trainer.init")
+        self.net.train()
         batch = self._on_device(batch)
         inputs = self._inputs(batch)
         opt = state["opt_state"]
         opt.zero_grad(set_to_none=True)
-        if self.remat:
-            logits = _checkpoint.checkpoint(self.model, *inputs,
-                                            use_reentrant=False)
-        else:
-            logits = self.model(*inputs)
-        loss = self.loss_fn(logits, batch)
+        loss = self.loss_fn(self.net(*inputs), batch)
         loss.backward()
         opt.step()
         state["step"] += 1
-        return state, {"loss": loss.detach()}
+        loss = loss.detach()
+        if self.world_size > 1:
+            import torch.distributed as dist
+
+            loss = loss.clone()
+            dist.all_reduce(loss)  # SUM: gloo has no AVG
+            loss /= self.world_size
+        return state, {"loss": loss}
 
     def train_loop(self, state, batches, log_every=50, hooks=(),
                    ledger=None):
         """Drive steps over a batch iterator. Returns ``(state,
-        total_steps, examples/sec)``. ``hooks``: callables ``(step_no,
-        state, metrics) -> None``.
+        total_steps, examples/sec)``; examples are global (each rank's
+        local batch times the world size). ``hooks``: callables
+        ``(step_no, state, metrics) -> None``.
 
         Goodput accounting (goodput.py), as in the reference: each
         step-call window is charged to the ledger as ``productive_step``
@@ -183,7 +254,7 @@ class Trainer(object):
             else:
                 state, metrics = self.step(state, batch)
             n += 1
-            examples += _batch_size(batch)
+            examples += _batch_size(batch) * self.world_size
             for hook in hooks:
                 hook(n, state, metrics)
             if log_every and n % log_every == 0:

@@ -1,7 +1,8 @@
-"""The port stands alone: it imports nothing of JAX, flax, optax, the JAX
-package or cloudpickle, and its kernel modules import (and serve, train
-and run a cluster on the CPU) without a CUDA compiler — kernels build at
-their first launch on a card."""
+"""The port stands alone: it imports nothing of JAX, flax, optax, orbax,
+the JAX package or cloudpickle, and its kernel modules import (and
+serve, train, run a cluster, and fit, checkpoint, export and transform
+through the pipeline on the CPU) without a CUDA compiler — kernels build
+at their first launch on a card."""
 
 import ast
 import os
@@ -11,13 +12,15 @@ import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "tensorflowonspark_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tensorflowonspark_tpu",
-             "cloudpickle")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+             "tensorflowonspark_tpu", "cloudpickle")
 #: the cluster and feed plane's modules (each the port's own copy)
 PLANE = ("util", "marker", "fs", "frames", "shm", "manager", "tracing",
          "goodput", "chaos", "datafeed", "tfnode", "reservation", "node",
          "cluster", "engine/__init__", "engine/serializer", "engine/rdd",
-         "engine/context", "engine/executor")
+         "engine/context", "engine/executor", "engine/dataframe",
+         "tfrecord", "_tfrecord_native", "dfutil", "checkpoint", "export",
+         "pipeline")
 
 
 def _run(code):
@@ -182,6 +185,106 @@ def test_cluster_runs_with_jax_unimportable(tmp_path):
         print("OK")
     """.format(out=str(tmp_path / "total.json"),
                root=str(tmp_path / "engine")))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_pipeline_runs_with_jax_unimportable(tmp_path):
+    """The slice's path in a process where jax, flax, optax, orbax, the
+    JAX package and cloudpickle cannot be imported: ``dfutil`` writes
+    TFRecords, ``TFEstimator`` fits in TENSORFLOW mode (native codec
+    read, a checkpoint saved and restored, a chief export), and
+    ``TFModel.transform`` scores from the export. None of the forbidden
+    modules is loaded in the driver, the executor or the trainer."""
+    res = _run("""
+        import json, os, sys
+        BANNED = ("jax", "jaxlib", "flax", "optax", "orbax",
+                  "tensorflowonspark_tpu", "cloudpickle")
+        for name in BANNED:
+            sys.modules[name] = None  # any import of them now fails
+        import numpy as np
+        from tensorflowonspark_tpu_torch import dfutil, pipeline
+        from tensorflowonspark_tpu_torch.engine import Context
+
+        work = {work!r}
+
+        def foreign():
+            return sorted(m for m in sys.modules
+                          if m.split(".")[0] in BANNED
+                          and sys.modules[m] is not None)
+
+        def apply_fn(variables, batch):
+            import torch
+            from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+            skeleton = DecoderLM(32, hidden=16, num_heads=2, num_layers=1,
+                                 max_len=128, device="meta")
+            with torch.no_grad():
+                logits = torch.func.functional_call(skeleton, variables,
+                                                    (batch["x"],))
+            return {{"next_token": logits[:, -1].argmax(-1)}}
+
+        def train_fn(args, ctx):
+            import numpy as np
+            import torch
+            from tensorflowonspark_tpu_torch import (checkpoint, tfnode,
+                                                     tfrecord, training)
+            from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+            dev = ctx.initialize_torch("cpu")
+            rows = np.concatenate([
+                tfrecord.read_batch(f, {{"tokens": ("int64", 129)}})["tokens"]
+                for f in tfrecord.list_tfrecord_files(args.tfrecord_dir)])
+            batches = [{{"x": rows[i:i + 2, :-1], "y": rows[i:i + 2, 1:]}}
+                       for i in range(0, len(rows), 2)]
+            model = DecoderLM(32, hidden=16, num_heads=2, num_layers=1,
+                              max_len=128)
+            tr = training.Trainer(model, training.adamw(1e-2), device=dev)
+            state = tr.init(torch.Generator().manual_seed(0))
+            ckpt = checkpoint.Checkpointer(args.model_dir)
+            state, steps, _ = tr.train_loop(
+                state, iter(batches), log_every=0,
+                hooks=(checkpoint.hook(ckpt, every_steps=2),))
+            state = ckpt.restore(tr.init(torch.Generator().manual_seed(9)))
+            tfnode.export_saved_model(args.export_dir, apply_fn,
+                                      model.state_dict())
+            with open(os.path.join(work, "trainer.json"), "w") as f:
+                json.dump({{"steps": steps, "restored": state["step"],
+                           "native": tfrecord.codec_reads["native"],
+                           "foreign": foreign()}}, f)
+
+        def probe(it):
+            list(it)
+            return [foreign()]
+
+        sc = Context(num_executors=1, work_root=os.path.join(work, "eng"))
+        try:
+            rows = np.random.RandomState(0).randint(0, 32, (4, 129))
+            df = sc.createDataFrame([{{"tokens": r}} for r in rows],
+                                    num_slices=2)
+            dfutil.saveAsTFRecords(df, os.path.join(work, "recs"))
+            fitted = (pipeline.TFEstimator(train_fn)
+                      .setInputMode("tensorflow")
+                      .setTfrecordDir(os.path.join(work, "recs"))
+                      .setModelDir(os.path.join(work, "ckpt"))
+                      .setExportDir(os.path.join(work, "export"))
+                      .fit(df))
+            model = pipeline.TFModel(vars(fitted.merged_args()),
+                                     device="cpu")
+            model.setInputMapping({{"tokens": "x"}})
+            model.setOutputMapping({{"next_token": "next_token"}})
+            held = sc.createDataFrame(
+                [{{"tokens": r[:128]}} for r in rows], num_slices=2)
+            scored = model.transform(held).collect()
+            executor = sc.parallelize([0], 1).mapPartitions(probe).collect()
+        finally:
+            sc.stop()
+        got = json.load(open(os.path.join(work, "trainer.json")))
+        assert got["steps"] == 2 and got["restored"] == 2, got
+        assert got["native"] == 2 and got["foreign"] == [], got
+        assert len(scored) == 4 and executor == [[]], (scored, executor)
+        assert foreign() == [], foreign()
+        print("OK")
+    """.format(work=str(tmp_path)))
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")
 
