@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``tensorflowonspark_tpu_torch``) on one
 NVIDIA card, end to end — serving, training, training fed through the
-cluster plane, and the pipeline (TFRecords, data-parallel fit with
-checkpoint and resume, export, transform) — and hold its CUDA kernels
-against their plain PyTorch versions.
+cluster plane, the pipeline (TFRecords, data-parallel fit with
+checkpoint and resume, export, transform), and the model zoo with
+``:predict`` — and hold its CUDA kernels against their plain PyTorch
+versions.
 
     python3 chip_smoke.py
 
@@ -36,7 +37,9 @@ Phases, stopping with a non-zero exit at the first failure:
    shape, B 8, S 1024, 12 heads of 64, causal, float32; (b) non-causal
    rectangular S_q 128, S_k 384 with a key mask that leaves one batch
    row fully masked (lse -inf, out and grads 0); (c) case (a) in
-   bfloat16; (d) a ragged S 48 at block 16. The backward takes a random
+   bfloat16; (d) a ragged S 48 at block 16; (e) BERT's shape, B 32, S 384,
+   bfloat16, a key mask with one fully masked row, not causal. The
+   backward takes a random
    dO and a nonzero lse cotangent. Each kernel's time at shape (a)
    beside the plain version's, one
    ``scaled_dot_product_attention(is_causal=True)`` call and its
@@ -116,10 +119,48 @@ Phases, stopping with a non-zero exit at the first failure:
    export bytes and seconds, ``load_model`` seconds, ``transform``
    rows/s cold and warm, TFRecord write and read MB/s, and the phase's
    wall;
-8. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
-   counts as ``launches_cluster`` and phase 7's as
-   ``launches_pipeline``), the card line, and last the
-   ``{"ok": true, ...}`` line.
+8. models — the zoo at its published widths, through the port's entry
+   points (TF32 off for float32 products; bfloat16 products in
+   bfloat16). BERT-base QA (vocab 30522, hidden 768, 12 layers, 12 heads
+   of 64, 3072, 512 positions, bfloat16, dropout 0 so training takes the
+   flash kernels): one loss on the initial weights with attention
+   through the kernels and through their plain versions (same loss
+   within ``BERT_STEP_RTOL``); the three flash kernels at this shape
+   (B 32, S 384, this run's key mask) timed beside their plain
+   versions, SDPA with the same boolean mask, the bytes bound and the
+   products' bounds at the bfloat16, one-pass TF32 and 3xTF32 rates;
+   then ``Trainer(adamw(3e-5), qa_span_loss)`` 10 steps on seeded
+   SQuAD-shaped rows (lengths 192-384 padded to 384, a planted answer
+   marker): losses finite and falling, each flash kernel launched 12
+   times a step. The dropout leg: the same weights at dropout 0.1 with
+   ``Trainer(dropout_rng=True)`` take the einsum path (no flash
+   launch), step 3 twice gives a bitwise equal loss and step 4 another.
+   The trained model is exported (``export.save_model``, its
+   ``apply_fn`` a ``meta`` skeleton) and served by
+   ``ModelServer(export_dir, batch_window_ms=5)``: 8 HTTP clients send
+   64 row-format requests of 1-4 rows; every response agrees with the
+   model's own eval forward on its rows (``PREDICT_RTOL``), the window
+   makes fewer apply calls than requests, each running the flash
+   forward 12 times, and a ragged request gets a 400. ResNet-50 trains
+   10 SGD steps (0.1, momentum 0.9) at 224 px, batch 64, bfloat16 with
+   float32 BatchNorm: losses finite, running statistics moved.
+   Inception-v3 infers batch 32 at 299 px twice: finite and bitwise
+   equal. Wide & Deep (13 dense, 26 slots of 100 000 buckets, embed 32,
+   MLP 256-128-64) trains 10 Adam steps at batch 2048, then its int8
+   tables (``quantize_embeddings``) give logits within the reference
+   test's 0.05 + 0.05 |float| and correlation > 0.999. U-Net (64 px,
+   features 16 and 32, batch 16) and LeNet (28 px, batch 128) take 5
+   Adam steps on one batch each: the loss falls. The port's
+   ``models.*`` and ``serving`` loaded, nothing of JAX. Printed: BERT's
+   step p50, sequences/s and peak memory, the flash rows, ``:predict``
+   request p50/p99 and rows/s and the apply calls, ResNet-50 images/s
+   (one card) and peak memory, Inception-v3 images/s, Wide & Deep rows/s
+   and the phase's wall;
+9. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
+   counts as ``launches_cluster``, phase 7's as ``launches_pipeline``,
+   phase 8's (BERT training plus ``:predict``) as ``launches_models``,
+   and their times at BERT's shape as ``bert_shape``), the card line,
+   and last the ``{"ok": true, ...}`` line.
 
 ``--out-dir DIR`` also writes every number of the run to
 ``DIR/chip_smoke.json``. Needs one card; exits non-zero, printing no
@@ -152,6 +193,9 @@ FP32_FLOPS = 67e12
 #: the float32-accurate tensor-core rate: dense TF32 (495 TFLOP/s) over
 #: the three passes of the 3xTF32 split — the attention rows' yardstick
 TF32X3_FLOPS = 495e12 / 3
+#: the bfloat16 tensor-core peak (dense) and one TF32 pass
+BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 
 #: flash kernel against plain version, each on the inputs the kernel
 #: was given. lse is float32 in every dtype, and float32 outputs are held
@@ -505,6 +549,8 @@ FLASH_CASES = [
     ("c: B8 S1024 causal bf16", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True,
      "bfloat16", None, 128),
     ("d: S48 block16 causal", 2, 48, 48, True, "float32", None, 16),
+    ("e: BERT B32 S384 bf16 key mask", 32, 384, 384, False, "bfloat16", 3,
+     128),
 ]
 
 
@@ -572,66 +618,86 @@ def flash_cases(torch, fa, dev):
     return worst
 
 
-def flash_timing(torch, fa, dev):
-    """Each kernel's time at the training shape (a) beside its plain
-    version, the SDPA yardstick and the bound."""
+def flash_timing(torch, fa, dev, b=TRAIN_BATCH, s=TRAIN_SEQ,
+                 dtype="float32", mask=None):
+    """Each kernel's time beside its plain version, the SDPA yardstick
+    and the bounds: at the training shape (a) by default (causal,
+    float32), or at ``b`` x ``s`` in ``dtype`` under the key ``mask``
+    (not causal; SDPA takes the same boolean mask)."""
     import torch.nn.functional as F
 
     rng = np.random.RandomState(SEED + 5)
-    b, s, n, d = TRAIN_BATCH, TRAIN_SEQ, HEADS, HIDDEN // HEADS
+    n, d = HEADS, HIDDEN // HEADS
+    causal = mask is None
     q, k, v, dout, g_lse, _ = flash_inputs(torch, rng, b, s, s,
-                                           torch.float32, dev)
+                                           getattr(torch, dtype), dev)
+    if not causal:
+        g_lse = None
+    bias = fa._mask_to_bias(mask)
     scale = d ** -0.5
-    out, lse = fa._kernel_fwd(q, k, v, None, True, scale)
+    out, lse = fa._kernel_fwd(q, k, v, bias, causal, scale)
     delta = fa._delta(out, dout, g_lse)
     fns = {
-        "fwd": (lambda: fa._kernel_fwd(q, k, v, None, True, scale),
-                lambda: fa._reference_lse(q, k, v, True, scale)),
-        "dq": (lambda: fa._kernel_dq(q, k, v, None, dout, lse, delta, True,
+        "fwd": (lambda: fa._kernel_fwd(q, k, v, bias, causal, scale),
+                lambda: fa._reference_lse(q, k, v, causal, scale, bias)),
+        "dq": (lambda: fa._kernel_dq(q, k, v, bias, dout, lse, delta, causal,
                                      scale),
-               lambda: fa._dq_plain(q, k, v, None, dout, lse, delta, True,
+               lambda: fa._dq_plain(q, k, v, bias, dout, lse, delta, causal,
                                     scale)),
-        "dkv": (lambda: fa._kernel_dkv(q, k, v, None, dout, lse, delta, True,
-                                       scale),
-                lambda: fa._dkv_plain(q, k, v, None, dout, lse, delta, True,
-                                      scale)),
+        "dkv": (lambda: fa._kernel_dkv(q, k, v, bias, dout, lse, delta,
+                                       causal, scale),
+                lambda: fa._dkv_plain(q, k, v, bias, dout, lse, delta,
+                                      causal, scale)),
     }
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa = dict(is_causal=True) if causal else dict(
+        attn_mask=mask[:, None, None, :])
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
     dout_t = dout.transpose(1, 2).contiguous()
     library = {
-        "fwd": lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True),
+        "fwd": lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa),
         "dq": lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
                                           retain_graph=True),
     }
     # what each kernel must do on these inputs: every (query, key) pair
-    # with key <= query, 2 flops per multiply-add of each product it
-    # computes (forward: Q K^T, P V; dQ: Q K^T, dO V^T, dS K; dK/dV:
-    # K Q^T, V dO^T, P^T dO, dS^T Q); each input read once, each output
-    # written once (float32; lse and delta [B*N, S]). The operations are
-    # timed at the float32-accurate tensor-core rate (bound_ms) and at
-    # the CUDA-core rate (bound_simt_ms)
-    pairs = b * n * s * (s + 1) // 2
-    tensor = b * s * n * d * 4
+    # it attends (causal: key <= query; masked: every query against this
+    # run's live keys, since a padded query still gets an output and a
+    # padded key needs no product), 2 flops per multiply-add of each
+    # product it computes (forward: Q K^T, P V; dQ: Q K^T, dO V^T, dS K;
+    # dK/dV: K Q^T, V dO^T, P^T dO, dS^T Q); each input read once, each
+    # output written once (q, k, v, dO and outputs in the input dtype;
+    # lse, delta and the bias row float32). The operations are timed at
+    # the input dtype's tensor-core rate for bound_ms (float32: the
+    # float32-accurate 3xTF32 rate), and beside it at every other rate
+    if causal:
+        pairs = b * n * s * (s + 1) // 2
+    else:
+        pairs = n * s * int(mask.sum().item())
+    tensor = b * s * n * d * q.element_size()
     row = b * n * s * 4
-    work = {"fwd": (4 * pairs * d, 4 * tensor + row),
-            "dq": (6 * pairs * d, 5 * tensor + 2 * row),
-            "dkv": (8 * pairs * d, 6 * tensor + 2 * row)}
+    bias_bytes = 0 if bias is None else b * s * 4
+    work = {"fwd": (4 * pairs * d, 4 * tensor + row + bias_bytes),
+            "dq": (6 * pairs * d, 5 * tensor + 2 * row + bias_bytes),
+            "dkv": (8 * pairs * d, 6 * tensor + 2 * row + bias_bytes)}
+    rate = BF16_FLOPS if dtype == "bfloat16" else TF32X3_FLOPS
     res = {}
     for name, (kern, plain) in fns.items():
         flops, nbytes = work[name]
-        t_ops = flops / TF32X3_FLOPS * 1e3
+        t_ops = flops / rate * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         res[name] = {
             "ms": time_ms(torch, kern, [()], reps=20),
-            "plain_ms": time_ms(torch, plain, [()], reps=5),
+            "plain_ms": time_ms(torch, plain, [()], reps=5 if causal else 3),
             "library_ms": (time_ms(torch, library[name], [()], reps=20)
                            if name in library else None),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_simt_ms": max(flops / FP32_FLOPS * 1e3, t_bytes),
+            "bytes_ms": t_bytes,
+            "ops_bf16_ms": flops / BF16_FLOPS * 1e3,
+            "ops_tf32_ms": flops / TF32_FLOPS * 1e3,
+            "ops_3xtf32_ms": flops / TF32X3_FLOPS * 1e3,
             "flops": flops, "bytes": nbytes}
     return res
 
@@ -687,7 +753,8 @@ def serve_over_http(serving, engine, reqs, clients=4):
     HTTP clients; returns (outputs, wall seconds)."""
     out = [None] * len(reqs)
     errors = []
-    with serving.ModelServer(engine, name="gpt2") as srv:
+    with serving.ModelServer(None, name="gpt2", port=0,
+                             engine=engine) as srv:
         port = srv.address[1]
 
         def client(c):
@@ -1693,6 +1760,580 @@ def pipeline_phase(device, phase5, parent):
                         if not k.startswith("held_")}}
 
 
+# -- phase 8: the model zoo -------------------------------------------------
+
+#: BERT-base QA fine-tuning at full width, bfloat16, dropout off so the
+#: training steps take the flash kernels (examples/bert: S 384)
+BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_LR = 32, 384, 10, 3e-5
+BERT_VOCAB, BERT_LAYERS = 30522, 12
+#: the planted answer token (examples/bert/bert_squad_spark.py's MARKER)
+BERT_MARKER = 1
+BERT_KEYS = ("input_ids", "attention_mask", "token_type_ids")
+#: the BERT loss with attention through the kernels and through their
+#: plain versions, on the same weights and batch, bfloat16. Each route
+#: rounds its attention output to bfloat16 once (and P before P V), so
+#: an element differs by at most a bfloat16 ulp, 2^-8 of its size, and
+#: these rounding differences are independent from layer to layer: over
+#: 12 layers the hidden state moves by ~sqrt(12) x 2^-8 ~ 1.4% of an
+#: element at the very worst. The loss, a mean over 64 log-softmaxes of
+#: 384 positions, averages them; held at that worst case, 1.4e-2.
+BERT_STEP_RTOL = 12 ** 0.5 * 2.0 ** -8
+#: :predict: 8 clients, 64 row-format requests of 1-4 rows, a 5 ms window
+PREDICT_REQUESTS, PREDICT_CLIENTS, PREDICT_WINDOW_MS = 64, 8, 5
+#: a served row against the model's own eval forward on its request's
+#: rows alone: the same kernels and weights, but the window merges rows
+#: from several requests, and cuBLAS may take another bfloat16 GEMM (a
+#: different split of the sum) at another row count, so a product's
+#: bfloat16 output can differ by an ulp (2^-8), independently per layer:
+#: sqrt(12) x 2^-8 ~ 1.4% of the largest logit at worst; held at 2^-5
+#: (3.1%) of each request's largest |logit|. A row served with another
+#: row's mask or positions moves its logits by O(1).
+PREDICT_RTOL = 2.0 ** -5
+#: ResNet-50 at ImageNet shape (examples/resnet: SGD 0.1, momentum 0.9)
+RESNET_BATCH, RESNET_STEPS, RESNET_IMAGE = 64, 10, 224
+#: Inception-v3 batch inference at 299x299
+INCEPTION_BATCH, INCEPTION_IMAGE, INCEPTION_CALLS = 32, 299, 5
+#: Wide & Deep at Criteo shape, the model's defaults
+WD_BATCH, WD_STEPS = 2048, 10
+#: U-Net (examples/segmentation) and LeNet (examples/mnist)
+UNET_BATCH, UNET_IMAGE, UNET_FEATURES, UNET_CLASSES = 16, 64, (16, 32), 3
+LENET_BATCH, SMALL_STEPS = 128, 5
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def qa_batches(steps, batch, seq, seed):
+    """Seeded SQuAD-shaped rows (examples/bert's synthetic rows): token
+    ids from the vocabulary, lengths 192-384 padded to 384 with the
+    attention mask false, a 2-3 token answer span of the planted marker;
+    question tokens type 0, the rest type 1."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        ids = np.zeros((batch, seq), np.int64)
+        mask = np.zeros((batch, seq), bool)
+        tt = np.zeros((batch, seq), np.int64)
+        start = np.zeros(batch, np.int64)
+        end = np.zeros(batch, np.int64)
+        for r in range(batch):
+            length = int(rng.randint(seq // 2, seq + 1))
+            ids[r, :length] = rng.randint(16, BERT_VOCAB, size=length)
+            mask[r, :length] = True
+            tt[r, 32:length] = 1
+            s = int(rng.randint(32, length - 3))
+            span = int(rng.randint(2, 4))
+            ids[r, s:s + span] = BERT_MARKER
+            start[r], end[r] = s, s + span - 1
+        out.append({"input_ids": ids, "attention_mask": mask,
+                    "token_type_ids": tt, "start_positions": start,
+                    "end_positions": end})
+    return out
+
+
+def make_bert_apply_fn(cfg_kwargs):
+    """The BERT export's ``apply_fn``: a ``meta`` skeleton of the QA
+    model in eval mode, built at the first call of a process and kept,
+    called on the loaded variables (the server runs it under
+    ``torch.inference_mode``)."""
+    built = {}
+
+    def apply_fn(variables, batch):
+        import torch
+        from tensorflowonspark_tpu_torch.models import bert as _bert
+
+        skeleton = built.get("skeleton")
+        if skeleton is None:
+            skeleton = built["skeleton"] = _bert.BertForQuestionAnswering(
+                _bert.BertConfig(**cfg_kwargs), device="meta").eval()
+        dev = next(iter(variables.values())).device
+        inputs = tuple(torch.as_tensor(batch[k]).to(dev)
+                       for k in ("input_ids", "attention_mask",
+                                 "token_type_ids") if k in batch)
+        start, end = torch.func.functional_call(skeleton, variables, inputs)
+        return {"start_logits": start, "end_logits": end}
+
+    return apply_fn
+
+
+def repeat_step(trainer, state, batch, step):
+    """One step from ``state`` at step number ``step``; the model and
+    optimizer are restored afterwards. Returns the loss (a tensor)."""
+    import copy
+
+    model_sd = copy.deepcopy(trainer.model.state_dict())
+    opt_sd = copy.deepcopy(state["opt_state"].state_dict())
+    state["step"] = step
+    _, m = trainer.step(state, batch)
+    loss = m["loss"].clone()
+    trainer.model.load_state_dict(model_sd)
+    state["opt_state"].load_state_dict(opt_sd)
+    return loss
+
+
+def bert_loss(torch, bert, model, batch, attn_impl):
+    with torch.no_grad():
+        logits = model(*(batch[k] for k in BERT_KEYS), attn_impl=attn_impl)
+        return float(bert.qa_span_loss(logits, batch))
+
+
+def serve_predict(serving, export_dir, reqs):
+    """``reqs`` (lists of rows) through ``ModelServer(export_dir,
+    batch_window_ms=5)`` from PREDICT_CLIENTS concurrent HTTP clients;
+    returns (responses, per-request seconds, wall, apply calls, the
+    status of a ragged request)."""
+    out = [None] * len(reqs)
+    lat = [None] * len(reqs)
+    errors = []
+    with serving.ModelServer(export_dir, name="bert", port=0,
+                             batch_window_ms=PREDICT_WINDOW_MS) as srv:
+        port = srv.address[1]
+
+        def client(c):
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=600)
+                for i in range(c, len(reqs), PREDICT_CLIENTS):
+                    t0 = time.monotonic()
+                    conn.request("POST", "/v1/models/bert:predict",
+                                 body=json.dumps({"instances": reqs[i]}),
+                                 headers={"Content-Type":
+                                          "application/json"})
+                    resp = conn.getresponse()
+                    body = json.loads(resp.read())
+                    lat[i] = time.monotonic() - t0
+                    if resp.status != 200:
+                        raise RuntimeError("HTTP {}: {}".format(
+                            resp.status, body))
+                    out[i] = body["predictions"]
+                conn.close()
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(PREDICT_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.monotonic() - t0
+        calls = srv.apply_calls
+        bad = dict(reqs[0][0])
+        bad["input_ids"] = bad["input_ids"][:-1]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", "/v1/models/bert:predict",
+                     body=json.dumps({"instances": [reqs[0][0], bad]}))
+        ragged = conn.getresponse()
+        ragged.read()
+        conn.close()
+    check(not errors, ":predict clients failed: {}".format(errors))
+    return out, lat, wall, calls, ragged.status
+
+
+def bert_legs(torch, dev, here):
+    """Phase 8's BERT legs: training through the flash kernels, the
+    plain-attention step, the dropout leg and the export served over
+    ``:predict``."""
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import export, infeed, serving, training
+    from tensorflowonspark_tpu_torch.models import bert
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    cfg_kwargs = dict(vocab_size=BERT_VOCAB, num_layers=BERT_LAYERS,
+                      dropout_rate=0.0)
+    cfg = bert.BertConfig(**cfg_kwargs)
+    check((cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
+           cfg.max_position, cfg.dtype) == (HIDDEN, HEADS, 3072, 512,
+                                            torch.bfloat16),
+          "BERT is not at BERT-base width in bfloat16")
+    model = bert.BertForQuestionAnswering(cfg, device=dev)
+    trainer = training.Trainer(model, training.adamw(BERT_LR),
+                               loss_fn=bert.qa_span_loss,
+                               input_keys=BERT_KEYS, device=dev)
+    state = trainer.init(torch.Generator(device=dev).manual_seed(SEED))
+    batches = qa_batches(BERT_STEPS, BERT_BATCH, BERT_SEQ, SEED + 20)
+    first = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+
+    # one step's loss with attention through the kernels and through
+    # their plain versions, on the initial weights
+    model.train()
+    before = dict(fa.launches)
+    k_loss = bert_loss(torch, bert, model, first, None)
+    check(fa.launches["fwd"] == before["fwd"] + BERT_LAYERS,
+          "the kernel step did not launch the flash forward once a layer")
+    p_loss = bert_loss(torch, bert, model, first, "plain")
+    check(fa.launches["fwd"] == before["fwd"] + BERT_LAYERS,
+          "the plain step launched a flash kernel")
+    step_rel = abs(k_loss - p_loss) / abs(p_loss)
+    log("BERT kernel vs plain attention loss: {:.6f} vs {:.6f} (rel {:.2e}, "
+        "tol {:.2e})".format(k_loss, p_loss, step_rel, BERT_STEP_RTOL))
+    check(step_rel <= BERT_STEP_RTOL, "BERT kernel and plain losses differ")
+
+    # the kernels at this shape, on this run's key mask
+    mask = first["attention_mask"]
+    flash_t = flash_timing(torch, fa, dev, BERT_BATCH, BERT_SEQ, "bfloat16",
+                           mask)
+    for name, ft in flash_t.items():
+        log("flash {:<3} at BERT B32 S384 bf16 key mask: kernel {:.4f} ms  "
+            "plain {:.4f} ms  sdpa {}  bound {:.4f} ms ({}; bytes {:.4f} ms, "
+            "bf16 {:.4f} ms, one-pass TF32 {:.4f} ms, 3xTF32 {:.4f} ms; "
+            "{:.3g} flop over {} live keys, {:.3g} B)".format(
+                name, ft["ms"], ft["plain_ms"],
+                "-" if ft["library_ms"] is None
+                else "{:.4f} ms".format(ft["library_ms"]),
+                ft["bound_ms"], ft["bound_by"], ft["bytes_ms"],
+                ft["ops_bf16_ms"], ft["ops_tf32_ms"], ft["ops_3xtf32_ms"],
+                ft["flops"], int(mask.sum().item()), ft["bytes"]))
+
+    # THE main path of the BERT leg: counts at zero just before
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for name in fa.launches:
+        fa.launches[name] = 0
+    losses, step_s, counts = [], [], []
+    for batch in infeed.device_batches(iter(batches), device=dev):
+        ts = time.monotonic()
+        state, metrics = trainer.step(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        step_s.append(time.monotonic() - ts)
+        counts.append(dict(fa.launches))
+    train_launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else 0
+    log("BERT losses: " + " ".join("{:.4f}".format(x) for x in losses))
+    check(len(losses) == BERT_STEPS and all(np.isfinite(losses)),
+          "a BERT loss is not finite")
+    check(np.mean(losses[-3:]) < losses[0],
+          "the BERT loss did not fall (first {:.4f}, mean of last 3 {:.4f})"
+          .format(losses[0], np.mean(losses[-3:])))
+    for i, c in enumerate(counts):
+        check(all(c[k] == BERT_LAYERS * (i + 1) for k in c),
+              "BERT step {}: flash launches {} are not {} per kernel per "
+              "step".format(i + 1, c, BERT_LAYERS))
+    p50 = float(np.median(step_s))
+    log("BERT step p50 {:.4f}s  sequences/s {:.1f}  max_memory_allocated "
+        "{:.2f} GiB; flash launches {}".format(
+            p50, BERT_BATCH / p50, peak / 2 ** 30, train_launches))
+
+    # the dropout leg: the einsum path, masks a function of the step
+    dcfg = bert.BertConfig(**dict(cfg_kwargs, dropout_rate=0.1))
+    dmodel = bert.BertForQuestionAnswering(dcfg, device=dev)
+    dmodel.load_state_dict(model.state_dict())
+    dtrainer = training.Trainer(dmodel, training.adamw(BERT_LR),
+                                loss_fn=bert.qa_span_loss,
+                                input_keys=BERT_KEYS, device=dev,
+                                dropout_rng=True)
+    dstate = dtrainer.init()
+    before = dict(fa.launches)
+    a = repeat_step(dtrainer, dstate, first, 3)
+    b = repeat_step(dtrainer, dstate, first, 3)
+    c = repeat_step(dtrainer, dstate, first, 4)
+    check(fa.launches == before, "the dropout leg launched a flash kernel")
+    check(torch.equal(a, b), "dropout step 3 twice gave other losses")
+    check(not torch.equal(a, c), "dropout steps 3 and 4 drew the same masks")
+    log("BERT dropout leg (einsum path, dropout_rng): step 3 {:.6f} twice "
+        "bitwise, step 4 {:.6f}".format(float(a), float(c)))
+    del dmodel, dtrainer, dstate
+
+    # export, then :predict through the batching window
+    model.eval()
+    rng = np.random.RandomState(SEED + 21)
+    pool = qa_batches(1, PREDICT_REQUESTS * 4, BERT_SEQ, SEED + 22)[0]
+    reqs, lo = [], 0
+    for _ in range(PREDICT_REQUESTS):
+        n = int(rng.randint(1, 5))
+        reqs.append([{k: pool[k][r].tolist() for k in BERT_KEYS}
+                     for r in range(lo, lo + n)])
+        lo += n
+    work = tempfile.mkdtemp(prefix="tfos-bert-export-", dir=here)
+    try:
+        export_dir = os.path.join(work, "bert_qa")
+        t0 = time.monotonic()
+        export.save_model(export_dir, make_bert_apply_fn(cfg_kwargs),
+                          model.state_dict(),
+                          signature={"inputs": list(BERT_KEYS),
+                                     "outputs": ["start_logits",
+                                                 "end_logits"]})
+        export_s = time.monotonic() - t0
+        fwd0 = fa.launches["fwd"]
+        got, lat, wall, calls, ragged = serve_predict(serving, export_dir,
+                                                      reqs)
+        predict_fwd = fa.launches["fwd"] - fwd0
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    check(ragged == 400, "a ragged :predict answered {}".format(ragged))
+    check(calls < PREDICT_REQUESTS,
+          "the window made {} apply calls for {} requests".format(
+              calls, PREDICT_REQUESTS))
+    check(predict_fwd == BERT_LAYERS * calls,
+          ":predict ran the flash forward {} times over {} apply calls"
+          .format(predict_fwd, calls))
+    worst = 0.0
+    for rows, preds in zip(reqs, got):
+        cols = {k: torch.tensor([r[k] for r in rows], device=dev)
+                for k in BERT_KEYS}
+        with torch.no_grad():
+            start, end = model(*(cols[k] for k in BERT_KEYS))
+        for key, want in (("start_logits", start), ("end_logits", end)):
+            g = torch.tensor([p[key] for p in preds], device=dev)
+            check(g.shape == want.shape and bool(torch.isfinite(g).all()),
+                  ":predict {} has the wrong shape or is not finite"
+                  .format(key))
+            rel = ((g - want).abs().max() / want.abs().max()).item()
+            worst = max(worst, rel)
+    check(worst <= PREDICT_RTOL,
+          ":predict disagrees with the model's own forward (rel {:.2e})"
+          .format(worst))
+    rows_total = sum(len(r) for r in reqs)
+    log(":predict {} requests ({} rows) from {} clients, window {} ms: {} "
+        "apply calls; flash forward {} ({} per call); request p50 {:.4f}s "
+        "p99 {:.4f}s; {:.1f} rows/s; worst rel vs own forward {:.2e} (tol "
+        "{:.2e}); ragged request -> {}; export {:.2f}s".format(
+            PREDICT_REQUESTS, rows_total, PREDICT_CLIENTS,
+            PREDICT_WINDOW_MS, calls, predict_fwd, predict_fwd // calls,
+            float(np.percentile(lat, 50)), float(np.percentile(lat, 99)),
+            rows_total / wall, worst, PREDICT_RTOL, ragged, export_s))
+    return {"losses": losses, "step_s": step_s, "p50_s": p50,
+            "sequences_per_s": BERT_BATCH / p50,
+            "max_memory_allocated": peak, "launches": train_launches,
+            "plain_step": {"kernel_loss": k_loss, "plain_loss": p_loss,
+                           "rel": step_rel},
+            "dropout": {"step3": float(a), "step4": float(c)},
+            "flash_timing": flash_t,
+            "predict": {"requests": PREDICT_REQUESTS, "rows": rows_total,
+                        "apply_calls": calls, "fwd_launches": predict_fwd,
+                        "p50_s": float(np.percentile(lat, 50)),
+                        "p99_s": float(np.percentile(lat, 99)),
+                        "rows_per_s": rows_total / wall, "rel": worst,
+                        "export_s": export_s}}
+
+
+def image_batches(torch, dev, steps, batch, size, classes, seed):
+    """Seeded uint8 images (examples/resnet's synthetic shards) scaled
+    to [0, 1] on the device, NHWC, with integer labels."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        img = rng.randint(0, 256, (batch, size, size, 3), dtype=np.uint8)
+        x = torch.from_numpy(img).to(dev).float() / 255.0
+        y = torch.from_numpy(rng.randint(0, classes, batch)).to(dev)
+        out.append({"x": x, "y": y})
+    return out
+
+
+def timed_steps(torch, dev, trainer, state, batches):
+    losses, step_s = [], []
+    for batch in batches:
+        ts = time.monotonic()
+        state, metrics = trainer.step(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        step_s.append(time.monotonic() - ts)
+    return state, losses, step_s
+
+
+def resnet_leg(torch, dev):
+    from tensorflowonspark_tpu_torch import training
+    from tensorflowonspark_tpu_torch.models import resnet
+
+    model = resnet.ResNet50(device=dev).to(memory_format=torch.channels_last)
+    trainer = training.Trainer(
+        model, lambda p: torch.optim.SGD(p, lr=0.1, momentum=0.9),
+        device=dev)
+    state = trainer.init(torch.Generator(device=dev).manual_seed(SEED))
+    stats0 = model.bn_init.running_mean.clone()
+    batches = image_batches(torch, dev, RESNET_STEPS, RESNET_BATCH,
+                            RESNET_IMAGE, 1000, SEED + 30)
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    state, losses, step_s = timed_steps(torch, dev, trainer, state, batches)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else 0
+    check(all(np.isfinite(losses)), "a ResNet-50 loss is not finite")
+    moved = (model.bn_init.running_mean - stats0).abs().max().item()
+    check(moved > 0, "ResNet-50's BatchNorm running statistics did not move")
+    p50 = float(np.median(step_s))
+    log("ResNet-50 224px bf16 batch {}: losses {}; step p50 {:.4f}s  "
+        "images/s {:.1f} (one card)  max_memory_allocated {:.2f} GiB; "
+        "bn_init running mean moved {:.3g}".format(
+            RESNET_BATCH, " ".join("{:.3f}".format(x) for x in losses), p50,
+            RESNET_BATCH / p50, peak / 2 ** 30, moved))
+    return {"losses": losses, "step_s": step_s, "p50_s": p50,
+            "images_per_s": RESNET_BATCH / p50,
+            "max_memory_allocated": peak}
+
+
+def inception_leg(torch, dev):
+    from tensorflowonspark_tpu_torch.models import inception
+
+    model = inception.InceptionV3(device=dev).to(
+        memory_format=torch.channels_last)
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+    model.eval()
+    x = image_batches(torch, dev, 1, INCEPTION_BATCH, INCEPTION_IMAGE, 1000,
+                      SEED + 31)[0]["x"]
+    with torch.inference_mode():
+        a = model(x)
+        b = model(x)
+        _sync(torch, dev)
+        t0 = time.monotonic()
+        for _ in range(INCEPTION_CALLS):
+            model(x)
+        _sync(torch, dev)
+        per_call = (time.monotonic() - t0) / INCEPTION_CALLS
+    check(tuple(a.shape) == (INCEPTION_BATCH, 1000)
+          and bool(torch.isfinite(a).all()),
+          "Inception-v3 logits have the wrong shape or are not finite")
+    check(torch.equal(a, b), "two Inception-v3 calls gave other logits")
+    log("Inception-v3 299px bf16 batch {} inference: {:.4f}s a call, "
+        "images/s {:.1f}".format(INCEPTION_BATCH, per_call,
+                                 INCEPTION_BATCH / per_call))
+    return {"s_per_call": per_call,
+            "images_per_s": INCEPTION_BATCH / per_call}
+
+
+def criteo_batches(steps, batch, buckets, seed):
+    """Criteo-shaped rows (examples/criteo's synthetic lines): 13 dense
+    features log-normalised, 26 categorical ids hashed into the buckets,
+    a label that depends on dense[0] and cat[0]."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        d0 = rng.randint(0, 100, batch)
+        c0 = rng.randint(0, 8, batch)
+        dense = np.log1p(rng.randint(0, 1000, (batch, 13))).astype(
+            np.float32)
+        dense[:, 0] = np.log1p(d0)
+        cat = rng.randint(0, buckets, (batch, 26))
+        cat[:, 0] = c0
+        label = ((d0 > 50) ^ (c0 < 2)).astype(np.int64)
+        out.append({"dense": dense, "cat": cat, "label": label})
+    return out
+
+
+def widedeep_leg(torch, dev):
+    from tensorflowonspark_tpu_torch import training
+    from tensorflowonspark_tpu_torch.models import widedeep
+
+    model = widedeep.WideDeep(device=dev)
+    trainer = training.Trainer(
+        model, lambda p: torch.optim.Adam(p, lr=1e-3),
+        loss_fn=widedeep.ctr_loss, input_keys=("dense", "cat"), device=dev)
+    state = trainer.init(torch.Generator(device=dev).manual_seed(SEED))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in criteo_batches(WD_STEPS + 1, WD_BATCH,
+                                       model.hash_buckets, SEED + 32)]
+    state, losses, step_s = timed_steps(torch, dev, trainer, state,
+                                        batches[:WD_STEPS])
+    check(all(np.isfinite(losses)), "a Wide & Deep loss is not finite")
+    slim, quant = widedeep.quantize_embeddings(model.state_dict())
+    qmodel = widedeep.WideDeep(quantized=True, device=dev)
+    qmodel.load_state_dict(dict(slim, **quant))
+    held = batches[WD_STEPS]
+    model.eval()
+    qmodel.eval()
+    with torch.no_grad():
+        ref = model(held["dense"], held["cat"]).float().cpu().numpy()
+        got = qmodel(held["dense"], held["cat"]).float().cpu().numpy()
+    # the reference's agreement (tests/test_models.py): per-row int8
+    # tables track the float tables within quantization error
+    close = bool(np.all(np.abs(got - ref) <= 0.05 + 0.05 * np.abs(ref)))
+    corr = float(np.corrcoef(got, ref)[0, 1])
+    check(close and corr > 0.999,
+          "int8 Wide & Deep logits disagree with the float model's (worst "
+          "{:.3g}, corr {:.6f})".format(float(np.abs(got - ref).max()), corr))
+    p50 = float(np.median(step_s))
+    table = quant["deep_embeddings.table"]
+    log("Wide & Deep (13 dense, 26 slots x 100000 buckets, embed 32, MLP "
+        "256-128-64) batch {}: losses {:.4f} -> {:.4f}; step p50 {:.4f}s  "
+        "rows/s {:.1f}; int8 table {:.1f} MB vs float {:.1f} MB, logits "
+        "worst |diff| {:.3g}, corr {:.6f}".format(
+            WD_BATCH, losses[0], losses[-1], p50, WD_BATCH / p50,
+            (table.numel() + quant["deep_embeddings.scale"].numel() * 4)
+            / 1e6, table.numel() * 4 / 1e6, float(np.abs(got - ref).max()),
+            corr))
+    return {"losses": losses, "step_s": step_s, "p50_s": p50,
+            "rows_per_s": WD_BATCH / p50, "int8_corr": corr,
+            "int8_worst": float(np.abs(got - ref).max())}
+
+
+def small_legs(torch, dev):
+    """U-Net and LeNet at their examples' shapes: SMALL_STEPS Adam steps
+    on one seeded batch each (memorised, so the loss must fall)."""
+    from tensorflowonspark_tpu_torch import training
+    from tensorflowonspark_tpu_torch.models import lenet, unet
+
+    out = {}
+    rng = np.random.RandomState(SEED + 33)
+    # U-Net: noise backgrounds with a bright square of class 1 and a
+    # dimmer one of class 2 (examples/segmentation's shapes problem)
+    x = rng.rand(UNET_BATCH, UNET_IMAGE, UNET_IMAGE, 3).astype(np.float32)
+    x *= 0.2
+    y = np.zeros((UNET_BATCH, UNET_IMAGE, UNET_IMAGE), np.int64)
+    for i in range(UNET_BATCH):
+        for cls, level in ((1, 0.9), (2, 0.6)):
+            r, c = rng.randint(0, UNET_IMAGE - 16, 2)
+            x[i, r:r + 16, c:c + 16] = level
+            y[i, r:r + 16, c:c + 16] = cls
+    seg = {"x": torch.from_numpy(x).to(dev), "y": torch.from_numpy(y).to(dev)}
+    digits = {"x": torch.from_numpy(rng.rand(LENET_BATCH, 28, 28, 1).astype(
+                  np.float32)).to(dev),
+              "y": torch.from_numpy(rng.randint(0, 10, LENET_BATCH)).to(dev)}
+    for name, model, loss_fn, batch in (
+            ("unet", unet.UNet(UNET_CLASSES, features=UNET_FEATURES,
+                               device=dev), unet.segmentation_loss, seg),
+            ("lenet", lenet.LeNet(device=dev), training.softmax_xent,
+             digits)):
+        trainer = training.Trainer(
+            model, lambda p: torch.optim.Adam(p, lr=1e-3), loss_fn=loss_fn,
+            device=dev)
+        state = trainer.init(torch.Generator(device=dev).manual_seed(SEED))
+        state, losses, step_s = timed_steps(torch, dev, trainer, state,
+                                            [batch] * SMALL_STEPS)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              "{} loss did not fall: {}".format(name, losses))
+        out[name] = {"losses": losses, "p50_s": float(np.median(step_s))}
+        log("{} batch {}: losses {}; step p50 {:.4f}s".format(
+            name, batch["x"].shape[0],
+            " ".join("{:.4f}".format(v) for v in losses),
+            out[name]["p50_s"]))
+    return out
+
+
+def models_phase(torch, dev, here):
+    """Phase 8: the model zoo on the card, each family through the
+    port's entry points; returns every number of the phase."""
+    t0 = time.monotonic()
+    res = {"bert": bert_legs(torch, dev, here)}
+    for name, leg in (("resnet50", resnet_leg),
+                      ("inception_v3", inception_leg),
+                      ("widedeep", widedeep_leg)):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        res[name] = leg(torch, dev)
+    res.update(small_legs(torch, dev))
+    want = ["tensorflowonspark_tpu_torch.models." + m for m in (
+        "_layers", "bert", "resnet", "inception", "widedeep", "unet",
+        "lenet")] + ["tensorflowonspark_tpu_torch.serving"]
+    missing = [m for m in want if m not in sys.modules]
+    foreign = [m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "optax", "tensorflowonspark_tpu")]
+    check(not missing and not foreign,
+          "phase 8 modules missing {} or foreign ones loaded {}".format(
+              missing, foreign))
+    res["wall_s"] = time.monotonic() - t0
+    log("models phase wall {:.1f}s".format(res["wall_s"]))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -1792,6 +2433,9 @@ def main():
         .format(torch.cuda.memory_allocated(dev) / 2 ** 30))
     clus = cluster_phase(None, train, here)
     pipe = pipeline_phase(None, train, here)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo = models_phase(torch, dev, here)
     t = timing["decode"][False]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -1869,6 +2513,12 @@ def main():
             "launches_cluster": clus["trainer"]["flash_launches"][-1][name],
             # and in phase 7's pipeline trainer (DDP, checkpoint, resume)
             "launches_pipeline": pipe["trainer"]["launches"][name],
+            # and in phase 8: BERT-base training plus :predict
+            "launches_models": zoo["bert"]["launches"][name] + (
+                zoo["bert"]["predict"]["fwd_launches"] if name == "fwd"
+                else 0),
+            # the same kernel at BERT's shape (bfloat16, key mask, S 384)
+            "bert_shape": zoo["bert"]["flash_timing"][name],
             # case (a), the main path's shape and dtype; every case below
             "max_abs_err": flash_err["a"][name],
             "max_abs_err_by_case": {c: e[name] for c, e in flash_err.items()},
@@ -1896,6 +2546,7 @@ def main():
                        "training": train,
                        "cluster": clus,
                        "pipeline": pipe,
+                       "models": zoo,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     log("total: {:.1f}s".format(time.monotonic() - t_start))
     print(json.dumps(kernels))

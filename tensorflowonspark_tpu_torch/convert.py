@@ -1,8 +1,32 @@
-"""Weight bridge: flax ``DecoderLM`` params <-> the port's ``state_dict``.
+"""Weight bridge: flax parameter trees <-> the port's ``state_dict``s.
 
-The flax tree (a nested dict of numpy arrays, as
-``jax.tree.map(np.asarray, params)`` gives it) is laid out as the JAX
-package's ``models/decoder.py`` builds it:
+**The model zoo** (``<family>_from_flax(params, extra=None)`` and
+``<family>_to_flax(state_dict)`` for ``lenet``, ``resnet``,
+``inception``, ``unet``, ``widedeep`` and ``bert``): the port's zoo
+modules carry flax's module names (``BottleneckBlock_3.Conv_1``,
+``bert.layer_0.attention.query``), so one walk maps every family:
+
+- a ``Dense`` kernel ``[in, out]`` is transposed to torch's ``[out,
+  in]``; a ``Conv`` kernel goes from HWIO to OIHW; a ``ConvTranspose``
+  kernel (flax does not flip it) is flipped in space and laid out
+  ``[in, out, kh, kw]`` for ``conv_transpose2d``;
+- BERT's ``DenseGeneral`` kernels ``[H, N, D]`` (query, key, value; bias
+  ``[N, D]``) and ``[N, D, H]`` (out) become ``Linear`` weights over the
+  flattened ``N * D``, as the decoder's are;
+- ``scale`` (BatchNorm, LayerNorm) and ``embedding`` become ``weight``;
+- ``extra["batch_stats"]`` ``mean``/``var`` become the BatchNorm buffers
+  ``running_mean``/``running_var``, and ``extra["quant"]`` (Wide &
+  Deep's int8 ``table`` and float32 ``scale``) the ``QuantizedEmbed``
+  buffers of the same names.
+
+``<family>_to_flax`` returns ``(params, extra)`` (``extra`` holds the
+collections present). Every mapping is a reshape, a transpose or a
+flip, so each round trip is bitwise.
+
+**The decoder** (:func:`from_flax`, :func:`to_flax`): the flax tree (a
+nested dict of numpy arrays, as ``jax.tree.map(np.asarray, params)``
+gives it) is laid out as the JAX package's ``models/decoder.py`` builds
+it:
 
 - ``tok_embed/embedding [V, H]``, ``pos_embed [max_len, H]``;
 - per block ``block_i``: ``ln1``/``ln2`` ``scale``/``bias [H]``;
@@ -116,3 +140,138 @@ def to_flax(state_dict, num_heads):
     params["head"] = {"kernel": np.ascontiguousarray(_n(sd["head.weight"]).T),
                       "bias": _n(sd["head.bias"])}
     return params
+
+
+# -- the model zoo ---------------------------------------------------------
+
+_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+               "bias": "bias"}
+_STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+_STAT_FLAX = {v: k for k, v in _STAT_LEAF.items()}
+_QUANT_LEAF = ("table", "scale")
+_HEADS_IN = ("query", "key", "value")
+
+
+def _walk(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            for item in _walk(v, path + (k,)):
+                yield item
+        else:
+            yield path + (k,), v
+
+
+def _tensor(a):
+    """A CPU tensor of ``a``'s dtype (bitwise: no cast)."""
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _is_transpose(mod):
+    return mod[-1].startswith("ConvTranspose")
+
+
+def _is_dense_general(mod):
+    return len(mod) >= 2 and mod[-2] == "attention" and (
+        mod[-1] in _HEADS_IN or mod[-1] == "out")
+
+
+def _kernel_to_torch(mod, k):
+    if k.ndim == 4:
+        if _is_transpose(mod):              # [kh, kw, in, out], unflipped
+            return np.flip(k, (0, 1)).transpose(2, 3, 0, 1)
+        return k.transpose(3, 2, 0, 1)      # HWIO -> OIHW
+    if k.ndim == 3:                         # DenseGeneral
+        if mod[-1] == "out":                # [N, D, H]
+            return k.reshape(-1, k.shape[-1]).T
+        return k.reshape(k.shape[0], -1).T  # [H, N, D]
+    return k.T
+
+
+def tree_from_flax(params, extra=None):
+    """A zoo model's flax ``params`` (and ``extra`` collections:
+    ``batch_stats``, ``quant``) -> its port ``state_dict`` (CPU tensors
+    of the leaves' dtypes; load it with ``model.load_state_dict``)."""
+    sd = collections.OrderedDict()
+    for path, leaf in _walk(params):
+        mod, name = path[:-1], path[-1]
+        a = np.asarray(leaf)
+        if name == "kernel":
+            a = _kernel_to_torch(mod, a)
+        elif name == "bias" and a.ndim == 2:  # DenseGeneral [N, D]
+            a = a.reshape(-1)
+        sd[".".join(mod + (_PARAM_LEAF[name],))] = _tensor(a)
+    for coll, tree in (extra or {}).items():
+        for path, leaf in _walk(tree):
+            if coll == "batch_stats":
+                name = _STAT_LEAF[path[-1]]
+            elif coll == "quant" and path[-1] in _QUANT_LEAF:
+                name = path[-1]
+            else:
+                raise ValueError("no port buffer for collection {!r} leaf "
+                                 "{}".format(coll, "/".join(path)))
+            sd[".".join(path[:-1] + (name,))] = _tensor(leaf)
+    return sd
+
+
+def _put(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def tree_to_flax(state_dict, num_heads=None):
+    """A zoo model's port ``state_dict`` -> ``(params, extra)``, flax
+    trees of numpy arrays; ``num_heads`` splits BERT's flattened
+    ``N * D``."""
+    params, extra = {}, {}
+    for key, t in state_dict.items():
+        parts = key.split(".")
+        mod, leaf = tuple(parts[:-1]), parts[-1]
+        a = _n(t)
+        if leaf in _STAT_FLAX:
+            _put(extra.setdefault("batch_stats", {}), mod + (
+                _STAT_FLAX[leaf],), a)
+            continue
+        if leaf in _QUANT_LEAF:
+            _put(extra.setdefault("quant", {}), mod + (leaf,), a)
+            continue
+        dense_general = _is_dense_general(mod)
+        if dense_general and num_heads is None:
+            raise ValueError("{} needs num_heads".format(key))
+        if leaf == "bias":
+            if dense_general and mod[-1] != "out":
+                a = a.reshape(num_heads, -1)
+            _put(params, mod + ("bias",), a)
+            continue
+        if a.ndim == 1:
+            name = "scale"
+        elif a.ndim == 4:
+            name = "kernel"
+            if _is_transpose(mod):
+                a = np.flip(a.transpose(2, 3, 0, 1), (0, 1))
+            else:
+                a = a.transpose(2, 3, 1, 0)
+        elif mod[-1].endswith("embeddings"):
+            name = "embedding"
+        else:
+            name = "kernel"
+            if dense_general and mod[-1] == "out":   # [H, N*D]
+                a = a.T.reshape(num_heads, -1, a.shape[0])
+            elif dense_general:                       # [N*D, H]
+                a = a.T.reshape(a.shape[1], num_heads, -1)
+            else:
+                a = a.T
+        _put(params, mod + (name,), np.ascontiguousarray(a))
+    return params, extra
+
+
+#: each family's bridge is the one walk above (the modules carry
+#: flax's names); only BERT's needs the head count back
+lenet_from_flax = resnet_from_flax = inception_from_flax = tree_from_flax
+unet_from_flax = widedeep_from_flax = bert_from_flax = tree_from_flax
+lenet_to_flax = resnet_to_flax = inception_to_flax = tree_to_flax
+unet_to_flax = widedeep_to_flax = tree_to_flax
+
+
+def bert_to_flax(state_dict, num_heads):
+    return tree_to_flax(state_dict, num_heads)

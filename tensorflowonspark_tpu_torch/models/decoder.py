@@ -34,11 +34,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tensorflowonspark_tpu_torch.models._layers import LN_EPS
 from tensorflowonspark_tpu_torch.ops import flash_attention as fa
 from tensorflowonspark_tpu_torch.ops import paged_attention as pa
-
-#: flax ``nn.LayerNorm``'s default epsilon
-LN_EPS = 1e-6
 
 #: "fused": the kernels on the card (plain versions on the CPU);
 #: "gather": the plain oracles on any device — paged attention through

@@ -2,16 +2,27 @@
 """Where a training step's time goes in the PyTorch/CUDA port.
 
     python3 -m tensorflowonspark_tpu_torch.profile_train [--steps 5]
+        [--model decoder|bert|resnet50]
 
-Builds the GPT-2-small ``DecoderLM`` that ``chip_smoke.py`` trains
-(vocab 50257, hidden 768, 12 heads, 12 layers, 1024 positions; float32
-with TF32 off; random weights from a seed), takes 2 warm-up steps of
-the port's ``Trainer`` (``adamw(3e-4)``) on batches of 8 x 1024 random
-tokens, times ``--steps`` steps on the host clock around synchronized
-steps, then traces ``--steps`` more with ``torch.profiler`` and prints:
-wall time per step, device-busy time per step (sum of kernel times in
-the trace), the three flash-attention kernels' device time and share,
-and the kernels by device time. Needs one card.
+Builds a model that ``chip_smoke.py`` trains, with random weights from
+a seed (float32 products with TF32 off where the model is float32):
+
+- ``decoder`` (default): the GPT-2-small ``DecoderLM`` (vocab 50257,
+  hidden 768, 12 heads, 12 layers, 1024 positions; float32),
+  ``adamw(3e-4)``, batches of 8 x 1024 random tokens;
+- ``bert``: BERT-base QA (bfloat16, dropout off, so attention takes the
+  flash kernels), ``adamw(3e-5)``, batches of 32 x 384 random tokens
+  with 192-384 live keys a row;
+- ``resnet50``: ResNet-50 (bfloat16, float32 BatchNorm,
+  ``channels_last``), SGD 0.1 with momentum 0.9, 64 random 224x224
+  images.
+
+It takes 2 warm-up steps of the port's ``Trainer``, times ``--steps``
+steps on the host clock around synchronized steps, then traces
+``--steps`` more with ``torch.profiler`` and prints: wall time per
+step, device-busy time per step (sum of kernel times in the trace), the
+three flash-attention kernels' device time and share, and the kernels
+by device time. Needs one card.
 """
 
 import argparse
@@ -22,12 +33,67 @@ import numpy as np
 
 #: the training path's batch: rows x tokens, as ``chip_smoke.py`` trains
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+BERT_BATCH, BERT_SEQ = 32, 384
+RESNET_BATCH, RESNET_IMAGE = 64, 224
+
+
+def _build(torch, name, dev, seed):
+    """``(trainer, batch, shape)`` of one model ``chip_smoke.py``
+    trains."""
+    from tensorflowonspark_tpu_torch import training
+
+    rng = np.random.RandomState(seed)
+    if name == "decoder":
+        from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+        vocab = 50257
+        model = DecoderLM(vocab, hidden=768, num_heads=12, num_layers=12,
+                          max_len=1024, device=dev)
+        rows = rng.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ + 1))
+        batch = {"x": rows[:, :-1], "y": rows[:, 1:]}
+        trainer = training.Trainer(model, training.adamw(3e-4), device=dev)
+        shape = "{} x {} tokens".format(TRAIN_BATCH, TRAIN_SEQ)
+    elif name == "bert":
+        from tensorflowonspark_tpu_torch.models import bert
+
+        model = bert.BertForQuestionAnswering(
+            bert.BertConfig(dropout_rate=0.0), device=dev)
+        lengths = rng.randint(BERT_SEQ // 2, BERT_SEQ + 1, BERT_BATCH)
+        batch = {"input_ids": rng.randint(16, 30522, (BERT_BATCH, BERT_SEQ)),
+                 "attention_mask": np.arange(BERT_SEQ)[None, :]
+                 < lengths[:, None],
+                 "token_type_ids": np.zeros((BERT_BATCH, BERT_SEQ), np.int64),
+                 "start_positions": rng.randint(0, BERT_SEQ // 2, BERT_BATCH),
+                 "end_positions": rng.randint(0, BERT_SEQ // 2, BERT_BATCH)}
+        trainer = training.Trainer(
+            model, training.adamw(3e-5), loss_fn=bert.qa_span_loss,
+            input_keys=("input_ids", "attention_mask", "token_type_ids"),
+            device=dev)
+        shape = "{} x {} tokens".format(BERT_BATCH, BERT_SEQ)
+    else:
+        from tensorflowonspark_tpu_torch.models import resnet
+
+        model = resnet.ResNet50(device=dev).to(
+            memory_format=torch.channels_last)
+        batch = {"x": rng.rand(RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE,
+                               3).astype(np.float32),
+                 "y": rng.randint(0, 1000, RESNET_BATCH)}
+        trainer = training.Trainer(
+            model, lambda p: torch.optim.SGD(p, lr=0.1, momentum=0.9),
+            device=dev)
+        shape = "{} images of {}x{}".format(RESNET_BATCH, RESNET_IMAGE,
+                                            RESNET_IMAGE)
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in batch.items()}
+    return trainer, batch, shape
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--model", default="decoder",
+                    choices=("decoder", "bert", "resnet50"))
     args = ap.parse_args()
     import torch
 
@@ -38,19 +104,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     from torch.profiler import ProfilerActivity, profile
 
-    from tensorflowonspark_tpu_torch import device_info, training
-    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+    from tensorflowonspark_tpu_torch import device_info
 
     dev = device_info.default_device()
-    vocab = 50257
-    model = DecoderLM(vocab, hidden=768, num_heads=12, num_layers=12,
-                      max_len=1024, device=dev)
-    trainer = training.Trainer(model, training.adamw(3e-4), device=dev)
+    trainer, batch, shape = _build(torch, args.model, dev, args.seed)
     state = trainer.init(torch.Generator(device=dev).manual_seed(args.seed))
-    rng = np.random.RandomState(args.seed)
-    rows = rng.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ + 1))
-    batch = {"x": torch.from_numpy(rows[:, :-1]).to(dev),
-             "y": torch.from_numpy(rows[:, 1:]).to(dev)}
 
     def step():
         nonlocal state
@@ -78,8 +136,7 @@ def main():
     flash = {e.key: e for e in device if "flash_" in e.key}
     flash_us = sum(e.self_device_time_total for e in flash.values())
     print(device_info.describe())
-    print("batch {} x {} tokens, {} steps".format(TRAIN_BATCH, TRAIN_SEQ,
-                                                  args.steps))
+    print("{}: batch {}, {} steps".format(args.model, shape, args.steps))
     print("wall per step {:.3f} ms (unprofiled); device busy per step "
           "{:.3f} ms ({:.1f}% of wall)".format(
               wall_ms, dev_us / 1e3 / args.steps,

@@ -13,22 +13,40 @@ re-enters later with a continuation prefill. Attention runs through
 (``attn_impl="fused"``), or the materialized-view oracle
 (``attn_impl="gather"``).
 
-:class:`ModelServer` mounts an engine on ``http.server``::
+:class:`ModelServer` takes the reference's signature, ``(model_dir,
+name="model", host="127.0.0.1", port=8501, batch_window_ms=0,
+engine=None)``: an export (``export.load_model``, on the card unless
+``device="cpu"`` is asked for) behind the TF-Serving REST routes, a
+decode engine behind ``:generate``, or both::
 
-    POST /v1/models/<name>:generate  {"prompt": [...] or [[...], ...],
-                                      "max_new_tokens": N}
-                                  -> {"tokens": [...] or [[...], ...]}
+    GET  /v1/models/<name>             -> model status
+    GET  /v1/models/<name>/metadata    -> signature metadata
+    POST /v1/models/<name>:predict     {"instances": [...]} row format
+                                       or {"inputs": {...}} columnar
+    POST /v1/models/<name>:generate    {"prompt": [...] or [[...], ...],
+                                        "max_new_tokens": N}
+                                    -> {"tokens": [...] or [[...], ...]}
     GET  /healthz
 
-Error taxonomy on the wire: malformed body 400, :class:`QueueFull` 429,
-:class:`Retriable` (:class:`Shed`, :class:`Draining`,
-:class:`EngineFailed`) 503 with ``Retry-After``,
+``:predict`` runs the export's ``apply_fn`` under
+``torch.inference_mode()``, one request at a time, or, with
+``batch_window_ms > 0``, through :class:`_Batcher`, which merges
+concurrent requests of one input signature into one apply call.
+
+Error taxonomy on the wire: malformed body 400 (for ``:predict``:
+ragged, non-numeric, empty and 0-d inputs and a batch-size mismatch),
+:class:`QueueFull` 429, :class:`Retriable` (:class:`Shed`,
+:class:`Draining`, :class:`EngineFailed`) 503 with ``Retry-After``,
 :class:`DeadlineExceeded` 504, :class:`Cancelled` 499.
 
 Left out of this port so far (see ROADMAP.md): speculative decoding,
-KV ship/splice, the QoS fair scheduler (admission here is the
-block-gated FIFO the reference runs with one priority class), SLO and
-chaos hooks, the flight recorder and ``/metrics``.
+KV ship/splice and ``:prefill``, the QoS fair scheduler (admission here
+is the block-gated FIFO the reference runs with one priority class),
+SLO and chaos hooks, the flight recorder and ``/metrics``, and the
+fleet plane's server state (replica id, dedup window, fencing, drain,
+``/admin``). ``_Batcher`` drops the reference's power-of-two padding
+of a merged batch, which bounds ``jit``'s compile cache; eager PyTorch
+has none, and padding would only add rows to compute.
 """
 
 import collections
@@ -752,32 +770,336 @@ class DecodeEngine(object):
 
 
 class _BadRequest(ValueError):
-    """A malformed ``:generate`` body (HTTP 400)."""
+    """A malformed request body (HTTP 400)."""
+
+
+def _as_array(name, value):
+    """Client JSON column -> ndarray; ragged/mistyped rows are a 400.
+
+    ``np.asarray`` turns rows of differing lengths into a ValueError (or
+    a dtype=object array that would fail inside the apply) — both are
+    the client's malformed request, not a server fault."""
+    try:
+        arr = np.asarray(value)
+    except ValueError as e:
+        raise _BadRequest("input %r is ragged or mistyped: %s" % (name, e))
+    if arr.dtype == object:
+        raise _BadRequest(
+            "input %r rows have inconsistent shapes or types" % name)
+    if arr.dtype.kind in "USV":
+        # mixed numeric/string rows coerce to a numpy str dtype; the
+        # exported apply_fn takes no string tensors
+        raise _BadRequest(
+            "input %r is non-numeric (dtype %s)" % (name, arr.dtype))
+    return arr
+
+
+def _to_batch(payload, signature):
+    """TF-Serving request JSON -> {name: ndarray} batch dict."""
+    if not isinstance(payload, dict):
+        raise _BadRequest("request body must be a JSON object")
+    if "instances" in payload:
+        rows = payload["instances"]
+        if not isinstance(rows, list) or not rows:
+            raise _BadRequest("'instances' must be a non-empty list")
+        if isinstance(rows[0], dict):
+            names = rows[0].keys()
+            cols = {n: [] for n in names}
+            for i, row in enumerate(rows):
+                if not isinstance(row, dict) or row.keys() != names:
+                    raise _BadRequest(
+                        "instance %d keys differ from instance 0" % i)
+                for n in names:
+                    cols[n].append(row[n])
+        else:
+            # single unnamed input: take the signature's (or 'x')
+            inputs = signature.get("inputs") or ["x"]
+            if len(inputs) != 1:
+                raise _BadRequest(
+                    "unnamed instances need a single-input signature")
+            cols = {inputs[0]: rows}
+        return {n: _as_array(n, v) for n, v in cols.items()}
+    if "inputs" in payload:
+        cols = payload["inputs"]
+        if isinstance(cols, dict):
+            return {n: _as_array(n, v) for n, v in cols.items()}
+        inputs = signature.get("inputs") or ["x"]
+        if len(inputs) != 1:
+            raise _BadRequest("unnamed inputs need a single-input signature")
+        return {inputs[0]: _as_array(inputs[0], cols)}
+    raise _BadRequest("request needs 'instances' or 'inputs'")
+
+
+def _listify(x):
+    if torch.is_tensor(x):
+        if x.dtype == torch.bfloat16:  # numpy has no bfloat16
+            x = x.float()
+        x = x.detach().cpu().numpy()
+    return np.asarray(x).tolist()
+
+
+def _to_json(outputs, row_format):
+    """apply_fn outputs (tensors or arrays) -> TF-Serving response dict."""
+    if isinstance(outputs, dict):
+        cols = {k: _listify(v) for k, v in outputs.items()}
+    elif isinstance(outputs, (tuple, list)):
+        cols = {"output_%d" % i: _listify(v) for i, v in enumerate(outputs)}
+    else:
+        cols = {"output": _listify(outputs)}
+    if not row_format:
+        return {"outputs": cols if len(cols) > 1
+                else next(iter(cols.values()))}
+    names = list(cols)
+    n = len(cols[names[0]])
+    if len(names) == 1:
+        return {"predictions": cols[names[0]]}
+    return {"predictions": [
+        {name: cols[name][i] for name in names} for i in range(n)]}
+
+
+def _slice_outputs(outputs, lo, hi):
+    """Row-slice an apply_fn result of any supported shape."""
+    if isinstance(outputs, dict):
+        return {k: v[lo:hi] for k, v in outputs.items()}
+    if isinstance(outputs, (tuple, list)):
+        return type(outputs)(v[lo:hi] for v in outputs)
+    return outputs[lo:hi]
+
+
+class _Batcher(object):
+    """Cross-request batching window for the card's benefit.
+
+    The first request opens a ``window_ms`` collection period; every
+    request that arrives in it with the SAME input signature (names,
+    trailing dims, dtypes) is concatenated along axis 0 into ONE apply
+    call (up to ``max_batch`` rows), and the outputs are split back per
+    request. A request with another signature runs in its own group, so
+    batching changes the call count, not what a row computes. A single
+    request larger than ``max_batch`` runs alone at its own size.
+    ``apply`` is ``batch -> outputs`` (the server binds the variables
+    and ``torch.inference_mode``).
+    """
+
+    def __init__(self, apply, window_ms, max_batch=64, submit_timeout=600.0):
+        self._apply = apply
+        self._window_s = window_ms / 1000.0
+        self._max_batch = max_batch
+        self._submit_timeout = submit_timeout
+        self._stopping = False
+        self._q = queue_mod.Queue()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="tfos-torch-batcher")
+        self._thread.start()
+
+    def submit(self, batch):
+        """Blocking: returns this request's slice of the batched outputs.
+
+        The batch's SHAPE is validated here, before it can reach the
+        shared batcher thread: an empty dict or a 0-d input would fail
+        the whole group. The wait is bounded, so a dead batcher surfaces
+        as per-request errors, never as hung clients."""
+        if not batch:
+            raise _BadRequest("empty input batch")
+        lens = set()
+        for k, v in batch.items():
+            if getattr(v, "ndim", 0) < 1:
+                raise _BadRequest(
+                    "input %r is 0-d; batchable inputs need a leading "
+                    "batch axis" % k)
+            lens.add(len(v))
+        if len(lens) != 1:
+            raise _BadRequest(
+                "inputs disagree on batch size: %s" % sorted(lens))
+        if self._stopping:
+            raise RuntimeError("server is stopping")
+        done = threading.Event()
+        item = {"batch": batch, "done": done}
+        self._q.put(item)
+        if not done.wait(self._submit_timeout):
+            raise RuntimeError(
+                "batched predict timed out after {}s".format(
+                    self._submit_timeout))
+        if "error" in item:
+            raise item["error"]
+        return item["out"]
+
+    @staticmethod
+    def _sig(batch):
+        return tuple(sorted((k, v.shape[1:], str(v.dtype))
+                            for k, v in batch.items()))
+
+    @staticmethod
+    def _rows(item):
+        return len(next(iter(item["batch"].values())))
+
+    def _loop(self):
+        while True:
+            first = self._q.get()
+            if first is None:
+                return
+            group = [first]
+            try:
+                deadline = time.monotonic() + self._window_s
+                sig = self._sig(first["batch"])
+                group_rows = self._rows(first)
+                passed_on = []
+                while group_rows < self._max_batch:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    try:
+                        nxt = self._q.get(timeout=left)
+                    except queue_mod.Empty:
+                        break
+                    if nxt is None:
+                        passed_on.append(None)
+                        break
+                    if (self._sig(nxt["batch"]) == sig and
+                            group_rows + self._rows(nxt) <=
+                            self._max_batch):
+                        group.append(nxt)
+                        group_rows += self._rows(nxt)
+                    else:
+                        passed_on.append(nxt)  # next round
+                for item in passed_on:
+                    self._q.put(item)
+            except Exception as e:  # noqa: BLE001 - never kill the loop
+                for item in group:
+                    item["error"] = e
+                    item["done"].set()
+                continue
+            self._run_group(group)
+
+    def _run_group(self, group):
+        try:
+            rows = [self._rows(i) for i in group]
+            if len(group) == 1:
+                merged = group[0]["batch"]
+            else:
+                names = group[0]["batch"].keys()
+                merged = {n: np.concatenate([i["batch"][n] for i in group])
+                          for n in names}
+            outputs = self._apply(merged)
+            if len(group) == 1:
+                group[0]["out"] = outputs
+            else:
+                lo = 0
+                for item, n in zip(group, rows):
+                    item["out"] = _slice_outputs(outputs, lo, lo + n)
+                    lo += n
+        except Exception as e:  # noqa: BLE001 - delivered per request
+            for item in group:
+                item["error"] = e
+        finally:
+            for item in group:
+                item["done"].set()
+
+    def stop(self):
+        self._stopping = True
+        self._q.put(None)
+        self._thread.join(timeout=10)
+        # a request that raced stop() past the sentinel would wait its
+        # full submit timeout; fail it now instead
+        while True:
+            try:
+                item = self._q.get(False)
+            except queue_mod.Empty:
+                break
+            if item is not None:
+                item["error"] = RuntimeError("server stopped")
+                item["done"].set()
 
 
 class ModelServer(object):
-    """Engine-only HTTP server: ``POST /v1/models/<name>:generate`` and
-    ``GET /healthz`` over ``http.server`` (one thread per connection;
-    requests share the engine's decode steps)."""
+    """HTTP server, TF-Serving REST shaped, over ``http.server`` (one
+    thread per connection): an exported model behind ``:predict`` and
+    the model routes, and/or a :class:`DecodeEngine` behind
+    ``:generate``.
 
-    def __init__(self, engine, name="model", host="127.0.0.1", port=0):
-        self.engine = engine
+    ``model_dir``: an export of ``export.save_model`` (None for an
+    engine-only server). ``batch_window_ms``: 0 serves each
+    ``:predict`` as its own apply call behind one lock; > 0 coalesces
+    concurrent same-signature requests inside the window
+    (:class:`_Batcher`). ``device``: where the export's variables load
+    (:func:`device_info.default_device`: the card unless ``"cpu"``).
+    The engine, when given, is the caller's to stop.
+    """
+
+    def __init__(self, model_dir, name="model", host="127.0.0.1",
+                 port=8501, batch_window_ms=0, engine=None, device=None):
+        from tensorflowonspark_tpu_torch import export as export_lib
+
+        if model_dir is not None:
+            apply_fn, variables, signature = export_lib.load_model(
+                model_dir, device=device)
+        elif engine is None:
+            raise ValueError("ModelServer needs a model_dir, an engine, "
+                             "or both")
+        else:  # engine-only server: :generate is the whole surface
+            apply_fn, variables, signature = None, None, {}
         self.name = str(name)
+        self.signature = signature or {}
+        self._apply_fn = apply_fn
+        self._variables = variables
+        self._lock = threading.Lock()  # one owner: requests serialize
+        self._batcher = (_Batcher(self._apply, batch_window_ms)
+                         if batch_window_ms and apply_fn is not None
+                         else None)
+        self.engine = engine
+        #: ``:predict`` apply calls made (one per batcher group)
+        self.apply_calls = 0
         self._host = host
         self._port = int(port)
         self._httpd = None
         self._thread = None
+
+    def _apply(self, batch):
+        # called by the batcher's thread or under self._lock: serialized
+        self.apply_calls += 1
+        with torch.inference_mode():
+            return self._apply_fn(self._variables, batch)
 
     @property
     def address(self):
         """``(host, port)`` the server listens on (after :meth:`start`)."""
         return self._host, self._port
 
+    def predict(self, payload):
+        """``{"instances"|"inputs": ...}`` -> TF-Serving response dict."""
+        if self._apply_fn is None:
+            raise _BadRequest(
+                "no exported model mounted; this server only serves "
+                ":generate (decode engine)")
+        row_format = "instances" in payload
+        batch = _to_batch(payload, self.signature)
+        if self._batcher is not None:
+            outputs = self._batcher.submit(batch)
+        else:
+            with self._lock:
+                outputs = self._apply(batch)
+        return _to_json(outputs, row_format)
+
+    def status(self):
+        return {"model_version_status": [{
+            "version": "1", "state": "AVAILABLE",
+            "status": {"error_code": "OK", "error_message": ""}}]}
+
+    def metadata(self):
+        from tensorflowonspark_tpu_torch import export as export_lib
+
+        return {"model_spec": {"name": self.name,
+                               "signature_name": "serving_default"},
+                "metadata": {"signature_def": self.signature,
+                             "format": export_lib._FORMAT}}
+
     def generate(self, payload, client_gone=None):
         """``{"prompt": [[...], ...] or [...], "max_new_tokens": N}`` ->
         ``{"tokens": ...}`` (prompt + generated tokens per prompt; a flat
         prompt is answered un-nested). The whole body is vetted before
         any of it is queued, and queued atomically."""
+        if self.engine is None:
+            raise _BadRequest("no decode engine mounted; this server only "
+                              "serves :predict")
         if not isinstance(payload, dict) or "prompt" not in payload:
             raise _BadRequest("request needs a 'prompt' field")
         prompts = payload["prompt"]
@@ -833,7 +1155,10 @@ class ModelServer(object):
         return handle.result(0.1)
 
     def healthz(self):
-        """``(status, body)``: 200 while the engine is alive, else 503."""
+        """``(status, body)``: 200 while the engine (if any) is alive,
+        else 503."""
+        if self.engine is None:
+            return 200, {"status": "ok", "model": self.name}
         stats = self.engine.load_stats()
         ok = stats["alive"]
         stats["status"] = "ok" if ok else "unhealthy"
@@ -873,18 +1198,28 @@ class ModelServer(object):
             def do_GET(self):
                 if self.path == "/healthz":
                     return self._send(*server.healthz())
+                base = "/v1/models/%s" % server.name
+                if self.path == base:
+                    return self._send(200, server.status())
+                if self.path == base + "/metadata":
+                    return self._send(200, server.metadata())
                 return self._send(404, {"error": "not found: %s"
                                         % self.path})
 
             def do_POST(self):
-                if self.path != "/v1/models/%s:generate" % server.name:
+                base = "/v1/models/%s" % server.name
+                routes = {
+                    base + ":predict": server.predict,
+                    base + ":generate": lambda payload: server.generate(
+                        payload, client_gone=self._client_gone)}
+                handler = routes.get(self.path)
+                if handler is None:
                     return self._send(404, {"error": "not found: %s"
                                             % self.path})
                 try:
                     n = int(self.headers.get("Content-Length", "0"))
                     payload = json.loads(self.rfile.read(n) or b"{}")
-                    return self._send(200, server.generate(
-                        payload, client_gone=self._client_gone))
+                    return self._send(200, handler(payload))
                 except (_BadRequest, json.JSONDecodeError) as e:
                     return self._send(400, {"error": str(e)})
                 except QueueFull as e:
@@ -918,7 +1253,8 @@ class ModelServer(object):
         return self._host, self._port
 
     def stop(self):
-        """Stop the HTTP server (the engine is the caller's to stop)."""
+        """Stop the HTTP server and the batching window (the engine is
+        the caller's to stop)."""
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -926,6 +1262,9 @@ class ModelServer(object):
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
+        if self._batcher is not None:
+            self._batcher.stop()
+            self._batcher = None
 
     def __enter__(self):
         self.start()

@@ -27,10 +27,24 @@ Typical ``map_fun`` body::
     for batch in infeed.device_batches(feed_batches, trainer.device):
         state, metrics = trainer.step(state, batch)
 
-Left for a later slice: the dropout key (``dropout_rng``, ROADMAP Queue
-1 item 5, with BERT).
+The mode is the module's ``training`` flag: a step puts the model in
+training mode (the reference's ``train=True`` / ``deterministic=False``).
+``dropout_rng=True`` makes each step's dropout masks a function of the
+step number alone, as the reference's ``fold_in(PRNGKey(0), step)``
+does: the step runs inside ``torch.random.fork_rng`` with the CPU and
+the trainer's card seeded from the step (and, under DDP, the rank, so
+each rank's rows draw their own masks, as the rows of the reference's
+global batch do), so a resumed run draws the same masks and torch's
+own generator is left as it was. JAX's masks are not reproduced
+bitwise (other generator, other bits).
+
+Nothing of the reference is left out: its sharding options
+(``mesh``, ``data_axis``, ``constrain_state``) are DDP's here, and its
+``donate_state`` / ``train_mode_kwarg`` have no counterpart in eager
+PyTorch.
 """
 
+import contextlib
 import logging
 import time
 
@@ -114,16 +128,21 @@ class Trainer(object):
         (``torch.utils.checkpoint``) instead of storing activations.
       device: where the model trains (:func:`device_info.default_device`:
         the card unless ``"cpu"`` is asked for).
+      dropout_rng: seed each step's random draws (dropout masks) from
+        the step number alone, leaving torch's generator as it was;
+        False draws from torch's generator as it stands.
     """
 
     def __init__(self, model, optimizer, loss_fn=softmax_xent,
-                 input_keys=("x",), remat=False, device=None):
+                 input_keys=("x",), remat=False, device=None,
+                 dropout_rng=False):
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.input_keys = tuple(input_keys)
         self.remat = remat
         self.device = device_info.default_device(device)
+        self.dropout_rng = bool(dropout_rng)
         #: what a step calls: the model, under ``_Remat`` and DDP as
         #: configured (built by :meth:`init`)
         self.net = None
@@ -205,8 +224,9 @@ class Trainer(object):
         inputs = self._inputs(batch)
         opt = state["opt_state"]
         opt.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self.net(*inputs), batch)
-        loss.backward()
+        with self._step_rng(state["step"]):
+            loss = self.loss_fn(self.net(*inputs), batch)
+            loss.backward()
         opt.step()
         state["step"] += 1
         loss = loss.detach()
@@ -217,6 +237,27 @@ class Trainer(object):
             dist.all_reduce(loss)  # SUM: gloo has no AVG
             loss /= self.world_size
         return state, {"loss": loss}
+
+    @contextlib.contextmanager
+    def _step_rng(self, step):
+        """With ``dropout_rng``: the step's forward and backward draw from
+        generators seeded with ``step`` (and the rank, under DDP; the
+        CPU's and the trainer's card's), restored afterwards."""
+        if not self.dropout_rng:
+            yield
+            return
+        if self.world_size > 1:
+            import torch.distributed as dist
+
+            step = int(step) * self.world_size + dist.get_rank()
+        cuda = self.device.type == "cuda"
+        devices = [self.device.index or 0] if cuda else []
+        with torch.random.fork_rng(devices=devices):
+            torch.random.default_generator.manual_seed(int(step))
+            if cuda:
+                with torch.cuda.device(devices[0]):
+                    torch.cuda.manual_seed(int(step))
+            yield
 
     def train_loop(self, state, batches, log_every=50, hooks=(),
                    ledger=None):

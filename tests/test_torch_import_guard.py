@@ -1,8 +1,9 @@
 """The port stands alone: it imports nothing of JAX, flax, optax, orbax,
 the JAX package or cloudpickle, and its kernel modules import (and
-serve, train, run a cluster, and fit, checkpoint, export and transform
-through the pipeline on the CPU) without a CUDA compiler — kernels build
-at their first launch on a card."""
+serve, train, run a cluster, fit, checkpoint, export and transform
+through the pipeline, and run the model zoo and ``:predict`` on the CPU)
+without a CUDA compiler — kernels build at their first launch on a
+card."""
 
 import ast
 import os
@@ -21,6 +22,11 @@ PLANE = ("util", "marker", "fs", "frames", "shm", "manager", "tracing",
          "engine/context", "engine/executor", "engine/dataframe",
          "tfrecord", "_tfrecord_native", "dfutil", "checkpoint", "export",
          "pipeline")
+#: the model zoo's modules, the weight bridge and the serving module
+MODELS = ("models/__init__", "models/_layers", "models/lenet",
+          "models/resnet", "models/bert", "models/widedeep",
+          "models/inception", "models/unet", "convert", "serving",
+          "training")
 
 
 def _run(code):
@@ -315,5 +321,110 @@ def test_kernel_module_imports_without_nvcc():
             assert _build.library_path(name).endswith(".so")
         print("OK")
     """)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_model_modules_are_the_ports_own():
+    """Every zoo module exists in the port and imports nothing of JAX,
+    flax, optax or the JAX package (statically)."""
+    for name in MODELS:
+        path = os.path.join(PORT, name + ".py")
+        assert os.path.isfile(path), path
+        bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+        assert not bad, (name, bad)
+
+
+def test_model_zoo_and_predict_run_with_jax_unimportable(tmp_path):
+    """Each family's forward and a training step, and ``:predict`` of an
+    exported BERT through ``ModelServer(model_dir)`` with the batching
+    window, from a process where jax, flax, optax and the JAX package
+    cannot be imported."""
+    res = _run("""
+        import http.client, json, os, sys
+        for name in ("jax", "jaxlib", "flax", "optax",
+                     "tensorflowonspark_tpu"):
+            sys.modules[name] = None  # any import of them now fails
+        import numpy as np
+        import torch
+        from tensorflowonspark_tpu_torch import convert, export, serving
+        from tensorflowonspark_tpu_torch import training
+        from tensorflowonspark_tpu_torch.models import (
+            bert, inception, lenet, resnet, unet, widedeep)
+
+        g = torch.Generator().manual_seed(0)
+        rng = np.random.RandomState(0)
+        img = lambda b, s, c=3: torch.from_numpy(
+            rng.rand(b, s, s, c).astype(np.float32))
+        cases = [
+            (lenet.LeNet(), (img(2, 28, 1),), (2, 10)),
+            (resnet.ResNet(stage_sizes=[1, 1], width=4, num_classes=3),
+             (img(2, 32),), (2, 3)),
+            (unet.UNet(2, features=(4, 8)), (img(2, 16),), (2, 16, 16, 2)),
+            (widedeep.WideDeep(hash_buckets=5, embed_dim=4,
+                               mlp_sizes=(8,)),
+             (torch.rand(2, 13), torch.randint(0, 5, (2, 26))), (2,)),
+            (inception.InceptionV3(num_classes=3), (img(2, 75),), (2, 3)),
+        ]
+        for model, inputs, shape in cases:
+            model.init_weights(g)
+            model.train()
+            out = model(*inputs)
+            out.float().sum().backward()
+            model.eval()
+            with torch.no_grad():
+                out = model(*inputs)
+            assert tuple(out.shape) == shape, (type(model), out.shape)
+            assert torch.isfinite(out).all()
+        # a Wide & Deep training step and its int8 tables
+        wd = widedeep.WideDeep(hash_buckets=5, embed_dim=4, mlp_sizes=(8,))
+        tr = training.Trainer(wd, training.adamw(1e-2),
+                              loss_fn=widedeep.ctr_loss,
+                              input_keys=("dense", "cat"), device="cpu")
+        state = tr.init(torch.Generator().manual_seed(0))
+        batch = {"dense": np.ones((4, 13), np.float32),
+                 "cat": np.zeros((4, 26), np.int64),
+                 "label": np.ones(4, np.int64)}
+        state, m = tr.step(state, batch)
+        slim, quant = widedeep.quantize_embeddings(wd.state_dict())
+        assert quant["deep_embeddings.table"].dtype == torch.int8
+        params, extra = convert.widedeep_to_flax(dict(slim, **quant))
+        assert "quant" in extra
+        # BERT exported and served through the window
+        cfg = bert.bert_tiny()
+        model = bert.BertForQuestionAnswering(cfg).init_weights(g)
+
+        def apply_fn(variables, batch):
+            import torch
+            from tensorflowonspark_tpu_torch.models import bert as b
+            sk = b.BertForQuestionAnswering(b.bert_tiny(),
+                                            device="meta").eval()
+            ids = torch.as_tensor(batch["input_ids"])
+            mask = torch.as_tensor(batch["attention_mask"])
+            s, e = torch.func.functional_call(sk, variables, (ids, mask))
+            return {"start": s, "end": e}
+
+        d = os.path.join(WORK, "bert_export")
+        export.save_model(d, apply_fn, model.state_dict())
+        with serving.ModelServer(d, name="qa", port=0, device="cpu",
+                                 batch_window_ms=5) as srv:
+            conn = http.client.HTTPConnection("127.0.0.1", srv.address[1],
+                                              timeout=120)
+            rows = [{"input_ids": list(range(16)),
+                     "attention_mask": [1] * 16}] * 2
+            conn.request("POST", "/v1/models/qa:predict",
+                         body=json.dumps({"instances": rows}))
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            assert resp.status == 200, body
+            assert len(body["predictions"]) == 2
+            assert len(body["predictions"][0]["start"]) == 16
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "flax", "optax",
+                                         "tensorflowonspark_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("OK")
+    """.replace("WORK", repr(str(tmp_path))))
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")

@@ -208,7 +208,7 @@ def test_model_server_generate_over_http(lm):
     with jserving.DecodeEngine(dec, params, slots=2) as jeng:
         want = [jeng.generate(p, 6, timeout=300) for p in prompts]
     eng = serving.DecodeEngine(_port(params), slots=2, device="cpu")
-    with eng, serving.ModelServer(eng, name="lm") as srv:
+    with eng, serving.ModelServer(None, name="lm", port=0, engine=eng) as srv:
         port = srv.address[1]
         path = "/v1/models/lm:generate"
         assert _post(port, path, {"prompt": prompts,
@@ -234,7 +234,7 @@ def test_queue_full_is_429_over_http(lm):
     _, params = lm
     eng = serving.DecodeEngine(_port(params), slots=1, max_queue=0,
                                device="cpu")
-    with eng, serving.ModelServer(eng, name="lm") as srv:
+    with eng, serving.ModelServer(None, name="lm", port=0, engine=eng) as srv:
         status, body = _post(srv.address[1], "/v1/models/lm:generate",
                              {"prompt": [1, 2], "max_new_tokens": 2})
     assert status == 429 and "queue full" in body["error"]
