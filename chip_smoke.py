@@ -45,7 +45,9 @@ Phases, stopping with a non-zero exit at the first failure:
    ``scaled_dot_product_attention(is_causal=True)`` call and its
    autograd backward (timed here only; the port never calls it), the
    bound at the float32-accurate tensor-core rate and, beside it, at
-   the CUDA-core float32 rate; dQ + dK/dV over SDPA's backward; and the
+   the CUDA-core float32 rate, each time per eager call and as device
+   time through CUDA-graph replays (SDPA's backward in a graph of its
+   own); dQ + dK/dV over SDPA's backward; and the
    registers, spills, shared memory and CTAs per SM at D 64 of the
    three flash kernels and of the tensor-core tiled paged kernel;
 4. serving — a GPT-2-small-shaped ``DecoderLM`` (vocab 50257, hidden
@@ -127,8 +129,10 @@ Phases, stopping with a non-zero exit at the first failure:
    through the kernels and through their plain versions (same loss
    within ``BERT_STEP_RTOL``); the three flash kernels at this shape
    (B 32, S 384, this run's key mask) timed beside their plain
-   versions, SDPA with the same boolean mask, the bytes bound and the
-   products' bounds at the bfloat16, one-pass TF32 and 3xTF32 rates;
+   versions, SDPA with the same boolean mask (per eager call and device
+   time, as in phase 3), the bytes bound and the products' bounds at the
+   bfloat16, one-pass TF32 and 3xTF32 rates; the forward and dK/dV over
+   SDPA's forward and backward;
    then ``Trainer(adamw(3e-5), qa_span_loss)`` 10 steps on seeded
    SQuAD-shaped rows (lengths 192-384 padded to 384, a planted answer
    marker): losses finite and falling, each flash kernel launched 12
@@ -554,6 +558,15 @@ FLASH_CASES = [
 ]
 
 
+def library_text(ft):
+    """``library_ms`` of a flash row, with its device time, for a log
+    line."""
+    if ft["library_ms"] is None:
+        return "-"
+    return "{:.4f} ms ({:.4f} ms device time)".format(
+        ft["library_ms"], ft["library_device_ms"])
+
+
 def flash_error(torch, name, got, want, dtype, pv):
     """``(max |got - want|, largest |got - want| over its limit)`` over
     the entries where ``want`` is finite (see FLASH_F32_RTOL); ``pv`` is
@@ -623,8 +636,15 @@ def flash_timing(torch, fa, dev, b=TRAIN_BATCH, s=TRAIN_SEQ,
     """Each kernel's time beside its plain version, the SDPA yardstick
     and the bounds: at the training shape (a) by default (causal,
     float32), or at ``b`` x ``s`` in ``dtype`` under the key ``mask``
-    (not causal; SDPA takes the same boolean mask)."""
+    (not causal; SDPA takes the same boolean mask). Kernel and SDPA
+    times per eager call (``ms``, ``library_ms``: the host's work
+    included, as a caller sees it) and device times through CUDA-graph
+    replays (``device_ms``, ``library_device_ms``: no host work between
+    the kernels)."""
     import torch.nn.functional as F
+
+    from tensorflowonspark_tpu_torch.profile_flash import backward_graph_ms
+    from tensorflowonspark_tpu_torch.profile_paged import graph_ms
 
     rng = np.random.RandomState(SEED + 5)
     n, d = HEADS, HIDDEN // HEADS
@@ -660,6 +680,12 @@ def flash_timing(torch, fa, dev, b=TRAIN_BATCH, s=TRAIN_SEQ,
         "dq": lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
                                           retain_graph=True),
     }
+    library_device = {
+        "fwd": lambda: graph_ms(torch, library["fwd"], [()]),
+        "dq": lambda: backward_graph_ms(
+            torch, lambda *x: F.scaled_dot_product_attention(*x, **sdpa),
+            (qt, kt, vt), dout_t),
+    }
     # what each kernel must do on these inputs: every (query, key) pair
     # it attends (causal: key <= query; masked: every query against this
     # run's live keys, since a padded query still gets an output and a
@@ -688,9 +714,12 @@ def flash_timing(torch, fa, dev, b=TRAIN_BATCH, s=TRAIN_SEQ,
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         res[name] = {
             "ms": time_ms(torch, kern, [()], reps=20),
+            "device_ms": graph_ms(torch, kern, [()]),
             "plain_ms": time_ms(torch, plain, [()], reps=5 if causal else 3),
             "library_ms": (time_ms(torch, library[name], [()], reps=20)
                            if name in library else None),
+            "library_device_ms": (library_device[name]()
+                                  if name in library else None),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_simt_ms": max(flops / FP32_FLOPS * 1e3, t_bytes),
@@ -1978,16 +2007,23 @@ def bert_legs(torch, dev, here):
     flash_t = flash_timing(torch, fa, dev, BERT_BATCH, BERT_SEQ, "bfloat16",
                            mask)
     for name, ft in flash_t.items():
-        log("flash {:<3} at BERT B32 S384 bf16 key mask: kernel {:.4f} ms  "
-            "plain {:.4f} ms  sdpa {}  bound {:.4f} ms ({}; bytes {:.4f} ms, "
-            "bf16 {:.4f} ms, one-pass TF32 {:.4f} ms, 3xTF32 {:.4f} ms; "
-            "{:.3g} flop over {} live keys, {:.3g} B)".format(
-                name, ft["ms"], ft["plain_ms"],
-                "-" if ft["library_ms"] is None
-                else "{:.4f} ms".format(ft["library_ms"]),
-                ft["bound_ms"], ft["bound_by"], ft["bytes_ms"],
-                ft["ops_bf16_ms"], ft["ops_tf32_ms"], ft["ops_3xtf32_ms"],
-                ft["flops"], int(mask.sum().item()), ft["bytes"]))
+        log("flash {:<3} at BERT B32 S384 bf16 key mask: kernel {:.4f} ms "
+            "({:.4f} ms device time)  plain {:.4f} ms  sdpa {}  bound {:.4f} "
+            "ms ({}; bytes {:.4f} ms, bf16 {:.4f} ms, one-pass TF32 {:.4f} "
+            "ms, 3xTF32 {:.4f} ms; {:.3g} flop over {} live keys, {:.3g} B)"
+            .format(name, ft["ms"], ft["device_ms"], ft["plain_ms"],
+                    library_text(ft), ft["bound_ms"], ft["bound_by"],
+                    ft["bytes_ms"], ft["ops_bf16_ms"], ft["ops_tf32_ms"],
+                    ft["ops_3xtf32_ms"], ft["flops"], int(mask.sum().item()),
+                    ft["bytes"]))
+    for name, lib in (("fwd", "fwd"), ("dkv", "dq")):
+        ft, lt = flash_t[name], flash_t[lib]
+        log("flash {:<3} at BERT's shape vs SDPA{}: {:.3f}x per eager call, "
+            "{:.3f}x device time; {:.1f}% of the bound".format(
+                name, "" if name == "fwd" else " backward (dq+dk+dv)",
+                ft["ms"] / lt["library_ms"],
+                ft["device_ms"] / lt["library_device_ms"],
+                100.0 * ft["bound_ms"] / ft["device_ms"]))
 
     # THE main path of the BERT leg: counts at zero just before
     _sync(torch, dev)
@@ -2372,7 +2408,8 @@ def main():
         "{} {:.2f}s".format(k, v["seconds"]) for k, v in report.items())))
     for name, rep in report.items():
         for line in rep["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Performance Loss" in line):
                 log("  {}: {}".format(name, line.strip()))
 
     max_err = kernel_cases(torch, pa, dev)
@@ -2408,14 +2445,12 @@ def main():
     flash_err = flash_cases(torch, fa, dev)
     flash_t = flash_timing(torch, fa, dev)
     for name, ft in flash_t.items():
-        log("flash {:<3} at B8 S1024 causal fp32: kernel {:.4f} ms  plain "
-            "{:.4f} ms  sdpa {}  bound {:.4f} ms ({}, 3xTF32 at 165 TFLOP/s; "
-            "{:.4f} ms at 67; {:.3g} flop, {:.3g} B)".format(
-                name, ft["ms"], ft["plain_ms"],
-                "-" if ft["library_ms"] is None
-                else "{:.4f} ms".format(ft["library_ms"]),
-                ft["bound_ms"], ft["bound_by"], ft["bound_simt_ms"],
-                ft["flops"], ft["bytes"]))
+        log("flash {:<3} at B8 S1024 causal fp32: kernel {:.4f} ms ({:.4f} "
+            "ms device time)  plain {:.4f} ms  sdpa {}  bound {:.4f} ms ({}, "
+            "3xTF32 at 165 TFLOP/s; {:.4f} ms at 67; {:.3g} flop, {:.3g} B)"
+            .format(name, ft["ms"], ft["device_ms"], ft["plain_ms"],
+                    library_text(ft), ft["bound_ms"], ft["bound_by"],
+                    ft["bound_simt_ms"], ft["flops"], ft["bytes"]))
     bwd_ms = flash_t["dq"]["ms"] + flash_t["dkv"]["ms"]
     log("flash backward at B8 S1024 causal fp32: dQ + dK/dV {:.4f} ms, "
         "SDPA backward {:.4f} ms, ratio {:.3f}".format(
@@ -2523,11 +2558,13 @@ def main():
             "max_abs_err": flash_err["a"][name],
             "max_abs_err_by_case": {c: e[name] for c, e in flash_err.items()},
             "ms": ft["ms"],
+            "device_ms": ft["device_ms"],
             "plain_ms": ft["plain_ms"],
             "bound_ms": ft["bound_ms"],
             "bound_by": ft["bound_by"],
             "bound_simt_ms": ft["bound_simt_ms"],
             "library_ms": ft["library_ms"],
+            "library_device_ms": ft["library_device_ms"],
             "library": note})
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)

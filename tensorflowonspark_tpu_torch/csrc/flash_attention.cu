@@ -43,7 +43,12 @@
 // FMAs, or 165 TFLOP/s of float32-accurate tensor-core math, over 3.35
 // TB/s), so the bound is OPERATIONS.
 //
-// All three run their seven products on the tensor cores,
+// Two designs. The float32 kernels and dQ in both dtypes: mma.sync with
+// the 3xTF32 split, below. The bfloat16 forward and dK/dV (BERT-base's
+// attention: B 32, S 384, N 12, D 64, a key mask): wgmma with TMA, at the
+// end of this header.
+//
+// mma.sync: all three run their seven products on the tensor cores,
 // float32-accurate:
 //   forward: S = scale (Q K^T), out = P V;
 //   backward: S^T/S = scale (Q K^T), dP = dO V^T, dQ = scale (dS K),
@@ -106,6 +111,54 @@
 // - Under causal masking a warp also skips the 8-column score tiles that
 //   lie wholly on the masked side of its own 16 rows.
 //
+// wgmma (flash_fwd_wgmma_kernel, flash_dkv_wgmma_kernel: tfos_flash_fwd
+// and tfos_flash_dkv with bf16 = 1; they replace the same _fwd_kernel and
+// _dkv_kernel). At BERT's shape they do ~140 and ~185 flop per byte they
+// must move (10.6 and 21 GFLOP on a 73%-live key mask, against 76 and
+// 115 MB), under the bfloat16 ridge (989 TFLOP/s over 3.35 TB/s, ~295):
+// the bound is BYTES, 0.023 and 0.034 ms. On mma.sync they ran at a tenth
+// of it: every bfloat16 product went through TF32 m16n8k8 at half the
+// bfloat16 rate, B operands were read down columns 2 bytes at a time,
+// and dK/dV split its float32 P^T and dS^T into two TF32 passes. Here:
+// - wgmma.mma_async m64nNk16 with bfloat16 operands and a float32
+//   accumulator, a warpgroup per 64 rows (query rows in the forward, key
+//   rows in dK/dV). S = Q K^T, S^T = K Q^T and dP^T = V dO^T read both
+//   operands from shared memory (K-major); P (forward), P^T and dS^T
+//   (dK/dV) go from the accumulator into bfloat16 A registers, never
+//   through shared memory; the B of P V, P^T dO and dS^T Q is the staged
+//   V, dO or Q tile read MN-major through the transpose bit, with no
+//   transposed copy (wgmma_bf16.cuh has the layouts).
+// - Tiles are copied by TMA (a tensor map per operand and launch, its
+//   encoder reached through cudaGetDriverEntryPoint) into the swizzled
+//   layout wgmma's descriptors read, rows past S zero-filled; a ring of
+//   two stages completes on mbarriers. There is no producer warp: the
+//   last warp to finish with a stage refills it (ring_free), because a
+//   fifth warp per warpgroup fits fewer CTAs into each quadrant of the
+//   register file. Key-mask, lse and delta slices ride with their
+//   tiles.
+// - The grid runs a head's row tiles side by side (blockIdx.x the tile),
+//   so the CTAs that read one head's K/V (forward) or Q/dO (dK/dV) run
+//   together and share it in L2 (with the head fastest they ran a wave
+//   apart, and slower). A CTA is one warpgroup: two sharing a ring ran
+//   slower at BERT's shape than four one-warpgroup CTAs per SM (PERF.md
+//   has the A/B). The forward's online softmax stays in registers (quad
+//   shuffles, as in mma.sync's C layout, which the accumulator repeats
+//   per 8 columns); P is rounded to bfloat16 for P V, as the reference
+//   casts it.
+// - dK/dV keeps at most 168 registers a thread so three CTAs share an SM.
+//   P^T and dS^T are split into bfloat16 hi + lo A operands and dV, dK
+//   take two wgmma passes each (lo first): one rounding to bfloat16 misses
+//   the bfloat16 limits (tests/test_torch_flash_attention.py emulates
+//   both), and two passes cost what one TF32 pass did. A CTA none of
+//   whose keys is live writes zeros and loads nothing.
+// - Tiles with no mask to apply (no key masked or past S_k, and wholly
+//   on the visible side of the diagonal) skip the per-entry mask and take
+//   2^(s scale log2 e - m) in one FMA; a masked entry is -inf and 2^-inf
+//   is 0, so the -inf rules above hold without selects on P.
+// - Kept: one writer per output tile (deterministic, no atomics), CTAs
+//   with the most tiles first, KV tiles past the diagonal skipped under
+//   causal, a fully masked row gives out 0 and lse -inf.
+//
 // More than 48 KB of dynamic shared memory is requested through
 // cudaFuncSetAttribute before each launch. Plain C interface, loaded
 // through ctypes by ops/_build.py; each entry point returns the CUDA
@@ -122,6 +175,8 @@
 // split, mma_tf32, the swizzled fragment loads, mma3_rows, rows_by_rows,
 // a_by_cols, c_to_a and the cp.async copies
 #include "tc_common.cuh"
+// TMA, mbarriers, wgmma descriptors and wgmma.mma_async for bfloat16
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -605,6 +660,553 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// -- the bfloat16 forward and dK/dV: wgmma, TMA and mbarriers --
+
+constexpr int WG_THREADS = 128;   // a CTA: one wgmma warpgroup
+constexpr int WG_WARPS = WG_THREADS / 32;
+constexpr int WG_ROWS = 64;       // its rows: queries (forward), keys (dK/dV)
+constexpr int WG_FWD_KEYS = 64;   // keys of a forward tile
+constexpr int WG_FWD_STAGES = 2;  // the forward's K/V ring
+constexpr int WG_DKV_STAGES = 2;  // dK/dV's Q/dO ring
+constexpr float LN2 = 0.6931471805599453f;
+
+// queries of a dK/dV tile: at D 128 the two 64-column accumulators leave
+// room for 32-wide score tiles only
+template <int D>
+__host__ __device__ constexpr int wg_dkv_queries() { return D > 64 ? 32 : 64; }
+
+// Shared memory of the forward: the resident Q tile, a ring of K and V
+// tiles with the key-mask slice of each (times log2 e) and whether it is
+// all 0, the full barriers, the resident tile's barrier and the ring's
+// free counts. Every tile is a multiple of 1024 bytes, so each starts on
+// the swizzle's period; the base is rounded up to 1024 inside the kernel.
+template <int D>
+struct FwdLayout {
+  static constexpr int STAGES = WG_FWD_STAGES;
+  using QT = Tile<D, WG_ROWS>;
+  using KT = Tile<D, WG_FWD_KEYS>;
+  static constexpr size_t Q = 0;
+  static constexpr size_t K = Q + QT::BYTES;
+  static constexpr size_t V = K + STAGES * KT::BYTES;
+  static constexpr size_t BIAS = V + STAGES * KT::BYTES;
+  static constexpr size_t BAR = BIAS + STAGES * WG_FWD_KEYS * 4;
+  static constexpr size_t CNT = BAR + (STAGES + 1) * 8;
+  static constexpr size_t NOMASK = CNT + STAGES * 4;
+  static constexpr size_t BYTES = NOMASK + STAGES * 4 + 1024;
+};
+
+// Shared memory of dK/dV: the resident K and V tiles, a ring of Q and dO
+// tiles with their lse (times log2 e, 0 where not finite) and delta
+// slices, the barriers and free counts
+template <int D>
+struct DkvLayout {
+  static constexpr int STAGES = WG_DKV_STAGES;
+  static constexpr int BQ = wg_dkv_queries<D>();
+  using KT = Tile<D, WG_ROWS>;
+  using QT = Tile<D, BQ>;
+  static constexpr size_t K = 0;
+  static constexpr size_t V = K + KT::BYTES;
+  static constexpr size_t Q = V + KT::BYTES;
+  static constexpr size_t DO = Q + STAGES * QT::BYTES;
+  static constexpr size_t LSE = DO + STAGES * QT::BYTES;
+  static constexpr size_t DELTA = LSE + STAGES * BQ * 4;
+  static constexpr size_t BAR = DELTA + STAGES * BQ * 4;
+  static constexpr size_t CNT = BAR + (STAGES + 1) * 8;
+  static constexpr size_t BYTES = CNT + STAGES * 4 + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// Set up the ring: full[s] completes on two arrives, one with the TMA
+// bytes of stage s and one when its float slices are written (the copy
+// starts first, so the slices' global loads overlap it); ``once`` on
+// the resident tiles' bytes; cnt[s] counts the warps done with stage s.
+template <int STAGES>
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* once,
+                                          int* cnt) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 2);
+      cnt[s] = 0;
+    }
+    mbar_init(once, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// Warp-wide: this warp is done with stage s (its wgmmas have completed,
+// its reads of the stage's float slices are done). The CTA's last warp
+// to say so calls ``refill()`` with the whole warp, which starts the
+// next tile's copies (lane 0 arrives on full[s] with their bytes),
+// writes its float slices and arrives again. No producer warp: a fifth
+// warp would leave room in the register file for fewer CTAs per SM (each
+// of an SM's four quadrants holds a quarter of its warps' registers).
+template <typename F>
+__device__ __forceinline__ void ring_free(int* cnt, int s, F&& refill) {
+  __syncwarp();
+  int last = 0;
+  if (threadIdx.x % 32 == 0) {
+    __threadfence_block();
+    last = atomicAdd(&cnt[s], 1) == WG_WARPS - 1;
+    if (last) cnt[s] = 0;
+    __threadfence_block();
+  }
+  if (__shfl_sync(FULL, last, 0)) {
+    __syncwarp();
+    refill();
+  }
+}
+
+// The forward at bfloat16. A wgmma warpgroup owns 64 query rows (warp
+// w rows 16 w .. 16 w + 15) and streams K/V tiles through its ring.
+// Per KV tile: S = Q K^T in D / 16 wgmmas (both operands K-major in
+// shared memory), the online softmax in registers on the accumulator (a
+// row lies on the 4 lanes of a quad), P rounded to bfloat16 straight
+// into A registers, O += P V in 4 wgmmas (V through the transpose bit).
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap omap,
+                       const float* __restrict__ bias,
+                       float* __restrict__ lse, int S_q, int S_k, int N,
+                       int causal, float scale) {
+  using L = FwdLayout<D>;
+  using KT = typename L::KT;
+  constexpr int BM = WG_ROWS;
+  constexpr int BN = WG_FWD_KEYS;
+  constexpr int NT = BN / 8;               // 8-key column blocks of S
+  constexpr int STAGES = L::STAGES;
+  static_assert(STAGES <= WG_WARPS, "a warp fills each first stage");
+  extern __shared__ __align__(1024) unsigned char wg_fwd_smem[];
+  unsigned char* sm = align_1k(wg_fwd_smem);
+  unsigned char* Qs = sm + L::Q;
+  float* Bs = reinterpret_cast<float*>(sm + L::BIAS);         // [STAGES][BN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);  // [STAGES]
+  uint64_t* qbar = full + STAGES;
+  int* cnt = reinterpret_cast<int*>(sm + L::CNT);             // [STAGES]
+
+  // a head's query tiles are neighbours in the launch (x fastest), so
+  // they read its K/V from L2 together; most KV tiles first
+  const int bh = blockIdx.y;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int b = bh / N;
+  const int h = bh % N;
+  const int i0 = qt * BM;
+  const int n_all = (S_k + BN - 1) / BN;
+  const int n_kv = causal ? min(n_all, (i0 + BM - 1) / BN + 1) : n_all;
+  const float* brow = bias ? bias + (size_t)b * S_k : nullptr;
+  int* nomask = reinterpret_cast<int*>(sm + L::NOMASK);       // [STAGES]
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // warp-wide: the key-mask slice of KV tile kt into stage s (times
+  // log2 e; -inf past S_k), and whether all of it is 0
+  auto mask_slice = [&](int s, int kt) {
+    bool zero = true;
+    for (int i = lane; i < BN; i += 32) {
+      const int col = kt * BN + i;
+      const float x = col < S_k
+                          ? (brow != nullptr ? brow[col] * LOG2E : 0.f)
+                          : -INFINITY;
+      Bs[s * BN + i] = x;
+      zero = zero && x == 0.f;
+    }
+    zero = __all_sync(FULL, zero);
+    if (lane == 0) nomask[s] = zero;
+  };
+  // lane 0: start the K/V copies of tile kt into stage s
+  auto load_kv = [&](int s, int kt) {
+    mbar_arrive_tx(&full[s], 2 * KT::BYTES);
+    tma_tile<D, BN>(sm + L::K + s * KT::BYTES, &kmap, &full[s], kt * BN, b,
+                    h);
+    tma_tile<D, BN>(sm + L::V + s * KT::BYTES, &vmap, &full[s], kt * BN, b,
+                    h);
+  };
+  ring_init<STAGES>(full, qbar, cnt);
+  if (threadIdx.x == 0) {
+    mbar_arrive_tx(qbar, L::QT::BYTES);
+    tma_tile<D, BM>(Qs, &qmap, qbar, i0, b, h);
+    for (int s = 0; s < STAGES && s < n_kv; ++s) load_kv(s, s);
+  }
+  if (warp < STAGES && warp < n_kv) {
+    mask_slice(warp, warp);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&full[warp]);
+  }
+
+  // rows g and g + 8 of warp w's 16; scores in log2 units (s scale
+  // log2 e + bias log2 e); m the running row max, shared by the row's
+  // quad; l this lane's share of the row sum
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wrow = i0 + 16 * warp;         // the warp's first row
+  const int row0 = wrow + g;
+  const float scale2 = scale * LOG2E;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const unsigned char* Kt = sm + L::K + s * KT::BYTES;
+    const unsigned char* Vt = sm + L::V + s * KT::BYTES;
+    const float* bs = Bs + s * BN;
+    float sc[BN / 2];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)        // S = Q K^T
+      wgmma_ss<BN>(sc, desc_k<D, BM>(Qs, ks), desc_k<D, BN>(Kt, ks), ks > 0);
+    wg_commit();
+    wg_wait<0>();
+    pin(sc);
+    // an unmasked tile (no key masked or past S_k, none past the warp's
+    // rows under causal) takes the row max on the raw products and folds
+    // the scale into 2^(s scale log2 e - m); others mask each entry to
+    // -inf
+    const bool plain = nomask[s] && scale2 > 0.f &&
+                       (!causal || kt * BN + BN - 1 <= wrow);
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (plain) {
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j)
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+      mx[0] *= scale2;
+      mx[1] *= scale2;
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 bb =
+            *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + 8 * (e >> 1);
+          const int col = kt * BN + 8 * j + 2 * t + (e & 1);
+          const bool ok = !causal || col <= row;
+          const float sv =
+              ok ? fmaf(sc[4 * j + e], scale2, (e & 1) ? bb.y : bb.x)
+                 : -INFINITY;
+          sc[4 * j + e] = sv;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+        }
+      }
+    }
+    float safe[2], corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      safe[i] = (m_new == -INFINITY) ? 0.f : m_new;
+      corr[i] = ex2(m[i] - safe[i]);       // 0 while m is -inf
+      m[i] = m_new;
+      l[i] *= corr[i];
+    }
+    // P = 2^(s - m) (2^-inf is 0: a masked entry gives 0): l sums the
+    // float32 P, P V takes it in bfloat16, as the reference casts P to
+    // V's dtype
+    if (plain) {
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) {
+        const int i = (j >> 1) & 1;
+        sc[j] = ex2(fmaf(sc[j], scale2, -safe[i]));
+        l[i] += sc[j];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) {
+        const int i = (j >> 1) & 1;
+        sc[j] = ex2(sc[j] - safe[i]);
+        l[i] += sc[j];
+      }
+    }
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int k = 0; k < BN / 16; ++k) acc_to_a(sc, k, pa[k]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[4 * n] *= corr[0];
+      acc[4 * n + 1] *= corr[0];
+      acc[4 * n + 2] *= corr[1];
+      acc[4 * n + 3] *= corr[1];
+    }
+    pin(acc);
+    pin(pa);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < BN / 16; ++k)          // O += P V
+      wgmma_rs<D>(acc, pa[k], desc_mn<D, BN>(Vt, k), 1);
+    wg_commit();
+    wg_wait<0>();
+    pin(acc);
+    ring_free(cnt, s, [&] {                    // refill with tile kt + STAGES
+      const int nk = kt + STAGES;
+      if (nk >= n_kv) return;
+      if (lane == 0) load_kv(s, nk);
+      mask_slice(s, nk);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[s]);
+    });
+  }
+
+  // O / l in bfloat16 goes where Q was (every wgmma reading it has
+  // completed), in the tile's swizzled layout, and one TMA store writes
+  // the CTA's rows that exist
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
+    const float ls = (l[i] == 0.f) ? 1.f : l[i];
+    const float inv = 1.f / ls;
+    const int r = row0 - i0 + 8 * i;      // the row in the tile
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int off = tile_offset<D, BM>(r, 8 * n + 2 * t);
+      *reinterpret_cast<__nv_bfloat162*>(Qs + off) = __floats2bfloat162_rn(
+          acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+    }
+    if (t == 0 && i0 + r < S_q)
+      lse[(size_t)bh * S_q + i0 + r] =
+          (l[i] == 0.f) ? -INFINITY : m[i] * LN2 + logf(ls);
+  }
+  fence_async_smem();
+  __syncthreads();
+  if (threadIdx.x == 0) tma_store_tile<D, BM>(Qs, &omap, i0, b, h);
+}
+
+// dK/dV at bfloat16. A wgmma warpgroup owns 64 key rows and streams Q/dO
+// tiles with their lse and delta slices through its ring. Per Q
+// tile: S^T = K Q^T and dP^T = V dO^T (K-major operands in shared
+// memory), P^T and dS^T = P^T (dP^T - delta) in registers, each split
+// into bfloat16 hi + lo A operands (one rounding to bfloat16 misses the
+// bfloat16 limits: tests/test_torch_flash_attention.py), then dV += P^T
+// dO and dK += dS^T Q, lo pass first, with dO and Q through the
+// transpose bit. At most 168 registers a thread (no spills at D <= 64):
+// then three warps fit one quadrant of the register file, so two CTAs
+// share an SM (at 172, the compiler's own count, one did).
+template <int D>
+__global__ void __maxnreg__(168)
+flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap dmap,
+                       const __grid_constant__ CUtensorMap dkmap,
+                       const __grid_constant__ CUtensorMap dvmap,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, int S_q, int S_k,
+                       int N, int causal, float scale) {
+  using L = DkvLayout<D>;
+  using QT = typename L::QT;
+  constexpr int BK = WG_ROWS;
+  constexpr int BQ = L::BQ;
+  constexpr int NT = BQ / 8;               // 8-query column blocks of S^T
+  constexpr int KS = BQ / 16;              // k steps of dV and dK
+  constexpr int STAGES = L::STAGES;
+  static_assert(STAGES <= WG_WARPS, "a warp fills each first stage");
+  extern __shared__ __align__(1024) unsigned char wg_dkv_smem[];
+  unsigned char* sm = align_1k(wg_dkv_smem);
+  float* Ls = reinterpret_cast<float*>(sm + L::LSE);          // [STAGES][BQ]
+  float* Es = reinterpret_cast<float*>(sm + L::DELTA);        // [STAGES][BQ]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);  // [STAGES]
+  uint64_t* kvbar = full + STAGES;
+  int* cnt = reinterpret_cast<int*>(sm + L::CNT);             // [STAGES]
+
+  // a head's key tiles are neighbours in the launch (x fastest), so they
+  // read its Q/dO from L2 together; low tiles see the most queries
+  const int bh = blockIdx.y;
+  const int kt = blockIdx.x;
+  const int b = bh / N;
+  const int h = bh % N;
+  const int j0 = kt * BK;
+  const int n_q = (S_q + BQ - 1) / BQ;
+  // causal: query tiles that end before this KV tile starts see none of it
+  const int qt0 = causal ? j0 / BQ : 0;
+  const float* lrow = lse + (size_t)bh * S_q;
+  const float* drow = delta + (size_t)bh * S_q;
+  // the lse (times log2 e, 0 where not finite) and delta slices of Q
+  // tile qt
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // warp-wide
+  auto row_slices = [&](int s, int qt) {
+    for (int i = lane; i < BQ; i += 32) {
+      const int r = qt * BQ + i;
+      const float x = r < S_q ? lrow[r] : 0.f;
+      Ls[s * BQ + i] = isfinite(x) ? x * LOG2E : 0.f;
+      Es[s * BQ + i] = r < S_q ? drow[r] : 0.f;
+    }
+  };
+  auto load_q = [&](int s, int qt) {
+    mbar_arrive_tx(&full[s], 2 * QT::BYTES);
+    tma_tile<D, BQ>(sm + L::Q + s * QT::BYTES, &qmap, &full[s], qt * BQ, b,
+                    h);
+    tma_tile<D, BQ>(sm + L::DO + s * QT::BYTES, &dmap, &full[s], qt * BQ, b,
+                    h);
+  };
+  // key rows g and g + 8 of warp w's 16
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const unsigned char* Ks = sm + L::K;
+  const unsigned char* Vs = sm + L::V;
+  const float scale2 = scale * LOG2E;
+  int key[2];
+  bool kin[2];
+  float bk[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key[i] = j0 + 16 * warp + g + 8 * i;
+    kin[i] = key[i] < S_k;
+    bk[i] = (bias != nullptr && kin[i])
+                ? bias[(size_t)b * S_k + key[i]] * LOG2E
+                : 0.f;
+  }
+  // a CTA none of whose keys is live (masked or past S_k) has dK = dV = 0
+  // and loads nothing; one whose keys are all live and unmasked skips the
+  // mask on the Q tiles that need none either
+  const bool live = __syncthreads_or((kin[0] && bk[0] != -INFINITY) ||
+                                     (kin[1] && bk[1] != -INFINITY));
+  const bool nomask_keys = __syncthreads_and(kin[0] && kin[1] &&
+                                             bk[0] == 0.f && bk[1] == 0.f);
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  ring_init<STAGES>(full, kvbar, cnt);
+  if (live && threadIdx.x == 0) {
+    mbar_arrive_tx(kvbar, 2 * L::KT::BYTES);
+    tma_tile<D, BK>(sm + L::K, &kmap, kvbar, j0, b, h);
+    tma_tile<D, BK>(sm + L::V, &vmap, kvbar, j0, b, h);
+    for (int s = 0; s < STAGES && qt0 + s < n_q; ++s) load_q(s, qt0 + s);
+  }
+  if (live && warp < STAGES && qt0 + warp < n_q) {
+    row_slices(warp, qt0 + warp);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&full[warp]);
+  }
+  if (live) mbar_wait(kvbar, 0);
+
+  for (int qt = live ? qt0 : n_q; qt < n_q; ++qt) {
+    const int it = qt - qt0;
+    const int s = it % STAGES;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    const unsigned char* Qt = sm + L::Q + s * QT::BYTES;
+    const unsigned char* dOt = sm + L::DO + s * QT::BYTES;
+    const float* Lt = Ls + s * BQ;
+    const float* Et = Es + s * BQ;
+    const int i0 = qt * BQ;
+    float st[BQ / 2], dpt[BQ / 2];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)        // S^T = K Q^T
+      wgmma_ss<BQ>(st, desc_k<D, BK>(Ks, ks), desc_k<D, BQ>(Qt, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)        // dP^T = V dO^T
+      wgmma_ss<BQ>(dpt, desc_k<D, BK>(Vs, ks), desc_k<D, BQ>(dOt, ks),
+                   ks > 0);
+    wg_commit();
+    wg_wait<0>();
+    pin(st);
+    pin(dpt);
+    // P^T in st, dS^T = P^T (dP^T - delta) in dpt (2^-inf is 0: a masked
+    // key gives 0); an unmasked tile (every key live and unmasked, every
+    // query before S_q and, under causal, after the CTA's last key) skips
+    // the mask
+    const bool plain = nomask_keys && i0 + BQ <= S_q &&
+                       (!causal || j0 + BK - 1 <= i0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 lv = *reinterpret_cast<const float2*>(Lt + 8 * j + 2 * t);
+      const float2 ev = *reinterpret_cast<const float2*>(Et + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ki = e >> 1;
+        const int query = i0 + 8 * j + 2 * t + (e & 1);
+        const float L2 = (e & 1) ? lv.y : lv.x;
+        float p;
+        if (plain) {
+          p = ex2(fmaf(st[4 * j + e], scale2, -L2));
+        } else {
+          const bool ok =
+              query < S_q && kin[ki] && (!causal || key[ki] <= query);
+          p = ok ? ex2(fmaf(st[4 * j + e], scale2, bk[ki]) - L2) : 0.f;
+        }
+        st[4 * j + e] = p;
+        dpt[4 * j + e] = p * (dpt[4 * j + e] - ((e & 1) ? ev.y : ev.x));
+      }
+    }
+    uint32_t ph[KS][4], pl[KS][4];
+#pragma unroll
+    for (int k = 0; k < KS; ++k) acc_to_a2(st, k, ph[k], pl[k]);
+    pin(dv_acc);
+    pin(ph);
+    pin(pl);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < KS; ++k)               // dV += P^T dO, lo then hi
+      wgmma_rs<D>(dv_acc, pl[k], desc_mn<D, BQ>(dOt, k), 1);
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      wgmma_rs<D>(dv_acc, ph[k], desc_mn<D, BQ>(dOt, k), 1);
+    wg_commit();
+    uint32_t dh[KS][4], dl[KS][4];
+#pragma unroll
+    for (int k = 0; k < KS; ++k) acc_to_a2(dpt, k, dh[k], dl[k]);
+    pin(dk_acc);
+    pin(dh);
+    pin(dl);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < KS; ++k)               // dK += dS^T Q, lo then hi
+      wgmma_rs<D>(dk_acc, dl[k], desc_mn<D, BQ>(Qt, k), 1);
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      wgmma_rs<D>(dk_acc, dh[k], desc_mn<D, BQ>(Qt, k), 1);
+    wg_commit();
+    wg_wait<0>();
+    pin(dv_acc);
+    pin(dk_acc);
+    ring_free(cnt, s, [&] {                    // refill with tile qt + STAGES
+      const int nq = qt + STAGES;
+      if (nq >= n_q) return;
+      if (lane == 0) load_q(s, nq);
+      row_slices(s, nq);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[s]);
+    });
+  }
+
+  // dK and dV in bfloat16 go where K and V were (every wgmma reading
+  // them has completed), in the tiles' swizzled layout, and two TMA
+  // stores write the CTA's keys that exist
+  unsigned char* dKs = sm + L::K;          // K's place
+  unsigned char* dVs = sm + L::V;          // V's place
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = key[i] - j0;             // the row in the tile
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int off = tile_offset<D, BK>(r, 8 * n + 2 * t);
+      *reinterpret_cast<__nv_bfloat162*>(dKs + off) = __floats2bfloat162_rn(
+          dk_acc[4 * n + 2 * i] * scale, dk_acc[4 * n + 2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dVs + off) = __floats2bfloat162_rn(
+          dv_acc[4 * n + 2 * i], dv_acc[4 * n + 2 * i + 1]);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    tma_store_tile<D, BK>(dKs, &dkmap, j0, b, h);
+    tma_store_tile<D, BK>(dVs, &dvmap, j0, b, h);
+  }
+}
+
 template <typename K>
 int prepare(K kern, size_t smem) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -659,17 +1261,60 @@ int dkv(const void* q, const void* k, const void* v, const float* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the bfloat16 forward: tensor maps of q (64-row boxes) and k, v (64-key
+// boxes), passed by value in the kernel's parameters
+template <int D>
+int fwd_wg(const void* q, const void* k, const void* v, const float* bias,
+           void* out, float* lse, int B, int S_q, int S_k, int N, int causal,
+           float scale, cudaStream_t st) {
+  CUtensorMap qm, km, vm, om;
+  if (int e = tile_map<D, WG_ROWS>(&qm, q, B, S_q, N)) return e;
+  if (int e = tile_map<D, WG_FWD_KEYS>(&km, k, B, S_k, N)) return e;
+  if (int e = tile_map<D, WG_FWD_KEYS>(&vm, v, B, S_k, N)) return e;
+  if (int e = tile_map<D, WG_ROWS>(&om, out, B, S_q, N)) return e;
+  const size_t smem = FwdLayout<D>::BYTES;
+  auto kern = flash_fwd_wgmma_kernel<D>;
+  if (int e = prepare(kern, smem)) return e;
+  const dim3 grid((S_q + WG_ROWS - 1) / WG_ROWS, B * N);
+  kern<<<grid, WG_THREADS, smem, st>>>(
+      qm, km, vm, om, bias, lse, S_q, S_k, N, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dK/dV at bfloat16: tensor maps of k, v (64-key boxes) and q, dO
+template <int D>
+int dkv_wg(const void* q, const void* k, const void* v, const float* bias,
+           const void* dout, const float* lse, const float* delta,
+           void* dk_out, void* dv_out, int B, int S_q, int S_k, int N,
+           int causal, float scale, cudaStream_t st) {
+  constexpr int BQ = wg_dkv_queries<D>();
+  CUtensorMap qm, km, vm, dm, dkm, dvm;
+  if (int e = tile_map<D, BQ>(&qm, q, B, S_q, N)) return e;
+  if (int e = tile_map<D, WG_ROWS>(&km, k, B, S_k, N)) return e;
+  if (int e = tile_map<D, WG_ROWS>(&vm, v, B, S_k, N)) return e;
+  if (int e = tile_map<D, BQ>(&dm, dout, B, S_q, N)) return e;
+  if (int e = tile_map<D, WG_ROWS>(&dkm, dk_out, B, S_k, N)) return e;
+  if (int e = tile_map<D, WG_ROWS>(&dvm, dv_out, B, S_k, N)) return e;
+  const size_t smem = DkvLayout<D>::BYTES;
+  auto kern = flash_dkv_wgmma_kernel<D>;
+  if (int e = prepare(kern, smem)) return e;
+  const dim3 grid((S_k + WG_ROWS - 1) / WG_ROWS, B * N);
+  kern<<<grid, WG_THREADS, smem, st>>>(
+      qm, km, vm, dm, dkm, dvm, bias, lse, delta, S_q, S_k, N, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out = {CTAs per SM, registers per thread, local (spill) bytes per
 // thread, dynamic shared bytes} of one kernel instantiation
 template <typename K>
-int budget(K kern, size_t smem, int* out) {
+int budget(K kern, size_t smem, int* out, int threads = BWD_THREADS) {
   if (int e = prepare(kern, smem)) return e;
   cudaFuncAttributes a;
   if (cudaError_t e = cudaFuncGetAttributes(&a, kern))
     return static_cast<int>(e);
   int ctas = 0;
   if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &ctas, kern, BWD_THREADS, smem))
+          &ctas, kern, threads, smem))
     return static_cast<int>(e);
   out[0] = ctas;
   out[1] = a.numRegs;
@@ -683,6 +1328,12 @@ int fwd_budget(int* out) {
   return budget(flash_fwd_kernel<T, D>, fwd_smem<T, D>(), out);
 }
 
+template <int D>
+int fwd_wg_budget(int* out) {
+  return budget(flash_fwd_wgmma_kernel<D>, FwdLayout<D>::BYTES, out,
+                WG_THREADS);
+}
+
 template <typename T, int D>
 int dq_budget(int* out) {
   return budget(flash_dq_kernel<T, D>, dq_smem<T, D>(), out);
@@ -691,6 +1342,12 @@ int dq_budget(int* out) {
 template <typename T, int D>
 int dkv_budget(int* out) {
   return budget(flash_dkv_kernel<T, D>, dkv_smem<T, D>(), out);
+}
+
+template <int D>
+int dkv_wg_budget(int* out) {
+  return budget(flash_dkv_wgmma_kernel<D>, DkvLayout<D>::BYTES, out,
+                WG_THREADS);
 }
 
 // head_dim and dtype dispatch: D is a template parameter of every kernel
@@ -714,6 +1371,23 @@ int dkv_budget(int* out) {
     return static_cast<int>(cudaErrorInvalidValue);                          \
   } while (0)
 
+// the same, where bfloat16 takes the wgmma kernel FN_WG<D> and float32
+// the tensor-core mma.sync kernel FN<float, D>
+#define TFOS_FLASH_DISPATCH_WG(FN, FN_WG, BF16, D, ...)                     \
+  do {                                                                       \
+    switch (D) {                                                             \
+      case 16:                                                               \
+        return BF16 ? FN_WG<16>(__VA_ARGS__) : FN<float, 16>(__VA_ARGS__);   \
+      case 32:                                                               \
+        return BF16 ? FN_WG<32>(__VA_ARGS__) : FN<float, 32>(__VA_ARGS__);   \
+      case 64:                                                               \
+        return BF16 ? FN_WG<64>(__VA_ARGS__) : FN<float, 64>(__VA_ARGS__);   \
+      case 128:                                                              \
+        return BF16 ? FN_WG<128>(__VA_ARGS__) : FN<float, 128>(__VA_ARGS__); \
+    }                                                                        \
+    return static_cast<int>(cudaErrorInvalidValue);                          \
+  } while (0)
+
 }  // namespace
 
 // Launch on ``stream``; each returns 0 when the launch was accepted, else
@@ -725,8 +1399,8 @@ extern "C" int tfos_flash_fwd(const void* q, const void* k, const void* v,
                               float scale, int bf16, void* stream) {
   if (B <= 0 || S_q <= 0 || S_k <= 0 || N <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  TFOS_FLASH_DISPATCH(fwd, bf16, D, q, k, v, bias, out, lse, B, S_q, S_k, N,
-                      causal, scale, st);
+  TFOS_FLASH_DISPATCH_WG(fwd, fwd_wg, bf16, D, q, k, v, bias, out, lse, B,
+                         S_q, S_k, N, causal, scale, st);
 }
 
 extern "C" int tfos_flash_dq(const void* q, const void* k, const void* v,
@@ -748,8 +1422,9 @@ extern "C" int tfos_flash_dkv(const void* q, const void* k, const void* v,
                               int bf16, void* stream) {
   if (B <= 0 || S_q <= 0 || S_k <= 0 || N <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  TFOS_FLASH_DISPATCH(dkv, bf16, D, q, k, v, bias, dout, lse, delta, dk_out,
-                      dv_out, B, S_q, S_k, N, causal, scale, st);
+  TFOS_FLASH_DISPATCH_WG(dkv, dkv_wg, bf16, D, q, k, v, bias, dout, lse,
+                         delta, dk_out, dv_out, B, S_q, S_k, N, causal, scale,
+                         st);
 }
 
 // The resource budget of the dQ (``kernel`` 0), dK/dV (1) or forward (2)
@@ -757,6 +1432,7 @@ extern "C" int tfos_flash_dkv(const void* q, const void* k, const void* v,
 // thread, local (spill) bytes per thread, dynamic shared-memory bytes}.
 extern "C" int tfos_flash_budget(int kernel, int D, int bf16, int* out) {
   if (kernel == 0) TFOS_FLASH_DISPATCH(dq_budget, bf16, D, out);
-  if (kernel == 1) TFOS_FLASH_DISPATCH(dkv_budget, bf16, D, out);
-  TFOS_FLASH_DISPATCH(fwd_budget, bf16, D, out);
+  if (kernel == 1)
+    TFOS_FLASH_DISPATCH_WG(dkv_budget, dkv_wg_budget, bf16, D, out);
+  TFOS_FLASH_DISPATCH_WG(fwd_budget, fwd_wg_budget, bf16, D, out);
 }

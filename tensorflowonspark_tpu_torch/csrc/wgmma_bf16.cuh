@@ -1,0 +1,478 @@
+// Hopper building blocks for the bfloat16 flash kernels
+// (flash_attention.cu): TMA tile copies into the swizzled layouts that
+// wgmma reads, mbarrier completion, wgmma matrix descriptors, and
+// wgmma.mma_async m64nNk16 with bfloat16 operands and a float32
+// accumulator, A from shared memory or from registers. Everything here
+// has internal linkage; the host part (tensor-map encoding) reaches the
+// driver through cudaGetDriverEntryPoint, so nothing new is linked.
+//
+// Tiles. A tile is ROWS rows of a [B, S, N, D] bfloat16 tensor at one
+// (batch, head), copied by TMA with a 2 D-byte (D <= 64) or 128-byte
+// (D 128: two column halves of 64) row and the swizzle of that width:
+// the 16-byte chunk at byte a of the tile moves to chunk (a / 16) ^
+// (a / 128 % 8) within its 128-byte line (64- and 32-byte rows XOR fewer
+// bits: Swizzle<3|2|1, 4, 3> in CUTLASS's terms). Each column half is
+// its own ROWS x RB block, aligned to 1024 bytes so the swizzle's phase
+// starts at row 0. wgmma reads such a tile two ways (PTX ISA, "matrix
+// descriptor", canonical layouts, T = 8 elements = 16 bytes):
+//   K-major (desc_k): rows are M or N, the D columns the contraction:
+//     ((8, m), (T, 2)) : ((RB / 16 T, SBO), (1, T)); SBO = 8 RB, the
+//     leading offset unused; the k step of 16 columns moves the start
+//     address 32 bytes along the row (or to the next column half).
+//   MN-major (desc_mn, the transpose bit): rows are the contraction, the
+//     D columns N: ((T, RB / 16, m), (8, k)) : ((1, T, LBO), (RB / 16 T,
+//     SBO)); LBO = the next column half (D 128), SBO = 8 RB; the k step
+//     of 16 rows moves the start address 16 RB bytes.
+// So one staged tile is read both as S = Q K^T's K-major B and as the
+// MN-major B of P V, dS^T Q or P^T dO, with no transposed copy.
+//
+// Fragments (lane = 4 g + t of warp w of the warpgroup): the m64nN
+// float32 accumulator d[4 j + 2 h + e] is row 16 w + g + 8 h, column
+// 8 j + 2 t + e, the mma.sync C layout per 8 columns; the register A
+// operand of m64k16 is a0 = (row g, columns 2t, 2t + 1), a1 = (g + 8,
+// 2t..), a2 = (g, 2t + 8..), a3 = (g + 8, 2t + 8..) of the warp's 16
+// rows, the lower column in the low half. So columns 16 k .. 16 k + 15
+// of an accumulator are the A operand of the k-th step of the next
+// product, with no data moved between lanes (acc_to_a).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- mbarrier --
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// make the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// arrive, and expect ``bytes`` more of TMA copies in this phase
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// -- TMA --
+
+// copy the box at coordinates (c0, c1, c2, c3), innermost first, of the
+// tensor ``map`` describes into ``dst``; completes on ``bar`` as bytes
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// copy ``src`` into the box at coordinates (c0, c1, c2, c3) of the tensor
+// ``map`` describes; elements outside the tensor are not written. The
+// caller orders its shared-memory writes before it (fence_async_smem and
+// a barrier), commits the group and waits for it to read ``src``.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// make this thread's shared-memory writes visible to TMA (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until every committed TMA store has read its shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// -- tile geometry and wgmma descriptors --
+
+// A bfloat16 tile of ROWS rows of D columns, as TMA stages it
+template <int D, int ROWS>
+struct Tile {
+  static constexpr int COLS = D < 64 ? D : 64;      // columns of a half
+  static constexpr int RB = 2 * COLS;               // bytes of a half-row
+  static constexpr int HALVES = D / COLS;           // 1, or 2 at D 128
+  static constexpr int HALF_BYTES = ROWS * RB;
+  static constexpr int BYTES = HALVES * HALF_BYTES;
+  // the descriptor's swizzle field: 1 = 128-byte, 2 = 64, 3 = 32
+  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : (RB == 64 ? 2 : 3);
+};
+
+// byte offset of element (r, c) of a Tile<D, ROWS>, as TMA lays it out:
+// the 16-byte chunk at byte a of a column half moves to chunk
+// (a / 16) ^ (a / 128 % (RB / 16)); c even gives a 4-byte pair
+template <int D, int ROWS>
+__device__ __forceinline__ int tile_offset(int r, int c) {
+  using G = Tile<D, ROWS>;
+  constexpr int M = G::RB / 16 - 1;
+  const int a = r * G::RB + (c % G::COLS) * 2;
+  return (c / G::COLS) * G::HALF_BYTES + (a ^ (((a >> 7) & M) << 4));
+}
+
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// K-major descriptor of k step ``ks`` (columns 16 ks .. 16 ks + 15)
+template <int D, int ROWS>
+__device__ __forceinline__ uint64_t desc_k(const void* tile, int ks) {
+  using G = Tile<D, ROWS>;
+  const int col = 16 * ks;
+  const uint32_t addr = smem_u32(tile) + (col / G::COLS) * G::HALF_BYTES +
+                        (col % G::COLS) * 2;
+  return gmma_desc(addr, 16, 8 * G::RB, G::LAYOUT);
+}
+
+// MN-major descriptor of k step ``kk`` (rows 16 kk .. 16 kk + 15, every
+// column)
+template <int D, int ROWS>
+__device__ __forceinline__ uint64_t desc_mn(const void* tile, int kk) {
+  using G = Tile<D, ROWS>;
+  return gmma_desc(smem_u32(tile) + 16 * kk * G::RB, G::HALF_BYTES,
+                   8 * G::RB, G::LAYOUT);
+}
+
+// -- wgmma --
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin registers that a wgmma reads or writes asynchronously in program
+// order: before wg_fence, so the code that set them is not moved past
+// it; after wg_wait, so no read of an accumulator moves above it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// d (+)= A B, M 64, N columns, k 16: A and B from shared memory through
+// K-major descriptors; scale_d 0 overwrites d
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d);
+// d (+)= A B with A from registers, B through an MN-major descriptor
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// -- fragments --
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x = hi + lo in bfloat16, |x - hi - lo| <= 2^-16 |x|: hi rounds x to
+// nearest, lo rounds the exact float32 remainder
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// columns 16 k .. 16 k + 15 of accumulator c as the k-th A operand,
+// rounded to bfloat16
+template <int NC>
+__device__ __forceinline__ void acc_to_a(const float (&c)[NC], int k,
+                                         uint32_t (&a)[4]) {
+  const float* x = c + 8 * k;
+  a[0] = pack_bf16(x[0], x[1]);
+  a[1] = pack_bf16(x[2], x[3]);
+  a[2] = pack_bf16(x[4], x[5]);
+  a[3] = pack_bf16(x[6], x[7]);
+}
+
+// the same, as a bfloat16 hi + lo pair of A operands
+template <int NC>
+__device__ __forceinline__ void acc_to_a2(const float (&c)[NC], int k,
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  const float* x = c + 8 * k;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_bf16(x[2 * i], x[2 * i + 1], hi[i], lo[i]);
+}
+
+// -- host: tensor maps --
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime loaded (null if the
+// driver has none)
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a [B, S, N, D] bfloat16 tensor whose box is one Tile<D,
+// ROWS> column half: ROWS rows of one (batch, head), zero past S.
+// Returns 0 or a CUDA error.
+template <int D, int ROWS>
+int tile_map(CUtensorMap* map, const void* base, int B, int S, int N) {
+  using G = Tile<D, ROWS>;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2,
+                                 (cuuint64_t)S * N * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)G::COLS, 1, (cuuint32_t)ROWS, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz =
+      G::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                   : (G::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                  : CU_TENSOR_MAP_SWIZZLE_32B);
+  const CUresult r =
+      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// store a Tile<D, ROWS> from ``src`` into rows r0 .. r0 + ROWS - 1 at
+// (b, h), rows past S left alone; then commit and wait until it is read
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_store_tile(const void* src,
+                                               const CUtensorMap* map,
+                                               int r0, int b, int h) {
+  using G = Tile<D, ROWS>;
+#pragma unroll
+  for (int i = 0; i < G::HALVES; ++i)
+    tma_store(map, static_cast<const unsigned char*>(src) + i * G::HALF_BYTES,
+              i * G::COLS, h, r0, b);
+  bulk_commit();
+  bulk_wait_read();
+}
+
+// start the TMA copies of one tile (every column half) of rows r0 ..
+// r0 + ROWS - 1 at (b, h); completes on ``bar``
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int r0, int b,
+                                         int h) {
+  using G = Tile<D, ROWS>;
+#pragma unroll
+  for (int i = 0; i < G::HALVES; ++i)
+    tma_load(static_cast<unsigned char*>(dst) + i * G::HALF_BYTES, map, bar,
+             i * G::COLS, h, r0, b);
+}
+
+}  // namespace

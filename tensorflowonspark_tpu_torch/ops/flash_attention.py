@@ -22,10 +22,13 @@ Two formulations share that contract:
   bound through ``ctypes``: ``tfos_flash_fwd`` replaces the Pallas
   ``_fwd_kernel``, ``tfos_flash_dq`` ``_dq_kernel``, ``tfos_flash_dkv``
   ``_dkv_kernel``. Bound on the H100: OPERATIONS at the training shape.
-  All three run their products on the tensor cores (``mma.sync`` TF32)
-  with the 3xTF32 split, so they stay float32-accurate (cuBLAS's TF32
-  stays off), and stream their tiles through a two-stage ``cp.async``
-  ring; the forward keeps its online softmax in registers. The design is
+  At float32 (and dQ in both dtypes) they run their products on the
+  tensor cores (``mma.sync`` TF32) with the 3xTF32 split, so they stay
+  float32-accurate (cuBLAS's TF32 stays off), and stream their tiles
+  through a two-stage ``cp.async`` ring. At bfloat16 the forward and
+  dK/dV run on Hopper's ``wgmma`` with tiles copied by TMA (BERT's
+  path; bound by BYTES there), P^T and dS^T split into bfloat16 hi + lo.
+  The forward keeps its online softmax in registers. The designs are
   in the source's header and the measured share of the bound in
   PERF.md. Head dims 16/32/64/128, float32 or bfloat16
   inputs with float32 statistics and accumulators.
@@ -226,7 +229,7 @@ def _check_inputs(q, k, v, bias, causal, extra=()):
 
 def _check_aligned(tensors, names):
     _check(all(t.data_ptr() % 16 == 0 for t in tensors),
-           names + " must start on a 16-byte boundary (cp.async)")
+           names + " must start on a 16-byte boundary (cp.async, TMA)")
 
 
 def _check_bwd_inputs(q, k, v, bias, dout, lse, delta, causal):

@@ -1,0 +1,205 @@
+#!/usr/bin/env python3
+"""Time the bfloat16 flash kernels at BERT-base's attention shape, and
+A/B kernel sources within one run.
+
+    python3 -m tensorflowonspark_tpu_torch.profile_flash \
+        [--variant NAME=DIR ...] [--reps 20]
+
+BERT-base's attention as ``chip_smoke.py`` phase 8 trains it: B 32,
+S 384, 12 heads of 64, bfloat16, a key mask with 192-384 live keys a
+row (seeded), not causal. For the forward (``tfos_flash_fwd``) and
+dK/dV (``tfos_flash_dkv``): device time per call through CUDA-graph
+replays and time per eager call (host work included). ``--variant
+NAME=DIR`` builds ``DIR/flash_attention.cu`` (with the headers beside
+it) with the package's nvcc flags and times it in turns with the
+package's own source — package, variants, variants reversed, package —
+each number the mean of its source's turns, so that two designs are
+compared on one card in one call. Each variant's largest difference
+from the package source's outputs (out, lse, dK, dV) is printed beside
+its times (a variant that drops work, to see what that work costs,
+differs). Last, ``scaled_dot_product_attention`` with the same boolean
+mask, its forward and its backward timed the same two ways (the
+yardstick ``chip_smoke.py`` uses; the port never calls it). Needs one
+card.
+"""
+
+import argparse
+import hashlib
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+BATCH, SEQ, HEADS, HEAD_DIM = 32, 384, 12, 64
+SEED = 1234
+
+
+def _build_variant(name, src_dir):
+    """Compile ``src_dir/flash_attention.cu`` into the build directory
+    and load it with the package library's C signatures."""
+    from tensorflowonspark_tpu_torch.ops import _build
+
+    src = os.path.join(src_dir, "flash_attention.cu")
+    h = hashlib.sha256()
+    for p in _build._sources(src):
+        with open(p, "rb") as f:
+            h.update(f.read())
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    lib = os.path.join(_build.BUILD_DIR, "libflash_attention-{}-{}.so".format(
+        name, h.hexdigest()[:16]))
+    if not os.path.exists(lib):
+        subprocess.run([_build.nvcc_path()] + list(_build.NVCC_FLAGS)
+                       + ["-o", lib, src], check=True)
+    return _build.bind(lib, "flash_attention")
+
+
+def _inputs(torch, dev):
+    """q, k, v, dO (bfloat16) and the key mask of BERT's shape."""
+    rng = np.random.RandomState(SEED)
+
+    def t():
+        x = rng.randn(BATCH, SEQ, HEADS, HEAD_DIM).astype(np.float32)
+        return torch.from_numpy(x).to(dev, torch.bfloat16)
+
+    q, k, v, dout = t(), t(), t(), t()
+    lens = torch.from_numpy(rng.randint(SEQ // 2, SEQ + 1, BATCH))
+    mask = (torch.arange(SEQ)[None, :] < lens[:, None]).to(dev)
+    return q, k, v, dout, mask
+
+
+def eager_ms(torch, fn, reps):
+    """``(ms per call, host ms per call)`` of calls issued from the host
+    one by one: the first from CUDA events around them, the second the
+    host's own time to issue them (the wrapper's work, as long as the
+    card's queue has room)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host
+
+
+def backward_graph_ms(torch, forward, inputs, dout, reps=20):
+    """Device milliseconds of autograd's backward of ``forward(*inputs)``
+    alone, by CUDA-graph replays: the forward captured in one graph and
+    the backward of its output in a second, on the same capture stream
+    (as ``torch.cuda.make_graphed_callables`` does), then only the second
+    replayed. Autograd runs a backward on the streams its graph was built
+    on, so the inputs are taken as fresh leaves (views of the same
+    memory) that no graph built outside the capture has touched."""
+    inputs = tuple(x.detach().requires_grad_() for x in inputs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            torch.autograd.grad(forward(*inputs), inputs, dout)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    fwd, bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(fwd):
+        out = forward(*inputs)
+    with torch.cuda.graph(bwd, pool=fwd.pool()):
+        torch.autograd.grad(out, inputs, dout, retain_graph=True)
+    fwd.replay()
+    bwd.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        bwd.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--variant", action="append", default=[],
+                    metavar="NAME=DIR")
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    from tensorflowonspark_tpu_torch import device_info
+    from tensorflowonspark_tpu_torch.ops import _build
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.profile_paged import graph_ms
+
+    dev = device_info.default_device()
+    libs = {"package": _build.load("flash_attention")}
+    for spec in args.variant:
+        name, src_dir = spec.split("=", 1)
+        libs[name] = _build_variant(name, src_dir)
+    order = list(libs) + list(libs)[::-1]
+    print(device_info.describe().splitlines()[0])
+    q, k, v, dout, mask = _inputs(torch, dev)
+    bias = fa._mask_to_bias(mask)
+    scale = HEAD_DIM ** -0.5
+    out, lse = fa._kernel_fwd(q, k, v, bias, False, scale)
+    delta = fa._delta(out, dout)
+    kernels = {
+        "fwd": lambda: fa._kernel_fwd(q, k, v, bias, False, scale),
+        "dkv": lambda: fa._kernel_dkv(q, k, v, bias, dout, lse, delta, False,
+                                      scale),
+    }
+    times = {n: {kind: ([], [], []) for kind in kernels} for n in libs}
+    diffs, want = {}, None
+    for name in order:
+        with _build._lock:
+            _build._libs["flash_attention"] = libs[name]
+        got = kernels["fwd"]() + kernels["dkv"]()
+        if want is None:
+            want = got
+        diffs[name] = max((g.float() - w.float()).nan_to_num().abs().max()
+                          .item() for g, w in zip(got, want))
+        for kind, fn in kernels.items():
+            device, eager, host = times[name][kind]
+            device.append(graph_ms(torch, fn, [()], args.reps))
+            ms, host_ms = eager_ms(torch, fn, args.reps)
+            eager.append(ms)
+            host.append(host_ms)
+    with _build._lock:
+        _build._libs["flash_attention"] = libs["package"]
+    for name in libs:
+        print("{:<12} {}  (max diff from package {:.1e})".format(
+            name, "  ".join(
+                "{} {:.4f} ms device, {:.4f} eager, {:.4f} host".format(
+                    kind, *(float(np.mean(x)) for x in t))
+                for kind, t in times[name].items()), diffs[name]))
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    am = mask[:, None, None, :]
+    dt = dout.transpose(1, 2).contiguous()
+
+    def sdpa(q_, k_, v_):
+        return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=am)
+
+    fwd_device = graph_ms(torch, sdpa, [(qt, kt, vt)], args.reps)
+    bwd_device = backward_graph_ms(torch, sdpa, (qt, kt, vt), dt, args.reps)
+    fwd_eager = eager_ms(torch, lambda: sdpa(qt, kt, vt), args.reps)
+    so = sdpa(qt, kt, vt)
+    bwd_eager = eager_ms(torch, lambda: torch.autograd.grad(
+        so, (qt, kt, vt), dt, retain_graph=True), args.reps)
+    print("sdpa         fwd {:.4f} ms device, {:.4f} eager, {:.4f} host  bwd "
+          "{:.4f} ms device, {:.4f} eager, {:.4f} host".format(
+              fwd_device, *fwd_eager, bwd_device, *bwd_eager))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -36,12 +36,14 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
 
 
 def test_package_sources_share_the_tensor_core_header():
-    """Both kernel sources include ``tc_common.cuh``, and every C symbol
-    the wrappers bind is listed for its source."""
+    """Both kernel sources include ``tc_common.cuh`` (the flash source
+    also ``wgmma_bf16.cuh``, its bfloat16 kernels' building blocks), and
+    every C symbol the wrappers bind is listed for its source."""
+    extra = {"paged_attention": [], "flash_attention": ["wgmma_bf16.cuh"]}
     for name in ("paged_attention", "flash_attention"):
         deps = [os.path.basename(p) for p in
                 _build._sources(_build.source(name))]
-        assert deps == [name + ".cu", "tc_common.cuh"]
+        assert deps == [name + ".cu", "tc_common.cuh"] + extra[name]
     assert set(_build.KERNELS["paged_attention"]) == {
         "tfos_paged_attention_tiled", "tfos_paged_attention_simt",
         "tfos_paged_attention_split", "tfos_paged_budget"}

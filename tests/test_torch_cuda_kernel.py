@@ -9,7 +9,9 @@ NaN-poisoned dead pool rows and the tiled kernel's register budget; and
 the three flash-attention kernels (forward, dQ, dK/dV), with
 the two-stage copy ring run through many tiles and a ragged last one,
 32-row tiles at D 128, the backward's determinism (no atomics) and the
-register budgets at D 64. ``chip_smoke.py`` runs the
+register budgets at D 64; the bfloat16 forward and dK/dV (``wgmma`` +
+TMA) at every head dim, ragged and rectangular, with a key mask, at
+BERT-base's attention shape, and bitwise deterministic. ``chip_smoke.py`` runs the
 same comparisons at the main paths' widths; these are the small-shape
 versions for ``pytest -m cuda``."""
 
@@ -315,9 +317,20 @@ FLASH_CASES = [
     (1, 520, 520, 2, 64, True, False, torch.bfloat16),
     # D 128: 32-row streamed tiles; rectangular, key mask, ragged S_k
     (2, 256, 200, 2, 128, False, True, torch.float32),
+    # the bfloat16 wgmma forward and dK/dV at every head dim: 32-, 64-
+    # and 128-byte swizzled tiles (D 128 in two column halves), ragged
+    # S, rectangular S_q != S_k, a key mask with a fully masked batch row
+    (2, 80, 80, 2, 16, False, True, torch.bfloat16),
+    (2, 72, 136, 3, 32, False, True, torch.bfloat16),
+    (2, 200, 100, 2, 128, False, True, torch.bfloat16),
+    (1, 150, 150, 2, 128, True, False, torch.bfloat16),
+    # BERT-base's attention at a reduced batch: S 384, 12 heads of 64
+    (2, 384, 384, 12, 64, False, True, torch.bfloat16),
 ]
 FLASH_IDS = ["causal-ragged", "rect-mask", "bf16", "d128",
-             "bf16-many-tiles", "d128-rect-mask"]
+             "bf16-many-tiles", "d128-rect-mask", "bf16-d16-mask",
+             "bf16-d32-rect-mask", "bf16-d128-rect-mask",
+             "bf16-d128-causal-ragged", "bf16-bert-b2"]
 
 
 def _assert_close(got, want, pv=None):
@@ -398,6 +411,25 @@ def test_flash_backward_is_deterministic(cuda):
     second = (fa._kernel_dq(q, k, v, bias, dout, lse, delta, True, scale),
               *fa._kernel_dkv(q, k, v, bias, dout, lse, delta, True, scale))
     torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_dkv_is_deterministic(cuda):
+    """The bfloat16 dK/dV kernel keeps one writer per output tile (a
+    warpgroup owns 64 keys and loops over every Q tile itself): two
+    launches on the same inputs are bitwise equal, the forward's too."""
+    case = (2, 384, 384, 12, 64, False, True, torch.bfloat16)
+    q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
+    scale = 64 ** -0.5
+    out, lse = fa._kernel_fwd(q, k, v, bias, False, scale)
+    out2, lse2 = fa._kernel_fwd(q, k, v, bias, False, scale)
+    delta = fa._delta(out, dout, g_lse)
+    first = fa._kernel_dkv(q, k, v, bias, dout, lse, delta, False, scale)
+    second = fa._kernel_dkv(q, k, v, bias, dout, lse, delta, False, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 

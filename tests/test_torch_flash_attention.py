@@ -12,7 +12,11 @@ also held against torch autograd of the plain forward at 1e-5.
 
 The backward kernels multiply on the tensor cores in TF32 with the
 3xTF32 split; an emulation of that arithmetic here pins why three
-passes (and not one) keep them within the card's float32 limits.
+passes (and not one) keep them within the card's float32 limits. The
+bfloat16 forward and dK/dV kernels multiply bfloat16 operands on
+``wgmma``: the emulation pins that the forward's products are the
+one-pass TF32 products in another order, and why dK/dV splits P^T and
+dS^T into bfloat16 hi + lo (one rounding misses the bfloat16 limits).
 """
 
 import jax
@@ -207,21 +211,41 @@ def _mm(a, b, a_lo=True, b_lo=True):
     return out + ah @ bh
 
 
+def _bf16_parts(x, parts):
+    """``x`` as bfloat16 A operands in the order the dK/dV kernel issues
+    them: ``[hi]`` (one rounding) or ``[lo, hi]`` with ``hi`` = x rounded
+    to bfloat16 and ``lo`` the float32 remainder rounded again."""
+    hi = x.to(torch.bfloat16).float()
+    return [hi] if parts == 1 else [(x - hi).to(torch.bfloat16).float(), hi]
+
+
 def _emulated_bwd(q, k, v, dout, lse, delta, causal, scale, passes=3,
-                  input_lo=True):
+                  input_lo=True, bias=None, pds_parts=0):
     """dQ, dK, dV (``[B, S, N, D]``) with the kernels' formulas and
     products: ``passes`` 3 is 3xTF32 (``input_lo`` False drops the lo
     parts of q, k, v, dO, as the bfloat16 kernels do; P and dS are always
-    split), 1 a single TF32 pass everywhere."""
+    split), 1 a single TF32 pass everywhere. ``pds_parts`` 1 or 2 takes
+    dK and dV as the bfloat16 ``wgmma`` kernel does: P^T and dS^T rounded
+    to bfloat16 (1) or split into bfloat16 lo and hi (2, lo first), each
+    part times the bfloat16 input exact in float32, summed in float32.
+    ``bias``: the ``[B, S_k]`` key-mask row."""
 
     def mm(a, b, a_input, b_input):
         if passes == 1:
             return _mm(a, b, False, False)
         return _mm(a, b, input_lo or not a_input, input_lo or not b_input)
 
+    def mm_parts(a, b):
+        out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+        for part in _bf16_parts(a, pds_parts):
+            out = out + part @ b
+        return out
+
     b, s_q, n, _ = q.shape
     qf, kf, vf, of = (x.permute(0, 2, 1, 3) for x in (q, k, v, dout))
     s = mm(qf, kf.transpose(-1, -2), True, True) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :]
     if causal:
         s = s.masked_fill(~fa._tril(s_q, k.shape[1], q.device),
                           float("-inf"))
@@ -232,8 +256,12 @@ def _emulated_bwd(q, k, v, dout, lse, delta, causal, scale, passes=3,
     dp = mm(of, vf.transpose(-1, -2), True, True)
     ds = p * (dp - delta.reshape(b, n, s_q, 1))
     dq = mm(ds, kf, False, True) * scale
-    dk = mm(ds.transpose(-1, -2), qf, False, True) * scale
-    dv = mm(p.transpose(-1, -2), of, False, True)
+    if pds_parts:
+        dk = mm_parts(ds.transpose(-1, -2), qf) * scale
+        dv = mm_parts(p.transpose(-1, -2), of)
+    else:
+        dk = mm(ds.transpose(-1, -2), qf, False, True) * scale
+        dv = mm(p.transpose(-1, -2), of, False, True)
     return tuple(x.permute(0, 2, 1, 3) for x in (dq, dk, dv))
 
 
@@ -280,6 +308,49 @@ def test_bfloat16_inputs_drop_their_lo_passes_exactly():
     for x, y in zip(_emulated_bwd(*args, passes=3),
                     _emulated_bwd(*args, passes=3, input_lo=False)):
         assert torch.equal(x, y)
+
+
+#: the card's bfloat16 limit for a gradient, element by element:
+#: |kernel - plain| <= 2^-7 |plain| + 1e-3 max |plain|
+#: (tests/test_torch_cuda_kernel.py, chip_smoke.py)
+BF16_RTOL, BF16_FLOOR = 2.0 ** -7, 1e-3
+
+
+def _bf16_limit_ratio(got, want):
+    """max over entries of |got - want| over the bfloat16 limit, both
+    rounded to bfloat16 as the kernel and the plain version store them."""
+    g, w = got.to(torch.bfloat16).float(), want.float()
+    limit = BF16_RTOL * w.abs() + BF16_FLOOR * w.abs().max()
+    return ((g - w).abs() / limit).max().item()
+
+
+def test_dkv_bf16_hi_lo_split_holds_bf16_limits_one_rounding_does_not():
+    """The bfloat16 dK/dV kernel feeds P^T and dS^T to ``wgmma`` as
+    bfloat16 A operands. Rounded once (FlashAttention-2's choice), dK or
+    dV misses the card's bfloat16 limit at a BERT-like shape (B 2, S 384,
+    D 64, key mask with a fully masked batch row); split into bfloat16
+    hi + lo (two passes, |x - hi - lo| <= 2^-16 |x|) both stay within
+    three quarters of it, as far under as two independent roundings of
+    float32 results allow. So the kernel pays for the second pass."""
+    b, s, n, d = 2, 384, 4, 64
+    q, k, v, mask, g, _ = _inputs(b, s, s, n, d, True, 0)
+    q, k, v, g = (_t(x).to(torch.bfloat16) for x in (q, k, v, g))
+    bias = fa._mask_to_bias(_t(mask))
+    scale = d ** -0.5
+    out, lse = fa._reference_lse(q, k, v, False, scale, bias)
+    lse = lse.reshape(b * n, s)
+    delta = fa._delta(out, g)
+    want = fa._dkv_plain(q, k, v, bias, g, lse, delta, False, scale)
+    args = tuple(x.float() for x in (q, k, v, g)) + (lse, delta, False,
+                                                      scale)
+    _, *one = _emulated_bwd(*args, bias=bias, pds_parts=1)
+    _, *two = _emulated_bwd(*args, bias=bias, pds_parts=2)
+    assert max(_bf16_limit_ratio(x, w) for x, w in zip(one, want)) > 1.0
+    for x, w in zip(two, want):
+        assert torch.isfinite(x).all()
+        assert _bf16_limit_ratio(x, w) <= 0.75
+    # the fully masked batch row's keys get no gradient
+    assert (two[0][-1] == 0).all() and (two[1][-1] == 0).all()
 
 
 # -- the forward kernel's tensor-core arithmetic, emulated --------------
@@ -349,3 +420,37 @@ def test_forward_bfloat16_p_and_v_need_one_pass_exactly():
     p = torch.rand(64, 64).to(torch.bfloat16).float()
     assert torch.equal(_tf32(p), p)
     assert torch.equal(out1, out3) and torch.equal(lse1, lse3)
+
+
+def test_forward_bf16_products_equal_one_pass_tf32_up_to_order():
+    """The bfloat16 forward multiplies on ``wgmma`` (bfloat16 x bfloat16
+    into float32, 16 columns of the contraction per instruction), where
+    the earlier kernel took one TF32 pass (``mma`` m16n8k8) on the same
+    bfloat16 values. Each product of two bfloat16 values is exact in
+    float32 (8 + 8 significant bits), and bfloat16 is exact in TF32, so
+    the two give the same terms and differ only in the order of the
+    float32 sum: within D 2^-24 sum |q_i k_i|, for Q K^T and for P V with
+    P rounded to bfloat16."""
+    rng = np.random.RandomState(8)
+    for d in (16, 64, 128):
+        q = torch.from_numpy(rng.randn(96, d).astype(np.float32))
+        k = torch.from_numpy(rng.randn(80, d).astype(np.float32))
+        q, k = (x.to(torch.bfloat16).float() for x in (q, k))
+        terms = q[:, None, :].double() * k[None, :, :].double()
+        assert torch.equal(terms.float().double(), terms)
+        tf32 = _mm(q, k.T, False, False)
+        wg = torch.zeros(96, 80)
+        for c in range(0, d, 16):       # k16 steps, float32 accumulate
+            wg = wg + q[:, c:c + 16] @ k[:, c:c + 16].T
+        order = d * 2.0 ** -24 * (q.abs() @ k.abs().T)
+        assert ((wg - tf32).abs() <= order).all()
+        assert torch.equal(_tf32(q), q)
+    p = torch.from_numpy(rng.rand(64, 128).astype(np.float32)).to(
+        torch.bfloat16).float()
+    v = torch.from_numpy(rng.randn(128, 64).astype(np.float32)).to(
+        torch.bfloat16).float()
+    wg = torch.zeros(64, 64)
+    for c in range(0, 128, 16):
+        wg = wg + p[:, c:c + 16] @ v[c:c + 16]
+    order = 128 * 2.0 ** -24 * (p.abs() @ v.abs())
+    assert ((wg - _mm(p, v, False, False)).abs() <= order).all()
