@@ -131,8 +131,9 @@ Phases, stopping with a non-zero exit at the first failure:
    (B 32, S 384, this run's key mask) timed beside their plain
    versions, SDPA with the same boolean mask (per eager call and device
    time, as in phase 3), the bytes bound and the products' bounds at the
-   bfloat16, one-pass TF32 and 3xTF32 rates; the forward and dK/dV over
-   SDPA's forward and backward;
+   bfloat16, one-pass TF32 and 3xTF32 rates; the forward over SDPA's
+   forward, and dQ + dK/dV over SDPA's backward (per eager call and
+   device time) beside each kernel's share of its bound;
    then ``Trainer(adamw(3e-5), qa_span_loss)`` 10 steps on seeded
    SQuAD-shaped rows (lengths 192-384 padded to 384, a planted answer
    marker): losses finite and falling, each flash kernel launched 12
@@ -163,7 +164,8 @@ Phases, stopping with a non-zero exit at the first failure:
 9. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
    counts as ``launches_cluster``, phase 7's as ``launches_pipeline``,
    phase 8's (BERT training plus ``:predict``) as ``launches_models``,
-   and their times at BERT's shape as ``bert_shape``), the card line,
+   their times at BERT's shape as ``bert_shape``, and the kernel each
+   dtype runs as ``design``), the card line,
    and last the ``{"ok": true, ...}`` line.
 
 ``--out-dir DIR`` also writes every number of the run to
@@ -693,19 +695,24 @@ def flash_timing(torch, fa, dev, b=TRAIN_BATCH, s=TRAIN_SEQ,
     # product it computes (forward: Q K^T, P V; dQ: Q K^T, dO V^T, dS K;
     # dK/dV: K Q^T, V dO^T, P^T dO, dS^T Q); each input read once, each
     # output written once (q, k, v, dO and outputs in the input dtype;
-    # lse, delta and the bias row float32). The operations are timed at
+    # lse, delta and the bias row float32), where k and v are read at the
+    # live keys only, as the pairs count them (every output is written in
+    # full: a padded key's dK and dV are 0). The operations are timed at
     # the input dtype's tensor-core rate for bound_ms (float32: the
     # float32-accurate 3xTF32 rate), and beside it at every other rate
+    live = b * s if causal else int(mask.sum().item())
     if causal:
         pairs = b * n * s * (s + 1) // 2
     else:
-        pairs = n * s * int(mask.sum().item())
+        pairs = n * s * live
     tensor = b * s * n * d * q.element_size()
+    kv = live * n * d * q.element_size()   # k or v at the live keys
     row = b * n * s * 4
     bias_bytes = 0 if bias is None else b * s * 4
-    work = {"fwd": (4 * pairs * d, 4 * tensor + row + bias_bytes),
-            "dq": (6 * pairs * d, 5 * tensor + 2 * row + bias_bytes),
-            "dkv": (8 * pairs * d, 6 * tensor + 2 * row + bias_bytes)}
+    work = {"fwd": (4 * pairs * d, 2 * tensor + 2 * kv + row + bias_bytes),
+            "dq": (6 * pairs * d, 3 * tensor + 2 * kv + 2 * row + bias_bytes),
+            "dkv": (8 * pairs * d,
+                    4 * tensor + 2 * kv + 2 * row + bias_bytes)}
     rate = BF16_FLOPS if dtype == "bfloat16" else TF32X3_FLOPS
     res = {}
     for name, (kern, plain) in fns.items():
@@ -2016,14 +2023,29 @@ def bert_legs(torch, dev, here):
                     ft["bytes_ms"], ft["ops_bf16_ms"], ft["ops_tf32_ms"],
                     ft["ops_3xtf32_ms"], ft["flops"], int(mask.sum().item()),
                     ft["bytes"]))
-    for name, lib in (("fwd", "fwd"), ("dkv", "dq")):
-        ft, lt = flash_t[name], flash_t[lib]
-        log("flash {:<3} at BERT's shape vs SDPA{}: {:.3f}x per eager call, "
-            "{:.3f}x device time; {:.1f}% of the bound".format(
-                name, "" if name == "fwd" else " backward (dq+dk+dv)",
-                ft["ms"] / lt["library_ms"],
-                ft["device_ms"] / lt["library_device_ms"],
-                100.0 * ft["bound_ms"] / ft["device_ms"]))
+    ft = flash_t["fwd"]
+    log("flash fwd at BERT's shape vs SDPA: {:.3f}x per eager call, {:.3f}x "
+        "device time; {:.1f}% of the bound".format(
+            ft["ms"] / ft["library_ms"],
+            ft["device_ms"] / ft["library_device_ms"],
+            100.0 * ft["bound_ms"] / ft["device_ms"]))
+    # the backward: dQ + dK/dV against SDPA's backward (dq, dk and dv
+    # from one autograd call, timed in the dq row's library_ms)
+    dq, dkv = flash_t["dq"], flash_t["dkv"]
+    bwd = {"ms": dq["ms"] + dkv["ms"],
+           "device_ms": dq["device_ms"] + dkv["device_ms"],
+           "library_ms": dq["library_ms"],
+           "library_device_ms": dq["library_device_ms"]}
+    bwd["vs_library"] = bwd["ms"] / bwd["library_ms"]
+    bwd["vs_library_device"] = bwd["device_ms"] / bwd["library_device_ms"]
+    log("flash dq + dkv at BERT's shape vs SDPA backward (dq+dk+dv): {:.4f} "
+        "vs {:.4f} ms = {:.3f}x per eager call, {:.4f} vs {:.4f} ms = {:.3f}x "
+        "device time; dq {:.1f}% and dkv {:.1f}% of their bounds".format(
+            bwd["ms"], bwd["library_ms"], bwd["vs_library"],
+            bwd["device_ms"], bwd["library_device_ms"],
+            bwd["vs_library_device"],
+            100.0 * dq["bound_ms"] / dq["device_ms"],
+            100.0 * dkv["bound_ms"] / dkv["device_ms"]))
 
     # THE main path of the BERT leg: counts at zero just before
     _sync(torch, dev)
@@ -2143,6 +2165,7 @@ def bert_legs(torch, dev, here):
                            "rel": step_rel},
             "dropout": {"step3": float(a), "step4": float(c)},
             "flash_timing": flash_t,
+            "flash_backward": bwd,
             "predict": {"requests": PREDICT_REQUESTS, "rows": rows_total,
                         "apply_calls": calls, "fwd_launches": predict_fwd,
                         "p50_s": float(np.percentile(lat, 50)),
@@ -2565,7 +2588,14 @@ def main():
             "bound_simt_ms": ft["bound_simt_ms"],
             "library_ms": ft["library_ms"],
             "library_device_ms": ft["library_device_ms"],
-            "library": note})
+            "library": note,
+            # the kernel each dtype launches (bert_shape: bfloat16)
+            "design": {
+                "float32": "flash_{}_kernel<float>: mma.sync TF32, 3xTF32 "
+                           "split, cp.async ring".format(name),
+                "bfloat16": "flash_{}_wgmma_kernel: wgmma + TMA ring{}"
+                            .format(name, ", live key tiles only"
+                                    if name == "dq" else "")}})
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:

@@ -33,7 +33,8 @@
 // kernel computes them fully masked): the forward and dQ loops stop at
 // the diagonal tile, the dK/dV loop starts at it. CTAs with the most
 // tiles are scheduled first. No atomics: dQ and dK/dV each have one
-// writer per output tile, so the result is deterministic. The -inf
+// writer per output tile, so the result is deterministic (FA3's dQ
+// accumulated in float32 atomics inside dK/dV would not be). The -inf
 // rules are selects, never products with a mask: masked P entries are
 // 0 and a -inf lse is read as 0.
 //
@@ -43,10 +44,9 @@
 // FMAs, or 165 TFLOP/s of float32-accurate tensor-core math, over 3.35
 // TB/s), so the bound is OPERATIONS.
 //
-// Two designs. The float32 kernels and dQ in both dtypes: mma.sync with
-// the 3xTF32 split, below. The bfloat16 forward and dK/dV (BERT-base's
-// attention: B 32, S 384, N 12, D 64, a key mask): wgmma with TMA, at the
-// end of this header.
+// Two designs. The float32 kernels: mma.sync with the 3xTF32 split,
+// below. The bfloat16 kernels (BERT-base's attention: B 32, S 384, N 12,
+// D 64, a key mask): wgmma with TMA, at the end of this header.
 //
 // mma.sync: all three run their seven products on the tensor cores,
 // float32-accurate:
@@ -54,23 +54,18 @@
 //   backward: S^T/S = scale (Q K^T), dP = dO V^T, dQ = scale (dS K),
 //             dK = scale (dS^T Q), dV = P^T dO.
 // Q enters unscaled and the scale multiplies the float32 product, where
-// the TPU forward scales Q first. A bfloat16 Q then stays exact in TF32
-// (a scaled one is not, at D 32 or 128), and the forward's scores are the
-// same float32 numbers the backward recomputes P from, so P = exp(s -
-// lse) there sums to 1 as closely as the forward's row sum l.
+// the TPU forward scales Q first: the forward's scores are then the same
+// float32 numbers the backward recomputes P from, so P = exp(s - lse)
+// there sums to 1 as closely as the forward's row sum l.
 // - mma.sync.m16n8k8 TF32 with the 3xTF32 split: each float32 operand is
 //   x = hi + lo, hi = x rounded to TF32 as cvt.rna.tf32.f32 rounds (done
 //   in two integer operations), lo = x - hi (exact; the mma reads its
 //   TF32 part, ignoring the low 13 bits), and a b is accumulated in
-//   float32 as lo.hi + hi.lo first and hi.hi last. A bfloat16 input is
-//   exact in TF32 (lo = 0), so those passes are dropped at compile time:
-//   one pass for Q K^T and dO V^T, two for the products with dS or the
-//   backward's P. The backward's P and dS stay float32 operands, as in
-//   the TPU kernels (FlashAttention-2 rounds them to 16 bits; this does
-//   not). The forward's P enters P V in V's dtype, as the TPU kernel
-//   casts it: float32 P is split like any float32 operand; bfloat16 P is
-//   exact in TF32, so P V is one pass. P = 2^((s - m) log2 e) through
-//   ex2.approx (2 ulp), m the running row max (forward) or lse.
+//   float32 as lo.hi + hi.lo first and hi.hi last. P and dS stay float32
+//   operands, as in the TPU kernels (FlashAttention-2 rounds them to 16
+//   bits; this does not), split like any float32 operand. P = 2^((s - m)
+//   log2 e) through ex2.approx (2 ulp), m the running row max (forward)
+//   or lse.
 // - The passes run pass-major: all 8 lo.hi mmas of an 8-wide k step over
 //   a warp's 8 independent accumulators, then all hi.lo, then all hi.hi,
 //   so back-to-back mmas never wait on each other's accumulator (issued
@@ -89,11 +84,10 @@
 //   with their lse/delta slices in dK/dV) are filled by 16-byte cp.async
 //   copies (4-byte for lse and delta); the next tile's copy overlaps this
 //   tile's products, and rows past S are zero-filled by the copy. Tiles
-//   keep the input dtype in shared memory, rows of D elements whose
-//   16-byte chunks are XOR-swizzled by the row (sw() in tc_common.cuh):
-//   the pair reads along rows and the 4-byte reads down columns (the B
-//   operand of P V, dS K, P^T dO, dS^T Q) both hit distinct banks at D >= 32
-//   (float32) or D >= 64 (bfloat16).
+//   are rows of D floats whose 16-byte chunks are XOR-swizzled by the row
+//   (sw() in tc_common.cuh): the pair reads along rows and the 4-byte
+//   reads down columns (the B operand of P V, dS K, P^T dO, dS^T Q) both
+//   hit distinct banks at D >= 32.
 // - Streamed tiles have 64 rows, or 32 at D 128: there the 16 x 128
 //   accumulators per warp leave too few registers for 64-wide score
 //   tiles, and two 32-row stages keep shared memory at 128 KB. At D 64,
@@ -111,23 +105,27 @@
 // - Under causal masking a warp also skips the 8-column score tiles that
 //   lie wholly on the masked side of its own 16 rows.
 //
-// wgmma (flash_fwd_wgmma_kernel, flash_dkv_wgmma_kernel: tfos_flash_fwd
-// and tfos_flash_dkv with bf16 = 1; they replace the same _fwd_kernel and
-// _dkv_kernel). At BERT's shape they do ~140 and ~185 flop per byte they
-// must move (10.6 and 21 GFLOP on a 73%-live key mask, against 76 and
-// 115 MB), under the bfloat16 ridge (989 TFLOP/s over 3.35 TB/s, ~295):
-// the bound is BYTES, 0.023 and 0.034 ms. On mma.sync they ran at a tenth
-// of it: every bfloat16 product went through TF32 m16n8k8 at half the
-// bfloat16 rate, B operands were read down columns 2 bytes at a time,
-// and dK/dV split its float32 P^T and dS^T into two TF32 passes. Here:
+// wgmma (flash_fwd_wgmma_kernel, flash_dq_wgmma_kernel,
+// flash_dkv_wgmma_kernel: tfos_flash_fwd, tfos_flash_dq and
+// tfos_flash_dkv with bf16 = 1; they replace the same _fwd_kernel,
+// _dq_kernel and _dkv_kernel). At BERT's shape they do ~160, ~185 and
+// ~205 flop per byte they must move (10.6, 16 and 21 GFLOP on a 73%-live
+// key mask, against 66, 85 and 104 MB with K and V read at the live keys
+// only), under the bfloat16 ridge (989 TFLOP/s over 3.35 TB/s, ~295):
+// the bound is BYTES, 0.020, 0.025 and 0.031 ms. On mma.sync the
+// forward and dK/dV ran at a tenth of it, dQ at a ninth: every bfloat16
+// product went through TF32 m16n8k8 at half the bfloat16 rate, B
+// operands were read down columns 2 bytes at a time, and the products
+// with the float32 P or dS took two TF32 passes. Here:
 // - wgmma.mma_async m64nNk16 with bfloat16 operands and a float32
-//   accumulator, a warpgroup per 64 rows (query rows in the forward, key
-//   rows in dK/dV). S = Q K^T, S^T = K Q^T and dP^T = V dO^T read both
-//   operands from shared memory (K-major); P (forward), P^T and dS^T
-//   (dK/dV) go from the accumulator into bfloat16 A registers, never
-//   through shared memory; the B of P V, P^T dO and dS^T Q is the staged
-//   V, dO or Q tile read MN-major through the transpose bit, with no
-//   transposed copy (wgmma_bf16.cuh has the layouts).
+//   accumulator, a warpgroup per 64 rows (query rows in the forward and
+//   dQ, key rows in dK/dV). S = Q K^T, dP = dO V^T, S^T = K Q^T and
+//   dP^T = V dO^T read both operands from shared memory (K-major); P
+//   (forward), dS (dQ), P^T and dS^T (dK/dV) go from the accumulator
+//   into bfloat16 A registers, never through shared memory; the B of
+//   P V, dS K, P^T dO and dS^T Q is the staged V, K, dO or Q tile read
+//   MN-major through the transpose bit, with no transposed copy
+//   (wgmma_bf16.cuh has the layouts).
 // - Tiles are copied by TMA (a tensor map per operand and launch, its
 //   encoder reached through cudaGetDriverEntryPoint) into the swizzled
 //   layout wgmma's descriptors read, rows past S zero-filled; a ring of
@@ -146,11 +144,16 @@
 //   per 8 columns); P is rounded to bfloat16 for P V, as the reference
 //   casts it.
 // - dK/dV keeps at most 168 registers a thread so three CTAs share an SM.
-//   P^T and dS^T are split into bfloat16 hi + lo A operands and dV, dK
-//   take two wgmma passes each (lo first): one rounding to bfloat16 misses
-//   the bfloat16 limits (tests/test_torch_flash_attention.py emulates
-//   both), and two passes cost what one TF32 pass did. A CTA none of
-//   whose keys is live writes zeros and loads nothing.
+//   dS (dQ), P^T and dS^T (dK/dV) are split into bfloat16 hi + lo A
+//   operands and dQ, dV, dK take two wgmma passes each (lo first): one
+//   rounding to bfloat16 misses the bfloat16 limits
+//   (tests/test_torch_flash_attention.py emulates both), and two passes
+//   cost what one TF32 pass did. A dK/dV CTA none of whose keys is live
+//   writes zeros and loads nothing; dQ lists its row's live KV tiles
+//   once (a tile whose keys are all masked adds nothing to dQ) and walks
+//   only those, and with none it writes zeros. At D 128 the backward
+//   streams 32-row tiles (its 64-column accumulators leave room for
+//   32-wide score tiles only).
 // - Tiles with no mask to apply (no key masked or past S_k, and wholly
 //   on the visible side of the diagonal) skip the per-entry mask and take
 //   2^(s scale log2 e - m) in one FMA; a masked entry is -inf and 2^-inf
@@ -170,7 +173,6 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
 // split, mma_tf32, the swizzled fragment loads, mma3_rows, rows_by_rows,
 // a_by_cols, c_to_a and the cp.async copies
@@ -193,16 +195,16 @@ __host__ __device__ constexpr int stream_rows() { return D > 64 ? 32 : 64; }
 // Start copying rows [r0, r0 + ROWS) of one (batch, head) slice of a
 // [B, S, N, D] tensor (``src`` at row 0 of the slice, rows ``stride``
 // elements apart) into a swizzled tile; rows past S are zero-filled.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
+template <int D, int ROWS>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       int r0, int S, int stride) {
-  constexpr int E = 16 / sizeof(T);
+  constexpr int E = 4;                     // floats in 16 bytes
   constexpr int NC = D / E;
   for (int i = threadIdx.x; i < ROWS * NC; i += BWD_THREADS) {
     const int r = i / NC;
     const int c = (i % NC) * E;
     const bool ok = r0 + r < S;
-    cp_async16(dst + sw<T, D>(r, c),
+    cp_async16(dst + sw<D>(r, c),
                src + (size_t)(ok ? r0 + r : 0) * stride + c, ok);
   }
 }
@@ -219,48 +221,33 @@ __device__ __forceinline__ void stage_row(float* dst,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float x, float y);
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float x, float y) {
+__device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-template <>
-__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float x,
-                                                      float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-// p as P V takes it: in V's dtype, as the reference casts P before P V
-template <typename T>
-__device__ __forceinline__ float in_dtype(float p) {
-  return is_f32<T>() ? p : __bfloat162float(__float2bfloat16(p));
 }
 
 // shared memory of the forward: the resident 64-row Q tile and two
 // stages of the streamed K and V tiles
-template <typename T, int D>
+template <int D>
 constexpr size_t fwd_smem() {
-  return (size_t)(BWD_ROWS * D + 4 * stream_rows<D>() * D) * sizeof(T);
+  return (size_t)(BWD_ROWS * D + 4 * stream_rows<D>() * D) * sizeof(float);
 }
 
 // The forward shares the backward's CTA shape (BWD_WARPS warps of 16
 // query rows) and the dQ kernel's loop over streamed K/V tiles.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BWD_THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ out, float* __restrict__ lse, int S_q,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ bias,
+                 float* __restrict__ out, float* __restrict__ lse, int S_q,
                  int S_k, int N, int causal, float scale) {
   constexpr int BM = BWD_ROWS;            // query rows of the CTA
   constexpr int BN = stream_rows<D>();    // keys of a streamed tile
   constexpr int NT = BN / 8;              // 8-key score tiles
   constexpr int DT = D / 8;               // 8-wide steps over D
-  constexpr bool F32 = is_f32<T>();
   extern __shared__ __align__(16) unsigned char fwd_smem_buf[];
-  T* Qs = reinterpret_cast<T*>(fwd_smem_buf);  // [BM][D], resident
-  T* Ks = Qs + BM * D;                         // [2][BN][D], ring
-  T* Vs = Ks + 2 * BN * D;                     // [2][BN][D], ring
+  float* Qs = reinterpret_cast<float*>(fwd_smem_buf);  // [BM][D], resident
+  float* Ks = Qs + BM * D;                             // [2][BN][D], ring
+  float* Vs = Ks + 2 * BN * D;                         // [2][BN][D], ring
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // most KV tiles first
@@ -272,15 +259,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int stride = N * D;
   const int i0 = qt * BM;
   const int wr = 16 * warp;                // the warp's first row in the tile
-  const T* kb = k + ((size_t)b * S_k * N + h) * D;
-  const T* vb = v + ((size_t)b * S_k * N + h) * D;
+  const float* kb = k + ((size_t)b * S_k * N + h) * D;
+  const float* vb = v + ((size_t)b * S_k * N + h) * D;
   const float* brow = bias ? bias + (size_t)b * S_k : nullptr;
   const int n_all = (S_k + BN - 1) / BN;
   const int n_kv = causal ? min(n_all, (i0 + BM - 1) / BN + 1) : n_all;
 
-  stage<T, D, BM>(Qs, q + ((size_t)b * S_q * N + h) * D, i0, S_q, stride);
-  stage<T, D, BN>(Ks, kb, 0, S_k, stride);
-  stage<T, D, BN>(Vs, vb, 0, S_k, stride);
+  stage<D, BM>(Qs, q + ((size_t)b * S_q * N + h) * D, i0, S_q, stride);
+  stage<D, BN>(Ks, kb, 0, S_k, stride);
+  stage<D, BN>(Vs, vb, 0, S_k, stride);
   cp_commit();
 
   // online softmax of rows g and g + 8 of the warp's 16: the running max
@@ -295,8 +282,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kv; ++kt) {
     if (kt + 1 < n_kv) {
       const int nxt = (kt + 1) & 1;
-      stage<T, D, BN>(Ks + nxt * BN * D, kb, (kt + 1) * BN, S_k, stride);
-      stage<T, D, BN>(Vs + nxt * BN * D, vb, (kt + 1) * BN, S_k, stride);
+      stage<D, BN>(Ks + nxt * BN * D, kb, (kt + 1) * BN, S_k, stride);
+      stage<D, BN>(Vs + nxt * BN * D, vb, (kt + 1) * BN, S_k, stride);
       cp_commit();
       cp_wait<1>();                        // tile kt has landed
     } else {
@@ -304,8 +291,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     const int j0 = kt * BN;
-    const T* Kt = Ks + (kt & 1) * BN * D;
-    const T* Vt = Vs + (kt & 1) * BN * D;
+    const float* Kt = Ks + (kt & 1) * BN * D;
+    const float* Vt = Vs + (kt & 1) * BN * D;
     // causal: score tiles whose keys all follow the warp's last row are
     // masked whole
     const int nt =
@@ -313,7 +300,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (nt > 0) {
       float s[NT][4];
       zero4(s);
-      rows_by_rows<T, D, NT>(s, Qs, Kt, wr, 0, nt, g, t);    // Q K^T
+      rows_by_rows<D, NT>(s, Qs, Kt, wr, 0, nt, g, t);    // Q K^T
       // s = scale S + bias, -inf where masked; the tile's row maxima
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -349,7 +336,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         acc[n][2] *= corr[1];
         acc[n][3] *= corr[1];
       }
-      // P in place in s: l sums the float32 P, P V takes it in V's dtype
+      // P in place in s, and l sums it
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
 #pragma unroll
@@ -359,7 +346,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               ? 0.f
                               : ex2((sv - safe[e >> 1]) * LOG2E);
           l[e >> 1] += p;
-          s[j][e] = in_dtype<T>(p);
+          s[j][e] = p;
         }
       }
       // acc += P V: the 8 keys of score tile j are one k step
@@ -368,7 +355,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (j < nt) {
           uint32_t ah[4], al[4];
           c_to_a(s[j], ah, al);
-          a_by_cols<T, D, F32>(acc, ah, al, Vt, 8 * j, g, t);
+          a_by_cols<D>(acc, ah, al, Vt, 8 * j, g, t);
         }
       }
     }
@@ -382,10 +369,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = i0 + wr + g + 8 * i;
     if (row >= S_q) continue;
     const float ls = (l[i] == 0.f) ? 1.f : l[i];
-    T* o = out + (((size_t)b * S_q + row) * N + h) * D + 2 * t;
+    float* o = out + (((size_t)b * S_q + row) * N + h) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < DT; ++n)
-      store2<T>(o + 8 * n, acc[n][2 * i] / ls, acc[n][2 * i + 1] / ls);
+      store2(o + 8 * n, acc[n][2 * i] / ls, acc[n][2 * i + 1] / ls);
     if (t == 0)
       lse[(size_t)bh * S_q + row] = (l[i] == 0.f) ? -INFINITY : m[i] + logf(ls);
   }
@@ -393,32 +380,32 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // shared memory of the backward kernels: the resident 64-row tiles (2),
 // two stages of the two streamed tiles, and (dK/dV) their lse/delta
-template <typename T, int D>
+template <int D>
 constexpr size_t dq_smem() {
-  return (size_t)(2 * BWD_ROWS * D + 4 * stream_rows<D>() * D) * sizeof(T);
+  return (size_t)(2 * BWD_ROWS * D + 4 * stream_rows<D>() * D) * sizeof(float);
 }
 
-template <typename T, int D>
+template <int D>
 constexpr size_t dkv_smem() {
-  return dq_smem<T, D>() + 4 * stream_rows<D>() * sizeof(float);
+  return dq_smem<D>() + 4 * stream_rows<D>() * sizeof(float);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BWD_THREADS)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ bias,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int S_q,
-                int S_k, int N, int causal, float scale) {
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ bias,
+                const float* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dq,
+                int S_q, int S_k, int N, int causal, float scale) {
   constexpr int BM = BWD_ROWS;            // query rows of the CTA
   constexpr int BN = stream_rows<D>();    // keys of a streamed tile
   constexpr int NT = BN / 8;              // 8-key score tiles
   constexpr int DT = D / 8;               // 8-wide steps over D
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  T* Qs = reinterpret_cast<T*>(bwd_smem);  // [BM][D], resident
-  T* dOs = Qs + BM * D;                    // [BM][D], resident
-  T* Ks = dOs + BM * D;                    // [2][BN][D], ring
-  T* Vs = Ks + 2 * BN * D;                 // [2][BN][D], ring
+  float* Qs = reinterpret_cast<float*>(bwd_smem);  // [BM][D], resident
+  float* dOs = Qs + BM * D;                        // [BM][D], resident
+  float* Ks = dOs + BM * D;                        // [2][BN][D], ring
+  float* Vs = Ks + 2 * BN * D;                     // [2][BN][D], ring
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // most KV tiles first
@@ -431,16 +418,16 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int i0 = qt * BM;
   const int wr = 16 * warp;                // the warp's first row in the tile
   const size_t qoff = ((size_t)b * S_q * N + h) * D;
-  const T* kb = k + ((size_t)b * S_k * N + h) * D;
-  const T* vb = v + ((size_t)b * S_k * N + h) * D;
+  const float* kb = k + ((size_t)b * S_k * N + h) * D;
+  const float* vb = v + ((size_t)b * S_k * N + h) * D;
   const float* brow = bias ? bias + (size_t)b * S_k : nullptr;
   const int n_all = (S_k + BN - 1) / BN;
   const int n_kv = causal ? min(n_all, (i0 + BM - 1) / BN + 1) : n_all;
 
-  stage<T, D, BM>(Qs, q + qoff, i0, S_q, stride);
-  stage<T, D, BM>(dOs, dout + qoff, i0, S_q, stride);
-  stage<T, D, BN>(Ks, kb, 0, S_k, stride);
-  stage<T, D, BN>(Vs, vb, 0, S_k, stride);
+  stage<D, BM>(Qs, q + qoff, i0, S_q, stride);
+  stage<D, BM>(dOs, dout + qoff, i0, S_q, stride);
+  stage<D, BN>(Ks, kb, 0, S_k, stride);
+  stage<D, BN>(Vs, vb, 0, S_k, stride);
   cp_commit();
 
   // rows g and g + 8 of the warp's 16
@@ -459,8 +446,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kv; ++kt) {
     if (kt + 1 < n_kv) {
       const int nxt = (kt + 1) & 1;
-      stage<T, D, BN>(Ks + nxt * BN * D, kb, (kt + 1) * BN, S_k, stride);
-      stage<T, D, BN>(Vs + nxt * BN * D, vb, (kt + 1) * BN, S_k, stride);
+      stage<D, BN>(Ks + nxt * BN * D, kb, (kt + 1) * BN, S_k, stride);
+      stage<D, BN>(Vs + nxt * BN * D, vb, (kt + 1) * BN, S_k, stride);
       cp_commit();
       cp_wait<1>();                        // tile kt has landed
     } else {
@@ -468,8 +455,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     const int j0 = kt * BN;
-    const T* Kt = Ks + (kt & 1) * BN * D;
-    const T* Vt = Vs + (kt & 1) * BN * D;
+    const float* Kt = Ks + (kt & 1) * BN * D;
+    const float* Vt = Vs + (kt & 1) * BN * D;
     // causal: score tiles whose keys all follow the warp's last row are 0
     const int nt =
         !causal ? NT : (last_row < j0 ? 0 : min(NT, (last_row - j0) / 8 + 1));
@@ -477,8 +464,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s[NT][4], dp[NT][4];
       zero4(s);
       zero4(dp);
-      rows_by_rows<T, D, NT>(s, Qs, Kt, wr, 0, nt, g, t);    // Q K^T
-      rows_by_rows<T, D, NT>(dp, dOs, Vt, wr, 0, nt, g, t);  // dO V^T
+      rows_by_rows<D, NT>(s, Qs, Kt, wr, 0, nt, g, t);    // Q K^T
+      rows_by_rows<D, NT>(dp, dOs, Vt, wr, 0, nt, g, t);  // dO V^T
       // P from the saved lse, then dS = P (dP - delta), in place in s
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -502,7 +489,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (j < nt) {
           uint32_t ah[4], al[4];
           c_to_a(s[j], ah, al);
-          a_by_cols<T, D>(acc, ah, al, Kt, 8 * j, g, t);
+          a_by_cols<D>(acc, ah, al, Kt, 8 * j, g, t);
         }
       }
     }
@@ -513,30 +500,30 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int row = i0 + wr + g + 8 * i;
     if (row >= S_q) continue;
-    T* o = dq + (((size_t)b * S_q + row) * N + h) * D + 2 * t;
+    float* o = dq + (((size_t)b * S_q + row) * N + h) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < DT; ++n)
-      store2<T>(o + 8 * n, acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+      store2(o + 8 * n, acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BWD_THREADS)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int S_q, int S_k, int N, int causal,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ bias,
+                 const float* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dk,
+                 float* __restrict__ dv, int S_q, int S_k, int N, int causal,
                  float scale) {
   constexpr int BK = BWD_ROWS;            // key rows of the CTA
   constexpr int BQ = stream_rows<D>();    // queries of a streamed tile
   constexpr int NT = BQ / 8;              // 8-query score tiles
   constexpr int DT = D / 8;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  T* Ks = reinterpret_cast<T*>(bwd_smem);  // [BK][D], resident
-  T* Vs = Ks + BK * D;                     // [BK][D], resident
-  T* Qs = Vs + BK * D;                     // [2][BQ][D], ring
-  T* dOs = Qs + 2 * BQ * D;                // [2][BQ][D], ring
+  float* Ks = reinterpret_cast<float*>(bwd_smem);  // [BK][D], resident
+  float* Vs = Ks + BK * D;                         // [BK][D], resident
+  float* Qs = Vs + BK * D;                         // [2][BQ][D], ring
+  float* dOs = Qs + 2 * BQ * D;                    // [2][BQ][D], ring
   float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * D);  // [2][BQ] lse
   float* Es = Ls + 2 * BQ;                                 // [2][BQ] delta
 
@@ -551,18 +538,18 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int j0 = kt * BK;
   const int wr = 16 * warp;
   const size_t koff = ((size_t)b * S_k * N + h) * D;
-  const T* qb = q + ((size_t)b * S_q * N + h) * D;
-  const T* db = dout + ((size_t)b * S_q * N + h) * D;
+  const float* qb = q + ((size_t)b * S_q * N + h) * D;
+  const float* db = dout + ((size_t)b * S_q * N + h) * D;
   const float* lrow = lse + (size_t)bh * S_q;
   const float* drow = delta + (size_t)bh * S_q;
   const int n_q = (S_q + BQ - 1) / BQ;
   // causal: query tiles that end before this KV tile starts see none of it
   const int qt0 = causal ? j0 / BQ : 0;
 
-  stage<T, D, BK>(Ks, k + koff, j0, S_k, stride);
-  stage<T, D, BK>(Vs, v + koff, j0, S_k, stride);
-  stage<T, D, BQ>(Qs, qb, qt0 * BQ, S_q, stride);
-  stage<T, D, BQ>(dOs, db, qt0 * BQ, S_q, stride);
+  stage<D, BK>(Ks, k + koff, j0, S_k, stride);
+  stage<D, BK>(Vs, v + koff, j0, S_k, stride);
+  stage<D, BQ>(Qs, qb, qt0 * BQ, S_q, stride);
+  stage<D, BQ>(dOs, db, qt0 * BQ, S_q, stride);
   stage_row<BQ>(Ls, lrow, qt0 * BQ, S_q);
   stage_row<BQ>(Es, drow, qt0 * BQ, S_q);
   cp_commit();
@@ -586,8 +573,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qt + 1 < n_q) {
       const int nxt = cur ^ 1;
       const int r1 = (qt + 1) * BQ;
-      stage<T, D, BQ>(Qs + nxt * BQ * D, qb, r1, S_q, stride);
-      stage<T, D, BQ>(dOs + nxt * BQ * D, db, r1, S_q, stride);
+      stage<D, BQ>(Qs + nxt * BQ * D, qb, r1, S_q, stride);
+      stage<D, BQ>(dOs + nxt * BQ * D, db, r1, S_q, stride);
       stage_row<BQ>(Ls + nxt * BQ, lrow, r1, S_q);
       stage_row<BQ>(Es + nxt * BQ, drow, r1, S_q);
       cp_commit();
@@ -597,8 +584,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     const int i0 = qt * BQ;
-    const T* Qt = Qs + cur * BQ * D;
-    const T* dOt = dOs + cur * BQ * D;
+    const float* Qt = Qs + cur * BQ * D;
+    const float* dOt = dOs + cur * BQ * D;
     const float* Lt = Ls + cur * BQ;
     const float* Et = Es + cur * BQ;
     // causal: score tiles whose queries all precede the warp's first key
@@ -609,8 +596,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float st[NT][4], dpt[NT][4];
       zero4(st);
       zero4(dpt);
-      rows_by_rows<T, D, NT>(st, Ks, Qt, wr, j_lo, NT, g, t);   // K Q^T
-      rows_by_rows<T, D, NT>(dpt, Vs, dOt, wr, j_lo, NT, g, t);  // V dO^T
+      rows_by_rows<D, NT>(st, Ks, Qt, wr, j_lo, NT, g, t);   // K Q^T
+      rows_by_rows<D, NT>(dpt, Vs, dOt, wr, j_lo, NT, g, t);  // V dO^T
       // P^T in st, dS^T = P^T (dP^T - delta) in dpt
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -637,9 +624,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (j >= j_lo) {
           uint32_t ah[4], al[4];
           c_to_a(st[j], ah, al);
-          a_by_cols<T, D>(dv_acc, ah, al, dOt, 8 * j, g, t);
+          a_by_cols<D>(dv_acc, ah, al, dOt, 8 * j, g, t);
           c_to_a(dpt[j], ah, al);
-          a_by_cols<T, D>(dk_acc, ah, al, Qt, 8 * j, g, t);
+          a_by_cols<D>(dk_acc, ah, al, Qt, 8 * j, g, t);
         }
       }
     }
@@ -653,9 +640,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t base = (((size_t)b * S_k + key) * N + h) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < DT; ++n) {
-      store2<T>(dk + base + 8 * n, dk_acc[n][2 * i] * scale,
+      store2(dk + base + 8 * n, dk_acc[n][2 * i] * scale,
                 dk_acc[n][2 * i + 1] * scale);
-      store2<T>(dv + base + 8 * n, dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+      store2(dv + base + 8 * n, dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
     }
   }
 }
@@ -664,16 +651,18 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int WG_THREADS = 128;   // a CTA: one wgmma warpgroup
 constexpr int WG_WARPS = WG_THREADS / 32;
-constexpr int WG_ROWS = 64;       // its rows: queries (forward), keys (dK/dV)
+constexpr int WG_ROWS = 64;  // its rows: queries (forward, dQ), keys (dK/dV)
 constexpr int WG_FWD_KEYS = 64;   // keys of a forward tile
 constexpr int WG_FWD_STAGES = 2;  // the forward's K/V ring
 constexpr int WG_DKV_STAGES = 2;  // dK/dV's Q/dO ring
+constexpr int WG_DQ_STAGES = 2;   // dQ's K/V ring
 constexpr float LN2 = 0.6931471805599453f;
 
-// queries of a dK/dV tile: at D 128 the two 64-column accumulators leave
-// room for 32-wide score tiles only
+// rows of a tile the backward streams (queries in dK/dV, keys in dQ): at
+// D 128 the 64-column accumulators leave room for 32-wide score tiles
+// only
 template <int D>
-__host__ __device__ constexpr int wg_dkv_queries() { return D > 64 ? 32 : 64; }
+__host__ __device__ constexpr int wg_stream_rows() { return D > 64 ? 32 : 64; }
 
 // Shared memory of the forward: the resident Q tile, a ring of K and V
 // tiles with the key-mask slice of each (times log2 e) and whether it is
@@ -683,13 +672,15 @@ __host__ __device__ constexpr int wg_dkv_queries() { return D > 64 ? 32 : 64; }
 template <int D>
 struct FwdLayout {
   static constexpr int STAGES = WG_FWD_STAGES;
+  static constexpr int BN = WG_FWD_KEYS;
+  static constexpr bool FLAGS = true;     // the ring carries the flags
   using QT = Tile<D, WG_ROWS>;
-  using KT = Tile<D, WG_FWD_KEYS>;
+  using KT = Tile<D, BN>;
   static constexpr size_t Q = 0;
   static constexpr size_t K = Q + QT::BYTES;
   static constexpr size_t V = K + STAGES * KT::BYTES;
   static constexpr size_t BIAS = V + STAGES * KT::BYTES;
-  static constexpr size_t BAR = BIAS + STAGES * WG_FWD_KEYS * 4;
+  static constexpr size_t BAR = BIAS + STAGES * BN * 4;
   static constexpr size_t CNT = BAR + (STAGES + 1) * 8;
   static constexpr size_t NOMASK = CNT + STAGES * 4;
   static constexpr size_t BYTES = NOMASK + STAGES * 4 + 1024;
@@ -701,7 +692,7 @@ struct FwdLayout {
 template <int D>
 struct DkvLayout {
   static constexpr int STAGES = WG_DKV_STAGES;
-  static constexpr int BQ = wg_dkv_queries<D>();
+  static constexpr int BQ = wg_stream_rows<D>();
   using KT = Tile<D, WG_ROWS>;
   using QT = Tile<D, BQ>;
   static constexpr size_t K = 0;
@@ -714,6 +705,37 @@ struct DkvLayout {
   static constexpr size_t CNT = BAR + (STAGES + 1) * 8;
   static constexpr size_t BYTES = CNT + STAGES * 4 + 1024;
 };
+
+// Shared memory of dQ: the resident Q and dO tiles, the forward's ring
+// of K and V tiles with their key-mask slices (whether a slice is all 0
+// rides in the list instead), the barriers and free counts, the number
+// of live KV tiles and, last, their list: one int per KV tile of the row
+// (dq_wg_smem adds it to BYTES)
+template <int D>
+struct DqLayout {
+  static constexpr int STAGES = WG_DQ_STAGES;
+  static constexpr int BN = wg_stream_rows<D>();
+  static constexpr bool FLAGS = false;
+  using QT = Tile<D, WG_ROWS>;
+  using KT = Tile<D, BN>;
+  static constexpr size_t Q = 0;
+  static constexpr size_t DO = Q + QT::BYTES;
+  static constexpr size_t K = DO + QT::BYTES;
+  static constexpr size_t V = K + STAGES * KT::BYTES;
+  static constexpr size_t BIAS = V + STAGES * KT::BYTES;
+  static constexpr size_t BAR = BIAS + STAGES * BN * 4;
+  static constexpr size_t CNT = BAR + (STAGES + 1) * 8;
+  static constexpr size_t NLIVE = CNT + STAGES * 4;
+  static constexpr size_t LIST = NLIVE + 4;
+  static constexpr size_t BYTES = LIST + 1024;
+};
+
+// dQ's dynamic shared memory for S_k keys: the layout and the list
+template <int D>
+constexpr size_t dq_wg_smem(int S_k) {
+  using L = DqLayout<D>;
+  return L::BYTES + 4 * (size_t)((S_k + L::BN - 1) / L::BN);
+}
 
 __device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
   return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
@@ -760,6 +782,79 @@ __device__ __forceinline__ void ring_free(int* cnt, int s, F&& refill) {
   }
 }
 
+// The query tile of a forward or dQ CTA. A head's query tiles are
+// neighbours in the launch (x fastest), so they read its K/V from L2
+// together; most KV tiles first. It visits n_kv KV tiles of BN keys
+// (causal: up to the diagonal tile).
+struct QueryTile {
+  int bh, b, h, i0, n_kv;
+};
+
+template <int BN>
+__device__ __forceinline__ QueryTile query_tile(int S_k, int N, int causal) {
+  QueryTile c;
+  c.bh = blockIdx.y;
+  c.b = c.bh / N;
+  c.h = c.bh % N;
+  c.i0 = (gridDim.x - 1 - blockIdx.x) * WG_ROWS;
+  const int n_all = (S_k + BN - 1) / BN;
+  c.n_kv = causal ? min(n_all, (c.i0 + WG_ROWS - 1) / BN + 1) : n_all;
+  return c;
+}
+
+// The K/V ring of the forward and dQ, in layout L: stages of L::BN keys
+// of K and V, each with its key-mask slice (times log2 e, -inf past S_k)
+// and, where L::FLAGS, whether all of that slice is 0. A stage's full
+// barrier completes on two arrives: load() with the copies' bytes and
+// slice() when the slice is written. Thread 0 starts the first stages'
+// copies (their start is what the CTA first waits on; issued by one
+// warp each, the forward ran slower) and warps 0 .. STAGES - 1 write
+// their slices; then the last warp to free a stage refills it
+// (ring_free).
+template <int D, class L>
+struct KvRing {
+  unsigned char* sm;          // the 1024-aligned base of L
+  const CUtensorMap* kmap;
+  const CUtensorMap* vmap;
+  const float* brow;          // the batch row's key mask, or null
+  int S_k, b, h;
+
+  // one thread: start the copies of KV tile kt into stage s
+  __device__ __forceinline__ void load(int s, int kt) const {
+    constexpr int BN = L::BN;
+    using KT = typename L::KT;
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR) + s;
+    mbar_arrive_tx(full, 2 * KT::BYTES);
+    tma_tile<D, BN>(sm + L::K + s * KT::BYTES, kmap, full, kt * BN, b, h);
+    tma_tile<D, BN>(sm + L::V + s * KT::BYTES, vmap, full, kt * BN, b, h);
+  }
+
+  // warp-wide: write KV tile kt's slice (and flag) into stage s
+  __device__ __forceinline__ void slice(int s, int kt) const {
+    constexpr int BN = L::BN;
+    static_assert(BN % 32 == 0, "a lane writes BN / 32 entries");
+    float* bs = reinterpret_cast<float*>(sm + L::BIAS) + s * BN;
+    const int lane = threadIdx.x % 32;
+    bool zero = true;
+#pragma unroll
+    for (int r = 0; r < BN / 32; ++r) {    // (unrolled: the loads overlap)
+      const int i = lane + 32 * r;
+      const int col = kt * BN + i;
+      const float x = col < S_k
+                          ? (brow != nullptr ? brow[col] * LOG2E : 0.f)
+                          : -INFINITY;
+      bs[i] = x;
+      zero = zero && x == 0.f;
+    }
+    if constexpr (L::FLAGS) {
+      zero = __all_sync(FULL, zero);
+      if (lane == 0) reinterpret_cast<int*>(sm + L::NOMASK)[s] = zero;
+    }
+    __syncwarp();                          // the slice is written
+    if (lane == 0) mbar_arrive(reinterpret_cast<uint64_t*>(sm + L::BAR) + s);
+  }
+};
+
 // The forward at bfloat16. A wgmma warpgroup owns 64 query rows (warp
 // w rows 16 w .. 16 w + 15) and streams K/V tiles through its ring.
 // Per KV tile: S = Q K^T in D / 16 wgmmas (both operands K-major in
@@ -778,7 +873,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   using L = FwdLayout<D>;
   using KT = typename L::KT;
   constexpr int BM = WG_ROWS;
-  constexpr int BN = WG_FWD_KEYS;
+  constexpr int BN = L::BN;
   constexpr int NT = BN / 8;               // 8-key column blocks of S
   constexpr int STAGES = L::STAGES;
   static_assert(STAGES <= WG_WARPS, "a warp fills each first stage");
@@ -789,54 +884,22 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);  // [STAGES]
   uint64_t* qbar = full + STAGES;
   int* cnt = reinterpret_cast<int*>(sm + L::CNT);             // [STAGES]
-
-  // a head's query tiles are neighbours in the launch (x fastest), so
-  // they read its K/V from L2 together; most KV tiles first
-  const int bh = blockIdx.y;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int b = bh / N;
-  const int h = bh % N;
-  const int i0 = qt * BM;
-  const int n_all = (S_k + BN - 1) / BN;
-  const int n_kv = causal ? min(n_all, (i0 + BM - 1) / BN + 1) : n_all;
-  const float* brow = bias ? bias + (size_t)b * S_k : nullptr;
   int* nomask = reinterpret_cast<int*>(sm + L::NOMASK);       // [STAGES]
+
+  const QueryTile tile = query_tile<BN>(S_k, N, causal);
+  const int bh = tile.bh, b = tile.b, h = tile.h, i0 = tile.i0;
+  const int n_kv = tile.n_kv;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  // warp-wide: the key-mask slice of KV tile kt into stage s (times
-  // log2 e; -inf past S_k), and whether all of it is 0
-  auto mask_slice = [&](int s, int kt) {
-    bool zero = true;
-    for (int i = lane; i < BN; i += 32) {
-      const int col = kt * BN + i;
-      const float x = col < S_k
-                          ? (brow != nullptr ? brow[col] * LOG2E : 0.f)
-                          : -INFINITY;
-      Bs[s * BN + i] = x;
-      zero = zero && x == 0.f;
-    }
-    zero = __all_sync(FULL, zero);
-    if (lane == 0) nomask[s] = zero;
-  };
-  // lane 0: start the K/V copies of tile kt into stage s
-  auto load_kv = [&](int s, int kt) {
-    mbar_arrive_tx(&full[s], 2 * KT::BYTES);
-    tma_tile<D, BN>(sm + L::K + s * KT::BYTES, &kmap, &full[s], kt * BN, b,
-                    h);
-    tma_tile<D, BN>(sm + L::V + s * KT::BYTES, &vmap, &full[s], kt * BN, b,
-                    h);
-  };
+  const KvRing<D, L> ring{sm, &kmap, &vmap,
+                          bias ? bias + (size_t)b * S_k : nullptr, S_k, b, h};
   ring_init<STAGES>(full, qbar, cnt);
   if (threadIdx.x == 0) {
     mbar_arrive_tx(qbar, L::QT::BYTES);
     tma_tile<D, BM>(Qs, &qmap, qbar, i0, b, h);
-    for (int s = 0; s < STAGES && s < n_kv; ++s) load_kv(s, s);
+    for (int s = 0; s < STAGES && s < n_kv; ++s) ring.load(s, s);
   }
-  if (warp < STAGES && warp < n_kv) {
-    mask_slice(warp, warp);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&full[warp]);
-  }
+  if (warp < STAGES && warp < n_kv) ring.slice(warp, warp);
 
   // rows g and g + 8 of warp w's 16; scores in log2 units (s scale
   // log2 e + bias log2 e); m the running row max, shared by the row's
@@ -949,10 +1012,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     ring_free(cnt, s, [&] {                    // refill with tile kt + STAGES
       const int nk = kt + STAGES;
       if (nk >= n_kv) return;
-      if (lane == 0) load_kv(s, nk);
-      mask_slice(s, nk);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&full[s]);
+      if (lane == 0) ring.load(s, nk);
+      ring.slice(s, nk);
     });
   }
 
@@ -1207,57 +1268,249 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// dQ at bfloat16. A wgmma warpgroup owns 64 query rows, with Q and dO
+// resident, and streams the K/V tiles of its live-tile list through the
+// forward's ring (KvRing). While Q and dO land, the warps scan the batch
+// row's key mask once: a KV tile whose keys are all masked or past S_k
+// adds nothing to dQ and is neither loaded nor computed (with padding
+// masks such tiles end the row). The ring walks the list, so a stage's
+// barrier parity follows the position in the list, not the tile number.
+// Per live tile: S = Q K^T and dP = dO V^T (K-major operands in shared
+// memory), P and dS = P (dP - delta) in registers, dS split into
+// bfloat16 hi + lo A operands (one rounding misses the bfloat16 limits:
+// tests/test_torch_flash_attention.py), then dQ += dS K, lo pass first,
+// with the staged K read MN-major through the transpose bit.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap dmap,
+                      const __grid_constant__ CUtensorMap dqmap,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, int S_q, int S_k,
+                      int N, int causal, float scale) {
+  using L = DqLayout<D>;
+  using KT = typename L::KT;
+  constexpr int BM = WG_ROWS;
+  constexpr int BN = L::BN;
+  constexpr int NT = BN / 8;               // 8-key column blocks of S
+  constexpr int KS = BN / 16;              // k steps of dS K
+  constexpr int STAGES = L::STAGES;
+  static_assert(STAGES <= WG_WARPS, "a warp fills each first stage");
+  extern __shared__ __align__(1024) unsigned char wg_dq_smem[];
+  unsigned char* sm = align_1k(wg_dq_smem);
+  unsigned char* Qs = sm + L::Q;
+  unsigned char* dOs = sm + L::DO;
+  float* Bs = reinterpret_cast<float*>(sm + L::BIAS);         // [STAGES][BN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);  // [STAGES]
+  uint64_t* qbar = full + STAGES;
+  int* cnt = reinterpret_cast<int*>(sm + L::CNT);             // [STAGES]
+  int* nlive = reinterpret_cast<int*>(sm + L::NLIVE);
+  int* list = reinterpret_cast<int*>(sm + L::LIST);           // [n_kv]
+
+  const QueryTile tile = query_tile<BN>(S_k, N, causal);
+  const int bh = tile.bh, b = tile.b, h = tile.h, i0 = tile.i0;
+  const int n_kv = tile.n_kv;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const KvRing<D, L> ring{sm, &kmap, &vmap,
+                          bias ? bias + (size_t)b * S_k : nullptr, S_k, b, h};
+  ring_init<STAGES>(full, qbar, cnt);
+  if (threadIdx.x == 0) {
+    mbar_arrive_tx(qbar, 2 * L::QT::BYTES);
+    tma_tile<D, BM>(Qs, &qmap, qbar, i0, b, h);
+    tma_tile<D, BM>(dOs, &dmap, qbar, i0, b, h);
+  }
+  // rows g and g + 8 of warp w's 16: lse times log2 e (0 where not
+  // finite) and delta
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wrow = i0 + 16 * warp;         // the warp's first row
+  const int row0 = wrow + g;
+  float lse2[2], del[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const float x = row < S_q ? lse[(size_t)bh * S_q + row] : 0.f;
+    lse2[i] = isfinite(x) ? x * LOG2E : 0.f;
+    del[i] = row < S_q ? delta[(size_t)bh * S_q + row] : 0.f;
+  }
+  // the live-tile list, while Q and dO land: warp w marks KV tiles w,
+  // w + 4, ... (2 kt + 1 when no key of the tile is masked or past S_k,
+  // 2 kt when some are, -1 when all are); warp 0 then compacts the marks
+  // in place (a chunk's writes land at or below the entries it read)
+  for (int kt = warp; kt < n_kv; kt += WG_WARPS) {
+    bool live = false, zero = true;
+    for (int i = lane; i < BN; i += 32) {
+      const int col = kt * BN + i;
+      const float x = col < S_k ? (ring.brow != nullptr ? ring.brow[col] : 0.f)
+                                : -INFINITY;
+      live = live || x != -INFINITY;
+      zero = zero && x == 0.f;
+    }
+    live = __any_sync(FULL, live);
+    zero = __all_sync(FULL, zero);
+    if (lane == 0) list[kt] = live ? 2 * kt + zero : -1;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int c = 0; c < n_kv; c += 32) {
+      const int e = c + lane < n_kv ? list[c + lane] : -1;
+      const unsigned m = __ballot_sync(FULL, e >= 0);
+      if (e >= 0) list[n + __popc(m & ((1u << lane) - 1u))] = e;
+      n += __popc(m);
+    }
+    if (lane == 0) *nlive = n;
+  }
+  __syncthreads();
+  const int n_live = *nlive;
+  if (threadIdx.x == 0)
+    for (int s = 0; s < STAGES && s < n_live; ++s) ring.load(s, list[s] >> 1);
+  if (warp < STAGES && warp < n_live) ring.slice(warp, list[warp] >> 1);
+
+  const float scale2 = scale * LOG2E;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int it = 0; it < n_live; ++it) {
+    const int s = it % STAGES;
+    const int kt = list[it] >> 1;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    const unsigned char* Kt = sm + L::K + s * KT::BYTES;
+    const unsigned char* Vt = sm + L::V + s * KT::BYTES;
+    const float* bs = Bs + s * BN;
+    float sc[BN / 2], dp[BN / 2];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)        // S = Q K^T
+      wgmma_ss<BN>(sc, desc_k<D, BM>(Qs, ks), desc_k<D, BN>(Kt, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)        // dP = dO V^T
+      wgmma_ss<BN>(dp, desc_k<D, BM>(dOs, ks), desc_k<D, BN>(Vt, ks),
+                   ks > 0);
+    wg_commit();
+    wg_wait<0>();
+    pin(sc);
+    pin(dp);
+    // P, then dS = P (dP - delta) in place in sc (2^-inf is 0: a masked
+    // key gives 0); an unmasked tile (no key masked or past S_k, none
+    // past the warp's rows under causal) skips the mask
+    const bool plain =
+        (list[it] & 1) && (!causal || kt * BN + BN - 1 <= wrow);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p;
+        if (plain) {
+          p = ex2(fmaf(sc[4 * j + e], scale2, -lse2[i]));
+        } else {
+          const int c = 8 * j + 2 * t + (e & 1);
+          const bool ok = !causal || kt * BN + c <= row0 + 8 * i;
+          p = ok ? ex2(fmaf(sc[4 * j + e], scale2, bs[c]) - lse2[i]) : 0.f;
+        }
+        sc[4 * j + e] = p * (dp[4 * j + e] - del[i]);
+      }
+    }
+    uint32_t dh[KS][4], dl[KS][4];
+#pragma unroll
+    for (int k = 0; k < KS; ++k) acc_to_a2(sc, k, dh[k], dl[k]);
+    pin(acc);
+    pin(dh);
+    pin(dl);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < KS; ++k)               // dQ += dS K, lo then hi
+      wgmma_rs<D>(acc, dl[k], desc_mn<D, BN>(Kt, k), 1);
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      wgmma_rs<D>(acc, dh[k], desc_mn<D, BN>(Kt, k), 1);
+    wg_commit();
+    wg_wait<0>();
+    pin(acc);
+    ring_free(cnt, s, [&] {                    // refill with list[it + STAGES]
+      const int nx = it + STAGES;
+      if (nx >= n_live) return;
+      if (lane == 0) ring.load(s, list[nx] >> 1);
+      ring.slice(s, list[nx] >> 1);
+    });
+  }
+
+  // dQ scale in bfloat16 goes where Q was (every wgmma reading it has
+  // completed; with no live tile, Q's copy has landed), in the tile's
+  // swizzled layout, and one TMA store writes the CTA's rows that exist
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 - i0 + 8 * i;      // the row in the tile
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int off = tile_offset<D, BM>(r, 8 * n + 2 * t);
+      *reinterpret_cast<__nv_bfloat162*>(Qs + off) = __floats2bfloat162_rn(
+          acc[4 * n + 2 * i] * scale, acc[4 * n + 2 * i + 1] * scale);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+  if (threadIdx.x == 0) tma_store_tile<D, BM>(Qs, &dqmap, i0, b, h);
+}
+
 template <typename K>
 int prepare(K kern, size_t smem) {
   return static_cast<int>(cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
 }
 
-template <typename T, int D>
+template <int D>
 int fwd(const void* q, const void* k, const void* v, const float* bias,
         void* out, float* lse, int B, int S_q, int S_k, int N, int causal,
         float scale, cudaStream_t st) {
-  const size_t smem = fwd_smem<T, D>();
-  auto kern = flash_fwd_kernel<T, D>;
+  const size_t smem = fwd_smem<D>();
+  auto kern = flash_fwd_kernel<D>;
   if (int e = prepare(kern, smem)) return e;
   const dim3 grid(B * N, (S_q + BWD_ROWS - 1) / BWD_ROWS);
   kern<<<grid, BWD_THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(out), lse, S_q, S_k, N,
-      causal, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bias, static_cast<float*>(out), lse, S_q,
+      S_k, N, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int dq(const void* q, const void* k, const void* v, const float* bias,
        const void* dout, const float* lse, const float* delta, void* dq_out,
        int B, int S_q, int S_k, int N, int causal, float scale,
        cudaStream_t st) {
-  const size_t smem = dq_smem<T, D>();
-  auto kern = flash_dq_kernel<T, D>;
+  const size_t smem = dq_smem<D>();
+  auto kern = flash_dq_kernel<D>;
   if (int e = prepare(kern, smem)) return e;
   const dim3 grid(B * N, (S_q + BWD_ROWS - 1) / BWD_ROWS);
   kern<<<grid, BWD_THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq_out), S_q, S_k, N, causal, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bias, static_cast<const float*>(dout),
+      lse, delta, static_cast<float*>(dq_out), S_q, S_k, N, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int dkv(const void* q, const void* k, const void* v, const float* bias,
         const void* dout, const float* lse, const float* delta, void* dk_out,
         void* dv_out, int B, int S_q, int S_k, int N, int causal, float scale,
         cudaStream_t st) {
-  const size_t smem = dkv_smem<T, D>();
-  auto kern = flash_dkv_kernel<T, D>;
+  const size_t smem = dkv_smem<D>();
+  auto kern = flash_dkv_kernel<D>;
   if (int e = prepare(kern, smem)) return e;
   const dim3 grid(B * N, (S_k + BWD_ROWS - 1) / BWD_ROWS);
   kern<<<grid, BWD_THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk_out), static_cast<T*>(dv_out), S_q, S_k, N, causal,
-      scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bias, static_cast<const float*>(dout),
+      lse, delta, static_cast<float*>(dk_out), static_cast<float*>(dv_out),
+      S_q, S_k, N, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1287,7 +1540,7 @@ int dkv_wg(const void* q, const void* k, const void* v, const float* bias,
            const void* dout, const float* lse, const float* delta,
            void* dk_out, void* dv_out, int B, int S_q, int S_k, int N,
            int causal, float scale, cudaStream_t st) {
-  constexpr int BQ = wg_dkv_queries<D>();
+  constexpr int BQ = wg_stream_rows<D>();
   CUtensorMap qm, km, vm, dm, dkm, dvm;
   if (int e = tile_map<D, BQ>(&qm, q, B, S_q, N)) return e;
   if (int e = tile_map<D, WG_ROWS>(&km, k, B, S_k, N)) return e;
@@ -1301,6 +1554,28 @@ int dkv_wg(const void* q, const void* k, const void* v, const float* bias,
   const dim3 grid((S_k + WG_ROWS - 1) / WG_ROWS, B * N);
   kern<<<grid, WG_THREADS, smem, st>>>(
       qm, km, vm, dm, dkm, dvm, bias, lse, delta, S_q, S_k, N, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dQ at bfloat16: tensor maps of q, dO, dQ (64-row boxes) and k, v
+template <int D>
+int dq_wg(const void* q, const void* k, const void* v, const float* bias,
+          const void* dout, const float* lse, const float* delta,
+          void* dq_out, int B, int S_q, int S_k, int N, int causal,
+          float scale, cudaStream_t st) {
+  constexpr int BN = DqLayout<D>::BN;
+  CUtensorMap qm, km, vm, dm, dqm;
+  if (int e = tile_map<D, WG_ROWS>(&qm, q, B, S_q, N)) return e;
+  if (int e = tile_map<D, BN>(&km, k, B, S_k, N)) return e;
+  if (int e = tile_map<D, BN>(&vm, v, B, S_k, N)) return e;
+  if (int e = tile_map<D, WG_ROWS>(&dm, dout, B, S_q, N)) return e;
+  if (int e = tile_map<D, WG_ROWS>(&dqm, dq_out, B, S_q, N)) return e;
+  const size_t smem = dq_wg_smem<D>(S_k);
+  auto kern = flash_dq_wgmma_kernel<D>;
+  if (int e = prepare(kern, smem)) return e;
+  const dim3 grid((S_q + WG_ROWS - 1) / WG_ROWS, B * N);
+  kern<<<grid, WG_THREADS, smem, st>>>(qm, km, vm, dm, dqm, bias, lse, delta,
+                                       S_q, S_k, N, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1323,9 +1598,9 @@ int budget(K kern, size_t smem, int* out, int threads = BWD_THREADS) {
   return 0;
 }
 
-template <typename T, int D>
+template <int D>
 int fwd_budget(int* out) {
-  return budget(flash_fwd_kernel<T, D>, fwd_smem<T, D>(), out);
+  return budget(flash_fwd_kernel<D>, fwd_smem<D>(), out);
 }
 
 template <int D>
@@ -1334,14 +1609,21 @@ int fwd_wg_budget(int* out) {
                 WG_THREADS);
 }
 
-template <typename T, int D>
+template <int D>
 int dq_budget(int* out) {
-  return budget(flash_dq_kernel<T, D>, dq_smem<T, D>(), out);
+  return budget(flash_dq_kernel<D>, dq_smem<D>(), out);
 }
 
-template <typename T, int D>
+// (the live-tile list sized for 512 keys, BERT's positions)
+template <int D>
+int dq_wg_budget(int* out) {
+  return budget(flash_dq_wgmma_kernel<D>, dq_wg_smem<D>(512), out,
+                WG_THREADS);
+}
+
+template <int D>
 int dkv_budget(int* out) {
-  return budget(flash_dkv_kernel<T, D>, dkv_smem<T, D>(), out);
+  return budget(flash_dkv_kernel<D>, dkv_smem<D>(), out);
 }
 
 template <int D>
@@ -1350,40 +1632,20 @@ int dkv_wg_budget(int* out) {
                 WG_THREADS);
 }
 
-// head_dim and dtype dispatch: D is a template parameter of every kernel
-#define TFOS_FLASH_DISPATCH(FN, BF16, D, ...)                                \
-  do {                                                                       \
-    if (BF16) {                                                              \
-      switch (D) {                                                           \
-        case 16: return FN<__nv_bfloat16, 16>(__VA_ARGS__);                  \
-        case 32: return FN<__nv_bfloat16, 32>(__VA_ARGS__);                  \
-        case 64: return FN<__nv_bfloat16, 64>(__VA_ARGS__);                  \
-        case 128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);                \
-      }                                                                      \
-    } else {                                                                 \
-      switch (D) {                                                           \
-        case 16: return FN<float, 16>(__VA_ARGS__);                          \
-        case 32: return FN<float, 32>(__VA_ARGS__);                          \
-        case 64: return FN<float, 64>(__VA_ARGS__);                          \
-        case 128: return FN<float, 128>(__VA_ARGS__);                        \
-      }                                                                      \
-    }                                                                        \
-    return static_cast<int>(cudaErrorInvalidValue);                          \
-  } while (0)
-
-// the same, where bfloat16 takes the wgmma kernel FN_WG<D> and float32
-// the tensor-core mma.sync kernel FN<float, D>
+// head_dim and dtype dispatch (D is a template parameter of every
+// kernel): bfloat16 takes the wgmma kernel FN_WG<D>, float32 the
+// tensor-core mma.sync kernel FN<D>
 #define TFOS_FLASH_DISPATCH_WG(FN, FN_WG, BF16, D, ...)                     \
   do {                                                                       \
     switch (D) {                                                             \
       case 16:                                                               \
-        return BF16 ? FN_WG<16>(__VA_ARGS__) : FN<float, 16>(__VA_ARGS__);   \
+        return BF16 ? FN_WG<16>(__VA_ARGS__) : FN<16>(__VA_ARGS__);   \
       case 32:                                                               \
-        return BF16 ? FN_WG<32>(__VA_ARGS__) : FN<float, 32>(__VA_ARGS__);   \
+        return BF16 ? FN_WG<32>(__VA_ARGS__) : FN<32>(__VA_ARGS__);   \
       case 64:                                                               \
-        return BF16 ? FN_WG<64>(__VA_ARGS__) : FN<float, 64>(__VA_ARGS__);   \
+        return BF16 ? FN_WG<64>(__VA_ARGS__) : FN<64>(__VA_ARGS__);   \
       case 128:                                                              \
-        return BF16 ? FN_WG<128>(__VA_ARGS__) : FN<float, 128>(__VA_ARGS__); \
+        return BF16 ? FN_WG<128>(__VA_ARGS__) : FN<128>(__VA_ARGS__); \
     }                                                                        \
     return static_cast<int>(cudaErrorInvalidValue);                          \
   } while (0)
@@ -1410,8 +1672,8 @@ extern "C" int tfos_flash_dq(const void* q, const void* k, const void* v,
                              float scale, int bf16, void* stream) {
   if (B <= 0 || S_q <= 0 || S_k <= 0 || N <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  TFOS_FLASH_DISPATCH(dq, bf16, D, q, k, v, bias, dout, lse, delta, dq_out, B,
-                      S_q, S_k, N, causal, scale, st);
+  TFOS_FLASH_DISPATCH_WG(dq, dq_wg, bf16, D, q, k, v, bias, dout, lse, delta,
+                         dq_out, B, S_q, S_k, N, causal, scale, st);
 }
 
 extern "C" int tfos_flash_dkv(const void* q, const void* k, const void* v,
@@ -1431,7 +1693,8 @@ extern "C" int tfos_flash_dkv(const void* q, const void* k, const void* v,
 // kernel for head dim D and dtype: out[4] = {CTAs per SM, registers per
 // thread, local (spill) bytes per thread, dynamic shared-memory bytes}.
 extern "C" int tfos_flash_budget(int kernel, int D, int bf16, int* out) {
-  if (kernel == 0) TFOS_FLASH_DISPATCH(dq_budget, bf16, D, out);
+  if (kernel == 0)
+    TFOS_FLASH_DISPATCH_WG(dq_budget, dq_wg_budget, bf16, D, out);
   if (kernel == 1)
     TFOS_FLASH_DISPATCH_WG(dkv_budget, dkv_wg_budget, bf16, D, out);
   TFOS_FLASH_DISPATCH_WG(fwd_budget, fwd_wg_budget, bf16, D, out);

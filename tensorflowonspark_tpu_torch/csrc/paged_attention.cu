@@ -533,7 +533,7 @@ template <int DP>
 __host__ __device__ constexpr int tc_keys() { return DP > 64 ? 32 : 64; }
 
 // bytes of one staged K or V row: float32 rows are DP elements, their
-// 16-byte chunks swizzled by sw<float, DP>; int8 rows are DP codes and 16
+// 16-byte chunks swizzled by sw<DP>; int8 rows are DP codes and 16
 // pad bytes, which put the 8 rows of a fragment read on distinct banks
 template <bool QUANT, int DP>
 __host__ __device__ constexpr int tc_row_bytes() {
@@ -559,7 +559,7 @@ template <int DP>
 __device__ __forceinline__ void kv_rows(uint32_t (&hi)[2], uint32_t (&lo)[2],
                                         const float* s, int n0, int k0, int g,
                                         int t) {
-  load_b_rows<float, DP>(hi, lo, s, n0, k0, g, t);
+  load_b_rows<DP>(hi, lo, s, n0, k0, g, t);
 }
 template <int DP>
 __device__ __forceinline__ void kv_rows(uint32_t (&hi)[2], uint32_t (&lo)[2],
@@ -576,7 +576,7 @@ template <int DP>
 __device__ __forceinline__ void kv_cols(uint32_t (&hi)[2], uint32_t (&lo)[2],
                                         const float* s, int k0, int n0, int g,
                                         int t) {
-  load_b_cols<float, DP>(hi, lo, s, k0, n0, g, t);
+  load_b_cols<DP>(hi, lo, s, k0, n0, g, t);
 }
 template <int DP>
 __device__ __forceinline__ void kv_cols(uint32_t (&hi)[2], uint32_t (&lo)[2],
@@ -637,7 +637,7 @@ __device__ __forceinline__ void stage_slice(
       continue;
     }
     const int dst =
-        QUANT ? (r0 + r) * RB + c : sw<float, DP>(r0 + r, c / 4) * 4;
+        QUANT ? (r0 + r) * RB + c : sw<DP>(r0 + r, c / 4) * 4;
     if (vec == 16) {
       cp_async16(Kd + dst, kb + src, ok);
       cp_async16(Vd + dst, vb + src, ok);
@@ -694,7 +694,7 @@ paged_tiled_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
           reinterpret_cast<const unsigned char*>(
               q + (((size_t)b * S_q + (ok ? i0 + r : 0)) * N + h) * D) +
           (ok ? c : 0);
-      float* dst = Qs + sw<float, DP>(r, c / 4);
+      float* dst = Qs + sw<DP>(r, c / 4);
       if (q_vec == 16)
         cp_async16(dst, src, ok);
       else
@@ -786,7 +786,7 @@ paged_tiled_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
 #pragma unroll
       for (int ks = 0; ks < DT; ++ks) {
         uint32_t ah[4], al[4], bh[NTW][2], bl[NTW][2];
-        load_a<float, DP>(ah, al, Qs, 0, 8 * ks, g, t);
+        load_a<DP>(ah, al, Qs, 0, 8 * ks, g, t);
 #pragma unroll
         for (int j = 0; j < NTW; ++j)
           if (j < ntw) kv_rows<DP>(bh[j], bl[j], Kt, kw0 + 8 * j, 8 * ks, g, t);

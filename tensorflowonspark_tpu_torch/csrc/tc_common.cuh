@@ -1,32 +1,20 @@
 // Tensor-core building blocks shared by the port's kernels
 // (flash_attention.cu, paged_attention.cu): the 3xTF32 split, mma.sync
-// m16n8k8 TF32 with its fragment loads from swizzled shared-memory tiles,
-// and the cp.async copies that fill those tiles. Each source is compiled
-// on its own and includes this header; everything here has internal
-// linkage.
+// m16n8k8 TF32 with its fragment loads from swizzled float32
+// shared-memory tiles, and the cp.async copies that fill those tiles.
+// Each source is compiled on its own and includes this header;
+// everything here has internal linkage.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__host__ __device__ constexpr bool is_f32() {
-  return std::is_same<T, float>::value;
-}
 
 // x = hi + lo: hi is x rounded to TF32 as cvt.rna.tf32.f32 rounds (to
 // nearest, ties away from zero) in two integer operations; lo = x - hi is
@@ -35,17 +23,6 @@ __host__ __device__ constexpr bool is_f32() {
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// an input element's TF32 parts: a bfloat16 value is exact in TF32
-template <typename T>
-__device__ __forceinline__ void parts(float x, uint32_t& hi, uint32_t& lo) {
-  if (is_f32<T>()) {
-    split(x, hi, lo);
-  } else {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  }
 }
 
 // 2^x (ex2.approx: 2 ulp; results below 2^-126 flush to 0)
@@ -66,37 +43,30 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Element (r, c) of a shared-memory tile with rows of D elements: the
-// 16-byte chunks of row r are XOR-swizzled (by fewer bits where a row has
-// fewer than 8 chunks). bfloat16: chunk c ^ (r % 8). float32: chunk
-// c ^ 2 ((r % 4) ^ (r / 4 % 2)), which keeps both the 8-byte pair reads of
-// load_a / load_b_rows (a half warp over 4 rows x 2 chunks) and the
-// 4-byte reads of load_b_cols (4 even or 4 odd rows x 2 chunks) on
-// distinct banks.
-template <typename T, int D>
+// Element (r, c) of a float32 shared-memory tile with rows of D
+// elements: the 16-byte chunks of row r are XOR-swizzled (by fewer bits
+// where a row has fewer than 8 chunks), chunk c ^ 2 ((r % 4) ^ (r / 4 %
+// 2)), which keeps both the 8-byte pair reads of load_a / load_b_rows (a
+// half warp over 4 rows x 2 chunks) and the 4-byte reads of load_b_cols
+// (4 even or 4 odd rows x 2 chunks) on distinct banks.
+template <int D>
 __device__ __forceinline__ int sw(int r, int c) {
-  constexpr int E = 16 / sizeof(T);
+  constexpr int E = 4;                     // floats in a chunk
   constexpr int NC = D / E;
   constexpr int M = NC < 8 ? NC - 1 : 7;
-  const int f = is_f32<T>() ? 2 * ((r & 3) ^ ((r >> 2) & 1)) : r & 7;
+  const int f = 2 * ((r & 3) ^ ((r >> 2) & 1));
   return r * D + (((c / E) ^ (f & M)) * E) + c % E;
 }
 
-template <typename T, int D>
-__device__ __forceinline__ float at(const T* s, int r, int c) {
-  return to_f(s[sw<T, D>(r, c)]);
+template <int D>
+__device__ __forceinline__ float at(const float* s, int r, int c) {
+  return s[sw<D>(r, c)];
 }
 
-// elements (r, c) and (r, c + 1) of a tile, c even: one 8-byte (float32)
-// or 4-byte (bfloat16) read
+// elements (r, c) and (r, c + 1) of a tile, c even: one 8-byte read
 template <int D>
 __device__ __forceinline__ float2 at2(const float* s, int r, int c) {
-  return *reinterpret_cast<const float2*>(s + sw<float, D>(r, c));
-}
-template <int D>
-__device__ __forceinline__ float2 at2(const __nv_bfloat16* s, int r, int c) {
-  const int e = sw<__nv_bfloat16, D>(r, c);
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(s + e));
+  return *reinterpret_cast<const float2*>(s + sw<D>(r, c));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
@@ -133,35 +103,36 @@ __device__ __forceinline__ void cp_wait() {
 // shared-memory row (one read), and a C fragment is already an A.
 
 // A = tile rows r0..r0 + 15, columns k0..k0 + 7
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void load_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
-                                       const T* s, int r0, int k0, int g, int t) {
+                                       const float* s, int r0, int k0, int g,
+                                       int t) {
   const float2 x = at2<D>(s, r0 + g, k0 + 2 * t);
   const float2 y = at2<D>(s, r0 + g + 8, k0 + 2 * t);
-  parts<T>(x.x, hi[0], lo[0]);
-  parts<T>(y.x, hi[1], lo[1]);
-  parts<T>(x.y, hi[2], lo[2]);
-  parts<T>(y.y, hi[3], lo[3]);
+  split(x.x, hi[0], lo[0]);
+  split(y.x, hi[1], lo[1]);
+  split(x.y, hi[2], lo[2]);
+  split(y.y, hi[3], lo[3]);
 }
 
 // B(k, n) = tile[n0 + n][k0 + k]: the tile's rows are B's columns (K^T)
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void load_b_rows(uint32_t (&hi)[2], uint32_t (&lo)[2],
-                                            const T* s, int n0, int k0, int g,
-                                            int t) {
+                                            const float* s, int n0, int k0,
+                                            int g, int t) {
   const float2 x = at2<D>(s, n0 + g, k0 + 2 * t);
-  parts<T>(x.x, hi[0], lo[0]);
-  parts<T>(x.y, hi[1], lo[1]);
+  split(x.x, hi[0], lo[0]);
+  split(x.y, hi[1], lo[1]);
 }
 
 // B(k, n) = tile[k0 + k][n0 + n]: slot t is row k0 + 2t, slot t + 4 row
 // k0 + 2t + 1
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void load_b_cols(uint32_t (&hi)[2], uint32_t (&lo)[2],
-                                            const T* s, int k0, int n0, int g,
-                                            int t) {
-  parts<T>(at<T, D>(s, k0 + 2 * t, n0 + g), hi[0], lo[0]);
-  parts<T>(at<T, D>(s, k0 + 2 * t + 1, n0 + g), hi[1], lo[1]);
+                                            const float* s, int k0, int n0,
+                                            int g, int t) {
+  split(at<D>(s, k0 + 2 * t, n0 + g), hi[0], lo[0]);
+  split(at<D>(s, k0 + 2 * t + 1, n0 + g), hi[1], lo[1]);
 }
 
 // The A fragment whose k is the 8 columns of a C fragment of the same 16
@@ -177,7 +148,7 @@ __device__ __forceinline__ void c_to_a(const float (&c)[4], uint32_t (&hi)[4],
 // c[j] += A B[j] for j in [j_lo, j_hi) to float32 accuracy (3xTF32),
 // pass by pass: lo.hi, hi.lo, then hi.hi over every j, so that
 // back-to-back mmas never wait on each other; a pass whose lo part is
-// exactly 0 (a bfloat16 operand) is dropped
+// exactly 0 (an int8 code) is dropped
 template <bool ALO, bool BLO, int NJ>
 __device__ __forceinline__ void mma3_rows(float (&c)[NJ][4],
                                           const uint32_t (&ah)[4],
@@ -202,36 +173,35 @@ __device__ __forceinline__ void mma3_rows(float (&c)[NJ][4],
 
 // c[j] = A B^T for 8-row blocks j in [j_lo, j_hi) of tile B: A rows
 // r0..r0 + 15 of tile A, both tiles' columns (D of them) the contraction
-template <typename T, int D, int NT>
-__device__ __forceinline__ void rows_by_rows(float (&c)[NT][4], const T* A,
-                                             const T* B, int r0, int j_lo,
+template <int D, int NT>
+__device__ __forceinline__ void rows_by_rows(float (&c)[NT][4], const float* A,
+                                             const float* B, int r0, int j_lo,
                                              int j_hi, int g, int t) {
-  constexpr bool F32 = is_f32<T>();
 #pragma unroll
   for (int ks = 0; ks < D / 8; ++ks) {
     uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
-    load_a<T, D>(ah, al, A, r0, 8 * ks, g, t);
+    load_a<D>(ah, al, A, r0, 8 * ks, g, t);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
       if (j >= j_lo && j < j_hi)
-        load_b_rows<T, D>(bh[j], bl[j], B, 8 * j, 8 * ks, g, t);
-    mma3_rows<F32, F32>(c, ah, al, bh, bl, j_lo, j_hi);
+        load_b_rows<D>(bh[j], bl[j], B, 8 * j, 8 * ks, g, t);
+    mma3_rows<true, true>(c, ah, al, bh, bl, j_lo, j_hi);
   }
 }
 
 // c[n] += A B[n] for every 8-column block n of the D columns of tile B,
-// whose rows k0..k0 + 7 are the contraction (A from a C fragment; ALO
-// false: A is exact in TF32, its lo pass is dropped)
-template <typename T, int D, bool ALO = true>
+// whose rows k0..k0 + 7 are the contraction (A from a C fragment)
+template <int D>
 __device__ __forceinline__ void a_by_cols(float (&c)[D / 8][4],
                                           const uint32_t (&ah)[4],
-                                          const uint32_t (&al)[4], const T* B,
-                                          int k0, int g, int t) {
+                                          const uint32_t (&al)[4],
+                                          const float* B, int k0, int g,
+                                          int t) {
   uint32_t bh[D / 8][2], bl[D / 8][2];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
-    load_b_cols<T, D>(bh[n], bl[n], B, k0, 8 * n, g, t);
-  mma3_rows<ALO, is_f32<T>()>(c, ah, al, bh, bl, 0, D / 8);
+    load_b_cols<D>(bh[n], bl[n], B, k0, 8 * n, g, t);
+  mma3_rows<true, true>(c, ah, al, bh, bl, 0, D / 8);
 }
 
 template <int NI>

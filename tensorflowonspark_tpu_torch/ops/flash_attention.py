@@ -22,13 +22,14 @@ Two formulations share that contract:
   bound through ``ctypes``: ``tfos_flash_fwd`` replaces the Pallas
   ``_fwd_kernel``, ``tfos_flash_dq`` ``_dq_kernel``, ``tfos_flash_dkv``
   ``_dkv_kernel``. Bound on the H100: OPERATIONS at the training shape.
-  At float32 (and dQ in both dtypes) they run their products on the
-  tensor cores (``mma.sync`` TF32) with the 3xTF32 split, so they stay
-  float32-accurate (cuBLAS's TF32 stays off), and stream their tiles
-  through a two-stage ``cp.async`` ring. At bfloat16 the forward and
-  dK/dV run on Hopper's ``wgmma`` with tiles copied by TMA (BERT's
-  path; bound by BYTES there), P^T and dS^T split into bfloat16 hi + lo.
-  The forward keeps its online softmax in registers. The designs are
+  At float32 they run their products on the tensor cores (``mma.sync``
+  TF32) with the 3xTF32 split, so they stay float32-accurate (cuBLAS's
+  TF32 stays off), and stream their tiles through a two-stage
+  ``cp.async`` ring. At bfloat16 all three run on Hopper's ``wgmma``
+  with tiles copied by TMA (BERT's path; bound by BYTES there), dS (dQ)
+  and P^T, dS^T (dK/dV) split into bfloat16 hi + lo; dQ walks only the
+  key tiles its row's mask leaves live. The forward keeps its online
+  softmax in registers. The designs are
   in the source's header and the measured share of the bound in
   PERF.md. Head dims 16/32/64/128, float32 or bfloat16
   inputs with float32 statistics and accumulators.

@@ -7,20 +7,21 @@ A/B kernel sources within one run.
 
 BERT-base's attention as ``chip_smoke.py`` phase 8 trains it: B 32,
 S 384, 12 heads of 64, bfloat16, a key mask with 192-384 live keys a
-row (seeded), not causal. For the forward (``tfos_flash_fwd``) and
-dK/dV (``tfos_flash_dkv``): device time per call through CUDA-graph
-replays and time per eager call (host work included). ``--variant
+row (seeded), not causal. For the forward (``tfos_flash_fwd``), dQ
+(``tfos_flash_dq``) and dK/dV (``tfos_flash_dkv``): device time per
+call through CUDA-graph replays and time per eager call (host work
+included). ``--variant
 NAME=DIR`` builds ``DIR/flash_attention.cu`` (with the headers beside
 it) with the package's nvcc flags and times it in turns with the
 package's own source — package, variants, variants reversed, package —
 each number the mean of its source's turns, so that two designs are
 compared on one card in one call. Each variant's largest difference
-from the package source's outputs (out, lse, dK, dV) is printed beside
-its times (a variant that drops work, to see what that work costs,
-differs). Last, ``scaled_dot_product_attention`` with the same boolean
-mask, its forward and its backward timed the same two ways (the
-yardstick ``chip_smoke.py`` uses; the port never calls it). Needs one
-card.
+from the package source's outputs (out, lse, dQ, dK, dV) is printed
+beside its times (a variant that drops work, to see what that work
+costs, differs). Last, ``scaled_dot_product_attention`` with the same
+boolean mask, its forward and its backward timed the same two ways (the
+yardstick ``chip_smoke.py`` uses; the port never calls it), and each
+source's dQ + dK/dV over SDPA's backward. Needs one card.
 """
 
 import argparse
@@ -154,6 +155,8 @@ def main():
     delta = fa._delta(out, dout)
     kernels = {
         "fwd": lambda: fa._kernel_fwd(q, k, v, bias, False, scale),
+        "dq": lambda: (fa._kernel_dq(q, k, v, bias, dout, lse, delta, False,
+                                     scale),),
         "dkv": lambda: fa._kernel_dkv(q, k, v, bias, dout, lse, delta, False,
                                       scale),
     }
@@ -162,7 +165,7 @@ def main():
     for name in order:
         with _build._lock:
             _build._libs["flash_attention"] = libs[name]
-        got = kernels["fwd"]() + kernels["dkv"]()
+        got = sum((fn() for fn in kernels.values()), ())
         if want is None:
             want = got
         diffs[name] = max((g.float() - w.float()).nan_to_num().abs().max()
@@ -198,6 +201,13 @@ def main():
     print("sdpa         fwd {:.4f} ms device, {:.4f} eager, {:.4f} host  bwd "
           "{:.4f} ms device, {:.4f} eager, {:.4f} host".format(
               fwd_device, *fwd_eager, bwd_device, *bwd_eager))
+    for name in libs:
+        device, eager = (sum(float(np.mean(times[name][kind][i]))
+                             for kind in ("dq", "dkv")) for i in (0, 1))
+        print("{:<12} dq+dkv {:.4f} ms device = {:.3f}x SDPA's backward, "
+              "{:.4f} eager = {:.3f}x".format(
+                  name, device, device / bwd_device, eager,
+                  eager / bwd_eager[0]))
     return 0
 
 

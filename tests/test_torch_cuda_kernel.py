@@ -9,9 +9,11 @@ NaN-poisoned dead pool rows and the tiled kernel's register budget; and
 the three flash-attention kernels (forward, dQ, dK/dV), with
 the two-stage copy ring run through many tiles and a ragged last one,
 32-row tiles at D 128, the backward's determinism (no atomics) and the
-register budgets at D 64; the bfloat16 forward and dK/dV (``wgmma`` +
-TMA) at every head dim, ragged and rectangular, with a key mask, at
-BERT-base's attention shape, and bitwise deterministic. ``chip_smoke.py`` runs the
+register budgets at D 64; the bfloat16 forward, dQ and dK/dV
+(``wgmma`` + TMA) at every head dim, ragged and rectangular, with a key
+mask, at BERT-base's attention shape, dQ with whole key tiles masked in
+the middle and at the end of a row, and bitwise deterministic.
+``chip_smoke.py`` runs the
 same comparisons at the main paths' widths; these are the small-shape
 versions for ``pytest -m cuda``."""
 
@@ -317,8 +319,8 @@ FLASH_CASES = [
     (1, 520, 520, 2, 64, True, False, torch.bfloat16),
     # D 128: 32-row streamed tiles; rectangular, key mask, ragged S_k
     (2, 256, 200, 2, 128, False, True, torch.float32),
-    # the bfloat16 wgmma forward and dK/dV at every head dim: 32-, 64-
-    # and 128-byte swizzled tiles (D 128 in two column halves), ragged
+    # the bfloat16 wgmma forward, dQ and dK/dV at every head dim: 32-,
+    # 64- and 128-byte swizzled tiles (D 128 in two column halves), ragged
     # S, rectangular S_q != S_k, a key mask with a fully masked batch row
     (2, 80, 80, 2, 16, False, True, torch.bfloat16),
     (2, 72, 136, 3, 32, False, True, torch.bfloat16),
@@ -398,6 +400,51 @@ def test_flash_kernels_match_plain(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,causal", [(64, False), (64, True), (128, False),
+                                      (128, True)],
+                         ids=["d64", "d64-causal", "d128", "d128-causal"])
+def test_flash_bf16_dq_skips_dead_key_tiles(cuda, d, causal):
+    """The bfloat16 dQ kernel lists a row's live key tiles (64 keys, 32
+    at D 128) and walks only those: whole tiles masked in the middle and
+    at the end of one batch row, a ragged live tail and a lone live key
+    in another, a third row with nothing live (dQ 0). dQ, and the
+    forward and dK/dV beside it, agree with the plain versions under the
+    unchanged limits."""
+    b, s, n = 3, 320, 2
+    case = (b, s, s, n, d, causal, False, torch.bfloat16)
+    q, k, v, dout, g_lse, _ = _flash_inputs(cuda, case)
+    m = torch.from_numpy(np.random.RandomState(d).rand(b, s) > 0.3)
+    m[:, 0] = True
+    m[0, 64:192] = False           # tiles 1-2 (D 128: 2-5) dead, mid row
+    m[0, 256:] = False             # and the last tile
+    m[1, 100:] = False             # a ragged live tail
+    m[1, 288] = True               # a lone live key in the last tile
+    m[2] = False                   # nothing live
+    bias = fa._mask_to_bias(m.to(cuda))
+    scale = d ** -0.5
+    out, lse = fa._kernel_fwd(q, k, v, bias, causal, scale)
+    delta = fa._delta(out, dout, g_lse)
+    before = fa.launches["dq"]
+    dq = fa._kernel_dq(q, k, v, bias, dout, lse, delta, causal, scale)
+    dk, dv = fa._kernel_dkv(q, k, v, bias, dout, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.launches["dq"] == before + 1
+    want_out, want_lse = fa._reference_lse(q, k, v, causal, scale, bias)
+    want_dq = fa._dq_plain(q, k, v, bias, dout, lse, delta, causal, scale)
+    want_dk, want_dv = fa._dkv_plain(q, k, v, bias, dout, lse, delta,
+                                     causal, scale)
+    pv, _ = fa._reference_lse(q, k, v.abs(), causal, scale, bias)
+    _assert_close(lse, want_lse.reshape(b * n, s))
+    for got, want, row in ((out, want_out, pv), (dq, want_dq, None),
+                           (dk, want_dk, None), (dv, want_dv, None)):
+        assert torch.isfinite(got).all()
+        _assert_close(got, want, row)
+    assert (dq[2] == 0).all() and (out[2] == 0).all()
+    # a dead key gets no gradient
+    assert (dk.float()[~m.to(cuda)] == 0).all()
+
+
+@pytest.mark.cuda
 def test_flash_backward_is_deterministic(cuda):
     """dQ and dK/dV have one writer per output tile and no atomics: two
     launches on the same inputs are bitwise equal."""
@@ -417,17 +464,21 @@ def test_flash_backward_is_deterministic(cuda):
 
 @pytest.mark.cuda
 def test_flash_bf16_dkv_is_deterministic(cuda):
-    """The bfloat16 dK/dV kernel keeps one writer per output tile (a
-    warpgroup owns 64 keys and loops over every Q tile itself): two
-    launches on the same inputs are bitwise equal, the forward's too."""
+    """The bfloat16 dQ and dK/dV kernels keep one writer per output tile
+    (a warpgroup owns 64 queries or keys and loops over the other
+    operand's tiles itself; no atomics): two launches on the same inputs
+    are bitwise equal, the forward's too."""
     case = (2, 384, 384, 12, 64, False, True, torch.bfloat16)
     q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
     scale = 64 ** -0.5
     out, lse = fa._kernel_fwd(q, k, v, bias, False, scale)
     out2, lse2 = fa._kernel_fwd(q, k, v, bias, False, scale)
     delta = fa._delta(out, dout, g_lse)
-    first = fa._kernel_dkv(q, k, v, bias, dout, lse, delta, False, scale)
-    second = fa._kernel_dkv(q, k, v, bias, dout, lse, delta, False, scale)
+    first = (fa._kernel_dq(q, k, v, bias, dout, lse, delta, False, scale),
+             *fa._kernel_dkv(q, k, v, bias, dout, lse, delta, False, scale))
+    second = (fa._kernel_dq(q, k, v, bias, dout, lse, delta, False, scale),
+              *fa._kernel_dkv(q, k, v, bias, dout, lse, delta, False,
+                              scale))
     torch.cuda.synchronize()
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
     for a, b in zip(first, second):
@@ -441,10 +492,13 @@ def test_flash_bf16_dkv_is_deterministic(cuda):
 def test_flash_backward_budget_at_d64(cuda, kind, dtype):
     """At the training head dim the backward kernels keep every value in
     registers (no local-memory spills) and fit at least one CTA per SM
-    within the card's shared memory."""
+    within the card's shared memory; the bfloat16 dQ kernel (one
+    warpgroup, BERT's path) at least two."""
     got = fa.budget(kind, 64, dtype)
     assert got["spill_bytes"] == 0
     assert got["ctas_per_sm"] >= 1
+    if kind == "dq" and dtype == torch.bfloat16:
+        assert got["ctas_per_sm"] >= 2
     assert 0 < got["smem_bytes"] <= 227 * 1024
 
 

@@ -13,10 +13,11 @@ also held against torch autograd of the plain forward at 1e-5.
 The backward kernels multiply on the tensor cores in TF32 with the
 3xTF32 split; an emulation of that arithmetic here pins why three
 passes (and not one) keep them within the card's float32 limits. The
-bfloat16 forward and dK/dV kernels multiply bfloat16 operands on
+bfloat16 forward, dQ and dK/dV kernels multiply bfloat16 operands on
 ``wgmma``: the emulation pins that the forward's products are the
-one-pass TF32 products in another order, and why dK/dV splits P^T and
-dS^T into bfloat16 hi + lo (one rounding misses the bfloat16 limits).
+one-pass TF32 products in another order, and why dQ splits dS and dK/dV
+P^T and dS^T into bfloat16 hi + lo (one rounding misses the bfloat16
+limits).
 """
 
 import jax
@@ -212,8 +213,8 @@ def _mm(a, b, a_lo=True, b_lo=True):
 
 
 def _bf16_parts(x, parts):
-    """``x`` as bfloat16 A operands in the order the dK/dV kernel issues
-    them: ``[hi]`` (one rounding) or ``[lo, hi]`` with ``hi`` = x rounded
+    """``x`` as bfloat16 A operands in the order the dQ and dK/dV kernels
+    issue them: ``[hi]`` (one rounding) or ``[lo, hi]`` with ``hi`` = x rounded
     to bfloat16 and ``lo`` the float32 remainder rounded again."""
     hi = x.to(torch.bfloat16).float()
     return [hi] if parts == 1 else [(x - hi).to(torch.bfloat16).float(), hi]
@@ -225,10 +226,10 @@ def _emulated_bwd(q, k, v, dout, lse, delta, causal, scale, passes=3,
     products: ``passes`` 3 is 3xTF32 (``input_lo`` False drops the lo
     parts of q, k, v, dO, as the bfloat16 kernels do; P and dS are always
     split), 1 a single TF32 pass everywhere. ``pds_parts`` 1 or 2 takes
-    dK and dV as the bfloat16 ``wgmma`` kernel does: P^T and dS^T rounded
-    to bfloat16 (1) or split into bfloat16 lo and hi (2, lo first), each
-    part times the bfloat16 input exact in float32, summed in float32.
-    ``bias``: the ``[B, S_k]`` key-mask row."""
+    dQ, dK and dV as the bfloat16 ``wgmma`` kernels do: dS, P^T and dS^T
+    rounded to bfloat16 (1) or split into bfloat16 lo and hi (2, lo
+    first), each part times the bfloat16 input exact in float32, summed
+    in float32. ``bias``: the ``[B, S_k]`` key-mask row."""
 
     def mm(a, b, a_input, b_input):
         if passes == 1:
@@ -255,11 +256,12 @@ def _emulated_bwd(q, k, v, dout, lse, delta, causal, scale, passes=3,
     p = p.masked_fill(torch.isneginf(s), 0.0)
     dp = mm(of, vf.transpose(-1, -2), True, True)
     ds = p * (dp - delta.reshape(b, n, s_q, 1))
-    dq = mm(ds, kf, False, True) * scale
     if pds_parts:
+        dq = mm_parts(ds, kf) * scale
         dk = mm_parts(ds.transpose(-1, -2), qf) * scale
         dv = mm_parts(p.transpose(-1, -2), of)
     else:
+        dq = mm(ds, kf, False, True) * scale
         dk = mm(ds.transpose(-1, -2), qf, False, True) * scale
         dv = mm(p.transpose(-1, -2), of, False, True)
     return tuple(x.permute(0, 2, 1, 3) for x in (dq, dk, dv))
@@ -351,6 +353,34 @@ def test_dkv_bf16_hi_lo_split_holds_bf16_limits_one_rounding_does_not():
         assert _bf16_limit_ratio(x, w) <= 0.75
     # the fully masked batch row's keys get no gradient
     assert (two[0][-1] == 0).all() and (two[1][-1] == 0).all()
+
+
+def test_dq_bf16_hi_lo_split_holds_bf16_limits_one_rounding_does_not():
+    """The bfloat16 dQ kernel feeds dS to ``wgmma`` as the A operand of
+    dS K. At the same BERT-like shape (B 2, S 384, D 64, key mask with a
+    fully masked batch row), dS rounded once to bfloat16 misses the
+    card's bfloat16 limit on dQ (~1.3x of it at this seed); split into
+    bfloat16 hi + lo (two passes, lo first) dQ stays within three
+    quarters of it (~0.5x), and the fully masked row's dQ is 0. So dQ
+    pays for the second pass as dK/dV does."""
+    b, s, n, d = 2, 384, 4, 64
+    q, k, v, mask, g, _ = _inputs(b, s, s, n, d, True, 0)
+    q, k, v, g = (_t(x).to(torch.bfloat16) for x in (q, k, v, g))
+    bias = fa._mask_to_bias(_t(mask))
+    scale = d ** -0.5
+    out, lse = fa._reference_lse(q, k, v, False, scale, bias)
+    lse = lse.reshape(b * n, s)
+    delta = fa._delta(out, g)
+    want = fa._dq_plain(q, k, v, bias, g, lse, delta, False, scale)
+    args = tuple(x.float() for x in (q, k, v, g)) + (lse, delta, False,
+                                                      scale)
+    one = _emulated_bwd(*args, bias=bias, pds_parts=1)[0]
+    two = _emulated_bwd(*args, bias=bias, pds_parts=2)[0]
+    assert _bf16_limit_ratio(one, want) > 1.0
+    assert torch.isfinite(two).all()
+    assert _bf16_limit_ratio(two, want) <= 0.75
+    # the fully masked batch row's queries get no gradient
+    assert (two[-1] == 0).all()
 
 
 # -- the forward kernel's tensor-core arithmetic, emulated --------------
