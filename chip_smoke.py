@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port (``tensorflowonspark_tpu_torch``) on one
 NVIDIA card, end to end — serving, training, training fed through the
 cluster plane, the pipeline (TFRecords, data-parallel fit with
-checkpoint and resume, export, transform), and the model zoo with
-``:predict`` — and hold its CUDA kernels against their plain PyTorch
+checkpoint and resume, export, transform), the model zoo with
+``:predict``, and the cluster API's streaming, example and TFParallel
+paths — and hold its CUDA kernels against their plain PyTorch
 versions.
 
     python3 chip_smoke.py
@@ -161,12 +162,38 @@ Phases, stopping with a non-zero exit at the first failure:
    request p50/p99 and rows/s and the apply calls, ResNet-50 images/s
    (one card) and peak memory, Inception-v3 images/s, Wide & Deep rows/s
    and the phase's wall;
-9. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
+9. examples and streaming — (a) phase 5's 80 records as 5 spool files
+   of 16 lines of token ids, each written hidden and renamed, the first
+   at once and the rest every 0.25 s once the trainer has pulled its
+   first batch: ``StreamingContext(sc).textFileStream(spool)`` feeds
+   ``tfc.train(dstream)`` on a one-executor cluster running phase 6's
+   trainer, which parses each line back into tokens, and
+   ``tfc.shutdown(ssc)`` follows the last file. Exactly 10 steps, losses
+   equal to phase 5's within 1e-4 relative, every record consumed once
+   in order, no CUDA context in the executor, 12 launches of each
+   float32 flash kernel a step. Printed: records/s, the lag from each
+   file's landing to its first batch, the step p50 beside phase 5's.
+   (b) ``python -m tensorflowonspark_tpu_torch.examples.bert.
+   bert_squad_spark --full_size`` through ``cluster.run(InputMode.SPARK)``
+   on one executor: BERT-base, bfloat16, dropout 0, S 64 with seeded
+   lengths (keys masked), batch 32, 256 examples: 8 steps in its
+   ``train_stats.json``, the loss falls, 12 launches of each bfloat16
+   flash kernel a step as the trainer counted them. Printed:
+   sequences/s and the trainer's start-up. (c)
+   ``parallel_runner.run(sc, parallel_job, args, 2)``: two jobs share
+   the card, each Inception-v3 (299 px) from the seed on its own seeded
+   batch of 32, in processes of their own forked from CUDA-free
+   executors; the same two forwards in this process give the same
+   logits (``PREDICT_RTOL``) and top-1 wherever the top-2 gap is clear.
+   Printed: each job's wall and start-up. The Spark adapter has no leg
+   here (no pyspark on the card's machine): the CPU tests hold it;
+10. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
    counts as ``launches_cluster``, phase 7's as ``launches_pipeline``,
    phase 8's (BERT training plus ``:predict``) as ``launches_models``,
-   their times at BERT's shape as ``bert_shape``, and the kernel each
-   dtype runs as ``design``), the card line,
-   and last the ``{"ok": true, ...}`` line.
+   phase 9's streaming-fed trainer's as ``launches_streaming`` and the
+   BERT example's as ``launches_examples``, their times at BERT's shape
+   as ``bert_shape``, and the kernel each dtype runs as ``design``), the
+   card line, and last the ``{"ok": true, ...}`` line.
 
 ``--out-dir DIR`` also writes every number of the run to
 ``DIR/chip_smoke.json``. Needs one card; exits non-zero, printing no
@@ -557,6 +584,9 @@ FLASH_CASES = [
     ("d: S48 block16 causal", 2, 48, 48, True, "float32", None, 16),
     ("e: BERT B32 S384 bf16 key mask", 32, 384, 384, False, "bfloat16", 3,
      128),
+    # Phase 9(b)'s shape: each row is one partly masked 64-key tile.
+    ("f: BERT example B32 S64 bf16 key mask", 32, 64, 64, False, "bfloat16",
+     3, 128),
 ]
 
 
@@ -1101,12 +1131,15 @@ def row_digest(row):
 
 
 def cluster_map_fun(args, ctx):
-    """The trainer of phase 6, run by the port's cluster in a process
-    forked from the executor (this function ships by value from
+    """The trainer of phases 6 and 9(a), run by the port's cluster in a
+    process forked from the executor (this function ships by value from
     ``__main__``): phase 5's model and optimizer from the same seed,
     fed by ``DataFeed`` through ``infeed.device_batches`` into
     ``Trainer.train_loop`` with the goodput ledger; writes what it saw to
-    ``args["out"]``."""
+    ``args["out"]``. With ``args["text"]`` each record is a line of
+    comma-separated token ids (phase 9's spool files), parsed back into
+    a row; ``args["first_batch_mark"]`` is a file it creates when it
+    pulls its first batch."""
     import json
     import time
 
@@ -1136,15 +1169,23 @@ def cluster_map_fun(args, ctx):
     state = trainer.init(gen.manual_seed(args["seed"]))
     float(next(model.parameters()).sum())  # the init has run
     marks.append(("init", time.time()))
-    feed = ctx.get_data_feed(train_mode=True,
-                             input_mapping={"tokens": "tokens"})
+    # phase 9 streams the records as text lines of token ids
+    text = args.get("text", False)
+    feed = ctx.get_data_feed(
+        train_mode=True, input_mapping=None if text else {"tokens": "tokens"})
     marks.append(("feed", time.time()))
     digests, pulled = [], []
 
     def batches():
         for b in feed.numpy_batches(args["batch"]):
             pulled.append(time.time())
-            rows = b["tokens"]  # the feed's staging buffer, reused
+            if text:
+                rows = np.stack([np.array(line.split(","), np.int64)
+                                 for line in b])
+            else:
+                rows = b["tokens"]  # the feed's staging buffer, reused
+            if len(pulled) == 1 and args.get("first_batch_mark"):
+                open(args["first_batch_mark"], "w").close()
             digests.extend(row_digest(r) for r in rows)
             yield {"x": rows[:, :-1], "y": rows[:, 1:]}
 
@@ -2393,6 +2434,344 @@ def models_phase(torch, dev, here):
     return res
 
 
+# -- phase 9: examples and streaming ----------------------------------------
+
+
+#: phase 9(a): phase 5's 80 records as 5 spool files of 16, one record a
+#: line; the first lands at once, the rest every STREAM_LAND_S seconds
+#: (faster than the trainer's 2 steps a file) once the trainer has
+#: pulled its first batch, and the stream polls every STREAM_POLL_S
+STREAM_FILES, STREAM_FILE_RECORDS = 5, 16
+STREAM_LAND_S, STREAM_POLL_S = 0.25, 0.1
+#: phase 9(b): the port's bert_squad_spark --full_size --dropout 0 through the
+#: cluster, one executor, 256 examples in batches of 32 (8 steps), at
+#: the example's S 64 with seeded lengths 32-63 (keys masked)
+EXAMPLE_BERT_BATCH, EXAMPLE_BERT_EXAMPLES, EXAMPLE_BERT_LR = 32, 256, 1e-4
+EXAMPLE_BERT_LAYERS = 12
+#: phase 9(c): two parallel_runner jobs, each Inception-v3 (299 px) from
+#: the seed on its own seeded batch of 32, against the same forwards in
+#: this process. Phase 8 holds two calls in one process bitwise equal;
+#: another process may get other cuDNN algorithms for the same
+#: convolutions, so the logits are held at phase 8's tolerance for a
+#: bfloat16 model's outputs computed in another call (PREDICT_RTOL:
+#: 2^-5 of the largest |logit|), and top-1 equal wherever the top-2 gap
+#: exceeds it
+PARALLEL_JOBS = 2
+
+
+def parallel_job(args, index):
+    """One ``parallel_runner`` job (shipped by value from ``__main__``;
+    runs in a child forked from an executor): Inception-v3 from the seed
+    on the card, its own seeded batch of 32; returns the logits, its pid
+    and device, its start-up and wall."""
+    import os
+    import time
+
+    t0 = time.monotonic()
+    import numpy as np
+    import torch
+    from tensorflowonspark_tpu_torch.models import inception
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(args["device"])
+    model = inception_model(torch, inception, dev, args["seed"])
+    x = inception_batch(torch, dev, args["seed"], index)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    startup = time.monotonic() - t0
+    with torch.inference_mode():
+        logits = model(x).float().cpu().numpy()
+    return {"index": index, "logits": logits, "pid": os.getpid(),
+            "device": str(dev), "startup_s": startup,
+            "wall_s": time.monotonic() - t0}
+
+
+def inception_model(torch, inception, dev, seed):
+    model = inception.InceptionV3(device=dev).to(
+        memory_format=torch.channels_last)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    return model.eval()
+
+
+def inception_batch(torch, dev, seed, index):
+    rng = np.random.RandomState(seed + 40 + index)
+    img = rng.randint(0, 256, (INCEPTION_BATCH, INCEPTION_IMAGE,
+                               INCEPTION_IMAGE, 3), dtype=np.uint8)
+    return torch.from_numpy(img).to(dev).float() / 255.0
+
+
+def streaming_leg(device, phase5, parent):
+    """9(a): phase 5's records land as spool files; ``textFileStream``
+    feeds ``tfc.train(dstream)`` on a one-executor cluster whose trainer
+    is phase 6's; ``shutdown(ssc)`` after the last file."""
+    import shutil
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import cluster
+    from tensorflowonspark_tpu_torch.engine import Context, StreamingContext
+    from tensorflowonspark_tpu_torch.examples.streaming import (
+        streaming_mnist)
+
+    batches = motif_batches(TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    rows = np.concatenate([np.concatenate([b["x"], b["y"][:, -1:]], axis=1)
+                           for b in batches])
+    check(len(rows) == STREAM_FILES * STREAM_FILE_RECORDS, "spool sizes")
+    lines = [",".join(str(int(t)) for t in r) for r in rows]
+    work = tempfile.mkdtemp(prefix=".tfos-stream-", dir=parent)
+    spool = os.path.join(work, "spool")
+    os.makedirs(spool)
+    out = os.path.join(work, "trainer.json")
+    mark = os.path.join(work, "first-batch")
+    args = {"device": device, "seed": SEED, "lr": TRAIN_LR,
+            "batch": TRAIN_BATCH, "out": out, "text": True,
+            "first_batch_mark": mark,
+            "model": {"vocab": VOCAB, "hidden": HIDDEN, "heads": HEADS,
+                      "layers": LAYERS, "max_len": MAX_LEN}}
+    landed = []
+    sc = Context(num_executors=1, work_root=os.path.join(work, "engine"))
+    try:
+        tfc = cluster.run(sc, cluster_map_fun, args, 1,
+                          input_mode=cluster.InputMode.SPARK)
+        ssc = StreamingContext(sc, batch_interval=STREAM_POLL_S)
+        tfc.train(ssc.textFileStream(spool, num_slices=1))
+        ssc.start()
+        t0 = time.monotonic()
+        for i in range(STREAM_FILES):
+            if i == 1:
+                deadline = time.monotonic() + 600
+                while not os.path.exists(mark):
+                    check(time.monotonic() < deadline,
+                          "the streaming trainer pulled no batch in 600 s")
+                    time.sleep(0.02)
+            elif i > 1:
+                time.sleep(STREAM_LAND_S)
+            part = lines[i * STREAM_FILE_RECORDS:(i + 1) * STREAM_FILE_RECORDS]
+            streaming_mnist.land_file(spool, "part-%05d" % i, part)
+            landed.append(time.time())
+        # the last file's micro-batch dispatches at the next poll;
+        # shutdown(ssc) stops the stream (draining it) before EndFeed
+        time.sleep(2 * STREAM_POLL_S)
+        ts = time.monotonic()
+        tfc.shutdown(ssc)
+        shutdown_s = time.monotonic() - ts
+        wall = time.monotonic() - t0
+        # after shutdown: the executor runs one task at a time, and a
+        # probe (which imports torch there, seconds) queued between two
+        # micro-batches' feed tasks would hold the later files back
+        probe = sc.parallelize([0], 1).mapPartitions(cuda_probe).collect()
+    finally:
+        sc.stop()
+    alive = [p.pid for p in sc._procs if p.poll() is None]
+    check(not alive, "executors alive after sc.stop(): {}".format(alive))
+    with open(out) as f:
+        got = json.load(f)
+    spooled = sorted(os.listdir(spool))
+    shutil.rmtree(work, ignore_errors=True)
+    check(spooled == ["part-%05d" % i for i in range(STREAM_FILES)],
+          "the spool holds {}".format(spooled))
+    check(got["device"] == "cuda:0" or device == "cpu",
+          "the streaming trainer ran on {}".format(got["device"]))
+    check(got["steps"] == TRAIN_STEPS and len(got["losses"]) == TRAIN_STEPS,
+          "the streaming trainer took {} steps, not {}".format(
+              got["steps"], TRAIN_STEPS))
+    check(got["digests"] == [row_digest(r) for r in rows],
+          "the streamed records were not each consumed once, in order")
+    for i, c in enumerate(got["flash_launches"]):
+        check(all(c[k] == LAYERS * (i + 1) for k in c),
+              "streaming step {}: flash launches {} are not {} per kernel "
+              "per step".format(i + 1, c, LAYERS))
+    want = phase5["losses"]
+    rel = [abs(g - w) / abs(w) for g, w in zip(got["losses"], want)]
+    check(max(rel) <= STEP_LOSS_RTOL,
+          "streaming-fed losses differ from phase 5's (worst rel {:.2e})"
+          .format(max(rel)))
+    check(probe and probe[0]["cuda_initialized"] is False,
+          "the executor holds a CUDA context: {}".format(probe))
+    check(probe[0]["foreign"] == [], "the executor imported {}".format(
+        probe[0]["foreign"]))
+    per_file = TRAIN_STEPS // STREAM_FILES
+    pulled = got["pulled_wall"]
+    lags = [pulled[i * per_file] - landed[i] for i in range(STREAM_FILES)]
+    steady = (STREAM_FILES - 1) * STREAM_FILE_RECORDS
+    steady_s = pulled[-1] - landed[1]
+    p50 = float(np.median(got["step_s"]))
+    marks = got["startup_marks"]
+    log("streaming losses: " + " ".join("{:.4f}".format(x)
+                                        for x in got["losses"]))
+    log("streaming vs phase 5 losses: worst rel {:.2e} (tol {:.0e})".format(
+        max(rel), STEP_LOSS_RTOL))
+    log("streaming lag from a file landing to its first batch: {} s (file "
+        "0 waits for the trainer's start-up: {})".format(
+            " ".join("{:.3f}".format(x) for x in lags), ", ".join(
+                "{} {:.3f}s".format(name, t - marks[i][1])
+                for i, (name, t) in enumerate(marks[1:]))))
+    log("streaming records/s: {:.1f} over files 1-{} ({} records from the "
+        "second landing to the last batch, {:.3f}s); {:.1f} over the run "
+        "({} records, {:.3f}s from the first landing to shutdown's end, "
+        "start-up included); shutdown(ssc) {:.3f}s".format(
+            steady / steady_s, STREAM_FILES - 1, steady, steady_s,
+            len(rows) / wall, len(rows), wall, shutdown_s))
+    log("streaming-fed step p50 {:.4f}s vs phase 5 {:.4f}s (ratio {:.3f})"
+        .format(p50, phase5["p50_s"], p50 / phase5["p50_s"]))
+    return {"losses": got["losses"], "loss_rel_worst": max(rel),
+            "lags_s": lags, "records_per_s_steady": steady / steady_s,
+            "records_per_s_run": len(rows) / wall, "wall_s": wall,
+            "shutdown_s": shutdown_s, "p50_s": p50,
+            "phase5_p50_s": phase5["p50_s"], "step_s": got["step_s"],
+            "startup_marks": marks, "probe": probe[0],
+            "flash_launches": got["flash_launches"][-1]}
+
+
+def bert_example_leg(here, parent):
+    """9(b): ``python -m ...examples.bert.bert_squad_spark --full_size``
+    through ``cluster.run(InputMode.SPARK)``, one executor; every check
+    reads the chief's ``train_stats.json``."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix=".tfos-bert-", dir=parent)
+    model_dir = os.path.join(work, "model")
+    steps = EXAMPLE_BERT_EXAMPLES // EXAMPLE_BERT_BATCH
+    cmd = [sys.executable, "-m",
+           "tensorflowonspark_tpu_torch.examples.bert.bert_squad_spark",
+           "--cluster_size", "1", "--full_size", "--dropout", "0",
+           "--batch_size", str(EXAMPLE_BERT_BATCH),
+           "--num_examples", str(EXAMPLE_BERT_EXAMPLES),
+           "--lr", str(EXAMPLE_BERT_LR), "--model_dir", model_dir]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    res = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.monotonic() - t0
+    check(res.returncode == 0, "bert_squad_spark --full_size failed:\n"
+          + res.stdout[-2000:] + res.stderr[-3000:])
+    with open(os.path.join(model_dir, "train_stats.json")) as f:
+        got = json.load(f)
+    shutil.rmtree(work, ignore_errors=True)
+    losses = got["losses"]
+    check(got["steps"] == steps and len(losses) == steps,
+          "the BERT example took {} steps, not {}".format(got["steps"],
+                                                         steps))
+    check(got["device"] == "cuda:0", "the BERT example trained on {}".format(
+        got["device"]))
+    check(got["config"] == {"hidden": 768, "layers": EXAMPLE_BERT_LAYERS,
+                            "heads": 12, "dtype": "torch.bfloat16",
+                            "dropout_rate": 0.0, "seq": 64},
+          "the BERT example's config is {}".format(got["config"]))
+    check(all(np.isfinite(losses)) and np.mean(losses[-3:]) < losses[0],
+          "the BERT example's loss did not fall: {}".format(losses))
+    for i, c in enumerate(got["flash_launches"]):
+        check(all(c[k] == EXAMPLE_BERT_LAYERS * (i + 1) for k in c),
+              "BERT example step {}: flash launches {} are not {} per "
+              "kernel per step".format(i + 1, c, EXAMPLE_BERT_LAYERS))
+    p50 = float(np.median(got["step_s"]))
+    log("BERT example losses: " + " ".join("{:.4f}".format(x)
+                                          for x in losses))
+    log("BERT example (bert_squad_spark --full_size, S 64, batch {}, one "
+        "executor): sequences/s {:.1f} (train_loop), step p50 {:.4f}s "
+        "({:.1f} sequences/s); trainer start-up {:.3f}s; command wall "
+        "{:.1f}s; flash launches per kernel {}".format(
+            EXAMPLE_BERT_BATCH, got["examples_per_sec"], p50,
+            EXAMPLE_BERT_BATCH / p50, got["startup_s"], wall,
+            got["flash_launches"][-1]))
+    return {"losses": losses, "sequences_per_s": got["examples_per_sec"],
+            "p50_s": p50, "startup_s": got["startup_s"], "wall_s": wall,
+            "step_s": got["step_s"],
+            "flash_launches": got["flash_launches"][-1]}
+
+
+def parallel_leg(torch, dev, parent):
+    """9(c): ``parallel_runner.run(sc, parallel_job, args, 2)``: two jobs
+    share the card; the same two forwards in this process."""
+    from tensorflowonspark_tpu_torch import parallel_runner
+    from tensorflowonspark_tpu_torch.engine import Context
+    from tensorflowonspark_tpu_torch.models import inception
+
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix=".tfos-parallel-", dir=parent)
+    args = {"device": str(dev), "seed": SEED}
+    t0 = time.monotonic()
+    sc = Context(num_executors=PARALLEL_JOBS, work_root=work)
+    try:
+        results = parallel_runner.run(sc, parallel_job, args, PARALLEL_JOBS)
+        probe = sc.parallelize(list(range(PARALLEL_JOBS)),
+                               PARALLEL_JOBS).mapPartitions(
+                                   cuda_probe).collect()
+    finally:
+        sc.stop()
+    wall = time.monotonic() - t0
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
+    results = sorted(results, key=lambda r: r["index"])
+    check([r["index"] for r in results] == list(range(PARALLEL_JOBS)),
+          "parallel_runner returned jobs {}".format(
+              [r["index"] for r in results]))
+    pids = {r["pid"] for r in results}
+    check(len(pids) == PARALLEL_JOBS and os.getpid() not in pids,
+          "the jobs did not run in processes of their own: {}".format(pids))
+    check(all(r["device"].startswith("cuda") for r in results),
+          "a job ran on {}".format([r["device"] for r in results]))
+    check(all(p["cuda_initialized"] is False for p in probe),
+          "an executor holds a CUDA context: {}".format(probe))
+    model = inception_model(torch, inception, dev, SEED)
+    worst, bitwise = 0.0, True
+    for r in results:
+        with torch.inference_mode():
+            want = model(inception_batch(torch, dev, SEED, r["index"]))
+        want = want.float().cpu().numpy()
+        got = np.asarray(r["logits"])
+        check(got.shape == want.shape and np.isfinite(got).all(),
+              "job {} logits: shape {} or not finite".format(r["index"],
+                                                            got.shape))
+        bitwise = bitwise and np.array_equal(got, want)
+        top = np.abs(want).max()
+        err = np.abs(got - want).max() / top
+        worst = max(worst, err)
+        check(err <= PREDICT_RTOL, "job {} logits differ from this "
+              "process's by {:.2e} of the largest (tol {:.2e})".format(
+                  r["index"], err, PREDICT_RTOL))
+        srt = np.sort(want, axis=1)
+        clear = (srt[:, -1] - srt[:, -2]) > PREDICT_RTOL * top
+        check((got.argmax(1) == want.argmax(1))[clear].all(),
+              "job {}: top-1 differs where the top-2 gap is clear".format(
+                  r["index"]))
+    del model
+    log("parallel_runner: {} Inception-v3 jobs ({} px, batch {}) on one "
+        "card, pids {}: wall {} s, start-up {} s; run() {:.2f}s; logits "
+        "vs this process worst {:.2e} of the largest (tol {:.2e}), "
+        "bitwise {}".format(
+            PARALLEL_JOBS, INCEPTION_IMAGE, INCEPTION_BATCH, sorted(pids),
+            " ".join("{:.2f}".format(r["wall_s"]) for r in results),
+            " ".join("{:.2f}".format(r["startup_s"]) for r in results),
+            wall, worst, PREDICT_RTOL, bitwise))
+    return {"wall_s": [r["wall_s"] for r in results],
+            "startup_s": [r["startup_s"] for r in results],
+            "run_s": wall, "rel_err": worst, "bitwise": bitwise,
+            "pids": sorted(pids)}
+
+
+def examples_phase(torch, dev, phase5, here):
+    """Phase 9: the streaming-fed trainer, the BERT example through the
+    cluster and two TFParallel jobs; returns every number of the
+    phase."""
+    t0 = time.monotonic()
+    res = {"streaming": streaming_leg(None if dev.type == "cuda" else "cpu",
+                                      phase5, here)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["bert_example"] = bert_example_leg(here, here)
+    res["parallel"] = parallel_leg(torch, dev, here)
+    log("spark_adapter: no leg on the card (no pyspark on this machine); "
+        "tests/test_torch_spark_adapter.py holds it on the CPU")
+    res["wall_s"] = time.monotonic() - t0
+    log("examples phase wall {:.1f}s".format(res["wall_s"]))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -2494,6 +2873,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     zoo = models_phase(torch, dev, here)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex = examples_phase(torch, dev, train, here)
     t = timing["decode"][False]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -2575,6 +2957,10 @@ def main():
             "launches_models": zoo["bert"]["launches"][name] + (
                 zoo["bert"]["predict"]["fwd_launches"] if name == "fwd"
                 else 0),
+            # phase 9: the streaming-fed trainer (float32) and the BERT
+            # example's trainer (bfloat16), as each trainer counted them
+            "launches_streaming": ex["streaming"]["flash_launches"][name],
+            "launches_examples": ex["bert_example"]["flash_launches"][name],
             # the same kernel at BERT's shape (bfloat16, key mask, S 384)
             "bert_shape": zoo["bert"]["flash_timing"][name],
             # case (a), the main path's shape and dtype; every case below
@@ -2614,6 +3000,7 @@ def main():
                        "cluster": clus,
                        "pipeline": pipe,
                        "models": zoo,
+                       "examples": ex,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     log("total: {:.1f}s".format(time.monotonic() - t_start))
     print(json.dumps(kernels))

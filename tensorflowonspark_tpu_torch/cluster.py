@@ -14,9 +14,14 @@ The reference's "<10 lines of code change" conversion story is preserved:
     cluster.train(dataRDD, num_epochs)
     cluster.shutdown()
 
-where ``sc`` is an :class:`~tensorflowonspark_tpu_torch.engine.Context` (or any
-object with the same RDD surface), and ``map_fun(args, ctx)`` receives a
-:class:`~tensorflowonspark_tpu_torch.node.NodeContext`.
+where ``sc`` is an :class:`~tensorflowonspark_tpu_torch.engine.Context`,
+a real ``SparkContext`` wrapped in
+:class:`~tensorflowonspark_tpu_torch.engine.spark_adapter.SparkEngineAdapter`,
+or any object with the same RDD surface, and ``map_fun(args, ctx)``
+receives a :class:`~tensorflowonspark_tpu_torch.node.NodeContext`.
+``train`` also takes a DStream from
+:class:`~tensorflowonspark_tpu_torch.engine.streaming.StreamingContext`,
+which ``shutdown(ssc)`` stops first.
 
 Left for later slices: ``run(supervise=...)`` (the supervision plane)
 and ``serving_fleet`` (the fleet plane), both ROADMAP Queue 1 item 11;
@@ -233,7 +238,8 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
         master_node="chief", reservation_timeout=reservation.DEFAULT_TIMEOUT,
         queues=("input", "output", "error"), eval_node=False,
         manager_mode="local", filesystems=None, supervise=None,
-        exclude_executors=(), beat_interval=None, prefer_alive=False):
+        exclude_executors=(), beat_interval=None, prefer_alive=False,
+        rendezvous_timeout=None):
     """Start a cluster: one node per executor, roles per the template.
 
     Reference: ``TFCluster.run`` (SURVEY.md §3.1). ``num_ps`` is accepted
@@ -251,6 +257,12 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     never reach workers; this is the supported way to make ``hdfs://``/
     ``gs://`` paths resolvable cluster-wide. Openers ship through the
     engine's serializer, so module-level functions or closures both work.
+
+    ``rendezvous_timeout``: seconds a trainer's
+    ``NodeContext.initialize_torch`` waits for the other ranks to form
+    the ``torch.distributed`` group (default
+    :data:`node.DEFAULT_RENDEZVOUS_TIMEOUT`, 300, the reference's bound)
+    before it raises.
 
     ``supervise``: the supervision plane is not ported yet; passing one
     raises. ``exclude_executors`` / ``beat_interval`` are that plane's
@@ -343,6 +355,9 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
         # heartbeat-lease cadence for the supervision plane (node.py's
         # beat thread); SupervisorConfig tightens it for fast detection
         "beat_interval": float(beat_interval) if beat_interval else None,
+        # bound on the trainers' torch.distributed rendezvous
+        "rendezvous_timeout": (float(rendezvous_timeout)
+                               if rendezvous_timeout else None),
     }
 
     # 4. async bootstrap job: one pinned task per executor.

@@ -21,10 +21,17 @@ Pieces:
   by-value closure pickler (no ``cloudpickle``).
 - :mod:`~tensorflowonspark_tpu_torch.engine.dataframe` — named, typed
   columns over a row RDD (``Context.createDataFrame``).
-
-Left for a later slice: ``streaming`` and ``spark_adapter`` (ROADMAP
-Queue 1 item 4c).
+- :mod:`~tensorflowonspark_tpu_torch.engine.streaming` — the DStream
+  analog (``StreamingContext``: ``queueStream``, ``textFileStream``,
+  ``foreachRDD``) that ``cluster.train`` feeds from.
+- :mod:`~tensorflowonspark_tpu_torch.engine.spark_adapter` — the
+  lazy-pyspark shim (``SparkEngineAdapter``, ``from_spark``) that runs
+  the cluster API on a real ``SparkContext``.
 """
 
 from tensorflowonspark_tpu_torch.engine.context import Context  # noqa: F401
 from tensorflowonspark_tpu_torch.engine.rdd import RDD  # noqa: F401
+from tensorflowonspark_tpu_torch.engine.spark_adapter import (  # noqa: F401
+    SparkEngineAdapter, from_spark)
+from tensorflowonspark_tpu_torch.engine.streaming import (  # noqa: F401
+    DStream, StreamingContext)

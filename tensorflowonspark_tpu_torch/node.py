@@ -42,6 +42,7 @@ serving, with the fleet plane, ROADMAP Queue 1 item 11) and
 ``NodeContext.mesh`` (with the port's ``parallel`` package, item 6).
 """
 
+import datetime
 import logging
 import multiprocessing
 import os
@@ -81,6 +82,12 @@ FEED_CHUNK_MAX = 4096
 #: feed/shutdown tasks that later run in the same executor process
 #: (reference: executor_id file + ``_get_manager`` reconnect).
 _NODE_STATE = {}
+
+#: seconds a trainer waits for the others at the torch.distributed
+#: rendezvous before it raises: the reference's bound (jax's default
+#: ``initialization_timeout``); ``cluster_meta["rendezvous_timeout"]``
+#: (``cluster.run(rendezvous_timeout=)``) overrides it
+DEFAULT_RENDEZVOUS_TIMEOUT = 300.0
 
 
 def _state():
@@ -210,8 +217,13 @@ class NodeContext(object):
         With more than one participant and ``TFOS_TPU_DISTRIBUTED`` on
         (the default), this calls ``torch.distributed.init_process_group``
         at :meth:`coordinator_address` with rank = this node's index among
-        the participants — NCCL on the card, gloo on the CPU. ps/evaluator
-        nodes are not participants and get their device only.
+        the participants — NCCL on the card, gloo on the CPU — and a
+        bound of :data:`DEFAULT_RENDEZVOUS_TIMEOUT` seconds (or
+        ``cluster_meta["rendezvous_timeout"]``) on the group's forming
+        and its collectives: a rank that never joins makes the others
+        raise after it, in the trainer, and the error surfaces at
+        ``cluster.shutdown``. ps/evaluator nodes are not participants and
+        get their device only.
 
         Call it in the trainer (the ``map_fun``), never in the executor:
         the first CUDA call of a process creates its CUDA context, and
@@ -236,11 +248,14 @@ class NodeContext(object):
             import torch.distributed as dist
 
             if not dist.is_initialized():
+                timeout = (self.cluster_meta.get("rendezvous_timeout")
+                           or DEFAULT_RENDEZVOUS_TIMEOUT)
                 dist.init_process_group(
                     backend="nccl" if device.type == "cuda" else "gloo",
                     init_method="tcp://" + self.coordinator_address(),
                     world_size=len(participants),
-                    rank=ids.index(self.executor_id))
+                    rank=ids.index(self.executor_id),
+                    timeout=datetime.timedelta(seconds=float(timeout)))
         return device
 
     def task_sorted_index(self):

@@ -31,8 +31,12 @@ Two formulations share that contract:
   key tiles its row's mask leaves live. The forward keeps its online
   softmax in registers. The designs are
   in the source's header and the measured share of the bound in
-  PERF.md. Head dims 16/32/64/128, float32 or bfloat16
-  inputs with float32 statistics and accumulators.
+  PERF.md. Head dims 16/32/64/128 are instantiated; any other head
+  dim up to 128 runs zero-padded to the next of them (zero columns add
+  nothing to ``q k^T``, so lse and the true columns are unchanged), and
+  a batch whose ``B * N`` exceeds one launch's grid runs in slices of
+  the batch (:func:`_on_kernels`). Float32 or bfloat16 inputs with
+  float32 statistics and accumulators.
 - the **plain versions** — :func:`_reference_lse` (forward),
   :func:`_dq_plain` and :func:`_dkv_plain` (backward, the kernels'
   FlashAttention-2 formulas on the whole score matrix), and
@@ -51,12 +55,18 @@ import ctypes
 import threading
 
 import torch
+import torch.nn.functional as F
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 
-#: head dims the kernels are instantiated for (a template parameter)
+#: head dims the kernels are instantiated for (a template parameter);
+#: narrower heads run zero-padded to the next of them
 HEAD_DIMS = (16, 32, 64, 128)
+
+#: the most ``B * N`` one launch takes (the bfloat16 kernels put it on
+#: grid y); a larger batch is launched in slices
+MAX_BATCH_HEADS = 65535
 
 #: input dtypes the kernels take (statistics are float32 either way)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -223,7 +233,8 @@ def _check_inputs(q, k, v, bias, causal, extra=()):
     _check(bias is None or (bias.dtype == torch.float32
                             and tuple(bias.shape) == (b, s_k)),
            "bias must be float32 [B, S_k]")
-    _check(0 < b * n <= 65535, "B * N must be in [1, 65535]")
+    _check(0 < b * n <= MAX_BATCH_HEADS,
+           "B * N must be in [1, {}]".format(MAX_BATCH_HEADS))
     _check(s_q > 0 and s_k > 0, "sequence lengths must be positive")
     return b, s_q, s_k, n, d
 
@@ -339,6 +350,60 @@ def budget(kind, d, dtype):
 # -- dispatch and autograd ----------------------------------------------
 
 
+def padded_head_dim(d):
+    """The instantiated head dim a ``d``-wide head runs at on the
+    kernels: the narrowest of :data:`HEAD_DIMS` that holds it."""
+    for dp in HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(
+        "flash_attention kernel: head_dim {} is wider than {}, the widest "
+        "instantiation; heads above 128 wait for ROADMAP Queue 2 item 7 "
+        "(flash head dims above 128)".format(d, HEAD_DIMS[-1]))
+
+
+def _on_kernels(fns, q, k, v, bias, causal, scale, bwd=()):
+    """Call each kernel wrapper of ``fns`` (``_kernel_fwd``, ``_kernel_dq``
+    or ``_kernel_dkv``, or a plain version with the same signature) at any
+    head dim up to 128 and any ``B * N``, on inputs padded once for all.
+
+    q, k, v and dO (the first of ``bwd = (dout, lse, delta)``) are
+    zero-padded on D to :func:`padded_head_dim`; ``scale`` is the caller's,
+    taken from the true D. Zero columns add nothing to ``q k^T``, so lse,
+    P and dS are those of the unpadded inputs, and the padded columns of
+    out, dQ, dK and dV come out zero and are sliced away. A batch whose
+    ``B * N`` exceeds :data:`MAX_BATCH_HEADS` is launched in slices of
+    whole batch rows (lse and delta rows ``b * N ...``), joined after.
+    Returns a tuple: what each of ``fns`` returns."""
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    if dp != d:
+        q, k, v = (F.pad(t, (0, dp - d)) for t in (q, k, v))
+        if bwd:
+            bwd = (F.pad(bwd[0], (0, dp - d)),) + tuple(bwd[1:])
+    b, n = q.shape[0], q.shape[2]
+    _check(b > 0 and 0 < n <= MAX_BATCH_HEADS,
+           "B must be positive and N in [1, {}]".format(MAX_BATCH_HEADS))
+    per = MAX_BATCH_HEADS // n
+    results = []
+    for fn in fns:
+        parts = []
+        for b0 in range(0, b, per):
+            rows, heads = slice(b0, b0 + per), slice(b0 * n, (b0 + per) * n)
+            extra = () if not bwd else (bwd[0][rows], bwd[1][heads],
+                                        bwd[2][heads])
+            parts.append(fn(q[rows], k[rows], v[rows],
+                            None if bias is None else bias[rows], *extra,
+                            causal, scale))
+        single = torch.is_tensor(parts[0])
+        joined = [torch.cat(ts) if len(ts) > 1 else ts[0]
+                  for ts in zip(*[(p,) if single else p for p in parts])]
+        joined = [t[..., :d].contiguous() if t.dim() == 4 and dp != d else t
+                  for t in joined]
+        results.append(joined[0] if single else tuple(joined))
+    return tuple(results)
+
+
 def _route(t, impl):
     """``"kernel"`` or ``"plain"`` for a tensor: None picks the kernel
     for CUDA tensors and the plain versions for CPU tensors."""
@@ -358,7 +423,13 @@ def _route(t, impl):
 def _fwd(q, k, v, bias, causal, scale, impl):
     """``(out, lse [B*N, S_q])`` through the kernel or the plain version."""
     if _route(q, impl) == "kernel":
-        return _kernel_fwd(q, k, v, bias, causal, scale)
+        return _on_kernels((_kernel_fwd,), q, k, v, bias, causal, scale)[0]
+    return _fwd_plain(q, k, v, bias, causal, scale)
+
+
+def _fwd_plain(q, k, v, bias, causal, scale):
+    """The forward kernel's plain version, with its signature and its
+    ``(out, lse [B*N, S_q])`` result."""
     b, s_q, n, _ = q.shape
     out, lse = _reference_lse(q, k, v, causal, scale, bias)
     return out, lse.reshape(b * n, s_q)
@@ -382,8 +453,8 @@ class _FlashPair(torch.autograd.Function):
         g = g.contiguous()
         delta = _delta(out, g, g_lse)
         if _route(q, ctx.impl) == "kernel":
-            dq = _kernel_dq(q, k, v, bias, g, lse, delta, causal, scale)
-            dk, dv = _kernel_dkv(q, k, v, bias, g, lse, delta, causal, scale)
+            dq, (dk, dv) = _on_kernels((_kernel_dq, _kernel_dkv), q, k, v,
+                                       bias, causal, scale, (g, lse, delta))
         else:
             dq = _dq_plain(q, k, v, bias, g, lse, delta, causal, scale)
             dk, dv = _dkv_plain(q, k, v, bias, g, lse, delta, causal, scale)

@@ -2,7 +2,7 @@
 """Where a training step's time goes in the PyTorch/CUDA port.
 
     python3 -m tensorflowonspark_tpu_torch.profile_train [--steps 5]
-        [--model decoder|bert|resnet50]
+        [--model decoder|bert|resnet50] [--seq 384]
 
 Builds a model that ``chip_smoke.py`` trains, with random weights from
 a seed (float32 products with TF32 off where the model is float32):
@@ -12,7 +12,8 @@ a seed (float32 products with TF32 off where the model is float32):
   ``adamw(3e-4)``, batches of 8 x 1024 random tokens;
 - ``bert``: BERT-base QA (bfloat16, dropout off, so attention takes the
   flash kernels), ``adamw(3e-5)``, batches of 32 x 384 random tokens
-  with 192-384 live keys a row;
+  with 192-384 live keys a row (``--seq S``: 32 x S with S/2-S live
+  keys; 64 is the ``bert_squad_spark`` example's length);
 - ``resnet50``: ResNet-50 (bfloat16, float32 BatchNorm,
   ``channels_last``), SGD 0.1 with momentum 0.9, 64 random 224x224
   images.
@@ -37,7 +38,7 @@ BERT_BATCH, BERT_SEQ = 32, 384
 RESNET_BATCH, RESNET_IMAGE = 64, 224
 
 
-def _build(torch, name, dev, seed):
+def _build(torch, name, dev, seed, bert_seq=BERT_SEQ):
     """``(trainer, batch, shape)`` of one model ``chip_smoke.py``
     trains."""
     from tensorflowonspark_tpu_torch import training
@@ -58,18 +59,18 @@ def _build(torch, name, dev, seed):
 
         model = bert.BertForQuestionAnswering(
             bert.BertConfig(dropout_rate=0.0), device=dev)
-        lengths = rng.randint(BERT_SEQ // 2, BERT_SEQ + 1, BERT_BATCH)
-        batch = {"input_ids": rng.randint(16, 30522, (BERT_BATCH, BERT_SEQ)),
-                 "attention_mask": np.arange(BERT_SEQ)[None, :]
-                 < lengths[:, None],
-                 "token_type_ids": np.zeros((BERT_BATCH, BERT_SEQ), np.int64),
-                 "start_positions": rng.randint(0, BERT_SEQ // 2, BERT_BATCH),
-                 "end_positions": rng.randint(0, BERT_SEQ // 2, BERT_BATCH)}
+        s = bert_seq
+        lengths = rng.randint(s // 2, s + 1, BERT_BATCH)
+        batch = {"input_ids": rng.randint(16, 30522, (BERT_BATCH, s)),
+                 "attention_mask": np.arange(s)[None, :] < lengths[:, None],
+                 "token_type_ids": np.zeros((BERT_BATCH, s), np.int64),
+                 "start_positions": rng.randint(0, s // 2, BERT_BATCH),
+                 "end_positions": rng.randint(0, s // 2, BERT_BATCH)}
         trainer = training.Trainer(
             model, training.adamw(3e-5), loss_fn=bert.qa_span_loss,
             input_keys=("input_ids", "attention_mask", "token_type_ids"),
             device=dev)
-        shape = "{} x {} tokens".format(BERT_BATCH, BERT_SEQ)
+        shape = "{} x {} tokens".format(BERT_BATCH, s)
     else:
         from tensorflowonspark_tpu_torch.models import resnet
 
@@ -94,6 +95,8 @@ def main():
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--model", default="decoder",
                     choices=("decoder", "bert", "resnet50"))
+    ap.add_argument("--seq", type=int, default=BERT_SEQ,
+                    help="BERT's sequence length (--model bert)")
     args = ap.parse_args()
     import torch
 
@@ -107,7 +110,8 @@ def main():
     from tensorflowonspark_tpu_torch import device_info
 
     dev = device_info.default_device()
-    trainer, batch, shape = _build(torch, args.model, dev, args.seed)
+    trainer, batch, shape = _build(torch, args.model, dev, args.seed,
+                                   args.seq)
     state = trainer.init(torch.Generator(device=dev).manual_seed(args.seed))
 
     def step():

@@ -263,6 +263,47 @@ def test_initialize_torch_gloo_all_reduce(tmp_path):
                and g["backend"] == "gloo" for g in got)
 
 
+def test_rendezvous_that_cannot_form_raises_within_its_bound(tmp_path):
+    """Rank 1 of a two-rank gloo group never joins: rank 0's
+    ``initialize_torch`` raises after ``cluster.run(rendezvous_timeout=
+    3)`` seconds (not torch's 30 minutes), in the trainer, and the error
+    surfaces at ``shutdown``."""
+    bound, margin = 3.0, 20.0
+    out_dir = str(tmp_path / "ranks")
+    os.makedirs(out_dir)
+
+    def map_fun(args, ctx):
+        import time as _time
+
+        if ctx.executor_id == 1:
+            return  # never joins the group
+        t0 = _time.monotonic()
+        try:
+            ctx.initialize_torch("cpu")
+        except Exception as e:  # noqa: BLE001 - recorded, then re-raised
+            with open(os.path.join(args["out"], "r0"), "w") as f:
+                json.dump({"s": _time.monotonic() - t0,
+                           "error": type(e).__name__}, f)
+            raise
+        with open(os.path.join(args["out"], "r0"), "w") as f:
+            json.dump({"s": _time.monotonic() - t0, "error": None}, f)
+
+    sc = Context(num_executors=2, work_root=str(tmp_path / "engine"),
+                 executor_env={"TFOS_TPU_DISTRIBUTED": "1"})
+    try:
+        tfc = cluster.run(sc, map_fun, {"out": out_dir}, num_executors=2,
+                          input_mode=cluster.InputMode.TENSORFLOW,
+                          rendezvous_timeout=bound)
+        assert tfc.cluster_meta["rendezvous_timeout"] == bound
+        with pytest.raises(RuntimeError, match="DistStoreError|[Tt]imed out"):
+            tfc.shutdown()
+    finally:
+        sc.stop()
+    got = json.load(open(os.path.join(out_dir, "r0")))
+    assert got["error"] is not None
+    assert bound - 0.5 <= got["s"] <= bound + margin, got
+
+
 # -- the slice as a whole ------------------------------------------------------
 
 CFG = {"vocab": 64, "hidden": 32, "num_heads": 2, "num_layers": 2,

@@ -444,6 +444,73 @@ def test_flash_bf16_dq_skips_dead_key_tiles(cuda, d, causal):
     assert (dk.float()[~m.to(cuda)] == 0).all()
 
 
+def _pair_through_route(q, k, v, bias, dout, g_lse, causal, scale):
+    """The public autograd pair on the card (the route that pads D and
+    slices the batch): out, lse [B*N, S_q], dq, dk, dv."""
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    out, lse = fa._FlashPair.apply(q, k, v, bias, causal, scale, None)
+    torch.autograd.backward([out, lse], [dout, g_lse])
+    return out.detach(), lse.detach(), q.grad, k.grad, v.grad
+
+
+def _check_against_plain(q, k, v, bias, dout, g_lse, causal, scale, got):
+    out, lse, dq, dk, dv = got
+    b, s_q, n, _ = q.shape
+    delta = fa._delta(out, dout, g_lse)
+    want_out, want_lse = fa._reference_lse(q, k, v, causal, scale, bias)
+    want_dq = fa._dq_plain(q, k, v, bias, dout, lse, delta, causal, scale)
+    want_dk, want_dv = fa._dkv_plain(q, k, v, bias, dout, lse, delta,
+                                     causal, scale)
+    pv, _ = fa._reference_lse(q, k, v.abs(), causal, scale, bias)
+    _assert_close(lse, want_lse.reshape(b * n, s_q))
+    for t, want, row in ((out, want_out, pv), (dq, want_dq, None),
+                         (dk, want_dk, None), (dv, want_dv, None)):
+        assert t.dtype == q.dtype and t.shape == q.shape
+        assert torch.isfinite(t).all()
+        _assert_close(t, want, row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)],
+                         ids=["causal", "key_mask"])
+@pytest.mark.parametrize("d", [8, 24, 96, 112])
+def test_flash_pads_head_dims_it_has_no_instantiation_for(cuda, d, causal,
+                                                          masked, dtype):
+    """Head dims 8, 24, 96 and 112 run zero-padded to 16, 32, 128 and 128
+    with the scale of the true D: out, lse, dQ, dK and dV at the true D
+    against the plain versions under the unchanged limits, one launch of
+    each kernel."""
+    case = (2, 136, 136, 3, d, causal, masked, dtype)
+    q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
+    scale = d ** -0.5
+    before = dict(fa.launches)
+    got = _pair_through_route(q, k, v, bias, dout, g_lse, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.launches == {k_: before[k_] + 1 for k_ in before}
+    _check_against_plain(q, k, v, bias, dout, g_lse, causal, scale, got)
+    if masked:
+        assert (got[0][-1] == 0).all() and (got[2][-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_takes_more_batch_heads_than_one_launch(cuda, dtype):
+    """B * N = 65600, above the 65535 one launch takes: the batch goes in
+    two slices (4095 rows, then 5), each kernel launched twice, and every
+    output agrees with the plain versions."""
+    case = (4100, 16, 16, 16, 16, True, True, dtype)
+    q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
+    scale = 16 ** -0.5
+    before = dict(fa.launches)
+    got = _pair_through_route(q, k, v, bias, dout, g_lse, True, scale)
+    torch.cuda.synchronize()
+    assert fa.launches == {k_: before[k_] + 2 for k_ in before}
+    _check_against_plain(q, k, v, bias, dout, g_lse, True, scale, got)
+
+
 @pytest.mark.cuda
 def test_flash_backward_is_deterministic(cuda):
     """dQ and dK/dV have one writer per output tile and no atomics: two

@@ -20,6 +20,8 @@ P^T and dS^T into bfloat16 hi + lo (one rounding misses the bfloat16
 limits).
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -484,3 +486,271 @@ def test_forward_bf16_products_equal_one_pass_tf32_up_to_order():
         wg = wg + p[:, c:c + 16] @ v[c:c + 16]
     order = 128 * 2.0 ** -24 * (p.abs() @ v.abs())
     assert ((wg - _mm(p, v, False, False)).abs() <= order).all()
+
+
+# -- head dims the kernels are not instantiated for, and B * N past one
+# launch: the kernel route zero-pads D and slices the batch ------------
+
+#: padded against unpadded plain versions: the same products plus zero
+#: terms; float32 sums of other lengths may round apart in the last bits
+PAD_F32_TOL = 1e-5
+#: bfloat16 outputs: one rounding of float32 values that differ in the
+#: last bits can land one bfloat16 ulp (2^-7 relative) apart
+PAD_BF16_RTOL = 2.0 ** -7
+
+
+def _pad_inputs(d, causal, masked, dtype, b=2, s=48, n=3, seed=7):
+    q, k, v, mask, g, g_lse = _inputs(b, s, s, n, d, masked, seed)
+    ts = [_t(x).to(dtype) for x in (q, k, v, g)]
+    bias = fa._mask_to_bias(_t(mask)) if masked else None
+    out, lse = fa._fwd_plain(ts[0], ts[1], ts[2], bias, causal, d ** -0.5)
+    delta = fa._delta(out, ts[3], _t(g_lse))
+    return ts, bias, lse, delta
+
+
+def _pad_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(torch.isneginf(got).numpy(),
+                                  torch.isneginf(want).numpy())
+    fin = torch.isfinite(want)
+    g, w = got.float()[fin], want.float()[fin]
+    if got.dtype == torch.bfloat16:
+        limit = PAD_BF16_RTOL * w.abs() + 1e-6
+    else:
+        limit = PAD_F32_TOL * max(1.0, w.abs().max().item())
+    assert ((g - w).abs() <= limit).all(), (g - w).abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True),
+                                           (True, True)],
+                         ids=["causal", "key_mask", "causal_key_mask"])
+@pytest.mark.parametrize("d", [8, 24, 96, 112])
+def test_padded_plain_versions_equal_unpadded(d, causal, masked, dtype,
+                                             monkeypatch):
+    """The kernel route's padding (``_on_kernels``) around the plain
+    versions gives what the plain versions give at the true D: out, lse,
+    dQ, dK and dV, with the scale of the true D."""
+    (q, k, v, dout), bias, lse, delta = _pad_inputs(d, causal, masked,
+                                                     dtype)
+    scale = d ** -0.5
+    seen = []
+
+    def spy(plain):
+        def run(*args):
+            seen.append(args[0].shape[-1])
+            return plain(*args)
+        return run
+
+    (out_p, lse_p), = fa._on_kernels((spy(fa._fwd_plain),), q, k, v, bias,
+                                     causal, scale)
+    out, lse_u = fa._fwd_plain(q, k, v, bias, causal, scale)
+    _pad_close(out_p, out)
+    _pad_close(lse_p, lse_u)
+    pads = []
+
+    def pad(*args, **kwargs):
+        pads.append(args[0].shape)
+        return torch.nn.functional.pad(*args, **kwargs)
+
+    monkeypatch.setattr(fa, "F", SimpleNamespace(pad=pad))
+    dq_p, (dk_p, dv_p) = fa._on_kernels(
+        (spy(fa._dq_plain), spy(fa._dkv_plain)), q, k, v, bias, causal,
+        scale, (dout, lse, delta))
+    assert len(pads) == 4  # q, k, v and dO, once for both kernels
+    _pad_close(dq_p, fa._dq_plain(q, k, v, bias, dout, lse, delta, causal,
+                                  scale))
+    dk, dv = fa._dkv_plain(q, k, v, bias, dout, lse, delta, causal, scale)
+    _pad_close(dk_p, dk)
+    _pad_close(dv_p, dv)
+    assert seen == [fa.padded_head_dim(d)] * 3
+    assert fa.padded_head_dim(d) in fa.HEAD_DIMS and fa.padded_head_dim(d) > d
+    if masked:  # the fully masked batch row: out and grads zero
+        assert (out_p[-1] == 0).all() and (dq_p[-1] == 0).all()
+
+
+def test_batch_slices_equal_one_launch(monkeypatch):
+    """B * N above one launch's grid: the batch goes in slices of whole
+    rows (here at most 4 heads a launch: rows 0-1, 2-3, 4), and the
+    joined out, lse, dQ, dK and dV equal one call's."""
+    d, causal = 16, False
+    (q, k, v, dout), bias, lse, delta = _pad_inputs(
+        d, causal, True, torch.float32, b=5, n=2)
+    scale = d ** -0.5
+    res = (dout, lse, delta)
+    whole = [fa._fwd_plain(q, k, v, bias, causal, scale),
+             fa._dq_plain(q, k, v, bias, dout, lse, delta, causal, scale),
+             fa._dkv_plain(q, k, v, bias, dout, lse, delta, causal, scale)]
+    batches = []
+
+    def spy(plain):
+        def run(*args):
+            assert args[0].shape[0] * args[0].shape[2] <= 4
+            batches.append(args[0].shape[0])
+            return plain(*args)
+        return run
+
+    monkeypatch.setattr(fa, "MAX_BATCH_HEADS", 4)
+    sliced = fa._on_kernels((spy(fa._fwd_plain),), q, k, v, bias, causal,
+                            scale) + fa._on_kernels(
+        (spy(fa._dq_plain), spy(fa._dkv_plain)), q, k, v, bias, causal,
+        scale, res)
+    assert batches == [2, 2, 1] * 3
+    assert torch.equal(sliced[1], whole[1])
+    for got, want in zip(sliced[0] + sliced[2], whole[0] + whole[2]):
+        assert torch.equal(got, want)
+
+
+def test_head_dim_above_128_raises_naming_the_roadmap_item():
+    assert [fa.padded_head_dim(d) for d in (1, 16, 17, 64, 65, 128)] == \
+        [16, 16, 32, 64, 128, 128]
+    q = torch.zeros(1, 16, 1, 192)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 7"):
+        fa._on_kernels((fa._fwd_plain,), q, q, q, None, False, 192 ** -0.5)
+    empty = torch.zeros(0, 16, 1, 16)
+    with pytest.raises(ValueError, match="B must be positive"):
+        fa._on_kernels((fa._fwd_plain,), empty, empty, empty, None, False,
+                       0.25)
+
+
+@pytest.fixture
+def kernel_route(monkeypatch):
+    """CPU tensors down the kernel route: ``_route`` says "kernel" (but
+    for ``impl="plain"``) and each kernel wrapper is its plain version
+    behind the contract the CUDA entry points check (an instantiated
+    head dim, ``B * N`` within one launch). Returns the head dims each
+    stand-in saw."""
+    seen = []
+
+    def stand_in(plain):
+        def run(q, k, v, bias, *rest):
+            assert q.shape[-1] in fa.HEAD_DIMS
+            assert q.shape[0] * q.shape[2] <= fa.MAX_BATCH_HEADS
+            seen.append(q.shape[-1])
+            return plain(q, k, v, bias, *rest)
+        return run
+
+    monkeypatch.setattr(fa, "_route", lambda t, impl: (
+        "plain" if impl == "plain" else "kernel"))
+    monkeypatch.setattr(fa, "_kernel_fwd", stand_in(fa._fwd_plain))
+    monkeypatch.setattr(fa, "_kernel_dq", stand_in(fa._dq_plain))
+    monkeypatch.setattr(fa, "_kernel_dkv", stand_in(fa._dkv_plain))
+    return seen
+
+
+@pytest.mark.parametrize("d", [12, 96])
+def test_kernel_route_pads_through_autograd(kernel_route, d):
+    """``flash_attention_lse`` on the kernel route at D 12 and 96 (padded
+    to 16 and 128 inside) against the plain route: out, lse and the
+    gradients through both outputs."""
+    q, k, v, mask, g, g_lse = _inputs(2, 32, 32, 2, d, True, 9)
+    outs = []
+    for impl in (None, "plain"):
+        tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+        out, lse = fa.flash_attention_lse(tq, tk, tv, causal=True,
+                                          key_mask=_t(mask), impl=impl)
+        torch.autograd.backward([out, lse], [_t(g), _t(g_lse)])
+        outs.append([out.detach(), lse.detach(), tq.grad, tk.grad, tv.grad])
+    assert kernel_route == [fa.padded_head_dim(d)] * 3
+    for got, want in zip(*outs):
+        _pad_close(got, want)
+
+
+def test_decoder_head_dim_12_trains_like_the_reference(kernel_route):
+    """``DecoderLM(hidden=96, num_heads=8)`` (D 12) at S 128 takes the
+    flash route, padded to 16 on the kernel route, and gives the JAX
+    package's logits and, over 3 ``adamw`` steps, its losses."""
+    import optax
+    from jax.sharding import Mesh
+
+    from tensorflowonspark_tpu import training as jtraining
+    from tensorflowonspark_tpu.models.decoder import DecoderLM as JaxLM
+    from tensorflowonspark_tpu_torch import convert, training
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+    vocab, hidden, heads, layers, seq = 64, 96, 8, 2, 128
+    rng = np.random.RandomState(12)
+    batches = []
+    for _ in range(3):
+        row = rng.randint(0, vocab, (2, seq + 1)).astype(np.int32)
+        batches.append({"x": row[:, :-1], "y": row[:, 1:]})
+    jlm = JaxLM(vocab=vocab, hidden=hidden, num_heads=heads,
+                num_layers=layers, max_len=seq)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    jt = jtraining.Trainer(jlm, optax.adamw(1e-3), mesh,
+                           loss_fn=jtraining.softmax_xent)
+    jstate = jt.init(jax.random.PRNGKey(0), batches[0]["x"])
+    params = jax.tree.map(np.asarray, jstate["params"])
+    model = DecoderLM(vocab, hidden=hidden, num_heads=heads,
+                      num_layers=layers, max_len=seq)
+    model.load_state_dict(convert.from_flax(params))
+    want = np.asarray(jlm.apply({"params": params}, batches[0]["x"]))
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(batches[0]["x"])).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert kernel_route == [16] * layers
+    tt = training.Trainer(model, training.adamw(1e-3), device="cpu")
+    tstate = tt.init()
+    for batch in batches:
+        jstate, jm = jt.step(jstate, batch)
+        tstate, tm = tt.step(tstate, batch)
+        assert abs(float(tm["loss"]) - float(jm["loss"])) <= \
+            1e-4 * abs(float(jm["loss"]))
+    # each step: one forward, dQ and dK/dV per layer, all at 16
+    assert kernel_route == [16] * (layers + 3 * 3 * layers)
+
+
+def test_bert_head_dim_96_matches_the_reference(kernel_route):
+    """A BERT config with 2 heads of 96 (padded to 128 on the kernel
+    route), a padded tail and holes in the key mask: the QA logits equal
+    flax's, and the gradients of the span loss equal jax.grad's."""
+    from tensorflowonspark_tpu.models import bert as jbert
+    from tensorflowonspark_tpu_torch import convert
+    from tensorflowonspark_tpu_torch.models import bert
+
+    jc, tc = jbert.bert_tiny(), bert.bert_tiny()
+    for c, dt in ((jc, jnp.float32), (tc, torch.float32)):
+        c.dtype, c.hidden_size, c.num_heads, c.dropout_rate = dt, 192, 2, 0.0
+    b, s = 4, 32
+    rng = np.random.RandomState(96)
+    ids = rng.randint(0, 1024, (b, s)).astype(np.int32)
+    mask = np.ones((b, s), bool)
+    mask[0, 20:] = False
+    mask[1, 5:9] = False
+    tt = (np.arange(s)[None, :] >= s // 2).astype(np.int32).repeat(b, 0)
+    start = rng.randint(0, s, b).astype(np.int32)
+    end = rng.randint(0, s, b).astype(np.int32)
+    jm = jbert.BertForQuestionAnswering(jc)
+    params = jax.tree.map(np.asarray, jm.init(
+        jax.random.PRNGKey(0), ids, mask, tt)["params"])
+    tm = bert.BertForQuestionAnswering(tc)
+    tm.load_state_dict(convert.bert_from_flax(params))
+    batch = {"start_positions": start, "end_positions": end}
+
+    def jloss(p):
+        logits = jm.apply({"params": p}, ids, mask, tt, deterministic=True)
+        return jbert.qa_span_loss(logits, batch), logits
+
+    (want_loss, want), jgrads = jax.value_and_grad(jloss, has_aux=True)(
+        params)
+    tm.train()
+    got = tm(*[torch.from_numpy(x) for x in (ids, mask, tt)])
+    loss = bert.qa_span_loss(got, {k: torch.from_numpy(v)
+                                   for k, v in batch.items()})
+    loss.backward()
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert np.abs(g.detach().numpy() - w).max() <= 1e-4 * np.abs(w).max()
+    assert abs(loss.item() - float(want_loss)) <= 1e-4 * float(want_loss)
+    want_grads = convert.bert_from_flax(jax.tree.map(np.asarray, jgrads))
+    grads = dict(tm.named_parameters())
+    # 1e-4 of each parameter's largest gradient, over a floor of 1e-6 of
+    # the largest of all: the key biases' and the QA head bias's
+    # gradients are zero in exact arithmetic (a shift of a whole row's
+    # logits) and float32 noise on both sides
+    top = max(float(w.abs().max()) for w in want_grads.values())
+    for name, w in want_grads.items():
+        err = float((grads[name].grad - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()) + 1e-6 * top, name
+    assert kernel_route == [128] * (3 * jc.num_layers)

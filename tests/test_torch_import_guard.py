@@ -1,9 +1,10 @@
 """The port stands alone: it imports nothing of JAX, flax, optax, orbax,
 the JAX package or cloudpickle, and its kernel modules import (and
 serve, train, run a cluster, fit, checkpoint, export and transform
-through the pipeline, and run the model zoo and ``:predict`` on the CPU)
-without a CUDA compiler — kernels build at their first launch on a
-card."""
+through the pipeline, run the model zoo and ``:predict``, stream
+micro-batches into a cluster, run TFParallel jobs, bind the Spark
+adapter and import every example driver on the CPU) without a CUDA
+compiler — kernels build at their first launch on a card."""
 
 import ast
 import os
@@ -21,7 +22,9 @@ PLANE = ("util", "marker", "fs", "frames", "shm", "manager", "tracing",
          "cluster", "engine/__init__", "engine/serializer", "engine/rdd",
          "engine/context", "engine/executor", "engine/dataframe",
          "tfrecord", "_tfrecord_native", "dfutil", "checkpoint", "export",
-         "pipeline")
+         "pipeline", "engine/streaming", "engine/spark_adapter",
+         "parallel_runner")
+EXAMPLES = os.path.join(PORT, "examples")
 #: the model zoo's modules, the weight bridge and the serving module
 MODELS = ("models/__init__", "models/_layers", "models/lenet",
           "models/resnet", "models/bert", "models/widedeep",
@@ -426,5 +429,99 @@ def test_model_zoo_and_predict_run_with_jax_unimportable(tmp_path):
         assert not loaded, loaded
         print("OK")
     """.replace("WORK", repr(str(tmp_path))))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def _example_files():
+    return sorted(os.path.join(d, n) for d, _, names in os.walk(EXAMPLES)
+                  for n in names if n.endswith(".py"))
+
+
+def test_example_drivers_import_no_torch_at_module_scope():
+    """Every example driver is the port's own and imports torch only
+    inside its functions: the driver and the executors that import it
+    never touch CUDA; only a forked trainer does."""
+    files = _example_files()
+    drivers = [os.path.relpath(f, EXAMPLES) for f in files
+               if not os.path.basename(f).startswith("_")]
+    assert len(drivers) == 11, drivers
+    for path in files:
+        mods = list(_imports(path))
+        assert not [m for m in mods if m.split(".")[0] in FORBIDDEN], path
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        top = [a.name for n in tree.body if isinstance(n, ast.Import)
+               for a in n.names] + [n.module for n in tree.body
+                                    if isinstance(n, ast.ImportFrom)
+                                    and n.module]
+        assert not [m for m in top if m.split(".")[0] == "torch"], path
+
+
+def test_cluster_api_and_examples_run_with_jax_unimportable(tmp_path):
+    """From a process where jax, flax, optax, the JAX package and
+    cloudpickle cannot be imported: every example driver imports, a
+    ``StreamingContext.queueStream`` feeds a one-executor cluster through
+    ``tfc.train(dstream)`` and ``shutdown(ssc)``, ``parallel_runner.run``
+    returns its job's value, and the Spark adapter binds a SparkContext
+    stand-in; none of the forbidden modules is loaded."""
+    res = _run("""
+        import importlib, json, os, queue, sys, time
+        for name in ("jax", "jaxlib", "flax", "optax",
+                     "tensorflowonspark_tpu", "cloudpickle"):
+            sys.modules[name] = None  # any import of them now fails
+        sys.path.insert(0, os.path.join({root!r}, "tests", "fakes"))
+        import pyspark  # the in-tree stand-in
+        from tensorflowonspark_tpu_torch import cluster, parallel_runner
+        from tensorflowonspark_tpu_torch.engine import (
+            Context, StreamingContext, spark_adapter)
+
+        for d, _, names in os.walk({examples!r}):
+            for n in sorted(names):
+                if n.endswith(".py"):
+                    rel = os.path.relpath(os.path.join(d, n), {root!r})
+                    mod = rel[:-3].replace(os.sep, ".")
+                    importlib.import_module(mod.replace(".__init__", ""))
+
+        out = {out!r}
+
+        def map_fun(args, ctx):
+            feed = ctx.get_data_feed(train_mode=True)
+            total = 0
+            for batch in feed.numpy_batches(4):
+                total += sum(batch)
+            with open(args["out"], "w") as f:
+                json.dump({{"total": total}}, f)
+
+        def job(args, index):
+            import torch
+            return float(torch.tensor(float(index + args)) ** 2)
+
+        sc = Context(num_executors=1, work_root={work!r})
+        try:
+            tfc = cluster.run(sc, map_fun, {{"out": out}}, 1)
+            ssc = StreamingContext(sc, batch_interval=0.05)
+            q = queue.Queue()
+            tfc.train(ssc.queueStream(q))
+            ssc.start()
+            q.put(sc.parallelize(list(range(12)), 2))
+            q.put(sc.parallelize(list(range(12, 20)), 2))
+            tfc.shutdown(ssc)
+            got = parallel_runner.run(sc, job, 3, 1)
+        finally:
+            sc.stop()
+        assert json.load(open(out)) == {{"total": sum(range(20))}}
+        assert got == [9.0], got
+        eng = spark_adapter.from_spark(pyspark.SparkContext("local[2]"), 2)
+        assert sorted(eng.parallelize(range(4), 2).collect()) == [0, 1, 2, 3]
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "flax", "cloudpickle",
+                                         "tensorflowonspark_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("OK")
+    """.format(root=ROOT, examples=EXAMPLES,
+               out=str(tmp_path / "total.json"),
+               work=str(tmp_path / "engine")))
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")
