@@ -3,9 +3,10 @@
 NVIDIA card, end to end — serving, training, training fed through the
 cluster plane, the pipeline (TFRecords, data-parallel fit with
 checkpoint and resume, export, transform), the model zoo with
-``:predict``, and the cluster API's streaming, example and TFParallel
-paths — and hold its CUDA kernels against their plain PyTorch
-versions.
+``:predict``, the cluster API's streaming, example and TFParallel
+paths, and the parallel package (ring attention on the flash kernels,
+the long-context and Criteo examples, MoE, the pipeline) — and hold its
+CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -187,13 +188,45 @@ Phases, stopping with a non-zero exit at the first failure:
    logits (``PREDICT_RTOL``) and top-1 wherever the top-2 gap is clear.
    Printed: each job's wall and start-up. The Spark adapter has no leg
    here (no pyspark on the card's machine): the CPU tests hold it;
-10. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
+10. parallelism — (a) ``ring_flash_attention``'s per-rank step code as a
+   4-way ring run in lockstep on the card (``_ring_lockstep``: every
+   rank's steps in one process, the rotation an index) at GPT-2-small's
+   attention width, B 1, global S 8192, 12 heads of 64 (local 2048,
+   zigzag half 1024), float32 (TF32 off) and bfloat16, in three
+   schedules: contiguous causal, zigzag causal (through ``to_zigzag`` /
+   ``from_zigzag``) and non-causal; a seeded dO. ``out``, dq, dk, dv are
+   held against the full-sequence ``flash_attention`` (the kernel
+   route) and the same lockstep ring with ``impl="plain"``, at the
+   phase-3b limits of each dtype (``ring_error``: one call's for
+   ``out``, whose merge is a convex combination; the gradients' scaled
+   by the partials autograd sums), and each kernel's launches against the schedule's
+   live pairs exactly (``ring_live_pairs``: 10, 36 and 16). Printed: each
+   schedule's fwd+bwd eager time with its device time (one CUDA graph of
+   the whole call, replayed) in brackets, beside one full-sequence call. (b) ``python -m
+   tensorflowonspark_tpu_torch.examples.longcontext.train_long`` at its
+   defaults in both layouts (a one-rank ring), then ``--seq_len 32768
+   --layout zigzag --steps 10``: the loss falls and the trainer counts
+   exactly 2 (contiguous) or 6 (zigzag) launches of each flash kernel a
+   step; printed: step p50, tokens/s, peak memory. Before it runs, the
+   kernels are held as in (a) at its width (batch 2, 2 heads of 32,
+   float32) through the ring calls it makes: one rank at S 2048 in both
+   layouts and at S 32768 zigzag (halves of 16384), and a 4-way
+   lockstep ring at S 2048 in both layouts. (c) ``moe_ffn`` at
+   hidden 768, ffn 3072, 8 experts, 4096 tokens, float32, on a one-rank
+   mesh, against each token through its routed expert alone, output and
+   gradients (``MOE_RTOL``); ``pipeline_apply`` of one stage against the
+   stage applied microbatch by microbatch. (d) ``criteo_spark
+   --cluster_size 1 --tp 1 --quantize_export`` at the config's defaults
+   through the cluster: steps in its stats, and one ``:predict`` round
+   trip to the int8 export returns one float;
+11. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
    counts as ``launches_cluster``, phase 7's as ``launches_pipeline``,
    phase 8's (BERT training plus ``:predict``) as ``launches_models``,
    phase 9's streaming-fed trainer's as ``launches_streaming`` and the
-   BERT example's as ``launches_examples``, their times at BERT's shape
-   as ``bert_shape``, and the kernel each dtype runs as ``design``), the
-   card line, and last the ``{"ok": true, ...}`` line.
+   BERT example's as ``launches_examples``, phase 10's ring and
+   long-context launches as ``launches_ring``, their times at BERT's
+   shape as ``bert_shape``, and the kernel each dtype runs as
+   ``design``), the card line, and last the ``{"ok": true, ...}`` line.
 
 ``--out-dir DIR`` also writes every number of the run to
 ``DIR/chip_smoke.json``. Needs one card; exits non-zero, printing no
@@ -2772,6 +2805,501 @@ def examples_phase(torch, dev, phase5, here):
     return res
 
 
+# -- phase 10: parallelism on the card ----------------------------------
+
+#: 10(a): the ring op at GPT-2-small's attention width, a 4-way ring run
+#: in lockstep on the one card: B 1, global S 8192, 12 heads of 64
+RING_P, RING_B, RING_S = 4, 1, 8192
+RING_BLOCK = 128
+#: (name, causal, layout) of each schedule
+RING_SCHEDULES = (("contiguous_causal", True, "contiguous"),
+                  ("zigzag_causal", True, "zigzag"),
+                  ("non_causal", False, "contiguous"))
+#: 10(b): the long-context example at its defaults in both layouts, then
+#: at the length it exists for
+LONG_DEFAULT_LAYERS = 2
+LONG_SEQ, LONG_STEPS = 32768, 10
+#: the ring calls 10(b) makes, held before it runs: train_long's width
+#: (batch 2, hidden 64 over 2 heads of 32, float32, blocks of 128), as
+#: (P, global S, layout), all causal — its one-rank calls at both
+#: lengths, and a 4-way ring at the default length (local 512, zigzag
+#: half 256)
+LONG_B, LONG_HEADS, LONG_HEAD_DIM, LONG_DEFAULT_SEQ = 2, 2, 32, 2048
+LONG_RING_CASES = ((1, LONG_DEFAULT_SEQ, "contiguous"),
+                   (1, LONG_DEFAULT_SEQ, "zigzag"),
+                   (4, LONG_DEFAULT_SEQ, "contiguous"),
+                   (4, LONG_DEFAULT_SEQ, "zigzag"),
+                   (1, LONG_SEQ, "zigzag"))
+#: 10(c): MoE at GPT-2-small's MLP width, and a one-stage pipeline
+MOE_HIDDEN, MOE_FFN, MOE_EXPERTS, MOE_TOKENS = 768, 3072, 8, 4096
+PIPE_MICRO, PIPE_MB = 8, 512
+#: float32 products (TF32 off) in another grouping: the dense dispatch
+#: runs every expert over every token in one batched product where the
+#: reference runs each expert over its own tokens; both sum the same
+#: 768 / 3072 products per output, in another order (~1e-6 relative)
+MOE_RTOL = 1e-4
+
+
+def ring_live_pairs(p, causal, layout):
+    """The (q block, kv block) pairs a P-way ring launches the flash
+    kernels on (a masked pair launches nothing), summed over the ranks:
+    contiguous causal sum_r (r + 1) = P(P+1)/2; non-causal P^2; zigzag
+    sum_r [(r + 1) + P + (P - r)] = P(2P+1) half-length pairs. Each has
+    one forward launch and, in the backward, one dQ and one dK/dV."""
+    if layout == "zigzag":
+        return p * (2 * p + 1)
+    return p * (p + 1) // 2 if causal else p * p
+
+
+def ring_partials(p, layout):
+    """The most partials one query row merges (and one key block's
+    gradient sums): P, or 2P under zigzag (rank 0's late half merges its
+    P fully visible early halves and its P late ones)."""
+    return 2 * p if layout == "zigzag" else p
+
+
+def ring_error(torch, name, got, want, dtype, pv, calls, partials):
+    """``(max |got - want|, worst error/limit)`` of a ring output against
+    a reference, over the entries where ``want`` is finite, against
+    ``calls`` flash calls' errors: 1 against the plain ring, 2 against
+    the full-sequence call (which adds its own). ``out``: the merge is a
+    convex combination (weights exp(lse_i - lse) that sum to 1), so a
+    merged row's error is a weighted mean of its partials' errors, each
+    within the phase-3b limit (``flash_error``): float32 as there;
+    bfloat16 2^-7 (sum_i w_i |o_i| + pv) <= 2^-7 2 pv, since |o_i| <=
+    pv_i and sum_i w_i pv_i = pv (``pv`` = sum_j p_j |v_j| of the full
+    row), plus the merged float32 row's rounding to bfloat16 on each
+    side, one ulp apart at most (2^-7 |out|). dq, dk, dv: autograd sums
+    the per-pair gradients, so a row or key carries up to ``partials``
+    calls' errors (``partials + 1`` against the full call), at the
+    phase-3b limit; bfloat16 adds one term, since autograd sums them in
+    bfloat16: each side rounds up to ``partials - 1`` partial sums, each
+    by half an ulp (2^-8 relative) of a sum of the gradient's magnitude,
+    2^-7 of max |want| a partial counting both sides (float32 sums them
+    in float32)."""
+    fin = torch.isfinite(want)
+    g, w = got.float()[fin], want.float()[fin]
+    diff = (g - w).abs()
+    top = w.abs().max().item()
+    if name == "out":
+        times = calls
+    else:
+        times = partials + calls - 1
+    if dtype != "bfloat16":
+        limit = torch.full_like(w, FLASH_F32_RTOL * max(1.0, top))
+    elif name == "out":
+        limit = BF16_RTOL * (w.abs() + 2 * pv.float()[fin])
+    else:
+        limit = BF16_RTOL * w.abs() + (BF16_FLOOR + BF16_RTOL) * top
+    over = torch.where(diff > 0, diff / (times * limit),
+                       torch.zeros_like(diff))
+    return diff.max().item(), over.max().item()
+
+
+def ring_run(torch, ra, inputs, p, causal, layout, impl, block=RING_BLOCK):
+    """One P-way lockstep ring over the GLOBAL q, k, v (permuted into
+    and out of the zigzag layout around it): out, dq, dk, dv in global
+    order."""
+    q, k, v, dout = inputs
+    q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    args = (q, k, v)
+    if layout == "zigzag":
+        args = tuple(ra.to_zigzag(x, p) for x in args)
+    out = ra._ring_lockstep(*args, p, causal=causal, block_q=block,
+                            block_k=block, layout=layout, impl=impl)
+    if layout == "zigzag":
+        out = ra.from_zigzag(out, p)
+    torch.autograd.backward(out, dout)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def full_run(torch, fa, inputs, causal, block=RING_BLOCK):
+    q, k, v, dout = inputs
+    q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(q, k, v, causal=causal, block_q=block,
+                             block_k=block)
+    torch.autograd.backward(out, dout)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def ring_check(torch, fa, ra, inputs, p, causal, layout, label,
+               block=RING_BLOCK):
+    """One P-way lockstep ring on the kernel route held against the same
+    ring on the plain route and one full-sequence flash call
+    (``ring_error``), each kernel's launches against the schedule's live
+    pairs exactly. Returns (launches, errors, worst error/limit)."""
+    dtype = str(inputs[0].dtype).split(".")[-1]
+    before = dict(fa.launches)
+    got = ring_run(torch, ra, inputs, p, causal, layout, None, block)
+    torch.cuda.synchronize()
+    counts = {kk: fa.launches[kk] - before[kk] for kk in before}
+    want_n = ring_live_pairs(p, causal, layout)
+    check(counts == {"fwd": want_n, "dq": want_n, "dkv": want_n},
+          "ring {}: launches {} are not {} of each kernel".format(
+              label, counts, want_n))
+    before = dict(fa.launches)
+    plain = ring_run(torch, ra, inputs, p, causal, layout, "plain", block)
+    full = full_run(torch, fa, inputs, causal, block)
+    torch.cuda.synchronize()
+    check({kk: fa.launches[kk] - before[kk] for kk in before}
+          == {"fwd": 1, "dq": 1, "dkv": 1},
+          "the plain ring launched a kernel, or the full call did not "
+          "launch each once")
+    pv = None
+    if dtype == "bfloat16":
+        q, k, v, _ = inputs
+        pv = fa._reference_lse(q, k, v.abs(), causal,
+                               q.shape[-1] ** -0.5)[0]
+    partials = ring_partials(p, layout)
+    errs = {}
+    for ref_name, ref, calls in (("plain_ring", plain, 1),
+                                 ("full_flash", full, 2)):
+        for name, g, w in zip(("out", "dq", "dk", "dv"), got, ref):
+            check(bool(torch.isfinite(g).all()),
+                  "ring {}: {} not finite".format(label, name))
+            errs[ref_name + "/" + name] = ring_error(
+                torch, name, g, w, dtype, pv, calls, partials)
+    worst = max(e[1] for e in errs.values())
+    log("ring {:<26} vs plain ring / full flash: ".format(label) + "  ".join(
+        "{} {:.2e} ({:.2g})".format(kk, e[0], e[1])
+        for kk, e in errs.items())
+        + "  (|error| (error/limit); out x1 / x2, grads x{} / x{})".format(
+            partials, partials + 1))
+    check(worst <= 1.0, "ring {} disagrees with its references".format(
+        label))
+    return counts, errs, worst
+
+
+def graph_step_ms(torch, fn, reps=5):
+    """The card's milliseconds per call of ``fn`` (a forward and its
+    autograd backward) with no host work between kernels: the whole
+    call captured in one CUDA graph after two warm-up calls on a side
+    stream (PyTorch's whole-network capture), then replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
+
+
+def ring_leg(torch, fa, ra, dev):
+    """10(a): every schedule in float32 (TF32 off) and bfloat16 through
+    the kernel route, held against the full-sequence flash call and the
+    same lockstep ring on the plain route; exact launch counts; the
+    times of each beside one full-sequence call, eager (host work
+    included) and as device time (``graph_step_ms``)."""
+    from tensorflowonspark_tpu_torch.profile_flash import eager_ms
+
+    rng = np.random.RandomState(SEED + 100)
+    n, d = HEADS, HIDDEN // HEADS
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        inputs = [torch.from_numpy(rng.randn(RING_B, RING_S, n, d)
+                                   .astype("float32")).to(dev, dt)
+                  for _ in range(4)]
+        for sched, causal, layout in RING_SCHEDULES:
+            counts, errs, worst = ring_check(
+                torch, fa, ra, inputs, RING_P, causal, layout,
+                "{} {}".format(sched, dtype))
+
+            def ring_fwd(_c=causal, _l=layout):
+                args = inputs[:3]
+                if _l == "zigzag":
+                    args = [ra.to_zigzag(x, RING_P) for x in args]
+                with torch.no_grad():
+                    return ra._ring_lockstep(*args, RING_P, causal=_c,
+                                             block_q=RING_BLOCK,
+                                             block_k=RING_BLOCK, layout=_l)
+
+            def ring_step(_c=causal, _l=layout):
+                ring_run(torch, ra, inputs, RING_P, _c, _l, None)
+
+            def full_step(_c=causal):
+                full_run(torch, fa, inputs, _c)
+
+            # the least time for the ring's work: every schedule attends
+            # the full call's (query, key) pairs (causal: key <= query),
+            # at 2 flops a multiply-add of the forward's 2, dQ's 3 and
+            # dK/dV's 4 products, at the dtype's tensor-core rate
+            # (float32: 3xTF32); the bytes (q, k, v, dO in, out, dq, dk,
+            # dv out) take ~0.1 ms and do not bound it
+            pairs = RING_B * n * (RING_S * (RING_S + 1) // 2 if causal
+                                  else RING_S * RING_S)
+            rate = BF16_FLOPS if dtype == "bfloat16" else TF32X3_FLOPS
+            t = {"launches": counts,
+                 "partials": ring_partials(RING_P, layout),
+                 "errors": {kk: e[0] for kk, e in errs.items()},
+                 "error_over_limit": worst,
+                 "bound_ms": 18 * pairs * d / rate * 1e3,
+                 "bound_by": "operations"}
+            t["fwd_ms"], t["fwd_host_ms"] = eager_ms(torch, ring_fwd, 5)
+            t["step_ms"], t["step_host_ms"] = eager_ms(torch, ring_step, 3)
+            t["step_device_ms"] = graph_step_ms(torch, ring_step)
+            t["full_step_ms"], _ = eager_ms(torch, full_step, 3)
+            t["full_step_device_ms"] = graph_step_ms(torch, full_step)
+            log("ring {:<17} {:<8} fwd+bwd {:.3f} ms eager [{:.3f} ms "
+                "device time], host {:.3f} ms; fwd {:.3f} ms; one "
+                "full-sequence flash call fwd+bwd {:.3f} ms [{:.3f}]; bound "
+                "{:.3f} ms (operations; {:.1f}% of the ring's device "
+                "time)".format(
+                    sched, dtype, t["step_ms"], t["step_device_ms"],
+                    t["step_host_ms"], t["fwd_ms"], t["full_step_ms"],
+                    t["full_step_device_ms"], t["bound_ms"],
+                    100.0 * t["bound_ms"] / t["step_device_ms"]))
+            res["{}/{}".format(dtype, sched)] = t
+        del inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def long_ring_leg(torch, fa, ra, dev):
+    """10(b) first: the flash kernels at the long-context example's
+    width (head dim 32, float32) through the ring calls it makes, each
+    held as 10(a)'s are (``ring_check``); returns the errors by case."""
+    rng = np.random.RandomState(SEED + 102)
+    res = {}
+    for p, s, layout in LONG_RING_CASES:
+        inputs = [torch.from_numpy(rng.randn(
+            LONG_B, s, LONG_HEADS, LONG_HEAD_DIM).astype("float32")).to(dev)
+            for _ in range(4)]
+        label = "P{} S{} {} D{} float32".format(p, s, layout, LONG_HEAD_DIM)
+        counts, errs, worst = ring_check(torch, fa, ra, inputs, p, True,
+                                         layout, label)
+        res[label] = {"launches": counts, "error_over_limit": worst,
+                      "errors": {kk: e[0] for kk, e in errs.items()}}
+        del inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def long_leg(here, parent):
+    """10(b): ``python -m ...examples.longcontext.train_long`` at its
+    defaults in both layouts, then ``--seq_len 32768 --layout zigzag
+    --steps 10``: one rank, a one-rank NCCL group it starts and ends;
+    every check reads its last line."""
+    import subprocess
+
+    runs = {}
+    for name, extra, per_layer in (
+            ("contiguous", [], 1), ("zigzag", ["--layout", "zigzag"], 3),
+            ("zigzag_32k", ["--layout", "zigzag", "--seq_len",
+                            str(LONG_SEQ), "--steps", str(LONG_STEPS)], 3)):
+        cmd = [sys.executable, "-m",
+               "tensorflowonspark_tpu_torch.examples.longcontext.train_long"
+               ] + extra
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.monotonic()
+        out = subprocess.run(cmd, cwd=parent, env=env, capture_output=True,
+                             text=True, timeout=600)
+        wall = time.monotonic() - t0
+        check(out.returncode == 0, "train_long {} failed:\n{}".format(
+            name, out.stdout[-2000:] + out.stderr[-3000:]))
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        losses = got["losses"]
+        want = per_layer * LONG_DEFAULT_LAYERS
+        check(got["device"].startswith("cuda") and got["ranks"] == 1,
+              "train_long {} ran on {} over {} ranks".format(
+                  name, got["device"], got["ranks"]))
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              "train_long {}: the loss did not fall: {}".format(name,
+                                                                losses))
+        check(bool(got["peak_bytes"]), "train_long {} reported no peak "
+              "memory".format(name))
+        check(got["flash_launches_per_step"] == {
+            "fwd": want, "dq": want, "dkv": want},
+            "train_long {}: flash launches a step {} are not {} of each"
+            .format(name, got["flash_launches_per_step"], want))
+        log("longcontext {:<10} S {} batch {}: loss {:.4f} -> {:.4f}; step "
+            "p50 {:.4f}s, {:.0f} tokens/s, peak {:.1f} MiB; flash launches "
+            "a step {}; command wall {:.1f}s".format(
+                name, got["seq_len"], got["batch"], losses[0], losses[-1],
+                got["step_p50_s"], got["tokens_per_s"],
+                (got["peak_bytes"] or 0) / 2 ** 20, want, wall))
+        runs[name] = dict(got, wall_s=wall)
+    return runs
+
+
+def moe_pipeline_leg(torch, dev):
+    """10(c): moe_ffn and pipeline_apply on one-rank meshes (a one-rank
+    NCCL group), each against its plain counterpart: each token through
+    its routed expert alone, and the stage applied microbatch by
+    microbatch; outputs and gradients."""
+    import torch.nn.functional as F
+
+    from tensorflowonspark_tpu_torch.parallel import build_mesh, moe, pipeline
+
+    rng = np.random.RandomState(SEED + 101)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            "float32")).to(dev).requires_grad_()
+
+    h, f, e = MOE_HIDDEN, MOE_FFN, MOE_EXPERTS
+    x, router = t(MOE_TOKENS, h), t(h, e, scale=0.5)
+    w_in, w_out = t(e, h, f, scale=(2.0 / h) ** 0.5), \
+        t(e, f, h, scale=(2.0 / f) ** 0.5)
+    tgt = torch.from_numpy(rng.randn(MOE_TOKENS, h).astype("float32")).to(dev)
+    mesh = build_mesh({"expert": 1}, device=dev)
+    t0 = time.monotonic()
+    y, aux = moe.moe_ffn(x, router, w_in, w_out, mesh)
+    loss = F.mse_loss(y, tgt) + 0.01 * aux
+    grads = torch.autograd.grad(loss, (x, router, w_in, w_out))
+    torch.cuda.synchronize()
+    moe_s = time.monotonic() - t0
+    # the plain counterpart: each token through its routed expert only
+    one_hot, gate, aux_ref = moe.top1_gating(x @ router)
+    idx = one_hot.argmax(dim=-1)
+    y_ref = torch.zeros_like(x)
+    for j in range(e):
+        rows = (idx == j).nonzero()[:, 0]
+        hj = F.gelu(x[rows] @ w_in[j], approximate="tanh") @ w_out[j]
+        y_ref = y_ref.index_put((rows,), hj * gate[rows, None])
+    loss_ref = F.mse_loss(y_ref, tgt) + 0.01 * aux_ref
+    grads_ref = torch.autograd.grad(loss_ref, (x, router, w_in, w_out))
+    errs = {"y": ((y - y_ref).abs().max() / y_ref.abs().max()).item(),
+            "aux": abs(aux.item() - aux_ref.item())}
+    for name, g, w in zip(("dx", "drouter", "dw_in", "dw_out"), grads,
+                          grads_ref):
+        errs[name] = ((g - w).abs().max() / w.abs().max()).item()
+    log("moe_ffn {} tokens x {} -> {} x {} experts (one rank): {:.3f}s "
+        "fwd+bwd; max |dense - per-expert| / max: {}".format(
+            MOE_TOKENS, h, f, e, moe_s, "  ".join(
+                "{} {:.2e}".format(k, v) for k, v in errs.items())))
+    check(all(v <= MOE_RTOL for v in errs.values()) and aux.item() > 0,
+          "moe_ffn disagrees with the per-expert reference: {}".format(errs))
+    # one pipeline stage: tanh(x W + b) over PIPE_MICRO microbatches
+    smesh = build_mesh({"stage": 1}, device=dev)
+    w, b = t(h, h, scale=h ** -0.5), t(h, scale=0.1)
+    xs = torch.from_numpy(rng.randn(PIPE_MICRO, PIPE_MB, h).astype(
+        "float32")).to(dev)
+
+    def stage(p, z):
+        return torch.tanh(z @ p[0] + p[1])
+
+    out = pipeline.pipeline_apply(stage, (w, b), xs, smesh)
+    g_pp = torch.autograd.grad(out.square().mean(), (w, b))
+    ref = torch.stack([stage((w, b), xs[m]) for m in range(PIPE_MICRO)])
+    g_ref = torch.autograd.grad(ref.square().mean(), (w, b))
+    pipe_err = {"out": (out - ref).abs().max().item()}
+    for name, g, r in zip(("dw", "db"), g_pp, g_ref):
+        pipe_err[name] = ((g - r).abs().max() / r.abs().max()).item()
+    log("pipeline_apply one stage, {} microbatches of {} x {}: |pipeline - "
+        "per-microbatch| out {:.2e} (bitwise: {}), dw {:.2e}, db {:.2e} "
+        "(relative)".format(PIPE_MICRO, PIPE_MB, h, pipe_err["out"],
+                            bool(torch.equal(out, ref)), pipe_err["dw"],
+                            pipe_err["db"]))
+    check(torch.equal(out, ref) and pipe_err["dw"] <= MOE_RTOL
+          and pipe_err["db"] <= MOE_RTOL,
+          "pipeline_apply disagrees with the stage applied per "
+          "microbatch: {}".format(pipe_err))
+    return {"moe": dict(errs, seconds=moe_s), "pipeline": pipe_err}
+
+
+def criteo_leg(here, parent):
+    """10(d): ``criteo_spark --cluster_size 1 --tp 1`` at the config's
+    defaults through the cluster with ``--quantize_export``, then one
+    ``:predict`` round trip to ``ModelServer(export)``."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch.examples.criteo import criteo_spark
+
+    work = tempfile.mkdtemp(prefix=".tfos-criteo-", dir=parent)
+    model_dir = os.path.join(work, "model")
+    export_dir = os.path.join(work, "wd_int8")
+    cmd = [sys.executable, "-m",
+           "tensorflowonspark_tpu_torch.examples.criteo.criteo_spark",
+           "--cluster_size", "1", "--tp", "1", "--model_dir", model_dir,
+           "--quantize_export", export_dir]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    res = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.monotonic() - t0
+    check(res.returncode == 0, "criteo_spark failed:\n"
+          + res.stdout[-2000:] + res.stderr[-3000:])
+    with open(os.path.join(model_dir, "train_stats.json")) as f:
+        got = json.load(f)
+    check(got["steps"] > 0 and got["device"] == "cuda:0",
+          "criteo_spark took {} steps on {}".format(got["steps"],
+                                                    got["device"]))
+    dense, cat, _ = criteo_spark.etl(criteo_spark.synthetic_criteo_lines(
+        1, seed=SEED)[0])
+    row = {"dense": dense.tolist(), "cat": cat.tolist()}
+    with serving.ModelServer(export_dir, name="wd", port=0) as srv:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.address[1],
+                                          timeout=120)
+        t1 = time.monotonic()
+        conn.request("POST", "/v1/models/wd:predict",
+                     body=json.dumps({"instances": [row]}))
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        predict_s = time.monotonic() - t1
+        conn.close()
+    preds = body.get("predictions")
+    check(resp.status == 200 and isinstance(preds, list) and len(preds) == 1
+          and isinstance(preds[0], float) and np.isfinite(preds[0]),
+          "the int8 Wide & Deep :predict returned {} {}".format(
+              resp.status, body))
+    shutil.rmtree(work, ignore_errors=True)
+    log("criteo_spark (cluster_size 1, tp 1, defaults): {} steps, {:.1f} "
+        "examples/s, table {} rows on {}; int8 export :predict -> {:.4f} in "
+        "{:.3f}s; command wall {:.1f}s".format(
+            got["steps"], got["examples_per_sec"], got["table_rows"],
+            got["device"], preds[0], predict_s, wall))
+    return {"steps": got["steps"], "examples_per_sec":
+            got["examples_per_sec"], "predict": preds[0],
+            "predict_s": predict_s, "wall_s": wall}
+
+
+def parallel_phase(torch, dev, here):
+    """Phase 10: the ring op 4-way in lockstep, the long-context example,
+    MoE and the pipeline at one rank, the Criteo example through the
+    cluster; returns every number of the phase."""
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.parallel import ring_attention as ra
+
+    t0 = time.monotonic()
+    res = {"ring": ring_leg(torch, fa, ra, dev)}
+    res["longcontext_ring"] = long_ring_leg(torch, fa, ra, dev)
+    res["longcontext"] = long_leg(here, here)
+    res["moe_pipeline"] = moe_pipeline_leg(torch, dev)
+    if dist.is_initialized():
+        dist.destroy_process_group()  # the one-rank group of 10(c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["criteo"] = criteo_leg(here, here)
+    res["wall_s"] = time.monotonic() - t0
+    log("parallel phase wall {:.1f}s".format(res["wall_s"]))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -2876,6 +3404,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     ex = examples_phase(torch, dev, train, here)
+    gc.collect()
+    torch.cuda.empty_cache()
+    par = parallel_phase(torch, dev, here)
     t = timing["decode"][False]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -2961,6 +3492,16 @@ def main():
             # example's trainer (bfloat16), as each trainer counted them
             "launches_streaming": ex["streaming"]["flash_launches"][name],
             "launches_examples": ex["bert_example"]["flash_launches"][name],
+            # phase 10: (a) the 4-way lockstep ring at S 8192, one call of
+            # each schedule and dtype (forward and backward); (b) the
+            # long-context example's launches a step, each run
+            "launches_ring": {
+                "lockstep_4way_s8192": {
+                    key: r["launches"][name]
+                    for key, r in par["ring"].items()},
+                "longcontext_per_step": {
+                    run: got["flash_launches_per_step"][name]
+                    for run, got in par["longcontext"].items()}},
             # the same kernel at BERT's shape (bfloat16, key mask, S 384)
             "bert_shape": zoo["bert"]["flash_timing"][name],
             # case (a), the main path's shape and dtype; every case below
@@ -3001,6 +3542,7 @@ def main():
                        "pipeline": pipe,
                        "models": zoo,
                        "examples": ex,
+                       "parallel": par,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     log("total: {:.1f}s".format(time.monotonic() - t_start))
     print(json.dumps(kernels))

@@ -21,11 +21,12 @@ through DCP (``torch.distributed.checkpoint``):
 - **Commit.** A local step is written into ``<root>/.tmp-<step>`` and
   renamed into place (``os.replace``) once DCP has finished, so a step
   directory is whole or absent.
-- **Who saves.** Without a process group only the chief writes (the
-  state is replicated, so a non-chief ``save()`` is a no-op). Under an
-  initialized group every rank calls ``save()``: DCP's save is a
-  collective (plans gathered, a barrier), and its planner writes each
-  replicated tensor once.
+- **Who saves.** In one process (no group, or a one-rank group) only
+  the chief writes (a replicated state's non-chief ``save()`` is a
+  no-op, a sharded one's raises). Under a group of several ranks every
+  rank calls ``save()``: DCP's save is a collective (plans gathered, a
+  barrier), and its planner writes each replicated tensor once and
+  each DTensor shard from the rank that holds it.
 
 Remote roots: a ``scheme://`` root is refused (``fs.require_local``)
 unless ``allow_remote=True``, which hands it to DCP's own fsspec storage
@@ -33,9 +34,10 @@ layer: no temporary directory there (an object store has no rename), so
 a step counts as committed once its ``.metadata``, which DCP writes
 last, exists.
 
-Left for a later slice (ROADMAP Queue 1 item 6, ``parallel/``):
-``is_fully_replicated`` and ``respec_like``, the sharded-state protocol
-and the cross-mesh restore. Plain tensors count as replicated.
+Sharded state (the ``parallel`` package's DTensor parameters): see
+:func:`is_fully_replicated` and :func:`respec_like`. DCP saves each
+DTensor's shards from the ranks that hold them and reshards on load, so
+a state saved on one mesh restores on another (the cross-mesh restore).
 """
 
 import logging
@@ -46,6 +48,131 @@ logger = logging.getLogger(__name__)
 
 _TMP_PREFIX = ".tmp-"
 _METADATA = ".metadata"
+
+
+def _tensors(state):
+    """The tensors of a state: a ``TrainState``'s module parameters and
+    buffers and its optimizer's tensors, or the tensor leaves of nested
+    dicts, lists and tuples."""
+    import torch
+
+    def walk(node):
+        if torch.is_tensor(node):
+            yield node
+        elif isinstance(node, dict):
+            for v in node.values():
+                yield from walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                yield from walk(v)
+
+    model = getattr(state, "model", None)
+    if model is None:
+        return list(walk(state))
+    out = list(model.parameters()) + list(model.buffers())
+    return out + list(walk(list(state["opt_state"].state.values())))
+
+
+def is_fully_replicated(state):
+    """True when every tensor of ``state`` is replicated: plain tensors
+    count as replicated (every process can reconstruct them); a DTensor
+    counts when every placement is ``Replicate()``. One sharded DTensor
+    makes the whole state sharded for checkpoint-protocol purposes."""
+    from torch.distributed.tensor import DTensor
+
+    return all(p.is_replicate()
+               for t in _tensors(state) if isinstance(t, DTensor)
+               for p in t.placements)
+
+
+def _respec(path, t, mesh):
+    """An empty DTensor of ``t``'s shape and dtype on ``mesh``, each
+    placement moved to the axis of the same name."""
+    from torch.distributed.tensor import Replicate, empty
+
+    old = tuple(t.device_mesh.mesh_dim_names or ())
+    new = tuple(mesh.mesh_dim_names or ())
+    sharded = {old[i]: p for i, p in enumerate(t.placements)
+               if not p.is_replicate()}
+    missing = sorted(set(sharded) - set(new))
+    if missing:
+        raise ValueError(
+            "cannot respec leaf {} onto mesh axes {}: its placements {} "
+            "over axes {} name axis(es) {} the target mesh does not "
+            "have".format(path, sorted(new), tuple(t.placements), old,
+                          missing))
+    return empty(tuple(t.shape), dtype=t.dtype, device_mesh=mesh,
+                 placements=[sharded.get(a, Replicate()) for a in new],
+                 requires_grad=t.requires_grad)
+
+
+def respec_like(state, mesh):
+    """Cross-mesh restore template: ``state`` with every DTensor re-laid
+    (empty, same shape and dtype) onto ``mesh``, each placement moved to
+    the mesh axis of the same NAME.
+
+    The elastic-resize enabler: placements here name mesh axes through
+    the mesh's ``mesh_dim_names``, so the same state lays out on any
+    mesh that still has the axes it is sharded over. DCP reshards a
+    checkpoint's DTensors onto the template's layout on load, so a save
+    taken at one width restores bitwise at another.
+
+    ``state``: a ``TrainState`` (its module's DTensor parameters and
+    buffers are replaced in place and its optimizer takes the new
+    parameters in their place, their moments dropped; the state is
+    returned) or nested
+    dicts, lists and tuples of tensors (a new structure is returned).
+    Plain tensors pass through unchanged.
+
+    Raises ``ValueError`` naming the leaf and axis when a DTensor is
+    sharded over an axis ``mesh`` does not have (``respec_for_width``
+    keeps non-data axes intact precisely so this never fires on a
+    data-axis resize).
+    """
+    import torch
+    import torch.nn as nn
+    from torch.distributed.tensor import DTensor
+
+    model = getattr(state, "model", None)
+    if model is not None:
+        moved = {}
+        for mod_name, mod in model.named_modules():
+            pre = "model." + (mod_name + "." if mod_name else "")
+            for name, p in list(mod.named_parameters(recurse=False)):
+                if isinstance(p, DTensor):
+                    new = nn.Parameter(_respec(pre + name, p.detach(), mesh),
+                                       requires_grad=p.requires_grad)
+                    mod.register_parameter(name, new)
+                    moved[id(p)] = new
+            for name, b in list(mod.named_buffers(recurse=False)):
+                if isinstance(b, DTensor):
+                    setattr(mod, name, _respec(pre + name, b, mesh))
+        # the optimizer keeps its hyperparameters and takes the new
+        # parameters, their moments dropped (the restore loads them)
+        opt = state["opt_state"]
+        for group in opt.param_groups:
+            for i, p in enumerate(group["params"]):
+                if id(p) in moved:
+                    opt.state.pop(p, None)
+                    group["params"][i] = moved[id(p)]
+        state["params"] = dict(model.named_parameters())
+        state["extra"] = dict(model.named_buffers())
+        return state
+
+    def walk(node, path):
+        if isinstance(node, DTensor):
+            return _respec(path, node, mesh)
+        if torch.is_tensor(node):
+            return node
+        if isinstance(node, dict):
+            return {k: walk(v, path + "[{!r}]".format(k))
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path + "[{}]".format(i))
+                              for i, v in enumerate(node))
+        return node
+
+    return walk(state, "")
 
 
 def _group():
@@ -182,16 +309,30 @@ class Checkpointer(object):
         reference's signature (orbax's save-interval policy; every call
         here saves).
 
-        Without a process group the chief commits and everyone else
-        no-ops; under one, every rank must call ``save`` with the same
-        steps (DCP's collective).
+        Replicated state in one process: the chief commits and everyone
+        else no-ops. Under a group of several ranks, every rank must call
+        ``save`` with the same steps (DCP's collective; each DTensor's
+        shards are written by the ranks that hold them). A non-chief
+        that holds sharded state (:func:`is_fully_replicated` false)
+        alone raises: its shards could never reach the checkpoint and a
+        restore would return garbage with no warning.
         """
+        import torch.distributed as dist
         import torch.distributed.checkpoint as dcp
 
         distributed, rank = _group()
-        if not self.chief and not distributed:
-            # the chief's bytes are ours too; only safe OUTSIDE a group,
-            # where no sibling waits for us at DCP's barrier
+        single = not distributed or dist.get_world_size() == 1
+        if not self.chief and single:
+            if not is_fully_replicated(state):
+                raise ValueError(
+                    "Checkpointer(chief=False).save() got a non-replicated "
+                    "(sharded) state in a single-process runtime: this "
+                    "process's shards cannot reach the checkpoint and a "
+                    "restore would return garbage. Sharded states need "
+                    "either all ranks saving under a process group, or "
+                    "chief=True in the single-process case.")
+            # the chief's bytes are ours too; only safe with no sibling
+            # waiting for us at DCP's barrier
             return False
         step = int(step)
         if step in self._saved_steps or step in self._steps_on_disk:

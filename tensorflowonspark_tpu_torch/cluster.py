@@ -24,8 +24,9 @@ receives a :class:`~tensorflowonspark_tpu_torch.node.NodeContext`.
 which ``shutdown(ssc)`` stops first.
 
 Left for later slices: ``run(supervise=...)`` (the supervision plane)
-and ``serving_fleet`` (the fleet plane), both ROADMAP Queue 1 item 11;
-``supervise=`` raises.
+and ``serving_fleet`` (the fleet plane), both waiting for the ROADMAP
+Queue 1 item "Fleet hosting and the policy planes"; ``supervise=``
+raises.
 """
 
 import logging
@@ -272,7 +273,8 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     if supervise is not None:
         raise NotImplementedError(
             "cluster.run(supervise=...) is not ported yet: the supervision "
-            "plane comes with ROADMAP Queue 1 item 11")
+            "plane comes with the ROADMAP Queue 1 item 'Fleet hosting and "
+            "the policy planes'")
     if driver_ps_nodes:
         raise NotImplementedError(
             "driver_ps_nodes is not supported: async parameter-server DP "

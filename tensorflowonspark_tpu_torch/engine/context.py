@@ -14,7 +14,8 @@ when the job result is awaited — the reference's error-propagation story
 (SURVEY.md §3.5) depends on exactly this.
 
 Left for a later slice: ``revive_executor`` (the supervision plane's
-elastic regrow, ROADMAP Queue 1 item 11).
+elastic regrow, with the ROADMAP Queue 1 item "Fleet hosting and the
+policy planes").
 """
 
 import logging

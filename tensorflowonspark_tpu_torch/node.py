@@ -37,9 +37,9 @@ Differences from the reference:
 - **One card per rank.** :meth:`NodeContext.initialize_torch` gives each
   rank of a host its own card (:func:`local_device_index`).
 
-Left for later slices: ``serve_replica``/``stop_replica`` (executor-hosted
-serving, with the fleet plane, ROADMAP Queue 1 item 11) and
-``NodeContext.mesh`` (with the port's ``parallel`` package, item 6).
+Left for a later slice: ``serve_replica``/``stop_replica``
+(executor-hosted serving, with the ROADMAP Queue 1 item "Fleet hosting
+and the policy planes").
 """
 
 import datetime
@@ -136,6 +136,8 @@ class NodeContext(object):
         self._mgr_addr = mgr_addr
         self._mgr_authkey = mgr_authkey
         self._mgr = mgr
+        #: the trainer's device, once :meth:`initialize_torch` bound it
+        self.device = None
         master = cluster_meta.get("master_node", "chief")
         self.num_workers = sum(
             1 for n in cluster_info
@@ -256,7 +258,23 @@ class NodeContext(object):
                     world_size=len(participants),
                     rank=ids.index(self.executor_id),
                     timeout=datetime.timedelta(seconds=float(timeout)))
+        self.device = device
         return device
+
+    def mesh(self, axis_shapes=None):
+        """A ``DeviceMesh`` over the participants' ranks
+        (:func:`parallel.mesh.build_mesh` over the group
+        :meth:`initialize_torch` formed; call that first).
+
+        ``axis_shapes``: ordered {axis_name: size}; defaults to a pure
+        data-parallel mesh ``{'data': n_ranks}`` (the reference's only
+        parallelism family, SURVEY.md §2.3). A lone participant gets a
+        one-rank group on its device. Imports torch lazily: only the
+        trainer process may do this.
+        """
+        from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+
+        return mesh_lib.build_mesh(axis_shapes, device=self.device)
 
     def task_sorted_index(self):
         """This node's index in the sorted cluster_info == its

@@ -27,8 +27,8 @@ Differences from the reference's design:
   REG/QUERY/QINFO/STOP and went idle after formation (SURVEY.md §5: no
   failure detection beyond Spark task retry).
 
-Left for a later slice, with the fleet and policy planes (ROADMAP Queue
-1 item 11): the control-state journal (``Server(journal=)``, durable
+Left for a later slice, with the fleet and policy planes (the ROADMAP
+Queue 1 item "Fleet hosting and the policy planes"): the control-state journal (``Server(journal=)``, durable
 epoch floors across a server restart; passing one raises), the serving
 replicas' view of the leases (``serving_snapshot``, the ``/stats``
 ``serving`` key), ``drop_lease`` and the router's control epochs.
@@ -271,7 +271,8 @@ class Server(object):
             raise NotImplementedError(
                 "reservation.Server(journal=...) is not ported yet: the "
                 "control-state journal comes with the fleet and policy "
-                "planes (ROADMAP Queue 1 item 11)")
+                "planes (the ROADMAP Queue 1 item 'Fleet hosting and the "
+                "policy planes')")
         #: cumulative BEAT messages handled (guarded by _sup_lock) —
         #: drives the kill_reservation_server chaos site
         self._beats_seen = 0

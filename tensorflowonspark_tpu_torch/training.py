@@ -38,10 +38,23 @@ global batch do), so a resumed run draws the same masks and torch's
 own generator is left as it was. JAX's masks are not reproduced
 bitwise (other generator, other bits).
 
-Nothing of the reference is left out: its sharding options
-(``mesh``, ``data_axis``, ``constrain_state``) are DDP's here, and its
-``donate_state`` / ``train_mode_kwarg`` have no counterpart in eager
-PyTorch.
+**A mesh** (``mesh=``, a ``DeviceMesh`` from ``parallel.build_mesh`` or
+``ctx.mesh()``): with only a ``data`` axis (or no axis above 1 besides
+it) the DDP path above runs unchanged. With another axis above 1 — a
+``model`` axis whose parameters ``parallel.sharding.distribute_params``
+laid out as DTensors, which DDP cannot wrap — the step runs the model
+with the batch's plain tensors read as replicated over the mesh
+(``implicit_replication``: each ``data`` rank's own batch, shared by the
+ranks of its model group), brings each gradient to its parameter's
+placements, averages the gradient's LOCAL shard over the ``data_axis``
+sub-group (one all-reduce a parameter) and steps; the optimizer's
+moments take the parameters' placements. The loss is the mean over the
+data ranks. The reference's ``constrain_state`` (keeping the state's
+layout across steps) holds by construction: the parameters are updated
+in place, on their placements.
+
+Nothing else of the reference is left out: its ``donate_state`` /
+``train_mode_kwarg`` have no counterpart in eager PyTorch.
 """
 
 import contextlib
@@ -131,11 +144,14 @@ class Trainer(object):
       dropout_rng: seed each step's random draws (dropout masks) from
         the step number alone, leaving torch's generator as it was;
         False draws from torch's generator as it stands.
+      mesh: an optional ``DeviceMesh``; one with an axis above 1 other
+        than ``data_axis`` selects the sharded step (module docstring).
+      data_axis: the mesh axis the batch is split over.
     """
 
     def __init__(self, model, optimizer, loss_fn=softmax_xent,
                  input_keys=("x",), remat=False, device=None,
-                 dropout_rng=False):
+                 dropout_rng=False, mesh=None, data_axis="data"):
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -146,8 +162,23 @@ class Trainer(object):
         #: what a step calls: the model, under ``_Remat`` and DDP as
         #: configured (built by :meth:`init`)
         self.net = None
-        #: ranks in the process group a step all-reduces over (1 alone)
+        #: ranks in the process group a step all-reduces over (1 alone;
+        #: the data axis's size under a sharded mesh)
         self.world_size = 1
+        self.mesh = mesh
+        self.data_axis = data_axis
+        #: the data axis's group under a sharded mesh (None otherwise)
+        self._data_group = None
+        self._data_rank = 0
+
+    def _sharded(self):
+        """Whether the mesh has an axis above 1 other than the data
+        axis (the DTensor step instead of DDP)."""
+        if self.mesh is None:
+            return False
+        return any(size > 1 for name, size in zip(
+            self.mesh.mesh_dim_names, self.mesh.shape)
+            if name != self.data_axis)
 
     def _inputs(self, batch):
         if not isinstance(batch, dict):
@@ -199,7 +230,17 @@ class Trainer(object):
             init(generator)
         net = _Remat(self.model) if self.remat else self.model
         distributed, self.world_size = _world()
-        if distributed:
+        if self._sharded():
+            # DDP cannot wrap DTensor parameters: the step averages the
+            # gradients over the data axis itself
+            self.world_size, self._data_rank, self._data_group = 1, 0, None
+            if self.data_axis in self.mesh.mesh_dim_names:
+                from tensorflowonspark_tpu_torch.parallel.collectives import (
+                    axis_of)
+
+                self.world_size, self._data_rank, self._data_group = \
+                    axis_of(self.mesh, self.data_axis)
+        elif distributed:
             net = nn.parallel.DistributedDataParallel(
                 net, device_ids=([self.device.index]
                                  if self.device.type == "cuda" else None),
@@ -224,9 +265,13 @@ class Trainer(object):
         inputs = self._inputs(batch)
         opt = state["opt_state"]
         opt.zero_grad(set_to_none=True)
-        with self._step_rng(state["step"]):
+        sharded = self._sharded()
+        with self._step_rng(state["step"]), _replicated_inputs(sharded):
             loss = self.loss_fn(self.net(*inputs), batch)
             loss.backward()
+        if sharded:
+            loss = _local(loss)
+            self._average_gradients()
         opt.step()
         state["step"] += 1
         loss = loss.detach()
@@ -234,9 +279,37 @@ class Trainer(object):
             import torch.distributed as dist
 
             loss = loss.clone()
-            dist.all_reduce(loss)  # SUM: gloo has no AVG
+            # SUM: gloo has no AVG
+            dist.all_reduce(loss, group=self._data_group)
             loss /= self.world_size
         return state, {"loss": loss}
+
+    def _average_gradients(self):
+        """The sharded step's gradient sync: each gradient brought to its
+        parameter's placements (a DTensor's partial sums reduced over its
+        model group) and its local shard averaged over the data axis."""
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor
+
+        with torch.no_grad():
+            for p in self.model.parameters():
+                g = p.grad
+                if g is None:
+                    continue
+                if isinstance(g, DTensor):
+                    if tuple(g.placements) != tuple(p.placements):
+                        g = g.redistribute(p.device_mesh, p.placements)
+                    local = g.to_local().clone()
+                else:
+                    local = g
+                if self.world_size > 1:
+                    dist.all_reduce(local, group=self._data_group)
+                    local /= self.world_size
+                if isinstance(g, DTensor):
+                    local = DTensor.from_local(
+                        local, p.device_mesh, p.placements, run_check=False,
+                        shape=p.shape, stride=p.stride())
+                p.grad = local
 
     @contextlib.contextmanager
     def _step_rng(self, step):
@@ -249,7 +322,9 @@ class Trainer(object):
         if self.world_size > 1:
             import torch.distributed as dist
 
-            step = int(step) * self.world_size + dist.get_rank()
+            rank = (self._data_rank if self._data_group is not None
+                    else dist.get_rank())
+            step = int(step) * self.world_size + rank
         cuda = self.device.type == "cuda"
         devices = [self.device.index or 0] if cuda else []
         with torch.random.fork_rng(devices=devices):
@@ -307,6 +382,23 @@ class Trainer(object):
             float(metrics["loss"])  # wait for the last step's work
         dt = max(time.monotonic() - t0, 1e-9)
         return state, n, examples / dt
+
+
+def _replicated_inputs(sharded):
+    """Under a sharded mesh: plain tensors meet DTensors as replicated
+    ones (``implicit_replication``); otherwise nothing."""
+    if not sharded:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def _local(t):
+    """A replicated DTensor's value as a plain tensor (the loss)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _batch_size(batch):

@@ -20,6 +20,10 @@ the reference's contract.
   ``restore`` categories.
 - Two ranks in one gloo group save through the cluster (DCP's collective
   path) and restore into fresh models, bitwise.
+- The sharded-state protocol on plain tensors: ``is_fully_replicated``
+  and ``respec_like`` agree with the reference's on host arrays (a
+  DTensor state saved at 2 ranks and restored at 1 is held in
+  ``tests/test_torch_parallel.py``).
 """
 
 import json
@@ -318,3 +322,24 @@ def test_two_rank_gloo_save_and_restore(tmp_path):
     assert all(g["got"] == g["want"] != g["before"] for g in got)
     assert ".metadata" in got[0]["files"]
     assert os.listdir(root) == ["2"]
+
+
+def test_replication_protocol_on_plain_state():
+    """Plain tensors count as replicated, as the reference's host arrays
+    do; ``respec_like`` passes them through unchanged (a TrainState's
+    module keeps its parameters, its optimizer its moments)."""
+    from tensorflowonspark_tpu import checkpoint as jcheckpoint
+
+    tree = {"a": np.ones(3, np.float32), "b": [np.zeros(2), 3]}
+    assert jcheckpoint.is_fully_replicated(tree)
+    ttree = {"a": torch.ones(3), "b": [torch.zeros(2), 3]}
+    assert checkpoint.is_fully_replicated(ttree)
+    got = checkpoint.respec_like(ttree, mesh=None)
+    assert got["a"] is ttree["a"] and got["b"][0] is ttree["b"][0]
+    assert got["b"][1] == 3
+    tr, state = _trainer(0)
+    state, _ = tr.step(state, _batches(1)[0])
+    assert checkpoint.is_fully_replicated(state)
+    before = _snapshot(state)
+    assert checkpoint.respec_like(state, mesh=None) is state
+    _assert_bitwise(_snapshot(state), before)

@@ -174,9 +174,10 @@ def test_map_fun_error_surfaces_at_shutdown(sc):
 
 
 def test_later_planes_refuse_loudly(sc):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    later = "Fleet hosting and the policy planes"
+    with pytest.raises(NotImplementedError, match=later):
         cluster.run(sc, lambda a, c: None, {}, 2, supervise=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match=later):
         reservation.Server(1, journal="/nonexistent/journal")
 
 

@@ -12,8 +12,9 @@ the two-stage copy ring run through many tiles and a ragged last one,
 register budgets at D 64; the bfloat16 forward, dQ and dK/dV
 (``wgmma`` + TMA) at every head dim, ragged and rectangular, with a key
 mask, at BERT-base's attention shape, dQ with whole key tiles masked in
-the middle and at the end of a row, and bitwise deterministic.
-``chip_smoke.py`` runs the
+the middle and at the end of a row, and bitwise deterministic; and ring
+attention's kernel route (a 4-way ring in lockstep) against its plain
+route in every schedule and both dtypes. ``chip_smoke.py`` runs the
 same comparisons at the main paths' widths; these are the small-shape
 versions for ``pytest -m cuda``."""
 
@@ -580,3 +581,64 @@ def test_flash_forward_budget_at_d64(cuda, dtype):
     assert got["spill_bytes"] == 0
     assert got["ctas_per_sm"] >= 2
     assert 0 < got["smem_bytes"] <= 227 * 1024
+
+
+#: (causal, layout, launches of each kernel at P 4, partials a row merges)
+RING_CASES = [(True, "contiguous", 10, 4), (True, "zigzag", 36, 8),
+              (False, "contiguous", 16, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", RING_CASES,
+                         ids=["contiguous-causal", "zigzag", "non-causal"])
+def test_ring_kernel_route_matches_plain_ring(cuda, dtype, case):
+    """``ring_flash_attention``'s step code as a 4-way lockstep ring (B 2,
+    S 512, 2 heads of 64, blocks of 32: local 128, zigzag half 64) on the
+    kernel route against the same ring on the plain route, and each
+    kernel launched once per live pair (masked pairs launch nothing).
+    out within one call's flash limit: the merge is a convex combination
+    of partials, so its error is a weighted mean of theirs (bf16: each
+    within 2^-7 (|o_i| + pv_i), summing to at most 2^-7 2 pv, plus the
+    merged row's rounding on each side, 2^-7 |out|). The q/k/v
+    gradients within the flash limits scaled by the partials autograd
+    sums (each carries one call's error)."""
+    from tensorflowonspark_tpu_torch.parallel import ring_attention as ra
+
+    causal, layout, pairs, partials = case
+    rng = np.random.RandomState(12)
+    q, k, v, dout = (torch.from_numpy(rng.randn(2, 512, 2, 64).astype(
+        np.float32)).to(cuda, dtype) for _ in range(4))
+
+    def run(impl):
+        qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+        args = (qq, kk, vv)
+        if layout == "zigzag":
+            args = tuple(ra.to_zigzag(x, 4) for x in args)
+        out = ra._ring_lockstep(*args, 4, causal=causal, block_q=32,
+                                block_k=32, layout=layout, impl=impl)
+        if layout == "zigzag":
+            out = ra.from_zigzag(out, 4)
+        torch.autograd.backward(out, dout)
+        return out.detach(), qq.grad, kk.grad, vv.grad
+
+    before = dict(fa.launches)
+    got = run(None)
+    torch.cuda.synchronize()
+    assert fa.launches == {k_: before[k_] + pairs for k_ in before}
+    want = run("plain")
+    pv, _ = fa._reference_lse(q, k, v.abs(), causal, 64 ** -0.5)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        fin = torch.isfinite(w)
+        gf, wf = g.float()[fin], w.float()[fin]
+        top = wf.abs().max().item()
+        if dtype == torch.bfloat16 and i == 0:
+            limit = BF16_RTOL * (wf.abs() + 2 * pv.float()[fin])
+        elif dtype == torch.bfloat16:
+            limit = BF16_RTOL * wf.abs() + BF16_FLOOR * top
+        else:
+            limit = FLASH_F32_RTOL * max(1.0, top)
+        times = 1 if i == 0 else partials
+        assert ((gf - wf).abs() <= times * limit).all(), i

@@ -26,9 +26,11 @@ PKG = "tensorflowonspark_tpu_torch.examples."
 RUN_TIMEOUT = 120
 
 
-def _run(cwd, module, *args, ok=True):
-    # two threads a process: the suite runs these beside other workers
-    env = dict(os.environ, JAX_PLATFORMS="cpu", TFOS_TPU_DISTRIBUTED="0",
+def _run(cwd, module, *args, ok=True, distributed=False):
+    # two threads a process: the suite runs these beside other workers;
+    # ``distributed`` lets a multi-node driver form its process group
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               TFOS_TPU_DISTRIBUTED="1" if distributed else "0",
                OMP_NUM_THREADS="2",
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
                                                             ""))
@@ -228,3 +230,103 @@ def test_inception_inference_random_init(tmp_path):
          "--num_images", 12, "--batch_size", 4, "--image_size", 75,
          "--num_classes", 10, "--output", out, "--device", "cpu")
     assert os.listdir(out)
+
+
+def _last_json(out):
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_longcontext_learns_and_zigzag_matches_contiguous(tmp_path):
+    """``train_long`` on a ring of 4 gloo ranks (``--seq_ranks 4``):
+    the causal LM learns the periodic task in both layouts (the
+    reference's test_longcontext_example_learns: last < 0.7 first), and
+    the zigzag layout trains as the contiguous one does
+    (test_longcontext_zigzag_matches_contiguous: first losses within
+    1e-3, last within 5e-2 relative)."""
+    runs = {}
+    for layout in ("contiguous", "zigzag"):
+        out = _run(tmp_path, "longcontext.train_long", "--seq_len", 256,
+                   "--batch", 2, "--steps", 15, "--hidden", 32, "--layers",
+                   1, "--period", 13, "--layout", layout, "--seq_ranks", 4,
+                   "--device", "cpu")
+        runs[layout] = stats = _last_json(out)
+        assert stats["ranks"] == 4 and stats["layout"] == layout
+        assert stats["losses"][-1] < 0.7 * stats["losses"][0], stats
+        assert stats["tokens_per_s"] > 0 and stats["peak_bytes"] is None
+    (f_c, l_c), (f_z, l_z) = ((runs[k]["losses"][0], runs[k]["losses"][-1])
+                              for k in ("contiguous", "zigzag"))
+    assert abs(f_c - f_z) < 1e-3, (f_c, f_z)
+    assert abs(l_c - l_z) < 5e-2 * max(abs(l_c), 1e-3), (l_c, l_z)
+    # a rank's flash calls a step on the CPU's plain route: none counted
+    assert runs["zigzag"]["flash_launches_per_step"] == {
+        "fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+
+
+def test_criteo_tfrecord_roundtrip(tmp_path):
+    """``--save_tfrecords`` writes the ETL'd rows as dense TFRecord
+    shards that read back equal to the ETL (the native batched decoder),
+    and ``--tfrecord_dir`` trains from them on one node."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import tfrecord
+    from tensorflowonspark_tpu_torch.examples.criteo import criteo_spark
+
+    tfr = tmp_path / "tfr"
+    _run(tmp_path, "criteo.criteo_spark", "--save_tfrecords", tfr,
+         "--num_examples", 256, "--cluster_size", 1)
+    files = tfrecord.list_tfrecord_files(str(tfr))
+    assert len(files) == 4
+    schema = {"dense": ("float32", 13), "cat": ("int64", 26),
+              "label": ("int64", 1)}
+    got = [tfrecord.read_batch(f, schema) for f in files]
+    want = [criteo_spark.etl(line) for line in
+            criteo_spark.synthetic_criteo_lines(256)]
+    np.testing.assert_array_equal(
+        np.concatenate([g["dense"] for g in got]),
+        np.stack([w[0] for w in want]))
+    np.testing.assert_array_equal(np.concatenate([g["cat"] for g in got]),
+                                  np.stack([w[1] for w in want]))
+    np.testing.assert_array_equal(
+        np.concatenate([g["label"] for g in got])[:, 0],
+        [w[2] for w in want])
+    model = tmp_path / "model"
+    _run(tmp_path, "criteo.criteo_spark", "--cluster_size", 1,
+         "--tfrecord_dir", tfr, "--batch_size", 32, "--epochs", 1,
+         "--model_dir", model, "--device", "cpu")
+    stats = _stats(model)
+    assert stats["input"] == "tfrecord" and stats["steps"] == 256 // 32
+    assert stats["mesh"] == {"data": 1}
+
+
+def test_criteo_tp_training_and_int8_predict(tmp_path):
+    """``--tp 2 --cluster_size 2``: the queue-fed Wide & Deep trains on a
+    {"data": 1, "model": 2} mesh of two gloo ranks, each holding half the
+    table rows, and the int8 export answers ``:predict`` with one logit a
+    row; ``--tp 2`` with a cluster that is not a multiple of it is
+    refused (the port's contract difference)."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch.examples.criteo import criteo_spark
+
+    model, export_dir = tmp_path / "model", tmp_path / "wd_int8"
+    _run(tmp_path, "criteo.criteo_spark", "--cluster_size", 2, "--tp", 2,
+         "--num_examples", 512, "--batch_size", 32, "--epochs", 1,
+         "--model_dir", model, "--quantize_export", export_dir,
+         "--device", "cpu", distributed=True)
+    stats = _stats(model)
+    assert stats["steps"] > 0 and stats["input"] == "spark-etl"
+    assert stats["mesh"] == {"data": 1, "model": 2}
+    assert stats["table_local_rows"] == stats["table_rows"] // 2
+    rows = [criteo_spark.etl(line)
+            for line in criteo_spark.synthetic_criteo_lines(3, seed=5)]
+    with serving.ModelServer(str(export_dir), name="wd", port=0,
+                             device="cpu") as srv:
+        got = srv.predict({"instances": [
+            {"dense": r[0].tolist(), "cat": r[1].tolist()} for r in rows]})
+    logits = got["predictions"]  # one output: one float a row
+    assert len(logits) == 3
+    assert all(isinstance(x, float) and np.isfinite(x) for x in logits)
+    out = _run(tmp_path, "criteo.criteo_spark", "--cluster_size", 3, "--tp",
+               2, "--device", "cpu", ok=False)
+    assert out.returncode != 0 and "multiple" in out.stderr

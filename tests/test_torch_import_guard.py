@@ -25,6 +25,10 @@ PLANE = ("util", "marker", "fs", "frames", "shm", "manager", "tracing",
          "pipeline", "engine/streaming", "engine/spark_adapter",
          "parallel_runner")
 EXAMPLES = os.path.join(PORT, "examples")
+#: the parallel package's modules
+PARALLEL = ("parallel/__init__", "parallel/mesh", "parallel/collectives",
+            "parallel/sharding", "parallel/ring_attention", "parallel/moe",
+            "parallel/pipeline")
 #: the model zoo's modules, the weight bridge and the serving module
 MODELS = ("models/__init__", "models/_layers", "models/lenet",
           "models/resnet", "models/bert", "models/widedeep",
@@ -445,7 +449,7 @@ def test_example_drivers_import_no_torch_at_module_scope():
     files = _example_files()
     drivers = [os.path.relpath(f, EXAMPLES) for f in files
                if not os.path.basename(f).startswith("_")]
-    assert len(drivers) == 11, drivers
+    assert len(drivers) == 14, drivers
     for path in files:
         mods = list(_imports(path))
         assert not [m for m in mods if m.split(".")[0] in FORBIDDEN], path
@@ -524,4 +528,89 @@ def test_cluster_api_and_examples_run_with_jax_unimportable(tmp_path):
                out=str(tmp_path / "total.json"),
                work=str(tmp_path / "engine")))
     assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_parallel_modules_are_the_ports_own():
+    """Every module of the parallel package exists in the port and
+    imports nothing of JAX, flax, optax or the JAX package (statically);
+    the mesh module imports no torch at module scope (the supervisor's
+    resize arithmetic runs in processes that never touch a device)."""
+    for name in PARALLEL:
+        path = os.path.join(PORT, name + ".py")
+        assert os.path.isfile(path), path
+        bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+        assert not bad, (name, bad)
+    with open(os.path.join(PORT, "parallel", "mesh.py")) as f:
+        tree = ast.parse(f.read())
+    top = [a.name for n in tree.body if isinstance(n, ast.Import)
+           for a in n.names] + [n.module for n in tree.body
+                                if isinstance(n, ast.ImportFrom)
+                                and n.module]
+    assert not [m for m in top if m.split(".")[0] == "torch"], top
+
+
+def test_parallel_and_its_examples_run_with_jax_unimportable(tmp_path):
+    """From a process where jax, flax, optax and the JAX package cannot
+    be imported: the parallel package imports without starting a process
+    group, the 4-way lockstep ring trains a step's gradients, the
+    long-context driver learns on a one-rank ring (a gloo group it starts
+    and ends), MoE and the pipeline run on one-rank meshes, and the
+    Criteo driver trains on one executor and exports its int8 model."""
+    res = _run("""
+        import json, os, sys
+        for name in ("jax", "jaxlib", "flax", "optax",
+                     "tensorflowonspark_tpu"):
+            sys.modules[name] = None  # any import of them now fails
+        import torch
+        import torch.distributed as dist
+        import tensorflowonspark_tpu_torch.parallel as par
+        from tensorflowonspark_tpu_torch.parallel import (
+            moe, pipeline, ring_attention, sharding)
+        assert not dist.is_initialized()
+
+        q = torch.randn(1, 64, 2, 16, requires_grad=True)
+        out = ring_attention._ring_lockstep(q, q, q, 4, causal=True,
+                                            block_q=8, block_k=8,
+                                            layout="zigzag")
+        out.sum().backward()
+        assert torch.isfinite(q.grad).all()
+
+        from tensorflowonspark_tpu_torch.examples.longcontext import (
+            train_long)
+        train_long.main(["--seq_len", "128", "--steps", "8", "--hidden",
+                         "16", "--layers", "1", "--period", "7",
+                         "--device", "cpu"])
+        assert not dist.is_initialized()
+
+        mesh = par.build_mesh({"expert": 1}, device="cpu")
+        g = torch.Generator().manual_seed(0)
+        r, wi, wo = moe.init_moe_params(g, 4, 8, 16)
+        y, aux = moe.moe_ffn(torch.randn(6, 8), r, wi, wo, mesh)
+        assert y.shape == (6, 8) and float(aux) > 0
+        smesh = par.build_mesh({"stage": 1}, device="cpu")
+        xs, w = torch.randn(3, 2, 8), torch.randn(8, 8) * 0.3
+        ys = pipeline.pipeline_apply(lambda p, h: torch.tanh(h @ p), w, xs,
+                                     smesh)
+        assert torch.allclose(ys, torch.tanh(xs @ w))
+        dist.destroy_process_group()
+
+        from tensorflowonspark_tpu_torch.examples.criteo import criteo_spark
+        os.chdir(WORK)
+        criteo_spark.main(["--cluster_size", "1", "--num_examples", "128",
+                           "--batch_size", "32", "--epochs", "1",
+                           "--quantize_export", "wd_int8", "--device",
+                           "cpu"])
+        stats = json.load(open(os.path.join("widedeep_model",
+                                            "train_stats.json")))
+        assert stats["steps"] > 0, stats
+        assert os.path.isfile(os.path.join("wd_int8", "variables.pt"))
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "flax", "optax",
+                                         "tensorflowonspark_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("OK")
+    """.replace("WORK", repr(str(tmp_path))))
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
     assert res.stdout.strip().endswith("OK")
