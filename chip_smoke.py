@@ -4,9 +4,11 @@ NVIDIA card, end to end — serving, training, training fed through the
 cluster plane, the pipeline (TFRecords, data-parallel fit with
 checkpoint and resume, export, transform), the model zoo with
 ``:predict``, the cluster API's streaming, example and TFParallel
-paths, and the parallel package (ring attention on the flash kernels,
-the long-context and Criteo examples, MoE, the pipeline) — and hold its
-CUDA kernels against their plain PyTorch versions.
+paths, the parallel package (ring attention on the flash kernels,
+the long-context and Criteo examples, MoE, the pipeline), and the rest
+of generation (the contiguous cache, speculative decoding, KV
+ship/splice, the generate example) — and hold its CUDA kernels against
+their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -202,7 +204,9 @@ Phases, stopping with a non-zero exit at the first failure:
    by the partials autograd sums), and each kernel's launches against the schedule's
    live pairs exactly (``ring_live_pairs``: 10, 36 and 16). Printed: each
    schedule's fwd+bwd eager time with its device time (one CUDA graph of
-   the whole call, replayed) in brackets, beside one full-sequence call. (b) ``python -m
+   the whole call, replayed) in brackets, beside one full-sequence call
+   and one ``scaled_dot_product_attention`` call with its backward
+   (timed here only; the port never calls it). (b) ``python -m
    tensorflowonspark_tpu_torch.examples.longcontext.train_long`` at its
    defaults in both layouts (a one-rank ring), then ``--seq_len 32768
    --layout zigzag --steps 10``: the loss falls and the trainer counts
@@ -219,14 +223,37 @@ Phases, stopping with a non-zero exit at the first failure:
    --cluster_size 1 --tp 1 --quantize_export`` at the config's defaults
    through the cluster: steps in its stats, and one ``:predict`` round
    trip to the int8 export returns one float;
-11. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
+11. generation — phase 4's model from the seed: (a) the paged kernel at
+   the speculative verify window (8 slots, S_q 4 from mid-sequence
+   cursors, float and int8 pools) held as phase 3's cases are (bitwise
+   repeat, NaN-poisoned dead rows) and timed as phase 3's shapes are;
+   (b) the first 4 requests through solo ``generate`` (the contiguous
+   cache) and a ``kv_block_size=0`` engine; (c) the 16 requests over
+   HTTP through ``speculate_k=4`` engines with a 6-layer draft (float
+   and int8 KV) and with the whole target as its draft (acceptance >=
+   0.95): the counter algebra, and the split and tiled launches exactly
+   by the round arithmetic; (d) a ``tier="prefill"`` and a
+   ``tier="decode"`` server: 8 requests ``:prefill``-ed and shipped, then
+   ``:generate``-d on the decode server, whose prefix hits are the
+   shipped blocks; confirmed shipments, ``bytes`` the buffers' frame
+   bytes, int8 under a third of float's; (e) ``python -m
+   tensorflowonspark_tpu_torch.examples.generate.lm_generate --serve 8``:
+   the loss falls and every served output equals solo ``generate``.
+   Tokens of (b)-(d) equal phase 4's plain engines' but at a top-2 tie
+   below 1e-4. Printed: the verify window's times, tokens/s, TTFT p50,
+   acceptance, tokens a slot-round, ``measure_spec``'s draft and verify
+   ms, the transport, blocks, MB and ship ms;
+12. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
    counts as ``launches_cluster``, phase 7's as ``launches_pipeline``,
    phase 8's (BERT training plus ``:predict``) as ``launches_models``,
    phase 9's streaming-fed trainer's as ``launches_streaming`` and the
    BERT example's as ``launches_examples``, phase 10's ring and
    long-context launches as ``launches_ring``, their times at BERT's
    shape as ``bert_shape``, and the kernel each dtype runs as
-   ``design``), the card line, and last the ``{"ok": true, ...}`` line.
+   ``design``; the paged row adds phase 11's launches as
+   ``launches_spec`` and ``launches_disagg`` and the verify window's
+   times as ``verify``), the card line, and last the ``{"ok": true,
+   ...}`` line.
 
 ``--out-dir DIR`` also writes every number of the run to
 ``DIR/chip_smoke.json``. Needs one card; exits non-zero, printing no
@@ -382,67 +409,76 @@ PAGED_CASES = [(1, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK),
                (16, 4, 192, 8)]
 
 
+def hold_case(torch, pa, dev, args, scales, s_q, d, quant):
+    """One case of the kernel against ``_blockwise``: the route the shape
+    maps to (split-KV at S_q = 1, query-tiled above: tensor cores up to
+    D 128, CUDA cores beyond), finite and within ``KERNEL_TOL``, a second
+    call bitwise equal to the first, and NaN-poisoned dead pool rows
+    leaving the output bitwise unchanged. Returns (route, |difference|)."""
+    ks, vs = scales
+    scale = d ** -0.5
+    before = dict(pa.route_launches)
+    got = pa.paged_attention(*args, scale=scale, impl="kernel",
+                             k_scale=ks, v_scale=vs)
+    route = pa._route(s_q, d)
+    check(route == ("split" if s_q == 1 else "tiled" if d <= 128
+                    else "tiled_simt"),
+          "s_q={} D={} maps to the {} route".format(s_q, d, route))
+    check(pa.route_launches[route] == before[route] + 1,
+          "s_q={} did not take the {} route".format(s_q, route))
+    want = pa.paged_attention(*args, scale=scale, impl="blockwise",
+                              k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()),
+          "kernel output not finite (s_q={}, int8={})".format(s_q, quant))
+    err = (got - want).abs().max().item()
+    again = pa.paged_attention(*args, scale=scale, impl="kernel",
+                               k_scale=ks, v_scale=vs)
+    check(torch.equal(again, got), "two kernel calls on the same "
+          "inputs differ (s_q={}, int8={})".format(s_q, quant))
+    log("kernel vs plain  int8={!s:<5} s_q={:<3} D={:<3} route={:<10} "
+        "max_abs_err={:.3e} (tol {:.0e})".format(
+            quant, s_q, d, route, err, KERNEL_TOL))
+    check(err <= KERNEL_TOL, "kernel disagrees with plain version")
+    # never reads a dead pool row: poison them, output unchanged
+    table = args[3].cpu().numpy()
+    live = live_rows(table, args[4].cpu().numpy(), BLOCK)
+    dead = torch.tensor(sorted(set(range(args[1].shape[0])) - live),
+                        device=dev, dtype=torch.long)
+    check(dead.numel() > 0, "case leaves no dead rows")
+    pk, pv = args[1].clone(), args[2].clone()
+    if quant:
+        # int8 codes cannot hold NaN: poison the scales instead
+        ks2, vs2 = ks.clone(), vs.clone()
+        ks2[dead] = float("nan")
+        vs2[dead] = float("nan")
+    else:
+        ks2, vs2 = ks, vs
+        pk[dead] = float("nan")
+        pv[dead] = float("nan")
+    poisoned = pa.paged_attention(args[0], pk, pv, args[3], args[4],
+                                  scale=scale, impl="kernel",
+                                  k_scale=ks2, v_scale=vs2)
+    torch.cuda.synchronize()
+    check(torch.equal(poisoned, got),
+          "kernel output changed under NaN-poisoned dead rows "
+          "(s_q={}, int8={})".format(s_q, quant))
+    return route, err
+
+
 def kernel_cases(torch, pa, dev):
     """Hold the kernels against ``_blockwise`` on every case, on every
-    route (split-KV at S_q = 1, query-tiled above: tensor cores up to
-    D 128, CUDA cores beyond), with a second call bitwise equal to the
-    first; returns the largest |difference| per route."""
+    route (``hold_case``); returns the largest |difference| per route."""
     rng = np.random.RandomState(SEED)
     worst = {route: 0.0 for route in pa.route_launches}
     for quant in (False, True):
         for s_q, n, d, mb in PAGED_CASES:
-            args, (ks, vs) = make_case(
+            args, scales = make_case(
                 torch, rng, SLOTS, s_q, mb, quant, dev, overshoot_row=1,
                 scratch_row=SLOTS - 1, n=n, d=d)
-            scale = d ** -0.5
-            before = dict(pa.route_launches)
-            got = pa.paged_attention(*args, scale=scale, impl="kernel",
-                                     k_scale=ks, v_scale=vs)
-            route = pa._route(s_q, d)
-            check(route == ("split" if s_q == 1 else "tiled" if d <= 128
-                            else "tiled_simt"),
-                  "s_q={} D={} maps to the {} route".format(s_q, d, route))
-            check(pa.route_launches[route] == before[route] + 1,
-                  "s_q={} did not take the {} route".format(s_q, route))
-            want = pa.paged_attention(*args, scale=scale, impl="blockwise",
-                                      k_scale=ks, v_scale=vs)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()),
-                  "kernel output not finite (s_q={}, int8={})".format(
-                      s_q, quant))
-            err = (got - want).abs().max().item()
-            again = pa.paged_attention(*args, scale=scale, impl="kernel",
-                                       k_scale=ks, v_scale=vs)
-            check(torch.equal(again, got), "two kernel calls on the same "
-                  "inputs differ (s_q={}, int8={})".format(s_q, quant))
-            log("kernel vs plain  int8={!s:<5} s_q={:<3} D={:<3} route={:<10} "
-                "max_abs_err={:.3e} (tol {:.0e})".format(
-                    quant, s_q, d, route, err, KERNEL_TOL))
-            check(err <= KERNEL_TOL, "kernel disagrees with plain version")
+            route, err = hold_case(torch, pa, dev, args, scales, s_q, d,
+                                   quant)
             worst[route] = max(worst[route], err)
-            # never reads a dead pool row: poison them, output unchanged
-            table = args[3].cpu().numpy()
-            live = live_rows(table, args[4].cpu().numpy(), BLOCK)
-            dead = torch.tensor(sorted(set(range(args[1].shape[0])) - live),
-                                device=dev, dtype=torch.long)
-            check(dead.numel() > 0, "case leaves no dead rows")
-            pk, pv = args[1].clone(), args[2].clone()
-            if quant:
-                # int8 codes cannot hold NaN: poison the scales instead
-                ks2, vs2 = ks.clone(), vs.clone()
-                ks2[dead] = float("nan")
-                vs2[dead] = float("nan")
-            else:
-                ks2, vs2 = ks, vs
-                pk[dead] = float("nan")
-                pv[dead] = float("nan")
-            poisoned = pa.paged_attention(args[0], pk, pv, args[3], args[4],
-                                          scale=scale, impl="kernel",
-                                          k_scale=ks2, v_scale=vs2)
-            torch.cuda.synchronize()
-            check(torch.equal(poisoned, got),
-                  "kernel output changed under NaN-poisoned dead rows "
-                  "(s_q={}, int8={})".format(s_q, quant))
     return worst
 
 
@@ -2922,6 +2958,18 @@ def full_run(torch, fa, inputs, causal, block=RING_BLOCK):
     return out.detach(), q.grad, k.grad, v.grad
 
 
+def sdpa_run(torch, inputs, causal):
+    """``scaled_dot_product_attention`` over the full sequence and its
+    autograd backward on ``inputs`` (q, k, v, dO as ``[B, S, N, D]``)."""
+    import torch.nn.functional as F
+
+    q, k, v, dout = (x.detach().transpose(1, 2) for x in inputs)
+    q, k, v = (x.contiguous().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    torch.autograd.backward(out, dout)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
 def ring_check(torch, fa, ra, inputs, p, causal, layout, label,
                block=RING_BLOCK):
     """One P-way lockstep ring on the kernel route held against the same
@@ -3035,6 +3083,9 @@ def ring_leg(torch, fa, ra, dev):
             def full_step(_c=causal):
                 full_run(torch, fa, inputs, _c)
 
+            def sdpa_step(_c=causal):
+                sdpa_run(torch, inputs, _c)
+
             # the least time for the ring's work: every schedule attends
             # the full call's (query, key) pairs (causal: key <= query),
             # at 2 flops a multiply-add of the forward's 2, dQ's 3 and
@@ -3055,14 +3106,20 @@ def ring_leg(torch, fa, ra, dev):
             t["step_device_ms"] = graph_step_ms(torch, ring_step)
             t["full_step_ms"], _ = eager_ms(torch, full_step, 3)
             t["full_step_device_ms"] = graph_step_ms(torch, full_step)
+            # the library yardstick (timed here only): one SDPA call over
+            # the full sequence and its autograd backward
+            t["sdpa_step_ms"], _ = eager_ms(torch, sdpa_step, 3)
+            t["sdpa_step_device_ms"] = graph_step_ms(torch, sdpa_step)
             log("ring {:<17} {:<8} fwd+bwd {:.3f} ms eager [{:.3f} ms "
                 "device time], host {:.3f} ms; fwd {:.3f} ms; one "
-                "full-sequence flash call fwd+bwd {:.3f} ms [{:.3f}]; bound "
+                "full-sequence flash call fwd+bwd {:.3f} ms [{:.3f}]; one "
+                "full-sequence SDPA call fwd+bwd {:.3f} ms [{:.3f}]; bound "
                 "{:.3f} ms (operations; {:.1f}% of the ring's device "
                 "time)".format(
                     sched, dtype, t["step_ms"], t["step_device_ms"],
                     t["step_host_ms"], t["fwd_ms"], t["full_step_ms"],
-                    t["full_step_device_ms"], t["bound_ms"],
+                    t["full_step_device_ms"], t["sdpa_step_ms"],
+                    t["sdpa_step_device_ms"], t["bound_ms"],
                     100.0 * t["bound_ms"] / t["step_device_ms"]))
             res["{}/{}".format(dtype, sched)] = t
         del inputs
@@ -3300,6 +3357,352 @@ def parallel_phase(torch, dev, here):
     return res
 
 
+# -- phase 11: generation -------------------------------------------------
+
+
+#: the speculative window: the draft proposes this many tokens a round,
+#: and the verify is one paged call of this many queries a row
+SPEC_K = 4
+#: (a)'s depths: 8 slots from mid-sequence cursors, one window short of
+#: a block boundary, on it and just past it, deep, and a row whose window
+#: overshoots the table
+VERIFY_DEPTHS = np.array([SPEC_K, BLOCK, BLOCK + 1, 2 * BLOCK + SPEC_K - 1,
+                          100, 333, 640, MAX_LEN - 1])
+#: (b): the first requests of phase 4's traffic through solo generate and
+#: the contiguous engine
+CONTIGUOUS_REQUESTS = 4
+#: (d): the requests prefilled on one server and decoded on another
+DISAGG_REQUESTS = 8
+#: (c): acceptance when the draft is the whole target (a tie can reject)
+FULL_DRAFT_ACCEPTANCE = 0.95
+
+
+def verify_window_leg(torch, pa, dev):
+    """11(a): the paged kernel at the verify window — 8 slots, S_q =
+    ``SPEC_K`` from mid-sequence cursors, float and int8 pools — held as
+    phase 3's cases are (``hold_case``), then timed (``paged_timing``:
+    eager and device, the plain version, SDPA over the pre-gathered
+    view, the bound). Returns (largest |difference|, times by dtype)."""
+    rng = np.random.RandomState(SEED + 110)
+    worst = 0.0
+    d = HIDDEN // HEADS
+    for quant in (False, True):
+        args, scales = make_case(torch, rng, SLOTS, SPEC_K, MAX_LEN // BLOCK,
+                                 quant, dev, depths=VERIFY_DEPTHS.copy(),
+                                 overshoot_row=SLOTS - 1, scratch_row=0)
+        route, err = hold_case(torch, pa, dev, args, scales, SPEC_K, d,
+                               quant)
+        check(route == "tiled", "the verify window took the {} route"
+              .format(route))
+        worst = max(worst, err)
+    depths = np.random.RandomState(SEED + 111).randint(
+        SPEC_K + 32, 641, size=SLOTS)
+    times = {}
+    for quant in (False, True):
+        t = times["int8" if quant else "float32"] = paged_timing(
+            torch, pa, dev, quant, SPEC_K, depths, 6)
+        log("verify window int8={!s:<5} 8 slots S_q {} {} kernel {:.4f} ms "
+            "per eager call ({:.4f} ms device time)  plain {:.4f} ms  sdpa "
+            "{:.4f} ms ({:.4f} ms device time)  bound {:.4f} ms ({}; "
+            "{:.1f}% of device time; {} live tokens)".format(
+                quant, SPEC_K, t["route"], t["ms"], t["device_ms"],
+                t["plain_ms"], t["library_ms"], t["library_device_ms"],
+                t["bound_ms"], t["bound_by"],
+                100.0 * t["bound_ms"] / t["device_ms"], t["live_tokens"]))
+    return worst, times
+
+
+def counter_algebra(counts, k, label):
+    """The speculative counters' documented contract."""
+    rounds = counts.get("spec_rounds", 0)
+    proposed = counts.get("spec_proposed", 0)
+    accepted = counts.get("spec_accepted", 0)
+    check(0 < rounds <= proposed <= k * rounds,
+          "{}: rounds {} <= proposed {} <= {} x rounds fails".format(
+              label, rounds, proposed, k))
+    check(0 <= accepted <= proposed, "{}: accepted {} > proposed {}".format(
+        label, accepted, proposed))
+    check(counts.get("decode_tokens", 0) <= k * rounds,
+          "{}: more tokens than rounds can emit".format(label))
+    return accepted / proposed
+
+
+def contiguous_leg(torch, generation, serving, model, reqs, want, dev):
+    """11(b): the first requests through solo ``generate`` (one at a
+    time, the prompt fed token by token into a contiguous cache) and a
+    ``kv_block_size=0`` engine; both must give the paged engine's tokens
+    ``want`` but at a tie."""
+    t0 = time.monotonic()
+    solo = [generation.generate(model, [p], n, device=dev)[0].tolist()
+            for p, n in reqs]
+    solo_s = time.monotonic() - t0
+    with serving.DecodeEngine(model, slots=SLOTS, total_len=MAX_LEN,
+                              kv_block_size=0, device=dev) as engine:
+        check(engine.load_stats()["attn_impl"] == "contiguous",
+              "kv_block_size=0 did not select the contiguous cache")
+        t0 = time.monotonic()
+        served = [h.result(600) for h in
+                  [engine.submit(p, n) for p, n in reqs]]
+        engine_s = time.monotonic() - t0
+        counts = engine.counters.snapshot()["counts"]
+    ties = {"solo": compare_tokens(torch, generation, model, solo, want,
+                                   reqs, None, dev),
+            "engine": compare_tokens(torch, generation, model, served, want,
+                                     reqs, None, dev)}
+    log("contiguous: solo generate {:.2f}s, kv_block_size=0 engine {:.2f}s "
+        "({} decode steps); equal to the paged engine on {}/{} and {}/{} "
+        "requests (the rest at a tie)".format(
+            solo_s, engine_s, counts.get("decode_steps", 0),
+            len(reqs) - ties["solo"], len(reqs),
+            len(reqs) - ties["engine"], len(reqs)))
+    return {"solo_s": solo_s, "engine_s": engine_s, "ties": ties,
+            "decode_steps": counts.get("decode_steps", 0)}
+
+
+def speculative_leg(torch, pa, generation, serving, model, reqs, runs, dev):
+    """11(c): phase 4's requests over HTTP through ``speculate_k``
+    engines — a 6-layer draft at float and int8 KV, and the whole target
+    as its own draft, where every proposal stands but after a tie. Each
+    run: tokens equal the plain engine's of phase 4 (same KV dtype) but
+    at a tie, the counter algebra, and the routes' launches exactly by
+    the round arithmetic (the draft's ``SPEC_K`` one-token steps on the
+    split route, the verify and every prefill, target and draft, on the
+    tiled one)."""
+    res = {}
+    total = 0
+    for draft_layers, kv in ((LAYERS // 2, None), (LAYERS // 2, "int8"),
+                             (LAYERS, None)):
+        label = "draft {} kv {}".format(draft_layers, kv or "float32")
+        engine = serving.DecodeEngine(
+            model, slots=SLOTS, total_len=MAX_LEN, kv_block_size=BLOCK,
+            kv_dtype=kv, speculate_k=SPEC_K, draft_layers=draft_layers,
+            device=dev)
+        with engine:
+            launches = pa.launches
+            for route in pa.route_launches:
+                pa.route_launches[route] = 0
+            out, wall = serve_over_http(serving, engine, reqs)
+            routes = dict(pa.route_launches)
+            total += pa.launches - launches
+            counts = engine.counters.snapshot()["counts"]
+            load = engine.load_stats()
+            ttft = engine.histograms["ttft"].quantile(0.5)
+            spec_ms = engine.measure_spec()
+        rounds, prefills = counts["decode_steps"], counts["prefills"]
+        want_routes = {"split": draft_layers * SPEC_K * rounds,
+                       "tiled": LAYERS * rounds
+                       + (LAYERS + draft_layers) * prefills,
+                       "tiled_simt": 0}
+        check(routes == want_routes,
+              "{}: paged launches by route {} are not {} ({} rounds, {} "
+              "prefills)".format(label, routes, want_routes, rounds,
+                                 prefills))
+        rate = counter_algebra(counts, SPEC_K, label)
+        check(load["spec_acceptance_rate"] == round(rate, 4),
+              "{}: load_stats' acceptance rate is not accepted/proposed"
+              .format(label))
+        ties = compare_tokens(torch, generation, model, out, runs[kv]["out"],
+                              reqs, kv, dev)
+        if draft_layers == LAYERS:
+            check(rate >= FULL_DRAFT_ACCEPTANCE,
+                  "{}: the whole target as its draft accepted {:.4f} < {}"
+                  .format(label, rate, FULL_DRAFT_ACCEPTANCE))
+        gen = sum(n for _, n in reqs)
+        per_round = counts["decode_tokens"] / counts["spec_rounds"]
+        res[label] = {
+            "draft_layers": draft_layers, "kv_dtype": kv or "float32",
+            "tokens_per_s": gen / wall, "wall_s": wall, "ttft_p50_s": ttft,
+            "acceptance": rate, "tokens_per_round": per_round,
+            "rounds": rounds, "prefills": prefills, "routes": routes,
+            "ties": ties, "measure_spec_ms": spec_ms,
+            "counts": {k: counts.get(k, 0) for k in (
+                "spec_rounds", "spec_proposed", "spec_accepted",
+                "decode_tokens", "prefix_hit_blocks")}}
+        log("speculative {:<22} tokens/s={:.1f} wall={:.2f}s ttft_p50={:.4f}s "
+            "acceptance={:.4f} tokens/slot-round={:.3f} rounds={} "
+            "prefills={}; measure_spec draft {:.3f} ms verify {:.3f} ms; "
+            "routes {}; equal to the plain engine on {}/{} ({} at a tie)"
+            .format(label, gen / wall, wall, ttft, rate, per_round, rounds,
+                    prefills, spec_ms["draft"], spec_ms["verify"], routes,
+                    len(reqs) - ties, len(reqs), ties))
+    check(total > 0, "the speculative engines never launched the kernel")
+    return total, res
+
+
+def _post_json(port, path, payload):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", path, body=json.dumps(payload),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    conn.close()
+    check(resp.status == 200, "POST {} answered {}: {}".format(
+        path, resp.status, body))
+    return body
+
+
+def disagg_leg(torch, pa, generation, serving, model, reqs, runs, dev):
+    """11(d): a ``tier="prefill"`` and a ``tier="decode"`` server in this
+    process. Each request: ``:prefill`` on the first with ``ship`` at
+    the second (confirmed, ``bytes`` equal to ``frames.frame_bytes`` of
+    the exported buffers), then ``:generate`` on the second, whose prefix
+    hits must be the shipped blocks (only the tail prefills there), with
+    tokens equal to phase 4's mixed engine's but at a tie; float and
+    int8 KV, int8's wire bytes under a third of float's."""
+    from tensorflowonspark_tpu_torch import frames, kvship
+
+    res = {}
+    total = 0
+    for kv in (None, "int8"):
+        engines = {tier: serving.DecodeEngine(
+            model, slots=SLOTS, total_len=MAX_LEN, kv_block_size=BLOCK,
+            kv_dtype=kv, tier=tier, replica_id="smoke-" + tier, device=dev)
+            for tier in ("prefill", "decode")}
+        servers = {tier: serving.ModelServer(None, name="gpt2", port=0,
+                                             engine=eng)
+                   for tier, eng in engines.items()}
+        launches = pa.launches
+        try:
+            for srv in servers.values():
+                srv.start()
+            addr = "127.0.0.1:{}".format(servers["decode"].address[1])
+            p_port = servers["prefill"].address[1]
+            d_port = servers["decode"].address[1]
+            out, ships = [], []
+            t0 = time.monotonic()
+            for prompt, n in reqs:
+                shipped = _post_json(p_port, "/v1/models/gpt2:prefill", {
+                    "prompt": prompt,
+                    "ship": {"addr": addr, "replica_id": "smoke-decode"}})
+                check(shipped.get("shipped") is True,
+                      "a shipment did not land: {}".format(shipped))
+                buffers, _ = engines["prefill"].export_prefix(prompt)
+                check(shipped["bytes"] == frames.frame_bytes(buffers),
+                      "shipped bytes {} are not the buffers' {}".format(
+                          shipped["bytes"], frames.frame_bytes(buffers)))
+                hits = engines["decode"].counters.get("prefix_hit_blocks")
+                body = _post_json(d_port, "/v1/models/gpt2:generate",
+                                  {"prompt": prompt, "max_new_tokens": n})
+                hits = engines["decode"].counters.get(
+                    "prefix_hit_blocks") - hits
+                want_hits = min(shipped["blocks"], (len(prompt) - 1) // BLOCK)
+                check(hits == want_hits,
+                      "the decode server hit {} prefix blocks, not the {} "
+                      "shipped".format(hits, want_hits))
+                out.append(body["tokens"])
+                ships.append(shipped)
+            wall = time.monotonic() - t0
+            stats = {tier: eng.load_stats() for tier, eng in engines.items()}
+            ship_ms = engines["prefill"].histograms["kv_ship_ms"]
+            ship_ms = {"p50": ship_ms.quantile(0.5),
+                       "max": ship_ms.quantile(1.0)}
+        finally:
+            for srv in servers.values():
+                srv.stop()
+            for eng in engines.values():
+                eng.stop()
+            kvship.close_rings()
+        total += pa.launches - launches
+        ties = compare_tokens(torch, generation, model, out,
+                              runs[kv]["out"][:len(reqs)], reqs, kv, dev)
+        wire = sum(s["bytes"] for s in ships)
+        blocks = sum(s["blocks"] for s in ships)
+        label = kv or "float32"
+        check(stats["prefill"]["tier"] == "prefill"
+              and stats["decode"]["tier"] == "decode",
+              "load_stats does not carry the tiers")
+        check(stats["prefill"]["kv_ship_bytes"] == wire,
+              "the prefill engine accounted {} shipped bytes, not {}".format(
+                  stats["prefill"]["kv_ship_bytes"], wire))
+        res[label] = {
+            "wire_bytes": wire, "blocks": blocks,
+            "spliced_blocks": stats["decode"]["kv_spliced_blocks"],
+            "transport": sorted({s["transport"] for s in ships}),
+            "ship_ms": ship_ms,
+            "wall_s": wall, "ties": ties}
+        log("disaggregated kv={:<7} {} requests: {} blocks shipped over {} "
+            "({} spliced, the rest resident), {:.3f} MB on the wire, ship "
+            "ms p50 {:.2f} max {:.2f}; wall {:.2f}s; equal to the mixed "
+            "engine on {}/{} ({} at a tie)".format(
+                label, len(reqs), blocks, "/".join(res[label]["transport"]),
+                res[label]["spliced_blocks"], wire / 1e6, ship_ms["p50"],
+                ship_ms["max"], wall, len(reqs) - ties,
+                len(reqs), ties))
+    check(res["int8"]["wire_bytes"] * 3 < res["float32"]["wire_bytes"],
+          "int8 wire bytes {} are not under a third of float's {}".format(
+              res["int8"]["wire_bytes"], res["float32"]["wire_bytes"]))
+    log("disaggregated int8 / float32 wire bytes: {:.4f}".format(
+        res["int8"]["wire_bytes"] / res["float32"]["wire_bytes"]))
+    return total, res
+
+
+def generate_example_leg(here, parent):
+    """11(e): ``python -m ...examples.generate.lm_generate --serve 8`` on
+    the card: the loss falls, and every served output equals solo
+    ``generate``."""
+    import subprocess
+
+    cmd = [sys.executable, "-m",
+           "tensorflowonspark_tpu_torch.examples.generate.lm_generate",
+           "--serve", "8"]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    out = subprocess.run(cmd, cwd=parent, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.monotonic() - t0
+    check(out.returncode == 0, "lm_generate failed:\n{}".format(
+        out.stdout[-2000:] + out.stderr[-3000:]))
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    check(got["device"].startswith("cuda"),
+          "lm_generate ran on {}".format(got["device"]))
+    check(got["loss"] < got["loss_first"],
+          "lm_generate's loss did not fall: {} -> {}".format(
+              got["loss_first"], got["loss"]))
+    check(got["serve"]["solo_mismatches"] == 0,
+          "lm_generate: served outputs differ from solo generate")
+    log("lm_generate --serve 8: loss {:.4f} -> {:.4f}, served {} requests "
+        "{:.1f} tokens/s, solo_mismatches 0; command wall {:.1f}s".format(
+            got["loss_first"], got["loss"], got["serve"]["requests"],
+            got["serve"]["tokens_per_sec"], wall))
+    return dict(got, wall_s=wall)
+
+
+def generation_phase(torch, pa, dev, runs, here):
+    """Phase 11: (a) the kernel at the verify window; (b) the contiguous
+    cache; (c) speculative serving; (d) disaggregated prefill and decode;
+    (e) the generate example. Phase 4's model from the same seed, its
+    requests and its plain engines' tokens (``runs``)."""
+    from tensorflowonspark_tpu_torch import generation, serving
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+    t_phase = time.monotonic()
+    verify_err, verify_t = verify_window_leg(torch, pa, dev)
+    model = DecoderLM(VOCAB, hidden=HIDDEN, num_heads=HEADS,
+                      num_layers=LAYERS, max_len=MAX_LEN, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+    reqs = traffic()
+    contiguous = contiguous_leg(
+        torch, generation, serving, model, reqs[:CONTIGUOUS_REQUESTS],
+        runs[None]["out"][:CONTIGUOUS_REQUESTS], dev)
+    spec_launches, spec = speculative_leg(torch, pa, generation, serving,
+                                          model, reqs, runs, dev)
+    disagg_launches, disagg = disagg_leg(
+        torch, pa, generation, serving, model, reqs[:DISAGG_REQUESTS], runs,
+        dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    example = generate_example_leg(here, here)
+    wall = time.monotonic() - t_phase
+    log("generation phase wall {:.1f}s".format(wall))
+    return {"verify_error": verify_err, "verify": verify_t,
+            "contiguous": contiguous, "speculative": spec,
+            "launches_spec": spec_launches, "disagg": disagg,
+            "launches_disagg": disagg_launches, "example": example,
+            "wall_s": wall}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -3407,6 +3810,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     par = parallel_phase(torch, dev, here)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = generation_phase(torch, pa, dev, runs, here)
     t = timing["decode"][False]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -3414,7 +3820,12 @@ def main():
         "source": "tensorflowonspark_tpu_torch/csrc/paged_attention.cu",
         "replaces": "tensorflowonspark_tpu/ops/paged_attention.py:210",
         "launches": launches,
-        "max_abs_err": max(max_err.values()),
+        # phase 11: (c) the speculative engines (the draft's one-token
+        # steps on the split route, verify windows and prefills on the
+        # tiled one), (d) the prefill and decode servers
+        "launches_spec": gen["launches_spec"],
+        "launches_disagg": gen["launches_disagg"],
+        "max_abs_err": max(max(max_err.values()), gen["verify_error"]),
         # the decode shape (split-KV route), the main path's decode
         # steps; ms and library_ms per eager call, as for the flash rows,
         # with the device times (CUDA-graph replays) beside them
@@ -3444,7 +3855,9 @@ def main():
                            "shape": "head dims 129-256 (none served)"}},
         "by_shape": {shape: {"float32": timing[shape][False],
                              "int8": timing[shape][True]}
-                     for shape in timing}}]}
+                     for shape in timing},
+        # 11(a): the verify window, 8 slots x S_q 4 (the tiled route)
+        "verify": gen["verify"]}]}
     t = timing["prefill"][False]
     kernels["kernels"].append({
         "name": "paged_attention_tiled",
@@ -3543,6 +3956,7 @@ def main():
                        "models": zoo,
                        "examples": ex,
                        "parallel": par,
+                       "generation": gen,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     log("total: {:.1f}s".format(time.monotonic() - t_start))
     print(json.dumps(kernels))

@@ -10,6 +10,11 @@ whether a cache is passed:
   ``ops.flash_attention`` when ``s`` is a multiple of 128, else through
   the plain ``_reference`` — the reference's dispatch
   (``decoder.py:289-294``).
+- **contiguous cache** (``model(tokens, cache[, idx])``, solo
+  ``generation.generate`` and the ``kv_block_size=0`` engine): per
+  layer ``[B, L, N, D]`` K/V and a ``cache_index`` ``[B]`` cursor; a
+  call writes at each row's cursor and attends the whole row under
+  ``arange(L) <= pos``, with two einsums, as the reference does.
 - **paged decode** (``model(tokens, cache, idx, tables)``, serving):
   every call writes the step's K/V for logical positions ``[idx, idx +
   s)`` through the block table into the layer's pool, then attends
@@ -21,7 +26,10 @@ The cache is plain tensors owned by the caller (generation.py's
 :func:`~tensorflowonspark_tpu_torch.generation.init_paged_cache`): per
 layer the pools ``cached_key``/``cached_value`` ``[P, bs, N, D]`` and,
 for int8 KV, ``key_scale``/``value_scale`` ``[P, bs, N]``; writes
-update them in place. Pool row 0 is scratch.
+update them in place. Pool row 0 is scratch. A contiguous cache
+(:func:`~tensorflowonspark_tpu_torch.generation.init_cache`) holds
+``cached_key``/``cached_value`` ``[B, L, N, D]`` and ``cache_index``
+``[B]`` per layer, also updated in place.
 
 Three flax defaults are matched explicitly, because torch's differ:
 LayerNorm epsilon 1e-6, GELU in its tanh approximation, and the
@@ -82,6 +90,9 @@ class CausalSelfAttention(nn.Module):
                 # do not divide take the exact plain attention
                 ctx = fa._reference(q, k, v, True, d ** -0.5)
             return self.out(ctx.reshape(b, s, n * d))
+        if tables is None:
+            return self.out(self._contiguous(q, k, v, layer_cache, pos)
+                            .reshape(b, s, n * d))
         pk = layer_cache["cached_key"]
         pv = layer_cache["cached_value"]
         bs_blk = pk.shape[1]
@@ -112,6 +123,36 @@ class CausalSelfAttention(nn.Module):
             impl=None if attn_impl == "fused" else "gather",
             k_scale=ksc, v_scale=vsc)
         return self.out(ctx.reshape(b, s, n * d))
+
+
+    def _contiguous(self, q, k, v, layer_cache, pos):
+        """The reference's two unpaged cached branches
+        (``decoder.py:232-285``) as one: write this call's K/V at each
+        row's positions ``pos [B, s]`` of the ``[B, L, N, D]`` cache, then
+        attend over the whole cache under ``arange(L) <= pos`` (the
+        ``[B, L]`` mask of a one-token step is the ``s == 1`` case of the
+        ``[B, s, L]`` one). Two einsums, no kernel, as in the reference:
+        masked logits are float32's lowest finite value, and the
+        probabilities are cast to the cache dtype before the second
+        product. Writes past ``L`` are dropped, as JAX's scatter drops
+        them."""
+        ck = layer_cache["cached_key"]
+        cv = layer_cache["cached_value"]
+        b, s = pos.shape
+        max_len = ck.shape[1]
+        rows = torch.arange(b, device=pos.device)[:, None].expand(b, s)
+        keep = pos < max_len
+        p = pos.long()
+        ck[rows[keep], p[keep]] = k[keep].to(ck.dtype)
+        cv[rows[keep], p[keep]] = v[keep].to(cv.dtype)
+        logits = torch.einsum("bqnd,bknd->bnqk", q.to(torch.float32),
+                              ck.to(torch.float32)) * q.shape[-1] ** -0.5
+        visible = (torch.arange(max_len, device=pos.device)[None, None, :]
+                   <= pos[:, :, None])                   # [B, s, L]
+        logits = torch.where(visible[:, None, :, :], logits,
+                             torch.finfo(torch.float32).min)
+        probs = torch.softmax(logits, dim=-1).to(cv.dtype)
+        return torch.einsum("bnqk,bknd->bqnd", probs, cv).to(q.dtype)
 
 
 class DecoderBlock(nn.Module):
@@ -174,10 +215,14 @@ class DecoderLM(nn.Module):
         """``tokens [B, s]`` -> logits ``[B, s, vocab]``.
 
         Without ``cache_layers``: the full-sequence forward at positions
-        ``0..s-1`` (``s <= max_len``). With them: the paged path at
+        ``0..s-1`` (``s <= max_len``). With them: the cached path at
         positions ``idx[b] + 0..s-1`` (``idx [B]`` int32 per-row
-        cursors), writing the step's K/V into ``cache_layers`` through
-        ``tables [B, MB]`` int32."""
+        cursors), writing the step's K/V into ``cache_layers`` — through
+        ``tables [B, MB]`` int32 into block pools (paged), or, with
+        ``tables`` None, into per-row ``[B, L, N, D]`` caches
+        (contiguous; ``idx`` None reads each layer's ``cache_index``
+        cursor, and every call advances it by ``s``, as the reference's
+        cache collection does)."""
         b, s = tokens.shape
         if cache_layers is None:
             if s > self.max_len:
@@ -187,6 +232,9 @@ class DecoderLM(nn.Module):
             for block in self.blocks:
                 x = block(x, attn_impl=attn_impl)
             return self.head(self.ln_f(x))
+        contiguous = tables is None
+        if contiguous and idx is None:
+            idx = cache_layers[0]["cache_index"]
         pos = idx.to(torch.int32)[:, None] + torch.arange(
             s, dtype=torch.int32, device=tokens.device)[None, :]
         # clamped lookup (the reference's mode="clip"): bucket-pad rows
@@ -196,4 +244,8 @@ class DecoderLM(nn.Module):
             + self.pos_embed[pos.clamp(0, self.max_len - 1).long()]
         for block, layer in zip(self.blocks, cache_layers):
             x = block(x, layer, pos, tables, attn_impl=attn_impl)
+        if contiguous:
+            nxt = (pos[:, 0] + s).to(torch.int32)
+            for layer in cache_layers:
+                layer["cache_index"].copy_(nxt)
         return self.head(self.ln_f(x))

@@ -1,17 +1,32 @@
-"""Continuous-batching decode serving — the port of the paged
-``DecodeEngine`` and the ``:generate`` surface of
-``tensorflowonspark_tpu/serving.py``.
+"""Continuous-batching decode serving — the port of the
+``DecodeEngine`` and the ``:generate`` / ``:prefill`` / ``/kv/splice``
+surface of ``tensorflowonspark_tpu/serving.py``.
 
 :class:`DecodeEngine` owns a paged KV cache (one block pool per layer,
 shared by ``slots`` rows through per-slot block tables) and a scheduler
 thread. Requests enter freed slots at decode-step boundaries, prefill
-only the tail their resident shared prefix does not cover, grow one
-block at a time as they decode, and leave individually on EOS or
-length; under pool exhaustion the youngest admission is preempted and
-re-enters later with a continuation prefill. Attention runs through
+only the tail their resident shared prefix does not cover, grow block
+by block as they decode, and leave individually on EOS or length;
+under pool exhaustion the youngest admission is preempted and re-enters
+later with a continuation prefill. Attention runs through
 ``ops.paged_attention``: the hand-written CUDA kernel on the card
 (``attn_impl="fused"``), or the materialized-view oracle
-(``attn_impl="gather"``).
+(``attn_impl="gather"``). ``kv_block_size=0`` selects the contiguous
+per-slot cache instead (no pool: two einsums over ``[slots, L]``).
+
+``speculate_k`` (>= 2, paged only) turns each step into a speculative
+round: a weight-tied draft of the first ``draft_layers`` blocks
+proposes ``k`` tokens with ``k`` one-token steps into its own pool (at
+the target's table rows and cursors), the target scores the window in
+one ``k``-query apply, and the longest run of draft tokens equal to the
+target's own picks is emitted, with the target's correction after it:
+at temperature 0 exactly the plain engine's tokens.
+
+Disaggregation: an engine's ``tier`` ("prefill", "decode" or "mixed")
+rides ``load_stats``; :meth:`DecodeEngine.export_prefix` packs a
+prompt's resident block chain (pool rows as stored, int8 codes with
+their scales) and :meth:`DecodeEngine.import_prefix` splices one into
+another engine's pool, both on the scheduler thread.
 
 :class:`ModelServer` takes the reference's signature, ``(model_dir,
 name="model", host="127.0.0.1", port=8501, batch_window_ms=0,
@@ -26,6 +41,14 @@ decode engine behind ``:generate``, or both::
     POST /v1/models/<name>:generate    {"prompt": [...] or [[...], ...],
                                         "max_new_tokens": N}
                                     -> {"tokens": [...] or [[...], ...]}
+    POST /v1/models/<name>:prefill     {"prompt": [...], "ship"?: {"addr":
+                                        "host:port", "replica_id"?}}
+                                    -> {"prefilled", "blocks", "shipped",
+                                        "bytes"?, "transport"?, "reason"?}
+    POST /kv/splice                    a packed shipment (octet-stream), or
+                                       an empty body with
+                                       ``X-TFOS-KV-Via: shm``
+    POST /admin/ship_fence             {"replica_id", "min_epoch"}
     GET  /healthz
 
 ``:predict`` runs the export's ``apply_fn`` under
@@ -37,16 +60,19 @@ Error taxonomy on the wire: malformed body 400 (for ``:predict``:
 ragged, non-numeric, empty and 0-d inputs and a batch-size mismatch),
 :class:`QueueFull` 429, :class:`Retriable` (:class:`Shed`,
 :class:`Draining`, :class:`EngineFailed`) 503 with ``Retry-After``,
-:class:`DeadlineExceeded` 504, :class:`Cancelled` 499.
+:class:`DeadlineExceeded` 504, :class:`Cancelled` 499;
+``/kv/splice``: :class:`SpliceRejected` 409 with its ``reason``, a
+malformed shipment 400.
 
-Left out of this port so far (see ROADMAP.md): speculative decoding,
-KV ship/splice and ``:prefill``, the QoS fair scheduler (admission here
-is the block-gated FIFO the reference runs with one priority class),
-SLO and chaos hooks, the flight recorder and ``/metrics``, and the
-fleet plane's server state (replica id, dedup window, fencing, drain,
-``/admin``). ``_Batcher`` drops the reference's power-of-two padding
-of a merged batch, which bounds ``jit``'s compile cache; eager PyTorch
-has none, and padding would only add rows to compute.
+Left out of this port so far (see ROADMAP.md, Queue 1 items 8-9): the
+QoS fair scheduler (admission here is the block-gated FIFO the
+reference runs with one priority class), SLO and the serving chaos
+sites, the flight recorder and ``/metrics``, and the fleet plane's
+server state (dedup window, replica fencing and control epochs, drain,
+the other ``/admin`` routes). ``_Batcher`` drops the reference's
+power-of-two padding of a merged batch, which bounds ``jit``'s compile
+cache; eager PyTorch has none, and padding would only add rows to
+compute.
 """
 
 import collections
@@ -62,14 +88,18 @@ import time
 import numpy as np
 import torch
 
+from tensorflowonspark_tpu_torch import chaos
 from tensorflowonspark_tpu_torch import device_info
+from tensorflowonspark_tpu_torch import frames
 from tensorflowonspark_tpu_torch import generation
+from tensorflowonspark_tpu_torch import kvship
 from tensorflowonspark_tpu_torch import paging
 from tensorflowonspark_tpu_torch import tracing
 
 logger = logging.getLogger(__name__)
 
 _STREAM_DONE = object()
+_ENGINE_IDS = itertools.count()
 
 
 class Retriable(RuntimeError):
@@ -97,6 +127,17 @@ class Draining(Retriable):
 
 class EngineFailed(Retriable):
     """The decode scheduler died; outstanding handles fail with this."""
+
+
+class SpliceRejected(RuntimeError):
+    """A KV shipment was refused deliberately (HTTP 409): ``reason`` is
+    one of "unpaged", "block_size", "kv_dtype", "malformed",
+    "pool_exhausted", "fenced" or "engine". The shipping side gives up
+    and the decode side prefills cold."""
+
+    def __init__(self, reason, msg):
+        super(SpliceRejected, self).__init__(msg)
+        self.reason = str(reason)
 
 
 class Cancelled(RuntimeError):
@@ -199,26 +240,40 @@ class GenerationHandle(object):
 
 
 class DecodeEngine(object):
-    """Continuous batching over a paged KV cache for a port
-    ``DecoderLM``.
+    """Continuous batching over a KV cache for a port ``DecoderLM``.
 
     ``model`` is moved to ``device`` (``None``: the card; ``"cpu"`` must
     be asked for). ``kv_block_size`` (None: the largest divisor of
-    ``total_len`` up to 16) must divide ``total_len``; ``kv_blocks``
+    ``total_len`` up to 16) must divide ``total_len``; 0 selects the
+    contiguous per-slot cache, where ``kv_blocks``, ``attn_impl``,
+    ``kv_dtype="int8"`` and ``speculate_k`` raise. ``kv_blocks``
     (None: ``slots * total_len / kv_block_size``, capacity parity with
     a contiguous cache) is the pool size without the scratch row.
     ``attn_impl``: ``"fused"`` (kernel on the card, plain blockwise
     version on the CPU) or ``"gather"`` (the oracle). ``kv_dtype``:
     None/``"float32"`` or ``"int8"``. ``generator``: a seeded
     ``torch.Generator`` on ``device``, required when ``temperature >
-    0``."""
+    0``. ``speculate_k`` (None, or >= 2) and ``draft_layers`` (default
+    ``num_layers // 2``) turn on speculative rounds; ``tier`` is
+    "prefill", "decode" or "mixed" (the default); ``replica_id`` names
+    the engine in shipments (default: unique in the process)."""
 
     def __init__(self, model, slots=8, total_len=None, buckets=None,
                  temperature=0.0, top_k=None, top_p=None, eos_token=None,
                  generator=None, max_queue=1024, kv_block_size=None,
                  kv_blocks=None, prefix_cache=True, attn_impl=None,
-                 kv_dtype=None, device=None):
+                 kv_dtype=None, speculate_k=None, draft_layers=None,
+                 tier=None, replica_id=None, device=None):
         self.device = device_info.default_device(device)
+        self.replica_id = str(replica_id) if replica_id is not None \
+            else "engine-{}".format(next(_ENGINE_IDS))
+        if tier is None:
+            tier = "mixed"
+        if tier not in ("prefill", "decode", "mixed"):
+            raise ValueError(
+                "tier must be 'prefill', 'decode', or 'mixed', "
+                "got {!r}".format(tier))
+        self.tier = str(tier)
         total_len = int(total_len or model.max_len)
         if total_len > model.max_len:
             raise ValueError(
@@ -245,46 +300,108 @@ class DecodeEngine(object):
         self._generator = generator
         self.counters = tracing.Counters()
         self.timers = tracing.StageTimers()
-        #: latency distributions (seconds), scheduler-thread written
+        #: latency distributions in seconds, written by the scheduler
+        #: thread; ``kv_ship_ms`` (milliseconds) by :meth:`note_ship`
         self.histograms = {name: tracing.Histogram() for name in (
-            "ttft", "token", "decode_step", "queue_wait", "request")}
+            "ttft", "token", "decode_step", "queue_wait", "request",
+            "kv_ship_ms")}
+        #: shipped-KV accounting: PHYSICAL bytes (pool rows as stored)
+        #: and blocks, written by handler threads and the scheduler, so
+        #: only under ``_cv`` (:meth:`note_ship`, :meth:`_kv_import`)
+        self.kv_counters = tracing.Counters()
+        self._splice_failures = {}  # reason -> count, under _cv
         if kv_block_size is None:
             kv_block_size = next(b for b in range(16, 0, -1)
                                  if total_len % b == 0)
         self.kv_block_size = int(kv_block_size)
-        if self.kv_block_size < 1 or total_len % self.kv_block_size:
-            raise ValueError(
-                "kv_block_size {} must divide total_len {}".format(
-                    self.kv_block_size, total_len))
+        self._paged = self.kv_block_size > 0
         if kv_dtype in ("fp32", "float32"):
             kv_dtype = None
         if kv_dtype not in (None, "int8"):
             raise ValueError(
                 "kv_dtype must be None/'fp32'/'float32' or 'int8', "
                 "got {!r}".format(kv_dtype))
-        self._blocks_per_slot = total_len // self.kv_block_size
-        self.kv_blocks = int(kv_blocks) if kv_blocks is not None \
-            else self.slots * self._blocks_per_slot
-        if self.kv_blocks < 1:
-            raise ValueError("kv_blocks must be >= 1, got {}".format(
-                self.kv_blocks))
-        self.prefix_cache = bool(prefix_cache)
-        if attn_impl is None:
-            attn_impl = "fused"
-        if attn_impl not in ("fused", "gather"):
+        if speculate_k is not None and int(speculate_k) < 2:
             raise ValueError(
-                "attn_impl must be 'fused' or 'gather', got {!r}".format(
-                    attn_impl))
-        self.attn_impl = attn_impl
-        self.kv_dtype = "int8" if kv_dtype == "int8" else "float32"
-        self._pool = paging.BlockPool(self.kv_blocks, self.kv_block_size,
-                                      kv_dtype=self.kv_dtype)
-        self._cache = generation.init_paged_cache(
-            self.model, self.slots, total_len, self.kv_blocks,
-            self.kv_block_size, kv_dtype=kv_dtype, device=self.device)
+                "speculate_k must be >= 2 (a 1-token window is a "
+                "plain decode step plus a wasted draft), got "
+                "{}".format(speculate_k))
+        if speculate_k is None and draft_layers is not None:
+            raise ValueError("draft_layers needs speculate_k")
+        self._spec_k = 0 if speculate_k is None else int(speculate_k)
+        self.draft_layers = 0
+        self._draft = None
+        self._draft_cache = None
+        if self._paged:
+            if total_len % self.kv_block_size:
+                raise ValueError(
+                    "kv_block_size {} must divide total_len {}".format(
+                        self.kv_block_size, total_len))
+            self._blocks_per_slot = total_len // self.kv_block_size
+            self.kv_blocks = int(kv_blocks) if kv_blocks is not None \
+                else self.slots * self._blocks_per_slot
+            if self.kv_blocks < 1:
+                raise ValueError("kv_blocks must be >= 1, got {}".format(
+                    self.kv_blocks))
+            self.prefix_cache = bool(prefix_cache)
+            if attn_impl is None:
+                attn_impl = "fused"
+            if attn_impl not in ("fused", "gather"):
+                raise ValueError(
+                    "attn_impl must be 'fused' or 'gather', got "
+                    "{!r}".format(attn_impl))
+            self.attn_impl = attn_impl
+            self.kv_dtype = "int8" if kv_dtype == "int8" else "float32"
+            self._pool = paging.BlockPool(self.kv_blocks,
+                                          self.kv_block_size,
+                                          kv_dtype=self.kv_dtype)
+            self._cache = generation.init_paged_cache(
+                self.model, self.slots, total_len, self.kv_blocks,
+                self.kv_block_size, kv_dtype=kv_dtype, device=self.device)
+            if self._spec_k:
+                if draft_layers is None:
+                    draft_layers = max(1, self.model.num_layers // 2)
+                # the draft's modules ARE the target's first blocks; its
+                # own (shallower) pool shares the target's tables and
+                # cursors, so one BlockPool governs both
+                self._draft = generation.draft_model(self.model,
+                                                     draft_layers)
+                self.draft_layers = self._draft.num_layers
+                self._draft_cache = generation.init_paged_cache(
+                    self._draft, self.slots, total_len, self.kv_blocks,
+                    self.kv_block_size, kv_dtype=kv_dtype,
+                    device=self.device)
+        else:
+            if kv_blocks is not None:
+                raise ValueError(
+                    "kv_blocks needs a paged engine (kv_block_size>0)")
+            if attn_impl is not None:
+                raise ValueError(
+                    "attn_impl needs a paged engine (kv_block_size>0)")
+            if kv_dtype == "int8":
+                raise ValueError(
+                    "kv_dtype='int8' needs a paged engine "
+                    "(kv_block_size>0): quantized KV lives in the "
+                    "block pool")
+            if self._spec_k:
+                raise ValueError(
+                    "speculate_k needs a paged engine "
+                    "(kv_block_size>0): the fused verify writes "
+                    "through the block tables' scratch routing")
+            self.kv_blocks = 0
+            self.prefix_cache = False
+            self.attn_impl = "contiguous"
+            self.kv_dtype = "float32"
+            self._pool = None
+            self._cache = generation.init_cache(
+                self.model, self.slots, total_len, device=self.device)
         self._last_tallies = {}
         self._head_block_memo = None
         self._queue = collections.deque()
+        # KV ship/splice jobs: export and import touch the pool and the
+        # cache, the scheduler thread's monopoly, so client threads
+        # queue them here under _cv and wait on a per-job event
+        self._kv_jobs = collections.deque()
         self._cv = threading.Condition()
         self._stopping = False
         self._broken = None
@@ -297,14 +414,15 @@ class DecodeEngine(object):
         # per-step write lands in the scratch block
         self._idx = np.zeros(self.slots, np.int32)
         self._last = np.zeros(self.slots, np.int32)
-        self._slot_blocks = [[] for _ in range(self.slots)]
-        self._tables = np.zeros((self.slots, self._blocks_per_slot),
-                                np.int32)
-        self._admit_seq = itertools.count()
-        self._slot_seq = [0] * self.slots
-        # leading FULL blocks of each slot's sequence already published
-        # to the prefix registry
-        self._slot_registered = [0] * self.slots
+        if self._paged:
+            self._slot_blocks = [[] for _ in range(self.slots)]
+            self._tables = np.zeros((self.slots, self._blocks_per_slot),
+                                    np.int32)
+            self._admit_seq = itertools.count()
+            self._slot_seq = [0] * self.slots
+            # leading FULL blocks of each slot's sequence already
+            # published to the prefix registry
+            self._slot_registered = [0] * self.slots
         self._publish_kv_gauges()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="tfos-torch-decode-engine")
@@ -332,11 +450,12 @@ class DecodeEngine(object):
             raise ValueError(
                 "prompt {} + max_new_tokens {} exceeds total_len {}".format(
                     len(prompt), max_new, self.total_len))
-        need = self._pool.blocks_for(len(prompt) + max_new)
-        if need > self.kv_blocks:
-            raise ValueError(
-                "request needs up to {} KV blocks but the pool has "
-                "{} (kv_blocks)".format(need, self.kv_blocks))
+        if self._paged:
+            need = self._pool.blocks_for(len(prompt) + max_new)
+            if need > self.kv_blocks:
+                raise ValueError(
+                    "request needs up to {} KV blocks but the pool has "
+                    "{} (kv_blocks)".format(need, self.kv_blocks))
         return prompt, max_new
 
     def submit(self, prompt, max_new_tokens, deadline_s=None):
@@ -398,27 +517,111 @@ class DecodeEngine(object):
 
     def load_stats(self):
         """Live load gauges: queue depth, slot occupancy, queue-wait
-        EWMA, pool headroom and prefix-cache hit rate, plus the
-        engine's attention and KV configuration."""
+        EWMA, pool headroom and prefix-cache hit rate, the engine's
+        attention, KV, speculation and tier configuration, the live
+        acceptance rate and the shipped-KV bytes (physical: pool rows
+        as stored). A contiguous engine reports the zero schema."""
         with self._cv:
             queue_depth = len(self._queue)
             occupancy = len(self._active_slots())
             qwait = self._qwait_ewma
-        ps = self._pool.stats()
-        return {"device": str(self.device),
-                "queue_depth": queue_depth,
-                "slot_occupancy": occupancy,
-                "slots": self.slots,
-                "queue_wait_ewma_s": round(qwait, 6)
-                if qwait is not None else 0.0,
-                "alive": self.healthy()["alive"],
-                "attn_impl": self.attn_impl,
-                "kv_dtype": self.kv_dtype,
+            kv = {"kv_ship_bytes": self.kv_counters.get("ship_bytes"),
+                  "kv_ship_blocks": self.kv_counters.get("ship_blocks"),
+                  "kv_spliced_bytes": self.kv_counters.get("spliced_bytes"),
+                  "kv_spliced_blocks":
+                  self.kv_counters.get("spliced_blocks")}
+        proposed = self.counters.get("spec_proposed")
+        stats = {"device": str(self.device),
+                 "replica_id": self.replica_id,
+                 "tier": self.tier,
+                 "queue_depth": queue_depth,
+                 "slot_occupancy": occupancy,
+                 "slots": self.slots,
+                 "queue_wait_ewma_s": round(qwait, 6)
+                 if qwait is not None else 0.0,
+                 "alive": self.healthy()["alive"],
+                 "attn_impl": self.attn_impl,
+                 "kv_dtype": self.kv_dtype,
+                 "speculate_k": self._spec_k,
+                 "draft_layers": self.draft_layers,
+                 "spec_acceptance_rate": round(
+                     self.counters.get("spec_accepted") / proposed, 4)
+                 if proposed else 0.0}
+        stats.update(kv)
+        if self._paged:
+            ps = self._pool.stats()
+            stats.update({
                 "kv_blocks_total": ps["total"],
                 "kv_blocks_free": ps["free"],
                 "prefix_hit_rate": round(ps["hit_rate"], 4),
                 "generated_prefix_hit_blocks": ps["generated_hits"],
-                "generated_prefix_registered": ps["generated_registered"]}
+                "generated_prefix_registered": ps["generated_registered"]})
+        else:
+            stats.update({"kv_blocks_total": 0, "kv_blocks_free": 0,
+                          "prefix_hit_rate": 0.0,
+                          "generated_prefix_hit_blocks": 0,
+                          "generated_prefix_registered": 0})
+        return stats
+
+    def measure_spec(self, reps=3, depth=None):
+        """Time a speculative round's two halves apart — the draft's
+        ``k`` one-token steps and the target's ``k``-query verify — at
+        the engine's pool shapes with every slot ``depth`` tokens deep
+        (default ``total_len // 2``), on copies of the pools (both
+        halves write in place). CUDA events on the card, the host clock
+        on the CPU. Records ``draft`` and ``verify`` samples in
+        ``timers``; returns ``{"draft": ms, "verify": ms}`` (means), or
+        None on an engine that does not speculate."""
+        if not self._spec_k:
+            return None
+        k = self._spec_k
+        depth = int(depth) if depth is not None else self.total_len // 2
+        depth = max(1, min(depth, self.total_len - k))
+        bps = self._blocks_per_slot
+        dev = self.device
+        tables = torch.as_tensor(
+            (np.arange(self.slots)[:, None] * bps
+             + np.arange(bps)[None, :]) % self.kv_blocks + 1,
+            dtype=torch.int32, device=dev)
+        idx = torch.full((self.slots,), depth, dtype=torch.int32,
+                         device=dev)
+        last = torch.zeros(self.slots, dtype=torch.int32, device=dev)
+        feed = torch.zeros((self.slots, k), dtype=torch.int32, device=dev)
+        propose, verify = generation.speculative_probe_fns(
+            self.model, self._draft, k, self._temperature, self._top_k,
+            self._top_p, self.attn_impl)
+        cache = [{n: t.clone() for n, t in layer.items()}
+                 for layer in self._cache]
+        draft_cache = [{n: t.clone() for n, t in layer.items()}
+                       for layer in self._draft_cache]
+        gen = None
+        if self._temperature:
+            gen = torch.Generator(device=dev).manual_seed(0)
+        halves = (("draft", lambda: propose(draft_cache, last, idx, tables,
+                                            gen)),
+                  ("verify", lambda: verify(cache, feed, idx, tables,
+                                            gen)))
+        cuda = dev.type == "cuda"
+        ms = {"draft": [], "verify": []}
+        with torch.no_grad():
+            for _, fn in halves:
+                fn()  # warm
+            for _ in range(max(1, int(reps))):
+                for name, fn in halves:
+                    if cuda:
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        fn()
+                        end.record()
+                        end.synchronize()
+                        ms[name].append(start.elapsed_time(end))
+                    else:
+                        t0 = time.perf_counter()
+                        fn()
+                        ms[name].append((time.perf_counter() - t0) * 1e3)
+                    self.timers.add(name, ms[name][-1] / 1e3)
+        return {name: sum(v) / len(v) for name, v in ms.items()}
 
     def stop(self):
         """Stop the scheduler; queued and in-flight requests fail with
@@ -480,21 +683,23 @@ class DecodeEngine(object):
         head enters a free slot only when its prefill blocks are
         obtainable now, judged from one ``plan_admission`` snapshot;
         there is no bypass past a block-starved head. While the head
-        waits, an unchanged pool epoch means the old verdict stands."""
+        waits, an unchanged pool epoch means the old verdict stands. A
+        contiguous engine gates on slots alone."""
         admits = []
         free = [s for s in range(self.slots) if self._slot_req[s] is None]
         planned_blocks = 0
         while free and self._queue:
             head = self._queue[0]
-            if self._head_block_memo == (head, self._pool.epoch()):
-                break
-            _, need, lru_shared, allocatable, epoch = \
-                self._pool.plan_admission(head.prompt + head._tokens)
-            if need + lru_shared + planned_blocks > allocatable:
-                self._head_block_memo = (head, epoch)
-                break
-            self._head_block_memo = None
-            planned_blocks += need + lru_shared
+            if self._paged:
+                if self._head_block_memo == (head, self._pool.epoch()):
+                    break
+                _, need, lru_shared, allocatable, epoch = \
+                    self._pool.plan_admission(head.prompt + head._tokens)
+                if need + lru_shared + planned_blocks > allocatable:
+                    self._head_block_memo = (head, epoch)
+                    break
+                self._head_block_memo = None
+                planned_blocks += need + lru_shared
             s = free.pop(0)
             self._queue.popleft()
             # occupy the slot at pop time, so the failure paths find it
@@ -519,45 +724,111 @@ class DecodeEngine(object):
         while True:
             with self._cv:
                 while (not self._stopping and not self._queue
+                       and not self._kv_jobs
                        and not self._active_slots()):
                     self._cv.wait()
                 if self._stopping:
                     self._fail_outstanding(RuntimeError("engine stopped"))
                     return
+                # KV ship/splice jobs drain under the lock and run
+                # outside it: no admission or step interleaves with
+                # pool surgery, since both run on this thread
+                kv_jobs = list(self._kv_jobs)
+                self._kv_jobs.clear()
                 self._prune_queue_locked(time.monotonic())
                 admits = self._plan_admission_locked()
                 self.counters.gauge("queue_depth", len(self._queue))
+            for job in kv_jobs:
+                self._run_kv_job(job)
             # prefill outside the lock: submit() never waits on the card
             for s, handle in admits:
                 self._admit(s, handle)
             self._evict_expired(time.monotonic())
-            self._grow_active_blocks()
+            if self._paged:
+                self._grow_active_blocks()
             active = self._active_slots()
             self.counters.gauge("slot_occupancy", len(active))
             if not active:
                 continue
             t0 = time.monotonic()
-            with self.timers.timed("decode_step"):
-                toks = generation.paged_decode_step(
-                    self.model, self._cache, self._last, self._idx,
-                    self._tables, temperature=self._temperature,
-                    top_k=self._top_k, top_p=self._top_p,
-                    generator=self._generator, attn_impl=self.attn_impl)
-                toks = toks.cpu().numpy()  # the per-step host sync
+            if self._spec_k:
+                with self.timers.timed("spec_round"):
+                    drafts, targets = generation.paged_spec_round(
+                        self.model, self._draft, self._cache,
+                        self._draft_cache, self._last, self._idx,
+                        self._tables, self._spec_k,
+                        temperature=self._temperature, top_k=self._top_k,
+                        top_p=self._top_p, generator=self._generator,
+                        attn_impl=self.attn_impl)
+                    # the per-round host sync
+                    drafts = drafts.cpu().numpy()
+                    targets = targets.cpu().numpy()
+            else:
+                with self.timers.timed("decode_step"):
+                    if self._paged:
+                        toks = generation.paged_decode_step(
+                            self.model, self._cache, self._last, self._idx,
+                            self._tables, temperature=self._temperature,
+                            top_k=self._top_k, top_p=self._top_p,
+                            generator=self._generator,
+                            attn_impl=self.attn_impl)
+                    else:
+                        toks = generation.decode_step(
+                            self.model, self._cache, self._last, self._idx,
+                            temperature=self._temperature,
+                            top_k=self._top_k, top_p=self._top_p,
+                            generator=self._generator)
+                    toks = toks.cpu().numpy()  # the per-step host sync
             self.histograms["decode_step"].observe(time.monotonic() - t0)
             self.counters.inc("decode_steps")
             with self.timers.timed("host_schedule"):
-                for s in active:
-                    # the step wrote the fed token at _idx[s]: advance
-                    # the cursor, then deliver the emission
-                    self._idx[s] += 1
-                    self._deliver(s, int(toks[s]))
-                self.counters.inc("tokens", len(active))
+                if self._spec_k:
+                    delivered = self._spec_deliver(active, drafts, targets)
+                else:
+                    for s in active:
+                        # the step wrote the fed token at _idx[s]:
+                        # advance the cursor, then deliver the emission
+                        self._idx[s] += 1
+                        self._deliver(s, int(toks[s]))
+                    delivered = len(active)
+                self.counters.inc("tokens", delivered)
                 # decode_tokens excludes prefill-emitted firsts, so
                 # decode_tokens / decode_steps is the mean occupancy
-                self.counters.inc("decode_tokens", len(active))
+                # (under speculation, tokens a round)
+                self.counters.inc("decode_tokens", delivered)
                 self.counters.gauge("slot_occupancy",
                                     len(self._active_slots()))
+
+    def _spec_deliver(self, active, drafts, targets):
+        """Token-matching acceptance and delivery of one round: ``a`` is
+        the longest prefix where the draft's proposal equals the target's
+        own pick, and the round emits ``targets[:a + 1]`` (the accepted
+        picks and the correction), clamped to the request's window
+        ``min(k, remaining)``. Every emitted token is a target pick: at
+        temperature 0 the plain engine's argmax chain. Rejected
+        positions' K/V lies past the new cursor, rewritten by the next
+        round before any query can see it. The counters tally only the
+        emittable window, so ``spec_rounds <= spec_proposed <= k *
+        spec_rounds`` and ``spec_accepted <= spec_proposed``."""
+        k = self._spec_k
+        delivered = 0
+        for s in active:
+            handle = self._slot_req[s]
+            window = min(k, max(1, handle.max_new_tokens
+                                - len(handle._tokens)))
+            a = 0
+            while a < window and drafts[s, a] == targets[s, a]:
+                a += 1
+            self.counters.inc("spec_rounds")
+            self.counters.inc("spec_proposed", window)
+            self.counters.inc("spec_accepted", a)
+            for tok in targets[s, :min(a + 1, window)]:
+                if self._slot_req[s] is None:
+                    break  # completed mid-window (EOS or length)
+                self._idx[s] += 1
+                self._deliver(s, int(tok))
+                delivered += 1
+        return delivered
 
     def _fail_outstanding(self, err):
         """Fail every queued and in-flight handle (caller holds
@@ -568,6 +839,12 @@ class DecodeEngine(object):
             self._release_slot(s)
         failed.extend(self._queue)
         self._queue.clear()
+        # KV jobs' client threads park on per-job events: wake them
+        # with the same error
+        for job in self._kv_jobs:
+            job["error"] = err
+            job["done"].set()
+        self._kv_jobs.clear()
         for handle in failed:
             handle._finish(err)
         self.counters.gauge("queue_depth", 0)
@@ -576,7 +853,13 @@ class DecodeEngine(object):
     def _publish_kv_gauges(self):
         """Refresh the pool gauges and roll the pool's monotonic tallies
         (prefix hits/misses, LRU evictions, generated-prefix
-        registrations and hits) into the counters."""
+        registrations and hits) into the counters; zeros on a
+        contiguous engine."""
+        if not self._paged:
+            for gauge in ("kv_blocks_total", "kv_blocks_free",
+                          "kv_blocks_cached"):
+                self.counters.gauge(gauge, 0)
+            return
         stats = self._pool.stats()
         self.counters.gauge("kv_blocks_total", stats["total"])
         self.counters.gauge("kv_blocks_free", stats["free"])
@@ -594,7 +877,11 @@ class DecodeEngine(object):
 
     def _release_slot(self, slot):
         """Return a freed slot's blocks to the pool and park its table
-        row on scratch and its cursor at 0."""
+        row on scratch and its cursor at 0 (a contiguous slot only parks
+        its cursor)."""
+        if not self._paged:
+            self._idx[slot] = 0
+            return
         if self._slot_blocks[slot]:
             self._pool.release(self._slot_blocks[slot])
             self._slot_blocks[slot] = []
@@ -624,6 +911,179 @@ class DecodeEngine(object):
         self._slot_registered[slot] = full
         self._publish_kv_gauges()
 
+    # -- KV-block shipping (disaggregation; run on the scheduler thread) --
+
+    def export_prefix(self, tokens, src_epoch=None, timeout=30.0):
+        """Pack ``tokens``'s resident full-block KV chain into wire
+        buffers, the prefill tier's half of a shipment. Returns
+        ``(buffers, meta)`` (:func:`kvship.pack` output and the header
+        it embeds), or None when nothing is resident (a contiguous
+        engine, or a prompt shorter than a block). The buffers carry the
+        pool rows as stored, so the physical cost is exactly
+        ``frames.frame_bytes(buffers)``. ``src_epoch`` is stamped into
+        the header for the receiver's fence."""
+        return self._kv_call({"kind": "export", "tokens": list(tokens),
+                              "src_epoch": src_epoch}, timeout)
+
+    def import_prefix(self, meta, rows, timeout=30.0):
+        """Splice a shipment into this engine's pool: allocate, write
+        the shipped rows (bytes as stored, no requantization), register
+        the chain, so a greedy decode over it equals one that prefilled
+        here. Blocks already resident are skipped (resident-chain
+        dedupe), which makes a duplicate delivery a no-op. Raises
+        :class:`SpliceRejected` on a geometry or dtype mismatch,
+        malformed rows or pool pressure. Returns ``{"spliced_blocks",
+        "skipped_blocks", "bytes"}`` (``bytes``: the novel rows only)."""
+        return self._kv_call({"kind": "import", "meta": meta,
+                              "rows": rows}, timeout)
+
+    def _kv_call(self, job, timeout):
+        """Queue a KV job for the scheduler thread and wait for its
+        verdict (from any thread)."""
+        job["done"] = threading.Event()
+        job["error"] = None
+        job["result"] = None
+        with self._cv:
+            if self._broken is not None:
+                raise EngineFailed(
+                    "engine failed: {}".format(self._broken))
+            if self._stopping:
+                raise EngineFailed("engine stopped")
+            self._kv_jobs.append(job)
+            self._cv.notify_all()
+        if not job["done"].wait(timeout):
+            raise TimeoutError("kv {} job not scheduled within {}s".format(
+                job["kind"], timeout))
+        if job["error"] is not None:
+            raise job["error"]
+        return job["result"]
+
+    def _run_kv_job(self, job):
+        """Run one drained KV job (scheduler thread, outside ``_cv``).
+        An Exception fails only the job's waiter; anything else wakes
+        the waiter and then takes the loop down."""
+        try:
+            if job["kind"] == "export":
+                job["result"] = self._kv_export(job["tokens"],
+                                                job.get("src_epoch"))
+            else:
+                job["result"] = self._kv_import(job["meta"], job["rows"])
+        except BaseException as e:  # noqa: BLE001 - job-scoped verdict
+            job["error"] = e
+            if not isinstance(e, Exception):
+                job["done"].set()
+                raise
+        job["done"].set()
+
+    def _kv_export(self, tokens, src_epoch):
+        if not self._paged:
+            return None
+        # walk and pin at once, so no block is recycled mid-gather
+        chain = self._pool.resident_chain(tokens, acquire=True)
+        if not chain:
+            return None
+        ids = [bid for bid, _ in chain]
+        try:
+            with self.timers.timed("kv_pack"):
+                rows = generation.gather_block_rows(self._cache, ids)
+        finally:
+            self._pool.release(ids)
+        bs = self.kv_block_size
+        meta = {"tokens": list(tokens)[:len(ids) * bs],
+                "block_size": bs,
+                "kv_dtype": self.kv_dtype,
+                "origins": [origin for _, origin in chain],
+                "src_replica": self.replica_id,
+                "src_epoch": src_epoch}
+        return kvship.pack(meta, rows), meta
+
+    def _kv_import(self, meta, rows):
+        if not self._paged:
+            raise SpliceRejected("unpaged",
+                                 "target engine has no block pool")
+        bs = self.kv_block_size
+        if int(meta.get("block_size") or 0) != bs:
+            raise SpliceRejected(
+                "block_size",
+                "shipment block_size {!r} != pool block_size {}".format(
+                    meta.get("block_size"), bs))
+        if meta.get("kv_dtype") != self.kv_dtype:
+            raise SpliceRejected(
+                "kv_dtype",
+                "shipment kv_dtype {!r} != pool kv_dtype {!r} — ship "
+                "endpoints must share pool dtype (no requant on splice)"
+                .format(meta.get("kv_dtype"), self.kv_dtype))
+        tokens = list(meta.get("tokens") or ())
+        n = len(tokens) // bs
+        if n <= 0:
+            return {"spliced_blocks": 0, "skipped_blocks": 0, "bytes": 0}
+        rows = [(key, np.asarray(arr)) for key, arr in rows]
+        for key, arr in rows:
+            if arr.shape[:1] != (n,):
+                raise SpliceRejected(
+                    "malformed",
+                    "row {!r} carries {} block(s), token chain spans {}"
+                    .format(key, arr.shape[0] if arr.ndim else 0, n))
+        origins = list(meta.get("origins") or ())
+        origins += ["prompt"] * (n - len(origins))
+        # resident-chain dedupe: whatever prefix of the chain the pool
+        # holds already (an earlier delivery, or local traffic) is
+        # skipped, so a second splice never double-allocates
+        skip = len(self._pool.resident_chain(tokens))
+        if skip >= n:
+            return {"spliced_blocks": 0, "skipped_blocks": n, "bytes": 0}
+        try:
+            ids = self._pool.alloc(n - skip)
+        except paging.PoolExhausted as e:
+            raise SpliceRejected("pool_exhausted", str(e))
+        novel = [(key, arr[skip:n]) for key, arr in rows]
+        try:
+            with self.timers.timed("kv_splice"):
+                generation.scatter_block_rows(self._cache, ids, novel)
+        except ValueError as e:
+            self._pool.release(ids)  # unregistered: back to the free list
+            raise SpliceRejected("malformed", str(e))
+        except Exception:
+            self._pool.release(ids)
+            raise
+        for j, bid in enumerate(ids):
+            # first writer wins: a link local traffic registered
+            # meanwhile keeps its block, and ours returns to the free
+            # list at the release below
+            self._pool.register(tokens, (skip + j + 1) * bs, bid,
+                                origin=origins[skip + j])
+        # registered blocks park in the LRU, the state a locally
+        # prefilled and released prefix is in: the follow-up admission
+        # needs no disaggregation awareness
+        self._pool.release(ids)
+        self._publish_kv_gauges()
+        n_bytes = sum(int(arr.nbytes) for _, arr in novel)
+        with self._cv:
+            self.kv_counters.inc("spliced_blocks", len(ids))
+            self.kv_counters.inc("spliced_bytes", n_bytes)
+        return {"spliced_blocks": len(ids), "skipped_blocks": skip,
+                "bytes": n_bytes}
+
+    def note_ship(self, blocks, n_bytes, seconds):
+        """Record one confirmed shipment leaving this engine: physical
+        wire bytes and wall time (handler threads write, so under
+        ``_cv``)."""
+        with self._cv:
+            self.kv_counters.inc("ship_blocks", int(blocks))
+            self.kv_counters.inc("ship_bytes", int(n_bytes))
+            self.histograms["kv_ship_ms"].observe(seconds * 1000.0)
+
+    def note_splice_failure(self, reason):
+        """Count one refused or failed splice under its reason."""
+        with self._cv:
+            self._splice_failures[reason] = \
+                self._splice_failures.get(reason, 0) + 1
+
+    def splice_failures(self):
+        """``{reason: count}`` snapshot."""
+        with self._cv:
+            return dict(self._splice_failures)
+
     def _preempt(self, slot):
         """Free a slot's blocks under pool exhaustion and requeue its
         request at the queue FRONT; it re-enters with a continuation
@@ -641,19 +1101,28 @@ class DecodeEngine(object):
                     handle.max_new_tokens)
 
     def _grow_active_blocks(self):
-        """Give every active slot the block its next write lands in,
-        allocating as sequences cross block boundaries. Under
+        """Give every active slot the blocks this round's writes land
+        in, allocating as sequences cross block boundaries: a plain step
+        writes one position, a speculative round up to ``k``, so growth
+        covers ``min(k, tokens the request can still emit)`` (a write
+        past that is a rejected proposal no cursor will reach, and may
+        land in scratch). Every fully written block is registered each
+        round, since lookahead allocates ahead of the cursor. Under
         exhaustion the YOUNGEST admission is preempted, so the oldest
         always progresses (``validate`` guarantees a lone request's
         worst case fits the pool)."""
         bs = self.kv_block_size
+        look = self._spec_k or 1
         for s in sorted(self._active_slots(),
                         key=lambda v: self._slot_seq[v]):
             handle = self._slot_req[s]
             if handle is None:
                 continue  # preempted by an earlier slot's growth
             self._register_generated(s, handle)
-            need = min(int(self._idx[s]) // bs + 1, self._blocks_per_slot)
+            cover = min(look, max(1, handle.max_new_tokens
+                                  - len(handle._tokens)))
+            need = min((int(self._idx[s]) + cover - 1) // bs + 1,
+                       self._blocks_per_slot)
             while self._slot_req[s] is not None \
                     and len(self._slot_blocks[s]) < need:
                 try:
@@ -669,6 +1138,39 @@ class DecodeEngine(object):
             self._publish_kv_gauges()
 
     def _admit(self, slot, handle):
+        """Prefill ``handle``'s prompt into ``slot`` and emit its first
+        token (a ``max_new_tokens=1`` request completes here)."""
+        if self._paged:
+            return self._admit_paged(slot, handle)
+        n = len(handle.prompt)
+        bucket = generation.bucket_for(n, self.buckets)
+        toks = np.zeros(bucket, np.int32)
+        toks[:n] = handle.prompt
+        self._observe_queue_wait(handle, time.monotonic())
+        with self.timers.timed("prefill"):
+            first = int(generation.prefill_into_slot(
+                self.model, self._cache, slot, toks, n,
+                temperature=self._temperature, top_k=self._top_k,
+                top_p=self._top_p, generator=self._generator))
+        self.counters.inc("prefills")
+        self._idx[slot] = n
+        self._last[slot] = first
+        self._deliver(slot, first)
+        self.counters.inc("tokens")
+
+    def _observe_queue_wait(self, handle, now):
+        """Queue-wait metrics, for a request's FIRST admission only (a
+        preemption re-entry is a continuation, not a queue wait)."""
+        if handle._admitted:
+            return
+        wait = now - handle.submitted
+        self.histograms["queue_wait"].observe(wait)
+        self._qwait_ewma = wait if self._qwait_ewma is None else \
+            self._ewma_alpha * wait \
+            + (1.0 - self._ewma_alpha) * self._qwait_ewma
+        handle._admitted = True
+
+    def _admit_paged(self, slot, handle):
         """Paged admission: point the slot's table at resident shared
         prefix blocks, allocate private blocks for the rest, prefill
         only the un-shared tail, and emit the first token. Also the
@@ -709,14 +1211,7 @@ class DecodeEngine(object):
             bucket = self.total_len
         toks = np.zeros(bucket, np.int32)
         toks[:len(tail)] = tail
-        t0 = time.monotonic()
-        if not handle._admitted:
-            wait = t0 - handle.submitted
-            self.histograms["queue_wait"].observe(wait)
-            self._qwait_ewma = wait if self._qwait_ewma is None else \
-                self._ewma_alpha * wait \
-                + (1.0 - self._ewma_alpha) * self._qwait_ewma
-            handle._admitted = True
+        self._observe_queue_wait(handle, time.monotonic())
         with self.timers.timed("prefill"):
             first = int(generation.paged_prefill_into_slot(
                 self.model, self._cache, row, toks, len(tail), start,
@@ -724,6 +1219,16 @@ class DecodeEngine(object):
                 top_p=self._top_p, generator=self._generator,
                 attn_impl=self.attn_impl))
         self.counters.inc("prefills")
+        if self._spec_k:
+            # mirror the tail into the draft's pool: the draft attends
+            # the same prefix through the same table row (a prefix hit
+            # skips both prefills; shared blocks were mirrored when
+            # their writer prefilled or decoded them). Its pick is
+            # dropped: this call is for its writes.
+            with self.timers.timed("draft_prefill"):
+                generation.paged_prefill_into_slot(
+                    self._draft, self._draft_cache, row, toks, len(tail),
+                    start, attn_impl=self.attn_impl)
         if self.prefix_cache:
             # publish every FULL block of the admitted sequence; blocks
             # past the original prompt exist only on preemption re-entry
@@ -758,9 +1263,10 @@ class DecodeEngine(object):
         done = (self.eos_token is not None and token == self.eos_token) \
             or len(handle._tokens) >= handle.max_new_tokens
         if done:
-            # a sequence can finish with its last decode-filled block
-            # complete: publish it before the slot releases it
-            self._register_generated(slot, handle)
+            if self._paged:
+                # a sequence can finish with its last decode-filled
+                # block complete: publish it before the slot releases it
+                self._register_generated(slot, handle)
             handle._finish()
             self._slot_req[slot] = None
             self._release_slot(slot)
@@ -1052,6 +1558,16 @@ class ModelServer(object):
         self._port = int(port)
         self._httpd = None
         self._thread = None
+        # splice fence floors: replica id -> the epoch a shipment from it
+        # must exceed (raised by /admin/ship_fence, never lowered)
+        self._ship_fence = {}
+        self._ship_fence_lock = threading.Lock()
+
+    @property
+    def replica_id(self):
+        """The mounted engine's replica id (None without an engine): the
+        ``src`` a shipment from here carries."""
+        return getattr(self.engine, "replica_id", None)
 
     def _apply(self, batch):
         # called by the batcher's thread or under self._lock: serialized
@@ -1154,6 +1670,115 @@ class ModelServer(object):
                         timeout))
         return handle.result(0.1)
 
+    def prefill(self, payload):
+        """``POST :prefill``, the prefill tier's entry point: ``{"prompt":
+        [t, ...], "src_epoch"?, "ship"?: {"addr": "host:port",
+        "replica_id"?}}``. The prompt runs through the normal admission
+        path as a one-token generation (bucketing, prefix registration),
+        then its resident block chain is exported and, when ``ship``
+        names a decode peer, delivered to that peer's ``/kv/splice``. A
+        failed shipment is not a failed request: the answer is 200 with
+        ``shipped: false`` and a ``reason``, no bytes are accounted, and
+        the decode side prefills cold."""
+        engine = self.engine
+        if engine is None:
+            raise _BadRequest("no decode engine mounted on this server")
+        if not isinstance(payload, dict) or "prompt" not in payload:
+            raise _BadRequest("request needs a 'prompt' field")
+        prompt = payload["prompt"]
+        if not isinstance(prompt, list) or not prompt \
+                or isinstance(prompt[0], (list, tuple)):
+            raise _BadRequest(":prefill takes ONE flat token list")
+        try:
+            vetted = engine.validate(prompt, 1)
+        except (ValueError, TypeError) as e:
+            raise _BadRequest(str(e))
+        engine._submit_many([vetted])[0].result(600.0)
+        out = {"prefilled": True, "blocks": 0, "shipped": False}
+        export = engine.export_prefix(vetted[0],
+                                      src_epoch=payload.get("src_epoch"))
+        if export is None:
+            return out  # nothing resident to ship (sub-block prompt)
+        buffers, meta = export
+        out["blocks"] = len(meta["origins"])
+        ship = payload.get("ship")
+        if not isinstance(ship, dict) or not ship.get("addr"):
+            return out
+        n_bytes = frames.frame_bytes(buffers)
+        t0 = time.monotonic()
+        try:
+            status, body, transport = kvship.ship(
+                ship["addr"], buffers, src=self.replica_id,
+                dst=ship.get("replica_id"))
+        except (kvship.ShipError, chaos.NetPartitioned) as e:
+            out["reason"] = str(e)
+            return out
+        t1 = time.monotonic()
+        if status != 200:
+            try:
+                out["reason"] = json.loads(body).get("error", "")
+            except (ValueError, AttributeError):
+                out["reason"] = "splice answered {}".format(status)
+            return out
+        # accounted only on a confirmed splice: a dropped response
+        # raised above, and bytes are never claimed for a delivery this
+        # side cannot prove
+        engine.note_ship(out["blocks"], n_bytes, t1 - t0)
+        out.update(shipped=True, bytes=n_bytes, transport=transport)
+        try:
+            out["splice"] = json.loads(body)
+        except ValueError:
+            pass
+        return out
+
+    def splice_shipment(self, meta, rows):
+        """Fence-check one unpacked shipment, then splice it into the
+        mounted engine (the body of ``POST /kv/splice``). Every refusal
+        counts in the engine's ``splice_failures()`` by reason."""
+        engine = self.engine
+        if engine is None:
+            raise SpliceRejected("engine", "no decode engine mounted")
+        src = meta.get("src_replica")
+        epoch = meta.get("src_epoch")
+        with self._ship_fence_lock:
+            floor = None if src is None else self._ship_fence.get(str(src))
+        if floor is not None and (epoch is None or int(epoch) <= floor):
+            # a shipment from a replaced incarnation never splices
+            engine.note_splice_failure("fenced")
+            raise SpliceRejected(
+                "fenced",
+                "shipment from {} at epoch {} is below fence floor {}"
+                .format(src, epoch, floor))
+        try:
+            return engine.import_prefix(meta, rows)
+        except SpliceRejected as e:
+            engine.note_splice_failure(e.reason)
+            raise
+        except (Retriable, TimeoutError):
+            engine.note_splice_failure("engine")
+            raise
+
+    def ship_fence(self, replica_id, min_epoch):
+        """Raise the splice fence floor for shipments claiming
+        ``replica_id`` (monotonic: a floor never lowers); ``POST
+        /admin/ship_fence``."""
+        rid = str(replica_id)
+        with self._ship_fence_lock:
+            cur = self._ship_fence.get(rid)
+            if cur is None or int(min_epoch) > cur:
+                self._ship_fence[rid] = int(min_epoch)
+            floor = self._ship_fence[rid]
+        logger.info("ship fence: shipments from %s now need epoch > %d",
+                    rid, floor)
+        return {"replica_id": rid, "min_epoch": floor}
+
+    def _admin_ship_fence(self, payload):
+        if not isinstance(payload, dict) or \
+                payload.get("replica_id") is None:
+            raise _BadRequest("ship_fence needs a replica_id")
+        return self.ship_fence(payload["replica_id"],
+                               payload.get("min_epoch", 0))
+
     def healthz(self):
         """``(status, body)``: 200 while the engine (if any) is alive,
         else 503."""
@@ -1195,6 +1820,55 @@ class ModelServer(object):
                 except (OSError, ValueError):
                     return True
 
+            def _kv_splice(self):
+                """``POST /kv/splice``: adopt one shipment — the frames
+                body, or an empty body with ``X-TFOS-KV-Via: shm``
+                naming the ring the shipment sits in (co-hosted). The
+                rows are zero-copy views, so the splice runs before the
+                ring slot is released."""
+                try:
+                    n = int(self.headers.get("Content-Length", "0"))
+                except ValueError:
+                    n = 0
+                # consume the body first, on refusal paths too
+                body = self.rfile.read(n) if n else b""
+                engine = server.engine
+                try:
+                    if self.headers.get("X-TFOS-KV-Via") == "shm":
+                        ring, lock = kvship.consumer_ring(
+                            self.headers.get("X-TFOS-KV-Ring", ""))
+                        with lock:
+                            view, release = ring.read_view(timeout=5.0)
+                            try:
+                                meta, rows = kvship.unpack(view)
+                                result = server.splice_shipment(meta, rows)
+                            finally:
+                                release()
+                    else:
+                        meta, rows = kvship.unpack(body)
+                        result = server.splice_shipment(meta, rows)
+                except SpliceRejected as e:
+                    # deliberate: no retry fixes a fence or a dtype
+                    return self._send(409, {"error": str(e),
+                                            "reason": e.reason,
+                                            "kind": "SpliceRejected"})
+                except ValueError as e:  # malformed frame or version
+                    if engine is not None:
+                        engine.note_splice_failure("malformed")
+                    return self._send(400, {"error": str(e)})
+                except OSError as e:  # the named ring is gone
+                    if engine is not None:
+                        engine.note_splice_failure("engine")
+                    return self._send(503, {"error": str(e)},
+                                      headers={"Retry-After": "1"})
+                except (Retriable, TimeoutError) as e:
+                    return self._send(503, {"error": str(e)},
+                                      headers={"Retry-After": "1"})
+                except Exception as e:  # noqa: BLE001 - surface as 500
+                    logger.exception("/kv/splice failed")
+                    return self._send(500, {"error": str(e)})
+                return self._send(200, result)
+
             def do_GET(self):
                 if self.path == "/healthz":
                     return self._send(*server.healthz())
@@ -1207,11 +1881,16 @@ class ModelServer(object):
                                         % self.path})
 
             def do_POST(self):
+                if self.path == "/kv/splice":
+                    # an octet-stream shipment, never JSON
+                    return self._kv_splice()
                 base = "/v1/models/%s" % server.name
                 routes = {
                     base + ":predict": server.predict,
                     base + ":generate": lambda payload: server.generate(
-                        payload, client_gone=self._client_gone)}
+                        payload, client_gone=self._client_gone),
+                    base + ":prefill": server.prefill,
+                    "/admin/ship_fence": server._admin_ship_fence}
                 handler = routes.get(self.path)
                 if handler is None:
                     return self._send(404, {"error": "not found: %s"

@@ -213,6 +213,26 @@ def default_capacity():
     return want if want >= MIN_USEFUL_CAPACITY else 0
 
 
+#: capacity of a KV-ship ring: shipments are a few blocks of pool rows
+#: (megabytes, not the feed plane's image frames), so a small explicit
+#: capacity beats :func:`default_capacity`'s feed-sized floor
+KVSHIP_CAPACITY = 16 * 1024 * 1024
+
+
+def kvship_ring_name(src_replica, dst_replica):
+    """Canonical shm segment name of the src->dst KV-ship ring. The
+    prefill side creates it, and the name ends in the creator's pid like
+    the feed rings (``/tfos-...<name>.<pid>``), so :func:`sweep_stale`
+    reaps rings a killed prefill process left behind. Replica ids are
+    cut to the shm-name alphabet (no dots: the pid suffix must stay the
+    only ``.``-delimited field)."""
+    def _safe(s):
+        return "".join(ch if ch.isalnum() or ch in "-_" else "-"
+                       for ch in str(s))
+    return "/tfos-kvship-{}-{}.{}".format(
+        _safe(src_replica), _safe(dst_replica), os.getpid())
+
+
 class ShmRing(object):
     """One SPSC byte-message ring. create() on the producer-side host
     process; open() from the consumer. Not thread-safe per side."""

@@ -14,7 +14,9 @@ register budgets at D 64; the bfloat16 forward, dQ and dK/dV
 mask, at BERT-base's attention shape, dQ with whole key tiles masked in
 the middle and at the end of a row, and bitwise deterministic; and ring
 attention's kernel route (a 4-way ring in lockstep) against its plain
-route in every schedule and both dtypes. ``chip_smoke.py`` runs the
+route in every schedule and both dtypes; the speculative verify window
+(S_q = k from mid-sequence cursors) and a speculative engine's exact
+route counts. ``chip_smoke.py`` runs the
 same comparisons at the main paths' widths; these are the small-shape
 versions for ``pytest -m cuda``."""
 
@@ -128,6 +130,72 @@ def test_paged_kernel_is_deterministic(cuda, s_q):
     first, _ = _launch(args, scales)
     second, _ = _launch(args, scales)
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_verify_window_matches_blockwise(cuda, k, quant):
+    """The speculative verify window: S_q = k queries a row from
+    mid-sequence cursors (8 slots at mixed depths, one a block boundary
+    away, one inactive), the tiled route, bitwise on a repeat and blind
+    to NaN-poisoned dead pool rows."""
+    rng = np.random.RandomState(100 + k)
+    bs, mb = 16, 12
+    depths = [k, bs, bs + 1, 2 * bs - k + 1, 57, 100, mb * bs - 1, k]
+    args, scales = _paged_case(cuda, rng, k, quant, depths, b=8, n=4,
+                               d=64, bs=bs, mb=mb, scratch_row=7)
+    got, route = _launch(args, scales)
+    assert route == "tiled"
+    want = pa.paged_attention(*args, impl="blockwise", **scales)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    again, _ = _launch(args, scales)
+    assert torch.equal(again, got)
+    pargs, pscales = _poison_dead(cuda, args, scales, bs)
+    poisoned, _ = _launch(pargs, pscales)
+    assert torch.equal(poisoned, got)
+
+
+@pytest.mark.cuda
+def test_speculative_engine_routes_and_tokens(cuda):
+    """A speculative engine on the card: each round launches the
+    draft's k one-token steps on the split route and the target's
+    k-query verify on the tiled route — exactly, by the round count —
+    and its tokens equal a plain engine's except where the top-2 logits
+    tie (the two take different routes)."""
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+    torch.manual_seed(0)
+    model = DecoderLM(128, hidden=64, num_heads=4, num_layers=2,
+                      max_len=128, device=cuda)
+    model.init_weights(torch.Generator(device=cuda).manual_seed(1))
+    rng = np.random.RandomState(3)
+    reqs = [(rng.randint(0, 128, size=rng.randint(3, 40)).tolist(),
+             int(rng.randint(4, 30))) for _ in range(6)]
+    with serving.DecodeEngine(model, slots=4, kv_block_size=16,
+                              device=cuda) as eng:
+        want = [h.result(300) for h in [eng.submit(p, n) for p, n in reqs]]
+    for route in pa.route_launches:
+        pa.route_launches[route] = 0
+    with serving.DecodeEngine(model, slots=4, kv_block_size=16,
+                              speculate_k=3, device=cuda) as eng:
+        got = [h.result(300) for h in [eng.submit(p, n) for p, n in reqs]]
+        counts = eng.counters.snapshot()["counts"]
+    rounds, prefills = counts["decode_steps"], counts["prefills"]
+    assert pa.route_launches == {"split": 1 * 3 * rounds,
+                                 "tiled": 2 * rounds + (2 + 1) * prefills,
+                                 "tiled_simt": 0}
+    for (prompt, _), g, w in zip(reqs, got, want):
+        if g == w:
+            continue
+        first = next(j for j in range(len(g)) if g[j] != w[j])
+        assert first >= len(prompt)
+        with torch.no_grad():
+            logits = model(torch.tensor([g[:first]], device=cuda))[0, -1]
+        top = torch.topk(logits, 2).values
+        assert (top[0] - top[1]).item() < 1e-4
 
 
 def _poison_dead(dev, args, scales, bs):

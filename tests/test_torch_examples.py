@@ -330,3 +330,23 @@ def test_criteo_tp_training_and_int8_predict(tmp_path):
     out = _run(tmp_path, "criteo.criteo_spark", "--cluster_size", 3, "--tp",
                2, "--device", "cpu", ok=False)
     assert out.returncode != 0 and "multiple" in out.stderr
+
+
+def test_lm_generate_serves_solo_identical(tmp_path):
+    """``lm_generate``: the small LM learns the periodic task (the
+    reference's test_generate_example asserts the continuation), the
+    greedy continuation follows the period, and ``--serve`` through the
+    paged engine gives solo ``generate``'s tokens for every request. The
+    flags that wait for the fleet and QoS planes refuse, naming the
+    ROADMAP item."""
+    out = _run(tmp_path, "generate.lm_generate", "--steps", 80, "--serve",
+               6, "--device", "cpu")
+    got = _last_json(out)
+    assert got["loss"] < 0.2 * got["loss_first"], got
+    assert got["generated"] == [(6 + i) % 4 for i in range(8)]
+    serve = got["serve"]
+    assert serve["requests"] == 6 and serve["solo_mismatches"] == 0
+    for flag in (["--fleet", 2], ["--tenant", "a"]):
+        bad = _run(tmp_path, "generate.lm_generate", *flag, ok=False)
+        assert bad.returncode != 0
+        assert "ROADMAP Queue 1 item" in bad.stderr, bad.stderr

@@ -1,6 +1,6 @@
 """The port stands alone: it imports nothing of JAX, flax, optax, orbax,
 the JAX package or cloudpickle, and its kernel modules import (and
-serve, train, run a cluster, fit, checkpoint, export and transform
+serve — plainly, speculatively and from a spliced KV shipment — train, run a cluster, fit, checkpoint, export and transform
 through the pipeline, run the model zoo and ``:predict``, stream
 micro-batches into a cluster, run TFParallel jobs, bind the Spark
 adapter and import every example driver on the CPU) without a CUDA
@@ -23,7 +23,7 @@ PLANE = ("util", "marker", "fs", "frames", "shm", "manager", "tracing",
          "engine/context", "engine/executor", "engine/dataframe",
          "tfrecord", "_tfrecord_native", "dfutil", "checkpoint", "export",
          "pipeline", "engine/streaming", "engine/spark_adapter",
-         "parallel_runner")
+         "parallel_runner", "kvship")
 EXAMPLES = os.path.join(PORT, "examples")
 #: the parallel package's modules
 PARALLEL = ("parallel/__init__", "parallel/mesh", "parallel/collectives",
@@ -55,12 +55,32 @@ def test_port_serves_with_jax_unimportable():
         from tensorflowonspark_tpu_torch import serving
         from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
 
-        model = DecoderLM(32, hidden=16, num_heads=2, num_layers=1,
+        from tensorflowonspark_tpu_torch import generation, kvship
+
+        model = DecoderLM(32, hidden=16, num_heads=2, num_layers=2,
                           max_len=32)
         model.init_weights(torch.Generator().manual_seed(0))
         with serving.DecodeEngine(model, slots=2, device="cpu") as eng:
             out = eng.generate([1, 2, 3], 4, timeout=120)
         assert len(out) == 7 and out[:3] == [1, 2, 3], out
+        # a speculative request, and solo generate on the contiguous cache
+        with serving.DecodeEngine(model, slots=2, speculate_k=3,
+                                  device="cpu") as eng:
+            assert eng.generate([1, 2, 3], 4, timeout=120) == out
+        assert generation.generate(model, [[1, 2, 3]], 4,
+                                   device="cpu")[0].tolist() == out
+        # one splice: prefill and export on one engine, ship the packed
+        # chain's bytes, splice into another, decode the same tokens
+        prompt = list(range(1, 21))
+        with serving.DecodeEngine(model, slots=2, kv_block_size=8,
+                                  device="cpu") as a:
+            want = a.generate(prompt, 3, timeout=120)
+            buffers, _ = a.export_prefix(prompt)
+        meta, rows = kvship.unpack(b"".join(bytes(b) for b in buffers))
+        with serving.DecodeEngine(model, slots=2, kv_block_size=8,
+                                  device="cpu") as b:
+            assert b.import_prefix(meta, rows)["spliced_blocks"] == 2
+            assert b.generate(prompt, 3, timeout=120) == want
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "flax",
                                          "tensorflowonspark_tpu")
@@ -449,7 +469,7 @@ def test_example_drivers_import_no_torch_at_module_scope():
     files = _example_files()
     drivers = [os.path.relpath(f, EXAMPLES) for f in files
                if not os.path.basename(f).startswith("_")]
-    assert len(drivers) == 14, drivers
+    assert len(drivers) == 15, drivers
     for path in files:
         mods = list(_imports(path))
         assert not [m for m in mods if m.split(".")[0] in FORBIDDEN], path

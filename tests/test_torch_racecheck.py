@@ -8,7 +8,9 @@ benign finding carries a written reason. A finding that is not in the
 baseline fails; so does a baseline entry without a reason. The
 streaming loop (``engine/streaming.py``) and the Spark adapter's job
 thread (``engine/spark_adapter.py``, annotated ``# tfos:
-unjoined(...)``) are covered like every other thread of the port.
+unjoined(...)``) are covered like every other thread of the port, and
+so is the decode scheduler's newer state: the KV job queue and the
+speculative draft's cache.
 """
 
 import io
@@ -62,3 +64,40 @@ def test_a_new_finding_fails(tmp_path):
                     BASELINE)
     assert rc == 1
     assert "thread-unjoined" in text, text
+
+
+def _mutated_port(tmp_path, edits):
+    """A copy of the port's ``serving.py`` with ``edits`` (old, new)
+    applied, in a package directory of its own; returns its root."""
+    src = open(os.path.join(PORT, "serving.py")).read()
+    for old, new in edits:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    root = tmp_path / "tensorflowonspark_tpu_torch"
+    root.mkdir()
+    (root / "serving.py").write_text(src)
+    return str(root)
+
+
+def test_kv_jobs_and_draft_cache_are_covered(tmp_path):
+    """The scheduler-thread state the speculative and disaggregation
+    planes added is inside the lint's view: a KV job queued without
+    ``_cv``, and a draft cache rebound both on the scheduler thread and
+    from a client's call, are each a new finding."""
+    root = _mutated_port(tmp_path, [
+        ("""            self._kv_jobs.append(job)
+            self._cv.notify_all()""",
+         """            self._cv.notify_all()
+        self._kv_jobs.append(job)"""),
+        ("""        cache = [{n: t.clone() for n, t in layer.items()}
+                 for layer in self._cache]""",
+         """        cache = [{n: t.clone() for n, t in layer.items()}
+                 for layer in self._cache]
+        self._draft_cache = list(self._draft_cache)"""),
+        ("""            with self.timers.timed("draft_prefill"):""",
+         """            self._draft_cache = list(self._draft_cache)
+            with self.timers.timed("draft_prefill"):""")])
+    rc, text = _run([root], BASELINE)
+    assert rc == 1
+    assert "DecodeEngine._kv_call:_kv_jobs" in text, text
+    assert "DecodeEngine:_draft_cache" in text, text

@@ -6,7 +6,8 @@ Both engines serve the same flax params (the port's through
 IDENTICAL tokens for the cases the reference pins among its own
 engines (tests/test_paged_kv.py): mixed prompt lengths, a shared-prefix
 pair served warm, and preemption under a small pool — with the
-prefix-hit and preemption counters moving in both. int8 KV keeps the
+prefix-hit and preemption counters moving in both, and the contiguous
+(``kv_block_size=0``) engine. int8 KV keeps the
 reference's >= 99% teacher-forced top-1 agreement, the gather oracle
 equals the fused path, the HTTP surface answers over a real socket, and
 an engine never falls back to the CPU on its own.
@@ -117,6 +118,39 @@ def test_preemption_identical_tokens(lm):
     assert tcounts.get("preemptions", 0) >= 1
     assert jcounts.get("preemptions", 0) >= 1
     assert eng._pool.live_refs() == {} and eng._pool.allocatable() == 5
+
+
+def test_contiguous_engine_identical_tokens(lm):
+    """``kv_block_size=0``: the contiguous per-slot cache (no pool) emits
+    the reference's contiguous engine's tokens, which equal the paged
+    engine's; the zero schema rides ``load_stats``."""
+    rng = np.random.RandomState(12)
+    reqs = [(rng.randint(0, V, size=rng.randint(3, 30)).tolist(),
+             int(rng.randint(1, 12))) for _ in range(5)]
+    want, got, jcounts, tcounts, eng = _both(lm, reqs, slots=2,
+                                             kv_block_size=0)
+    assert got == want
+    assert tcounts["requests_completed"] == 5 == jcounts[
+        "requests_completed"]
+    paged, _, _ = _serve(serving.DecodeEngine(
+        _port(lm[1]), slots=2, kv_block_size=8, device="cpu"), reqs)
+    assert paged == got
+    load = eng.load_stats()
+    assert eng._pool is None and eng.attn_impl == "contiguous"
+    assert (load["attn_impl"], load["kv_blocks_total"], load["kv_dtype"],
+            load["speculate_k"]) == ("contiguous", 0, "float32", 0)
+
+
+def test_contiguous_engine_refuses_pool_options(lm):
+    """The reference's messages: pool options need a paged engine."""
+    _, params = lm
+    for kw, match in (({"kv_blocks": 4}, "kv_blocks needs a paged"),
+                      ({"attn_impl": "fused"}, "attn_impl needs a paged"),
+                      ({"kv_dtype": "int8"}, "int8.*needs a paged"),
+                      ({"speculate_k": 2}, "speculate_k needs a paged")):
+        with pytest.raises(ValueError, match=match):
+            serving.DecodeEngine(_port(params), slots=1, kv_block_size=0,
+                                 device="cpu", **kw)
 
 
 def test_gather_equals_fused_and_int8_serves(lm):
