@@ -7,7 +7,9 @@ checkpoint and resume, export, transform), the model zoo with
 paths, the parallel package (ring attention on the flash kernels,
 the long-context and Criteo examples, MoE, the pipeline), and the rest
 of generation (the contiguous cache, speculative decoding, KV
-ship/splice, the generate example) — and hold its CUDA kernels against
+ship/splice, the generate example), and the serving planes (QoS and
+quotas, shedding, dedup and fencing, ``/metrics`` and ``/debug/trace``,
+drain, respawn and the chaos sites) — and hold its CUDA kernels against
 their plain PyTorch versions.
 
     python3 chip_smoke.py
@@ -243,7 +245,35 @@ Phases, stopping with a non-zero exit at the first failure:
    below 1e-4. Printed: the verify window's times, tokens/s, TTFT p50,
    acceptance, tokens a slot-round, ``measure_spec``'s draft and verify
    ms, the transport, blocks, MB and ship ms;
-12. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
+12. serving planes — phase 4's model from the seed behind the port's
+   ``ModelServer`` (a ``qos_policy``: tenants ``antagonist`` and
+   ``quiet`` at equal weight, ``metered`` at 2 tokens/s): (a) 24
+   antagonist requests, then 4 quiet ones (phase 4's prompts of at most
+   256 tokens, 64 new tokens each) — every quiet request admitted before
+   the antagonist's last (from ``/debug/trace``'s queue spans, the
+   requests carrying ``X-TFOS-Trace`` ids); 8 ``low`` requests fill the
+   slots and a ``high`` one preempts one of them, admitted within two
+   step boundaries; the indebted ``metered`` tenant gets 429 +
+   ``Retry-After`` with nothing queued; (b) a 2-prompt body whose
+   ``deadline_s`` is half its own estimate gets 503 ``Shed`` +
+   ``Retry-After``, ``shed`` +2, the queue unmoved, and a feasible one
+   completes; (d) two concurrent sends with one ``X-TFOS-Request-Id``
+   run one generation, a third replays it; ``fence`` 410, ``unfence``
+   200, a control epoch below the fence 409; (c) ``/metrics`` parses
+   line by line, holds the reference's families (``REFERENCE_FAMILIES``)
+   and counts what the clients were served; ``/debug/trace`` has one
+   request span per served request, each request's attribution stages
+   sum to its wall within 1%; ``measure_attn(reps=5)`` launches the
+   split route exactly 6 times; ``measure_dequant`` on an int8 engine and
+   ``kv_cache_bytes``; (e) ``drain`` with 8 in flight (``/healthz``
+   draining, a new request 503 ``Draining``, zero loss), then
+   ``respawn`` on one counter series; (f) ``kill_scheduler_at_step``:
+   503 ``EngineFailed``, ``/healthz`` not alive, a respawn serves;
+   ``disconnect_client_at_token``: 499 and the slot freed. Tokens equal
+   phase 4's float engine's but at a top-2 tie below 1e-4, and the
+   phase's launches by route equal its decode steps and prefills times
+   the layers (plus ``measure_attn``'s 6);
+13. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
    counts as ``launches_cluster``, phase 7's as ``launches_pipeline``,
    phase 8's (BERT training plus ``:predict``) as ``launches_models``,
    phase 9's streaming-fed trainer's as ``launches_streaming`` and the
@@ -251,9 +281,9 @@ Phases, stopping with a non-zero exit at the first failure:
    long-context launches as ``launches_ring``, their times at BERT's
    shape as ``bert_shape``, and the kernel each dtype runs as
    ``design``; the paged row adds phase 11's launches as
-   ``launches_spec`` and ``launches_disagg`` and the verify window's
-   times as ``verify``), the card line, and last the ``{"ok": true,
-   ...}`` line.
+   ``launches_spec`` and ``launches_disagg``, phase 12's as
+   ``launches_planes``, and the verify window's times as ``verify``), the
+   card line, and last the ``{"ok": true, ...}`` line.
 
 ``--out-dir DIR`` also writes every number of the run to
 ``DIR/chip_smoke.json``. Needs one card; exits non-zero, printing no
@@ -3703,6 +3733,579 @@ def generation_phase(torch, pa, dev, runs, here):
             "wall_s": wall}
 
 
+# -- phase 12: the serving planes -----------------------------------------
+
+#: 12(a): phase 4's requests with a prompt of at most 256 tokens and at
+#: least 64 new tokens (indices into ``traffic()``); at temperature 0 the
+#: first 64 generated tokens of phase 4's output are the expected ones
+PLANES_PROMPTS = (0, 3, 6, 8, 10, 14)
+PLANES_NEW = 64
+#: 12(a): the antagonist's burst and the quiet tenant's requests
+ANTAGONIST_REQUESTS, QUIET_REQUESTS = 24, 4
+#: 12(a): the metered tenant's rate (tokens/s) and burst (seconds): one
+#: 64-token request leaves the bucket decisively in debt
+METERED_RATE, METERED_BURST_S = 2.0, 1.0
+#: 12(e): requests in flight when the drain starts
+DRAIN_REQUESTS = 8
+#: the families the reference's ``ModelServer.metrics_text`` renders for
+#: this engine config (paged, fused, a qos_policy with a quota) after
+#: this phase's kind of traffic — fair share, class preemption, a quota
+#: refusal, a shed body, dedup joins and replays and a control-epoch
+#: refusal — read off the JAX package's server on the CPU
+REFERENCE_FAMILIES = (
+    "tfos_control_admin_rejections", "tfos_kv_ship_ms",
+    "tfos_qos_admitted", "tfos_qos_preemptions",
+    "tfos_qos_queue_wait_high_seconds", "tfos_qos_queue_wait_low_seconds",
+    "tfos_qos_queue_wait_normal_seconds", "tfos_qos_quota_rejections",
+    "tfos_qos_tokens", "tfos_serving_attn_impl",
+    "tfos_serving_decode_step_seconds", "tfos_serving_decode_steps",
+    "tfos_serving_decode_tokens", "tfos_serving_dedup_hits",
+    "tfos_serving_dedup_joined", "tfos_serving_drain_seconds",
+    "tfos_serving_generated_prefix_registered",
+    "tfos_serving_kv_blocks_cached", "tfos_serving_kv_blocks_free",
+    "tfos_serving_kv_blocks_total", "tfos_serving_kv_dtype",
+    "tfos_serving_preemptions", "tfos_serving_prefills",
+    "tfos_serving_prefix_digest_chains",
+    "tfos_serving_prefix_digest_truncated",
+    "tfos_serving_prefix_hit_blocks", "tfos_serving_prefix_miss_blocks",
+    "tfos_serving_queue_depth", "tfos_serving_queue_wait_seconds",
+    "tfos_serving_replica_info", "tfos_serving_request_seconds",
+    "tfos_serving_requests_completed", "tfos_serving_shed",
+    "tfos_serving_slot_occupancy", "tfos_serving_stage_samples",
+    "tfos_serving_stage_seconds", "tfos_serving_token_latency_seconds",
+    "tfos_serving_tokens", "tfos_serving_ttft_seconds",
+    "tfos_slo_attrib_admission_seconds", "tfos_slo_attrib_decode_seconds",
+    "tfos_slo_attrib_preempted_seconds", "tfos_slo_attrib_prefill_seconds",
+    "tfos_slo_attrib_queue_wait_seconds", "tfos_trace_spans_dropped")
+
+
+class _Client(object):
+    """Raw-HTTP ``:generate`` client of phase 12 that keeps the tallies
+    ``/metrics`` must agree with: requests the engine executed and the
+    tokens it generated for them (a dedup replay or join executes
+    nothing new; a refused body executes nothing)."""
+
+    def __init__(self, port):
+        self.port = port
+        self.executed = 0
+        self.tokens = 0
+        self.lock = threading.Lock()
+
+    def post(self, payload, headers=None, path=None):
+        conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                          timeout=600)
+        conn.request("POST", path or "/v1/models/gpt2:generate",
+                     body=json.dumps(payload),
+                     headers=dict({"Content-Type": "application/json"},
+                                  **(headers or {})))
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        hdrs = dict(resp.getheaders())
+        conn.close()
+        return resp.status, hdrs, body
+
+    def generate(self, payload, headers=None, executes=True):
+        status, hdrs, body = self.post(payload, headers)
+        if status == 200 and executes:
+            prompts = payload["prompt"]
+            n = len(prompts) if isinstance(prompts[0], list) else 1
+            with self.lock:
+                self.executed += n
+                self.tokens += n * payload["max_new_tokens"]
+        return status, hdrs, body
+
+    def get(self, path):
+        conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                          timeout=60)
+        t0 = time.monotonic()
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        raw = resp.read()
+        ms = (time.monotonic() - t0) * 1e3
+        hdrs = dict(resp.getheaders())
+        conn.close()
+        return resp.status, hdrs, raw, ms
+
+
+def _threaded(fn, args):
+    """Run ``fn(*a)`` for every ``a`` of ``args`` in its own thread;
+    returns (threads, results list filled in order)."""
+    out = [None] * len(args)
+
+    def run(i):
+        try:
+            out[i] = fn(*args[i])
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            out[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(args))]
+    for t in threads:
+        t.start()
+    return threads, out
+
+
+def _wait_for(cond, what, timeout=120):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail("phase 12: timed out waiting for " + what)
+        time.sleep(0.001)
+
+
+def _trace_stats(doc):
+    """Per request row of a Chrome trace: admission (queue span end),
+    first token (first prefill span end), the request span, and the
+    engine's decode-step span ends."""
+    rows = {}
+    steps = []
+    for e in doc["traceEvents"]:
+        if e.get("ph") != "X":
+            continue
+        if e["tid"] == 0:
+            if e["name"] == "decode_step":
+                steps.append(e["ts"] + e["dur"])
+            continue
+        row = rows.setdefault(e["tid"], {})
+        end = e["ts"] + e["dur"]
+        if e["name"] == "queue":
+            row["admitted"] = end
+        elif e["name"] == "prefill":
+            row.setdefault("first_token", end)
+        elif e["name"] == "request":
+            row["request"] = e
+    return rows, sorted(steps)
+
+
+def _expected(runs, reqs, i, n_new):
+    """Phase 4's float output of request ``i`` cut to ``n_new`` tokens."""
+    prompt = reqs[i][0]
+    return runs[None]["out"][i][:len(prompt) + n_new]
+
+
+def planes_phase(torch, pa, dev, runs, decode_timing):
+    """Phase 12: the serving planes on phase 4's model, over HTTP to the
+    port's ``ModelServer``: (a) fair share, class preemption and the
+    quota; (b) deadline shedding; (c) ``/metrics``, ``/debug/trace``, SLO
+    attribution and the probes; (d) dedup and fencing; (e) drain and
+    respawn; (f) the serving chaos sites. Tokens equal phase 4's float
+    engine's (``runs``) but at a top-2 tie below 1e-4."""
+    from tensorflowonspark_tpu_torch import chaos, generation, serving, slo
+    from tensorflowonspark_tpu_torch import tracing
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+    t_phase = time.monotonic()
+    model = DecoderLM(VOCAB, hidden=HIDDEN, num_heads=HEADS,
+                      num_layers=LAYERS, max_len=MAX_LEN, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+    reqs = traffic()
+    res = {}
+    policy = {"weights": {"antagonist": 1.0, "quiet": 1.0},
+              "quotas": {"metered": METERED_RATE},
+              "burst_s": METERED_BURST_S}
+    flight = tracing.FlightRecorder(capacity=1 << 16)
+    # THE path of this phase: counts at zero just before, read just after
+    for route in pa.route_launches:
+        pa.route_launches[route] = 0
+    engine = serving.DecodeEngine(model, slots=SLOTS, total_len=MAX_LEN,
+                                  kv_block_size=BLOCK, qos_policy=policy,
+                                  replica_id="planes-0", flight=flight,
+                                  device=dev)
+    srv = serving.ModelServer(None, name="gpt2", port=0, engine=engine)
+    client = _Client(srv.start()[1])
+    served = []  # (request index, output) for the token check
+    trace_ids = {}  # trace id -> (tenant, request index)
+
+    def gen(i, tenant, priority=None, n_new=PLANES_NEW, extra=None):
+        # pid-salted ids: no clash with the engine's local ones
+        tid = tracing.mint_trace_id()
+        trace_ids[tid] = (tenant, i)
+        payload = {"prompt": reqs[i][0], "max_new_tokens": n_new,
+                   "tenant": tenant}
+        if priority:
+            payload["priority"] = priority
+        payload.update(extra or {})
+        status, hdrs, body = client.generate(
+            payload, headers={"X-TFOS-Trace": str(tid)})
+        if status == 200:
+            served.append((i, n_new, body["tokens"]))
+        return status, hdrs, body, tid
+
+    # (a) fair share: the antagonist's burst, then the quiet tenant
+    t0 = time.monotonic()
+    idx = [PLANES_PROMPTS[k % len(PLANES_PROMPTS)]
+           for k in range(ANTAGONIST_REQUESTS + QUIET_REQUESTS)]
+    ant_threads, ant = _threaded(
+        gen, [(i, "antagonist") for i in idx[:ANTAGONIST_REQUESTS]])
+    _wait_for(lambda: engine.outstanding() + engine.counters.get(
+        "requests_completed") >= ANTAGONIST_REQUESTS, "the burst")
+    quiet_threads, quiet = _threaded(
+        gen, [(i, "quiet") for i in idx[ANTAGONIST_REQUESTS:]])
+    for t in ant_threads + quiet_threads:
+        t.join()
+    burst_wall = time.monotonic() - t0
+    check(all(r[0] == 200 for r in ant + quiet),
+          "12(a) fair-share requests failed: {}".format(
+              [r for r in ant + quiet if r[0] != 200][:2]))
+    rows, _ = _trace_stats(flight.chrome_trace())
+    by_tenant = {}
+    for tid, (tenant, _) in trace_ids.items():
+        row = rows.get(tid)
+        check(row is not None and "admitted" in row,
+              "12(a) no trace row for request {}".format(tid))
+        by_tenant.setdefault(tenant, []).append(row)
+    last_ant = max(r["admitted"] for r in by_tenant["antagonist"])
+    quiet_admitted = sorted(r["admitted"] for r in by_tenant["quiet"])
+    check(all(t < last_ant for t in quiet_admitted),
+          "12(a) a quiet request waited out the antagonist's backlog")
+    ttft = {tenant: float(np.median(
+        [(r["first_token"] - r["request"]["ts"]) / 1e3 for r in rows_]))
+        for tenant, rows_ in by_tenant.items()}
+    gen_tokens = (ANTAGONIST_REQUESTS + QUIET_REQUESTS) * PLANES_NEW
+    res["fair_share"] = {"ttft_p50_ms": ttft, "wall_s": burst_wall,
+                         "tokens_per_s": gen_tokens / burst_wall,
+                         "quiet_admitted_before_last_antagonist": True}
+    log("planes 12(a) fair share: TTFT p50 antagonist {:.1f} ms, quiet "
+        "{:.1f} ms; {:.1f} tokens/s over {} requests ({:.2f}s)".format(
+            ttft["antagonist"], ttft["quiet"], gen_tokens / burst_wall,
+            ANTAGONIST_REQUESTS + QUIET_REQUESTS, burst_wall))
+
+    # (a) class preemption: eight low slots, then one high arrival
+    chaos.arm("stall_decode_for=1.0")
+    low_threads, low = _threaded(
+        gen, [(PLANES_PROMPTS[k % len(PLANES_PROMPTS)], "batch", "low")
+              for k in range(SLOTS)])
+    _wait_for(lambda: engine.load_stats()["slot_occupancy"] == SLOTS,
+              "eight low slots")
+    preempt0 = engine.counters.get("preemptions")
+    status, _, _, hi_tid = gen(PLANES_PROMPTS[0], "vip", "high", n_new=16)
+    check(status == 200, "12(a) the high request failed")
+    for t in low_threads:
+        t.join()
+    check(all(r[0] == 200 for r in low), "12(a) low requests failed")
+    doc = flight.chrome_trace()
+    rows, steps = _trace_stats(doc)
+    hi = rows[hi_tid]
+    admit_ts = [e["ts"] for e in doc["traceEvents"]
+                if e.get("ph") == "i" and e["name"] == "admit"
+                and e["tid"] == hi_tid][0]
+    boundaries = sum(1 for s in steps if admit_ts <= s <= hi["admitted"])
+    tallies = engine.qos_tallies()
+    check(engine.counters.get("preemptions") > preempt0
+          and ("batch", "low") in tallies["preemptions"],
+          "12(a) the high arrival preempted no low slot")
+    check(boundaries <= 2, "12(a) the high request waited {} step "
+          "boundaries".format(boundaries))
+    res["preemption"] = {"boundaries": boundaries, "preemptions": {
+        "/".join(k): v for k, v in tallies["preemptions"].items()}}
+    log("planes 12(a) class preemption: high admitted after {} step "
+        "boundaries; preemptions {}".format(boundaries,
+                                            tallies["preemptions"]))
+
+    # (a) quota: post-paid, so the first metered request runs into debt
+    status = gen(PLANES_PROMPTS[1], "metered")[0]
+    check(status == 200, "12(a) the metered request failed")
+    prefills0 = engine.counters.get("prefills")
+    status, hdrs, body, _ = gen(PLANES_PROMPTS[1], "metered", n_new=4)
+    check(status == 429 and body.get("kind") == "QuotaExceeded"
+          and int(hdrs.get("Retry-After", "0")) >= 1,
+          "12(a) an indebted tenant was not refused 429 + Retry-After: "
+          "{} {}".format(status, body))
+    check(engine.counters.get("prefills") == prefills0
+          and engine.load_stats()["queue_depth"] == 0,
+          "12(a) the refused request was queued")
+    res["quota"] = {"status": status, "retry_after": hdrs["Retry-After"]}
+
+    # (b) shed: a body of two whose deadline is below its own estimate
+    shed0 = engine.counters.get("shed")
+    depth0 = engine.load_stats()["queue_depth"]
+    pair = [reqs[i][0] for i in PLANES_PROMPTS[:2]]
+    est = engine.estimate_admission(PLANES_NEW, prompt=pair[0])
+    deadline = 0.5 * (est["queue_wait_s"] + est["service_s"])
+    status, hdrs, body = client.generate(
+        {"prompt": pair, "max_new_tokens": PLANES_NEW,
+         "deadline_s": deadline})
+    shed = engine.counters.get("shed") - shed0
+    check(status == 503 and body.get("kind") == "Shed"
+          and "Retry-After" in hdrs,
+          "12(b) an infeasible body was not shed: {} {}".format(
+              status, body))
+    check(shed == 2 and engine.load_stats()["queue_depth"] == depth0,
+          "12(b) shed counted {} (want 2) or the queue moved".format(shed))
+    status, _, body = client.generate(
+        {"prompt": pair, "max_new_tokens": PLANES_NEW, "deadline_s": 120.0})
+    check(status == 200, "12(b) a feasible deadline failed")
+    served.extend((i, PLANES_NEW, out)
+                  for i, out in zip(PLANES_PROMPTS[:2], body["tokens"]))
+    res["shed"] = {"shed": shed, "deadline_s": deadline, "estimate": est}
+    log("planes 12(b) shed: {} requests refused 503 at deadline {:.4f}s "
+        "(estimate: queue {:.4f}s + service {:.4f}s); a 120 s deadline "
+        "served".format(shed, deadline, est["queue_wait_s"],
+                        est["service_s"]))
+
+    # (d) dedup and fencing
+    payload = {"prompt": reqs[PLANES_PROMPTS[2]][0],
+               "max_new_tokens": PLANES_NEW}
+    rid = {"X-TFOS-Request-Id": "planes-dedup-1"}
+    chaos.arm("stall_decode_for=0.5")
+    prefills0 = engine.counters.get("prefills")
+    dup_threads, dup = _threaded(client.post, [(payload, rid),
+                                               (payload, rid)])
+    for t in dup_threads:
+        t.join()
+    client.executed += 1
+    client.tokens += PLANES_NEW
+    third = client.post(payload, rid)
+    check(all(r[0] == 200 for r in dup) and third[0] == 200
+          and dup[0][2] == dup[1][2] == third[2],
+          "12(d) dedup answers differ or failed")
+    check(engine.counters.get("prefills") == prefills0 + 1
+          and engine.counters.get("dedup_joined") == 1
+          and engine.counters.get("dedup_hits") == 1,
+          "12(d) dedup: prefills +{}, joined {}, hits {}".format(
+              engine.counters.get("prefills") - prefills0,
+              engine.counters.get("dedup_joined"),
+              engine.counters.get("dedup_hits")))
+    served.append((PLANES_PROMPTS[2], PLANES_NEW, third[2]["tokens"]))
+    srv.fence("superseded by a newer lease epoch")
+    fenced = client.post(payload)
+    srv.unfence()
+    unfenced = client.generate({"prompt": reqs[PLANES_PROMPTS[3]][0],
+                                "max_new_tokens": 8})
+    served.append((PLANES_PROMPTS[3], 8, unfenced[2]["tokens"]))
+    fence_set = client.post({"control_epoch": 5},
+                            path="/admin/control_fence")
+    stale = client.post({"replica_id": "p", "min_epoch": 1},
+                        headers={"X-TFOS-Control-Epoch": "4"},
+                        path="/admin/ship_fence")
+    check(fenced[0] == 410 and fenced[2].get("kind") == "Fenced"
+          and unfenced[0] == 200 and fence_set[0] == 200
+          and stale[0] == 409 and stale[2].get("kind") == "ControlFenced",
+          "12(d) fencing codes {} {} {} {}".format(
+              fenced[0], unfenced[0], fence_set[0], stale[0]))
+    res["dedup_fencing"] = {"joined": 1, "hits": 1, "fenced": fenced[0],
+                            "unfenced": unfenced[0],
+                            "control_fenced": stale[0]}
+    log("planes 12(d) dedup: two concurrent sends, one generation (joined "
+        "1), a replay (hits 1), identical bodies; fence 410, unfence 200, "
+        "control epoch 4 < 5: 409")
+
+    # (c) observability
+    status, hdrs, raw, scrape_ms = client.get("/metrics")
+    check(status == 200 and hdrs.get("Content-Type")
+          == serving.OPENMETRICS_CONTENT_TYPE, "12(c) /metrics answered "
+          "{} {}".format(status, hdrs.get("Content-Type")))
+    text = raw.decode()
+    types, values = {}, {}
+    for line in text.splitlines():
+        if line == "# EOF":
+            continue
+        if line.startswith("# TYPE "):
+            _, _, fam, kind = line.split()
+            types[fam] = kind
+            continue
+        if line.startswith(("# HELP ", "# UNIT ")):
+            continue
+        check(line and not line.startswith("#"),
+              "12(c) malformed exposition line {!r}".format(line))
+        sample = line.split(" # ")[0]
+        name, value = sample.rsplit(" ", 1)
+        values[name] = float(value)
+    check(text.endswith("# EOF\n"), "12(c) /metrics does not end in # EOF")
+    missing = sorted(set(REFERENCE_FAMILIES) - set(types))
+    check(not missing, "12(c) /metrics lacks the reference's families "
+          "{}".format(missing))
+    check(values.get("tfos_serving_requests_completed_total")
+          == client.executed
+          and values.get("tfos_serving_tokens_total") == client.tokens,
+          "12(c) /metrics counts {} requests, {} tokens; the clients "
+          "{} and {}".format(
+              values.get("tfos_serving_requests_completed_total"),
+              values.get("tfos_serving_tokens_total"), client.executed,
+              client.tokens))
+    status, hdrs, raw, trace_ms = client.get("/debug/trace")
+    doc = json.loads(raw)
+    check(status == 200 and "X-TFOS-Trace-Dropped" in hdrs,
+          "12(c) /debug/trace answered {}".format(status))
+    rows, _ = _trace_stats(doc)
+    finished = [r["request"] for r in rows.values() if "request" in r
+                and r["request"]["args"]["outcome"] == "finish"]
+    check(len(finished) == client.executed,
+          "12(c) {} request spans for {} served requests".format(
+              len(finished), client.executed))
+    worst = 0.0
+    for span in finished:
+        report = slo.attribute_trace(doc, span["tid"])
+        stages = sum(report["stages"].values())
+        wall = span["dur"] / 1e6
+        worst = max(worst, abs(stages - wall) / wall)
+    check(worst <= 0.01, "12(c) attribution is {:.2%} off a request's "
+          "wall".format(worst))
+    hist_sum = sum(engine.metrics.get_histogram(
+        "tfos_slo_attrib_{}_seconds".format(s)).snapshot()["sum"]
+        for s in serving._ATTRIB_STAGES)
+    req_sum = engine.metrics.get_histogram(
+        "tfos_serving_request_seconds").snapshot()["sum"]
+    check(abs(hist_sum - req_sum) <= 0.01 * req_sum,
+          "12(c) attribution histograms sum {:.4f}s, requests {:.4f}s"
+          .format(hist_sum, req_sum))
+    before = dict(pa.route_launches)
+    attn_ms = engine.measure_attn(reps=5)
+    moved = {r: pa.route_launches[r] - before[r] for r in before}
+    check(moved == {"split": 6, "tiled": 0, "tiled_simt": 0},
+          "12(c) measure_attn(reps=5) launched {} (want 5 timed calls "
+          "and one warm-up on the split route)".format(moved))
+    with serving.DecodeEngine(model, slots=SLOTS, total_len=MAX_LEN,
+                              kv_block_size=BLOCK, kv_dtype="int8",
+                              device=dev) as q8:
+        dequant_ms = q8.measure_dequant(reps=3)
+        pools = sum(t.numel() * t.element_size() for layer in q8._cache
+                    for t in layer.values())
+        check(dequant_ms is not None and dequant_ms > 0
+              and q8.kv_cache_bytes() == pools,
+              "12(c) int8 probes: dequant {} ms, kv_cache_bytes {} vs "
+              "pools {}".format(dequant_ms, q8.kv_cache_bytes(), pools))
+        q8_bytes = q8.kv_cache_bytes()
+    check(engine.kv_cache_bytes() == sum(
+        t.numel() * t.element_size() for layer in engine._cache
+        for t in layer.values()), "12(c) kv_cache_bytes != the pools")
+    res["observability"] = {
+        "scrape_ms": scrape_ms, "scrape_bytes": len(text.encode()),
+        "trace_ms": trace_ms, "families": len(types),
+        "attribution_worst_rel": worst, "measure_attn_ms": attn_ms,
+        "phase3_decode_ms": decode_timing["ms"],
+        "phase3_decode_device_ms": decode_timing["device_ms"],
+        "measure_dequant_ms": dequant_ms,
+        "kv_cache_bytes": engine.kv_cache_bytes(),
+        "kv_cache_bytes_int8": q8_bytes}
+    log("planes 12(c) /metrics {} families, {} bytes in {:.2f} ms; "
+        "/debug/trace {:.2f} ms, {} request spans; attribution within "
+        "{:.4%} of each wall; measure_attn {:.4f} ms a call (phase 3's "
+        "decode shape {:.4f} ms eager, {:.4f} ms device); measure_dequant "
+        "(int8) {:.4f} ms; kv_cache_bytes {} (int8 {})".format(
+            len(types), len(text.encode()), scrape_ms, trace_ms,
+            len(finished), worst, attn_ms, decode_timing["ms"],
+            decode_timing["device_ms"], dequant_ms,
+            engine.kv_cache_bytes(), q8_bytes))
+
+    # every token so far against phase 4's float engine
+    ties = compare_tokens(
+        torch, generation, model, [out for _, _, out in served],
+        [_expected(runs, reqs, i, n) for i, n, _ in served],
+        [(reqs[i][0], n) for i, n, _ in served], None, dev)
+    res["tokens"] = {"requests": len(served), "ties": ties}
+    log("planes tokens equal phase 4's on {}/{} requests ({} at a tie)"
+        .format(len(served) - ties, len(served), ties))
+
+    # (e) drain with eight in flight, then respawn
+    drain_idx = [PLANES_PROMPTS[k % len(PLANES_PROMPTS)]
+                 for k in range(DRAIN_REQUESTS)]
+    chaos.arm("stall_decode_for=0.5")
+    done0 = engine.counters.get("requests_completed")
+    drain_threads, drained = _threaded(
+        lambda i: client.generate({"prompt": reqs[i][0],
+                                   "max_new_tokens": PLANES_NEW}),
+        [(i,) for i in drain_idx])
+    _wait_for(lambda: engine.outstanding() == DRAIN_REQUESTS,
+              "eight requests in flight")
+    t0 = time.monotonic()
+    verdict = []
+    drainer = threading.Thread(target=lambda: verdict.append(srv.drain()))
+    drainer.start()
+    _wait_for(lambda: srv._draining, "the drain latch")
+    health = client.get("/healthz")
+    refused = client.post({"prompt": [1, 2, 3], "max_new_tokens": 4})
+    for t in drain_threads:
+        t.join()
+    drainer.join()
+    drain_s = time.monotonic() - t0
+    check(health[0] == 503 and json.loads(health[2])["status"] == "draining",
+          "12(e) /healthz during the drain: {}".format(health[0]))
+    check(refused[0] == 503 and refused[2].get("kind") == "Draining"
+          and "Retry-After" in refused[1],
+          "12(e) a new :generate during the drain got {}".format(
+              refused[0]))
+    check(verdict == [True] and all(r[0] == 200 for r in drained)
+          and engine.counters.get("requests_completed") - done0
+          == DRAIN_REQUESTS, "12(e) the drain lost requests")
+    ties = compare_tokens(
+        torch, generation, model, [r[2]["tokens"] for r in drained],
+        [_expected(runs, reqs, i, PLANES_NEW) for i in drain_idx],
+        [(reqs[i][0], PLANES_NEW) for i in drain_idx], None, dev)
+    tokens0 = engine.counters.get("tokens")
+    t0 = time.monotonic()
+    fresh = engine.respawn()
+    srv = serving.ModelServer(None, name="gpt2", port=0, engine=fresh)
+    client.port = srv.start()[1]
+    status, _, body = client.generate(
+        {"prompt": reqs[PLANES_PROMPTS[4]][0], "max_new_tokens": 8})
+    respawn_s = time.monotonic() - t0
+    check(status == 200 and fresh.counters is engine.counters
+          and fresh.counters.get("tokens") == tokens0 + 8
+          and fresh.counters.get("engine_restarts") == 1,
+          "12(e) the respawned engine: {} tokens {} -> {}, restarts {}"
+          .format(status, tokens0, fresh.counters.get("tokens"),
+                  fresh.counters.get("engine_restarts")))
+    res["drain"] = {"drain_s": drain_s, "respawn_s": respawn_s,
+                    "ties": ties}
+    log("planes 12(e) drain of {} in flight: {:.3f}s, zero loss, tokens "
+        "equal phase 4's ({} at a tie); respawn to the first answer "
+        "{:.3f}s, one counter series".format(DRAIN_REQUESTS, drain_s, ties,
+                                             respawn_s))
+
+    # (f) chaos: a scheduler kill, then a client disconnect
+    chaos.arm("kill_scheduler_at_step=1,only=planes-0")
+    status, _, body = client.generate(
+        {"prompt": reqs[PLANES_PROMPTS[5]][0], "max_new_tokens": 8})
+    health = client.get("/healthz")
+    check(status == 503 and body.get("kind") == "EngineFailed"
+          and health[0] == 503
+          and json.loads(health[2])["engine"]["alive"] is False,
+          "12(f) a killed scheduler answered {} / healthz {}".format(
+              status, health[0]))
+    fresh.stop()
+    again = fresh.respawn()
+    srv.attach_engine(again)
+    status, _, body = client.generate(
+        {"prompt": reqs[PLANES_PROMPTS[5]][0], "max_new_tokens": 8})
+    check(status == 200, "12(f) the respawned engine failed")
+    ties = compare_tokens(torch, generation, model, [body["tokens"]],
+                          [_expected(runs, reqs, PLANES_PROMPTS[5], 8)],
+                          [(reqs[PLANES_PROMPTS[5]][0], 8)], None, dev)
+    cancelled0 = again.counters.get("cancelled")
+    chaos.arm("disconnect_client_at_token=4")
+    status, _, body = client.generate(
+        {"prompt": reqs[PLANES_PROMPTS[0]][0], "max_new_tokens": 32})
+    _wait_for(lambda: again.load_stats()["slot_occupancy"] == 0
+              and again._pool.live_refs() == {}, "the cancelled slot")
+    check(status == 499 and again.counters.get("cancelled")
+          == cancelled0 + 1, "12(f) the disconnect answered {}".format(
+              status))
+    res["chaos"] = {"killed": 503, "respawned": 200, "disconnect": status,
+                    "ties": ties}
+    log("planes 12(f) chaos: scheduler kill -> 503 EngineFailed, healthz "
+        "503; respawn serves; disconnect at token 4 -> 499, slot freed")
+    srv.stop()
+    again.stop()
+    chaos.disarm()
+    counts = again.counters.snapshot()["counts"]
+    routes = dict(pa.route_launches)
+    steps, prefills = counts["decode_steps"], counts["prefills"]
+    want = {"split": LAYERS * steps + 6, "tiled": LAYERS * prefills,
+            "tiled_simt": 0}
+    check(routes == want, "phase 12 launches by route {} are not {} ({} "
+          "steps, {} prefills, measure_attn's 6)".format(
+              routes, want, steps, prefills))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["launches"] = routes
+    res["wall_s"] = time.monotonic() - t_phase
+    log("planes phase: launches {} ({} steps, {} prefills); wall {:.1f}s"
+        .format(routes, steps, prefills, res["wall_s"]))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -3813,6 +4416,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     gen = generation_phase(torch, pa, dev, runs, here)
+    gc.collect()
+    torch.cuda.empty_cache()
+    planes = planes_phase(torch, pa, dev, runs, timing["decode"][False])
     t = timing["decode"][False]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -3825,6 +4431,10 @@ def main():
         # tiled one), (d) the prefill and decode servers
         "launches_spec": gen["launches_spec"],
         "launches_disagg": gen["launches_disagg"],
+        # phase 12: every serving-plane leg's calls by route (decode
+        # steps x layers + measure_attn's 6 on split, prefills x layers
+        # on tiled), counted exactly
+        "launches_planes": planes["launches"],
         "max_abs_err": max(max(max_err.values()), gen["verify_error"]),
         # the decode shape (split-KV route), the main path's decode
         # steps; ms and library_ms per eager call, as for the flash rows,
@@ -3957,6 +4567,7 @@ def main():
                        "examples": ex,
                        "parallel": par,
                        "generation": gen,
+                       "planes": planes,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     log("total: {:.1f}s".format(time.monotonic() - t_start))
     print(json.dumps(kernels))

@@ -5,14 +5,13 @@ grammar, same ``TFOS_CHAOS`` variable, same seeded plans).
 The port's sites are the feed plane's (``DataFeed``'s ``on_batch``,
 the heartbeat publishers' ``on_heartbeat``), the reservation
 server's (``on_reservation_beat``, and ``on_net`` around every
-reservation message) and the checkpointer's (``on_checkpoint_saved``,
-with the corruption helpers it calls). Left for later slices, with the
-sites that fire them: the step, serving and router points
-(``kill_trainer_at_step``, ``drop_executor_then_return_after``,
-``kill_scheduler_at_step``, ``stall_decode_for``,
-``disconnect_client_at_token``, ``kill_serving_executor_at_request``,
-``kill_router_at_request``, ``restart_reservation_after``; ROADMAP Queue
-1 items 10-11) and the driver-side choreography helpers
+reservation message), the checkpointer's (``on_checkpoint_saved``,
+with the corruption helpers it calls) and the decode engine's serving
+sites (``on_decode_step``, ``on_serving_request``, ``on_token``). Left
+for later slices, with the sites that fire them: the step and router
+points (``kill_trainer_at_step``, ``drop_executor_then_return_after``,
+``kill_router_at_request``, ``restart_reservation_after``; ROADMAP
+Queue 1 items 9-11) and the driver-side choreography helpers
 (``schedule_executor_return``, ``kill_when``); the port's parser refuses
 those points instead of arming a site that never fires.
 
@@ -109,6 +108,28 @@ fully-wildcarded (``*:*`` / unscoped) injections.
   exchange (in flight when the link died) loses only its RESPONSE on
   transports that can tell the difference — the request was delivered
   and executed, the caller just never learns it (see :func:`on_net`).
+Serving-plane points (fired at ``serving.DecodeEngine``'s
+instrumented sites, so the request-lifecycle story is deterministically
+testable):
+
+- ``kill_scheduler_at_step=N`` — raise :class:`SchedulerKilled` inside
+  the decode scheduler loop once N decode steps completed: the thread
+  dies exactly as an uncaught device error would kill it, outstanding
+  handles fail retriable, and ``DecodeEngine.respawn`` is the recovery
+  under test.
+- ``stall_decode_for=T`` — the scheduler sleeps T seconds once at a
+  step boundary: in-flight deadlines expire while the engine stays
+  alive — the slow-replica signature deadline eviction exists for.
+- ``disconnect_client_at_token=N`` — the first request to reach N
+  emitted tokens is cancelled as if its client disconnected
+  mid-stream; the step-boundary slot-free path is the behavior under
+  test.
+- ``kill_serving_executor_at_request=K,only=<replica_id>,fuse=PATH`` —
+  whole-EXECUTOR loss on the serving plane: once the scoped replica's
+  engine has seen K requests submitted, SIGKILL the executor process
+  hosting it. It refuses to fire outside an executor-hosted serving
+  node (``TFOS_SERVING_EXECUTOR_ID`` unset), and ``fuse`` is mandatory.
+
 Every fire is logged loudly. All checks are O(1) dict lookups when
 nothing is armed, so instrumented sites cost nothing in production.
 """
@@ -130,7 +151,17 @@ NET_POINTS = ("net_drop", "net_delay", "net_dup", "net_partition")
 #: spec keys that accept the generic grammar above
 POINTS = ("kill_trainer_at_batch", "kill_trainer_when_queued",
           "stall_consumer_for", "stall_ring_slot", "drop_heartbeats_for",
-          "kill_reservation_server", "corrupt_checkpoint") + NET_POINTS
+          "kill_reservation_server", "corrupt_checkpoint",
+          "kill_scheduler_at_step", "stall_decode_for",
+          "disconnect_client_at_token",
+          "kill_serving_executor_at_request") + NET_POINTS
+
+
+class SchedulerKilled(RuntimeError):
+    """kill_scheduler_at_step fired: the decode scheduler thread dies
+    by raising this (the thread-level analog of SIGKILL — threads
+    cannot be signalled, and any uncaught raise kills the loop the
+    same way a real device error does)."""
 
 
 class NetPartitioned(ConnectionError):
@@ -317,6 +348,16 @@ def parse_spec(spec):
             raise ValueError(
                 "chaos fields for=/seed= only apply to net points "
                 "({}), not {}".format(", ".join(NET_POINTS), point))
+        if point == "kill_serving_executor_at_request" and not fuse:
+            # the spec rides executor_env into EVERY executor
+            # incarnation, and a replacement replica keeps the victim's
+            # replica_id — without a fuse it re-fires at the same
+            # request count forever
+            raise ValueError(
+                "kill_serving_executor_at_request requires fuse=PATH "
+                "(the kill must be single-shot across executor "
+                "incarnations — the replacement replica inherits both "
+                "the armed spec and the victim's replica_id)")
         out[point] = Injection(point, float(value), only=only, fuse=fuse)
     return out
 
@@ -419,6 +460,66 @@ def on_batch(feed, batches_served):
         logger.warning("CHAOS stalling consumer for %gs "
                        "(ring slots stay pinned)", inj.value)
         time.sleep(inj.value)
+
+
+def on_decode_step(steps_done, ident=None):
+    """Decode-scheduler site (serving.DecodeEngine._loop), called at
+    each step boundary with the number of COMPLETED decode steps.
+    ``stall_decode_for`` sleeps here (once); ``kill_scheduler_at_step``
+    raises :class:`SchedulerKilled` once ``steps_done`` reaches N.
+    ``ident`` is the engine's replica id: an ``only=<replica_id>``
+    injection targets ONE engine of several in one process."""
+    inj = armed("stall_decode_for", ident)
+    if inj is not None:
+        inj.mark_fired()
+        logger.warning("CHAOS stalling decode scheduler for %gs",
+                       inj.value)
+        time.sleep(inj.value)
+    inj = armed("kill_scheduler_at_step", ident)
+    if inj is not None and steps_done >= inj.value:
+        inj.mark_fired()
+        logger.error("CHAOS firing kill_scheduler_at_step "
+                     "(step %d >= %g, replica %s): killing the decode "
+                     "scheduler", steps_done, inj.value, ident)
+        raise SchedulerKilled(
+            "chaos: decode scheduler killed at step {}".format(steps_done))
+
+
+def on_serving_request(requests_seen, ident=None):
+    """Serving-admission site (serving.DecodeEngine._submit_many),
+    called with the cumulative number of requests this engine has seen
+    submitted. ``kill_serving_executor_at_request=K,only=<replica_id>``
+    SIGKILLs the WHOLE executor process hosting the replica once the
+    K-th request arrives. Refuses outside an executor-hosted serving
+    node: the process about to die must actually BE an executor (the
+    hosting node sets ``TFOS_SERVING_EXECUTOR_ID``), not a test process
+    that merely armed the spec."""
+    inj = armed("kill_serving_executor_at_request", ident)
+    if inj is None or requests_seen < inj.value:
+        return
+    if os.environ.get("TFOS_SERVING_EXECUTOR_ID") is None:
+        raise RuntimeError(
+            "kill_serving_executor_at_request can only fire inside an "
+            "executor-hosted serving node (the hosting node sets "
+            "TFOS_SERVING_EXECUTOR_ID); this process is not one — "
+            "scope the injection with only=<replica_id> or arm it via "
+            "executor_env")
+    _kill_self(inj, "serving request %d >= %g on replica %s"
+               % (requests_seen, inj.value, ident))
+
+
+def on_token(tokens_emitted):
+    """Token-delivery site (serving.DecodeEngine._deliver); True means
+    'this request's client just disconnected' — the engine cancels the
+    request and the step-boundary eviction frees its slot. Fires once,
+    on the first request to reach N emitted tokens."""
+    inj = armed("disconnect_client_at_token")
+    if inj is None or tokens_emitted < inj.value:
+        return False
+    inj.mark_fired()
+    logger.warning("CHAOS disconnect_client_at_token: simulating client "
+                   "disconnect after %d tokens", tokens_emitted)
+    return True
 
 
 def on_reservation_beat(beats_seen):

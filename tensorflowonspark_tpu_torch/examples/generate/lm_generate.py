@@ -6,15 +6,16 @@ loop), then ``generation.generate_jit`` continues a prompt over the
 contiguous cache, greedy or top-k sampled. ``--serve N`` also pushes N
 mixed-length prompts through the continuous-batching engine
 (``serving.DecodeEngine``, paged KV) and checks every output
-token-identical to a solo ``generate`` call.
+token-identical to a solo ``generate`` call; ``--tenant`` /
+``--priority`` tag those requests with a QoS identity (the engine's
+per-tenant token tally is reported as ``tenant_tokens``).
 
     python -m tensorflowonspark_tpu_torch.examples.generate.lm_generate \\
-        --steps 150 --serve 8 [--device cpu]
+        --steps 150 --serve 8 [--tenant a --priority high] [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given. ``--fleet``,
-``--executors``, ``--tenant`` and ``--priority`` wait for the port's
-fleet plane and QoS scheduler (ROADMAP.md Queue 1 items 8-9) and
-raise.
+Runs on the card unless ``--device cpu`` is given. ``--fleet`` and
+``--executors`` wait for the port's fleet plane (ROADMAP.md Queue 1
+item 9) and raise.
 """
 
 import argparse
@@ -28,9 +29,7 @@ from tensorflowonspark_tpu_torch.examples import _common
 def _not_ported(args):
     waits = (("fleet", "the serving fleet (ROADMAP Queue 1 item 9)"),
              ("executors", "the serving fleet's executor placement "
-                           "(ROADMAP Queue 1 item 9)"),
-             ("tenant", "the QoS plane (ROADMAP Queue 1 item 8)"),
-             ("priority", "the QoS plane (ROADMAP Queue 1 item 8)"))
+                           "(ROADMAP Queue 1 item 9)"))
     for flag, what in waits:
         if getattr(args, flag):
             raise SystemExit(
@@ -58,10 +57,12 @@ def main(argv=None):
     ap.add_argument("--executors", type=int, default=0, metavar="N",
                     help="not ported yet (ROADMAP Queue 1 item 9)")
     ap.add_argument("--tenant", default=None,
-                    help="not ported yet (ROADMAP Queue 1 item 8)")
+                    help="tenant id attached to every --serve request; "
+                         "omitted: the engine's default tenant")
     ap.add_argument("--priority", default=None,
                     choices=["high", "normal", "low"],
-                    help="not ported yet (ROADMAP Queue 1 item 8)")
+                    help="priority class for the --serve requests "
+                         "(default: normal)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="write {loss, prompt, generated, serve} JSON here")
@@ -128,11 +129,14 @@ def main(argv=None):
         with serving.DecodeEngine(model, slots=4, total_len=max_len,
                                   device=dev) as eng:
             t0 = time.monotonic()
-            outs = [h.result(600) for h in
-                    [eng.submit(p, mn) for p, mn in reqs]]
+            handles = [eng.submit(p, mn, tenant=args.tenant,
+                                  priority=args.priority)
+                       for p, mn in reqs]
+            outs = [h.result(600) for h in handles]
             wall = time.monotonic() - t0
             tokens = eng.counters.snapshot()["counts"]["tokens"]
             per_step = eng.counters.rate("decode_tokens", "decode_steps")
+            tenant_tokens = eng.qos_tallies()["tokens"]
         # the serving path must agree with the offline path, request by
         # request (greedy: token-identical)
         mismatches = sum(
@@ -142,6 +146,7 @@ def main(argv=None):
         serve_stats = {"requests": len(reqs), "tokens": int(tokens),
                        "tokens_per_sec": round(tokens / wall, 1),
                        "tokens_per_step": round(per_step, 2),
+                       "tenant_tokens": tenant_tokens,
                        "solo_mismatches": mismatches}
         print("served   ", serve_stats, flush=True)
     result = {"device": str(dev), "loss_first": losses[0] if losses else None,

@@ -48,28 +48,66 @@ decode engine behind ``:generate``, or both::
     POST /kv/splice                    a packed shipment (octet-stream), or
                                        an empty body with
                                        ``X-TFOS-KV-Via: shm``
-    POST /admin/ship_fence             {"replica_id", "min_epoch"}
-    GET  /healthz
+    POST /admin/<name>                 registered lifecycle RPCs:
+                                       ship_fence {"replica_id",
+                                       "min_epoch"}, control_fence
+                                       {"control_epoch"}, and whatever
+                                       :meth:`ModelServer.register_admin`
+                                       mounts (404 for the rest)
+    GET  /healthz                      liveness, gauges, dedup window
+    GET  /metrics                      OpenMetrics exposition of the
+                                       engine's ``MetricsRegistry``
+    GET  /debug/trace                  the flight recorder as Chrome
+                                       trace JSON (``X-TFOS-Trace-Dropped``)
 
 ``:predict`` runs the export's ``apply_fn`` under
 ``torch.inference_mode()``, one request at a time, or, with
 ``batch_window_ms > 0``, through :class:`_Batcher`, which merges
 concurrent requests of one input signature into one apply call.
 
-Error taxonomy on the wire: malformed body 400 (for ``:predict``:
-ragged, non-numeric, empty and 0-d inputs and a batch-size mismatch),
-:class:`QueueFull` 429, :class:`Retriable` (:class:`Shed`,
-:class:`Draining`, :class:`EngineFailed`) 503 with ``Retry-After``,
-:class:`DeadlineExceeded` 504, :class:`Cancelled` 499;
-``/kv/splice``: :class:`SpliceRejected` 409 with its ``reason``, a
-malformed shipment 400.
+The serving planes sit between the HTTP surface and the scheduler:
 
-Left out of this port so far (see ROADMAP.md, Queue 1 items 8-9): the
-QoS fair scheduler (admission here is the block-gated FIFO the
-reference runs with one priority class), SLO and the serving chaos
-sites, the flight recorder and ``/metrics``, and the fleet plane's
-server state (dedup window, replica fencing and control epochs, drain,
-the other ``/admin`` routes). ``_Batcher`` drops the reference's
+- QoS: ``tenant`` / ``priority`` identify a request (``qos``); the
+  admission scan is the weighted-fair planner (per-(tenant, class) FIFO
+  buckets, strict classes, a stronger waiting class preempts a weaker
+  slot), and a ``qos_policy``'s token buckets refuse an indebted tenant
+  (429 + ``Retry-After``), charged at delivery.
+- Admission control: a ``deadline_s`` body is priced against the
+  engine's own step and prefill EWMAs and block pressure
+  (:meth:`DecodeEngine.estimate_admission`); an infeasible body is shed
+  whole at the door (:class:`Shed`, 503 + ``Retry-After``).
+- Lifecycle: :meth:`DecodeEngine.drain` / :meth:`DecodeEngine.respawn`,
+  :meth:`ModelServer.drain` and SIGTERM drain; ``chaos``'s serving
+  sites sit at the step boundary, admission and token delivery.
+- Observability: one ``MetricsRegistry`` per engine (latency
+  histograms, counters, stage timers, per-stage SLO attribution from
+  ``slo.attribute_intervals``) and a ``FlightRecorder`` of per-request
+  spans.
+- Fleet-facing server state: the ``X-TFOS-Request-Id`` dedup window,
+  lease fencing (410), the control-epoch fence (409), ``X-TFOS-Trace``
+  adoption.
+
+Error taxonomy on the wire: malformed body 400 (for ``:predict``:
+ragged, non-numeric, empty and 0-d inputs and a batch-size mismatch;
+for ``:generate``: a malformed ``tenant``, ``priority`` or
+``session``), :class:`QueueFull` 429, ``qos.QuotaExceeded`` 429 with
+``Retry-After``, :class:`Retriable` (:class:`Shed`, :class:`Draining`,
+:class:`EngineFailed`) 503 with ``Retry-After``, :class:`Fenced` 410,
+:class:`DeadlineExceeded` 504, :class:`Cancelled` 499; ``/kv/splice``:
+:class:`SpliceRejected` 409 with its ``reason``, a malformed shipment
+400; an ``/admin`` call stamped below the control-epoch floor 409.
+
+Run a server from a shell (an export behind ``:predict``; SIGTERM
+drains)::
+
+    python -m tensorflowonspark_tpu_torch.serving --model-dir EXPORT \
+        --name mnist --port 8501 [--device cpu]
+
+Left out of this port so far (see ROADMAP.md, Queue 1 items 9-10): the
+fleet hosting (``ServingFleet``, the router, executor-hosted replicas),
+the supervisor, autoscale and controlstate that drive them, and the
+profiler hooks. ``compile_stats`` reports program counts as None (eager
+PyTorch keeps no program cache). ``_Batcher`` drops the reference's
 power-of-two padding of a merged batch, which bounds ``jit``'s compile
 cache; eager PyTorch has none, and padding would only add rows to
 compute.
@@ -81,7 +119,10 @@ import itertools
 import json
 import logging
 import math
+import os
 import queue as queue_mod
+import random
+import socket
 import threading
 import time
 
@@ -94,12 +135,23 @@ from tensorflowonspark_tpu_torch import frames
 from tensorflowonspark_tpu_torch import generation
 from tensorflowonspark_tpu_torch import kvship
 from tensorflowonspark_tpu_torch import paging
+from tensorflowonspark_tpu_torch import qos
+from tensorflowonspark_tpu_torch import slo
 from tensorflowonspark_tpu_torch import tracing
+from tensorflowonspark_tpu_torch.qos import QuotaExceeded  # noqa: F401 - HTTP taxonomy re-export
 
 logger = logging.getLogger(__name__)
 
+#: content type a /metrics response declares (OpenMetrics exposition)
+OPENMETRICS_CONTENT_TYPE = tracing.OPENMETRICS_CONTENT_TYPE
+
 _STREAM_DONE = object()
 _ENGINE_IDS = itertools.count()
+
+#: the per-request stages whose seconds the attribution histograms
+#: ``tfos_slo_attrib_<stage>_seconds`` carry
+_ATTRIB_STAGES = ("queue_wait", "admission", "prefill", "decode",
+                  "preempted")
 
 
 class Retriable(RuntimeError):
@@ -129,6 +181,86 @@ class EngineFailed(Retriable):
     """The decode scheduler died; outstanding handles fail with this."""
 
 
+#: HTTP statuses a serving surface answers for TRANSIENT conditions —
+#: 429 (QueueFull backpressure) and 503 (Shed / Draining / EngineFailed)
+RETRIABLE_HTTP_STATUS = (429, 503)
+
+#: fraction of a Retry-After floor added as jitter by retry_call: N
+#: clients told the same "Retry-After: T" by one recovering replica
+#: spread over [T, T*(1+this)] instead of stampeding it at exactly +T
+RETRY_AFTER_JITTER = 0.25
+
+
+def http_retriable(status, retry_after=None):
+    """Map an upstream HTTP status to the matching client-side
+    :class:`Retriable` (None when the status is not transient) — the
+    one place the wire's 429/503 + ``Retry-After`` contract turns back
+    into the exception :func:`retry_call` retries. ``retry_after`` is
+    the response header value (seconds), if any."""
+    if status not in RETRIABLE_HTTP_STATUS:
+        return None
+    err = Retriable("upstream answered {}".format(status))
+    try:
+        err.retry_after = max(0.0, float(retry_after))
+    except (TypeError, ValueError):
+        err.retry_after = 1.0 if status == 503 else 0.5
+    return err
+
+
+def retry_call(fn, attempts=4, base_delay=0.1, max_delay=5.0,
+               sleep=time.sleep, rng=None):
+    """Call ``fn()``, retrying ONLY :class:`Retriable` failures with
+    bounded exponential backoff and full jitter.
+
+    The one client-side retry loop (a fleet router's and an HTTP
+    client's, instead of ad-hoc loops): non-retriable errors — bad
+    requests, real server faults, cancellations — propagate on the
+    first raise; a retriable one is retried up to ``attempts`` total
+    calls, sleeping
+    ``uniform(0, min(max_delay, base_delay * 2**attempt))`` between
+    tries (full jitter — N clients retrying a shed replica must not
+    re-arrive in lockstep). ``exc.retry_after`` refines the delay: a
+    POSITIVE value (the wire's ``Retry-After``) floors it, capped at
+    ``max_delay``, PLUS up to ``RETRY_AFTER_JITTER`` of itself in
+    jitter — the server said when a retry is worth attempting, and
+    coming back sooner just buys another refusal, but N clients all
+    told "Retry-After: 2" by the same recovering replica must not
+    re-arrive at +2.000s in one synchronized stampede (the jitter is
+    NOT capped by ``max_delay``: capping would re-synchronize exactly
+    the clients whose floor hit the cap); an EXPLICIT
+    ``retry_after == 0`` skips the sleep entirely — the router's
+    failover shape, where the next attempt goes to a DIFFERENT
+    replica and any wait is pure added latency; absent/None means
+    plain jittered backoff. ``sleep``/``rng`` are injectable for
+    deterministic tests; the final attempt's exception propagates
+    unchanged."""
+    rng = rng if rng is not None else random.random
+    attempts = max(1, int(attempts))
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except Retriable as e:
+            attempt += 1
+            if attempt >= attempts:
+                raise
+            try:
+                retry_after = float(getattr(e, "retry_after", None))
+            except (TypeError, ValueError):
+                retry_after = None
+            if retry_after is not None and retry_after <= 0.0:
+                continue  # explicit immediate failover: no sleep
+            delay = min(float(max_delay),
+                        float(base_delay) * (2.0 ** (attempt - 1)))
+            delay *= rng()
+            if retry_after is not None:
+                floor = min(retry_after, float(max_delay))
+                delay = max(delay, floor * (1.0 + RETRY_AFTER_JITTER
+                                            * rng()))
+            if delay > 0.0:
+                sleep(delay)
+
+
 class SpliceRejected(RuntimeError):
     """A KV shipment was refused deliberately (HTTP 409): ``reason`` is
     one of "unpaged", "block_size", "kv_dtype", "malformed",
@@ -156,27 +288,149 @@ class QueueFull(RuntimeError):
     (HTTP 429)."""
 
 
+class Fenced(RuntimeError):
+    """This replica's serving lease epoch was superseded (another
+    holder registered for its identity — see ``reservation.Fenced``):
+    it must not serve. NON-retriable: the HTTP surface answers 410
+    (Gone) with ``kind: "Fenced"`` — a client or router should
+    re-resolve to the current holder, never retry here."""
+
+
+class DedupWindow(object):
+    """Bounded TTL + LRU idempotency window for request replay.
+
+    The exactly-once half of partition-tolerant dispatch: a retry of a
+    request this replica ALREADY executed (the ambiguous-timeout shape
+    — the response was lost, not the work) must not execute twice.
+    Keyed on the router's ``X-TFOS-Request-Id``; three cases:
+
+    - **fresh** — no entry: the caller becomes the OWNER, executes,
+      and publishes the outcome (``complete``) or withdraws
+      (``fail`` — failed attempts are NOT cached, a later retry gets a
+      clean execution).
+    - **completed** — a finished entry inside the TTL: the stored
+      response is REPLAYED verbatim (a dedup *hit*).
+    - **in-flight** — the original is still executing: the retry JOINS
+      it (waits on the owner's outcome) instead of racing a duplicate
+      generation (a dedup *join*) — this is what makes a post-timeout
+      failover that lands back on the same replica safe while the
+      first execution is still running.
+
+    Bounded two ways: ``ttl_s`` (entries expire — a replay window, not
+    a permanent ledger) and ``capacity`` (LRU eviction — memory stays
+    bounded under sustained traffic). Evicting an in-flight entry is
+    safe: joiners hold the entry object itself, so the owner's outcome
+    still resolves them; the id just stops deduplicating afterwards.
+    Thread-safe (HTTP handler threads share it). ``now`` is injectable
+    for deterministic TTL tests."""
+
+    def __init__(self, capacity=2048, ttl_s=120.0, now=time.monotonic):
+        self.capacity = max(1, int(capacity))
+        self.ttl_s = float(ttl_s)
+        self._now = now
+        self._lock = threading.Lock()
+        self._entries = collections.OrderedDict()  # rid -> _DedupEntry
+
+    class _Entry(object):
+        __slots__ = ("done", "response", "error", "created")
+
+        def __init__(self, created):
+            self.done = threading.Event()
+            self.response = None
+            self.error = None
+            self.created = created
+
+    def begin(self, request_id):
+        """(entry, owner): ``owner`` True means the caller must execute
+        and then call :meth:`complete` or :meth:`fail`; False means the
+        entry belongs to an earlier arrival — replay/join it."""
+        rid = str(request_id)
+        now = self._now()
+        with self._lock:
+            self._expire_locked(now)
+            entry = self._entries.get(rid)
+            if entry is not None:
+                # TTL is since-last-access: the refresh keeps the
+                # OrderedDict's insertion order == recency order, so
+                # head-scan expiry is exact
+                entry.created = now
+                self._entries.move_to_end(rid)
+                return entry, False
+            entry = self._Entry(now)
+            self._entries[rid] = entry
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+            return entry, True
+
+    def complete(self, request_id, entry, response):
+        """Publish the owner's successful response for replay."""
+        entry.response = response
+        entry.done.set()
+
+    def fail(self, request_id, entry, error):
+        """Withdraw a failed execution: joiners already waiting get the
+        error (they were the same request — hiding it would hang them),
+        but the entry leaves the window so a LATER retry re-executes
+        instead of replaying a transient failure forever."""
+        entry.error = error
+        entry.done.set()
+        with self._lock:
+            if self._entries.get(str(request_id)) is entry:
+                del self._entries[str(request_id)]
+
+    def _expire_locked(self, now):
+        while self._entries:
+            rid, entry = next(iter(self._entries.items()))
+            if now - entry.created <= self.ttl_s:
+                break
+            del self._entries[rid]
+
+    def stats(self):
+        with self._lock:
+            return {"entries": len(self._entries),
+                    "capacity": self.capacity, "ttl_s": self.ttl_s}
+
+
 class GenerationHandle(object):
     """One in-flight generation request against a :class:`DecodeEngine`.
 
     The scheduler thread emits tokens into the handle as each step
     completes; clients iterate :meth:`stream` or block on
     :meth:`result`. ``deadline`` (absolute ``time.monotonic``) and
-    :meth:`cancel` evict the request at the next step boundary."""
+    :meth:`cancel` evict the request at the next step boundary.
+    ``latency`` is submit-to-completion wall time.
 
-    def __init__(self, prompt, max_new_tokens, deadline=None):
+    ``tenant`` / ``priority`` are the QoS identity (validated upstream
+    by ``qos.validate_tenant`` / ``validate_priority``); ``session`` is
+    an opaque conversation id the engine never interprets; ``trace`` is
+    the request's flight-recorder row (an externally minted id, such as
+    a router's ``X-TFOS-Trace``, is adopted verbatim)."""
+
+    def __init__(self, prompt, max_new_tokens, deadline=None, trace=None,
+                 session=None, tenant=None, priority=None):
         self.prompt = list(prompt)
         self.max_new_tokens = max_new_tokens
         self.deadline = deadline
         self.submitted = time.monotonic()
         self.completed = None
+        self.tenant = tenant if tenant is not None else qos.DEFAULT_TENANT
+        self.priority = priority if priority is not None \
+            else qos.DEFAULT_PRIORITY
+        self.session = str(session) if session is not None else None
+        self.trace = int(trace) if trace is not None \
+            else tracing.next_trace_id()
         self._tokens = []
         self._q = queue_mod.Queue()
         self._done = threading.Event()
         self._error = None
         self._cancel_requested = False
+        # observability cursors (the scheduler thread writes)
         self._last_emit_at = None   # monotonic of the last emitted token
-        self._admitted = False      # first admission done (queue wait)
+        self._decode_t0 = None      # monotonic of prefill completion
+        self._preempt_at = None     # monotonic of the last eviction
+        # (name, t0, t1) lifecycle spans for critical-path attribution
+        # (slo.attribute_intervals) at finish
+        self._attr_spans = []
 
     # -- scheduler side --------------------------------------------------
 
@@ -238,6 +492,16 @@ class GenerationHandle(object):
             raise self._error
         return list(self.prompt) + list(self._tokens)
 
+    @property
+    def generated(self):
+        """Tokens emitted so far (complete once :meth:`result` returns)."""
+        return list(self._tokens)
+
+    @property
+    def latency(self):
+        return (self.completed - self.submitted) \
+            if self.completed is not None else None
+
 
 class DecodeEngine(object):
     """Continuous batching over a KV cache for a port ``DecoderLM``.
@@ -256,17 +520,48 @@ class DecodeEngine(object):
     0``. ``speculate_k`` (None, or >= 2) and ``draft_layers`` (default
     ``num_layers // 2``) turn on speculative rounds; ``tier`` is
     "prefill", "decode" or "mixed" (the default); ``replica_id`` names
-    the engine in shipments (default: unique in the process)."""
+    the engine in shipments, scrapes and chaos scoping (default: unique
+    in the process; a respawned engine keeps it).
+
+    Observability: ``counters`` / ``timers`` (``tracing.Counters`` /
+    ``StageTimers``), ``metrics`` (a ``tracing.MetricsRegistry``) and
+    ``flight`` (a ``tracing.FlightRecorder``; default the process-global
+    one) are shared when given — :meth:`respawn` passes its own, so one
+    series continues across a restart. ``qos_policy`` (a
+    ``qos.QosPolicy``, its kwargs dict, or None) sets per-tenant fair
+    share weights and token-rate quotas.
+
+    Request lifecycle: ``submit(..., deadline_s=T)`` sheds an infeasible
+    deadline at the door (:class:`Shed`, priced by
+    :meth:`estimate_admission`); an admitted request past its deadline,
+    or cancelled, is evicted at the next step boundary. :meth:`drain`
+    refuses new work and finishes the admitted; :meth:`respawn` builds a
+    fresh engine from this one's construction config. Counts: ``shed``,
+    ``cancelled``, ``deadline_exceeded``, ``preemptions``,
+    ``engine_restarts``."""
 
     def __init__(self, model, slots=8, total_len=None, buckets=None,
                  temperature=0.0, top_k=None, top_p=None, eos_token=None,
-                 generator=None, max_queue=1024, kv_block_size=None,
-                 kv_blocks=None, prefix_cache=True, attn_impl=None,
-                 kv_dtype=None, speculate_k=None, draft_layers=None,
-                 tier=None, replica_id=None, device=None):
+                 generator=None, counters=None, timers=None, max_queue=1024,
+                 metrics=None, flight=None, replica_id=None,
+                 kv_block_size=None, kv_blocks=None, prefix_cache=True,
+                 attn_impl=None, speculate_k=None, draft_layers=None,
+                 kv_dtype=None, tier=None, qos_policy=None, device=None):
         self.device = device_info.default_device(device)
         self.replica_id = str(replica_id) if replica_id is not None \
-            else "engine-{}".format(next(_ENGINE_IDS))
+            else "engine-{}-{}".format(os.getpid(), next(_ENGINE_IDS))
+        # construction config, verbatim, so respawn() can rebuild an
+        # identical engine after a scheduler death
+        self._spawn_args = dict(
+            model=model, slots=slots, total_len=total_len,
+            buckets=buckets, temperature=temperature, top_k=top_k,
+            top_p=top_p, eos_token=eos_token, generator=generator,
+            max_queue=max_queue, replica_id=self.replica_id,
+            kv_block_size=kv_block_size, kv_blocks=kv_blocks,
+            prefix_cache=prefix_cache, attn_impl=attn_impl,
+            speculate_k=speculate_k, draft_layers=draft_layers,
+            kv_dtype=kv_dtype, tier=tier, qos_policy=qos_policy,
+            device=device)
         if tier is None:
             tier = "mixed"
         if tier not in ("prefill", "decode", "mixed"):
@@ -298,18 +593,69 @@ class DecodeEngine(object):
         self._top_k = None if top_k is None else int(top_k)
         self._top_p = None if top_p is None else float(top_p)
         self._generator = generator
-        self.counters = tracing.Counters()
-        self.timers = tracing.StageTimers()
+        self.counters = counters if counters is not None \
+            else tracing.Counters()
+        self.timers = timers if timers is not None else tracing.StageTimers()
+        #: the engine's observability plane: one MetricsRegistry with its
+        #: counters, stage timers and latency histograms (GET /metrics
+        #: renders it; registration is idempotent, so a respawned engine
+        #: re-adds the same shared objects under the same names)
+        self.metrics = metrics if metrics is not None \
+            else tracing.MetricsRegistry()
+        self.metrics.add_counters("tfos_serving", self.counters)
+        self.metrics.add_timers("tfos_serving_stage", self.timers)
         #: latency distributions in seconds, written by the scheduler
-        #: thread; ``kv_ship_ms`` (milliseconds) by :meth:`note_ship`
-        self.histograms = {name: tracing.Histogram() for name in (
-            "ttft", "token", "decode_step", "queue_wait", "request",
-            "kv_ship_ms")}
+        #: thread (``kv_ship_ms``: milliseconds, by :meth:`note_ship`)
+        self.histograms = {name: self.metrics.histogram(family)
+                           for name, family in (
+                               ("ttft", "tfos_serving_ttft_seconds"),
+                               ("token",
+                                "tfos_serving_token_latency_seconds"),
+                               ("decode_step",
+                                "tfos_serving_decode_step_seconds"),
+                               ("queue_wait",
+                                "tfos_serving_queue_wait_seconds"),
+                               ("request", "tfos_serving_request_seconds"),
+                               ("drain", "tfos_serving_drain_seconds"))}
+        # per-request critical-path attribution: at finish the request's
+        # lifecycle spans are partitioned into stages
+        # (slo.attribute_intervals, sum-to-wall by construction), each
+        # stage's seconds into its own histogram
+        self._hist_attrib = {
+            stage: self.metrics.histogram(
+                "tfos_slo_attrib_{}_seconds".format(stage))
+            for stage in _ATTRIB_STAGES}
+        #: per-request span timeline (admit, queue, prefill, decode,
+        #: preempt, finish/evict/shed); GET /debug/trace renders it
+        self.flight = flight if flight is not None \
+            else tracing.flight_recorder()
+        tracing.expose_flight_drops(self.metrics, self.flight)
         #: shipped-KV accounting: PHYSICAL bytes (pool rows as stored)
         #: and blocks, written by handler threads and the scheduler, so
         #: only under ``_cv`` (:meth:`note_ship`, :meth:`_kv_import`)
-        self.kv_counters = tracing.Counters()
+        self.kv_counters = self.metrics.add_counters(
+            "tfos_kv", tracing.Counters())
+        self.histograms["kv_ship_ms"] = self.metrics.histogram(
+            "tfos_kv_ship_ms")
         self._splice_failures = {}  # reason -> count, under _cv
+        # -- the QoS plane -------------------------------------------
+        self.qos_policy = qos.QosPolicy.from_spec(qos_policy)
+        # weighted-fair admission with strict classes; scheduler-thread
+        # private (select/charge run only inside the admission scan)
+        self._qos_sched = qos.FairScheduler(self.qos_policy)
+        # post-paid per-tenant token buckets: the scheduler charges
+        # deliveries, handler threads check admission (own lock)
+        self._quota = qos.QuotaTable(self.qos_policy)
+        # tenant-labeled tallies behind the tfos_qos_* families; all
+        # mutate under _cv
+        self._qos_admitted = {}          # (tenant, class) -> requests
+        self._qos_preemptions = {}       # (tenant, class) -> evictions
+        self._qos_tokens = {}            # tenant -> generated tokens
+        self._qos_quota_rejections = {}  # tenant -> refusals
+        self._hist_qwait_class = {
+            name: self.metrics.histogram(
+                "tfos_qos_queue_wait_{}_seconds".format(name))
+            for name in qos.PRIORITIES}
         if kv_block_size is None:
             kv_block_size = next(b for b in range(16, 0, -1)
                                  if total_len % b == 0)
@@ -404,7 +750,22 @@ class DecodeEngine(object):
         self._kv_jobs = collections.deque()
         self._cv = threading.Condition()
         self._stopping = False
+        self._draining = False
         self._broken = None
+        self._failed_requests = 0  # admitted-but-failed ledger (drain)
+        #: cumulative requests submitted (the
+        #: kill_serving_executor_at_request chaos count)
+        self._requests_seen = 0
+        # admission-control evidence: EWMAs of this engine's own decode
+        # step and prefill wall times (the scheduler writes, submit
+        # reads under _cv); None until the first sample, so a cold
+        # engine never sheds
+        self._step_ewma = None
+        self._prefill_ewma = None
+        # tokens emitted per round per active slot under speculation
+        # (the divisor that prices a round's tokens); None until the
+        # first round
+        self._tokens_round_ewma = None
         self._qwait_ewma = None
         self._ewma_alpha = 0.3
         self._slot_req = [None] * self.slots
@@ -424,6 +785,14 @@ class DecodeEngine(object):
             # published to the prefix registry
             self._slot_registered = [0] * self.slots
         self._publish_kv_gauges()
+        if self._paged:
+            # one hook per registry, reading whichever engine registered
+            # last: a respawned engine shares the registry and takes over
+            if getattr(self.metrics, "_digest_engine", None) is None:
+                registry = self.metrics
+                registry.add_hook(
+                    lambda: registry._digest_engine._publish_digest_gauges())
+            self.metrics._digest_engine = self
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="tfos-torch-decode-engine")
         self._thread.start()
@@ -458,22 +827,100 @@ class DecodeEngine(object):
                     "{} (kv_blocks)".format(need, self.kv_blocks))
         return prompt, max_new
 
-    def submit(self, prompt, max_new_tokens, deadline_s=None):
+    def submit(self, prompt, max_new_tokens, deadline_s=None, session=None,
+               tenant=None, priority=None):
         """Queue one request; returns its :class:`GenerationHandle`.
-        ``deadline_s`` (seconds from now) evicts the request at the
-        first step boundary past it."""
+        ``deadline_s`` (seconds from now) sheds the request at the door
+        when it is infeasible under the engine's measured rates
+        (:class:`Shed`) and evicts it at the first step boundary past
+        it. ``session``: an opaque conversation id on the handle.
+        ``tenant`` / ``priority``: the QoS identity (omitted: the
+        ``default`` tenant at ``normal``); a malformed value raises
+        ``ValueError``, a tenant whose bucket is in debt
+        ``qos.QuotaExceeded``."""
         return self._submit_many([self.validate(prompt, max_new_tokens)],
-                                 deadline_s=deadline_s)[0]
+                                 deadline_s=deadline_s, session=session,
+                                 tenant=tenant, priority=priority)[0]
 
-    def _submit_many(self, vetted, deadline_s=None):
+    def estimate_admission(self, max_new_tokens, prompt=None):
+        """``{"queue_wait_s", "service_s"}``: what admitting a request of
+        ``max_new_tokens`` now would cost, from the engine's own EWMAs
+        of decode-step and prefill wall times. Queued requests each owe
+        one serial prefill; the token backlog (queued ``max_new`` plus
+        what active slots still owe) drains at ``slots`` tokens a step;
+        ``service_s`` is the request's own prefill plus ``max_new``
+        steps (a speculative engine's step divided by its tokens per
+        round). ``prompt`` lets a paged engine price block pressure:
+        when the pool cannot supply its prefill blocks now, the wait is
+        floored at the earliest possible release. Zeros until the engine
+        has served anything."""
+        with self._cv:
+            return self._estimate_locked(int(max_new_tokens),
+                                         prompt=prompt)
+
+    def _estimate_locked(self, max_new, extra_requests=0, extra_tokens=0,
+                         prompt=None, extra_blocks=0):
+        """``extra_*``: work ahead of this request that is not queued
+        yet — the earlier members of the same body during whole-body
+        shed vetting (member k waits behind members 0..k-1)."""
+        step = self._step_ewma or 0.0
+        prefill = self._prefill_ewma or 0.0
+        tpr = max(self._tokens_round_ewma or 1.0, 1.0)
+        step = step / tpr
+        backlog = extra_tokens + sum(h.max_new_tokens for h in self._queue)
+        remaining = []
+        for s in range(self.slots):
+            handle = self._slot_req[s]
+            if handle is not None:
+                owed = max(handle.max_new_tokens - len(handle._tokens), 0)
+                backlog += owed
+                remaining.append(owed)
+        wait = (len(self._queue) + extra_requests) * prefill \
+            + backlog * step / self.slots
+        if self._paged and prompt is not None and step:
+            # one atomic pool snapshot: a torn plan/capacity read would
+            # double-count the deficit (spurious shed) or mask it
+            _, need, lru_shared, allocatable, _ = \
+                self._pool.plan_admission(prompt)
+            deficit = need + lru_shared + extra_blocks - allocatable
+            if deficit > 0 and remaining:
+                wait = max(wait, min(remaining) * step)
+        return {"queue_wait_s": wait,
+                "service_s": prefill + max_new * step}
+
+    def _submit_many(self, vetted, deadline_s=None, trace=None,
+                     session=None, tenant=None, priority=None):
         """Atomically queue a whole vetted body: every request is queued
-        or none is. ``max_new == 0`` requests complete inline."""
+        or none is (QueueFull, QuotaExceeded, Shed, draining, stopped and
+        broken raise before any handle exists). ``max_new == 0``
+        requests complete inline. ``trace`` adopts an external trace id
+        for every handle of the body; ``tenant`` / ``priority`` are one
+        identity for the whole body."""
         if deadline_s is not None:
             deadline_s = float(deadline_s)
             if not deadline_s > 0:
                 raise ValueError(
                     "deadline_s must be > 0, got {}".format(deadline_s))
+        tenant = qos.validate_tenant(tenant)
+        priority = qos.validate_priority(priority)
+        # the quota gate: post-paid, so this check never charges
+        # (usage is charged at delivery); QuotaTable has its own lock
+        try:
+            self._quota.admit(tenant)
+        except qos.QuotaExceeded:
+            self.note_quota_rejection(tenant, requests=len(vetted))
+            raise
         with self._cv:
+            # the chaos site counts under _cv (handlers submit in
+            # parallel) and BEFORE admission
+            self._requests_seen += len(vetted)
+            chaos.on_serving_request(self._requests_seen,
+                                     ident=self.replica_id)
+            # draining outranks stopped: a drained engine ends with both
+            # set, and a racer must still get the retriable 503
+            if self._draining:
+                raise Draining(
+                    "engine is draining; not accepting new requests")
             if self._stopping:
                 raise RuntimeError("engine stopped")
             if self._broken is not None:
@@ -484,13 +931,52 @@ class DecodeEngine(object):
                 raise QueueFull(
                     "admission queue full ({} waiting, max_queue {})"
                     .format(len(self._queue), self.max_queue))
+            if deadline_s is not None:
+                # shed the WHOLE body if any member is infeasible,
+                # members priced cumulatively (member k queues behind
+                # 0..k-1); max_new == 0 members never queue
+                ahead_requests = ahead_tokens = ahead_blocks = 0
+                for prompt, max_new in vetted:
+                    if max_new == 0:
+                        continue
+                    est = self._estimate_locked(
+                        max_new, extra_requests=ahead_requests,
+                        extra_tokens=ahead_tokens, prompt=prompt,
+                        extra_blocks=ahead_blocks)
+                    need = est["queue_wait_s"] + est["service_s"]
+                    if need > deadline_s:
+                        self.counters.inc("shed", len(vetted))
+                        self.flight.instant(
+                            "shed", requests=len(vetted),
+                            deadline_s=deadline_s,
+                            queue_wait_s=round(est["queue_wait_s"], 3),
+                            service_s=round(est["service_s"], 3))
+                        raise Shed(
+                            "deadline {:.2f}s infeasible: estimated "
+                            "queue wait {:.2f}s + service {:.2f}s"
+                            .format(deadline_s, est["queue_wait_s"],
+                                    est["service_s"]),
+                            retry_after=math.ceil(est["queue_wait_s"]))
+                    ahead_requests += 1
+                    ahead_tokens += max_new
+                    if self._paged:
+                        ahead_blocks += self._pool.blocks_for(len(prompt))
             deadline = None if deadline_s is None \
                 else time.monotonic() + deadline_s
             handles = []
             for prompt, max_new in vetted:
-                handle = GenerationHandle(prompt, max_new, deadline=deadline)
+                handle = GenerationHandle(prompt, max_new, deadline=deadline,
+                                          trace=trace, session=session,
+                                          tenant=tenant, priority=priority)
+                self.flight.instant("admit", trace=handle.trace,
+                                    prompt_len=len(prompt), max_new=max_new,
+                                    deadline_s=deadline_s,
+                                    session=handle.session or "",
+                                    tenant=tenant, priority=priority)
                 if max_new == 0:
                     handle._finish()
+                    self._trace_finish(handle, "finish",
+                                       record_latency=False)
                 else:
                     self._queue.append(handle)
                 handles.append(handle)
@@ -504,20 +990,25 @@ class DecodeEngine(object):
         return self.submit(prompt, max_new_tokens).result(timeout)
 
     def healthy(self):
-        """{alive, scheduler_thread, stopping, broken}: ``alive`` is
-        False once the scheduler died or the engine was stopped."""
+        """``{alive, scheduler_thread, stopping, draining, broken}``:
+        ``alive`` is False once the scheduler died or the engine was
+        stopped; a draining engine is still alive (it finishes its
+        admitted work) but refuses new requests."""
         with self._cv:
             broken = self._broken
             stopping = self._stopping
+            draining = self._draining
         thread_alive = self._thread.is_alive()
         return {"alive": thread_alive and not stopping and broken is None,
                 "scheduler_thread": thread_alive,
                 "stopping": stopping,
+                "draining": draining,
                 "broken": str(broken) if broken is not None else None}
 
     def load_stats(self):
-        """Live load gauges: queue depth, slot occupancy, queue-wait
-        EWMA, pool headroom and prefix-cache hit rate, the engine's
+        """Live load gauges: queue depth (also by priority class), slot
+        occupancy, queue-wait EWMA, per-tenant backlog and usage, pool
+        headroom, prefix-cache hit rate and digest, the engine's
         attention, KV, speculation and tier configuration, the live
         acceptance rate and the shipped-KV bytes (physical: pool rows
         as stored). A contiguous engine reports the zero schema."""
@@ -525,11 +1016,25 @@ class DecodeEngine(object):
             queue_depth = len(self._queue)
             occupancy = len(self._active_slots())
             qwait = self._qwait_ewma
+            queue_by_class = dict.fromkeys(qos.PRIORITIES, 0)
+            tenant_queued = {}
+            for h in self._queue:
+                queue_by_class[h.priority] = \
+                    queue_by_class.get(h.priority, 0) + 1
+                tenant_queued[h.tenant] = tenant_queued.get(h.tenant, 0) + 1
+            tenant_active = {}
+            for s in self._active_slots():
+                handle = self._slot_req[s]
+                if handle is not None:
+                    tenant_active[handle.tenant] = \
+                        tenant_active.get(handle.tenant, 0) + 1
+            qos_tokens = dict(self._qos_tokens)
             kv = {"kv_ship_bytes": self.kv_counters.get("ship_bytes"),
                   "kv_ship_blocks": self.kv_counters.get("ship_blocks"),
                   "kv_spliced_bytes": self.kv_counters.get("spliced_bytes"),
                   "kv_spliced_blocks":
                   self.kv_counters.get("spliced_blocks")}
+        health = self.healthy()
         proposed = self.counters.get("spec_proposed")
         stats = {"device": str(self.device),
                  "replica_id": self.replica_id,
@@ -539,7 +1044,14 @@ class DecodeEngine(object):
                  "slots": self.slots,
                  "queue_wait_ewma_s": round(qwait, 6)
                  if qwait is not None else 0.0,
-                 "alive": self.healthy()["alive"],
+                 "alive": health["alive"],
+                 "draining": health["draining"],
+                 "queue_by_class": queue_by_class,
+                 "tenants": {t: {"queued": tenant_queued.get(t, 0),
+                                 "active": tenant_active.get(t, 0),
+                                 "tokens": qos_tokens.get(t, 0)}
+                             for t in set(tenant_queued)
+                             | set(tenant_active) | set(qos_tokens)},
                  "attn_impl": self.attn_impl,
                  "kv_dtype": self.kv_dtype,
                  "speculate_k": self._spec_k,
@@ -550,28 +1062,127 @@ class DecodeEngine(object):
         stats.update(kv)
         if self._paged:
             ps = self._pool.stats()
+            dig = self._pool.prefix_digest()
             stats.update({
                 "kv_blocks_total": ps["total"],
                 "kv_blocks_free": ps["free"],
                 "prefix_hit_rate": round(ps["hit_rate"], 4),
                 "generated_prefix_hit_blocks": ps["generated_hits"],
-                "generated_prefix_registered": ps["generated_registered"]})
+                "generated_prefix_registered": ps["generated_registered"],
+                "prefix_digest": dig["top"],
+                "prefix_digest_block_size": dig["block_size"],
+                "digest_truncated": dig["truncated"]})
         else:
             stats.update({"kv_blocks_total": 0, "kv_blocks_free": 0,
                           "prefix_hit_rate": 0.0,
                           "generated_prefix_hit_blocks": 0,
-                          "generated_prefix_registered": 0})
+                          "generated_prefix_registered": 0,
+                          "prefix_digest": [],
+                          "prefix_digest_block_size": 0,
+                          "digest_truncated": False})
         return stats
+
+    def _caches(self):
+        return [self._cache] + ([self._draft_cache] if self._spec_k else [])
+
+    def kv_cache_bytes(self):
+        """Resident KV-cache bytes: the block pools (scratch row and an
+        int8 pool's scales included) or the contiguous per-slot
+        regions, plus the draft's pool when speculating."""
+        return sum(t.numel() * t.element_size()
+                   for cache in self._caches() for layer in cache
+                   for name, t in layer.items()
+                   if name in ("cached_key", "cached_value", "key_scale",
+                               "value_scale"))
+
+    def _time_calls(self, stage, fn, reps):
+        """One unmeasured warm call, then ``reps`` timed calls of
+        ``fn`` recorded as ``stage`` samples in ``timers`` (CUDA events
+        on the card, the host clock on the CPU). Returns the stage's
+        mean ms over every sample recorded so far."""
+        cuda = self.device.type == "cuda"
+        fn()
+        for _ in range(max(1, int(reps))):
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                self.timers.add(stage, start.elapsed_time(end) / 1e3)
+            else:
+                t0 = time.perf_counter()
+                fn()
+                self.timers.add(stage, time.perf_counter() - t0)
+        return self.timers.per_ms().get(stage)
+
+    def measure_attn(self, reps=3, depth=None):
+        """Time ONE decode-shaped call of this engine's attention (the
+        paged kernel on the card under ``attn_impl="fused"``, the plain
+        gather under ``"gather"``) at the live pool's shapes, every slot
+        ``depth`` tokens deep (default ``total_len // 2``; stated, not
+        read from the cursors, since an idle engine's slots park at 0),
+        one layer's pools. Records ``attn`` samples in ``timers``:
+        ``reps`` timed calls after one unmeasured warm call, so the
+        kernel's route counts rise by exactly ``reps + 1``. Returns the
+        stage's mean ms, or None on a contiguous engine. Call while the
+        engine is idle (it reads the live pool)."""
+        if not self._paged:
+            return None
+        from tensorflowonspark_tpu_torch.ops import paged_attention as pa
+
+        layer = self._cache[0]
+        kp, vp = layer["cached_key"], layer["cached_value"]
+        ks, vs = layer.get("key_scale"), layer.get("value_scale")
+        n, d = kp.shape[2], kp.shape[3]
+        depth = int(depth) if depth is not None else self.total_len // 2
+        depth = max(1, min(depth, self.total_len))
+        bps = self._blocks_per_slot
+        tables = torch.as_tensor(
+            (np.arange(self.slots)[:, None] * bps
+             + np.arange(bps)[None, :]) % self.kv_blocks + 1,
+            dtype=torch.int32, device=self.device)
+        q = torch.zeros((self.slots, 1, n, d), dtype=torch.float32,
+                        device=self.device)
+        pos = torch.full((self.slots, 1), depth - 1, dtype=torch.int32,
+                         device=self.device)
+        impl = "gather" if self.attn_impl == "gather" else None
+        with torch.no_grad():
+            return self._time_calls(
+                "attn", lambda: pa.paged_attention(
+                    q, kp, vp, tables, pos, impl=impl, k_scale=ks,
+                    v_scale=vs), reps)
+
+    def measure_dequant(self, reps=3):
+        """Time ONE whole-pool dequantize (codes x scales, K and V) at
+        the live int8 pool's shapes, one layer, recorded as ``dequant``
+        samples in ``timers`` — the worst case of what the int8 path
+        adds to a step (the kernel dequantizes only live blocks, in
+        registers). Returns the stage's mean ms, or None on an engine
+        that does not store int8."""
+        if not self._paged or self.kv_dtype != "int8":
+            return None
+        from tensorflowonspark_tpu_torch.ops import paged_attention as pa
+
+        layer = self._cache[0]
+        with torch.no_grad():
+            return self._time_calls(
+                "dequant", lambda: (
+                    pa.dequantize_kv(layer["cached_key"],
+                                     layer["key_scale"]),
+                    pa.dequantize_kv(layer["cached_value"],
+                                     layer["value_scale"])), reps)
 
     def measure_spec(self, reps=3, depth=None):
         """Time a speculative round's two halves apart — the draft's
         ``k`` one-token steps and the target's ``k``-query verify — at
         the engine's pool shapes with every slot ``depth`` tokens deep
         (default ``total_len // 2``), on copies of the pools (both
-        halves write in place). CUDA events on the card, the host clock
-        on the CPU. Records ``draft`` and ``verify`` samples in
-        ``timers``; returns ``{"draft": ms, "verify": ms}`` (means), or
-        None on an engine that does not speculate."""
+        halves write in place), each as :meth:`_time_calls` times it.
+        Records ``draft`` and ``verify`` samples in ``timers``; returns
+        ``{"draft": ms, "verify": ms}`` (each stage's mean), or None on
+        an engine that does not speculate."""
         if not self._spec_k:
             return None
         k = self._spec_k
@@ -597,31 +1208,84 @@ class DecodeEngine(object):
         gen = None
         if self._temperature:
             gen = torch.Generator(device=dev).manual_seed(0)
-        halves = (("draft", lambda: propose(draft_cache, last, idx, tables,
-                                            gen)),
-                  ("verify", lambda: verify(cache, feed, idx, tables,
-                                            gen)))
-        cuda = dev.type == "cuda"
-        ms = {"draft": [], "verify": []}
         with torch.no_grad():
-            for _, fn in halves:
-                fn()  # warm
-            for _ in range(max(1, int(reps))):
-                for name, fn in halves:
-                    if cuda:
-                        start = torch.cuda.Event(enable_timing=True)
-                        end = torch.cuda.Event(enable_timing=True)
-                        start.record()
-                        fn()
-                        end.record()
-                        end.synchronize()
-                        ms[name].append(start.elapsed_time(end))
-                    else:
-                        t0 = time.perf_counter()
-                        fn()
-                        ms[name].append((time.perf_counter() - t0) * 1e3)
-                    self.timers.add(name, ms[name][-1] / 1e3)
-        return {name: sum(v) / len(v) for name, v in ms.items()}
+            return {"draft": self._time_calls(
+                        "draft", lambda: propose(draft_cache, last, idx,
+                                                 tables, gen), reps),
+                    "verify": self._time_calls(
+                        "verify", lambda: verify(cache, feed, idx, tables,
+                                                 gen), reps)}
+
+    def outstanding(self):
+        """Queued + in-flight request count (the number drain waits on)."""
+        with self._cv:
+            return len(self._queue) + len(self._active_slots())
+
+    def drain(self, timeout=None):
+        """Graceful shutdown: refuse new submissions (:class:`Draining`),
+        finish every ADMITTED request — queued and in-flight — then stop
+        the scheduler. Returns True when nothing admitted was lost;
+        False when ``timeout`` (seconds) expired first or the engine
+        broke mid-drain (the stragglers fail with the stop or break
+        error), and False on an engine that already stopped with
+        requests in flight. ``timeout=None`` waits as long as the work
+        takes."""
+        t_drain0 = time.monotonic()
+        with self._cv:
+            if self._stopping:
+                return self.outstanding() == 0 \
+                    and self._failed_requests == 0
+            if not self._draining:
+                self._draining = True
+                logger.info(
+                    "decode engine draining: %d queued, %d in flight",
+                    len(self._queue), len(self._active_slots()))
+            failed_before = self._failed_requests
+        deadline = None if timeout is None \
+            else time.monotonic() + float(timeout)
+        while True:
+            with self._cv:
+                left = len(self._queue) + len(self._active_slots())
+                dead = self._broken is not None \
+                    or not self._thread.is_alive()
+            if left == 0 or dead:
+                break
+            if deadline is not None and time.monotonic() > deadline:
+                logger.warning(
+                    "drain timed out with %d request(s) outstanding; "
+                    "they will fail with the stop error", left)
+                break
+            time.sleep(0.02)
+        self.stop()
+        self.histograms["drain"].observe(time.monotonic() - t_drain0)
+        self.flight.instant("drain", outstanding=left)
+        # a loop death mid-drain fails-and-clears the outstanding work,
+        # so left == 0 alone would misreport a loss as a clean drain
+        return left == 0 and self._failed_requests == failed_before
+
+    def respawn(self):
+        """A fresh engine from this engine's construction config,
+        SHARING its counters, timers, metrics registry and flight
+        recorder, so lifecycle counts (``engine_restarts``, tokens,
+        shed and cancel tallies) and latency histograms continue across
+        the restart as one series. Counts one ``engine_restarts``. Call
+        :meth:`stop` on the dead engine first."""
+        self.counters.inc("engine_restarts")
+        return DecodeEngine(counters=self.counters, timers=self.timers,
+                            metrics=self.metrics, flight=self.flight,
+                            **self._spawn_args)
+
+    def compile_stats(self):
+        """The reference's compile-bound report in its degraded form:
+        ``decode_programs`` / ``prefill_programs`` (and
+        ``spec_round_programs`` on a speculative engine) are None —
+        eager PyTorch keeps no program cache to count — and ``buckets``
+        is the prefill bucket count."""
+        stats = {"decode_programs": None, "prefill_programs": None,
+                 "buckets": len(self.buckets)}
+        if self._spec_k:
+            stats["spec_round_programs"] = None
+        return stats
 
     def stop(self):
         """Stop the scheduler; queued and in-flight requests fail with
@@ -648,11 +1312,63 @@ class DecodeEngine(object):
         return [s for s in range(self.slots)
                 if self._slot_req[s] is not None]
 
+    def _ewma(self, prev, sample):
+        return sample if prev is None \
+            else self._ewma_alpha * sample \
+            + (1.0 - self._ewma_alpha) * prev
+
+    def _trace_finish(self, handle, outcome, error=None,
+                      record_latency=True):
+        """Close a request's span tree: the decode span (prefill end ->
+        last activity) when it decoded, the outer request span (admit ->
+        done) and a terminal instant named for the outcome. The request
+        histogram and the attribution observe NORMAL engine-served
+        completions only (``record_latency=False`` keeps inline
+        ``max_new == 0`` finishes out: they do no engine work and
+        complete on the caller's thread)."""
+        now = handle.completed if handle.completed is not None \
+            else time.monotonic()
+        # a request evicted between preemption and re-admission never
+        # resumed decoding: its decode-so-far span was closed by
+        # _preempt, and a new one would bill the evicted gap as decode
+        resumed = (handle._preempt_at is None
+                   or (handle._decode_t0 is not None
+                       and handle._decode_t0 > handle._preempt_at))
+        if handle._decode_t0 is not None and resumed:
+            self.flight.span("decode", handle._decode_t0, now,
+                             trace=handle.trace,
+                             tokens=len(handle._tokens))
+            handle._attr_spans.append(("decode", handle._decode_t0, now))
+        self.flight.span("request", handle.submitted, now,
+                         trace=handle.trace, outcome=outcome,
+                         tokens=len(handle._tokens),
+                         error=None if error is None else str(error))
+        self.flight.instant(outcome, trace=handle.trace)
+        if outcome == "finish" and record_latency:
+            self.histograms["request"].observe(now - handle.submitted,
+                                               trace=handle.trace)
+            self._observe_attribution(handle, now)
+
+    def _observe_attribution(self, handle, now):
+        """Partition the finished request's wall into named stages and
+        feed the per-stage attribution histograms (scheduler thread
+        only, like every engine histogram)."""
+        intervals = list(handle._attr_spans)
+        intervals.append(("request", handle.submitted, now))
+        report = slo.attribute_intervals(intervals)
+        for stage, hist in self._hist_attrib.items():
+            seconds = report["stages"].get(stage)
+            if seconds:
+                hist.observe(seconds, trace=handle.trace)
+
     def _evict(self, handle, err):
         handle._finish(err)
         self.counters.inc("deadline_exceeded"
                           if isinstance(err, DeadlineExceeded)
                           else "cancelled")
+        self._trace_finish(handle, "evict", error=err)
+        logger.info("evicted request after %d/%d tokens: %s",
+                    len(handle._tokens), handle.max_new_tokens, err)
 
     def _prune_queue_locked(self, now):
         """Drop cancelled/expired requests from the admission queue
@@ -679,33 +1395,83 @@ class DecodeEngine(object):
                 self._release_slot(s)
 
     def _plan_admission_locked(self):
-        """Block-gated FIFO admission (caller holds ``_cv``): the queue
-        head enters a free slot only when its prefill blocks are
-        obtainable now, judged from one ``plan_admission`` snapshot;
-        there is no bypass past a block-starved head. While the head
-        waits, an unchanged pool epoch means the old verdict stands. A
-        contiguous engine gates on slots alone."""
+        """Weighted-fair admission plan (caller holds ``_cv``, at a step
+        boundary); returns ``(admits, victims)``.
+
+        Queue entries group into per-(tenant, class) FIFO buckets and
+        ``qos.FairScheduler`` picks each admission: strict priority
+        classes first, the largest deficit within the strongest class,
+        so a starved tenant catches up while ``_queue`` stays the one
+        source of truth for drain, eviction and estimates. One tenant at
+        one class is the plain FIFO scan (one bucket, heads in queue
+        order).
+
+        Block gating is unchanged: the winner enters a slot only when
+        its prefill blocks are obtainable now, judged from one
+        ``plan_admission`` snapshot, with no bypass past a block-starved
+        winner; an unchanged pool epoch means the old verdict stands.
+        Fairness is charged in what gates entry: KV blocks on a paged
+        engine (at least 1), slots otherwise.
+
+        ``victims``: slot ids to preempt after ``_cv`` is released
+        (``_preempt`` re-acquires it). While a strictly stronger class
+        waits — for a slot or for blocks — the weakest-class youngest
+        active slot yields, at most one per scan; the continuation
+        re-prefills prompt + emitted tokens (token-identical at
+        temperature 0). A contiguous engine never preempts."""
         admits = []
+        if not self._queue:
+            return admits, []
         free = [s for s in range(self.slots) if self._slot_req[s] is None]
         planned_blocks = 0
-        while free and self._queue:
-            head = self._queue[0]
+        block_starved = False
+        buckets = collections.OrderedDict()
+        for h in self._queue:
+            buckets.setdefault((h.tenant, h.priority), []).append(h)
+        backlogged = {t for t, _ in buckets}
+        while free and buckets:
+            keys = list(buckets)
+            winner = keys[self._qos_sched.select(keys)]
+            head = buckets[winner][0]
+            cost = 1.0
             if self._paged:
                 if self._head_block_memo == (head, self._pool.epoch()):
+                    block_starved = True
                     break
                 _, need, lru_shared, allocatable, epoch = \
                     self._pool.plan_admission(head.prompt + head._tokens)
                 if need + lru_shared + planned_blocks > allocatable:
                     self._head_block_memo = (head, epoch)
+                    block_starved = True
                     break
                 self._head_block_memo = None
                 planned_blocks += need + lru_shared
+                cost = float(max(1, need + lru_shared))
             s = free.pop(0)
-            self._queue.popleft()
-            # occupy the slot at pop time, so the failure paths find it
+            # occupy the slot at pop time, so the failure paths find it;
+            # deque.remove matches by identity (handles define no __eq__)
+            self._queue.remove(head)
+            buckets[winner].pop(0)
+            if not buckets[winner]:
+                del buckets[winner]
             self._slot_req[s] = head
             admits.append((s, head))
-        return admits
+            self._qos_sched.charge(winner[0], cost, backlogged=backlogged)
+            self._qos_admitted[winner] = \
+                self._qos_admitted.get(winner, 0) + 1
+        victims = []
+        if buckets and self._paged and (block_starved or not free):
+            waiting = min(qos.priority_rank(p) for _, p in buckets)
+            admitted = {s for s, _ in admits}
+            cands = [s for s in self._active_slots()
+                     if s not in admitted
+                     and qos.priority_rank(self._slot_req[s].priority)
+                     > waiting]
+            if cands:
+                victims.append(max(cands, key=lambda v: (
+                    qos.priority_rank(self._slot_req[v].priority),
+                    self._slot_seq[v])))
+        return admits, victims
 
     def _loop(self):
         ctx = torch.cuda.device(self.device) \
@@ -721,6 +1487,7 @@ class DecodeEngine(object):
                     EngineFailed("decode engine failed: {}".format(e)))
 
     def _run(self):
+        steps = 0
         while True:
             with self._cv:
                 while (not self._stopping and not self._queue
@@ -736,8 +1503,15 @@ class DecodeEngine(object):
                 kv_jobs = list(self._kv_jobs)
                 self._kv_jobs.clear()
                 self._prune_queue_locked(time.monotonic())
-                admits = self._plan_admission_locked()
+                with self.timers.timed("qos_plan"):
+                    admits, victims = self._plan_admission_locked()
                 self.counters.gauge("queue_depth", len(self._queue))
+            # class preemption outside the lock (_preempt re-acquires
+            # _cv): the freed slot and blocks admit the waiting stronger
+            # class at the next scan, one step later
+            for s in victims:
+                if self._slot_req[s] is not None:
+                    self._preempt(s)
             for job in kv_jobs:
                 self._run_kv_job(job)
             # prefill outside the lock: submit() never waits on the card
@@ -750,6 +1524,9 @@ class DecodeEngine(object):
             self.counters.gauge("slot_occupancy", len(active))
             if not active:
                 continue
+            # serving chaos sites: a stall or a scheduler kill lands
+            # here, between steps (replica_id scopes only=<replica>)
+            chaos.on_decode_step(steps, self.replica_id)
             t0 = time.monotonic()
             if self._spec_k:
                 with self.timers.timed("spec_round"):
@@ -779,7 +1556,14 @@ class DecodeEngine(object):
                             top_k=self._top_k, top_p=self._top_p,
                             generator=self._generator)
                     toks = toks.cpu().numpy()  # the per-step host sync
-            self.histograms["decode_step"].observe(time.monotonic() - t0)
+            t1 = time.monotonic()
+            self._step_ewma = self._ewma(self._step_ewma, t1 - t0)
+            self.histograms["decode_step"].observe(t1 - t0)
+            # engine-row span (tid 0): the step this round's tokens
+            # came from
+            self.flight.span("decode_step", t0, t1, active=len(active),
+                             step=steps)
+            steps += 1
             self.counters.inc("decode_steps")
             with self.timers.timed("host_schedule"):
                 if self._spec_k:
@@ -828,6 +1612,9 @@ class DecodeEngine(object):
                 self._idx[s] += 1
                 self._deliver(s, int(tok))
                 delivered += 1
+        if active:
+            self._tokens_round_ewma = self._ewma(
+                self._tokens_round_ewma, delivered / len(active))
         return delivered
 
     def _fail_outstanding(self, err):
@@ -847,6 +1634,11 @@ class DecodeEngine(object):
         self._kv_jobs.clear()
         for handle in failed:
             handle._finish(err)
+            self.flight.instant("failed", trace=handle.trace,
+                                error=str(err))
+        # the loss ledger drain() reads: these requests were ADMITTED
+        # and did not finish
+        self._failed_requests += len(failed)
         self.counters.gauge("queue_depth", 0)
         self.counters.gauge("slot_occupancy", 0)
 
@@ -857,7 +1649,8 @@ class DecodeEngine(object):
         contiguous engine."""
         if not self._paged:
             for gauge in ("kv_blocks_total", "kv_blocks_free",
-                          "kv_blocks_cached"):
+                          "kv_blocks_cached", "prefix_digest_chains",
+                          "prefix_digest_truncated"):
                 self.counters.gauge(gauge, 0)
             return
         stats = self._pool.stats()
@@ -874,6 +1667,17 @@ class DecodeEngine(object):
             if delta > 0:
                 self.counters.inc(counter, delta)
                 self._last_tallies[tally] = stats[tally]
+
+    def _publish_digest_gauges(self):
+        """The prefix digest's gauges (chains published, truncation).
+        The digest sorts every registered chain (milliseconds of host
+        time at a full pool), so a snapshot hook computes it when the
+        registry is read — a scrape — instead of on every pool change
+        of every step."""
+        dig = self._pool.prefix_digest()
+        self.counters.gauge("prefix_digest_chains", len(dig["top"]))
+        self.counters.gauge("prefix_digest_truncated",
+                            1 if dig["truncated"] else 0)
 
     def _release_slot(self, slot):
         """Return a freed slot's blocks to the pool and park its table
@@ -983,6 +1787,7 @@ class DecodeEngine(object):
         if not chain:
             return None
         ids = [bid for bid, _ in chain]
+        t0 = time.monotonic()
         try:
             with self.timers.timed("kv_pack"):
                 rows = generation.gather_block_rows(self._cache, ids)
@@ -995,7 +1800,10 @@ class DecodeEngine(object):
                 "origins": [origin for _, origin in chain],
                 "src_replica": self.replica_id,
                 "src_epoch": src_epoch}
-        return kvship.pack(meta, rows), meta
+        buffers = kvship.pack(meta, rows)
+        self.flight.span("kv.pack", t0, time.monotonic(), blocks=len(ids),
+                         bytes=frames.frame_bytes(buffers))
+        return buffers, meta
 
     def _kv_import(self, meta, rows):
         if not self._paged:
@@ -1026,6 +1834,7 @@ class DecodeEngine(object):
                     .format(key, arr.shape[0] if arr.ndim else 0, n))
         origins = list(meta.get("origins") or ())
         origins += ["prompt"] * (n - len(origins))
+        t0 = time.monotonic()
         # resident-chain dedupe: whatever prefix of the chain the pool
         # holds already (an earlier delivery, or local traffic) is
         # skipped, so a second splice never double-allocates
@@ -1058,6 +1867,8 @@ class DecodeEngine(object):
         self._pool.release(ids)
         self._publish_kv_gauges()
         n_bytes = sum(int(arr.nbytes) for _, arr in novel)
+        self.flight.span("kv.splice", t0, time.monotonic(),
+                         blocks=len(ids), bytes=n_bytes)
         with self._cv:
             self.kv_counters.inc("spliced_blocks", len(ids))
             self.kv_counters.inc("spliced_bytes", n_bytes)
@@ -1084,18 +1895,51 @@ class DecodeEngine(object):
         with self._cv:
             return dict(self._splice_failures)
 
+    def note_quota_rejection(self, tenant, requests=1):
+        """Count quota refusals (429 QuotaExceeded); handler threads
+        write, so under ``_cv``."""
+        with self._cv:
+            self._qos_quota_rejections[tenant] = \
+                self._qos_quota_rejections.get(tenant, 0) + int(requests)
+
+    def qos_tallies(self):
+        """One consistent snapshot of the QoS counters for the metrics
+        surface: ``{"admitted": {(tenant, class): n}, "preemptions":
+        {(tenant, class): n}, "quota_rejections": {tenant: n},
+        "tokens": {tenant: n}}``."""
+        with self._cv:
+            return {"admitted": dict(self._qos_admitted),
+                    "preemptions": dict(self._qos_preemptions),
+                    "quota_rejections": dict(self._qos_quota_rejections),
+                    "tokens": dict(self._qos_tokens)}
+
     def _preempt(self, slot):
-        """Free a slot's blocks under pool exhaustion and requeue its
-        request at the queue FRONT; it re-enters with a continuation
+        """Free a slot's blocks (under pool exhaustion, or for a
+        stronger waiting class) and requeue its request at the queue
+        FRONT; it re-enters with a continuation
         prefill of prompt + emitted tokens, so its stream continues
         (token-identical at temperature 0)."""
         handle = self._slot_req[slot]
         self._slot_req[slot] = None
         self._release_slot(slot)
+        now = time.monotonic()
+        if handle._decode_t0 is not None:
+            # close the decode-so-far segment: the preempted stage
+            # starts here, not at the last decode step
+            self.flight.span("decode", handle._decode_t0, now,
+                             trace=handle.trace,
+                             tokens=len(handle._tokens), preempted=True)
+            handle._attr_spans.append(("decode", handle._decode_t0, now))
+        handle._preempt_at = now
         with self._cv:
             self._queue.appendleft(handle)
+            key = (handle.tenant, handle.priority)
+            self._qos_preemptions[key] = \
+                self._qos_preemptions.get(key, 0) + 1
             self.counters.gauge("queue_depth", len(self._queue))
         self.counters.inc("preemptions")
+        self.flight.instant("preempt", trace=handle.trace,
+                            tokens=len(handle._tokens))
         logger.info("preempted request after %d/%d tokens (kv pool "
                     "pressure); requeued at front", len(handle._tokens),
                     handle.max_new_tokens)
@@ -1108,9 +1952,10 @@ class DecodeEngine(object):
         past that is a rejected proposal no cursor will reach, and may
         land in scratch). Every fully written block is registered each
         round, since lookahead allocates ahead of the cursor. Under
-        exhaustion the YOUNGEST admission is preempted, so the oldest
-        always progresses (``validate`` guarantees a lone request's
-        worst case fits the pool)."""
+        exhaustion the weakest class's YOUNGEST admission is preempted,
+        so the oldest of the strongest class always progresses
+        (``validate`` guarantees a lone request's worst case fits the
+        pool)."""
         bs = self.kv_block_size
         look = self._spec_k or 1
         for s in sorted(self._active_slots(),
@@ -1130,8 +1975,9 @@ class DecodeEngine(object):
                         new_id = self._pool.alloc(1)[0]
                 except paging.PoolExhausted:
                     # preempting s itself ends the while
-                    self._preempt(max(self._active_slots(),
-                                      key=lambda v: self._slot_seq[v]))
+                    self._preempt(max(self._active_slots(), key=lambda v: (
+                        qos.priority_rank(self._slot_req[v].priority),
+                        self._slot_seq[v])))
                     continue
                 self._tables[s][len(self._slot_blocks[s])] = new_id
                 self._slot_blocks[s].append(new_id)
@@ -1146,29 +1992,47 @@ class DecodeEngine(object):
         bucket = generation.bucket_for(n, self.buckets)
         toks = np.zeros(bucket, np.int32)
         toks[:n] = handle.prompt
-        self._observe_queue_wait(handle, time.monotonic())
+        t0 = time.monotonic()
+        self._observe_queue_wait(handle, t0, slot)
         with self.timers.timed("prefill"):
             first = int(generation.prefill_into_slot(
                 self.model, self._cache, slot, toks, n,
                 temperature=self._temperature, top_k=self._top_k,
                 top_p=self._top_p, generator=self._generator))
+        self._observe_prefill(handle, t0, time.monotonic(), bucket, n)
         self.counters.inc("prefills")
         self._idx[slot] = n
         self._last[slot] = first
         self._deliver(slot, first)
         self.counters.inc("tokens")
 
-    def _observe_queue_wait(self, handle, now):
-        """Queue-wait metrics, for a request's FIRST admission only (a
-        preemption re-entry is a continuation, not a queue wait)."""
-        if handle._admitted:
-            return
-        wait = now - handle.submitted
-        self.histograms["queue_wait"].observe(wait)
-        self._qwait_ewma = wait if self._qwait_ewma is None else \
-            self._ewma_alpha * wait \
-            + (1.0 - self._ewma_alpha) * self._qwait_ewma
-        handle._admitted = True
+    def _observe_queue_wait(self, handle, now, slot):
+        """Queue-wait metrics and span for a request's FIRST admission;
+        a preemption re-entry records its time out of the slot as a
+        ``preempted`` span instead."""
+        if handle._decode_t0 is None:
+            wait = now - handle.submitted
+            self.histograms["queue_wait"].observe(wait)
+            self._hist_qwait_class.get(
+                handle.priority,
+                self._hist_qwait_class[qos.DEFAULT_PRIORITY]).observe(wait)
+            self._qwait_ewma = self._ewma(self._qwait_ewma, wait)
+            self.flight.span("queue", handle.submitted, now,
+                             trace=handle.trace, slot=slot)
+            handle._attr_spans.append(("queue", handle.submitted, now))
+        elif handle._preempt_at is not None:
+            self.flight.span("preempted", handle._preempt_at, now,
+                             trace=handle.trace, slot=slot)
+            handle._attr_spans.append(("preempted", handle._preempt_at,
+                                       now))
+
+    def _observe_prefill(self, handle, t0, t1, bucket, n, prefix_blocks=0):
+        self._prefill_ewma = self._ewma(self._prefill_ewma, t1 - t0)
+        self.flight.span("prefill", t0, t1, trace=handle.trace,
+                         bucket=bucket, prompt_len=n,
+                         prefix_blocks=prefix_blocks)
+        handle._attr_spans.append(("prefill", t0, t1))
+        handle._decode_t0 = t1
 
     def _admit_paged(self, slot, handle):
         """Paged admission: point the slot's table at resident shared
@@ -1184,7 +2048,7 @@ class DecodeEngine(object):
                 # a preemption continuation re-walks onto its own
                 # blocks: not multi-turn reuse, so not counted as such
                 shared = self._pool.match_prefix(
-                    full, count_generated=not handle._admitted)
+                    full, count_generated=handle._decode_t0 is None)
         start = len(shared) * bs
         with self.timers.timed("block_alloc"):
             # acquire BEFORE alloc: an LRU-resident shared block must
@@ -1211,13 +2075,16 @@ class DecodeEngine(object):
             bucket = self.total_len
         toks = np.zeros(bucket, np.int32)
         toks[:len(tail)] = tail
-        self._observe_queue_wait(handle, time.monotonic())
+        t0 = time.monotonic()
+        self._observe_queue_wait(handle, t0, slot)
         with self.timers.timed("prefill"):
             first = int(generation.paged_prefill_into_slot(
                 self.model, self._cache, row, toks, len(tail), start,
                 temperature=self._temperature, top_k=self._top_k,
                 top_p=self._top_p, generator=self._generator,
                 attn_impl=self.attn_impl))
+        self._observe_prefill(handle, t0, time.monotonic(), bucket, n,
+                              prefix_blocks=len(shared))
         self.counters.inc("prefills")
         if self._spec_k:
             # mirror the tail into the draft's pool: the draft attends
@@ -1255,11 +2122,19 @@ class DecodeEngine(object):
         handle._emit(token)
         now = time.monotonic()
         if handle._last_emit_at is None:
-            self.histograms["ttft"].observe(now - handle.submitted)
+            self.histograms["ttft"].observe(now - handle.submitted,
+                                            trace=handle.trace)
         else:
-            self.histograms["token"].observe(now - handle._last_emit_at)
+            self.histograms["token"].observe(now - handle._last_emit_at,
+                                             trace=handle.trace)
         handle._last_emit_at = now
         self._last[slot] = token
+        # QoS usage, post-paid at ACTUAL delivery (a dedup-replayed
+        # retry delivers nothing, so it is never charged twice)
+        self._quota.charge(handle.tenant, 1)
+        with self._cv:
+            self._qos_tokens[handle.tenant] = \
+                self._qos_tokens.get(handle.tenant, 0) + 1
         done = (self.eos_token is not None and token == self.eos_token) \
             or len(handle._tokens) >= handle.max_new_tokens
         if done:
@@ -1271,8 +2146,20 @@ class DecodeEngine(object):
             self._slot_req[slot] = None
             self._release_slot(slot)
             self.counters.inc("requests_completed")
-            self.histograms["request"].observe(
-                handle.completed - handle.submitted)
+            self._trace_finish(handle, "finish")
+            # a tenant that went fully idle drops its deficit counter
+            # (the table stays bounded by live tenants)
+            with self._cv:
+                live = any(h.tenant == handle.tenant for h in self._queue) \
+                    or any(self._slot_req[s] is not None
+                           and self._slot_req[s].tenant == handle.tenant
+                           for s in range(self.slots))
+                if not live:
+                    self._qos_sched.forget(handle.tenant)
+        elif chaos.on_token(len(handle._tokens)):
+            # chaos disconnect_client_at_token: the client vanished
+            # mid-stream; eviction lands at the next step boundary
+            handle.cancel()
 
 
 class _BadRequest(ValueError):
@@ -1526,13 +2413,18 @@ class ModelServer(object):
     engine-only server). ``batch_window_ms``: 0 serves each
     ``:predict`` as its own apply call behind one lock; > 0 coalesces
     concurrent same-signature requests inside the window
-    (:class:`_Batcher`). ``device``: where the export's variables load
-    (:func:`device_info.default_device`: the card unless ``"cpu"``).
-    The engine, when given, is the caller's to stop.
+    (:class:`_Batcher`). ``replica_id``: the server's stable serving
+    identity (default: the mounted engine's). ``dedup_capacity`` /
+    ``dedup_ttl_s`` bound the ``X-TFOS-Request-Id`` replay window
+    (:class:`DedupWindow`). ``device``: where the export's variables
+    load (:func:`device_info.default_device`: the card unless
+    ``"cpu"``). The engine, when given, is the caller's to stop
+    (:meth:`drain` stops it, through the engine's own drain).
     """
 
     def __init__(self, model_dir, name="model", host="127.0.0.1",
-                 port=8501, batch_window_ms=0, engine=None, device=None):
+                 port=8501, batch_window_ms=0, engine=None, replica_id=None,
+                 dedup_capacity=2048, dedup_ttl_s=120.0, device=None):
         from tensorflowonspark_tpu_torch import export as export_lib
 
         if model_dir is not None:
@@ -1552,21 +2444,60 @@ class ModelServer(object):
                          if batch_window_ms and apply_fn is not None
                          else None)
         self.engine = engine
+        self._replica_id = None if replica_id is None else str(replica_id)
         #: ``:predict`` apply calls made (one per batcher group)
         self.apply_calls = 0
         self._host = host
         self._port = int(port)
         self._httpd = None
         self._thread = None
+        #: set by :meth:`mark_unhealthy` (a supervisor or any operator
+        #: hook); /healthz then answers 503
+        self._unhealthy = None
+        #: lease-fencing latch: while set, :generate / :predict /
+        #: :prefill answer 410 ``kind: "Fenced"`` and /healthz 503
+        #: ``status: "fenced"``
+        self._fenced = None
+        #: idempotent dispatch: the replay window keyed on
+        #: ``X-TFOS-Request-Id`` (server-level, so it survives
+        #: :meth:`attach_engine`)
+        self._dedup = DedupWindow(capacity=dedup_capacity,
+                                  ttl_s=dedup_ttl_s)
+        self._dedup_hits = 0
+        self._dedup_joined = 0
+        self._dedup_obs_lock = threading.Lock()
+        #: graceful-drain latch; the lock and memo make drain()
+        #: idempotent (a second caller returns the first one's verdict)
+        self._draining = False
+        self._drain_lock = threading.Lock()
+        self._drain_result = None
+        #: POST requests inside a handler: drain waits for their
+        #: responses to be written
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        #: ``POST /admin/<name>`` -> ``fn(payload) -> response``
+        #: (:meth:`register_admin`); 404 for the rest of /admin/
+        self._admin = {}
         # splice fence floors: replica id -> the epoch a shipment from it
         # must exceed (raised by /admin/ship_fence, never lowered)
         self._ship_fence = {}
         self._ship_fence_lock = threading.Lock()
+        self.register_admin("ship_fence", self._admin_ship_fence)
+        #: control-epoch floor: the admin-plane fence. A stamped admin
+        #: call (``X-TFOS-Control-Epoch``) below it is refused 409
+        #: ``kind: "ControlFenced"``; the floor rises to every admitted
+        #: stamp and to ``/admin/control_fence`` broadcasts
+        self._control_epoch = 0
+        self._control_lock = threading.Lock()
+        self._control_counters = tracing.Counters()
+        self.register_admin("control_fence", self._admin_control_fence)
 
     @property
     def replica_id(self):
-        """The mounted engine's replica id (None without an engine): the
-        ``src`` a shipment from here carries."""
+        """The server's stable serving identity: the explicit one, else
+        the mounted engine's (stable across ``respawn()``), else None."""
+        if self._replica_id is not None:
+            return self._replica_id
         return getattr(self.engine, "replica_id", None)
 
     def _apply(self, batch):
@@ -1608,12 +2539,68 @@ class ModelServer(object):
                 "metadata": {"signature_def": self.signature,
                              "format": export_lib._FORMAT}}
 
-    def generate(self, payload, client_gone=None):
-        """``{"prompt": [[...], ...] or [...], "max_new_tokens": N}`` ->
-        ``{"tokens": ...}`` (prompt + generated tokens per prompt; a flat
-        prompt is answered un-nested). The whole body is vetted before
-        any of it is queued, and queued atomically."""
-        if self.engine is None:
+    def generate(self, payload, client_gone=None, trace=None,
+                 request_id=None):
+        """Idempotent ``:generate``: with a ``request_id`` (a router's
+        ``X-TFOS-Request-Id``, reused by every retry of one client
+        request) a request this server already answered is replayed
+        from the stored response (a dedup hit), and one still executing
+        is joined (the retry waits on the original) instead of running
+        twice; a failed execution is withdrawn, so a later retry runs
+        clean. Without one it is a plain execution
+        (:meth:`_generate_once`). Raises :class:`Fenced` while the
+        server is fenced."""
+        if self._fenced is not None:
+            raise Fenced("replica is fenced: " + self._fenced)
+        if request_id is None:
+            return self._generate_once(payload, client_gone, trace)
+        entry, owner = self._dedup.begin(request_id)
+        if not owner:
+            hit = entry.done.is_set()
+            with self._dedup_obs_lock:
+                if hit:
+                    self._dedup_hits += 1
+                else:
+                    self._dedup_joined += 1
+                counters = getattr(self.engine, "counters", None)
+                if counters is not None:
+                    counters.inc("dedup_hits" if hit else "dedup_joined")
+            logger.info("request %s deduplicated (%s)", request_id,
+                        "replayed" if hit else "joined in-flight")
+            deadline = time.monotonic() + 600.0
+            while not entry.done.wait(0.05):
+                if client_gone is not None and client_gone():
+                    # OUR client vanished; the owner's may not have —
+                    # never cancel the original's work from here
+                    raise Cancelled(
+                        "client disconnected while joined to an "
+                        "in-flight duplicate")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        "joined in-flight duplicate did not complete "
+                        "within 600s")
+            if entry.error is not None:
+                raise entry.error
+            return entry.response
+        try:
+            out = self._generate_once(payload, client_gone, trace)
+        except BaseException as e:
+            # transient failures are not cached: a later retry re-runs
+            self._dedup.fail(request_id, entry, e)
+            raise
+        self._dedup.complete(request_id, entry, out)
+        return out
+
+    def _generate_once(self, payload, client_gone=None, trace=None):
+        """``{"prompt": [[...], ...] or [...], "max_new_tokens": N,
+        "deadline_s"?, "session"?, "tenant"?, "priority"?}`` ->
+        ``{"tokens": ...}`` (prompt + generated tokens per prompt; a
+        flat prompt is answered un-nested). The whole body is vetted
+        before any of it is queued, and queued atomically; a malformed
+        ``session`` / ``tenant`` / ``priority`` is a 400. ``trace``
+        adopts an external trace id for the body's spans."""
+        engine = self.engine
+        if engine is None:
             raise _BadRequest("no decode engine mounted; this server only "
                               "serves :predict")
         if not isinstance(payload, dict) or "prompt" not in payload:
@@ -1636,11 +2623,21 @@ class ModelServer(object):
                 raise _BadRequest("deadline_s must be a number")
             if not deadline_s > 0:
                 raise _BadRequest("deadline_s must be > 0")
+        session = payload.get("session")
+        if session is not None and not isinstance(session, str):
+            raise _BadRequest("session must be a string")
         try:
-            vetted = [self.engine.validate(p, max_new) for p in prompts]
+            tenant = qos.validate_tenant(payload.get("tenant"))
+            priority = qos.validate_priority(payload.get("priority"))
+        except (TypeError, ValueError) as e:
+            raise _BadRequest(str(e))
+        try:
+            vetted = [engine.validate(p, max_new) for p in prompts]
         except (ValueError, TypeError) as e:
             raise _BadRequest(str(e))
-        handles = self.engine._submit_many(vetted, deadline_s=deadline_s)
+        handles = engine._submit_many(vetted, deadline_s=deadline_s,
+                                      trace=trace, session=session,
+                                      tenant=tenant, priority=priority)
         try:
             tokens = [self._await_handle(h, handles, client_gone)
                       for h in handles]
@@ -1670,9 +2667,9 @@ class ModelServer(object):
                         timeout))
         return handle.result(0.1)
 
-    def prefill(self, payload):
+    def prefill(self, payload, trace=None):
         """``POST :prefill``, the prefill tier's entry point: ``{"prompt":
-        [t, ...], "src_epoch"?, "ship"?: {"addr": "host:port",
+        [t, ...], "session"?, "src_epoch"?, "ship"?: {"addr": "host:port",
         "replica_id"?}}``. The prompt runs through the normal admission
         path as a one-token generation (bucketing, prefix registration),
         then its resident block chain is exported and, when ``ship``
@@ -1683,17 +2680,23 @@ class ModelServer(object):
         engine = self.engine
         if engine is None:
             raise _BadRequest("no decode engine mounted on this server")
+        if self._fenced is not None:
+            raise Fenced("replica is fenced: " + self._fenced)
         if not isinstance(payload, dict) or "prompt" not in payload:
             raise _BadRequest("request needs a 'prompt' field")
         prompt = payload["prompt"]
         if not isinstance(prompt, list) or not prompt \
                 or isinstance(prompt[0], (list, tuple)):
             raise _BadRequest(":prefill takes ONE flat token list")
+        session = payload.get("session")
+        if session is not None and not isinstance(session, str):
+            raise _BadRequest("session must be a string")
         try:
             vetted = engine.validate(prompt, 1)
         except (ValueError, TypeError) as e:
             raise _BadRequest(str(e))
-        engine._submit_many([vetted])[0].result(600.0)
+        engine._submit_many([vetted], trace=trace,
+                            session=session)[0].result(600.0)
         out = {"prefilled": True, "blocks": 0, "shipped": False}
         export = engine.export_prefix(vetted[0],
                                       src_epoch=payload.get("src_epoch"))
@@ -1724,6 +2727,9 @@ class ModelServer(object):
         # raised above, and bytes are never claimed for a delivery this
         # side cannot prove
         engine.note_ship(out["blocks"], n_bytes, t1 - t0)
+        engine.flight.span("kv.ship", t0, t1, trace=trace or 0,
+                           blocks=out["blocks"], bytes=n_bytes,
+                           transport=transport)
         out.update(shipped=True, bytes=n_bytes, transport=transport)
         try:
             out["splice"] = json.loads(body)
@@ -1779,15 +2785,293 @@ class ModelServer(object):
         return self.ship_fence(payload["replica_id"],
                                payload.get("min_epoch", 0))
 
+    # -- control-epoch fence ----------------------------------------------
+
+    def admit_control_epoch(self, epoch):
+        """Admission check and adoption for a stamped admin RPC's control
+        epoch: a stamp at or above the floor is admitted and raises the
+        floor to it; one below is refused (the caller is a deposed
+        driver). Returns ``(admitted, floor)``; the floor never lowers."""
+        epoch = int(epoch)
+        with self._control_lock:
+            if epoch >= self._control_epoch:
+                self._control_epoch = epoch
+                return True, epoch
+            self._control_counters.inc("admin_rejections")
+            floor = self._control_epoch
+        self._mount_control_counters()
+        logger.warning(
+            "refusing admin RPC stamped control epoch %d < floor %d "
+            "(caller is a deposed driver)", epoch, floor)
+        return False, floor
+
+    def control_epoch_floor(self):
+        """Current admin-plane control-epoch floor (0: no stamped call
+        seen yet — every stamp is admitted)."""
+        with self._control_lock:
+            return self._control_epoch
+
+    def _admin_control_fence(self, payload):
+        """``POST /admin/control_fence {"control_epoch": N}``: raises the
+        floor like any admitted stamp; idempotent and monotonic."""
+        if not isinstance(payload, dict) or \
+                payload.get("control_epoch") is None:
+            raise ValueError("control_fence needs a control_epoch")
+        epoch = int(payload["control_epoch"])
+        with self._control_lock:
+            if epoch > self._control_epoch:
+                self._control_epoch = epoch
+            floor = self._control_epoch
+        logger.info("control fence: admin RPCs now need control epoch "
+                    ">= %d", floor)
+        return {"control_epoch": floor}
+
+    def _mount_control_counters(self):
+        """Expose the control-plane counters
+        (``tfos_control_admin_rejections_total``) on the current
+        engine's registry; idempotent, re-mounted on every rejection so
+        a respawned engine's registry picks them up."""
+        metrics = getattr(self.engine, "metrics", None)
+        if metrics is not None:
+            metrics.add_counters("tfos_control", self._control_counters)
+
+    def register_admin(self, name, fn):
+        """Mount ``fn(payload_dict) -> response_dict`` as ``POST
+        /admin/<name>``. Admin routes bypass the fenced and draining
+        gates: the RPCs that resolve those states must stay reachable."""
+        self._admin[str(name)] = fn
+
+    # -- health -------------------------------------------------------------
+
+    def attach_engine(self, engine):
+        """(Re-)arm ``:generate`` with ``engine`` (a respawned one) and
+        clear any unhealthy mark."""
+        self.engine = engine
+        self._unhealthy = None
+        logger.info("serving re-armed with a fresh decode engine")
+
+    def mark_unhealthy(self, reason):
+        """Flip /healthz to 503 (an operator or supervisor hook)."""
+        self._unhealthy = str(reason)
+        logger.error("serving marked unhealthy: %s", reason)
+
+    def fence(self, reason):
+        """Refuse to serve: this replica's lease epoch was superseded.
+        ``:generate`` / ``:predict`` / ``:prefill`` answer 410 ``kind:
+        "Fenced"`` (non-retriable: go to the current holder) and
+        /healthz 503 ``status: "fenced"``. The engine keeps running (its
+        in-flight work finishes)."""
+        self._fenced = str(reason)
+        logger.error("serving FENCED: %s", reason)
+
+    def unfence(self):
+        """Clear the fenced latch (a fresh lease epoch was acquired)."""
+        self._fenced = None
+        logger.info("serving unfenced (fresh lease epoch)")
+
     def healthz(self):
-        """``(status, body)``: 200 while the engine (if any) is alive,
-        else 503."""
-        if self.engine is None:
-            return 200, {"status": "ok", "model": self.name}
-        stats = self.engine.load_stats()
-        ok = stats["alive"]
-        stats["status"] = "ok" if ok else "unhealthy"
-        return (200 if ok else 503), stats
+        """``(status, body)`` for ``GET /healthz``: 503 when fenced
+        (outranks everything), draining (a distinct ``status:
+        "draining"``), the engine's scheduler is dead, or the server was
+        marked unhealthy; else 200. The body carries the engine's
+        liveness, its queue and slot gauges, counts, pool and kernel
+        configuration (and, beyond the reference's keys, the engine's
+        ``device``), and the dedup window."""
+        body = {"status": "ok", "model": self.name}
+        rid = self.replica_id
+        if rid is not None:
+            body["replica_id"] = rid
+        with self._dedup_obs_lock:
+            body["dedup"] = dict(self._dedup.stats(),
+                                 hits=self._dedup_hits,
+                                 joined=self._dedup_joined)
+        if self._fenced is not None:
+            body["status"] = "fenced"
+            body["reason"] = self._fenced
+            return 503, body
+        engine = self.engine
+        if engine is not None:
+            health = engine.healthy()
+            snap = engine.counters.snapshot()
+            body["engine"] = health
+            body["queue_depth"] = snap["gauges"].get("queue_depth", 0)
+            body["slot_occupancy"] = snap["gauges"].get("slot_occupancy",
+                                                        0)
+            body["counts"] = snap["counts"]
+            load = engine.load_stats()
+            # "device" is the port's one key beyond the reference's body:
+            # where the engine runs (the card, or a CPU asked for)
+            for key in ("device", "kv_blocks_total", "kv_blocks_free",
+                        "prefix_hit_rate", "attn_impl",
+                        "generated_prefix_hit_blocks",
+                        "generated_prefix_registered",
+                        "speculate_k", "spec_acceptance_rate",
+                        "kv_dtype"):
+                body[key] = load[key]
+            if self._draining:
+                # mid-drain the engine goes draining -> stopped by
+                # design: a planned retirement, not "unhealthy"
+                body["status"] = "draining"
+                body["reason"] = "server is draining; " \
+                    "{} request(s) still in flight".format(
+                        engine.outstanding()
+                        if health["scheduler_thread"] else 0)
+                return 503, body
+            if not health["alive"]:
+                body["status"] = "unhealthy"
+                body["reason"] = health.get("broken") or \
+                    "decode engine scheduler is not running"
+                return 503, body
+        if self._draining:
+            body["status"] = "draining"
+            body["reason"] = "server is draining"
+            return 503, body
+        if self._unhealthy is not None:
+            body["status"] = "unhealthy"
+            body["reason"] = self._unhealthy
+            return 503, body
+        return 200, body
+
+    # -- observability (GET /metrics, GET /debug/trace) ---------------------
+
+    def metrics_text(self):
+        """OpenMetrics exposition of the mounted engine's registry plus
+        the info gauges (replica id, attention formulation, KV dtype)
+        and the labeled splice-failure and QoS counters — the body of
+        ``GET /metrics``. An engine-less server exposes an empty but
+        valid document."""
+        engine = self.engine
+        registry = getattr(engine, "metrics", None)
+        text = tracing.MetricsRegistry().render() if registry is None \
+            else registry.render()
+        info = ""
+        rid = self.replica_id
+        if rid is not None:
+            info += ('# TYPE tfos_serving_replica_info gauge\n'
+                     'tfos_serving_replica_info{{replica_id="{}"}} 1\n'
+                     .format(rid))
+        impl = getattr(engine, "attn_impl", None)
+        if impl is not None:
+            info += ('# TYPE tfos_serving_attn_impl gauge\n'
+                     'tfos_serving_attn_impl{{impl="{}"}} 1\n'
+                     .format(impl))
+        kv_dtype = getattr(engine, "kv_dtype", None)
+        if kv_dtype is not None:
+            info += ('# TYPE tfos_serving_kv_dtype gauge\n'
+                     'tfos_serving_kv_dtype{{dtype="{}"}} 1\n'
+                     .format(kv_dtype))
+        if engine is not None:
+            counts = engine.splice_failures()
+            if counts:
+                info += "# TYPE tfos_splice_failures counter\n"
+                for reason in sorted(counts):
+                    info += ('tfos_splice_failures_total'
+                             '{{reason="{}"}} {}\n'
+                             .format(reason, counts[reason]))
+            # tenant names are bounded by qos's grammar (64 chars of
+            # [A-Za-z0-9._-]), so label values need no escaping
+            t = engine.qos_tallies()
+            for family, label_keys, key in (
+                    ("tfos_qos_admitted", ("tenant", "class"), "admitted"),
+                    ("tfos_qos_preemptions", ("tenant", "class"),
+                     "preemptions"),
+                    ("tfos_qos_quota_rejections", ("tenant",),
+                     "quota_rejections"),
+                    ("tfos_qos_tokens", ("tenant",), "tokens")):
+                if not t[key]:
+                    continue
+                info += "# TYPE {} counter\n".format(family)
+                for label in sorted(t[key]):
+                    values = label if isinstance(label, tuple) \
+                        else (label,)
+                    info += "{}_total{{{}}} {}\n".format(
+                        family, ",".join('{}="{}"'.format(k, v) for k, v
+                                         in zip(label_keys, values)),
+                        t[key][label])
+        if info:
+            text = text.replace("# EOF\n", info + "# EOF\n")
+        return text
+
+    def debug_trace(self):
+        """Chrome trace-event JSON of the engine's flight recorder (the
+        process-global one without an engine) — the body of ``GET
+        /debug/trace``; loads in Perfetto."""
+        flight = getattr(self.engine, "flight", None)
+        if flight is None:
+            flight = tracing.flight_recorder()
+        return flight.chrome_trace()
+
+    # -- graceful drain -----------------------------------------------------
+
+    def drain(self, timeout=None):
+        """Graceful shutdown in load-balancer order: /healthz turns to
+        the distinct ``draining`` 503, new POST work is refused (503 +
+        ``Retry-After``), every admitted request finishes (the engine's
+        :meth:`DecodeEngine.drain`) and its response is written, then
+        the HTTP server stops. ``timeout`` bounds both; None waits for
+        the engine as long as the work takes and caps the delivery wait
+        at 30 s. Returns True only when every admitted request finished
+        and its response was handed to the HTTP layer. Idempotent: a
+        concurrent second caller (a double SIGTERM) gets the first
+        drain's verdict."""
+        self._draining = True
+        with self._drain_lock:
+            if self._drain_result is not None:
+                return self._drain_result
+            logger.info("serving %r draining", self.name)
+            overall = None if timeout is None \
+                else time.monotonic() + max(float(timeout), 0.0)
+            engine = self.engine
+            drained = True
+            if engine is not None:
+                drained = engine.drain(
+                    timeout=None if overall is None
+                    else max(overall - time.monotonic(), 0.0))
+            # zero loss includes DELIVERY: wait for in-flight POST
+            # handlers to finish writing (the batcher stays up for an
+            # admitted :predict in this window)
+            delivery_deadline = overall if overall is not None \
+                else time.monotonic() + 30.0
+            while True:
+                with self._inflight_lock:
+                    left = self._inflight
+                if left == 0:
+                    break
+                if time.monotonic() >= delivery_deadline:
+                    logger.warning(
+                        "drain: %d response(s) still being written at "
+                        "the delivery deadline", left)
+                    drained = False
+                    break
+                time.sleep(0.02)
+            if self._batcher is not None:
+                self._batcher.stop()
+                self._batcher = None
+            self.stop()
+            logger.info("serving %r drained (%s) and stopped", self.name,
+                        "zero loss" if drained else "TIMED OUT with "
+                        "requests outstanding")
+            self._drain_result = drained
+            return drained
+
+    def install_sigterm_drain(self, timeout=None):
+        """Arm SIGTERM -> :meth:`drain` (finish admitted work, then
+        exit). Must run on the main thread; the handler hands the drain
+        to a non-daemon thread, which the interpreter joins at exit.
+        Returns the previous handler."""
+        import signal as signal_mod
+
+        def _on_sigterm(signum, frame):
+            logger.warning("SIGTERM: draining serving %r", self.name)
+            # tfos: unjoined(non-daemon: interpreter exit IS the join)
+            threading.Thread(target=self.drain,
+                             kwargs={"timeout": timeout},
+                             name="tfos-torch-serving-drain",
+                             daemon=False).start()
+
+        return signal_mod.signal(signal_mod.SIGTERM, _on_sigterm)
+
+    # -- http plumbing ------------------------------------------------------
 
     def start(self):
         """Serve in a daemon thread; returns ``(host, port)``."""
@@ -1806,10 +3090,17 @@ class ModelServer(object):
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _send_text(self, code, text, content_type):
+                body = text.encode("utf-8")
+                self.send_response(code)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
             def _client_gone(self):
                 """True once the client closed its connection."""
                 import select
-                import socket
                 try:
                     readable, _, _ = select.select(
                         [self.connection], [], [], 0)
@@ -1832,6 +3123,15 @@ class ModelServer(object):
                     n = 0
                 # consume the body first, on refusal paths too
                 body = self.rfile.read(n) if n else b""
+                if server._fenced is not None:
+                    return self._send(
+                        410, {"error": "replica is fenced: "
+                              + server._fenced, "kind": "Fenced"})
+                if server._draining:
+                    return self._send(
+                        503, {"error": "server is draining",
+                              "kind": "Draining"},
+                        headers={"Retry-After": "5"})
                 engine = server.engine
                 try:
                     if self.headers.get("X-TFOS-KV-Via") == "shm":
@@ -1872,6 +3172,16 @@ class ModelServer(object):
             def do_GET(self):
                 if self.path == "/healthz":
                     return self._send(*server.healthz())
+                if self.path == "/metrics":
+                    return self._send_text(200, server.metrics_text(),
+                                           OPENMETRICS_CONTENT_TYPE)
+                if self.path == "/debug/trace":
+                    trace = server.debug_trace()
+                    # ring saturation travels with the dump
+                    return self._send(
+                        200, trace,
+                        headers={"X-TFOS-Trace-Dropped":
+                                 str(trace.get("dropped", 0))})
                 base = "/v1/models/%s" % server.name
                 if self.path == base:
                     return self._send(200, server.status())
@@ -1881,28 +3191,105 @@ class ModelServer(object):
                                         % self.path})
 
             def do_POST(self):
+                with server._inflight_lock:
+                    server._inflight += 1
+                try:
+                    return self._do_post_tracked()
+                finally:
+                    with server._inflight_lock:
+                        server._inflight -= 1
+
+            def _admin_post(self):
+                """``POST /admin/<name>``: registered lifecycle RPCs,
+                past the fenced and draining gates; a call stamped below
+                the control-epoch floor is refused 409."""
+                fn = server._admin.get(self.path[len("/admin/"):])
+                if fn is None:
+                    return self._send(404, {"error": "not found: %s"
+                                            % self.path})
+                raw_ce = self.headers.get("X-TFOS-Control-Epoch")
+                if raw_ce is not None:
+                    try:
+                        ce = int(raw_ce)
+                    except ValueError:
+                        return self._send(
+                            400, {"error": "malformed X-TFOS-Control-"
+                                  "Epoch: %r" % raw_ce})
+                    admitted, floor = server.admit_control_epoch(ce)
+                    if not admitted:
+                        return self._send(
+                            409, {"error": "control epoch %d is below "
+                                  "this replica's floor %d (a newer "
+                                  "driver took over)" % (ce, floor),
+                                  "kind": "ControlFenced",
+                                  "control_epoch": floor})
+                try:
+                    n = int(self.headers.get("Content-Length", "0"))
+                    payload = json.loads(self.rfile.read(n) or b"{}")
+                    return self._send(200, fn(payload or {}))
+                except (_BadRequest, ValueError) as e:
+                    # malformed JSON or a missing field: the caller's
+                    return self._send(400, {"error": str(e)})
+                except Exception as e:  # noqa: BLE001 - surface as 500
+                    logger.exception("admin %s failed", self.path)
+                    return self._send(500, {"error": str(e)})
+
+            def _do_post_tracked(self):
+                if self.path.startswith("/admin/"):
+                    return self._admin_post()
                 if self.path == "/kv/splice":
                     # an octet-stream shipment, never JSON
                     return self._kv_splice()
+                # a router-minted X-TFOS-Trace id is adopted as the
+                # engine trace id (a malformed one: a local id)
+                trace = None
+                raw_trace = self.headers.get("X-TFOS-Trace")
+                if raw_trace:
+                    try:
+                        trace = int(raw_trace)
+                    except ValueError:
+                        trace = None
+                request_id = self.headers.get("X-TFOS-Request-Id") or None
                 base = "/v1/models/%s" % server.name
                 routes = {
                     base + ":predict": server.predict,
                     base + ":generate": lambda payload: server.generate(
-                        payload, client_gone=self._client_gone),
-                    base + ":prefill": server.prefill,
-                    "/admin/ship_fence": server._admin_ship_fence}
+                        payload, client_gone=self._client_gone,
+                        trace=trace, request_id=request_id),
+                    base + ":prefill": lambda payload: server.prefill(
+                        payload, trace=trace)}
                 handler = routes.get(self.path)
                 if handler is None:
                     return self._send(404, {"error": "not found: %s"
                                             % self.path})
+                if server._fenced is not None:
+                    return self._send(
+                        410, {"error": "replica is fenced: "
+                              + server._fenced, "kind": "Fenced"})
+                if server._draining:
+                    return self._send(
+                        503, {"error": "server is draining",
+                              "status": "draining", "kind": "Draining"},
+                        headers={"Retry-After": "5"})
                 try:
                     n = int(self.headers.get("Content-Length", "0"))
                     payload = json.loads(self.rfile.read(n) or b"{}")
                     return self._send(200, handler(payload))
                 except (_BadRequest, json.JSONDecodeError) as e:
                     return self._send(400, {"error": str(e)})
+                except Fenced as e:
+                    return self._send(410, {"error": str(e),
+                                            "kind": "Fenced"})
                 except QueueFull as e:
                     return self._send(429, {"error": str(e)})
+                except QuotaExceeded as e:
+                    # policy, not load: the quota follows the tenant,
+                    # and Retry-After is the bucket's refill time
+                    return self._send(
+                        429, {"error": str(e), "kind": "QuotaExceeded",
+                              "tenant": e.tenant},
+                        headers={"Retry-After":
+                                 str(int(math.ceil(e.retry_after)))})
                 except DeadlineExceeded as e:
                     return self._send(504, {"error": str(e)})
                 except Cancelled as e:
@@ -1940,7 +3327,6 @@ class ModelServer(object):
             self._httpd = None
         if self._thread is not None:
             self._thread.join(timeout=10)
-            self._thread = None
         if self._batcher is not None:
             self._batcher.stop()
             self._batcher = None
@@ -1951,3 +3337,47 @@ class ModelServer(object):
 
     def __exit__(self, *exc):
         self.stop()
+
+
+def main(argv=None):
+    """``python -m tensorflowonspark_tpu_torch.serving --model-dir
+    EXPORT``: serve an export over the TF-Serving-shaped REST surface;
+    SIGTERM drains (finishes admitted requests) and exits."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Serve an exported model over TF-Serving-shaped REST")
+    ap.add_argument("--model-dir", required=True)
+    ap.add_argument("--name", default="model")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8501)
+    ap.add_argument("--batch-window-ms", type=float, default=0,
+                    help="coalesce concurrent same-shape requests into "
+                         "one batched model call inside this window "
+                         "(0 = off)")
+    ap.add_argument("--drain-timeout", type=float, default=None,
+                    help="bound (seconds) on the SIGTERM graceful "
+                         "drain; default: wait for all admitted work "
+                         "(zero loss)")
+    ap.add_argument("--device", default=None,
+                    help="where the export loads (default: the card; "
+                         "'cpu' must be asked for)")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    server = ModelServer(args.model_dir, name=args.name,
+                         host=args.host, port=args.port,
+                         batch_window_ms=args.batch_window_ms,
+                         device=args.device)
+    host, port = server.start()
+    server.install_sigterm_drain(timeout=args.drain_timeout)
+    print("serving %s at http://%s:%d/v1/models/%s" % (
+        args.model_dir, host, port, args.name), flush=True)
+    try:
+        # the serve thread ends when drain() stops the server
+        server._thread.join()
+    except KeyboardInterrupt:
+        server.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -15,9 +15,9 @@ mask, at BERT-base's attention shape, dQ with whole key tiles masked in
 the middle and at the end of a row, and bitwise deterministic; and ring
 attention's kernel route (a 4-way ring in lockstep) against its plain
 route in every schedule and both dtypes; the speculative verify window
-(S_q = k from mid-sequence cursors) and a speculative engine's exact
-route counts. ``chip_smoke.py`` runs the
-same comparisons at the main paths' widths; these are the small-shape
+(S_q = k from mid-sequence cursors), a speculative engine's exact
+route counts, and ``DecodeEngine.measure_attn``'s exact launches.
+``chip_smoke.py`` runs the same comparisons at the main paths' widths; these are the small-shape
 versions for ``pytest -m cuda``."""
 
 import numpy as np
@@ -196,6 +196,39 @@ def test_speculative_engine_routes_and_tokens(cuda):
             logits = model(torch.tensor([g[:first]], device=cuda))[0, -1]
         top = torch.topk(logits, 2).values
         assert (top[0] - top[1]).item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["fp32", "int8"])
+def test_measure_attn_launches_the_paged_kernel(cuda, kv_dtype):
+    """``DecodeEngine.measure_attn(reps)`` times the hand-written paged
+    kernel on the split route at the live pool's shapes: the route
+    counts rise by exactly ``reps + 1`` (one unmeasured warm call), and
+    nothing on the other routes. The same probe under
+    ``attn_impl="gather"`` launches nothing."""
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+    model = DecoderLM(128, hidden=64, num_heads=4, num_layers=2,
+                      max_len=128, device=cuda)
+    model.init_weights(torch.Generator(device=cuda).manual_seed(1))
+    with serving.DecodeEngine(model, slots=4, kv_block_size=16,
+                              kv_dtype=kv_dtype, device=cuda) as eng:
+        before = dict(pa.route_launches)
+        ms = eng.measure_attn(reps=5)
+        assert ms > 0 and eng.timers.counts()["attn"] == 5
+        assert {r: pa.route_launches[r] - before[r] for r in before} == \
+            {"split": 6, "tiled": 0, "tiled_simt": 0}
+        if kv_dtype:
+            assert eng.measure_dequant(reps=2) > 0
+        assert eng.kv_cache_bytes() == sum(
+            t.numel() * t.element_size() for layer in eng._cache
+            for t in layer.values())
+    with serving.DecodeEngine(model, slots=4, kv_block_size=16,
+                              attn_impl="gather", device=cuda) as eng:
+        before = dict(pa.route_launches)
+        assert eng.measure_attn(reps=2) > 0
+        assert pa.route_launches == before
 
 
 def _poison_dead(dev, args, scales, bs):

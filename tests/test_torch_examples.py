@@ -336,17 +336,19 @@ def test_lm_generate_serves_solo_identical(tmp_path):
     """``lm_generate``: the small LM learns the periodic task (the
     reference's test_generate_example asserts the continuation), the
     greedy continuation follows the period, and ``--serve`` through the
-    paged engine gives solo ``generate``'s tokens for every request. The
-    flags that wait for the fleet and QoS planes refuse, naming the
-    ROADMAP item."""
+    paged engine gives solo ``generate``'s tokens for every request,
+    tagged with ``--tenant`` / ``--priority`` (every served token is
+    tallied to the tenant). The flags that wait for the fleet plane
+    refuse, naming the ROADMAP item."""
     out = _run(tmp_path, "generate.lm_generate", "--steps", 80, "--serve",
-               6, "--device", "cpu")
+               6, "--tenant", "a", "--priority", "high", "--device", "cpu")
     got = _last_json(out)
     assert got["loss"] < 0.2 * got["loss_first"], got
     assert got["generated"] == [(6 + i) % 4 for i in range(8)]
     serve = got["serve"]
     assert serve["requests"] == 6 and serve["solo_mismatches"] == 0
-    for flag in (["--fleet", 2], ["--tenant", "a"]):
+    assert serve["tenant_tokens"] == {"a": serve["tokens"]}, serve
+    for flag in (["--fleet", 2], ["--executors", 2]):
         bad = _run(tmp_path, "generate.lm_generate", *flag, ok=False)
         assert bad.returncode != 0
         assert "ROADMAP Queue 1 item" in bad.stderr, bad.stderr

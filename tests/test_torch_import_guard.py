@@ -1,7 +1,8 @@
 """The port stands alone: it imports nothing of JAX, flax, optax, orbax,
 the JAX package or cloudpickle, and its kernel modules import (and
-serve — plainly, speculatively and from a spliced KV shipment — train, run a cluster, fit, checkpoint, export and transform
-through the pipeline, run the model zoo and ``:predict``, stream
+serve — plainly, tenant-tagged over HTTP with a ``/metrics`` scrape,
+speculatively and from a spliced KV shipment — train, run a cluster,
+fit, checkpoint, export and transform through the pipeline, run the model zoo and ``:predict``, stream
 micro-batches into a cluster, run TFParallel jobs, bind the Spark
 adapter and import every example driver on the CPU) without a CUDA
 compiler — kernels build at their first launch on a card."""
@@ -23,7 +24,7 @@ PLANE = ("util", "marker", "fs", "frames", "shm", "manager", "tracing",
          "engine/context", "engine/executor", "engine/dataframe",
          "tfrecord", "_tfrecord_native", "dfutil", "checkpoint", "export",
          "pipeline", "engine/streaming", "engine/spark_adapter",
-         "parallel_runner", "kvship")
+         "parallel_runner", "kvship", "qos", "slo", "metrics_report")
 EXAMPLES = os.path.join(PORT, "examples")
 #: the parallel package's modules
 PARALLEL = ("parallel/__init__", "parallel/mesh", "parallel/collectives",
@@ -62,6 +63,20 @@ def test_port_serves_with_jax_unimportable():
         model.init_weights(torch.Generator().manual_seed(0))
         with serving.DecodeEngine(model, slots=2, device="cpu") as eng:
             out = eng.generate([1, 2, 3], 4, timeout=120)
+            # a tenant-tagged request over HTTP, then a /metrics scrape
+            import http.client, json
+            with serving.ModelServer(None, name="lm", port=0,
+                                     engine=eng) as srv:
+                conn = http.client.HTTPConnection(*srv.address)
+                conn.request("POST", "/v1/models/lm:generate", json.dumps(
+                    {"prompt": [1, 2, 3], "max_new_tokens": 4,
+                     "tenant": "alpha", "priority": "high"}))
+                assert json.loads(conn.getresponse().read()) == \
+                    {"tokens": out}
+                conn.request("GET", "/metrics")
+                text = conn.getresponse().read().decode()
+            assert 'tfos_qos_tokens_total{tenant="alpha"} 4' in text
+            assert text.rstrip().endswith("# EOF")
         assert len(out) == 7 and out[:3] == [1, 2, 3], out
         # a speculative request, and solo generate on the contiguous cache
         with serving.DecodeEngine(model, slots=2, speculate_k=3,

@@ -9,8 +9,9 @@ baseline fails; so does a baseline entry without a reason. The
 streaming loop (``engine/streaming.py``) and the Spark adapter's job
 thread (``engine/spark_adapter.py``, annotated ``# tfos:
 unjoined(...)``) are covered like every other thread of the port, and
-so is the decode scheduler's newer state: the KV job queue and the
-speculative draft's cache.
+so is the decode scheduler's newer state: the KV job queue, the
+speculative draft's cache, the fair scheduler and the drain latch, and
+the server's SIGTERM drain thread.
 """
 
 import io
@@ -33,13 +34,13 @@ def _run(paths, baseline):
 def test_port_is_clean_against_its_baseline():
     rc, text = _run([PORT], BASELINE)
     assert rc == 0, text
-    assert "0 new" in text and "4 baselined" in text, text
+    assert "0 new" in text and "6 baselined" in text, text
 
 
 def test_every_baseline_entry_has_a_reason_and_still_matches():
     with open(BASELINE) as f:
         entries = json.load(f)["entries"]
-    assert len(entries) == 4
+    assert len(entries) == 6
     assert all(len(e["reason"].strip()) > 40 for e in entries)
     rc, text = _run([PORT], None)
     assert rc == 1
@@ -101,3 +102,29 @@ def test_kv_jobs_and_draft_cache_are_covered(tmp_path):
     assert rc == 1
     assert "DecodeEngine._kv_call:_kv_jobs" in text, text
     assert "DecodeEngine:_draft_cache" in text, text
+
+
+def test_qos_scheduler_and_drain_latch_are_covered(tmp_path):
+    """The QoS and lifecycle planes' scheduler state is inside the lint's
+    view: the drain latch set before ``_cv`` is taken, and the fair
+    scheduler rebound from a client's call while the scheduler thread
+    rebinds it under ``_cv``, are each a new finding."""
+    root = _mutated_port(tmp_path, [
+        ("""        t_drain0 = time.monotonic()
+        with self._cv:""",
+         """        t_drain0 = time.monotonic()
+        self._draining = True
+        with self._cv:"""),
+        ("""    def outstanding(self):""",
+         """    def reset_fairness(self):
+        self._qos_sched = qos.FairScheduler(self.qos_policy)
+
+    def outstanding(self):"""),
+        ("""                if not live:
+                    self._qos_sched.forget(handle.tenant)""",
+         """                if not live:
+                    self._qos_sched = qos.FairScheduler(self.qos_policy)""")])
+    rc, text = _run([root], BASELINE)
+    assert rc == 1
+    assert "DecodeEngine.drain:_draining" in text, text
+    assert "DecodeEngine.reset_fairness:_qos_sched" in text, text

@@ -309,6 +309,9 @@ def test_request_lifecycle_frees_slots(lm):
         it.close()  # the consumer walked away
         with pytest.raises(serving.Cancelled):
             h.result(120)
+        # a warm engine sheds an infeasible deadline at the door;
+        # cleared EWMAs (no evidence) pin the in-flight eviction
+        eng._step_ewma = eng._prefill_ewma = None
         late = eng.submit([9, 9], 50, deadline_s=1e-3)
         with pytest.raises(serving.DeadlineExceeded):
             late.result(120)

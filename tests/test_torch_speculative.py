@@ -299,6 +299,9 @@ def test_spec_churn_leaves_no_leaked_block(lm):
             victim.cancel()
             with pytest.raises(serving.Cancelled):
                 victim.result(120)
+            # a warm engine sheds an infeasible deadline at the door;
+            # cleared EWMAs (no evidence) pin the in-flight eviction
+            eng._step_ewma = eng._prefill_ewma = None
             slow = eng.submit(prompt, 40, deadline_s=0.005)
             with pytest.raises(serving.DeadlineExceeded):
                 slow.result(120)
