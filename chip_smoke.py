@@ -9,7 +9,10 @@ the long-context and Criteo examples, MoE, the pipeline), and the rest
 of generation (the contiguous cache, speculative decoding, KV
 ship/splice, the generate example), and the serving planes (QoS and
 quotas, shedding, dedup and fencing, ``/metrics`` and ``/debug/trace``,
-drain, respawn and the chaos sites) — and hold its CUDA kernels against
+drain, respawn and the chaos sites), and the serving fleet (a router
+over replicas in this process and in executor processes, rolling
+drain, failover, two-stage prefill -> decode dispatch, the control-state
+journal and a standby router) — and hold its CUDA kernels against
 their plain PyTorch versions.
 
     python3 chip_smoke.py
@@ -273,7 +276,34 @@ Phases, stopping with a non-zero exit at the first failure:
    phase 4's float engine's but at a top-2 tie below 1e-4, and the
    phase's launches by route equal its decode steps and prefills times
    the layers (plus ``measure_attn``'s 6);
-13. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
+13. the serving fleet — phase 4's model from the seed behind the port's
+   ``fleet``: (a) ``ServingFleet(replicas=2)`` on the card, phase 4's 16
+   requests from 4 HTTP clients through the router's ``:generate``: both
+   replicas served (the router's ``/metrics`` labels), the split
+   launches exactly 12 x the replicas' decode steps summed and the tiled
+   ones 12 x their prefills; (b) ``rolling_drain(upgrade=)`` with the
+   same weights while 8 requests are in flight: zero lost, every engine
+   replaced; (c) ``kill_scheduler_at_step`` on one replica mid-stream:
+   zero client-visible failures, the replica dead in ``/healthz``, the
+   failover counted; (d) ``tiers={"prefill": 1, "decode": 1}``: each
+   request's blocks shipped and spliced, the decode replica's prefix
+   hits the shipped blocks; (e) ``cluster.serving_fleet(...,
+   placement="executors")`` on a 2-executor ``Context``: the two
+   replicas, each in its own executor process on the card, serve 8 of
+   phase 4's requests, and ``stop`` / ``sc.stop()`` leave no process
+   and no KV-ship ring; (f)
+   ``ServingFleet(journal=)``: ``restart_reservation()`` mid-traffic
+   with zero failures and every epoch kept, then a ``RouterStandby``
+   takes over from a crashed router and the old router's control epoch
+   is refused 409; (g) ``lm_generate --fleet 2 --serve 8 --steps 40``:
+   every
+   output equals solo ``generate``. Legs (b)-(d) are held to the same
+   exact launch counts as (a). Tokens equal phase 4's float engine's
+   but at a top-2 tie below 1e-4. Printed: fleet tokens/s and TTFT p50
+   beside phase 4's, the router overhead p50, failovers, drain walls,
+   ship MB and ms, the beat's host ms, the executor-hosted formation
+   seconds and tokens/s;
+14. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
    counts as ``launches_cluster``, phase 7's as ``launches_pipeline``,
    phase 8's (BERT training plus ``:predict``) as ``launches_models``,
    phase 9's streaming-fed trainer's as ``launches_streaming`` and the
@@ -282,8 +312,9 @@ Phases, stopping with a non-zero exit at the first failure:
    shape as ``bert_shape``, and the kernel each dtype runs as
    ``design``; the paged row adds phase 11's launches as
    ``launches_spec`` and ``launches_disagg``, phase 12's as
-   ``launches_planes``, and the verify window's times as ``verify``), the
-   card line, and last the ``{"ok": true, ...}`` line.
+   ``launches_planes``, phase 13's as ``launches_fleet``, and the verify
+   window's times as ``verify``), the card line, and last the ``{"ok":
+   true, ...}`` line.
 
 ``--out-dir DIR`` also writes every number of the run to
 ``DIR/chip_smoke.json``. Needs one card; exits non-zero, printing no
@@ -4306,6 +4337,514 @@ def planes_phase(torch, pa, dev, runs, decode_timing):
     return res
 
 
+# -- phase 13: the serving fleet ----------------------------------------
+
+#: 13(b): requests in flight while the rolling drain cycles the replicas
+FLEET_DRAIN_REQUESTS = 8
+#: 13(c): the replica whose scheduler dies, the decode step it dies at,
+#: and the requests sent across the kill
+FLEET_VICTIM, FLEET_KILL_STEP, FLEET_KILL_REQUESTS = "replica-1", 4, 8
+#: 13(d): phase 4's requests without the shared prefix (no block of one
+#: is resident anywhere before its own shipment), one at a time
+FLEET_TIER_REQUESTS = (0, 2, 3, 4)
+#: 13(e): phase 4's requests the executor-hosted replicas serve
+FLEET_EXECUTOR_REQUESTS = 8
+#: calls timed for the beat's host cost
+BEAT_SAMPLES = 50
+
+
+def _zero_launches(pa):
+    for route in pa.route_launches:
+        pa.route_launches[route] = 0
+
+
+def _launch_check(pa, engines, leg):
+    """The launches by route since the last reset must be exactly
+    LAYERS x the engines' decode steps (split) and LAYERS x their
+    prefills (tiled); returns the routes."""
+    counts = [e.counters.snapshot()["counts"] for e in engines]
+    steps = sum(c.get("decode_steps", 0) for c in counts)
+    prefills = sum(c.get("prefills", 0) for c in counts)
+    routes = dict(pa.route_launches)
+    want = {"split": LAYERS * steps, "tiled": LAYERS * prefills,
+            "tiled_simt": 0}
+    check(routes == want, "13({}) launches by route {} are not {} ({} "
+          "steps, {} prefills summed over the replicas)".format(
+              leg, routes, want, steps, prefills))
+    return routes, steps, prefills
+
+
+def _fleet_clients(port, reqs, idx, clients=4, name="gpt2"):
+    """Send ``reqs[i]`` for ``i`` in ``idx`` through the router at
+    ``port`` from ``clients`` concurrent HTTP clients; returns ({i:
+    tokens}, errors, wall seconds)."""
+    out, errors = {}, []
+    lock = threading.Lock()
+
+    def client(c):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        for i in idx[c::clients]:
+            prompt, n_new = reqs[i]
+            try:
+                conn.request("POST", "/v1/models/{}:generate".format(name),
+                             body=json.dumps({"prompt": prompt,
+                                              "max_new_tokens": n_new}),
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+                if resp.status != 200:
+                    raise RuntimeError("HTTP {}: {}".format(resp.status,
+                                                            body))
+                with lock:
+                    out[i] = body["tokens"]
+            except Exception as e:  # noqa: BLE001 - reported by the caller
+                with lock:
+                    errors.append(repr(e))
+                conn.close()
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=600)
+        conn.close()
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, errors, time.monotonic() - t0
+
+
+def _replica_completions(fleet_):
+    """{replica: requests completed} as the router's /metrics labels
+    them (the beat-carried engine snapshots)."""
+    out = {}
+    for line in fleet_.router.metrics_text().splitlines():
+        if line.startswith("tfos_serving_requests_completed_total{"):
+            label = line.split('replica="', 1)[1].split('"', 1)[0]
+            out[label] = int(float(line.rsplit(" ", 1)[1]))
+    return out
+
+
+def _fleet_tokens(torch, generation, model, runs, reqs, got, idx, leg,
+                  dev):
+    """Fleet outputs must equal phase 4's float engine's but at a top-2
+    tie below 1e-4; returns the ties."""
+    check(sorted(got) == sorted(idx), "13({}) answered {} of {} "
+          "requests".format(leg, len(got), len(idx)))
+    return compare_tokens(torch, generation, model, [got[i] for i in idx],
+                          [runs[None]["out"][i] for i in idx],
+                          [reqs[i] for i in idx], None, dev)
+
+
+def _beat_cost(replica):
+    """Host ms of one beat's payload (``load_stats`` + the registry
+    snapshot) and of one uncached prefix digest, p50 over BEAT_SAMPLES."""
+    beat, digest = [], []
+    pool = replica.engine._pool
+    for _ in range(BEAT_SAMPLES):
+        # a beat during traffic finds the pool changed since the last
+        # one: its first digest read sorts, the second hits the memo
+        pool.forget_digest()
+        t0 = time.perf_counter()
+        replica._payload()
+        beat.append((time.perf_counter() - t0) * 1e3)
+        pool.forget_digest()
+        t0 = time.perf_counter()
+        dig = pool.prefix_digest()
+        digest.append((time.perf_counter() - t0) * 1e3)
+    return {"beat_ms_p50": float(np.median(beat)),
+            "digest_ms_p50": float(np.median(digest)),
+            "digest_chains": len(dig["top"])}
+
+
+def fleet_phase(torch, pa, dev, runs, here):
+    """Phase 13: the serving fleet on phase 4's model, through the
+    port's ``fleet`` and ``cluster.serving_fleet``: (a) two in-process
+    replicas behind the router, phase 4's 16 requests from 4 clients;
+    (b) a rolling drain with requests in flight; (c) a scheduler killed
+    mid-stream, failed over; (d) the two-stage prefill -> decode tiers;
+    (e) replicas hosted in executor processes; (f) the control-state
+    journal across a reservation restart and a standby router's
+    takeover; (g) ``lm_generate --fleet 2``. Tokens equal phase 4's
+    float engine's (``runs``) but at a top-2 tie below 1e-4."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import (chaos, cluster, fleet,
+                                             generation, kvship, serving)
+    from tensorflowonspark_tpu_torch.engine import Context
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+    t_phase = time.monotonic()
+    model = DecoderLM(VOCAB, hidden=HIDDEN, num_heads=HEADS,
+                      num_layers=LAYERS, max_len=MAX_LEN, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+    reqs = traffic()
+    engine_kw = {"slots": SLOTS, "total_len": MAX_LEN,
+                 "kv_block_size": BLOCK, "device": str(dev)}
+    res = {}
+    launches = {"split": 0, "tiled": 0, "tiled_simt": 0}
+
+    def add(routes):
+        for k in launches:
+            launches[k] += routes[k]
+
+    # (a) two replicas behind the router: THE main path of this phase,
+    # counts at zero just before, read just after
+    f = fleet.ServingFleet(model, replicas=2, name="gpt2",
+                           engine_kw=engine_kw, host="127.0.0.1")
+    f.start()
+    try:
+        port = f.router_addr[1]
+        check(all(r.engine.device.type == "cuda"
+                  and r.engine.model is not model for r in f.replicas),
+              "13(a) the replicas are not on the card with their own "
+              "modules")
+        _zero_launches(pa)
+        idx = list(range(len(reqs)))
+        got, errors, wall = _fleet_clients(port, reqs, idx)
+        check(not errors, "13(a) fleet requests failed: {}".format(
+            errors[:2]))
+        engines = [r.engine for r in f.replicas]
+        routes, steps, prefills = _launch_check(pa, engines, "a")
+        add(routes)
+        ties = _fleet_tokens(torch, generation, model, runs, reqs, got, idx,
+                             "a", dev)
+        deadline = time.monotonic() + 10
+        while sum(_replica_completions(f).values()) < len(reqs) \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        per_replica = _replica_completions(f)
+        check(sorted(per_replica) == ["replica-0", "replica-1"]
+              and all(n > 0 for n in per_replica.values())
+              and sum(per_replica.values()) == len(reqs),
+              "13(a) the router's /metrics shows completions {}".format(
+                  per_replica))
+        n_new = sum(n for _, n in reqs)
+        counts = f.router.counters.snapshot()["counts"]
+        beat = _beat_cost(f.replicas[0])
+        res["a"] = {
+            "tokens_per_s": n_new / wall, "wall_s": wall,
+            "ttft_p50_s": {r.replica_id: r.engine.histograms["ttft"]
+                           .quantile(0.5) for r in f.replicas},
+            "route_overhead_p50_s": f.router._hist_overhead.quantile(0.5),
+            "failovers": counts.get("failovers", 0),
+            "per_replica": per_replica, "launches": routes,
+            "decode_steps": steps, "prefills": prefills, "ties": ties,
+            "beat": beat}
+        log("fleet 13(a) 2 replicas: {:.1f} tokens/s over {} requests "
+            "({:.2f}s) vs phase 4's single engine {:.1f}; TTFT p50 {} vs "
+            "{:.4f}s; router overhead p50 {:.3f} ms; failovers {}; per "
+            "replica {}; launches {} ({} x {} steps, {} x {} prefills); "
+            "tokens equal phase 4's ({} at a tie); beat {:.3f} ms p50 "
+            "(uncached digest {:.3f} ms over {} chains)".format(
+                n_new / wall, len(reqs), wall, runs[None]["tokens_per_s"],
+                {k: round(v, 4) for k, v in res["a"]["ttft_p50_s"].items()},
+                runs[None]["ttft_p50"],
+                1e3 * res["a"]["route_overhead_p50_s"], res["a"]["failovers"],
+                per_replica, routes, LAYERS, steps, LAYERS, prefills, ties,
+                beat["beat_ms_p50"], beat["digest_ms_p50"],
+                beat["digest_chains"]))
+
+        # (b) rolling drain with the same weights, requests in flight
+        _zero_launches(pa)
+        before = {id(e): e.counters.snapshot()["counts"] for e in engines}
+        idx = list(range(FLEET_DRAIN_REQUESTS))
+        box = {}
+        sender = threading.Thread(target=lambda: box.update(
+            zip(("got", "errors", "wall"),
+                _fleet_clients(port, reqs, idx))))
+        sender.start()
+        deadline = time.monotonic() + 60
+        while sum(r.engine.outstanding() for r in f.replicas) < 4 \
+                and time.monotonic() < deadline:
+            time.sleep(0.001)
+
+        def upgrade(old):
+            return serving.DecodeEngine(
+                old.model, replica_id=old.replica_id, counters=old.counters,
+                timers=old.timers, metrics=old.metrics, flight=old.flight,
+                **engine_kw)
+
+        report = f.rolling_drain(upgrade=upgrade)
+        sender.join()
+        check(report["completed"] and report["zero_loss"]
+              and not box["errors"],
+              "13(b) the rolling drain lost requests: {} {}".format(
+                  report, box["errors"][:2]))
+        check(all(r.engine not in engines for r in f.replicas),
+              "13(b) an engine was not replaced")
+        after = [e.counters.snapshot()["counts"] for e in
+                 [r.engine for r in f.replicas]]
+        steps = sum(a.get("decode_steps", 0) - before[id(e)].get(
+            "decode_steps", 0) for a, e in zip(after, engines))
+        prefills = sum(a.get("prefills", 0) - before[id(e)].get(
+            "prefills", 0) for a, e in zip(after, engines))
+        routes = dict(pa.route_launches)
+        check(routes == {"split": LAYERS * steps, "tiled": LAYERS * prefills,
+                         "tiled_simt": 0},
+              "13(b) launches {} vs {} steps, {} prefills".format(
+                  routes, steps, prefills))
+        add(routes)
+        ties_b = _fleet_tokens(torch, generation, model, runs, reqs,
+                               box["got"], idx, "b", dev)
+        res["b"] = {"drain_wall_s": [r["wall_s"] for r in report["replicas"]],
+                    "requests": len(idx), "launches": routes,
+                    "ties": ties_b}
+        log("fleet 13(b) rolling drain with {} in flight: zero lost, walls "
+            "{} s, tokens equal phase 4's ({} at a tie)".format(
+                len(idx), res["b"]["drain_wall_s"], ties_b))
+
+        # (c) one replica's scheduler dies mid-stream
+        _zero_launches(pa)
+        engines = [r.engine for r in f.replicas]
+        before = {id(e): e.counters.snapshot()["counts"] for e in engines}
+        chaos.arm("kill_scheduler_at_step={},only={}".format(
+            FLEET_KILL_STEP, FLEET_VICTIM))
+        idx = list(range(8, 8 + FLEET_KILL_REQUESTS))
+        got, errors, _ = _fleet_clients(port, reqs, idx)
+        chaos.disarm()
+        check(not errors, "13(c) client-visible failures: {}".format(
+            errors[:2]))
+        victim = f.replicas[1]
+        check(victim.replica_id == FLEET_VICTIM
+              and not victim.engine.healthy()["alive"],
+              "13(c) the victim's scheduler is alive")
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            status, body = f.router.healthz()
+            if body["replicas"][FLEET_VICTIM]["alive"] is False:
+                break
+            time.sleep(0.05)
+        failovers = f.router.counters.snapshot()["counts"].get(
+            "failovers", 0) - res["a"]["failovers"]
+        check(body["replicas"][FLEET_VICTIM]["alive"] is False
+              and body["routable"] == 1 and failovers >= 1,
+              "13(c) healthz {} / failovers {}".format(
+                  body["replicas"][FLEET_VICTIM], failovers))
+        after = [e.counters.snapshot()["counts"] for e in engines]
+        steps = sum(a.get("decode_steps", 0) - before[id(e)].get(
+            "decode_steps", 0) for a, e in zip(after, engines))
+        prefills = sum(a.get("prefills", 0) - before[id(e)].get(
+            "prefills", 0) for a, e in zip(after, engines))
+        routes = dict(pa.route_launches)
+        check(routes == {"split": LAYERS * steps, "tiled": LAYERS * prefills,
+                         "tiled_simt": 0},
+              "13(c) launches {} vs {} steps, {} prefills".format(
+                  routes, steps, prefills))
+        add(routes)
+        ties_c = _fleet_tokens(torch, generation, model, runs, reqs, got,
+                               idx, "c", dev)
+        res["c"] = {"failovers": failovers, "requests": len(idx),
+                    "launches": routes, "ties": ties_c}
+        log("fleet 13(c) {} killed at step {}: {} requests, zero client "
+            "failures, {} failovers, healthz shows it dead; tokens equal "
+            "phase 4's ({} at a tie)".format(FLEET_VICTIM, FLEET_KILL_STEP,
+                                             len(idx), failovers, ties_c))
+    finally:
+        chaos.disarm()
+        f.stop()
+
+    # (d) two-stage dispatch: a prefill tier and a decode tier
+    _zero_launches(pa)
+    f = fleet.ServingFleet(model, name="gpt2",
+                           tiers={"prefill": 1, "decode": 1},
+                           engine_kw=engine_kw, host="127.0.0.1")
+    f.start()
+    try:
+        pre, dec = f.replicas
+        idx = list(FLEET_TIER_REQUESTS)
+        got, errors, _ = _fleet_clients(f.router_addr[1], reqs, idx,
+                                        clients=1)
+        check(not errors, "13(d) failed: {}".format(errors[:2]))
+        routes, _, _ = _launch_check(pa, [pre.engine, dec.engine], "d")
+        add(routes)
+        counts = f.router.counters.snapshot()["counts"]
+        shipped = pre.engine.kv_counters.get("ship_blocks")
+        spliced = dec.engine.kv_counters.get("spliced_blocks")
+        hits = dec.engine.counters.get("prefix_hit_blocks")
+        want_hits = sum((len(reqs[i][0]) - 1) // BLOCK for i in idx)
+        check(counts.get("prefill_ships") == len(idx)
+              and shipped == spliced and hits == want_hits
+              and spliced >= hits,
+              "13(d) ships {}, blocks shipped {} spliced {}, decode hits "
+              "{} (want {})".format(counts.get("prefill_ships"), shipped,
+                                   spliced, hits, want_hits))
+        ties_d = _fleet_tokens(torch, generation, model, runs, reqs, got,
+                               idx, "d", dev)
+        ship_ms = pre.engine.histograms["kv_ship_ms"]
+        res["d"] = {"ships": len(idx), "blocks": shipped,
+                    "ship_mb": pre.engine.kv_counters.get("ship_bytes")
+                    / 2 ** 20,
+                    "ship_ms_p50": ship_ms.quantile(0.5),
+                    "decode_prefix_hit_blocks": hits, "launches": routes,
+                    "ties": ties_d}
+        log("fleet 13(d) prefill -> decode tiers: {} ships, {} blocks "
+            "({:.2f} MB), ship p50 {:.2f} ms, decode prefix hits {} = the "
+            "shipped prompt blocks; tokens equal phase 4's ({} at a tie)"
+            .format(len(idx), shipped, res["d"]["ship_mb"],
+                    res["d"]["ship_ms_p50"], hits, ties_d))
+    finally:
+        f.stop()
+        kvship.close_rings()
+
+    # (e) replicas hosted in two executor processes
+    work = tempfile.mkdtemp(prefix=".tfos-fleet-", dir=here)
+    t0 = time.monotonic()
+    sc = Context(2, work_root=os.path.join(work, "engine"))
+    pids = set()
+    try:
+        f = cluster.serving_fleet(model, replicas=2, name="gpt2",
+                                  placement="executors", sc=sc,
+                                  engine_kw=engine_kw, spawn_timeout=300)
+        formation = time.monotonic() - t0
+        try:
+            snap = f.reservation.serving_snapshot()
+            pids = {info["host"]["pid"] for info in snap.values()}
+            devices = {info["serving"]["device"] for info in snap.values()}
+            check(len(pids) == 2 and os.getpid() not in pids
+                  and all(d.startswith("cuda") for d in devices),
+                  "13(e) executor replicas: pids {} devices {}".format(
+                      pids, devices))
+            idx = list(range(FLEET_EXECUTOR_REQUESTS))
+            got, errors, wall_e = _fleet_clients(f.router_addr[1], reqs,
+                                                 idx)
+            check(not errors, "13(e) failed: {}".format(errors[:2]))
+            ties_e = _fleet_tokens(torch, generation, model, runs, reqs,
+                                   got, idx, "e", dev)
+        finally:
+            f.stop()
+    finally:
+        sc.stop()
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and any(
+            os.path.exists("/proc/%d" % p) for p in pids):
+        time.sleep(0.1)
+    left = [p for p in pids if os.path.exists("/proc/%d" % p)]
+    rings = [r for r in os.listdir("/dev/shm") if r.startswith(
+        "tfos-kvship-") and r.rsplit(".", 1)[-1] in {str(p) for p in pids}] \
+        if os.path.isdir("/dev/shm") else []
+    check(not left and not rings, "13(e) left behind: processes {} "
+          "rings {}".format(left, rings))
+    shutil.rmtree(work, ignore_errors=True)
+    n_new = sum(reqs[i][1] for i in idx)
+    res["e"] = {"formation_s": formation, "devices": sorted(devices),
+                "requests": len(idx), "wall_s": wall_e,
+                "tokens_per_s": n_new / wall_e, "ties": ties_e,
+                "pids_differ": True}
+    log("fleet 13(e) executor-hosted: formation {:.2f}s, devices {}, {} "
+        "requests {:.1f} tokens/s ({:.2f}s; the in-process fleet {:.1f}, "
+        "phase 4's engine {:.1f}), tokens equal phase 4's ({} at a tie); "
+        "stop leaves no process, no ring".format(
+            formation, sorted(devices), len(idx), n_new / wall_e, wall_e,
+            res["a"]["tokens_per_s"], runs[None]["tokens_per_s"], ties_e))
+
+    # (f) journal across a reservation restart, then a standby takeover
+    journal = os.path.join(tempfile.mkdtemp(prefix=".tfos-journal-",
+                                            dir=here), "control.journal")
+    f = fleet.ServingFleet(model, replicas=2, name="gpt2",
+                           engine_kw=engine_kw, host="127.0.0.1",
+                           journal=journal)
+    f.start()
+    sb = None
+    try:
+        epochs = {r.replica_id: r.epoch for r in f.replicas}
+        control = f.control_epoch
+        box = {}
+        sender = threading.Thread(target=lambda: box.update(
+            zip(("got", "errors", "wall"),
+                _fleet_clients(f.router_addr[1], reqs, list(range(4)),
+                               clients=2))))
+        sender.start()
+        time.sleep(0.2)
+        fresh = f.restart_reservation()
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and {
+                k: v.get("epoch")
+                for k, v in fresh.serving_snapshot().items()} != epochs:
+            time.sleep(0.05)
+        sender.join()
+        check(not box["errors"] and {
+            k: v.get("epoch") for k, v in
+            fresh.serving_snapshot().items()} == epochs,
+            "13(f) restart: errors {} epochs {} vs {}".format(
+                box["errors"][:2], {k: v.get("epoch") for k, v in
+                                    fresh.serving_snapshot().items()},
+                epochs))
+        _fleet_tokens(torch, generation, model, runs, reqs, box["got"],
+                      list(range(4)), "f", dev)
+        old_router, old_epoch = f.router, f.control_epoch
+        sb = fleet.RouterStandby(f, probe_interval=0.05, confirm=2).start()
+        t0 = time.monotonic()
+        old_router.crash()
+        check(sb.took_over.wait(30), "13(f) the standby never took over")
+        takeover = time.monotonic() - t0
+        got, errors, _ = _fleet_clients(f.router_addr[1], reqs, [4])
+        conn = http.client.HTTPConnection(*f.replicas[0].addr, timeout=30)
+        conn.request("POST", "/admin/ship_fence", body=json.dumps(
+            {"replica_id": "x", "min_epoch": 1}), headers={
+                "X-TFOS-Control-Epoch": str(old_epoch)})
+        resp = conn.getresponse()
+        refused = (resp.status, json.loads(resp.read()))
+        conn.close()
+        check(not errors and f.control_epoch > old_epoch > 0
+              and control == old_epoch
+              and fresh.mint_epoch("probe") == 1
+              and refused[0] == 409
+              and refused[1].get("kind") == "ControlFenced",
+              "13(f) takeover: errors {}, epochs {} -> {}, old leader's "
+              "write {}".format(errors[:2], old_epoch, f.control_epoch,
+                                refused))
+        _fleet_tokens(torch, generation, model, runs, reqs, got, [4], "f",
+                      dev)
+        res["f"] = {"epochs": epochs, "control_epoch": [old_epoch,
+                                                        f.control_epoch],
+                    "takeover_s": takeover, "old_leader_write": refused[0]}
+        log("fleet 13(f) journal: reservation restarted mid-traffic, zero "
+            "failures, epochs kept {}; standby took over in {:.3f}s, "
+            "control epoch {} -> {}, the old leader's write refused {}"
+            .format(epochs, takeover, old_epoch, f.control_epoch,
+                    refused[0]))
+    finally:
+        if sb is not None:
+            sb.stop()
+        f.stop()
+        shutil.rmtree(os.path.dirname(journal), ignore_errors=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) the example driver through a fleet
+    cmd = [sys.executable, "-m",
+           "tensorflowonspark_tpu_torch.examples.generate.lm_generate",
+           "--fleet", "2", "--serve", "8", "--steps", "40"]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    out = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                         text=True, timeout=600)
+    check(out.returncode == 0, "lm_generate --fleet 2 failed:\n{}".format(
+        out.stdout[-2000:] + out.stderr[-3000:]))
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    check(got["fleet"]["solo_mismatches"] == 0
+          and got["serve"]["solo_mismatches"] == 0
+          and all(d.startswith("cuda")
+                  for d in got["fleet"]["replica_devices"]),
+          "13(g) lm_generate --fleet 2: {}".format(got["fleet"]))
+    res["g"] = dict(got["fleet"], wall_s=time.monotonic() - t0)
+    log("fleet 13(g) lm_generate --fleet 2 --serve 8: {} requests through "
+        "the fleet {:.1f} tokens/s, solo_mismatches 0; command wall {:.1f}s"
+        .format(got["fleet"]["requests"], got["fleet"]["tokens_per_sec"],
+                res["g"]["wall_s"]))
+    res["launches"] = launches
+    res["wall_s"] = time.monotonic() - t_phase
+    log("fleet phase: launches {}; wall {:.1f}s".format(launches,
+                                                        res["wall_s"]))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -4419,6 +4958,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     planes = planes_phase(torch, pa, dev, runs, timing["decode"][False])
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_res = fleet_phase(torch, pa, dev, runs, here)
     t = timing["decode"][False]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -4435,6 +4977,10 @@ def main():
         # steps x layers + measure_attn's 6 on split, prefills x layers
         # on tiled), counted exactly
         "launches_planes": planes["launches"],
+        # phase 13: the fleet's replicas (two engines, then a prefill and
+        # a decode tier) by route, each leg exact against its steps and
+        # prefills
+        "launches_fleet": fleet_res["launches"],
         "max_abs_err": max(max(max_err.values()), gen["verify_error"]),
         # the decode shape (split-KV route), the main path's decode
         # steps; ms and library_ms per eager call, as for the flash rows,
@@ -4476,6 +5022,7 @@ def main():
         "replaces": "tensorflowonspark_tpu/ops/paged_attention.py:210",
         # the tensor-core query-tiled kernel: the serving legs' prefills
         "launches": route_launches["tiled"],
+        "launches_fleet": fleet_res["launches"]["tiled"],
         "max_abs_err": max_err["tiled"],
         # the 256-token tail, float32; ms per eager call, device time
         # through CUDA-graph replays beside it; int8 and the cold 512
@@ -4568,6 +5115,7 @@ def main():
                        "parallel": par,
                        "generation": gen,
                        "planes": planes,
+                       "fleet": fleet_res,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     log("total: {:.1f}s".format(time.monotonic() - t_start))
     print(json.dumps(kernels))

@@ -5,13 +5,15 @@ grammar, same ``TFOS_CHAOS`` variable, same seeded plans).
 The port's sites are the feed plane's (``DataFeed``'s ``on_batch``,
 the heartbeat publishers' ``on_heartbeat``), the reservation
 server's (``on_reservation_beat``, and ``on_net`` around every
-reservation message), the checkpointer's (``on_checkpoint_saved``,
-with the corruption helpers it calls) and the decode engine's serving
-sites (``on_decode_step``, ``on_serving_request``, ``on_token``). Left
-for later slices, with the sites that fire them: the step and router
-points (``kill_trainer_at_step``, ``drop_executor_then_return_after``,
-``kill_router_at_request``, ``restart_reservation_after``; ROADMAP
-Queue 1 items 9-11) and the driver-side choreography helpers
+reservation message and every fleet HTTP exchange), the checkpointer's
+(``on_checkpoint_saved``, with the corruption helpers it calls), the
+decode engine's serving sites (``on_decode_step``,
+``on_serving_request``, ``on_token``) and the fleet router's
+(``on_router_request``), with the driver-side restart helper
+:func:`schedule_reservation_restart`. Left for ROADMAP Queue 1 item 9b
+(the policy planes), with the sites that fire them: the step and
+executor points (``kill_trainer_at_step``,
+``drop_executor_then_return_after``) and their driver-side helpers
 (``schedule_executor_return``, ``kill_when``); the port's parser refuses
 those points instead of arming a site that never fires.
 
@@ -65,6 +67,13 @@ Injection points (each checked at an instrumented framework site):
   killing anything.
 - ``kill_reservation_server=N`` — the reservation server crashes in
   place at its N-th BEAT (:func:`on_reservation_beat`).
+- ``restart_reservation_after=T`` — the headless time
+  :func:`schedule_reservation_restart` waits after that crash before
+  it restarts the fleet's server (``ServingFleet.restart_reservation``).
+- ``kill_router_at_request=K`` — the fleet router crashes (listener
+  closed mid-traffic, no drain) at its K-th dispatch
+  (:func:`on_router_request`); ``only=<model name>`` picks one router
+  when a leader and a standby share the process.
 - ``corrupt_checkpoint=N`` — after ``Checkpointer.save`` commits step N,
   garble every file of that step on disk (fired by checkpoint.py); the
   restore-with-fallback path is the recovery under test.
@@ -154,7 +163,8 @@ POINTS = ("kill_trainer_at_batch", "kill_trainer_when_queued",
           "kill_reservation_server", "corrupt_checkpoint",
           "kill_scheduler_at_step", "stall_decode_for",
           "disconnect_client_at_token",
-          "kill_serving_executor_at_request") + NET_POINTS
+          "kill_serving_executor_at_request", "kill_router_at_request",
+          "restart_reservation_after") + NET_POINTS
 
 
 class SchedulerKilled(RuntimeError):
@@ -541,6 +551,24 @@ def on_reservation_beat(beats_seen):
     return True
 
 
+def on_router_request(requests_seen, ident=None):
+    """Fleet-router dispatch site (fleet.FleetRouter.dispatch), called
+    with the cumulative dispatches this router has seen.
+    ``kill_router_at_request=K`` returns True once the K-th dispatch
+    arrives; the router then CRASHES (listener closed mid-traffic, no
+    drain) — leader death at a deterministic point in the request
+    stream, the signature the warm-standby takeover recovers from.
+    ``ident`` is the router's model name: ``only=<name>`` kills ONE
+    router when a leader and standby share the process."""
+    inj = armed("kill_router_at_request", ident)
+    if inj is None or requests_seen < inj.value:
+        return False
+    inj.mark_fired()
+    logger.error("CHAOS kill_router_at_request: crashing router %s at "
+                 "dispatch %d >= %g", ident, requests_seen, inj.value)
+    return True
+
+
 def on_heartbeat():
     """Heartbeat-publish sites; True = suppress this publish.
 
@@ -664,3 +692,57 @@ def corrupt_step(directory, step):
                    "(%d files)", step, directory, count)
     return count
 
+
+
+# -- harness utilities -----------------------------------------------------
+
+def poll_until(predicate, timeout, interval=0.05):
+    """Event/deadline polling: True when ``predicate()`` held within
+    ``timeout`` seconds, False on expiry — never a bare fixed sleep."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if predicate():
+            return True
+        time.sleep(interval)
+    return bool(predicate())
+
+
+def schedule_reservation_restart(fleet, delay=None, deadline=60):
+    """Driver-side half of ``kill_reservation_server``: wait for the
+    fleet's reservation server to die (its ``done`` latch — the crash
+    site sets it), sleep ``delay`` seconds of headless time, then
+    restart it via ``fleet.restart_reservation()`` — deterministic
+    "the driver comes back" for the control-plane recovery suite.
+    ``delay`` defaults to the armed ``restart_reservation_after``
+    injection's value (0 when none is armed). Returns the started
+    thread; a kill that never fires means no restart, and the
+    caller's positive assertions (zero failures, floors restored)
+    fail loudly instead of flaking."""
+    if delay is None:
+        inj = _current().get("restart_reservation_after")
+        delay = float(inj.value) if inj is not None else 0.0
+
+    def _restarter():
+        if not poll_until(lambda: fleet.reservation.done.is_set(),
+                          timeout=deadline, interval=0.02):
+            logger.warning("chaos.schedule_reservation_restart: the "
+                           "reservation server never died; not "
+                           "restarting")
+            return
+        if delay > 0:
+            time.sleep(delay)
+        inj = _current().get("restart_reservation_after")
+        if inj is not None:
+            inj.mark_fired()
+        try:
+            logger.warning("CHAOS restarting the reservation server "
+                           "(%.2fs of headless time)", delay)
+            fleet.restart_reservation()
+        except Exception as e:  # noqa: BLE001 - harness must not raise
+            logger.warning("chaos.schedule_reservation_restart "
+                           "failed: %s", e)
+
+    t = threading.Thread(target=_restarter, name="chaos-resv-restarter",
+                         daemon=True)
+    t.start()
+    return t

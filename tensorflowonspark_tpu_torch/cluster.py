@@ -23,10 +23,11 @@ receives a :class:`~tensorflowonspark_tpu_torch.node.NodeContext`.
 :class:`~tensorflowonspark_tpu_torch.engine.streaming.StreamingContext`,
 which ``shutdown(ssc)`` stops first.
 
-Left for later slices: ``run(supervise=...)`` (the supervision plane)
-and ``serving_fleet`` (the fleet plane), both waiting for the ROADMAP
-Queue 1 item "Fleet hosting and the policy planes"; ``supervise=``
-raises.
+:func:`serving_fleet` forms a serving fleet (``fleet.ServingFleet``:
+replicas in this process or in executor processes, behind one router)
+in one call. Left for ROADMAP Queue 1 item 9b (the policy planes):
+``run(supervise=...)`` and ``serving_fleet(supervise=, autoscale=)``
+raise.
 """
 
 import logging
@@ -265,16 +266,16 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     :data:`node.DEFAULT_RENDEZVOUS_TIMEOUT`, 300, the reference's bound)
     before it raises.
 
-    ``supervise``: the supervision plane is not ported yet; passing one
-    raises. ``exclude_executors`` / ``beat_interval`` are that plane's
-    plumbing: blacklist a set of engine executor ids (built-in engine
-    only) and override the heartbeat-lease cadence.
+    ``supervise``: the supervision plane is not ported yet (ROADMAP
+    Queue 1 item 9b); passing one raises. ``exclude_executors`` /
+    ``beat_interval`` are that plane's plumbing: blacklist a set of
+    engine executor ids (built-in engine only) and override the
+    heartbeat-lease cadence.
     """
     if supervise is not None:
         raise NotImplementedError(
             "cluster.run(supervise=...) is not ported yet: the supervision "
-            "plane comes with the ROADMAP Queue 1 item 'Fleet hosting and "
-            "the policy planes'")
+            "plane comes with ROADMAP Queue 1 item 9b (the policy planes)")
     if driver_ps_nodes:
         raise NotImplementedError(
             "driver_ps_nodes is not supported: async parameter-server DP "
@@ -400,3 +401,58 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
                      async_result, tuple(queues), num_executors,
                      executor_ids=executor_ids, exclude=exclude)
 
+
+def serving_fleet(model, replicas=2, name="model", supervise=False,
+                  restart=None, placement="driver", sc=None,
+                  autoscale=None, **fleet_kw):
+    """Construct and START a serving fleet: N continuous-batching
+    ``DecodeEngine`` replicas behind their own ``ModelServer``s,
+    registered with a fresh reservation server via BEAT leases, fronted
+    by a least-loaded ``fleet.FleetRouter`` — the serving-plane analog
+    of :func:`run`'s one-call cluster formation.
+
+    ``model`` is the decode module. ``placement`` says WHERE
+    replicas live: ``"driver"`` (the default, all replicas in this
+    process, each with its own copy of the module) or ``"executors"`` —
+    each replica bootstraps INSIDE an executor process via a
+    ``role: "serving"`` map_fun (``node.serve_replica``), builds its
+    module on its own device and registers its real HTTP address over
+    the same BEAT lease; ``sc`` (an engine Context) is required there.
+    The router surface is identical either way. Replicas sharing one
+    card serve less than one engine holding all their slots (see
+    ``fleet.ServingFleet``): on one card, width buys isolation and
+    zero-loss upgrades, not tokens/s.
+
+    ``supervise`` / ``restart`` and ``autoscale`` arm the recovery loop
+    and the SLO-driven autoscaler, which are not ported yet (ROADMAP
+    Queue 1 item 9b, the policy planes): asking for either raises.
+
+    Returns the started ``fleet.ServingFleet`` (a context manager —
+    ``with`` it, or call ``stop()``)::
+
+        f = cluster.serving_fleet(model, replicas=3,
+                                  engine_kw={"device": "cuda"})
+        # POST http://%s:%d/v1/models/model:generate % f.router_addr
+        f.rolling_drain()   # zero-loss engine cycle
+        f.stop()
+
+    Extra ``fleet_kw`` (``engine_kw``, ``beat_interval``,
+    ``router_kw``, ``executors``, ``spawn_timeout``, ``tiers``,
+    ``journal``, ...) pass through to
+    ``fleet.ServingFleet``."""
+    if supervise or restart is not None:
+        raise NotImplementedError(
+            "serving_fleet(supervise=...) is not ported yet: the "
+            "supervisor comes with ROADMAP Queue 1 item 9b (the policy "
+            "planes)")
+    if autoscale is not None and autoscale is not False:
+        raise NotImplementedError(
+            "serving_fleet(autoscale=...) is not ported yet: the "
+            "autoscaler comes with ROADMAP Queue 1 item 9b (the policy "
+            "planes)")
+    from tensorflowonspark_tpu_torch import fleet as fleet_mod
+
+    f = fleet_mod.ServingFleet(model, replicas=replicas, name=name,
+                               placement=placement, sc=sc, **fleet_kw)
+    f.start()
+    return f

@@ -8,14 +8,19 @@ mixed-length prompts through the continuous-batching engine
 (``serving.DecodeEngine``, paged KV) and checks every output
 token-identical to a solo ``generate`` call; ``--tenant`` /
 ``--priority`` tag those requests with a QoS identity (the engine's
-per-tenant token tally is reported as ``tenant_tokens``).
+per-tenant token tally is reported as ``tenant_tokens``). ``--fleet R``
+also serves prompts over HTTP through an R-replica serving fleet
+(``cluster.serving_fleet``: replicas behind the router, with the shared
+``serving.retry_call`` client retry policy) and checks every output
+against solo ``generate``; with ``--executors N`` the replicas run
+inside N engine executor processes, each building the model on its
+own device.
 
     python -m tensorflowonspark_tpu_torch.examples.generate.lm_generate \\
-        --steps 150 --serve 8 [--tenant a --priority high] [--device cpu]
+        --steps 150 --serve 8 [--fleet 2 [--executors 2]] \\
+        [--tenant a --priority high] [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given. ``--fleet`` and
-``--executors`` wait for the port's fleet plane (ROADMAP.md Queue 1
-item 9) and raise.
+Runs on the card unless ``--device cpu`` is given.
 """
 
 import argparse
@@ -24,16 +29,6 @@ import os
 import time
 
 from tensorflowonspark_tpu_torch.examples import _common
-
-
-def _not_ported(args):
-    waits = (("fleet", "the serving fleet (ROADMAP Queue 1 item 9)"),
-             ("executors", "the serving fleet's executor placement "
-                           "(ROADMAP Queue 1 item 9)"))
-    for flag, what in waits:
-        if getattr(args, flag):
-            raise SystemExit(
-                "--{} is not ported yet: it needs {}".format(flag, what))
 
 
 def main(argv=None):
@@ -53,22 +48,33 @@ def main(argv=None):
                          "continuous-batching DecodeEngine and report "
                          "tokens/s and solo parity")
     ap.add_argument("--fleet", type=int, default=0, metavar="R",
-                    help="not ported yet (ROADMAP Queue 1 item 9)")
+                    help="also serve the prompts over HTTP through an "
+                         "R-replica serving fleet (the fleet router), "
+                         "with the shared serving.retry_call client "
+                         "retry policy, and report solo parity")
     ap.add_argument("--executors", type=int, default=0, metavar="N",
-                    help="not ported yet (ROADMAP Queue 1 item 9)")
+                    help="with --fleet: host the replicas INSIDE N "
+                         "engine executor processes instead of this "
+                         "one; each replica's executor and pid are "
+                         "printed")
     ap.add_argument("--tenant", default=None,
-                    help="tenant id attached to every --serve request; "
+                    help="tenant id attached to every --serve/--fleet "
+                         "request; "
                          "omitted: the engine's default tenant")
     ap.add_argument("--priority", default=None,
                     choices=["high", "normal", "low"],
-                    help="priority class for the --serve requests "
+                    help="priority class for the --serve/--fleet "
+                         "requests "
                          "(default: normal)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="write {loss, prompt, generated, serve} JSON here")
     _common.add_device_flag(ap)
     args = ap.parse_args(argv)
-    _not_ported(args)
+    if args.executors and args.executors < args.fleet:
+        raise SystemExit(
+            "--executors {} < --fleet {}: each replica needs its own "
+            "executor".format(args.executors, args.fleet))
 
     import numpy as np
     import torch
@@ -149,9 +155,14 @@ def main(argv=None):
                        "tenant_tokens": tenant_tokens,
                        "solo_mismatches": mismatches}
         print("served   ", serve_stats, flush=True)
+    fleet_stats = None
+    if args.fleet:
+        fleet_stats = _fleet(args, model, dev, max_len)
+        print("fleet    ", fleet_stats, flush=True)
     result = {"device": str(dev), "loss_first": losses[0] if losses else None,
               "loss": losses[-1] if losses else None, "prompt": prompt[0],
-              "generated": generated, "serve": serve_stats}
+              "generated": generated, "serve": serve_stats,
+              "fleet": fleet_stats}
     print(json.dumps(result), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -160,7 +171,106 @@ def main(argv=None):
     if serve_stats is not None and serve_stats["solo_mismatches"]:
         raise SystemExit(
             "continuous-batching outputs diverged from solo generate")
+    if fleet_stats is not None and fleet_stats["solo_mismatches"]:
+        raise SystemExit("fleet-served outputs diverged from solo generate")
     return result
+
+
+def _fleet(args, model, dev, max_len):
+    """Serve mixed-length prompts over HTTP through an ``args.fleet``
+    replica fleet (in this process, or in ``args.executors`` executor
+    processes) and hold each output against solo ``generate``."""
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import cluster, generation, serving
+
+    rs = np.random.RandomState(2)
+    reqs = []
+    for _ in range(max(args.serve, 4)):
+        n = int(rs.randint(3, args.seq_len))
+        start = int(rs.randint(0, args.period))
+        reqs.append(([(start + i) % args.period for i in range(n)],
+                     int(rs.randint(2, args.seq_len))))
+    sc = None
+    fleet_kw = {}
+    if args.executors:
+        # executor-hosted replicas: each bootstraps inside an executor
+        # process, builds the model there from the shipped state dict
+        # and registers its real HTTP address over BEAT
+        from tensorflowonspark_tpu_torch.engine import Context
+        sc = Context(args.executors)
+        fleet_kw = dict(placement="executors", sc=sc, spawn_timeout=300)
+    placement = None
+    try:
+        fl = cluster.serving_fleet(
+            model, replicas=args.fleet, name="lm",
+            engine_kw={"slots": 4, "total_len": max_len,
+                       "device": str(dev)}, **fleet_kw)
+        try:
+            snapshot = fl.reservation.serving_snapshot()
+            if args.executors:
+                placement = {rid: info.get("host")
+                             for rid, info in snapshot.items()}
+                print("placement", placement,
+                      "(driver pid {})".format(os.getpid()), flush=True)
+            devices = sorted({str(info["serving"].get("device"))
+                              for info in snapshot.values()})
+            url = fl.url("/v1/models/lm:generate")
+
+            def post(payload):
+                # the SHARED client retry policy (serving.retry_call):
+                # transient 429/503s retry with bounded backoff + full
+                # jitter, honoring the router's Retry-After
+                def attempt():
+                    req = urllib.request.Request(
+                        url, data=json.dumps(payload).encode(),
+                        headers={"Content-Type": "application/json"})
+                    try:
+                        with urllib.request.urlopen(req, timeout=300) as r:
+                            return json.loads(r.read())
+                    except urllib.error.HTTPError as e:
+                        retriable = serving.http_retriable(
+                            e.code, e.headers.get("Retry-After"))
+                        if retriable is not None:
+                            raise retriable
+                        raise
+                return serving.retry_call(attempt)
+
+            qos_fields = {}
+            if args.tenant is not None:
+                qos_fields["tenant"] = args.tenant
+            if args.priority is not None:
+                qos_fields["priority"] = args.priority
+            t0 = time.monotonic()
+            # each request carries a session id: the router pins a
+            # conversation's later turns to the replica whose prefix
+            # cache is warm for it
+            outs = [post(dict({"prompt": p, "max_new_tokens": mn,
+                               "session": "demo-{}".format(i)},
+                              **qos_fields))["tokens"]
+                    for i, (p, mn) in enumerate(reqs)]
+            wall = time.monotonic() - t0
+            counts = fl.router.counters.snapshot()["counts"]
+        finally:
+            fl.stop()
+    finally:
+        if sc is not None:
+            sc.stop()
+    mismatches = sum(
+        1 for (p, mn), got in zip(reqs, outs)
+        if got != generation.generate_jit(model, [p], mn,
+                                          device=dev)[0].tolist())
+    tokens = sum(len(got) - len(p) for (p, _), got in zip(reqs, outs))
+    return {"replicas": args.fleet, "executors": args.executors,
+            "requests": len(reqs), "tokens": tokens,
+            "tokens_per_sec": round(tokens / wall, 1),
+            "failovers": counts.get("failovers", 0),
+            "affinity_hits": counts.get("affinity_hits", 0),
+            "replica_devices": devices, "placement": placement,
+            "solo_mismatches": mismatches}
 
 
 if __name__ == "__main__":

@@ -24,7 +24,7 @@ second visible, MLPerf-goodput style:
   trainer-side ledger registers into the DataFeed's MetricsRegistry
   and its snapshot rides the existing BEAT lease to the driver.
 
-Left for later slices, with the supervision plane: the driver-side
+Left for ROADMAP Queue 1 item 9b (the policy planes): the driver-side
 ``StragglerDetector`` (skew incidents through the Supervisor), the
 job-level ``job_report`` / ``merged_categories`` composition, and
 ``skew_rows``. The per-executor ``step_skew`` the driver's ``/metrics``

@@ -17,7 +17,9 @@ Differences from the reference:
   (:meth:`NodeContext.initialize_torch`); this bootstrap/feeder process
   must never initialize it — not even ``torch.cuda.is_available()``,
   which creates the driver state a forked child cannot reuse. The
-  executor's own code is stdlib and numpy only.
+  executor's own code is stdlib and numpy only; :func:`run` raises on
+  an executor that already holds a CUDA context (one that hosts a
+  serving replica, see below).
 - **TF_CONFIG → torch.distributed.** Instead of exporting ``TF_CONFIG``
   for a TF gRPC server mesh, the barrier's sorted node list yields each
   participant's rank and the chief's reserved port becomes the
@@ -37,9 +39,13 @@ Differences from the reference:
 - **One card per rank.** :meth:`NodeContext.initialize_torch` gives each
   rank of a host its own card (:func:`local_device_index`).
 
-Left for a later slice: ``serve_replica``/``stop_replica``
-(executor-hosted serving, with the ROADMAP Queue 1 item "Fleet hosting
-and the policy planes").
+- **A serving executor owns its card.** :func:`serve_replica` builds a
+  fleet replica (``fleet.ServingNode``: engine, server, beat agent)
+  IN the executor process, as the reference does, so that executor
+  does initialize CUDA — and can therefore never fork a trainer:
+  :func:`run` refuses, before anything else, on an executor whose
+  process has a CUDA context. Training and serving take separate
+  executors.
 """
 
 import datetime
@@ -287,6 +293,23 @@ class NodeContext(object):
             "executor {} not present in cluster_info".format(self.executor_id))
 
 
+def _refuse_cuda_executor(executor_id):
+    """The trainer this bootstrap forks must be the first process of the
+    node to touch CUDA: a forked child cannot use its parent's CUDA
+    context. An executor that hosts a serving replica
+    (:func:`serve_replica`) holds one, so training refuses it — checked
+    without initializing CUDA here (``torch.cuda.is_initialized`` reads
+    state only, and only when torch is already loaded)."""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        raise RuntimeError(
+            "executor {} (pid {}) has already initialized CUDA — it "
+            "hosts a serving replica or ran CUDA work — so it cannot fork "
+            "a trainer (a forked child cannot use its parent's CUDA "
+            "context); run training on executors that serve no "
+            "replica".format(executor_id, os.getpid()))
+
+
 def local_device_index(nodes, executor_id, visible):
     """The card index of ``executor_id``'s trainer: its position among
     the ``nodes`` (cluster_info entries, in rank order) whose ``host``
@@ -332,6 +355,7 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
         from tensorflowonspark_tpu_torch.engine import executor as engine_executor
         info = engine_executor.get_executor_info()
         executor_id = ids[0] if ids else info.get("executor_id")
+        _refuse_cuda_executor(executor_id)
 
         # Duplicate-bootstrap guard (reference: cluster-id check in
         # TFSparkNode.run for retried tasks).
@@ -559,6 +583,100 @@ def _start_trainer(fn, tf_args, executor_id, job_name, task_index,
     proc.daemon = True
     proc.start()
     return proc
+
+
+#: executor-hosted serving nodes in THIS process, keyed by replica_id
+#: (fleet.ServingNode objects). Module-level for the same reason as
+#: _NODE_STATE: the serve/stop closures ship by value, so access goes
+#: through a module function that both sides resolve via sys.modules.
+_SERVING_STATE = {}
+
+
+def _serving_state():
+    return sys.modules[__name__]._SERVING_STATE
+
+
+def serve_replica(spec):
+    """Return the ``role: "serving"`` bootstrap closure, run once on
+    the target executor: the paper's executor-role map_fun applied to
+    the serving plane. The closure builds the replica IN the executor
+    process — ``fleet.ServingNode``: the module from ``spec["module"]``
+    (or ``spec["builder"]``) on ``spec["engine_kw"]["device"]`` (default
+    the card), a ``DecodeEngine`` with the rest of ``engine_kw`` (slots,
+    paging, ``attn_impl``; the QoS policy rides ``spec["qos"]``), a
+    ``ModelServer`` on an ephemeral port with the remote lifecycle RPCs
+    mounted, and the BEAT agent registering the replica's real HTTP
+    address with the driver's reservation server — then RETURNS,
+    leaving the node serving on daemon threads (the executor's task
+    slot frees; the driver reaches the node over HTTP from here on).
+    Unlike the training bootstrap, the engine runs in the executor
+    process itself: a serving executor IS its card's owner, so it
+    forks no trainer (:func:`run` refuses it).
+
+    A task retried onto an executor already hosting this replica_id
+    stops the incumbent first (the re-spawn semantics a replacement
+    relies on when the same executor is chosen again)."""
+
+    def _mapfn(iterator):
+        for _ in iterator:
+            pass
+        from tensorflowonspark_tpu_torch import fleet as fleet_mod
+        from tensorflowonspark_tpu_torch.engine import executor as engine_executor
+
+        info = engine_executor.get_executor_info()
+        executor_id = info.get("executor_id")
+        if executor_id is None:
+            executor_id = util.read_executor_id()
+        rid = str(spec["replica_id"])
+        # chaos gate: kill_serving_executor_at_request refuses to fire
+        # in any process that is not an executor-hosted serving node
+        os.environ["TFOS_SERVING_EXECUTOR_ID"] = str(executor_id)
+        # reap KV-ship rings a SIGKILLed predecessor left in /dev/shm:
+        # ship-ring names embed the creator pid exactly like the feed
+        # rings, so the stale sweep can prove owner death before this
+        # node's prefill side allocates fresh ones; scoped to the
+        # kvship family so a co-hosted training cluster's feed rings
+        # are never touched from the serving bootstrap
+        try:
+            from tensorflowonspark_tpu_torch import shm
+            if shm.available():
+                swept = shm.sweep_stale(
+                    pattern="/dev/shm/tfos-kvship-*.*")
+                if swept:
+                    logger.warning("reaped %d stale kv-ship ring(s): "
+                                   "%s", len(swept), swept)
+        except Exception:  # noqa: BLE001 - bootstrap must not die on it
+            logger.exception("kv-ship ring sweep failed")
+        old = _serving_state().pop(rid, None)
+        if old is not None:
+            logger.warning("executor %s already hosts replica %s; "
+                           "stopping the incumbent before re-spawning",
+                           executor_id, rid)
+            try:
+                old.stop()
+            except Exception:  # noqa: BLE001 - replaced either way
+                logger.exception("incumbent replica %s stop failed", rid)
+        host = info.get("host") or util.get_ip_address()
+        node = fleet_mod.ServingNode(spec, executor_id=executor_id,
+                                     host=host)
+        node.start()
+        _serving_state()[rid] = node
+
+    return _mapfn
+
+
+def stop_replica(replica_id):
+    """Closure that stops an executor-hosted replica in place (the
+    task-based fallback when the /admin/stop RPC cannot be used)."""
+
+    def _mapfn(iterator):
+        for _ in iterator:
+            pass
+        node = _serving_state().pop(str(replica_id), None)
+        if node is not None:
+            node.stop()
+
+    return _mapfn
 
 
 #: default seconds between heartbeat-lease beats (env: TFOS_BEAT_INTERVAL;

@@ -156,6 +156,11 @@ class BlockPool(object):
         # raw allocatable() reading can return to a memoized value
         # while a registration changed the head's need underneath it.
         self._epoch = 0
+        # the last prefix_digest, keyed on (epoch, hits, top_k): every
+        # change to the registry bumps the epoch and every chain-hit
+        # tally bumps ``hits``, so an equal key is an equal digest (a
+        # fleet beat reads it twice: load_stats and the metrics hook)
+        self._digest_memo = (None, None)
 
     # -- sizing ----------------------------------------------------------
 
@@ -254,14 +259,31 @@ class BlockPool(object):
         the digest shows"."""
         top_k = max(1, int(top_k))
         with self._lock:
+            memo_key = (self._epoch, self.hits, top_k)
+            if self._digest_memo[0] == memo_key:
+                top, truncated = self._digest_memo[1]
+                return {"block_size": self.block_size,
+                        "top": [list(e) for e in top],
+                        "truncated": truncated}
             chains = [(self._chain_hits.get(bid, 0),
                        len(key) // self.block_size, key)
                       for bid, key in self._key_of.items()]
         chains.sort(key=lambda c: (-c[0], -c[1], c[2]))
         top = [[chain_digest(key, len(key)), depth]
                for _, depth, key in chains[:top_k]]
+        truncated = len(chains) > top_k
+        with self._lock:
+            self._digest_memo = (memo_key, ([list(e) for e in top],
+                                            truncated))
         return {"block_size": self.block_size, "top": top,
-                "truncated": len(chains) > top_k}
+                "truncated": truncated}
+
+    def forget_digest(self):
+        """Drop the memoized :meth:`prefix_digest`, so the next read
+        sorts the registry again, as the first read after a pool change
+        does."""
+        with self._lock:
+            self._digest_memo = (None, None)
 
     def epoch(self):
         """Mutation counter: changes whenever alloc / release /

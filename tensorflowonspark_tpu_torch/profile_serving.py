@@ -19,10 +19,28 @@ warm-up) is discarded; each of ``--reps`` passes prints tokens/s
 and the card; the summary adds the engine's stage timers per decode
 step. Only public API that every slice of the port has is used, so an
 older checkout (``git archive`` of a parent commit) runs as it is.
-Needs one card.
+
+    python3 -m tensorflowonspark_tpu_torch.profile_serving \
+        --layouts engine,pair,pair-concurrent,pair-streams,fleet [--reps 2]
+
+serves the same leg through several engine layouts of this checkout in
+turns in ONE process (each layout, then the list reversed, ``--reps``
+times, after one discarded pass of the first layout): ``engine`` — one
+engine behind one ``ModelServer``; ``pair`` — two engines behind two
+servers, clients 0 and 2 on the first, 1 and 3 on the second (a
+two-replica fleet's load without its router), taking turns to launch
+as engines of one process on one card do (``serving._launch_turn``);
+``pair-concurrent`` — the pair launching at once (no turns);
+``pair-streams`` — the pair launching at once, each scheduler on a CUDA
+stream of its own; ``fleet`` — ``fleet.ServingFleet(replicas=2)``, the
+clients on its router. Each pass prints tokens/s,
+the decode steps summed over its engines, their decode-step p50, and
+per decode step the scheduler threads' CPU ms and voluntary context
+switches (``/proc/self/task/<tid>``). Needs one card.
 """
 
 import argparse
+import contextlib
 import http.client
 import json
 import os
@@ -54,39 +72,38 @@ def traffic():
     return reqs
 
 
-def _serve_pass(serving, engine, reqs, clients=4):
+def _clients(ports, reqs, clients=4):
+    """Client ``c`` sends requests ``c, c + clients, ...`` to
+    ``ports[c % len(ports)]``; returns the wall seconds."""
     errors = []
-    with serving.ModelServer(None, name="gpt2", port=0,
-                             engine=engine) as srv:
-        port = srv.address[1]
 
-        def client(c):
-            try:
-                conn = http.client.HTTPConnection("127.0.0.1", port,
-                                                  timeout=600)
-                for i in range(c, len(reqs), clients):
-                    prompt, n_new = reqs[i]
-                    conn.request("POST", "/v1/models/gpt2:generate",
-                                 body=json.dumps({"prompt": prompt,
-                                                  "max_new_tokens": n_new}))
-                    resp = conn.getresponse()
-                    resp.read()
-                    if resp.status != 200:
-                        errors.append(resp.status)
-                conn.close()
-            except Exception as e:  # noqa: BLE001 - reported below
-                errors.append(repr(e))
+    def client(c):
+        try:
+            conn = http.client.HTTPConnection(
+                "127.0.0.1", ports[c % len(ports)], timeout=600)
+            for i in range(c, len(reqs), clients):
+                prompt, n_new = reqs[i]
+                conn.request("POST", "/v1/models/gpt2:generate",
+                             body=json.dumps({"prompt": prompt,
+                                              "max_new_tokens": n_new}))
+                resp = conn.getresponse()
+                resp.read()
+                if resp.status != 200:
+                    errors.append(resp.status)
+            conn.close()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
 
-        t0 = time.monotonic()
-        threads = []
-        for c in range(clients):
-            t = threading.Thread(target=client, args=(c,), daemon=True,
-                                 name="tfos-profile-client-{}".format(c))
-            t.start()
-            threads.append(t)
-        for t in threads:
-            t.join()
-        wall = time.monotonic() - t0
+    t0 = time.monotonic()
+    threads = []
+    for c in range(clients):
+        t = threading.Thread(target=client, args=(c,), daemon=True,
+                             name="tfos-profile-client-{}".format(c))
+        t.start()
+        threads.append(t)
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
     if errors:
         raise RuntimeError("clients failed: {}".format(errors))
     return wall
@@ -114,7 +131,9 @@ def worker(root, reps):
         engine = serving.DecodeEngine(model, slots=SLOTS, total_len=MAX_LEN,
                                       kv_block_size=BLOCK, device=dev)
         with engine:
-            wall = _serve_pass(serving, engine, reqs)
+            with serving.ModelServer(None, name="gpt2", port=0,
+                                     engine=engine) as srv:
+                wall = _clients([srv.address[1]], reqs)
             ttft = engine.histograms["ttft"].quantile(0.5)
             step = engine.histograms["decode_step"].quantile(0.5)
             stages = engine.timers.snapshot()
@@ -128,6 +147,126 @@ def worker(root, reps):
     return 0
 
 
+def _sched_stats(engine):
+    """(CPU seconds, voluntary context switches or None where the
+    kernel does not count them) of ``engine``'s scheduler thread so
+    far, from ``/proc/self/task/<tid>``."""
+    task = "/proc/self/task/{}/".format(engine._thread.native_id)
+    with open(task + "stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    cpu = (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+    with open(task + "status") as f:
+        switches = next((int(line.split()[1]) for line in f
+                         if line.startswith("voluntary_ctxt_switches")),
+                        None)
+    return cpu, switches
+
+
+def _layout_pass(layout, model, reqs, dev):
+    """One pass of ``layout`` (see the module docstring); returns (wall
+    s, engines, [scheduler stats a engine])."""
+    import torch
+
+    from tensorflowonspark_tpu_torch import fleet, serving
+
+    kw = {"slots": SLOTS, "total_len": MAX_LEN, "kv_block_size": BLOCK,
+          "device": dev}
+    if layout == "fleet":
+        with fleet.ServingFleet(model, replicas=2, name="gpt2",
+                                engine_kw=kw) as f:
+            wall = _clients([f.router_addr[1]], reqs)
+            engines = [r.engine for r in f.replicas]
+            return wall, engines, [_sched_stats(e) for e in engines]
+
+    class OwnStreamEngine(serving.DecodeEngine):
+        def _run(self):
+            stream = torch.cuda.Stream(self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                super()._run()
+
+    cls = OwnStreamEngine if layout == "pair-streams" \
+        else serving.DecodeEngine
+    turn = serving._launch_turn
+    if layout in ("pair-concurrent", "pair-streams"):
+        serving._launch_turn = lambda device: contextlib.nullcontext()
+    engines, servers = [], []
+    try:
+        for _ in range(1 if layout == "engine" else 2):
+            engines.append(cls(model, **kw))
+            servers.append(serving.ModelServer(None, name="gpt2", port=0,
+                                               engine=engines[-1]))
+        wall = _clients([srv.start()[1] for srv in servers], reqs)
+        stats = [_sched_stats(e) for e in engines]
+    finally:
+        serving._launch_turn = turn
+        for srv in servers:
+            srv.stop()
+        for e in engines:
+            e.stop()
+    return wall, engines, stats
+
+
+def layouts(names, reps):
+    """Serve the leg through each layout of ``names`` in turns in this
+    process; prints a line a pass, a median line a layout and the JSON
+    of every pass."""
+    import torch
+
+    from tensorflowonspark_tpu_torch import device_info
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = device_info.default_device()
+    card = device_info.describe().splitlines()[0]
+    model = DecoderLM(VOCAB, hidden=HIDDEN, num_heads=HEADS,
+                      num_layers=LAYERS, max_len=MAX_LEN, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+    reqs = traffic()
+    tokens = sum(n for _, n in reqs)
+    _layout_pass(names[0], model, reqs, dev)  # build and warm
+    results = {name: [] for name in names}
+    for _ in range(reps):
+        for name in names + names[::-1]:
+            wall, engines, stats = _layout_pass(name, model, reqs, dev)
+            steps = sum(e.counters.get("decode_steps") for e in engines)
+            row = {"tokens_per_s": tokens / wall, "wall_s": wall,
+                   "decode_steps": steps,
+                   "step_p50_s": float(np.median(
+                       [e.histograms["decode_step"].quantile(0.5)
+                        for e in engines])),
+                   "sched_cpu_ms_per_step":
+                       sum(c for c, _ in stats) / steps * 1e3,
+                   "sched_switches_per_step": None if any(
+                       v is None for _, v in stats)
+                       else sum(v for _, v in stats) / steps}
+            results[name].append(row)
+            print("{} {:<12} {:.1f} tokens/s, {} decode steps, step p50 "
+                  "{:.4f} s, scheduler CPU {:.3f} ms and {} voluntary "
+                  "switches a step".format(
+                      card, name, row["tokens_per_s"], steps,
+                      row["step_p50_s"], row["sched_cpu_ms_per_step"],
+                      row["sched_switches_per_step"]), flush=True)
+    for name, rows in results.items():
+        med = {k: None if any(r[k] is None for r in rows)
+               else float(np.median([r[k] for r in rows]))
+               for k in rows[0]}
+        print("{:<12} median tokens/s {:.1f} (min {:.1f}, max {:.1f}); "
+              "decode steps {:.0f}; step p50 {:.4f} s; scheduler CPU "
+              "{:.3f} ms, {} voluntary switches a step".format(
+                  name, med["tokens_per_s"],
+                  min(r["tokens_per_s"] for r in rows),
+                  max(r["tokens_per_s"] for r in rows),
+                  med["decode_steps"], med["step_p50_s"],
+                  med["sched_cpu_ms_per_step"],
+                  med["sched_switches_per_step"]))
+    print(json.dumps({"card": card, "layouts": results}))
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", action="append", default=[],
@@ -135,10 +274,21 @@ def main():
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--rounds", type=int, default=1,
                     help="repeat the A, B, B, A order this many times")
+    ap.add_argument("--layouts", default=None,
+                    help="comma-separated layouts of this checkout to "
+                         "serve in turns in one process (engine, pair, "
+                         "pair-concurrent, pair-streams, fleet)")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker is not None:
         return worker(args.worker, args.reps)
+    if args.layouts is not None:
+        names = args.layouts.split(",")
+        bad = set(names) - {"engine", "pair", "pair-concurrent",
+                            "pair-streams", "fleet"}
+        if bad:
+            ap.error("unknown layouts {}".format(sorted(bad)))
+        return layouts(names, args.reps)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     variants = [v.split("=", 1) for v in args.variant] or [["change", here]]
     order = (variants + variants[::-1]) * max(1, args.rounds)

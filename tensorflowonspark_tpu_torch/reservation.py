@@ -23,15 +23,17 @@ Differences from the reference's design:
   heartbeat leases (liveness + a small status payload the driver-side
   Supervisor classifies), and ACK messages record fed partitions as
   consumed so a restart-from-checkpoint recovery replays only the
-  unacknowledged ones. The reference's server spoke only
+  unacknowledged ones. The same BEAT leases carry the *fleet plane*
+  (fleet.py): serving replicas beat with ``role: "serving"`` payloads
+  (HTTP address + live load gauges + engine metrics snapshot), which
+  :meth:`Server.serving_snapshot` exposes to the FleetRouter's
+  least-loaded dispatch and the ``/stats`` replica view. With a
+  ``journal`` (``controlstate.ControlJournal``) the lease and control
+  epochs are durable across a server restart. The reference's server
+  spoke only
   REG/QUERY/QINFO/STOP and went idle after formation (SURVEY.md §5: no
   failure detection beyond Spark task retry).
 
-Left for a later slice, with the fleet and policy planes (the ROADMAP
-Queue 1 item "Fleet hosting and the policy planes"): the control-state journal (``Server(journal=)``, durable
-epoch floors across a server restart; passing one raises), the serving
-replicas' view of the leases (``serving_snapshot``, the ``/stats``
-``serving`` key), ``drop_lease`` and the router's control epochs.
 """
 
 import json
@@ -265,17 +267,30 @@ class Server(object):
         # Decision.exclude set arithmetic)
         self._cluster_width = None
         self._cluster_width_target = None
-        # durable safety floors across a restart need the control-state
-        # journal; ``recovery_grace`` only applies with one
-        if journal is not None:
-            raise NotImplementedError(
-                "reservation.Server(journal=...) is not ported yet: the "
-                "control-state journal comes with the fleet and policy "
-                "planes (the ROADMAP Queue 1 item 'Fleet hosting and the "
-                "policy planes')")
+        # durable safety floors: when a journal is attached,
+        # every minted epoch hits disk BEFORE it leaves the building,
+        # and a restarted server seeds its mint state from the
+        # journal's floors — monotonicity survives restart by
+        # construction. `journal` accepts a ControlJournal or a path.
+        if isinstance(journal, str):
+            from tensorflowonspark_tpu_torch import controlstate
+            journal = controlstate.ControlJournal(journal)
+        self.journal = journal
+        self._control_epoch = 0
+        #: identities whose floors came from the journal but whose
+        #: incumbents have not re-announced yet (recovery tracking)
+        self._awaiting_reannounce = set()
+        self._recovery_grace = float(recovery_grace)
+        self._recovery_deadline = None  # armed by start() when recovering
         #: cumulative BEAT messages handled (guarded by _sup_lock) —
         #: drives the kill_reservation_server chaos site
         self._beats_seen = 0
+        if journal is not None:
+            floors = journal.epoch_floors()
+            if floors:
+                self._epochs.update(floors)
+                self._awaiting_reannounce = set(floors)
+            self._control_epoch = journal.control_floor()
 
     def lease_snapshot(self):
         """{executor_id: {"age": seconds since last beat, "payload": ...}}
@@ -301,12 +316,80 @@ class Server(object):
         current — every outstanding older epoch is fenced from this
         moment. The server-side half of ``Client.lease``; also callable
         in-process (the supervisor spawning a replacement replica
-        fences the incumbent BEFORE the replacement's first beat)."""
+        fences the incumbent BEFORE the replacement's first beat).
+
+        With a journal attached, the epoch is fsync'd durable BEFORE
+        it becomes current or is returned: a crash landed anywhere
+        after the journal write leaves the recovered floor >= every
+        epoch any caller ever saw (the safe direction — a floor may
+        exceed reality, never trail it)."""
         with self._sup_lock:
             epoch = self._epochs.get(executor_id, 0) + 1
+            if self.journal is not None:
+                # persist-before-publish: holding _sup_lock through
+                # the fsync serializes mints against the journal, so
+                # no later mint can return before an earlier one is
+                # durable
+                self.journal.record_epoch(executor_id, epoch)
             self._epochs[executor_id] = epoch
+            self._awaiting_reannounce.discard(executor_id)
         logger.info("lease epoch %d minted for %r", epoch, executor_id)
         return epoch
+
+    def mint_control_epoch(self):
+        """Mint the next CONTROL epoch — the admin-plane fencing
+        token. A router taking over leadership mints one and stamps
+        every admin RPC with it; replicas refuse writes below their
+        observed floor (409), so a deposed leader's late writes land
+        nowhere. Journal-backed like lease epochs: durable before
+        returned, monotonic across server restarts by construction."""
+        with self._sup_lock:
+            epoch = self._control_epoch + 1
+            if self.journal is not None:
+                self.journal.record_control(epoch)
+            self._control_epoch = epoch
+        logger.info("control epoch %d minted", epoch)
+        return epoch
+
+    def control_epoch(self):
+        """The highest minted control epoch (0 = never minted)."""
+        with self._sup_lock:
+            return self._control_epoch
+
+    def recovering(self):
+        """True while this server is a journal-seeded restart whose
+        incumbents have not all re-announced and the recovery grace
+        window is still open. Supervisor/autoscaler dead-lease
+        classification gates on this: right after a restart the lease
+        table is EMPTY by construction (replicas re-populate it via
+        their next beats), and classifying that emptiness as fleet
+        death would trigger a pointless mass-replacement storm."""
+        with self._sup_lock:
+            if not self._awaiting_reannounce:
+                return False
+            if self._recovery_deadline is None:
+                return True  # start() not called yet — still cold
+            if time.monotonic() >= self._recovery_deadline:
+                # grace expired: whoever never re-announced really is
+                # gone; let the supervisor/autoscaler see it
+                self._awaiting_reannounce.clear()
+                return False
+            return True
+
+    def drop_lease(self, identity):
+        """Remove ``identity``'s lease (deliberate deregistration — a
+        retired serving replica must vanish from ``serving_snapshot``
+        rather than linger as an ever-aging corpse the autoscaler would
+        keep counting). The identity's EPOCH is kept: a zombie beat
+        from a stop RPC that never landed re-creates nothing — the
+        retirer minted a fresh epoch first, so the zombie is answered
+        FENCED and latches itself. Returns True when a lease was
+        dropped."""
+        with self._sup_lock:
+            dropped = self._leases.pop(identity, None) is not None
+        if dropped:
+            logger.info("lease for %r dropped (deregistered)", identity)
+        return dropped
 
     def set_cluster_width(self, width, target=None):
         """Publish this formation's width (and the job's configured
@@ -326,7 +409,44 @@ class Server(object):
             if self._cluster_width_target is not None:
                 out["tfos_cluster_width_target"] = \
                     self._cluster_width_target
+            if self._control_epoch:
+                out["tfos_control_epoch"] = self._control_epoch
+            if self.journal is not None:
+                out["tfos_control_recovery_pending"] = \
+                    len(self._awaiting_reannounce)
             return out
+
+    def serving_snapshot(self):
+        """{replica_id: serving-replica view} from leases whose BEAT
+        payload declares ``role: "serving"`` — the fleet plane
+        (fleet.py): each view carries the lease age, the replica's
+        advertised HTTP address, its model name, the live load gauges
+        (``serving``: queue depth / slot occupancy / queue-wait EWMA /
+        alive / draining, see ``DecodeEngine.load_stats``), and the
+        beat-piggybacked engine registry snapshot (``metrics``). The
+        FleetRouter's least-loaded dispatch and per-replica /metrics
+        labels both read this; ``GET /stats`` exposes it as the
+        ``serving`` key."""
+        out = {}
+        for eid, lease in self.lease_snapshot().items():
+            payload = lease["payload"]
+            if payload.get("role") != "serving":
+                continue
+            out[str(eid)] = {
+                "age": round(lease["age"], 3),
+                "addr": payload.get("addr"),
+                "model": payload.get("model"),
+                "epoch": payload.get("epoch"),
+                "serving": payload.get("serving") or {},
+                "metrics": payload.get("metrics"),
+                # executor-hosted replicas: where this replica
+                # actually runs ({"executor": id, "pid": n}) — the
+                # replica_id -> host join the autoscaler places by and
+                # the router's replica_host info gauge renders; absent
+                # for driver-local replicas
+                "host": payload.get("host"),
+            }
+        return out
 
     def metrics_snapshot(self):
         """{executor_id: per-executor observability view} from the
@@ -352,7 +472,7 @@ class Server(object):
         ``port`` (default ephemeral) lets a RESTARTED server rebind
         its predecessor's advertised port, so replicas reconnecting to
         the address they already hold find the new incarnation without
-        re-discovery."""
+        re-discovery (headless-fleet recovery)."""
         if host is None:
             from tensorflowonspark_tpu_torch.util import get_ip_address
             host = get_ip_address()
@@ -364,6 +484,10 @@ class Server(object):
         self._sock.listen(64)
         port = self._sock.getsockname()[1]
         self.addr = (host, port)
+        with self._sup_lock:
+            if self._awaiting_reannounce:
+                self._recovery_deadline = \
+                    time.monotonic() + self._recovery_grace
         self._thread = threading.Thread(target=self._serve, name="reservation-server",
                                         daemon=True)
         self._thread.start()
@@ -408,6 +532,16 @@ class Server(object):
                         "tfos_cluster_width")
                     stats["cluster"]["width_target"] = gauges.get(
                         "tfos_cluster_width_target")
+                    # fleet plane: per-replica serving view (lease age,
+                    # addr, load gauges) keyed by replica_id — the
+                    # operator's "what is the router seeing" endpoint.
+                    # The registry snapshot is dropped from this JSON
+                    # view (it is /metrics' job, rendered per-replica)
+                    stats["serving"] = {
+                        rid: {k: v for k, v in view.items()
+                              if k != "metrics"}
+                        for rid, view in
+                        server.serving_snapshot().items()}
                     body = json.dumps(stats).encode("utf-8")
                 else:
                     code, ctype = 404, "application/json"
@@ -477,12 +611,19 @@ class Server(object):
                         beats_seen = self._beats_seen
                         current = self._epochs.get(eid)
                         if current is None and epoch is not None:
-                            # headless recovery: a server that never
-                            # minted for this identity (a cold start)
-                            # ADOPTS the replica's announced epoch as
-                            # current — the replicas are the source of
-                            # truth for their own leases.
+                            # headless-fleet recovery: a server
+                            # that never minted for this identity (cold
+                            # start, or journal deliberately moved
+                            # aside) ADOPTS the replica's announced
+                            # epoch as current — the replicas are the
+                            # source of truth for their own leases. A
+                            # journal-seeded restart never lands here:
+                            # its floors cover every epoch ever minted,
+                            # so `current` is the floor and a matching
+                            # re-announce re-registers the SAME epoch.
                             self._epochs[eid] = int(epoch)
+                            if self.journal is not None:
+                                self.journal.record_epoch(eid, epoch)
                             current = int(epoch)
                             logger.info(
                                 "adopted announced epoch %d for %r",
@@ -495,10 +636,13 @@ class Server(object):
                                 # incarnation is current
                                 payload = dict(payload, epoch=epoch)
                             self._leases[eid] = (time.monotonic(), payload)
-                    # chaos site: kill_reservation_server=N crashes the
-                    # server at the N-th BEAT, AFTER the lease-table
-                    # write but BEFORE the reply (the beater sees only a
-                    # dead socket, exactly as a real kill looks)
+                            self._awaiting_reannounce.discard(eid)
+                    # chaos site: kill_reservation_server=N
+                    # crashes the server at the N-th BEAT, AFTER the
+                    # lease-table write but BEFORE the reply — the
+                    # SIGKILL-between-state-and-ack window the journal
+                    # property test pins (the beater sees only a dead
+                    # socket, exactly as a real kill looks)
                     if chaos.on_reservation_beat(beats_seen):
                         self.crash()
                         return  # no reply: the kill ate it
@@ -580,15 +724,23 @@ class Server(object):
             httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
+        if self.journal is not None:
+            self.journal.close()
 
     def crash(self):
-        """Chaos only: die the way a SIGKILLed driver process looks
-        from outside — listener gone mid-conversation, no STOP
+        """Chaos only: die the way a SIGKILLed driver process
+        looks from outside — listener gone mid-conversation, no STOP
         handshake, no replies to in-flight messages, no thread joins.
-        Every lease, epoch, and ack in MEMORY is lost exactly as a real
-        kill loses them."""
+        Every lease, epoch, and ack in MEMORY is lost exactly as a
+        real kill loses them; only the journal's fsync'd floors
+        survive, which is the entire point. A restarted server
+        (``journal=`` the same path) re-seeds its floors from disk and
+        re-learns the live leases from the replicas' re-announced
+        beats."""
         logger.error("reservation server CRASHED (chaos kill) — "
-                     "in-memory leases/epochs lost")
+                     "in-memory leases/epochs lost, journal floors %s",
+                     "retained" if self.journal is not None
+                     else "ABSENT (no journal)")
         self.done.set()
         self._close_listener()
         with self._sup_lock:
@@ -604,6 +756,10 @@ class Server(object):
             threading.Thread(target=httpd.shutdown,
                              daemon=True,
                              name="tfos-resv-crash").start()
+        if self.journal is not None:
+            # a killed process's fd is simply gone; everything durable
+            # is already on disk (fsync-before-reply)
+            self.journal.close()
 
 
 class Client(object):

@@ -103,10 +103,10 @@ drains)::
     python -m tensorflowonspark_tpu_torch.serving --model-dir EXPORT \
         --name mnist --port 8501 [--device cpu]
 
-Left out of this port so far (see ROADMAP.md, Queue 1 items 9-10): the
-fleet hosting (``ServingFleet``, the router, executor-hosted replicas),
-the supervisor, autoscale and controlstate that drive them, and the
-profiler hooks. ``compile_stats`` reports program counts as None (eager
+The fleet that hosts engines behind one router is ``fleet.py``. Left
+out of this port so far (see ROADMAP.md, Queue 1 items 9b-10): the
+supervisor and autoscaler that would drive the fleet, and the profiler
+hooks. ``compile_stats`` reports program counts as None (eager
 PyTorch keeps no program cache). ``_Batcher`` drops the reference's
 power-of-two padding of a merged batch, which bounds ``jit``'s compile
 cache; eager PyTorch has none, and padding would only add rows to
@@ -152,6 +152,27 @@ _ENGINE_IDS = itertools.count()
 #: ``tfos_slo_attrib_<stage>_seconds`` carry
 _ATTRIB_STAGES = ("queue_wait", "admission", "prefill", "decode",
                   "preempted")
+
+#: {card index: the lock its engines take turns on}, see _launch_turn
+_LAUNCH_TURNS = {}
+_LAUNCH_TURNS_LOCK = threading.Lock()
+
+
+def _launch_turn(device):
+    """The lock every engine of this process on ``device``'s card holds
+    while it launches a prefill or a decode step (a null context off
+    the card). An eager step is a few hundred launches. Two engines
+    launching at once on one card contend for the interpreter's lock
+    and the driver at every op, and each step then takes several times
+    the host CPU it takes alone; taking turns, a step waits only for
+    the other engine's launches (``profile_serving.py --layouts``
+    measures both)."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    with _LAUNCH_TURNS_LOCK:
+        return _LAUNCH_TURNS.setdefault(index, threading.Lock())
 
 
 class Retriable(RuntimeError):
@@ -548,6 +569,7 @@ class DecodeEngine(object):
                  attn_impl=None, speculate_k=None, draft_layers=None,
                  kv_dtype=None, tier=None, qos_policy=None, device=None):
         self.device = device_info.default_device(device)
+        self._turn = _launch_turn(self.device)
         self.replica_id = str(replica_id) if replica_id is not None \
             else "engine-{}-{}".format(os.getpid(), next(_ENGINE_IDS))
         # construction config, verbatim, so respawn() can rebuild an
@@ -1530,31 +1552,35 @@ class DecodeEngine(object):
             t0 = time.monotonic()
             if self._spec_k:
                 with self.timers.timed("spec_round"):
-                    drafts, targets = generation.paged_spec_round(
-                        self.model, self._draft, self._cache,
-                        self._draft_cache, self._last, self._idx,
-                        self._tables, self._spec_k,
-                        temperature=self._temperature, top_k=self._top_k,
-                        top_p=self._top_p, generator=self._generator,
-                        attn_impl=self.attn_impl)
+                    with self._turn:
+                        drafts, targets = generation.paged_spec_round(
+                            self.model, self._draft, self._cache,
+                            self._draft_cache, self._last, self._idx,
+                            self._tables, self._spec_k,
+                            temperature=self._temperature,
+                            top_k=self._top_k, top_p=self._top_p,
+                            generator=self._generator,
+                            attn_impl=self.attn_impl)
                     # the per-round host sync
                     drafts = drafts.cpu().numpy()
                     targets = targets.cpu().numpy()
             else:
                 with self.timers.timed("decode_step"):
-                    if self._paged:
-                        toks = generation.paged_decode_step(
-                            self.model, self._cache, self._last, self._idx,
-                            self._tables, temperature=self._temperature,
-                            top_k=self._top_k, top_p=self._top_p,
-                            generator=self._generator,
-                            attn_impl=self.attn_impl)
-                    else:
-                        toks = generation.decode_step(
-                            self.model, self._cache, self._last, self._idx,
-                            temperature=self._temperature,
-                            top_k=self._top_k, top_p=self._top_p,
-                            generator=self._generator)
+                    with self._turn:
+                        if self._paged:
+                            toks = generation.paged_decode_step(
+                                self.model, self._cache, self._last,
+                                self._idx, self._tables,
+                                temperature=self._temperature,
+                                top_k=self._top_k, top_p=self._top_p,
+                                generator=self._generator,
+                                attn_impl=self.attn_impl)
+                        else:
+                            toks = generation.decode_step(
+                                self.model, self._cache, self._last,
+                                self._idx, temperature=self._temperature,
+                                top_k=self._top_k, top_p=self._top_p,
+                                generator=self._generator)
                     toks = toks.cpu().numpy()  # the per-step host sync
             t1 = time.monotonic()
             self._step_ewma = self._ewma(self._step_ewma, t1 - t0)
@@ -1994,7 +2020,7 @@ class DecodeEngine(object):
         toks[:n] = handle.prompt
         t0 = time.monotonic()
         self._observe_queue_wait(handle, t0, slot)
-        with self.timers.timed("prefill"):
+        with self.timers.timed("prefill"), self._turn:
             first = int(generation.prefill_into_slot(
                 self.model, self._cache, slot, toks, n,
                 temperature=self._temperature, top_k=self._top_k,
@@ -2077,7 +2103,7 @@ class DecodeEngine(object):
         toks[:len(tail)] = tail
         t0 = time.monotonic()
         self._observe_queue_wait(handle, t0, slot)
-        with self.timers.timed("prefill"):
+        with self.timers.timed("prefill"), self._turn:
             first = int(generation.paged_prefill_into_slot(
                 self.model, self._cache, row, toks, len(tail), start,
                 temperature=self._temperature, top_k=self._top_k,
@@ -2093,9 +2119,10 @@ class DecodeEngine(object):
             # their writer prefilled or decoded them). Its pick is
             # dropped: this call is for its writes.
             with self.timers.timed("draft_prefill"):
-                generation.paged_prefill_into_slot(
-                    self._draft, self._draft_cache, row, toks, len(tail),
-                    start, attn_impl=self.attn_impl)
+                with self._turn:
+                    generation.paged_prefill_into_slot(
+                        self._draft, self._draft_cache, row, toks,
+                        len(tail), start, attn_impl=self.attn_impl)
         if self.prefix_cache:
             # publish every FULL block of the admitted sequence; blocks
             # past the original prompt exist only on preemption re-entry

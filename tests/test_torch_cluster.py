@@ -174,11 +174,54 @@ def test_map_fun_error_surfaces_at_shutdown(sc):
 
 
 def test_later_planes_refuse_loudly(sc):
-    later = "Fleet hosting and the policy planes"
+    later = "ROADMAP Queue 1 item 9b"
     with pytest.raises(NotImplementedError, match=later):
         cluster.run(sc, lambda a, c: None, {}, 2, supervise=object())
-    with pytest.raises(NotImplementedError, match=later):
-        reservation.Server(1, journal="/nonexistent/journal")
+    for kw in ({"autoscale": True}, {"supervise": True}):
+        with pytest.raises(NotImplementedError, match=later):
+            cluster.serving_fleet(object(), **kw)
+    from tensorflowonspark_tpu_torch import fleet
+    f = fleet.ServingFleet(None, replicas=1)
+    for verb in (f.supervise, f.autoscale):
+        with pytest.raises(NotImplementedError, match=later):
+            verb()
+
+
+def test_reservation_server_journal_seeds_epoch_floors(tmp_path):
+    """``reservation.Server(journal=)`` works now: epochs minted by one
+    server are durable floors for the next server on the same journal."""
+    path = str(tmp_path / "control.journal")
+    srv = reservation.Server(1, journal=path)
+    assert [srv.mint_epoch("r") for _ in range(2)] == [1, 2]
+    assert srv.mint_control_epoch() == 1
+    srv.stop()
+    again = reservation.Server(1, journal=path)
+    assert again.mint_epoch("r") == 3
+    assert again.mint_control_epoch() == 2
+    again.stop()
+
+
+def test_training_refuses_an_executor_that_holds_a_cuda_context(
+        monkeypatch):
+    """The trainer a node bootstrap forks must be the first process to
+    touch CUDA: ``node.run`` refuses an executor whose process already
+    initialized it (one hosting a serving replica), checking without
+    initializing CUDA itself."""
+    import types
+
+    from tensorflowonspark_tpu_torch import node
+
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        is_initialized=lambda: True))
+    monkeypatch.setitem(sys.modules, "torch", fake)
+    mapfn = node.run(lambda a, c: None, {}, {"id": "c", "authkey": "00",
+                                             "cluster_template": {}})
+    with pytest.raises(RuntimeError, match="already initialized CUDA"):
+        mapfn(iter([0]))
+    fake.cuda.is_initialized = lambda: False
+    node._refuse_cuda_executor(0)  # a clean executor passes
+    monkeypatch.delitem(sys.modules, "torch")
+    node._refuse_cuda_executor(0)  # so does one that never loaded torch
 
 
 def test_serializer_ships_closures_without_cloudpickle(tmp_path):

@@ -16,7 +16,8 @@ the middle and at the end of a row, and bitwise deterministic; and ring
 attention's kernel route (a 4-way ring in lockstep) against its plain
 route in every schedule and both dtypes; the speculative verify window
 (S_q = k from mid-sequence cursors), a speculative engine's exact
-route counts, and ``DecodeEngine.measure_attn``'s exact launches.
+route counts, two fleet replicas launching from their own threads with
+exact counts, and ``DecodeEngine.measure_attn``'s exact launches.
 ``chip_smoke.py`` runs the same comparisons at the main paths' widths; these are the small-shape
 versions for ``pytest -m cuda``."""
 
@@ -186,6 +187,75 @@ def test_speculative_engine_routes_and_tokens(cuda):
     rounds, prefills = counts["decode_steps"], counts["prefills"]
     assert pa.route_launches == {"split": 1 * 3 * rounds,
                                  "tiled": 2 * rounds + (2 + 1) * prefills,
+                                 "tiled_simt": 0}
+    for (prompt, _), g, w in zip(reqs, got, want):
+        if g == w:
+            continue
+        first = next(j for j in range(len(g)) if g[j] != w[j])
+        assert first >= len(prompt)
+        with torch.no_grad():
+            logits = model(torch.tensor([g[:first]], device=cuda))[0, -1]
+        top = torch.topk(logits, 2).values
+        assert (top[0] - top[1]).item() < 1e-4
+
+
+@pytest.mark.cuda
+def test_two_fleet_replicas_share_the_card_with_exact_launches(cuda):
+    """Two in-process fleet replicas on one card, fed through the
+    router by concurrent clients: their schedulers launch the paged
+    kernel from two threads, taking turns on the card's one launch
+    lock, and the launch counts stay exact — split =
+    layers x the replicas' decode steps, tiled = layers x their
+    prefills — and the tokens equal one engine's but where the top-2
+    logits tie."""
+    import http.client
+    import json
+    import threading
+
+    from tensorflowonspark_tpu_torch import fleet, serving
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+    model = DecoderLM(128, hidden=64, num_heads=4, num_layers=2,
+                      max_len=128, device=cuda)
+    model.init_weights(torch.Generator(device=cuda).manual_seed(2))
+    rng = np.random.RandomState(5)
+    reqs = [(rng.randint(0, 128, size=rng.randint(3, 60)).tolist(),
+             int(rng.randint(4, 40))) for _ in range(8)]
+    with serving.DecodeEngine(model, slots=4, kv_block_size=16,
+                              device=cuda) as eng:
+        want = [h.result(300) for h in [eng.submit(p, n) for p, n in reqs]]
+    for route in pa.route_launches:
+        pa.route_launches[route] = 0
+    got = [None] * len(reqs)
+    with fleet.ServingFleet(model, replicas=2, name="lm",
+                            engine_kw={"slots": 4, "kv_block_size": 16,
+                                       "device": cuda},
+                            beat_interval=0.05) as f:
+        host, port = f.router_addr
+
+        def client(c):
+            conn = http.client.HTTPConnection(host, port, timeout=300)
+            for i in range(c, len(reqs), 4):
+                conn.request("POST", "/v1/models/lm:generate", json.dumps(
+                    {"prompt": reqs[i][0], "max_new_tokens": reqs[i][1]}))
+                got[i] = json.loads(conn.getresponse().read())["tokens"]
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        counts = [r.engine.counters.snapshot()["counts"]
+                  for r in f.replicas]
+        assert all(r.engine.device.type == "cuda" for r in f.replicas)
+        # the two engines take turns launching on the one card
+        turns = {id(r.engine._turn) for r in f.replicas}
+        assert len(turns) == 1 and id(eng._turn) in turns
+    assert all(c.get("requests_completed", 0) > 0 for c in counts)
+    steps = sum(c["decode_steps"] for c in counts)
+    prefills = sum(c["prefills"] for c in counts)
+    assert pa.route_launches == {"split": 2 * steps, "tiled": 2 * prefills,
                                  "tiled_simt": 0}
     for (prompt, _), g, w in zip(reqs, got, want):
         if g == w:

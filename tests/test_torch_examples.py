@@ -20,6 +20,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "tensorflowonspark_tpu_torch.examples."
 #: seconds one driver run may take here
@@ -338,8 +340,8 @@ def test_lm_generate_serves_solo_identical(tmp_path):
     greedy continuation follows the period, and ``--serve`` through the
     paged engine gives solo ``generate``'s tokens for every request,
     tagged with ``--tenant`` / ``--priority`` (every served token is
-    tallied to the tenant). The flags that wait for the fleet plane
-    refuse, naming the ROADMAP item."""
+    tallied to the tenant). ``--executors`` short of ``--fleet``
+    refuses: each replica needs its own executor."""
     out = _run(tmp_path, "generate.lm_generate", "--steps", 80, "--serve",
                6, "--tenant", "a", "--priority", "high", "--device", "cpu")
     got = _last_json(out)
@@ -348,7 +350,26 @@ def test_lm_generate_serves_solo_identical(tmp_path):
     serve = got["serve"]
     assert serve["requests"] == 6 and serve["solo_mismatches"] == 0
     assert serve["tenant_tokens"] == {"a": serve["tokens"]}, serve
-    for flag in (["--fleet", 2], ["--executors", 2]):
-        bad = _run(tmp_path, "generate.lm_generate", *flag, ok=False)
-        assert bad.returncode != 0
-        assert "ROADMAP Queue 1 item" in bad.stderr, bad.stderr
+    bad = _run(tmp_path, "generate.lm_generate", "--fleet", 2,
+               "--executors", 1, "--device", "cpu", ok=False)
+    assert bad.returncode != 0
+    assert "each replica needs its own executor" in bad.stderr, bad.stderr
+
+
+@pytest.mark.parametrize("executors", [0, 2])
+def test_lm_generate_fleet_serves_solo_identical(tmp_path, executors):
+    """``lm_generate --fleet 2``: the prompts go over HTTP through a
+    2-replica fleet's router (in the driver, or with ``--executors 2``
+    in two executor processes whose pids are not the driver's), and
+    every output equals solo ``generate``."""
+    args = ["--steps", 20, "--fleet", 2, "--device", "cpu"]
+    if executors:
+        args += ["--executors", executors]
+    got = _last_json(_run(tmp_path, "generate.lm_generate", *args))
+    fleet = got["fleet"]
+    assert fleet["replicas"] == 2 and fleet["requests"] == 4, fleet
+    assert fleet["solo_mismatches"] == 0 and fleet["failovers"] == 0
+    assert fleet["replica_devices"] == ["cpu"]
+    if executors:
+        assert sorted(h["executor"] for h in fleet["placement"].values()) \
+            == [0, 1]

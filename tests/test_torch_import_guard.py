@@ -1,7 +1,8 @@
 """The port stands alone: it imports nothing of JAX, flax, optax, orbax,
 the JAX package or cloudpickle, and its kernel modules import (and
 serve — plainly, tenant-tagged over HTTP with a ``/metrics`` scrape,
-speculatively and from a spliced KV shipment — train, run a cluster,
+speculatively, from a spliced KV shipment and through a one-replica
+fleet's router — train, run a cluster,
 fit, checkpoint, export and transform through the pipeline, run the model zoo and ``:predict``, stream
 micro-batches into a cluster, run TFParallel jobs, bind the Spark
 adapter and import every example driver on the CPU) without a CUDA
@@ -24,7 +25,8 @@ PLANE = ("util", "marker", "fs", "frames", "shm", "manager", "tracing",
          "engine/context", "engine/executor", "engine/dataframe",
          "tfrecord", "_tfrecord_native", "dfutil", "checkpoint", "export",
          "pipeline", "engine/streaming", "engine/spark_adapter",
-         "parallel_runner", "kvship", "qos", "slo", "metrics_report")
+         "parallel_runner", "kvship", "qos", "slo", "metrics_report",
+         "controlstate")
 EXAMPLES = os.path.join(PORT, "examples")
 #: the parallel package's modules
 PARALLEL = ("parallel/__init__", "parallel/mesh", "parallel/collectives",
@@ -34,7 +36,7 @@ PARALLEL = ("parallel/__init__", "parallel/mesh", "parallel/collectives",
 MODELS = ("models/__init__", "models/_layers", "models/lenet",
           "models/resnet", "models/bert", "models/widedeep",
           "models/inception", "models/unet", "convert", "serving",
-          "training")
+          "training", "fleet")
 
 
 def _run(code):
@@ -96,6 +98,18 @@ def test_port_serves_with_jax_unimportable():
                                   device="cpu") as b:
             assert b.import_prefix(meta, rows)["spliced_blocks"] == 2
             assert b.generate(prompt, 3, timeout=120) == want
+        # a one-replica fleet: formed, routed, drained, stopped
+        from tensorflowonspark_tpu_torch import fleet
+        kw = {"slots": 2, "device": "cpu"}
+        with fleet.ServingFleet(model, replicas=1, name="lm",
+                                engine_kw=kw) as f:
+            host, port = f.router_addr
+            conn = http.client.HTTPConnection(host, port)
+            conn.request("POST", "/v1/models/lm:generate", json.dumps(
+                {"prompt": [1, 2, 3], "max_new_tokens": 4}))
+            assert json.loads(conn.getresponse().read()) == \
+                {"tokens": out}
+            assert f.rolling_drain()["zero_loss"]
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "flax",
                                          "tensorflowonspark_tpu")
