@@ -12,8 +12,10 @@ quotas, shedding, dedup and fencing, ``/metrics`` and ``/debug/trace``,
 drain, respawn and the chaos sites), and the serving fleet (a router
 over replicas in this process and in executor processes, rolling
 drain, failover, two-stage prefill -> decode dispatch, the control-state
-journal and a standby router) — and hold its CUDA kernels against
-their plain PyTorch versions.
+journal and a standby router), and the fleet's policy planes (the
+supervisor restarting a dead scheduler, the SLO autoscaler scaling up
+and down, a lost executor replica attributed and replaced) — and hold
+its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -303,7 +305,34 @@ Phases, stopping with a non-zero exit at the first failure:
    beside phase 4's, the router overhead p50, failovers, drain walls,
    ship MB and ms, the beat's host ms, the executor-hosted formation
    seconds and tokens/s;
-14. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
+14. the supervised and autoscaled fleet — phase 4's model from the seed:
+   (a) ``cluster.serving_fleet(replicas=2, supervise=True)``, phase 4's
+   16 requests from 4 clients with ``kill_scheduler_at_step`` armed on
+   replica-1: zero client-visible failures, the router's quiesce of
+   replica-1 before the supervisor's ``engine_restarted`` and its
+   readmit after, ``engine_restarts`` [0, 1], ``/healthz`` 200 again,
+   replica-1 completing requests after the readmit; (b)
+   ``rolling_drain()`` with 8 in flight under the supervisor: zero
+   lost, ``engine_restarts`` unmoved, then the drained-in successor of
+   replica-0 killed once and restarted (the watch followed it); (c)
+   ``serving_fleet(replicas=1, autoscale=AutoscalePolicy(min 1, max
+   2))``, a burst of 32 requests from 16 clients, then idle: one up
+   decision with its breach reason, the new replica serving, then one
+   down decision whose retirement drains with zero loss; (d) a
+   2-executor ``Context``, one executor-hosted replica, ``supervise=True``
+   and the autoscaler, ``kill_serving_executor_at_request=3`` SIGKILLs
+   its executor: 8 requests with zero client-visible failures, one
+   ``serving_replica_lost`` and no ``engine_restarted``, the replacement
+   on the other executor with a new pid and a newer epoch, no process
+   and no KV ring left after ``stop`` / ``sc.stop()``. Legs (a)-(c) are
+   held to exact launch counts over every engine they ran (a restarted
+   or retired engine's steps counted once); tokens equal phase 4's float
+   engine's but at a top-2 tie below 1e-4. Printed: each leg's wall,
+   death -> quiesce -> readmit seconds, tokens/s, breach -> first
+   completion on the new replica, the retirement's drain wall, leg (c)'s
+   peak memory, kill -> attribution and kill -> the replacement's first
+   answer;
+15. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
    counts as ``launches_cluster``, phase 7's as ``launches_pipeline``,
    phase 8's (BERT training plus ``:predict``) as ``launches_models``,
    phase 9's streaming-fed trainer's as ``launches_streaming`` and the
@@ -312,9 +341,9 @@ Phases, stopping with a non-zero exit at the first failure:
    shape as ``bert_shape``, and the kernel each dtype runs as
    ``design``; the paged row adds phase 11's launches as
    ``launches_spec`` and ``launches_disagg``, phase 12's as
-   ``launches_planes``, phase 13's as ``launches_fleet``, and the verify
-   window's times as ``verify``), the card line, and last the ``{"ok":
-   true, ...}`` line.
+   ``launches_planes``, phase 13's as ``launches_fleet``, phase 14's as
+   ``launches_supervised``, and the verify window's times as
+   ``verify``), the card line, and last the ``{"ok": true, ...}`` line.
 
 ``--out-dir DIR`` also writes every number of the run to
 ``DIR/chip_smoke.json``. Needs one card; exits non-zero, printing no
@@ -4271,9 +4300,11 @@ def planes_phase(torch, pa, dev, runs, decode_timing):
     status, _, body = client.generate(
         {"prompt": reqs[PLANES_PROMPTS[4]][0], "max_new_tokens": 8})
     respawn_s = time.monotonic() - t0
+    # a deliberate respawn is not a restart: only the supervisor's
+    # RestartEngine counts engine_restarts (phase 14(a))
     check(status == 200 and fresh.counters is engine.counters
           and fresh.counters.get("tokens") == tokens0 + 8
-          and fresh.counters.get("engine_restarts") == 1,
+          and fresh.counters.get("engine_restarts") == 0,
           "12(e) the respawned engine: {} tokens {} -> {}, restarts {}"
           .format(status, tokens0, fresh.counters.get("tokens"),
                   fresh.counters.get("engine_restarts")))
@@ -4368,7 +4399,7 @@ def _launch_check(pa, engines, leg):
     routes = dict(pa.route_launches)
     want = {"split": LAYERS * steps, "tiled": LAYERS * prefills,
             "tiled_simt": 0}
-    check(routes == want, "13({}) launches by route {} are not {} ({} "
+    check(routes == want, "{} launches by route {} are not {} ({} "
           "steps, {} prefills summed over the replicas)".format(
               leg, routes, want, steps, prefills))
     return routes, steps, prefills
@@ -4508,7 +4539,7 @@ def fleet_phase(torch, pa, dev, runs, here):
         check(not errors, "13(a) fleet requests failed: {}".format(
             errors[:2]))
         engines = [r.engine for r in f.replicas]
-        routes, steps, prefills = _launch_check(pa, engines, "a")
+        routes, steps, prefills = _launch_check(pa, engines, "13(a)")
         add(routes)
         ties = _fleet_tokens(torch, generation, model, runs, reqs, got, idx,
                              "a", dev)
@@ -4659,7 +4690,8 @@ def fleet_phase(torch, pa, dev, runs, here):
         got, errors, _ = _fleet_clients(f.router_addr[1], reqs, idx,
                                         clients=1)
         check(not errors, "13(d) failed: {}".format(errors[:2]))
-        routes, _, _ = _launch_check(pa, [pre.engine, dec.engine], "d")
+        routes, _, _ = _launch_check(pa, [pre.engine, dec.engine],
+                                     "13(d)")
         add(routes)
         counts = f.router.counters.snapshot()["counts"]
         shipped = pre.engine.kv_counters.get("ship_blocks")
@@ -4845,6 +4877,521 @@ def fleet_phase(torch, pa, dev, runs, here):
     return res
 
 
+# -- phase 14: the supervised and autoscaled fleet -----------------------
+
+#: 14(a): the replica whose scheduler dies and the decode step it dies at
+SUPERVISED_VICTIM, SUPERVISED_KILL_STEP = "replica-1", 4
+#: 14(a): phase 4's requests sent once the victim is readmitted
+SUPERVISED_AFTER = (0, 2, 3, 4, 6, 7, 8, 10)
+#: 14(b): requests in flight while the rolling drain cycles the replicas
+SUPERVISED_DRAIN_REQUESTS = 8
+#: 14(c): the burst (phase 4's 16 requests twice) and its clients
+SCALE_BURST, SCALE_CLIENTS = 32, 16
+#: 14(c): the policy, with cooldowns short enough for one pass (the
+#: defaults are 2 s up and 20 s down)
+SCALE_POLICY = {"min_replicas": 1, "max_replicas": 2,
+                "queue_wait_slo_s": 0.25, "up_cooldown_s": 1.0,
+                "down_cooldown_s": 3.0, "dead_after_s": 10.0}
+#: 14(d): requests through the executor-hosted replica, and the request
+#: of the replica's at which its executor is SIGKILLed
+LOSS_REQUESTS, LOSS_KILL_AT = 8, 3
+
+
+class _Series(object):
+    """Every engine a fleet runs while this samples (every 10 ms): the
+    counters of each (shared by a restarted or respawned engine with its
+    predecessor, so each series is summed once), when each replica was
+    first seen with a completed request, and a timeline of each
+    replica's completions and decode steps."""
+
+    def __init__(self, fleet_):
+        self.fleet = fleet_
+        self.series = {}
+        self.first_done = {}
+        self.timeline = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def start(self):
+        self.sample()
+        self._thread.start()
+        return self
+
+    def sample(self):
+        row = {}
+        for replica in list(self.fleet.replicas):
+            engine = replica.engine
+            if engine is None:
+                continue
+            self.series.setdefault(id(engine.counters), engine.counters)
+            done = engine.counters.get("requests_completed")
+            row[replica.replica_id] = (done,
+                                       engine.counters.get("decode_steps"))
+            if replica.replica_id not in self.first_done and done > 0:
+                self.first_done[replica.replica_id] = time.monotonic()
+        self.timeline.append((time.time(), row))
+
+    def at(self, wall, rid):
+        """``rid``'s (completed, decode steps) at its last sample taken
+        at or before the wall-clock time ``wall``."""
+        rows = [row[rid] for t, row in self.timeline
+                if t <= wall and rid in row]
+        return rows[-1] if rows else (0, 0)
+
+    def _loop(self):
+        while not self._stop.wait(0.01):
+            self.sample()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+        self.sample()
+
+    def totals(self):
+        counts = [c.snapshot()["counts"] for c in self.series.values()]
+        return (sum(c.get("decode_steps", 0) for c in counts),
+                sum(c.get("prefills", 0) for c in counts))
+
+
+def _exact_launches(pa, series, before, leg):
+    """The launches by route since the last reset must be LAYERS x the
+    decode steps and LAYERS x the prefills every sampled engine made
+    since ``before``; returns (routes, steps, prefills)."""
+    steps, prefills = (a - b for a, b in zip(series.totals(), before))
+    routes = dict(pa.route_launches)
+    check(routes == {"split": LAYERS * steps, "tiled": LAYERS * prefills,
+                     "tiled_simt": 0},
+          "{} launches by route {} vs {} steps, {} prefills over {} "
+          "counter series".format(leg, routes, steps, prefills,
+                                  len(series.series)))
+    return routes, steps, prefills
+
+
+def _restarts(fleet_):
+    return [r.engine.counters.get("engine_restarts")
+            for r in fleet_.replicas]
+
+
+def _record_holds(router, holds):
+    """Log every quiesce / readmit the router is asked for, with the
+    owner and both clocks."""
+    for name in ("quiesce", "readmit"):
+        def call(rid, *args, _orig=getattr(router, name), _name=name,
+                 **kw):
+            holds.append({"name": _name, "replica": rid,
+                          "owner": kw.get("owner"), "t": time.monotonic(),
+                          "wall": time.time()})
+            return _orig(rid, *args, **kw)
+        setattr(router, name, call)
+
+
+def _healthz(addr):
+    conn = http.client.HTTPConnection(addr[0], addr[1], timeout=30)
+    try:
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _retrying_generate(serving, port, prompt, n_new, name="gpt2"):
+    """One ``:generate`` through the router with the client retry policy
+    (``serving.retry_call`` on 429/503): what 'zero client-visible
+    failures' means while a replica is replaced."""
+    def attempt():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            conn.request("POST", "/v1/models/{}:generate".format(name),
+                         body=json.dumps({"prompt": prompt,
+                                          "max_new_tokens": n_new}),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+        except (OSError, http.client.HTTPException) as e:
+            err = serving.Retriable("router connection: {!r}".format(e))
+            err.retry_after = 0.5
+            raise err
+        finally:
+            conn.close()
+        if resp.status == 200:
+            return body["tokens"]
+        retriable = serving.http_retriable(resp.status,
+                                           resp.getheader("Retry-After"))
+        if retriable is not None:
+            raise retriable
+        raise RuntimeError("HTTP {}: {}".format(resp.status, body))
+
+    return serving.retry_call(attempt, attempts=60, base_delay=0.2,
+                              max_delay=2.0)
+
+
+def supervised_phase(torch, pa, dev, runs, here):
+    """Phase 14: the fleet's policy planes on phase 4's model: (a) a
+    supervised restart of a killed scheduler, in process; (b) a rolling
+    drain under the supervisor, then the successor killed and restarted;
+    (c) the autoscaler's closed loop, one replica to two and back; (d)
+    an executor-hosted replica's executor SIGKILLed, attributed by the
+    supervisor and replaced by the autoscaler. Tokens equal phase 4's
+    float engine's (``runs``) but at a top-2 tie below 1e-4."""
+    import shutil
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import (autoscale, chaos, cluster, fleet,
+                                             generation, kvship, serving)
+    from tensorflowonspark_tpu_torch.engine import Context
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+    t_phase = time.monotonic()
+    model = DecoderLM(VOCAB, hidden=HIDDEN, num_heads=HEADS,
+                      num_layers=LAYERS, max_len=MAX_LEN, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+    reqs = traffic()
+    want = runs[None]["out"]
+    engine_kw = {"slots": SLOTS, "total_len": MAX_LEN,
+                 "kv_block_size": BLOCK, "device": str(dev)}
+    work = tempfile.mkdtemp(prefix=".tfos-supervised-", dir=here)
+    res = {}
+    launches = {"split": 0, "tiled": 0, "tiled_simt": 0}
+
+    def add(routes):
+        for k in launches:
+            launches[k] += routes[k]
+
+    def tokens(got, idx, leg, expect=None, requests=None):
+        """``got[i]`` for ``i`` in ``idx`` against phase 4's outputs;
+        returns the ties."""
+        check(sorted(got) == sorted(idx), "14({}) answered {} of {} "
+              "requests".format(leg, len(got), len(idx)))
+        expect = expect or (lambda i: want[i])
+        requests = requests or reqs
+        return compare_tokens(torch, generation, model,
+                              [got[i] for i in idx], [expect(i) for i in idx],
+                              [requests[i] for i in idx], None, dev)
+
+    # (a) a scheduler killed mid-stream under the supervisor: THE main
+    # path of this leg, counts at zero just before, read just after
+    t_leg = time.monotonic()
+    fuse = os.path.join(work, "kill-a.fuse")
+    f = cluster.serving_fleet(model, replicas=2, name="gpt2", supervise=True,
+                              engine_kw=engine_kw, host="127.0.0.1")
+    holds = []
+    _record_holds(f.router, holds)
+    series = _Series(f).start()
+    try:
+        port = f.router_addr[1]
+        sup = f.supervisor
+        check(all(r.engine.device.type == "cuda" for r in f.replicas)
+              and len(sup._watched) == 2,
+              "14(a) the supervised replicas are not on the card")
+        _zero_launches(pa)
+        before = series.totals()
+        chaos.arm("kill_scheduler_at_step={},only={},fuse={}".format(
+            SUPERVISED_KILL_STEP, SUPERVISED_VICTIM, fuse))
+        idx = list(range(len(reqs)))
+        got, errors, wall = _fleet_clients(port, reqs, idx)
+        check(not errors, "14(a) client-visible failures: {}".format(
+            errors[:2]))
+        check(os.path.exists(fuse), "14(a) the kill never fired")
+        _wait_for(lambda: sup.events.events("engine_restarted"),
+                  "the supervisor's restart", timeout=60)
+        chaos.disarm()
+        with open(fuse) as fh:
+            died = float(fh.read().strip())
+        ours = [h for h in holds if h["owner"] == "supervisor"]
+        dead = sup.events.events("engine_dead")
+        restarted = sup.events.events("engine_restarted")
+        check([(h["name"], h["replica"]) for h in ours] ==
+              [("quiesce", SUPERVISED_VICTIM), ("readmit", SUPERVISED_VICTIM)]
+              and len(dead) == 1 and len(restarted) == 1
+              and dead[0]["replica"] == SUPERVISED_VICTIM
+              and ours[0]["t"] <= dead[0]["t"] <= ours[1]["t"]
+              <= restarted[0]["t"],
+              "14(a) the supervisor's order: holds {} dead {} restarted {}"
+              .format(ours, dead, restarted))
+        check(_restarts(f) == [0, 1], "14(a) engine_restarts {}".format(
+            _restarts(f)))
+        victim, survivor = f.replicas[1], f.replicas[0]
+        # the killed scheduler released the card's launch turn: the
+        # survivor stepped and completed requests between the death and
+        # the readmit, and the restarted engine takes the same turn
+        held0, steps0 = series.at(died, survivor.replica_id)
+        held1, steps1 = series.at(ours[1]["wall"], survivor.replica_id)
+        check(steps1 > steps0 and held1 > held0
+              and victim.engine._turn is survivor.engine._turn,
+              "14(a) the survivor in the restart window: {} -> {} steps, "
+              "{} -> {} completions; one turn {}".format(
+                  steps0, steps1, held0, held1,
+                  victim.engine._turn is survivor.engine._turn))
+        _wait_for(lambda: SUPERVISED_VICTIM in fleet.route_order(
+            f.router.replica_views(), f.router.stale_after),
+            "the victim back in the router's order", timeout=30)
+        status, body = _healthz(victim.addr)
+        check(status == 200 and body["engine"]["alive"],
+              "14(a) the victim's /healthz after the restart: {} {}".format(
+                  status, body.get("status")))
+        done1 = victim.engine.counters.get("requests_completed")
+        after_idx = list(SUPERVISED_AFTER)
+        got_after, errors, _ = _fleet_clients(port, reqs, after_idx)
+        check(not errors, "14(a) after the readmit: {}".format(errors[:2]))
+        served_after = victim.engine.counters.get("requests_completed") \
+            - done1
+        check(served_after > 0, "14(a) the restarted replica served none of "
+              "{} requests".format(len(after_idx)))
+        routes, steps, prefills = _exact_launches(pa, series, before, "14(a)")
+        add(routes)
+        ties = tokens(got, idx, "a") + tokens(got_after, after_idx, "a")
+        n_new = sum(n for _, n in reqs)
+        res["a"] = {
+            "tokens_per_s": n_new / wall, "wall_s": wall,
+            "death_to_quiesce_s": ours[0]["wall"] - died,
+            "quiesce_to_readmit_s": ours[1]["wall"] - ours[0]["wall"],
+            "engine_restarts": _restarts(f), "served_after": served_after,
+            "survivor_in_window": {"decode_steps": steps1 - steps0,
+                                   "completed": held1 - held0},
+            "launches": routes, "decode_steps": steps,
+            "prefills": prefills, "ties": ties,
+            "leg_wall_s": time.monotonic() - t_leg}
+        log("supervised 14(a) {} killed at step {} under 16 requests: zero "
+            "client failures, {:.1f} tokens/s; death -> quiesce {:.3f}s, "
+            "quiesce -> readmit {:.3f}s (the survivor meanwhile {} decode "
+            "steps, {} completions); engine_restarts {}; /healthz 200; "
+            "{} of {} later requests on the restarted replica; launches {} "
+            "({} x {} steps, {} x {} prefills); tokens equal phase 4's ({} "
+            "at a tie); leg {:.1f}s".format(
+                SUPERVISED_VICTIM, SUPERVISED_KILL_STEP, n_new / wall,
+                res["a"]["death_to_quiesce_s"],
+                res["a"]["quiesce_to_readmit_s"], steps1 - steps0,
+                held1 - held0, _restarts(f), served_after,
+                len(after_idx), routes, LAYERS, steps, LAYERS, prefills, ties,
+                res["a"]["leg_wall_s"]))
+
+        # (b) a rolling drain under the supervisor, then the drained-in
+        # successor of replica-0 killed once
+        t_leg = time.monotonic()
+        _zero_launches(pa)
+        before = series.totals()
+        engines = [r.engine for r in f.replicas]
+        idx = list(range(SUPERVISED_DRAIN_REQUESTS))
+        box = {}
+        sender = threading.Thread(target=lambda: box.update(
+            zip(("got", "errors", "wall"), _fleet_clients(port, reqs, idx))))
+        sender.start()
+        _wait_for(lambda: sum(r.engine.outstanding()
+                              for r in f.replicas) >= 4,
+                  "requests in flight before the drain")
+        report = f.rolling_drain()
+        sender.join()
+        check(report["completed"] and report["zero_loss"]
+              and not box["errors"]
+              and all(r.engine not in engines for r in f.replicas),
+              "14(b) the drain under the supervisor: {} {}".format(
+                  report, box["errors"][:2]))
+        check(_restarts(f) == [0, 1]
+              and len(sup.events.events("engine_restarted")) == 1,
+              "14(b) the drain moved engine_restarts: {}".format(
+                  _restarts(f)))
+        successor = f.replicas[0].engine
+        _wait_for(lambda: all(e["engine"] is r.engine for e, r in
+                              zip(sup._watched, f.replicas)),
+                  "the watch on the successors", timeout=10)
+        chaos.arm("kill_scheduler_at_step=1,only=replica-0")
+        kill_idx = [11, 12]
+        got_k, errors, _ = _fleet_clients(port, reqs, kill_idx, clients=2)
+        check(not errors, "14(b) the successor's kill: {}".format(
+            errors[:2]))
+        _wait_for(lambda: len(sup.events.events("engine_restarted")) == 2
+                  and f.replicas[0].engine is not successor
+                  and f.replicas[0].engine.healthy()["alive"],
+                  "the successor's restart", timeout=60)
+        chaos.disarm()
+        check(_restarts(f) == [1, 1], "14(b) engine_restarts after the "
+              "successor's restart {}".format(_restarts(f)))
+        routes, steps, prefills = _exact_launches(pa, series, before, "14(b)")
+        add(routes)
+        ties_b = tokens(box["got"], idx, "b") + tokens(got_k, kill_idx, "b")
+        res["b"] = {"drain_wall_s": [r["wall_s"] for r in report["replicas"]],
+                    "engine_restarts": _restarts(f), "launches": routes,
+                    "ties": ties_b, "leg_wall_s": time.monotonic() - t_leg}
+        log("supervised 14(b) rolling drain with {} in flight: zero lost, "
+            "walls {} s, engine_restarts unmoved; the successor killed and "
+            "restarted -> {}; launches {}; tokens equal phase 4's ({} at a "
+            "tie); leg {:.1f}s".format(
+                len(idx), res["b"]["drain_wall_s"], _restarts(f), routes,
+                ties_b, res["b"]["leg_wall_s"]))
+    finally:
+        chaos.disarm()
+        series.stop()
+        f.stop()
+    # the drained and restarted engines (their modules and KV pools) go
+    # before (c) measures its memory
+    f = sup = series = victim = survivor = engines = successor = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the closed loop: one replica, a burst, idle
+    t_leg = time.monotonic()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats(dev)
+    f = cluster.serving_fleet(
+        model, replicas=1, name="gpt2", engine_kw=engine_kw,
+        host="127.0.0.1",
+        autoscale=autoscale.AutoscalePolicy(**SCALE_POLICY))
+    ctl = f.autoscaler
+    series = _Series(f).start()
+    try:
+        _zero_launches(pa)
+        before = series.totals()
+        burst = reqs + reqs
+        idx = list(range(SCALE_BURST))
+        got, errors, wall = _fleet_clients(f.router_addr[1], burst, idx,
+                                           clients=SCALE_CLIENTS)
+        check(not errors, "14(c) client-visible failures in the burst: {}"
+              .format(errors[:2]))
+        _wait_for(lambda: ctl.counters.get("scale_downs") >= 1
+                  and len(f.replicas) == 1, "the idle fleet's scale-down",
+                  timeout=90)
+        decisions = ctl.events.events("autoscale_decision")
+        ups = [d for d in decisions if d["action"] == "up"]
+        downs = [d for d in decisions if d["action"] == "down"]
+        up_done = ctl.events.events("autoscale_scaled_up")
+        down_done = ctl.events.events("autoscale_scaled_down")
+        check(len(ups) == 1 and len(up_done) == 1
+              and ("queue_wait" in ups[0]["reason"]
+                   or "saturated" in ups[0]["reason"]),
+              "14(c) up decisions {}".format(
+                  [(d["action"], d["reason"]) for d in ups]))
+        new_rid = up_done[0]["replica"]
+        check(new_rid in series.first_done,
+              "14(c) the new replica {} served nothing".format(new_rid))
+        check(len(downs) == 1 and len(down_done) == 1
+              and down_done[0]["drained_clean"]
+              and down_done[0]["replica"] not in
+              f.reservation.serving_snapshot(),
+              "14(c) down decisions {} / retirements {}".format(
+                  [(d["action"], d["reason"]) for d in downs], down_done))
+        routes, steps, prefills = _exact_launches(pa, series, before, "14(c)")
+        add(routes)
+        ties_c = tokens(got, idx, "c", expect=lambda i: want[i % len(reqs)],
+                        requests=burst)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        n_new = sum(n for _, n in burst)
+        res["c"] = {
+            "tokens_per_s": n_new / wall, "wall_s": wall,
+            "up_reason": ups[0]["reason"], "down_reason": downs[0]["reason"],
+            "new_replica": new_rid, "retired": down_done[0]["replica"],
+            "breach_to_first_completion_s":
+                series.first_done[new_rid] - ups[0]["t"],
+            "drain_wall_s": down_done[0]["t"] - downs[0]["t"],
+            "allocated_before_gib": base, "peak_gib": peak,
+            "launches": routes, "decode_steps": steps,
+            "prefills": prefills, "ties": ties_c,
+            "leg_wall_s": time.monotonic() - t_leg}
+        log("supervised 14(c) autoscale: {} requests from {} clients {:.1f} "
+            "tokens/s; up ({}) -> {} first answered {:.3f}s after the "
+            "breach; down ({}) retired {} in a {:.3f}s drain, zero lost; "
+            "peak {:.2f} GiB allocated ({:.2f} GiB before the fleet); "
+            "launches {}; tokens equal phase 4's ({} at a tie); leg "
+            "{:.1f}s".format(
+                len(idx), SCALE_CLIENTS, n_new / wall, ups[0]["reason"],
+                new_rid, res["c"]["breach_to_first_completion_s"],
+                downs[0]["reason"], res["c"]["retired"],
+                res["c"]["drain_wall_s"], peak, base, routes, ties_c,
+                res["c"]["leg_wall_s"]))
+    finally:
+        series.stop()
+        f.stop()
+
+    # (d) an executor-hosted replica's executor SIGKILLed: attributed by
+    # the supervisor, replaced by the autoscaler on the free executor
+    t_leg = time.monotonic()
+    fuse = os.path.join(work, "kill-d.fuse")
+    spec = "kill_serving_executor_at_request={},only=replica-0,fuse={}" \
+        .format(LOSS_KILL_AT, fuse)
+    sc = Context(2, work_root=os.path.join(work, "engine"),
+                 executor_env={"TFOS_CHAOS": spec})
+    pids = set()
+    try:
+        f = cluster.serving_fleet(model, replicas=1, name="gpt2",
+                                  placement="executors", sc=sc,
+                                  engine_kw=engine_kw, spawn_timeout=300,
+                                  supervise=True)
+        try:
+            ctl = f.autoscale(policy=autoscale.AutoscalePolicy(
+                min_replicas=1, max_replicas=2, dead_after_s=1.5,
+                down_cooldown_s=3600.0), interval=0.2)
+            old = f.reservation.serving_snapshot()["replica-0"]
+            pids.add(old["host"]["pid"])
+            port = f.router_addr[1]
+            got, answered = {}, {}
+            for i in range(LOSS_REQUESTS):
+                got[i] = _retrying_generate(serving, port, *reqs[i])
+                answered[i] = time.time()
+            check(os.path.exists(fuse), "14(d) the executor kill never "
+                  "fired")
+            with open(fuse) as fh:
+                killed = float(fh.read().strip())
+            info = f.reservation.serving_snapshot()["replica-0"]
+            pids.add(info["host"]["pid"])
+            lost = f.supervisor.events.events("serving_replica_lost")
+            check(info["host"]["pid"] != old["host"]["pid"]
+                  and info["host"]["executor"] != old["host"]["executor"]
+                  and info["epoch"] > old["epoch"]
+                  and ctl.counters.get("replacements") >= 1,
+                  "14(d) the replacement: {} -> {}, epoch {} -> {}".format(
+                      old["host"], info["host"], old["epoch"],
+                      info["epoch"]))
+            check(len(lost) == 1 and lost[0]["replica"] == "replica-0"
+                  and not f.supervisor.events.events("engine_restarted"),
+                  "14(d) the supervisor's events: lost {}, restarted {}"
+                  .format(lost, f.supervisor.events.events(
+                      "engine_restarted")))
+            idx = list(range(LOSS_REQUESTS))
+            ties_d = tokens(got, idx, "d")
+            first = min(t for t in answered.values() if t > killed)
+        finally:
+            f.stop()
+    finally:
+        sc.stop()
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and any(
+            os.path.exists("/proc/%d" % p) for p in pids):
+        time.sleep(0.1)
+    left = [p for p in pids if os.path.exists("/proc/%d" % p)]
+    rings = [r for r in os.listdir("/dev/shm") if r.startswith(
+        "tfos-kvship-") and r.rsplit(".", 1)[-1] in {str(p) for p in pids}] \
+        if os.path.isdir("/dev/shm") else []
+    check(not left and not rings, "14(d) left behind: processes {} rings "
+          "{}".format(left, rings))
+    kvship.close_rings()
+    res["d"] = {"kill_to_attribution_s": lost[0]["wall"] - killed,
+                "kill_to_replacement_answer_s": first - killed,
+                "pids": sorted(pids), "epochs": [old["epoch"], info["epoch"]],
+                "executors": [old["host"]["executor"],
+                              info["host"]["executor"]],
+                "ties": ties_d, "leg_wall_s": time.monotonic() - t_leg}
+    log("supervised 14(d) executor loss: {} requests, zero client failures; "
+        "kill -> serving_replica_lost {:.3f}s, kill -> the replacement's "
+        "first answer {:.3f}s; executor {} -> {}, epoch {} -> {}, no "
+        "engine_restarted; stop leaves no process, no ring; tokens equal "
+        "phase 4's ({} at a tie); leg {:.1f}s".format(
+            LOSS_REQUESTS, res["d"]["kill_to_attribution_s"],
+            res["d"]["kill_to_replacement_answer_s"],
+            *res["d"]["executors"], *res["d"]["epochs"], ties_d,
+            res["d"]["leg_wall_s"]))
+    shutil.rmtree(work, ignore_errors=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["wall_s"] = time.monotonic() - t_phase
+    log("supervised phase: launches {}; wall {:.1f}s".format(
+        launches, res["wall_s"]))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -4961,6 +5508,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     fleet_res = fleet_phase(torch, pa, dev, runs, here)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sup_res = supervised_phase(torch, pa, dev, runs, here)
     t = timing["decode"][False]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -4981,6 +5531,11 @@ def main():
         # a decode tier) by route, each leg exact against its steps and
         # prefills
         "launches_fleet": fleet_res["launches"],
+        # phase 14: the supervised fleet (a killed scheduler restarted, a
+        # drained-in successor killed and restarted) and the autoscaled
+        # one (a replica spawned and retired), each leg exact against the
+        # steps and prefills of every engine it ran
+        "launches_supervised": sup_res["launches"],
         "max_abs_err": max(max(max_err.values()), gen["verify_error"]),
         # the decode shape (split-KV route), the main path's decode
         # steps; ms and library_ms per eager call, as for the flash rows,
@@ -5023,6 +5578,7 @@ def main():
         # the tensor-core query-tiled kernel: the serving legs' prefills
         "launches": route_launches["tiled"],
         "launches_fleet": fleet_res["launches"]["tiled"],
+        "launches_supervised": sup_res["launches"]["tiled"],
         "max_abs_err": max_err["tiled"],
         # the 256-token tail, float32; ms per eager call, device time
         # through CUDA-graph replays beside it; int8 and the cold 512
@@ -5116,6 +5672,7 @@ def main():
                        "generation": gen,
                        "planes": planes,
                        "fleet": fleet_res,
+                       "supervised": sup_res,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     log("total: {:.1f}s".format(time.monotonic() - t_start))
     print(json.dumps(kernels))

@@ -10,8 +10,8 @@ reservation message and every fleet HTTP exchange), the checkpointer's
 decode engine's serving sites (``on_decode_step``,
 ``on_serving_request``, ``on_token``) and the fleet router's
 (``on_router_request``), with the driver-side restart helper
-:func:`schedule_reservation_restart`. Left for ROADMAP Queue 1 item 9b
-(the policy planes), with the sites that fire them: the step and
+:func:`schedule_reservation_restart`. Left for ROADMAP Queue 1 item 1
+(training supervision), with the sites that fire them: the step and
 executor points (``kill_trainer_at_step``,
 ``drop_executor_then_return_after``) and their driver-side helpers
 (``schedule_executor_return``, ``kill_when``); the port's parser refuses

@@ -25,9 +25,9 @@ which ``shutdown(ssc)`` stops first.
 
 :func:`serving_fleet` forms a serving fleet (``fleet.ServingFleet``:
 replicas in this process or in executor processes, behind one router)
-in one call. Left for ROADMAP Queue 1 item 9b (the policy planes):
-``run(supervise=...)`` and ``serving_fleet(supervise=, autoscale=)``
-raise.
+in one call, optionally supervised (``supervise=``) and autoscaled
+(``autoscale=``). Left for ROADMAP Queue 1 item 1 (training
+supervision): ``run(supervise=...)`` raises.
 """
 
 import logging
@@ -266,16 +266,18 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     :data:`node.DEFAULT_RENDEZVOUS_TIMEOUT`, 300, the reference's bound)
     before it raises.
 
-    ``supervise``: the supervision plane is not ported yet (ROADMAP
-    Queue 1 item 9b); passing one raises. ``exclude_executors`` /
+    ``supervise``: training supervision (``SupervisedCluster``) is not
+    ported yet (ROADMAP Queue 1 item 1); passing one raises.
+    ``exclude_executors`` /
     ``beat_interval`` are that plane's plumbing: blacklist a set of
     engine executor ids (built-in engine only) and override the
     heartbeat-lease cadence.
     """
     if supervise is not None:
         raise NotImplementedError(
-            "cluster.run(supervise=...) is not ported yet: the supervision "
-            "plane comes with ROADMAP Queue 1 item 9b (the policy planes)")
+            "cluster.run(supervise=...) is not ported yet: training "
+            "supervision (SupervisedCluster) comes with ROADMAP Queue 1 "
+            "item 1 (training supervision)")
     if driver_ps_nodes:
         raise NotImplementedError(
             "driver_ps_nodes is not supported: async parameter-server DP "
@@ -423,14 +425,22 @@ def serving_fleet(model, replicas=2, name="model", supervise=False,
     ``fleet.ServingFleet``): on one card, width buys isolation and
     zero-loss upgrades, not tokens/s.
 
-    ``supervise`` / ``restart`` and ``autoscale`` arm the recovery loop
-    and the SLO-driven autoscaler, which are not ported yet (ROADMAP
-    Queue 1 item 9b, the policy planes): asking for either raises.
+    ``supervise=True`` additionally arms the recovery loop
+    (``Supervisor.watch_fleet`` for in-process replicas: dead replica
+    -> router quiesced -> RestartEngine respawn -> readmit;
+    ``Supervisor.watch_serving`` lease classification for
+    executor-hosted ones; ``restart`` overrides the policy).
+
+    ``autoscale`` (an ``autoscale.AutoscalePolicy``, or True for the
+    defaults) arms the SLO-driven controller: the replica count then
+    tracks offered load between the policy's min/max — scale-up on
+    queue-wait/TTFT breaches onto free executors, zero-loss
+    drain-retirement when idle, fenced replacement of dead replicas.
 
     Returns the started ``fleet.ServingFleet`` (a context manager —
     ``with`` it, or call ``stop()``)::
 
-        f = cluster.serving_fleet(model, replicas=3,
+        f = cluster.serving_fleet(model, replicas=3, supervise=True,
                                   engine_kw={"device": "cuda"})
         # POST http://%s:%d/v1/models/model:generate % f.router_addr
         f.rolling_drain()   # zero-loss engine cycle
@@ -440,19 +450,13 @@ def serving_fleet(model, replicas=2, name="model", supervise=False,
     ``router_kw``, ``executors``, ``spawn_timeout``, ``tiers``,
     ``journal``, ...) pass through to
     ``fleet.ServingFleet``."""
-    if supervise or restart is not None:
-        raise NotImplementedError(
-            "serving_fleet(supervise=...) is not ported yet: the "
-            "supervisor comes with ROADMAP Queue 1 item 9b (the policy "
-            "planes)")
-    if autoscale is not None and autoscale is not False:
-        raise NotImplementedError(
-            "serving_fleet(autoscale=...) is not ported yet: the "
-            "autoscaler comes with ROADMAP Queue 1 item 9b (the policy "
-            "planes)")
     from tensorflowonspark_tpu_torch import fleet as fleet_mod
 
     f = fleet_mod.ServingFleet(model, replicas=replicas, name=name,
                                placement=placement, sc=sc, **fleet_kw)
     f.start()
+    if supervise:
+        f.supervise(restart=restart)
+    if autoscale is not None and autoscale is not False:
+        f.autoscale(policy=None if autoscale is True else autoscale)
     return f

@@ -13,7 +13,7 @@ and the error (with the executor-side traceback) re-raises on the driver
 when the job result is awaited — the reference's error-propagation story
 (SURVEY.md §3.5) depends on exactly this.
 
-Left for ROADMAP Queue 1 item 9b (the policy planes):
+Left for ROADMAP Queue 1 item 1 (training supervision):
 ``revive_executor``, the supervision plane's elastic regrow.
 """
 

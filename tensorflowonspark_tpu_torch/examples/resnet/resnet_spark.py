@@ -16,7 +16,7 @@ reference: ``examples/mnist/tf`` direct file reads):
 every ``--ckpt_every`` steps and once at the end, so a re-submitted job
 resumes. ``--profile`` (the reference's profiler server, device trace
 and TensorBoard summaries) waits for the port's profiler hooks (ROADMAP
-Queue 1 item 10) and raises. Write synthetic shards, then train from
+Queue 1 item 2) and raises. Write synthetic shards, then train from
 them::
 
     python -m tensorflowonspark_tpu_torch.examples.resnet.resnet_spark \
@@ -175,7 +175,7 @@ def main(argv=None):
     ap.add_argument("--ckpt_every", type=int, default=50)
     ap.add_argument("--profile", action="store_true",
                     help="not ported yet: waits for the profiler hooks "
-                         "(ROADMAP Queue 1 item 10)")
+                         "(ROADMAP Queue 1 item 2)")
     ap.add_argument("--log_every", type=int, default=10)
     _common.add_device_flag(ap)
     args = ap.parse_args(argv)
@@ -184,7 +184,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--profile needs the port's profiler hooks "
             "(tracing.start_profiler_server / trace on torch.profiler), "
-            "which wait for ROADMAP Queue 1 item 10")
+            "which wait for ROADMAP Queue 1 item 2")
     for name in ("model_dir", "data_dir", "ckpt_dir"):
         if getattr(args, name):
             setattr(args, name, os.path.abspath(getattr(args, name)))

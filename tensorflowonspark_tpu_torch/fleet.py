@@ -53,9 +53,14 @@ pattern), and the executor's :class:`ServingNode` builds the module
 on its own device
 (``engine_kw["device"]``, default the card).
 
-Left for ROADMAP Queue 1 item 9b (the policy planes):
-:meth:`ServingFleet.supervise` and :meth:`ServingFleet.autoscale`
-raise ``NotImplementedError``.
+Policy planes: :meth:`ServingFleet.supervise` arms a
+``supervisor.Supervisor`` (a dead in-process scheduler is quiesced at
+the router, restarted through ``RestartEngine`` and readmitted; a lost
+executor-hosted replica is attributed from its lease), and
+:meth:`ServingFleet.autoscale` an ``autoscale.AutoscaleController``
+over the width verbs (:meth:`ServingFleet.spawn_replica`,
+:meth:`~ServingFleet.retire_replica`,
+:meth:`~ServingFleet.replace_replica`).
 
 In-process quickstart (the shape ``cluster.serving_fleet`` wraps)::
 
@@ -815,7 +820,13 @@ class Replica(object):
             logger.warning(
                 "replica %s beat thread busy at stop(); leaving its "
                 "client to the daemon thread", self.replica_id)
+        engine = self.server.engine
         self.server.stop()
+        if engine is not None:
+            # the replica's engine goes with it (the reference's
+            # ModelServer.stop stops its engine): a stopped fleet must
+            # not leave schedulers, and their KV pools, running
+            engine.stop()
 
 
 def module_spec(model):
@@ -856,7 +867,10 @@ def module_spec(model):
 def build_module(spec, device):
     """Inverse of :func:`module_spec`: construct the module on
     ``device`` (without initializing it, when the constructor takes a
-    ``device``) and load the shipped state."""
+    ``device``) and load the shipped state. Every parameter and buffer
+    takes its shipped dtype first, so a bfloat16 or float16 module
+    comes back at the dtype and bits it had on the driver, not at the
+    constructor's default (a shared tensor is cast once)."""
     mod_name, qual = spec["cls"].split(":")
     cls = importlib.import_module(mod_name)
     for part in qual.split("."):
@@ -878,6 +892,12 @@ def build_module(spec, device):
         if dtype == "bfloat16":
             t = t.view(torch.bfloat16)
         state[key] = t
+    owned = dict(model.named_parameters(remove_duplicate=False))
+    owned.update(model.named_buffers(remove_duplicate=False))
+    for key, t in state.items():
+        own = owned.get(key)
+        if own is not None and own.dtype != t.dtype:
+            own.data = own.data.to(t.dtype)
     model.load_state_dict(state)
     return model.eval()
 
@@ -2980,6 +3000,8 @@ class ServingFleet(object):
             else reservation.Server(0, journal=self.journal_path)
         self.replicas = []
         self.router = None
+        self.supervisor = None
+        self.autoscaler = None
         self._started = False
         self._resv_addr = None
         self._next_idx = 0
@@ -3512,13 +3534,18 @@ class ServingFleet(object):
         return fresh
 
     def autoscale(self, policy=None, **controller_kw):
-        """The SLO-driven autoscaler is not ported yet (ROADMAP Queue 1
-        item 9b, the policy planes); :meth:`spawn_replica`,
-        :meth:`retire_replica` and :meth:`replace_replica` are the
-        width verbs it will call."""
-        raise NotImplementedError(
-            "ServingFleet.autoscale() is not ported yet: the autoscaler "
-            "comes with ROADMAP Queue 1 item 9b (the policy planes)")
+        """Arm the SLO-driven autoscaler (``autoscale.py``): a
+        driver-side control loop scaling this fleet between the policy's
+        min/max_replicas from the SLO signals the replicas already
+        beat. Returns the started controller (also stashed on
+        ``self.autoscaler`` for stop())."""
+        from tensorflowonspark_tpu_torch import autoscale as autoscale_mod
+
+        if self.autoscaler is None:
+            self.autoscaler = autoscale_mod.AutoscaleController(
+                self, policy=policy, **controller_kw)
+            self.autoscaler.start()
+        return self.autoscaler
 
     @property
     def router_addr(self):
@@ -3529,11 +3556,22 @@ class ServingFleet(object):
         return "http://{}:{}{}".format(host, port, path)
 
     def supervise(self, restart=None, config=None):
-        """The recovery loop (a Supervisor watching the replicas) is not
-        ported yet (ROADMAP Queue 1 item 9b, the policy planes)."""
-        raise NotImplementedError(
-            "ServingFleet.supervise() is not ported yet: the supervisor "
-            "comes with ROADMAP Queue 1 item 9b (the policy planes)")
+        """Arm the recovery loop: a Supervisor watching every
+        in-process replica (dead scheduler -> router quiesced first ->
+        RestartEngine respawn -> router readmit) and, for
+        executor-hosted replicas, classifying their serving LEASES
+        (expired lease / dead engine -> quiesce + attributed incident;
+        the autoscaler owns the replacement, so no restart budget
+        burns on an executor the driver cannot respawn in place).
+        Returns the supervisor."""
+        from tensorflowonspark_tpu_torch import supervisor as supervisor_mod
+
+        if self.supervisor is None:
+            self.supervisor = supervisor_mod.Supervisor(config=config)
+            self.supervisor.watch_fleet(self, restart=restart)
+            if any(getattr(r, "remote", False) for r in self.replicas):
+                self.supervisor.watch_serving(self)
+        return self.supervisor
 
     def rolling_drain(self, upgrade=None, drain_timeout=None,
                       healthz_timeout=30.0):
@@ -3542,6 +3580,12 @@ class ServingFleet(object):
             healthz_timeout=healthz_timeout)
 
     def stop(self):
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+            self.autoscaler = None
+        if self.supervisor is not None:
+            self.supervisor.stop()
+            self.supervisor = None
         if self.router is not None:
             self.router.stop()
             self.router = None

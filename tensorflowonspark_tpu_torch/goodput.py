@@ -23,12 +23,17 @@ second visible, MLPerf-goodput style:
   map_fun gets goodput accounting with ZERO caller changes: the
   trainer-side ledger registers into the DataFeed's MetricsRegistry
   and its snapshot rides the existing BEAT lease to the driver.
-
-Left for ROADMAP Queue 1 item 9b (the policy planes): the driver-side
-``StragglerDetector`` (skew incidents through the Supervisor), the
-job-level ``job_report`` / ``merged_categories`` composition, and
-``skew_rows``. The per-executor ``step_skew`` the driver's ``/metrics``
-renders is here.
+- :class:`StragglerDetector` — driver-side skew watch over the
+  BEAT-carried per-executor step-time EWMAs: an executor whose
+  effective step time (EWMA, or its stalled-progress age when the
+  step counter freezes) exceeds ``skew_threshold`` x the fleet median
+  raises an OBSERVE-ONLY ``straggler`` incident through the
+  Supervisor (recovery policies never see it — skew is a signal, not
+  a failure).
+- :func:`job_report` — the driver-side composition: a supervised
+  job's own ledger (reform / resize_drain — the windows no trainer
+  exists to measure) folded with the merged executor snapshots
+  accumulated across attempts, against the job's wall clock.
 
 Exposition (families cataloged in ``tracing.METRIC_FAMILIES``):
 ``tfos_badput_seconds{stage=<category>}`` (+``_samples``),
@@ -425,3 +430,176 @@ def attach_step_skew(per_executor):
     for eid, skew in step_skew(per_executor).items():
         per_executor[eid]["step_skew"] = skew
     return per_executor
+
+
+def skew_rows(per_executor):
+    """Straggler-table rows ``[{executor, skew, step_ewma_s}]`` out of
+    skew-annotated per-executor views (``cluster.metrics()``'s
+    ``executors`` map / a driver ``/stats`` document's) — the shape
+    ``metrics_report.format_straggler_table`` renders; executors with
+    no computable skew (no steps yet) are omitted."""
+    rows = []
+    for eid, view in (per_executor or {}).items():
+        skew = view.get("step_skew")
+        if skew is None:
+            continue
+        rows.append({"executor": eid, "skew": skew,
+                     "step_ewma_s":
+                     _gauges_of(view).get("step_ewma_seconds")})
+    return rows
+
+
+class StragglerDetector(object):
+    """Driver-side skew watch over the fleet's step-time signals.
+
+    Two signatures, one verdict:
+
+    - a SLOW executor: its BEAT-carried step-time EWMA exceeds
+      ``skew_threshold`` x the fleet median;
+    - a STALLED executor: its ``train_step`` counter stopped advancing
+      — the EWMA freezes at its last healthy value, so the detector
+      substitutes the stall age (seconds since the step last moved,
+      tracked here) once it exceeds the median step time. This is what
+      makes an injected feed stall fire the incident deterministically
+      (the executor keeps beating; nothing else is wrong with it).
+
+    Observe-only by contract: :meth:`observe` RETURNS findings; the
+    Supervisor records them as ``straggler`` incidents with evidence
+    but never feeds them to a recovery policy — skew is a capacity
+    signal (deal with the slow host), not a failure. One report per
+    executor per episode: a straggler that recovers below threshold
+    re-arms.
+    """
+
+    def __init__(self, skew_threshold=3.0, min_executors=2,
+                 min_stall_s=5.0, clock=time.monotonic):
+        self.skew_threshold = float(skew_threshold)
+        self.min_executors = int(min_executors)
+        #: stall ages below this never substitute for the EWMA — a
+        #: short legitimate pause (a checkpoint save, a slow batch)
+        #: must not read as a stall on a fleet with sub-second steps
+        self.min_stall_s = float(min_stall_s)
+        self._clock = clock
+        self._progress = {}   # eid -> (last train_step, t of change)
+        self._flagged = set()
+
+    def observe(self, per_executor, now=None):
+        """One detection pass over ``Server.metrics_snapshot()``-shaped
+        views; returns [{executor_id, skew, effective_s, median_s,
+        stalled}] for NEWLY flagged stragglers."""
+        now = now if now is not None else self._clock()
+        effective = {}
+        for eid, view in per_executor.items():
+            ewma = _gauges_of(view).get("step_ewma_seconds")
+            step = view.get("train_step")
+            if step is not None:
+                prev = self._progress.get(eid)
+                if prev is None or prev[0] != step:
+                    self._progress[eid] = (step, now)
+            if not ewma:
+                continue
+            ewma = float(ewma)
+            eff, stalled = ewma, False
+            prev = self._progress.get(eid)
+            if prev is not None:
+                stall_age = now - prev[1]
+                if stall_age > max(ewma, self.min_stall_s):
+                    eff, stalled = stall_age, True
+            effective[eid] = (eff, stalled)
+        if len(effective) < self.min_executors:
+            return []
+        med = _median([e for e, _ in effective.values()])
+        if not med:
+            return []
+        found = []
+        for eid, (eff, stalled) in effective.items():
+            skew = eff / med
+            if skew >= self.skew_threshold:
+                if eid not in self._flagged:
+                    self._flagged.add(eid)
+                    found.append({"executor_id": eid,
+                                  "skew": round(skew, 3),
+                                  "effective_s": round(eff, 6),
+                                  "median_s": round(med, 6),
+                                  "stalled": stalled})
+            else:
+                self._flagged.discard(eid)  # recovered: re-arm
+        return found
+
+
+# -- job-level composition --------------------------------------------------
+
+def merged_categories(merged_snapshot):
+    """{category: seconds} out of a merged executor registry snapshot
+    (``tracing.merge_snapshots`` output): the ``tfos_badput`` timer
+    totals plus the ``tfos_goodput`` productive counter."""
+    out = {c: 0.0 for c in CATEGORIES}
+    if not merged_snapshot:
+        return out
+    timers = (merged_snapshot.get("timers") or {}).get("tfos_badput") \
+        or {}
+    for category, seconds in (timers.get("t") or {}).items():
+        out[category] = out.get(category, 0.0) + float(seconds)
+    counters = (merged_snapshot.get("counters") or {}) \
+        .get("tfos_goodput") or {}
+    out[PRODUCTIVE] += float(
+        (counters.get("counts") or {}).get("productive_seconds", 0.0))
+    return out
+
+
+def job_report(wall_s, driver_ledger=None, merged_snapshots=(),
+               width=1):
+    """Fold a job's accounting into one report against ITS wall clock.
+
+    ``merged_snapshots``: the per-attempt merged executor snapshots
+    (each attempt's trainers run a fresh process-global ledger; their
+    categories SUM across attempts). ``driver_ledger``: the
+    SupervisedCluster's own ledger — it charges only the windows no
+    trainer exists to measure (``reform`` between attempts,
+    ``resize_drain`` teardown), so executor and driver categories
+    never overlap-count by construction; its idle (attempts running)
+    is dropped in favor of the executors' own accounting.
+
+    ``width``: executor seconds are divided by the width so the report
+    stays in JOB wall-clock units (N executors each productive for the
+    whole window == ratio 1.0, not N). The residual lands in ``idle``;
+    ``unaccounted_s`` keeps the signed raw gap for the invariant pin.
+
+    Accounting bound, stated honestly: the driver's reform window and
+    a new trainer's ledger OVERLAP for the tail of each formation (the
+    trainer process is up and its ledger ticking idle while the driver
+    still waits out the barrier), so those seconds can count twice —
+    once as driver ``reform``, once as executor ``idle``. The
+    over-count is bounded by (formations x trainer-bootstrap-inside-
+    barrier) and surfaces as a NEGATIVE ``unaccounted_s`` (the idle
+    row's ``max(residual, 0)`` floor never hides the sign) — the chaos
+    e2e pins it within the 2% tolerance; jobs with pathologically slow
+    formations should read ``unaccounted_s`` before trusting ``idle``.
+    """
+    wall_s = float(wall_s)
+    cats = {c: 0.0 for c in CATEGORIES}
+    for snap in merged_snapshots:
+        for category, seconds in merged_categories(snap).items():
+            cats[category] = cats.get(category, 0.0) + seconds
+    scale = 1.0 / max(int(width), 1)
+    cats = {c: s * scale for c, s in cats.items()}
+    exec_idle = cats.pop("idle", 0.0)
+    if driver_ledger is not None:
+        driver = driver_ledger.categories()
+        for category in ("reform", "resize_drain"):
+            cats[category] = cats.get(category, 0.0) \
+                + driver.get(category, 0.0)
+    productive = cats.get(PRODUCTIVE, 0.0)
+    accounted = sum(cats.values()) + exec_idle
+    residual = wall_s - accounted
+    badput = {c: round(cats.get(c, 0.0), 6) for c in BADPUT
+              if c != "idle"}
+    badput["idle"] = round(exec_idle + max(residual, 0.0), 6)
+    return {
+        "wall_s": round(wall_s, 6),
+        "productive_s": round(productive, 6),
+        "goodput_ratio": round(productive / wall_s, 6)
+        if wall_s > 0 else 0.0,
+        "badput": badput,
+        "unaccounted_s": round(residual, 6),
+    }

@@ -103,14 +103,14 @@ drains)::
     python -m tensorflowonspark_tpu_torch.serving --model-dir EXPORT \
         --name mnist --port 8501 [--device cpu]
 
-The fleet that hosts engines behind one router is ``fleet.py``. Left
-out of this port so far (see ROADMAP.md, Queue 1 items 9b-10): the
-supervisor and autoscaler that would drive the fleet, and the profiler
-hooks. ``compile_stats`` reports program counts as None (eager
-PyTorch keeps no program cache). ``_Batcher`` drops the reference's
-power-of-two padding of a merged batch, which bounds ``jit``'s compile
-cache; eager PyTorch has none, and padding would only add rows to
-compute.
+The fleet that hosts engines behind one router is ``fleet.py``; the
+supervisor that restarts a dead scheduler is ``supervisor.py``, the
+autoscaler that sizes the fleet ``autoscale.py``. Left out of this port
+so far (see ROADMAP.md, Queue 1): the profiler hooks. ``compile_stats``
+reports program counts as None (eager PyTorch keeps no program cache).
+``_Batcher`` drops the reference's power-of-two padding of a merged
+batch, which bounds ``jit``'s compile cache; eager PyTorch has none,
+and padding would only add rows to compute.
 """
 
 import collections
@@ -558,8 +558,9 @@ class DecodeEngine(object):
     or cancelled, is evicted at the next step boundary. :meth:`drain`
     refuses new work and finishes the admitted; :meth:`respawn` builds a
     fresh engine from this one's construction config. Counts: ``shed``,
-    ``cancelled``, ``deadline_exceeded``, ``preemptions``,
-    ``engine_restarts``."""
+    ``cancelled``, ``deadline_exceeded``, ``preemptions``, and
+    ``engine_restarts`` (the supervisor's restarts after a scheduler
+    death, ``supervisor.RestartEngine``)."""
 
     def __init__(self, model, slots=8, total_len=None, buckets=None,
                  temperature=0.0, top_k=None, top_p=None, eos_token=None,
@@ -1290,9 +1291,11 @@ class DecodeEngine(object):
         SHARING its counters, timers, metrics registry and flight
         recorder, so lifecycle counts (``engine_restarts``, tokens,
         shed and cancel tallies) and latency histograms continue across
-        the restart as one series. Counts one ``engine_restarts``. Call
-        :meth:`stop` on the dead engine first."""
-        self.counters.inc("engine_restarts")
+        the restart as one series. Counts nothing itself: the
+        supervisor's ``RestartEngine`` counts one ``engine_restarts``
+        after re-arming a respawn that follows a scheduler death; a
+        deliberate respawn (rolling drain, ``/admin/respawn``) is not a
+        restart. Call :meth:`stop` on the dead engine first."""
         return DecodeEngine(counters=self.counters, timers=self.timers,
                             metrics=self.metrics, flight=self.flight,
                             **self._spawn_args)
@@ -2925,16 +2928,21 @@ class ModelServer(object):
             body["slot_occupancy"] = snap["gauges"].get("slot_occupancy",
                                                         0)
             body["counts"] = snap["counts"]
-            load = engine.load_stats()
-            # "device" is the port's one key beyond the reference's body:
-            # where the engine runs (the card, or a CPU asked for)
-            for key in ("device", "kv_blocks_total", "kv_blocks_free",
-                        "prefix_hit_rate", "attn_impl",
-                        "generated_prefix_hit_blocks",
-                        "generated_prefix_registered",
-                        "speculate_k", "spec_acceptance_rate",
-                        "kv_dtype"):
-                body[key] = load[key]
+            # getattr: supervision fakes duck-type only healthy() +
+            # counters, and a health probe must not 500 over a gauge
+            load_stats = getattr(engine, "load_stats", None)
+            if callable(load_stats):
+                load = load_stats()
+                # "device" is the port's one key beyond the reference's
+                # body: where the engine runs (the card, or a CPU asked
+                # for)
+                for key in ("device", "kv_blocks_total", "kv_blocks_free",
+                            "prefix_hit_rate", "attn_impl",
+                            "generated_prefix_hit_blocks",
+                            "generated_prefix_registered",
+                            "speculate_k", "spec_acceptance_rate",
+                            "kv_dtype"):
+                    body[key] = load[key]
             if self._draining:
                 # mid-drain the engine goes draining -> stopped by
                 # design: a planned retirement, not "unhealthy"

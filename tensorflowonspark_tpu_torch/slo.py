@@ -32,8 +32,9 @@ Three cooperating pieces, each pure where it matters:
     innermost-wins precedence, so the stage seconds sum to the wall
     by construction rather than by luck.
 
-``SloMonitor`` glues the pure pieces to a live router (the port has no
-``FleetRouter`` yet; any object with the router's read surface serves):
+``SloMonitor`` glues the pure pieces to a live router (the port's
+``fleet.FleetRouter`` builds one; any object with the router's read
+surface serves):
 sampling SLIs from the router's own histograms (router-observed wall,
 which *includes* network grayness the engines cannot see), from merged
 replica beat snapshots, and from per-tenant dispatch tallies, then

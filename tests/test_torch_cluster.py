@@ -174,17 +174,38 @@ def test_map_fun_error_surfaces_at_shutdown(sc):
 
 
 def test_later_planes_refuse_loudly(sc):
-    later = "ROADMAP Queue 1 item 9b"
+    """``cluster.run(supervise=)`` still refuses, naming training
+    supervision's ROADMAP item; the serving fleet's planes arm:
+    ``serving_fleet(supervise=, autoscale=)`` and the fleet's own
+    ``supervise()`` / ``autoscale()`` return the running planes."""
+    from tensorflowonspark_tpu_torch import autoscale, fleet, supervisor
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+    later = r"ROADMAP Queue 1 item 1 \(training supervision\)"
     with pytest.raises(NotImplementedError, match=later):
         cluster.run(sc, lambda a, c: None, {}, 2, supervise=object())
+    model = DecoderLM(17, hidden=16, num_heads=2, num_layers=1,
+                      max_len=32).eval()
+    engine_kw = {"slots": 1, "device": "cpu"}
     for kw in ({"autoscale": True}, {"supervise": True}):
-        with pytest.raises(NotImplementedError, match=later):
-            cluster.serving_fleet(object(), **kw)
-    from tensorflowonspark_tpu_torch import fleet
-    f = fleet.ServingFleet(None, replicas=1)
-    for verb in (f.supervise, f.autoscale):
-        with pytest.raises(NotImplementedError, match=later):
-            verb()
+        f = cluster.serving_fleet(model, replicas=1, engine_kw=engine_kw,
+                                  **kw)
+        try:
+            assert (f.autoscaler is not None) == ("autoscale" in kw)
+            assert (f.supervisor is not None) == ("supervise" in kw)
+        finally:
+            f.stop()
+    f = fleet.ServingFleet(model, replicas=1, engine_kw=engine_kw)
+    f.start()
+    try:
+        sup = f.supervise()
+        ctl = f.autoscale(policy=autoscale.AutoscalePolicy(max_replicas=1),
+                          interval=60.0)
+        assert isinstance(sup, supervisor.Supervisor)
+        assert [e["replica"] for e in sup._watched] == f.replicas
+        assert ctl.poll_once().action == autoscale.ScaleDecision.HOLD
+    finally:
+        f.stop()
 
 
 def test_reservation_server_journal_seeds_epoch_floors(tmp_path):

@@ -198,7 +198,7 @@ def test_resnet_tfrecords_and_profile_gate(tmp_path):
     out = _run(tmp_path, "resnet.resnet_spark", "--profile",
                "--device", "cpu", ok=False)
     assert out.returncode != 0
-    assert "ROADMAP Queue 1 item 10" in out.stderr
+    assert "ROADMAP Queue 1 item 2" in out.stderr
 
 
 def test_inception_train_export_infer_roundtrip(tmp_path):

@@ -14,9 +14,10 @@ held against the JAX package's.
   the JAX package's ``generation.generate_jit``. Then the slice's own
   cases: a 2-replica fleet under concurrency, the rolling drain under
   traffic, failover from a killed scheduler, the two-stage prefill ->
-  decode tiers, an executor-hosted fleet on an engine ``Context``,
-  ``cluster.serving_fleet`` and the refusals of ROADMAP item 9b, and the
-  SLO monitor and canary prober against a live fleet.
+  decode tiers, an executor-hosted fleet on an engine ``Context``
+  (supervised: its replicas' leases classified), ``cluster.serving_fleet``
+  with the policy planes armed, the module wire form at every float
+  dtype, and the SLO monitor and canary prober against a live fleet.
 - The reference's slow / chaos cases are mirrored under the same marks.
 
 The widths are the reference test's (V 17, H 32, 4 heads, 2 layers,
@@ -754,8 +755,14 @@ def test_executor_hosted_fleet_on_an_engine_context(lm, tmp_path):
                 assert got == jax_solo(params, PROMPTS[i], 8)
             report = f.rolling_drain()
             assert report["completed"] and report["zero_loss"], report
-            with pytest.raises(NotImplementedError, match="9b"):
-                f.supervise()
+            # supervision of executor-hosted replicas is lease
+            # classification (the executor-loss case of
+            # test_torch_autoscale.py kills one): no in-process engine is
+            # watched, the fleet's serving leases are
+            sup = f.supervise()
+            assert sup is f.supervisor and f.supervise() is sup
+            assert sup._watched == [] and sup._thread is not None
+            assert sup._serving_watch["fleet"] is f
         finally:
             f.stop()
     finally:
@@ -794,24 +801,125 @@ def test_module_spec_roundtrip_keeps_bfloat16_and_builds_on_device(lm):
             assert torch.equal(built.state_dict()[key], t), key
 
 
-def test_cluster_serving_fleet_and_the_refusals_of_item_9b(lm):
-    """``cluster.serving_fleet`` forms and starts a fleet in one call;
-    the policy planes it does not carry yet — ``supervise=``,
-    ``autoscale=``, ``ServingFleet.supervise`` / ``.autoscale`` — raise,
-    naming ROADMAP item 9b."""
+def test_fleet_stop_stops_every_replica_engine(lm):
+    """``ServingFleet.stop()`` stops each in-process replica's engine
+    with its server, as the reference's does: no scheduler thread (and
+    no KV pool it holds) outlives the fleet."""
     model, params = lm
-    for kw in ({"supervise": True}, {"autoscale": True}):
-        with pytest.raises(NotImplementedError, match="9b"):
-            cluster.serving_fleet(model, replicas=1, **kw)
-    f = cluster.serving_fleet(model, replicas=1, name="lm",
-                              engine_kw={"slots": 1, "device": "cpu"})
+    f = fleet.ServingFleet(model, replicas=2, name="lm",
+                           engine_kw={"slots": 1, "device": "cpu"})
+    f.start()
+    engines = [r.engine for r in f.replicas]
+    _, body = _post(f.url("/v1/models/lm:generate"),
+                    {"prompt": [3, 1], "max_new_tokens": 3})
+    assert body["tokens"] == jax_solo(params, [3, 1], 3)
+    f.stop()
+    for engine in engines:
+        assert engine.healthy()["stopping"]
+        assert not engine._thread.is_alive()
+
+
+def _bits(t):
+    """A tensor's stored bits: floats through a same-width integer view."""
+    if not t.is_floating_point():
+        return t
+    return t.view({8: torch.int64, 4: torch.int32,
+                   2: torch.int16}[t.element_size()])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_build_module_keeps_each_tensors_dtype_and_bits(lm, dtype):
+    """``module_spec`` -> ``build_module`` gives back every parameter and
+    buffer at the dtype and bits it had on the driver (the constructor
+    builds at its default float32 on the meta device first), on the
+    asked device, as the module's own tensors."""
+    model, _ = lm
+    m = copy.deepcopy(model).to(getattr(torch, dtype))
+    built = fleet.build_module(fleet.module_spec(m), "cpu")
+    want, got = m.state_dict(), built.state_dict()
+    assert list(got) == list(want)
+    for key, tensor in want.items():
+        assert got[key].dtype == tensor.dtype, (key, got[key].dtype)
+        assert got[key].device.type == "cpu", key
+        assert torch.equal(_bits(got[key]), _bits(tensor)), key
+    assert {p.dtype for p in built.parameters()} == {getattr(torch, dtype)}
+    assert not any(p.is_meta for p in built.parameters())
+
+
+def test_bf16_executor_replica_answers_as_the_in_process_one(lm, tmp_path):
+    """A bfloat16 model served from an executor process comes back in
+    bfloat16: its replica answers every prompt with the tokens of an
+    in-process replica of the same bfloat16 module at temperature 0 (a
+    float32 copy of the same weights answers one of them differently)."""
+    from tensorflowonspark_tpu_torch.engine import Context
+
+    model, _ = lm
+    half = copy.deepcopy(model).to(torch.bfloat16)
+    engine_kw = {"slots": 2, "device": "cpu"}
+
+    def answers(f):
+        url = f.url("/v1/models/lm:generate")
+        return [_post(url, {"prompt": p, "max_new_tokens": 16})[1]["tokens"]
+                for p in PROMPTS]
+
+    with fleet.ServingFleet(half, replicas=1, name="lm", engine_kw=engine_kw,
+                            beat_interval=0.05) as f:
+        local = answers(f)
+        assert f.replicas[0].engine.model.head.weight.dtype == \
+            torch.bfloat16
+    sc = Context(1, work_root=str(tmp_path / "engine"))
     try:
+        f = cluster.serving_fleet(half, replicas=1, name="lm",
+                                  placement="executors", sc=sc,
+                                  engine_kw=engine_kw, beat_interval=0.05)
+        try:
+            assert answers(f) == local
+        finally:
+            f.stop()
+    finally:
+        sc.stop()
+
+
+def test_cluster_serving_fleet_and_the_refusals_of_item_9b(lm):
+    """``cluster.serving_fleet`` forms and starts a fleet in one call and
+    arms the policy planes it was asked for: ``supervise=True`` watches
+    every in-process replica (the reference's ``test_cluster_serving_
+    fleet_helper``), ``autoscale=`` starts the controller, and the
+    fleet's own ``supervise()`` / ``autoscale()`` return the armed
+    planes; ``stop()`` stops both."""
+    from tensorflowonspark_tpu_torch import autoscale, supervisor
+
+    model, params = lm
+    f = cluster.serving_fleet(model, replicas=2, name="lm",
+                              engine_kw={"slots": 1, "device": "cpu"},
+                              supervise=True,
+                              restart=supervisor.RestartEngine(
+                                  max_restarts=5),
+                              autoscale=autoscale.AutoscalePolicy(
+                                  min_replicas=2, max_replicas=2))
+    try:
+        sup, ctl = f.supervisor, f.autoscaler
+        assert isinstance(sup, supervisor.Supervisor)
+        assert len(sup._watched) == 2
+        assert all(e["restart"].max_restarts == 5 for e in sup._watched)
+        assert isinstance(ctl, autoscale.AutoscaleController)
+        assert ctl.policy.max_replicas == 2 and ctl._thread is not None
+        assert f.supervise() is sup and f.autoscale() is ctl
         _, body = _post(f.url("/v1/models/lm:generate"),
                         {"prompt": [2, 4], "max_new_tokens": 3})
         assert body["tokens"] == jax_solo(params, [2, 4], 3)
-        for verb in (f.supervise, f.autoscale):
-            with pytest.raises(NotImplementedError, match="9b"):
-                verb()
+        assert "tfos_autoscale_decisions_total" in f.router.metrics_text()
+    finally:
+        f.stop()
+    assert f.supervisor is None and f.autoscaler is None
+    assert sup._thread is None and ctl._thread is None
+    f = cluster.serving_fleet(model, replicas=1, name="lm",
+                              engine_kw={"slots": 1, "device": "cpu"},
+                              autoscale=True)
+    try:
+        assert f.supervisor is None
+        assert f.autoscaler.policy.max_replicas == \
+            autoscale.AutoscalePolicy().max_replicas
     finally:
         f.stop()
 
@@ -871,37 +979,12 @@ def test_rolling_drain_zero_lost_requests_under_traffic(lm):
 @pytest.mark.slow
 @pytest.mark.chaos
 def test_fleet_kill_one_replica_zero_client_visible_failures(lm):
-    """Three replicas, one scheduler killed mid-stream: zero
-    client-visible failures and solo-equal tokens. The reference then
-    watches its supervisor restart the engine; the port has no
-    supervisor yet (item 9b), so the operator's verbs stand in for it:
-    quiesce, respawn, readmit."""
-    model, params = lm
-    with fleet.ServingFleet(model, replicas=3, name="lm",
-                            engine_kw={"slots": 2, "device": "cpu"},
-                            beat_interval=0.05) as f:
-        url = f.url("/v1/models/lm:generate")
-        _post(url, {"prompt": [1, 2, 3], "max_new_tokens": 2})
-        chaos.arm("kill_scheduler_at_step=3,only=replica-1")
-        out, errors = _concurrently(
-            lambda i: _post(url, {"prompt": [1 + i % 5, 2, 3],
-                                  "max_new_tokens": 16},
-                            timeout=180)[1]["tokens"], 12)
-        assert not errors, errors
-        for i, got in enumerate(out):
-            assert got == jax_solo(params, [1 + i % 5, 2, 3], 16)
-        victim = f.replicas[1]
-        assert not victim.engine.healthy()["alive"]
-        f.router.quiesce("replica-1", "restart", owner="operator")
-        victim.respawn_engine()
-        f.router.readmit("replica-1", owner="operator")
-        assert victim.engine.counters.get("engine_restarts") == 1
-        assert chaos.poll_until(
-            lambda: "replica-1" in fleet.route_order(
-                f.router.replica_views(), f.router.stale_after),
-            timeout=30)
-        _, body = _post(url, {"prompt": [9, 2, 3], "max_new_tokens": 4})
-        assert body["tokens"] == jax_solo(params, [9, 2, 3], 4)
+    """Three replicas under ``f.supervise()``, one scheduler killed
+    mid-stream: zero client-visible failures and solo-equal tokens; the
+    supervisor quiesces the replica, restarts its engine (one
+    ``engine_restarts``) and readmits it — the reference's own case."""
+    call_case(PORT["test_fleet_kill_one_replica_zero_client_visible_"
+                   "failures"], lm, None)
 
 
 @pytest.mark.slow
@@ -916,29 +999,9 @@ def test_failover_request_yields_one_stitched_cross_replica_trace(
 @pytest.mark.slow
 @pytest.mark.chaos
 def test_affinity_kill_warm_replica_fails_over_cold(lm):
-    """The warm replica of a conversation dies mid-session: the next turn
-    is served cold with solo-equal tokens and the broken affinity is
-    counted. The reference's supervised readmission is the operator's
-    respawn here (no supervisor until item 9b)."""
-    model, params = lm
-    with fleet.ServingFleet(model, replicas=3, name="lm",
-                            engine_kw={"slots": 2, "device": "cpu"},
-                            beat_interval=0.05) as f:
-        url = f.url("/v1/models/lm:generate")
-        _post(url, {"prompt": [1, 2, 3], "max_new_tokens": 2})
-        p1 = list(range(1, 14))
-        _, body = _post(url, {"prompt": p1, "max_new_tokens": 8,
-                              "session": "conv"})
-        warm = f.router.affinity.lookup("conv")
-        chaos.arm("kill_scheduler_at_step=3,only={}".format(warm))
-        p2 = body["tokens"] + [3]
-        _, body = _post(url, {"prompt": p2, "max_new_tokens": 16,
-                              "session": "conv"}, timeout=180)
-        assert body["tokens"] == jax_solo(params, p2, 16)
-        new = f.router.affinity.lookup("conv")
-        assert new is not None and new != warm
-        with f.router._obs_lock:
-            assert f.router._affinity_breaks.get("failover_cold", 0) >= 1
-        total = sum(r.engine.counters.get("requests_completed")
-                    for r in f.replicas)
-        assert total == 3
+    """The warm replica of a conversation dies mid-session under
+    supervision: the next turn is served cold with solo-equal tokens,
+    the broken affinity is counted, and the supervisor readmits the
+    killed replica — the reference's own case."""
+    call_case(PORT["test_affinity_kill_warm_replica_fails_over_cold"],
+              lm, None)

@@ -2,7 +2,8 @@
 the JAX package or cloudpickle, and its kernel modules import (and
 serve — plainly, tenant-tagged over HTTP with a ``/metrics`` scrape,
 speculatively, from a spliced KV shipment and through a one-replica
-fleet's router — train, run a cluster,
+fleet's router with its supervisor and autoscaler armed — train, run a
+cluster,
 fit, checkpoint, export and transform through the pipeline, run the model zoo and ``:predict``, stream
 micro-batches into a cluster, run TFParallel jobs, bind the Spark
 adapter and import every example driver on the CPU) without a CUDA
@@ -26,7 +27,7 @@ PLANE = ("util", "marker", "fs", "frames", "shm", "manager", "tracing",
          "tfrecord", "_tfrecord_native", "dfutil", "checkpoint", "export",
          "pipeline", "engine/streaming", "engine/spark_adapter",
          "parallel_runner", "kvship", "qos", "slo", "metrics_report",
-         "controlstate")
+         "controlstate", "supervisor", "autoscale")
 EXAMPLES = os.path.join(PORT, "examples")
 #: the parallel package's modules
 PARALLEL = ("parallel/__init__", "parallel/mesh", "parallel/collectives",
@@ -98,11 +99,16 @@ def test_port_serves_with_jax_unimportable():
                                   device="cpu") as b:
             assert b.import_prefix(meta, rows)["spliced_blocks"] == 2
             assert b.generate(prompt, 3, timeout=120) == want
-        # a one-replica fleet: formed, routed, drained, stopped
-        from tensorflowonspark_tpu_torch import fleet
+        # a one-replica fleet: formed, supervised, autoscaled, routed,
+        # drained, stopped
+        from tensorflowonspark_tpu_torch import autoscale, fleet, supervisor
         kw = {"slots": 2, "device": "cpu"}
         with fleet.ServingFleet(model, replicas=1, name="lm",
                                 engine_kw=kw) as f:
+            assert isinstance(f.supervise(), supervisor.Supervisor)
+            assert isinstance(f.autoscale(autoscale.AutoscalePolicy(
+                max_replicas=1), interval=0.05),
+                autoscale.AutoscaleController)
             host, port = f.router_addr
             conn = http.client.HTTPConnection(host, port)
             conn.request("POST", "/v1/models/lm:generate", json.dumps(

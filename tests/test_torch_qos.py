@@ -18,6 +18,7 @@ import http.client
 import importlib.util
 import json
 import os
+import sys
 import time
 import types
 
@@ -47,6 +48,9 @@ def reference_cases(filename, **port_modules):
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(HERE, filename))
     ref = importlib.util.module_from_spec(spec)
+    # a reference file may look itself up while it loads (the files
+    # whose map_funs ship by value register their own module)
+    sys.modules.setdefault(name, ref)
     spec.loader.exec_module(ref)
     ns = dict(ref.__dict__)
     ns.update(port_modules)

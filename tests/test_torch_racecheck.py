@@ -10,8 +10,9 @@ streaming loop (``engine/streaming.py``) and the Spark adapter's job
 thread (``engine/spark_adapter.py``, annotated ``# tfos:
 unjoined(...)``) are covered like every other thread of the port, and
 so is the decode scheduler's newer state: the KV job queue, the
-speculative draft's cache, the fair scheduler and the drain latch, and
-the server's SIGTERM drain thread.
+speculative draft's cache, the fair scheduler and the drain latch, the
+server's SIGTERM drain thread, the supervisor's monitor and the
+autoscaler's control loop.
 """
 
 import io
@@ -34,13 +35,13 @@ def _run(paths, baseline):
 def test_port_is_clean_against_its_baseline():
     rc, text = _run([PORT], BASELINE)
     assert rc == 0, text
-    assert "0 new" in text and "6 baselined" in text, text
+    assert "0 new" in text and "10 baselined" in text, text
 
 
 def test_every_baseline_entry_has_a_reason_and_still_matches():
     with open(BASELINE) as f:
         entries = json.load(f)["entries"]
-    assert len(entries) == 6
+    assert len(entries) == 10
     assert all(len(e["reason"].strip()) > 40 for e in entries)
     rc, text = _run([PORT], None)
     assert rc == 1

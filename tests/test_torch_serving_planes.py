@@ -279,10 +279,53 @@ def test_respawn_shares_the_series_after_a_scheduler_kill(lm):
         srv.attach_engine(fresh)
         assert _post(port, {"prompt": [4, 5], "max_new_tokens": 3})[0] \
             == 200
-        assert eng.counters.get("engine_restarts") == 1
+        # a deliberate respawn is not a restart: only the supervisor's
+        # RestartEngine counts one (the reference's contract)
+        assert eng.counters.get("engine_restarts") == 0
         assert fresh.counters.get("tokens") > tokens
         assert _req(port, "GET", "/healthz")[0] == 200
     finally:
+        srv.stop()
+        eng.stop()
+        if srv.engine is not eng:
+            srv.engine.stop()
+
+
+def test_supervised_restart_counts_one_engine_restart(lm):
+    """The same scheduler kill under ``Supervisor.watch(...,
+    restart=RestartEngine())``: the supervisor stops the corpse,
+    respawns it on the same counter series and re-arms the server, and
+    that restart is the one ``engine_restarts`` counts."""
+    from tensorflowonspark_tpu_torch import supervisor
+
+    _, params = lm
+    eng = serving.DecodeEngine(_port(params), slots=2, replica_id="r-0",
+                               device="cpu")
+    srv = serving.ModelServer(None, name="lm", port=0, engine=eng)
+    port = srv.start()[1]
+    sup = supervisor.Supervisor(
+        config=supervisor.SupervisorConfig(poll_interval=0.05))
+    try:
+        sup.watch(eng, server=srv,
+                  restart=supervisor.RestartEngine(backoff=0.05))
+        chaos.arm("kill_scheduler_at_step=1")
+        status, _, body = _post(port, {"prompt": [4, 5],
+                                       "max_new_tokens": 8})
+        assert status == 503 and body["kind"] == "EngineFailed"
+        chaos.disarm()
+        assert chaos.poll_until(
+            lambda: srv.engine is not eng and srv._unhealthy is None,
+            timeout=60)
+        assert srv.engine.counters is eng.counters
+        assert eng.counters.get("engine_restarts") == 1
+        assert _post(port, {"prompt": [4, 5], "max_new_tokens": 3})[0] \
+            == 200
+        assert _req(port, "GET", "/healthz")[0] == 200
+        assert [e["name"] for e in sup.events.events()
+                if e["name"].startswith("engine_")] == \
+            ["engine_dead", "engine_restarted"]
+    finally:
+        sup.stop()
         srv.stop()
         eng.stop()
         if srv.engine is not eng:
