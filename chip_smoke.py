@@ -14,8 +14,11 @@ over replicas in this process and in executor processes, rolling
 drain, failover, two-stage prefill -> decode dispatch, the control-state
 journal and a standby router), and the fleet's policy planes (the
 supervisor restarting a dead scheduler, the SLO autoscaler scaling up
-and down, a lost executor replica attributed and replaced) — and hold
-its CUDA kernels against their plain PyTorch versions.
+and down, a lost executor replica attributed and replaced), and
+supervised training (a killed trainer restored from its checkpoint, an
+executor lost and returned under elastic resize, the profiler's trace of
+a step) — and hold its CUDA kernels against their plain PyTorch
+versions.
 
     python3 chip_smoke.py
 
@@ -332,7 +335,37 @@ Phases, stopping with a non-zero exit at the first failure:
    completion on the new replica, the retirement's drain wall, leg (c)'s
    peak memory, kill -> attribution and kill -> the replacement's first
    answer;
-15. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
+15. supervised training — ``cluster.run(..., supervise=SupervisorConfig)``
+   through ``profile_recovery``'s legs: (a) phase 5's model at full depth
+   on one executor, phase 5's 80 records as 10 partitions of 8 (one
+   partition a step a checkpoint); the trainer runs
+   ``supervisor.attach``, trains, confirms the partition's ack, saves
+   with ``Checkpointer`` and calls ``sup.step``;
+   ``kill_trainer_at_step=5,fuse=`` SIGKILLs it after step 5's
+   checkpoint and ``RestartFromCheckpoint`` reforms: the fuse fired, 2
+   formations and ``["trainer_crash"]``, 10 partitions acked, each step
+   once (the killed step not re-run), losses equal to phase 5's within
+   1e-4 relative, the final train state's digest equal to phase 5's,
+   each flash kernel launched exactly 12 x 10 times over both attempts,
+   every MTTR stage present; (b) the same width at 2 layers on two
+   executors, each trainer alone with its own checkpoint chain,
+   ``drop_executor_then_return_after=20,only=1,fuse=`` (the return after
+   the shrink's teardown, which waits for the survivor's step) with
+   ``ElasticResize(min_width=1)`` and ``chaos.schedule_executor_return``:
+   formation widths [2, 1, 2], the failures exactly ``["executor_lost"]``
+   on executor 1, nothing excluded, steps summed over both chains equal
+   to the partitions and the rows' token sum equal to the data's, 2 x
+   10 launches of each flash kernel; in both legs every trainer on
+   ``cuda:0`` and forked from an executor that had loaded no torch (no
+   bad fork), no executor holding a CUDA context after the job, no
+   process left; (c) step 7 of (a) under ``tracing.trace``: its Chrome
+   trace names ``flash_fwd_kernel``, ``flash_dq_kernel`` and
+   ``flash_dkv_kernel``, and the loss goes through
+   ``tracing.SummaryWriter`` (a no-op where ``tensorboard`` is missing).
+   Printed: the MTTR stages (detect, reform, restore, first step, MTTR),
+   the regrow's drain -> formed -> first step, checkpoint save and step
+   p50, each trainer's peak memory and the phase's wall;
+16. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
    counts as ``launches_cluster``, phase 7's as ``launches_pipeline``,
    phase 8's (BERT training plus ``:predict``) as ``launches_models``,
    phase 9's streaming-fed trainer's as ``launches_streaming`` and the
@@ -343,7 +376,8 @@ Phases, stopping with a non-zero exit at the first failure:
    ``launches_spec`` and ``launches_disagg``, phase 12's as
    ``launches_planes``, phase 13's as ``launches_fleet``, phase 14's as
    ``launches_supervised``, and the verify window's times as
-   ``verify``), the card line, and last the ``{"ok": true, ...}`` line.
+   ``verify``; the flash rows add phase 15's as ``launches_recovery``),
+   the card line, and last the ``{"ok": true, ...}`` line.
 
 ``--out-dir DIR`` also writes every number of the run to
 ``DIR/chip_smoke.json``. Needs one card; exits non-zero, printing no
@@ -1269,10 +1303,14 @@ def training_phase(torch, dev):
             peak / 2 ** 30))
     log("training flash launches per kernel: {} over {} steps".format(
         launches, TRAIN_STEPS))
+    from tensorflowonspark_tpu_torch import profile_recovery
+
+    # the uninterrupted run's final train state, for phase 15's restart
+    digest = profile_recovery.state_digest(state)
     return launches, {"losses": losses, "step_s": step_s, "p50_s": p50,
                       "tokens_per_s": tokens / p50, "wall_s": wall,
                       "max_memory_allocated": peak,
-                      "plain_step": plain_step}
+                      "plain_step": plain_step, "digest": digest}
 
 
 # -- phase 6: the cluster-fed trainer -----------------------------------
@@ -5392,6 +5430,185 @@ def supervised_phase(torch, pa, dev, runs, here):
     return res
 
 
+# -- phase 15: supervised training (restart, elastic resize, profiler) -----
+
+#: 15(a): the trainer is SIGKILLed after this step's checkpoint
+RECOVERY_KILL_AT = 5
+#: 15(c): the post-restore step traced by ``tracing.trace``
+RECOVERY_TRACE_STEP = RECOVERY_KILL_AT + 2
+#: 15(b): the elastic leg's depth (its return delay is
+#: ``profile_recovery.SHRINK_RETURN_AFTER``)
+SHRINK_LAYERS = 2
+#: the three flash kernels, as the profiler names them
+FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_dq_kernel",
+                      "flash_dkv_kernel")
+
+
+def _trace_kernels(path):
+    """The kernel names a ``torch.profiler`` Chrome trace holds."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted({e["name"] for e in events
+                   if e.get("cat") == "kernel" and "name" in e})
+
+
+def _gib(peaks):
+    """Each trainer's (pid's) peak ``max_memory_allocated`` in GiB."""
+    return {pid: None if v is None else "{:.2f} GiB".format(v / 2 ** 30)
+            for pid, v in peaks.items()}
+
+
+def _leg_common_checks(leg, label, parts):
+    check(leg["fired"], label + ": the chaos injection never fired")
+    check(leg["exactly_once"],
+          label + ": not exactly-once (steps {}, acked {})".format(
+              leg.get("step_ids", leg.get("steps_by_executor")),
+              leg["ledger"]["acked_partitions"]))
+    check(leg["ledger"]["acked_partitions"] == parts,
+          label + ": {} partitions acked, not {}".format(
+              leg["ledger"]["acked_partitions"], parts))
+    for t in leg["trainers"]:
+        check(t["device"] == "cuda:0", label + ": a trainer ran on {}"
+              .format(t["device"]))
+        check(not t["in_bad_fork"] and not t["torch_in_executor"],
+              label + ": trainer {} was forked from an executor that had "
+              "loaded torch or touched CUDA: {}".format(t["pid"], t))
+    for p in leg["executor_probes"]:
+        check(not p["cuda_initialized"],
+              label + ": executor pid {} holds a CUDA context".format(
+                  p["pid"]))
+    check(not leg["processes_left"], label + ": processes left after "
+          "sc.stop(): {}".format(leg["processes_left"]))
+
+
+def recovery_phase(torch, dev, phase5, here):
+    """Phase 15: ``cluster.run(..., supervise=)`` on the card through
+    ``profile_recovery``'s legs. (a) phase 5's model at full depth on
+    one executor, phase 5's 80 records as 10 partitions of 8 (a
+    partition a step a checkpoint), the trainer SIGKILLed after step
+    ``RECOVERY_KILL_AT``'s checkpoint and restored by
+    ``RestartFromCheckpoint``; (b) the same width at ``SHRINK_LAYERS``
+    layers on two executors, executor 1 dropped and returned,
+    ``ElasticResize`` shrinking to 1 and regrowing to 2; (c) one
+    post-restore step of (a) under ``tracing.trace`` and the loss
+    through ``tracing.SummaryWriter``."""
+    import shutil
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import profile_recovery as pr
+
+    t_phase = time.monotonic()
+    batches = motif_batches(TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    rows = np.concatenate([np.concatenate([b["x"], b["y"][:, -1:]], axis=1)
+                           for b in batches])
+    check(np.array_equal(rows, pr.motif_rows(TRAIN_STEPS, TRAIN_BATCH,
+                                             TRAIN_SEQ, VOCAB, SEED)),
+          "profile_recovery's motif stream differs from phase 5's")
+    model = {"vocab": VOCAB, "hidden": HIDDEN, "heads": HEADS,
+             "layers": LAYERS, "max_len": MAX_LEN}
+    work = tempfile.mkdtemp(prefix=".tfos-recovery-", dir=here)
+    res = {}
+    try:
+        # (a) restart at full depth
+        os.makedirs(os.path.join(work, "restart"))
+        a = pr.restart_leg(rows, model, os.path.join(work, "restart"),
+                           batch=TRAIN_BATCH, kill_at=RECOVERY_KILL_AT,
+                           lr=TRAIN_LR, seed=SEED,
+                           trace_step=RECOVERY_TRACE_STEP)
+        res["a"] = a
+        _leg_common_checks(a, "15(a)", TRAIN_STEPS)
+        ledger = a["ledger"]
+        check(ledger["formations"] == 2
+              and ledger["failures"] == ["trainer_crash"],
+              "15(a): the ledger is {}".format(ledger))
+        check(a["step_ids"] == list(range(1, TRAIN_STEPS + 1)),
+              "15(a): steps {} (the killed step must not re-run)".format(
+                  a["step_ids"]))
+        starts = a["trainers"]
+        check(len(starts) == 2 and starts[0]["restored_step"] is None
+              and starts[1]["restored_step"] == RECOVERY_KILL_AT,
+              "15(a): the restarted trainer restored {}".format(
+                  [t["restored_step"] for t in starts]))
+        rel = [abs(g - w) / abs(w) for g, w in zip(a["losses"],
+                                                   phase5["losses"])]
+        check(len(rel) == TRAIN_STEPS and max(rel) <= STEP_LOSS_RTOL,
+              "15(a): losses differ from phase 5's (worst rel {:.2e})"
+              .format(max(rel)))
+        check(a["digest"] == phase5["digest"],
+              "15(a): the final train state's digest differs from phase "
+              "5's uninterrupted run")
+        check(a["launches"] == {k: LAYERS * TRAIN_STEPS
+                                for k in ("fwd", "dq", "dkv")},
+              "15(a): flash launches over both attempts {} are not {} "
+              "each".format(a["launches"], LAYERS * TRAIN_STEPS))
+        stages = a["recovery"]
+        check(stages is not None and all(
+            stages[k] is not None for k in ("detect_s", "reform_s",
+                                            "restore_s", "first_step_s",
+                                            "mttr_s")),
+              "15(a): MTTR stages missing: {}".format(stages))
+        # (c) the profiler on the card
+        check(a["trace"] is not None, "15(c): no trace was written")
+        kernels = _trace_kernels(a["trace"])
+        named = {k: [n for n in kernels if k in n]
+                 for k in FLASH_KERNEL_NAMES}
+        check(all(named.values()), "15(c): the trace names {} (wanted "
+              "{})".format(kernels[:20], FLASH_KERNEL_NAMES))
+        res["c"] = {"trace_kernels": kernels,
+                    "summary_backend": a["summary_backend"]}
+        log("recovery 15(a) restart: MTTR detect {detect_s}s, reform "
+            "{reform_s}s, restore {restore_s}s, first step {first_step_s}s,"
+            " MTTR {mttr_s}s".format(**stages))
+        log("recovery 15(a): formations {}, failures {}, acked {}; losses "
+            "vs phase 5 worst rel {:.2e} (tol {:.0e}); final digest equal "
+            "to phase 5's; flash launches {} over both attempts; leg wall "
+            "{:.1f}s; checkpoint save p50 {:.2f}s; step p50 {:.4f}s; "
+            "trainer peak {}".format(
+                ledger["formations"], ledger["failures"],
+                ledger["acked_partitions"], max(rel), STEP_LOSS_RTOL,
+                a["launches"], a["wall_s"], float(np.median(a["save_s"])),
+                float(np.median(a["step_s"])), _gib(a["peak_bytes"])))
+        log("recovery 15(c): the traced step's kernels include {}; "
+            "SummaryWriter backend {}".format(
+                {k: v[0] if v else None for k, v in named.items()},
+                a["summary_backend"] or "none (no tensorboard: no-op)"))
+        # (b) elastic shrink and regrow
+        os.makedirs(os.path.join(work, "shrink"))
+        b = pr.shrink_leg(rows, dict(model, layers=SHRINK_LAYERS),
+                          os.path.join(work, "shrink"), batch=TRAIN_BATCH,
+                          lr=TRAIN_LR, seed=SEED)
+        res["b"] = b
+        _leg_common_checks(b, "15(b)", TRAIN_STEPS)
+        ledger = b["ledger"]
+        check(ledger["widths"] == [2, 1, 2],
+              "15(b): formation widths {}".format(ledger["widths"]))
+        check(ledger["failures"] == ["executor_lost"]
+              and ledger["failure_executors"] == [1],
+              "15(b): failures {} on {}".format(
+                  ledger["failures"], ledger["failure_executors"]))
+        check(ledger["excluded"] == [] and ledger["width"] == 2,
+              "15(b): excluded {}, width {}".format(ledger["excluded"],
+                                                    ledger["width"]))
+        check(b["regrow_requested"], "15(b): no regrow was requested")
+        check(b["launches"] == {k: SHRINK_LAYERS * TRAIN_STEPS
+                                for k in ("fwd", "dq", "dkv")},
+              "15(b): flash launches {} are not {} each".format(
+                  b["launches"], SHRINK_LAYERS * TRAIN_STEPS))
+        log("recovery 15(b) shrink: executor loss -> MTTR stages {}; "
+            "regrow {}; widths {}, failures {}, steps by executor {}, "
+            "acked {}; leg wall {:.1f}s; trainer peaks {}".format(
+                b["recovery"], b["regrow"], ledger["widths"],
+                ledger["failures"], b["steps_by_executor"],
+                ledger["acked_partitions"], b["wall_s"],
+                _gib(b["peak_bytes"])))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["launches"] = {"restart": a["launches"], "shrink": b["launches"]}
+    res["wall_s"] = time.monotonic() - t_phase
+    log("recovery phase: wall {:.1f}s".format(res["wall_s"]))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -5511,6 +5728,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     sup_res = supervised_phase(torch, pa, dev, runs, here)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = recovery_phase(torch, dev, train, here)
     t = timing["decode"][False]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -5628,6 +5848,12 @@ def main():
                 "longcontext_per_step": {
                     run: got["flash_launches_per_step"][name]
                     for run, got in par["longcontext"].items()}},
+            # phase 15: the supervised trainers' launches summed over
+            # attempts — (a) killed after step 5 and restored (12 layers,
+            # 10 steps), (b) shrunk to one executor and regrown (2
+            # layers, 10 steps over both executors)
+            "launches_recovery": {leg: got[name] for leg, got in
+                                  rec["launches"].items()},
             # the same kernel at BERT's shape (bfloat16, key mask, S 384)
             "bert_shape": zoo["bert"]["flash_timing"][name],
             # case (a), the main path's shape and dtype; every case below
@@ -5673,6 +5899,7 @@ def main():
                        "planes": planes,
                        "fleet": fleet_res,
                        "supervised": sup_res,
+                       "recovery": rec,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     log("total: {:.1f}s".format(time.monotonic() - t_start))
     print(json.dumps(kernels))

@@ -3,19 +3,16 @@ the port's copy of ``tensorflowonspark_tpu/chaos.py`` (same spec
 grammar, same ``TFOS_CHAOS`` variable, same seeded plans).
 
 The port's sites are the feed plane's (``DataFeed``'s ``on_batch``,
-the heartbeat publishers' ``on_heartbeat``), the reservation
-server's (``on_reservation_beat``, and ``on_net`` around every
-reservation message and every fleet HTTP exchange), the checkpointer's
-(``on_checkpoint_saved``, with the corruption helpers it calls), the
-decode engine's serving sites (``on_decode_step``,
-``on_serving_request``, ``on_token``) and the fleet router's
-(``on_router_request``), with the driver-side restart helper
-:func:`schedule_reservation_restart`. Left for ROADMAP Queue 1 item 1
-(training supervision), with the sites that fire them: the step and
-executor points (``kill_trainer_at_step``,
-``drop_executor_then_return_after``) and their driver-side helpers
-(``schedule_executor_return``, ``kill_when``); the port's parser refuses
-those points instead of arming a site that never fires.
+the heartbeat publishers' ``on_heartbeat``), the training step's
+(``on_step``, fired by ``supervisor.TrainerSide.step`` after the step's
+checkpoint), the reservation server's (``on_reservation_beat``, and
+``on_net`` around every reservation message and every fleet HTTP
+exchange), the checkpointer's (``on_checkpoint_saved``, with the
+corruption helpers it calls), the decode engine's serving sites
+(``on_decode_step``, ``on_serving_request``, ``on_token``) and the fleet
+router's (``on_router_request``), with the driver-side helpers
+:func:`kill_when`, :func:`schedule_executor_return` and
+:func:`schedule_reservation_restart`.
 
 Fault-injection suites need failures that land at an exact, repeatable
 moment — "SIGKILL the trainer right after step 3", not "sleep 0.5s and
@@ -44,6 +41,9 @@ the executor and fork/spawn inherits it. Spec grammar::
 
 Injection points (each checked at an instrumented framework site):
 
+- ``kill_trainer_at_step=N`` — SIGKILL this process when
+  :func:`on_step` sees step >= N (fired by supervision-aware training
+  hooks; see ``supervisor.attach``).
 - ``kill_trainer_at_batch=N`` — SIGKILL when DataFeed has served N
   non-empty batches (fired by ``DataFeed.next_batch``).
 - ``kill_trainer_when_queued=1`` — SIGKILL on the first batch served
@@ -117,6 +117,20 @@ fully-wildcarded (``*:*`` / unscoped) injections.
   exchange (in flight when the link died) loses only its RESPONSE on
   transports that can tell the difference — the request was delivered
   and executed, the caller just never learns it (see :func:`on_net`).
+- ``drop_executor_then_return_after=T`` — EXECUTOR loss, not trainer
+  crash: at the scoped trainer's first :func:`on_step` site, SIGKILL
+  the whole executor process (the trainer's parent) and then this
+  trainer — the engine sees the connection die and the heartbeat lease
+  expires, the executor-lost signature the ElasticResize policy
+  shrinks on. The value T is the RETURN delay: the driver side pairs
+  the injection with :func:`schedule_executor_return`, which watches
+  the fuse (mandatory for this point — a dropped executor must not
+  re-fire in its revived incarnation) and revives the executor T
+  seconds after the recorded fire time, so "capacity returns" is as
+  deterministic as the drop. ``only=EID`` scoping is effectively
+  required too: an unscoped drop would take down every executor at
+  once.
+
 Serving-plane points (fired at ``serving.DecodeEngine``'s
 instrumented sites, so the request-lifecycle story is deterministically
 testable):
@@ -158,11 +172,12 @@ ENV_VAR = "TFOS_CHAOS"
 NET_POINTS = ("net_drop", "net_delay", "net_dup", "net_partition")
 
 #: spec keys that accept the generic grammar above
-POINTS = ("kill_trainer_at_batch", "kill_trainer_when_queued",
+POINTS = ("kill_trainer_at_step", "kill_trainer_at_batch",
+          "kill_trainer_when_queued",
           "stall_consumer_for", "stall_ring_slot", "drop_heartbeats_for",
           "kill_reservation_server", "corrupt_checkpoint",
           "kill_scheduler_at_step", "stall_decode_for",
-          "disconnect_client_at_token",
+          "disconnect_client_at_token", "drop_executor_then_return_after",
           "kill_serving_executor_at_request", "kill_router_at_request",
           "restart_reservation_after") + NET_POINTS
 
@@ -368,6 +383,17 @@ def parse_spec(spec):
                 "(the kill must be single-shot across executor "
                 "incarnations — the replacement replica inherits both "
                 "the armed spec and the victim's replica_id)")
+        if point == "drop_executor_then_return_after" and not fuse:
+            # the fuse is load-bearing here, not just single-shot
+            # bookkeeping: the spec rides executor_env into every
+            # incarnation, so a revived executor would re-fire the
+            # drop forever, and the driver-side return scheduler
+            # reads the fire time from the fuse file
+            raise ValueError(
+                "drop_executor_then_return_after requires fuse=PATH "
+                "(the drop must be single-shot across incarnations "
+                "and the fuse carries the fire time the return "
+                "scheduler needs)")
         out[point] = Injection(point, float(value), only=only, fuse=fuse)
     return out
 
@@ -429,6 +455,40 @@ def _kill_self(inj, why):
 
 
 # -- instrumented-site hooks ----------------------------------------------
+
+def on_step(step):
+    """Training-step site (supervision hooks call this after the step —
+    and its checkpoint — committed, so a kill-at-step-N leaves step N
+    restorable)."""
+    inj = armed("kill_trainer_at_step")
+    if inj is not None and step >= inj.value:
+        _kill_self(inj, "step %d >= %g" % (step, inj.value))
+    inj = armed("drop_executor_then_return_after")
+    if inj is not None:
+        _drop_executor(inj, step)
+
+
+def _drop_executor(inj, step):
+    """Fire drop_executor_then_return_after: SIGKILL the executor
+    process (this trainer's parent) and then this trainer — whole-node
+    loss, landing at the step site so the just-committed step stays
+    restorable. Refuses outside a trainer process: the parent of
+    anything else (a pytest runner, say) is not an executor."""
+    if os.environ.get("TFOS_TRAINER_EXECUTOR_ID") is None:
+        raise RuntimeError(
+            "drop_executor_then_return_after can only fire inside a "
+            "trainer process (its parent is the executor to drop); "
+            "this process has no TFOS_TRAINER_EXECUTOR_ID")
+    ppid = os.getppid()
+    logger.error("CHAOS firing drop_executor_then_return_after at step "
+                 "%s: SIGKILL executor pid %d then trainer pid %d "
+                 "(capacity should return %gs after the fuse time)",
+                 step, ppid, os.getpid(), inj.value)
+    inj.mark_fired()
+    if ppid > 1:  # orphaned trainer: the executor is already gone
+        os.kill(ppid, signal.SIGKILL)
+    os.kill(os.getpid(), signal.SIGKILL)
+
 
 def on_batch(feed, batches_served):
     """DataFeed site, after each non-empty batch is assembled."""
@@ -670,6 +730,18 @@ def on_checkpoint_saved(step, directory, wait=None):
     corrupt_step(directory, int(step))
 
 
+def latest_step_on_disk(directory):
+    """Largest integer-named step dir under a checkpoint root
+    (filesystem view only — usable from processes that must not import
+    torch, like the driver-side supervisor)."""
+    try:
+        steps = [int(name) for name in os.listdir(directory)
+                 if name.isdigit()]
+    except OSError:
+        return None
+    return max(steps) if steps else None
+
+
 def corrupt_step(directory, step):
     """Garble every regular file of checkpoint ``step`` in place
     (overwrite leading bytes + truncate): a restore of this step must
@@ -693,6 +765,15 @@ def corrupt_step(directory, step):
     return count
 
 
+def corrupt_latest_checkpoint(directory):
+    """Corrupt the newest step under ``directory``; returns that step
+    (None when the root holds no checkpoints)."""
+    step = latest_step_on_disk(directory)
+    if step is None:
+        return None
+    corrupt_step(directory, step)
+    return step
+
 
 # -- harness utilities -----------------------------------------------------
 
@@ -705,6 +786,83 @@ def poll_until(predicate, timeout, interval=0.05):
             return True
         time.sleep(interval)
     return bool(predicate())
+
+
+def kill_when(get_pid, trigger, settle=0.5, deadline=60, sig=signal.SIGKILL):
+    """Background assassin: once ``trigger()`` holds, wait ``settle``
+    seconds (a floor for in-flight work, not a race-prone deadline) and
+    send ``sig`` to ``get_pid()``. Returns the started thread; a missed
+    trigger means no kill ever fires — the caller's positive assertion
+    then fails loudly rather than flakily."""
+
+    def _assassin():
+        if not poll_until(trigger, timeout=deadline, interval=0.1):
+            logger.warning("chaos.kill_when trigger never held; not firing")
+            return
+        time.sleep(settle)
+        try:
+            pid = get_pid()
+            logger.error("CHAOS kill_when: sending %s to pid %d", sig, pid)
+            os.kill(pid, sig)
+        except (OSError, ValueError) as e:
+            logger.warning("chaos.kill_when could not fire: %s", e)
+
+    t = threading.Thread(target=_assassin, name="chaos-assassin",
+                         daemon=True)
+    t.start()
+    return t
+
+
+def schedule_executor_return(sc, executor_id, fuse, delay=None,
+                             deadline=120):
+    """Driver-side half of ``drop_executor_then_return_after``: wait for
+    the fuse file (its content is the drop's wall-clock fire time),
+    sleep until ``fire_time + delay``, then revive the executor via
+    ``sc.revive_executor`` — deterministic "capacity returns" for the
+    elastic-regrow suite. ``delay`` defaults to the injection armed IN
+    THIS (driver) process; when the spec rides ``executor_env`` only —
+    the usual arrangement — this process has no armed injection, so
+    pass ``delay`` explicitly (a loud warning and delay 0 otherwise).
+    Returns the started thread; a drop that never fires means no
+    revival, and the caller's positive assertion (formations, width
+    history) fails loudly instead of flaking."""
+    if delay is None:
+        inj = _current().get("drop_executor_then_return_after")
+        if inj is None:
+            logger.warning(
+                "schedule_executor_return: no drop_executor_then_"
+                "return_after armed in THIS process (the spec likely "
+                "rides executor_env) — defaulting delay to 0; pass "
+                "delay= explicitly for a deterministic return time")
+            delay = 0.0
+        else:
+            delay = inj.value
+
+    def _returner():
+        if not poll_until(lambda: os.path.exists(fuse), timeout=deadline,
+                          interval=0.05):
+            logger.warning("chaos.schedule_executor_return: fuse %s "
+                           "never appeared; not reviving", fuse)
+            return
+        try:
+            fired_at = float(open(fuse).read())
+        except (OSError, ValueError):
+            fired_at = time.time()
+        wait = fired_at + float(delay) - time.time()
+        if wait > 0:
+            time.sleep(wait)
+        try:
+            logger.warning("CHAOS returning executor %s (capacity back "
+                           "%.2fs after the drop)", executor_id,
+                           time.time() - fired_at)
+            sc.revive_executor(executor_id)
+        except Exception as e:  # noqa: BLE001 - harness must not raise
+            logger.warning("chaos.schedule_executor_return failed: %s", e)
+
+    t = threading.Thread(target=_returner, name="chaos-returner",
+                         daemon=True)
+    t.start()
+    return t
 
 
 def schedule_reservation_restart(fleet, delay=None, deadline=60):

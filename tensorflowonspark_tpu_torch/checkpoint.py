@@ -8,13 +8,18 @@ framework wires the checkpointer to the node's role, user code decides
 when to save. The JAX package saves through orbax; the port saves
 through DCP (``torch.distributed.checkpoint``):
 
-- **What is saved.** ``{"model", "optim", "step", "extra"}``: the
-  model's and the optimizer's state dicts from
+- **What is saved.** For a ``training.TrainState`` (which carries its
+  module), ``{"model", "optim", "step", "extra"}``: the model's and the
+  optimizer's state dicts from
   ``torch.distributed.checkpoint.state_dict.get_state_dict`` (parameter
   names, not positions, key the optimizer's moments), the step, and the
-  model's buffers. The train state is a ``training.TrainState``, which
-  carries its module. :meth:`Checkpointer.restore` loads into a fresh
+  model's buffers. :meth:`Checkpointer.restore` loads into a fresh
   state of the same shapes and puts it back with ``set_state_dict``.
+  Any other state is a tree of arrays, as orbax takes one: nested
+  dicts, lists and tuples whose leaves are tensors or numpy arrays.
+  Restore then returns a NEW tree shaped like ``state_like`` (numpy
+  leaves come back as numpy, at their dtypes) and leaves ``state_like``
+  untouched.
 - **Layout.** One directory per step under the root, named by the step
   (``<root>/5``), as orbax names them; DCP writes ``.metadata`` and one
   ``__<rank>_0.distcp`` per writing rank in it.
@@ -211,6 +216,76 @@ def _state_dict(state):
             "extra": dict(state["extra"])}
 
 
+def _is_tree(state):
+    """A tree of arrays, not a ``TrainState``."""
+    return getattr(state, "model", None) is None
+
+
+def _tree_leaves(state):
+    """``[(path, leaf)]`` of a tree of arrays: dict keys and sequence
+    indices joined by ``/``. Raises naming the first leaf that is not a
+    tensor or a numpy array."""
+    import numpy as np
+    import torch
+
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node, key=str):
+                walk(node[k], path + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
+        elif torch.is_tensor(node) or isinstance(node, (np.ndarray,
+                                                        np.generic)):
+            out.append(("/".join(path), node))
+        else:
+            raise TypeError(
+                "checkpoint needs the train state from Trainer.init (a "
+                "training.TrainState) or a tree of arrays; got a {} at "
+                "{!r}".format(type(node).__name__, "/".join(path)))
+
+    walk(state, ())
+    return out
+
+
+def _tree_state_dict(state, fresh=False):
+    """The flat dict DCP saves (or, with ``fresh``, loads into: every
+    array leaf a new tensor, so the caller's tree is never written)."""
+    import numpy as np
+    import torch
+
+    sd = {}
+    for path, leaf in _tree_leaves(state):
+        if torch.is_tensor(leaf):
+            leaf = leaf.detach().clone() if fresh else leaf.detach()
+        else:
+            leaf = torch.from_numpy(np.array(leaf))
+        sd[path or "_"] = leaf
+    return sd
+
+
+def _tree_like(state_like, sd):
+    """A new tree shaped like ``state_like`` from the loaded flat dict."""
+    import numpy as np
+    import torch
+
+    def build(node, path):
+        if isinstance(node, dict):
+            return type(node)((k, build(v, path + (str(k),)))
+                              for k, v in node.items())
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v, path + (str(i),))
+                              for i, v in enumerate(node))
+        value = sd["/".join(path) or "_"]
+        if torch.is_tensor(node):
+            return value
+        return np.asarray(value.numpy(), dtype=node.dtype)
+
+    return build(state_like, ())
+
+
 class Checkpointer(object):
     """Step-indexed train-state checkpoints under ``directory``.
 
@@ -345,7 +420,8 @@ class Checkpointer(object):
 
         coordinator = rank == 0
         with goodput.ledger().track("checkpoint_save"):
-            sd = _state_dict(state)
+            sd = _tree_state_dict(state) if _is_tree(state) \
+                else _state_dict(state)
             if self._fs is not None:
                 dcp.save(sd, checkpoint_id=self._url(step),
                          no_dist=not distributed)
@@ -376,9 +452,10 @@ class Checkpointer(object):
     def restore(self, state_like, step=None, fallback=False):
         """Restore into ``state_like`` (a fresh state from
         ``Trainer.init`` of the same model shapes), in place; returns it,
-        or None if no checkpoint exists. The parameters, the optimizer's
-        moments and step counts, the buffers and ``state["step"]`` come
-        back bitwise. Under a process group every rank must call it with
+        or None if no checkpoint exists (a tree of arrays is not
+        written: a new tree shaped like it is returned). The parameters,
+        the optimizer's moments and step counts, the buffers and
+        ``state["step"]`` come back bitwise. Under a process group every rank must call it with
         the same step (DCP's load is a collective).
 
         ``fallback=True`` (the recovery posture): when the chosen step
@@ -405,6 +482,11 @@ class Checkpointer(object):
         for s in candidates:
             try:
                 with goodput.ledger().track("restore"):
+                    if _is_tree(state_like):
+                        sd = _tree_state_dict(state_like, fresh=True)
+                        dcp.load(sd, checkpoint_id=self._url(s),
+                                 no_dist=not distributed)
+                        return _tree_like(state_like, sd)
                     sd = _state_dict(state_like)
                     dcp.load(sd, checkpoint_id=self._url(s),
                              no_dist=not distributed)

@@ -26,8 +26,10 @@ which ``shutdown(ssc)`` stops first.
 :func:`serving_fleet` forms a serving fleet (``fleet.ServingFleet``:
 replicas in this process or in executor processes, behind one router)
 in one call, optionally supervised (``supervise=``) and autoscaled
-(``autoscale=``). Left for ROADMAP Queue 1 item 1 (training
-supervision): ``run(supervise=...)`` raises.
+(``autoscale=``). ``run(..., supervise=SupervisorConfig(...))`` returns
+a ``supervisor.SupervisedCluster``: the same ``train`` / ``shutdown``
+surface, with trainer crashes and executor losses recovered by the
+configured policy.
 """
 
 import logging
@@ -266,18 +268,38 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     :data:`node.DEFAULT_RENDEZVOUS_TIMEOUT`, 300, the reference's bound)
     before it raises.
 
-    ``supervise``: training supervision (``SupervisedCluster``) is not
-    ported yet (ROADMAP Queue 1 item 1); passing one raises.
-    ``exclude_executors`` /
-    ``beat_interval`` are that plane's plumbing: blacklist a set of
-    engine executor ids (built-in engine only) and override the
-    heartbeat-lease cadence.
+    ``supervise``: a :class:`~tensorflowonspark_tpu_torch.supervisor
+    .SupervisorConfig` opts the job into the supervision plane — returns
+    a :class:`~tensorflowonspark_tpu_torch.supervisor.SupervisedCluster`
+    (same train/shutdown surface) that detects mid-job failures via
+    heartbeat leases and recovers per the configured policy
+    (restart-from-checkpoint, blacklist, elastic resize, fail).
+    ``exclude_executors`` / ``beat_interval`` are the supervision
+    plane's plumbing: blacklist a set of engine executor ids (built-in
+    engine only) and override the heartbeat-lease cadence.
     """
     if supervise is not None:
-        raise NotImplementedError(
-            "cluster.run(supervise=...) is not ported yet: training "
-            "supervision (SupervisedCluster) comes with ROADMAP Queue 1 "
-            "item 1 (training supervision)")
+        if exclude_executors or beat_interval is not None:
+            # these are the supervision plane's own levers: the
+            # SupervisedCluster drives exclusions from its policy and
+            # the beat cadence from SupervisorConfig.heartbeat_interval;
+            # silently dropping caller values would be worse than
+            # refusing them
+            raise ValueError(
+                "exclude_executors / beat_interval cannot be combined "
+                "with supervise=: use the policy (Blacklist) and "
+                "SupervisorConfig.heartbeat_interval instead")
+        from tensorflowonspark_tpu_torch import supervisor as supervisor_mod
+        return supervisor_mod.SupervisedCluster(
+            sc, map_fun, tf_args, num_executors, config=supervise,
+            run_kwargs=dict(
+                num_ps=num_ps, tensorboard=tensorboard,
+                input_mode=input_mode, log_dir=log_dir,
+                driver_ps_nodes=driver_ps_nodes, master_node=master_node,
+                reservation_timeout=reservation_timeout,
+                queues=tuple(queues), eval_node=eval_node,
+                manager_mode=manager_mode, filesystems=filesystems,
+                rendezvous_timeout=rendezvous_timeout))
     if driver_ps_nodes:
         raise NotImplementedError(
             "driver_ps_nodes is not supported: async parameter-server DP "

@@ -12,9 +12,6 @@ Deliberate semantic carried over from Spark: a failed task fails the job
 and the error (with the executor-side traceback) re-raises on the driver
 when the job result is awaited — the reference's error-propagation story
 (SURVEY.md §3.5) depends on exactly this.
-
-Left for ROADMAP Queue 1 item 1 (training supervision):
-``revive_executor``, the supervision plane's elastic regrow.
 """
 
 import logging
@@ -269,6 +266,7 @@ class Context(object):
         # executors, so standalone-mode launchers can read it and start
         # `python -m tensorflowonspark_tpu_torch.engine.executor` on each host.
         self.authkey_file = self._write_connection_info()
+        self._spawn_local = spawn_local
         self._executor_env = dict(executor_env or {})
         if spawn_local:
             self._spawn_local_executors(self._executor_env)
@@ -466,6 +464,47 @@ class Context(object):
     def executors_alive(self):
         with self._lock:
             return sorted(eid for eid, h in self._handles.items() if h.alive)
+
+    def revive_executor(self, executor_id, timeout=60):
+        """Respawn a dead local executor under its original id — the
+        "capacity returns" half of the supervision plane's elastic
+        resize (an ElasticResize regrow probe watches
+        :meth:`executors_alive` recover). The replacement process
+        reuses the executor's work dir and registers through the normal
+        accept loop (the duplicate-id guard passes because the old
+        handle is dead). Returns False if the executor is already
+        alive; raises in standalone mode (the launcher owns process
+        placement there) or when the replacement fails to register
+        within ``timeout``."""
+        executor_id = int(executor_id)
+        with self._lock:
+            handle = self._handles.get(executor_id)
+            if handle is not None and handle.alive:
+                return False
+        if not self._spawn_local:
+            raise NotImplementedError(
+                "revive_executor requires local mode; standalone "
+                "launchers must restart their own executor processes")
+        if self._stopping.is_set():
+            raise RuntimeError("context is stopping; not reviving")
+        proc = self._spawn_one(executor_id)
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._lock:
+                handle = self._handles.get(executor_id)
+                if handle is not None and handle.alive:
+                    logger.info("executor %d revived (pid %d)",
+                                executor_id, proc.pid)
+                    return True
+            if proc.poll() is not None:
+                raise RuntimeError(
+                    "revived executor {} exited with code {} during "
+                    "startup; see logs under {}".format(
+                        executor_id, proc.returncode, self.work_root))
+            time.sleep(0.05)
+        raise TimeoutError(
+            "revived executor {} did not register within {}s".format(
+                executor_id, timeout))
 
     def _on_handle_dead(self, handle):
         """Reap a dead executor: fail its pinned tasks, and if no executors

@@ -14,9 +14,11 @@ reference: ``examples/mnist/tf`` direct file reads):
 
 ``--ckpt_dir`` restores the latest checkpoint before training, saves
 every ``--ckpt_every`` steps and once at the end, so a re-submitted job
-resumes. ``--profile`` (the reference's profiler server, device trace
-and TensorBoard summaries) waits for the port's profiler hooks (ROADMAP
-Queue 1 item 2) and raises. Write synthetic shards, then train from
+resumes. ``--profile`` starts the chief's profiler endpoint
+(``tracing.start_profiler_server``), writes loss and step-rate scalars
+to ``<model_dir>/tb`` (a no-op without the ``tensorboard`` package) and
+a ``torch.profiler`` Chrome trace of the first ``--trace_steps`` steps
+to ``<model_dir>/tb/trace``. Write synthetic shards, then train from
 them::
 
     python -m tensorflowonspark_tpu_torch.examples.resnet.resnet_spark \
@@ -138,9 +140,46 @@ def map_fun(args, ctx):
             start_step = int(state["step"])
         hooks = (checkpoint.hook(ckpt, args.get("ckpt_every", 50)),)
 
-    state, steps, rate = trainer.train_loop(
-        state, infeed.device_batches(batches(), device=dev),
-        log_every=args.get("log_every", 10), hooks=hooks)
+    # Observability at example level (SURVEY.md §5 tracing row): the
+    # profiler endpoint, a BOUNDED trace window (--trace_steps; traces
+    # of whole runs are large) and loss/step-rate summaries
+    writer = None
+    trace_ctx = [None]
+
+    def _stop_trace():
+        ctx_, trace_ctx[0] = trace_ctx[0], None
+        if ctx_ is not None:
+            ctx_.__exit__(None, None, None)
+
+    if args.get("profile") and ctx.job_name == "chief":
+        from tensorflowonspark_tpu_torch import tracing
+
+        tb_dir = os.path.join(ctx.absolute_path(args["model_dir"]), "tb")
+        tracing.start_profiler_server(0, log_dir=os.path.join(
+            tb_dir, "captures"))
+        writer = tracing.SummaryWriter(tb_dir)
+        hooks = hooks + (tracing.metrics_hook(
+            writer, every_steps=args.get("log_every", 10),
+            examples_per_step=args["batch_size"]),)
+        trace_ctx[0] = tracing.trace(os.path.join(tb_dir, "trace"))
+        trace_ctx[0].__enter__()
+
+        def _trace_bound(step_no, *_unused, _n=args.get("trace_steps", 20)):
+            if step_no >= _n:
+                _stop_trace()
+
+        hooks = hooks + (_trace_bound,)
+
+    try:
+        state, steps, rate = trainer.train_loop(
+            state, infeed.device_batches(batches(), device=dev),
+            log_every=args.get("log_every", 10), hooks=hooks)
+    finally:
+        # a failed run keeps its trace and buffered summaries: that
+        # capture is most valuable exactly when the loop raised
+        _stop_trace()
+        if writer is not None:
+            writer.close()
     if ckpt is not None:
         ckpt.save(int(state["step"]), state, force=True)
         ckpt.wait()
@@ -174,17 +213,14 @@ def main(argv=None):
                          "save every --ckpt_every steps and at the end")
     ap.add_argument("--ckpt_every", type=int, default=50)
     ap.add_argument("--profile", action="store_true",
-                    help="not ported yet: waits for the profiler hooks "
-                         "(ROADMAP Queue 1 item 2)")
+                    help="chief: profiler endpoint, TensorBoard scalars "
+                         "and a trace of the first --trace_steps steps")
+    ap.add_argument("--trace_steps", type=int, default=20,
+                    help="steps in the --profile trace window")
     ap.add_argument("--log_every", type=int, default=10)
     _common.add_device_flag(ap)
     args = ap.parse_args(argv)
     logging.basicConfig(level="INFO")
-    if args.profile:
-        raise NotImplementedError(
-            "--profile needs the port's profiler hooks "
-            "(tracing.start_profiler_server / trace on torch.profiler), "
-            "which wait for ROADMAP Queue 1 item 2")
     for name in ("model_dir", "data_dir", "ckpt_dir"):
         if getattr(args, name):
             setattr(args, name, os.path.abspath(getattr(args, name)))

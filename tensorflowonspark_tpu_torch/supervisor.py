@@ -1,6 +1,5 @@
 """Supervision plane: failure detection, classification and recovery —
-the port's copy of ``tensorflowonspark_tpu/supervisor.py`` (its first
-1029 lines: the core and the serving half).
+the port's copy of ``tensorflowonspark_tpu/supervisor.py``.
 
 The reference has no answer to a mid-job trainer or executor death
 beyond Spark's coarse task retry (SURVEY.md §5). This module
@@ -40,11 +39,17 @@ before the restart and readmits it after) and
 from their serving leases; the autoscaler owns their replacement).
 ``ServingFleet.supervise()`` arms both.
 
-Left for ROADMAP Queue 1 item 1 (training supervision): the
-training-cluster half of the reference module — ``acked_feed``,
-``TrainerSide`` / ``attach``, ``recovery_stages`` and
-``SupervisedCluster`` (``cluster.run(supervise=...)``). The training
-policies above are here, pure, for that slice to drive.
+The training plane: ``cluster.run(..., supervise=SupervisorConfig(...))``
+returns a :class:`SupervisedCluster` with the familiar
+``train``/``shutdown`` surface and the detect -> decide -> recover loop
+inside. A trainer publishes its milestones through :func:`attach`
+(``TrainerSide.step`` after each step's checkpoint: the chaos step
+site and the elastic boundary drain), feed partitions are acked as
+consumed (:func:`acked_feed`) so a reformed attempt replays only the
+unacked ones, and :func:`recovery_stages` reads the MTTR breakdown
+(detect / reform / restore / first step) off the event log.
+Recovery is exactly-once when every consumed partition's checkpoint
+committed before the crash: one partition per checkpointed step.
 """
 
 import contextlib
@@ -328,6 +333,12 @@ class SupervisorConfig(object):
       shutdown_timeout / drain_timeout: bounds on attempt teardown and
         post-abort job drain — a recovery must never hang on the very
         wedge it is recovering from.
+      teardown_grace: seconds without feed progress a surviving trainer
+        gets to reach its step boundary when an attempt is torn down
+        (the nodes' shutdown floors it at 5). A survivor stopped between
+        consuming a partition (acked) and committing its step loses that
+        partition: set it above the slowest step plus its checkpoint
+        save.
       straggler_skew: step-time skew (executor effective step time /
         fleet lower-median) at which an OBSERVE-ONLY ``straggler``
         incident is raised (goodput.StragglerDetector; None disables).
@@ -342,7 +353,8 @@ class SupervisorConfig(object):
                  heartbeat_timeout=15.0, stall_timeout=120.0,
                  poll_interval=0.5, classify_grace=3.0,
                  shutdown_timeout=120.0, drain_timeout=60.0,
-                 straggler_skew=3.0, straggler_min_stall_s=5.0):
+                 straggler_skew=3.0, straggler_min_stall_s=5.0,
+                 teardown_grace=1.0):
         self.policy = policy if policy is not None else RestartFromCheckpoint()
         self.heartbeat_interval = float(heartbeat_interval)
         self.heartbeat_timeout = float(heartbeat_timeout)
@@ -354,6 +366,7 @@ class SupervisorConfig(object):
         self.straggler_skew = None if straggler_skew is None \
             else float(straggler_skew)
         self.straggler_min_stall_s = float(straggler_min_stall_s)
+        self.teardown_grace = float(teardown_grace)
 
 
 class Supervisor(object):
@@ -996,3 +1009,841 @@ class Supervisor(object):
             except Exception:  # noqa: BLE001 - node may be gone entirely
                 logger.debug("abort could not reach executor %s",
                              node_meta.get("executor_id"), exc_info=True)
+
+
+# -- supervised feed closures (run on executors) ---------------------------
+
+def _drain_iter(iterator):
+    for _ in iterator:
+        pass
+
+
+def acked_feed(cluster_info, cluster_meta, acked, feed_timeout=600,
+               qname="input"):
+    """Feed closure for ``mapPartitionsWithIndex``: feeds a partition to
+    the local node and ACKs it against the reservation server once the
+    node consumed it; partitions in ``acked`` (consumed by a previous
+    attempt) are drained without feeding — the replay-only-unacked
+    mechanic of RestartFromCheckpoint."""
+    acked = frozenset(acked)
+
+    def _fn(idx, iterator):
+        from tensorflowonspark_tpu_torch import node as node_mod
+        from tensorflowonspark_tpu_torch import reservation as reservation_mod
+        if idx in acked:
+            for _ in iterator:
+                pass
+            return iter(())
+        consumed = node_mod._feed_one_partition(
+            iterator, cluster_info, cluster_meta, feed_timeout, qname)
+        if consumed:
+            client = reservation_mod.Client(cluster_meta["server_addr"])
+            try:
+                client.ack(idx)
+            finally:
+                client.close()
+        return iter(())
+
+    return _fn
+
+
+# -- trainer-side helpers --------------------------------------------------
+
+class TrainerSide(object):
+    """Trainer-process handle publishing recovery milestones.
+
+    Writes ``restored_step`` / ``train_step`` into the node's broker kv,
+    which the heartbeat lease carries to the driver — how the supervisor
+    sees "restore finished" and "first post-restore step" without any
+    new channel. Also hosts the chaos kill-at-step injection site, AFTER
+    the step (and its checkpoint) committed, so a killed step N is
+    restorable at N.
+    """
+
+    #: seconds between resize_drain polls in :meth:`step` — the drain
+    #: check is one extra broker RPC, so fast step loops only pay it
+    #: ~4x/second instead of per step; a pending drain is still caught
+    #: at a step boundary, just up to this much later
+    drain_poll_interval = 0.25
+
+    #: seconds between forced metrics flushes in :meth:`step` (goodput
+    #: plane): the step boundary force-publishes the feed registry —
+    #: which carries the process goodput ledger — BEFORE the chaos
+    #: kill site, so a killed trainer's accounting is current to
+    #: within this throttle instead of the feed's 2s heartbeat window
+    metrics_flush_interval = 0.5
+
+    def __init__(self, mgr, restored_step=None, feed=None):
+        self.mgr = mgr
+        self.feed = feed
+        self._drain_checked = float("-inf")
+        self._flushed = float("-inf")
+        if restored_step is not None:
+            self.report_restore(restored_step)
+
+    def report_restore(self, step):
+        self.mgr.set("restored_step", int(step))
+        self.mgr.set("train_step", int(step))
+
+    def step(self, step):
+        from tensorflowonspark_tpu_torch import chaos
+        self.mgr.set("train_step", int(step))
+        now = time.monotonic()
+        if self.feed is not None \
+                and now - self._flushed >= self.metrics_flush_interval:
+            # flush BEFORE the kill site: a step-N kill must not lose
+            # step N's goodput charges to the heartbeat throttle
+            self._flushed = now
+            try:
+                self.feed.publish_metrics()
+            except Exception:  # noqa: BLE001 - accounting best-effort
+                pass
+        chaos.on_step(int(step))
+        # elastic regrow: the step site IS the checkpoint boundary
+        # (callers publish AFTER the step's checkpoint committed and
+        # its partition acked — the same discipline the chaos kill
+        # site rides), so a driver-requested boundary drain exits here
+        # and the reform up is exactly-once by construction
+        now = time.monotonic()
+        if now - self._drain_checked < self.drain_poll_interval:
+            return
+        self._drain_checked = now
+        target = self.mgr.get("resize_drain")
+        if target is not None:
+            raise ResizeDrain(
+                "resize drain requested at step {} (reforming at "
+                "width {})".format(int(step), target))
+
+    def hook(self, base=0):
+        """``Trainer.train_loop`` hook: publishes ``base + step_no``."""
+        def _hook(step_no, state, metrics):
+            self.step(base + step_no)
+        return _hook
+
+
+def attach(ctx, restored_step=None, feed=None):
+    """Supervision-aware map_fun boilerplate::
+
+        restored = ckpt.restore(state, fallback=True)
+        start = 0 if restored is None else int(restored["step"])
+        sup = supervisor.attach(ctx, restored_step=start, feed=feed)
+        ...
+        sup.step(int(state["step"]))   # after each step's checkpoint
+
+    ``feed`` (the map_fun's DataFeed): lets the step boundary
+    force-flush the metrics/goodput snapshot before the chaos kill
+    site — tighter accounting across a kill, optional otherwise."""
+    return TrainerSide(ctx.mgr, restored_step=restored_step, feed=feed)
+
+
+# -- MTTR extraction -------------------------------------------------------
+
+def recovery_stages(events, kill_wall=None):
+    """MTTR stage breakdown from a supervision :class:`tracing.EventLog`.
+
+    Stages (seconds, None when the span's endpoints are absent):
+    ``detect`` (fault injection -> failure_detected; needs ``kill_wall``,
+    e.g. a chaos fuse's fire time), ``reform`` (failure_detected ->
+    cluster_formed), ``restore`` (cluster_formed -> restored), and
+    ``first_step`` (restored -> first post-restore step). ``mttr_s`` is
+    fault->first_step when ``kill_wall`` is known, else
+    detection->first_step.
+    """
+    detected = events.last("failure_detected")
+    if detected is None:
+        return None
+
+    def _after(name):
+        for event in events.events(name):
+            if event["t"] >= detected["t"]:
+                return event
+        return None
+
+    formed = _after("cluster_formed")
+    restored = _after("restored")
+    first = _after("first_step")
+
+    def _span(a, b):
+        return None if a is None or b is None else round(b["t"] - a["t"], 3)
+
+    out = {
+        "detect_s": None if kill_wall is None
+        else round(detected["wall"] - kill_wall, 3),
+        "reform_s": _span(detected, formed),
+        "restore_s": _span(formed, restored),
+        "first_step_s": _span(restored, first),
+    }
+    if first is not None:
+        out["mttr_s"] = round(first["wall"] - kill_wall, 3) \
+            if kill_wall is not None else round(first["t"] - detected["t"], 3)
+    else:
+        out["mttr_s"] = None
+    return out
+
+
+# -- the supervised cluster lifecycle --------------------------------------
+
+class SupervisedCluster(object):
+    """``cluster.run(..., supervise=cfg)``'s return value: the familiar
+    ``train``/``shutdown`` surface with the detect->decide->recover loop
+    inside.
+
+    Built-in-engine semantics: attempts reform clusters on the same
+    executor processes (a dead trainer is a child process; the executor
+    survives), and :class:`Blacklist` exclusions route jobs away from an
+    executor without restarting the engine. InputMode.SPARK jobs replay
+    only unacked feed partitions; InputMode.TENSORFLOW jobs resubmit the
+    whole (self-reading) map_fun, which restores from its checkpoint.
+    """
+
+    def __init__(self, sc, map_fun, tf_args, num_executors, config=None,
+                 run_kwargs=None):
+        from tensorflowonspark_tpu_torch import cluster as cluster_mod
+        self._cluster_mod = cluster_mod
+        self.sc = sc
+        self.map_fun = map_fun
+        self.tf_args = tf_args
+        self.num_executors = int(num_executors)
+        self.config = config if isinstance(config, SupervisorConfig) \
+            else SupervisorConfig()
+        self.run_kwargs = dict(run_kwargs or {})
+        self.input_mode = self.run_kwargs.get(
+            "input_mode", cluster_mod.InputMode.SPARK)
+        self.events = tracing.EventLog()
+        self.excluded = set()
+        self.failure_counts = {}
+        self.attempts = []          # one dict per FAILED attempt
+        self.formations = 0
+        #: the ONE width source of truth (elastic resize): every
+        #: formation is exactly this wide. Blacklist exclusions and
+        #: RESIZE decisions both update it (and record width_change),
+        #: so /metrics' tfos_cluster_width gauge, the EventLog, and the
+        #: formation math can never disagree.
+        self.width = int(num_executors)
+        self._resize_target = None  # planned regrow width, drain sent
+        self._last_probe = 0.0
+        self._acked = set()
+        self._last_metrics = None   # rollup harvested before teardown
+        #: goodput plane (goodput.py): the DRIVER's ledger charges only
+        #: the windows no trainer exists to measure — reform (detect/
+        #: teardown/backoff/formation) and planned resize-drain
+        #: teardown; everything inside a live attempt is accounted by
+        #: the executors' own ledgers, harvested per attempt below and
+        #: folded by goodput_report()
+        self.goodput = goodput_mod.GoodputLedger()
+        self._goodput_wall_s = None  # frozen at job completion/failure
+        self._attempt_rollups = {}  # formation ordinal -> last rollup
+        self._next_form_category = "reform"
+        #: observe-only incidents (straggler skew), shared across every
+        #: attempt's Supervisor like the EventLog
+        self.incidents = []
+        self._tfc = None
+        self._supervisor = None
+        self._done = False
+        self.events.record("job_start", num_executors=self.num_executors)
+        self._form()
+
+    # -- public surface --------------------------------------------------
+
+    @property
+    def cluster_info(self):
+        return self._tfc.cluster_info if self._tfc is not None else None
+
+    def tensorboard_url(self):
+        return self._tfc.tensorboard_url() if self._tfc is not None else None
+
+    def metrics(self):
+        """Cluster-wide observability rollup (``TFCluster.metrics``
+        shape): per-executor beat-carried feed-stage + step-rate series
+        plus the merged cluster view. Live while an attempt is running;
+        after shutdown (or between attempts) the view harvested from
+        the last live cluster is returned, so a completed supervised
+        job can still report what its executors measured. Safe against
+        a concurrent teardown (the recovery loop nulls ``_tfc``): a
+        harvest that loses that race just returns the previous view."""
+        self._harvest_metrics()
+        return self._last_metrics
+
+    def metrics_url(self):
+        """The live attempt's driver-side OpenMetrics URL
+        (``TFCluster.metrics_url``), or None between attempts / after
+        shutdown (each reformation binds a fresh stats port)."""
+        tfc = self._tfc
+        return tfc.metrics_url() if tfc is not None else None
+
+    def train(self, dataRDD, num_epochs=0, feed_timeout=600, qname="input"):
+        """Supervised feed: like ``TFCluster.train`` but partitions are
+        acked as consumed, failures classify and recover per the policy,
+        and the final (clean) shutdown happens inside — a successful
+        ``train`` leaves nothing running. Raises when the policy gives
+        up; ``report()`` carries the full timeline either way."""
+        InputMode = self._cluster_mod.InputMode
+        assert self.input_mode == InputMode.SPARK, \
+            "supervised train() requires InputMode.SPARK"
+        if hasattr(dataRDD, "foreachRDD"):
+            raise NotImplementedError(
+                "supervised streaming training is not supported; use the "
+                "unsupervised cluster for DStreams")
+        if num_epochs > 1:
+            dataRDD = self.sc.union([dataRDD] * num_epochs)
+        # the ack ledger is per-train(): partition ordinals are indices
+        # into THIS dataRDD, and a second train() on a fresh dataset
+        # must not inherit the first one's acks (it would silently drain
+        # every colliding partition unfed — total data loss dressed up
+        # as success)
+        self._acked = set()
+        self.events.record("train_start",
+                           partitions=dataRDD.getNumPartitions())
+        while True:
+            if self._tfc is None:
+                try:
+                    self._form()
+                except Exception as e:  # noqa: BLE001 - policy decides
+                    self._recover_or_raise(
+                        FailureEvent("reform_failed", None, str(e)))
+                    continue
+            failure = self._run_feed_attempt(dataRDD, feed_timeout, qname)
+            if failure is None:
+                failure = self._final_shutdown()
+                if failure is None:
+                    self._done = True
+                    self._freeze_goodput_wall()
+                    self._resize_target = None  # drain raced completion
+                    self.events.record("job_complete",
+                                       formations=self.formations)
+                    return
+            if self._resize_target is not None:
+                if failure.kind in ("executor_lost", "feeder_stall",
+                                    "ring_wedge", "reform_failed"):
+                    # a REAL failure landed inside the drain window —
+                    # kinds the drain itself can never produce (its
+                    # trainers exit with code 1, classifying as
+                    # trainer_crash/task_failure). The planned resize
+                    # is moot: capacity just changed under it, so the
+                    # policy must decide with the failure on the books
+                    self._resize_target = None
+                    self._recover_or_raise(failure)
+                    continue
+                # planned boundary drain (elastic regrow), not a real
+                # failure: the trainers exited via ResizeDrain at their
+                # checkpoint boundary — reform at the target width
+                # without consulting the policy or advancing
+                # failure_counts. (A genuine trainer crash racing the
+                # drain is indistinguishable from the drain's own exit
+                # and rides this path too — bounded at one uncounted
+                # reform per regrow, and the reformed attempt's own
+                # failures count normally.)
+                self._complete_resize(failure)
+                continue
+            self._recover_or_raise(failure)
+
+    def inference(self, dataRDD, feed_timeout=600, qname="output"):
+        raise NotImplementedError(
+            "supervised inference is not implemented: the result-RDD "
+            "contract (exactly one output row per input record) has no "
+            "replay story yet; run inference unsupervised")
+
+    def shutdown(self, ssc=None, grace_secs=0, timeout=None):
+        """SPARK mode: finalize (train() already supervised the work).
+        TENSORFLOW mode: the supervised attempt loop lives HERE — each
+        attempt awaits the inline map_fun job and a failure reforms the
+        cluster so the resubmitted map_fun restores from its checkpoint.
+        Returns :meth:`report`."""
+        if ssc is not None:
+            raise NotImplementedError(
+                "supervised streaming shutdown is not supported")
+        InputMode = self._cluster_mod.InputMode
+        while not self._done:
+            if self._tfc is None:
+                try:
+                    self._form()
+                except Exception as e:  # noqa: BLE001 - policy decides
+                    self._recover_or_raise(
+                        FailureEvent("reform_failed", None, str(e)))
+                    continue
+            if self.input_mode == InputMode.TENSORFLOW:
+                failure = self._await_result(self._tfc.async_result)
+                if failure is None:
+                    failure = self._final_shutdown(grace_secs=grace_secs)
+            else:
+                failure = self._final_shutdown(grace_secs=grace_secs)
+            if failure is None:
+                self._done = True
+                self._freeze_goodput_wall()
+                self.events.record("job_complete",
+                                   formations=self.formations)
+                break
+            self._recover_or_raise(failure)
+        return self.report()
+
+    def report(self):
+        """The supervision ledger: formations, failures, exclusions,
+        ack coverage, MTTR stages, goodput accounting, observe-only
+        incidents, and the raw event timeline."""
+        return {
+            "formations": self.formations,
+            "failures": [a["failure"] for a in self.attempts],
+            "width": self.width,
+            "width_changes": [
+                {k: e[k] for k in ("from_width", "to_width", "reason")}
+                for e in self.events.events("width_change")],
+            "excluded": sorted(self.excluded),
+            "acked_partitions": len(self._acked),
+            "recovery": recovery_stages(self.events),
+            "goodput": self.goodput_report(),
+            "incidents": list(self.incidents),
+            "events": self.events.events(),
+        }
+
+    def goodput_report(self):
+        """Job-level goodput accounting (goodput.job_report): the
+        driver ledger's recovery windows folded with every attempt's
+        merged executor categories, against this job's wall clock.
+        Executor seconds are normalized by the configured width, so
+        ``goodput_ratio`` reads in job wall-clock units (1.0 == every
+        executor productive for the whole wall time); elastic attempts
+        running below the configured width under-count proportionally
+        — honest for a degraded job. ``profile_recovery`` prints it."""
+        self._harvest_metrics()
+        merged = []
+        for ordinal in sorted(self._attempt_rollups):
+            rollup = self._attempt_rollups[ordinal] or {}
+            snap = (rollup.get("cluster") or {}).get("merged")
+            if snap:
+                merged.append(snap)
+        # the wall denominator FREEZES when the job completes or fails
+        # — a report read minutes after shutdown must describe the job,
+        # not dilute its ratio with post-job elapsed time as idle
+        wall = self._goodput_wall_s if self._goodput_wall_s is not None \
+            else self.goodput.wall_s()
+        return goodput_mod.job_report(
+            wall, driver_ledger=self.goodput,
+            merged_snapshots=merged, width=self.num_executors)
+
+    def _freeze_goodput_wall(self):
+        if self._goodput_wall_s is None:
+            self._goodput_wall_s = self.goodput.wall_s()
+
+    # -- attempt machinery -----------------------------------------------
+
+    def _form(self):
+        width = self.width
+        attempt_no = len(self.attempts) + 1
+        self.events.record("reform_start", attempt=attempt_no, width=width)
+        # the formation window is recovery badput: "reform" normally,
+        # "resize_drain" when this formation completes a planned
+        # boundary drain (elastic regrow). The job's FIRST formation is
+        # startup, not recovery — the taxonomy's reform means the
+        # window BETWEEN attempts, and a clean zero-failure job must
+        # report reform 0 — so it stays uncharged (it lands in the
+        # report's idle residual)
+        category, self._next_form_category = \
+            self._next_form_category, "reform"
+        if self.formations == 0 and category == "reform":
+            category = None
+        with self.goodput.track(category) if category \
+                else contextlib.nullcontext():
+            tfc = self._cluster_mod.run(
+                self.sc, self.map_fun, self.tf_args, width,
+                exclude_executors=frozenset(self.excluded),
+                beat_interval=self.config.heartbeat_interval,
+                prefer_alive=True,
+                **self.run_kwargs)
+        self.formations += 1
+        self._tfc = tfc
+        # width gauge: this formation's width against the job's
+        # CONFIGURED width — width < target on /metrics is the
+        # operator's "running degraded after a shrink" signal
+        tfc.server.set_cluster_width(width, target=self.num_executors)
+        self._supervisor = Supervisor(
+            server=tfc.server, executors=tfc.executor_ids,
+            config=self.config, events=self.events,
+            attempt=attempt_no, incidents=self.incidents,
+            alive_fn=getattr(self.sc, "executors_alive", None)).start()
+        self.events.record("cluster_formed", attempt=attempt_no,
+                           width=width, executors=list(tfc.executor_ids))
+
+    def _run_feed_attempt(self, dataRDD, feed_timeout, qname):
+        tfc = self._tfc
+        mapped = dataRDD.mapPartitionsWithIndex(acked_feed(
+            tfc.cluster_info, tfc.cluster_meta, frozenset(self._acked),
+            feed_timeout=feed_timeout, qname=qname))
+        # feed tasks may only run on executors HOSTING this formation's
+        # nodes: after an elastic shrink (or mid-attempt regrow of
+        # capacity) the engine can have alive executors that are not
+        # cluster members, and a feed task landing there has no node to
+        # feed. Blacklist exclusions fold into the same set.
+        exclude = set(tfc.exclude)
+        members = set(tfc.executor_ids)
+        universe = set(range(self.num_executors)) | \
+            set(self._capacity() or ())
+        exclude |= universe - members
+        kwargs = {"exclude": frozenset(exclude)} if exclude else {}
+        result = mapped.foreachPartitionAsync(_drain_iter, **kwargs)
+        failure = self._await_result(result, probe=self._regrow_probe)
+        # harvest acks even on failure: the next attempt must not replay
+        # what this one's trainers already consumed
+        self._acked |= tfc.server.acked_partitions()
+        return failure
+
+    def _await_result(self, result, probe=None):
+        """Poll a job result against the monitor; None on success, else
+        the classified FailureEvent. A monitor-detected failure aborts
+        the attempt remotely first so blocked tasks unwind. ``probe``
+        (the elastic regrow capacity watch) runs once per poll."""
+        sup = self._supervisor
+        while True:
+            if probe is not None:
+                try:
+                    probe()
+                except Exception:  # noqa: BLE001 - probe is best-effort
+                    logger.debug("regrow probe failed", exc_info=True)
+            failure = sup.first_failure()
+            if failure is not None:
+                # monitor OFF before the remote abort: the abort flips
+                # every node's state to 'error', and a still-polling
+                # monitor would attribute those self-inflicted errors to
+                # healthy executors — poisoning failure_counts, which
+                # Blacklist decides exclusions from. The whole
+                # abort+drain window is recovery badput (goodput
+                # plane): the _recover_or_raise that follows continues
+                # the same reform charge
+                with self.goodput.track("reform"):
+                    sup.stop()
+                    sup.abort_attempt(self._tfc.cluster_info,
+                                      self._tfc.cluster_meta,
+                                      str(failure))
+                    self._drain_result(result)
+                return failure
+            err = result.first_error()
+            if err is not None:
+                # task error beat the monitor: give classification one
+                # grace window to attribute it to a lease
+                failure = sup.wait_for_failure(self.config.classify_grace)
+                # drain in-flight tasks BEFORE returning: a feed task
+                # that consumed its partition may be one reply away
+                # from completing — its ACK must land before the
+                # caller harvests acked_partitions(), or the partition
+                # replays against state that already contains it
+                self._drain_result(result)
+                return failure if failure is not None else FailureEvent(
+                    "task_failure", None, str(err))
+            if result.done():
+                return None
+            time.sleep(self.config.poll_interval)
+
+    def _drain_result(self, result, timeout=None):
+        deadline = time.monotonic() + (timeout or self.config.drain_timeout)
+        while not result.done() and time.monotonic() < deadline:
+            time.sleep(0.1)
+
+    # -- elastic resize (regrow) -----------------------------------------
+
+    def _elastic_policy(self):
+        """The configured policy when it carries the elastic knobs
+        (duck-typed: min_width/max_width/regrow_probe_s), else None."""
+        policy = self.config.policy
+        if all(hasattr(policy, a) for a in
+               ("min_width", "max_width", "regrow_probe_s",
+                "shrink_grace_s")):
+            return policy
+        return None
+
+    def _capacity(self):
+        """Alive, non-excluded engine executors (None without the
+        engine's liveness view — Spark contexts cannot regrow)."""
+        alive_fn = getattr(self.sc, "executors_alive", None)
+        if alive_fn is None:
+            return None
+        try:
+            return [e for e in alive_fn() if e not in self.excluded]
+        except Exception:  # noqa: BLE001 - liveness view is best-effort
+            return None
+
+    def _regrow_probe(self):
+        """Capacity watch, run from the attempt poll loop: when the
+        job runs below its elastic max width and spare executors
+        exist, request a boundary drain so the next checkpoint
+        boundary reforms UP. One shot per attempt (the drain itself
+        ends the attempt)."""
+        policy = self._elastic_policy()
+        if policy is None or self._resize_target is not None \
+                or self._tfc is None:
+            return
+        now = time.monotonic()
+        if now - self._last_probe < policy.regrow_probe_s:
+            return
+        self._last_probe = now
+        max_width = policy.max_width if policy.max_width is not None \
+            else self.num_executors
+        if self.width >= max_width:
+            return
+        capacity = self._capacity()
+        if capacity is None or len(capacity) <= self.width:
+            return
+        target = min(len(capacity), max_width)
+        self._resize_target = target
+        self.events.record("regrow_requested", width=self.width,
+                           target=target, capacity=len(capacity))
+        logger.warning("elastic regrow: capacity %d > width %d; "
+                       "requesting boundary drain to reform at %d",
+                       len(capacity), self.width, target)
+        self._request_resize_drain(target)
+
+    def _request_resize_drain(self, target):
+        """Set every node's broker ``resize_drain`` key so each trainer
+        exits via :class:`ResizeDrain` at its next step boundary
+        (checkpoint committed, partition acked). Best effort per node —
+        the analog of :meth:`Supervisor.abort_attempt`, but cooperative
+        and boundary-aligned instead of immediate."""
+        import multiprocessing
+
+        from tensorflowonspark_tpu_torch import manager
+        tfc = self._tfc
+        if tfc is None:
+            return
+        authkey = bytes.fromhex(tfc.cluster_meta["authkey"])
+        multiprocessing.current_process().authkey = authkey
+        for node_meta in tfc.cluster_info:
+            try:
+                mgr = manager.connect(tuple(node_meta["mgr_addr"]), authkey)
+                mgr.set("resize_drain", int(target))
+            except Exception:  # noqa: BLE001 - node may be gone
+                logger.debug("resize drain could not reach executor %s",
+                             node_meta.get("executor_id"), exc_info=True)
+
+    def _complete_resize(self, failure):
+        """Finish a PLANNED resize: tear the drained attempt down and
+        move width to the target — no policy consult, no
+        failure_counts (the 'failure' here is the drain's own exit
+        surfacing through the normal channels)."""
+        target, self._resize_target = self._resize_target, None
+        attempt_no = len(self.attempts) + 1
+        self.events.record("attempt_teardown", attempt=attempt_no,
+                           kind="resize_drain", surfaced=failure.kind)
+        with self.goodput.track("resize_drain"):
+            self._teardown(
+                "resize drain (regrow to width {})".format(target),
+                attempt_no=attempt_no)
+        # the formation that completes the resize is part of its cost
+        self._next_form_category = "resize_drain"
+        self._record_width_change(target, "regrow: capacity returned")
+        # the next loop iteration reforms at the new width
+
+    def _record_width_change(self, new_width, reason):
+        if new_width == self.width:
+            return
+        self.events.record("width_change", from_width=self.width,
+                           to_width=new_width, reason=reason)
+        logger.warning("cluster width %d -> %d (%s)", self.width,
+                       new_width, reason)
+        self.width = int(new_width)
+
+    def _harvest_metrics(self):
+        """Snapshot the live cluster's metrics rollup before a teardown
+        discards it — a completed (or failed) supervised job must still
+        be able to report what its executors measured. Reads ``_tfc``
+        ONCE (a concurrent teardown may null it between check and use)
+        and treats any failure as best-effort."""
+        tfc = self._tfc
+        if tfc is None:
+            return
+        try:
+            rollup = tfc.metrics()
+            self._last_metrics = rollup
+            # per-ATTEMPT accumulation (goodput plane): each attempt's
+            # trainers run fresh process ledgers, so the job's total
+            # accounting is the SUM of attempts' merged snapshots;
+            # within one attempt the counters are cumulative, so
+            # overwriting by formation ordinal keeps only the latest
+            # harvest of each attempt — unless the new harvest is
+            # EMPTY (a final beat whose broker was already gone
+            # carries metrics=None): never regress a rollup that has
+            # data to one that lost it
+            merged = (rollup.get("cluster") or {}).get("merged") or {}
+            if any(merged.get(k) for k in ("counters", "timers",
+                                           "hists")) \
+                    or self.formations not in self._attempt_rollups:
+                self._attempt_rollups[self.formations] = rollup
+        except Exception:  # noqa: BLE001 - observability is best-effort
+            logger.debug("metrics harvest failed", exc_info=True)
+
+    def _final_shutdown(self, grace_secs=0):
+        """Shut the live cluster down cleanly; None on success, else the
+        failure it surfaced (monitor-attributed when possible)."""
+        self._harvest_metrics()
+        tfc, sup = self._tfc, self._supervisor
+        try:
+            tfc.shutdown(grace_secs=grace_secs,
+                         timeout=self.config.shutdown_timeout)
+        except Exception as e:  # noqa: BLE001 - classified below
+            # A shutdown-surfaced error is usually the monitor's failure
+            # seen through a different channel (a trainer killed so fast
+            # its node drained the whole feed as error-state no-ops, so
+            # the job "completed" before a beat carried the crash): give
+            # classification one grace window to attribute it to a lease
+            # — the exact analog of the task-error path in _await_result.
+            # An unattributed shutdown_failure carries no executor_id and
+            # can never advance Blacklist's failure_counts.
+            failure = sup.wait_for_failure(self.config.classify_grace) \
+                if sup is not None else None
+            self._stop_monitor()
+            self._tfc = None
+            return failure if failure is not None else FailureEvent(
+                "shutdown_failure", None, str(e))
+        # re-harvest AFTER the shutdown join (goodput plane): the
+        # trainers' FINAL accounting flush rides their last synchronous
+        # beat, which only lands once node.shutdown has joined them —
+        # the pre-shutdown harvest above would miss the last steps'
+        # charges to the publish-throttle window. The lease payloads
+        # stay readable in memory after Server.stop(); a failed
+        # re-harvest keeps the earlier one (best-effort either way).
+        self._harvest_metrics()
+        self._stop_monitor()
+        self._tfc = None
+        return None
+
+    def _stop_monitor(self):
+        if self._supervisor is not None:
+            self._supervisor.stop()
+
+    def _teardown_attempt(self, attempt_no, failure):
+        self.events.record("attempt_teardown", attempt=attempt_no,
+                           kind=failure.kind)
+        self._teardown(str(failure), attempt_no=attempt_no)
+
+    def _teardown(self, reason, attempt_no=None):
+        """Tear the live attempt down after a failure or planned drain:
+        abort surviving nodes FIRST (their trainers may still be
+        consuming — an executor loss ends the feed job without ever
+        delivering EndFeed to the survivors, and a shutdown join with a
+        dead executor raises before dispatching), then best-effort
+        shutdown."""
+        self._harvest_metrics()
+        sup = self._supervisor
+        self._stop_monitor()
+        tfc, self._tfc = self._tfc, None
+        if tfc is None:
+            return
+        try:
+            (sup or Supervisor()).abort_attempt(
+                tfc.cluster_info, tfc.cluster_meta, reason)
+        except Exception:  # noqa: BLE001 - nodes may all be gone
+            logger.debug("attempt abort failed", exc_info=True)
+        # Shut down the members still alive. With a lost member the
+        # shutdown job (one task per member) fails at dispatch and
+        # reaches no survivor: a surviving trainer inside its consume ->
+        # commit window (its partition consumed and acked, its step not
+        # yet checkpointed) would run on against a stopped reservation
+        # server and die uncommitted, losing an acked partition. Shut
+        # down, each survivor's trainer gets EndFeed and teardown_grace
+        # to reach its step boundary while the server still answers.
+        alive_fn = getattr(self.sc, "executors_alive", None)
+        try:
+            alive = set(alive_fn()) if alive_fn is not None else None
+        except Exception:  # noqa: BLE001 - liveness view is best-effort
+            alive = None
+        if alive is not None:
+            members = [e for e in tfc.executor_ids if e in alive]
+            if members and len(members) < len(tfc.executor_ids):
+                tfc.executor_ids = members
+                # a revived executor under a lost member's id hosts no
+                # node of this attempt
+                tfc.exclude = frozenset(set(tfc.exclude)
+                                        | (alive - set(members)))
+        try:
+            tfc.shutdown(grace_secs=self.config.teardown_grace,
+                         timeout=self.config.shutdown_timeout)
+        except Exception as e:  # noqa: BLE001 - this IS the failure
+            logger.info("attempt %s teardown surfaced: %s",
+                        attempt_no if attempt_no is not None else "?", e)
+
+    def _recover_or_raise(self, failure):
+        # the whole recovery window — teardown, decision, backoff —
+        # is reform badput on the driver ledger (the next _form adds
+        # the formation itself); the context closes on the FAIL raise
+        # path too
+        with self.goodput.track("reform"):
+            self._recover_or_raise_inner(failure)
+
+    def _recover_or_raise_inner(self, failure):
+        attempt_no = len(self.attempts) + 1
+        restarts = len(self.attempts)  # restarts already performed
+        self.attempts.append({"attempt": attempt_no,
+                              "failure": failure.as_dict()})
+        if failure.executor_id is not None:
+            self.failure_counts[failure.executor_id] = \
+                self.failure_counts.get(failure.executor_id, 0) + 1
+        self._teardown_attempt(attempt_no, failure)
+        decision = self._decide(failure, restarts)
+        self.events.record("decision", attempt=attempt_no,
+                           action=decision.action, delay=decision.delay,
+                           exclude=sorted(decision.exclude),
+                           width=decision.width,
+                           reason=decision.reason)
+        if decision.action == Decision.FAIL:
+            self._done = True
+            self._freeze_goodput_wall()
+            self.events.record("job_failed", attempt=attempt_no,
+                               kind=failure.kind)
+            raise RuntimeError(
+                "supervised job failed after {} attempt(s) — {} ({})".format(
+                    attempt_no, failure, decision.reason))
+        if decision.action == Decision.RESIZE:
+            self._apply_shrink(decision)
+        if decision.exclude:
+            self.excluded |= set(decision.exclude)
+            self.events.record("blacklisted",
+                               executors=sorted(decision.exclude))
+            # blacklist and resize share ONE width source of truth
+            self._record_width_change(
+                self.num_executors - len(self.excluded),
+                "blacklist: excluded {}".format(sorted(decision.exclude)))
+        if decision.delay:
+            logger.info("supervisor backing off %.1fs before restart",
+                        decision.delay)
+            time.sleep(decision.delay)
+        # the next loop iteration (train) or shutdown pass reforms
+
+    def _decide(self, failure, restarts):
+        """Consult the policy, passing the current width only to
+        policies that take it — user-defined policies implementing the
+        pre-elastic 5-argument ``decide`` signature keep working."""
+        import inspect
+        policy = self.config.policy
+        kwargs = {}
+        try:
+            params = inspect.signature(policy.decide).parameters
+            if "width" in params or any(
+                    p.kind == inspect.Parameter.VAR_KEYWORD
+                    for p in params.values()):
+                kwargs["width"] = self.width
+        except (TypeError, ValueError):  # unintrospectable callable
+            pass
+        return policy.decide(
+            failure, restarts, dict(self.failure_counts),
+            frozenset(self.excluded), self.num_executors, **kwargs)
+
+    def _apply_shrink(self, decision):
+        """Commit (or cancel) a RESIZE decision: hold for the policy's
+        shrink grace first — a flapping executor that returns within it
+        keeps the original width (reform, not resize)."""
+        grace = getattr(self.config.policy, "shrink_grace_s", 0.0)
+
+        def _capacity_back():
+            capacity = self._capacity()
+            return capacity is not None and len(capacity) >= self.width
+
+        deadline = time.monotonic() + max(0.0, grace)
+        returned = _capacity_back()
+        while not returned and time.monotonic() < deadline:
+            time.sleep(0.05)
+            returned = _capacity_back()
+        if returned:
+            self.events.record("shrink_cancelled", width=self.width,
+                               reason="capacity available within "
+                                      "shrink grace")
+            logger.warning("shrink to %s cancelled: capacity for width "
+                           "%d is available", decision.width, self.width)
+            return
+        self._record_width_change(decision.width, decision.reason)

@@ -29,8 +29,12 @@ Counters, StageTimers and Histograms follow the single-writer
 convention: one thread writes, readers take copies; the unlocked dict
 and int updates are benign under the GIL.
 
-Left for later slices: the profiler hooks (``start_profiler_server``,
-``trace``) and the TensorBoard ``SummaryWriter`` / ``metrics_hook``.
+- The profiler hooks: :func:`start_profiler_server` (one HTTP
+  endpoint a process; ``GET /capture?ms=N`` writes a ``torch.profiler``
+  window as a Chrome trace) and :class:`trace` (a profiler window
+  around a block), with the TensorBoard :class:`SummaryWriter` and the
+  ``train_loop`` hook :func:`metrics_hook`. They import torch when
+  called, never at import.
 """
 
 import collections
@@ -1419,3 +1423,233 @@ class _StageSpan(object):
         self._timers.add(self._stage, time.monotonic() - self._t0)
 
 
+
+
+# -- profiler hooks and TensorBoard scalars --------------------------------
+
+#: port of this process's already-started profiler endpoint, if any
+_PROFILER_PORT = None
+_PROFILER_SERVER = None
+_PROFILER_LOCK = threading.Lock()
+
+#: a capture window's bounds (milliseconds), the endpoint's default
+PROFILE_WINDOW_MS = (1, 60000)
+DEFAULT_PROFILE_MS = 2000
+
+
+def _profiler_activities():
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return activities
+
+
+def _capture(log_dir, duration_ms):
+    """Profile this process for ``duration_ms`` and write the window as
+    a Chrome trace under ``log_dir``; returns its path. On a card the
+    window holds the kernels every thread launched (CUPTI is
+    process-wide); host ops appear only for the capturing thread."""
+    import torch
+
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "capture-{}-{}.json".format(
+        os.getpid(), int(time.time() * 1000)))
+    with torch.profiler.profile(activities=_profiler_activities()) as prof:
+        time.sleep(duration_ms / 1000.0)
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    return path
+
+
+def start_profiler_server(port=9012, log_dir=None, host="127.0.0.1"):
+    """Start this process's profiler endpoint (idempotent); returns the
+    bound port.
+
+    The reference starts jax's profiler gRPC server; the port serves a
+    small HTTP endpoint instead: ``GET /capture?ms=N`` profiles the
+    process with ``torch.profiler`` for N milliseconds (default
+    :data:`DEFAULT_PROFILE_MS`) and answers ``{"trace": path}``, a
+    Chrome trace under ``log_dir`` (default a ``tfos-profile-<pid>``
+    directory under the temporary directory); ``GET /`` answers what
+    the endpoint is. One endpoint a process: a re-call returns the LIVE
+    port, even when it asks for another one, so framework layers and
+    user code can both call this without coordinating. ``port=0`` binds
+    a free port. Returns None only when the first start fails."""
+    global _PROFILER_PORT, _PROFILER_SERVER
+    with _PROFILER_LOCK:
+        if _PROFILER_PORT is not None:
+            if port not in (0, _PROFILER_PORT):
+                logger.info("profiler server already on port %d; "
+                            "ignoring request for %d", _PROFILER_PORT, port)
+            return _PROFILER_PORT
+        import http.server
+        import json
+        import socketserver
+        import tempfile
+        import urllib.parse
+
+        out_dir = log_dir or os.path.join(
+            tempfile.gettempdir(), "tfos-profile-{}".format(os.getpid()))
+        capture_lock = threading.Lock()
+
+        class _Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):
+                logger.debug("profiler endpoint: " + fmt, *args)
+
+            def _reply(self, code, body):
+                data = json.dumps(body).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                url = urllib.parse.urlparse(self.path)
+                if url.path == "/":
+                    self._reply(200, {"profiler": "torch.profiler",
+                                      "pid": os.getpid(),
+                                      "log_dir": out_dir,
+                                      "capture": "/capture?ms=N"})
+                    return
+                if url.path != "/capture":
+                    self._reply(404, {"error": "unknown path"})
+                    return
+                query = urllib.parse.parse_qs(url.query)
+                try:
+                    ms = int(query.get("ms", [DEFAULT_PROFILE_MS])[0])
+                except ValueError:
+                    ms = -1
+                lo, hi = PROFILE_WINDOW_MS
+                if not lo <= ms <= hi:
+                    self._reply(400, {"error": "ms must be an integer in "
+                                               "[{}, {}]".format(lo, hi)})
+                    return
+                if not capture_lock.acquire(blocking=False):
+                    self._reply(409, {"error": "a capture is running"})
+                    return
+                try:
+                    path = _capture(out_dir, ms)
+                except Exception as e:  # noqa: BLE001 - reported
+                    self._reply(500, {"error": repr(e)})
+                    return
+                finally:
+                    capture_lock.release()
+                self._reply(200, {"trace": path, "ms": ms})
+
+        class _Server(socketserver.ThreadingMixIn, http.server.HTTPServer):
+            daemon_threads = True
+
+        try:
+            server = _Server((host, port), _Handler)
+        except Exception as e:  # noqa: BLE001 - profiling is best-effort
+            logger.warning("profiler server failed to start: %s", e)
+            return None
+        # tfos: unjoined(daemon; serves for the life of the process)
+        threading.Thread(target=server.serve_forever,
+                         name="profiler-server", daemon=True).start()
+        _PROFILER_SERVER = server
+        _PROFILER_PORT = server.server_address[1]
+        logger.info("profiler endpoint on %s:%d (traces under %s)", host,
+                    _PROFILER_PORT, out_dir)
+        return _PROFILER_PORT
+
+
+class trace(object):
+    """``with tracing.trace(log_dir):`` captures a profiler window —
+    host ops and, on a card, its kernels — and writes it as a Chrome
+    trace (``path``, under ``log_dir``) on exit."""
+
+    def __init__(self, log_dir):
+        self.log_dir = log_dir
+        self.path = None
+        self._prof = None
+
+    def __enter__(self):
+        import torch
+
+        self._prof = torch.profiler.profile(
+            activities=_profiler_activities())
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        prof, self._prof = self._prof, None
+        prof.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.path = os.path.join(self.log_dir, "trace-{}-{}.json".format(
+            os.getpid(), int(time.time() * 1000)))
+        prof.export_chrome_trace(self.path)
+
+
+class SummaryWriter(object):
+    """TensorBoard scalar writer: ``torch.utils.tensorboard`` where it
+    imports (it needs the ``tensorboard`` package), else a graceful
+    no-op (``backend`` None, said once in the log)."""
+
+    def __init__(self, log_dir):
+        self.log_dir = log_dir
+        self.backend = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter as _Writer
+
+            self._writer = _Writer(log_dir)
+            self.backend = "torch.utils.tensorboard"
+        except Exception:  # noqa: BLE001 - no tensorboard package
+            logger.warning("tensorboard unavailable: summaries disabled")
+            self._writer = None
+
+    def scalar(self, tag, value, step):
+        if self._writer is not None:
+            self._writer.add_scalar(tag, float(value), int(step))
+
+    def text(self, tag, value, step):
+        if self._writer is not None:
+            self._writer.add_text(tag, str(value), int(step))
+
+    def flush(self):
+        if self._writer is not None:
+            self._writer.flush()
+
+    def close(self):
+        if self._writer is not None:
+            self._writer.close()
+
+
+def metrics_hook(writer, every_steps=10, examples_per_step=None):
+    """train_loop hook: loss + steps/sec (+ examples/sec) to
+    TensorBoard — plus the process goodput ratio (goodput.py) whenever
+    the ledger has accounted anything, so existing training logs carry
+    productive-time attribution with zero caller changes."""
+    state = {"t0": time.monotonic(), "last": 0}
+
+    def _hook(step_no, train_state, metrics):
+        if step_no % every_steps:
+            return
+        now = time.monotonic()
+        dsteps = step_no - state["last"]
+        dt = max(now - state["t0"], 1e-9)
+        writer.scalar("train/loss", float(metrics["loss"]), step_no)
+        writer.scalar("train/steps_per_sec", dsteps / dt, step_no)
+        if examples_per_step:
+            writer.scalar("train/examples_per_sec",
+                          dsteps * examples_per_step / dt, step_no)
+        try:
+            from tensorflowonspark_tpu_torch import goodput
+            report = goodput.ledger().report()
+            if report["productive_s"] > 0:
+                writer.scalar("train/goodput_ratio",
+                              report["goodput_ratio"], step_no)
+        except Exception:  # noqa: BLE001 - accounting is best-effort
+            logger.debug("goodput scalar failed", exc_info=True)
+        writer.flush()
+        state["t0"], state["last"] = now, step_no
+
+    return _hook

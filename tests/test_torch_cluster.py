@@ -174,16 +174,29 @@ def test_map_fun_error_surfaces_at_shutdown(sc):
 
 
 def test_later_planes_refuse_loudly(sc):
-    """``cluster.run(supervise=)`` still refuses, naming training
-    supervision's ROADMAP item; the serving fleet's planes arm:
+    """Every plane arms: ``cluster.run(supervise=)`` returns a
+    ``SupervisedCluster`` whose supervised job completes on its first
+    formation (and still refuses the plane's own levers,
+    ``exclude_executors`` / ``beat_interval``, beside ``supervise=``);
     ``serving_fleet(supervise=, autoscale=)`` and the fleet's own
     ``supervise()`` / ``autoscale()`` return the running planes."""
     from tensorflowonspark_tpu_torch import autoscale, fleet, supervisor
     from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
 
-    later = r"ROADMAP Queue 1 item 1 \(training supervision\)"
-    with pytest.raises(NotImplementedError, match=later):
-        cluster.run(sc, lambda a, c: None, {}, 2, supervise=object())
+    cfg = supervisor.SupervisorConfig(policy=supervisor.FailJob(),
+                                      heartbeat_interval=0.25)
+    for bad in ({"exclude_executors": [1]}, {"beat_interval": 0.5}):
+        with pytest.raises(ValueError, match="supervise="):
+            cluster.run(sc, lambda a, c: None, {}, 2, supervise=cfg, **bad)
+    tfc = cluster.run(sc, lambda a, c: None, {}, 2, supervise=cfg,
+                      input_mode=cluster.InputMode.TENSORFLOW)
+    assert isinstance(tfc, supervisor.SupervisedCluster)
+    assert tfc.cluster_info is not None and len(tfc.cluster_info) == 2
+    # the config's heartbeat cadence rides to the nodes' beat threads
+    assert tfc._tfc.cluster_meta["beat_interval"] == 0.25
+    rep = tfc.shutdown()
+    assert rep["formations"] == 1 and rep["failures"] == [], rep
+    assert [e["name"] for e in rep["events"]][-1] == "job_complete"
     model = DecoderLM(17, hidden=16, num_heads=2, num_layers=1,
                       max_len=32).eval()
     engine_kw = {"slots": 1, "device": "cpu"}

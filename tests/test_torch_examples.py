@@ -186,7 +186,9 @@ def test_resnet_resume(tmp_path):
 
 def test_resnet_tfrecords_and_profile_gate(tmp_path):
     """--make_data writes TFRecord shards the node reads with the port's
-    codec; --profile raises naming the ROADMAP item it waits for."""
+    codec; --profile trains with the profiler hooks armed: a Chrome
+    trace of the first --trace_steps steps naming the model's ops, the
+    loss scalars through the SummaryWriter (or its no-op)."""
     model = tmp_path / "model"
     _run(tmp_path, "resnet.resnet_spark", "--cluster_size", 1,
          "--steps", 2, "--batch_size", 8, "--make_data", 64,
@@ -195,10 +197,23 @@ def test_resnet_tfrecords_and_profile_gate(tmp_path):
     stats = _stats(model)
     assert stats["input"] == "tfrecord" and stats["steps"] == 2
     assert stats["reader_records_per_sec"] > 0
-    out = _run(tmp_path, "resnet.resnet_spark", "--profile",
-               "--device", "cpu", ok=False)
-    assert out.returncode != 0
-    assert "ROADMAP Queue 1 item 2" in out.stderr
+    prof = tmp_path / "prof"
+    _run(tmp_path, "resnet.resnet_spark", "--profile", "--cluster_size", 1,
+         "--steps", 2, "--batch_size", 4, "--trace_steps", 1,
+         "--log_every", 1, "--model_dir", prof, "--device", "cpu")
+    assert _stats(prof)["steps"] == 2
+    traces = os.listdir(prof / "tb" / "trace")
+    assert len(traces) == 1, traces
+    with open(prof / "tb" / "trace" / traces[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::convolution" in names, sorted(names)[:20]
+    events = [n for n in os.listdir(prof / "tb") if "tfevents" in n]
+    try:
+        import tensorboard  # noqa: F401 - the writer's backend
+    except ImportError:
+        assert events == []
+    else:
+        assert len(events) == 1, os.listdir(prof / "tb")
 
 
 def test_inception_train_export_infer_roundtrip(tmp_path):

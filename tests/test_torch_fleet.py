@@ -122,11 +122,12 @@ def shim(module, **overrides):
     return out
 
 
-def port_namespace(filename, **extra):
+def port_namespace(filename, port_imports=False, **extra):
     """``(reference module, namespace)`` for ``tests/<filename>`` with its
     cases rebound to the port (see the module docstring)."""
     ref, ns = test_torch_qos.reference_cases(
-        filename, chaos=chaos, paging=paging, reservation=reservation,
+        filename, port_imports=port_imports, chaos=chaos, paging=paging,
+        reservation=reservation,
         tracing=tracing,
         serving=shim(serving, DecodeEngine=_Engine),
         fleet=shim(fleet, ServingFleet=_Fleet), **extra)

@@ -3,7 +3,8 @@ the JAX package or cloudpickle, and its kernel modules import (and
 serve — plainly, tenant-tagged over HTTP with a ``/metrics`` scrape,
 speculatively, from a spliced KV shipment and through a one-replica
 fleet's router with its supervisor and autoscaler armed — train, run a
-cluster,
+cluster, recover a supervised job from a killed trainer with the
+profiler hooks armed,
 fit, checkpoint, export and transform through the pipeline, run the model zoo and ``:predict``, stream
 micro-batches into a cluster, run TFParallel jobs, bind the Spark
 adapter and import every example driver on the CPU) without a CUDA
@@ -27,7 +28,9 @@ PLANE = ("util", "marker", "fs", "frames", "shm", "manager", "tracing",
          "tfrecord", "_tfrecord_native", "dfutil", "checkpoint", "export",
          "pipeline", "engine/streaming", "engine/spark_adapter",
          "parallel_runner", "kvship", "qos", "slo", "metrics_report",
-         "controlstate", "supervisor", "autoscale")
+         "controlstate", "supervisor", "autoscale",
+         # its trainer functions ship by reference: executors import it
+         "profile_recovery")
 EXAMPLES = os.path.join(PORT, "examples")
 #: the parallel package's modules
 PARALLEL = ("parallel/__init__", "parallel/mesh", "parallel/collectives",
@@ -254,6 +257,92 @@ def test_cluster_runs_with_jax_unimportable(tmp_path):
     """.format(out=str(tmp_path / "total.json"),
                root=str(tmp_path / "engine")))
     assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_supervised_recovery_runs_with_jax_unimportable(tmp_path):
+    """``cluster.run(supervise=)`` with a trainer SIGKILLed after step 2
+    (``kill_trainer_at_step``), driven from a process where the JAX
+    package cannot be imported: ``RestartFromCheckpoint`` reforms, the
+    trainer restores its numpy checkpoint and the job ends exactly once;
+    ``tracing.trace`` and ``start_profiler_server`` work there too."""
+    res = _run("""
+        import json, os, sys, urllib.request
+        for name in ("jax", "jaxlib", "flax", "optax", "orbax",
+                     "tensorflowonspark_tpu", "cloudpickle"):
+            sys.modules[name] = None  # any import of them now fails
+        from tensorflowonspark_tpu_torch import (chaos, cluster, supervisor,
+                                                 tracing)
+        from tensorflowonspark_tpu_torch.engine import Context
+
+        root = {root!r}
+
+        def map_fun(args, ctx):
+            import numpy as np
+            from tensorflowonspark_tpu_torch import checkpoint, supervisor
+            ckpt = checkpoint.Checkpointer(args["dir"])
+            like = {{"step": np.array(0, np.int32),
+                     "seen": np.array(0.0, np.float64)}}
+            restored = ckpt.restore(like, fallback=True)
+            state = restored if restored is not None else like
+            step = int(state["step"])
+            sup = supervisor.attach(
+                ctx, restored_step=step if restored is not None else None)
+            feed = ctx.get_data_feed(train_mode=True)
+            while not feed.should_stop():
+                batch = feed.next_batch(4)
+                if not batch:
+                    continue
+                step += 1
+                state = {{"step": np.array(step, np.int32),
+                          "seen": np.array(float(state["seen"]) + sum(batch),
+                                           np.float64)}}
+                ckpt.save(step, state)
+                sup.step(step)
+            with open(os.path.join(args["dir"], "final.json"), "w") as f:
+                json.dump({{"step": step, "seen": float(state["seen"])}}, f)
+
+        os.makedirs(os.path.join(root, "ckpt"))
+        fuse = os.path.join(root, "fuse")
+        sc = Context(num_executors=1, work_root=os.path.join(root, "engine"),
+                     executor_env={{"TFOS_FEED_TRANSPORT": "queue",
+                                    chaos.ENV_VAR:
+                                    "kill_trainer_at_step=2,fuse=" + fuse}})
+        cfg = supervisor.SupervisorConfig(
+            policy=supervisor.RestartFromCheckpoint(max_restarts=2,
+                                                    backoff=0.1),
+            heartbeat_interval=0.25, heartbeat_timeout=20.0,
+            poll_interval=0.1, classify_grace=10.0)
+        try:
+            tfc = cluster.run(sc, map_fun, {{"dir": os.path.join(root,
+                                                                 "ckpt")}},
+                              1, supervise=cfg)
+            tfc.train(sc.parallelize(list(range(16)), 4), feed_timeout=60)
+        finally:
+            sc.stop()
+        rep = tfc.report()
+        assert os.path.exists(fuse)
+        assert rep["formations"] == 2, rep
+        assert [f["kind"] for f in rep["failures"]] == ["trainer_crash"]
+        final = json.load(open(os.path.join(root, "ckpt", "final.json")))
+        assert final == {{"step": 4, "seen": float(sum(range(16)))}}, final
+        import torch
+        with tracing.trace(os.path.join(root, "trace")) as tr:
+            (torch.ones(8, 8) @ torch.ones(8, 8)).sum()
+        assert os.path.exists(tr.path)
+        port = tracing.start_profiler_server(0, log_dir=root)
+        got = json.loads(urllib.request.urlopen(
+            "http://127.0.0.1:%d/capture?ms=20" % port, timeout=60).read())
+        assert os.path.exists(got["trace"])
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "flax", "orbax",
+                                         "cloudpickle",
+                                         "tensorflowonspark_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("OK")
+    """.format(root=str(tmp_path)))
+    assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().endswith("OK")
 
 

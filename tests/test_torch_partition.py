@@ -95,23 +95,19 @@ def test_reference_pure_case_on_both_packages(case, request):
 
 
 def test_net_spec_grammar_rejects_bad_specs():
-    """The reference's rejection cases on the port's parser; the step
-    point the reference's case scopes with is refused by the port until
-    ROADMAP item 9b, so a ported serving point stands in for it."""
+    """The reference's rejection cases on both packages' parsers — its
+    own case (whose step point, ``kill_trainer_at_step``, the port takes
+    since its training supervision) and a serving point — and the
+    port's step and executor points parse as the reference's do."""
+    REF.test_net_spec_grammar_rejects_bad_specs()
+    PORT["test_net_spec_grammar_rejects_bad_specs"]()
     for mod in (REF.chaos, chaos):
-        with pytest.raises(ValueError, match="for=T"):
-            mod.parse_spec("net_partition=a:b")
-        with pytest.raises(ValueError, match="SRC:DST"):
-            mod.parse_spec("net_partition=ab,for=1")
         with pytest.raises(ValueError, match="only apply to net points"):
             mod.parse_spec("kill_scheduler_at_step=3,for=1")
-        with pytest.raises(ValueError, match="only apply to net points"):
-            mod.parse_spec("stall_decode_for=1,for=2")
-        with pytest.raises(ValueError, match="seed"):
-            mod.parse_spec("net_drop=0.5,seed=abc")
-    for point in ("kill_trainer_at_step", "drop_executor_then_return_after"):
-        with pytest.raises(ValueError, match="unknown chaos point"):
-            chaos.parse_spec(point + "=1")
+        assert set(mod.parse_spec(
+            "kill_trainer_at_step=3;drop_executor_then_return_after=1,"
+            "only=1,fuse=/nonexistent/fuse")) == {
+                "kill_trainer_at_step", "drop_executor_then_return_after"}
     assert set(chaos.parse_spec(
         "kill_router_at_request=2,only=lm;restart_reservation_after=0.5"
     )) == {"kill_router_at_request", "restart_reservation_after"}

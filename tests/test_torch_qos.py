@@ -38,12 +38,36 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 V, H, NH, L, MAXLEN = 17, 32, 4, 2, 64
 
 
-def reference_cases(filename, **port_modules):
+def _port_name(name):
+    """``tensorflowonspark_tpu[.x]`` -> ``tensorflowonspark_tpu_torch[.x]``."""
+    base = "tensorflowonspark_tpu"
+    if name == base or name.startswith(base + "."):
+        return base + "_torch" + name[len(base):]
+    return name
+
+
+def port_code(code):
+    """``code`` with every import of the JAX package inside it (its own
+    body and the functions nested in it) pointed at the port's module of
+    the same name: ``from tensorflowonspark_tpu import chaos`` imports
+    the port's ``chaos``. The reference's map_funs import what they use
+    inside their bodies, since they run in trainer processes."""
+    consts = tuple(port_code(c) if isinstance(c, types.CodeType) else c
+                   for c in code.co_consts)
+    return code.replace(co_names=tuple(_port_name(n)
+                                       for n in code.co_names),
+                        co_consts=consts)
+
+
+def reference_cases(filename, port_imports=False, **port_modules):
     """``(reference test module, port namespace)``: the reference test
     file loaded under a private name, and a copy of its globals in which
     ``port_modules`` replace the reference's modules of those names, with
     every function and plain helper class of the file rebound to it — so
-    ``ns[case]()`` runs the reference's own case against the port."""
+    ``ns[case]()`` runs the reference's own case against the port.
+    ``port_imports`` also points the imports inside the rebound
+    functions' bodies at the port (:func:`port_code`): what a rebound
+    map_fun ships to a trainer imports the port there."""
     name = "_reference_" + filename[:-3]
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(HERE, filename))
@@ -56,7 +80,8 @@ def reference_cases(filename, **port_modules):
     ns.update(port_modules)
 
     def rebind(fn):
-        return types.FunctionType(fn.__code__, ns, fn.__name__,
+        code = port_code(fn.__code__) if port_imports else fn.__code__
+        return types.FunctionType(code, ns, fn.__name__,
                                   fn.__defaults__, fn.__closure__)
 
     for key, obj in ref.__dict__.items():

@@ -107,8 +107,8 @@ def test_reference_unit_case_on_both_packages(ref, port, case):
 
 
 def test_the_module_carries_the_references_names():
-    """Everything the reference's supervision core and serving half
-    define is here; the training-cluster half is the next slice's."""
+    """Everything the reference's supervision module defines is here:
+    the core, the serving half and the training-cluster half."""
     from tensorflowonspark_tpu import supervisor as jsupervisor
 
     core = ("KINDS", "FailureEvent", "Decision", "FailJob",
@@ -124,7 +124,11 @@ def test_the_module_carries_the_references_names():
     assert mine == theirs
     for name in ("SupervisedCluster", "acked_feed", "TrainerSide",
                  "recovery_stages", "attach"):
-        assert not hasattr(supervisor, name)
+        assert hasattr(supervisor, name) and hasattr(jsupervisor, name)
+    mine = {n for n in vars(supervisor.SupervisedCluster)
+            if not n.startswith("__")}
+    assert mine == {n for n in vars(jsupervisor.SupervisedCluster)
+                    if not n.startswith("__")}
 
 
 @pytest.mark.parametrize("policy,kind,width", [
