@@ -365,7 +365,25 @@ Phases, stopping with a non-zero exit at the first failure:
    Printed: the MTTR stages (detect, reform, restore, first step, MTTR),
    the regrow's drain -> formed -> first step, checkpoint save and step
    p50, each trainer's peak memory and the phase's wall;
-16. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
+16. tensor-parallel decode — 4 processes on ``cuda:0`` in one gloo group
+   over CUDA tensors (NCCL refuses two ranks on one card; the megatron
+   decode needs only all-reduces, which gloo runs on CUDA tensors, and
+   a collective gloo lacks for them fails the phase — nothing is routed
+   through the CPU): each builds phase 4's GPT-2-small from the seed
+   (the ranks' weights checked equal) and decodes 4 prompts of 32
+   tokens plus 32 new at temperature 0 through ``generation.generate``
+   at tp 1 (the plain model), 2 and 4 (a copy laid out by
+   ``distribute_params(..., DECODER_TP_RULES, src_data_rank=None)`` on
+   ``{"data": 4 / tp, "model": tp}``): every rank of a width the same
+   tokens, tp 2 and 4 tp 1's but at a top-2 tie below 1e-4, each rank's
+   query weight ``Shard(0)`` on ``model`` and its cache 12 / tp heads,
+   one decode step's collectives (``CollectiveRecorder``) exactly 24
+   all-reduces of 294,912 bytes in all (2 x 12 layers x 4 x 768 x 4), no
+   kernel launched (the contiguous path is einsums and cuBLAS). Printed:
+   max |logit - tp 1| over the teacher-forced sequence, each rank's peak
+   memory, each width's wall and tokens/s (ranks sharing one card over
+   gloo, not a TP speed);
+17. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
    counts as ``launches_cluster``, phase 7's as ``launches_pipeline``,
    phase 8's (BERT training plus ``:predict``) as ``launches_models``,
    phase 9's streaming-fed trainer's as ``launches_streaming`` and the
@@ -4921,6 +4939,11 @@ def fleet_phase(torch, pa, dev, runs, here):
 SUPERVISED_VICTIM, SUPERVISED_KILL_STEP = "replica-1", 4
 #: 14(a): phase 4's requests sent once the victim is readmitted
 SUPERVISED_AFTER = (0, 2, 3, 4, 6, 7, 8, 10)
+#: 14(a): requests sent straight to the survivor the moment the victim
+#: dies (phase 4's shortest prompts, this many new tokens), so that the
+#: restart window holds completions however many tokens the traffic's
+#: requests in the survivor's slots still owe
+WINDOW_REQUESTS, WINDOW_NEW = 2, 4
 #: 14(b): requests in flight while the rolling drain cycles the replicas
 SUPERVISED_DRAIN_REQUESTS = 8
 #: 14(c): the burst (phase 4's 16 requests twice) and its clients
@@ -4940,13 +4963,15 @@ class _Series(object):
     counters of each (shared by a restarted or respawned engine with its
     predecessor, so each series is summed once), when each replica was
     first seen with a completed request, and a timeline of each
-    replica's completions and decode steps."""
+    replica's completions and decode steps, and of the new tokens each
+    request in its slots still owes."""
 
     def __init__(self, fleet_):
         self.fleet = fleet_
         self.series = {}
         self.first_done = {}
         self.timeline = []
+        self.owed = []
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
 
@@ -4956,7 +4981,7 @@ class _Series(object):
         return self
 
     def sample(self):
-        row = {}
+        row, owed = {}, {}
         for replica in list(self.fleet.replicas):
             engine = replica.engine
             if engine is None:
@@ -4967,7 +4992,13 @@ class _Series(object):
                                        engine.counters.get("decode_steps"))
             if replica.replica_id not in self.first_done and done > 0:
                 self.first_done[replica.replica_id] = time.monotonic()
-        self.timeline.append((time.time(), row))
+            owed[replica.replica_id] = [
+                h.max_new_tokens - len(h._tokens)
+                for h in list(getattr(engine, "_slot_req", ()))
+                if h is not None]
+        now = time.time()
+        self.timeline.append((now, row))
+        self.owed.append((now, owed))
 
     def at(self, wall, rid):
         """``rid``'s (completed, decode steps) at its last sample taken
@@ -4975,6 +5006,13 @@ class _Series(object):
         rows = [row[rid] for t, row in self.timeline
                 if t <= wall and rid in row]
         return rows[-1] if rows else (0, 0)
+
+    def owed_at(self, wall, rid):
+        """The new tokens each request in ``rid``'s slots still owed at
+        its last sample taken at or before ``wall`` (None: no sample)."""
+        rows = [row[rid] for t, row in self.owed
+                if t <= wall and rid in row]
+        return rows[-1] if rows else None
 
     def _loop(self):
         while not self._stop.wait(0.01):
@@ -5021,6 +5059,15 @@ def _record_holds(router, holds):
                           "wall": time.time()})
             return _orig(rid, *args, **kw)
         setattr(router, name, call)
+
+
+def _when_killed(fuse, stop, fn):
+    """``fn()`` once the chaos fuse ``fuse`` exists (the kill fired),
+    polled every 5 ms; None if ``stop`` is set first."""
+    while not os.path.exists(fuse):
+        if stop.wait(0.005):
+            return None
+    return fn()
 
 
 def _healthz(addr):
@@ -5127,10 +5174,26 @@ def supervised_phase(torch, pa, dev, runs, here):
         chaos.arm("kill_scheduler_at_step={},only={},fuse={}".format(
             SUPERVISED_KILL_STEP, SUPERVISED_VICTIM, fuse))
         idx = list(range(len(reqs)))
+        window_idx = sorted(range(len(reqs)),
+                            key=lambda i: len(reqs[i][0]))[:WINDOW_REQUESTS]
+        window_reqs = {i: (reqs[i][0], WINDOW_NEW) for i in window_idx}
+        survivor_port = next(r for r in f.replicas
+                             if r.replica_id != SUPERVISED_VICTIM).addr[1]
+        stop, window = threading.Event(), []
+        prober = threading.Thread(target=lambda: window.append(_when_killed(
+            fuse, stop, lambda: _fleet_clients(
+                survivor_port, window_reqs, window_idx,
+                clients=WINDOW_REQUESTS))))
+        prober.start()
         got, errors, wall = _fleet_clients(port, reqs, idx)
+        stop.set()
+        prober.join()
         check(not errors, "14(a) client-visible failures: {}".format(
             errors[:2]))
         check(os.path.exists(fuse), "14(a) the kill never fired")
+        check(window and window[0] is not None and not window[0][1],
+              "14(a) the survivor's window requests: {}".format(
+                  window and window[0] and window[0][1][:2]))
         _wait_for(lambda: sup.events.events("engine_restarted"),
                   "the supervisor's restart", timeout=60)
         chaos.disarm()
@@ -5158,9 +5221,11 @@ def supervised_phase(torch, pa, dev, runs, here):
         check(steps1 > steps0 and held1 > held0
               and victim.engine._turn is survivor.engine._turn,
               "14(a) the survivor in the restart window: {} -> {} steps, "
-              "{} -> {} completions; one turn {}".format(
+              "{} -> {} completions; one turn {}; new tokens its slots "
+              "still owed at the death {}".format(
                   steps0, steps1, held0, held1,
-                  victim.engine._turn is survivor.engine._turn))
+                  victim.engine._turn is survivor.engine._turn,
+                  series.owed_at(died, survivor.replica_id)))
         _wait_for(lambda: SUPERVISED_VICTIM in fleet.route_order(
             f.router.replica_views(), f.router.stale_after),
             "the victim back in the router's order", timeout=30)
@@ -5178,7 +5243,10 @@ def supervised_phase(torch, pa, dev, runs, here):
               "{} requests".format(len(after_idx)))
         routes, steps, prefills = _exact_launches(pa, series, before, "14(a)")
         add(routes)
-        ties = tokens(got, idx, "a") + tokens(got_after, after_idx, "a")
+        ties = tokens(got, idx, "a") + tokens(got_after, after_idx, "a") \
+            + tokens(window[0][0], window_idx, "a",
+                     lambda i: _expected(runs, reqs, i, WINDOW_NEW),
+                     window_reqs)
         n_new = sum(n for _, n in reqs)
         res["a"] = {
             "tokens_per_s": n_new / wall, "wall_s": wall,
@@ -5186,7 +5254,8 @@ def supervised_phase(torch, pa, dev, runs, here):
             "quiesce_to_readmit_s": ours[1]["wall"] - ours[0]["wall"],
             "engine_restarts": _restarts(f), "served_after": served_after,
             "survivor_in_window": {"decode_steps": steps1 - steps0,
-                                   "completed": held1 - held0},
+                                   "completed": held1 - held0,
+                                   "sent_at_the_death": WINDOW_REQUESTS},
             "launches": routes, "decode_steps": steps,
             "prefills": prefills, "ties": ties,
             "leg_wall_s": time.monotonic() - t_leg}
@@ -5609,6 +5678,251 @@ def recovery_phase(torch, dev, phase5, here):
     return res
 
 
+# -- phase 16: tensor-parallel decode, TP ranks sharing the card -------------
+
+#: the TP widths decoded, and the ranks (processes on cuda:0) that run
+#: them: the mesh is {"data": TP_RANKS // tp, "model": tp}
+TP_WIDTHS = (1, 2, 4)
+TP_RANKS = 4
+TP_BATCH, TP_PROMPT, TP_NEW = 4, 32, 32
+#: seconds the phase's ranks must finish within
+TP_TIMEOUT = 240
+
+
+def tp_config():
+    """Phase 16's model and decode shape (the ranks get it as an
+    argument: a spawned rank re-imports this file)."""
+    return {"vocab": VOCAB, "hidden": HIDDEN, "heads": HEADS,
+            "layers": LAYERS, "max_len": MAX_LEN, "batch": TP_BATCH,
+            "prompt": TP_PROMPT, "new": TP_NEW, "widths": TP_WIDTHS}
+
+
+def tp_prompts(cfg):
+    return np.random.RandomState(SEED + 16).randint(
+        0, cfg["vocab"], (cfg["batch"], cfg["prompt"])).astype(np.int32)
+
+
+def tp_decode_rank(rank, world, port, out_dir, device, cfg):
+    """One TP rank of phase 16 (a process on ``cuda:0``, spawned): joins
+    a gloo group over CUDA tensors, builds phase 4's GPT-2-small from the
+    seed (every rank the same weights, checked), and for each width of
+    ``cfg["widths"]`` decodes ``tp_prompts(cfg)`` through ``generate``
+    — the plain model at tp 1, a copy laid out by
+    ``distribute_params(..., DECODER_TP_RULES)`` on ``{"data": world //
+    tp, "model": tp}`` otherwise — then records the logits teacher-forced
+    over tp 1's tokens, one decode step's collectives after them, the
+    cache's heads and the query weight's placements. Writes ``tp_rank<rank>.json``."""
+    import copy
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method="tcp://127.0.0.1:{}".format(port),
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    try:
+        from tensorflowonspark_tpu_torch import generation, tp_scaling_model
+        from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+        from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+        from tensorflowonspark_tpu_torch.ops import paged_attention as pa
+        from tensorflowonspark_tpu_torch.parallel import build_mesh, sharding
+
+        model = DecoderLM(cfg["vocab"], hidden=cfg["hidden"],
+                          num_heads=cfg["heads"], num_layers=cfg["layers"],
+                          max_len=cfg["max_len"], device=dev)
+        model.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+        # every rank keeps its own slice of its own weights (a gloo
+        # group has no scatter of CUDA tensors): they must be equal
+        digest = torch.stack([sum(p.double().sum() for p in
+                                  model.parameters())] * 2)
+        digest[1] = -digest[1]
+        dist.all_reduce(digest, op=dist.ReduceOp.MAX)
+        res = {"rank": rank, "weights_equal":
+               bool(digest[0].item() == -digest[1].item()), "widths": {}}
+        prompt = torch.as_tensor(tp_prompts(cfg), device=dev)
+        base_logits = seq = None
+        cuda = dev.type == "cuda"
+        for tp in cfg["widths"]:
+            if tp == 1:
+                m = model
+            else:
+                mesh = build_mesh({"data": world // tp, "model": tp},
+                                  device=dev)
+                m = sharding.distribute_params(
+                    copy.deepcopy(model), mesh, sharding.DECODER_TP_RULES,
+                    src_data_rank=None)
+            if cuda:
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            dist.barrier()
+            t0 = time.monotonic()
+            tokens = generation.generate(m, prompt, cfg["new"], device=dev)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            wall = time.monotonic() - t0
+            peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+            if tp == 1:
+                seq = tokens
+            step = tp_scaling_model.decode_step_traffic(m, seq, device=dev)
+            logits = step["logits"]
+            if tp == 1:
+                base_logits = logits
+            w = {"tokens": tokens.cpu().tolist(), "wall_s": wall,
+                 "peak_bytes": peak,
+                 "max_abs_logit_diff": (logits - base_logits).abs().max()
+                 .item(),
+                 "bytes_per_token": step["bytes"],
+                 "collectives": step["families"],
+                 "cache_heads": generation.init_cache(m, 1, 1, device=dev)[
+                     0]["cached_key"].shape[2],
+                 "query_placements": [str(p) for p in getattr(
+                     m.blocks[0].attn.query.weight, "placements", ())],
+                 # per mesh dim (data, model): the query weight's rows
+                 # split there, and the replicated elsewhere
+                 "query_row_split": [
+                     (p.is_shard(0), p.is_replicate()) for p in getattr(
+                         m.blocks[0].attn.query.weight, "placements", ())]}
+            # where this width's tokens leave tp 1's: tp 1's top-2 gap
+            # at the logits that picked tp 1's token there
+            w["divergences"] = []
+            for b, (got, want) in enumerate(zip(w["tokens"],
+                                                seq.cpu().tolist())):
+                if got != want:
+                    j = next(i for i in range(len(got)) if got[i] != want[i])
+                    top = torch.topk(base_logits[b, j - 1], 2).values
+                    w["divergences"].append(
+                        {"row": b, "position": j,
+                         "gap": (top[0] - top[1]).item()})
+            res["widths"][str(tp)] = w
+            if tp != 1:
+                del m, mesh
+        res["kernel_launches"] = {"paged": pa.launches,
+                                  "flash": dict(fa.launches)}
+        with open(os.path.join(out_dir, "tp_rank{}.json".format(rank)),
+                  "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_decode_phase(torch, here, device="cuda", cfg=None):
+    """Phase 16: ``generation.generate`` of GPT-2-small under
+    ``DECODER_TP_RULES`` at tp 1, 2 and 4, by ``TP_RANKS`` processes
+    sharing ``cuda:0`` over a gloo group (NCCL refuses two ranks on one
+    card; the megatron decode needs only all-reduces, which gloo runs
+    on CUDA tensors)."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from tensorflowonspark_tpu_torch import util
+
+    cfg = cfg or tp_config()
+    t_phase = time.monotonic()
+    out = tempfile.mkdtemp(prefix=".tfos-tp-", dir=here)
+    try:
+        ctx = mp.start_processes(
+            tp_decode_rank,
+            args=(TP_RANKS, util.find_free_port(), out, device, cfg),
+            nprocs=TP_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + TP_TIMEOUT
+        try:
+            while not ctx.join(timeout=2):
+                check(time.monotonic() < deadline,
+                      "16: the TP ranks outlived {} s".format(TP_TIMEOUT))
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(out, "tp_rank{}.json".format(r))) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    check(all(r["weights_equal"] for r in ranks),
+          "16: the ranks built different weights from the seed")
+    base = ranks[0]["widths"]["1"]["tokens"]
+    check(len(base) == cfg["batch"]
+          and all(len(t) == cfg["prompt"] + cfg["new"] for t in base)
+          and all(0 <= x < cfg["vocab"] for t in base for x in t),
+          "16: tp 1's tokens are malformed")
+    heads, layers = cfg["heads"], cfg["layers"]
+    want_bytes = 2 * layers * cfg["batch"] * cfg["hidden"] * 4
+    res = {"widths": {}}
+    for tp in cfg["widths"]:
+        ws = [r["widths"][str(tp)] for r in ranks]
+        check(all(w["tokens"] == ws[0]["tokens"] for w in ws),
+              "16: tp {}: the ranks decoded different tokens".format(tp))
+        for w in ws:
+            for d in w["divergences"]:
+                check(d["gap"] < TIE_GAP,
+                      "16: tp {} leaves tp 1's tokens at row {} position "
+                      "{}, top-2 gap {:.3e} (not a tie)".format(
+                          tp, d["row"], d["position"], d["gap"]))
+        check(all(w["cache_heads"] == heads // tp for w in ws),
+              "16: tp {}: the caches hold {} heads, not {}".format(
+                  tp, [w["cache_heads"] for w in ws], heads // tp))
+        if tp > 1:
+            check(all(w["query_row_split"] == [[False, True], [True, False]]
+                      for w in ws),
+                  "16: tp {}: query weight placements {}".format(
+                      tp, ws[0]["query_placements"]))
+            check(all(w["bytes_per_token"] == want_bytes
+                      and set(w["collectives"]) == {"all_reduce"}
+                      and w["collectives"]["all_reduce"]["ops"]
+                      == 2 * layers for w in ws),
+                  "16: tp {}: a decode step moved {} ({} bytes), not 2 x {} "
+                  "all-reduces, {} bytes".format(
+                      tp, ws[0]["collectives"], ws[0]["bytes_per_token"],
+                      layers, want_bytes))
+        else:
+            check(all(w["bytes_per_token"] == 0 for w in ws),
+                  "16: the plain model's decode step moved bytes")
+        wall = max(w["wall_s"] for w in ws)
+        res["widths"][tp] = {
+            "wall_s": wall,
+            "tokens_per_s": cfg["batch"] * cfg["new"] / wall,
+            "max_abs_logit_diff": max(w["max_abs_logit_diff"] for w in ws),
+            "peak_gib": [None if w["peak_bytes"] is None
+                         else w["peak_bytes"] / 2 ** 30 for w in ws],
+            "bytes_per_token": ws[0]["bytes_per_token"],
+            "cache_heads": ws[0]["cache_heads"],
+            "ties": sum(len(w["divergences"]) for w in ws) // len(ws)}
+        log("tp decode 16 tp {}: {} heads a rank, query {}; a decode step "
+            "moves {} bytes ({}); max |logit - tp 1| {:.3e}; {} tie "
+            "divergences; wall {:.2f}s, {:.1f} tokens/s (ranks sharing one "
+            "card over gloo, not a TP speed); peak GiB by rank {}".format(
+                tp, ws[0]["cache_heads"], ws[0]["query_placements"] or
+                "plain", ws[0]["bytes_per_token"], ws[0]["collectives"],
+                res["widths"][tp]["max_abs_logit_diff"],
+                res["widths"][tp]["ties"], wall,
+                res["widths"][tp]["tokens_per_s"],
+                ["{:.2f}".format(g) if g is not None else None
+                 for g in res["widths"][tp]["peak_gib"]]))
+    launched = [r["kernel_launches"] for r in ranks]
+    check(all(r["paged"] == 0 and not any(r["flash"].values())
+              for r in launched),
+          "16: the contiguous TP decode launched a kernel: {}".format(
+              launched))
+    res["kernel_launches"] = launched[0]
+    res["bytes_per_token_megatron"] = want_bytes
+    res["wall_s"] = time.monotonic() - t_phase
+    log("tp decode phase: wall {:.1f}s".format(res["wall_s"]))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -5731,6 +6045,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     rec = recovery_phase(torch, dev, train, here)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tpd = tp_decode_phase(torch, here)
     t = timing["decode"][False]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -5900,6 +6217,7 @@ def main():
                        "fleet": fleet_res,
                        "supervised": sup_res,
                        "recovery": rec,
+                       "tp_decode": tpd,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     log("total: {:.1f}s".format(time.monotonic() - t_start))
     print(json.dumps(kernels))

@@ -2777,12 +2777,18 @@ class FleetRouter(object):
                     return True
 
             def do_POST(self):
+                # read the body before any reply, a refusal too: a
+                # connection closed with unread request bytes is reset,
+                # and the reset can overtake the reply
+                try:
+                    n = int(self.headers.get("Content-Length", "0"))
+                except ValueError:
+                    n = 0
+                raw = (self.rfile.read(n) if n > 0 else b"") or b"{}"
                 if self.path != "/v1/models/%s:generate" % router.name:
                     return self._send_json(
                         404, {"error": "not found: %s" % self.path})
                 try:
-                    n = int(self.headers.get("Content-Length", "0"))
-                    raw = self.rfile.read(n) or b"{}"
                     status, body, retry_after = router.dispatch(
                         raw, client_gone=self._client_gone)
                     headers = {} if retry_after is None \

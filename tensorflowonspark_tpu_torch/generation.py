@@ -100,17 +100,38 @@ def _pick_tokens(logits, generator, temperature, top_k, top_p):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def _rank_heads(model):
+    """How many heads one rank of ``model`` attends: ``N``, or ``N / tp``
+    for a model whose q/k/v weights are split over a mesh
+    (``parallel.sharding.head_shards``)."""
+    if not _distributed(model):
+        return model.num_heads
+    from tensorflowonspark_tpu_torch.parallel import sharding
+
+    return model.num_heads // sharding.head_shards(model.blocks[0].attn).tp
+
+
+def _distributed(model):
+    """Whether ``model``'s parameters are DTensors laid out on a mesh
+    (``parallel.sharding.distribute_params``)."""
+    return getattr(next(model.parameters()), "device_mesh", None) \
+        is not None
+
+
 def init_cache(model, batch, total_len, device=None):
     """Fresh contiguous cache for ``batch`` sequences of up to
     ``total_len`` tokens: per layer ``{"cached_key", "cached_value"}``
     float32 zeros ``[batch, total_len, N, D]`` and ``"cache_index"``, the
     per-row write cursor, int32 zeros ``[batch]`` (on ``device``, else
-    the model's)."""
+    the model's). For a model whose heads are split over ``tp`` ranks
+    (``DECODER_TP_RULES``), each rank's cache holds its ``N / tp``
+    heads."""
     if int(total_len) > model.max_len:
         raise ValueError("total_len {} exceeds model.max_len {}".format(
             total_len, model.max_len))
     dev = device if device is not None else next(model.parameters()).device
-    shape = (int(batch), int(total_len), model.num_heads, model.head_dim)
+    shape = (int(batch), int(total_len), _rank_heads(model),
+             model.head_dim)
     return [{"cached_key": torch.zeros(shape, dtype=torch.float32,
                                        device=dev),
              "cached_value": torch.zeros(shape, dtype=torch.float32,
@@ -133,11 +154,31 @@ def generate(model, prompt, max_new_tokens, temperature=0.0,
     from ``generator`` (a seeded ``torch.Generator`` on the device).
     ``eos_token`` freezes a row once emitted: its later positions are
     ``pad_token``. Runs on ``device`` (None: the card; ``"cpu"`` must
-    be asked for), where the model is moved."""
+    be asked for), where the model is moved.
+
+    A model laid out on a mesh (``parallel.sharding.distribute_params``,
+    ``DECODER_TP_RULES``) decodes with no other argument: every rank of
+    the mesh calls ``generate`` with the same prompt, each keeps its
+    heads' cache, and the logits come out replicated. Such a model is
+    not moved: its mesh must live on ``device``. Every rank must pick
+    the same tokens — at temperature 0 the replicated logits see to
+    it; sampling needs each rank's ``generator`` seeded alike, and each
+    step's picks are checked across the mesh (an all-reduce of ``2 B``
+    int64 a mesh dim), raising if they differ."""
     from tensorflowonspark_tpu_torch import device_info
 
     dev = device_info.default_device(device)
-    model = model.to(dev).eval()
+    distributed = _distributed(model)
+    if distributed:
+        mesh_dev = next(model.parameters()).device_mesh.device_type
+        if torch.device(mesh_dev).type != dev.type:
+            raise ValueError(
+                "the model's mesh lives on {!r}, generate was asked for "
+                "{}: a distributed model is not moved".format(mesh_dev,
+                                                              dev))
+        model = model.eval()
+    else:
+        model = model.to(dev).eval()
     prompt = torch.as_tensor(prompt, dtype=torch.int32,
                              device=dev)
     b, s = prompt.shape
@@ -153,13 +194,16 @@ def generate(model, prompt, max_new_tokens, temperature=0.0,
     if max_new == 0:
         return prompt
     cache = init_cache(model, b, model.max_len, device=dev)
+    forward = cached_forward(model)
     logits = None
     for col in range(s):
-        logits = model(prompt[:, col:col + 1], cache)[:, -1, :]
+        logits = forward(prompt[:, col:col + 1], cache)[:, -1, :]
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     new = []
     for step in range(max_new):
         token = _pick_tokens(logits, generator, temperature, top_k, top_p)
+        if distributed and temperature:
+            _check_same_picks(model, token)
         if eos_token is not None:
             # pick_frozen: a finished row emits pad and stays finished
             token = torch.where(done, torch.full_like(token, pad_token),
@@ -167,8 +211,47 @@ def generate(model, prompt, max_new_tokens, temperature=0.0,
             done = done | (token == int(eos_token))
         new.append(token)
         if step < max_new - 1:
-            logits = model(token[:, None], cache)[:, -1, :]
+            logits = forward(token[:, None], cache)[:, -1, :]
     return torch.cat([prompt, torch.stack(new, dim=1)], dim=1)
+
+
+def cached_forward(model):
+    """``model``'s cached forward ``(tokens, cache) -> logits`` on plain
+    tensors: ``model`` itself, or for parameters laid out as DTensors
+    (``parallel.sharding.distribute_params``) a wrapper in which the
+    plain token and cursor tensors meet them as replicated
+    (``implicit_replication``, as the sharded Trainer step runs) and the
+    replicated logits come back as this rank's plain tensor."""
+    if not _distributed(model):
+        return model
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def forward(tokens, cache):
+        with implicit_replication():
+            logits = model(tokens, cache)
+        return logits.to_local() if hasattr(logits, "to_local") else logits
+
+    return forward
+
+
+def _check_same_picks(model, token):
+    """Raise unless every rank of ``model``'s mesh picked ``token``: an
+    all-reduce (MAX) of ``[token, -token]`` over each mesh dim, whose
+    two halves then agree only when every rank's picks do. All-reduces,
+    not an all-gather, so a gloo group over CUDA tensors runs them."""
+    import torch.distributed as dist
+
+    mesh = next(model.parameters()).device_mesh
+    both = torch.cat([token, -token]).to(torch.int64)
+    for dim in range(mesh.ndim):
+        if mesh.size(dim) > 1:
+            dist.all_reduce(both, op=dist.ReduceOp.MAX,
+                            group=mesh.get_group(dim))
+    hi, neg_lo = both.chunk(2)
+    if not torch.equal(hi, -neg_lo):
+        raise RuntimeError(
+            "the ranks of the mesh picked different tokens: seed every "
+            "rank's generator alike to sample under tensor parallelism")
 
 
 #: the reference's jitted entry point; eager PyTorch compiles nothing,

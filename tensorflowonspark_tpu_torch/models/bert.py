@@ -112,6 +112,8 @@ class SelfAttention(nn.Module):
             ctx = fa.flash_attention(q, k, v, key_mask=mask, scale=scale,
                                      block_q=block, block_k=block,
                                      impl=attn_impl)
+        elif getattr(q, "placements", None) is not None:
+            ctx = self._head_major(q, k, v, mask, scale)
         else:
             # [B, N, S, S] logits in float32 (bf16 products are exact in
             # float32), -inf at padded keys
@@ -124,6 +126,23 @@ class SelfAttention(nn.Module):
             probs = self.dropout(probs)
             ctx = torch.einsum("bnst,btnd->bsnd", probs, v)
         return self.out(ctx.reshape(b, s, n * d))
+
+    def _head_major(self, q, k, v, mask, scale):
+        """The einsum branch for DTensor q/k/v (``BERT_TP_RULES``), with
+        the head axis leading: ``[N, B, S, D]`` batched products fold
+        their batch dims from the head axis on, so heads sharded over a
+        mesh fold without a redistribution (torch 2.11's DTensor refuses
+        to flatten ``[B, N]`` with N sharded, as the einsums' products
+        do). The same float32 logits, mask, softmax and dropout."""
+        qh, kh, vh = (t.permute(2, 0, 1, 3) for t in (q, k, v))
+        logits = torch.matmul(qh.float(),
+                              kh.float().transpose(-1, -2)) * scale
+        if mask is not None:
+            logits = logits.masked_fill(~mask[None, :, None, :],
+                                        float("-inf"))
+        probs = self.dropout(
+            _softmax_neginf_safe(logits).to(self.config.dtype))
+        return torch.matmul(probs, vh).permute(1, 2, 0, 3)
 
 
 class TransformerLayer(nn.Module):
@@ -141,11 +160,25 @@ class TransformerLayer(nn.Module):
         self.dropout = nn.Dropout(cfg.dropout_rate)
 
     def forward(self, x, mask, attn_impl=None):
-        attn = self.dropout(self.attention(x, mask, attn_impl))
+        attn = self.dropout(_summed(self.attention(x, mask, attn_impl)))
         x = self.ln_attn((x + attn).float())
         h = F.gelu(self.ffn_in(x), approximate="tanh")
-        h = self.dropout(self.ffn_out(h))
+        h = self.dropout(_summed(self.ffn_out(h)))
         return self.ln_ffn((x + h).float())
+
+
+def _summed(y):
+    """``y`` with any partial sum over a mesh dim reduced (a DTensor out
+    of a TP down-projection, ``BERT_TP_RULES``): dropout has no strategy
+    for a partial sum, and the residual add would reduce it next anyway,
+    so this moves no extra bytes. Anything else comes back as it is."""
+    placements = getattr(y, "placements", None)
+    if not placements or not any(p.is_partial() for p in placements):
+        return y
+    from torch.distributed.tensor import Replicate
+
+    return y.redistribute(placements=[Replicate() if p.is_partial() else p
+                                      for p in placements])
 
 
 class BertEncoder(nn.Module):

@@ -14,7 +14,12 @@ whether a cache is passed:
   ``generation.generate`` and the ``kv_block_size=0`` engine): per
   layer ``[B, L, N, D]`` K/V and a ``cache_index`` ``[B]`` cursor; a
   call writes at each row's cursor and attends the whole row under
-  ``arange(L) <= pos``, with two einsums, as the reference does.
+  ``arange(L) <= pos``, with two einsums, as the reference does. With
+  parameters laid out on a mesh by ``parallel.sharding.DECODER_TP_RULES``
+  each rank attends its ``N / tp`` heads in its own ``[B, L, N / tp,
+  D]`` cache, and one all-reduce after ``attn.out`` and one after
+  ``mlp_out`` make each block's output replicated (the megatron split;
+  the paged path refuses such a model).
 - **paged decode** (``model(tokens, cache, idx, tables)``, serving):
   every call writes the step's K/V for logical positions ``[idx, idx +
   s)`` through the block table into the layer's pool, then attends
@@ -77,6 +82,14 @@ class CausalSelfAttention(nn.Module):
                              "{!r}".format(attn_impl))
         b, s, h = x.shape
         n, d = self.num_heads, self.head_dim
+        if layer_cache is not None and _distributed(self.query.weight):
+            if tables is not None:
+                raise ValueError(
+                    "the paged cache does not take a tensor-parallel "
+                    "model: TP decode runs through the contiguous cache "
+                    "(generation.generate); TP through the paged engine "
+                    "is not in the reference")
+            return self._contiguous_sharded(x, layer_cache, pos)
         q = self.query(x).view(b, s, n, d)
         k = self.key(x).view(b, s, n, d)
         v = self.value(x).view(b, s, n, d)
@@ -125,6 +138,34 @@ class CausalSelfAttention(nn.Module):
         return self.out(ctx.reshape(b, s, n * d))
 
 
+    def _contiguous_sharded(self, x, layer_cache, pos):
+        """The contiguous cached branch for parameters laid out as
+        DTensors (``parallel.sharding.distribute_params`` with
+        ``DECODER_TP_RULES``), in the megatron pattern: the sharded
+        ``query`` / ``key`` / ``value`` give this rank's ``N / tp``
+        heads (the local part of their ``Shard(-1)`` outputs), which
+        are written and attended in this rank's ``[B, L, N / tp, D]``
+        cache by :meth:`_contiguous`; the context re-enters DTensor
+        sharded on its heads, so ``out`` (its columns sharded) makes a
+        partial sum that one all-reduce makes replicated. With ``tp``
+        1 (q/k/v replicated) every rank attends all heads."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        from tensorflowonspark_tpu_torch.parallel import sharding
+
+        lay = sharding.head_shards(self)
+        b, s, _ = x.shape
+        n, d = self.num_heads // lay.tp, self.head_dim
+        mesh = self.query.weight.device_mesh
+        heads = [Replicate()] * mesh.ndim
+        if lay.dim is not None:
+            heads[lay.dim] = Shard(2)
+        q, k, v = (_local_heads(proj(x), heads).reshape(b, s, n, d)
+                   for proj in (self.query, self.key, self.value))
+        ctx = self._contiguous(q, k, v, layer_cache, pos)
+        return self.out(DTensor.from_local(ctx.reshape(b, s, n * d), mesh,
+                                           heads, run_check=False))
+
     def _contiguous(self, q, k, v, layer_cache, pos):
         """The reference's two unpaged cached branches
         (``decoder.py:232-285``) as one: write this call's K/V at each
@@ -138,6 +179,11 @@ class CausalSelfAttention(nn.Module):
         them."""
         ck = layer_cache["cached_key"]
         cv = layer_cache["cached_value"]
+        if ck.shape[2] != q.shape[2]:
+            raise ValueError(
+                "the cache holds {} heads a layer where this rank attends "
+                "{}: size it with generation.init_cache on the model as "
+                "laid out".format(ck.shape[2], q.shape[2]))
         b, s = pos.shape
         max_len = ck.shape[1]
         rows = torch.arange(b, device=pos.device)[:, None].expand(b, s)
@@ -153,6 +199,21 @@ class CausalSelfAttention(nn.Module):
                              torch.finfo(torch.float32).min)
         probs = torch.softmax(logits, dim=-1).to(cv.dtype)
         return torch.einsum("bnqk,bknd->bqnd", probs, cv).to(q.dtype)
+
+
+def _distributed(weight):
+    """Whether ``weight`` is a DTensor (laid out on a mesh)."""
+    return getattr(weight, "device_mesh", None) is not None
+
+
+def _local_heads(y, placements):
+    """This rank's part of a q/k/v projection ``y`` (a DTensor): its
+    local tensor, once its placements are the expected head split."""
+    if tuple(y.placements) != tuple(placements):
+        raise ValueError("a q/k/v projection came out as {}, not the head "
+                         "split {}".format(tuple(y.placements),
+                                           tuple(placements)))
+    return y.to_local()
 
 
 class DecoderBlock(nn.Module):

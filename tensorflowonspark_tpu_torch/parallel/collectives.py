@@ -17,10 +17,15 @@ blocks in a rank's graph, so every rank runs every shift's backward (a
 P2P backward that one rank skips would leave its neighbours waiting).
 
 On a one-rank group each of them is the identity, with no communication.
+
+:class:`CollectiveRecorder` measures: the calls and payload bytes of each
+collective family issued in its scope (DTensor's and these functions'),
+for ``tp_scaling_model`` and the smoke's TP decode phase.
 """
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def _size(group):
@@ -124,3 +129,87 @@ def axis_of(mesh, axis):
         raise ValueError("mesh axes {} have no {!r} axis".format(names, axis))
     return (mesh.shape[names.index(axis)], mesh.get_local_rank(axis),
             mesh.get_group(axis))
+
+
+#: collective family of each c10d / functional-collective op (by its
+#: op name, the namespace dropped): what :class:`CollectiveRecorder` counts
+_FAMILIES = {
+    "all_reduce": "all_reduce", "all_reduce_": "all_reduce",
+    "all_reduce_coalesced": "all_reduce",
+    "all_reduce_coalesced_": "all_reduce",
+    "allreduce_": "all_reduce", "allreduce_coalesced_": "all_reduce",
+    "all_gather_into_tensor": "all_gather",
+    "all_gather_into_tensor_coalesced": "all_gather",
+    "all_gather_into_tensor_out": "all_gather",
+    "allgather_": "all_gather", "_allgather_base_": "all_gather",
+    "allgather_coalesced_": "all_gather",
+    "allgather_into_tensor_coalesced_": "all_gather",
+    "reduce_scatter_tensor": "reduce_scatter",
+    "reduce_scatter_tensor_coalesced": "reduce_scatter",
+    "reduce_scatter_": "reduce_scatter",
+    "_reduce_scatter_base_": "reduce_scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce_scatter",
+    "all_to_all_single": "all_to_all", "alltoall_": "all_to_all",
+    "alltoall_base_": "all_to_all",
+    "send": "send_recv", "recv_": "send_recv",
+    "recv_any_source_": "send_recv",
+    "broadcast": "broadcast", "broadcast_": "broadcast",
+    "scatter_": "scatter", "gather_": "gather", "reduce_": "reduce",
+}
+
+
+def _nbytes(x):
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(e) for e in x)
+    return 0
+
+
+class CollectiveRecorder(TorchDispatchMode):
+    """``with CollectiveRecorder() as rec: ...`` counts, per collective
+    family (``all_reduce``, ``all_gather``, ``reduce_scatter``,
+    ``all_to_all``, ``send_recv``, ``broadcast``, ...), the calls
+    (``ops``) and payload bytes (``bytes``) of every collective issued
+    in its scope on this thread and its autograd backward: DTensor's
+    redistributions (functional collectives) and ``torch.distributed``'s
+    own calls (the c10d ops this module's functions make). ``bytes`` is
+    the collective's OUTPUT as the reference's HLO count reads it: the
+    reduced tensor of an all-reduce, the gathered tensor of an
+    all-gather, the tensors sent or received point to point. A ring's
+    own traffic (``2 (n - 1) / n`` of an all-reduce's payload on the
+    wire) is not modelled.
+
+    A measurement tool: it is a ``TorchDispatchMode``, active only
+    inside its ``with``, and nothing on the main path enters one.
+    DTensor operations are let through first (``NotImplemented``), so
+    the recorder sees the collectives they turn into."""
+
+    def __init__(self):
+        super(CollectiveRecorder, self).__init__()
+        self.families = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        packet = getattr(func, "_overloadpacket", None)
+        ns = getattr(func, "namespace", "")
+        family = _FAMILIES.get(getattr(packet, "__name__", "")) \
+            if ns in ("c10d", "_c10d_functional") else None
+        if family is not None:
+            # the functional ops return their output; c10d's in-place
+            # ops take it as their first argument
+            n = _nbytes(out) if ns == "_c10d_functional" \
+                else _nbytes(args[0] if args else ())
+            rec = self.families.setdefault(family, {"ops": 0, "bytes": 0})
+            rec["ops"] += 1
+            rec["bytes"] += n
+        return out
+
+    @property
+    def total_bytes(self):
+        return sum(f["bytes"] for f in self.families.values())

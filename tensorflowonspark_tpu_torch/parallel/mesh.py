@@ -217,7 +217,10 @@ def _ensure_group(device=None):
     """The default process group, started as a one-rank group when none
     is initialized (NCCL on the card, gloo on the CPU; ``device`` as
     :func:`device_info.default_device` takes it). Returns the mesh's
-    device type, from the group's backend."""
+    device type: the group's backend's (NCCL's card, gloo's CPU), but
+    ``"cuda"`` for a gloo group asked for a CUDA ``device`` — ranks
+    sharing one card, as ``chip_smoke.py``'s TP decode phase runs them
+    until a 4-card NCCL cell replaces that setup (then this goes)."""
     import datetime
 
     import torch.distributed as dist
@@ -235,7 +238,15 @@ def _ensure_group(device=None):
             init_method="tcp://127.0.0.1:{}".format(util.find_free_port()),
             world_size=1, rank=0,
             timeout=datetime.timedelta(seconds=RENDEZVOUS_TIMEOUT))
-    return "cuda" if "nccl" in str(dist.get_backend()) else "cpu"
+    backend = str(dist.get_backend())
+    if "nccl" in backend:
+        return "cuda"
+    if backend == "gloo" and device is not None:
+        import torch
+
+        # ranks sharing one card: gloo over CUDA tensors
+        return torch.device(device).type
+    return "cpu"
 
 
 def _device_mesh(device_type, ranks, names, sizes):
@@ -257,6 +268,11 @@ def build_mesh(axis_shapes=None, devices=None, device=None):
         the default group).
       device: with no process group initialized, the device of the
         one-rank group this call starts (the card unless ``"cpu"``).
+        Over an existing group the mesh takes the backend's device
+        (NCCL's card, gloo's CPU), except that a gloo group asked for
+        ``"cuda"`` lays its mesh on the card: ranks that share one card,
+        which NCCL refuses (only for that, until a 4-card NCCL cell
+        replaces it).
 
     Every rank of the group must call it with the same arguments: the
     mesh's per-axis sub-groups are formed collectively. With no group

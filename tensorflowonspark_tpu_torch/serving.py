@@ -3133,6 +3133,21 @@ class ModelServer(object):
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _read_body(self):
+                """The request's body, read whole once. Every reply to a
+                POST, a refusal too, comes after it: a connection closed
+                with unread request bytes is reset, and the reset can
+                overtake the reply still in the send queue, so the client
+                reads part of the reply and then a reset. A malformed
+                ``Content-Length`` reads as no body."""
+                if self._body is None:
+                    try:
+                        n = int(self.headers.get("Content-Length", "0"))
+                    except ValueError:
+                        n = 0
+                    self._body = self.rfile.read(n) if n > 0 else b""
+                return self._body
+
             def _client_gone(self):
                 """True once the client closed its connection."""
                 import select
@@ -3152,12 +3167,7 @@ class ModelServer(object):
                 naming the ring the shipment sits in (co-hosted). The
                 rows are zero-copy views, so the splice runs before the
                 ring slot is released."""
-                try:
-                    n = int(self.headers.get("Content-Length", "0"))
-                except ValueError:
-                    n = 0
-                # consume the body first, on refusal paths too
-                body = self.rfile.read(n) if n else b""
+                body = self._read_body()
                 if server._fenced is not None:
                     return self._send(
                         410, {"error": "replica is fenced: "
@@ -3229,6 +3239,8 @@ class ModelServer(object):
                 with server._inflight_lock:
                     server._inflight += 1
                 try:
+                    self._body = None
+                    self._read_body()
                     return self._do_post_tracked()
                 finally:
                     with server._inflight_lock:
@@ -3259,8 +3271,7 @@ class ModelServer(object):
                                   "kind": "ControlFenced",
                                   "control_epoch": floor})
                 try:
-                    n = int(self.headers.get("Content-Length", "0"))
-                    payload = json.loads(self.rfile.read(n) or b"{}")
+                    payload = json.loads(self._read_body() or b"{}")
                     return self._send(200, fn(payload or {}))
                 except (_BadRequest, ValueError) as e:
                     # malformed JSON or a missing field: the caller's
@@ -3307,8 +3318,7 @@ class ModelServer(object):
                               "status": "draining", "kind": "Draining"},
                         headers={"Retry-After": "5"})
                 try:
-                    n = int(self.headers.get("Content-Length", "0"))
-                    payload = json.loads(self.rfile.read(n) or b"{}")
+                    payload = json.loads(self._read_body() or b"{}")
                     return self._send(200, handler(payload))
                 except (_BadRequest, json.JSONDecodeError) as e:
                     return self._send(400, {"error": str(e)})

@@ -431,6 +431,16 @@ class Supervisor(object):
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
+        # one last read of the leases: a milestone whose beat landed
+        # after the monitor's last poll — a job's last step, carried only
+        # by its node's final synchronous beat when the job ends right
+        # after it — would otherwise never reach the event log, leaving
+        # the MTTR stages without their first post-restore step
+        if self.server is not None:
+            try:
+                self._track_recovery(self.server.lease_snapshot())
+            except Exception:  # noqa: BLE001 - the log is best-effort
+                logger.debug("final lease read failed", exc_info=True)
 
     def _loop(self):
         while not self._stop.is_set():

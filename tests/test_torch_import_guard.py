@@ -35,7 +35,7 @@ EXAMPLES = os.path.join(PORT, "examples")
 #: the parallel package's modules
 PARALLEL = ("parallel/__init__", "parallel/mesh", "parallel/collectives",
             "parallel/sharding", "parallel/ring_attention", "parallel/moe",
-            "parallel/pipeline")
+            "parallel/pipeline", "tp_scaling_model")
 #: the model zoo's modules, the weight bridge and the serving module
 MODELS = ("models/__init__", "models/_layers", "models/lenet",
           "models/resnet", "models/bert", "models/widedeep",
@@ -699,7 +699,8 @@ def test_parallel_and_its_examples_run_with_jax_unimportable(tmp_path):
     be imported: the parallel package imports without starting a process
     group, the 4-way lockstep ring trains a step's gradients, the
     long-context driver learns on a one-rank ring (a gloo group it starts
-    and ends), MoE and the pipeline run on one-rank meshes, and the
+    and ends), MoE, the pipeline and TP decode run on one-rank meshes
+    (the decode step's traffic recorded: none on one rank), and the
     Criteo driver trains on one executor and exports its int8 model."""
     res = _run("""
         import json, os, sys
@@ -737,6 +738,19 @@ def test_parallel_and_its_examples_run_with_jax_unimportable(tmp_path):
         ys = pipeline.pipeline_apply(lambda p, h: torch.tanh(h @ p), w, xs,
                                      smesh)
         assert torch.allclose(ys, torch.tanh(xs @ w))
+        # TP decode on a one-rank model axis, its step's traffic recorded
+        from tensorflowonspark_tpu_torch import generation, tp_scaling_model
+        from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+        lm = DecoderLM(32, hidden=16, num_heads=2, num_layers=2, max_len=16)
+        lm.init_weights(torch.Generator().manual_seed(0))
+        want = generation.generate(lm, [[1, 2, 3]], 4, device="cpu")
+        sharding.distribute_params(
+            lm, par.build_mesh({"model": 1}, device="cpu"),
+            sharding.DECODER_TP_RULES)
+        assert torch.equal(generation.generate(lm, [[1, 2, 3]], 4,
+                                               device="cpu"), want)
+        assert tp_scaling_model.decode_step_traffic(
+            lm, [[1, 2, 3]], device="cpu")["bytes"] == 0
         dist.destroy_process_group()
 
         from tensorflowonspark_tpu_torch.examples.criteo import criteo_spark

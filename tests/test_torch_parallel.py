@@ -11,7 +11,10 @@ seeds. Tolerances are stated at each check.
 """
 
 import datetime
+import functools
+import json
 import os
+import re
 import time
 import types
 
@@ -231,7 +234,108 @@ def _tiny_bert():
     return model.eval(), cfg
 
 
-def _worker_four(rank, world, port, out_dir, moe_in, pipe_in):
+#: the reference decode test's sizes (tests/test_generation.py)
+DEC_V, DEC_H, DEC_NH, DEC_L, DEC_MAXLEN, DEC_NEW = 17, 32, 4, 2, 32, 5
+#: the decode meshes, each over the 4 ranks
+DEC_MESHES = ({"data": 2, "model": 2}, {"data": 1, "model": 4})
+
+
+def _mesh_key(shape):
+    return "{}x{}".format(shape["data"], shape["model"])
+
+
+def _tp_decode(rank, dec_in, out_dir):
+    """TP decode on this rank (4 gloo ranks): the port DecoderLM on the
+    flax weights, replicated and laid out by DECODER_TP_RULES on each of
+    DEC_MESHES, decoded greedily and sampled; one decode step's
+    collectives recorded; the 2-head model at tp 4 (q/k/v replicated);
+    and the paged branch's refusal."""
+    import copy
+
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch import generation, tp_scaling_model
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+    from tensorflowonspark_tpu_torch.parallel import build_mesh
+    from tensorflowonspark_tpu_torch.parallel.collectives import (
+        CollectiveRecorder)
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    state, prompt = dec_in
+    base = DecoderLM(DEC_V, hidden=DEC_H, num_heads=DEC_NH,
+                     num_layers=DEC_L, max_len=DEC_MAXLEN)
+    base.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    out = {"replicated": generation.generate(
+        base, prompt, DEC_NEW, device="cpu").numpy()}
+    base_step = tp_scaling_model.decode_step_traffic(base, prompt,
+                                                     device="cpu")
+    for shape in DEC_MESHES:
+        m = sharding.distribute_params(
+            copy.deepcopy(base), build_mesh(shape, device="cpu"),
+            sharding.DECODER_TP_RULES)
+        q = m.blocks[0].attn.query.weight
+        got = {"tokens": generation.generate(m, prompt, DEC_NEW,
+                                             device="cpu").numpy(),
+               "query_model_placement": str(q.placements[1]),
+               "query_row_split": q.placements[1].is_shard(0)
+               and q.placements[0].is_replicate(),
+               "cache_heads": generation.init_cache(m, 2, DEC_MAXLEN)[0][
+                   "cached_key"].shape[2],
+               "step": tp_scaling_model.decode_step_traffic(m, prompt,
+                                                            device="cpu")}
+        got["step"]["logits"] = (got["step"]["logits"]
+                                 - base_step["logits"]).abs().max().item()
+        # seeded alike on every rank: the same draws
+        got["sampled"] = generation.generate(
+            m, prompt, DEC_NEW, temperature=0.8, device="cpu",
+            generator=torch.Generator().manual_seed(11)).numpy()
+        out[_mesh_key(shape)] = got
+    # seeded differently: the picks' check raises on every rank
+    try:
+        generation.generate(m, prompt, DEC_NEW, temperature=5.0,
+                            device="cpu",
+                            generator=torch.Generator().manual_seed(
+                                100 + rank))
+        out["mismatch_raised"] = False
+    except RuntimeError as e:
+        out["mismatch_raised"] = "different tokens" in str(e)
+    # the paged branch refuses a TP model
+    tables = torch.ones((2, 2), dtype=torch.int32)
+    layer = {"cached_key": torch.zeros(3, 16, DEC_NH, DEC_H // DEC_NH),
+             "cached_value": torch.zeros(3, 16, DEC_NH, DEC_H // DEC_NH)}
+    try:
+        with torch.no_grad(), implicit_replication():
+            m(torch.zeros((2, 1), dtype=torch.int32), [layer] * DEC_L,
+              torch.zeros(2, dtype=torch.int32), tables)
+        out["paged_refused"] = None
+    except ValueError as e:
+        out["paged_refused"] = str(e)
+    # the recorder counts the port's own torch.distributed calls too
+    with CollectiveRecorder() as rec:
+        dist.all_reduce(torch.ones(3))
+    out["c10d_recorded"] = rec.families
+    # 2 heads at tp 4: q/k/v replicate (whole heads only), the MLP splits
+    two = DecoderLM(DEC_V, hidden=DEC_H, num_heads=2, num_layers=DEC_L,
+                    max_len=DEC_MAXLEN)
+    two.init_weights(torch.Generator().manual_seed(3), std=0.3)
+    want = generation.generate(two, prompt, DEC_NEW, device="cpu")
+    sharding.distribute_params(two, build_mesh({"data": 1, "model": 4},
+                                               device="cpu"),
+                               sharding.DECODER_TP_RULES)
+    out["two_heads"] = {
+        "equal": torch.equal(generation.generate(two, prompt, DEC_NEW,
+                                                 device="cpu"), want),
+        "query_replicated": all(
+            p.is_replicate() for p in two.blocks[0].attn.query.weight
+            .placements),
+        "mlp_in_split": two.blocks[0].mlp_in.weight.placements[1]
+        .is_shard(0),
+        "cache_heads": generation.init_cache(two, 2, DEC_MAXLEN)[0][
+            "cached_key"].shape[2]}
+    return out
+
+
+def _worker_four(rank, world, port, out_dir, moe_in, pipe_in, dec_in):
     from torch.distributed.tensor import DTensor
 
     from tensorflowonspark_tpu_torch import training
@@ -271,12 +375,19 @@ def _worker_four(rank, world, port, out_dir, moe_in, pipe_in):
     ids = torch.arange(32).reshape(2, 16) % cfg.vocab_size
     with torch.no_grad():
         want = model(ids)
+        cfg.use_flash = False       # the einsum branch
+        want_e = model(ids)
+        cfg.use_flash = True
     sharding.distribute_params(model, mesh, sharding.BERT_TP_RULES)
     from torch.distributed.tensor.experimental import implicit_replication
     with torch.no_grad(), implicit_replication():
         got = model(ids)
+        cfg.use_flash = False       # DTensor q/k/v: head-major
+        got_e = model(ids)
+        cfg.use_flash = True
     res["tp_bert"] = ((got.full_tensor() - want).abs().max().item(),
-                      tuple(model.bert.layer_0.ffn_in.weight.placements))
+                      tuple(model.bert.layer_0.ffn_in.weight.placements),
+                      (got_e.full_tensor() - want_e).abs().max().item())
 
     # the embedding lookup on a row-sharded table == the replicated table
     table = torch.nn.Embedding(64, 8)
@@ -309,6 +420,7 @@ def _worker_four(rank, world, port, out_dir, moe_in, pipe_in):
         "is_dtensor": isinstance(table, DTensor),
         "world_size": trainer.world_size}
     res["inferred"] = tuple(build_mesh({"data": -1, "model": 2}).shape)
+    res["tp_decode"] = _tp_decode(rank, dec_in, out_dir)
     _save(out_dir, rank, res)
 
 
@@ -321,7 +433,8 @@ def two_ranks(tmp_path_factory):
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("four")
-    return _spawn(_worker_four, 4, out, _moe_inputs(), _pipe_inputs())
+    return _spawn(_worker_four, 4, out, _moe_inputs(), _pipe_inputs(),
+                  _decoder_inputs())
 
 
 # -- what the ranks showed ------------------------------------------------
@@ -445,11 +558,167 @@ def test_pipeline_apply_matches_jax(four_ranks):
 def test_tp_forward_matches_replicated(four_ranks):
     """BERT-tiny's forward with BERT_TP_RULES params on a {"data": 2,
     "model": 2} mesh equals the replicated forward within the
-    reference's 1e-2 (bfloat16 products summed in another order)."""
+    reference's 1e-2 (bfloat16 products summed in another order), on
+    the flash branch and on the einsum branch (head-major under
+    DTensor)."""
     for r in four_ranks:
-        err, placements = r["tp_bert"]
+        err, placements, err_einsum = r["tp_bert"]
         assert err <= 1e-2, err
+        assert err_einsum <= 1e-2, err_einsum
         assert placements[1].is_shard(0)
+
+
+@functools.lru_cache(maxsize=None)
+def _decoder_flax():
+    """The reference decode test's flax DecoderLM (``PRNGKey(0)``) and
+    its prompt (``RandomState(5)``, ``(2, 6)``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from tensorflowonspark_tpu.models.decoder import DecoderLM
+
+    params = DecoderLM(vocab=DEC_V, hidden=DEC_H, num_heads=DEC_NH,
+                       num_layers=DEC_L, max_len=DEC_MAXLEN,
+                       decode=False).init(
+        jax.random.PRNGKey(0), jnp.zeros((2, DEC_MAXLEN), jnp.int32))[
+            "params"]
+    prompt = np.random.RandomState(5).randint(0, DEC_V, (2, 6)).astype(
+        np.int32)
+    return params, prompt
+
+
+def _decoder_inputs():
+    """The spawn's decoder weights (through ``convert.from_flax``, as
+    numpy) and prompt."""
+    from tensorflowonspark_tpu_torch import convert
+
+    params, prompt = _decoder_flax()
+    return ({k: v.numpy() for k, v in convert.from_flax(params).items()},
+            prompt)
+
+
+def test_tp_decode_matches_replicated_and_jax(four_ranks):
+    """generate of the port DecoderLM laid out by DECODER_TP_RULES on
+    {"data": 2, "model": 2} and {"data": 1, "model": 4} (4 gloo ranks)
+    gives, on every rank, bitwise the tokens of the port's replicated
+    generate and of the JAX package's replicated generate on the same
+    flax weights (temperature 0, the reference test's sizes); each
+    rank's query weight is Shard(0) on ``model`` and its cache holds
+    4 / tp heads."""
+    from tensorflowonspark_tpu import generation as jgen
+    from tensorflowonspark_tpu.models.decoder import DecoderLM
+
+    params, prompt = _decoder_flax()
+    decode_model = DecoderLM(vocab=DEC_V, hidden=DEC_H, num_heads=DEC_NH,
+                             num_layers=DEC_L, max_len=DEC_MAXLEN,
+                             decode=True)
+    want = np.asarray(jgen.generate(decode_model, params, prompt, DEC_NEW))
+    for r in four_ranks:
+        got = r["tp_decode"]
+        np.testing.assert_array_equal(got["replicated"], want)
+        for shape in DEC_MESHES:
+            m = got[_mesh_key(shape)]
+            np.testing.assert_array_equal(m["tokens"], want,
+                                          err_msg=str(shape))
+            assert m["query_row_split"], m["query_model_placement"]
+            assert m["cache_heads"] == DEC_NH // shape["model"]
+
+
+def test_tp_decode_sampling_agrees_across_ranks(four_ranks):
+    """At temperature 0.8 with every rank's generator seeded alike, all
+    4 ranks draw the same tokens on both meshes (the JAX PRNG differs by
+    construction, so no JAX comparison); seeded differently, the picks'
+    check raises on every rank instead of decoding apart."""
+    for shape in DEC_MESHES:
+        key = _mesh_key(shape)
+        first = four_ranks[0]["tp_decode"][key]["sampled"]
+        assert first.shape == (2, 6 + DEC_NEW)
+        for r in four_ranks:
+            np.testing.assert_array_equal(r["tp_decode"][key]["sampled"],
+                                          first)
+    assert all(r["tp_decode"]["mismatch_raised"] for r in four_ranks)
+
+
+def test_tp_decode_two_heads_at_tp4_replicates_heads(four_ranks):
+    """2 heads on {"data": 1, "model": 4}: whole heads do not divide, so
+    q/k/v stay replicated (each rank's cache holds both heads) while the
+    MLP still splits, and the tokens equal the replicated run's."""
+    for r in four_ranks:
+        two = r["tp_decode"]["two_heads"]
+        assert two["equal"] and two["query_replicated"]
+        assert two["mlp_in_split"] and two["cache_heads"] == 2
+
+
+def test_tp_decode_step_traffic_is_megatron(four_ranks):
+    """One decode step moves exactly the megatron count on both meshes:
+    2 all-reduces a layer (after attn.out and mlp_out) of the float32
+    [B, 1, H] partial sums, 2 x L x B x H x 4 bytes, and no all-gather;
+    the recorder counts the port's own torch.distributed calls too."""
+    want = 2 * DEC_L * 2 * DEC_H * 4
+    for r in four_ranks:
+        got = r["tp_decode"]
+        for shape in DEC_MESHES:
+            step = got[_mesh_key(shape)]["step"]
+            assert step["bytes"] == want, step
+            # the teacher-forced logits equal the replicated model's
+            assert step["logits"] < 1e-5, step
+            assert step["families"] == {
+                "all_reduce": {"ops": 2 * DEC_L, "bytes": want}}, step
+        assert got["c10d_recorded"] == {"all_reduce": {"ops": 1,
+                                                       "bytes": 12}}
+
+
+def test_tp_paged_branch_refuses_a_tp_model(four_ranks):
+    """The paged cache takes no TP model: a ValueError that names the
+    contiguous path, never a wrong decode."""
+    for r in four_ranks:
+        msg = r["tp_decode"]["paged_refused"]
+        assert msg is not None and "paged" in msg and "contiguous" in msg
+
+
+def test_tp_scaling_model_measures_collective_bytes(tmp_path):
+    """``tp_scaling_model.main(["--tp", "2", "--device", "cpu"])`` in its
+    own group of 2 gloo ranks (spawned from this test, so a slow group
+    fails this test alone): the BERT-tiny TP step ran, its collectives
+    moved bytes, and the decode row equals the megatron count."""
+    from tensorflowonspark_tpu_torch import tp_scaling_model
+
+    path = str(tmp_path / "tp_scaling.json")
+    assert tp_scaling_model.main(
+        ["--tp", "2", "--device", "cpu", "--out", path]) == 0
+    with open(path) as f:
+        rep = json.load(f)
+    assert rep["ranks"] == "gloo ranks on the CPU"
+    assert rep["tp"] == 2 and rep["step_executed"] and rep["layers"] == 2
+    assert rep["total_collective_bytes"] > 0
+    assert rep["total_collective_bytes"] == sum(
+        f["bytes"] for f in rep["collectives"].values())
+    assert rep["bytes_per_layer_per_activation"] > 0
+    row = rep["decode"]
+    assert row["bytes_per_token"] == row["megatron_bytes_per_token"] == \
+        2 * 2 * 8 * 64 * 4
+    assert row["matches_megatron"] and row["local_heads"] == 2
+
+
+def test_tp_scaling_model_runs_on_the_cards_unless_asked(monkeypatch):
+    """With no ``--device`` the widths run as NCCL ranks, one a card: no
+    card, or fewer cards than ``tp``, is refused before a rank starts,
+    never rerouted to the CPU."""
+    from tensorflowonspark_tpu_torch import tp_scaling_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp_scaling_model.main(["--tp", "2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert tp_scaling_model.ranks_of() == "cuda"
+    with pytest.raises(RuntimeError, match="tp 2 needs 2 cards"):
+        tp_scaling_model.run_width(2)
+    with pytest.raises(RuntimeError, match="tp 4 needs 4 cards"):
+        tp_scaling_model.sweep([4])
+    with pytest.raises(ValueError, match="2 or more"):
+        tp_scaling_model.run_width(1, "cpu")
 
 
 def test_widedeep_sharded_embedding_training_step(two_ranks, four_ranks):
@@ -612,9 +881,10 @@ def _shard_ids(shape, spec, sizes):
     return ids
 
 
-def _flax_and_port(family):
+def _flax_and_port(family, heads=4):
     """(flax params, the port model, the port's name map, the reference
-    catalog, the port catalog) for each catalog's model family."""
+    catalog, the port catalog) for each catalog's model family (the
+    decoder with ``heads`` heads; BERT-tiny has 2)."""
     import jax
 
     from tensorflowonspark_tpu import models as jmodels  # noqa: F401
@@ -656,55 +926,95 @@ def _flax_and_port(family):
     from tensorflowonspark_tpu.models import decoder as jd
     from tensorflowonspark_tpu_torch.models import decoder as td
 
-    params = jd.DecoderLM(vocab=64, hidden=32, num_heads=4, num_layers=2,
-                          max_len=16).init(
+    params = jd.DecoderLM(vocab=64, hidden=32, num_heads=heads,
+                          num_layers=2, max_len=16).init(
         key, np.zeros((1, 8), np.int32))["params"]
-    return (params, td.DecoderLM(vocab=64, hidden=32, num_heads=4,
+    return (params, td.DecoderLM(vocab=64, hidden=32, num_heads=heads,
                                  num_layers=2, max_len=16),
             convert.from_flax, jsharding.DECODER_TP_RULES,
             sharding.DECODER_TP_RULES)
 
 
-@pytest.mark.parametrize("family", ["bert", "widedeep", "resnet",
-                                    "decoder"])
+def _spec_of(placements, names):
+    """The spec a list of placements (one per mesh axis of ``names``)
+    gives each tensor dim: the axis that shards it, or None."""
+    spec = {}
+    for axis, p in zip(names, placements):
+        if p.is_shard():
+            spec[p.dim] = axis
+    return tuple(spec.get(i) for i in range(max(spec, default=-1) + 1))
+
+
+#: family -> (decoder heads, model-axis width): the 4-head decoder and
+#: BERT-tiny's 2 heads at model 2 divide; 2 heads at model 4 do not, and
+#: the reference then replicates the head axis
+CATALOG_CASES = {"bert": (4, 2), "widedeep": (4, 2), "resnet": (4, 2),
+                 "decoder": (4, 2), "bert_2heads_model4": (4, 4),
+                 "decoder_2heads_model4": (2, 4)}
+
+
+@pytest.mark.parametrize("family", list(CATALOG_CASES))
 def test_tp_catalog_matches_reference(family):
     """Each port catalog lays every parameter out as the reference's
     catalog lays the flax leaf it comes from: each flax leaf carries the
-    shard index of its elements under the reference's spec (model axis
-    2), ``convert``'s name map carries those tensors onto the port's
-    names and layouts, and the port's spec must give every element the
-    same shard index — and at least one parameter per rule is sharded."""
+    shard index of its elements under the reference's layout (its spec
+    through its ``constrain_spec`` on the case's model-axis width),
+    ``convert``'s name map carries those tensors onto the port's names
+    and layouts, and the port's ``tree_shardings`` must give every
+    element the same shard index. At widths the heads divide, at least
+    one parameter per rule is sharded; with 2 heads at model 4 the
+    attention projections replicate (whole heads only) and the MLP /
+    FFN still splits."""
     import jax
 
     from tensorflowonspark_tpu.parallel.sharding import (
+        constrain_spec as jconstrain)
+    from tensorflowonspark_tpu.parallel.sharding import (
         param_path_specs as jspecs)
 
-    params, model, to_port, jrules, trules = _flax_and_port(family)
-    sizes = {"model": 2}
+    heads, width = CATALOG_CASES[family]
+    params, model, to_port, jrules, trules = _flax_and_port(
+        family.split("_")[0], heads=heads)
+    sizes = {"model": width}
     flax_specs = jspecs(params, jrules)
+    jmesh = types.SimpleNamespace(shape=sizes)
 
     def encode(path, leaf):
         name = "/".join(str(getattr(k, "key", k)) for k in path)
-        return _shard_ids(np.shape(leaf), tuple(flax_specs[name]), sizes)
+        spec = jconstrain(flax_specs[name], np.shape(leaf), jmesh, name)
+        return _shard_ids(np.shape(leaf), tuple(spec), sizes)
 
     encoded = jax.tree_util.tree_map_with_path(encode, params)
     want = to_port(encoded)
-    got_specs = sharding.param_path_specs(model, trules)
+    got_placements = sharding.tree_shardings(model, _fake_mesh(**sizes),
+                                             trules)
     named = dict(model.named_parameters())
     assert set(want) >= set(named), sorted(set(named) - set(want))
-    sharded = 0
+    sharded = set()
     for name, p in named.items():
-        got = _shard_ids(tuple(p.shape), got_specs[name], sizes)
+        spec = _spec_of(got_placements[name], tuple(sizes))
+        got = _shard_ids(tuple(p.shape), spec, sizes)
         np.testing.assert_array_equal(got, want[name].numpy(),
                                       err_msg=name)
-        sharded += any(a is not None for a in got_specs[name])
-    assert sharded >= len(trules) - 1, sharded
+        if any(a is not None for a in spec):
+            sharded.add(name)
+    if width == 2:
+        assert len(sharded) >= len(trules) - 1, sorted(sharded)
+    else:
+        attn = [n for n in named if re.search(
+            r"(attn|attention)\.(query|key|value|out)\.(weight|bias)", n)
+            and not n.endswith("out.bias")]
+        assert attn and not sharded & set(attn), sorted(sharded & set(attn))
+        assert any(re.search(r"(mlp|ffn)_in\.weight", n) for n in sharded)
 
 
 def test_tree_shardings_indivisible_dim_replicates():
     """A rule dim that doesn't divide its mesh axis degrades to a
-    replicated dim (BERT's 2-head bias rows at tp=4 divide, the 2-row
-    type table would not), while the 64-wide FFN keeps its model axis."""
+    replicated dim: the 2-row type table at tp=4, and BERT's 2 heads at
+    tp=4 — the fused head rows (64 of them, which 4 would divide) count
+    whole heads, as the reference's head axis does — while the 128-wide
+    FFN keeps its model axis. Fused head dims need the module (its
+    attention's head size): a name -> tensor dict is refused."""
     from tensorflowonspark_tpu_torch.models import bert
 
     model = bert.BertForQuestionAnswering(bert.bert_tiny())
@@ -715,5 +1025,13 @@ def test_tree_shardings_indivisible_dim_replicates():
     assert got["bert.type_embeddings.weight"][1].is_replicate()
     assert got["bert.layer_0.ffn_in.weight"][1].is_shard(0)
     assert got["bert.layer_0.ffn_in.weight"][0].is_replicate()
+    for name in ("query.weight", "query.bias", "out.weight"):
+        assert got["bert.layer_0.attention." + name][1].is_replicate()
+    got2 = sharding.tree_shardings(model, _fake_mesh(data=2, model=2),
+                                   rules)
+    assert got2["bert.layer_0.attention.query.weight"][1].is_shard(0)
+    assert got2["bert.layer_0.attention.out.weight"][1].is_shard(1)
+    with pytest.raises(ValueError, match="fused heads"):
+        sharding.tree_shardings(dict(model.named_parameters()), mesh, rules)
     with pytest.raises(ValueError, match="longer than param"):
         sharding.param_path_specs(model, ((r"ffn_in\.bias", (None, "model")),))

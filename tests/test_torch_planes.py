@@ -3,8 +3,9 @@ reference's own tests.
 
 The cases of ``tests/test_frames.py``, ``test_shm.py``, ``test_fs.py``,
 ``test_manager.py``, ``test_reservation.py``, ``test_node_state.py``,
-``test_engine.py``, ``test_datafeed.py`` and ``test_remote_manager.py``
-(every case but the slow ones) run against the port: each file is loaded
+``test_engine.py``, ``test_datafeed.py``, ``test_remote_manager.py``,
+``test_feed_zero_copy.py`` and ``test_scale.py`` (every case but the
+slow ones) run against the port: each file is loaded
 under a private name (``test_torch_qos.reference_cases``), every global
 that names a module, class or function of the JAX package is replaced
 by the port's object of the same name, the imports inside the cases'
@@ -24,7 +25,8 @@ import test_torch_qos
 
 FILES = ("test_frames.py", "test_shm.py", "test_fs.py", "test_manager.py",
          "test_reservation.py", "test_node_state.py", "test_engine.py",
-         "test_datafeed.py", "test_remote_manager.py")
+         "test_datafeed.py", "test_remote_manager.py",
+         "test_feed_zero_copy.py", "test_scale.py")
 
 BASE = "tensorflowonspark_tpu"
 
@@ -103,7 +105,7 @@ def sc(tmp_path_factory):
 
 
 def test_every_reference_case_is_collected():
-    assert len(CASES) == 79, len(CASES)
+    assert len(CASES) == 89, len(CASES)
 
 
 @pytest.mark.parametrize("filename,case", CASES,

@@ -484,3 +484,40 @@ def test_profile_recovery_restart_mode_on_the_cpu(tmp_path, capsys):
                for k in ("detect_s", "reform_s", "restore_s", "mttr_s"))
     printed = capsys.readouterr().out
     assert "restart leg: wall" in printed and "exactly_once True" in printed
+
+
+class _Leases(object):
+    """A reservation server's lease read surface over a dict the test
+    edits."""
+
+    def __init__(self):
+        self.leases = {}
+
+    def lease_snapshot(self):
+        return {eid: dict(lease) for eid, lease in self.leases.items()}
+
+
+def test_stopping_the_monitor_records_milestones_its_last_poll_missed():
+    """The restored trainer's first step can ride only its node's final
+    synchronous beat when the job ends right after it (the restart-mode
+    case above: 2 steps, killed after the first). A monitor that has not
+    polled since — a poll interval on a loaded box — must still record
+    ``restored`` and ``first_step`` when it stops, or the MTTR stages
+    lose their first step and ``mttr_s``."""
+    server = _Leases()
+    server.leases[0] = {"age": 0.0, "payload": {"state": "running",
+                                                "feed_hb": 0}}
+    sup = supervisor.Supervisor(
+        server=server, executors=[0],
+        config=supervisor.SupervisorConfig(poll_interval=60.0,
+                                           heartbeat_timeout=60.0))
+    sup.start()
+    # the monitor's first poll has read the running lease; its next is a
+    # minute away
+    assert chaos.poll_until(lambda: 0 in sup._progress, timeout=10)
+    server.leases[0] = {"age": 0.0, "payload": {
+        "state": "stopped", "restored_step": 1, "train_step": 2}}
+    sup.stop()
+    assert [e["step"] for e in sup.events.events("restored")] == [1]
+    assert [e["step"] for e in sup.events.events("first_step")] == [2]
+    assert sup.first_failure() is None

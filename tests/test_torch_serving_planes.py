@@ -364,6 +364,83 @@ def test_server_drain_turns_healthz_and_refuses_new_work(lm):
     assert sorted(r[0] for r in results) == [200, 200, 200]
 
 
+def _refusal_over_a_split_post(port, path, body, headers=()):
+    """POST ``body`` with its headers and its body sent apart; returns
+    (bytes that came back before the body was sent, the whole reply).
+    A server that replies before it reads the body closes a connection
+    holding unread bytes, which resets it, and the reset can cut off
+    the reply."""
+    import select
+    import socket
+
+    raw = json.dumps(body).encode()
+    head = "POST {} HTTP/1.1\r\nHost: x\r\nContent-Type: application/json" \
+        "\r\nContent-Length: {}\r\n".format(path, len(raw))
+    head += "".join("{}: {}\r\n".format(k, v) for k, v in headers)
+    sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+    try:
+        sock.sendall(head.encode() + b"\r\n")
+        readable, _, _ = select.select([sock], [], [], 1.0)
+        early = sock.recv(65536) if readable else b""
+        sock.sendall(raw)
+        reply = early
+        while True:
+            chunk = sock.recv(65536)
+            if not chunk:
+                return early, reply
+            reply += chunk
+    finally:
+        sock.close()
+
+
+@pytest.mark.parametrize("case", ["draining", "fenced", "unknown_route",
+                                  "unknown_admin", "control_fenced",
+                                  "router_unknown_route"])
+def test_a_refusal_reads_the_whole_body_first(lm, case):
+    # every POST reply, a refusal too, waits for the whole body
+    if case == "router_unknown_route":
+        from tensorflowonspark_tpu_torch import fleet, reservation
+
+        resv = reservation.Server(0)
+        resv.start(host="127.0.0.1")
+        router = fleet.FleetRouter(resv, name="lm")
+        try:
+            early, reply = _refusal_over_a_split_post(
+                router.start()[1], "/v1/models/lm:nowhere",
+                {"prompt": [1, 2, 3]})
+        finally:
+            router.stop()
+            resv.stop()
+        assert early == b"" and reply.startswith(b"HTTP/1.0 404")
+        return
+    _, params = lm
+    path, headers = "/v1/models/lm:generate", ()
+    want = {"draining": b"503", "fenced": b"410", "unknown_route": b"404",
+            "unknown_admin": b"404", "control_fenced": b"409"}[case]
+    eng = serving.DecodeEngine(_port(params), slots=1, device="cpu")
+    with eng, serving.ModelServer(None, name="lm", port=0,
+                                  engine=eng) as srv:
+        if case == "draining":
+            srv._draining = True  # the latch drain() sets first
+        elif case == "fenced":
+            srv.fence("superseded by epoch 3")
+        elif case == "unknown_route":
+            path = "/v1/models/lm:nowhere"
+        elif case == "unknown_admin":
+            path = "/admin/nope"
+        else:
+            srv.admit_control_epoch(5)
+            path, headers = "/admin/ship_fence", (
+                ("X-TFOS-Control-Epoch", "4"),)
+        early, reply = _refusal_over_a_split_post(
+            srv.address[1], path, {"prompt": [1, 2, 3],
+                                   "max_new_tokens": 4}, headers)
+        srv._draining = False
+    assert early == b""
+    assert reply.startswith(b"HTTP/1.0 " + want)
+    assert json.loads(reply.split(b"\r\n\r\n", 1)[1])
+
+
 def test_sigterm_drains_the_cli_server(tmp_path):
     from tensorflowonspark_tpu_torch import export
 
