@@ -21,7 +21,7 @@
 // written in place through strides (the Pallas wrapper's transposed fold
 // to [B*N, S, D] is not needed); lse and delta [B*N, S_q] float32; the
 // key-mask bias [B, S_k] float32 (0 / -inf), read at row b = bh / N and
-// never repeated per head. D in {16, 32, 64, 128} is a template
+// never repeated per head. D in {16, 32, 64, 128, 256} is a template
 // parameter; q/k/v are float32 or bfloat16, every product, statistic
 // and accumulator is float32, and outputs take the input dtype.
 //
@@ -162,6 +162,26 @@
 //   with the most tiles first, KV tiles past the diagonal skipped under
 //   causal, a fully masked row gives out 0 and lse -inf.
 //
+// Head dim 256 (Gemma-2B's 8 heads x 256; the wrapper zero-pads 129-255
+// to it). A warp's 16 rows x 256 columns of float32 accumulator take 128
+// registers a thread, and a 64-row float32 tile 64 KB, so:
+// - mma.sync (float32): the forward streams 8-key tiles (fwd_rows: 96
+//   KB of shared memory, two CTAs per SM), dQ and dK/dV 16-row ones
+//   (stream_rows: 192 KB, one), the k loop of rows_by_rows is unrolled
+//   8 steps at a time, and a_by_cols takes V, K, dO or Q's B
+//   fragments 2 column blocks at a time (pass-major within them) instead
+//   of all at once; and dK/dV, whose two accumulators would need 256
+//   registers, runs two CTAs per key tile (dkv_roles): one accumulates
+//   dV from P^T (S^T only), the other dK from dS^T (S^T and dP^T), so
+//   S^T is computed twice: 1.25x the kernel's flops.
+// - wgmma (bfloat16): m64n256k16 for O += P V and dQ += dS K (the
+//   accumulator is 128 registers a thread), tiles of four 64-column
+//   blocks, forward key tiles of 32 (wg_fwd_keys); dK/dV splits its
+//   columns between two CTAs a key tile (dkv_cols), both recomputing S^T
+//   and dP^T, with m64n128k16 products on the CTA's two column blocks of
+//   dO and Q, and runs under the compiler's register limit
+//   (flash_dkv_wgmma_wide_kernel) instead of 168.
+//
 // More than 48 KB of dynamic shared memory is requested through
 // cudaFuncSetAttribute before each launch. Plain C interface, loaded
 // through ctypes by ops/_build.py; each entry point returns the CUDA
@@ -188,9 +208,35 @@ constexpr int BWD_WARPS = 4;
 constexpr int BWD_THREADS = 32 * BWD_WARPS;
 constexpr int BWD_ROWS = 16 * BWD_WARPS;  // rows a CTA owns, 16 per warp
 
-// rows of a streamed tile (keys in dQ, queries in dK/dV)
+// rows of a streamed tile (keys in dQ, queries in dK/dV): 64, 32 at D
+// 128, 16 at D 256, where the two resident 64-row tiles of the backward
+// alone take 128 KB
 template <int D>
-__host__ __device__ constexpr int stream_rows() { return D > 64 ? 32 : 64; }
+__host__ __device__ constexpr int stream_rows() {
+  return D > 128 ? 16 : D > 64 ? 32 : 64;
+}
+
+// keys of the forward's streamed tile: the backward's, but 8 at D 256,
+// which brings its shared memory to 96 KB and two CTAs to an SM (0.62
+// ms against 0.90 with 16 at B 4 x S 1024 x 8 x 256)
+template <int D>
+__host__ __device__ constexpr int fwd_rows() {
+  return D > 128 ? 8 : stream_rows<D>();
+}
+
+// At D 256 a warp's dK and dV accumulators over all 256 columns would
+// take 256 registers a thread, so a key tile gets two dK/dV CTAs.
+// float32 (dkv_roles): one accumulates dV = P^T dO, which needs S^T
+// only, the other dK = dS^T Q, which needs S^T and dP^T: 5 of the
+// kernel's 4 products' worth of work (its first form, column halves,
+// did 6 and ran 1.71 ms against 1.53 at B 4 x S 1024 x 8 x 256).
+// bfloat16 (dkv_cols): each writes half of dK's and dV's columns and
+// both recompute S^T and dP^T (6); roles are untried there.
+template <int D>
+__host__ __device__ constexpr bool dkv_roles() { return D > 128; }
+
+template <int D>
+__host__ __device__ constexpr int dkv_cols() { return D > 128 ? D / 2 : D; }
 
 // Start copying rows [r0, r0 + ROWS) of one (batch, head) slice of a
 // [B, S, N, D] tensor (``src`` at row 0 of the slice, rows ``stride``
@@ -229,7 +275,7 @@ __device__ __forceinline__ void store2(float* p, float x, float y) {
 // stages of the streamed K and V tiles
 template <int D>
 constexpr size_t fwd_smem() {
-  return (size_t)(BWD_ROWS * D + 4 * stream_rows<D>() * D) * sizeof(float);
+  return (size_t)(BWD_ROWS * D + 4 * fwd_rows<D>() * D) * sizeof(float);
 }
 
 // The forward shares the backward's CTA shape (BWD_WARPS warps of 16
@@ -241,7 +287,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ out, float* __restrict__ lse, int S_q,
                  int S_k, int N, int causal, float scale) {
   constexpr int BM = BWD_ROWS;            // query rows of the CTA
-  constexpr int BN = stream_rows<D>();    // keys of a streamed tile
+  constexpr int BN = fwd_rows<D>();    // keys of a streamed tile
   constexpr int NT = BN / 8;              // 8-key score tiles
   constexpr int DT = D / 8;               // 8-wide steps over D
   extern __shared__ __align__(16) unsigned char fwd_smem_buf[];
@@ -355,7 +401,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (j < nt) {
           uint32_t ah[4], al[4];
           c_to_a(s[j], ah, al);
-          a_by_cols<D>(acc, ah, al, Vt, 8 * j, g, t);
+          a_by_cols<D, DT>(acc, ah, al, Vt, 8 * j, 0, g, t);
         }
       }
     }
@@ -489,7 +535,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (j < nt) {
           uint32_t ah[4], al[4];
           c_to_a(s[j], ah, al);
-          a_by_cols<D>(acc, ah, al, Kt, 8 * j, g, t);
+          a_by_cols<D, DT>(acc, ah, al, Kt, 8 * j, 0, g, t);
         }
       }
     }
@@ -519,6 +565,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int BQ = stream_rows<D>();    // queries of a streamed tile
   constexpr int NT = BQ / 8;              // 8-query score tiles
   constexpr int DT = D / 8;
+  // dK and dV in one CTA, or (D 256) dV in CTA z 0 and dK in z 1
+  constexpr bool ROLES = dkv_roles<D>();
   extern __shared__ __align__(16) unsigned char bwd_smem[];
   float* Ks = reinterpret_cast<float*>(bwd_smem);  // [BK][D], resident
   float* Vs = Ks + BK * D;                         // [BK][D], resident
@@ -529,6 +577,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int bh = blockIdx.x;
   const int kt = blockIdx.y;               // low tiles see the most queries
+  const int role = ROLES ? blockIdx.z : 2;  // 0: dV, 1: dK, 2: both
+  const bool want_dk = role != 0;          // dP^T, dS^T and dK
   const int b = bh / N;
   const int h = bh % N;
   const int warp = threadIdx.x / 32;
@@ -564,9 +614,10 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     bk[i] = (bias != nullptr && kin[i]) ? bias[(size_t)b * S_k + key] : 0.f;
   }
   const int first_key = j0 + wr;
-  float dk_acc[DT][4], dv_acc[DT][4];
+  // acc: dV, or with roles the CTA's one output; dk_acc: dK (no roles)
+  float acc[DT][4], dk_acc[ROLES ? 1 : DT][4];
+  zero4(acc);
   zero4(dk_acc);
-  zero4(dv_acc);
 
   for (int qt = qt0; qt < n_q; ++qt) {
     const int cur = (qt - qt0) & 1;
@@ -596,8 +647,9 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float st[NT][4], dpt[NT][4];
       zero4(st);
       zero4(dpt);
-      rows_by_rows<D, NT>(st, Ks, Qt, wr, j_lo, NT, g, t);   // K Q^T
-      rows_by_rows<D, NT>(dpt, Vs, dOt, wr, j_lo, NT, g, t);  // V dO^T
+      rows_by_rows<D, NT>(st, Ks, Qt, wr, j_lo, NT, g, t);     // K Q^T
+      if (want_dk)                                   // CTA-uniform
+        rows_by_rows<D, NT>(dpt, Vs, dOt, wr, j_lo, NT, g, t);  // V dO^T
       // P^T in st, dS^T = P^T (dP^T - delta) in dpt
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -623,10 +675,21 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < NT; ++j) {
         if (j >= j_lo) {
           uint32_t ah[4], al[4];
-          c_to_a(st[j], ah, al);
-          a_by_cols<D>(dv_acc, ah, al, dOt, 8 * j, g, t);
-          c_to_a(dpt[j], ah, al);
-          a_by_cols<D>(dk_acc, ah, al, Qt, 8 * j, g, t);
+          if constexpr (!ROLES) {
+            c_to_a(st[j], ah, al);
+            a_by_cols<D, DT>(acc, ah, al, dOt, 8 * j, 0, g, t);
+            c_to_a(dpt[j], ah, al);
+            a_by_cols<D, DT>(dk_acc, ah, al, Qt, 8 * j, 0, g, t);
+          } else {
+            // (a branch each: an array picked at run time would go to
+            // local memory)
+            if (want_dk)
+              c_to_a(dpt[j], ah, al);
+            else
+              c_to_a(st[j], ah, al);
+            a_by_cols<D, DT>(acc, ah, al, want_dk ? Qt : dOt, 8 * j, 0, g,
+                             t);
+          }
         }
       }
     }
@@ -638,11 +701,19 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (!kin[i]) continue;
     const int key = j0 + wr + g + 8 * i;
     const size_t base = (((size_t)b * S_k + key) * N + h) * D + 2 * t;
+    if constexpr (!ROLES) {
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      store2(dk + base + 8 * n, dk_acc[n][2 * i] * scale,
-                dk_acc[n][2 * i + 1] * scale);
-      store2(dv + base + 8 * n, dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+      for (int n = 0; n < DT; ++n) {
+        store2(dk + base + 8 * n, dk_acc[n][2 * i] * scale,
+                  dk_acc[n][2 * i + 1] * scale);
+        store2(dv + base + 8 * n, acc[n][2 * i], acc[n][2 * i + 1]);
+      }
+    } else {
+      float* o = (want_dk ? dk : dv) + base;
+      const float m = want_dk ? scale : 1.f;
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        store2(o + 8 * n, acc[n][2 * i] * m, acc[n][2 * i + 1] * m);
     }
   }
 }
@@ -652,17 +723,21 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int WG_THREADS = 128;   // a CTA: one wgmma warpgroup
 constexpr int WG_WARPS = WG_THREADS / 32;
 constexpr int WG_ROWS = 64;  // its rows: queries (forward, dQ), keys (dK/dV)
-constexpr int WG_FWD_KEYS = 64;   // keys of a forward tile
 constexpr int WG_FWD_STAGES = 2;  // the forward's K/V ring
 constexpr int WG_DKV_STAGES = 2;  // dK/dV's Q/dO ring
 constexpr int WG_DQ_STAGES = 2;   // dQ's K/V ring
 constexpr float LN2 = 0.6931471805599453f;
 
 // rows of a tile the backward streams (queries in dK/dV, keys in dQ): at
-// D 128 the 64-column accumulators leave room for 32-wide score tiles
+// D 128 and 256 the wide accumulators leave room for 32-wide score tiles
 // only
 template <int D>
 __host__ __device__ constexpr int wg_stream_rows() { return D > 64 ? 32 : 64; }
+
+// keys of a forward tile: 64, or 32 at D 256, whose O accumulator (64 x
+// 256 float32 over the warpgroup) takes 128 registers a thread
+template <int D>
+__host__ __device__ constexpr int wg_fwd_keys() { return D > 128 ? 32 : 64; }
 
 // Shared memory of the forward: the resident Q tile, a ring of K and V
 // tiles with the key-mask slice of each (times log2 e) and whether it is
@@ -672,7 +747,7 @@ __host__ __device__ constexpr int wg_stream_rows() { return D > 64 ? 32 : 64; }
 template <int D>
 struct FwdLayout {
   static constexpr int STAGES = WG_FWD_STAGES;
-  static constexpr int BN = WG_FWD_KEYS;
+  static constexpr int BN = wg_fwd_keys<D>();
   static constexpr bool FLAGS = true;     // the ring carries the flags
   using QT = Tile<D, WG_ROWS>;
   using KT = Tile<D, BN>;
@@ -1049,27 +1124,25 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 // into bfloat16 hi + lo A operands (one rounding to bfloat16 misses the
 // bfloat16 limits: tests/test_torch_flash_attention.py), then dV += P^T
 // dO and dK += dS^T Q, lo pass first, with dO and Q through the
-// transpose bit. At most 168 registers a thread (no spills at D <= 64):
-// then three warps fit one quadrant of the register file, so two CTAs
-// share an SM (at 172, the compiler's own count, one did).
+// transpose bit. At D 256 a CTA writes half of dK's and dV's columns
+// (dkv_cols: both accumulators over all 256 would take 256 registers a
+// thread), recomputing S^T and dP^T over the whole D as the CTA of the
+// other half does. The body is shared by two kernels that differ in
+// their register limit (flash_dkv_wgmma_kernel, the wide one below).
 template <int D>
-__global__ void __maxnreg__(168)
-flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
-                       const __grid_constant__ CUtensorMap kmap,
-                       const __grid_constant__ CUtensorMap vmap,
-                       const __grid_constant__ CUtensorMap dmap,
-                       const __grid_constant__ CUtensorMap dkmap,
-                       const __grid_constant__ CUtensorMap dvmap,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, int S_q, int S_k,
-                       int N, int causal, float scale) {
+__device__ __forceinline__ void dkv_wgmma_body(
+    const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
+    const CUtensorMap& dmap, const CUtensorMap& dkmap,
+    const CUtensorMap& dvmap, const float* __restrict__ bias,
+    const float* __restrict__ lse, const float* __restrict__ delta, int S_q,
+    int S_k, int N, int causal, float scale) {
   using L = DkvLayout<D>;
   using QT = typename L::QT;
   constexpr int BK = WG_ROWS;
   constexpr int BQ = L::BQ;
   constexpr int NT = BQ / 8;               // 8-query column blocks of S^T
   constexpr int KS = BQ / 16;              // k steps of dV and dK
+  constexpr int DO = dkv_cols<D>();        // output columns of the CTA
   constexpr int STAGES = L::STAGES;
   static_assert(STAGES <= WG_WARPS, "a warp fills each first stage");
   extern __shared__ __align__(1024) unsigned char wg_dkv_smem[];
@@ -1084,6 +1157,7 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // read its Q/dO from L2 together; low tiles see the most queries
   const int bh = blockIdx.y;
   const int kt = blockIdx.x;
+  const int c0 = DO == D ? 0 : blockIdx.z * DO;  // the CTA's first column
   const int b = bh / N;
   const int h = bh % N;
   const int j0 = kt * BK;
@@ -1136,9 +1210,9 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                      (kin[1] && bk[1] != -INFINITY));
   const bool nomask_keys = __syncthreads_and(kin[0] && kin[1] &&
                                              bk[0] == 0.f && bk[1] == 0.f);
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[DO / 2], dv_acc[DO / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DO / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   ring_init<STAGES>(full, kvbar, cnt);
   if (live && threadIdx.x == 0) {
     mbar_arrive_tx(kvbar, 2 * L::KT::BYTES);
@@ -1159,6 +1233,9 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_wait(&full[s], (it / STAGES) & 1);
     const unsigned char* Qt = sm + L::Q + s * QT::BYTES;
     const unsigned char* dOt = sm + L::DO + s * QT::BYTES;
+    // the column blocks of Q and dO this CTA's dK and dV take
+    const unsigned char* Qc = Qt + (c0 / QT::COLS) * QT::HALF_BYTES;
+    const unsigned char* dOc = dOt + (c0 / QT::COLS) * QT::HALF_BYTES;
     const float* Lt = Ls + s * BQ;
     const float* Et = Es + s * BQ;
     const int i0 = qt * BQ;
@@ -1211,10 +1288,10 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wg_fence();
 #pragma unroll
     for (int k = 0; k < KS; ++k)               // dV += P^T dO, lo then hi
-      wgmma_rs<D>(dv_acc, pl[k], desc_mn<D, BQ>(dOt, k), 1);
+      wgmma_rs<DO>(dv_acc, pl[k], desc_mn<D, BQ>(dOc, k), 1);
 #pragma unroll
     for (int k = 0; k < KS; ++k)
-      wgmma_rs<D>(dv_acc, ph[k], desc_mn<D, BQ>(dOt, k), 1);
+      wgmma_rs<DO>(dv_acc, ph[k], desc_mn<D, BQ>(dOc, k), 1);
     wg_commit();
     uint32_t dh[KS][4], dl[KS][4];
 #pragma unroll
@@ -1225,10 +1302,10 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wg_fence();
 #pragma unroll
     for (int k = 0; k < KS; ++k)               // dK += dS^T Q, lo then hi
-      wgmma_rs<D>(dk_acc, dl[k], desc_mn<D, BQ>(Qt, k), 1);
+      wgmma_rs<DO>(dk_acc, dl[k], desc_mn<D, BQ>(Qc, k), 1);
 #pragma unroll
     for (int k = 0; k < KS; ++k)
-      wgmma_rs<D>(dk_acc, dh[k], desc_mn<D, BQ>(Qt, k), 1);
+      wgmma_rs<DO>(dk_acc, dh[k], desc_mn<D, BQ>(Qc, k), 1);
     wg_commit();
     wg_wait<0>();
     pin(dv_acc);
@@ -1244,15 +1321,16 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // dK and dV in bfloat16 go where K and V were (every wgmma reading
-  // them has completed), in the tiles' swizzled layout, and two TMA
-  // stores write the CTA's keys that exist
+  // them has completed), in the tiles' swizzled layout (the CTA's DO
+  // columns in the first column blocks), and two TMA stores write the
+  // CTA's keys that exist
   unsigned char* dKs = sm + L::K;          // K's place
   unsigned char* dVs = sm + L::V;          // V's place
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = key[i] - j0;             // the row in the tile
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DO / 8; ++n) {
       const int off = tile_offset<D, BK>(r, 8 * n + 2 * t);
       *reinterpret_cast<__nv_bfloat162*>(dKs + off) = __floats2bfloat162_rn(
           dk_acc[4 * n + 2 * i] * scale, dk_acc[4 * n + 2 * i + 1] * scale);
@@ -1263,9 +1341,57 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   fence_async_smem();
   __syncthreads();
   if (threadIdx.x == 0) {
-    tma_store_tile<D, BK>(dKs, &dkmap, j0, b, h);
-    tma_store_tile<D, BK>(dVs, &dvmap, j0, b, h);
+    tma_store_tile<D, BK, DO>(dKs, &dkmap, j0, b, h, c0);
+    tma_store_tile<D, BK, DO>(dVs, &dvmap, j0, b, h, c0);
   }
+}
+
+// dK/dV at bfloat16 up to D 128: at most 168 registers a thread (no
+// spills at D <= 64), so three warps fit one quadrant of the register
+// file and two CTAs share an SM (at 172, the compiler's own count, one
+// did).
+template <int D>
+__global__ void __maxnreg__(168)
+flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap dmap,
+                       const __grid_constant__ CUtensorMap dkmap,
+                       const __grid_constant__ CUtensorMap dvmap,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, int S_q, int S_k,
+                       int N, int causal, float scale) {
+  dkv_wgmma_body<D>(qmap, kmap, vmap, dmap, dkmap, dvmap, bias, lse, delta,
+                    S_q, S_k, N, causal, scale);
+}
+
+// dK/dV at bfloat16, D 256: its two 128-column accumulators (128
+// registers a thread) with the 32-query score tiles need more than 168
+// registers, so the compiler's own limit (255) holds.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+flash_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __grid_constant__ CUtensorMap dmap,
+                            const __grid_constant__ CUtensorMap dkmap,
+                            const __grid_constant__ CUtensorMap dvmap,
+                            const float* __restrict__ bias,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta, int S_q,
+                            int S_k, int N, int causal, float scale) {
+  dkv_wgmma_body<D>(qmap, kmap, vmap, dmap, dkmap, dvmap, bias, lse, delta,
+                    S_q, S_k, N, causal, scale);
+}
+
+// the bfloat16 dK/dV kernel a head dim launches
+template <int D>
+auto dkv_wg_kernel() {
+  if constexpr (D > 128)
+    return flash_dkv_wgmma_wide_kernel<D>;
+  else
+    return flash_dkv_wgmma_kernel<D>;
 }
 
 // dQ at bfloat16. A wgmma warpgroup owns 64 query rows, with Q and dO
@@ -1505,7 +1631,8 @@ int dkv(const void* q, const void* k, const void* v, const float* bias,
   const size_t smem = dkv_smem<D>();
   auto kern = flash_dkv_kernel<D>;
   if (int e = prepare(kern, smem)) return e;
-  const dim3 grid(B * N, (S_k + BWD_ROWS - 1) / BWD_ROWS);
+  const dim3 grid(B * N, (S_k + BWD_ROWS - 1) / BWD_ROWS,
+                  dkv_roles<D>() ? 2 : 1);
   kern<<<grid, BWD_THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), bias, static_cast<const float*>(dout),
@@ -1515,15 +1642,15 @@ int dkv(const void* q, const void* k, const void* v, const float* bias,
 }
 
 // the bfloat16 forward: tensor maps of q (64-row boxes) and k, v (64-key
-// boxes), passed by value in the kernel's parameters
+// boxes, 32 at D 256), passed by value in the kernel's parameters
 template <int D>
 int fwd_wg(const void* q, const void* k, const void* v, const float* bias,
            void* out, float* lse, int B, int S_q, int S_k, int N, int causal,
            float scale, cudaStream_t st) {
   CUtensorMap qm, km, vm, om;
   if (int e = tile_map<D, WG_ROWS>(&qm, q, B, S_q, N)) return e;
-  if (int e = tile_map<D, WG_FWD_KEYS>(&km, k, B, S_k, N)) return e;
-  if (int e = tile_map<D, WG_FWD_KEYS>(&vm, v, B, S_k, N)) return e;
+  if (int e = tile_map<D, FwdLayout<D>::BN>(&km, k, B, S_k, N)) return e;
+  if (int e = tile_map<D, FwdLayout<D>::BN>(&vm, v, B, S_k, N)) return e;
   if (int e = tile_map<D, WG_ROWS>(&om, out, B, S_q, N)) return e;
   const size_t smem = FwdLayout<D>::BYTES;
   auto kern = flash_fwd_wgmma_kernel<D>;
@@ -1549,9 +1676,9 @@ int dkv_wg(const void* q, const void* k, const void* v, const float* bias,
   if (int e = tile_map<D, WG_ROWS>(&dkm, dk_out, B, S_k, N)) return e;
   if (int e = tile_map<D, WG_ROWS>(&dvm, dv_out, B, S_k, N)) return e;
   const size_t smem = DkvLayout<D>::BYTES;
-  auto kern = flash_dkv_wgmma_kernel<D>;
+  auto kern = dkv_wg_kernel<D>();
   if (int e = prepare(kern, smem)) return e;
-  const dim3 grid((S_k + WG_ROWS - 1) / WG_ROWS, B * N);
+  const dim3 grid((S_k + WG_ROWS - 1) / WG_ROWS, B * N, D / dkv_cols<D>());
   kern<<<grid, WG_THREADS, smem, st>>>(
       qm, km, vm, dm, dkm, dvm, bias, lse, delta, S_q, S_k, N, causal, scale);
   return static_cast<int>(cudaGetLastError());
@@ -1628,8 +1755,7 @@ int dkv_budget(int* out) {
 
 template <int D>
 int dkv_wg_budget(int* out) {
-  return budget(flash_dkv_wgmma_kernel<D>, DkvLayout<D>::BYTES, out,
-                WG_THREADS);
+  return budget(dkv_wg_kernel<D>(), DkvLayout<D>::BYTES, out, WG_THREADS);
 }
 
 // head_dim and dtype dispatch (D is a template parameter of every
@@ -1646,6 +1772,8 @@ int dkv_wg_budget(int* out) {
         return BF16 ? FN_WG<64>(__VA_ARGS__) : FN<64>(__VA_ARGS__);   \
       case 128:                                                              \
         return BF16 ? FN_WG<128>(__VA_ARGS__) : FN<128>(__VA_ARGS__); \
+      case 256:                                                              \
+        return BF16 ? FN_WG<256>(__VA_ARGS__) : FN<256>(__VA_ARGS__); \
     }                                                                        \
     return static_cast<int>(cudaErrorInvalidValue);                          \
   } while (0)

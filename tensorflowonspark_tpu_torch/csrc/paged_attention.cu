@@ -36,7 +36,9 @@
 //   is read by D / VEC lanes with 16-byte ld.global.nc loads straight
 //   into registers (VEC = 4 float32 or 16 int8 codes, dequantized right
 //   after the load), several keys per warp-wide load, the query held
-//   in registers. A dot reduces over the lanes that share its key with
+//   in registers. A row of more than 32 vectors (float32 at D 256) is
+//   read by the whole warp, each lane carrying two vectors of it
+//   (SplitShape), with half as many loads in flight per vector. A dot reduces over the lanes that share its key with
 //   __shfl_xor_sync; each group of lanes carries its own online-softmax
 //   state over its keys, the groups are merged by shuffles and the warps
 //   through shared memory in a fixed order, and the CTA writes (m, l,
@@ -89,7 +91,10 @@
 //   256): one CTA per (16-query tile, head, row) walks the row's live
 //   blocks in order, staging each pool block of K and V in shared memory
 //   (dequantized on load); each warp folds it into the running state of
-//   its query rows with scalar dots.
+//   its query rows with scalar dots. At D 256 a staged block of 16
+//   tokens and the Q tile take 49,280 bytes (82,176 at block 32), above
+//   the 48 KB a launch gets by default: the launch raises the kernel's
+//   dynamic shared-memory attribute first, as the tensor-core route does.
 //
 // Plain C interface, loaded through ctypes by ops/_build.py.
 
@@ -338,6 +343,24 @@ __device__ __forceinline__ void merge(float& m, float& l, float (&a)[VEC],
   m = mn;
 }
 
+// How the split kernel lays a key row of D elements over a warp: LPK
+// lanes share a row, each carrying NV 16-byte vectors of it (vector v of
+// the lane holds dims v LPK VEC + (lane % LPK) VEC .., so the row's lanes
+// read neighbouring 16 bytes); KPL keys per warp-wide load; U loads in
+// flight per operand. A row wider than 32 vectors (float32 at D 256: 64)
+// puts NV = 2 on each lane and halves U, so a lane keeps as many loads
+// in flight as at D 128.
+template <bool QUANT, int D>
+struct SplitShape {
+  static constexpr int VEC = KVec<QUANT>::VEC;
+  static constexpr int NV = D / VEC > 32 ? D / VEC / 32 : 1;
+  static constexpr int LPK = D / (VEC * NV);
+  static constexpr int KPL = 32 / LPK;
+  static constexpr int U = (QUANT ? 2 : 8) / NV > 0 ? (QUANT ? 2 : 8) / NV : 1;
+  static_assert(D % (VEC * NV) == 0 && LPK <= 32 && 32 % LPK == 0,
+                "a key row must split into a power-of-two of 16-byte lanes");
+};
+
 // One CTA per (split, head, row): the row's one query against its pool
 // blocks [sp C, min((sp + 1) C, live)); writes (acc[D], m, l) to
 // ws[(b N + h) splits + sp][D + 2].
@@ -351,12 +374,13 @@ paged_split_kernel(const float* __restrict__ q,
                    const int* __restrict__ table, const int* __restrict__ pos,
                    float* __restrict__ ws, int N, int P, int bs, int MB, int C,
                    float scale) {
-  constexpr int VEC = KVec<QUANT>::VEC;
-  constexpr int LPK = D / VEC;             // lanes that share one key row
-  constexpr int KPL = 32 / LPK;            // keys of one warp-wide load
-  constexpr int U = QUANT ? 2 : 8;         // loads in flight per operand
-  static_assert(D % VEC == 0 && LPK <= 32 && 32 % LPK == 0,
-                "a key row must split into a power-of-two of 16-byte lanes");
+  using SS = SplitShape<QUANT, D>;
+  constexpr int VEC = SS::VEC;
+  constexpr int NV = SS::NV;               // vectors a lane carries per row
+  constexpr int LPK = SS::LPK;             // lanes that share one key row
+  constexpr int KPL = SS::KPL;             // keys of one warp-wide load
+  constexpr int U = SS::U;                 // loads in flight per operand
+  constexpr int E = NV * VEC;              // dims a lane holds
   __shared__ float s_m[SPLIT_WARPS];
   __shared__ float s_l[SPLIT_WARPS];
   __shared__ float s_acc[SPLIT_WARPS][D];
@@ -373,21 +397,23 @@ paged_split_kernel(const float* __restrict__ q,
   const int j_hi = min(j_lo + C, live);
 
   const int kg = lane / LPK;               // the lane's key within a load
-  const int d0 = (lane % LPK) * VEC;       // the lane's dims d0..d0 + VEC
+  const int d0 = (lane % LPK) * VEC;       // its dims in vector 0: d0..d0 + VEC
   const float* qr = q + ((size_t)b * N + h) * D;
-  float qv[VEC], acc[VEC];
+  float qv[E], acc[E];
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) {
-    qv[e] = qr[d0 + e];
-    acc[e] = 0.f;
-  }
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      qv[v * VEC + e] = qr[v * LPK * VEC + d0 + e];
+      acc[v * VEC + e] = 0.f;
+    }
   float m = -INFINITY, l = 0.f;
 
   for (int j = j_lo + warp; j < j_hi; j += SPLIT_WARPS) {
     const int bid = table[(size_t)b * MB + j];
     if (bid < 0 || bid >= P) __trap();     // a table entry outside the pool
     for (int t0 = 0; t0 < bs; t0 += U * KPL) {
-      KVec<QUANT> kx[U], vx[U];
+      KVec<QUANT> kx[U][NV], vx[U][NV];
       float s[U];
       float mx = -INFINITY;
 #pragma unroll
@@ -395,15 +421,21 @@ paged_split_kernel(const float* __restrict__ q,
         const int tok = t0 + u * KPL + kg;
         const bool ok = tok < bs;
         const size_t row = ((size_t)bid * bs + (ok ? tok : 0)) * N + h;
-        kx[u].load(k_pool, k_scale, row, D, d0, ok);
-        vx[u].load(v_pool, v_scale, row, D, d0, ok);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          kx[u][v].load(k_pool, k_scale, row, D, v * LPK * VEC + d0, ok);
+          vx[u][v].load(v_pool, v_scale, row, D, v * LPK * VEC + d0, ok);
+        }
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int tok = t0 + u * KPL + kg;
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) dot = fmaf(qv[e], kx[u].at(e), dot);
+        for (int v = 0; v < NV; ++v)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            dot = fmaf(qv[v * VEC + e], kx[u][v].at(e), dot);
 #pragma unroll
         for (int o = 1; o < LPK; o <<= 1) dot += __shfl_xor_sync(FULL, dot, o);
         s[u] = (tok < bs && j * bs + tok <= pq) ? dot * scale : -INFINITY;
@@ -414,13 +446,16 @@ paged_split_kernel(const float* __restrict__ q,
       const float corr = (m == -INFINITY) ? 0.f : expf(m - safe);
       l *= corr;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] *= corr;
+      for (int e = 0; e < E; ++e) acc[e] *= corr;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const float p = (s[u] == -INFINITY) ? 0.f : expf(s[u] - safe);
         l += p;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(p, vx[u].at(e), acc[e]);
+        for (int v = 0; v < NV; ++v)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[v * VEC + e] = fmaf(p, vx[u][v].at(e), acc[v * VEC + e]);
       }
       m = m_new;
     }
@@ -429,16 +464,19 @@ paged_split_kernel(const float* __restrict__ q,
   // the warp's key groups hold the same dims: merge them by shuffles
 #pragma unroll
   for (int o = LPK; o < 32; o <<= 1) {
-    float a2[VEC];
+    float a2[E];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) a2[e] = __shfl_xor_sync(FULL, acc[e], o);
+    for (int e = 0; e < E; ++e) a2[e] = __shfl_xor_sync(FULL, acc[e], o);
     const float m2 = __shfl_xor_sync(FULL, m, o);
     const float l2 = __shfl_xor_sync(FULL, l, o);
-    merge<VEC>(m, l, acc, m2, l2, a2);
+    merge<E>(m, l, acc, m2, l2, a2);
   }
   if (kg == 0) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) s_acc[warp][d0 + e] = acc[e];
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        s_acc[warp][v * LPK * VEC + d0 + e] = acc[v * VEC + e];
     if (lane == 0) {
       s_m[warp] = m;
       s_l[warp] = l;
@@ -502,6 +540,35 @@ paged_combine_kernel(const float* __restrict__ ws, const int* __restrict__ pos,
     const int d = lane + 32 * c;
     if (d < D) o[d] = A[c] / ls;
   }
+}
+
+// dynamic shared memory of the CUDA-core tiled kernel: two staged pool
+// blocks of K and V (rows padded to D + 1) and the 16-row Q tile
+inline size_t simt_smem(int D, int bs) {
+  return (size_t)(2 * bs * (D + 1) + QT * D) * sizeof(float);
+}
+
+// above 48 KB a kernel gets dynamic shared memory only through this
+// attribute (D 256 at block 16 needs 49,280 bytes, at block 32 82,176)
+template <bool QUANT>
+int simt_prepare(size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      paged_attention_kernel<QUANT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+}
+
+template <bool QUANT>
+int simt_launch(const float* q, const void* k_pool, const void* v_pool,
+                const float* k_scale, const float* v_scale, const int* table,
+                const int* pos, float* out, int B, int S_q, int N, int D,
+                int P, int bs, int MB, float scale, cudaStream_t st) {
+  const size_t smem = simt_smem(D, bs);
+  if (int e = simt_prepare<QUANT>(smem)) return e;
+  const dim3 grid((S_q + QT - 1) / QT, N, B);
+  paged_attention_kernel<QUANT><<<grid, THREADS, smem, st>>>(
+      q, k_pool, v_pool, k_scale, v_scale, table, pos, out, S_q, N, D, P, bs,
+      MB, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool QUANT, int D>
@@ -937,6 +1004,37 @@ int tiled_budget(int* out) {
   return 0;
 }
 
+// {CTAs per SM, registers per thread, local (spill) bytes per thread,
+// shared bytes (static + dynamic)} of ``kern`` launched with ``threads``
+// threads and ``dyn`` dynamic shared bytes
+template <typename K>
+int kernel_budget(K kern, int threads, size_t dyn, int* out) {
+  cudaFuncAttributes a;
+  if (cudaError_t e = cudaFuncGetAttributes(&a, kern))
+    return static_cast<int>(e);
+  int ctas = 0;
+  if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &ctas, kern, threads, dyn))
+    return static_cast<int>(e);
+  out[0] = ctas;
+  out[1] = a.numRegs;
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = static_cast<int>(a.sharedSizeBytes + dyn);
+  return 0;
+}
+
+template <bool QUANT, int D>
+int split_budget(int* out) {
+  return kernel_budget(paged_split_kernel<QUANT, D>, SPLIT_THREADS, 0, out);
+}
+
+template <bool QUANT>
+int simt_budget(int D, int bs, int* out) {
+  if (int e = simt_prepare<QUANT>(simt_smem(D, bs))) return e;
+  return kernel_budget(paged_attention_kernel<QUANT>, THREADS,
+                       simt_smem(D, bs), out);
+}
+
 // the instantiation a head dim takes: D rounded up to 16, 32, 64 or 128
 // (0 above 128)
 inline int padded_dim(int D) {
@@ -966,34 +1064,31 @@ inline int padded_dim(int D) {
 }  // namespace
 
 // Launch the query-tiled CUDA-core kernel on ``stream`` (any D <= 256;
-// the dispatcher sends it 128 < D <= 256); returns cudaGetLastError() (0
-// when the launch was accepted). The caller checks shapes, dtypes,
-// contiguity and that 2 bs (D + 1) + 16 D floats fit in 48 KB.
+// the dispatcher sends it 128 < D <= 256), its dynamic shared memory
+// granted through the attribute first; returns the CUDA error of the
+// attribute call or of the launch (0 when accepted). The caller checks
+// shapes, dtypes, contiguity, bs <= 32 (a key per lane) and that 2 bs
+// (D + 1) + 16 D floats fit the card's 227 KB.
 extern "C" int tfos_paged_attention_simt(
     const float* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* table,
     const int* pos, float* out, int B, int S_q, int N, int D, int P,
     int bs, int MB, float scale, int quantized, void* stream) {
   if (B <= 0 || S_q <= 0 || N <= 0) return 0;
-  const dim3 grid((S_q + QT - 1) / QT, N, B);
-  const size_t smem = (size_t)(2 * bs * (D + 1) + QT * D) * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (quantized) {
-    paged_attention_kernel<true><<<grid, THREADS, smem, st>>>(
-        q, k_pool, v_pool, k_scale, v_scale, table, pos, out, S_q, N, D, P,
-        bs, MB, scale);
-  } else {
-    paged_attention_kernel<false><<<grid, THREADS, smem, st>>>(
-        q, k_pool, v_pool, k_scale, v_scale, table, pos, out, S_q, N, D, P,
-        bs, MB, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return quantized ? simt_launch<true>(q, k_pool, v_pool, k_scale, v_scale,
+                                       table, pos, out, B, S_q, N, D, P, bs,
+                                       MB, scale, st)
+                   : simt_launch<false>(q, k_pool, v_pool, k_scale, v_scale,
+                                        table, pos, out, B, S_q, N, D, P, bs,
+                                        MB, scale, st);
 }
 
 // Launch the split-KV route on ``stream`` for one query per row
 // (decode: q [B, 1, N, D], pos [B, 1]): the split kernel, C pool blocks
 // per split, into the float32 workspace ``ws`` [B, N, ceil(MB / C),
-// D + 2], then the combine kernel into ``out``. D in {16, 32, 64, 128},
+// D + 2], then the combine kernel into ``out``. D in {16, 32, 64, 128,
+// 256},
 // pools 16-byte aligned (the caller checks). Returns the first launch's
 // CUDA error (0 when both were accepted).
 extern "C" int tfos_paged_attention_split(
@@ -1013,6 +1108,7 @@ extern "C" int tfos_paged_attention_split(
       case 32: TFOS_SPLIT(true, 32);
       case 64: TFOS_SPLIT(true, 64);
       case 128: TFOS_SPLIT(true, 128);
+      case 256: TFOS_SPLIT(true, 256);
     }
   } else {
     switch (D) {
@@ -1020,6 +1116,7 @@ extern "C" int tfos_paged_attention_split(
       case 32: TFOS_SPLIT(false, 32);
       case 64: TFOS_SPLIT(false, 64);
       case 128: TFOS_SPLIT(false, 128);
+      case 256: TFOS_SPLIT(false, 256);
     }
   }
 #undef TFOS_SPLIT
@@ -1052,10 +1149,30 @@ extern "C" int tfos_paged_attention_tiled(
                       D, P, bs, MB, scale, kv_vec, q_vec, st);
 }
 
-// The resource budget of the query-tiled tensor-core kernel for head dim
-// D (its instantiation: D rounded up to 16, 32, 64 or 128) and pool
-// dtype: out[4] = {CTAs per SM, registers per thread, local (spill)
-// bytes per thread, dynamic shared-memory bytes}.
-extern "C" int tfos_paged_budget(int D, int quantized, int* out) {
+// The resource budget of one route's kernel for head dim D and pool
+// dtype: route 0 the query-tiled tensor-core kernel (its instantiation:
+// D rounded up to 16, 32, 64 or 128), 1 the split-KV kernel (D in {16,
+// 32, 64, 128, 256}), 2 the CUDA-core tiled kernel at block size bs.
+// out[4] = {CTAs per SM, registers per thread, local (spill) bytes per
+// thread, shared-memory bytes}.
+extern "C" int tfos_paged_budget(int route, int D, int quantized, int bs,
+                                 int* out) {
+  if (route == 2)
+    return quantized ? simt_budget<true>(D, bs, out)
+                     : simt_budget<false>(D, bs, out);
+  if (route == 1) {
+#define TFOS_SPLIT_BUDGET(DD)                                               \
+  case DD:                                                                  \
+    return quantized ? split_budget<true, DD>(out) : split_budget<false, DD>(out)
+    switch (D) {
+      TFOS_SPLIT_BUDGET(16);
+      TFOS_SPLIT_BUDGET(32);
+      TFOS_SPLIT_BUDGET(64);
+      TFOS_SPLIT_BUDGET(128);
+      TFOS_SPLIT_BUDGET(256);
+    }
+#undef TFOS_SPLIT_BUDGET
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   TFOS_TILED_DISPATCH(tiled_budget, quantized, padded_dim(D), out);
 }

@@ -172,12 +172,17 @@ __device__ __forceinline__ void mma3_rows(float (&c)[NJ][4],
 }
 
 // c[j] = A B^T for 8-row blocks j in [j_lo, j_hi) of tile B: A rows
-// r0..r0 + 15 of tile A, both tiles' columns (D of them) the contraction
+// r0..r0 + 15 of tile A, both tiles' columns (D of them) the contraction.
+// The 8-wide k steps are unrolled whole up to D 128; at D 256 eight at a
+// time, which keeps the loads the compiler hoists ahead of the 32 steps
+// from spilling the 128 accumulator registers a thread of dQ and dK
+// (unrolled whole, dQ spilled 64 bytes a thread).
 template <int D, int NT>
 __device__ __forceinline__ void rows_by_rows(float (&c)[NT][4], const float* A,
                                              const float* B, int r0, int j_lo,
                                              int j_hi, int g, int t) {
-#pragma unroll
+  constexpr int UN = D > 128 ? 8 : D / 8;
+#pragma unroll UN
   for (int ks = 0; ks < D / 8; ++ks) {
     uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
     load_a<D>(ah, al, A, r0, 8 * ks, g, t);
@@ -189,19 +194,33 @@ __device__ __forceinline__ void rows_by_rows(float (&c)[NT][4], const float* A,
   }
 }
 
-// c[n] += A B[n] for every 8-column block n of the D columns of tile B,
-// whose rows k0..k0 + 7 are the contraction (A from a C fragment)
-template <int D>
-__device__ __forceinline__ void a_by_cols(float (&c)[D / 8][4],
+// c[n] += A B[n] for the NB 8-column blocks n of tile B (rows of D
+// columns) from column c0 on, whose rows k0..k0 + 7 are the contraction
+// (A from a C fragment). At D <= 128 the blocks take their B fragments
+// all at once; at D 256 2 at a time, pass-major within each 2, so the
+// 128 accumulator registers a thread of a 256-column accumulator leave
+// room for the B fragments.
+template <int D, int NB>
+__device__ __forceinline__ void a_by_cols(float (&c)[NB][4],
                                           const uint32_t (&ah)[4],
                                           const uint32_t (&al)[4],
-                                          const float* B, int k0, int g,
-                                          int t) {
-  uint32_t bh[D / 8][2], bl[D / 8][2];
+                                          const float* B, int k0, int c0,
+                                          int g, int t) {
+  constexpr int CH = D > 128 ? 2 : NB;
+  static_assert(NB % CH == 0, "column blocks come in whole chunks");
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    load_b_cols<D>(bh[n], bl[n], B, k0, 8 * n, g, t);
-  mma3_rows<true, true>(c, ah, al, bh, bl, 0, D / 8);
+  for (int n0 = 0; n0 < NB; n0 += CH) {
+    uint32_t bh[CH][2], bl[CH][2];
+#pragma unroll
+    for (int n = 0; n < CH; ++n)
+      load_b_cols<D>(bh[n], bl[n], B, k0, c0 + 8 * (n0 + n), g, t);
+#pragma unroll
+    for (int n = 0; n < CH; ++n) mma_tf32(c[n0 + n], al, bh[n]);
+#pragma unroll
+    for (int n = 0; n < CH; ++n) mma_tf32(c[n0 + n], ah, bl[n]);
+#pragma unroll
+    for (int n = 0; n < CH; ++n) mma_tf32(c[n0 + n], ah, bh[n]);
+  }
 }
 
 template <int NI>

@@ -31,9 +31,10 @@ Two formulations share that contract:
   key tiles its row's mask leaves live. The forward keeps its online
   softmax in registers. The designs are
   in the source's header and the measured share of the bound in
-  PERF.md. Head dims 16/32/64/128 are instantiated; any other head
-  dim up to 128 runs zero-padded to the next of them (zero columns add
-  nothing to ``q k^T``, so lse and the true columns are unchanged), and
+  PERF.md. Head dims 16/32/64/128/256 are instantiated; any other head
+  dim up to 256 runs zero-padded to the next of them (zero columns add
+  nothing to ``q k^T``, so lse and the true columns are unchanged; a
+  192-wide head runs at 256), and
   a batch whose ``B * N`` exceeds one launch's grid runs in slices of
   the batch (:func:`_on_kernels`). Float32 or bfloat16 inputs with
   float32 statistics and accumulators.
@@ -62,7 +63,7 @@ DEFAULT_BLOCK_K = 128
 
 #: head dims the kernels are instantiated for (a template parameter);
 #: narrower heads run zero-padded to the next of them
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 #: the most ``B * N`` one launch takes (the bfloat16 kernels put it on
 #: grid y); a larger batch is launched in slices
@@ -358,14 +359,14 @@ def padded_head_dim(d):
             return dp
     raise ValueError(
         "flash_attention kernel: head_dim {} is wider than {}, the widest "
-        "instantiation; heads above 128 wait for ROADMAP Queue 2 item 7 "
-        "(flash head dims above 128)".format(d, HEAD_DIMS[-1]))
+        "instantiation; heads above 256 wait for ROADMAP Queue 2 item 12 "
+        "(head dims above 256)".format(d, HEAD_DIMS[-1]))
 
 
 def _on_kernels(fns, q, k, v, bias, causal, scale, bwd=()):
     """Call each kernel wrapper of ``fns`` (``_kernel_fwd``, ``_kernel_dq``
     or ``_kernel_dkv``, or a plain version with the same signature) at any
-    head dim up to 128 and any ``B * N``, on inputs padded once for all.
+    head dim up to 256 and any ``B * N``, on inputs padded once for all.
 
     q, k, v and dO (the first of ``bwd = (dout, lse, delta)``) are
     zero-padded on D to :func:`padded_head_dim`; ``scale`` is the caller's,

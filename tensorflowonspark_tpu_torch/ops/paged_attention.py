@@ -25,7 +25,7 @@ Three formulations share that contract:
   call's shape (:func:`_route`):
 
   - **split-KV** (S_q = :data:`SPLIT_MAX_QUERIES` = 1 at a head dim in
-    :data:`SPLIT_HEAD_DIMS`: every decode step): the flash-decoding
+    :data:`SPLIT_HEAD_DIMS`, 16 to 256: every decode step): the flash-decoding
     schedule. One CTA per :data:`SPLIT_BLOCKS` consecutive live pool
     blocks of a (row, head), so a decode step of 8 rows x 12 heads still
     spreads over every SM; 16-byte loads of K/V rows straight into
@@ -42,8 +42,11 @@ Three formulations share that contract:
     in TF32, the scales folded into S's and P's columns), float32-
     accurate; :func:`budget` reads its registers and occupancy;
   - **tiled_simt** (head dims above :data:`TILED_MAX_HEAD_DIM`, up to
-    :data:`MAX_HEAD_DIM`): the first query-tiled kernel, on CUDA cores,
-    one pool block at a time staged in shared memory.
+    :data:`MAX_HEAD_DIM`, other than decode at 256): the first
+    query-tiled kernel, on CUDA cores, one pool block at a time staged
+    in shared memory; at D 256 that is above 48 KB, so its launch asks
+    for the shared memory through the kernel's attribute first (up to
+    :data:`MAX_SMEM_BYTES`).
 
   All walk only a row's LIVE keys through the table (dead slots are
   never loaded, so traffic tracks live tokens, not table width) and
@@ -92,8 +95,9 @@ SPLIT_MAX_QUERIES = 1
 SPLIT_BLOCKS = 4
 
 #: head dims the split-KV kernel is instantiated for (a key row splits
-#: into a power of two of 16-byte lanes); others take the tiled route
-SPLIT_HEAD_DIMS = (16, 32, 64, 128)
+#: into a power of two of 16-byte lanes; a float32 row of 256 puts two
+#: 16-byte vectors on each lane of the warp); others take a tiled route
+SPLIT_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 #: largest head_dim the tensor-core tiled kernel takes: instantiated at
 #: 16, 32, 64 and 128, a head dim in between zero-padded to the next
@@ -106,8 +110,23 @@ TILED_MAX_HEAD_DIM = 128
 MAX_BLOCK_SIZE = 32
 
 #: largest head_dim the kernels take (the CUDA-core tiled kernel keeps
-#: eight accumulator registers per lane per query row)
+#: eight accumulator registers per lane per query row); wider heads wait
+#: for ROADMAP Queue 2 item 12 (head dims above 256)
 MAX_HEAD_DIM = 256
+
+#: the most shared memory one CTA may have on the H100 (227 KB), which the
+#: CUDA-core tiled kernel's launch asks for through the dynamic
+#: shared-memory attribute; its static part (two ints) takes 16 bytes as
+#: compiled
+MAX_SMEM_BYTES = 232448
+_SIMT_STATIC_SMEM = 16
+
+
+def simt_smem_bytes(head_dim, block_size):
+    """Dynamic shared memory of one ``tiled_simt`` launch: two staged pool
+    blocks of K and V (rows padded to ``head_dim + 1``) and the 16-row Q
+    tile, float32 (``csrc/paged_attention.cu`` ``simt_smem``)."""
+    return (2 * block_size * (head_dim + 1) + QUERY_TILE * head_dim) * 4
 
 
 def quantize_kv(x):
@@ -232,21 +251,39 @@ def _route(s_q, head_dim):
     return "tiled_simt"
 
 
-def budget(head_dim, quantized=False):
-    """The tensor-core tiled kernel's resources on the current card, for
-    the instantiation ``head_dim`` takes and float32 or int8
-    (``quantized``) pools: ``{"ctas_per_sm", "registers", "spill_bytes",
-    "smem_bytes"}`` (registers and local-memory bytes per thread as the
-    compiler left them; CTAs per SM from the card's occupancy
-    calculator)."""
+#: the routes :func:`budget` reads, in the C interface's order
+BUDGET_ROUTES = ("tiled", "split", "tiled_simt")
+
+
+def budget(head_dim, quantized=False, route="tiled", block_size=16):
+    """One route's kernel resources on the current card, for the
+    instantiation ``head_dim`` takes and float32 or int8 (``quantized``)
+    pools: ``{"ctas_per_sm", "registers", "spill_bytes", "smem_bytes"}``
+    (registers and local-memory bytes per thread as the compiler left
+    them; CTAs per SM from the card's occupancy calculator). ``route``
+    "tiled" (the default: the tensor-core tiled kernel, dynamic shared
+    bytes), "split" (the split-KV kernel, static shared bytes) or
+    "tiled_simt" (the CUDA-core tiled kernel at ``block_size``, static
+    and dynamic shared bytes)."""
     from tensorflowonspark_tpu_torch.ops import _build
     import ctypes
 
-    _check(1 <= head_dim <= TILED_MAX_HEAD_DIM,
-           "no tiled kernel at head_dim {}".format(head_dim))
+    _check(route in BUDGET_ROUTES, "no route {!r}".format(route))
+    if route == "tiled":
+        _check(1 <= head_dim <= TILED_MAX_HEAD_DIM,
+               "no tiled kernel at head_dim {}".format(head_dim))
+    elif route == "split":
+        _check(head_dim in SPLIT_HEAD_DIMS,
+               "no split kernel at head_dim {}".format(head_dim))
+    else:
+        _check(1 <= head_dim <= MAX_HEAD_DIM
+               and 1 <= block_size <= MAX_BLOCK_SIZE,
+               "no tiled_simt kernel at head_dim {}, block {}".format(
+                   head_dim, block_size))
     out = (ctypes.c_int * 4)()
     rc = _build.load("paged_attention").tfos_paged_budget(
-        head_dim, int(quantized), out)
+        BUDGET_ROUTES.index(route), head_dim, int(quantized), block_size,
+        out)
     if rc != 0:
         raise RuntimeError("paged_attention budget query failed: CUDA error "
                            "{}".format(rc))
@@ -293,7 +330,8 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
            "pos must be int32 [B, S_q]")
     _check(bs_blk >= 1, "block_size must be at least 1")
     _check(1 <= d <= MAX_HEAD_DIM,
-           "head_dim must be in [1, {}]".format(MAX_HEAD_DIM))
+           "head_dim must be in [1, {}]; wider heads wait for ROADMAP "
+           "Queue 2 item 12 (head dims above 256)".format(MAX_HEAD_DIM))
     route = _route(s_q, d)
     mb = block_table.shape[1]
     if route == "split":
@@ -304,7 +342,8 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
         _check(bs_blk <= MAX_BLOCK_SIZE,
                "block_size must be in [1, {}] on the tiled_simt route "
                "(head_dim > {})".format(MAX_BLOCK_SIZE, TILED_MAX_HEAD_DIM))
-        _check(2 * bs_blk * (d + 1) * 4 + QUERY_TILE * d * 4 <= 48 * 1024,
+        _check(simt_smem_bytes(d, bs_blk) + _SIMT_STATIC_SMEM
+               <= MAX_SMEM_BYTES,
                "block_size x head_dim too large for shared memory")
     _check(all(t.is_cuda for t in tensors), "every tensor must be CUDA")
     out = torch.empty_like(q)

@@ -100,12 +100,13 @@ def test_kernel_matches_blockwise(cuda, s_q, quant):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_split_route_depths_on_and_off_split_boundaries(cuda, d, quant):
     """Rows whose depth ends exactly on a split boundary (C blocks), one
     token past it, one short of it, and mid-block, at every head dim the
-    split kernel is built for; block 16 and a table wider than the
-    deepest row, so some splits hold no live block."""
+    split kernel is built for (float32 at 256: two 16-byte vectors a
+    lane); block 16 and a table wider than the deepest row, so some
+    splits hold no live block."""
     rng = np.random.RandomState(d)
     bs, mb = 16, 20
     span = pa.SPLIT_BLOCKS * bs
@@ -420,14 +421,19 @@ def test_simt_route_refuses_block_64(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
-@pytest.mark.parametrize("d", [16, 18, 20, 48, 64, 128, 192])
-def test_tiled_routes_head_dims(cuda, d, quant):
+@pytest.mark.parametrize(
+    "d,bs", [(16, 16), (18, 16), (20, 16), (48, 16), (64, 16), (128, 16),
+             (192, 16), (256, 16), (256, 32)],
+    ids=["16", "18", "20", "48", "64", "128", "192", "256", "256-bs32"])
+def test_tiled_routes_head_dims(cuda, d, bs, quant):
     """The tensor-core tiled kernel at its instantiations (16, 64, 128)
     and at 18, 20 and 48, zero-padded in shared memory: rows of 72 float
     bytes take 4-byte copies, int8 rows of 20 codes 4-byte and of 18
-    codes byte copies; above 128 the CUDA-core tiled kernel (192)."""
+    codes byte copies; above 128 the CUDA-core tiled kernel (192, and
+    256 at blocks 16 and 32, whose staged blocks need more than 48 KB of
+    shared memory)."""
     rng = np.random.RandomState(d)
-    bs, mb, s_q = 16, 6, 40
+    mb, s_q = 96 // bs, 40
     args, scales = _paged_case(cuda, rng, s_q, quant, [mb * bs - 7, 50, s_q],
                                n=2, d=d, bs=bs, mb=mb)
     got, route = _launch(args, scales)
@@ -500,11 +506,20 @@ FLASH_CASES = [
     (1, 150, 150, 2, 128, True, False, torch.bfloat16),
     # BERT-base's attention at a reduced batch: S 384, 12 heads of 64
     (2, 384, 384, 12, 64, False, True, torch.bfloat16),
+    # D 256: 16-row streamed tiles (float32), 32-key forward tiles
+    # (bfloat16), dK/dV in two column halves; causal and ragged,
+    # rectangular with a key mask and a fully masked batch row
+    (2, 200, 200, 2, 256, True, False, torch.float32),
+    (2, 72, 136, 3, 256, False, True, torch.float32),
+    (2, 200, 200, 2, 256, True, False, torch.bfloat16),
+    (2, 72, 136, 3, 256, False, True, torch.bfloat16),
 ]
 FLASH_IDS = ["causal-ragged", "rect-mask", "bf16", "d128",
              "bf16-many-tiles", "d128-rect-mask", "bf16-d16-mask",
              "bf16-d32-rect-mask", "bf16-d128-rect-mask",
-             "bf16-d128-causal-ragged", "bf16-bert-b2"]
+             "bf16-d128-causal-ragged", "bf16-bert-b2", "d256-causal-ragged",
+             "d256-rect-mask", "bf16-d256-causal-ragged",
+             "bf16-d256-rect-mask"]
 
 
 def _assert_close(got, want, pv=None):
@@ -647,13 +662,13 @@ def _check_against_plain(q, k, v, bias, dout, g_lse, causal, scale, got):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal,masked", [(True, False), (False, True)],
                          ids=["causal", "key_mask"])
-@pytest.mark.parametrize("d", [8, 24, 96, 112])
+@pytest.mark.parametrize("d", [8, 24, 96, 112, 192])
 def test_flash_pads_head_dims_it_has_no_instantiation_for(cuda, d, causal,
                                                           masked, dtype):
-    """Head dims 8, 24, 96 and 112 run zero-padded to 16, 32, 128 and 128
-    with the scale of the true D: out, lse, dQ, dK and dV at the true D
-    against the plain versions under the unchanged limits, one launch of
-    each kernel."""
+    """Head dims 8, 24, 96, 112 and 192 run zero-padded to 16, 32, 128,
+    128 and 256 with the scale of the true D: out, lse, dQ, dK and dV at
+    the true D against the plain versions under the unchanged limits,
+    one launch of each kernel."""
     case = (2, 136, 136, 3, d, causal, masked, dtype)
     q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
     scale = d ** -0.5
@@ -739,6 +754,38 @@ def test_flash_backward_budget_at_d64(cuda, kind, dtype):
     if kind == "dq" and dtype == torch.bfloat16:
         assert got["ctas_per_sm"] >= 2
     assert 0 < got["smem_bytes"] <= 227 * 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+def test_flash_budget_at_d256(cuda, kind, dtype):
+    """Every D-256 instantiation keeps its accumulators in registers (no
+    local-memory spills) and fits at least one CTA per SM within the
+    card's 227 KB of shared memory."""
+    got = fa.budget(kind, 256, dtype)
+    assert got["spill_bytes"] == 0
+    assert got["ctas_per_sm"] >= 1
+    assert 0 < got["smem_bytes"] <= 227 * 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("route,bs", [("split", 16), ("tiled_simt", 16),
+                                      ("tiled_simt", 32)],
+                         ids=["split", "simt-bs16", "simt-bs32"])
+def test_paged_budget_at_d256(cuda, route, bs, quant):
+    """The split-KV kernel at D 256 and the CUDA-core tiled kernel at
+    blocks 16 and 32 keep their state in registers and fit the card: the
+    CUDA-core kernel's dynamic shared memory, above 48 KB, is granted
+    through its attribute."""
+    got = pa.budget(256, quant, route=route, block_size=bs)
+    assert got["spill_bytes"] == 0
+    assert got["ctas_per_sm"] >= 1
+    assert 0 < got["smem_bytes"] <= 227 * 1024
+    if route == "tiled_simt":
+        assert got["smem_bytes"] >= pa.simt_smem_bytes(256, bs) > 48 * 1024
 
 
 @pytest.mark.cuda

@@ -603,11 +603,15 @@ def test_batch_slices_equal_one_launch(monkeypatch):
 
 
 def test_head_dim_above_128_raises_naming_the_roadmap_item():
-    assert [fa.padded_head_dim(d) for d in (1, 16, 17, 64, 65, 128)] == \
-        [16, 16, 32, 64, 128, 128]
-    q = torch.zeros(1, 16, 1, 192)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 7"):
-        fa._on_kernels((fa._fwd_plain,), q, q, q, None, False, 192 ** -0.5)
+    """Head dims pad to the next instantiation up to 256 (the widest since
+    D 256 was instantiated); above it the kernel route raises, naming
+    the ROADMAP item that lists wider heads."""
+    assert [fa.padded_head_dim(d)
+            for d in (1, 16, 17, 64, 65, 128, 129, 192, 256)] == \
+        [16, 16, 32, 64, 128, 128, 256, 256, 256]
+    q = torch.zeros(1, 16, 1, 320)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 12"):
+        fa._on_kernels((fa._fwd_plain,), q, q, q, None, False, 320 ** -0.5)
     empty = torch.zeros(0, 16, 1, 16)
     with pytest.raises(ValueError, match="B must be positive"):
         fa._on_kernels((fa._fwd_plain,), empty, empty, empty, None, False,
