@@ -32,8 +32,9 @@ Phases, stopping with a non-zero exit at the first failure:
 3. kernel against plain version — ``paged_attention``'s CUDA kernels
    against ``_blockwise`` on the card, fp32 and int8 pools, S_q 1 (the
    split-KV route) and S_q 16 and 128 (the tensor-core query-tiled
-   route) at 12 heads of 64, and S_q 16 at 4 heads of 192 (the
-   CUDA-core tiled route), mixed row depths, rows whose positions
+   route) at 12 heads of 64, and S_q 16 at 4 heads of 192 (the same
+   route, zero-padded to its 256 instantiation), mixed row depths, rows
+   whose positions
    overshoot the table, an all-scratch (inactive) row; a second call
    must be bitwise equal, and NaN-poisoned dead pool rows must leave the
    output bitwise unchanged. Then the kernels' times at the serving
@@ -386,17 +387,20 @@ Phases, stopping with a non-zero exit at the first failure:
    gloo, not a TP speed);
 17. heads 256 wide — (a) each D-256 instantiation against its plain
    version on the card: the split-KV route (8 slots, block 16, 8 heads
-   of 256) and the CUDA-core tiled route (blocks 16 and 32, a 256-token
-   tail and a cold 512 prompt), float and int8, held as phase 3's cases
-   are; the three flash kernels at B 4 x S 1024 x 8 x 256, causal, in
-   float32 and bfloat16, and at D 192 through the padding, under phase
-   3b's limits; each timed beside its plain version, its SDPA yardstick
-   and its bound; (b) a ``DecoderLM`` of Gemma-2B's attention width and
+   of 256) and the tensor-core tiled route (blocks 16, 32 and 64, a
+   256-token tail and a cold 512 prompt), float and int8, held as phase
+   3's cases are; the three flash kernels at B 4 x S 1024 x 8 x 256,
+   causal, in float32 and bfloat16 (float32 dK/dV: one CTA of 8 warps a
+   key tile), and at D 192 through the padding, under phase 3b's
+   limits; each timed beside its plain version, its SDPA yardstick and
+   its bound; the budgets of the D-256 tiled kernel and of dK/dV
+   (spill-free, within 227 KB); (b) a ``DecoderLM`` of Gemma-2B's
+   attention width and
    depth on the repo's own block (vocab 50257, hidden 2048 = 8 heads x
    256, 18 layers, max_len 1024; random weights from the seed) behind
    ``ModelServer``, the engine at its automatic block (16) and 8 slots,
    phase 4's 16 requests from 4 clients at float and int8 KV: every
-   decode step on the split route and every prefill on ``tiled_simt``,
+   decode step on the split route and every prefill on the tiled one,
    18 a step or prefill, exactly; tokens equal the gather oracle's but
    at a top-2 tie (below 1e-4 at float KV, 1e-3 at int8, where the two
    engines quantize K/V that differ by float noise); tokens/s, TTFT p50
@@ -416,8 +420,8 @@ Phases, stopping with a non-zero exit at the first failure:
    ``launches_planes``, phase 13's as ``launches_fleet``, phase 14's as
    ``launches_supervised``, and the verify window's times as
    ``verify``; the flash rows add phase 15's as ``launches_recovery``;
-   phase 17's rows: the split route and the CUDA-core tiled route at D
-   256 with 17(b)'s launches, and the flash kernels at D 256 with
+   phase 17's rows: the split route and the tensor-core tiled route at
+   D 256 with 17(b)'s launches, and the flash kernels at D 256 with
    17(c)'s, their bfloat16 instantiations' times beside them), the card
    line, and last the ``{"ok": true, ...}`` line.
 
@@ -566,8 +570,8 @@ def live_rows(table, pos, bs):
 
 #: (queries per row, heads, head dim, table width) of the kernel cases:
 #: the split route at decode, the tensor-core tiled route at two windows
-#: of the serving widths, the CUDA-core tiled route at a head dim above
-#: 128 (a table of 8 blocks keeps its staged block in 48 KB)
+#: of the serving widths and at a head dim above 128 (192, zero-padded
+#: to the 256 instantiation)
 PAGED_CASES = [(1, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK),
                (16, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK),
                (128, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK),
@@ -576,8 +580,9 @@ PAGED_CASES = [(1, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK),
 
 def hold_case(torch, pa, dev, args, scales, s_q, d, quant, bs=BLOCK):
     """One case of the kernel against ``_blockwise``: the route the shape
-    maps to (split-KV at S_q = 1 up to D 256, query-tiled above: tensor
-    cores up to D 128, CUDA cores beyond), finite and within
+    maps to (split-KV at S_q = 1 at the head dims it is built for, the
+    tensor-core query-tiled route for every other call), finite and
+    within
     ``KERNEL_TOL``, a second call bitwise equal to the first, and
     NaN-poisoned dead pool rows leaving the output bitwise unchanged.
     Returns (route, |difference|)."""
@@ -588,7 +593,7 @@ def hold_case(torch, pa, dev, args, scales, s_q, d, quant, bs=BLOCK):
                              k_scale=ks, v_scale=vs)
     route = pa._route(s_q, d)
     check(route == ("split" if s_q == 1 and d in (16, 32, 64, 128, 256)
-                    else "tiled" if d <= 128 else "tiled_simt"),
+                    else "tiled"),
           "s_q={} D={} maps to the {} route".format(s_q, d, route))
     check(pa.route_launches == {r: before[r] + (r == route) for r in before},
           "s_q={} did not take the {} route alone".format(s_q, route))
@@ -1011,21 +1016,27 @@ def kernel_budget(torch, fa, pa):
     """Registers, spills, shared memory and CTAs per SM of the flash
     kernels and of the tensor-core tiled paged kernel at the models'
     head dim, and of every D-256 instantiation (flash in both dtypes,
-    the split-KV kernel, the CUDA-core tiled kernel at blocks 16 and
-    32), as the card reports them."""
+    the split-KV kernel, the tensor-core tiled kernel), as the card
+    reports them. The D-256 tiled kernel and float32 dK/dV must be
+    spill-free within the card's 227 KB of shared memory (the tiled
+    kernel's as ``tiled_smem_bytes`` reckons it)."""
     out = {}
     for quant in (False, True):
         kv = "int8" if quant else "float32"
-        for route, bs in (("split", BLOCK), ("tiled_simt", 16),
-                          ("tiled_simt", 32)):
-            got = pa.budget(256, quant, route=route, block_size=bs)
-            key = "paged_{} D256 {}{}".format(
-                route, kv, "" if route == "split" else " bs{}".format(bs))
+        for route in ("split", "tiled"):
+            got = pa.budget(256, quant, route=route)
+            key = "paged_{} D256 {}".format(route, kv)
             out[key] = got
-            log("budget {:<30}: {} registers, {} spill bytes, {} bytes "
+            log("budget {:<25}: {} registers, {} spill bytes, {} bytes "
                 "shared, {} CTAs/SM".format(
                     key, got["registers"], got["spill_bytes"],
                     got["smem_bytes"], got["ctas_per_sm"]))
+        got = out["paged_tiled D256 {}".format(kv)]
+        check(got["spill_bytes"] == 0 and got["ctas_per_sm"] >= 1
+              and got["smem_bytes"] == pa.tiled_smem_bytes(256, quant)
+              <= pa.MAX_SMEM_BYTES,
+              "the D-256 tiled kernel ({}) spills or does not fit: {}"
+              .format(kv, got))
     for kind in ("fwd", "dq", "dkv"):
         for dtype in ("float32", "bfloat16"):
             got = fa.budget(kind, 256, getattr(torch, dtype))
@@ -1034,6 +1045,10 @@ def kernel_budget(torch, fa, pa):
                 "KB shared, {} CTAs/SM".format(
                     kind, dtype, got["registers"], got["spill_bytes"],
                     got["smem_bytes"] // 1024, got["ctas_per_sm"]))
+    got = out["dkv D256 float32"]
+    check(got["spill_bytes"] == 0 and got["ctas_per_sm"] >= 1
+          and got["smem_bytes"] <= pa.MAX_SMEM_BYTES,
+          "float32 dK/dV at D 256 spills or does not fit: {}".format(got))
     for quant in (False, True):
         got = pa.budget(HIDDEN // HEADS, quant)
         out["paged_tiled {}".format("int8" if quant else "float32")] = got
@@ -1198,7 +1213,7 @@ def serving_phase(torch, dev):
     log("serving paged launches by route: {} (decode steps {}, prefills {}, "
         "{} layers)".format(route_launches, steps, prefills, LAYERS))
     check(route_launches == {"split": LAYERS * steps,
-                             "tiled": LAYERS * prefills, "tiled_simt": 0},
+                             "tiled": LAYERS * prefills},
           "decode steps did not all take the split route and prefills the "
           "tiled one")
     for kv in (None, "int8"):
@@ -3688,8 +3703,7 @@ def speculative_leg(torch, pa, generation, serving, model, reqs, runs, dev):
         rounds, prefills = counts["decode_steps"], counts["prefills"]
         want_routes = {"split": draft_layers * SPEC_K * rounds,
                        "tiled": LAYERS * rounds
-                       + (LAYERS + draft_layers) * prefills,
-                       "tiled_simt": 0}
+                       + (LAYERS + draft_layers) * prefills}
         check(routes == want_routes,
               "{}: paged launches by route {} are not {} ({} rounds, {} "
               "prefills)".format(label, routes, want_routes, rounds,
@@ -4319,7 +4333,7 @@ def planes_phase(torch, pa, dev, runs, decode_timing):
     before = dict(pa.route_launches)
     attn_ms = engine.measure_attn(reps=5)
     moved = {r: pa.route_launches[r] - before[r] for r in before}
-    check(moved == {"split": 6, "tiled": 0, "tiled_simt": 0},
+    check(moved == {"split": 6, "tiled": 0},
           "12(c) measure_attn(reps=5) launched {} (want 5 timed calls "
           "and one warm-up on the split route)".format(moved))
     with serving.DecodeEngine(model, slots=SLOTS, total_len=MAX_LEN,
@@ -4460,8 +4474,7 @@ def planes_phase(torch, pa, dev, runs, decode_timing):
     counts = again.counters.snapshot()["counts"]
     routes = dict(pa.route_launches)
     steps, prefills = counts["decode_steps"], counts["prefills"]
-    want = {"split": LAYERS * steps + 6, "tiled": LAYERS * prefills,
-            "tiled_simt": 0}
+    want = {"split": LAYERS * steps + 6, "tiled": LAYERS * prefills}
     check(routes == want, "phase 12 launches by route {} are not {} ({} "
           "steps, {} prefills, measure_attn's 6)".format(
               routes, want, steps, prefills))
@@ -4504,8 +4517,7 @@ def _launch_check(pa, engines, leg):
     steps = sum(c.get("decode_steps", 0) for c in counts)
     prefills = sum(c.get("prefills", 0) for c in counts)
     routes = dict(pa.route_launches)
-    want = {"split": LAYERS * steps, "tiled": LAYERS * prefills,
-            "tiled_simt": 0}
+    want = {"split": LAYERS * steps, "tiled": LAYERS * prefills}
     check(routes == want, "{} launches by route {} are not {} ({} "
           "steps, {} prefills summed over the replicas)".format(
               leg, routes, want, steps, prefills))
@@ -4623,7 +4635,7 @@ def fleet_phase(torch, pa, dev, runs, here):
     engine_kw = {"slots": SLOTS, "total_len": MAX_LEN,
                  "kv_block_size": BLOCK, "device": str(dev)}
     res = {}
-    launches = {"split": 0, "tiled": 0, "tiled_simt": 0}
+    launches = {"split": 0, "tiled": 0}
 
     def add(routes):
         for k in launches:
@@ -4721,8 +4733,7 @@ def fleet_phase(torch, pa, dev, runs, here):
         prefills = sum(a.get("prefills", 0) - before[id(e)].get(
             "prefills", 0) for a, e in zip(after, engines))
         routes = dict(pa.route_launches)
-        check(routes == {"split": LAYERS * steps, "tiled": LAYERS * prefills,
-                         "tiled_simt": 0},
+        check(routes == {"split": LAYERS * steps, "tiled": LAYERS * prefills},
               "13(b) launches {} vs {} steps, {} prefills".format(
                   routes, steps, prefills))
         add(routes)
@@ -4768,8 +4779,7 @@ def fleet_phase(torch, pa, dev, runs, here):
         prefills = sum(a.get("prefills", 0) - before[id(e)].get(
             "prefills", 0) for a, e in zip(after, engines))
         routes = dict(pa.route_launches)
-        check(routes == {"split": LAYERS * steps, "tiled": LAYERS * prefills,
-                         "tiled_simt": 0},
+        check(routes == {"split": LAYERS * steps, "tiled": LAYERS * prefills},
               "13(c) launches {} vs {} steps, {} prefills".format(
                   routes, steps, prefills))
         add(routes)
@@ -5086,8 +5096,7 @@ def _exact_launches(pa, series, before, leg):
     since ``before``; returns (routes, steps, prefills)."""
     steps, prefills = (a - b for a, b in zip(series.totals(), before))
     routes = dict(pa.route_launches)
-    check(routes == {"split": LAYERS * steps, "tiled": LAYERS * prefills,
-                     "tiled_simt": 0},
+    check(routes == {"split": LAYERS * steps, "tiled": LAYERS * prefills},
           "{} launches by route {} vs {} steps, {} prefills over {} "
           "counter series".format(leg, routes, steps, prefills,
                                   len(series.series)))
@@ -5188,7 +5197,7 @@ def supervised_phase(torch, pa, dev, runs, here):
                  "kv_block_size": BLOCK, "device": str(dev)}
     work = tempfile.mkdtemp(prefix=".tfos-supervised-", dir=here)
     res = {}
-    launches = {"split": 0, "tiled": 0, "tiled_simt": 0}
+    launches = {"split": 0, "tiled": 0}
 
     def add(routes):
         for k in launches:
@@ -6017,17 +6026,19 @@ def wide_model(torch, dev):
 
 
 def wide_kernel_cases(torch, pa, fa, dev):
-    """17(a): each new instantiation against its plain version on the
+    """17(a): each D-256 instantiation against its plain version on the
     card. Paged: the split route at D 256 (8 slots, block 16, mixed
     depths, a row overshooting the table, an all-scratch slot) and the
-    CUDA-core tiled route at D 256, blocks 16 and 32, on a 256-token tail
-    and a cold 512 prompt; float and int8 (``hold_case``: the route,
-    ``KERNEL_TOL``, a bitwise repeat, NaN-poisoned dead rows). Flash: the
-    three kernels at D 256 in float32 and bfloat16 at B 4 x S 1024 x 8,
-    causal, and D 192 through the padding (``flash_cases``, the phase-3b
-    limits). Returns the largest errors."""
+    tensor-core tiled route at D 256, blocks 16, 32 and 64 (a D-256
+    engine's pool block of 64 was refused before the tiled route took
+    these widths), on a 256-token tail and a cold 512 prompt; float and
+    int8 (``hold_case``: the route, ``KERNEL_TOL``, a bitwise repeat,
+    NaN-poisoned dead rows). Flash: the three kernels at D 256 in float32
+    and bfloat16 at B 4 x S 1024 x 8, causal (float32 dK/dV: one CTA of
+    8 warps a key tile), and D 192 through the padding (``flash_cases``,
+    the phase-3b limits). Returns the largest errors."""
     rng = np.random.RandomState(SEED + 17)
-    worst = {"split": 0.0, "tiled_simt": 0.0}
+    worst = {"split": 0.0, "tiled": 0.0}
     for quant in (False, True):
         args, scales = make_case(
             torch, rng, SLOTS, 1, MAX_LEN // BLOCK, quant, dev,
@@ -6035,7 +6046,7 @@ def wide_kernel_cases(torch, pa, fa, dev):
         route, err = hold_case(torch, pa, dev, args, scales, 1, WIDE_D,
                                quant)
         worst[route] = max(worst[route], err)
-        for bs in (16, 32):
+        for bs in (16, 32, 64):
             for s_q in (256, 512):
                 args, scales = make_case(
                     torch, rng, 1, s_q, MAX_LEN // bs, quant, dev,
@@ -6043,7 +6054,7 @@ def wide_kernel_cases(torch, pa, fa, dev):
                 route, err = hold_case(torch, pa, dev, args, scales, s_q,
                                        WIDE_D, quant, bs=bs)
                 worst[route] = max(worst[route], err)
-    check(set(worst) == {"split", "tiled_simt"},
+    check(set(worst) == {"split", "tiled"},
           "a D-256 case took another route")
     flash = flash_cases(torch, fa, dev, WIDE_FLASH_CASES, n=WIDE_HEADS,
                         d=WIDE_D, seed=SEED + 18)
@@ -6053,9 +6064,9 @@ def wide_kernel_cases(torch, pa, fa, dev):
 
 
 def wide_timing(torch, pa, fa, dev):
-    """The new rows' times: the split route at the serving decode shape
-    (phase 3's depths, 8 heads of 256), the CUDA-core tiled route at the
-    256-token tail and the cold 512 prompt (block 16), float and int8;
+    """The D-256 rows' times: the split route at the serving decode shape
+    (phase 3's depths, 8 heads of 256), the tensor-core tiled route at
+    the 256-token tail and the cold 512 prompt (block 16), float and int8;
     the flash kernels at B 4 x S 1024 x 8 x 256, causal, both dtypes."""
     depths = np.random.RandomState(SEED + 1).randint(32, 641, size=SLOTS)
     paged = {}
@@ -6076,10 +6087,19 @@ def wide_timing(torch, pa, fa, dev):
                     t["live_tokens"], t["kv_bytes"], t["flops"]))
     check(all(paged[shape][kv]["route"] == route
               for shape, route in (("decode", "split"),
-                                   ("prefill", "tiled_simt"),
-                                   ("prefill_cold", "tiled_simt"))
+                                   ("prefill", "tiled"),
+                                   ("prefill_cold", "tiled"))
               for kv in ("float32", "int8")),
-          "D 256: decode must take the split route, prefills tiled_simt")
+          "D 256: decode must take the split route, prefills the tiled one")
+    for shape in ("prefill", "prefill_cold"):
+        for kv in ("float32", "int8"):
+            t = paged[shape][kv]
+            log("D256 {} {} tiled device time {:.4f} ms = {:.3f} x SDPA's "
+                "{:.4f} ms; {:.2f}% of the {:.4f} ms bound".format(
+                    shape, kv, t["device_ms"],
+                    t["device_ms"] / t["library_device_ms"],
+                    t["library_device_ms"],
+                    100.0 * t["bound_ms"] / t["device_ms"], t["bound_ms"]))
     flash = {}
     for dtype in ("float32", "bfloat16"):
         flash[dtype] = flash_timing(torch, fa, dev, WIDE_BATCH, TRAIN_SEQ,
@@ -6092,6 +6112,12 @@ def wide_timing(torch, pa, fa, dev):
                         ft["plain_ms"], library_text(ft), ft["bound_ms"],
                         ft["bound_by"], ft["bound_simt_ms"], ft["flops"],
                         ft["bytes"]))
+        ft = flash[dtype]
+        pair = ft["dq"]["device_ms"] + ft["dkv"]["device_ms"]
+        log("flash backward D256 {}: dQ + dK/dV device time {:.4f} ms, "
+            "SDPA backward {:.4f} ms, ratio {:.3f}".format(
+                dtype, pair, ft["dq"]["library_device_ms"],
+                pair / ft["dq"]["library_device_ms"]))
     return paged, flash
 
 
@@ -6099,7 +6125,7 @@ def wide_serving(torch, pa, dev, model):
     """17(b): the D-256 decoder behind ``ModelServer``, the engine at its
     automatic block (16) and 8 slots, phase 4's 16 requests from 4
     clients at float and int8 KV. Every decode step takes the split
-    route and every prefill the CUDA-core tiled one, once a layer,
+    route and every prefill the tensor-core tiled one, once a layer,
     exactly; tokens equal the gather oracle's but at a top-2 tie."""
     from tensorflowonspark_tpu_torch import generation, serving
 
@@ -6128,10 +6154,10 @@ def wide_serving(torch, pa, dev, model):
     log("D256 serving paged launches by route: {} (decode steps {}, "
         "prefills {}, {} layers)".format(route_launches, steps, prefills,
                                         WIDE_LAYERS))
-    check(route_launches == {"split": WIDE_LAYERS * steps, "tiled": 0,
-                             "tiled_simt": WIDE_LAYERS * prefills},
+    check(route_launches == {"split": WIDE_LAYERS * steps,
+                             "tiled": WIDE_LAYERS * prefills},
           "D 256: decode steps did not all take the split route and "
-          "prefills the CUDA-core tiled one, once a layer")
+          "prefills the tiled one, once a layer")
     gen = sum(n for _, n in reqs)
     for kv in (None, "int8"):
         r = runs[kv]
@@ -6415,13 +6441,8 @@ def main():
             "tiled": {"kernels": ["paged_tiled_kernel"],
                       "calls": route_launches["tiled"],
                       "kernel_launches": route_launches["tiled"],
-                      "shape": "prefill"},
-            "tiled_simt": {"kernels": ["paged_attention_kernel"],
-                           "calls": route_launches["tiled_simt"],
-                           "kernel_launches": route_launches["tiled_simt"],
-                           "shape": "head dims 129-256 (phase 4 serves "
-                                    "none; phase 17's calls are in the "
-                                    "paged_attention_simt row)"}},
+                      "shape": "prefill (phase 17's D-256 calls are in "
+                               "the paged_attention_tiled_d256 row)"}},
         "by_shape": {shape: {"float32": timing[shape][False],
                              "int8": timing[shape][True]}
                      for shape in timing},
@@ -6449,8 +6470,8 @@ def main():
         "bound_simt_ms": t["bound_simt_ms"],
         "library_ms": t["library_ms"],
         "library_device_ms": t["library_device_ms"],
-        "budget_d64": {k.split()[1]: v for k, v in budget.items()
-                       if k.startswith("paged_tiled ")}})
+        "budget_d64": {kv: budget["paged_tiled " + kv]
+                       for kv in ("float32", "int8")}})
     for name, replaces, note in (
             ("fwd", 83, "scaled_dot_product_attention(is_causal=True)"),
             ("dq", 137, "autograd backward of that call: dq, dk and dv "
@@ -6519,9 +6540,11 @@ def main():
             ("paged_attention_split_d256", "split", "decode",
              "the split-KV route at D 256 (float32 at 256: two 16-byte "
              "vectors a lane); 17(b)'s decode steps"),
-            ("paged_attention_simt", "tiled_simt", "prefill",
-             "the CUDA-core tiled route (128 < D <= 256) at D 256, block "
-             "16; 17(b)'s prefills; the 256-token tail")):
+            ("paged_attention_tiled_d256", "tiled", "prefill",
+             "the tensor-core tiled route at D 256 (paged_tiled_kernel<Q, "
+             "256>: 32-key tiles, 4 partial sums of S), block 16; 17(b)'s "
+             "prefills; the 256-token tail (the cold 512 prompt in "
+             "by_shape)")):
         t = wide["paged_timing"][shape]["float32"]
         kernels["kernels"].append({
             "name": name,
@@ -6539,6 +6562,9 @@ def main():
             "library_ms": t["library_ms"],
             "library_device_ms": t["library_device_ms"],
             "note": note,
+            # registers, spills, shared memory, CTAs per SM at D 256
+            "budget": {kv: budget["paged_{} D256 {}".format(route, kv)]
+                       for kv in ("float32", "int8")},
             "by_shape": {sh: wide["paged_timing"][sh]
                          for sh in wide["paged_timing"]
                          if wide["paged_timing"][sh]["float32"]["route"]
@@ -6572,10 +6598,12 @@ def main():
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms")},
             "design": {
-                "float32": "flash_{}_kernel<256>: mma.sync 3xTF32, 16-row "
+                "float32": "flash_{}_kernel<256>: mma.sync 3xTF32, {}-row "
                            "streamed tiles{}".format(
-                               name, ", two column halves"
-                               if name == "dkv" else ""),
+                               name, 8 if name == "fwd" else 16,
+                               ", one CTA of 8 warps a key tile (a dV "
+                               "half and a dK half, P^T through shared "
+                               "memory)" if name == "dkv" else ""),
                 "bfloat16": "flash_{}_wgmma{}_kernel<256>: wgmma + TMA{}"
                             .format(name, "_wide" if name == "dkv" else "",
                                     ", two column halves"

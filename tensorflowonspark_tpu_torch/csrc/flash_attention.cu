@@ -171,9 +171,12 @@
 //   8 steps at a time, and a_by_cols takes V, K, dO or Q's B
 //   fragments 2 column blocks at a time (pass-major within them) instead
 //   of all at once; and dK/dV, whose two accumulators would need 256
-//   registers, runs two CTAs per key tile (dkv_roles): one accumulates
-//   dV from P^T (S^T only), the other dK from dS^T (S^T and dP^T), so
-//   S^T is computed twice: 1.25x the kernel's flops.
+//   registers a thread, runs one CTA of 8 warps per 64-key tile
+//   (dkv_pair): warps 0-3 own dV's 16-key row blocks, computing S^T, P^T
+//   and P^T dO, and leave P^T in shared memory; warps 4-7 own dK's,
+//   computing dP^T, then dS^T from that P^T, and dS^T Q. Each half does
+//   two of the four products on one staged copy of K, V and the Q/dO
+//   ring.
 // - wgmma (bfloat16): m64n256k16 for O += P V and dQ += dS K (the
 //   accumulator is 128 registers a thread), tiles of four 64-column
 //   blocks, forward key tiles of 32 (wg_fwd_keys); dK/dV splits its
@@ -225,15 +228,22 @@ __host__ __device__ constexpr int fwd_rows() {
 }
 
 // At D 256 a warp's dK and dV accumulators over all 256 columns would
-// take 256 registers a thread, so a key tile gets two dK/dV CTAs.
-// float32 (dkv_roles): one accumulates dV = P^T dO, which needs S^T
-// only, the other dK = dS^T Q, which needs S^T and dP^T: 5 of the
-// kernel's 4 products' worth of work (its first form, column halves,
-// did 6 and ran 1.71 ms against 1.53 at B 4 x S 1024 x 8 x 256).
-// bfloat16 (dkv_cols): each writes half of dK's and dV's columns and
-// both recompute S^T and dP^T (6); roles are untried there.
+// take 256 registers a thread. float32 (dkv_pair): a key tile's CTA has
+// 8 warps, a dV half (S^T, P^T, P^T dO) and a dK half (dP^T, dS^T from
+// the dV half's P^T through shared memory, dS^T Q), each warp one
+// accumulator: the four products once, against 5 of 4 for the two role
+// CTAs a key tile it replaced (each computed S^T and staged its own
+// operands, 1.52 ms at B 4 x S 1024 x 8 x 256) and 6 of 4 for column
+// halves (1.71 ms). bfloat16 (dkv_cols): two CTAs a key tile, each
+// writing half of dK's and dV's columns, both recomputing S^T and dP^T.
 template <int D>
-__host__ __device__ constexpr bool dkv_roles() { return D > 128; }
+__host__ __device__ constexpr bool dkv_pair() { return D > 128; }
+
+// threads of a dK/dV CTA: 4 warps, or 8 as two halves (dkv_pair)
+template <int D>
+__host__ __device__ constexpr int dkv_threads() {
+  return dkv_pair<D>() ? 2 * BWD_THREADS : BWD_THREADS;
+}
 
 template <int D>
 __host__ __device__ constexpr int dkv_cols() { return D > 128 ? D / 2 : D; }
@@ -241,12 +251,13 @@ __host__ __device__ constexpr int dkv_cols() { return D > 128 ? D / 2 : D; }
 // Start copying rows [r0, r0 + ROWS) of one (batch, head) slice of a
 // [B, S, N, D] tensor (``src`` at row 0 of the slice, rows ``stride``
 // elements apart) into a swizzled tile; rows past S are zero-filled.
-template <int D, int ROWS>
+// THREADS: the CTA's threads, which share the copies.
+template <int D, int ROWS, int THREADS = BWD_THREADS>
 __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       int r0, int S, int stride) {
   constexpr int E = 4;                     // floats in 16 bytes
   constexpr int NC = D / E;
-  for (int i = threadIdx.x; i < ROWS * NC; i += BWD_THREADS) {
+  for (int i = threadIdx.x; i < ROWS * NC; i += THREADS) {
     const int r = i / NC;
     const int c = (i % NC) * E;
     const bool ok = r0 + r < S;
@@ -257,11 +268,11 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
 
 // Start copying entries [r0, r0 + ROWS) of a float row (lse, delta); 0
 // past S
-template <int ROWS>
+template <int ROWS, int THREADS = BWD_THREADS>
 __device__ __forceinline__ void stage_row(float* dst,
                                           const float* __restrict__ src, int r0,
                                           int S) {
-  for (int i = threadIdx.x; i < ROWS; i += BWD_THREADS) {
+  for (int i = threadIdx.x; i < ROWS; i += THREADS) {
     const bool ok = r0 + i < S;
     cp_async4(dst + i, src + (ok ? r0 + i : 0), ok);
   }
@@ -431,9 +442,17 @@ constexpr size_t dq_smem() {
   return (size_t)(2 * BWD_ROWS * D + 4 * stream_rows<D>() * D) * sizeof(float);
 }
 
+// the key tile's P^T (dkv_pair): 64 key rows of the streamed tile's
+// queries, rows padded by 8 floats so a quad's 8-byte reads and writes of
+// 4 rows land on distinct banks
+template <int D>
+__host__ __device__ constexpr int pt_stride() { return stream_rows<D>() + 8; }
+
 template <int D>
 constexpr size_t dkv_smem() {
-  return dq_smem<D>() + 4 * stream_rows<D>() * sizeof(float);
+  return dq_smem<D>() + 4 * stream_rows<D>() * sizeof(float) +
+         (dkv_pair<D>() ? (size_t)BWD_ROWS * pt_stride<D>() * sizeof(float)
+                        : 0);
 }
 
 template <int D>
@@ -565,8 +584,6 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int BQ = stream_rows<D>();    // queries of a streamed tile
   constexpr int NT = BQ / 8;              // 8-query score tiles
   constexpr int DT = D / 8;
-  // dK and dV in one CTA, or (D 256) dV in CTA z 0 and dK in z 1
-  constexpr bool ROLES = dkv_roles<D>();
   extern __shared__ __align__(16) unsigned char bwd_smem[];
   float* Ks = reinterpret_cast<float*>(bwd_smem);  // [BK][D], resident
   float* Vs = Ks + BK * D;                         // [BK][D], resident
@@ -577,8 +594,6 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int bh = blockIdx.x;
   const int kt = blockIdx.y;               // low tiles see the most queries
-  const int role = ROLES ? blockIdx.z : 2;  // 0: dV, 1: dK, 2: both
-  const bool want_dk = role != 0;          // dP^T, dS^T and dK
   const int b = bh / N;
   const int h = bh % N;
   const int warp = threadIdx.x / 32;
@@ -614,8 +629,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     bk[i] = (bias != nullptr && kin[i]) ? bias[(size_t)b * S_k + key] : 0.f;
   }
   const int first_key = j0 + wr;
-  // acc: dV, or with roles the CTA's one output; dk_acc: dK (no roles)
-  float acc[DT][4], dk_acc[ROLES ? 1 : DT][4];
+  float acc[DT][4], dk_acc[DT][4];   // dV, dK
   zero4(acc);
   zero4(dk_acc);
 
@@ -648,8 +662,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       zero4(st);
       zero4(dpt);
       rows_by_rows<D, NT>(st, Ks, Qt, wr, j_lo, NT, g, t);     // K Q^T
-      if (want_dk)                                   // CTA-uniform
-        rows_by_rows<D, NT>(dpt, Vs, dOt, wr, j_lo, NT, g, t);  // V dO^T
+      rows_by_rows<D, NT>(dpt, Vs, dOt, wr, j_lo, NT, g, t);   // V dO^T
       // P^T in st, dS^T = P^T (dP^T - delta) in dpt
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -675,21 +688,10 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < NT; ++j) {
         if (j >= j_lo) {
           uint32_t ah[4], al[4];
-          if constexpr (!ROLES) {
-            c_to_a(st[j], ah, al);
-            a_by_cols<D, DT>(acc, ah, al, dOt, 8 * j, 0, g, t);
-            c_to_a(dpt[j], ah, al);
-            a_by_cols<D, DT>(dk_acc, ah, al, Qt, 8 * j, 0, g, t);
-          } else {
-            // (a branch each: an array picked at run time would go to
-            // local memory)
-            if (want_dk)
-              c_to_a(dpt[j], ah, al);
-            else
-              c_to_a(st[j], ah, al);
-            a_by_cols<D, DT>(acc, ah, al, want_dk ? Qt : dOt, 8 * j, 0, g,
-                             t);
-          }
+          c_to_a(st[j], ah, al);
+          a_by_cols<D, DT>(acc, ah, al, dOt, 8 * j, 0, g, t);
+          c_to_a(dpt[j], ah, al);
+          a_by_cols<D, DT>(dk_acc, ah, al, Qt, 8 * j, 0, g, t);
         }
       }
     }
@@ -701,20 +703,183 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (!kin[i]) continue;
     const int key = j0 + wr + g + 8 * i;
     const size_t base = (((size_t)b * S_k + key) * N + h) * D + 2 * t;
-    if constexpr (!ROLES) {
 #pragma unroll
-      for (int n = 0; n < DT; ++n) {
-        store2(dk + base + 8 * n, dk_acc[n][2 * i] * scale,
-                  dk_acc[n][2 * i + 1] * scale);
-        store2(dv + base + 8 * n, acc[n][2 * i], acc[n][2 * i + 1]);
-      }
-    } else {
-      float* o = (want_dk ? dk : dv) + base;
-      const float m = want_dk ? scale : 1.f;
-#pragma unroll
-      for (int n = 0; n < DT; ++n)
-        store2(o + 8 * n, acc[n][2 * i] * m, acc[n][2 * i + 1] * m);
+    for (int n = 0; n < DT; ++n) {
+      store2(dk + base + 8 * n, dk_acc[n][2 * i] * scale,
+                dk_acc[n][2 * i + 1] * scale);
+      store2(dv + base + 8 * n, acc[n][2 * i], acc[n][2 * i + 1]);
     }
+  }
+}
+
+// D 256 (dkv_pair): one CTA of 8 warps per 64-key tile. Warp w < 4 owns
+// key rows 16 w .. 16 w + 15 for dV, warp w + 4 the same rows for dK; each
+// keeps one 16 x 256 accumulator (128 registers a thread). Per streamed
+// query tile: the dV warp computes S^T = K Q^T and P^T, writes P^T to
+// shared memory and adds P^T dO; its dK partner computes dP^T = V dO^T,
+// reads P^T after the barrier and adds dS^T Q with dS^T = P^T (dP^T -
+// delta). K, V and the Q/dO ring are staged once for both halves.
+template <>
+__global__ void __launch_bounds__(2 * BWD_THREADS, 1)
+flash_dkv_kernel<256>(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int S_q, int S_k, int N,
+                      int causal, float scale) {
+  constexpr int D = 256;
+  constexpr int T = dkv_threads<D>();     // 8 warps
+  constexpr int BK = BWD_ROWS;            // key rows of the CTA
+  constexpr int BQ = stream_rows<D>();    // queries of a streamed tile
+  constexpr int NT = BQ / 8;              // 8-query score tiles
+  constexpr int DT = D / 8;
+  constexpr int PS = pt_stride<D>();
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  float* Ks = reinterpret_cast<float*>(bwd_smem);  // [BK][D], resident
+  float* Vs = Ks + BK * D;                         // [BK][D], resident
+  float* Qs = Vs + BK * D;                         // [2][BQ][D], ring
+  float* dOs = Qs + 2 * BQ * D;                    // [2][BQ][D], ring
+  float* Ls = dOs + 2 * BQ * D;                    // [2][BQ] lse
+  float* Es = Ls + 2 * BQ;                         // [2][BQ] delta
+  float* Ps = Es + 2 * BQ;                         // [BK][PS] P^T
+
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y;               // low tiles see the most queries
+  const int b = bh / N;
+  const int h = bh % N;
+  const int warp = threadIdx.x / 32;
+  const bool dk_half = warp >= BWD_WARPS;  // warp-uniform
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int stride = N * D;
+  const int j0 = kt * BK;
+  const int wr = 16 * (warp % BWD_WARPS);  // the pair's first key row
+  const size_t koff = ((size_t)b * S_k * N + h) * D;
+  const float* qb = q + ((size_t)b * S_q * N + h) * D;
+  const float* db = dout + ((size_t)b * S_q * N + h) * D;
+  const float* lrow = lse + (size_t)bh * S_q;
+  const float* drow = delta + (size_t)bh * S_q;
+  const int n_q = (S_q + BQ - 1) / BQ;
+  // causal: query tiles that end before this KV tile starts see none of it
+  const int qt0 = causal ? j0 / BQ : 0;
+
+  stage<D, BK, T>(Ks, k + koff, j0, S_k, stride);
+  stage<D, BK, T>(Vs, v + koff, j0, S_k, stride);
+  stage<D, BQ, T>(Qs, qb, qt0 * BQ, S_q, stride);
+  stage<D, BQ, T>(dOs, db, qt0 * BQ, S_q, stride);
+  stage_row<BQ, T>(Ls, lrow, qt0 * BQ, S_q);
+  stage_row<BQ, T>(Es, drow, qt0 * BQ, S_q);
+  cp_commit();
+
+  // key rows g and g + 8 of the pair's 16
+  bool kin[2];
+  float bk[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = j0 + wr + g + 8 * i;
+    kin[i] = key < S_k;
+    bk[i] = (bias != nullptr && kin[i]) ? bias[(size_t)b * S_k + key] : 0.f;
+  }
+  const int first_key = j0 + wr;
+  float acc[DT][4];                        // dV (dV half) or dK (dK half)
+  zero4(acc);
+
+  for (int qt = qt0; qt < n_q; ++qt) {
+    const int cur = (qt - qt0) & 1;
+    if (qt + 1 < n_q) {
+      const int nxt = cur ^ 1;
+      const int r1 = (qt + 1) * BQ;
+      stage<D, BQ, T>(Qs + nxt * BQ * D, qb, r1, S_q, stride);
+      stage<D, BQ, T>(dOs + nxt * BQ * D, db, r1, S_q, stride);
+      stage_row<BQ, T>(Ls + nxt * BQ, lrow, r1, S_q);
+      stage_row<BQ, T>(Es + nxt * BQ, drow, r1, S_q);
+      cp_commit();
+      cp_wait<1>();                        // tile qt has landed
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int i0 = qt * BQ;
+    const float* Qt = Qs + cur * BQ * D;
+    const float* dOt = dOs + cur * BQ * D;
+    const float* Lt = Ls + cur * BQ;
+    const float* Et = Es + cur * BQ;
+    // causal: score tiles whose queries all precede the pair's first key
+    // are 0 (first_key - i0 is a multiple of 8); the same for both halves
+    const int lead = first_key - i0;
+    const int j_lo = (!causal || lead <= 0) ? 0 : min(NT, lead / 8);
+    const bool live = j_lo < NT;
+    // P^T (dV half) or dP^T, then dS^T (dK half)
+    float x[NT][4];
+    zero4(x);
+    if (live) {
+      if (!dk_half) {
+        rows_by_rows<D, NT>(x, Ks, Qt, wr, j_lo, NT, g, t);   // K Q^T
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ki = e >> 1;
+            const int key = j0 + wr + g + 8 * ki;
+            const int c = 8 * j + 2 * t + (e & 1);
+            const int query = i0 + c;
+            const float L = Lt[c];
+            const float lsafe = isfinite(L) ? L : 0.f;
+            const bool ok =
+                query < S_q && kin[ki] && (!causal || key <= query);
+            const float sv = x[j][e] * scale + bk[ki];
+            x[j][e] =
+                (!ok || sv == -INFINITY) ? 0.f : ex2((sv - lsafe) * LOG2E);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            store2(Ps + (wr + g + 8 * i) * PS + 8 * j + 2 * t, x[j][2 * i],
+                   x[j][2 * i + 1]);
+        }
+      } else {
+        rows_by_rows<D, NT>(x, Vs, dOt, wr, j_lo, NT, g, t);  // V dO^T
+      }
+    }
+    __syncthreads();                       // P^T is in Ps
+    if (live) {
+      if (dk_half) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float2 p = *reinterpret_cast<const float2*>(
+                Ps + (wr + g + 8 * i) * PS + 8 * j + 2 * t);
+            const int c = 8 * j + 2 * t;
+            x[j][2 * i] = p.x * (x[j][2 * i] - Et[c]);
+            x[j][2 * i + 1] = p.y * (x[j][2 * i + 1] - Et[c + 1]);
+          }
+      }
+      // dV += P^T dO, or dK += dS^T Q: the 8 queries of score tile j are
+      // one k step
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j >= j_lo) {
+          uint32_t ah[4], al[4];
+          c_to_a(x[j], ah, al);
+          a_by_cols<D, DT>(acc, ah, al, dk_half ? Qt : dOt, 8 * j, 0, g, t);
+        }
+      }
+    }
+    __syncthreads();                       // stage cur and Ps are refilled
+  }
+
+  const float m = dk_half ? scale : 1.f;
+  float* o = dk_half ? dk : dv;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!kin[i]) continue;
+    const int key = j0 + wr + g + 8 * i;
+    float* r = o + (((size_t)b * S_k + key) * N + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      store2(r + 8 * n, acc[n][2 * i] * m, acc[n][2 * i + 1] * m);
   }
 }
 
@@ -1631,9 +1796,8 @@ int dkv(const void* q, const void* k, const void* v, const float* bias,
   const size_t smem = dkv_smem<D>();
   auto kern = flash_dkv_kernel<D>;
   if (int e = prepare(kern, smem)) return e;
-  const dim3 grid(B * N, (S_k + BWD_ROWS - 1) / BWD_ROWS,
-                  dkv_roles<D>() ? 2 : 1);
-  kern<<<grid, BWD_THREADS, smem, st>>>(
+  const dim3 grid(B * N, (S_k + BWD_ROWS - 1) / BWD_ROWS);
+  kern<<<grid, dkv_threads<D>(), smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), bias, static_cast<const float*>(dout),
       lse, delta, static_cast<float*>(dk_out), static_cast<float*>(dv_out),
@@ -1750,7 +1914,7 @@ int dq_wg_budget(int* out) {
 
 template <int D>
 int dkv_budget(int* out) {
-  return budget(flash_dkv_kernel<D>, dkv_smem<D>(), out);
+  return budget(flash_dkv_kernel<D>, dkv_smem<D>(), out, dkv_threads<D>());
 }
 
 template <int D>

@@ -11,7 +11,7 @@
 // nblk(b) = min((max_i pos[b,i] + bs) / bs, MB) blocks. int8 pools hold
 // codes with one float32 scale per (token row, head); K = codes * scale.
 //
-// Three routes, one source. The TPU kernel walks a sequential grid axis
+// Two routes, one source. The TPU kernel walks a sequential grid axis
 // over table slots and carries its online-softmax state in VMEM from one
 // grid step to the next; CUDA blocks run in no order, so each route
 // loops over live keys inside a CTA, reads the table and positions from
@@ -50,20 +50,24 @@
 //   Only decode takes this route: a window of several queries per row
 //   (as a speculative verify step would send) goes to the tiled kernel.
 // - Query-tiled on the tensor cores (tfos_paged_attention_tiled; every
-//   other call at D <= 128: prefill tails). One CTA of 4 warps per
-//   (16-query tile, head, row), deepest tiles first. The 16 queries are
-//   one mma row block; the 4 warps split the keys instead, so a 256-token
-//   tail at 12 heads is 192 CTAs on the 132 SMs. Keys come in tiles of
-//   BN (64, or 32 at D 128); warp w takes keys [w BN/4, (w + 1) BN/4) of
-//   every tile and streams that slice itself through its own part of a
-//   two-stage cp.async ring, waiting with __syncwarp, never for the other
-//   warps. Key j's row is pool row table[b, j / bs], token j % bs, so a
-//   tile crosses pool blocks freely and any block size works; lanes lie
-//   side by side along the rows, so one warp-wide copy moves whole rows.
-//   CTA x takes its key tiles starting at tile x mod (its tiles) and
-//   wraps around, so the 16 query tiles of a head, which run side by
-//   side, do not all ask the same L2 lines at once (the same keys in the
-//   same order ran ~15% slower). The keys stop at the tile's key limit,
+//   other call, D <= 256: prefill tails, cold prompts, verify windows,
+//   decode at a D the split kernel is not built for). One CTA of 4 warps
+//   per (16-query tile, head, row); the query tile is the grid's slowest
+//   dimension, so every head's and row's deepest tile is dispatched
+//   before any shallower one (the longest CTAs first, also where a head
+//   has more tiles than one CTA an SM can hold at once: at D 256). The 16
+//   queries are one mma row block; the 4 warps split the keys instead, so
+//   a 256-token tail at 12 heads is 192 CTAs on the 132 SMs. Keys come in
+//   tiles of BN (64, or 32 at D 128 and 256); warp w takes keys [w BN/4,
+//   (w + 1) BN/4) of every tile and streams that slice itself through its
+//   own part of a two-stage cp.async ring, waiting with __syncwarp, never
+//   for the other warps. Key j's row is pool row table[b, j / bs], token
+//   j % bs, so a tile crosses pool blocks freely and any block size
+//   works; lanes lie side by side along the rows, so one warp-wide copy
+//   moves whole rows. The CTA of query tile x takes its key tiles
+//   starting at tile x mod (its tiles) and wraps around, so the 16 query
+//   tiles of a head, which run side by side, do not all ask the same L2
+//   lines at once (the same keys in the same order ran ~15% slower). The keys stop at the tile's key limit,
 //   min(nblk bs, its highest position + 1): keys past it are zero-filled
 //   by the copy (src-size 0), never read, and masked. Each warp keeps
 //   its own online softmax on C fragments, as the flash forward does
@@ -80,21 +84,22 @@
 //   so Q codes^T and P' codes take 2 passes (Q_hi c + Q_lo c), with
 //   k_scale folded into S column by column and v_scale into P's columns
 //   (P') before P' V. Head dims are instantiated at DP in {16, 32, 64,
-//   128}; a D below one is zero-padded in shared memory (Q and K pad
+//   128, 256}; a D below one is zero-padded in shared memory (Q and K pad
 //   columns are 0; V's pad columns are dropped at the store). Copies are
 //   16-byte where a row's bytes and the pointers allow, else 4-byte,
 //   else (int8 rows of D % 4 != 0) byte by byte. At the prefill shapes
 //   the copies, not the products, take the most time (PERF.md).
 //   tfos_paged_budget reads back registers, spills, shared memory and
 //   CTAs per SM.
-// - Query-tiled on CUDA cores (tfos_paged_attention_simt; 128 < D <=
-//   256): one CTA per (16-query tile, head, row) walks the row's live
-//   blocks in order, staging each pool block of K and V in shared memory
-//   (dequantized on load); each warp folds it into the running state of
-//   its query rows with scalar dots. At D 256 a staged block of 16
-//   tokens and the Q tile take 49,280 bytes (82,176 at block 32), above
-//   the 48 KB a launch gets by default: the launch raises the kernel's
-//   dynamic shared-memory attribute first, as the tensor-core route does.
+//   At DP 256 a warp's 16 x 256 float32 accumulator takes 128 registers a
+//   lane, so: key tiles of 32 (8 keys, one score tile a warp); the 32 k
+//   steps of S = Q K^T feed four partial sums in turn, unrolled 8 at a
+//   time (one accumulator would make a chain of 96 dependent mmas, and
+//   all 32 steps unrolled hoist loads past the registers); P V takes its
+//   B fragments 2 column blocks at a time. A float32 ring of 2 stages x
+//   (K + V) x 32 rows of 1 KB is 128 KB, 144 KB with the Q tile: one CTA
+//   an SM (int8: 80.5 KB, the 4-warp merge, 66 KB, being the larger use of
+//   the ring's space). A 256-token tail at 8 heads is 128 CTAs.
 //
 // Plain C interface, loaded through ctypes by ops/_build.py.
 
@@ -111,23 +116,9 @@
 
 namespace {
 
-// -- query-tiled route on CUDA cores (128 < D <= 256) ---------------------
-
-constexpr int QT = 16;               // query rows per CTA
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int RPW = QT / WARPS;      // query rows per warp
-constexpr int MAX_DC = 8;            // head_dim / 32, rounded up (D <= 256)
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
 
@@ -135,147 +126,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ int floordiv(int a, int b) {
   int q = a / b;
   return (a % b != 0 && a < 0) ? q - 1 : q;
-}
-
-template <bool QUANT>
-__global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const float* __restrict__ q,
-                       const void* __restrict__ k_pool,
-                       const void* __restrict__ v_pool,
-                       const float* __restrict__ k_scale,
-                       const float* __restrict__ v_scale,
-                       const int* __restrict__ table,
-                       const int* __restrict__ pos,
-                       float* __restrict__ out,
-                       int S_q, int N, int D, int P, int bs, int MB,
-                       float scale) {
-  extern __shared__ float smem[];
-  const int dp = D + 1;              // padded rows: column reads hit distinct banks
-  float* Ks = smem;                  // [bs][D + 1]
-  float* Vs = Ks + bs * dp;          // [bs][D + 1]
-  float* Qs = Vs + bs * dp;          // [QT][D]
-  __shared__ int s_rowmax;
-  __shared__ int s_tilemax;
-
-  const int tile = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int i0 = tile * QT;
-  const int rows_here = min(QT, S_q - i0);
-  const int* prow_ptr = pos + (size_t)b * S_q;
-
-  if (tid == 0) {
-    s_rowmax = INT_MIN;
-    s_tilemax = INT_MIN;
-  }
-  __syncthreads();
-  // the row's depth comes from ALL of its queries, as in the reference;
-  // the tile's own highest position bounds the blocks it can see
-  int pmax = INT_MIN, tmax = INT_MIN;
-  for (int i = tid; i < S_q; i += THREADS) {
-    const int p = prow_ptr[i];
-    pmax = max(pmax, p);
-    if (i >= i0 && i < i0 + rows_here) tmax = max(tmax, p);
-  }
-  atomicMax(&s_rowmax, pmax);
-  atomicMax(&s_tilemax, tmax);
-  for (int e = tid; e < QT * D; e += THREADS) {
-    const int r = e / D;
-    const int d = e - r * D;
-    float v = 0.f;
-    if (r < rows_here) v = q[(((size_t)b * S_q + i0 + r) * N + h) * D + d];
-    Qs[e] = v;
-  }
-  __syncthreads();
-  const int nblk = min(floordiv(s_rowmax + bs, bs), MB);
-  // blocks past the tile's highest position hold no key any of its
-  // rows may see: skipping them leaves the recurrence unchanged
-  const int limit = max(0, min(nblk, floordiv(s_tilemax + bs, bs)));
-
-  float m[RPW], l[RPW], acc[RPW][MAX_DC];
-  int prow[RPW];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = warp + r * WARPS;
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-    prow[r] = row < rows_here ? prow_ptr[i0 + row] : INT_MIN;
-#pragma unroll
-    for (int c = 0; c < MAX_DC; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int j = 0; j < limit; ++j) {
-    const int bid = table[(size_t)b * MB + j];
-    if (bid < 0 || bid >= P) __trap();   // a table entry outside the pool
-    __syncthreads();                     // last block's readers are done
-    for (int e = tid; e < bs * D; e += THREADS) {
-      const int t = e / D;
-      const int d = e - t * D;
-      const size_t row = ((size_t)bid * bs + t) * N + h;
-      const size_t src = row * D + d;
-      float kv, vv;
-      if (QUANT) {
-        kv = (float)static_cast<const int8_t*>(k_pool)[src] * k_scale[row];
-        vv = (float)static_cast<const int8_t*>(v_pool)[src] * v_scale[row];
-      } else {
-        kv = static_cast<const float*>(k_pool)[src];
-        vv = static_cast<const float*>(v_pool)[src];
-      }
-      Ks[t * dp + d] = kv;
-      Vs[t * dp + d] = vv;
-    }
-    __syncthreads();
-    const int kpos = j * bs + lane;      // lane t scores key t of the block
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int row = warp + r * WARPS;
-      if (row >= rows_here) break;       // warp-uniform
-      float s = -INFINITY;
-      if (lane < bs && kpos <= prow[r]) {
-        const float* qr = Qs + row * D;
-        const float* kr = Ks + lane * dp;
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
-      }
-      const float m_blk = warp_max(s);
-      const float m_new = fmaxf(m[r], m_blk);
-      const float safe_m = (m_new == -INFINITY) ? 0.f : m_new;
-      const float p = (s == -INFINITY) ? 0.f : expf(s - safe_m);
-      const float corr = (m[r] == -INFINITY) ? 0.f : expf(m[r] - safe_m);
-      l[r] = l[r] * corr + warp_sum(p);
-      m[r] = m_new;
-      float pv[MAX_DC];
-#pragma unroll
-      for (int c = 0; c < MAX_DC; ++c) pv[c] = 0.f;
-      for (int t = 0; t < bs; ++t) {
-        const float pt = __shfl_sync(FULL, p, t);
-#pragma unroll
-        for (int c = 0; c < MAX_DC; ++c) {
-          const int d = lane + 32 * c;
-          if (d < D) pv[c] = fmaf(pt, Vs[t * dp + d], pv[c]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < MAX_DC; ++c) acc[r][c] = acc[r][c] * corr + pv[c];
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = warp + r * WARPS;
-    if (row >= rows_here) break;
-    const float lsafe = (l[r] == 0.f) ? 1.f : l[r];
-    float* o = out + (((size_t)b * S_q + i0 + row) * N + h) * D;
-#pragma unroll
-    for (int c = 0; c < MAX_DC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) o[d] = acc[r][c] / lsafe;
-    }
-  }
 }
 
 // -- split-KV route ------------------------------------------------------
@@ -542,35 +392,6 @@ paged_combine_kernel(const float* __restrict__ ws, const int* __restrict__ pos,
   }
 }
 
-// dynamic shared memory of the CUDA-core tiled kernel: two staged pool
-// blocks of K and V (rows padded to D + 1) and the 16-row Q tile
-inline size_t simt_smem(int D, int bs) {
-  return (size_t)(2 * bs * (D + 1) + QT * D) * sizeof(float);
-}
-
-// above 48 KB a kernel gets dynamic shared memory only through this
-// attribute (D 256 at block 16 needs 49,280 bytes, at block 32 82,176)
-template <bool QUANT>
-int simt_prepare(size_t smem) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      paged_attention_kernel<QUANT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-}
-
-template <bool QUANT>
-int simt_launch(const float* q, const void* k_pool, const void* v_pool,
-                const float* k_scale, const float* v_scale, const int* table,
-                const int* pos, float* out, int B, int S_q, int N, int D,
-                int P, int bs, int MB, float scale, cudaStream_t st) {
-  const size_t smem = simt_smem(D, bs);
-  if (int e = simt_prepare<QUANT>(smem)) return e;
-  const dim3 grid((S_q + QT - 1) / QT, N, B);
-  paged_attention_kernel<QUANT><<<grid, THREADS, smem, st>>>(
-      q, k_pool, v_pool, k_scale, v_scale, table, pos, out, S_q, N, D, P, bs,
-      MB, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <bool QUANT, int D>
 int split_launch(const float* q, const void* k_pool, const void* v_pool,
                  const float* k_scale, const float* v_scale, const int* table,
@@ -588,14 +409,14 @@ int split_launch(const float* q, const void* k_pool, const void* v_pool,
   return static_cast<int>(cudaGetLastError());
 }
 
-// -- query-tiled route on the tensor cores (D <= 128) ----------------------
+// -- query-tiled route on the tensor cores (D <= 256) ----------------------
 
 constexpr int TC_WARPS = 4;
 constexpr int TC_THREADS = 32 * TC_WARPS;
 constexpr int TC_ROWS = 16;  // query rows of a CTA: one mma row block
 
-// keys of a staged tile (BN): 64, or 32 at DP 128, where two stages of 64
-// float32 K and V rows would take 128 KB
+// keys of a staged tile (BN): 64, or 32 at DP 128 and 256, where two
+// stages of 64 float32 K and V rows would take 128 KB (256 KB at DP 256)
 template <int DP>
 __host__ __device__ constexpr int tc_keys() { return DP > 64 ? 32 : 64; }
 
@@ -618,6 +439,24 @@ __host__ __device__ constexpr size_t tc_smem() {
   constexpr size_t merge =
       (size_t)TC_WARPS * TC_ROWS * (DP + 2) * sizeof(float);
   return TC_ROWS * DP * sizeof(float) + (ring > merge ? ring : merge);
+}
+
+// c[n0 + n] += A B[n] for n < NB, pass by pass as mma3_rows takes them
+// (BLO: B has a lo part; an int8 code has none)
+template <bool BLO, int NB, int NC>
+__device__ __forceinline__ void mma3_at(float (&c)[NC][4], int n0,
+                                        const uint32_t (&ah)[4],
+                                        const uint32_t (&al)[4],
+                                        const uint32_t (&bh)[NB][2],
+                                        const uint32_t (&bl)[NB][2]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n) mma_tf32(c[n0 + n], al, bh[n]);
+  if (BLO) {
+#pragma unroll
+    for (int n = 0; n < NB; ++n) mma_tf32(c[n0 + n], ah, bl[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < NB; ++n) mma_tf32(c[n0 + n], ah, bh[n]);
 }
 
 // fragment loads of a staged K or V tile (load_b_rows / load_b_cols of
@@ -730,6 +569,13 @@ paged_tiled_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
   constexpr int NTW = KW / 8;        // its 8-key score tiles
   constexpr int DT = DP / 8;         // 8-wide steps over DP
   constexpr int RB = tc_row_bytes<QUANT, DP>();
+  // DP 256 (the 128-register accumulator): S's k steps into NS partial
+  // sums, unrolled 8 steps (KU outer iterations) at a time, and P V's B
+  // fragments CH column blocks at a time; at DP <= 128 one sum, every
+  // step and block at once
+  constexpr int NS = DP > 128 ? 4 : 1;
+  constexpr int KU = DP > 128 ? 8 / NS : DT;
+  constexpr int CH = DP > 128 ? 2 : DT;
   extern __shared__ __align__(16) unsigned char tc_buf[];
   float* Qs = reinterpret_cast<float*>(tc_buf);     // [16][DP], swizzled
   unsigned char* ring = tc_buf + TC_ROWS * DP * sizeof(float);
@@ -740,9 +586,9 @@ paged_tiled_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
   __shared__ int s_rowmax;
   __shared__ int s_tilemax;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // deepest tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // deepest tiles first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int g = (threadIdx.x % 32) / 4;
   const int t = threadIdx.x % 4;
@@ -809,7 +655,7 @@ paged_tiled_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
   // "the tile before the newest has landed".
   const int kw0 = KW * warp;
   const int lane = threadIdx.x % 32;
-  const int rot = n_kv > 0 ? blockIdx.x % n_kv : 0;
+  const int rot = n_kv > 0 ? blockIdx.z % n_kv : 0;
   auto stage = [&](int it) {  // the it-th tile into stage it & 1
     if (it < n_kv) {
       const int k0 = ((it + rot) % n_kv) * BN + kw0;
@@ -847,18 +693,34 @@ paged_tiled_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
       const float* VSt = VSs + cur * BN;
       // 8-key score tiles wholly past the key limit are skipped
       const int ntw = min(NTW, (n_keys - key0 + 7) / 8);
-      float s[NTW][4];
-      zero4(s);
-      // S = Q K^T (float32: 3 passes; int8 codes: Q_lo c + Q_hi c)
+      // S = Q K^T (float32: 3 passes; int8 codes: Q_lo c + Q_hi c), k
+      // step ks into partial sum ks % NS
+      float sp[NS][NTW][4];
 #pragma unroll
-      for (int ks = 0; ks < DT; ++ks) {
-        uint32_t ah[4], al[4], bh[NTW][2], bl[NTW][2];
-        load_a<DP>(ah, al, Qs, 0, 8 * ks, g, t);
+      for (int u = 0; u < NS; ++u) zero4(sp[u]);
+#pragma unroll KU
+      for (int k0 = 0; k0 < DT; k0 += NS) {
 #pragma unroll
-        for (int j = 0; j < NTW; ++j)
-          if (j < ntw) kv_rows<DP>(bh[j], bl[j], Kt, kw0 + 8 * j, 8 * ks, g, t);
-        mma3_rows<true, !QUANT>(s, ah, al, bh, bl, 0, ntw);
+        for (int u = 0; u < NS; ++u) {
+          const int ks = k0 + u;
+          uint32_t ah[4], al[4], bh[NTW][2], bl[NTW][2];
+          load_a<DP>(ah, al, Qs, 0, 8 * ks, g, t);
+#pragma unroll
+          for (int j = 0; j < NTW; ++j)
+            if (j < ntw)
+              kv_rows<DP>(bh[j], bl[j], Kt, kw0 + 8 * j, 8 * ks, g, t);
+          mma3_rows<true, !QUANT>(sp[u], ah, al, bh, bl, 0, ntw);
+        }
       }
+      float s[NTW][4];
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = sp[0][j][e];
+#pragma unroll
+          for (int u = 1; u < NS; ++u) s[j][e] += sp[u][j][e];
+        }
       // s = S (k_scale) scale, -inf where masked; the rows' maxima
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -905,16 +767,21 @@ paged_tiled_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
           s[j][e] = QUANT ? p * VSt[kw0 + 8 * j + 2 * t + (e & 1)] : p;
         }
       }
-      // acc += P V: the 8 keys of score tile j are one k step
+      // acc += P V: the 8 keys of score tile j are one k step; V's B
+      // fragments CH column blocks at a time
 #pragma unroll
       for (int j = 0; j < NTW; ++j) {
         if (j < ntw) {
-          uint32_t ah[4], al[4], bh[DT][2], bl[DT][2];
+          uint32_t ah[4], al[4];
           c_to_a(s[j], ah, al);
 #pragma unroll
-          for (int n = 0; n < DT; ++n)
-            kv_cols<DP>(bh[n], bl[n], Vt, kw0 + 8 * j, 8 * n, g, t);
-          mma3_rows<true, !QUANT>(acc, ah, al, bh, bl, 0, DT);
+          for (int n0 = 0; n0 < DT; n0 += CH) {
+            uint32_t bh[CH][2], bl[CH][2];
+#pragma unroll
+            for (int n = 0; n < CH; ++n)
+              kv_cols<DP>(bh[n], bl[n], Vt, kw0 + 8 * j, 8 * (n0 + n), g, t);
+            mma3_at<!QUANT>(acc, n0, ah, al, bh, bl);
+          }
         }
       }
     }
@@ -977,7 +844,7 @@ int tiled_launch(const float* q, const void* k_pool, const void* v_pool,
                  int P, int bs, int MB, float scale, int kv_vec, int q_vec,
                  cudaStream_t st) {
   if (int e = tiled_prepare<QUANT, DP>()) return e;
-  const dim3 grid((S_q + TC_ROWS - 1) / TC_ROWS, N, B);
+  const dim3 grid(N, B, (S_q + TC_ROWS - 1) / TC_ROWS);
   paged_tiled_kernel<QUANT, DP><<<grid, TC_THREADS, tc_smem<QUANT, DP>(), st>>>(
       q, k_pool, v_pool, k_scale, v_scale, table, pos, out, S_q, N, D, P, bs,
       MB, scale, kv_vec, q_vec);
@@ -1028,17 +895,15 @@ int split_budget(int* out) {
   return kernel_budget(paged_split_kernel<QUANT, D>, SPLIT_THREADS, 0, out);
 }
 
-template <bool QUANT>
-int simt_budget(int D, int bs, int* out) {
-  if (int e = simt_prepare<QUANT>(simt_smem(D, bs))) return e;
-  return kernel_budget(paged_attention_kernel<QUANT>, THREADS,
-                       simt_smem(D, bs), out);
-}
-
-// the instantiation a head dim takes: D rounded up to 16, 32, 64 or 128
-// (0 above 128)
+// the instantiation a head dim takes: D rounded up to 16, 32, 64, 128 or
+// 256 (0 above 256)
 inline int padded_dim(int D) {
-  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0;
+  return D <= 16    ? 16
+         : D <= 32  ? 32
+         : D <= 64  ? 64
+         : D <= 128 ? 128
+         : D <= 256 ? 256
+                    : 0;
 }
 
 #define TFOS_TILED_DISPATCH(FN, QUANT, DP, ...)                               \
@@ -1049,6 +914,7 @@ inline int padded_dim(int D) {
         case 32: return FN<true, 32>(__VA_ARGS__);                            \
         case 64: return FN<true, 64>(__VA_ARGS__);                            \
         case 128: return FN<true, 128>(__VA_ARGS__);                          \
+        case 256: return FN<true, 256>(__VA_ARGS__);                          \
       }                                                                       \
     } else {                                                                  \
       switch (DP) {                                                           \
@@ -1056,33 +922,13 @@ inline int padded_dim(int D) {
         case 32: return FN<false, 32>(__VA_ARGS__);                           \
         case 64: return FN<false, 64>(__VA_ARGS__);                           \
         case 128: return FN<false, 128>(__VA_ARGS__);                         \
+        case 256: return FN<false, 256>(__VA_ARGS__);                         \
       }                                                                       \
     }                                                                         \
     return static_cast<int>(cudaErrorInvalidValue);                           \
   } while (0)
 
 }  // namespace
-
-// Launch the query-tiled CUDA-core kernel on ``stream`` (any D <= 256;
-// the dispatcher sends it 128 < D <= 256), its dynamic shared memory
-// granted through the attribute first; returns the CUDA error of the
-// attribute call or of the launch (0 when accepted). The caller checks
-// shapes, dtypes, contiguity, bs <= 32 (a key per lane) and that 2 bs
-// (D + 1) + 16 D floats fit the card's 227 KB.
-extern "C" int tfos_paged_attention_simt(
-    const float* q, const void* k_pool, const void* v_pool,
-    const float* k_scale, const float* v_scale, const int* table,
-    const int* pos, float* out, int B, int S_q, int N, int D, int P,
-    int bs, int MB, float scale, int quantized, void* stream) {
-  if (B <= 0 || S_q <= 0 || N <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return quantized ? simt_launch<true>(q, k_pool, v_pool, k_scale, v_scale,
-                                       table, pos, out, B, S_q, N, D, P, bs,
-                                       MB, scale, st)
-                   : simt_launch<false>(q, k_pool, v_pool, k_scale, v_scale,
-                                        table, pos, out, B, S_q, N, D, P, bs,
-                                        MB, scale, st);
-}
 
 // Launch the split-KV route on ``stream`` for one query per row
 // (decode: q [B, 1, N, D], pos [B, 1]): the split kernel, C pool blocks
@@ -1123,7 +969,7 @@ extern "C" int tfos_paged_attention_split(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Launch the query-tiled tensor-core kernel on ``stream`` (D <= 128, any
+// Launch the query-tiled tensor-core kernel on ``stream`` (D <= 256, any
 // block size); returns the CUDA error of the shared-memory attribute
 // call or of the launch (0 when accepted). Copies are 16-byte where D's
 // row bytes and the pointers allow, else narrower. The caller checks
@@ -1151,15 +997,10 @@ extern "C" int tfos_paged_attention_tiled(
 
 // The resource budget of one route's kernel for head dim D and pool
 // dtype: route 0 the query-tiled tensor-core kernel (its instantiation:
-// D rounded up to 16, 32, 64 or 128), 1 the split-KV kernel (D in {16,
-// 32, 64, 128, 256}), 2 the CUDA-core tiled kernel at block size bs.
-// out[4] = {CTAs per SM, registers per thread, local (spill) bytes per
-// thread, shared-memory bytes}.
-extern "C" int tfos_paged_budget(int route, int D, int quantized, int bs,
-                                 int* out) {
-  if (route == 2)
-    return quantized ? simt_budget<true>(D, bs, out)
-                     : simt_budget<false>(D, bs, out);
+// D rounded up to 16, 32, 64, 128 or 256), 1 the split-KV kernel (D in
+// {16, 32, 64, 128, 256}). out[4] = {CTAs per SM, registers per thread,
+// local (spill) bytes per thread, shared-memory bytes}.
+extern "C" int tfos_paged_budget(int route, int D, int quantized, int* out) {
   if (route == 1) {
 #define TFOS_SPLIT_BUDGET(DD)                                               \
   case DD:                                                                  \

@@ -21,8 +21,8 @@ Three formulations share that contract:
   (wrapper ``_pallas``). Bound on the H100: BYTES at decode — a step
   does ~2 flops per K/V byte it reads, so the floor is the live K/V
   (+ scales) over 3.35 TB/s; OPERATIONS at a prefill tail, whose keys
-  are each read by hundreds of queries. Three routes, chosen by the
-  call's shape (:func:`_route`):
+  are each read by hundreds of queries. Two routes, chosen by the
+  call's shape (:func:`_route`), at any block size:
 
   - **split-KV** (S_q = :data:`SPLIT_MAX_QUERIES` = 1 at a head dim in
     :data:`SPLIT_HEAD_DIMS`, 16 to 256: every decode step): the flash-decoding
@@ -33,20 +33,19 @@ Three formulations share that contract:
     by shuffles; each split's partial (m, l, acc) goes to a float32
     workspace allocated here, and a second kernel merges a (row, head)'s
     splits in split order, so the result is deterministic;
-  - **tiled** (every other call at head dim <= :data:`TILED_MAX_HEAD_DIM`:
-    prefill tails): tensor cores. One CTA of 4 warps per
+  - **tiled** (every other call, head dim up to
+    :data:`TILED_MAX_HEAD_DIM`: prefill tails, cold prompts, verify
+    windows): tensor cores. One CTA of 4 warps per
     :data:`QUERY_TILE`-query tile, the warps splitting the keys; key
     tiles that cross pool blocks stream through a two-stage ``cp.async``
     ring (int8 pools as codes), S = Q K^T and P V run as ``mma.sync``
     TF32 with the 3xTF32 split (2 passes on int8 codes, which are exact
     in TF32, the scales folded into S's and P's columns), float32-
-    accurate; :func:`budget` reads its registers and occupancy;
-  - **tiled_simt** (head dims above :data:`TILED_MAX_HEAD_DIM`, up to
-    :data:`MAX_HEAD_DIM`, other than decode at 256): the first
-    query-tiled kernel, on CUDA cores, one pool block at a time staged
-    in shared memory; at D 256 that is above 48 KB, so its launch asks
-    for the shared memory through the kernel's attribute first (up to
-    :data:`MAX_SMEM_BYTES`).
+    accurate. Instantiated at head dims 16, 32, 64, 128 and 256 (a head
+    dim in between zero-padded to the next); at 256 its shared memory
+    (:func:`tiled_smem_bytes`) is above 48 KB, granted through the
+    kernel's attribute; :func:`budget` reads its registers and
+    occupancy.
 
   All walk only a row's LIVE keys through the table (dead slots are
   never loaded, so traffic tracks live tokens, not table width) and
@@ -72,15 +71,14 @@ import torch
 #: it) — how a run shows that its path went through the kernels
 launches = 0
 #: the same calls by route: "split" (two kernel launches a call: the
-#: split-KV kernel, then the combine kernel), "tiled" (one launch of the
-#: tensor-core query-tiled kernel) or "tiled_simt" (one launch of the
-#: CUDA-core query-tiled kernel)
-route_launches = {"split": 0, "tiled": 0, "tiled_simt": 0}
+#: split-KV kernel, then the combine kernel) or "tiled" (one launch of
+#: the tensor-core query-tiled kernel)
+route_launches = {"split": 0, "tiled": 0}
 _launches_lock = threading.Lock()  # engines launch from their own threads
 
-#: query rows one CTA of either query-tiled kernel handles
-#: (csrc/paged_attention.cu ``TC_ROWS``, ``QT``); longer calls go through
-#: the grid's query-tile dimension
+#: query rows one CTA of the query-tiled kernel handles
+#: (csrc/paged_attention.cu ``TC_ROWS``); longer calls go through the
+#: grid's query-tile dimension
 QUERY_TILE = 16
 
 #: calls with at most this many queries per row take the split-KV
@@ -99,34 +97,29 @@ SPLIT_BLOCKS = 4
 #: 16-byte vectors on each lane of the warp); others take a tiled route
 SPLIT_HEAD_DIMS = (16, 32, 64, 128, 256)
 
-#: largest head_dim the tensor-core tiled kernel takes: instantiated at
-#: 16, 32, 64 and 128, a head dim in between zero-padded to the next
-TILED_MAX_HEAD_DIM = 128
+#: largest head_dim the kernels take: the tensor-core tiled kernel is
+#: instantiated at 16, 32, 64, 128 and 256, a head dim in between
+#: zero-padded to the next; wider heads wait for ROADMAP Queue 2 item 12
+#: (head dims above 256)
+TILED_MAX_HEAD_DIM = 256
 
-#: largest block_size the CUDA-core tiled route (``"tiled_simt"``) takes:
-#: it scores one key per lane of a warp. The split-KV route loops over a
-#: block's tokens and the tensor-core tiled route finds each key row
-#: through the table, so both take any block size.
-MAX_BLOCK_SIZE = 32
-
-#: largest head_dim the kernels take (the CUDA-core tiled kernel keeps
-#: eight accumulator registers per lane per query row); wider heads wait
-#: for ROADMAP Queue 2 item 12 (head dims above 256)
-MAX_HEAD_DIM = 256
-
-#: the most shared memory one CTA may have on the H100 (227 KB), which the
-#: CUDA-core tiled kernel's launch asks for through the dynamic
-#: shared-memory attribute; its static part (two ints) takes 16 bytes as
-#: compiled
+#: the most shared memory one CTA may have on the H100 (227 KB)
 MAX_SMEM_BYTES = 232448
-_SIMT_STATIC_SMEM = 16
 
 
-def simt_smem_bytes(head_dim, block_size):
-    """Dynamic shared memory of one ``tiled_simt`` launch: two staged pool
-    blocks of K and V (rows padded to ``head_dim + 1``) and the 16-row Q
-    tile, float32 (``csrc/paged_attention.cu`` ``simt_smem``)."""
-    return (2 * block_size * (head_dim + 1) + QUERY_TILE * head_dim) * 4
+def tiled_smem_bytes(head_dim, quantized=False):
+    """Dynamic shared memory of one tiled launch at the instantiation
+    ``head_dim`` takes (``csrc/paged_attention.cu`` ``tc_smem``): the
+    16-row float32 Q tile, then the ring — two stages of K and V key
+    tiles (64 keys, 32 at 128 and 256; float32 rows, or int8 rows of
+    codes and 16 pad bytes with a float32 scale each) — whose space the
+    4 warps' (m, l, acc) reuse for the final merge."""
+    dp = next(x for x in (16, 32, 64, 128, 256) if head_dim <= x)
+    keys = 32 if dp > 64 else 64
+    row = dp + 16 if quantized else 4 * dp
+    ring = 4 * keys * row + (4 * keys * 4 if quantized else 0)
+    merge = 4 * QUERY_TILE * (dp + 2) * 4
+    return QUERY_TILE * dp * 4 + max(ring, merge)
 
 
 def quantize_kv(x):
@@ -242,29 +235,25 @@ def _check(cond, msg):
 
 
 def _route(s_q, head_dim):
-    """``"split"``, ``"tiled"`` or ``"tiled_simt"``: the kernel a call
-    with ``s_q`` queries per row at ``head_dim`` launches."""
+    """``"split"`` or ``"tiled"``: the kernel a call with ``s_q`` queries
+    per row at ``head_dim`` launches."""
     if s_q <= SPLIT_MAX_QUERIES and head_dim in SPLIT_HEAD_DIMS:
         return "split"
-    if head_dim <= TILED_MAX_HEAD_DIM:
-        return "tiled"
-    return "tiled_simt"
+    return "tiled"
 
 
 #: the routes :func:`budget` reads, in the C interface's order
-BUDGET_ROUTES = ("tiled", "split", "tiled_simt")
+BUDGET_ROUTES = ("tiled", "split")
 
 
-def budget(head_dim, quantized=False, route="tiled", block_size=16):
+def budget(head_dim, quantized=False, route="tiled"):
     """One route's kernel resources on the current card, for the
     instantiation ``head_dim`` takes and float32 or int8 (``quantized``)
     pools: ``{"ctas_per_sm", "registers", "spill_bytes", "smem_bytes"}``
     (registers and local-memory bytes per thread as the compiler left
     them; CTAs per SM from the card's occupancy calculator). ``route``
     "tiled" (the default: the tensor-core tiled kernel, dynamic shared
-    bytes), "split" (the split-KV kernel, static shared bytes) or
-    "tiled_simt" (the CUDA-core tiled kernel at ``block_size``, static
-    and dynamic shared bytes)."""
+    bytes) or "split" (the split-KV kernel, static shared bytes)."""
     from tensorflowonspark_tpu_torch.ops import _build
     import ctypes
 
@@ -272,18 +261,12 @@ def budget(head_dim, quantized=False, route="tiled", block_size=16):
     if route == "tiled":
         _check(1 <= head_dim <= TILED_MAX_HEAD_DIM,
                "no tiled kernel at head_dim {}".format(head_dim))
-    elif route == "split":
+    else:
         _check(head_dim in SPLIT_HEAD_DIMS,
                "no split kernel at head_dim {}".format(head_dim))
-    else:
-        _check(1 <= head_dim <= MAX_HEAD_DIM
-               and 1 <= block_size <= MAX_BLOCK_SIZE,
-               "no tiled_simt kernel at head_dim {}, block {}".format(
-                   head_dim, block_size))
     out = (ctypes.c_int * 4)()
     rc = _build.load("paged_attention").tfos_paged_budget(
-        BUDGET_ROUTES.index(route), head_dim, int(quantized), block_size,
-        out)
+        BUDGET_ROUTES.index(route), head_dim, int(quantized), out)
     if rc != 0:
         raise RuntimeError("paged_attention budget query failed: CUDA error "
                            "{}".format(rc))
@@ -329,22 +312,15 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
     _check(pos.dtype == torch.int32 and tuple(pos.shape) == (b, s_q),
            "pos must be int32 [B, S_q]")
     _check(bs_blk >= 1, "block_size must be at least 1")
-    _check(1 <= d <= MAX_HEAD_DIM,
+    _check(1 <= d <= TILED_MAX_HEAD_DIM,
            "head_dim must be in [1, {}]; wider heads wait for ROADMAP "
-           "Queue 2 item 12 (head dims above 256)".format(MAX_HEAD_DIM))
+           "Queue 2 item 12 (head dims above 256)".format(TILED_MAX_HEAD_DIM))
     route = _route(s_q, d)
     mb = block_table.shape[1]
     if route == "split":
         _check(mb >= 1, "block_table needs at least one column")
         _check(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
                "pools must start on a 16-byte boundary (16-byte loads)")
-    elif route == "tiled_simt":
-        _check(bs_blk <= MAX_BLOCK_SIZE,
-               "block_size must be in [1, {}] on the tiled_simt route "
-               "(head_dim > {})".format(MAX_BLOCK_SIZE, TILED_MAX_HEAD_DIM))
-        _check(simt_smem_bytes(d, bs_blk) + _SIMT_STATIC_SMEM
-               <= MAX_SMEM_BYTES,
-               "block_size x head_dim too large for shared memory")
     _check(all(t.is_cuda for t in tensors), "every tensor must be CUDA")
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -365,10 +341,9 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
             bs_blk, mb, SPLIT_BLOCKS, ctypes.c_float(scale), int(quantized),
             stream)
     else:
-        launch = (lib.tfos_paged_attention_tiled if route == "tiled"
-                  else lib.tfos_paged_attention_simt)
-        rc = launch(*common, vp(out.data_ptr()), b, s_q, n, d, p_rows, bs_blk,
-                    mb, ctypes.c_float(scale), int(quantized), stream)
+        rc = lib.tfos_paged_attention_tiled(
+            *common, vp(out.data_ptr()), b, s_q, n, d, p_rows, bs_blk, mb,
+            ctypes.c_float(scale), int(quantized), stream)
     if rc != 0:
         raise RuntimeError(
             "paged_attention {} kernel launch failed: CUDA error {}".format(

@@ -1,15 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (``cuda`` marker; skips where torch sees no CUDA device):
-paged attention on its three routes (split-KV; query-tiled on the tensor
-cores at block sizes 8-128, windows 2-300 and head dims 16-128; the
-CUDA-core tiled kernel above 128, which alone keeps the 32-token block
-limit), with depths on and off split
+paged attention on its two routes (split-KV; query-tiled on the tensor
+cores at block sizes 8-128, windows 2-300 and head dims 16-256, blocks
+48 and 64 at 192 and 256), with depths on and off split
 boundaries, positions that are not consecutive, its determinism,
 NaN-poisoned dead pool rows and the tiled kernel's register budget; and
 the three flash-attention kernels (forward, dQ, dK/dV), with
 the two-stage copy ring run through many tiles and a ragged last one,
-32-row tiles at D 128, the backward's determinism (no atomics) and the
-register budgets at D 64; the bfloat16 forward, dQ and dK/dV
+32-row tiles at D 128, the float32 dK/dV at D 256 (one CTA of 8 warps a
+key tile), the backward's determinism (no atomics) and the register
+budgets at D 64 and 256; the bfloat16 forward, dQ and dK/dV
 (``wgmma`` + TMA) at every head dim, ragged and rectangular, with a key
 mask, at BERT-base's attention shape, dQ with whole key tiles masked in
 the middle and at the end of a row, and bitwise deterministic; and ring
@@ -187,8 +187,7 @@ def test_speculative_engine_routes_and_tokens(cuda):
         counts = eng.counters.snapshot()["counts"]
     rounds, prefills = counts["decode_steps"], counts["prefills"]
     assert pa.route_launches == {"split": 1 * 3 * rounds,
-                                 "tiled": 2 * rounds + (2 + 1) * prefills,
-                                 "tiled_simt": 0}
+                                 "tiled": 2 * rounds + (2 + 1) * prefills}
     for (prompt, _), g, w in zip(reqs, got, want):
         if g == w:
             continue
@@ -256,8 +255,7 @@ def test_two_fleet_replicas_share_the_card_with_exact_launches(cuda):
     assert all(c.get("requests_completed", 0) > 0 for c in counts)
     steps = sum(c["decode_steps"] for c in counts)
     prefills = sum(c["prefills"] for c in counts)
-    assert pa.route_launches == {"split": 2 * steps, "tiled": 2 * prefills,
-                                 "tiled_simt": 0}
+    assert pa.route_launches == {"split": 2 * steps, "tiled": 2 * prefills}
     for (prompt, _), g, w in zip(reqs, got, want):
         if g == w:
             continue
@@ -289,7 +287,7 @@ def test_measure_attn_launches_the_paged_kernel(cuda, kv_dtype):
         ms = eng.measure_attn(reps=5)
         assert ms > 0 and eng.timers.counts()["attn"] == 5
         assert {r: pa.route_launches[r] - before[r] for r in before} == \
-            {"split": 6, "tiled": 0, "tiled_simt": 0}
+            {"split": 6, "tiled": 0}
         if kv_dtype:
             assert eng.measure_dequant(reps=2) > 0
         assert eng.kv_cache_bytes() == sum(
@@ -387,9 +385,8 @@ def test_tiled_route_block_sizes_and_windows(cuda, bs, s_q, quant):
 @pytest.mark.parametrize("s_q", [1, 40], ids=["split", "tiled"])
 @pytest.mark.parametrize("bs", [64, 128])
 def test_routes_take_block_sizes_above_32(cuda, bs, s_q, quant):
-    """Block sizes past the CUDA-core route's 32 on the split and the
-    tensor-core tiled routes (``DecodeEngine(kv_block_size=64)``'s
-    pools): within TOL of ``_blockwise`` for a row mid-table, one
+    """Block sizes above 32 on the split and the tensor-core tiled routes
+    (``DecodeEngine(kv_block_size=64)``'s pools): within TOL of ``_blockwise`` for a row mid-table, one
     overshooting the table and an all-scratch one, and NaN-poisoned
     dead pool rows leave the output bitwise unchanged."""
     rng = np.random.RandomState(bs + s_q)
@@ -407,37 +404,50 @@ def test_routes_take_block_sizes_above_32(cuda, bs, s_q, quant):
 
 
 @pytest.mark.cuda
-def test_simt_route_refuses_block_64(cuda):
-    """The CUDA-core route (head dims above 128) scores one key per
-    lane, so it alone keeps the 32-token block limit."""
-    rng = np.random.RandomState(64)
-    args, _ = _paged_case(cuda, rng, 16, False, [100, 40, 16], n=1, d=192,
-                          bs=64, mb=3)
-    before = dict(pa.route_launches)
-    with pytest.raises(ValueError, match="tiled_simt"):
-        pa.paged_attention(*args)
-    assert pa.route_launches == before
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("bs", [48, 64])
+def test_wide_heads_take_block_sizes_above_32(cuda, bs, d, quant):
+    """A D-192 or D-256 engine with a pool block of 48 or 64 (the
+    CUDA-core route these widths took before refused blocks above 32):
+    the tensor-core tiled route within TOL of ``_blockwise`` for a row
+    mid-table, one overshooting the table and an all-scratch one, and
+    NaN-poisoned dead pool rows leave the output bitwise unchanged."""
+    rng = np.random.RandomState(bs + d)
+    mb = 4
+    args, scales = _paged_case(cuda, rng, 16, quant,
+                               [2 * bs + 7, mb * bs + 5, 16], n=2, d=d,
+                               bs=bs, mb=mb, scratch_row=2)
+    got, route = _launch(args, scales)
+    assert route == "tiled"
+    want = pa.paged_attention(*args, impl="blockwise", **scales)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    poisoned, _ = _launch(*_poison_dead(cuda, args, scales, bs))
+    assert torch.equal(poisoned, got)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
 @pytest.mark.parametrize(
     "d,bs", [(16, 16), (18, 16), (20, 16), (48, 16), (64, 16), (128, 16),
-             (192, 16), (256, 16), (256, 32)],
-    ids=["16", "18", "20", "48", "64", "128", "192", "256", "256-bs32"])
+             (192, 16), (256, 16), (256, 32), (256, 48), (256, 64),
+             (130, 16)],
+    ids=["16", "18", "20", "48", "64", "128", "192", "256", "256-bs32",
+         "256-bs48", "256-bs64", "130"])
 def test_tiled_routes_head_dims(cuda, d, bs, quant):
-    """The tensor-core tiled kernel at its instantiations (16, 64, 128)
-    and at 18, 20 and 48, zero-padded in shared memory: rows of 72 float
-    bytes take 4-byte copies, int8 rows of 20 codes 4-byte and of 18
-    codes byte copies; above 128 the CUDA-core tiled kernel (192, and
-    256 at blocks 16 and 32, whose staged blocks need more than 48 KB of
-    shared memory)."""
+    """The tensor-core tiled kernel at its instantiations (16, 64, 128,
+    256) and at 18, 20, 48, 130 and 192, zero-padded in shared memory:
+    rows of 72 float bytes take 4-byte copies, int8 rows of 20 codes
+    4-byte and of 18 codes byte copies; at 256 blocks 16 to 64 (key
+    tiles of 32 that cross pool blocks or lie inside one), its shared
+    memory above 48 KB granted through the kernel's attribute."""
     rng = np.random.RandomState(d)
     mb, s_q = 96 // bs, 40
     args, scales = _paged_case(cuda, rng, s_q, quant, [mb * bs - 7, 50, s_q],
                                n=2, d=d, bs=bs, mb=mb)
     got, route = _launch(args, scales)
-    assert route == ("tiled" if d <= pa.TILED_MAX_HEAD_DIM else "tiled_simt")
+    assert route == "tiled"
     want = pa.paged_attention(*args, impl="blockwise", **scales)
     assert (got - want).abs().max().item() <= TOL
 
@@ -717,6 +727,37 @@ def test_flash_backward_is_deterministic(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)],
+                         ids=["causal", "key-mask"])
+def test_flash_dkv_d256_one_cta_per_key_tile(cuda, causal, masked):
+    """The float32 dK/dV at D 256: one CTA of 8 warps a 64-key tile, a dV
+    half (S^T, P^T through shared memory, P^T dO) and a dK half (dP^T,
+    dS^T, dS^T Q). Against the plain backward on the same lse and delta,
+    causal over a ragged S and rectangular with a key mask that leaves
+    one batch row fully masked (its dK and dV 0); two launches bitwise
+    equal."""
+    case = ((2, 200, 200, 2, 256, True, False, torch.float32) if causal
+            else (2, 72, 136, 3, 256, False, True, torch.float32))
+    q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
+    scale = 256 ** -0.5
+    out, lse = fa._kernel_fwd(q, k, v, bias, causal, scale)
+    delta = fa._delta(out, dout, g_lse)
+    before = fa.launches["dkv"]
+    dk, dv = fa._kernel_dkv(q, k, v, bias, dout, lse, delta, causal, scale)
+    again = fa._kernel_dkv(q, k, v, bias, dout, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.launches["dkv"] == before + 2
+    want_dk, want_dv = fa._dkv_plain(q, k, v, bias, dout, lse, delta,
+                                     causal, scale)
+    for got, want, rep_ in ((dk, want_dk, again[0]), (dv, want_dv, again[1])):
+        assert torch.isfinite(got).all()
+        _assert_close(got, want)
+        assert torch.equal(got, rep_)
+    if masked:
+        assert (dk[-1] == 0).all() and (dv[-1] == 0).all()
+
+
+@pytest.mark.cuda
 def test_flash_bf16_dkv_is_deterministic(cuda):
     """The bfloat16 dQ and dK/dV kernels keep one writer per output tile
     (a warpgroup owns 64 queries or keys and loops over the other
@@ -772,20 +813,20 @@ def test_flash_budget_at_d256(cuda, kind, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
-@pytest.mark.parametrize("route,bs", [("split", 16), ("tiled_simt", 16),
-                                      ("tiled_simt", 32)],
-                         ids=["split", "simt-bs16", "simt-bs32"])
-def test_paged_budget_at_d256(cuda, route, bs, quant):
-    """The split-KV kernel at D 256 and the CUDA-core tiled kernel at
-    blocks 16 and 32 keep their state in registers and fit the card: the
-    CUDA-core kernel's dynamic shared memory, above 48 KB, is granted
-    through its attribute."""
-    got = pa.budget(256, quant, route=route, block_size=bs)
+@pytest.mark.parametrize("route", ["split", "tiled"])
+def test_paged_budget_at_d256(cuda, route, quant):
+    """The split-KV kernel and the tensor-core tiled kernel at D 256 keep
+    their state in registers (the tiled kernel's 16 x 256 accumulator is
+    128 registers a lane) and fit the card: the tiled kernel's dynamic
+    shared memory, above 48 KB, is what ``tiled_smem_bytes`` reckons and
+    is granted through its attribute."""
+    got = pa.budget(256, quant, route=route)
     assert got["spill_bytes"] == 0
     assert got["ctas_per_sm"] >= 1
     assert 0 < got["smem_bytes"] <= 227 * 1024
-    if route == "tiled_simt":
-        assert got["smem_bytes"] >= pa.simt_smem_bytes(256, bs) > 48 * 1024
+    if route == "tiled":
+        assert got["smem_bytes"] == pa.tiled_smem_bytes(256, quant) \
+            > 48 * 1024
 
 
 @pytest.mark.cuda

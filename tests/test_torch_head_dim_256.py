@@ -2,15 +2,19 @@
 
 The JAX package takes any head dim (its Pallas kernels block only the
 sequence). The port's kernels are instantiated at D 256 (flash: float32
-and bfloat16; paged: the split-KV decode route and the CUDA-core tiled
-route, whose launch now asks for more than 48 KB of shared memory), and
-head dims 129-255 run zero-padded to 256. On the CPU the port takes its
-plain versions, so these tests hold them against the JAX package at
+and bfloat16; paged: the split-KV decode route and the tensor-core
+tiled route, whose launch asks for more than 48 KB of shared memory),
+and head dims 129-255 run zero-padded to 256. On the CPU the port takes
+its plain versions, so these tests hold them against the JAX package at
 the widths the kernels now take, with the same seeded numpy inputs:
 
 - planning: a D-256 paged call refuses a CPU tensor for its device
-  only (the parent refused it for shared memory), 129-256 pad to 256,
-  and decode at D 256 takes the split route;
+  only, 129-256 pad to 256, decode at D 256 takes the split route and
+  every wider window the tiled one;
+- paged attention at D 192 and 256, S_q 8 and 40, blocks 16, 32 and 64
+  (the tiled route takes any block size), float and int8, through the
+  port's plain route against the JAX gather oracle (and, at block 64,
+  the Pallas kernel in interpret mode);
 - flash forward and gradients (through out and lse) at D 192 and 256,
   S 128, block 128, causal and key-masked, against the Pallas kernels
   in interpret mode, within 2e-4 (the D <= 128 cases' tolerance,
@@ -80,19 +84,21 @@ def _paged_inputs(seed, b=3, s_q=1, n=2, d=256, bs=16, mb=4, pool=13):
 @pytest.mark.parametrize("bs", [16, 32])
 def test_d256_kernels_are_planned(bs):
     """On CPU tensors the paged kernel at D 256 refuses only for the
-    device: its shared memory at blocks 16 (49,280 bytes) and 32
-    (82,176) fits under the card's 227 KB once the launch asks for it
-    (the parent capped it at 48 KB and refused both for size). Flash
-    pads every head of 129-256 to the 256 instantiation, and a D-256
-    decode step takes the split-KV route while its prefill tails keep
-    the CUDA-core tiled one."""
+    device: the tensor-core tiled kernel's shared memory at D 256
+    (147,456 bytes float32, 82,432 int8, whatever the block) fits under
+    the card's 227 KB once the launch asks for it through the attribute.
+    Flash pads every head of 129-256 to the 256 instantiation, and a
+    D-256 decode step takes the split-KV route while its prefill tails
+    take the tensor-core tiled one."""
     t = [torch.from_numpy(a) for a in _paged_inputs(0, s_q=8, bs=bs, mb=2)]
-    assert pa.simt_smem_bytes(256, bs) > 48 * 1024
+    for quant in (False, True):
+        assert 48 * 1024 < pa.tiled_smem_bytes(256, quant) <= \
+            pa.MAX_SMEM_BYTES
     with pytest.raises(ValueError, match="every tensor must be CUDA"):
         pa.paged_attention(*t, impl="kernel")
     assert all(fa.padded_head_dim(d) == 256 for d in range(129, 257))
     assert pa._route(1, 256) == "split"
-    assert pa._route(8, 256) == "tiled_simt"
+    assert pa._route(8, 256) == "tiled"
 
 
 @pytest.mark.parametrize("d", [257, 384])
@@ -215,7 +221,7 @@ def test_flash_d192_through_the_padding_route(causal, masked):
 @pytest.mark.parametrize("port_impl", ["blockwise", "gather"])
 def test_paged_d256_matches_jax_formulations(port_impl, s_q, quant):
     """Block 16, three rows at their own depths, S_q 1 (the split route's
-    shape on the card) and 40 (a prefill tail: ``tiled_simt``)."""
+    shape on the card) and 40 (a prefill tail: the tiled route)."""
     tol = INT8_TOL if quant else FP32_TOL
     case = _paged_inputs(11 + s_q, s_q=s_q)
     if quant:
@@ -225,6 +231,33 @@ def test_paged_d256_matches_jax_formulations(port_impl, s_q, quant):
                      ("pallas", {"interpret": True})):
         np.testing.assert_allclose(got, _jax(case, impl, **kw), atol=tol,
                                    rtol=tol, err_msg="vs JAX " + impl)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("bs", [16, 32, 64])
+@pytest.mark.parametrize("s_q", [8, 40])
+@pytest.mark.parametrize("d", [192, 256])
+def test_paged_wide_heads_match_jax_at_any_block(d, s_q, bs, quant):
+    """The shapes the tiled route now serves at 128 < D <= 256, blocks
+    up to 64 (a D-256 engine with ``kv_block_size=64``): three rows at
+    their own depths, through the port's plain route (``_blockwise``, the
+    kernel's oracle on the card) and its gather oracle, against the JAX
+    gather oracle within the D <= 128 tolerances; at block 64, which
+    the port's kernels refused at these widths before, also against the
+    reference's Pallas kernel in interpret mode."""
+    tol = INT8_TOL if quant else FP32_TOL
+    case = _paged_inputs(100 + d + s_q + bs, s_q=s_q, d=d, bs=bs,
+                         mb=max(2, 160 // bs))
+    if quant:
+        case = _int8(case)
+    want = _jax(case, "gather")
+    for impl in ("blockwise", "gather"):
+        np.testing.assert_allclose(_torch(case, impl=impl), want, atol=tol,
+                                   rtol=tol, err_msg="port " + impl)
+    if bs == 64:
+        np.testing.assert_allclose(_torch(case, impl="blockwise"),
+                                   _jax(case, "pallas", interpret=True),
+                                   atol=tol, rtol=tol, err_msg="vs Pallas")
 
 
 # -- the slice: a DecoderLM with 256-wide heads ----------------------------
@@ -311,7 +344,7 @@ def test_wide_head_engine_tokens_match_reference(flax_params):
     """Greedy tokens of the paged engines at the automatic block (16:
     the largest divisor of 256 up to 16), 2 slots, mixed prompt lengths
     with a prefill past one block: the port (split-KV decode and
-    ``tiled_simt`` tails on the card; the plain version here) emits the
+    tensor-core tiled tails on the card; the plain version here) emits the
     JAX engine's tokens exactly."""
     rng = np.random.RandomState(5)
     reqs = [(rng.randint(0, V, size=int(n)).tolist(), int(m))

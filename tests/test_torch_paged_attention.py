@@ -176,17 +176,18 @@ def test_dispatcher_cpu_takes_plain_version_and_validates():
     assert tpa.launches == before
 
 
-@pytest.mark.parametrize("d,route", [(192, "tiled_simt"), (64, "tiled")])
-def test_only_the_simt_route_limits_block_size(d, route):
-    """Block 64 is past the CUDA-core route's one-key-per-lane limit
-    (``MAX_BLOCK_SIZE``): a head dim above 128 (``tiled_simt``) refuses
-    it, while the tensor-core tiled route takes it and the wrapper goes
-    on to its device check (CPU tensors stop there)."""
+@pytest.mark.parametrize("d", [192, 256])
+def test_block_64_at_wide_heads_refuses_only_for_the_device(d):
+    """A D-192 or D-256 engine with a pool block of 64: the tensor-core
+    tiled route finds each key row through the table and takes any block
+    size at any head dim, as the reference's ``_pallas`` does, so the
+    wrapper passes every shape check and stops only at its device check
+    on CPU tensors. (The CUDA-core route it replaced above 128 scored one
+    key per lane and refused blocks above 32.)"""
     case = _case(6, s_q=8, d=d, bs=64, mb=2)
     t = [torch.from_numpy(a) for a in case]
-    assert tpa._route(8, d) == route
-    match = "tiled_simt" if route == "tiled_simt" else "must be CUDA"
-    with pytest.raises(ValueError, match=match):
+    assert tpa._route(8, d) == "tiled"
+    with pytest.raises(ValueError, match="every tensor must be CUDA"):
         tpa._kernel(*t, scale=d ** -0.5)
 
 
@@ -293,26 +294,62 @@ def test_split_kv_schedule_matches_gather_and_jax(c, quant):
 
 def test_route_picks_split_kv_for_decode():
     """Decode (S_q = 1) takes the split-KV route at the head dims it is
-    built for; any wider window, prefill tails and other head dims up to
-    128 the tensor-core tiled one; head dims above 128 (to 256) the
-    CUDA-core tiled one, whatever the window. On CPU tensors no route
+    built for; any wider window, prefill tails and every other head dim
+    up to 256 the tensor-core tiled one. On CPU tensors no route
     launches."""
     assert tpa.SPLIT_MAX_QUERIES == 1
-    assert tpa.TILED_MAX_HEAD_DIM == 128
+    assert tpa.TILED_MAX_HEAD_DIM == 256
     assert tpa._route(1, 64) == "split"
     assert tpa._route(1, 128) == "split"
+    assert tpa._route(1, 256) == "split"
     assert tpa._route(2, 64) == "tiled"
     assert tpa._route(1, 48) == "tiled"
     assert tpa._route(256, 64) == "tiled"
     assert tpa._route(300, 128) == "tiled"
-    assert tpa._route(16, 129) == "tiled_simt"
-    assert tpa._route(1, 192) == "tiled_simt"
-    assert tpa._route(40, 256) == "tiled_simt"
-    assert set(tpa.route_launches) == {"split", "tiled", "tiled_simt"}
+    assert tpa._route(16, 129) == "tiled"
+    assert tpa._route(1, 192) == "tiled"
+    assert tpa._route(40, 256) == "tiled"
+    assert set(tpa.route_launches) == {"split", "tiled"}
     before = dict(tpa.route_launches)
     _torch(_case(2, s_q=1))
     _torch(_case(2, s_q=8, d=192))
     assert tpa.route_launches == before
+
+
+@pytest.mark.parametrize("s_q", [2, 16, 40, 512])
+def test_tiled_route_takes_every_wide_head_dim(s_q):
+    """Above 128 every head dim to 256 takes the tensor-core tiled route
+    once a row has more than one query (prefill tails, cold prompts, the
+    speculative verify window), and decode at a width the split kernel is
+    not built for does too; nothing above 256 has a kernel."""
+    for d in range(129, 257):
+        assert tpa._route(s_q, d) == "tiled", d
+        assert tpa._route(1, d) == ("split" if d == 256 else "tiled"), d
+    assert {tpa._route(s_q, d) for d in range(1, 257)} == {"tiled"}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_tiled_smem_at_d256_fits_the_card(quant):
+    """The DP-256 tile's shared memory, reckoned here from its parts
+    (``tc_smem`` in ``csrc/paged_attention.cu``): the 16-row float32 Q
+    tile, then a ring of two stages of 32 K and 32 V rows (float32 rows
+    of 1 KB; int8 rows of 256 codes and 16 pad bytes, with a float32
+    scale a row) whose space the 4 warps' (m, l, acc[256]) merge reuses.
+    Q plus the larger of the two fits the card's 227 KB; the merge fits
+    the space after Q; it is more than the 48 KB a launch gets without
+    the attribute, which the launch raises."""
+    q_tile = 16 * 256 * 4
+    ring = 2 * 2 * 32 * ((256 + 16) if quant else 256 * 4)
+    if quant:
+        ring += 2 * 2 * 32 * 4
+    merge = 4 * 16 * (256 + 2) * 4
+    total = q_tile + max(ring, merge)
+    assert total == tpa.tiled_smem_bytes(256, quant)
+    assert tpa.tiled_smem_bytes(192, quant) == total   # padded to 256
+    assert total <= tpa.MAX_SMEM_BYTES == 232448
+    assert merge <= total - q_tile
+    assert total > 48 * 1024
+    assert total == (147456 if not quant else 82432)
 
 
 # -- the tensor-core tiled route's schedule and arithmetic, emulated ----
@@ -336,8 +373,24 @@ def _mm(a, b, passes, b_exact=False):
     return out + ah @ bh
 
 
+def _mm_parts(a, b, passes, b_exact, parts):
+    """``_mm`` with the contraction's 8-wide steps dealt into ``parts``
+    partial sums (step ``ks`` into sum ``ks % parts``), added in order:
+    how the tiled kernel takes S = Q K^T at DP 256."""
+    if parts == 1:
+        return _mm(a, b, passes, b_exact)
+    steps = a.shape[-1] // 8
+    out = None
+    for u in range(parts):
+        cols = torch.cat([torch.arange(8 * ks, 8 * ks + 8)
+                          for ks in range(u, steps, parts)])
+        part = _mm(a[..., cols], b[..., cols, :], passes, b_exact)
+        out = part if out is None else out + part
+    return out
+
+
 def _emulated_tiled(q, kp, vp, table, pos, scale, passes=3, k_scale=None,
-                    v_scale=None, bn=64, warps=4, rows=16):
+                    v_scale=None, bn=64, warps=4, rows=16, parts=1):
     """The tiled kernel's schedule on CPU tensors: per (row, 16-query
     tile) the key limit min(nblk bs, the tile's highest position + 1);
     keys addressed one by one through the table (key j: pool row
@@ -345,13 +398,14 @@ def _emulated_tiled(q, kp, vp, table, pos, scale, passes=3, k_scale=None,
     D zero-padded to the kernel's instantiation; the ``bn``-key tiles
     taken from tile ``x mod tiles`` on, wrapping around (``x`` the query
     tile's CTA, deepest first), split between ``warps`` warps, each with
-    its own online softmax per tile; S = Q K^T and P V through ``_mm``
-    (int8: codes are exact, the scales fold into S's and P's columns);
-    the warps merged in order."""
+    its own online softmax per tile; S = Q K^T (over ``parts`` partial
+    sums, ``_mm_parts``) and P V through ``_mm`` (int8: codes are exact,
+    the scales fold into S's and P's columns); the warps merged in
+    order."""
     quant = k_scale is not None
     b, s_q, n, d = q.shape
     bs = kp.shape[1]
-    dp = next(x for x in (16, 32, 64, 128) if x >= d)
+    dp = next(x for x in (16, 32, 64, 128, 256) if x >= d)
     kw = bn // warps
     nblk = tpa._nblocks(pos, bs, table.shape[1])
     out = torch.zeros(b, s_q, n, d)
@@ -383,8 +437,8 @@ def _emulated_tiled(q, kp, vp, table, pos, scale, passes=3, k_scale=None,
                                        min(j0 + (w + 1) * kw, n_keys))
                     if len(sel) == 0:
                         continue
-                    s = _mm(qt, k[:, sel].transpose(-1, -2), passes,
-                            b_exact=quant)
+                    s = _mm_parts(qt, k[:, sel].transpose(-1, -2), passes,
+                                  quant, parts)
                     if quant:
                         s = s * k_scale[blk[sel], tok[sel]].T[:, None, :]
                     s = s * scale
@@ -481,3 +535,25 @@ def test_tiled_schedule_int8_codes_need_two_passes_exactly():
     assert torch.equal(_mm(q, k.T, 2, b_exact=True), _mm(q, k.T, 3))
     a = _emulated_tiled(*t[:5], scale, 2, *t[5:])
     assert torch.isfinite(a).all()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("d", [192, 256])
+def test_tiled_d256_schedule_matches_gather_and_jax(d, bs, quant):
+    """The DP-256 instantiation's schedule and arithmetic on CPU: 32-key
+    tiles (8 keys a warp), S = Q K^T's 32 k steps dealt into 4 partial
+    sums, D 192 zero-padded to 256, block 64 beside 16 (the block the
+    CUDA-core route refused); the cases of the D <= 128 schedule test
+    (positions with gaps and repeats, an overshooting pad row, an
+    all-scratch row). 3xTF32 (2 passes on int8 codes) holds the card's
+    1e-5 limit against the port's gather oracle and the JAX package's
+    reference."""
+    case = _tiled_case(200 + d + bs, bs, quant, d=d)
+    t = [torch.from_numpy(np.array(a)) for a in case]
+    scales = t[5:] if quant else [None, None]
+    scale = d ** -0.5
+    got = _emulated_tiled(*t[:5], scale, 2 if quant else 3, *scales,
+                          bn=32, parts=4).numpy()
+    for want in (_torch(case, "gather"), _jax(case, "gather")):
+        assert np.abs(got - want).max() <= KERNEL_TOL

@@ -82,9 +82,9 @@ def test_mixed_lengths_identical_tokens(lm):
 
 
 def test_block_size_64_identical_tokens(lm):
-    """A block size past the CUDA-core kernel's 32 (one 64-token block
-    per row at total_len 64) serves as the reference's engine does: the
-    port's split and tensor-core tiled routes take any block size."""
+    """A block size above 32 (one 64-token block per row at total_len
+    64) serves as the reference's engine does: the port's split and
+    tensor-core tiled routes take any block size."""
     rng = np.random.RandomState(64)
     reqs = [(rng.randint(0, V, size=rng.randint(3, 30)).tolist(),
              int(rng.randint(2, 12))) for _ in range(4)]
