@@ -809,6 +809,8 @@ class DecodeEngine(object):
             self._slot_registered = [0] * self.slots
         self._publish_kv_gauges()
         if self._paged:
+            self.counters.gauge("prefix_digest_chains", 0)
+            self.counters.gauge("prefix_digest_truncated", 0)
             # one hook per registry, reading whichever engine registered
             # last: a respawned engine shares the registry and takes over
             if getattr(self.metrics, "_digest_engine", None) is None:
@@ -1086,6 +1088,7 @@ class DecodeEngine(object):
         if self._paged:
             ps = self._pool.stats()
             dig = self._pool.prefix_digest()
+            self._set_digest_gauges(dig)
             stats.update({
                 "kv_blocks_total": ps["total"],
                 "kv_blocks_free": ps["free"],
@@ -1702,8 +1705,11 @@ class DecodeEngine(object):
         The digest sorts every registered chain (milliseconds of host
         time at a full pool), so a snapshot hook computes it when the
         registry is read — a scrape — instead of on every pool change
-        of every step."""
-        dig = self._pool.prefix_digest()
+        of every step; ``load_stats`` (the fleet beat) sets them from
+        the digest it computes anyway."""
+        self._set_digest_gauges(self._pool.prefix_digest())
+
+    def _set_digest_gauges(self, dig):
         self.counters.gauge("prefix_digest_chains", len(dig["top"]))
         self.counters.gauge("prefix_digest_truncated",
                             1 if dig["truncated"] else 0)
