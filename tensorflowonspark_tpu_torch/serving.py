@@ -105,8 +105,7 @@ drains)::
 
 The fleet that hosts engines behind one router is ``fleet.py``; the
 supervisor that restarts a dead scheduler is ``supervisor.py``, the
-autoscaler that sizes the fleet ``autoscale.py``. Left out of this port
-so far (see ROADMAP.md, Queue 1): the profiler hooks. ``compile_stats``
+autoscaler that sizes the fleet ``autoscale.py``. ``compile_stats``
 reports program counts as None (eager PyTorch keeps no program cache).
 ``_Batcher`` drops the reference's power-of-two padding of a merged
 batch, which bounds ``jit``'s compile cache; eager PyTorch has none,
