@@ -390,10 +390,11 @@ Phases, stopping with a non-zero exit at the first failure:
    of 256) and the tensor-core tiled route (blocks 16, 32 and 64, a
    256-token tail and a cold 512 prompt), float and int8, held as phase
    3's cases are; the three flash kernels at B 4 x S 1024 x 8 x 256,
-   causal, in float32 and bfloat16 (float32 dK/dV: one CTA of 8 warps a
-   key tile), and at D 192 through the padding, under phase 3b's
+   causal, in float32 and bfloat16 (float32: one CTA of 8 warps a row
+   or key tile), and at D 192 through the padding, under phase 3b's
    limits; each timed beside its plain version, its SDPA yardstick and
-   its bound; the budgets of the D-256 tiled kernel and of dK/dV
+   its bound; the budgets of the D-256 tiled kernel and of the float32
+   forward, dQ and dK/dV
    (spill-free, within 227 KB); (b) a ``DecoderLM`` of Gemma-2B's
    attention width and
    depth on the repo's own block (vocab 50257, hidden 2048 = 8 heads x
@@ -1017,8 +1018,8 @@ def kernel_budget(torch, fa, pa):
     kernels and of the tensor-core tiled paged kernel at the models'
     head dim, and of every D-256 instantiation (flash in both dtypes,
     the split-KV kernel, the tensor-core tiled kernel), as the card
-    reports them. The D-256 tiled kernel and float32 dK/dV must be
-    spill-free within the card's 227 KB of shared memory (the tiled
+    reports them. The D-256 tiled kernel and the float32 forward, dQ and
+    dK/dV at D 256 must be spill-free within the card's 227 KB of shared memory (the tiled
     kernel's as ``tiled_smem_bytes`` reckons it)."""
     out = {}
     for quant in (False, True):
@@ -1045,10 +1046,12 @@ def kernel_budget(torch, fa, pa):
                 "KB shared, {} CTAs/SM".format(
                     kind, dtype, got["registers"], got["spill_bytes"],
                     got["smem_bytes"] // 1024, got["ctas_per_sm"]))
-    got = out["dkv D256 float32"]
-    check(got["spill_bytes"] == 0 and got["ctas_per_sm"] >= 1
-          and got["smem_bytes"] <= pa.MAX_SMEM_BYTES,
-          "float32 dK/dV at D 256 spills or does not fit: {}".format(got))
+    for kind in ("fwd", "dq", "dkv"):
+        got = out["{} D256 float32".format(kind)]
+        check(got["spill_bytes"] == 0 and got["ctas_per_sm"] >= 1
+              and got["smem_bytes"] <= pa.MAX_SMEM_BYTES,
+              "float32 {} at D 256 spills or does not fit: {}".format(
+                  kind, got))
     for quant in (False, True):
         got = pa.budget(HIDDEN // HEADS, quant)
         out["paged_tiled {}".format("int8" if quant else "float32")] = got
@@ -6034,8 +6037,8 @@ def wide_kernel_cases(torch, pa, fa, dev):
     these widths), on a 256-token tail and a cold 512 prompt; float and
     int8 (``hold_case``: the route, ``KERNEL_TOL``, a bitwise repeat,
     NaN-poisoned dead rows). Flash: the three kernels at D 256 in float32
-    and bfloat16 at B 4 x S 1024 x 8, causal (float32 dK/dV: one CTA of
-    8 warps a key tile), and D 192 through the padding (``flash_cases``,
+    and bfloat16 at B 4 x S 1024 x 8, causal (float32: one CTA of 8
+    warps a row or key tile), and D 192 through the padding (``flash_cases``,
     the phase-3b limits). Returns the largest errors."""
     rng = np.random.RandomState(SEED + 17)
     worst = {"split": 0.0, "tiled": 0.0}
@@ -6598,12 +6601,18 @@ def main():
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms")},
             "design": {
-                "float32": "flash_{}_kernel<256>: mma.sync 3xTF32, {}-row "
-                           "streamed tiles{}".format(
-                               name, 8 if name == "fwd" else 16,
-                               ", one CTA of 8 warps a key tile (a dV "
-                               "half and a dK half, P^T through shared "
-                               "memory)" if name == "dkv" else ""),
+                "float32": "flash_{}_kernel<256>: mma.sync 3xTF32, "
+                           "one CTA of 8 warps a 64-row tile, {}".format(
+                               name, {
+                                   "fwd": "warp pairs on out's column "
+                                          "halves summing their partial "
+                                          "scores, 32-key tiles",
+                                   "dq": "warp w S and P, warp w + 4 dP, "
+                                         "each dS K on one column half, "
+                                         "32-key tiles",
+                                   "dkv": "a dV half and a dK half, P^T "
+                                          "through shared memory, "
+                                          "16-query tiles"}[name]),
                 "bfloat16": "flash_{}_wgmma{}_kernel<256>: wgmma + TMA{}"
                             .format(name, "_wide" if name == "dkv" else "",
                                     ", two column halves"

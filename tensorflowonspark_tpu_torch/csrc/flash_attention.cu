@@ -165,18 +165,32 @@
 // Head dim 256 (Gemma-2B's 8 heads x 256; the wrapper zero-pads 129-255
 // to it). A warp's 16 rows x 256 columns of float32 accumulator take 128
 // registers a thread, and a 64-row float32 tile 64 KB, so:
-// - mma.sync (float32): the forward streams 8-key tiles (fwd_rows: 96
-//   KB of shared memory, two CTAs per SM), dQ and dK/dV 16-row ones
-//   (stream_rows: 192 KB, one), the k loop of rows_by_rows is unrolled
-//   8 steps at a time, and a_by_cols takes V, K, dO or Q's B
-//   fragments 2 column blocks at a time (pass-major within them) instead
-//   of all at once; and dK/dV, whose two accumulators would need 256
-//   registers a thread, runs one CTA of 8 warps per 64-key tile
-//   (dkv_pair): warps 0-3 own dV's 16-key row blocks, computing S^T, P^T
-//   and P^T dO, and leave P^T in shared memory; warps 4-7 own dK's,
-//   computing dP^T, then dS^T from that P^T, and dS^T Q. Each half does
-//   two of the four products on one staged copy of K, V and the Q/dO
-//   ring.
+// - mma.sync (float32): the k loop of rows_by_rows is unrolled 8 steps
+//   at a time, and a_by_cols takes V, K, dO or Q's B fragments 2 column
+//   blocks at a time (pass-major within them) instead of all at once.
+//   Each kernel runs one CTA of 8 warps a 64-row tile, two warps a
+//   16-row block, so no warp holds more than one 16 x 128 or 16 x 256
+//   accumulator:
+//   - the forward (flash_fwd_kernel<256>): each warp of a pair owns one
+//     128-column half of out; the pair sums its halves' partial scores
+//     through shared memory and both run the same online softmax over
+//     32-key tiles (two stages, 212 KB). With one 4-warp CTA over all
+//     256 columns (128 accumulator registers a thread) key tiles had to
+//     be 8 wide to fit two CTAs an SM, and every 8 keys paid a barrier
+//     and a rescale of 128 registers: 0.62 ms against 0.46 at B 4 x S
+//     1024 x 8 x 256;
+//   - dQ (flash_dq_kernel<256>): warp w computes S and P, warp w + 4 dP,
+//     both form dS from the swapped tiles and each adds dS K into one
+//     column half of dQ, over 32-key tiles (one stage, 212 KB): 0.65 ms
+//     against the 4-warp CTA's 1.29 (16-key tiles, each warp all three
+//     products);
+//   - dK/dV (flash_dkv_kernel<256>), whose two accumulators would need
+//     256 registers a thread, one CTA per 64-key tile (dkv_pair): warps
+//     0-3 own dV's 16-key row blocks, computing S^T, P^T and P^T dO, and
+//     leave P^T in shared memory; warps 4-7 own dK's, computing dP^T,
+//     then dS^T from that P^T, and dS^T Q. Each half does two of the
+//     four products on one staged copy of K, V and the 16-query Q/dO
+//     ring.
 // - wgmma (bfloat16): m64n256k16 for O += P V and dQ += dS K (the
 //   accumulator is 128 registers a thread), tiles of four 64-column
 //   blocks, forward key tiles of 32 (wg_fwd_keys); dK/dV splits its
@@ -219,12 +233,63 @@ __host__ __device__ constexpr int stream_rows() {
   return D > 128 ? 16 : D > 64 ? 32 : 64;
 }
 
-// keys of the forward's streamed tile: the backward's, but 8 at D 256,
-// which brings its shared memory to 96 KB and two CTAs to an SM (0.62
-// ms against 0.90 with 16 at B 4 x S 1024 x 8 x 256)
-template <int D>
-__host__ __device__ constexpr int fwd_rows() {
-  return D > 128 ? 8 : stream_rows<D>();
+// D 256, float32: the forward and dQ run one CTA of 8 warps over 64
+// query rows, two warps a 16-row block, each warp owning one 128-column
+// half of the block's out or dQ (flash_fwd_kernel<256>,
+// flash_dq_kernel<256>). Keys of a streamed K/V tile: the forward's ring
+// has two stages, dQ's one (two of 32 keys do not fit beside resident Q
+// and dO). The fastest of the tiles tried at B 4 x S 1024 x 8 x 256,
+// causal (forward: 16 keys x 2 stages 0.67 ms, 24 x 2 0.49, 32 x 2 0.46,
+// 32 x 1 0.47, 48 x 1 0.46, 8 x 2 with two CTAs an SM 0.74 and
+// spilling; dQ: 16 x 2 0.95, 32 x 1 0.65):
+constexpr int FWD256_KEYS = 32;
+constexpr int DQ256_KEYS = 32;
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// row stride, in floats, of a score tile of BN columns that the two warps
+// of a pair exchange through shared memory: a multiple of 16 plus 8, so a
+// quad's 8-byte accesses to 4 rows land on distinct banks
+__host__ __device__ constexpr int xchg_stride(int bn) {
+  return (bn + 15) / 16 * 16 + 8;
+}
+
+// named barrier ``id`` (1..4; 0 is __syncthreads) of the 64 threads of one
+// warp pair (warps w and w + 4)
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
+// The swap of a warp pair's score tiles: this warp's C fragments x of
+// rows r0..r0 + 15 (score tiles j < nt) go to its buffer ``mine`` (rows
+// of XS floats), the pair meets at barrier ``id``, and y gets the
+// partner's from ``other``. The caller keeps both buffers unwritten until
+// a later barrier of the whole CTA.
+template <int NT, int XS>
+__device__ __forceinline__ void pair_swap(const float (&x)[NT][4],
+                                          float (&y)[NT][4], float* mine,
+                                          const float* other, int r0, int nt,
+                                          int id, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    if (j < nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        store2(mine + (r0 + g + 8 * i) * XS + 8 * j + 2 * t, x[j][2 * i],
+               x[j][2 * i + 1]);
+  pair_sync(id);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    if (j < nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 o = *reinterpret_cast<const float2*>(
+            other + (r0 + g + 8 * i) * XS + 8 * j + 2 * t);
+        y[j][2 * i] = o.x;
+        y[j][2 * i + 1] = o.y;
+      }
 }
 
 // At D 256 a warp's dK and dV accumulators over all 256 columns would
@@ -278,15 +343,112 @@ __device__ __forceinline__ void stage_row(float* dst,
   }
 }
 
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
 // shared memory of the forward: the resident 64-row Q tile and two
-// stages of the streamed K and V tiles
+// stages of the streamed K and V tiles, and at D 256 the pairs' two
+// halves of the partial scores
 template <int D>
 constexpr size_t fwd_smem() {
-  return (size_t)(BWD_ROWS * D + 4 * fwd_rows<D>() * D) * sizeof(float);
+  const size_t floats =
+      D > 128 ? BWD_ROWS * D + 4 * FWD256_KEYS * D +
+                    2 * BWD_ROWS * xchg_stride(FWD256_KEYS)
+              : BWD_ROWS * D + 4 * stream_rows<D>() * D;
+  return floats * sizeof(float);
+}
+
+// threads of a forward or dQ CTA: 4 warps, 8 (two a row block) at D 256
+template <int D>
+__host__ __device__ constexpr int fwd_threads() {
+  return D > 128 ? 2 * BWD_THREADS : BWD_THREADS;
+}
+
+// One key tile of the forward's online softmax, for rows g and g + 8 of a
+// warp's 16 (the first at query row0) over the NT 8-key score tiles from
+// key j0, in the C fragments s (Q K^T): s = scale S + bias, -inf where
+// masked (key past S_k; causal: key after the row); the running max m
+// (shared by the row's quad) and this lane's row sums l move on, the NB
+// accumulator blocks are rescaled by the max's correction, and s becomes
+// P = 2^((s - m) log2 e), 0 where masked
+template <int NT, int NB>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT][4],
+                                             float (&acc)[NB][4],
+                                             float (&m)[2], float (&l)[2],
+                                             int row0, int j0, int S_k,
+                                             int causal,
+                                             const float* __restrict__ brow,
+                                             float scale, int g, int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + g + 8 * (e >> 1);
+      const int col = j0 + 8 * j + 2 * t + (e & 1);
+      const bool kin = col < S_k;
+      const bool ok = kin && (!causal || col <= row);
+      const float sv =
+          ok ? s[j][e] * scale + ((brow != nullptr) ? brow[col] : 0.f)
+             : -INFINITY;
+      s[j][e] = sv;
+      mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+    }
+  }
+  float safe[2], corr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    safe[i] = (m_new == -INFINITY) ? 0.f : m_new;
+    corr[i] = (m[i] == -INFINITY) ? 0.f : ex2((m[i] - safe[i]) * LOG2E);
+    m[i] = m_new;
+    l[i] *= corr[i];
+  }
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    acc[n][0] *= corr[0];
+    acc[n][1] *= corr[0];
+    acc[n][2] *= corr[1];
+    acc[n][3] *= corr[1];
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float sv = s[j][e];
+      const float p =
+          (sv == -INFINITY) ? 0.f : ex2((sv - safe[e >> 1]) * LOG2E);
+      l[e >> 1] += p;
+      s[j][e] = p;
+    }
+  }
+}
+
+// The end of the forward for rows g and g + 8 of a warp's 16 (the first
+// at query row0): the quad's row sums, out = acc / l at the NB 8-column
+// blocks from column c0 of each row below S_q, and (write_lse, from lane
+// t 0) lse = m + log l, -inf for a row with no visible key (out 0)
+template <int NB>
+__device__ __forceinline__ void store_out(const float (&acc)[NB][4],
+                                          const float (&m)[2], float (&l)[2],
+                                          float* __restrict__ out,
+                                          float* __restrict__ lse, int row0,
+                                          int S_q, int N, int b, int h, int bh,
+                                          int D, int c0, bool write_lse,
+                                          int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
+    const int row = row0 + g + 8 * i;
+    if (row >= S_q) continue;
+    const float ls = (l[i] == 0.f) ? 1.f : l[i];
+    float* o = out + (((size_t)b * S_q + row) * N + h) * D + c0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      store2(o + 8 * n, acc[n][2 * i] / ls, acc[n][2 * i + 1] / ls);
+    if (write_lse && t == 0)
+      lse[(size_t)bh * S_q + row] = (l[i] == 0.f) ? -INFINITY : m[i] + logf(ls);
+  }
 }
 
 // The forward shares the backward's CTA shape (BWD_WARPS warps of 16
@@ -298,7 +460,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ out, float* __restrict__ lse, int S_q,
                  int S_k, int N, int causal, float scale) {
   constexpr int BM = BWD_ROWS;            // query rows of the CTA
-  constexpr int BN = fwd_rows<D>();    // keys of a streamed tile
+  constexpr int BN = stream_rows<D>();    // keys of a streamed tile
   constexpr int NT = BN / 8;              // 8-key score tiles
   constexpr int DT = D / 8;               // 8-wide steps over D
   extern __shared__ __align__(16) unsigned char fwd_smem_buf[];
@@ -358,54 +520,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float s[NT][4];
       zero4(s);
       rows_by_rows<D, NT>(s, Qs, Kt, wr, 0, nt, g, t);    // Q K^T
-      // s = scale S + bias, -inf where masked; the tile's row maxima
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = i0 + wr + g + 8 * (e >> 1);
-          const int col = j0 + 8 * j + 2 * t + (e & 1);
-          const bool kin = col < S_k;
-          const bool ok = kin && (!causal || col <= row);
-          const float sv =
-              ok ? s[j][e] * scale + ((brow != nullptr) ? brow[col] : 0.f)
-                 : -INFINITY;
-          s[j][e] = sv;
-          mx[e >> 1] = fmaxf(mx[e >> 1], sv);
-        }
-      }
-      float safe[2], corr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-        const float m_new = fmaxf(m[i], mx[i]);
-        safe[i] = (m_new == -INFINITY) ? 0.f : m_new;
-        corr[i] = (m[i] == -INFINITY) ? 0.f : ex2((m[i] - safe[i]) * LOG2E);
-        m[i] = m_new;
-        l[i] *= corr[i];
-      }
-#pragma unroll
-      for (int n = 0; n < DT; ++n) {
-        acc[n][0] *= corr[0];
-        acc[n][1] *= corr[0];
-        acc[n][2] *= corr[1];
-        acc[n][3] *= corr[1];
-      }
-      // P in place in s, and l sums it
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float sv = s[j][e];
-          const float p = (sv == -INFINITY)
-                              ? 0.f
-                              : ex2((sv - safe[e >> 1]) * LOG2E);
-          l[e >> 1] += p;
-          s[j][e] = p;
-        }
-      }
+      softmax_tile(s, acc, m, l, i0 + wr, j0, S_k, causal, brow, scale, g,
+                   t);
       // acc += P V: the 8 keys of score tile j are one k step
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -418,21 +534,115 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();                       // stage kt & 1 is refilled next
   }
+  store_out(acc, m, l, out, lse, i0 + wr, S_q, N, b, h, bh, D, 0, true, g, t);
+}
 
+// D 256: one CTA of 8 warps over 64 query rows. Warps w and w + 4 share
+// rows 16 w .. 16 w + 15; warp w takes columns 0-127 of D and warp w + 4
+// columns 128-255. Per streamed key tile each computes its half's partial
+// scores Q[:, half] K[:, half]^T, the pair swaps them through shared memory
+// (one named barrier of the pair), and both add the two halves (a + b and
+// b + a are the same float), so both hold the same S and run the same
+// online softmax; each then adds P V[:, half] into a 16 x 128 accumulator
+// (64 registers a thread, where one warp over all 256 columns took 128).
+// No product is repeated.
+template <>
+__global__ void __launch_bounds__(2 * BWD_THREADS, 1)
+flash_fwd_kernel<256>(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ bias, float* __restrict__ out,
+                      float* __restrict__ lse, int S_q, int S_k, int N,
+                      int causal, float scale) {
+  constexpr int D = 256;
+  constexpr int T = fwd_threads<D>();     // 8 warps
+  constexpr int BM = BWD_ROWS;            // query rows of the CTA
+  constexpr int BN = FWD256_KEYS;         // keys of a streamed tile
+  constexpr int NT = BN / 8;              // 8-key score tiles
+  constexpr int HD = D / 2;               // a warp's columns
+  constexpr int HT = HD / 8;              // its 8-column blocks
+  constexpr int XS = xchg_stride(BN);
+  extern __shared__ __align__(16) unsigned char fwd_smem_buf[];
+  float* Qs = reinterpret_cast<float*>(fwd_smem_buf);  // [BM][D], resident
+  float* Ks = Qs + BM * D;                             // [2][BN][D], ring
+  float* Vs = Ks + 2 * BN * D;                         // [2][BN][D], ring
+  float* Xs = Vs + 2 * BN * D;                         // [2][BM][XS] partial S
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // most KV tiles first
+  const int b = bh / N;
+  const int h = bh % N;
+  const int warp = threadIdx.x / 32;
+  const int half = warp / BWD_WARPS;       // warp-uniform
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int stride = N * D;
+  const int i0 = qt * BM;
+  const int wr = 16 * (warp % BWD_WARPS);  // the pair's first row in the tile
+  const int c0 = HD * half;                // the warp's first column
+  const float* kb = k + ((size_t)b * S_k * N + h) * D;
+  const float* vb = v + ((size_t)b * S_k * N + h) * D;
+  const float* brow = bias ? bias + (size_t)b * S_k : nullptr;
+  const int n_all = (S_k + BN - 1) / BN;
+  const int n_kv = causal ? min(n_all, (i0 + BM - 1) / BN + 1) : n_all;
+  float* mine = Xs + half * BM * XS;
+  const float* other = Xs + (1 - half) * BM * XS;
+
+  stage<D, BM, T>(Qs, q + ((size_t)b * S_q * N + h) * D, i0, S_q, stride);
+  stage<D, BN, T>(Ks, kb, 0, S_k, stride);
+  stage<D, BN, T>(Vs, vb, 0, S_k, stride);
+  cp_commit();
+
+  // online softmax of rows g and g + 8 of the pair's 16, the same in both
+  // warps of the pair
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  const int last_row = i0 + wr + 15;
+  float acc[HT][4];
+  zero4(acc);
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    cp_wait<0>();                          // tile kt has landed
+    __syncthreads();                       // and tile kt - 1 is done with
+    if (kt + 1 < n_kv) {                   // into the other stage
+      const int nxt = (kt + 1) & 1;
+      stage<D, BN, T>(Ks + nxt * BN * D, kb, (kt + 1) * BN, S_k, stride);
+      stage<D, BN, T>(Vs + nxt * BN * D, vb, (kt + 1) * BN, S_k, stride);
+      cp_commit();
+    }
+    const int j0 = kt * BN;
+    const float* Kt = Ks + (kt & 1) * BN * D;
+    const float* Vt = Vs + (kt & 1) * BN * D;
+    // causal: score tiles whose keys all follow the pair's last row are
+    // masked whole
+    const int nt =
+        !causal ? NT : (last_row < j0 ? 0 : min(NT, (last_row - j0) / 8 + 1));
+    if (nt > 0) {
+      float s[NT][4];
+      zero4(s);
+      rows_by_rows<D, NT, HD>(s, Qs, Kt, wr, 0, nt, g, t, c0);  // half of S
+      float o[NT][4];
+      pair_swap<NT, XS>(s, o, mine, other, wr, nt, 1 + warp % BWD_WARPS, g,
+                        t);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(FULL, l[i], 1);
-    l[i] += __shfl_xor_sync(FULL, l[i], 2);
-    const int row = i0 + wr + g + 8 * i;
-    if (row >= S_q) continue;
-    const float ls = (l[i] == 0.f) ? 1.f : l[i];
-    float* o = out + (((size_t)b * S_q + row) * N + h) * D + 2 * t;
+      for (int j = 0; j < NT; ++j)
+        if (j < nt)
 #pragma unroll
-    for (int n = 0; n < DT; ++n)
-      store2(o + 8 * n, acc[n][2 * i] / ls, acc[n][2 * i + 1] / ls);
-    if (t == 0)
-      lse[(size_t)bh * S_q + row] = (l[i] == 0.f) ? -INFINITY : m[i] + logf(ls);
+          for (int e = 0; e < 4; ++e) s[j][e] += o[j][e];
+      softmax_tile(s, acc, m, l, i0 + wr, j0, S_k, causal, brow, scale, g,
+                   t);
+      // acc += P V[:, half]: the 8 keys of score tile j are one k step
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j < nt) {
+          uint32_t ah[4], al[4];
+          c_to_a(s[j], ah, al);
+          a_by_cols<D, HT>(acc, ah, al, Vt, 8 * j, c0, g, t);
+        }
+      }
+    }
   }
+  store_out(acc, m, l, out, lse, i0 + wr, S_q, N, b, h, bh, D, c0, half == 0,
+            g, t);
 }
 
 // shared memory of the backward kernels: the resident 64-row tiles (2),
@@ -453,6 +663,51 @@ constexpr size_t dkv_smem() {
   return dq_smem<D>() + 4 * stream_rows<D>() * sizeof(float) +
          (dkv_pair<D>() ? (size_t)BWD_ROWS * pt_stride<D>() * sizeof(float)
                         : 0);
+}
+
+// P = 2^((scale S + bias - lse) log2 e) in place of the C fragments x
+// (Q K^T) of rows g and g + 8 of a warp's 16 (the first at query row0)
+// over the NT 8-key score tiles from key j0; 0 where masked (key past
+// S_k; causal: key after the row) and where the score is -inf. lse_r
+// holds the rows' lse, a -inf one read as 0.
+template <int NT>
+__device__ __forceinline__ void p_from_lse(float (&x)[NT][4],
+                                           const float (&lse_r)[2], int row0,
+                                           int j0, int S_k, int causal,
+                                           const float* __restrict__ brow,
+                                           float scale, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + g + 8 * (e >> 1);
+      const int col = j0 + 8 * j + 2 * t + (e & 1);
+      const bool kin = col < S_k;
+      const bool ok = kin && (!causal || col <= row);
+      const float sv =
+          x[j][e] * scale + ((brow != nullptr && kin) ? brow[col] : 0.f);
+      x[j][e] =
+          (!ok || sv == -INFINITY) ? 0.f : ex2((sv - lse_r[e >> 1]) * LOG2E);
+    }
+  }
+}
+
+// dQ = scale acc for rows g and g + 8 of a warp's 16 (the first at query
+// row0) below S_q, at the NB 8-column blocks from column c0
+template <int NB>
+__device__ __forceinline__ void store_dq(const float (&acc)[NB][4],
+                                         float* __restrict__ dq, int row0,
+                                         int S_q, int N, int b, int h, int D,
+                                         int c0, float scale, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    if (row >= S_q) continue;
+    float* o = dq + (((size_t)b * S_q + row) * N + h) * D + c0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      store2(o + 8 * n, acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+  }
 }
 
 template <int D>
@@ -532,22 +787,12 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       rows_by_rows<D, NT>(s, Qs, Kt, wr, 0, nt, g, t);    // Q K^T
       rows_by_rows<D, NT>(dp, dOs, Vt, wr, 0, nt, g, t);  // dO V^T
       // P from the saved lse, then dS = P (dP - delta), in place in s
+      p_from_lse(s, lse_r, i0 + wr, j0, S_k, causal, brow, scale, g, t);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = i0 + wr + g + 8 * (e >> 1);
-          const int col = j0 + 8 * j + 2 * t + (e & 1);
-          const bool kin = col < S_k;
-          const bool ok = kin && (!causal || col <= row);
-          const float sv =
-              s[j][e] * scale + ((brow != nullptr && kin) ? brow[col] : 0.f);
-          const float p = (!ok || sv == -INFINITY)
-                              ? 0.f
-                              : ex2((sv - lse_r[e >> 1]) * LOG2E);
-          s[j][e] = p * (dp[j][e] - del_r[e >> 1]);
-        }
-      }
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = s[j][e] * (dp[j][e] - del_r[e >> 1]);
       // dQ += dS K: the 8 keys of score tile j are one k step
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -560,16 +805,142 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();                       // stage kt & 1 is refilled next
   }
+  store_dq(acc, dq, i0 + wr, S_q, N, b, h, D, 0, scale, g, t);
+}
 
+// shared memory of a dQ launch: at D 256 Q and dO resident, one stage of
+// K and V, and the pairs' P and dP tiles
+template <int D>
+constexpr size_t dq_launch_smem() {
+  return D > 128 ? (size_t)(2 * BWD_ROWS * D + 2 * DQ256_KEYS * D +
+                            2 * BWD_ROWS * xchg_stride(DQ256_KEYS)) *
+                       sizeof(float)
+                 : dq_smem<D>();
+}
+
+// D 256: one CTA of 8 warps over 64 query rows, split by role. Warps w
+// and w + 4 share rows 16 w .. 16 w + 15: per streamed key tile warp w
+// computes S = Q K^T and P from the saved lse, warp w + 4 dP = dO V^T;
+// each leaves its tile in shared memory, the pair meets at one named
+// barrier, and both form dS = P (dP - delta) from the same two operands
+// (so the same bits). Then warp w adds dS K[:, 0:128] and warp w + 4 dS
+// K[:, 128:256] into a 16 x 128 accumulator (64 registers a thread, where
+// one warp doing all three products over 256 columns took 128). S and dP
+// are computed once each and the dQ product is split, not repeated.
+template <>
+__global__ void __launch_bounds__(2 * BWD_THREADS, 1)
+flash_dq_kernel<256>(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     int S_q, int S_k, int N, int causal, float scale) {
+  constexpr int D = 256;
+  constexpr int T = fwd_threads<D>();     // 8 warps
+  constexpr int BM = BWD_ROWS;            // query rows of the CTA
+  constexpr int BN = DQ256_KEYS;          // keys of a streamed tile
+  constexpr int NT = BN / 8;              // 8-key score tiles
+  constexpr int HD = D / 2;               // a warp's columns of dQ
+  constexpr int HT = HD / 8;
+  constexpr int XS = xchg_stride(BN);
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  float* Qs = reinterpret_cast<float*>(bwd_smem);  // [BM][D], resident
+  float* dOs = Qs + BM * D;                        // [BM][D], resident
+  float* Ks = dOs + BM * D;                        // [BN][D], one stage
+  float* Vs = Ks + BN * D;                         // [BN][D], one stage
+  float* Ps = Vs + BN * D;                         // [BM][XS] P
+  float* Gs = Ps + BM * XS;                        // [BM][XS] dP
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // most KV tiles first
+  const int b = bh / N;
+  const int h = bh % N;
+  const int warp = threadIdx.x / 32;
+  const bool dp_half = warp >= BWD_WARPS;  // warp-uniform
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int stride = N * D;
+  const int i0 = qt * BM;
+  const int wr = 16 * (warp % BWD_WARPS);  // the pair's first row in the tile
+  const int c0 = dp_half ? HD : 0;         // the warp's first column of dQ
+  const size_t qoff = ((size_t)b * S_q * N + h) * D;
+  const float* kb = k + ((size_t)b * S_k * N + h) * D;
+  const float* vb = v + ((size_t)b * S_k * N + h) * D;
+  const float* brow = bias ? bias + (size_t)b * S_k : nullptr;
+  const int n_all = (S_k + BN - 1) / BN;
+  const int n_kv = causal ? min(n_all, (i0 + BM - 1) / BN + 1) : n_all;
+  float* mine = dp_half ? Gs : Ps;
+  const float* other = dp_half ? Ps : Gs;
+
+  stage<D, BM, T>(Qs, q + qoff, i0, S_q, stride);
+  stage<D, BM, T>(dOs, dout + qoff, i0, S_q, stride);
+  stage<D, BN, T>(Ks, kb, 0, S_k, stride);
+  stage<D, BN, T>(Vs, vb, 0, S_k, stride);
+  cp_commit();
+
+  // rows g and g + 8 of the pair's 16
+  float lse_r[2], del_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = i0 + wr + g + 8 * i;
-    if (row >= S_q) continue;
-    float* o = dq + (((size_t)b * S_q + row) * N + h) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < DT; ++n)
-      store2(o + 8 * n, acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+    const float L = row < S_q ? lse[(size_t)bh * S_q + row] : 0.f;
+    lse_r[i] = isfinite(L) ? L : 0.f;
+    del_r[i] = row < S_q ? delta[(size_t)bh * S_q + row] : 0.f;
   }
+  const int last_row = i0 + wr + 15;
+  float acc[HT][4];
+  zero4(acc);
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    cp_wait<0>();                          // tile kt has landed
+    __syncthreads();
+    const int j0 = kt * BN;
+    // causal: score tiles whose keys all follow the pair's last row are 0
+    const int nt =
+        !causal ? NT : (last_row < j0 ? 0 : min(NT, (last_row - j0) / 8 + 1));
+    if (nt > 0) {
+      // P (warp w) or dP (warp w + 4)
+      float x[NT][4];
+      zero4(x);
+      if (!dp_half) {
+        rows_by_rows<D, NT>(x, Qs, Ks, wr, 0, nt, g, t);    // Q K^T
+        p_from_lse(x, lse_r, i0 + wr, j0, S_k, causal, brow, scale, g, t);
+      } else {
+        rows_by_rows<D, NT>(x, dOs, Vs, wr, 0, nt, g, t);   // dO V^T
+      }
+      float o[NT][4];
+      pair_swap<NT, XS>(x, o, mine, other, wr, nt, 1 + warp % BWD_WARPS, g,
+                        t);
+      // dS = P (dP - delta), in place in x
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = dp_half ? o[j][e] : x[j][e];
+            const float d = dp_half ? x[j][e] : o[j][e];
+            x[j][e] = p * (d - del_r[e >> 1]);
+          }
+      // dQ[:, half] += dS K[:, half]: the 8 keys of score tile j are one k
+      // step
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j < nt) {
+          uint32_t ah[4], al[4];
+          c_to_a(x[j], ah, al);
+          a_by_cols<D, HT>(acc, ah, al, Ks, 8 * j, c0, g, t);
+        }
+      }
+    }
+    __syncthreads();                       // the stage is refilled next
+    if (kt + 1 < n_kv) {
+      stage<D, BN, T>(Ks, kb, (kt + 1) * BN, S_k, stride);
+      stage<D, BN, T>(Vs, vb, (kt + 1) * BN, S_k, stride);
+      cp_commit();
+    }
+  }
+  store_dq(acc, dq, i0 + wr, S_q, N, b, h, D, c0, scale, g, t);
 }
 
 template <int D>
@@ -1765,7 +2136,7 @@ int fwd(const void* q, const void* k, const void* v, const float* bias,
   auto kern = flash_fwd_kernel<D>;
   if (int e = prepare(kern, smem)) return e;
   const dim3 grid(B * N, (S_q + BWD_ROWS - 1) / BWD_ROWS);
-  kern<<<grid, BWD_THREADS, smem, st>>>(
+  kern<<<grid, fwd_threads<D>(), smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), bias, static_cast<float*>(out), lse, S_q,
       S_k, N, causal, scale);
@@ -1777,11 +2148,11 @@ int dq(const void* q, const void* k, const void* v, const float* bias,
        const void* dout, const float* lse, const float* delta, void* dq_out,
        int B, int S_q, int S_k, int N, int causal, float scale,
        cudaStream_t st) {
-  const size_t smem = dq_smem<D>();
+  const size_t smem = dq_launch_smem<D>();
   auto kern = flash_dq_kernel<D>;
   if (int e = prepare(kern, smem)) return e;
   const dim3 grid(B * N, (S_q + BWD_ROWS - 1) / BWD_ROWS);
-  kern<<<grid, BWD_THREADS, smem, st>>>(
+  kern<<<grid, fwd_threads<D>(), smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), bias, static_cast<const float*>(dout),
       lse, delta, static_cast<float*>(dq_out), S_q, S_k, N, causal, scale);
@@ -1891,7 +2262,7 @@ int budget(K kern, size_t smem, int* out, int threads = BWD_THREADS) {
 
 template <int D>
 int fwd_budget(int* out) {
-  return budget(flash_fwd_kernel<D>, fwd_smem<D>(), out);
+  return budget(flash_fwd_kernel<D>, fwd_smem<D>(), out, fwd_threads<D>());
 }
 
 template <int D>
@@ -1902,7 +2273,8 @@ int fwd_wg_budget(int* out) {
 
 template <int D>
 int dq_budget(int* out) {
-  return budget(flash_dq_kernel<D>, dq_smem<D>(), out);
+  return budget(flash_dq_kernel<D>, dq_launch_smem<D>(), out,
+                fwd_threads<D>());
 }
 
 // (the live-tile list sized for 512 keys, BERT's positions)

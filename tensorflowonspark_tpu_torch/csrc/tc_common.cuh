@@ -172,24 +172,26 @@ __device__ __forceinline__ void mma3_rows(float (&c)[NJ][4],
 }
 
 // c[j] = A B^T for 8-row blocks j in [j_lo, j_hi) of tile B: A rows
-// r0..r0 + 15 of tile A, both tiles' columns (D of them) the contraction.
-// The 8-wide k steps are unrolled whole up to D 128; at D 256 eight at a
-// time, which keeps the loads the compiler hoists ahead of the 32 steps
-// from spilling the 128 accumulator registers a thread of dQ and dK
-// (unrolled whole, dQ spilled 64 bytes a thread).
-template <int D, int NT>
+// r0..r0 + 15 of tile A, the KW columns from k0 on of both tiles (rows of
+// D) the contraction (all D by default; the D-256 forward's warps take
+// one half each). The 8-wide k steps are unrolled whole up to D 128; at
+// D 256 eight at a time, which keeps the loads the compiler hoists ahead
+// of the 32 steps from spilling the 128 accumulator registers a thread
+// of dK (unrolled whole, the 4-warp dQ spilled 64 bytes a thread).
+template <int D, int NT, int KW = D>
 __device__ __forceinline__ void rows_by_rows(float (&c)[NT][4], const float* A,
                                              const float* B, int r0, int j_lo,
-                                             int j_hi, int g, int t) {
+                                             int j_hi, int g, int t,
+                                             int k0 = 0) {
   constexpr int UN = D > 128 ? 8 : D / 8;
 #pragma unroll UN
-  for (int ks = 0; ks < D / 8; ++ks) {
+  for (int ks = 0; ks < KW / 8; ++ks) {
     uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
-    load_a<D>(ah, al, A, r0, 8 * ks, g, t);
+    load_a<D>(ah, al, A, r0, k0 + 8 * ks, g, t);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
       if (j >= j_lo && j < j_hi)
-        load_b_rows<D>(bh[j], bl[j], B, 8 * j, 8 * ks, g, t);
+        load_b_rows<D>(bh[j], bl[j], B, 8 * j, k0 + 8 * ks, g, t);
     mma3_rows<true, true>(c, ah, al, bh, bl, j_lo, j_hi);
   }
 }

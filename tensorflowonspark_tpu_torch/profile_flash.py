@@ -1,30 +1,36 @@
 #!/usr/bin/env python3
-"""Time the bfloat16 flash kernels at BERT-base's attention shape, and
-A/B kernel sources within one run.
+"""Time the flash kernels at one training shape, and A/B kernel sources
+within one run.
 
     python3 -m tensorflowonspark_tpu_torch.profile_flash \
-        [--variant NAME=DIR ...] [--reps 20]
+        [--shape bert|gpt2|d256] [--variant NAME=DIR ...] [--reps 20]
 
-BERT-base's attention as ``chip_smoke.py`` phase 8 trains it: B 32,
-S 384, 12 heads of 64, bfloat16, a key mask with 192-384 live keys a
-row (seeded), not causal. For the forward (``tfos_flash_fwd``), dQ
-(``tfos_flash_dq``) and dK/dV (``tfos_flash_dkv``): device time per
-call through CUDA-graph replays and time per eager call (host work
-included). ``--variant
-NAME=DIR`` builds ``DIR/flash_attention.cu`` (with the headers beside
-it) with the package's nvcc flags and times it in turns with the
-package's own source — package, variants, variants reversed, package —
-each number the mean of its source's turns, so that two designs are
-compared on one card in one call. Each variant's largest difference
-from the package source's outputs (out, lse, dQ, dK, dV) is printed
-beside its times (a variant that drops work, to see what that work
-costs, differs). Last, ``scaled_dot_product_attention`` with the same
-boolean mask, its forward and its backward timed the same two ways (the
-yardstick ``chip_smoke.py`` uses; the port never calls it), and each
-source's dQ + dK/dV over SDPA's backward. Needs one card.
+``--shape bert`` (the default): BERT-base's attention as
+``chip_smoke.py`` phase 8 trains it, B 32, S 384, 12 heads of 64,
+bfloat16, a key mask with 192-384 live keys a row (seeded), not causal.
+``--shape gpt2``: the GPT-2-small decoder's as phases 5-7 train it, B 8,
+S 1024, 12 heads of 64, float32, causal, no mask. ``--shape d256``: the
+D-256 decoder's as phase 17(c) trains it, B 4, S 1024, 8 heads of 256,
+float32, causal, no mask. For the forward (``tfos_flash_fwd``), dQ
+(``tfos_flash_dq``) and dK/dV (``tfos_flash_dkv``): device time per call
+through CUDA-graph replays and time per eager call (host work included).
+``--variant NAME=DIR`` builds ``DIR/flash_attention.cu`` (with the
+headers beside it) with the package's nvcc flags, all variants at once,
+and times it in turns with the package's own source — package, variants,
+variants reversed, package — each number the mean of its source's turns,
+so that two designs are compared on one card in one call. Each variant's
+largest difference from the package source's outputs (out, lse, dQ, dK,
+dV) is printed beside its times (a variant that drops work, to see what
+that work costs, differs), and each source's budget (``fa.budget``) at
+the shape's head dim. Last, ``scaled_dot_product_attention`` with the
+same boolean mask (``is_causal`` at gpt2 and d256), its forward and its
+backward timed the same two ways (the yardstick ``chip_smoke.py`` uses;
+the port never calls it), and each source's dQ + dK/dV over SDPA's
+backward. Needs one card.
 """
 
 import argparse
+import ctypes
 import hashlib
 import os
 import subprocess
@@ -33,40 +39,64 @@ import time
 
 import numpy as np
 
-BATCH, SEQ, HEADS, HEAD_DIM = 32, 384, 12, 64
+#: (batch, sequence, heads, head dim, dtype, causal, key mask)
+SHAPES = {"bert": (32, 384, 12, 64, "bfloat16", False, True),
+          "gpt2": (8, 1024, 12, 64, "float32", True, False),
+          "d256": (4, 1024, 8, 256, "float32", True, False)}
 SEED = 1234
 
 
-def _build_variant(name, src_dir):
-    """Compile ``src_dir/flash_attention.cu`` into the build directory
-    and load it with the package library's C signatures."""
+def _start_variants(specs):
+    """Start compiling each ``NAME=DIR``'s ``DIR/flash_attention.cu`` into
+    the build directory, every ``nvcc`` together: ``{name: (library,
+    process or None when already built)}``."""
     from tensorflowonspark_tpu_torch.ops import _build
 
-    src = os.path.join(src_dir, "flash_attention.cu")
-    h = hashlib.sha256()
-    for p in _build._sources(src):
-        with open(p, "rb") as f:
-            h.update(f.read())
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    lib = os.path.join(_build.BUILD_DIR, "libflash_attention-{}-{}.so".format(
-        name, h.hexdigest()[:16]))
-    if not os.path.exists(lib):
-        subprocess.run([_build.nvcc_path()] + list(_build.NVCC_FLAGS)
-                       + ["-o", lib, src], check=True)
-    return _build.bind(lib, "flash_attention")
+    builds = {}
+    for spec in specs:
+        name, src_dir = spec.split("=", 1)
+        src = os.path.join(src_dir, "flash_attention.cu")
+        h = hashlib.sha256()
+        for p in _build._sources(src):
+            with open(p, "rb") as f:
+                h.update(f.read())
+        lib = os.path.join(_build.BUILD_DIR,
+                           "libflash_attention-{}-{}.so".format(
+                               name, h.hexdigest()[:16]))
+        proc = None if os.path.exists(lib) else subprocess.Popen(
+            [_build.nvcc_path()] + list(_build.NVCC_FLAGS)
+            + ["-o", lib, src])
+        builds[name] = (lib, proc)
+    return builds
 
 
-def _inputs(torch, dev):
-    """q, k, v, dO (bfloat16) and the key mask of BERT's shape."""
+def _bind_variants(builds):
+    """Wait for :func:`_start_variants`' builds and load each with the
+    package library's C signatures: ``{name: library}``."""
+    from tensorflowonspark_tpu_torch.ops import _build
+
+    for name, (lib, proc) in builds.items():
+        if proc is not None and proc.wait() != 0:
+            raise RuntimeError("variant {} did not build".format(name))
+    return {name: _build.bind(lib, "flash_attention")
+            for name, (lib, _) in builds.items()}
+
+
+def _inputs(torch, dev, shape):
+    """q, k, v, dO and the key mask (None without one) of ``shape``."""
+    batch, seq, heads, head_dim, dtype, _, masked = SHAPES[shape]
     rng = np.random.RandomState(SEED)
 
     def t():
-        x = rng.randn(BATCH, SEQ, HEADS, HEAD_DIM).astype(np.float32)
-        return torch.from_numpy(x).to(dev, torch.bfloat16)
+        x = rng.randn(batch, seq, heads, head_dim).astype(np.float32)
+        return torch.from_numpy(x).to(dev, getattr(torch, dtype))
 
     q, k, v, dout = t(), t(), t(), t()
-    lens = torch.from_numpy(rng.randint(SEQ // 2, SEQ + 1, BATCH))
-    mask = (torch.arange(SEQ)[None, :] < lens[:, None]).to(dev)
+    if not masked:
+        return q, k, v, dout, None
+    lens = torch.from_numpy(rng.randint(seq // 2, seq + 1, batch))
+    mask = (torch.arange(seq)[None, :] < lens[:, None]).to(dev)
     return q, k, v, dout, mask
 
 
@@ -128,6 +158,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", action="append", default=[],
                     metavar="NAME=DIR")
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="bert")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
     import torch
@@ -142,22 +173,22 @@ def main():
     from tensorflowonspark_tpu_torch.profile_paged import graph_ms
 
     dev = device_info.default_device()
+    pending = _start_variants(args.variant)
     libs = {"package": _build.load("flash_attention")}
-    for spec in args.variant:
-        name, src_dir = spec.split("=", 1)
-        libs[name] = _build_variant(name, src_dir)
+    libs.update(_bind_variants(pending))
     order = list(libs) + list(libs)[::-1]
     print(device_info.describe().splitlines()[0])
-    q, k, v, dout, mask = _inputs(torch, dev)
-    bias = fa._mask_to_bias(mask)
-    scale = HEAD_DIM ** -0.5
-    out, lse = fa._kernel_fwd(q, k, v, bias, False, scale)
+    causal = SHAPES[args.shape][5]
+    q, k, v, dout, mask = _inputs(torch, dev, args.shape)
+    bias = None if mask is None else fa._mask_to_bias(mask)
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa._kernel_fwd(q, k, v, bias, causal, scale)
     delta = fa._delta(out, dout)
     kernels = {
-        "fwd": lambda: fa._kernel_fwd(q, k, v, bias, False, scale),
-        "dq": lambda: (fa._kernel_dq(q, k, v, bias, dout, lse, delta, False,
+        "fwd": lambda: fa._kernel_fwd(q, k, v, bias, causal, scale),
+        "dq": lambda: (fa._kernel_dq(q, k, v, bias, dout, lse, delta, causal,
                                      scale),),
-        "dkv": lambda: fa._kernel_dkv(q, k, v, bias, dout, lse, delta, False,
+        "dkv": lambda: fa._kernel_dkv(q, k, v, bias, dout, lse, delta, causal,
                                       scale),
     }
     times = {n: {kind: ([], [], []) for kind in kernels} for n in libs}
@@ -184,13 +215,22 @@ def main():
                 "{} {:.4f} ms device, {:.4f} eager, {:.4f} host".format(
                     kind, *(float(np.mean(x)) for x in t))
                 for kind, t in times[name].items()), diffs[name]))
+        # CTAs per SM, registers, spill bytes, shared bytes (fa.budget)
+        budgets = []
+        for i, kind in enumerate(fa.BUDGET_KINDS):
+            out4 = (ctypes.c_int * 4)()
+            libs[name].tfos_flash_budget(i, q.shape[-1],
+                                         int(q.dtype == torch.bfloat16), out4)
+            budgets.append("{} {}".format(kind, list(out4)))
+        print("{:<12} budget {}".format(name, "  ".join(budgets)))
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
-    am = mask[:, None, None, :]
+    am = None if mask is None else mask[:, None, None, :]
     dt = dout.transpose(1, 2).contiguous()
 
     def sdpa(q_, k_, v_):
-        return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=am)
+        return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=am,
+                                              is_causal=causal)
 
     fwd_device = graph_ms(torch, sdpa, [(qt, kt, vt)], args.reps)
     bwd_device = backward_graph_ms(torch, sdpa, (qt, kt, vt), dt, args.reps)

@@ -7,8 +7,8 @@ boundaries, positions that are not consecutive, its determinism,
 NaN-poisoned dead pool rows and the tiled kernel's register budget; and
 the three flash-attention kernels (forward, dQ, dK/dV), with
 the two-stage copy ring run through many tiles and a ragged last one,
-32-row tiles at D 128, the float32 dK/dV at D 256 (one CTA of 8 warps a
-key tile), the backward's determinism (no atomics) and the register
+32-row tiles at D 128, the float32 forward, dQ and dK/dV at D 256 (one
+CTA of 8 warps a row or key tile), the backward's determinism (no atomics) and the register
 budgets at D 64 and 256; the bfloat16 forward, dQ and dK/dV
 (``wgmma`` + TMA) at every head dim, ragged and rectangular, with a key
 mask, at BERT-base's attention shape, dQ with whole key tiles masked in
@@ -516,8 +516,8 @@ FLASH_CASES = [
     (1, 150, 150, 2, 128, True, False, torch.bfloat16),
     # BERT-base's attention at a reduced batch: S 384, 12 heads of 64
     (2, 384, 384, 12, 64, False, True, torch.bfloat16),
-    # D 256: 16-row streamed tiles (float32), 32-key forward tiles
-    # (bfloat16), dK/dV in two column halves; causal and ragged,
+    # D 256: 8-warp CTAs with column halves (float32), 32-key forward
+    # tiles (bfloat16), dK/dV in two halves; causal and ragged,
     # rectangular with a key mask and a fully masked batch row
     (2, 200, 200, 2, 256, True, False, torch.float32),
     (2, 72, 136, 3, 256, False, True, torch.float32),
@@ -755,6 +755,67 @@ def test_flash_dkv_d256_one_cta_per_key_tile(cuda, causal, masked):
         assert torch.equal(got, rep_)
     if masked:
         assert (dk[-1] == 0).all() and (dv[-1] == 0).all()
+
+
+#: (b, s_q, s_k, n, d, causal, masked, dtype) for the float32 forward and
+#: dQ at D 256
+D256_PAIR_CASES = [
+    (2, 200, 200, 2, 256, True, False, torch.float32),
+    (2, 72, 136, 3, 256, False, True, torch.float32),
+    (2, 136, 136, 2, 256, True, True, torch.float32),
+    (2, 136, 136, 2, 256, False, False, torch.float32),
+]
+D256_PAIR_IDS = ["causal-ragged", "rect-mask", "causal-mask", "non-causal"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", D256_PAIR_CASES, ids=D256_PAIR_IDS)
+def test_flash_fwd_dq_d256_warp_pairs(cuda, case):
+    """The float32 forward and dQ at D 256: one CTA of 8 warps over 64
+    query rows, two warps a 16-row block, each owning one 128-column half
+    of out or dQ (the forward's pair sums its two halves' partial scores,
+    dQ's pair splits S / P and dP between its warps). Against the plain
+    versions: causal over a ragged S, rectangular with a key mask that
+    leaves one batch row fully masked (out 0, lse -inf, dQ 0), causal
+    with that key mask, and non-causal; two launches of each bitwise
+    equal."""
+    b, s_q, s_k, n, d, causal, masked, dtype = case
+    q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
+    scale = d ** -0.5
+    before = dict(fa.launches)
+    out, lse = fa._kernel_fwd(q, k, v, bias, causal, scale)
+    delta = fa._delta(out, dout, g_lse)
+    dq = fa._kernel_dq(q, k, v, bias, dout, lse, delta, causal, scale)
+    out2, lse2 = fa._kernel_fwd(q, k, v, bias, causal, scale)
+    dq2 = fa._kernel_dq(q, k, v, bias, dout, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.launches["fwd"] == before["fwd"] + 2
+    assert fa.launches["dq"] == before["dq"] + 2
+    want_out, want_lse = fa._reference_lse(q, k, v, causal, scale, bias)
+    want_dq = fa._dq_plain(q, k, v, bias, dout, lse, delta, causal, scale)
+    _assert_close(lse, want_lse.reshape(b * n, s_q))
+    for got, want in ((out, want_out), (dq, want_dq)):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        _assert_close(got, want)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(dq, dq2)
+    if masked:
+        assert (out[-1] == 0).all() and (dq[-1] == 0).all()
+        assert torch.isneginf(lse.reshape(b, n, s_q)[-1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "dq"])
+def test_flash_d256_warp_pair_budget(cuda, kind):
+    """The float32 forward and dQ at D 256 (8 warps, 16 x 128
+    accumulators) keep every value in registers under the 255-register
+    ceiling (no local-memory spills) and fit at least one CTA an SM in
+    the card's 227 KB of shared memory."""
+    got = fa.budget(kind, 256, torch.float32)
+    assert got["spill_bytes"] == 0
+    assert got["ctas_per_sm"] >= 1
+    assert 0 < got["registers"] <= 255
+    assert 0 < got["smem_bytes"] <= 227 * 1024
 
 
 @pytest.mark.cuda
