@@ -53,8 +53,13 @@ def test_parallel_runner(sc):
                                        "jax", "flax", "tensorflowonspark_tpu")
                                    and _sys.modules[m] is not None)}]
 
-    executors = sc.parallelize(range(2), 2).mapPartitions(
-        executor_state).collect()
+    # the census is pinned, one task per executor: from the shared task
+    # pool one executor's handle may take both tasks while the other's is
+    # slow to poll (under load), and the census then names one executor
+    census = sc.run_job(sc.parallelize(range(2), 2), executor_state,
+                        one_task_per_executor=True).get()
+    executors = [e for part in census for e in part]
+    assert len({e["pid"] for e in executors}) == 2
     # each job ran in a child forked from an executor, never in it
     assert {r["parent"] for r in results} <= {e["pid"] for e in executors}
     assert not {r["pid"] for r in results} & {e["pid"] for e in executors}
