@@ -391,13 +391,13 @@ Phases, stopping with a non-zero exit at the first failure:
    256-token tail and a cold 512 prompt), float and int8, held as phase
    3's cases are; the three flash kernels at B 4 x S 1024 x 8 x 256,
    causal, in float32 and bfloat16 (float32: one CTA of 8 warps a row
-   or key tile), and at D 192 through the padding, under phase 3b's
-   limits; each timed beside its plain version, its SDPA yardstick and
-   its bound; the budgets of the D-256 tiled kernel and of the float32
-   forward, dQ and dK/dV
-   (spill-free, within 227 KB); (b) a ``DecoderLM`` of Gemma-2B's
-   attention width and
-   depth on the repo's own block (vocab 50257, hidden 2048 = 8 heads x
+   or key tile; bfloat16 dQ and dK/dV: one CTA of two warpgroups), and
+   at D 192 through the padding, under phase 3b's limits; each timed
+   beside its plain version, its SDPA yardstick and its bound; the
+   budgets of the D-256 tiled kernel, of the float32 forward, dQ and
+   dK/dV and of the bfloat16 dQ and dK/dV (spill-free, within 227 KB);
+   (b) a ``DecoderLM`` of Gemma-2B's attention width and depth on the
+   repo's own block (vocab 50257, hidden 2048 = 8 heads x
    256, 18 layers, max_len 1024; random weights from the seed) behind
    ``ModelServer``, the engine at its automatic block (16) and 8 slots,
    phase 4's 16 requests from 4 clients at float and int8 KV: every
@@ -1018,9 +1018,11 @@ def kernel_budget(torch, fa, pa):
     kernels and of the tensor-core tiled paged kernel at the models'
     head dim, and of every D-256 instantiation (flash in both dtypes,
     the split-KV kernel, the tensor-core tiled kernel), as the card
-    reports them. The D-256 tiled kernel and the float32 forward, dQ and
-    dK/dV at D 256 must be spill-free within the card's 227 KB of shared memory (the tiled
-    kernel's as ``tiled_smem_bytes`` reckons it)."""
+    reports them. The D-256 tiled kernel, the float32 forward, dQ and
+    dK/dV at D 256 and the bfloat16 dQ and dK/dV at D 256 (two
+    warpgroups a CTA) must be spill-free within the card's 227 KB of
+    shared memory (the tiled kernel's as ``tiled_smem_bytes`` reckons
+    it)."""
     out = {}
     for quant in (False, True):
         kv = "int8" if quant else "float32"
@@ -1046,12 +1048,12 @@ def kernel_budget(torch, fa, pa):
                 "KB shared, {} CTAs/SM".format(
                     kind, dtype, got["registers"], got["spill_bytes"],
                     got["smem_bytes"] // 1024, got["ctas_per_sm"]))
-    for kind in ("fwd", "dq", "dkv"):
-        got = out["{} D256 float32".format(kind)]
+    for key in ("fwd D256 float32", "dq D256 float32", "dkv D256 float32",
+                "dq D256 bfloat16", "dkv D256 bfloat16"):
+        got = out[key]
         check(got["spill_bytes"] == 0 and got["ctas_per_sm"] >= 1
               and got["smem_bytes"] <= pa.MAX_SMEM_BYTES,
-              "float32 {} at D 256 spills or does not fit: {}".format(
-                  kind, got))
+              "{} spills or does not fit: {}".format(key, got))
     for quant in (False, True):
         got = pa.budget(HIDDEN // HEADS, quant)
         out["paged_tiled {}".format("int8" if quant else "float32")] = got
@@ -6038,8 +6040,9 @@ def wide_kernel_cases(torch, pa, fa, dev):
     int8 (``hold_case``: the route, ``KERNEL_TOL``, a bitwise repeat,
     NaN-poisoned dead rows). Flash: the three kernels at D 256 in float32
     and bfloat16 at B 4 x S 1024 x 8, causal (float32: one CTA of 8
-    warps a row or key tile), and D 192 through the padding (``flash_cases``,
-    the phase-3b limits). Returns the largest errors."""
+    warps a row or key tile; bfloat16 dQ and dK/dV: one CTA of two
+    warpgroups), and D 192 through the padding (``flash_cases``, the
+    phase-3b limits). Returns the largest errors."""
     rng = np.random.RandomState(SEED + 17)
     worst = {"split": 0.0, "tiled": 0.0}
     for quant in (False, True):
@@ -6613,10 +6616,17 @@ def main():
                                    "dkv": "a dV half and a dK half, P^T "
                                           "through shared memory, "
                                           "16-query tiles"}[name]),
-                "bfloat16": "flash_{}_wgmma{}_kernel<256>: wgmma + TMA{}"
-                            .format(name, "_wide" if name == "dkv" else "",
-                                    ", two column halves"
-                                    if name == "dkv" else "")}})
+                "bfloat16": {
+                    "fwd": "flash_fwd_wgmma_kernel<256>: wgmma + TMA, one "
+                           "warpgroup over 64 query rows, 32-key tiles",
+                    "dq": "flash_dq_wgmma_pair_kernel<256>: wgmma + TMA, "
+                          "two warpgroups over 128 query rows, each S, "
+                          "dP, dS and dQ of its own 64 rows over one "
+                          "shared ring of 32-key K/V tiles",
+                    "dkv": "flash_dkv_wgmma_pair_kernel<256>: wgmma + "
+                           "TMA, two warpgroups a 64-key tile (S^T, P^T "
+                           "and dV; dP^T, dS^T from that P^T and dK), "
+                           "64-query Q/dO tiles"}[name]}})
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:

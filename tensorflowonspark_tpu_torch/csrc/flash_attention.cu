@@ -191,13 +191,35 @@
 //     then dS^T from that P^T, and dS^T Q. Each half does two of the
 //     four products on one staged copy of K, V and the 16-query Q/dO
 //     ring.
-// - wgmma (bfloat16): m64n256k16 for O += P V and dQ += dS K (the
-//   accumulator is 128 registers a thread), tiles of four 64-column
-//   blocks, forward key tiles of 32 (wg_fwd_keys); dK/dV splits its
-//   columns between two CTAs a key tile (dkv_cols), both recomputing S^T
-//   and dP^T, with m64n128k16 products on the CTA's two column blocks of
-//   dO and Q, and runs under the compiler's register limit
-//   (flash_dkv_wgmma_wide_kernel) instead of 168.
+// - wgmma (bfloat16): tiles of four 64-column blocks. The forward keeps
+//   one warpgroup over 64 query rows, m64n256k16 for O += P V (the
+//   accumulator is 128 registers a thread) and key tiles of 32
+//   (wg_fwd_keys). The backward runs one CTA of two warpgroups (256
+//   threads, one CTA an SM: wg_pair), so that one warpgroup's elementwise
+//   work runs while the other's wgmmas issue, and lays its grid out heads
+//   fastest, every head's deepest tiles first (with a head's tiles side
+//   by side, the longest CTAs of the last heads ran in the last wave:
+//   16% slower); the unmasked-tile test is taken once a tile, outside the
+//   element loops (inside them, each element compiled to a branch: 10%):
+//   - dK/dV (flash_dkv_wgmma_pair_kernel), one CTA a 64-key tile:
+//     warpgroup 0 computes S^T = K Q^T and P^T, leaves P^T in its stage's
+//     float32 exchange tile and adds P^T dO into dV; warpgroup 1 computes
+//     dP^T = V dO^T, takes P^T at a named barrier to form dS^T and adds
+//     dS^T Q into dK. Each holds one 64 x 256 accumulator (128 registers
+//     a thread) over a two-stage ring of 64-query Q/dO tiles
+//     (DKV256_QUERIES; 32-query tiles ran 15% slower), 226 KB. Every
+//     product is computed once: the two CTAs a key tile it replaced each
+//     wrote half of dK's and dV's columns and both computed S^T and dP^T
+//     over all 256 (4.2 M MACs a 32-query tile against 3.1 M), one
+//     warpgroup an SM;
+//   - dQ (flash_dq_wgmma_pair_kernel), one CTA a 128-query tile: each
+//     warpgroup runs flash_dq_wgmma_kernel's loop on its own 64 rows
+//     (32-key tiles, a 64 x 256 accumulator) over one shared K/V ring, so
+//     every K/V byte serves 128 rows and the two need nothing from each
+//     other. Splitting 64 rows' products between them instead (S and P on
+//     one, dP and dS on the other, handed over through shared memory, each
+//     adding into one 128-column half of dQ over 64-key tiles) ran 17%
+//     slower: the hand-overs left the tensor cores idle.
 //
 // More than 48 KB of dynamic shared memory is requested through
 // cudaFuncSetAttribute before each launch. Plain C interface, loaded
@@ -299,8 +321,8 @@ __device__ __forceinline__ void pair_swap(const float (&x)[NT][4],
 // accumulator: the four products once, against 5 of 4 for the two role
 // CTAs a key tile it replaced (each computed S^T and staged its own
 // operands, 1.52 ms at B 4 x S 1024 x 8 x 256) and 6 of 4 for column
-// halves (1.71 ms). bfloat16 (dkv_cols): two CTAs a key tile, each
-// writing half of dK's and dV's columns, both recomputing S^T and dP^T.
+// halves (1.71 ms). bfloat16: the same split between two warpgroups
+// (flash_dkv_wgmma_pair_kernel).
 template <int D>
 __host__ __device__ constexpr bool dkv_pair() { return D > 128; }
 
@@ -309,9 +331,6 @@ template <int D>
 __host__ __device__ constexpr int dkv_threads() {
   return dkv_pair<D>() ? 2 * BWD_THREADS : BWD_THREADS;
 }
-
-template <int D>
-__host__ __device__ constexpr int dkv_cols() { return D > 128 ? D / 2 : D; }
 
 // Start copying rows [r0, r0 + ROWS) of one (batch, head) slice of a
 // [B, S, N, D] tensor (``src`` at row 0 of the slice, rows ``stride``
@@ -1265,10 +1284,76 @@ constexpr int WG_DQ_STAGES = 2;   // dQ's K/V ring
 constexpr float LN2 = 0.6931471805599453f;
 
 // rows of a tile the backward streams (queries in dK/dV, keys in dQ): at
-// D 128 and 256 the wide accumulators leave room for 32-wide score tiles
-// only
+// D 128 the wide accumulators leave room for 32-wide score tiles only
 template <int D>
 __host__ __device__ constexpr int wg_stream_rows() { return D > 64 ? 32 : 64; }
+
+// D 256: the backward runs two warpgroups a CTA (wg_pair), one CTA an SM.
+// Queries of dK/dV's streamed Q/dO tiles (64 x 64 scores take 32
+// registers a thread beside the accumulator's 128; 32-query tiles ran 15%
+// slower) and keys of dQ's streamed K/V tiles (S and dP take 16 each):
+constexpr int DKV256_QUERIES = 64;
+constexpr int DQ256_KEYS_BF16 = 32;
+
+template <int D>
+__host__ __device__ constexpr bool wg_pair() { return D > 128; }
+
+// threads of a bfloat16 dQ or dK/dV CTA
+template <int D>
+__host__ __device__ constexpr int wg_bwd_threads() {
+  return wg_pair<D>() ? 2 * WG_THREADS : WG_THREADS;
+}
+
+// named barrier ``id`` (1..15) of a CTA's two warpgroups: the warpgroup
+// that hands a tile over arrives when it has written it (bar.arrive
+// orders its shared-memory writes before the other's bar.sync returns),
+// the one that takes it waits
+__device__ __forceinline__ void wg_hand_over(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(2 * WG_THREADS)
+               : "memory");
+}
+__device__ __forceinline__ void wg_take_over(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(2 * WG_THREADS)
+               : "memory");
+}
+
+// The float32 exchange tile of a warpgroup's C fragments: rows of 2 NC
+// floats, unpadded, each row's 8-column blocks XOR-swizzled by the row's
+// low two bits, so the 8-byte accesses of a half-warp (rows g = 0..3 of a
+// quad's columns) land on distinct banks. Offset of (row r, score tile
+// j, lane t):
+template <int NC>
+__device__ __forceinline__ int xchg_at(int r, int j, int t) {
+  static_assert(NC >= 16, "a row has at least 4 score tiles");
+  return r * 2 * NC + 8 * (j ^ (r & 3)) + 2 * t;
+}
+
+// store a warpgroup's float32 C fragments x (rows 16 w + g, + 8 of its
+// warp w; score tiles of 8 columns) into the exchange tile X, or load
+// them back from it
+template <int NC>
+__device__ __forceinline__ void xchg_store(float* X, const float (&x)[NC],
+                                           int w, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NC / 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      store2(X + xchg_at<NC>(16 * w + g + 8 * i, j, t), x[4 * j + 2 * i],
+             x[4 * j + 2 * i + 1]);
+}
+template <int NC>
+__device__ __forceinline__ void xchg_load(const float* X, float (&x)[NC],
+                                          int w, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NC / 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float2 p = *reinterpret_cast<const float2*>(
+          X + xchg_at<NC>(16 * w + g + 8 * i, j, t));
+      x[4 * j + 2 * i] = p.x;
+      x[4 * j + 2 * i + 1] = p.y;
+    }
+}
 
 // keys of a forward tile: 64, or 32 at D 256, whose O accumulator (64 x
 // 256 float32 over the warpgroup) takes 128 registers a thread
@@ -1298,40 +1383,45 @@ struct FwdLayout {
 };
 
 // Shared memory of dK/dV: the resident K and V tiles, a ring of Q and dO
-// tiles with their lse (times log2 e, 0 where not finite) and delta
-// slices, the barriers and free counts
+// tiles (wg_pair: with each stage's P^T exchange tile, 64 x BQ floats)
+// with their lse (times log2 e, 0 where not finite) and delta slices, the
+// barriers and free counts
 template <int D>
 struct DkvLayout {
   static constexpr int STAGES = WG_DKV_STAGES;
-  static constexpr int BQ = wg_stream_rows<D>();
+  static constexpr int BQ = wg_pair<D>() ? DKV256_QUERIES : wg_stream_rows<D>();
   using KT = Tile<D, WG_ROWS>;
   using QT = Tile<D, BQ>;
   static constexpr size_t K = 0;
   static constexpr size_t V = K + KT::BYTES;
   static constexpr size_t Q = V + KT::BYTES;
   static constexpr size_t DO = Q + STAGES * QT::BYTES;
-  static constexpr size_t LSE = DO + STAGES * QT::BYTES;
+  static constexpr size_t XCHG = DO + STAGES * QT::BYTES;
+  static constexpr size_t LSE =
+      XCHG + (wg_pair<D>() ? STAGES * WG_ROWS * BQ * 4 : 0);
   static constexpr size_t DELTA = LSE + STAGES * BQ * 4;
   static constexpr size_t BAR = DELTA + STAGES * BQ * 4;
   static constexpr size_t CNT = BAR + (STAGES + 1) * 8;
   static constexpr size_t BYTES = CNT + STAGES * 4 + 1024;
 };
 
-// Shared memory of dQ: the resident Q and dO tiles, the forward's ring
-// of K and V tiles with their key-mask slices (whether a slice is all 0
-// rides in the list instead), the barriers and free counts, the number
-// of live KV tiles and, last, their list: one int per KV tile of the row
-// (dq_wg_smem adds it to BYTES)
+// Shared memory of dQ: the resident Q and dO tiles (a 64-row tile of each
+// per warpgroup), the forward's ring of K and V tiles with their key-mask
+// slices (whether a slice is all 0 rides in the list instead), the
+// barriers and free counts, the number of live KV tiles and, last, their
+// list: one int per KV tile of the row (dq_wg_smem adds it to BYTES)
 template <int D>
 struct DqLayout {
   static constexpr int STAGES = WG_DQ_STAGES;
-  static constexpr int BN = wg_stream_rows<D>();
+  static constexpr int BN =
+      wg_pair<D>() ? DQ256_KEYS_BF16 : wg_stream_rows<D>();
+  static constexpr int WGS = wg_pair<D>() ? 2 : 1;  // warpgroups of the CTA
   static constexpr bool FLAGS = false;
   using QT = Tile<D, WG_ROWS>;
   using KT = Tile<D, BN>;
   static constexpr size_t Q = 0;
-  static constexpr size_t DO = Q + QT::BYTES;
-  static constexpr size_t K = DO + QT::BYTES;
+  static constexpr size_t DO = Q + WGS * QT::BYTES;
+  static constexpr size_t K = DO + WGS * QT::BYTES;
   static constexpr size_t V = K + STAGES * KT::BYTES;
   static constexpr size_t BIAS = V + STAGES * KT::BYTES;
   static constexpr size_t BAR = BIAS + STAGES * BN * 4;
@@ -1372,18 +1462,19 @@ __device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* once,
 
 // Warp-wide: this warp is done with stage s (its wgmmas have completed,
 // its reads of the stage's float slices are done). The CTA's last warp
-// to say so calls ``refill()`` with the whole warp, which starts the
-// next tile's copies (lane 0 arrives on full[s] with their bytes),
-// writes its float slices and arrives again. No producer warp: a fifth
-// warp would leave room in the register file for fewer CTAs per SM (each
-// of an SM's four quadrants holds a quarter of its warps' registers).
-template <typename F>
+// (of WARPS) to say so calls ``refill()`` with the whole warp, which
+// starts the next tile's copies (lane 0 arrives on full[s] with their
+// bytes), writes its float slices and arrives again. No producer warp: a
+// fifth warp would leave room in the register file for fewer CTAs per SM
+// (each of an SM's four quadrants holds a quarter of its warps'
+// registers).
+template <int WARPS = WG_WARPS, typename F>
 __device__ __forceinline__ void ring_free(int* cnt, int s, F&& refill) {
   __syncwarp();
   int last = 0;
   if (threadIdx.x % 32 == 0) {
     __threadfence_block();
-    last = atomicAdd(&cnt[s], 1) == WG_WARPS - 1;
+    last = atomicAdd(&cnt[s], 1) == WARPS - 1;
     if (last) cnt[s] = 0;
     __threadfence_block();
   }
@@ -1660,25 +1751,27 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 // into bfloat16 hi + lo A operands (one rounding to bfloat16 misses the
 // bfloat16 limits: tests/test_torch_flash_attention.py), then dV += P^T
 // dO and dK += dS^T Q, lo pass first, with dO and Q through the
-// transpose bit. At D 256 a CTA writes half of dK's and dV's columns
-// (dkv_cols: both accumulators over all 256 would take 256 registers a
-// thread), recomputing S^T and dP^T over the whole D as the CTA of the
-// other half does. The body is shared by two kernels that differ in
-// their register limit (flash_dkv_wgmma_kernel, the wide one below).
+// transpose bit. Up to D 128: at most 168 registers a thread (no spills
+// at D <= 64), so three warps fit one quadrant of the register file and
+// two CTAs share an SM (at 172, the compiler's own count, one did).
 template <int D>
-__device__ __forceinline__ void dkv_wgmma_body(
-    const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
-    const CUtensorMap& dmap, const CUtensorMap& dkmap,
-    const CUtensorMap& dvmap, const float* __restrict__ bias,
-    const float* __restrict__ lse, const float* __restrict__ delta, int S_q,
-    int S_k, int N, int causal, float scale) {
+__global__ void __maxnreg__(168)
+flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap dmap,
+                       const __grid_constant__ CUtensorMap dkmap,
+                       const __grid_constant__ CUtensorMap dvmap,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, int S_q, int S_k,
+                       int N, int causal, float scale) {
   using L = DkvLayout<D>;
   using QT = typename L::QT;
   constexpr int BK = WG_ROWS;
   constexpr int BQ = L::BQ;
   constexpr int NT = BQ / 8;               // 8-query column blocks of S^T
   constexpr int KS = BQ / 16;              // k steps of dV and dK
-  constexpr int DO = dkv_cols<D>();        // output columns of the CTA
   constexpr int STAGES = L::STAGES;
   static_assert(STAGES <= WG_WARPS, "a warp fills each first stage");
   extern __shared__ __align__(1024) unsigned char wg_dkv_smem[];
@@ -1693,7 +1786,6 @@ __device__ __forceinline__ void dkv_wgmma_body(
   // read its Q/dO from L2 together; low tiles see the most queries
   const int bh = blockIdx.y;
   const int kt = blockIdx.x;
-  const int c0 = DO == D ? 0 : blockIdx.z * DO;  // the CTA's first column
   const int b = bh / N;
   const int h = bh % N;
   const int j0 = kt * BK;
@@ -1746,9 +1838,9 @@ __device__ __forceinline__ void dkv_wgmma_body(
                                      (kin[1] && bk[1] != -INFINITY));
   const bool nomask_keys = __syncthreads_and(kin[0] && kin[1] &&
                                              bk[0] == 0.f && bk[1] == 0.f);
-  float dk_acc[DO / 2], dv_acc[DO / 2];
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < DO / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   ring_init<STAGES>(full, kvbar, cnt);
   if (live && threadIdx.x == 0) {
     mbar_arrive_tx(kvbar, 2 * L::KT::BYTES);
@@ -1769,9 +1861,6 @@ __device__ __forceinline__ void dkv_wgmma_body(
     mbar_wait(&full[s], (it / STAGES) & 1);
     const unsigned char* Qt = sm + L::Q + s * QT::BYTES;
     const unsigned char* dOt = sm + L::DO + s * QT::BYTES;
-    // the column blocks of Q and dO this CTA's dK and dV take
-    const unsigned char* Qc = Qt + (c0 / QT::COLS) * QT::HALF_BYTES;
-    const unsigned char* dOc = dOt + (c0 / QT::COLS) * QT::HALF_BYTES;
     const float* Lt = Ls + s * BQ;
     const float* Et = Es + s * BQ;
     const int i0 = qt * BQ;
@@ -1824,10 +1913,10 @@ __device__ __forceinline__ void dkv_wgmma_body(
     wg_fence();
 #pragma unroll
     for (int k = 0; k < KS; ++k)               // dV += P^T dO, lo then hi
-      wgmma_rs<DO>(dv_acc, pl[k], desc_mn<D, BQ>(dOc, k), 1);
+      wgmma_rs<D>(dv_acc, pl[k], desc_mn<D, BQ>(dOt, k), 1);
 #pragma unroll
     for (int k = 0; k < KS; ++k)
-      wgmma_rs<DO>(dv_acc, ph[k], desc_mn<D, BQ>(dOc, k), 1);
+      wgmma_rs<D>(dv_acc, ph[k], desc_mn<D, BQ>(dOt, k), 1);
     wg_commit();
     uint32_t dh[KS][4], dl[KS][4];
 #pragma unroll
@@ -1838,10 +1927,10 @@ __device__ __forceinline__ void dkv_wgmma_body(
     wg_fence();
 #pragma unroll
     for (int k = 0; k < KS; ++k)               // dK += dS^T Q, lo then hi
-      wgmma_rs<DO>(dk_acc, dl[k], desc_mn<D, BQ>(Qc, k), 1);
+      wgmma_rs<D>(dk_acc, dl[k], desc_mn<D, BQ>(Qt, k), 1);
 #pragma unroll
     for (int k = 0; k < KS; ++k)
-      wgmma_rs<DO>(dk_acc, dh[k], desc_mn<D, BQ>(Qc, k), 1);
+      wgmma_rs<D>(dk_acc, dh[k], desc_mn<D, BQ>(Qt, k), 1);
     wg_commit();
     wg_wait<0>();
     pin(dv_acc);
@@ -1857,16 +1946,15 @@ __device__ __forceinline__ void dkv_wgmma_body(
   }
 
   // dK and dV in bfloat16 go where K and V were (every wgmma reading
-  // them has completed), in the tiles' swizzled layout (the CTA's DO
-  // columns in the first column blocks), and two TMA stores write the
-  // CTA's keys that exist
+  // them has completed), in the tiles' swizzled layout, and two TMA
+  // stores write the CTA's keys that exist
   unsigned char* dKs = sm + L::K;          // K's place
   unsigned char* dVs = sm + L::V;          // V's place
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = key[i] - j0;             // the row in the tile
 #pragma unroll
-    for (int n = 0; n < DO / 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       const int off = tile_offset<D, BK>(r, 8 * n + 2 * t);
       *reinterpret_cast<__nv_bfloat162*>(dKs + off) = __floats2bfloat162_rn(
           dk_acc[4 * n + 2 * i] * scale, dk_acc[4 * n + 2 * i + 1] * scale);
@@ -1877,37 +1965,25 @@ __device__ __forceinline__ void dkv_wgmma_body(
   fence_async_smem();
   __syncthreads();
   if (threadIdx.x == 0) {
-    tma_store_tile<D, BK, DO>(dKs, &dkmap, j0, b, h, c0);
-    tma_store_tile<D, BK, DO>(dVs, &dvmap, j0, b, h, c0);
+    tma_store_tile<D, BK>(dKs, &dkmap, j0, b, h);
+    tma_store_tile<D, BK>(dVs, &dvmap, j0, b, h);
   }
 }
 
-// dK/dV at bfloat16 up to D 128: at most 168 registers a thread (no
-// spills at D <= 64), so three warps fit one quadrant of the register
-// file and two CTAs share an SM (at 172, the compiler's own count, one
-// did).
+// dK/dV at bfloat16, D 256: one CTA of two warpgroups a 64-key tile,
+// each holding one 64 x 256 accumulator (128 registers a thread; both
+// would not fit one warpgroup), over one ring of Q/dO tiles. Per Q tile
+// both run the same wgmma stream on their own operands: warpgroup 0 S^T =
+// K Q^T, then dV += P^T dO; warpgroup 1 dP^T = V dO^T, then dK += dS^T Q
+// (hi + lo passes, lo first, as above). Between them warpgroup 0 forms
+// P^T and leaves it, float32, in the stage's exchange tile (named barrier
+// 1 + s); warpgroup 1 takes it to form dS^T = P^T (dP^T - delta). The
+// stage's exchange tile is written again only after the ring has
+// refilled the stage, which waits for both warpgroups to free it, so
+// each barrier has one hand-over in flight.
 template <int D>
-__global__ void __maxnreg__(168)
-flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
-                       const __grid_constant__ CUtensorMap kmap,
-                       const __grid_constant__ CUtensorMap vmap,
-                       const __grid_constant__ CUtensorMap dmap,
-                       const __grid_constant__ CUtensorMap dkmap,
-                       const __grid_constant__ CUtensorMap dvmap,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, int S_q, int S_k,
-                       int N, int causal, float scale) {
-  dkv_wgmma_body<D>(qmap, kmap, vmap, dmap, dkmap, dvmap, bias, lse, delta,
-                    S_q, S_k, N, causal, scale);
-}
-
-// dK/dV at bfloat16, D 256: its two 128-column accumulators (128
-// registers a thread) with the 32-query score tiles need more than 168
-// registers, so the compiler's own limit (255) holds.
-template <int D>
-__global__ void __launch_bounds__(WG_THREADS)
-flash_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+__global__ void __launch_bounds__(2 * WG_THREADS, 1)
+flash_dkv_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
                             const __grid_constant__ CUtensorMap dmap,
@@ -1917,15 +1993,247 @@ flash_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap qmap,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta, int S_q,
                             int S_k, int N, int causal, float scale) {
-  dkv_wgmma_body<D>(qmap, kmap, vmap, dmap, dkmap, dvmap, bias, lse, delta,
-                    S_q, S_k, N, causal, scale);
+  using L = DkvLayout<D>;
+  using QT = typename L::QT;
+  constexpr int BK = WG_ROWS;
+  constexpr int BQ = L::BQ;
+  constexpr int NT = BQ / 8;               // 8-query column blocks of S^T
+  constexpr int KS = BQ / 16;              // k steps of dV and dK
+  constexpr int STAGES = L::STAGES;
+  constexpr int WARPS = 2 * WG_WARPS;
+  static_assert(wg_pair<D>() && STAGES <= WG_WARPS,
+                "warps of warpgroup 0 fill the first stages");
+  extern __shared__ __align__(1024) unsigned char wg_dkv_pair_smem[];
+  unsigned char* sm = align_1k(wg_dkv_pair_smem);
+  float* Ls = reinterpret_cast<float*>(sm + L::LSE);          // [STAGES][BQ]
+  float* Es = reinterpret_cast<float*>(sm + L::DELTA);        // [STAGES][BQ]
+  float* Xs = reinterpret_cast<float*>(sm + L::XCHG);  // [STAGES][BK][BQ]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);  // [STAGES]
+  uint64_t* kvbar = full + STAGES;
+  int* cnt = reinterpret_cast<int*>(sm + L::CNT);             // [STAGES]
+
+  // heads fastest, every head's low key tiles (which see the most
+  // queries) first: with one CTA an SM the longest CTAs of every head
+  // start in the first wave
+  const int bh = blockIdx.x;
+  const int b = bh / N;
+  const int h = bh % N;
+  const int j0 = blockIdx.y * BK;
+  const int n_q = (S_q + BQ - 1) / BQ;
+  // causal: query tiles that end before this KV tile starts see none of it
+  const int qt0 = causal ? j0 / BQ : 0;
+  const float* lrow = lse + (size_t)bh * S_q;
+  const float* drow = delta + (size_t)bh * S_q;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const bool dk_wg = warp >= WG_WARPS;     // warpgroup 1: dP^T, dS^T, dK
+  const int wq = warp % WG_WARPS;          // the warp in its warpgroup
+  // warp-wide: this lane's entries of the lse (times log2 e, 0 where not
+  // finite) and delta slices of Q tile qt, read from global memory, and
+  // their store into stage s
+  static_assert(BQ % 32 == 0, "a lane holds BQ / 32 entries");
+  constexpr int NR = BQ / 32;
+  auto read_slices = [&](int qt, float (&l)[NR], float (&d)[NR]) {
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int r = qt * BQ + lane + 32 * i;
+      const float x = r < S_q ? lrow[r] : 0.f;
+      l[i] = isfinite(x) ? x * LOG2E : 0.f;
+      d[i] = r < S_q ? drow[r] : 0.f;
+    }
+  };
+  auto write_slices = [&](int s, const float (&l)[NR], const float (&d)[NR]) {
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      Ls[s * BQ + lane + 32 * i] = l[i];
+      Es[s * BQ + lane + 32 * i] = d[i];
+    }
+  };
+  auto load_q = [&](int s, int qt) {
+    mbar_arrive_tx(&full[s], 2 * QT::BYTES);
+    tma_tile<D, BQ>(sm + L::Q + s * QT::BYTES, &qmap, &full[s], qt * BQ, b,
+                    h);
+    tma_tile<D, BQ>(sm + L::DO + s * QT::BYTES, &dmap, &full[s], qt * BQ, b,
+                    h);
+  };
+  // key rows g and g + 8 of warp wq's 16, in both warpgroups
+  const int g = lane / 4;
+  const int t = lane % 4;
+  // the resident A operand of this warpgroup's scores: K (S^T) or V (dP^T)
+  const unsigned char* As = sm + (dk_wg ? L::V : L::K);
+  const float scale2 = scale * LOG2E;
+  int key[2];
+  bool kin[2];
+  float bk[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key[i] = j0 + 16 * wq + g + 8 * i;
+    kin[i] = key[i] < S_k;
+    bk[i] = (bias != nullptr && kin[i])
+                ? bias[(size_t)b * S_k + key[i]] * LOG2E
+                : 0.f;
+  }
+  // a CTA none of whose keys is live (masked or past S_k) has dK = dV = 0
+  // and loads nothing; one whose keys are all live and unmasked skips the
+  // mask on the Q tiles that need none either
+  const bool live = __syncthreads_or((kin[0] && bk[0] != -INFINITY) ||
+                                     (kin[1] && bk[1] != -INFINITY));
+  const bool nomask_keys = __syncthreads_and(kin[0] && kin[1] &&
+                                             bk[0] == 0.f && bk[1] == 0.f);
+  float acc[D / 2];                        // dV (warpgroup 0) or dK
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  ring_init<STAGES>(full, kvbar, cnt);
+  if (live && threadIdx.x == 0) {
+    mbar_arrive_tx(kvbar, 2 * L::KT::BYTES);
+    tma_tile<D, BK>(sm + L::K, &kmap, kvbar, j0, b, h);
+    tma_tile<D, BK>(sm + L::V, &vmap, kvbar, j0, b, h);
+    for (int s = 0; s < STAGES && qt0 + s < n_q; ++s) load_q(s, qt0 + s);
+  }
+  if (live && warp < STAGES && qt0 + warp < n_q) {
+    float l[NR], d[NR];
+    read_slices(qt0 + warp, l, d);
+    write_slices(warp, l, d);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&full[warp]);
+  }
+  if (live) mbar_wait(kvbar, 0);
+
+  for (int qt = live ? qt0 : n_q; qt < n_q; ++qt) {
+    const int it = qt - qt0;
+    const int s = it % STAGES;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    const unsigned char* Qt = sm + L::Q + s * QT::BYTES;
+    const unsigned char* dOt = sm + L::DO + s * QT::BYTES;
+    float* Xt = Xs + s * BK * BQ;            // the stage's exchange tile
+    const int i0 = qt * BQ;
+    // the slices of the tile that refills this stage, read while this
+    // tile's products run: whichever warp refills writes them without
+    // waiting on global memory
+    float lnext[NR], dnext[NR];
+    read_slices(qt + STAGES, lnext, dnext);
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1)
+    const unsigned char* Bt = dk_wg ? dOt : Qt;
+    float x[BQ / 2];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<BQ>(x, desc_k<D, BK>(As, ks), desc_k<D, BQ>(Bt, ks), ks > 0);
+    wg_commit();
+    wg_wait<0>();
+    pin(x);
+    if (!dk_wg) {
+      // P^T (2^-inf is 0: a masked key gives 0); an unmasked tile (every
+      // key live and unmasked, every query before S_q and, under causal,
+      // after the CTA's last key) skips the mask, a test taken once a tile
+      // so the element loops compile to straight-line code
+      const float* Lt = Ls + s * BQ;
+      const bool plain = nomask_keys && i0 + BQ <= S_q &&
+                         (!causal || j0 + BK - 1 <= i0);
+      if (plain) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float2 lv =
+              *reinterpret_cast<const float2*>(Lt + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[4 * j + e] =
+                ex2(fmaf(x[4 * j + e], scale2, (e & 1) ? -lv.y : -lv.x));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float2 lv =
+              *reinterpret_cast<const float2*>(Lt + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ki = e >> 1;
+            const int query = i0 + 8 * j + 2 * t + (e & 1);
+            const float L2 = (e & 1) ? lv.y : lv.x;
+            const bool ok =
+                query < S_q && kin[ki] && (!causal || key[ki] <= query);
+            x[4 * j + e] =
+                ok ? ex2(fmaf(x[4 * j + e], scale2, bk[ki]) - L2) : 0.f;
+          }
+        }
+      }
+      xchg_store<BQ / 2>(Xt, x, wq, g, t);
+      wg_hand_over(1 + s);
+    } else {
+      // dS^T = P^T (dP^T - delta)
+      const float* Et = Es + s * BQ;
+      float p[BQ / 2];
+      wg_take_over(1 + s);
+      xchg_load<BQ / 2>(Xt, p, wq, g, t);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 ev =
+            *reinterpret_cast<const float2*>(Et + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[4 * j + e] = p[4 * j + e] *
+                         (x[4 * j + e] - ((e & 1) ? ev.y : ev.x));
+      }
+    }
+    // dV += P^T dO or dK += dS^T Q, lo then hi, dO or Q through the
+    // transpose bit
+    const unsigned char* Ct = dk_wg ? Qt : dOt;
+    uint32_t ah[KS][4], al[KS][4];
+#pragma unroll
+    for (int k = 0; k < KS; ++k) acc_to_a2(x, k, ah[k], al[k]);
+    pin(acc);
+    pin(ah);
+    pin(al);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      wgmma_rs<D>(acc, al[k], desc_mn<D, BQ>(Ct, k), 1);
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      wgmma_rs<D>(acc, ah[k], desc_mn<D, BQ>(Ct, k), 1);
+    wg_commit();
+    wg_wait<0>();
+    pin(acc);
+    ring_free<WARPS>(cnt, s, [&] {             // refill with tile qt + STAGES
+      const int nq = qt + STAGES;
+      if (nq >= n_q) return;
+      if (lane == 0) load_q(s, nq);
+      write_slices(s, lnext, dnext);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[s]);
+    });
+  }
+
+  // dV (warpgroup 0) goes where V was and dK scale where K was, in
+  // bfloat16 and the tiles' swizzled layout, once both warpgroups' last
+  // products (which read K and V) have completed; two TMA stores write
+  // the CTA's keys that exist
+  __syncthreads();
+  unsigned char* Os = sm + (dk_wg ? L::K : L::V);
+  const float m = dk_wg ? scale : 1.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = key[i] - j0;             // the row in the tile
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int off = tile_offset<D, BK>(r, 8 * n + 2 * t);
+      *reinterpret_cast<__nv_bfloat162*>(Os + off) = __floats2bfloat162_rn(
+          acc[4 * n + 2 * i] * m, acc[4 * n + 2 * i + 1] * m);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    tma_store_tile<D, BK>(sm + L::K, &dkmap, j0, b, h);
+    tma_store_tile<D, BK>(sm + L::V, &dvmap, j0, b, h);
+  }
 }
 
 // the bfloat16 dK/dV kernel a head dim launches
 template <int D>
 auto dkv_wg_kernel() {
-  if constexpr (D > 128)
-    return flash_dkv_wgmma_wide_kernel<D>;
+  if constexpr (wg_pair<D>())
+    return flash_dkv_wgmma_pair_kernel<D>;
   else
     return flash_dkv_wgmma_kernel<D>;
 }
@@ -2122,6 +2430,233 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   if (threadIdx.x == 0) tma_store_tile<D, BM>(Qs, &dqmap, i0, b, h);
 }
 
+// dQ at bfloat16, D 256: one CTA of two warpgroups over 128 query rows,
+// warpgroup w rows 64 w .. 64 w + 63, each doing flash_dq_wgmma_kernel's
+// work on its own rows (a 64 x 256 accumulator, 128 registers a thread,
+// 32-key tiles) over one ring of K/V tiles they share: every K/V byte
+// read from L2 serves both, and as they need nothing from each other,
+// one's elementwise work runs while the other's wgmmas issue. The
+// live-tile list and the ring are flash_dq_wgmma_kernel's, over the
+// CTA's 128 rows; under causal the first warpgroup skips the key tiles
+// wholly past its rows (the second's diagonal tiles) and only frees their
+// stages.
+template <int D>
+__global__ void __launch_bounds__(2 * WG_THREADS, 1)
+flash_dq_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap dmap,
+                           const __grid_constant__ CUtensorMap dqmap,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta, int S_q,
+                           int S_k, int N, int causal, float scale) {
+  using L = DqLayout<D>;
+  using QT = typename L::QT;
+  using KT = typename L::KT;
+  constexpr int BM = WG_ROWS;
+  constexpr int ROWS = L::WGS * BM;        // query rows of the CTA
+  constexpr int BN = L::BN;
+  constexpr int NT = BN / 8;               // 8-key column blocks of S
+  constexpr int KS = BN / 16;              // k steps of dS K
+  constexpr int STAGES = L::STAGES;
+  constexpr int WARPS = L::WGS * WG_WARPS;
+  static_assert(wg_pair<D>() && L::WGS == 2 && STAGES <= WARPS,
+                "two warpgroups; a warp fills each first stage");
+  extern __shared__ __align__(1024) unsigned char wg_dq_pair_smem[];
+  unsigned char* sm = align_1k(wg_dq_pair_smem);
+  float* Bs = reinterpret_cast<float*>(sm + L::BIAS);         // [STAGES][BN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);  // [STAGES]
+  uint64_t* qbar = full + STAGES;
+  int* cnt = reinterpret_cast<int*>(sm + L::CNT);             // [STAGES]
+  int* nlive = reinterpret_cast<int*>(sm + L::NLIVE);
+  int* list = reinterpret_cast<int*>(sm + L::LIST);           // [n_kv]
+
+  // heads fastest, the deepest row tiles first: with one CTA an SM the
+  // longest CTAs of every head start in the first wave
+  const int bh = blockIdx.x;
+  const int b = bh / N;
+  const int h = bh % N;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int n_all = (S_k + BN - 1) / BN;
+  const int n_kv = causal ? min(n_all, (i0 + ROWS - 1) / BN + 1) : n_all;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / WG_WARPS;          // the warpgroup: rows 64 wg ..
+  const int wq = warp % WG_WARPS;          // the warp in its warpgroup
+  const KvRing<D, L> ring{sm, &kmap, &vmap,
+                          bias ? bias + (size_t)b * S_k : nullptr, S_k, b, h};
+  ring_init<STAGES>(full, qbar, cnt);
+  if (threadIdx.x == 0) {
+    mbar_arrive_tx(qbar, 2 * L::WGS * QT::BYTES);
+    for (int w = 0; w < L::WGS; ++w) {
+      tma_tile<D, BM>(sm + L::Q + w * QT::BYTES, &qmap, qbar, i0 + BM * w, b,
+                      h);
+      tma_tile<D, BM>(sm + L::DO + w * QT::BYTES, &dmap, qbar, i0 + BM * w,
+                      b, h);
+    }
+  }
+  // rows g and g + 8 of warp wq's 16 in the warpgroup's 64: lse times
+  // log2 e (0 where not finite) and delta
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wrow = i0 + BM * wg + 16 * wq;  // the warp's first row
+  const int row0 = wrow + g;
+  const int wlast = i0 + BM * wg + BM - 1;   // the warpgroup's last row
+  float lse2[2], del[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const float x = row < S_q ? lse[(size_t)bh * S_q + row] : 0.f;
+    lse2[i] = isfinite(x) ? x * LOG2E : 0.f;
+    del[i] = row < S_q ? delta[(size_t)bh * S_q + row] : 0.f;
+  }
+  // the live-tile list, as flash_dq_wgmma_kernel's, marked by all 8 warps
+  for (int kt = warp; kt < n_kv; kt += WARPS) {
+    bool live = false, zero = true;
+    for (int i = lane; i < BN; i += 32) {
+      const int col = kt * BN + i;
+      const float x = col < S_k ? (ring.brow != nullptr ? ring.brow[col] : 0.f)
+                                : -INFINITY;
+      live = live || x != -INFINITY;
+      zero = zero && x == 0.f;
+    }
+    live = __any_sync(FULL, live);
+    zero = __all_sync(FULL, zero);
+    if (lane == 0) list[kt] = live ? 2 * kt + zero : -1;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int c = 0; c < n_kv; c += 32) {
+      const int e = c + lane < n_kv ? list[c + lane] : -1;
+      const unsigned m = __ballot_sync(FULL, e >= 0);
+      if (e >= 0) list[n + __popc(m & ((1u << lane) - 1u))] = e;
+      n += __popc(m);
+    }
+    if (lane == 0) *nlive = n;
+  }
+  __syncthreads();
+  const int n_live = *nlive;
+  if (threadIdx.x == 0)
+    for (int s = 0; s < STAGES && s < n_live; ++s) ring.load(s, list[s] >> 1);
+  if (warp < STAGES && warp < n_live) ring.slice(warp, list[warp] >> 1);
+
+  // this warpgroup's resident Q and dO tiles
+  unsigned char* Qs = sm + L::Q + wg * QT::BYTES;
+  const unsigned char* dOs = sm + L::DO + wg * QT::BYTES;
+  const float scale2 = scale * LOG2E;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int it = 0; it < n_live; ++it) {
+    const int s = it % STAGES;
+    const int kt = list[it] >> 1;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    const unsigned char* Kt = sm + L::K + s * KT::BYTES;
+    const unsigned char* Vt = sm + L::V + s * KT::BYTES;
+    // under causal a key tile wholly past this warpgroup's rows adds
+    // nothing to its dQ
+    if (!causal || kt * BN <= wlast) {
+      const float* bs = Bs + s * BN;
+      float sc[BN / 2], dp[BN / 2];
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)      // S = Q K^T
+        wgmma_ss<BN>(sc, desc_k<D, BM>(Qs, ks), desc_k<D, BN>(Kt, ks),
+                     ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)      // dP = dO V^T
+        wgmma_ss<BN>(dp, desc_k<D, BM>(dOs, ks), desc_k<D, BN>(Vt, ks),
+                     ks > 0);
+      wg_commit();
+      wg_wait<0>();
+      pin(sc);
+      pin(dp);
+      // P, then dS = P (dP - delta) in place in sc (2^-inf is 0: a masked
+      // key gives 0); an unmasked tile (no key masked or past S_k, none
+      // past the warp's rows under causal) skips the mask, a test taken
+      // once a tile so the element loops compile to straight-line code
+      const bool plain =
+          (list[it] & 1) && (!causal || kt * BN + BN - 1 <= wrow);
+      if (plain) {
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) {
+          const int i = (j >> 1) & 1;
+          sc[j] = ex2(fmaf(sc[j], scale2, -lse2[i])) * (dp[j] - del[i]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const int c = 8 * j + 2 * t + (e & 1);
+            const bool ok = !causal || kt * BN + c <= row0 + 8 * i;
+            const float p =
+                ok ? ex2(fmaf(sc[4 * j + e], scale2, bs[c]) - lse2[i])
+                   : 0.f;
+            sc[4 * j + e] = p * (dp[4 * j + e] - del[i]);
+          }
+        }
+      }
+      uint32_t dh[KS][4], dl[KS][4];
+#pragma unroll
+      for (int k = 0; k < KS; ++k) acc_to_a2(sc, k, dh[k], dl[k]);
+      pin(acc);
+      pin(dh);
+      pin(dl);
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < KS; ++k)             // dQ += dS K, lo then hi
+        wgmma_rs<D>(acc, dl[k], desc_mn<D, BN>(Kt, k), 1);
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        wgmma_rs<D>(acc, dh[k], desc_mn<D, BN>(Kt, k), 1);
+      wg_commit();
+      wg_wait<0>();
+      pin(acc);
+    }
+    ring_free<WARPS>(cnt, s, [&] {             // refill with list[it + STAGES]
+      const int nx = it + STAGES;
+      if (nx >= n_live) return;
+      if (lane == 0) ring.load(s, list[nx] >> 1);
+      ring.slice(s, list[nx] >> 1);
+    });
+  }
+
+  // dQ scale in bfloat16 goes where the warpgroup's Q was (only it read
+  // that tile; with no live tile, Q's copy has landed), in the tile's
+  // swizzled layout; two TMA stores write the CTA's rows that exist
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * wq + g + 8 * i;     // the row in the tile
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int off = tile_offset<D, BM>(r, 8 * n + 2 * t);
+      *reinterpret_cast<__nv_bfloat162*>(Qs + off) = __floats2bfloat162_rn(
+          acc[4 * n + 2 * i] * scale, acc[4 * n + 2 * i + 1] * scale);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int w = 0; w < L::WGS; ++w)
+      tma_store_tile<D, BM>(sm + L::Q + w * QT::BYTES, &dqmap, i0 + BM * w, b,
+                            h);
+}
+
+// the bfloat16 dQ kernel a head dim launches
+template <int D>
+auto dq_wg_kernel() {
+  if constexpr (wg_pair<D>())
+    return flash_dq_wgmma_pair_kernel<D>;
+  else
+    return flash_dq_wgmma_kernel<D>;
+}
+
 template <typename K>
 int prepare(K kern, size_t smem) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -2202,7 +2737,7 @@ int dkv_wg(const void* q, const void* k, const void* v, const float* bias,
            const void* dout, const float* lse, const float* delta,
            void* dk_out, void* dv_out, int B, int S_q, int S_k, int N,
            int causal, float scale, cudaStream_t st) {
-  constexpr int BQ = wg_stream_rows<D>();
+  constexpr int BQ = DkvLayout<D>::BQ;
   CUtensorMap qm, km, vm, dm, dkm, dvm;
   if (int e = tile_map<D, BQ>(&qm, q, B, S_q, N)) return e;
   if (int e = tile_map<D, WG_ROWS>(&km, k, B, S_k, N)) return e;
@@ -2213,8 +2748,9 @@ int dkv_wg(const void* q, const void* k, const void* v, const float* bias,
   const size_t smem = DkvLayout<D>::BYTES;
   auto kern = dkv_wg_kernel<D>();
   if (int e = prepare(kern, smem)) return e;
-  const dim3 grid((S_k + WG_ROWS - 1) / WG_ROWS, B * N, D / dkv_cols<D>());
-  kern<<<grid, WG_THREADS, smem, st>>>(
+  const dim3 grid = wg_pair<D>() ? dim3(B * N, (S_k + WG_ROWS - 1) / WG_ROWS)
+                                   : dim3((S_k + WG_ROWS - 1) / WG_ROWS, B * N);
+  kern<<<grid, wg_bwd_threads<D>(), smem, st>>>(
       qm, km, vm, dm, dkm, dvm, bias, lse, delta, S_q, S_k, N, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -2233,11 +2769,13 @@ int dq_wg(const void* q, const void* k, const void* v, const float* bias,
   if (int e = tile_map<D, WG_ROWS>(&dm, dout, B, S_q, N)) return e;
   if (int e = tile_map<D, WG_ROWS>(&dqm, dq_out, B, S_q, N)) return e;
   const size_t smem = dq_wg_smem<D>(S_k);
-  auto kern = flash_dq_wgmma_kernel<D>;
+  auto kern = dq_wg_kernel<D>();
   if (int e = prepare(kern, smem)) return e;
-  const dim3 grid((S_q + WG_ROWS - 1) / WG_ROWS, B * N);
-  kern<<<grid, WG_THREADS, smem, st>>>(qm, km, vm, dm, dqm, bias, lse, delta,
-                                       S_q, S_k, N, causal, scale);
+  constexpr int ROWS = DqLayout<D>::WGS * WG_ROWS;   // query rows of a CTA
+  const dim3 grid = wg_pair<D>() ? dim3(B * N, (S_q + ROWS - 1) / ROWS)
+                                 : dim3((S_q + ROWS - 1) / ROWS, B * N);
+  kern<<<grid, wg_bwd_threads<D>(), smem, st>>>(
+      qm, km, vm, dm, dqm, bias, lse, delta, S_q, S_k, N, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2280,8 +2818,8 @@ int dq_budget(int* out) {
 // (the live-tile list sized for 512 keys, BERT's positions)
 template <int D>
 int dq_wg_budget(int* out) {
-  return budget(flash_dq_wgmma_kernel<D>, dq_wg_smem<D>(512), out,
-                WG_THREADS);
+  return budget(dq_wg_kernel<D>(), dq_wg_smem<D>(512), out,
+                wg_bwd_threads<D>());
 }
 
 template <int D>
@@ -2291,7 +2829,8 @@ int dkv_budget(int* out) {
 
 template <int D>
 int dkv_wg_budget(int* out) {
-  return budget(dkv_wg_kernel<D>(), DkvLayout<D>::BYTES, out, WG_THREADS);
+  return budget(dkv_wg_kernel<D>(), DkvLayout<D>::BYTES, out,
+                wg_bwd_threads<D>());
 }
 
 // head_dim and dtype dispatch (D is a template parameter of every

@@ -3,7 +3,8 @@
 within one run.
 
     python3 -m tensorflowonspark_tpu_torch.profile_flash \
-        [--shape bert|gpt2|d256] [--variant NAME=DIR ...] [--reps 20]
+        [--shape bert|gpt2|d256|d256bf16] [--variant NAME=DIR ...] \
+        [--reps 20]
 
 ``--shape bert`` (the default): BERT-base's attention as
 ``chip_smoke.py`` phase 8 trains it, B 32, S 384, 12 heads of 64,
@@ -11,9 +12,11 @@ bfloat16, a key mask with 192-384 live keys a row (seeded), not causal.
 ``--shape gpt2``: the GPT-2-small decoder's as phases 5-7 train it, B 8,
 S 1024, 12 heads of 64, float32, causal, no mask. ``--shape d256``: the
 D-256 decoder's as phase 17(c) trains it, B 4, S 1024, 8 heads of 256,
-float32, causal, no mask. For the forward (``tfos_flash_fwd``), dQ
-(``tfos_flash_dq``) and dK/dV (``tfos_flash_dkv``): device time per call
-through CUDA-graph replays and time per eager call (host work included).
+float32, causal, no mask; ``--shape d256bf16``: the same in bfloat16, as
+phase 17(a) holds the bfloat16 D-256 kernels. For the forward
+(``tfos_flash_fwd``), dQ (``tfos_flash_dq``) and dK/dV
+(``tfos_flash_dkv``): device time per call through CUDA-graph replays and
+time per eager call (host work included).
 ``--variant NAME=DIR`` builds ``DIR/flash_attention.cu`` (with the
 headers beside it) with the package's nvcc flags, all variants at once,
 and times it in turns with the package's own source — package, variants,
@@ -23,10 +26,10 @@ largest difference from the package source's outputs (out, lse, dQ, dK,
 dV) is printed beside its times (a variant that drops work, to see what
 that work costs, differs), and each source's budget (``fa.budget``) at
 the shape's head dim. Last, ``scaled_dot_product_attention`` with the
-same boolean mask (``is_causal`` at gpt2 and d256), its forward and its
-backward timed the same two ways (the yardstick ``chip_smoke.py`` uses;
-the port never calls it), and each source's dQ + dK/dV over SDPA's
-backward. Needs one card.
+same boolean mask (``is_causal`` at gpt2, d256 and d256bf16), its
+forward and its backward timed the same two ways (the yardstick
+``chip_smoke.py`` uses; the port never calls it), and each source's dQ +
+dK/dV over SDPA's backward. Needs one card.
 """
 
 import argparse
@@ -42,7 +45,8 @@ import numpy as np
 #: (batch, sequence, heads, head dim, dtype, causal, key mask)
 SHAPES = {"bert": (32, 384, 12, 64, "bfloat16", False, True),
           "gpt2": (8, 1024, 12, 64, "float32", True, False),
-          "d256": (4, 1024, 8, 256, "float32", True, False)}
+          "d256": (4, 1024, 8, 256, "float32", True, False),
+          "d256bf16": (4, 1024, 8, 256, "bfloat16", True, False)}
 SEED = 1234
 
 

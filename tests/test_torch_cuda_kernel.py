@@ -12,7 +12,10 @@ CTA of 8 warps a row or key tile), the backward's determinism (no atomics) and t
 budgets at D 64 and 256; the bfloat16 forward, dQ and dK/dV
 (``wgmma`` + TMA) at every head dim, ragged and rectangular, with a key
 mask, at BERT-base's attention shape, dQ with whole key tiles masked in
-the middle and at the end of a row, and bitwise deterministic; and ring
+the middle and at the end of a row, and bitwise deterministic; the
+bfloat16 dQ and dK/dV at D 256 (two warpgroups a CTA) over ragged
+tiles, wrapping rings, S_q != S_k with a fully masked row, D 192 through
+the padding, bitwise repeats and their budget; and ring
 attention's kernel route (a 4-way ring in lockstep) against its plain
 route in every schedule and both dtypes; the speculative verify window
 (S_q = k from mid-sequence cursors), a speculative engine's exact
@@ -812,6 +815,101 @@ def test_flash_d256_warp_pair_budget(cuda, kind):
     ceiling (no local-memory spills) and fit at least one CTA an SM in
     the card's 227 KB of shared memory."""
     got = fa.budget(kind, 256, torch.float32)
+    assert got["spill_bytes"] == 0
+    assert got["ctas_per_sm"] >= 1
+    assert 0 < got["registers"] <= 255
+    assert 0 < got["smem_bytes"] <= 227 * 1024
+
+
+#: (b, s_q, s_k, n, d, causal, masked, dtype) for the bfloat16 dQ and
+#: dK/dV at D 256 (one CTA of two warpgroups: 64-key K/V tiles in dQ,
+#: 32-query Q/dO tiles in dK/dV)
+BF16_D256_PAIR_CASES = [
+    # S a multiple of neither tile, causal
+    (2, 100, 100, 2, 256, True, False, torch.bfloat16),
+    # both rings wrap many times (dQ 9 key tiles, dK/dV 17 query tiles),
+    # the last tile ragged
+    (1, 520, 520, 2, 256, True, False, torch.bfloat16),
+    # S_q != S_k both ways with a key mask and a fully masked batch row
+    (2, 100, 260, 2, 256, False, True, torch.bfloat16),
+    (2, 260, 100, 2, 256, False, True, torch.bfloat16),
+    # causal with that key mask; non-causal with none
+    (2, 136, 136, 2, 256, True, True, torch.bfloat16),
+    (2, 136, 136, 2, 256, False, False, torch.bfloat16),
+]
+BF16_D256_PAIR_IDS = ["causal-ragged", "ring-wraps", "rect-short-q-mask",
+                      "rect-long-q-mask", "causal-mask", "non-causal"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_D256_PAIR_CASES, ids=BF16_D256_PAIR_IDS)
+def test_flash_bf16_dq_dkv_d256_warpgroup_pairs(cuda, case):
+    """The bfloat16 dQ and dK/dV at D 256, one CTA of two warpgroups: dQ's
+    warpgroup 0 forms P and warpgroup 1 dP and dS, handed over through
+    shared memory, each adding dS K into one 128-column half; dK/dV's
+    warpgroup 0 forms P^T and dV, warpgroup 1 dP^T, dS^T and dK. Against
+    the plain versions on the kernel forward's lse and delta: ragged
+    tiles, rings that wrap many times, S_q != S_k both ways with a key
+    mask leaving one batch row fully masked (its dQ, dK and dV 0), causal
+    with a key mask, and non-causal; two launches of each bitwise
+    equal."""
+    b, s_q, s_k, n, d, causal, masked, dtype = case
+    q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
+    scale = d ** -0.5
+    out, lse = fa._kernel_fwd(q, k, v, bias, causal, scale)
+    delta = fa._delta(out, dout, g_lse)
+    before = dict(fa.launches)
+    dq = fa._kernel_dq(q, k, v, bias, dout, lse, delta, causal, scale)
+    dk, dv = fa._kernel_dkv(q, k, v, bias, dout, lse, delta, causal, scale)
+    dq2 = fa._kernel_dq(q, k, v, bias, dout, lse, delta, causal, scale)
+    dk2, dv2 = fa._kernel_dkv(q, k, v, bias, dout, lse, delta, causal,
+                              scale)
+    torch.cuda.synchronize()
+    assert fa.launches["dq"] == before["dq"] + 2
+    assert fa.launches["dkv"] == before["dkv"] + 2
+    want_dq = fa._dq_plain(q, k, v, bias, dout, lse, delta, causal, scale)
+    want_dk, want_dv = fa._dkv_plain(q, k, v, bias, dout, lse, delta,
+                                     causal, scale)
+    for got, want, again in ((dq, want_dq, dq2), (dk, want_dk, dk2),
+                             (dv, want_dv, dv2)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        _assert_close(got, want)
+        assert torch.equal(got, again)
+    if masked:
+        assert (dq[-1] == 0).all()
+        assert (dk[-1] == 0).all() and (dv[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)],
+                         ids=["causal", "key_mask"])
+def test_flash_bf16_d192_through_the_d256_pairs(cuda, causal, masked):
+    """Heads of 192 in bfloat16 run zero-padded to the D-256 kernels
+    (dQ and dK/dV as two warpgroups) through the public autograd pair, at
+    an S that wraps both backward rings: out, lse, dQ, dK and dV at the
+    true D against the plain versions, one launch of each kernel."""
+    case = (2, 300, 300, 2, 192, causal, masked, torch.bfloat16)
+    q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
+    scale = 192 ** -0.5
+    before = dict(fa.launches)
+    got = _pair_through_route(q, k, v, bias, dout, g_lse, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.launches == {k_: before[k_] + 1 for k_ in before}
+    _check_against_plain(q, k, v, bias, dout, g_lse, causal, scale, got)
+    if masked:
+        assert (got[0][-1] == 0).all() and (got[2][-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+def test_flash_bf16_d256_pair_budget(cuda, kind):
+    """The bfloat16 dQ and dK/dV at D 256 (two warpgroups, 256 threads,
+    a 64 x 128 or 64 x 256 float32 accumulator a warpgroup) keep every
+    value in registers under the 255-register ceiling (no local-memory
+    spills) and fit one CTA an SM in the card's 227 KB of shared
+    memory."""
+    got = fa.budget(kind, 256, torch.bfloat16)
     assert got["spill_bytes"] == 0
     assert got["ctas_per_sm"] >= 1
     assert 0 < got["registers"] <= 255
