@@ -391,11 +391,13 @@ Phases, stopping with a non-zero exit at the first failure:
    256-token tail and a cold 512 prompt), float and int8, held as phase
    3's cases are; the three flash kernels at B 4 x S 1024 x 8 x 256,
    causal, in float32 and bfloat16 (float32: one CTA of 8 warps a row
-   or key tile; bfloat16 dQ and dK/dV: one CTA of two warpgroups), and
-   at D 192 through the padding, under phase 3b's limits; each timed
-   beside its plain version, its SDPA yardstick and its bound; the
-   budgets of the D-256 tiled kernel, of the float32 forward, dQ and
-   dK/dV and of the bfloat16 dQ and dK/dV (spill-free, within 227 KB);
+   or key tile; bfloat16: one CTA of two warpgroups), and at D 192
+   through the padding, under phase 3b's limits; each timed beside its
+   plain version, its SDPA yardstick and its bound (the bfloat16
+   forward's device time also over SDPA's and as a share of the bound);
+   the budgets of the D-256 tiled kernel, of the float32 forward, dQ and
+   dK/dV and of the bfloat16 forward, dQ and dK/dV (spill-free, within
+   227 KB);
    (b) a ``DecoderLM`` of Gemma-2B's attention width and depth on the
    repo's own block (vocab 50257, hidden 2048 = 8 heads x
    256, 18 layers, max_len 1024; random weights from the seed) behind
@@ -6040,9 +6042,10 @@ def wide_kernel_cases(torch, pa, fa, dev):
     int8 (``hold_case``: the route, ``KERNEL_TOL``, a bitwise repeat,
     NaN-poisoned dead rows). Flash: the three kernels at D 256 in float32
     and bfloat16 at B 4 x S 1024 x 8, causal (float32: one CTA of 8
-    warps a row or key tile; bfloat16 dQ and dK/dV: one CTA of two
-    warpgroups), and D 192 through the padding (``flash_cases``, the
-    phase-3b limits). Returns the largest errors."""
+    warps a row or key tile; bfloat16: one CTA of two warpgroups, over
+    128 query rows in the forward and dQ, a 64-key tile in dK/dV), and D
+    192 through the padding (``flash_cases``, the phase-3b limits).
+    Returns the largest errors."""
     rng = np.random.RandomState(SEED + 17)
     worst = {"split": 0.0, "tiled": 0.0}
     for quant in (False, True):
@@ -6073,7 +6076,11 @@ def wide_timing(torch, pa, fa, dev):
     """The D-256 rows' times: the split route at the serving decode shape
     (phase 3's depths, 8 heads of 256), the tensor-core tiled route at
     the 256-token tail and the cold 512 prompt (block 16), float and int8;
-    the flash kernels at B 4 x S 1024 x 8 x 256, causal, both dtypes."""
+    the flash kernels at B 4 x S 1024 x 8 x 256, causal, both dtypes, and
+    for row 2d, the bfloat16 forward (one CTA of two warpgroups over 128
+    query rows), its device time over SDPA's, its share of the bound and
+    its budget (registers, spills, shared memory, CTAs an SM), which must
+    be spill-free within 227 KB."""
     depths = np.random.RandomState(SEED + 1).randint(32, 641, size=SLOTS)
     paged = {}
     for shape, s_q, rows in (("decode", 1, depths),
@@ -6124,6 +6131,22 @@ def wide_timing(torch, pa, fa, dev):
             "SDPA backward {:.4f} ms, ratio {:.3f}".format(
                 dtype, pair, ft["dq"]["library_device_ms"],
                 pair / ft["dq"]["library_device_ms"]))
+    # row 2d: the bfloat16 forward at D 256, one CTA of two warpgroups
+    # over 128 query rows (flash_fwd_wgmma_pair_kernel)
+    fwd = flash["bfloat16"]["fwd"]
+    got = fa.budget("fwd", WIDE_D, torch.bfloat16)
+    log("flash forward D256 bfloat16 (two warpgroups a CTA): device time "
+        "{:.4f} ms = {:.3f} x SDPA's {:.4f} ms; {:.2f}% of the {:.4f} ms "
+        "bound ({}); {} registers, {} spill bytes, {} KB shared, {} "
+        "CTAs/SM".format(
+            fwd["device_ms"], fwd["device_ms"] / fwd["library_device_ms"],
+            fwd["library_device_ms"], 100.0 * fwd["bound_ms"]
+            / fwd["device_ms"], fwd["bound_ms"], fwd["bound_by"],
+            got["registers"], got["spill_bytes"], got["smem_bytes"] // 1024,
+            got["ctas_per_sm"]))
+    check(got["spill_bytes"] == 0 and got["ctas_per_sm"] >= 1
+          and got["smem_bytes"] <= pa.MAX_SMEM_BYTES,
+          "the bfloat16 D-256 forward spills or does not fit: {}".format(got))
     return paged, flash
 
 

@@ -191,16 +191,37 @@
 //     then dS^T from that P^T, and dS^T Q. Each half does two of the
 //     four products on one staged copy of K, V and the 16-query Q/dO
 //     ring.
-// - wgmma (bfloat16): tiles of four 64-column blocks. The forward keeps
-//   one warpgroup over 64 query rows, m64n256k16 for O += P V (the
-//   accumulator is 128 registers a thread) and key tiles of 32
-//   (wg_fwd_keys). The backward runs one CTA of two warpgroups (256
-//   threads, one CTA an SM: wg_pair), so that one warpgroup's elementwise
-//   work runs while the other's wgmmas issue, and lays its grid out heads
-//   fastest, every head's deepest tiles first (with a head's tiles side
-//   by side, the longest CTAs of the last heads ran in the last wave:
-//   16% slower); the unmasked-tile test is taken once a tile, outside the
-//   element loops (inside them, each element compiled to a branch: 10%):
+// - wgmma (bfloat16): tiles of four 64-column blocks, m64n256k16 for the
+//   products into a 64 x 256 accumulator (128 registers a thread). All
+//   three kernels run one CTA of two warpgroups (256 threads, one CTA an
+//   SM: wg_pair), so that one warpgroup's elementwise work runs while the
+//   other's wgmmas issue, and lay their grids out heads fastest, every
+//   head's deepest tiles first (with a head's tiles side by side, the
+//   longest CTAs of the last heads ran in the last wave: 16% slower in
+//   the backward); the unmasked-tile test is taken once a tile, outside
+//   the element loops (inside them, each element compiled to a branch:
+//   10%):
+//   - the forward (flash_fwd_wgmma_pair_kernel), one CTA a 128-query
+//     tile: each warpgroup its own 64 rows over one shared ring of 64-key
+//     K/V tiles, K and V on barriers of their own, software-pipelined so
+//     that P V of one tile runs under the softmax of the next (as FA3
+//     does). At B 4 x S 1024 x 8 x 256, causal, it ran [0.0504] ms
+//     against [0.0903] for the one-warpgroup CTA over 64 rows and 32-key
+//     tiles, two CTAs an SM, it replaced, whose every CTA staged its own
+//     copy of K/V and whose tensor cores idled through each softmax.
+//     Dropping one piece of work at a time cut 7-17% each (P V, refill
+//     copies, S, softmax): they run largely in series within a
+//     warpgroup. A clock64 trace of the deepest CTA read ~4000 cycles a
+//     64-key tile for both warpgroups in the loop (~55% of the tensor
+//     rate), ~7700 waiting for the first Q, K and V (the first wave's Q
+//     reads come from DRAM together) and ~3000 storing O. Tried and
+//     dropped (device ms against 0.0511-0.0516 in the same calls): the
+//     warpgroups taking turns to issue at named barriers (FA3's
+//     ping-pong; 0.0513-0.0516 against 0.0508-0.0511 without), with the
+//     turn passed only once S had completed and O rescaled between S's
+//     and P V's issue (0.0512-0.0522), a Q barrier per warpgroup (0.0517),
+//     skipping the rescale when no row max moved (0.0518), O stored from
+//     registers (0.0562) and other tile shapes (FWD256_KEYS_BF16);
 //   - dK/dV (flash_dkv_wgmma_pair_kernel), one CTA a 64-key tile:
 //     warpgroup 0 computes S^T = K Q^T and P^T, leaves P^T in its stage's
 //     float32 exchange tile and adds P^T dO into dV; warpgroup 1 computes
@@ -232,6 +253,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 // split, mma_tf32, the swizzled fragment loads, mma3_rows, rows_by_rows,
 // a_by_cols, c_to_a and the cp.async copies
@@ -1298,11 +1320,24 @@ constexpr int DQ256_KEYS_BF16 = 32;
 template <int D>
 __host__ __device__ constexpr bool wg_pair() { return D > 128; }
 
-// threads of a bfloat16 dQ or dK/dV CTA
+// threads of a bfloat16 CTA: one warpgroup, or two (wg_pair)
 template <int D>
-__host__ __device__ constexpr int wg_bwd_threads() {
+__host__ __device__ constexpr int wg_cta_threads() {
   return wg_pair<D>() ? 2 * WG_THREADS : WG_THREADS;
 }
+
+// D 256: the forward too runs two warpgroups a CTA, over 128 query rows
+// (flash_fwd_wgmma_pair_kernel). Keys of its K/V tiles and stages of its
+// K and V rings (64 keys: 32 score registers a thread beside the
+// accumulator's 128, and S = Q K^T as m64n64k16, which reads as many B
+// bytes as A bytes from shared memory; two stages of each with the two Q
+// tiles take 193 KB). Tried at B 4 x S 1024 x 8 x 256, causal (device
+// ms; the kernel 0.0511-0.0516 in the same calls): 32 keys x 4 stages
+// 0.0705, 48 x 2 0.0606, 80 x 2 0.0527 (32 bytes of spills), 3 K or 3 V
+// stages 0.0515 each:
+constexpr int FWD256_KEYS_BF16 = 64;
+constexpr int FWD256_K_STAGES = 2;
+constexpr int FWD256_V_STAGES = 2;
 
 // named barrier ``id`` (1..15) of a CTA's two warpgroups: the warpgroup
 // that hands a tile over arrives when it has written it (bar.arrive
@@ -1355,20 +1390,16 @@ __device__ __forceinline__ void xchg_load(const float* X, float (&x)[NC],
     }
 }
 
-// keys of a forward tile: 64, or 32 at D 256, whose O accumulator (64 x
-// 256 float32 over the warpgroup) takes 128 registers a thread
-template <int D>
-__host__ __device__ constexpr int wg_fwd_keys() { return D > 128 ? 32 : 64; }
-
-// Shared memory of the forward: the resident Q tile, a ring of K and V
-// tiles with the key-mask slice of each (times log2 e) and whether it is
-// all 0, the full barriers, the resident tile's barrier and the ring's
-// free counts. Every tile is a multiple of 1024 bytes, so each starts on
-// the swizzle's period; the base is rounded up to 1024 inside the kernel.
+// Shared memory of the forward up to D 128: the resident Q tile, a ring
+// of 64-key K and V tiles with the key-mask slice of each (times log2 e)
+// and whether it is all 0, the full barriers, the resident tile's
+// barrier and the ring's free counts. Every tile is a multiple of 1024
+// bytes, so each starts on the swizzle's period; the base is rounded up
+// to 1024 inside the kernel.
 template <int D>
 struct FwdLayout {
   static constexpr int STAGES = WG_FWD_STAGES;
-  static constexpr int BN = wg_fwd_keys<D>();
+  static constexpr int BN = 64;
   static constexpr bool FLAGS = true;     // the ring carries the flags
   using QT = Tile<D, WG_ROWS>;
   using KT = Tile<D, BN>;
@@ -1381,6 +1412,35 @@ struct FwdLayout {
   static constexpr size_t NOMASK = CNT + STAGES * 4;
   static constexpr size_t BYTES = NOMASK + STAGES * 4 + 1024;
 };
+
+// Shared memory of the forward at D 256 (flash_fwd_wgmma_pair_kernel):
+// a resident Q tile per warpgroup, rings of K and V tiles on barriers of
+// their own (a stage's K is free once both warpgroups' scores are, its V
+// only once their P V is; STAGES counts K's, V_STAGES V's), the key-mask
+// slices and flags riding with K, then K's full barriers, V's, Q's, and
+// K's and V's free counts
+template <int D>
+struct FwdPairLayout {
+  static constexpr int STAGES = FWD256_K_STAGES;
+  static constexpr int V_STAGES = FWD256_V_STAGES;
+  static constexpr int BN = FWD256_KEYS_BF16;
+  static constexpr bool FLAGS = true;
+  using QT = Tile<D, WG_ROWS>;
+  using KT = Tile<D, BN>;
+  static constexpr size_t Q = 0;
+  static constexpr size_t K = Q + 2 * QT::BYTES;
+  static constexpr size_t V = K + STAGES * KT::BYTES;
+  static constexpr size_t BIAS = V + V_STAGES * KT::BYTES;
+  static constexpr size_t BAR = BIAS + STAGES * BN * 4;
+  static constexpr size_t CNT = BAR + (STAGES + V_STAGES + 1) * 8;
+  static constexpr size_t NOMASK = CNT + (STAGES + V_STAGES) * 4;
+  static constexpr size_t BYTES = NOMASK + STAGES * 4 + 1024;
+};
+
+// the forward's layout at head dim D
+template <int D>
+using FwdWgLayout = typename std::conditional<wg_pair<D>(), FwdPairLayout<D>,
+                                              FwdLayout<D>>::type;
 
 // Shared memory of dK/dV: the resident K and V tiles, a ring of Q and dO
 // tiles (wg_pair: with each stage's P^T exchange tile, 64 x BQ floats)
@@ -1531,6 +1591,22 @@ struct KvRing {
     tma_tile<D, BN>(sm + L::V + s * KT::BYTES, vmap, full, kt * BN, b, h);
   }
 
+  // one thread, where K and V complete on barriers of their own (K's
+  // STAGES at L::BAR, then V's): start the copy of KV tile kt's K, or V,
+  // into stage s
+  __device__ __forceinline__ void load_k(int s, int kt) const {
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR) + s;
+    mbar_arrive_tx(full, L::KT::BYTES);
+    tma_tile<D, L::BN>(sm + L::K + s * L::KT::BYTES, kmap, full, kt * L::BN,
+                       b, h);
+  }
+  __device__ __forceinline__ void load_v(int s, int kt) const {
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR) + L::STAGES + s;
+    mbar_arrive_tx(full, L::KT::BYTES);
+    tma_tile<D, L::BN>(sm + L::V + s * L::KT::BYTES, vmap, full, kt * L::BN,
+                       b, h);
+  }
+
   // warp-wide: write KV tile kt's slice (and flag) into stage s
   __device__ __forceinline__ void slice(int s, int kt) const {
     constexpr int BN = L::BN;
@@ -1557,12 +1633,13 @@ struct KvRing {
   }
 };
 
-// The forward at bfloat16. A wgmma warpgroup owns 64 query rows (warp
-// w rows 16 w .. 16 w + 15) and streams K/V tiles through its ring.
-// Per KV tile: S = Q K^T in D / 16 wgmmas (both operands K-major in
-// shared memory), the online softmax in registers on the accumulator (a
-// row lies on the 4 lanes of a quad), P rounded to bfloat16 straight
-// into A registers, O += P V in 4 wgmmas (V through the transpose bit).
+// The forward at bfloat16, up to D 128 (BERT's path). A wgmma warpgroup
+// owns 64 query rows (warp w rows 16 w .. 16 w + 15) and streams 64-key
+// K/V tiles through its ring. Per KV tile: S = Q K^T in D / 16 wgmmas
+// (both operands K-major in shared memory), the online softmax in
+// registers on the accumulator (a row lies on the 4 lanes of a quad), P
+// rounded to bfloat16 straight into A registers, O += P V in 4 wgmmas (V
+// through the transpose bit).
 template <int D>
 __global__ void __launch_bounds__(WG_THREADS)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -1742,6 +1819,332 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   fence_async_smem();
   __syncthreads();
   if (threadIdx.x == 0) tma_store_tile<D, BM>(Qs, &omap, i0, b, h);
+}
+
+// named barrier ``id`` of the 128 threads of one warpgroup
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WG_THREADS) : "memory");
+}
+
+// The online softmax of one warpgroup's score tile (the D-256 forward):
+// sc holds this lane's entries of S = Q K^T for the tile of keys col0 ..
+// col0 + BN - 1 (rows row0 and row0 + 8, columns 8 j + 2 t + e), bs its
+// key-mask slice (times log2 e). An unmasked tile (``plain``: no key
+// masked or past S_k, none past the warp's rows under causal) takes the
+// row max on the raw products and folds the scale into 2^(s scale log2 e
+// - m); others mask each entry to -inf. Leaves P = 2^(s - m) in sc (2^-inf
+// is 0: a masked entry gives 0), m the new row max (shared by the row's
+// quad), l this lane's share of the row sum rescaled and added to, and
+// corr the factor the accumulator must be rescaled by (0 while m was
+// -inf). The test is taken once, outside the element loops.
+template <int BN>
+__device__ __forceinline__ void wg_softmax(float (&sc)[BN / 2], float (&m)[2],
+                                           float (&l)[2], float (&corr)[2],
+                                           const float* bs, bool plain,
+                                           int causal, int col0, int row0,
+                                           int t, float scale2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (plain) {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j)
+      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+    mx[0] *= scale2;
+    mx[1] *= scale2;
+  } else {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1);
+        const int col = col0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = !causal || col <= row;
+        const float sv =
+            ok ? fmaf(sc[4 * j + e], scale2, (e & 1) ? bb.y : bb.x)
+               : -INFINITY;
+        sc[4 * j + e] = sv;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+      }
+    }
+  }
+  float safe[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    safe[i] = (m_new == -INFINITY) ? 0.f : m_new;
+    corr[i] = ex2(m[i] - safe[i]);
+    m[i] = m_new;
+    l[i] *= corr[i];
+  }
+  if (plain) {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) {
+      const int i = (j >> 1) & 1;
+      sc[j] = ex2(fmaf(sc[j], scale2, -safe[i]));
+      l[i] += sc[j];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) {
+      const int i = (j >> 1) & 1;
+      sc[j] = ex2(sc[j] - safe[i]);
+      l[i] += sc[j];
+    }
+  }
+}
+
+// The forward at bfloat16, D 256: one CTA of two warpgroups over 128
+// query rows, warpgroup w rows 64 w .. 64 w + 63, each with its own Q
+// tile and 64 x 256 float32 accumulator (128 registers a thread), over
+// one ring of 64-key K/V tiles they share, so every K/V byte staged from
+// L2 serves 128 rows. Each warpgroup runs its tiles software-pipelined:
+// it issues S(kt) = Q K(kt)^T and then O += P(kt - 1) V(kt - 1), waits
+// for S(kt) only, and computes the softmax of kt while P V runs on the
+// tensor cores, rescaling O once P V has completed (P(kt - 1) waits in
+// bfloat16 A registers, so this costs no second score tile). A stage's K
+// is freed once both warpgroups' scores of it are masked, its V once
+// both P V have completed (the last of the 8 warps refills it:
+// ring_free), so each refill overlaps at least a tile. Under causal the
+// first warpgroup computes no key tile wholly past its rows (the
+// second's diagonal tile) and only frees its stages; a warpgroup with no
+// rows (S_q <= 64 past i0) computes none. Each warpgroup writes its rows
+// through its Q tile and one TMA store.
+template <int D>
+__global__ void __launch_bounds__(2 * WG_THREADS, 1)
+flash_fwd_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __grid_constant__ CUtensorMap omap,
+                            const float* __restrict__ bias,
+                            float* __restrict__ lse, int S_q, int S_k, int N,
+                            int causal, float scale) {
+  using L = FwdPairLayout<D>;
+  using QT = typename L::QT;
+  using KT = typename L::KT;
+  constexpr int BM = WG_ROWS;
+  constexpr int ROWS = 2 * BM;             // query rows of the CTA
+  constexpr int BN = L::BN;
+  constexpr int KS = BN / 16;              // k steps of P V
+  constexpr int STAGES = L::STAGES;        // K's
+  constexpr int VST = L::V_STAGES;         // V's
+  constexpr int WARPS = 2 * WG_WARPS;
+  static_assert(wg_pair<D>() && STAGES <= WARPS,
+                "two warpgroups; a warp fills each first stage");
+  extern __shared__ __align__(1024) unsigned char wg_fwd_pair_smem[];
+  unsigned char* sm = align_1k(wg_fwd_pair_smem);
+  const float* Bs = reinterpret_cast<const float*>(sm + L::BIAS);
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(sm + L::BAR);  // [STAGES]
+  uint64_t* vfull = kfull + STAGES;                             // [VST]
+  uint64_t* qbar = vfull + VST;
+  int* kcnt = reinterpret_cast<int*>(sm + L::CNT);              // [STAGES]
+  int* vcnt = kcnt + STAGES;                                    // [VST]
+  const int* nomask = reinterpret_cast<const int*>(sm + L::NOMASK);
+
+  // heads fastest, the deepest row tiles first: with one CTA an SM the
+  // longest CTAs of every head start in the first wave
+  const int bh = blockIdx.x;
+  const int b = bh / N;
+  const int h = bh % N;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / WG_WARPS;          // the warpgroup: rows 64 wg ..
+  const int wq = warp % WG_WARPS;          // the warp in its warpgroup
+  const int wfirst = i0 + BM * wg;         // the warpgroup's first row
+  const bool rows1 = i0 + BM < S_q;        // the second has rows
+  // key tiles of rows from ``first`` on: causal stops at the tile of the
+  // last row's diagonal
+  const int n_all = (S_k + BN - 1) / BN;
+  const auto tiles_from = [&](int first) {
+    return causal ? min(n_all, (first + BM - 1) / BN + 1) : n_all;
+  };
+  const int n_kv = tiles_from(rows1 ? i0 + BM : i0);   // the ring's
+  const int n_mine = (wg == 0 || rows1) ? tiles_from(wfirst) : 0;
+  const KvRing<D, L> ring{sm, &kmap, &vmap,
+                          bias ? bias + (size_t)b * S_k : nullptr, S_k, b, h};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kfull[s], 2);             // the copy's bytes and the slice
+      kcnt[s] = 0;
+    }
+    for (int s = 0; s < VST; ++s) {
+      mbar_init(&vfull[s], 1);
+      vcnt[s] = 0;
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_tx(qbar, (rows1 ? 2 : 1) * QT::BYTES);
+    tma_tile<D, BM>(sm + L::Q, &qmap, qbar, i0, b, h);
+    if (rows1)
+      tma_tile<D, BM>(sm + L::Q + QT::BYTES, &qmap, qbar, i0 + BM, b, h);
+    for (int s = 0; s < STAGES || s < VST; ++s) {
+      if (s < STAGES && s < n_kv) ring.load_k(s, s);
+      if (s < VST && s < n_kv) ring.load_v(s, s);
+    }
+  }
+  if (warp < STAGES && warp < n_kv) ring.slice(warp, warp);
+
+  // the ring, by KV tile: a stage's data, waiting for it, and freeing it
+  // (the last of the CTA's warps refills it with tile kt + STAGES)
+  const auto k_at = [&](int kt) {
+    return sm + L::K + (kt % STAGES) * KT::BYTES;
+  };
+  const auto v_at = [&](int kt) {
+    return sm + L::V + (kt % VST) * KT::BYTES;
+  };
+  const auto wait_k = [&](int kt) {
+    mbar_wait(&kfull[kt % STAGES], (kt / STAGES) & 1);
+  };
+  const auto wait_v = [&](int kt) {
+    mbar_wait(&vfull[kt % VST], (kt / VST) & 1);
+  };
+  const auto free_k = [&](int kt) {
+    ring_free<WARPS>(kcnt, kt % STAGES, [&] {
+      if (kt + STAGES >= n_kv) return;
+      if (lane == 0) ring.load_k(kt % STAGES, kt + STAGES);
+      ring.slice(kt % STAGES, kt + STAGES);
+    });
+  };
+  const auto free_v = [&](int kt) {
+    ring_free<WARPS>(vcnt, kt % VST, [&] {
+      if (kt + VST < n_kv && lane == 0) ring.load_v(kt % VST, kt + VST);
+    });
+  };
+  // rows g and g + 8 of warp wq's 16 in the warpgroup's 64; scores in
+  // log2 units (s scale log2 e + bias log2 e); m the running row max,
+  // shared by the row's quad; l this lane's share of the row sum
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wrow = wfirst + 16 * wq;       // the warp's first row
+  const int row0 = wrow + g;
+  const float scale2 = scale * LOG2E;
+  unsigned char* Qs = sm + L::Q + wg * QT::BYTES;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float corr[2];
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[BN / 2];
+  uint32_t pa[KS][4];                      // P of the previous tile
+  mbar_wait(qbar, 0);
+  // the softmax of tile kt, whose scores are in sc, and the release of
+  // its K stage (its slice and flag are read)
+  const auto softmax = [&](int kt) {
+    const int s = kt % STAGES;
+    const bool plain = nomask[s] && scale2 > 0.f &&
+                       (!causal || kt * BN + BN - 1 <= wrow);
+    wg_softmax<BN>(sc, m, l, corr, Bs + s * BN, plain, causal, kt * BN, row0,
+                   t, scale2);
+    free_k(kt);
+  };
+
+  if (n_mine > 0) {                        // S(0) alone
+    wait_k(0);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<BN>(sc, desc_k<D, BM>(Qs, ks), desc_k<D, BN>(k_at(0), ks),
+                   ks > 0);
+    wg_commit();
+    wg_wait<0>();
+    pin(sc);
+    softmax(0);                            // (O is 0: nothing to rescale)
+#pragma unroll
+    for (int k = 0; k < KS; ++k) acc_to_a(sc, k, pa[k]);
+  }
+  for (int kt = 1; kt < n_mine; ++kt) {    // S(kt), then P V of kt - 1
+    wait_k(kt);
+    wait_v(kt - 1);
+    pin(acc);
+    pin(pa);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<BN>(sc, desc_k<D, BM>(Qs, ks), desc_k<D, BN>(k_at(kt), ks),
+                   ks > 0);
+    wg_commit();
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      wgmma_rs<D>(acc, pa[k], desc_mn<D, BN>(v_at(kt - 1), k), 1);
+    wg_commit();
+    wg_wait<1>();                          // S(kt) has completed
+    pin(sc);
+    softmax(kt);
+    wg_wait<0>();                          // and P V of kt - 1
+    pin(acc);
+    free_v(kt - 1);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[4 * n] *= corr[0];
+      acc[4 * n + 1] *= corr[0];
+      acc[4 * n + 2] *= corr[1];
+      acc[4 * n + 3] *= corr[1];
+    }
+#pragma unroll
+    for (int k = 0; k < KS; ++k) acc_to_a(sc, k, pa[k]);
+  }
+  if (n_mine > 0) {                        // P V of the last tile
+    wait_v(n_mine - 1);
+    pin(acc);
+    pin(pa);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      wgmma_rs<D>(acc, pa[k], desc_mn<D, BN>(v_at(n_mine - 1), k), 1);
+    wg_commit();
+    wg_wait<0>();
+    pin(acc);
+    free_v(n_mine - 1);
+  }
+  // the tiles this warpgroup does not compute, freed in order once they
+  // have landed (so no stage is counted free twice before its refill)
+  for (int kt = n_mine; kt < n_kv; ++kt) {
+    wait_k(kt);
+    wait_v(kt);
+    free_k(kt);
+    free_v(kt);
+  }
+  if (n_mine == 0) return;
+
+  // O / l in bfloat16 goes where the warpgroup's Q was (only it read that
+  // tile, and its wgmmas have completed), in the tile's swizzled layout,
+  // and one TMA store a warpgroup writes its rows that exist
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
+    const float ls = (l[i] == 0.f) ? 1.f : l[i];
+    const float inv = 1.f / ls;
+    const int r = 16 * wq + g + 8 * i;     // the row in the tile
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int off = tile_offset<D, BM>(r, 8 * n + 2 * t);
+      *reinterpret_cast<__nv_bfloat162*>(Qs + off) = __floats2bfloat162_rn(
+          acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+    }
+    if (t == 0 && wfirst + r < S_q)
+      lse[(size_t)bh * S_q + wfirst + r] =
+          (l[i] == 0.f) ? -INFINITY : m[i] * LN2 + logf(ls);
+  }
+  fence_async_smem();
+  wg_sync(3 + wg);
+  if (threadIdx.x % WG_THREADS == 0)
+    tma_store_tile<D, BM>(Qs, &omap, wfirst, b, h);
+}
+
+// the bfloat16 forward kernel a head dim launches
+template <int D>
+auto fwd_wg_kernel() {
+  if constexpr (wg_pair<D>())
+    return flash_fwd_wgmma_pair_kernel<D>;
+  else
+    return flash_fwd_wgmma_kernel<D>;
 }
 
 // dK/dV at bfloat16. A wgmma warpgroup owns 64 key rows and streams Q/dO
@@ -2711,22 +3114,27 @@ int dkv(const void* q, const void* k, const void* v, const float* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the bfloat16 forward: tensor maps of q (64-row boxes) and k, v (64-key
-// boxes, 32 at D 256), passed by value in the kernel's parameters
+// the bfloat16 forward: tensor maps of q, out (64-row boxes, one a
+// warpgroup) and k, v (the layout's key tiles), passed by value in the
+// kernel's parameters; at D 256 (wg_pair) two warpgroups a CTA, the grid
+// heads fastest
 template <int D>
 int fwd_wg(const void* q, const void* k, const void* v, const float* bias,
            void* out, float* lse, int B, int S_q, int S_k, int N, int causal,
            float scale, cudaStream_t st) {
+  using L = FwdWgLayout<D>;
   CUtensorMap qm, km, vm, om;
   if (int e = tile_map<D, WG_ROWS>(&qm, q, B, S_q, N)) return e;
-  if (int e = tile_map<D, FwdLayout<D>::BN>(&km, k, B, S_k, N)) return e;
-  if (int e = tile_map<D, FwdLayout<D>::BN>(&vm, v, B, S_k, N)) return e;
+  if (int e = tile_map<D, L::BN>(&km, k, B, S_k, N)) return e;
+  if (int e = tile_map<D, L::BN>(&vm, v, B, S_k, N)) return e;
   if (int e = tile_map<D, WG_ROWS>(&om, out, B, S_q, N)) return e;
-  const size_t smem = FwdLayout<D>::BYTES;
-  auto kern = flash_fwd_wgmma_kernel<D>;
+  const size_t smem = L::BYTES;
+  auto kern = fwd_wg_kernel<D>();
   if (int e = prepare(kern, smem)) return e;
-  const dim3 grid((S_q + WG_ROWS - 1) / WG_ROWS, B * N);
-  kern<<<grid, WG_THREADS, smem, st>>>(
+  constexpr int ROWS = 2 * WG_ROWS;        // query rows of a pair's CTA
+  const dim3 grid = wg_pair<D>() ? dim3(B * N, (S_q + ROWS - 1) / ROWS)
+                                 : dim3((S_q + WG_ROWS - 1) / WG_ROWS, B * N);
+  kern<<<grid, wg_cta_threads<D>(), smem, st>>>(
       qm, km, vm, om, bias, lse, S_q, S_k, N, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -2750,7 +3158,7 @@ int dkv_wg(const void* q, const void* k, const void* v, const float* bias,
   if (int e = prepare(kern, smem)) return e;
   const dim3 grid = wg_pair<D>() ? dim3(B * N, (S_k + WG_ROWS - 1) / WG_ROWS)
                                    : dim3((S_k + WG_ROWS - 1) / WG_ROWS, B * N);
-  kern<<<grid, wg_bwd_threads<D>(), smem, st>>>(
+  kern<<<grid, wg_cta_threads<D>(), smem, st>>>(
       qm, km, vm, dm, dkm, dvm, bias, lse, delta, S_q, S_k, N, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -2774,7 +3182,7 @@ int dq_wg(const void* q, const void* k, const void* v, const float* bias,
   constexpr int ROWS = DqLayout<D>::WGS * WG_ROWS;   // query rows of a CTA
   const dim3 grid = wg_pair<D>() ? dim3(B * N, (S_q + ROWS - 1) / ROWS)
                                  : dim3((S_q + ROWS - 1) / ROWS, B * N);
-  kern<<<grid, wg_bwd_threads<D>(), smem, st>>>(
+  kern<<<grid, wg_cta_threads<D>(), smem, st>>>(
       qm, km, vm, dm, dqm, bias, lse, delta, S_q, S_k, N, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -2805,8 +3213,8 @@ int fwd_budget(int* out) {
 
 template <int D>
 int fwd_wg_budget(int* out) {
-  return budget(flash_fwd_wgmma_kernel<D>, FwdLayout<D>::BYTES, out,
-                WG_THREADS);
+  return budget(fwd_wg_kernel<D>(), FwdWgLayout<D>::BYTES, out,
+                wg_cta_threads<D>());
 }
 
 template <int D>
@@ -2819,7 +3227,7 @@ int dq_budget(int* out) {
 template <int D>
 int dq_wg_budget(int* out) {
   return budget(dq_wg_kernel<D>(), dq_wg_smem<D>(512), out,
-                wg_bwd_threads<D>());
+                wg_cta_threads<D>());
 }
 
 template <int D>
@@ -2830,7 +3238,7 @@ int dkv_budget(int* out) {
 template <int D>
 int dkv_wg_budget(int* out) {
   return budget(dkv_wg_kernel<D>(), DkvLayout<D>::BYTES, out,
-                wg_bwd_threads<D>());
+                wg_cta_threads<D>());
 }
 
 // head_dim and dtype dispatch (D is a template parameter of every

@@ -13,9 +13,10 @@ budgets at D 64 and 256; the bfloat16 forward, dQ and dK/dV
 (``wgmma`` + TMA) at every head dim, ragged and rectangular, with a key
 mask, at BERT-base's attention shape, dQ with whole key tiles masked in
 the middle and at the end of a row, and bitwise deterministic; the
-bfloat16 dQ and dK/dV at D 256 (two warpgroups a CTA) over ragged
-tiles, wrapping rings, S_q != S_k with a fully masked row, D 192 through
-the padding, bitwise repeats and their budget; and ring
+bfloat16 forward, dQ and dK/dV at D 256 (two warpgroups a CTA) over
+ragged tiles, wrapping rings, S_q != S_k with a fully masked row, the
+forward's 128-row CTA with an empty second warpgroup or one row, D 192
+through the padding, bitwise repeats and their budget; and ring
 attention's kernel route (a 4-way ring in lockstep) against its plain
 route in every schedule and both dtypes; the speculative verify window
 (S_q = k from mid-sequence cursors), a speculative engine's exact
@@ -526,13 +527,21 @@ FLASH_CASES = [
     (2, 72, 136, 3, 256, False, True, torch.float32),
     (2, 200, 200, 2, 256, True, False, torch.bfloat16),
     (2, 72, 136, 3, 256, False, True, torch.bfloat16),
+    # the bfloat16 forward at D 256 runs 128-row CTAs of two warpgroups:
+    # S_q <= 64 (the second warpgroup has no rows; rectangular, a key mask
+    # and a fully masked batch row), S_q 129 (the last CTA has one row),
+    # causal with a key mask and a fully masked batch row
+    (2, 48, 136, 2, 256, False, True, torch.bfloat16),
+    (2, 129, 129, 2, 256, True, False, torch.bfloat16),
+    (2, 136, 136, 2, 256, True, True, torch.bfloat16),
 ]
 FLASH_IDS = ["causal-ragged", "rect-mask", "bf16", "d128",
              "bf16-many-tiles", "d128-rect-mask", "bf16-d16-mask",
              "bf16-d32-rect-mask", "bf16-d128-rect-mask",
              "bf16-d128-causal-ragged", "bf16-bert-b2", "d256-causal-ragged",
              "d256-rect-mask", "bf16-d256-causal-ragged",
-             "bf16-d256-rect-mask"]
+             "bf16-d256-rect-mask", "bf16-d256-short-q-mask",
+             "bf16-d256-one-row-cta", "bf16-d256-causal-mask"]
 
 
 def _assert_close(got, want, pv=None):
@@ -902,13 +911,12 @@ def test_flash_bf16_d192_through_the_d256_pairs(cuda, causal, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["dq", "dkv"])
+@pytest.mark.parametrize("kind", ["dq", "dkv", "fwd"])
 def test_flash_bf16_d256_pair_budget(cuda, kind):
-    """The bfloat16 dQ and dK/dV at D 256 (two warpgroups, 256 threads,
-    a 64 x 128 or 64 x 256 float32 accumulator a warpgroup) keep every
-    value in registers under the 255-register ceiling (no local-memory
-    spills) and fit one CTA an SM in the card's 227 KB of shared
-    memory."""
+    """The bfloat16 forward, dQ and dK/dV at D 256 (two warpgroups, 256
+    threads, a 64 x 256 float32 accumulator a warpgroup) keep every value
+    in registers under the 255-register ceiling (no local-memory spills)
+    and fit one CTA an SM in the card's 227 KB of shared memory."""
     got = fa.budget(kind, 256, torch.bfloat16)
     assert got["spill_bytes"] == 0
     assert got["ctas_per_sm"] >= 1
@@ -917,21 +925,27 @@ def test_flash_bf16_d256_pair_budget(cuda, kind):
 
 
 @pytest.mark.cuda
-def test_flash_bf16_dkv_is_deterministic(cuda):
-    """The bfloat16 dQ and dK/dV kernels keep one writer per output tile
-    (a warpgroup owns 64 queries or keys and loops over the other
-    operand's tiles itself; no atomics): two launches on the same inputs
-    are bitwise equal, the forward's too."""
-    case = (2, 384, 384, 12, 64, False, True, torch.bfloat16)
+@pytest.mark.parametrize("case", [
+    (2, 384, 384, 12, 64, False, True, torch.bfloat16),
+    (2, 300, 300, 2, 256, True, False, torch.bfloat16)],
+    ids=["bert", "d256-causal"])
+def test_flash_bf16_dkv_is_deterministic(cuda, case):
+    """The bfloat16 forward, dQ and dK/dV kernels keep one writer per
+    output tile (a warpgroup owns 64 queries or keys and loops over the
+    other operand's tiles itself; no atomics): two launches on the same
+    inputs are bitwise equal, at BERT's shape and at D 256 (two
+    warpgroups a CTA, the forward's over one shared K/V ring)."""
+    _, _, _, _, d, causal, _, _ = case
     q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
-    scale = 64 ** -0.5
-    out, lse = fa._kernel_fwd(q, k, v, bias, False, scale)
-    out2, lse2 = fa._kernel_fwd(q, k, v, bias, False, scale)
+    scale = d ** -0.5
+    out, lse = fa._kernel_fwd(q, k, v, bias, causal, scale)
+    out2, lse2 = fa._kernel_fwd(q, k, v, bias, causal, scale)
     delta = fa._delta(out, dout, g_lse)
-    first = (fa._kernel_dq(q, k, v, bias, dout, lse, delta, False, scale),
-             *fa._kernel_dkv(q, k, v, bias, dout, lse, delta, False, scale))
-    second = (fa._kernel_dq(q, k, v, bias, dout, lse, delta, False, scale),
-              *fa._kernel_dkv(q, k, v, bias, dout, lse, delta, False,
+    first = (fa._kernel_dq(q, k, v, bias, dout, lse, delta, causal, scale),
+             *fa._kernel_dkv(q, k, v, bias, dout, lse, delta, causal,
+                             scale))
+    second = (fa._kernel_dq(q, k, v, bias, dout, lse, delta, causal, scale),
+              *fa._kernel_dkv(q, k, v, bias, dout, lse, delta, causal,
                               scale))
     torch.cuda.synchronize()
     assert torch.equal(out, out2) and torch.equal(lse, lse2)

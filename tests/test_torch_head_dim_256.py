@@ -16,7 +16,9 @@ the widths the kernels now take, with the same seeded numpy inputs:
   port's plain route against the JAX gather oracle (and, at block 64,
   the Pallas kernel in interpret mode);
 - flash forward and gradients (through out and lse) at D 192 and 256,
-  S 128, block 128, causal and key-masked, against the Pallas kernels
+  S 128, block 128, causal and key-masked, and at D 256 S_q 72 against
+  S_k 136 key-masked and causal at S 136 (the edges of the card's
+  128-row bfloat16 forward CTAs), against the Pallas kernels
   in interpret mode, within 2e-4 (the D <= 128 cases' tolerance,
   ``tests/test_torch_flash_attention.py``); D 192 also through the
   kernels' padding route (``_on_kernels``) with the plain versions in
@@ -139,18 +141,30 @@ def test_split_lane_layout_covers_each_dim_once(d, quant):
 # -- flash at D 192 and 256 ----------------------------------------------
 
 
-#: (name, B, S, N, D, causal, masked)
+#: (name, B, S_q, S_k, N, D, causal, masked); the Pallas kernels take
+#: blocks of min(128, S) that divide S. The last two are shapes the
+#: card's bfloat16 D-256 forward cuts into 128-row CTAs of two 64-row
+#: warpgroups and 64-key tiles: S_q 72 against S_k 136 with a key mask
+#: (the second warpgroup holds 8 rows, the last key tile 8 keys), and
+#: causal at S 136 (a second CTA of 8 rows; causal needs S_q == S_k)
 FLASH_WIDE = [
-    ("d256_causal", 1, 128, 2, 256, True, False),
-    ("d256_key_mask", 2, 128, 2, 256, False, True),
-    ("d192_causal", 1, 128, 2, 192, True, False),
-    ("d192_key_mask", 2, 128, 2, 192, False, True),
+    ("d256_causal", 1, 128, 128, 2, 256, True, False),
+    ("d256_key_mask", 2, 128, 128, 2, 256, False, True),
+    ("d192_causal", 1, 128, 128, 2, 192, True, False),
+    ("d192_key_mask", 2, 128, 128, 2, 192, False, True),
+    ("d256_rect_key_mask", 2, 72, 136, 2, 256, False, True),
+    ("d256_causal_136", 1, 136, 136, 2, 256, True, False),
 ]
 
 
+def _block(s):
+    return 128 if s % 128 == 0 else s
+
+
 def _jax_pair(q, k, v, mask, causal):
-    return jax_flash_lse(q, k, v, causal=causal, key_mask=mask, block_q=128,
-                         block_k=128, force_pallas=True, interpret=True)
+    return jax_flash_lse(q, k, v, causal=causal, key_mask=mask,
+                         block_q=_block(q.shape[1]), block_k=_block(k.shape[1]),
+                         force_pallas=True, interpret=True)
 
 
 @pytest.mark.parametrize("case", FLASH_WIDE, ids=[c[0] for c in FLASH_WIDE])
@@ -158,8 +172,8 @@ def test_flash_wide_heads_match_interpreted_kernels(case):
     """Forward (out, lse) and backward (dq, dk, dv through both outputs,
     a nonzero lse cotangent) of the port's autograd pair against the
     Pallas kernels in the interpreter."""
-    _, b, s, n, d, causal, masked = case
-    q, k, v, mask, g, g_lse = _inputs(b, s, s, n, d, masked, d)
+    _, b, s_q, s_k, n, d, causal, masked = case
+    q, k, v, mask, g, g_lse = _inputs(b, s_q, s_k, n, d, masked, d)
     (want_out, want_lse), vjp = jax.vjp(
         lambda q, k, v: _jax_pair(q, k, v, mask, causal),
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
@@ -167,8 +181,8 @@ def test_flash_wide_heads_match_interpreted_kernels(case):
     tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
     out, lse = fa.flash_attention_lse(
         tq, tk, tv, causal=causal,
-        key_mask=None if mask is None else _t(mask), block_q=128,
-        block_k=128)
+        key_mask=None if mask is None else _t(mask), block_q=_block(s_q),
+        block_k=_block(s_k))
     _close(out, want_out, FLASH_TOL)
     _close(lse, want_lse, FLASH_TOL)
     torch.autograd.backward([out, lse], [_t(g), _t(g_lse)])
