@@ -6132,13 +6132,14 @@ def wide_timing(torch, pa, fa, dev):
                 dtype, pair, ft["dq"]["library_device_ms"],
                 pair / ft["dq"]["library_device_ms"]))
     # row 2d: the bfloat16 forward at D 256, one CTA of two warpgroups
-    # over 128 query rows (flash_fwd_wgmma_pair_kernel)
+    # over 128 query rows and a third that refills their K/V ring
+    # (flash_fwd_wgmma_pair_kernel)
     fwd = flash["bfloat16"]["fwd"]
     got = fa.budget("fwd", WIDE_D, torch.bfloat16)
-    log("flash forward D256 bfloat16 (two warpgroups a CTA): device time "
-        "{:.4f} ms = {:.3f} x SDPA's {:.4f} ms; {:.2f}% of the {:.4f} ms "
-        "bound ({}); {} registers, {} spill bytes, {} KB shared, {} "
-        "CTAs/SM".format(
+    log("flash forward D256 bfloat16 (two warpgroups and a producer a CTA): "
+        "device time {:.4f} ms = {:.3f} x SDPA's {:.4f} ms; {:.2f}% of the "
+        "{:.4f} ms bound ({}); {} registers, {} spill bytes, {} KB shared, "
+        "{} CTAs/SM".format(
             fwd["device_ms"], fwd["device_ms"] / fwd["library_device_ms"],
             fwd["library_device_ms"], 100.0 * fwd["bound_ms"]
             / fwd["device_ms"], fwd["bound_ms"], fwd["bound_by"],
@@ -6640,8 +6641,12 @@ def main():
                                           "through shared memory, "
                                           "16-query tiles"}[name]),
                 "bfloat16": {
-                    "fwd": "flash_fwd_wgmma_kernel<256>: wgmma + TMA, one "
-                           "warpgroup over 64 query rows, 32-key tiles",
+                    "fwd": "flash_fwd_wgmma_pair_kernel<256>: wgmma + "
+                           "TMA, two warpgroups over 128 query rows, each "
+                           "S, softmax and P V of its own 64 rows over one "
+                           "shared ring of 64-key K/V tiles that a third "
+                           "warpgroup's warp refills; P V of a tile under "
+                           "the next tile's softmax",
                     "dq": "flash_dq_wgmma_pair_kernel<256>: wgmma + TMA, "
                           "two warpgroups over 128 query rows, each S, "
                           "dP, dS and dQ of its own 64 rows over one "

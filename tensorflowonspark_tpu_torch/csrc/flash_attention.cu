@@ -132,8 +132,8 @@
 //   two stages completes on mbarriers. There is no producer warp: the
 //   last warp to finish with a stage refills it (ring_free), because a
 //   fifth warp per warpgroup fits fewer CTAs into each quadrant of the
-//   register file. Key-mask, lse and delta slices ride with their
-//   tiles.
+//   register file (the D-256 forward, one CTA an SM, has one: below).
+//   Key-mask, lse and delta slices ride with their tiles.
 // - The grid runs a head's row tiles side by side (blockIdx.x the tile),
 //   so the CTAs that read one head's K/V (forward) or Q/dO (dK/dV) run
 //   together and share it in L2 (with the head fastest they ran a wave
@@ -193,35 +193,41 @@
 //     ring.
 // - wgmma (bfloat16): tiles of four 64-column blocks, m64n256k16 for the
 //   products into a 64 x 256 accumulator (128 registers a thread). All
-//   three kernels run one CTA of two warpgroups (256 threads, one CTA an
-//   SM: wg_pair), so that one warpgroup's elementwise work runs while the
-//   other's wgmmas issue, and lay their grids out heads fastest, every
+//   three kernels run one CTA of two computing warpgroups (one CTA an SM:
+//   wg_pair; the forward adds a third that only copies), so that one
+//   warpgroup's elementwise work runs while the other's wgmmas issue,
+//   and lay their grids out heads fastest, every
 //   head's deepest tiles first (with a head's tiles side by side, the
 //   longest CTAs of the last heads ran in the last wave: 16% slower in
 //   the backward); the unmasked-tile test is taken once a tile, outside
 //   the element loops (inside them, each element compiled to a branch:
 //   10%):
 //   - the forward (flash_fwd_wgmma_pair_kernel), one CTA a 128-query
-//     tile: each warpgroup its own 64 rows over one shared ring of 64-key
-//     K/V tiles, K and V on barriers of their own, software-pipelined so
-//     that P V of one tile runs under the softmax of the next (as FA3
-//     does). At B 4 x S 1024 x 8 x 256, causal, it ran [0.0504] ms
-//     against [0.0903] for the one-warpgroup CTA over 64 rows and 32-key
-//     tiles, two CTAs an SM, it replaced, whose every CTA staged its own
-//     copy of K/V and whose tensor cores idled through each softmax.
-//     Dropping one piece of work at a time cut 7-17% each (P V, refill
-//     copies, S, softmax): they run largely in series within a
-//     warpgroup. A clock64 trace of the deepest CTA read ~4000 cycles a
-//     64-key tile for both warpgroups in the loop (~55% of the tensor
-//     rate), ~7700 waiting for the first Q, K and V (the first wave's Q
-//     reads come from DRAM together) and ~3000 storing O. Tried and
-//     dropped (device ms against 0.0511-0.0516 in the same calls): the
-//     warpgroups taking turns to issue at named barriers (FA3's
-//     ping-pong; 0.0513-0.0516 against 0.0508-0.0511 without), with the
-//     turn passed only once S had completed and O rescaled between S's
-//     and P V's issue (0.0512-0.0522), a Q barrier per warpgroup (0.0517),
-//     skipping the rescale when no row max moved (0.0518), O stored from
-//     registers (0.0562) and other tile shapes (FWD256_KEYS_BF16);
+//     tile: each computing warpgroup its own 64 rows over one shared ring
+//     of 64-key K/V tiles, K and V on barriers of their own,
+//     software-pipelined so that P V of one tile runs under the softmax
+//     of the next, and a third warpgroup whose one warp refills the ring
+//     (FA3's layout, without its ping-pong). At B 4 x S 1024 x 8 x 256,
+//     causal, it ran [0.0462] ms against [0.0903] for the one-warpgroup
+//     CTA over 64 rows and 32-key tiles, two CTAs an SM, it replaced,
+//     whose every CTA staged its own copy of K/V and whose tensor cores
+//     idled through each softmax. With the last computing warp to free a
+//     stage refilling it (ring_free, as dQ and dK/dV do) it ran [0.0507]:
+//     a clock64 trace of the deepest CTA showed the warpgroup that freed
+//     last (and so refilled) spending 2090 cycles a tile in its softmax
+//     against the other's 965, ~4000 cycles a 64-key tile in all; with
+//     the producer both take ~3430 (~640 TFLOP/s in the loop; the K/V
+//     stream then draws ~4.9 TB/s from L2), plus ~8300 cycles waiting
+//     for the first Q, K and V (the first wave's Q reads come from DRAM
+//     together) and ~3000 storing O. Tried and dropped (device ms, each
+//     against its base in the same call): the warpgroups taking turns to
+//     issue at named barriers (FA3's ping-pong: 0.0466 against 0.0468;
+//     before the producer 0.0513-0.0516 against 0.0508-0.0511), with the
+//     turn passed once S had completed and O rescaled between S's and P
+//     V's issue (0.0512-0.0522 against 0.0516), a Q barrier per
+//     warpgroup (0.0517), skipping the rescale when no row max moved
+//     (0.0518), O stored from registers (0.0562 against 0.0511) and other
+//     tile shapes and ring depths (FWD256_KEYS_BF16);
 //   - dK/dV (flash_dkv_wgmma_pair_kernel), one CTA a 64-key tile:
 //     warpgroup 0 computes S^T = K Q^T and P^T, leaves P^T in its stage's
 //     float32 exchange tile and adds P^T dO into dV; warpgroup 1 computes
@@ -1332,12 +1338,18 @@ __host__ __device__ constexpr int wg_cta_threads() {
 // accumulator's 128, and S = Q K^T as m64n64k16, which reads as many B
 // bytes as A bytes from shared memory; two stages of each with the two Q
 // tiles take 193 KB). Tried at B 4 x S 1024 x 8 x 256, causal (device
-// ms; the kernel 0.0511-0.0516 in the same calls): 32 keys x 4 stages
-// 0.0705, 48 x 2 0.0606, 80 x 2 0.0527 (32 bytes of spills), 3 K or 3 V
-// stages 0.0515 each:
+// ms; before the producer warp, the kernel 0.0511-0.0516 in the same
+// calls: 32 keys x 4 stages 0.0705, 48 x 2 0.0606, 80 x 2 0.0527 with 32
+// bytes of spills, 3 K or 3 V stages 0.0515 each; with it, 0.0468: 3 K
+// stages 0.0475, 3 V stages 0.0463):
 constexpr int FWD256_KEYS_BF16 = 64;
 constexpr int FWD256_K_STAGES = 2;
 constexpr int FWD256_V_STAGES = 2;
+// its third warpgroup only copies: registers a thread of the two that
+// compute and of the one that copies (2 x 128 x 240 + 128 x 24 of the
+// SM's 65536)
+constexpr int FWD256_CONSUMER_REGS = 240;
+constexpr int FWD256_PRODUCER_REGS = 24;
 
 // named barrier ``id`` (1..15) of a CTA's two warpgroups: the warpgroup
 // that hands a tile over arrives when it has written it (bar.arrive
@@ -1417,8 +1429,8 @@ struct FwdLayout {
 // a resident Q tile per warpgroup, rings of K and V tiles on barriers of
 // their own (a stage's K is free once both warpgroups' scores are, its V
 // only once their P V is; STAGES counts K's, V_STAGES V's), the key-mask
-// slices and flags riding with K, then K's full barriers, V's, Q's, and
-// K's and V's free counts
+// slices and flags riding with K, then K's full barriers, V's, K's empty
+// barriers, V's, and Q's
 template <int D>
 struct FwdPairLayout {
   static constexpr int STAGES = FWD256_K_STAGES;
@@ -1432,8 +1444,7 @@ struct FwdPairLayout {
   static constexpr size_t V = K + STAGES * KT::BYTES;
   static constexpr size_t BIAS = V + V_STAGES * KT::BYTES;
   static constexpr size_t BAR = BIAS + STAGES * BN * 4;
-  static constexpr size_t CNT = BAR + (STAGES + V_STAGES + 1) * 8;
-  static constexpr size_t NOMASK = CNT + (STAGES + V_STAGES) * 4;
+  static constexpr size_t NOMASK = BAR + (2 * (STAGES + V_STAGES) + 1) * 8;
   static constexpr size_t BYTES = NOMASK + STAGES * 4 + 1024;
 };
 
@@ -1821,6 +1832,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   if (threadIdx.x == 0) tma_store_tile<D, BM>(Qs, &omap, i0, b, h);
 }
 
+// registers a thread of this warpgroup holds from here on: fewer (dec)
+// returns them to the CTA's pool, more (inc) waits until the pool has
+// them (sm_90a)
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // named barrier ``id`` of the 128 threads of one warpgroup
 __device__ __forceinline__ void wg_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WG_THREADS) : "memory");
@@ -1895,24 +1918,28 @@ __device__ __forceinline__ void wg_softmax(float (&sc)[BN / 2], float (&m)[2],
   }
 }
 
-// The forward at bfloat16, D 256: one CTA of two warpgroups over 128
-// query rows, warpgroup w rows 64 w .. 64 w + 63, each with its own Q
-// tile and 64 x 256 float32 accumulator (128 registers a thread), over
-// one ring of 64-key K/V tiles they share, so every K/V byte staged from
-// L2 serves 128 rows. Each warpgroup runs its tiles software-pipelined:
-// it issues S(kt) = Q K(kt)^T and then O += P(kt - 1) V(kt - 1), waits
-// for S(kt) only, and computes the softmax of kt while P V runs on the
-// tensor cores, rescaling O once P V has completed (P(kt - 1) waits in
-// bfloat16 A registers, so this costs no second score tile). A stage's K
-// is freed once both warpgroups' scores of it are masked, its V once
-// both P V have completed (the last of the 8 warps refills it:
-// ring_free), so each refill overlaps at least a tile. Under causal the
-// first warpgroup computes no key tile wholly past its rows (the
-// second's diagonal tile) and only frees its stages; a warpgroup with no
-// rows (S_q <= 64 past i0) computes none. Each warpgroup writes its rows
-// through its Q tile and one TMA store.
+// The forward at bfloat16, D 256: one CTA of two warpgroups that
+// compute, over 128 query rows, and a third that only copies. Computing
+// warpgroup w owns rows 64 w .. 64 w + 63 with its own Q tile and 64 x
+// 256 float32 accumulator (128 registers a thread), over one ring of
+// 64-key K/V tiles both read, so every K/V byte staged from L2 serves
+// 128 rows. Each runs its tiles software-pipelined: it issues S(kt) = Q
+// K(kt)^T and then O += P(kt - 1) V(kt - 1), waits for S(kt) only, and
+// computes the softmax of kt while P V runs on the tensor cores,
+// rescaling O once P V has completed (P(kt - 1) waits in bfloat16 A
+// registers, so this costs no second score tile). A warp frees a stage's
+// K once its scores of it are masked and its V once its P V has
+// completed, by one arrive on the stage's empty barrier; one warp of the
+// third warpgroup (setmaxnreg: 24 registers a thread there, 240 in the
+// other two) starts the Q copies and every K/V refill once all 8
+// computing warps have freed the stage, and writes the key-mask slices,
+// so no computing warp waits on another's progress to refill. Under
+// causal the first warpgroup computes no key tile wholly past its rows
+// (the second's diagonal tile) and only frees its stages; a warpgroup
+// with no rows (S_q <= 64 past i0) computes none. Each computing
+// warpgroup writes its rows through its Q tile and one TMA store.
 template <int D>
-__global__ void __launch_bounds__(2 * WG_THREADS, 1)
+__global__ void __launch_bounds__(3 * WG_THREADS, 1)
 flash_fwd_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
@@ -1929,17 +1956,16 @@ flash_fwd_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
   constexpr int KS = BN / 16;              // k steps of P V
   constexpr int STAGES = L::STAGES;        // K's
   constexpr int VST = L::V_STAGES;         // V's
-  constexpr int WARPS = 2 * WG_WARPS;
-  static_assert(wg_pair<D>() && STAGES <= WARPS,
-                "two warpgroups; a warp fills each first stage");
+  constexpr int WARPS = 2 * WG_WARPS;      // the consumers'
+  static_assert(wg_pair<D>(), "two consumer warpgroups");
   extern __shared__ __align__(1024) unsigned char wg_fwd_pair_smem[];
   unsigned char* sm = align_1k(wg_fwd_pair_smem);
   const float* Bs = reinterpret_cast<const float*>(sm + L::BIAS);
   uint64_t* kfull = reinterpret_cast<uint64_t*>(sm + L::BAR);  // [STAGES]
   uint64_t* vfull = kfull + STAGES;                             // [VST]
-  uint64_t* qbar = vfull + VST;
-  int* kcnt = reinterpret_cast<int*>(sm + L::CNT);              // [STAGES]
-  int* vcnt = kcnt + STAGES;                                    // [VST]
+  uint64_t* kempty = vfull + VST;                               // [STAGES]
+  uint64_t* vempty = kempty + STAGES;                           // [VST]
+  uint64_t* qbar = vempty + VST;
   const int* nomask = reinterpret_cast<const int*>(sm + L::NOMASK);
 
   // heads fastest, the deepest row tiles first: with one CTA an SM the
@@ -1950,10 +1976,10 @@ flash_fwd_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
   const int i0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int wg = warp / WG_WARPS;          // the warpgroup: rows 64 wg ..
+  const int wg = warp / WG_WARPS;          // 0, 1: rows 64 wg ..; 2: copies
   const int wq = warp % WG_WARPS;          // the warp in its warpgroup
-  const int wfirst = i0 + BM * wg;         // the warpgroup's first row
-  const bool rows1 = i0 + BM < S_q;        // the second has rows
+  const int wfirst = i0 + BM * wg;         // a consumer's first row
+  const bool rows1 = i0 + BM < S_q;        // the second consumer has rows
   // key tiles of rows from ``first`` on: causal stops at the tile of the
   // last row's diagonal
   const int n_all = (S_k + BN - 1) / BN;
@@ -1961,36 +1987,50 @@ flash_fwd_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
     return causal ? min(n_all, (first + BM - 1) / BN + 1) : n_all;
   };
   const int n_kv = tiles_from(rows1 ? i0 + BM : i0);   // the ring's
-  const int n_mine = (wg == 0 || rows1) ? tiles_from(wfirst) : 0;
-  const KvRing<D, L> ring{sm, &kmap, &vmap,
-                          bias ? bias + (size_t)b * S_k : nullptr, S_k, b, h};
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&kfull[s], 2);             // the copy's bytes and the slice
-      kcnt[s] = 0;
+      mbar_init(&kempty[s], WARPS);
     }
     for (int s = 0; s < VST; ++s) {
       mbar_init(&vfull[s], 1);
-      vcnt[s] = 0;
+      mbar_init(&vempty[s], WARPS);
     }
     mbar_init(qbar, 1);
     mbar_init_fence();
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    mbar_arrive_tx(qbar, (rows1 ? 2 : 1) * QT::BYTES);
-    tma_tile<D, BM>(sm + L::Q, &qmap, qbar, i0, b, h);
-    if (rows1)
-      tma_tile<D, BM>(sm + L::Q + QT::BYTES, &qmap, qbar, i0 + BM, b, h);
-    for (int s = 0; s < STAGES || s < VST; ++s) {
-      if (s < STAGES && s < n_kv) ring.load_k(s, s);
-      if (s < VST && s < n_kv) ring.load_v(s, s);
+
+  if (wg == 2) {
+    // the producer: one warp starts every copy and writes every key-mask
+    // slice, refilling a stage once all 8 consumer warps have freed it
+    reg_dealloc<FWD256_PRODUCER_REGS>();
+    if (wq != 0) return;
+    const KvRing<D, L> ring{sm, &kmap, &vmap,
+                            bias ? bias + (size_t)b * S_k : nullptr, S_k, b,
+                            h};
+    if (lane == 0) {
+      mbar_arrive_tx(qbar, (rows1 ? 2 : 1) * QT::BYTES);
+      tma_tile<D, BM>(sm + L::Q, &qmap, qbar, i0, b, h);
+      if (rows1)
+        tma_tile<D, BM>(sm + L::Q + QT::BYTES, &qmap, qbar, i0 + BM, b, h);
     }
+    for (int kt = 0; kt < n_kv; ++kt) {
+      const int s = kt % STAGES;
+      if (kt >= STAGES) mbar_wait(&kempty[s], (kt / STAGES + 1) & 1);
+      if (lane == 0) ring.load_k(s, kt);
+      ring.slice(s, kt);
+      const int sv = kt % VST;
+      if (kt >= VST) mbar_wait(&vempty[sv], (kt / VST + 1) & 1);
+      if (lane == 0) ring.load_v(sv, kt);
+    }
+    return;
   }
-  if (warp < STAGES && warp < n_kv) ring.slice(warp, warp);
+  reg_alloc<FWD256_CONSUMER_REGS>();
+  const int n_mine = (wg == 0 || rows1) ? tiles_from(wfirst) : 0;
 
   // the ring, by KV tile: a stage's data, waiting for it, and freeing it
-  // (the last of the CTA's warps refills it with tile kt + STAGES)
+  // (each warp arrives once on the stage's empty barrier)
   const auto k_at = [&](int kt) {
     return sm + L::K + (kt % STAGES) * KT::BYTES;
   };
@@ -2004,17 +2044,14 @@ flash_fwd_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_wait(&vfull[kt % VST], (kt / VST) & 1);
   };
   const auto free_k = [&](int kt) {
-    ring_free<WARPS>(kcnt, kt % STAGES, [&] {
-      if (kt + STAGES >= n_kv) return;
-      if (lane == 0) ring.load_k(kt % STAGES, kt + STAGES);
-      ring.slice(kt % STAGES, kt + STAGES);
-    });
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&kempty[kt % STAGES]);
   };
   const auto free_v = [&](int kt) {
-    ring_free<WARPS>(vcnt, kt % VST, [&] {
-      if (kt + VST < n_kv && lane == 0) ring.load_v(kt % VST, kt + VST);
-    });
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&vempty[kt % VST]);
   };
+
   // rows g and g + 8 of warp wq's 16 in the warpgroup's 64; scores in
   // log2 units (s scale log2 e + bias log2 e); m the running row max,
   // shared by the row's quad; l this lane's share of the row sum
@@ -2138,13 +2175,17 @@ flash_fwd_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
     tma_store_tile<D, BM>(Qs, &omap, wfirst, b, h);
 }
 
-// the bfloat16 forward kernel a head dim launches
+// the bfloat16 forward kernel a head dim launches, and its threads
 template <int D>
 auto fwd_wg_kernel() {
   if constexpr (wg_pair<D>())
     return flash_fwd_wgmma_pair_kernel<D>;
   else
     return flash_fwd_wgmma_kernel<D>;
+}
+template <int D>
+constexpr int fwd_wg_threads() {
+  return wg_pair<D>() ? 3 * WG_THREADS : WG_THREADS;
 }
 
 // dK/dV at bfloat16. A wgmma warpgroup owns 64 key rows and streams Q/dO
@@ -3134,7 +3175,7 @@ int fwd_wg(const void* q, const void* k, const void* v, const float* bias,
   constexpr int ROWS = 2 * WG_ROWS;        // query rows of a pair's CTA
   const dim3 grid = wg_pair<D>() ? dim3(B * N, (S_q + ROWS - 1) / ROWS)
                                  : dim3((S_q + WG_ROWS - 1) / WG_ROWS, B * N);
-  kern<<<grid, wg_cta_threads<D>(), smem, st>>>(
+  kern<<<grid, fwd_wg_threads<D>(), smem, st>>>(
       qm, km, vm, om, bias, lse, S_q, S_k, N, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -3214,7 +3255,7 @@ int fwd_budget(int* out) {
 template <int D>
 int fwd_wg_budget(int* out) {
   return budget(fwd_wg_kernel<D>(), FwdWgLayout<D>::BYTES, out,
-                wg_cta_threads<D>());
+                fwd_wg_threads<D>());
 }
 
 template <int D>

@@ -913,10 +913,12 @@ def test_flash_bf16_d192_through_the_d256_pairs(cuda, causal, masked):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["dq", "dkv", "fwd"])
 def test_flash_bf16_d256_pair_budget(cuda, kind):
-    """The bfloat16 forward, dQ and dK/dV at D 256 (two warpgroups, 256
-    threads, a 64 x 256 float32 accumulator a warpgroup) keep every value
-    in registers under the 255-register ceiling (no local-memory spills)
-    and fit one CTA an SM in the card's 227 KB of shared memory."""
+    """The bfloat16 forward, dQ and dK/dV at D 256 (two warpgroups that
+    compute, a 64 x 256 float32 accumulator each; the forward's third
+    warpgroup only copies, its registers handed to the other two) keep
+    every value in registers under the 255-register ceiling (no
+    local-memory spills) and fit one CTA an SM in the card's 227 KB of
+    shared memory."""
     got = fa.budget(kind, 256, torch.bfloat16)
     assert got["spill_bytes"] == 0
     assert got["ctas_per_sm"] >= 1
@@ -934,7 +936,8 @@ def test_flash_bf16_dkv_is_deterministic(cuda, case):
     output tile (a warpgroup owns 64 queries or keys and loops over the
     other operand's tiles itself; no atomics): two launches on the same
     inputs are bitwise equal, at BERT's shape and at D 256 (two
-    warpgroups a CTA, the forward's over one shared K/V ring)."""
+    computing warpgroups a CTA, the forward's over one shared K/V ring
+    that a third warpgroup fills)."""
     _, _, _, _, d, causal, _, _ = case
     q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
     scale = d ** -0.5
