@@ -1326,9 +1326,9 @@ constexpr int DQ256_KEYS_BF16 = 32;
 template <int D>
 __host__ __device__ constexpr bool wg_pair() { return D > 128; }
 
-// threads of a bfloat16 CTA: one warpgroup, or two (wg_pair)
+// threads of a bfloat16 dQ or dK/dV CTA
 template <int D>
-__host__ __device__ constexpr int wg_cta_threads() {
+__host__ __device__ constexpr int wg_bwd_threads() {
   return wg_pair<D>() ? 2 * WG_THREADS : WG_THREADS;
 }
 
@@ -1343,8 +1343,7 @@ __host__ __device__ constexpr int wg_cta_threads() {
 // bytes of spills, 3 K or 3 V stages 0.0515 each; with it, 0.0468: 3 K
 // stages 0.0475, 3 V stages 0.0463):
 constexpr int FWD256_KEYS_BF16 = 64;
-constexpr int FWD256_K_STAGES = 2;
-constexpr int FWD256_V_STAGES = 2;
+constexpr int FWD256_STAGES_BF16 = 2;
 // its third warpgroup only copies: registers a thread of the two that
 // compute and of the one that copies (2 x 128 x 240 + 128 x 24 of the
 // SM's 65536)
@@ -1428,13 +1427,11 @@ struct FwdLayout {
 // Shared memory of the forward at D 256 (flash_fwd_wgmma_pair_kernel):
 // a resident Q tile per warpgroup, rings of K and V tiles on barriers of
 // their own (a stage's K is free once both warpgroups' scores are, its V
-// only once their P V is; STAGES counts K's, V_STAGES V's), the key-mask
-// slices and flags riding with K, then K's full barriers, V's, K's empty
-// barriers, V's, and Q's
+// only once their P V is), the key-mask slices and flags riding with K,
+// then K's full barriers, V's, K's empty barriers, V's, and Q's
 template <int D>
 struct FwdPairLayout {
-  static constexpr int STAGES = FWD256_K_STAGES;
-  static constexpr int V_STAGES = FWD256_V_STAGES;
+  static constexpr int STAGES = FWD256_STAGES_BF16;
   static constexpr int BN = FWD256_KEYS_BF16;
   static constexpr bool FLAGS = true;
   using QT = Tile<D, WG_ROWS>;
@@ -1442,9 +1439,9 @@ struct FwdPairLayout {
   static constexpr size_t Q = 0;
   static constexpr size_t K = Q + 2 * QT::BYTES;
   static constexpr size_t V = K + STAGES * KT::BYTES;
-  static constexpr size_t BIAS = V + V_STAGES * KT::BYTES;
+  static constexpr size_t BIAS = V + STAGES * KT::BYTES;
   static constexpr size_t BAR = BIAS + STAGES * BN * 4;
-  static constexpr size_t NOMASK = BAR + (2 * (STAGES + V_STAGES) + 1) * 8;
+  static constexpr size_t NOMASK = BAR + (4 * STAGES + 1) * 8;
   static constexpr size_t BYTES = NOMASK + STAGES * 4 + 1024;
 };
 
@@ -1644,6 +1641,75 @@ struct KvRing {
   }
 };
 
+// The online softmax of one warpgroup's score tile (the forward):
+// sc holds this lane's entries of S = Q K^T for the tile of keys col0 ..
+// col0 + BN - 1 (rows row0 and row0 + 8, columns 8 j + 2 t + e), bs its
+// key-mask slice (times log2 e). An unmasked tile (``plain``: no key
+// masked or past S_k, none past the warp's rows under causal) takes the
+// row max on the raw products and folds the scale into 2^(s scale log2 e
+// - m); others mask each entry to -inf. Leaves P = 2^(s - m) in sc (2^-inf
+// is 0: a masked entry gives 0), m the new row max (shared by the row's
+// quad), l this lane's share of the row sum rescaled and added to, and
+// corr the factor the accumulator must be rescaled by (0 while m was
+// -inf). The test is taken once, outside the element loops.
+template <int BN>
+__device__ __forceinline__ void wg_softmax(float (&sc)[BN / 2], float (&m)[2],
+                                           float (&l)[2], float (&corr)[2],
+                                           const float* bs, bool plain,
+                                           int causal, int col0, int row0,
+                                           int t, float scale2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (plain) {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j)
+      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+    mx[0] *= scale2;
+    mx[1] *= scale2;
+  } else {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1);
+        const int col = col0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = !causal || col <= row;
+        const float sv =
+            ok ? fmaf(sc[4 * j + e], scale2, (e & 1) ? bb.y : bb.x)
+               : -INFINITY;
+        sc[4 * j + e] = sv;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+      }
+    }
+  }
+  float safe[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    safe[i] = (m_new == -INFINITY) ? 0.f : m_new;
+    corr[i] = ex2(m[i] - safe[i]);
+    m[i] = m_new;
+    l[i] *= corr[i];
+  }
+  if (plain) {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) {
+      const int i = (j >> 1) & 1;
+      sc[j] = ex2(fmaf(sc[j], scale2, -safe[i]));
+      l[i] += sc[j];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) {
+      const int i = (j >> 1) & 1;
+      sc[j] = ex2(sc[j] - safe[i]);
+      l[i] += sc[j];
+    }
+  }
+}
+
 // The forward at bfloat16, up to D 128 (BERT's path). A wgmma warpgroup
 // owns 64 query rows (warp w rows 16 w .. 16 w + 15) and streams 64-key
 // K/V tiles through its ring. Per KV tile: S = Q K^T in D / 16 wgmmas
@@ -1664,7 +1730,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   using KT = typename L::KT;
   constexpr int BM = WG_ROWS;
   constexpr int BN = L::BN;
-  constexpr int NT = BN / 8;               // 8-key column blocks of S
   constexpr int STAGES = L::STAGES;
   static_assert(STAGES <= WG_WARPS, "a warp fills each first stage");
   extern __shared__ __align__(1024) unsigned char wg_fwd_smem[];
@@ -1720,66 +1785,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wg_commit();
     wg_wait<0>();
     pin(sc);
-    // an unmasked tile (no key masked or past S_k, none past the warp's
-    // rows under causal) takes the row max on the raw products and folds
-    // the scale into 2^(s scale log2 e - m); others mask each entry to
-    // -inf
+    // P in sc: l sums the float32 P, P V takes it in bfloat16, as the
+    // reference casts P to V's dtype
     const bool plain = nomask[s] && scale2 > 0.f &&
                        (!causal || kt * BN + BN - 1 <= wrow);
-    float mx[2] = {-INFINITY, -INFINITY};
-    if (plain) {
-#pragma unroll
-      for (int j = 0; j < BN / 2; ++j)
-        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
-      mx[0] *= scale2;
-      mx[1] *= scale2;
-    } else {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float2 bb =
-            *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = row0 + 8 * (e >> 1);
-          const int col = kt * BN + 8 * j + 2 * t + (e & 1);
-          const bool ok = !causal || col <= row;
-          const float sv =
-              ok ? fmaf(sc[4 * j + e], scale2, (e & 1) ? bb.y : bb.x)
-                 : -INFINITY;
-          sc[4 * j + e] = sv;
-          mx[e >> 1] = fmaxf(mx[e >> 1], sv);
-        }
-      }
-    }
-    float safe[2], corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      safe[i] = (m_new == -INFINITY) ? 0.f : m_new;
-      corr[i] = ex2(m[i] - safe[i]);       // 0 while m is -inf
-      m[i] = m_new;
-      l[i] *= corr[i];
-    }
-    // P = 2^(s - m) (2^-inf is 0: a masked entry gives 0): l sums the
-    // float32 P, P V takes it in bfloat16, as the reference casts P to
-    // V's dtype
-    if (plain) {
-#pragma unroll
-      for (int j = 0; j < BN / 2; ++j) {
-        const int i = (j >> 1) & 1;
-        sc[j] = ex2(fmaf(sc[j], scale2, -safe[i]));
-        l[i] += sc[j];
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < BN / 2; ++j) {
-        const int i = (j >> 1) & 1;
-        sc[j] = ex2(sc[j] - safe[i]);
-        l[i] += sc[j];
-      }
-    }
+    float corr[2];
+    wg_softmax<BN>(sc, m, l, corr, bs, plain, causal, kt * BN, row0, t,
+                   scale2);
     uint32_t pa[BN / 16][4];
 #pragma unroll
     for (int k = 0; k < BN / 16; ++k) acc_to_a(sc, k, pa[k]);
@@ -1849,75 +1861,6 @@ __device__ __forceinline__ void wg_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WG_THREADS) : "memory");
 }
 
-// The online softmax of one warpgroup's score tile (the D-256 forward):
-// sc holds this lane's entries of S = Q K^T for the tile of keys col0 ..
-// col0 + BN - 1 (rows row0 and row0 + 8, columns 8 j + 2 t + e), bs its
-// key-mask slice (times log2 e). An unmasked tile (``plain``: no key
-// masked or past S_k, none past the warp's rows under causal) takes the
-// row max on the raw products and folds the scale into 2^(s scale log2 e
-// - m); others mask each entry to -inf. Leaves P = 2^(s - m) in sc (2^-inf
-// is 0: a masked entry gives 0), m the new row max (shared by the row's
-// quad), l this lane's share of the row sum rescaled and added to, and
-// corr the factor the accumulator must be rescaled by (0 while m was
-// -inf). The test is taken once, outside the element loops.
-template <int BN>
-__device__ __forceinline__ void wg_softmax(float (&sc)[BN / 2], float (&m)[2],
-                                           float (&l)[2], float (&corr)[2],
-                                           const float* bs, bool plain,
-                                           int causal, int col0, int row0,
-                                           int t, float scale2) {
-  float mx[2] = {-INFINITY, -INFINITY};
-  if (plain) {
-#pragma unroll
-    for (int j = 0; j < BN / 2; ++j)
-      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
-    mx[0] *= scale2;
-    mx[1] *= scale2;
-  } else {
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const float2 bb = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + 8 * (e >> 1);
-        const int col = col0 + 8 * j + 2 * t + (e & 1);
-        const bool ok = !causal || col <= row;
-        const float sv =
-            ok ? fmaf(sc[4 * j + e], scale2, (e & 1) ? bb.y : bb.x)
-               : -INFINITY;
-        sc[4 * j + e] = sv;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
-      }
-    }
-  }
-  float safe[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-    const float m_new = fmaxf(m[i], mx[i]);
-    safe[i] = (m_new == -INFINITY) ? 0.f : m_new;
-    corr[i] = ex2(m[i] - safe[i]);
-    m[i] = m_new;
-    l[i] *= corr[i];
-  }
-  if (plain) {
-#pragma unroll
-    for (int j = 0; j < BN / 2; ++j) {
-      const int i = (j >> 1) & 1;
-      sc[j] = ex2(fmaf(sc[j], scale2, -safe[i]));
-      l[i] += sc[j];
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < BN / 2; ++j) {
-      const int i = (j >> 1) & 1;
-      sc[j] = ex2(sc[j] - safe[i]);
-      l[i] += sc[j];
-    }
-  }
-}
-
 // The forward at bfloat16, D 256: one CTA of two warpgroups that
 // compute, over 128 query rows, and a third that only copies. Computing
 // warpgroup w owns rows 64 w .. 64 w + 63 with its own Q tile and 64 x
@@ -1954,18 +1897,17 @@ flash_fwd_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
   constexpr int ROWS = 2 * BM;             // query rows of the CTA
   constexpr int BN = L::BN;
   constexpr int KS = BN / 16;              // k steps of P V
-  constexpr int STAGES = L::STAGES;        // K's
-  constexpr int VST = L::V_STAGES;         // V's
+  constexpr int STAGES = L::STAGES;
   constexpr int WARPS = 2 * WG_WARPS;      // the consumers'
   static_assert(wg_pair<D>(), "two consumer warpgroups");
   extern __shared__ __align__(1024) unsigned char wg_fwd_pair_smem[];
   unsigned char* sm = align_1k(wg_fwd_pair_smem);
   const float* Bs = reinterpret_cast<const float*>(sm + L::BIAS);
   uint64_t* kfull = reinterpret_cast<uint64_t*>(sm + L::BAR);  // [STAGES]
-  uint64_t* vfull = kfull + STAGES;                             // [VST]
-  uint64_t* kempty = vfull + VST;                               // [STAGES]
-  uint64_t* vempty = kempty + STAGES;                           // [VST]
-  uint64_t* qbar = vempty + VST;
+  uint64_t* vfull = kfull + STAGES;                             // [STAGES]
+  uint64_t* kempty = vfull + STAGES;                            // [STAGES]
+  uint64_t* vempty = kempty + STAGES;                           // [STAGES]
+  uint64_t* qbar = vempty + STAGES;
   const int* nomask = reinterpret_cast<const int*>(sm + L::NOMASK);
 
   // heads fastest, the deepest row tiles first: with one CTA an SM the
@@ -1990,10 +1932,8 @@ flash_fwd_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&kfull[s], 2);             // the copy's bytes and the slice
-      mbar_init(&kempty[s], WARPS);
-    }
-    for (int s = 0; s < VST; ++s) {
       mbar_init(&vfull[s], 1);
+      mbar_init(&kempty[s], WARPS);
       mbar_init(&vempty[s], WARPS);
     }
     mbar_init(qbar, 1);
@@ -2020,9 +1960,8 @@ flash_fwd_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
       if (kt >= STAGES) mbar_wait(&kempty[s], (kt / STAGES + 1) & 1);
       if (lane == 0) ring.load_k(s, kt);
       ring.slice(s, kt);
-      const int sv = kt % VST;
-      if (kt >= VST) mbar_wait(&vempty[sv], (kt / VST + 1) & 1);
-      if (lane == 0) ring.load_v(sv, kt);
+      if (kt >= STAGES) mbar_wait(&vempty[s], (kt / STAGES + 1) & 1);
+      if (lane == 0) ring.load_v(s, kt);
     }
     return;
   }
@@ -2035,13 +1974,13 @@ flash_fwd_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
     return sm + L::K + (kt % STAGES) * KT::BYTES;
   };
   const auto v_at = [&](int kt) {
-    return sm + L::V + (kt % VST) * KT::BYTES;
+    return sm + L::V + (kt % STAGES) * KT::BYTES;
   };
   const auto wait_k = [&](int kt) {
     mbar_wait(&kfull[kt % STAGES], (kt / STAGES) & 1);
   };
   const auto wait_v = [&](int kt) {
-    mbar_wait(&vfull[kt % VST], (kt / VST) & 1);
+    mbar_wait(&vfull[kt % STAGES], (kt / STAGES) & 1);
   };
   const auto free_k = [&](int kt) {
     __syncwarp();
@@ -2049,7 +1988,7 @@ flash_fwd_wgmma_pair_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   const auto free_v = [&](int kt) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(&vempty[kt % VST]);
+    if (lane == 0) mbar_arrive(&vempty[kt % STAGES]);
   };
 
   // rows g and g + 8 of warp wq's 16 in the warpgroup's 64; scores in
@@ -3199,7 +3138,7 @@ int dkv_wg(const void* q, const void* k, const void* v, const float* bias,
   if (int e = prepare(kern, smem)) return e;
   const dim3 grid = wg_pair<D>() ? dim3(B * N, (S_k + WG_ROWS - 1) / WG_ROWS)
                                    : dim3((S_k + WG_ROWS - 1) / WG_ROWS, B * N);
-  kern<<<grid, wg_cta_threads<D>(), smem, st>>>(
+  kern<<<grid, wg_bwd_threads<D>(), smem, st>>>(
       qm, km, vm, dm, dkm, dvm, bias, lse, delta, S_q, S_k, N, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -3223,7 +3162,7 @@ int dq_wg(const void* q, const void* k, const void* v, const float* bias,
   constexpr int ROWS = DqLayout<D>::WGS * WG_ROWS;   // query rows of a CTA
   const dim3 grid = wg_pair<D>() ? dim3(B * N, (S_q + ROWS - 1) / ROWS)
                                  : dim3((S_q + ROWS - 1) / ROWS, B * N);
-  kern<<<grid, wg_cta_threads<D>(), smem, st>>>(
+  kern<<<grid, wg_bwd_threads<D>(), smem, st>>>(
       qm, km, vm, dm, dqm, bias, lse, delta, S_q, S_k, N, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -3268,7 +3207,7 @@ int dq_budget(int* out) {
 template <int D>
 int dq_wg_budget(int* out) {
   return budget(dq_wg_kernel<D>(), dq_wg_smem<D>(512), out,
-                wg_cta_threads<D>());
+                wg_bwd_threads<D>());
 }
 
 template <int D>
@@ -3279,7 +3218,7 @@ int dkv_budget(int* out) {
 template <int D>
 int dkv_wg_budget(int* out) {
   return budget(dkv_wg_kernel<D>(), DkvLayout<D>::BYTES, out,
-                wg_cta_threads<D>());
+                wg_bwd_threads<D>());
 }
 
 // head_dim and dtype dispatch (D is a template parameter of every
