@@ -522,6 +522,68 @@ def check(cond, msg):
         fail(msg)
 
 
+class PrefillQueries(object):
+    """Every paged prefill that launches the kernels (``attn_impl``
+    "fused"), recorded at ``generation.paged_prefill_into_slot`` once it
+    returns — engines call it through the module — as (query count: the
+    tail's bucket, layers, head dim): what the prefills since the last
+    :meth:`reset` owe each paged route (:func:`want_routes`)."""
+
+    def __init__(self):
+        self._calls = []
+        self._lock = threading.Lock()
+        self._real = None
+
+    def install(self, generation):
+        real = self._real = generation.paged_prefill_into_slot
+
+        def record(model, cache, table_row, tokens, *args, **kw):
+            out = real(model, cache, table_row, tokens, *args, **kw)
+            if kw.get("attn_impl", "fused") == "fused":
+                with self._lock:
+                    self._calls.append((len(tokens), model.num_layers,
+                                        model.head_dim))
+            return out
+
+        generation.paged_prefill_into_slot = record
+
+    def reset(self):
+        with self._lock:
+            del self._calls[:]
+
+    def calls(self):
+        with self._lock:
+            return list(self._calls)
+
+
+PREFILLS = PrefillQueries()
+
+
+def want_routes(pa, split, prefills, window=0, calls=None):
+    """The launches by route a leg owes since the counts were zeroed:
+    ``split`` decode calls, ``window`` verify-window calls, and one call
+    a layer for each recorded prefill (``calls``, default all since the
+    last reset) — on the window route at 2 to ``WINDOW_MAX_QUERIES``
+    queries and a split head dim, else the tiled one. Checks that the
+    recorder saw the ``prefills`` prefills the engines counted."""
+    calls = PREFILLS.calls() if calls is None else calls
+    check(len(calls) == prefills, "recorded {} paged prefills where the "
+          "engines counted {}".format(len(calls), prefills))
+    owed = {"split": split, "window": window, "tiled": 0}
+    for s_q, layers, d in calls:
+        short = 2 <= s_q <= pa.WINDOW_MAX_QUERIES and d in pa.SPLIT_HEAD_DIMS
+        owed["window" if short else "tiled"] += layers
+    return owed
+
+
+def zero_launches(pa):
+    """Set every route's launch count to 0 and forget the recorded
+    prefills: just before a leg whose launches are checked."""
+    for route in pa.route_launches:
+        pa.route_launches[route] = 0
+    PREFILLS.reset()
+
+
 # -- phase 3: kernel against plain version ------------------------------
 
 
@@ -572,9 +634,10 @@ def live_rows(table, pos, bs):
 
 
 #: (queries per row, heads, head dim, table width) of the kernel cases:
-#: the split route at decode, the tensor-core tiled route at two windows
-#: of the serving widths and at a head dim above 128 (192, zero-padded
-#: to the 256 instantiation)
+#: the split route at decode, a 16-query window (the window route, or
+#: the tiled one above ``WINDOW_MAX_QUERIES``), the tensor-core tiled
+#: route at a 128-query window of the serving widths and at a head dim
+#: above 128 (192, zero-padded to the 256 instantiation)
 PAGED_CASES = [(1, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK),
                (16, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK),
                (128, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK),
@@ -583,8 +646,9 @@ PAGED_CASES = [(1, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK),
 
 def hold_case(torch, pa, dev, args, scales, s_q, d, quant, bs=BLOCK):
     """One case of the kernel against ``_blockwise``: the route the shape
-    maps to (split-KV at S_q = 1 at the head dims it is built for, the
-    tensor-core query-tiled route for every other call), finite and
+    maps to (split-KV at S_q = 1 and the window kernel at 2 to
+    ``WINDOW_MAX_QUERIES`` queries, at the head dims they are built for;
+    the tensor-core query-tiled route for every other call), finite and
     within
     ``KERNEL_TOL``, a second call bitwise equal to the first, and
     NaN-poisoned dead pool rows leaving the output bitwise unchanged.
@@ -595,7 +659,9 @@ def hold_case(torch, pa, dev, args, scales, s_q, d, quant, bs=BLOCK):
     got = pa.paged_attention(*args, scale=scale, impl="kernel",
                              k_scale=ks, v_scale=vs)
     route = pa._route(s_q, d)
-    check(route == ("split" if s_q == 1 and d in (16, 32, 64, 128, 256)
+    dims = (16, 32, 64, 128, 256)
+    check(route == ("split" if s_q == 1 and d in dims else "window"
+                    if 2 <= s_q <= pa.WINDOW_MAX_QUERIES and d in dims
                     else "tiled"),
           "s_q={} D={} maps to the {} route".format(s_q, d, route))
     check(pa.route_launches == {r: before[r] + (r == route) for r in before},
@@ -642,17 +708,25 @@ def hold_case(torch, pa, dev, args, scales, s_q, d, quant, bs=BLOCK):
 
 def kernel_cases(torch, pa, dev):
     """Hold the kernels against ``_blockwise`` on every case, on every
-    route (``hold_case``); returns the largest |difference| per route."""
+    route (``hold_case``), and the window kernel at 2, 3, 4 and
+    ``WINDOW_MAX_QUERIES`` queries a row at the serving widths; returns
+    the largest |difference| per route."""
     rng = np.random.RandomState(SEED)
     worst = {route: 0.0 for route in pa.route_launches}
+    seen = set()
+    window = [(s_q, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK)
+              for s_q in sorted({2, 3, 4, pa.WINDOW_MAX_QUERIES})]
     for quant in (False, True):
-        for s_q, n, d, mb in PAGED_CASES:
+        for s_q, n, d, mb in PAGED_CASES + window:
             args, scales = make_case(
                 torch, rng, SLOTS, s_q, mb, quant, dev, overshoot_row=1,
                 scratch_row=SLOTS - 1, n=n, d=d)
             route, err = hold_case(torch, pa, dev, args, scales, s_q, d,
                                    quant)
             worst[route] = max(worst[route], err)
+            seen.add(route)
+    check(seen == set(worst), "phase 3 held only the routes {}".format(
+        sorted(seen)))
     return worst
 
 
@@ -719,7 +793,7 @@ def paged_timing(torch, pa, dev, quant, s_q, depths, copies, n=HEADS,
     route = [r for r in before if pa.route_launches[r] != before[r]][0]
     ms = time_ms(torch, kernel, sets)
     device_ms = graph_ms(torch, kernel, sets)
-    plain_ms = time_ms(torch, plain, sets, reps=5)
+    plain_ms = time_ms(torch, plain, sets, reps=2)
     library_ms = time_ms(torch, library, lib_sets)
     library_device_ms = graph_ms(torch, library, lib_sets)
     # the bound: each input read once (the live K/V and scales, q, the
@@ -1018,9 +1092,10 @@ def flash_timing(torch, fa, dev, b=TRAIN_BATCH, s=TRAIN_SEQ,
 def kernel_budget(torch, fa, pa):
     """Registers, spills, shared memory and CTAs per SM of the flash
     kernels and of the tensor-core tiled paged kernel at the models'
-    head dim, and of every D-256 instantiation (flash in both dtypes,
-    the split-KV kernel, the tensor-core tiled kernel), as the card
-    reports them. The D-256 tiled kernel, the float32 forward, dQ and
+    head dim, of the window kernel at the models' head dims (each
+    instantiation, no spills), and of every D-256 instantiation (flash
+    in both dtypes, the split-KV kernel, the tensor-core tiled kernel),
+    as the card reports them. The D-256 tiled kernel, the float32 forward, dQ and
     dK/dV at D 256 and the bfloat16 dQ and dK/dV at D 256 (two
     warpgroups a CTA) must be spill-free within the card's 227 KB of
     shared memory (the tiled kernel's as ``tiled_smem_bytes`` reckons
@@ -1056,6 +1131,24 @@ def kernel_budget(torch, fa, pa):
         check(got["spill_bytes"] == 0 and got["ctas_per_sm"] >= 1
               and got["smem_bytes"] <= pa.MAX_SMEM_BYTES,
               "{} spills or does not fit: {}".format(key, got))
+    # the window kernel at every instantiation the serving widths and the
+    # D-256 decoder launch (2, 4, 8, 16 queries up to WINDOW_MAX_QUERIES)
+    for quant in (False, True):
+        kv = "int8" if quant else "float32"
+        for d in (HIDDEN // HEADS, 256):
+            for qn in (2, 4, 8, 16):
+                if qn > pa.WINDOW_MAX_QUERIES:
+                    continue
+                got = pa.budget(d, quant, route="window", queries=qn)
+                key = "paged_window D{} Q{} {}".format(d, qn, kv)
+                out[key] = got
+                log("budget {:<28}: {} registers, {} spill bytes, {} bytes "
+                    "shared, {} CTAs/SM".format(
+                        key, got["registers"], got["spill_bytes"],
+                        got["smem_bytes"], got["ctas_per_sm"]))
+                check(got["spill_bytes"] == 0 and got["ctas_per_sm"] >= 1
+                      and got["smem_bytes"] <= pa.MAX_SMEM_BYTES,
+                      "{} spills or does not fit: {}".format(key, got))
     for quant in (False, True):
         got = pa.budget(HIDDEN // HEADS, quant)
         out["paged_tiled {}".format("int8" if quant else "float32")] = got
@@ -1191,8 +1284,7 @@ def serving_phase(torch, dev):
     runs = {}
     # THE main path: counts at zero just before, read just after
     pa.launches = 0
-    for route in pa.route_launches:
-        pa.route_launches[route] = 0
+    zero_launches(pa)
     for kv in (None, "int8"):
         engine = serving.DecodeEngine(model, slots=SLOTS, total_len=MAX_LEN,
                                       kv_block_size=BLOCK, kv_dtype=kv,
@@ -1211,18 +1303,21 @@ def serving_phase(torch, dev):
     launches = pa.launches
     route_launches = dict(pa.route_launches)
     check(launches > 0, "the serving path never launched the kernel")
-    # every decode step (S_q = 1) takes the split-KV route and every
-    # prefill (a bucket of >= 8 tokens) the query-tiled one, once a layer
+    # every decode step (S_q = 1) takes the split-KV route, every prefill
+    # (a bucket of >= 8 tokens) the window route up to
+    # WINDOW_MAX_QUERIES queries and the query-tiled one above, once a
+    # layer
     steps = sum(r["counts"].get("decode_steps", 0) for r in runs.values())
     steps += preempt["decode_steps"]
     prefills = sum(r["counts"].get("prefills", 0) for r in runs.values())
     prefills += preempt["prefills"]
+    want = want_routes(pa, LAYERS * steps, prefills)
     log("serving paged launches by route: {} (decode steps {}, prefills {}, "
         "{} layers)".format(route_launches, steps, prefills, LAYERS))
-    check(route_launches == {"split": LAYERS * steps,
-                             "tiled": LAYERS * prefills},
-          "decode steps did not all take the split route and prefills the "
-          "tiled one")
+    check(route_launches == want,
+          "decode steps did not all take the split route and prefills "
+          "the window or tiled one by their query counts: {} vs {}".format(
+              route_launches, want))
     for kv in (None, "int8"):
         r = runs[kv]
         gen = sum(n for _, n in reqs)
@@ -3591,14 +3686,18 @@ VERIFY_DEPTHS = np.array([SPEC_K, BLOCK, BLOCK + 1, 2 * BLOCK + SPEC_K - 1,
 #: the contiguous engine
 CONTIGUOUS_REQUESTS = 4
 #: (d): the requests prefilled on one server and decoded on another
-DISAGG_REQUESTS = 8
+DISAGG_REQUESTS = 4
+#: (c): the requests of the int8 and the whole-target speculative legs
+#: (the float 6-layer leg serves all 16)
+SPEC_SHORT_REQUESTS = 8
 #: (c): acceptance when the draft is the whole target (a tie can reject)
 FULL_DRAFT_ACCEPTANCE = 0.95
 
 
 def verify_window_leg(torch, pa, dev):
     """11(a): the paged kernel at the verify window — 8 slots, S_q =
-    ``SPEC_K`` from mid-sequence cursors, float and int8 pools — held as
+    ``SPEC_K`` from mid-sequence cursors, float and int8 pools, the
+    window route — held as
     phase 3's cases are (``hold_case``), then timed (``paged_timing``:
     eager and device, the plain version, SDPA over the pre-gathered
     view, the bound). Returns (largest |difference|, times by dtype)."""
@@ -3611,7 +3710,7 @@ def verify_window_leg(torch, pa, dev):
                                  overshoot_row=SLOTS - 1, scratch_row=0)
         route, err = hold_case(torch, pa, dev, args, scales, SPEC_K, d,
                                quant)
-        check(route == "tiled", "the verify window took the {} route"
+        check(route == "window", "the verify window took the {} route"
               .format(route))
         worst = max(worst, err)
     depths = np.random.RandomState(SEED + 111).randint(
@@ -3620,14 +3719,20 @@ def verify_window_leg(torch, pa, dev):
     for quant in (False, True):
         t = times["int8" if quant else "float32"] = paged_timing(
             torch, pa, dev, quant, SPEC_K, depths, 6)
+        check(t["route"] == "window", "the timed verify window took the "
+              "{} route".format(t["route"]))
         log("verify window int8={!s:<5} 8 slots S_q {} {} kernel {:.4f} ms "
             "per eager call ({:.4f} ms device time)  plain {:.4f} ms  sdpa "
             "{:.4f} ms ({:.4f} ms device time)  bound {:.4f} ms ({}; "
-            "{:.1f}% of device time; {} live tokens)".format(
-                quant, SPEC_K, t["route"], t["ms"], t["device_ms"],
-                t["plain_ms"], t["library_ms"], t["library_device_ms"],
-                t["bound_ms"], t["bound_by"],
-                100.0 * t["bound_ms"] / t["device_ms"], t["live_tokens"]))
+            "{:.1f}% of device time, {:.1f}% of eager; {} live tokens); "
+            "device time {:.3f} x SDPA's; one kernel a call "
+            "(paged_window_kernel, its merge folded in)"
+            .format(quant, SPEC_K, t["route"], t["ms"], t["device_ms"],
+                    t["plain_ms"], t["library_ms"], t["library_device_ms"],
+                    t["bound_ms"], t["bound_by"],
+                    100.0 * t["bound_ms"] / t["device_ms"],
+                    100.0 * t["bound_ms"] / t["ms"], t["live_tokens"],
+                    t["device_ms"] / t["library_device_ms"]))
     return worst, times
 
 
@@ -3681,46 +3786,53 @@ def contiguous_leg(torch, generation, serving, model, reqs, want, dev):
 def speculative_leg(torch, pa, generation, serving, model, reqs, runs, dev):
     """11(c): phase 4's requests over HTTP through ``speculate_k``
     engines — a 6-layer draft at float and int8 KV, and the whole target
-    as its own draft, where every proposal stands but after a tie. Each
-    run: tokens equal the plain engine's of phase 4 (same KV dtype) but
-    at a tie, the counter algebra, and the routes' launches exactly by
-    the round arithmetic (the draft's ``SPEC_K`` one-token steps on the
-    split route, the verify and every prefill, target and draft, on the
-    tiled one)."""
+    as its own draft, where every proposal stands but after a tie (the
+    last two on the first ``SPEC_SHORT_REQUESTS`` requests). Each run:
+    tokens equal the plain engine's of phase 4 (same KV dtype) but at a
+    tie, the counter algebra, and the routes' launches exactly by the
+    round arithmetic (the draft's ``SPEC_K`` one-token steps on the split
+    route, the verify on the window route, every prefill, target and
+    draft, by its query count)."""
     res = {}
     total = 0
+    everything = reqs
     for draft_layers, kv in ((LAYERS // 2, None), (LAYERS // 2, "int8"),
                              (LAYERS, None)):
         label = "draft {} kv {}".format(draft_layers, kv or "float32")
+        reqs = everything if (draft_layers, kv) == (LAYERS // 2, None) \
+            else everything[:SPEC_SHORT_REQUESTS]
         engine = serving.DecodeEngine(
             model, slots=SLOTS, total_len=MAX_LEN, kv_block_size=BLOCK,
             kv_dtype=kv, speculate_k=SPEC_K, draft_layers=draft_layers,
             device=dev)
         with engine:
             launches = pa.launches
-            for route in pa.route_launches:
-                pa.route_launches[route] = 0
+            zero_launches(pa)
             out, wall = serve_over_http(serving, engine, reqs)
             routes = dict(pa.route_launches)
+            calls = PREFILLS.calls()
             total += pa.launches - launches
             counts = engine.counters.snapshot()["counts"]
             load = engine.load_stats()
             ttft = engine.histograms["ttft"].quantile(0.5)
             spec_ms = engine.measure_spec()
         rounds, prefills = counts["decode_steps"], counts["prefills"]
-        want_routes = {"split": draft_layers * SPEC_K * rounds,
-                       "tiled": LAYERS * rounds
-                       + (LAYERS + draft_layers) * prefills}
-        check(routes == want_routes,
+        # each round: the draft's SPEC_K one-token steps (split), the
+        # target's SPEC_K-query verify (window); each prefill: the
+        # target's and the draft's, by their query counts
+        want = want_routes(pa, draft_layers * SPEC_K * rounds, 2 * prefills,
+                           LAYERS * rounds, calls)
+        check(routes == want,
               "{}: paged launches by route {} are not {} ({} rounds, {} "
-              "prefills)".format(label, routes, want_routes, rounds,
-                                 prefills))
+              "prefills)".format(label, routes, want, rounds, prefills))
+        check(routes["window"] > 0, "{}: the verify windows never "
+              "launched the window kernel".format(label))
         rate = counter_algebra(counts, SPEC_K, label)
         check(load["spec_acceptance_rate"] == round(rate, 4),
               "{}: load_stats' acceptance rate is not accepted/proposed"
               .format(label))
-        ties = compare_tokens(torch, generation, model, out, runs[kv]["out"],
-                              reqs, kv, dev)
+        ties = compare_tokens(torch, generation, model, out,
+                              runs[kv]["out"][:len(reqs)], reqs, kv, dev)
         if draft_layers == LAYERS:
             check(rate >= FULL_DRAFT_ACCEPTANCE,
                   "{}: the whole target as its draft accepted {:.4f} < {}"
@@ -3905,6 +4017,7 @@ def generation_phase(torch, pa, dev, runs, here):
         runs[None]["out"][:CONTIGUOUS_REQUESTS], dev)
     spec_launches, spec = speculative_leg(torch, pa, generation, serving,
                                           model, reqs, runs, dev)
+    window_launches = sum(r["routes"]["window"] for r in spec.values())
     disagg_launches, disagg = disagg_leg(
         torch, pa, generation, serving, model, reqs[:DISAGG_REQUESTS], runs,
         dev)
@@ -3916,7 +4029,8 @@ def generation_phase(torch, pa, dev, runs, here):
     log("generation phase wall {:.1f}s".format(wall))
     return {"verify_error": verify_err, "verify": verify_t,
             "contiguous": contiguous, "speculative": spec,
-            "launches_spec": spec_launches, "disagg": disagg,
+            "launches_spec": spec_launches,
+            "launches_window": window_launches, "disagg": disagg,
             "launches_disagg": disagg_launches, "example": example,
             "wall_s": wall}
 
@@ -4093,8 +4207,7 @@ def planes_phase(torch, pa, dev, runs, decode_timing):
               "burst_s": METERED_BURST_S}
     flight = tracing.FlightRecorder(capacity=1 << 16)
     # THE path of this phase: counts at zero just before, read just after
-    for route in pa.route_launches:
-        pa.route_launches[route] = 0
+    zero_launches(pa)
     engine = serving.DecodeEngine(model, slots=SLOTS, total_len=MAX_LEN,
                                   kv_block_size=BLOCK, qos_policy=policy,
                                   replica_id="planes-0", flight=flight,
@@ -4340,7 +4453,7 @@ def planes_phase(torch, pa, dev, runs, decode_timing):
     before = dict(pa.route_launches)
     attn_ms = engine.measure_attn(reps=5)
     moved = {r: pa.route_launches[r] - before[r] for r in before}
-    check(moved == {"split": 6, "tiled": 0},
+    check(moved == {"split": 6, "window": 0, "tiled": 0},
           "12(c) measure_attn(reps=5) launched {} (want 5 timed calls "
           "and one warm-up on the split route)".format(moved))
     with serving.DecodeEngine(model, slots=SLOTS, total_len=MAX_LEN,
@@ -4481,7 +4594,7 @@ def planes_phase(torch, pa, dev, runs, decode_timing):
     counts = again.counters.snapshot()["counts"]
     routes = dict(pa.route_launches)
     steps, prefills = counts["decode_steps"], counts["prefills"]
-    want = {"split": LAYERS * steps + 6, "tiled": LAYERS * prefills}
+    want = want_routes(pa, LAYERS * steps + 6, prefills)
     check(routes == want, "phase 12 launches by route {} are not {} ({} "
           "steps, {} prefills, measure_attn's 6)".format(
               routes, want, steps, prefills))
@@ -4511,20 +4624,15 @@ FLEET_EXECUTOR_REQUESTS = 8
 BEAT_SAMPLES = 50
 
 
-def _zero_launches(pa):
-    for route in pa.route_launches:
-        pa.route_launches[route] = 0
-
-
 def _launch_check(pa, engines, leg):
     """The launches by route since the last reset must be exactly
     LAYERS x the engines' decode steps (split) and LAYERS x their
-    prefills (tiled); returns the routes."""
+    prefills (window or tiled by query count); returns the routes."""
     counts = [e.counters.snapshot()["counts"] for e in engines]
     steps = sum(c.get("decode_steps", 0) for c in counts)
     prefills = sum(c.get("prefills", 0) for c in counts)
     routes = dict(pa.route_launches)
-    want = {"split": LAYERS * steps, "tiled": LAYERS * prefills}
+    want = want_routes(pa, LAYERS * steps, prefills)
     check(routes == want, "{} launches by route {} are not {} ({} "
           "steps, {} prefills summed over the replicas)".format(
               leg, routes, want, steps, prefills))
@@ -4642,7 +4750,7 @@ def fleet_phase(torch, pa, dev, runs, here):
     engine_kw = {"slots": SLOTS, "total_len": MAX_LEN,
                  "kv_block_size": BLOCK, "device": str(dev)}
     res = {}
-    launches = {"split": 0, "tiled": 0}
+    launches = {"split": 0, "window": 0, "tiled": 0}
 
     def add(routes):
         for k in launches:
@@ -4659,7 +4767,7 @@ def fleet_phase(torch, pa, dev, runs, here):
                   and r.engine.model is not model for r in f.replicas),
               "13(a) the replicas are not on the card with their own "
               "modules")
-        _zero_launches(pa)
+        zero_launches(pa)
         idx = list(range(len(reqs)))
         got, errors, wall = _fleet_clients(port, reqs, idx)
         check(not errors, "13(a) fleet requests failed: {}".format(
@@ -4706,7 +4814,7 @@ def fleet_phase(torch, pa, dev, runs, here):
                 beat["digest_chains"]))
 
         # (b) rolling drain with the same weights, requests in flight
-        _zero_launches(pa)
+        zero_launches(pa)
         before = {id(e): e.counters.snapshot()["counts"] for e in engines}
         idx = list(range(FLEET_DRAIN_REQUESTS))
         box = {}
@@ -4740,7 +4848,7 @@ def fleet_phase(torch, pa, dev, runs, here):
         prefills = sum(a.get("prefills", 0) - before[id(e)].get(
             "prefills", 0) for a, e in zip(after, engines))
         routes = dict(pa.route_launches)
-        check(routes == {"split": LAYERS * steps, "tiled": LAYERS * prefills},
+        check(routes == want_routes(pa, LAYERS * steps, prefills),
               "13(b) launches {} vs {} steps, {} prefills".format(
                   routes, steps, prefills))
         add(routes)
@@ -4754,7 +4862,7 @@ def fleet_phase(torch, pa, dev, runs, here):
                 len(idx), res["b"]["drain_wall_s"], ties_b))
 
         # (c) one replica's scheduler dies mid-stream
-        _zero_launches(pa)
+        zero_launches(pa)
         engines = [r.engine for r in f.replicas]
         before = {id(e): e.counters.snapshot()["counts"] for e in engines}
         chaos.arm("kill_scheduler_at_step={},only={}".format(
@@ -4786,7 +4894,7 @@ def fleet_phase(torch, pa, dev, runs, here):
         prefills = sum(a.get("prefills", 0) - before[id(e)].get(
             "prefills", 0) for a, e in zip(after, engines))
         routes = dict(pa.route_launches)
-        check(routes == {"split": LAYERS * steps, "tiled": LAYERS * prefills},
+        check(routes == want_routes(pa, LAYERS * steps, prefills),
               "13(c) launches {} vs {} steps, {} prefills".format(
                   routes, steps, prefills))
         add(routes)
@@ -4803,7 +4911,7 @@ def fleet_phase(torch, pa, dev, runs, here):
         f.stop()
 
     # (d) two-stage dispatch: a prefill tier and a decode tier
-    _zero_launches(pa)
+    zero_launches(pa)
     f = fleet.ServingFleet(model, name="gpt2",
                            tiers={"prefill": 1, "decode": 1},
                            engine_kw=engine_kw, host="127.0.0.1")
@@ -5103,7 +5211,7 @@ def _exact_launches(pa, series, before, leg):
     since ``before``; returns (routes, steps, prefills)."""
     steps, prefills = (a - b for a, b in zip(series.totals(), before))
     routes = dict(pa.route_launches)
-    check(routes == {"split": LAYERS * steps, "tiled": LAYERS * prefills},
+    check(routes == want_routes(pa, LAYERS * steps, prefills),
           "{} launches by route {} vs {} steps, {} prefills over {} "
           "counter series".format(leg, routes, steps, prefills,
                                   len(series.series)))
@@ -5204,7 +5312,7 @@ def supervised_phase(torch, pa, dev, runs, here):
                  "kv_block_size": BLOCK, "device": str(dev)}
     work = tempfile.mkdtemp(prefix=".tfos-supervised-", dir=here)
     res = {}
-    launches = {"split": 0, "tiled": 0}
+    launches = {"split": 0, "window": 0, "tiled": 0}
 
     def add(routes):
         for k in launches:
@@ -5236,7 +5344,7 @@ def supervised_phase(torch, pa, dev, runs, here):
         check(all(r.engine.device.type == "cuda" for r in f.replicas)
               and len(sup._watched) == 2,
               "14(a) the supervised replicas are not on the card")
-        _zero_launches(pa)
+        zero_launches(pa)
         before = series.totals()
         chaos.arm("kill_scheduler_at_step={},only={},fuse={}".format(
             SUPERVISED_KILL_STEP, SUPERVISED_VICTIM, fuse))
@@ -5343,7 +5451,7 @@ def supervised_phase(torch, pa, dev, runs, here):
         # (b) a rolling drain under the supervisor, then the drained-in
         # successor of replica-0 killed once
         t_leg = time.monotonic()
-        _zero_launches(pa)
+        zero_launches(pa)
         before = series.totals()
         engines = [r.engine for r in f.replicas]
         idx = list(range(SUPERVISED_DRAIN_REQUESTS))
@@ -5415,7 +5523,7 @@ def supervised_phase(torch, pa, dev, runs, here):
     ctl = f.autoscaler
     series = _Series(f).start()
     try:
-        _zero_launches(pa)
+        zero_launches(pa)
         before = series.totals()
         burst = reqs + reqs
         idx = list(range(SCALE_BURST))
@@ -6015,6 +6123,8 @@ WIDE_FLASH_CASES = [
 #: hold int8 logits at 10x the float tolerance. (At float KV the phase-4
 #: rule, TIE_GAP, holds.)
 WIDE_INT8_TIE_GAP = 1e-3
+#: 17(b): the requests of the int8 leg (the float leg serves all 16)
+WIDE_INT8_REQUESTS = 8
 #: D 192, zero-padded to the 256 instantiation by the public path
 PAD_FLASH_CASES = [
     ("i: D192 B2 S512 causal fp32", 2, 512, 512, True, "float32", None, 128),
@@ -6034,8 +6144,9 @@ def wide_model(torch, dev):
 
 def wide_kernel_cases(torch, pa, fa, dev):
     """17(a): each D-256 instantiation against its plain version on the
-    card. Paged: the split route at D 256 (8 slots, block 16, mixed
-    depths, a row overshooting the table, an all-scratch slot) and the
+    card. Paged: the split route at D 256 and the window route at
+    ``SPEC_K`` and ``WINDOW_MAX_QUERIES`` queries (8 slots, block 16,
+    mixed depths, a row overshooting the table, an all-scratch slot) and the
     tensor-core tiled route at D 256, blocks 16, 32 and 64 (a D-256
     engine's pool block of 64 was refused before the tiled route took
     these widths), on a 256-token tail and a cold 512 prompt; float and
@@ -6047,14 +6158,18 @@ def wide_kernel_cases(torch, pa, fa, dev):
     192 through the padding (``flash_cases``, the phase-3b limits).
     Returns the largest errors."""
     rng = np.random.RandomState(SEED + 17)
-    worst = {"split": 0.0, "tiled": 0.0}
+    worst = {"split": 0.0, "window": 0.0, "tiled": 0.0}
+    seen = set()
     for quant in (False, True):
-        args, scales = make_case(
-            torch, rng, SLOTS, 1, MAX_LEN // BLOCK, quant, dev,
-            overshoot_row=1, scratch_row=SLOTS - 1, n=WIDE_HEADS, d=WIDE_D)
-        route, err = hold_case(torch, pa, dev, args, scales, 1, WIDE_D,
-                               quant)
-        worst[route] = max(worst[route], err)
+        for s_q in sorted({1, SPEC_K, pa.WINDOW_MAX_QUERIES}):
+            args, scales = make_case(
+                torch, rng, SLOTS, s_q, MAX_LEN // BLOCK, quant, dev,
+                overshoot_row=1, scratch_row=SLOTS - 1, n=WIDE_HEADS,
+                d=WIDE_D)
+            route, err = hold_case(torch, pa, dev, args, scales, s_q,
+                                   WIDE_D, quant)
+            worst[route] = max(worst[route], err)
+            seen.add(route)
         for bs in (16, 32, 64):
             for s_q in (256, 512):
                 args, scales = make_case(
@@ -6063,8 +6178,9 @@ def wide_kernel_cases(torch, pa, fa, dev):
                 route, err = hold_case(torch, pa, dev, args, scales, s_q,
                                        WIDE_D, quant, bs=bs)
                 worst[route] = max(worst[route], err)
-    check(set(worst) == {"split", "tiled"},
-          "a D-256 case took another route")
+                seen.add(route)
+    check(seen == {"split", "window", "tiled"},
+          "the D-256 cases took the routes {}".format(sorted(seen)))
     flash = flash_cases(torch, fa, dev, WIDE_FLASH_CASES, n=WIDE_HEADS,
                         d=WIDE_D, seed=SEED + 18)
     flash.update(flash_cases(torch, fa, dev, PAD_FLASH_CASES, n=WIDE_HEADS,
@@ -6104,6 +6220,17 @@ def wide_timing(torch, pa, fa, dev):
                                    ("prefill_cold", "tiled"))
               for kv in ("float32", "int8")),
           "D 256: decode must take the split route, prefills the tiled one")
+    for kv in ("float32", "int8"):
+        t = paged["decode"][kv]
+        log("D256 decode {} split device time {:.4f} ms = {:.3f} x SDPA's "
+            "{:.4f} ms; {:.2f}% of the {:.4f} ms bound; split and merge in "
+            "one kernel a call (paged_split256_kernel: the last CTA of a "
+            "row and head merges; no combine kernel; CTA stamps: "
+            "profile_paged.py --trace)"
+            .format(kv, t["device_ms"],
+                    t["device_ms"] / t["library_device_ms"],
+                    t["library_device_ms"], 100.0 * t["bound_ms"]
+                    / t["device_ms"], t["bound_ms"]))
     for shape in ("prefill", "prefill_cold"):
         for kv in ("float32", "int8"):
             t = paged[shape][kv]
@@ -6154,17 +6281,19 @@ def wide_timing(torch, pa, fa, dev):
 def wide_serving(torch, pa, dev, model):
     """17(b): the D-256 decoder behind ``ModelServer``, the engine at its
     automatic block (16) and 8 slots, phase 4's 16 requests from 4
-    clients at float and int8 KV. Every decode step takes the split
-    route and every prefill the tensor-core tiled one, once a layer,
-    exactly; tokens equal the gather oracle's but at a top-2 tie."""
+    clients at float KV and the first ``WIDE_INT8_REQUESTS`` at int8. Every decode step takes the split
+    route and every prefill the window route (up to
+    ``WINDOW_MAX_QUERIES`` queries) or the tensor-core tiled one, once a
+    layer, exactly; tokens equal the gather oracle's but at a top-2
+    tie."""
     from tensorflowonspark_tpu_torch import generation, serving
 
-    reqs = traffic()
+    everything = traffic()
+    legs = {None: everything, "int8": everything[:WIDE_INT8_REQUESTS]}
     runs = {}
     # THE main path of 17(b): counts at zero just before, read just after
     pa.launches = 0
-    for route in pa.route_launches:
-        pa.route_launches[route] = 0
+    zero_launches(pa)
     for kv in (None, "int8"):
         engine = serving.DecodeEngine(model, slots=SLOTS, total_len=MAX_LEN,
                                       kv_dtype=kv, device=dev)
@@ -6172,7 +6301,7 @@ def wide_serving(torch, pa, dev, model):
               "the engine's automatic block is {}, not {}".format(
                   engine.kv_block_size, BLOCK))
         with engine:
-            out, wall = serve_over_http(serving, engine, reqs)
+            out, wall = serve_over_http(serving, engine, legs[kv])
             counts = engine.counters.snapshot()["counts"]
             runs[kv] = {"out": out, "wall": wall, "counts": counts,
                         "ttft_p50": engine.histograms["ttft"].quantile(0.5),
@@ -6184,14 +6313,15 @@ def wide_serving(torch, pa, dev, model):
     log("D256 serving paged launches by route: {} (decode steps {}, "
         "prefills {}, {} layers)".format(route_launches, steps, prefills,
                                         WIDE_LAYERS))
-    check(route_launches == {"split": WIDE_LAYERS * steps,
-                             "tiled": WIDE_LAYERS * prefills},
+    want = want_routes(pa, WIDE_LAYERS * steps, prefills)
+    check(route_launches == want,
           "D 256: decode steps did not all take the split route and "
-          "prefills the tiled one, once a layer")
-    gen = sum(n for _, n in reqs)
+          "prefills the window or tiled one by query count, once a layer: "
+          "{} vs {}".format(route_launches, want))
     for kv in (None, "int8"):
+        reqs = legs[kv]
         r = runs[kv]
-        r["tokens_per_s"] = gen / r["wall"]
+        r["tokens_per_s"] = sum(n for _, n in reqs) / r["wall"]
         t_oracle = time.monotonic()
         with serving.DecodeEngine(model, slots=SLOTS, total_len=MAX_LEN,
                                   kv_dtype=kv, attn_impl="gather",
@@ -6316,26 +6446,35 @@ def main():
     sys.path.insert(0, here)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from tensorflowonspark_tpu_torch import device_info
+    from tensorflowonspark_tpu_torch import device_info, generation
     from tensorflowonspark_tpu_torch.ops import _build
     from tensorflowonspark_tpu_torch.ops import flash_attention as fa
     from tensorflowonspark_tpu_torch.ops import paged_attention as pa
 
+    # every paged prefill of this process from here on, by query count:
+    # what the prefills owe each route in the exact launch checks
+    PREFILLS.install(generation)
     t_start = time.monotonic()
     card = device_info.describe().splitlines()[0]
     dev = device_info.default_device()
     log("card: " + card)
     log("torch {} cuda {}".format(torch.__version__, torch.version.cuda))
 
+    # the flash source builds (the longer) while the paged kernels are
+    # held and timed
     t0 = time.monotonic()
-    report = _build.build()
-    log("build: {:.2f}s ({})".format(time.monotonic() - t0, ", ".join(
-        "{} {:.2f}s".format(k, v["seconds"]) for k, v in report.items())))
-    for name, rep in report.items():
-        for line in rep["ptxas"].splitlines():
-            if ("registers" in line or "spill" in line
-                    or "Performance Loss" in line):
-                log("  {}: {}".format(name, line.strip()))
+    flash_build = {}
+
+    def build_flash():
+        try:
+            flash_build.update(_build.build(["flash_attention"]))
+        except Exception as e:  # re-raised on the main thread below
+            flash_build["error"] = e
+
+    builder = threading.Thread(target=build_flash)
+    builder.start()
+    report = _build.build(["paged_attention"])
+    log("build: paged_attention {:.2f}s".format(time.monotonic() - t0))
 
     max_err = kernel_cases(torch, pa, dev)
     timing = {"decode": {}, "prefill": {}, "prefill_cold": {}}
@@ -6365,6 +6504,18 @@ def main():
                 quant, t["device_ms"], t["device_ms"] / t["library_device_ms"],
                 t["library_device_ms"], 100.0 * t["bound_ms"] / t["device_ms"],
                 t["bound_ms"]))
+    builder.join()
+    if "error" in flash_build:
+        raise flash_build["error"]
+    report.update(flash_build)
+    log("build: {:.2f}s since the start ({})".format(
+        time.monotonic() - t0, ", ".join(
+            "{} {:.2f}s".format(k, v["seconds"]) for k, v in report.items())))
+    for name, rep in report.items():
+        for line in rep["ptxas"].splitlines():
+            if ("registers" in line or "spill" in line
+                    or "Performance Loss" in line):
+                log("  {}: {}".format(name, line.strip()))
 
     budget = kernel_budget(torch, fa, pa)
     flash_err = flash_cases(torch, fa, dev)
@@ -6468,6 +6619,14 @@ def main():
                       "calls": route_launches["split"],
                       "kernel_launches": 2 * route_launches["split"],
                       "shape": "decode"},
+            "window": {"kernels": ["paged_window_kernel",
+                                   "paged_window_combine_kernel"],
+                       "calls": route_launches["window"],
+                       "kernel_launches": 2 * route_launches["window"],
+                       "shape": "prefill tails of at most "
+                                "WINDOW_MAX_QUERIES queries (11(c)'s "
+                                "verify windows are in the "
+                                "paged_attention_window row)"},
             "tiled": {"kernels": ["paged_tiled_kernel"],
                       "calls": route_launches["tiled"],
                       "kernel_launches": route_launches["tiled"],
@@ -6476,8 +6635,39 @@ def main():
         "by_shape": {shape: {"float32": timing[shape][False],
                              "int8": timing[shape][True]}
                      for shape in timing},
-        # 11(a): the verify window, 8 slots x S_q 4 (the tiled route)
+        # 11(a): the verify window, 8 slots x S_q 4 (the window route)
         "verify": gen["verify"]}]}
+    t = gen["verify"]["float32"]
+    kernels["kernels"].append({
+        "name": "paged_attention_window",
+        "route": "cuda",
+        "source": "tensorflowonspark_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "tensorflowonspark_tpu/ops/paged_attention.py:210",
+        # 11(c): the speculative engines' verify windows and short
+        # prefill tails (counts zeroed before each engine, read after);
+        # phase 4's short prefill tails beside them
+        "launches": gen["launches_window"],
+        "launches_serving": route_launches["window"],
+        "launches_planes": planes["launches"]["window"],
+        "launches_fleet": fleet_res["launches"]["window"],
+        "launches_supervised": sup_res["launches"]["window"],
+        "launches_d256": wide["route_launches"]["window"],
+        "max_abs_err": max(max_err["window"], gen["verify_error"],
+                           wide["paged_err"]["window"]),
+        # 11(a)'s verify window, 8 slots x S_q 4, float32 (int8 in
+        # "verify"); ms per eager call, device time beside it
+        "ms": t["ms"],
+        "device_ms": t["device_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "bound_simt_ms": t["bound_simt_ms"],
+        "library_ms": t["library_ms"],
+        "library_device_ms": t["library_device_ms"],
+        "window_max_queries": pa.WINDOW_MAX_QUERIES,
+        "budget": {k: v for k, v in budget.items()
+                   if k.startswith("paged_window")},
+        "verify": gen["verify"]})
     t = timing["prefill"][False]
     kernels["kernels"].append({
         "name": "paged_attention_tiled",
@@ -6568,8 +6758,10 @@ def main():
     # serving (paged) and 17(c)'s training (flash, float32)
     for name, route, shape, note in (
             ("paged_attention_split_d256", "split", "decode",
-             "the split-KV route at D 256 (float32 at 256: two 16-byte "
-             "vectors a lane); 17(b)'s decode steps"),
+             "the split-KV route at D 256 (paged_split256_kernel: 8 keys in "
+             "flight a warp, 16 at int8; the last CTA of each row and head "
+             "merges the splits, no combine kernel); 17(b)'s decode "
+             "steps"),
             ("paged_attention_tiled_d256", "tiled", "prefill",
              "the tensor-core tiled route at D 256 (paged_tiled_kernel<Q, "
              "256>: 32-key tiles, 4 partial sums of S), block 16; 17(b)'s "

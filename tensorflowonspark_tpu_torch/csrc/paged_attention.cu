@@ -11,7 +11,7 @@
 // nblk(b) = min((max_i pos[b,i] + bs) / bs, MB) blocks. int8 pools hold
 // codes with one float32 scale per (token row, head); K = codes * scale.
 //
-// Two routes, one source. The TPU kernel walks a sequential grid axis
+// Three routes, one source. The TPU kernel walks a sequential grid axis
 // over table slots and carries its online-softmax state in VMEM from one
 // grid step to the next; CUDA blocks run in no order, so each route
 // loops over live keys inside a CTA, reads the table and positions from
@@ -36,9 +36,7 @@
 //   is read by D / VEC lanes with 16-byte ld.global.nc loads straight
 //   into registers (VEC = 4 float32 or 16 int8 codes, dequantized right
 //   after the load), several keys per warp-wide load, the query held
-//   in registers. A row of more than 32 vectors (float32 at D 256) is
-//   read by the whole warp, each lane carrying two vectors of it
-//   (SplitShape), with half as many loads in flight per vector. A dot reduces over the lanes that share its key with
+//   in registers. A dot reduces over the lanes that share its key with
 //   __shfl_xor_sync; each group of lanes carries its own online-softmax
 //   state over its keys, the groups are merged by shuffles and the warps
 //   through shared memory in a fixed order, and the CTA writes (m, l,
@@ -47,8 +45,30 @@
 //   sum e^(m_s - M) acc_s / sum e^(m_s - M) l_s. Every launched split
 //   holds a visible key (its first key sits at or below the query's
 //   position); a row with no visible key launches no split and gives 0.
-//   Only decode takes this route: a window of several queries per row
-//   (as a speculative verify step would send) goes to the tiled kernel.
+//   At D 256 decode runs a kernel of its own (paged_split256_kernel):
+//   8 keys in flight a warp (16 at int8; the D <= 128 shape held 4 at
+//   float32), exp on ex2, the position and the first table entry read
+//   together, a grid with the split slowest (every row's first split is
+//   dispatched first, the dead splits of short rows last), and no
+//   combine kernel: the CTA that publishes a (row, head)'s last partial
+//   merges them all (last_to_publish, merge_splits: a ticket per (row,
+//   head) counted by atomics, the partials in split order, so the result
+//   stays deterministic), which saved the combine kernel's launch and
+//   its one L2 round trip a split.
+// - Window (tfos_paged_attention_window; 2 <= S_q <= 4 queries a row at
+//   those D: the speculative verify window). The split route's schedule
+//   for several queries: one CTA per (head, row, split of C = 8 blocks),
+//   each key row read from device memory once, into registers (4-element
+//   vectors: 16 bytes of float32, 4 of int8 codes), and dotted with
+//   every query of the row (Q from shared memory); each query keeps its
+//   own mask (key <= pos[b, i], positions not assumed consecutive) and
+//   online-softmax state, so a query that sees no key of a split carries
+//   m = -inf, l = 0 there and the merge skips it; a split launches iff
+//   its first key is at or below the row's highest position. The merge
+//   is folded into the last CTA as at D 256. Its cost grows with the
+//   queries a row (a dot's lanes reduce by shuffles per query), so past
+//   4 the tiled kernel, whose 16-row tile costs the same at 2 or 16, is
+//   faster (profile_paged.py --crossover; PERF.md).
 // - Query-tiled on the tensor cores (tfos_paged_attention_tiled; every
 //   other call, D <= 256: prefill tails, cold prompts, verify windows,
 //   decode at a D the split kernel is not built for). One CTA of 4 warps
@@ -116,6 +136,38 @@
 
 namespace {
 
+// CTA stamps for profile_paged.py --trace (built with -DTFOS_PAGED_TRACE
+// only): per CTA of the traced kernels, in launch order of its linear
+// block index, the globaltimer (ns) at its start and end and its SM.
+// Compiled out otherwise.
+#ifdef TFOS_PAGED_TRACE
+constexpr int TRACE_CTAS = 16384;
+__device__ unsigned long long tfos_trace[TRACE_CTAS][3];
+__device__ __forceinline__ unsigned long long trace_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ int trace_cta() {
+  return (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+}
+#define TFOS_TRACE_START const unsigned long long trace_t0 = trace_now()
+#define TFOS_TRACE_END                                                        \
+  do {                                                                        \
+    __syncthreads();                                                          \
+    if (threadIdx.x == 0 && trace_cta() < TRACE_CTAS) {                       \
+      unsigned smid;                                                          \
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));                       \
+      tfos_trace[trace_cta()][0] = trace_t0;                                  \
+      tfos_trace[trace_cta()][1] = trace_now();                               \
+      tfos_trace[trace_cta()][2] = smid;                                      \
+    }                                                                         \
+  } while (0)
+#else
+#define TFOS_TRACE_START
+#define TFOS_TRACE_END
+#endif
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
@@ -178,28 +230,32 @@ struct KVec {
   }
 };
 
-// fold state (m2, l2, a2) into (m, l, a): the reference's -inf guards
-template <int VEC>
+// fold state (m2, l2, a2) into (m, l, a): the reference's -inf guards;
+// LOG2: m in log2 units, weights on ex2 (the window and D-256 kernels)
+template <int VEC, bool LOG2 = false>
 __device__ __forceinline__ void merge(float& m, float& l, float (&a)[VEC],
                                       float m2, float l2,
                                       const float (&a2)[VEC]) {
   const float mn = fmaxf(m, m2);
   const float safe = (mn == -INFINITY) ? 0.f : mn;
-  const float c1 = (m == -INFINITY) ? 0.f : expf(m - safe);
-  const float c2 = (m2 == -INFINITY) ? 0.f : expf(m2 - safe);
+  const float c1 = (m == -INFINITY) ? 0.f
+                   : LOG2           ? ex2(m - safe)
+                                    : expf(m - safe);
+  const float c2 = (m2 == -INFINITY) ? 0.f
+                   : LOG2            ? ex2(m2 - safe)
+                                     : expf(m2 - safe);
   l = l * c1 + l2 * c2;
 #pragma unroll
   for (int e = 0; e < VEC; ++e) a[e] = a[e] * c1 + a2[e] * c2;
   m = mn;
 }
 
-// How the split kernel lays a key row of D elements over a warp: LPK
-// lanes share a row, each carrying NV 16-byte vectors of it (vector v of
-// the lane holds dims v LPK VEC + (lane % LPK) VEC .., so the row's lanes
-// read neighbouring 16 bytes); KPL keys per warp-wide load; U loads in
-// flight per operand. A row wider than 32 vectors (float32 at D 256: 64)
-// puts NV = 2 on each lane and halves U, so a lane keeps as many loads
-// in flight as at D 128.
+// How the split kernel lays a key row of D <= 128 elements over a warp:
+// LPK lanes share a row, each carrying NV 16-byte vectors of it (vector v
+// of the lane holds dims v LPK VEC + (lane % LPK) VEC .., so the row's
+// lanes read neighbouring 16 bytes); KPL keys per warp-wide load; U loads
+// in flight per operand. (A row wider than 32 vectors would put NV = 2 on
+// each lane; D 256 has a kernel of its own, paged_split256_kernel.)
 template <bool QUANT, int D>
 struct SplitShape {
   static constexpr int VEC = KVec<QUANT>::VEC;
@@ -224,6 +280,7 @@ paged_split_kernel(const float* __restrict__ q,
                    const int* __restrict__ table, const int* __restrict__ pos,
                    float* __restrict__ ws, int N, int P, int bs, int MB, int C,
                    float scale) {
+  TFOS_TRACE_START;
   using SS = SplitShape<QUANT, D>;
   constexpr int VEC = SS::VEC;
   constexpr int NV = SS::NV;               // vectors a lane carries per row
@@ -349,6 +406,7 @@ paged_split_kernel(const float* __restrict__ q,
       slot[D + 1] = ll;
     }
   }
+  TFOS_TRACE_END;
 }
 
 // One warp per (row, head): merge its live splits in split order.
@@ -406,6 +464,576 @@ int split_launch(const float* q, const void* k_pool, const void* v_pool,
   paged_combine_kernel<D>
       <<<(items + SPLIT_WARPS - 1) / SPLIT_WARPS, SPLIT_THREADS, 0, st>>>(
           ws, pos, out, N, bs, MB, C, splits, items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- folded merge (window route; split-KV decode at D 256) -----------------
+
+// The CTA that publishes a (row, head)'s last partial merges them all:
+// every thread fences the partial it wrote; then one thread adds one to
+// the pair's ticket with acquire-release semantics (so the CTA that
+// takes the count to ``ns``, the splits the row launched, sees every
+// other CTA's partial after the barrier) and, in that CTA, puts the
+// ticket back to 0 for the next call (the wrapper hands each call
+// tickets of its own, all 0). Which CTA merges depends on timing; what
+// it computes does not (the splits merge in split order), so two calls
+// on the same inputs are bitwise equal.
+__device__ __forceinline__ bool last_to_publish(int* ticket, int ns) {
+  __shared__ int s_last;
+  __threadfence();                         // this thread's partial, published
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int old;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+                 : "=r"(old)
+                 : "l"(ticket)
+                 : "memory");
+    s_last = old == ns - 1;
+    if (s_last) *reinterpret_cast<volatile int*>(ticket) = 0;
+  }
+  __syncthreads();
+  return s_last;
+}
+
+// Merge the ``ns`` partials (acc[D], m, l; m in log2 units) of each of
+// the S_q <= QN queries of one (row, head) — query i's at w + i splits
+// (D + 2), split s at + s (D + 2) — in split order: M = max m_s, out =
+// sum 2^(m_s - M) acc_s / sum 2^(m_s - M) l_s (a split with m = -inf adds
+// nothing; no visible key at all gives 0). A thread owns K output
+// elements; it loads their acc from the first SR splits into registers
+// while the (query, split) pairs' m and l go to shared memory (up to
+// ``MERGE_PAIRS`` of them; past that, from L2 in the loop), so a merge of
+// up to SR splits waits on one L2 round trip. Partials are read through
+// L2 (``__ldcg``): other SMs wrote them. Query i's output goes to out + i
+// qstride.
+constexpr int MERGE_PAIRS = 256;
+
+template <int D, int QN>
+__device__ __forceinline__ void merge_splits(const float* __restrict__ w,
+                                             int S_q, int splits, int ns,
+                                             float* __restrict__ out,
+                                             size_t qstride) {
+  constexpr int K = (QN * D + SPLIT_THREADS - 1) / SPLIT_THREADS;
+  constexpr int SR = K >= 32 ? 1 : 32 / K;
+  __shared__ float s_m[MERGE_PAIRS];
+  __shared__ float s_l[MERGE_PAIRS];
+  const bool staged = S_q * ns <= MERGE_PAIRS;   // CTA-uniform
+  if (staged)
+    for (int t = threadIdx.x; t < S_q * ns; t += SPLIT_THREADS) {
+      const int i = t / ns;
+      const float* slot = w + ((size_t)i * splits + (t - i * ns)) * (D + 2);
+      s_m[t] = __ldcg(slot + D);
+      s_l[t] = __ldcg(slot + D + 1);
+    }
+  float a[K][SR];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int x = threadIdx.x + k * SPLIT_THREADS;
+    const int i = x / D;
+    const float* col = w + (size_t)i * splits * (D + 2) + (x - i * D);
+#pragma unroll
+    for (int s = 0; s < SR; ++s)
+      a[k][s] = (x < S_q * D && s < ns) ? __ldcg(col + (size_t)s * (D + 2))
+                                         : 0.f;
+  }
+  if (staged) __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int x = threadIdx.x + k * SPLIT_THREADS;
+    if (x >= S_q * D) break;
+    const int i = x / D;
+    const float* wi = w + (size_t)i * splits * (D + 2);
+    const float* col = wi + (x - i * D);
+    float M = -INFINITY;
+    for (int s = 0; s < ns; ++s)
+      M = fmaxf(M, staged ? s_m[i * ns + s]
+                          : __ldcg(wi + (size_t)s * (D + 2) + D));
+    const float safe = (M == -INFINITY) ? 0.f : M;
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int s = 0; s < SR; ++s) {
+      if (s < ns) {
+        const float ms = staged ? s_m[i * ns + s]
+                                : __ldcg(wi + (size_t)s * (D + 2) + D);
+        const float ls = staged ? s_l[i * ns + s]
+                                : __ldcg(wi + (size_t)s * (D + 2) + D + 1);
+        const float c = (ms == -INFINITY) ? 0.f : ex2(ms - safe);
+        L += c * ls;
+        A += c * a[k][s];
+      }
+    }
+    for (int s = SR; s < ns; ++s) {
+      const float ms = staged ? s_m[i * ns + s]
+                              : __ldcg(wi + (size_t)s * (D + 2) + D);
+      const float ls = staged ? s_l[i * ns + s]
+                              : __ldcg(wi + (size_t)s * (D + 2) + D + 1);
+      const float c = (ms == -INFINITY) ? 0.f : ex2(ms - safe);
+      L += c * ls;
+      A += c * __ldcg(col + (size_t)s * (D + 2));
+    }
+    out[i * qstride + (x - i * D)] = A / (L == 0.f ? 1.f : L);
+  }
+}
+
+// -- split-KV decode at D 256 ----------------------------------------------
+
+// How the D-256 decode kernel lays a key row over a warp: float32 rows of
+// 1 KB are read by the whole warp, two 16-byte vectors a lane (one key a
+// warp-wide load, 8 in flight); int8 rows of 256 codes by 16 lanes, one
+// 16-byte vector a lane (two keys a load, 8 loads in flight).
+template <bool QUANT>
+struct Split256 {
+  static constexpr int VEC = KVec<QUANT>::VEC;
+  static constexpr int NV = QUANT ? 1 : 2;
+  static constexpr int LPK = 256 / (VEC * NV);
+  static constexpr int KPL = 32 / LPK;
+  static constexpr int U = 8;
+  static constexpr int E = NV * VEC;
+};
+
+// One CTA per (split, head, row) of a D-256 decode step: the row's one
+// query against its pool blocks [sp C, min((sp + 1) C, live)), warp w the
+// blocks j_lo + w, j_lo + w + 4, .. of them, 8 keys (int8: 16) in flight
+// a round (float32: two rounds a block of 16, where the D <= 128 kernel's
+// shape held 4 at D 256 and took 4).
+// are read together; the softmax runs on ex2. Each CTA writes its partial
+// (acc[256], m, l) to ws[(b N + h) splits + sp][258], and the last CTA of
+// the (row, head) to publish merges them into out (last_to_publish): no
+// combine kernel.
+template <bool QUANT>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+paged_split256_kernel(const float* __restrict__ q,
+                      const void* __restrict__ k_pool,
+                      const void* __restrict__ v_pool,
+                      const float* __restrict__ k_scale,
+                      const float* __restrict__ v_scale,
+                      const int* __restrict__ table,
+                      const int* __restrict__ pos, float* __restrict__ ws,
+                      float* __restrict__ out, int* __restrict__ tickets,
+                      int N, int P, int bs, int MB, int C, float scale) {
+  TFOS_TRACE_START;
+  constexpr int D = 256;
+  using SS = Split256<QUANT>;
+  constexpr int VEC = SS::VEC, NV = SS::NV, LPK = SS::LPK, KPL = SS::KPL;
+  constexpr int U = SS::U, E = SS::E;
+  __shared__ float s_m[SPLIT_WARPS];
+  __shared__ float s_l[SPLIT_WARPS];
+  __shared__ float s_acc[SPLIT_WARPS][D];
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int sp = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int j_lo = sp * C;
+  // the position and the warp's first table entry, read together (a
+  // table entry is read only when its block turns out live)
+  const int pq = pos[b];
+  const int jw = min(j_lo + warp, MB - 1);
+  int bid = table[(size_t)b * MB + jw];
+  const int live = live_blocks(pq, bs, MB);
+  if (j_lo >= live) return;                // CTA-uniform
+  const int j_hi = min(j_lo + C, live);
+  const float sl = scale * LOG2E;          // scores in log2 units
+
+  const int kg = lane / LPK;
+  const int d0 = (lane % LPK) * VEC;
+  const float* qr = q + ((size_t)b * N + h) * D;
+  float qv[E], acc[E];
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      qv[v * VEC + e] = qr[v * LPK * VEC + d0 + e];
+      acc[v * VEC + e] = 0.f;
+    }
+  float m = -INFINITY, l = 0.f;
+
+  for (int j = j_lo + warp; j < j_hi; j += SPLIT_WARPS) {
+    if (j != jw) bid = table[(size_t)b * MB + j];
+    if (bid < 0 || bid >= P) __trap();     // a table entry outside the pool
+    for (int t0 = 0; t0 < bs; t0 += U * KPL) {
+      KVec<QUANT> kx[U][NV], vx[U][NV];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int tok = t0 + u * KPL + kg;
+        const bool ok = tok < bs;
+        const size_t row = ((size_t)bid * bs + (ok ? tok : 0)) * N + h;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          kx[u][v].load(k_pool, k_scale, row, D, v * LPK * VEC + d0, ok);
+          vx[u][v].load(v_pool, v_scale, row, D, v * LPK * VEC + d0, ok);
+        }
+      }
+      float s[U];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int tok = t0 + u * KPL + kg;
+        float dot = 0.f;
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            dot = fmaf(qv[v * VEC + e], kx[u][v].at(e), dot);
+#pragma unroll
+        for (int o = 1; o < LPK; o <<= 1) dot += __shfl_xor_sync(FULL, dot, o);
+        s[u] = (tok < bs && j * bs + tok <= pq) ? dot * sl : -INFINITY;
+        mx = fmaxf(mx, s[u]);
+      }
+      const float m_new = fmaxf(m, mx);
+      const float safe = (m_new == -INFINITY) ? 0.f : m_new;
+      const float corr = (m == -INFINITY) ? 0.f : ex2(m - safe);
+      l *= corr;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] *= corr;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p = (s[u] == -INFINITY) ? 0.f : ex2(s[u] - safe);
+        l += p;
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[v * VEC + e] = fmaf(p, vx[u][v].at(e), acc[v * VEC + e]);
+      }
+      m = m_new;
+    }
+  }
+
+  // key groups (int8: two a load) merge by shuffles, the warps in order
+  // 0..3 through shared memory (m in log2 units throughout)
+#pragma unroll
+  for (int o = LPK; o < 32; o <<= 1) {
+    float a2[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) a2[e] = __shfl_xor_sync(FULL, acc[e], o);
+    const float m2 = __shfl_xor_sync(FULL, m, o);
+    const float l2 = __shfl_xor_sync(FULL, l, o);
+    merge<E, true>(m, l, acc, m2, l2, a2);
+  }
+  if (kg == 0) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        s_acc[warp][v * LPK * VEC + d0 + e] = acc[v * VEC + e];
+    if (lane == 0) {
+      s_m[warp] = m;
+      s_l[warp] = l;
+    }
+  }
+  __syncthreads();
+  float* slot = ws + (((size_t)b * N + h) * gridDim.z + sp) * (D + 2);
+  for (int d = threadIdx.x; d < D; d += SPLIT_THREADS) {
+    float mm = s_m[0], ll = s_l[0];
+    float aa[1] = {s_acc[0][d]};
+#pragma unroll
+    for (int w = 1; w < SPLIT_WARPS; ++w) {
+      const float a2[1] = {s_acc[w][d]};
+      merge<1, true>(mm, ll, aa, s_m[w], s_l[w], a2);
+    }
+    slot[d] = aa[0];
+    if (d == 0) {
+      slot[D] = mm;
+      slot[D + 1] = ll;
+    }
+  }
+  const int bh = b * N + h;
+  if (last_to_publish(tickets + bh, (live + C - 1) / C))
+    merge_splits<D, 1>(ws + (size_t)bh * gridDim.z * (D + 2), 1, gridDim.z,
+                       (live + C - 1) / C, out + (size_t)bh * D, 0);
+  TFOS_TRACE_END;
+}
+
+template <bool QUANT>
+int split256_launch(const float* q, const void* k_pool, const void* v_pool,
+                    const float* k_scale, const float* v_scale,
+                    const int* table, const int* pos, float* ws, float* out,
+                    int* tickets, int B, int N, int P, int bs, int MB, int C,
+                    float scale, cudaStream_t st) {
+  const int splits = (MB + C - 1) / C;
+  paged_split256_kernel<QUANT><<<dim3(N, B, splits), SPLIT_THREADS, 0, st>>>(
+      q, k_pool, v_pool, k_scale, v_scale, table, pos, ws, out, tickets, N, P,
+      bs, MB, C, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- window route (2 <= S_q <= WINDOW_MAX_QUERIES) -------------------------
+
+// How the window kernel lays a key row over a warp: 4-element vectors
+// (16 bytes of float32, 4 bytes of int8 codes, so both dtypes share one
+// shape and a lane's share of a key row stays 4 or 8 registers), LPK
+// lanes a row, NV vectors a lane (2 at D 256), KPL keys a warp-wide load.
+template <int D>
+struct WinShape {
+  static constexpr int NV = D / 4 > 32 ? D / 128 : 1;
+  static constexpr int LPK = D / (4 * NV);
+  static constexpr int KPL = 32 / LPK;
+  static constexpr int E = 4 * NV;         // dims a lane holds
+  static_assert(D % (4 * NV) == 0 && LPK <= 32 && 32 % LPK == 0,
+                "a key row must split into a power-of-two of lanes");
+};
+
+// keys a lane holds in flight per operand (U, a power of two up to 8):
+// what is left of ~160 registers once its QN accumulators of E floats
+// and their (m, l) are counted, at 8 NV registers a key (K and V)
+template <int D, int QN>
+__host__ __device__ constexpr int win_loads() {
+  constexpr int u =
+      (160 - QN * (WinShape<D>::E + 2)) / (8 * WinShape<D>::NV);
+  return u >= 8 ? 8 : u >= 4 ? 4 : u >= 2 ? 2 : 1;
+}
+
+// one 4-element vector of a key row: float32 values, or int8 codes as
+// floats (the scale is applied to the dot, and to p, outside)
+template <bool QUANT>
+__device__ __forceinline__ float4 win_load(const void* pool, size_t e,
+                                           bool ok) {
+  if (!ok) return make_float4(0.f, 0.f, 0.f, 0.f);
+  if (QUANT) {
+    const char4 c =
+        __ldg(reinterpret_cast<const char4*>(static_cast<const int8_t*>(pool) +
+                                             e));
+    return make_float4(c.x, c.y, c.z, c.w);
+  }
+  return __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(pool) +
+                                               e));
+}
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// dynamic shared memory of one window CTA: the QN x D query tile, whose
+// space the 4 warps' (acc[D], m, l) per query reuse for their merge
+template <int D, int QN>
+__host__ __device__ constexpr size_t win_smem() {
+  return (size_t)SPLIT_WARPS * QN * (D + 2) * sizeof(float);
+}
+
+// One CTA per (split, head, row): the row's S_q <= QN queries against its
+// pool blocks [sp C, min((sp + 1) C, live)), live from the row's highest
+// position. Each key row is loaded once, into registers, and dotted with
+// every query (Q from shared memory); each query keeps its own mask (key
+// <= pos[b, i]) and online-softmax state (in log2 units, on ex2). The
+// positions, the query tile and the warp's first table entry are read
+// together. Writes (acc[D], m, l) of query i to ws[((b N + h) S_q + i)
+// splits + sp][D + 2] (a query with no visible key in the split: m =
+// -inf, l = 0), and the last CTA of the (row, head) to publish merges
+// them into out (last_to_publish). The launch bound's 2 CTAs an SM keep
+// ptxas from capping some instantiations at 128 registers and spilling.
+template <bool QUANT, int D, int QN>
+__global__ void __launch_bounds__(SPLIT_THREADS, 2)
+paged_window_kernel(const float* __restrict__ q,
+                    const void* __restrict__ k_pool,
+                    const void* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ table,
+                    const int* __restrict__ pos, float* __restrict__ ws,
+                    float* __restrict__ out, int* __restrict__ tickets,
+                    int S_q, int N, int P, int bs, int MB, int C,
+                    float scale) {
+  TFOS_TRACE_START;
+  using WS = WinShape<D>;
+  constexpr int NV = WS::NV, LPK = WS::LPK, KPL = WS::KPL, E = WS::E;
+  constexpr int U = win_loads<D, QN>();
+  extern __shared__ __align__(16) float win_buf[];
+  __shared__ int s_pos[QN];
+  __shared__ int s_pmax[SPLIT_WARPS];
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int sp = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int j_lo = sp * C;
+  // the positions (one a thread), the query tile (pad queries are zero
+  // and see no key) and the warp's first table entry, read together
+  const int* prow = pos + (size_t)b * S_q;
+  const int pt = threadIdx.x < S_q ? prow[threadIdx.x] : INT_MIN;
+  const int jw = min(j_lo + warp, MB - 1);
+  int bid = table[(size_t)b * MB + jw];
+  for (int e = threadIdx.x; e < QN * D; e += SPLIT_THREADS) {
+    const int i = e / D;
+    win_buf[e] = i < S_q ? q[(((size_t)b * S_q + i) * N + h) * D + e % D]
+                         : 0.f;
+  }
+  if (threadIdx.x < QN) s_pos[threadIdx.x] = pt;
+  int pw = pt;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) pw = max(pw, __shfl_xor_sync(FULL, pw, o));
+  if (lane == 0) s_pmax[warp] = pw;
+  __syncthreads();
+  int pmax = s_pmax[0];
+#pragma unroll
+  for (int w = 1; w < SPLIT_WARPS; ++w) pmax = max(pmax, s_pmax[w]);
+  const int live = live_blocks(pmax, bs, MB);
+  if (j_lo >= live) return;                // CTA-uniform
+  const int j_hi = min(j_lo + C, live);
+  const float sl = scale * LOG2E;          // scores in log2 units
+
+  const int kg = lane / LPK;               // the lane's key within a load
+  const int d0 = (lane % LPK) * 4;         // its dims in vector 0
+  float acc[QN][E], m[QN], l[QN];
+#pragma unroll
+  for (int i = 0; i < QN; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int j = j_lo + warp; j < j_hi; j += SPLIT_WARPS) {
+    if (j != jw) bid = table[(size_t)b * MB + j];
+    if (bid < 0 || bid >= P) __trap();     // a table entry outside the pool
+    for (int t0 = 0; t0 < bs; t0 += U * KPL) {
+      float4 kx[U][NV], vx[U][NV];
+      float ksc[U], vsc[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int tok = t0 + u * KPL + kg;
+        const bool ok = tok < bs;
+        const size_t row = ((size_t)bid * bs + (ok ? tok : 0)) * N + h;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          kx[u][v] = win_load<QUANT>(k_pool, row * D + v * LPK * 4 + d0, ok);
+          vx[u][v] = win_load<QUANT>(v_pool, row * D + v * LPK * 4 + d0, ok);
+        }
+        ksc[u] = QUANT && ok ? __ldg(k_scale + row) * sl : sl;
+        vsc[u] = QUANT && ok ? __ldg(v_scale + row) : 1.f;
+      }
+#pragma unroll
+      for (int i = 0; i < QN; ++i) {
+        float qi[E];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              win_buf + i * D + v * LPK * 4 + d0);
+          qi[v * 4] = x.x;
+          qi[v * 4 + 1] = x.y;
+          qi[v * 4 + 2] = x.z;
+          qi[v * 4 + 3] = x.w;
+        }
+        const int pi = s_pos[i];
+        float s[U];
+        float mx = -INFINITY;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int tok = t0 + u * KPL + kg;
+          float dot = 0.f;
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dot = fmaf(qi[v * 4 + e], comp(kx[u][v], e), dot);
+#pragma unroll
+          for (int o = 1; o < LPK; o <<= 1)
+            dot += __shfl_xor_sync(FULL, dot, o);
+          s[u] = (tok < bs && j * bs + tok <= pi) ? dot * ksc[u] : -INFINITY;
+          mx = fmaxf(mx, s[u]);
+        }
+        const float m_new = fmaxf(m[i], mx);
+        const float safe = (m_new == -INFINITY) ? 0.f : m_new;
+        const float corr = (m[i] == -INFINITY) ? 0.f : ex2(m[i] - safe);
+        l[i] *= corr;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[i][e] *= corr;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float p = (s[u] == -INFINITY) ? 0.f : ex2(s[u] - safe);
+          l[i] += p;
+          const float pv = p * vsc[u];
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][v * 4 + e] =
+                  fmaf(pv, comp(vx[u][v], e), acc[i][v * 4 + e]);
+        }
+        m[i] = m_new;
+      }
+    }
+  }
+
+  // the warp's key groups hold the same dims: merge them by shuffles
+#pragma unroll
+  for (int o = LPK; o < 32; o <<= 1) {
+#pragma unroll
+    for (int i = 0; i < QN; ++i) {
+      float a2[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) a2[e] = __shfl_xor_sync(FULL, acc[i][e], o);
+      const float m2 = __shfl_xor_sync(FULL, m[i], o);
+      const float l2 = __shfl_xor_sync(FULL, l[i], o);
+      merge<E, true>(m[i], l[i], acc[i], m2, l2, a2);
+    }
+  }
+  __syncthreads();                         // every warp is done with Q
+  // warp w's state of query i at win_buf[(w QN + i) (D + 2)]: acc, m, l
+  if (kg == 0) {
+#pragma unroll
+    for (int i = 0; i < QN; ++i) {
+      float* st = win_buf + (warp * QN + i) * (D + 2);
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[v * LPK * 4 + d0 + e] = acc[i][v * 4 + e];
+      if (lane == 0) {
+        st[D] = m[i];
+        st[D + 1] = l[i];
+      }
+    }
+  }
+  __syncthreads();
+  // the warps merged in order 0..3, per query
+  const int bh = b * N + h;
+  for (int x = threadIdx.x; x < S_q * D; x += SPLIT_THREADS) {
+    const int i = x / D;
+    const int d = x - i * D;
+    const float* st = win_buf + i * (D + 2);
+    float mm = st[D], ll = st[D + 1];
+    float aa[1] = {st[d]};
+#pragma unroll
+    for (int w = 1; w < SPLIT_WARPS; ++w) {
+      const float* s2 = win_buf + (w * QN + i) * (D + 2);
+      const float a2[1] = {s2[d]};
+      merge<1, true>(mm, ll, aa, s2[D], s2[D + 1], a2);
+    }
+    float* slot = ws + (((size_t)bh * S_q + i) * gridDim.z + sp) * (D + 2);
+    slot[d] = aa[0];
+    if (d == 0) {
+      slot[D] = mm;
+      slot[D + 1] = ll;
+    }
+  }
+  if (last_to_publish(tickets + bh, (live + C - 1) / C))
+    merge_splits<D, QN>(ws + (size_t)bh * S_q * gridDim.z * (D + 2), S_q,
+                        gridDim.z, (live + C - 1) / C,
+                        out + ((size_t)b * S_q * N + h) * D, (size_t)N * D);
+  TFOS_TRACE_END;
+}
+
+template <bool QUANT, int D, int QN>
+int window_prepare() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      paged_window_kernel<QUANT, D, QN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)win_smem<D, QN>()));
+}
+
+template <bool QUANT, int D, int QN>
+int window_launch(const float* q, const void* k_pool, const void* v_pool,
+                  const float* k_scale, const float* v_scale,
+                  const int* table, const int* pos, float* ws, float* out,
+                  int* tickets, int B, int S_q, int N, int P, int bs, int MB,
+                  int C, float scale, cudaStream_t st) {
+  if (int e = window_prepare<QUANT, D, QN>()) return e;
+  const int splits = (MB + C - 1) / C;
+  paged_window_kernel<QUANT, D, QN>
+      <<<dim3(N, B, splits), SPLIT_THREADS, win_smem<D, QN>(), st>>>(
+          q, k_pool, v_pool, k_scale, v_scale, table, pos, ws, out, tickets,
+          S_q, N, P, bs, MB, C, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -892,8 +1520,61 @@ int kernel_budget(K kern, int threads, size_t dyn, int* out) {
 
 template <bool QUANT, int D>
 int split_budget(int* out) {
-  return kernel_budget(paged_split_kernel<QUANT, D>, SPLIT_THREADS, 0, out);
+  if constexpr (D == 256)
+    return kernel_budget(paged_split256_kernel<QUANT>, SPLIT_THREADS, 0, out);
+  else
+    return kernel_budget(paged_split_kernel<QUANT, D>, SPLIT_THREADS, 0, out);
 }
+
+template <bool QUANT, int D, int QN>
+int window_budget(int* out) {
+  if (int e = window_prepare<QUANT, D, QN>()) return e;
+  return kernel_budget(paged_window_kernel<QUANT, D, QN>, SPLIT_THREADS,
+                       win_smem<D, QN>(), out);
+}
+
+// the window instantiation S_q queries take: QN = S_q rounded up to 2 or
+// 4, the route's widest (ops/paged_attention.py WINDOW_MAX_QUERIES: the
+// window kernel loses to the tiled one above; 0 above 4). A build with
+// -DTFOS_WINDOW_WIDE (profile_paged.py --crossover) also has 8 and 16,
+// to time that crossover.
+inline int window_queries(int S_q) {
+#ifdef TFOS_WINDOW_WIDE
+  if (S_q > 4) return S_q <= 8 ? 8 : S_q <= 16 ? 16 : 0;
+#endif
+  return S_q <= 2 ? 2 : S_q <= 4 ? 4 : 0;
+}
+
+#ifdef TFOS_WINDOW_WIDE
+#define TFOS_WINDOW_WIDE_CASES(FN, QUANT, D, ...)                             \
+  case 8: TFOS_WINDOW_D(FN, QUANT, D, 8, __VA_ARGS__); break;                 \
+  case 16: TFOS_WINDOW_D(FN, QUANT, D, 16, __VA_ARGS__); break;
+#else
+#define TFOS_WINDOW_WIDE_CASES(FN, QUANT, D, ...)
+#endif
+
+#define TFOS_WINDOW_DISPATCH(FN, QUANT, D, QN, ...)                           \
+  do {                                                                        \
+    switch (QN) {                                                             \
+      case 2: TFOS_WINDOW_D(FN, QUANT, D, 2, __VA_ARGS__); break;             \
+      case 4: TFOS_WINDOW_D(FN, QUANT, D, 4, __VA_ARGS__); break;             \
+      TFOS_WINDOW_WIDE_CASES(FN, QUANT, D, __VA_ARGS__)                       \
+    }                                                                         \
+    return static_cast<int>(cudaErrorInvalidValue);                           \
+  } while (0)
+#define TFOS_WINDOW_D(FN, QUANT, D, QN, ...)                                  \
+  switch (D) {                                                                \
+    case 16: return QUANT ? FN<true, 16, QN>(__VA_ARGS__)                     \
+                          : FN<false, 16, QN>(__VA_ARGS__);                   \
+    case 32: return QUANT ? FN<true, 32, QN>(__VA_ARGS__)                     \
+                          : FN<false, 32, QN>(__VA_ARGS__);                   \
+    case 64: return QUANT ? FN<true, 64, QN>(__VA_ARGS__)                     \
+                          : FN<false, 64, QN>(__VA_ARGS__);                   \
+    case 128: return QUANT ? FN<true, 128, QN>(__VA_ARGS__)                   \
+                           : FN<false, 128, QN>(__VA_ARGS__);                 \
+    case 256: return QUANT ? FN<true, 256, QN>(__VA_ARGS__)                   \
+                           : FN<false, 256, QN>(__VA_ARGS__);                 \
+  }
 
 // the instantiation a head dim takes: D rounded up to 16, 32, 64, 128 or
 // 256 (0 above 256)
@@ -931,20 +1612,29 @@ inline int padded_dim(int D) {
 }  // namespace
 
 // Launch the split-KV route on ``stream`` for one query per row
-// (decode: q [B, 1, N, D], pos [B, 1]): the split kernel, C pool blocks
-// per split, into the float32 workspace ``ws`` [B, N, ceil(MB / C),
-// D + 2], then the combine kernel into ``out``. D in {16, 32, 64, 128,
-// 256},
-// pools 16-byte aligned (the caller checks). Returns the first launch's
-// CUDA error (0 when both were accepted).
+// (decode: q [B, 1, N, D], pos [B, 1]), C pool blocks per split, through
+// the float32 workspace ``ws`` [B, N, ceil(MB / C), D + 2] into ``out``:
+// at D in {16, 32, 64, 128} the split kernel, then the combine kernel; at
+// D 256 the D-256 kernel alone, its last CTA of each (row, head) merging
+// (``tickets``: B N ints, all 0, left 0). Pools 16-byte aligned (the
+// caller checks). Returns the first launch's CUDA error (0 when every
+// launch was accepted).
 extern "C" int tfos_paged_attention_split(
     const float* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* table,
-    const int* pos, float* ws, float* out, int B, int N, int D, int P,
-    int bs, int MB, int C, float scale, int quantized, void* stream) {
+    const int* pos, float* ws, float* out, int* tickets, int B, int N, int D,
+    int P, int bs, int MB, int C, float scale, int quantized, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if (C <= 0 || MB <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 256)
+    return quantized
+               ? split256_launch<true>(q, k_pool, v_pool, k_scale, v_scale,
+                                       table, pos, ws, out, tickets, B, N, P,
+                                       bs, MB, C, scale, st)
+               : split256_launch<false>(q, k_pool, v_pool, k_scale, v_scale,
+                                        table, pos, ws, out, tickets, B, N, P,
+                                        bs, MB, C, scale, st);
 #define TFOS_SPLIT(QUANT, DD)                                               \
   return split_launch<QUANT, DD>(q, k_pool, v_pool, k_scale, v_scale, table, \
                                  pos, ws, out, B, N, P, bs, MB, C, scale, st)
@@ -954,7 +1644,6 @@ extern "C" int tfos_paged_attention_split(
       case 32: TFOS_SPLIT(true, 32);
       case 64: TFOS_SPLIT(true, 64);
       case 128: TFOS_SPLIT(true, 128);
-      case 256: TFOS_SPLIT(true, 256);
     }
   } else {
     switch (D) {
@@ -962,11 +1651,31 @@ extern "C" int tfos_paged_attention_split(
       case 32: TFOS_SPLIT(false, 32);
       case 64: TFOS_SPLIT(false, 64);
       case 128: TFOS_SPLIT(false, 128);
-      case 256: TFOS_SPLIT(false, 256);
     }
   }
 #undef TFOS_SPLIT
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Launch the window route on ``stream`` for 2 <= S_q <= 4 queries per row
+// (q [B, S_q, N, D], pos [B, S_q]): the window kernel, C pool blocks per
+// split, through the float32 workspace ``ws`` [B, N, S_q, ceil(MB / C),
+// D + 2] into ``out``, the last CTA of each (row, head) merging
+// (``tickets``: B N ints, all 0, left 0). D in {16, 32, 64, 128, 256},
+// pools 16-byte aligned (the caller checks). Returns the CUDA error of
+// the shared-memory attribute call or of the launch (0 when accepted).
+extern "C" int tfos_paged_attention_window(
+    const float* q, const void* k_pool, const void* v_pool,
+    const float* k_scale, const float* v_scale, const int* table,
+    const int* pos, float* ws, float* out, int* tickets, int B, int S_q,
+    int N, int D, int P, int bs, int MB, int C, float scale, int quantized,
+    void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (C <= 0 || MB <= 0 || S_q < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  TFOS_WINDOW_DISPATCH(window_launch, quantized, D, window_queries(S_q), q,
+                       k_pool, v_pool, k_scale, v_scale, table, pos, ws, out,
+                       tickets, B, S_q, N, P, bs, MB, C, scale, st);
 }
 
 // Launch the query-tiled tensor-core kernel on ``stream`` (D <= 256, any
@@ -998,9 +1707,15 @@ extern "C" int tfos_paged_attention_tiled(
 // The resource budget of one route's kernel for head dim D and pool
 // dtype: route 0 the query-tiled tensor-core kernel (its instantiation:
 // D rounded up to 16, 32, 64, 128 or 256), 1 the split-KV kernel (D in
-// {16, 32, 64, 128, 256}). out[4] = {CTAs per SM, registers per thread,
-// local (spill) bytes per thread, shared-memory bytes}.
-extern "C" int tfos_paged_budget(int route, int D, int quantized, int* out) {
+// {16, 32, 64, 128, 256}), 2 the window kernel at ``queries`` queries a
+// row (its instantiation: rounded up to 2 or 4). out[4] = {CTAs
+// per SM, registers per thread, local (spill) bytes per thread,
+// shared-memory bytes}.
+extern "C" int tfos_paged_budget(int route, int D, int quantized,
+                                 int queries, int* out) {
+  if (route == 2)
+    TFOS_WINDOW_DISPATCH(window_budget, quantized, D, window_queries(queries),
+                         out);
   if (route == 1) {
 #define TFOS_SPLIT_BUDGET(DD)                                               \
   case DD:                                                                  \
@@ -1017,3 +1732,16 @@ extern "C" int tfos_paged_budget(int route, int D, int quantized, int* out) {
   }
   TFOS_TILED_DISPATCH(tiled_budget, quantized, padded_dim(D), out);
 }
+
+#ifdef TFOS_PAGED_TRACE
+// Copy the first ``n`` CTA stamps {start ns, end ns, SM} out (``out`` on
+// the host, 3 n values) and clear them for the next traced call.
+extern "C" int tfos_paged_trace(unsigned long long* out, int n) {
+  if (n < 0 || n > TRACE_CTAS) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = sizeof(unsigned long long) * 3 * n;
+  if (cudaError_t e = cudaMemcpyFromSymbol(out, tfos_trace, bytes))
+    return static_cast<int>(e);
+  static unsigned long long zeros[TRACE_CTAS][3];
+  return static_cast<int>(cudaMemcpyToSymbol(tfos_trace, zeros, bytes));
+}
+#endif

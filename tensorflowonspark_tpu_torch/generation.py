@@ -35,7 +35,7 @@ head — the same modules, so the weights are tied by identity) proposes
 ``k`` tokens with ``k`` chained one-token steps
 (:func:`paged_propose_tokens`, the kernel's split-KV route), and the
 target scores the window ``[last, d_1..d_{k-1}]`` in one ``k``-query
-apply (:func:`paged_verify_step`, the tiled route);
+apply (:func:`paged_verify_step`: the window route, the tiled one past 4);
 :func:`paged_spec_round` wires the draft's picks into the verify feed
 on the device. KV shipping: :func:`gather_block_rows` /
 :func:`scatter_block_rows` read and write pool rows as stored (int8

@@ -45,8 +45,9 @@ _F = ctypes.c_float
 KERNELS = {
     "paged_attention": {
         "tfos_paged_attention_tiled": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
-        "tfos_paged_attention_split": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
-        "tfos_paged_budget": [_I] * 3 + [_P],
+        "tfos_paged_attention_split": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+        "tfos_paged_attention_window": [_P] * 10 + [_I] * 8 + [_F, _I, _P],
+        "tfos_paged_budget": [_I] * 4 + [_P],
     },
     "flash_attention": {
         "tfos_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _P],

@@ -21,7 +21,7 @@ Three formulations share that contract:
   (wrapper ``_pallas``). Bound on the H100: BYTES at decode — a step
   does ~2 flops per K/V byte it reads, so the floor is the live K/V
   (+ scales) over 3.35 TB/s; OPERATIONS at a prefill tail, whose keys
-  are each read by hundreds of queries. Two routes, chosen by the
+  are each read by hundreds of queries. Three routes, chosen by the
   call's shape (:func:`_route`), at any block size:
 
   - **split-KV** (S_q = :data:`SPLIT_MAX_QUERIES` = 1 at a head dim in
@@ -32,10 +32,18 @@ Three formulations share that contract:
     registers (int8 codes dequantized there), dots reduced across lanes
     by shuffles; each split's partial (m, l, acc) goes to a float32
     workspace allocated here, and a second kernel merges a (row, head)'s
-    splits in split order, so the result is deterministic;
+    splits in split order, so the result is deterministic. At head dim
+    256 a kernel of its own keeps 8 keys in flight a warp and merges in
+    the CTA that publishes a (row, head)'s last partial (a ticket from
+    :func:`_ticket_ptr`), with no second kernel;
+  - **window** (2 to :data:`WINDOW_MAX_QUERIES` queries a row at those
+    head dims: the speculative verify window): the same schedule, every
+    key row read once and dotted with each query of the row, a mask and
+    online-softmax state per query, :data:`WINDOW_BLOCKS` pool blocks a
+    CTA, the merge folded into the last CTA as at D 256;
   - **tiled** (every other call, head dim up to
-    :data:`TILED_MAX_HEAD_DIM`: prefill tails, cold prompts, verify
-    windows): tensor cores. One CTA of 4 warps per
+    :data:`TILED_MAX_HEAD_DIM`: prefill tails, cold prompts): tensor
+    cores. One CTA of 4 warps per
     :data:`QUERY_TILE`-query tile, the warps splitting the keys; key
     tiles that cross pool blocks stream through a two-stage ``cp.async``
     ring (int8 pools as codes), S = Q K^T and P V run as ``mma.sync``
@@ -71,9 +79,10 @@ import torch
 #: it) — how a run shows that its path went through the kernels
 launches = 0
 #: the same calls by route: "split" (two kernel launches a call: the
-#: split-KV kernel, then the combine kernel) or "tiled" (one launch of
-#: the tensor-core query-tiled kernel)
-route_launches = {"split": 0, "tiled": 0}
+#: split-KV kernel, then the combine kernel), "window" (two: the window
+#: kernel, then its combine kernel) or "tiled" (one launch of the
+#: tensor-core query-tiled kernel)
+route_launches = {"split": 0, "window": 0, "tiled": 0}
 _launches_lock = threading.Lock()  # engines launch from their own threads
 
 #: query rows one CTA of the query-tiled kernel handles
@@ -85,6 +94,20 @@ QUERY_TILE = 16
 #: route: every decode step (S_q = 1), the only shape the kernel is built
 #: for (it holds the row's one query and accumulator in registers)
 SPLIT_MAX_QUERIES = 1
+
+#: calls with 2 to this many queries per row take the window route (the
+#: speculative verify window) at a head dim in :data:`SPLIT_HEAD_DIMS`;
+#: wider calls the tiled one. The window kernel is instantiated for 2
+#: and 4 queries (3 runs the 4 with a masked pad query). 4 is where it
+#: stops beating the tiled kernel on the H100 at every width and dtype
+#: (``profile_paged.py --crossover``; PERF.md): its cost grows with the
+#: queries a row, the tiled kernel's does not up to its 16-row tile.
+#: Prefill buckets start at 8, so only verify windows take it.
+WINDOW_MAX_QUERIES = 4
+
+#: pool blocks one CTA of the window kernel takes: at the verify window
+#: (8 slots x 12 heads at depths 32..640) 8 puts its CTAs in one wave
+WINDOW_BLOCKS = 8
 
 #: pool blocks one CTA of the split-KV kernel takes (C): a decode step of
 #: 8 rows x 12 heads at depths 32..640 (block 16) has ~400 live CTAs
@@ -105,6 +128,39 @@ TILED_MAX_HEAD_DIM = 256
 
 #: the most shared memory one CTA may have on the H100 (227 KB)
 MAX_SMEM_BYTES = 232448
+
+#: int32 merge tickets per card: the window route and split-KV decode at
+#: D 256 merge a (row, head)'s splits in the CTA that publishes the last
+#: of them, found by counting on a ticket. Each call takes B x N tickets,
+#: the next ones in turn (wrapping around), all at 0, and leaves them at
+#: 0; so calls in flight at once — on two engines' streams, or replayed
+#: from a CUDA graph — never share one unless a million tickets' worth of
+#: calls is in flight
+TICKETS = 1 << 20
+_tickets = {}  # card index -> [tickets tensor, next free offset]
+
+
+def _ticket_ptr(device, items):
+    """Address of ``items`` zeroed merge tickets on ``device``'s card for
+    one call (:data:`TICKETS`). The card's tickets are allocated, zeroed,
+    at its first such call, which must not be inside a CUDA-graph
+    capture."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    _check(items <= TICKETS, "{} merge tickets in one call".format(items))
+    with _launches_lock:
+        entry = _tickets.get(index)
+        if entry is None:
+            _check(not torch.cuda.is_current_stream_capturing(),
+                   "the first call on a card allocates its merge tickets "
+                   "and must run outside CUDA-graph capture")
+            entry = _tickets[index] = [
+                torch.zeros(TICKETS, dtype=torch.int32, device=device), 0]
+        buf, at = entry
+        if at + items > TICKETS:
+            at = 0
+        entry[1] = at + items
+    return buf.data_ptr() + 4 * at
 
 
 def tiled_smem_bytes(head_dim, quantized=False):
@@ -235,25 +291,31 @@ def _check(cond, msg):
 
 
 def _route(s_q, head_dim):
-    """``"split"`` or ``"tiled"``: the kernel a call with ``s_q`` queries
-    per row at ``head_dim`` launches."""
-    if s_q <= SPLIT_MAX_QUERIES and head_dim in SPLIT_HEAD_DIMS:
-        return "split"
+    """``"split"``, ``"window"`` or ``"tiled"``: the kernel a call with
+    ``s_q`` queries per row at ``head_dim`` launches."""
+    if head_dim in SPLIT_HEAD_DIMS:
+        if s_q <= SPLIT_MAX_QUERIES:
+            return "split"
+        if s_q <= WINDOW_MAX_QUERIES:
+            return "window"
     return "tiled"
 
 
 #: the routes :func:`budget` reads, in the C interface's order
-BUDGET_ROUTES = ("tiled", "split")
+BUDGET_ROUTES = ("tiled", "split", "window")
 
 
-def budget(head_dim, quantized=False, route="tiled"):
+def budget(head_dim, quantized=False, route="tiled", queries=None):
     """One route's kernel resources on the current card, for the
     instantiation ``head_dim`` takes and float32 or int8 (``quantized``)
     pools: ``{"ctas_per_sm", "registers", "spill_bytes", "smem_bytes"}``
     (registers and local-memory bytes per thread as the compiler left
     them; CTAs per SM from the card's occupancy calculator). ``route``
     "tiled" (the default: the tensor-core tiled kernel, dynamic shared
-    bytes) or "split" (the split-KV kernel, static shared bytes)."""
+    bytes), "split" (the split-KV kernel, static shared bytes) or
+    "window" (the window kernel's instantiation for ``queries`` queries a
+    row, default :data:`WINDOW_MAX_QUERIES`; static and dynamic shared
+    bytes)."""
     from tensorflowonspark_tpu_torch.ops import _build
     import ctypes
 
@@ -263,10 +325,14 @@ def budget(head_dim, quantized=False, route="tiled"):
                "no tiled kernel at head_dim {}".format(head_dim))
     else:
         _check(head_dim in SPLIT_HEAD_DIMS,
-               "no split kernel at head_dim {}".format(head_dim))
+               "no {} kernel at head_dim {}".format(route, head_dim))
+    queries = WINDOW_MAX_QUERIES if queries is None else int(queries)
+    if route == "window":
+        _check(2 <= queries <= WINDOW_MAX_QUERIES,
+               "no window kernel for {} queries".format(queries))
     out = (ctypes.c_int * 4)()
     rc = _build.load("paged_attention").tfos_paged_budget(
-        BUDGET_ROUTES.index(route), head_dim, int(quantized), out)
+        BUDGET_ROUTES.index(route), head_dim, int(quantized), queries, out)
     if rc != 0:
         raise RuntimeError("paged_attention budget query failed: CUDA error "
                            "{}".format(rc))
@@ -317,7 +383,7 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
            "Queue 2 item 12 (head dims above 256)".format(TILED_MAX_HEAD_DIM))
     route = _route(s_q, d)
     mb = block_table.shape[1]
-    if route == "split":
+    if route in ("split", "window"):
         _check(mb >= 1, "block_table needs at least one column")
         _check(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
                "pools must start on a 16-byte boundary (16-byte loads)")
@@ -336,10 +402,19 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
         splits = -(-mb // SPLIT_BLOCKS)
         ws = torch.empty((b, n, splits, d + 2), dtype=torch.float32,
                          device=q.device)
+        tickets = _ticket_ptr(q.device, b * n) if d == 256 else 0
         rc = lib.tfos_paged_attention_split(
-            *common, vp(ws.data_ptr()), vp(out.data_ptr()), b, n, d, p_rows,
-            bs_blk, mb, SPLIT_BLOCKS, ctypes.c_float(scale), int(quantized),
-            stream)
+            *common, vp(ws.data_ptr()), vp(out.data_ptr()), vp(tickets), b,
+            n, d, p_rows, bs_blk, mb, SPLIT_BLOCKS, ctypes.c_float(scale),
+            int(quantized), stream)
+    elif route == "window":
+        splits = -(-mb // WINDOW_BLOCKS)
+        ws = torch.empty((b, n, s_q, splits, d + 2), dtype=torch.float32,
+                         device=q.device)
+        rc = lib.tfos_paged_attention_window(
+            *common, vp(ws.data_ptr()), vp(out.data_ptr()),
+            vp(_ticket_ptr(q.device, b * n)), b, s_q, n, d, p_rows, bs_blk,
+            mb, WINDOW_BLOCKS, ctypes.c_float(scale), int(quantized), stream)
     else:
         rc = lib.tfos_paged_attention_tiled(
             *common, vp(out.data_ptr()), b, s_q, n, d, p_rows, bs_blk, mb,

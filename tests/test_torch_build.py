@@ -46,7 +46,7 @@ def test_package_sources_share_the_tensor_core_header():
         assert deps == [name + ".cu", "tc_common.cuh"] + extra[name]
     assert set(_build.KERNELS["paged_attention"]) == {
         "tfos_paged_attention_tiled", "tfos_paged_attention_split",
-        "tfos_paged_budget"}
+        "tfos_paged_attention_window", "tfos_paged_budget"}
     with open(_build.source("paged_attention")) as f:
         text = f.read()
     for symbol in _build.KERNELS["paged_attention"]:

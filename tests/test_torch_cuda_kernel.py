@@ -1,10 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (``cuda`` marker; skips where torch sees no CUDA device):
-paged attention on its two routes (split-KV; query-tiled on the tensor
-cores at block sizes 8-128, windows 2-300 and head dims 16-256, blocks
-48 and 64 at 192 and 256), with depths on and off split
-boundaries, positions that are not consecutive, its determinism,
-NaN-poisoned dead pool rows and the tiled kernel's register budget; and
+paged attention on its three routes (split-KV; the window kernel at 2
+to ``WINDOW_MAX_QUERIES`` queries a row, head dims 16-256 and block
+sizes 8-64; query-tiled on the tensor cores at block sizes 8-128,
+windows 2-300 and head dims 16-256, blocks 48 and 64 at 192 and 256),
+with depths on and off split boundaries, positions that are not
+consecutive, its determinism, NaN-poisoned dead pool rows and the
+kernels' register budgets; and
 the three flash-attention kernels (forward, dQ, dK/dV), with
 the two-stage copy ring run through many tiles and a ragged last one,
 32-row tiles at D 128, the float32 forward, dQ and dK/dV at D 256 (one
@@ -70,6 +72,36 @@ def _paged_case(dev, rng, s_q, quant, depths, b=3, n=4, d=16, bs=8, mb=6,
     return [t.to(dev) for t in (q, kp, vp, table, pos)], scales
 
 
+def _owed_prefills(calls):
+    """The paged launches by route that recorded prefills owe: a prefill
+    of S_q queries runs one paged call a layer, on the window route
+    (2 <= S_q <= ``WINDOW_MAX_QUERIES`` at a split head dim) or the tiled
+    one."""
+    owed = {"window": 0, "tiled": 0}
+    for s_q, layers, d in calls:
+        window = 2 <= s_q <= pa.WINDOW_MAX_QUERIES \
+            and d in pa.SPLIT_HEAD_DIMS
+        owed["window" if window else "tiled"] += layers
+    return owed
+
+
+@pytest.fixture
+def prefills(monkeypatch):
+    """Every paged prefill's (query count, layers, head dim), recorded
+    at ``generation.paged_prefill_into_slot``."""
+    from tensorflowonspark_tpu_torch import generation
+
+    calls = []
+    real = generation.paged_prefill_into_slot
+
+    def record(model, cache, table_row, tokens, *args, **kw):
+        calls.append((len(tokens), model.num_layers, model.head_dim))
+        return real(model, cache, table_row, tokens, *args, **kw)
+
+    monkeypatch.setattr(generation, "paged_prefill_into_slot", record)
+    return calls
+
+
 def _launch(args, scales):
     """One kernel call; returns the output and the route it took."""
     before = dict(pa.route_launches)
@@ -85,9 +117,10 @@ def _launch(args, scales):
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
 @pytest.mark.parametrize("s_q", [1, 2, 4, 8, 16, 40])
 def test_kernel_matches_blockwise(cuda, s_q, quant):
-    """Both routes: split-KV for decode (S_q = 1), query-tiled for every
-    wider window; rows at depth mid-table, overshooting the table, and
-    all scratch."""
+    """Every route: split-KV for decode (S_q = 1), the window kernel for
+    2 to ``WINDOW_MAX_QUERIES`` queries, query-tiled for every wider
+    window; rows at depth mid-table, overshooting the table, and all
+    scratch."""
     rng = np.random.RandomState(s_q)
     mb, bs = 6, 8
     args, scales = _paged_case(cuda, rng, s_q, quant,
@@ -96,7 +129,8 @@ def test_kernel_matches_blockwise(cuda, s_q, quant):
     before = pa.launches
     got, route = _launch(args, scales)
     assert pa.launches == before + 1
-    assert route == ("split" if s_q <= pa.SPLIT_MAX_QUERIES else "tiled")
+    assert route == ("split" if s_q <= pa.SPLIT_MAX_QUERIES else "window"
+                     if s_q <= pa.WINDOW_MAX_QUERIES else "tiled")
     want = pa.paged_attention(*args, impl="blockwise", **scales)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL
@@ -124,12 +158,12 @@ def test_split_route_depths_on_and_off_split_boundaries(cuda, d, quant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s_q", [1, 16, 300],
-                         ids=["split", "tiled", "tiled-300"])
+@pytest.mark.parametrize("s_q", [1, 4, 16, 300],
+                         ids=["split", "window", "tiled", "tiled-300"])
 def test_paged_kernel_is_deterministic(cuda, s_q):
-    """The split route merges its partial states in split order, the
-    tiled route its warps' states in warp order (no atomics): two calls
-    on the same inputs are bitwise equal."""
+    """The split and window routes merge their partial states in split
+    order, the tiled route its warps' states in warp order (no atomics):
+    two calls on the same inputs are bitwise equal."""
     rng = np.random.RandomState(7)
     args, scales = _paged_case(cuda, rng, s_q, False, [390, 347, 320],
                                bs=16, mb=26)
@@ -144,7 +178,7 @@ def test_paged_kernel_is_deterministic(cuda, s_q):
 def test_verify_window_matches_blockwise(cuda, k, quant):
     """The speculative verify window: S_q = k queries a row from
     mid-sequence cursors (8 slots at mixed depths, one a block boundary
-    away, one inactive), the tiled route, bitwise on a repeat and blind
+    away, one inactive), the window route, bitwise on a repeat and blind
     to NaN-poisoned dead pool rows."""
     rng = np.random.RandomState(100 + k)
     bs, mb = 16, 12
@@ -152,7 +186,7 @@ def test_verify_window_matches_blockwise(cuda, k, quant):
     args, scales = _paged_case(cuda, rng, k, quant, depths, b=8, n=4,
                                d=64, bs=bs, mb=mb, scratch_row=7)
     got, route = _launch(args, scales)
-    assert route == "tiled"
+    assert route == "window"
     want = pa.paged_attention(*args, impl="blockwise", **scales)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL
@@ -164,12 +198,124 @@ def test_verify_window_matches_blockwise(cuda, k, quant):
 
 
 @pytest.mark.cuda
-def test_speculative_engine_routes_and_tokens(cuda):
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_window_route_matches_blockwise(cuda, d, bs, quant):
+    """The window kernel at every query count from 2 to
+    ``WINDOW_MAX_QUERIES`` (each instantiation, and the counts between
+    them with masked pad queries), every head dim it is built for and
+    block sizes 8 to 64: a row deep in the table at positions with
+    gaps, out of order and repeated (queries that see no key of the
+    row's later splits), one overshooting the table, an all-scratch row
+    and a row whose window straddles a split boundary. Within TOL of
+    ``_blockwise``, bitwise on a repeat, and blind to NaN-poisoned dead
+    pool rows (the deep row's table stays filled past its live
+    blocks)."""
+    rng = np.random.RandomState(100 * d + bs)
+    mb = max(4, -(-300 // bs))
+    for s_q in range(2, pa.WINDOW_MAX_QUERIES + 1):
+        depths = [mb * bs - 3, mb * bs + 5, s_q,
+                  pa.WINDOW_BLOCKS * bs + s_q // 2]
+        args, scales = _paged_case(cuda, rng, s_q, quant, depths, b=4, n=2,
+                                   d=d, bs=bs, mb=mb, scratch_row=2)
+        pos = args[4].cpu().numpy()
+        pos[0] = rng.choice(mb * bs - 3, size=s_q, replace=False)
+        pos[0, 0] = pos[0, s_q - 1]                # a repeated position
+        args[4] = torch.from_numpy(pos).to(cuda)
+        got, route = _launch(args, scales)
+        assert route == "window"
+        want = pa.paged_attention(*args, impl="blockwise", **scales)
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        assert err <= TOL, (s_q, err)
+        again, _ = _launch(args, scales)
+        assert torch.equal(again, got), s_q
+        poisoned, _ = _launch(*_poison_dead(cuda, args, scales, bs))
+        assert torch.equal(poisoned, got), s_q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("bs", [8, 16, 64])
+def test_d256_decode_folded_merge(cuda, bs, quant):
+    """Split-KV decode at D 256 (its own kernel, the last CTA of each
+    (row, head) merging the splits): 8 rows at a D-256 decoder's depths
+    and on and off split boundaries, one overshooting the table, one all
+    scratch; within TOL of ``_blockwise``, bitwise on repeats (whichever
+    CTA merges, the splits merge in split order), blind to NaN-poisoned
+    dead pool rows, and every merge ticket back at 0 after the calls."""
+    rng = np.random.RandomState(256 + bs)
+    mb = -(-700 // bs)
+    span = pa.SPLIT_BLOCKS * bs
+    depths = [span, span + 1, 2 * span - 1, 227, 640, 33, mb * bs + 5, 1]
+    args, scales = _paged_case(cuda, rng, 1, quant, depths, b=8, n=8,
+                               d=256, bs=bs, mb=mb, scratch_row=7)
+    got, route = _launch(args, scales)
+    assert route == "split"
+    want = pa.paged_attention(*args, impl="blockwise", **scales)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    for _ in range(3):
+        again, _ = _launch(args, scales)
+        assert torch.equal(again, got)
+    poisoned, _ = _launch(*_poison_dead(cuda, args, scales, bs))
+    assert torch.equal(poisoned, got)
+    index = torch.cuda.current_device()
+    torch.cuda.synchronize()
+    assert int(pa._tickets[index][0].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_folded_merges_replay_from_a_cuda_graph(cuda):
+    """A window call and a D-256 decode call captured into one CUDA graph
+    and replayed: each replay reuses the captured calls' merge tickets,
+    which every call leaves at 0, so every replay gives the eager
+    outputs bitwise."""
+    rng = np.random.RandomState(31)
+    win, wsc = _paged_case(cuda, rng, 4, False, [70, 33, 129], n=4, d=64,
+                           bs=16, mb=10)
+    dec, dsc = _paged_case(cuda, rng, 1, True, [70, 33, 129], n=4, d=256,
+                           bs=16, mb=10)
+    want = [pa.paged_attention(*win, **wsc), pa.paged_attention(*dec, **dsc)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_attention(*win, **wsc)
+        pa.paged_attention(*dec, **dsc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [pa.paged_attention(*win, **wsc),
+                pa.paged_attention(*dec, **dsc)]
+    for _ in range(5):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("queries", [2, 4])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_window_budget(cuda, d, queries, quant):
+    """Every window instantiation (2 and 4 queries) keeps its
+    accumulators and online softmax state in registers (no spills) and
+    fits the card."""
+    got = pa.budget(d, quant, route="window", queries=queries)
+    assert got["spill_bytes"] == 0, got
+    assert got["ctas_per_sm"] >= 1
+    assert 0 < got["smem_bytes"] <= 227 * 1024
+
+
+@pytest.mark.cuda
+def test_speculative_engine_routes_and_tokens(cuda, prefills):
     """A speculative engine on the card: each round launches the
     draft's k one-token steps on the split route and the target's
-    k-query verify on the tiled route — exactly, by the round count —
-    and its tokens equal a plain engine's except where the top-2 logits
-    tie (the two take different routes)."""
+    k-query verify on the window route — exactly, by the round count —
+    each prefill (target and draft) one call a layer on the route its
+    query count takes, and its tokens equal a plain engine's except
+    where the top-2 logits tie (the two take different routes)."""
     from tensorflowonspark_tpu_torch import serving
     from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
 
@@ -185,13 +331,18 @@ def test_speculative_engine_routes_and_tokens(cuda):
         want = [h.result(300) for h in [eng.submit(p, n) for p, n in reqs]]
     for route in pa.route_launches:
         pa.route_launches[route] = 0
+    del prefills[:]
     with serving.DecodeEngine(model, slots=4, kv_block_size=16,
                               speculate_k=3, device=cuda) as eng:
         got = [h.result(300) for h in [eng.submit(p, n) for p, n in reqs]]
         counts = eng.counters.snapshot()["counts"]
-    rounds, prefills = counts["decode_steps"], counts["prefills"]
+    rounds = counts["decode_steps"]
+    # a target's and a draft's prefill for each the engine counts
+    assert len(prefills) == 2 * counts["prefills"]
+    owed = _owed_prefills(prefills)
     assert pa.route_launches == {"split": 1 * 3 * rounds,
-                                 "tiled": 2 * rounds + (2 + 1) * prefills}
+                                 "window": 2 * rounds + owed["window"],
+                                 "tiled": owed["tiled"]}
     for (prompt, _), g, w in zip(reqs, got, want):
         if g == w:
             continue
@@ -204,14 +355,15 @@ def test_speculative_engine_routes_and_tokens(cuda):
 
 
 @pytest.mark.cuda
-def test_two_fleet_replicas_share_the_card_with_exact_launches(cuda):
+def test_two_fleet_replicas_share_the_card_with_exact_launches(cuda,
+                                                               prefills):
     """Two in-process fleet replicas on one card, fed through the
     router by concurrent clients: their schedulers launch the paged
     kernel from two threads, taking turns on the card's one launch
     lock, and the launch counts stay exact — split =
-    layers x the replicas' decode steps, tiled = layers x their
-    prefills — and the tokens equal one engine's but where the top-2
-    logits tie."""
+    layers x the replicas' decode steps, window and tiled = layers x
+    their prefills by query count — and the tokens equal one engine's
+    but where the top-2 logits tie."""
     import http.client
     import json
     import threading
@@ -230,6 +382,7 @@ def test_two_fleet_replicas_share_the_card_with_exact_launches(cuda):
         want = [h.result(300) for h in [eng.submit(p, n) for p, n in reqs]]
     for route in pa.route_launches:
         pa.route_launches[route] = 0
+    del prefills[:]
     got = [None] * len(reqs)
     with fleet.ServingFleet(model, replicas=2, name="lm",
                             engine_kw={"slots": 4, "kv_block_size": 16,
@@ -258,8 +411,9 @@ def test_two_fleet_replicas_share_the_card_with_exact_launches(cuda):
         assert len(turns) == 1 and id(eng._turn) in turns
     assert all(c.get("requests_completed", 0) > 0 for c in counts)
     steps = sum(c["decode_steps"] for c in counts)
-    prefills = sum(c["prefills"] for c in counts)
-    assert pa.route_launches == {"split": 2 * steps, "tiled": 2 * prefills}
+    assert len(prefills) == sum(c["prefills"] for c in counts)
+    assert pa.route_launches == dict(split=2 * steps,
+                                     **_owed_prefills(prefills))
     for (prompt, _), g, w in zip(reqs, got, want):
         if g == w:
             continue
@@ -291,7 +445,7 @@ def test_measure_attn_launches_the_paged_kernel(cuda, kv_dtype):
         ms = eng.measure_attn(reps=5)
         assert ms > 0 and eng.timers.counts()["attn"] == 5
         assert {r: pa.route_launches[r] - before[r] for r in before} == \
-            {"split": 6, "tiled": 0}
+            {"split": 6, "window": 0, "tiled": 0}
         if kv_dtype:
             assert eng.measure_dequant(reps=2) > 0
         assert eng.kv_cache_bytes() == sum(
@@ -370,15 +524,15 @@ def test_tiled_route_never_reads_dead_rows(cuda, s_q, quant):
 def test_tiled_route_block_sizes_and_windows(cuda, bs, s_q, quant):
     """Key tiles that cross pool blocks at block sizes 8, 16 and 32, and
     windows from 2 queries to 300 (19 query tiles of 16, the last one
-    ragged), against ``_blockwise``: rows deep in the table, overshooting
-    it and all scratch."""
+    ragged; 2 queries take the window route), against ``_blockwise``:
+    rows deep in the table, overshooting it and all scratch."""
     rng = np.random.RandomState(1000 * bs + s_q)
     mb = -(-(s_q + 40) // bs)
     args, scales = _paged_case(cuda, rng, s_q, quant,
                                [mb * bs - 3, mb * bs + 5, s_q], n=2, d=64,
                                bs=bs, mb=mb, scratch_row=2)
     got, route = _launch(args, scales)
-    assert route == "tiled"
+    assert route == ("window" if s_q <= pa.WINDOW_MAX_QUERIES else "tiled")
     want = pa.paged_attention(*args, impl="blockwise", **scales)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL

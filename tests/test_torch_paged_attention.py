@@ -186,7 +186,8 @@ def test_block_64_at_wide_heads_refuses_only_for_the_device(d):
     key per lane and refused blocks above 32.)"""
     case = _case(6, s_q=8, d=d, bs=64, mb=2)
     t = [torch.from_numpy(a) for a in case]
-    assert tpa._route(8, d) == "tiled"
+    assert tpa._route(8, d) == (
+        "window" if d == 256 and tpa.WINDOW_MAX_QUERIES >= 8 else "tiled")
     with pytest.raises(ValueError, match="every tensor must be CUDA"):
         tpa._kernel(*t, scale=d ** -0.5)
 
@@ -292,24 +293,211 @@ def test_split_kv_schedule_matches_gather_and_jax(c, quant):
     assert len(parts[2]) == 1
 
 
+# -- the window route's schedule and merge, emulated --------------------
+
+
+def _window_case(seed, s_q, d, quant, consecutive, c):
+    """Six rows of ``s_q`` queries (2 heads of ``d``, block 8, a table of
+    10 blocks) at the edges the window route meets: the last query on a
+    block's last key (row 0), mid-block (row 1), on the first key of a
+    split of ``c`` blocks (row 2), past the table (row 3), an all-scratch
+    row at positions 0..s_q-1 (row 4), and one whose queries sit far
+    apart, the first at key 2, so it sees no key of the row's later
+    splits (row 5).
+    ``consecutive=False`` also spreads, repeats and reorders every deep
+    row's positions."""
+    b, n, bs, mb = 6, 2, 8, 10
+    rng = np.random.RandomState(seed)
+    pool = b * mb + 1
+    q = rng.randn(b, s_q, n, d).astype(np.float32)
+    kp = rng.randn(pool, bs, n, d).astype(np.float32)
+    vp = rng.randn(pool, bs, n, d).astype(np.float32)
+    table = (rng.permutation(pool - 1)[:b * mb] + 1).reshape(b, mb)
+    last = np.array([5 * bs - 1, 6 * bs + 3, c * bs, mb * bs + 2, s_q - 1,
+                     9 * bs + 1])
+    pos = last[:, None] - s_q + 1 + np.arange(s_q)[None, :]
+    pos[5] = np.linspace(2, last[5], s_q).astype(int)
+    if not consecutive:
+        for r in (0, 1, 2):
+            pos[r] = rng.choice(np.arange(1, last[r] + 1), size=s_q,
+                                replace=False)
+            pos[r, 0] = pos[r, -1]                 # a repeated position
+            pos[r, -1] = last[r]                   # the same depth
+            rng.shuffle(pos[r])
+    table[4] = 0                                   # all scratch
+    case = (q, kp, vp, table.astype(np.int32), pos.astype(np.int32))
+    return _int8(case) if quant else case
+
+
+def _window_partials(q, kp, vp, table, pos, scale, c, k_scale=None,
+                     v_scale=None, warps=4):
+    """The window kernel's schedule on CPU tensors: per row, one split per
+    C pool blocks of the live blocks its HIGHEST position reaches (a
+    split past them is never launched); in a split, warp w takes blocks
+    j_lo + w, j_lo + w + ``warps``, ..; every query keeps its own mask
+    (key <= its position) and state, so a query that sees no key of a
+    warp or a split carries m = -inf, l = 0 there; int8 scales fold into
+    the dot and into p, as the kernel applies them; the warps merge in
+    order 0..3. Per row, the splits' (m [S_q, N], l [S_q, N], acc [S_q,
+    N, D])."""
+    b, s_q, n, d = q.shape
+    bs = kp.shape[1]
+    nblk = tpa._nblocks(pos, bs, table.shape[1])
+    neg = float("-inf")
+    out = []
+    for r in range(b):
+        parts = []
+        for j0 in range(0, int(nblk[r]), c):
+            state = None
+            for w in range(warps):
+                js = list(range(j0 + w, min(j0 + c, int(nblk[r])), warps))
+                m = torch.full((s_q, n), neg)
+                l = torch.zeros(s_q, n)
+                acc = torch.zeros(s_q, n, d)
+                if js:
+                    blocks = table[r, js].long()
+                    k = kp[blocks].reshape(-1, n, d).float()
+                    v = vp[blocks].reshape(-1, n, d).float()
+                    s = torch.einsum("qnd,knd->qnk", q[r], k)
+                    if k_scale is not None:
+                        s = s * k_scale[blocks].reshape(-1, n).T[None]
+                    s = s * scale
+                    kpos = torch.cat([torch.arange(j * bs, (j + 1) * bs)
+                                      for j in js])
+                    vis = (kpos[None, :] <= pos[r][:, None])[:, None, :]
+                    s = torch.where(vis, s, torch.full_like(s, neg))
+                    m = s.amax(-1)
+                    safe = torch.where(torch.isneginf(m),
+                                       torch.zeros_like(m), m)
+                    p = torch.where(torch.isneginf(s), torch.zeros_like(s),
+                                    torch.exp(s - safe[..., None]))
+                    l = p.sum(-1)
+                    if v_scale is not None:
+                        p = p * v_scale[blocks].reshape(-1, n).T[None]
+                    acc = torch.einsum("qnk,knd->qnd", p, v)
+                if state is None:
+                    state = (m, l, acc)
+                    continue
+                m0, l0, a0 = state
+                mn = torch.maximum(m0, m)
+                safe = torch.where(torch.isneginf(mn), torch.zeros_like(mn),
+                                   mn)
+                c0 = torch.where(torch.isneginf(m0), torch.zeros_like(m0),
+                                 torch.exp(m0 - safe))
+                c1 = torch.where(torch.isneginf(m), torch.zeros_like(m),
+                                 torch.exp(m - safe))
+                state = (mn, l0 * c0 + l * c1,
+                         a0 * c0[..., None] + acc * c1[..., None])
+            parts.append(state)
+        out.append(parts)
+    return out
+
+
+@pytest.mark.parametrize("consecutive", [True, False],
+                         ids=["consecutive", "spread"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("s_q", [2, 4, 8])
+def test_window_schedule_matches_gather_and_jax(s_q, d, quant, consecutive):
+    """The window route's schedule on CPU: each row's splits of C =
+    ``WINDOW_BLOCKS`` pool blocks up to its highest position, per-query
+    masks and online
+    softmax state (queries whose positions are consecutive, or spread,
+    repeated and out of order), the warps' blocks merged in warp order
+    and the splits in split order, an all-scratch row, an overshooting
+    one, depths on and off block and split boundaries, and a query that
+    sees no key of some split (m = -inf, l = 0 there, skipped by the
+    merge). Equals the port's gather oracle and the JAX package's
+    reference on the same seeded inputs within the stated tolerance."""
+    c = tpa.WINDOW_BLOCKS
+    case = _window_case(1000 + 10 * s_q + d + quant, s_q, d, quant,
+                        consecutive, c)
+    t = [torch.from_numpy(np.array(a)) for a in case]
+    scales = t[5:] if quant else [None, None]
+    scale = d ** -0.5
+    parts = _window_partials(*t[:5], scale, c, *scales)
+    got = _merge_in_order(parts, tuple(t[0].shape)).numpy()
+    tol = INT8_TOL if quant else FP32_TOL
+    np.testing.assert_allclose(got, _torch(case, "gather"), atol=tol,
+                               rtol=tol)
+    np.testing.assert_allclose(got, _jax(case, "gather"), atol=tol,
+                               rtol=tol)
+    # row 5's first query sees key 2 only: no key of its later splits
+    m, l, _ = parts[5][-1]
+    assert len(parts[5]) == -(-10 // c) > 1
+    assert torch.isneginf(m[0]).all() and (l[0] == 0).all()
+    assert torch.isfinite(m[-1]).all() and (l[-1] > 0).all()
+    # every launched split holds a key some query of its row sees
+    for row in parts:
+        for m, l, _ in row:
+            assert torch.isfinite(m).any(dim=0).all()
+    # the all-scratch row reads its one live block (pool row 0) only
+    assert len(parts[4]) == 1
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_d256_decode_merge_at_the_d256_decoders_depths(quant):
+    """Split-KV decode at D 256 as its own kernel runs it, at the D-256
+    decoder's serving depths (``chip_smoke.py`` 17(b)'s seeded 8 slots
+    of 32..640 tokens, block 16, a table of 64 blocks; 2 heads): C =
+    ``SPLIT_BLOCKS`` pool blocks a split, ceil(live blocks / C) splits a
+    row, each warp's blocks merged in warp order, then the row's splits
+    merged in split order by whichever CTA publishes the last one.
+    Equals the port's gather oracle and the JAX package's reference on
+    the same seeded inputs."""
+    b, n, d, bs, mb = 8, 2, 256, 16, 64
+    depths = np.random.RandomState(1234 + 1).randint(32, 641, size=b)
+    rng = np.random.RandomState(17)
+    pool = b * mb + 1
+    q = rng.randn(b, 1, n, d).astype(np.float32)
+    kp = rng.randn(pool, bs, n, d).astype(np.float32)
+    vp = rng.randn(pool, bs, n, d).astype(np.float32)
+    table = (rng.permutation(pool - 1)[:b * mb] + 1).reshape(b, mb)
+    pos = (depths - 1)[:, None].astype(np.int32)
+    for r in range(b):
+        table[r, (int(pos[r, 0]) + bs) // bs:] = 0
+    case = (q, kp, vp, table.astype(np.int32), pos)
+    if quant:
+        case = _int8(case)
+    t = [torch.from_numpy(np.array(a)) for a in case]
+    scales = t[5:] if quant else [None, None]
+    c = tpa.SPLIT_BLOCKS
+    parts = _window_partials(*t[:5], d ** -0.5, c, *scales)
+    for r in range(b):
+        live = (int(pos[r, 0]) + bs) // bs
+        assert len(parts[r]) == -(-live // c)
+    got = _merge_in_order(parts, tuple(t[0].shape)).numpy()
+    tol = INT8_TOL if quant else FP32_TOL
+    np.testing.assert_allclose(got, _torch(case, "gather"), atol=tol,
+                               rtol=tol)
+    np.testing.assert_allclose(got, _jax(case, "gather"), atol=tol,
+                               rtol=tol)
+
+
 def test_route_picks_split_kv_for_decode():
     """Decode (S_q = 1) takes the split-KV route at the head dims it is
-    built for; any wider window, prefill tails and every other head dim
-    up to 256 the tensor-core tiled one. On CPU tensors no route
-    launches."""
+    built for, and 2 to ``WINDOW_MAX_QUERIES`` queries a row (the verify
+    window, short prefill tails) the window route there; wider windows,
+    prefill tails and every other head dim up to 256 the tensor-core
+    tiled one. On CPU tensors no route launches."""
     assert tpa.SPLIT_MAX_QUERIES == 1
     assert tpa.TILED_MAX_HEAD_DIM == 256
+    w = tpa.WINDOW_MAX_QUERIES
+    assert w >= 4                      # chip_smoke.py's SPEC_K
     assert tpa._route(1, 64) == "split"
     assert tpa._route(1, 128) == "split"
     assert tpa._route(1, 256) == "split"
-    assert tpa._route(2, 64) == "tiled"
+    assert tpa._route(2, 64) == "window"
+    assert tpa._route(w, 256) == "window"
+    assert tpa._route(w + 1, 64) == "tiled"
+    assert tpa._route(2, 48) == "tiled"
     assert tpa._route(1, 48) == "tiled"
     assert tpa._route(256, 64) == "tiled"
     assert tpa._route(300, 128) == "tiled"
     assert tpa._route(16, 129) == "tiled"
     assert tpa._route(1, 192) == "tiled"
     assert tpa._route(40, 256) == "tiled"
-    assert set(tpa.route_launches) == {"split", "tiled"}
+    assert set(tpa.route_launches) == {"split", "window", "tiled"}
     before = dict(tpa.route_launches)
     _torch(_case(2, s_q=1))
     _torch(_case(2, s_q=8, d=192))
@@ -318,14 +506,19 @@ def test_route_picks_split_kv_for_decode():
 
 @pytest.mark.parametrize("s_q", [2, 16, 40, 512])
 def test_tiled_route_takes_every_wide_head_dim(s_q):
-    """Above 128 every head dim to 256 takes the tensor-core tiled route
-    once a row has more than one query (prefill tails, cold prompts, the
-    speculative verify window), and decode at a width the split kernel is
-    not built for does too; nothing above 256 has a kernel."""
+    """Above 128 every head dim to 256 but 256 itself takes the
+    tensor-core tiled route once a row has more than one query (prefill
+    tails, cold prompts, the speculative verify window), and decode at a
+    width the split kernel is not built for does too; D 256 takes the
+    window route up to ``WINDOW_MAX_QUERIES`` queries and the tiled one
+    above; nothing above 256 has a kernel."""
+    window = s_q <= tpa.WINDOW_MAX_QUERIES
     for d in range(129, 257):
-        assert tpa._route(s_q, d) == "tiled", d
+        assert tpa._route(s_q, d) == (
+            "window" if window and d == 256 else "tiled"), d
         assert tpa._route(1, d) == ("split" if d == 256 else "tiled"), d
-    assert {tpa._route(s_q, d) for d in range(1, 257)} == {"tiled"}
+    assert {tpa._route(s_q, d) for d in range(1, 257)} == (
+        {"window", "tiled"} if window else {"tiled"})
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
