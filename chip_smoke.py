@@ -6471,8 +6471,8 @@ def main():
         except Exception as e:  # re-raised on the main thread below
             flash_build["error"] = e
 
-    builder = threading.Thread(target=build_flash)
-    builder.start()
+    flash_thread = threading.Thread(target=build_flash)
+    flash_thread.start()
     report = _build.build(["paged_attention"])
     log("build: paged_attention {:.2f}s".format(time.monotonic() - t0))
 
@@ -6504,7 +6504,7 @@ def main():
                 quant, t["device_ms"], t["device_ms"] / t["library_device_ms"],
                 t["library_device_ms"], 100.0 * t["bound_ms"] / t["device_ms"],
                 t["bound_ms"]))
-    builder.join()
+    flash_thread.join()
     if "error" in flash_build:
         raise flash_build["error"]
     report.update(flash_build)
@@ -6619,10 +6619,9 @@ def main():
                       "calls": route_launches["split"],
                       "kernel_launches": 2 * route_launches["split"],
                       "shape": "decode"},
-            "window": {"kernels": ["paged_window_kernel",
-                                   "paged_window_combine_kernel"],
+            "window": {"kernels": ["paged_window_kernel"],
                        "calls": route_launches["window"],
-                       "kernel_launches": 2 * route_launches["window"],
+                       "kernel_launches": route_launches["window"],
                        "shape": "prefill tails of at most "
                                 "WINDOW_MAX_QUERIES queries (11(c)'s "
                                 "verify windows are in the "

@@ -78,10 +78,10 @@ import torch
 #: calls of :func:`_kernel` that launched (the only place that adds to
 #: it) — how a run shows that its path went through the kernels
 launches = 0
-#: the same calls by route: "split" (two kernel launches a call: the
-#: split-KV kernel, then the combine kernel), "window" (two: the window
-#: kernel, then its combine kernel) or "tiled" (one launch of the
-#: tensor-core query-tiled kernel)
+#: the same calls by route: "split" (two kernel launches a call at D <=
+#: 128: the split-KV kernel, then the combine kernel; one at D 256, its
+#: merge folded in), "window" (one launch, its merge folded in) or
+#: "tiled" (one launch of the tensor-core query-tiled kernel)
 route_launches = {"split": 0, "window": 0, "tiled": 0}
 _launches_lock = threading.Lock()  # engines launch from their own threads
 

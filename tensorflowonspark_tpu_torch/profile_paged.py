@@ -50,9 +50,8 @@ in turns.
 ``--trace`` builds the package source with ``-DTFOS_PAGED_TRACE`` and,
 for each shape, stamps every CTA of one call's first kernel (start and
 end on the global timer, its SM): it prints the CTAs launched, the
-makespan, CTA durations and CTAs an SM, and writes the stamps to
-``DIR/paged_trace_<shape>_<dtype>.json`` (``--out``, default
-``chiprun_out``). Needs one card.
+makespan, CTA durations and CTAs an SM, and with ``--out DIR`` writes
+the stamps to ``DIR/paged_trace_<shape>_<dtype>.json``. Needs one card.
 """
 
 import argparse
@@ -329,7 +328,8 @@ def trace(torch, pa, dev, lib, shapes, out_dir):
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     buf = (ctypes.c_ulonglong * (3 * 16384))()
-    os.makedirs(out_dir, exist_ok=True)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
     _use(_build, lib)
     try:
         for label in shapes:
@@ -352,10 +352,11 @@ def trace(torch, pa, dev, lib, shapes, out_dir):
                 summary = trace_summary(stamps.tolist())
                 print("trace {} {:<7} {} (route {})".format(
                     label, kv, json.dumps(summary), pa._route(s_q, d)))
-                with open(os.path.join(out_dir, "paged_trace_{}_{}.json"
-                                       .format(label, kv)), "w") as f:
-                    json.dump({"summary": summary,
-                               "stamps": stamps.tolist()}, f)
+                if out_dir:
+                    with open(os.path.join(out_dir, "paged_trace_{}_{}.json"
+                                           .format(label, kv)), "w") as f:
+                        json.dump({"summary": summary,
+                                   "stamps": stamps.tolist()}, f)
     finally:
         _use(_build, _build.load("paged_attention"))
 
@@ -368,7 +369,7 @@ def main():
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--crossover", action="store_true")
     ap.add_argument("--trace", action="store_true")
-    ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--out", default=None)
     ap.add_argument("--split-blocks", default="")
     args = ap.parse_args()
     shapes = args.shape or ["tail256", "cold512"]
