@@ -18,8 +18,9 @@ and down, a lost executor replica attributed and replaced), and
 supervised training (a killed trainer restored from its checkpoint, an
 executor lost and returned under elastic resize, the profiler's trace of
 a step), and a decoder whose heads are 256 wide served and trained
-through the D-256 kernels — and hold its CUDA kernels against their
-plain PyTorch versions.
+through the D-256 kernels, and one whose heads are 512 wide through the
+kernels above 256 — and hold its CUDA kernels against their plain
+PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -27,8 +28,8 @@ Phases, stopping with a non-zero exit at the first failure:
 
 1. card — the ``nvidia-smi`` name and power limit;
 2. build — every kernel source of the port (``paged_attention.cu``,
-   ``flash_attention.cu``), compiled from ``csrc/`` with nvcc, all at
-   once;
+   ``flash_attention.cu``, ``wide_attention.cu``), compiled from
+   ``csrc/`` with nvcc, all at once;
 3. kernel against plain version — ``paged_attention``'s CUDA kernels
    against ``_blockwise`` on the card, fp32 and int8 pools, S_q 1 (the
    split-KV route) and S_q 16 and 128 (the tensor-core query-tiled
@@ -411,7 +412,28 @@ Phases, stopping with a non-zero exit at the first failure:
    at B 4 x S 1024: the loss falls, exactly 180 launches of each flash
    kernel; step p50, tokens/s and peak memory printed; (d) the model and
    engines freed before the phase ends;
-18. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
+18. heads above 256 — (a) each kernel of ``wide_attention.cu`` against
+   its plain version on the card at head dims 257, 300, 384, 512, 576
+   and 1024: paged decode (the split kernel and its combine), the verify
+   window (2 to 4 queries a row), a 256-token tail and a cold 512 prompt
+   (the tiled kernel), float and int8, block 16, and at D 512 blocks 1
+   and 64, held as phase 3's cases are; the flash forward, dQ and dK/dV
+   in float32 and bfloat16, causal and key-masked, forward and backward,
+   and at the training shape, under phase 3b's limits; their budgets
+   (spill-free); the split kernel at row 1d's decode shape at 8 x 512,
+   the tiled kernel at the 256-token tail and the flash kernels at B 2 x
+   S 1024 x 8 x 512, causal, each timed beside its plain version, SDPA
+   and its bound; (b) a ``DecoderLM`` of DeepSeek-V4-Flash's hidden size
+   and head dim on the repo's own block (vocab 50257, hidden 4096 = 8
+   heads x 512, 4 layers, max_len 1024; random weights from the seed)
+   behind ``ModelServer``, phase 4's first 4 requests at float and at
+   int8 KV: every decode step on the split route and every prefill on
+   the tiled one, 4 a step or prefill, exactly; tokens equal the gather
+   oracle's but at a top-2 tie (1e-4 float, 1e-3 int8); (c) 3 ``Trainer``
+   steps at B 2 x S 1024, ``adamw(1e-4)``: the last loss below the first,
+   exactly 4 launches of each flash kernel a step; (d) the model and
+   engines freed;
+19. the ``{"kernels": [...]}`` line (the flash rows add phase 6's launch
    counts as ``launches_cluster``, phase 7's as ``launches_pipeline``,
    phase 8's (BERT training plus ``:predict``) as ``launches_models``,
    phase 9's streaming-fed trainer's as ``launches_streaming`` and the
@@ -425,8 +447,10 @@ Phases, stopping with a non-zero exit at the first failure:
    ``verify``; the flash rows add phase 15's as ``launches_recovery``;
    phase 17's rows: the split route and the tensor-core tiled route at
    D 256 with 17(b)'s launches, and the flash kernels at D 256 with
-   17(c)'s, their bfloat16 instantiations' times beside them), the card
-   line, and last the ``{"ok": true, ...}`` line.
+   17(c)'s, their bfloat16 instantiations' times beside them; phase
+   18's rows: the wide split and tiled kernels with 18(b)'s launches, the
+   wide flash kernels with 18(c)'s), the card line, and last the
+   ``{"ok": true, ...}`` line.
 
 ``--out-dir DIR`` also writes every number of the run to
 ``DIR/chip_smoke.json``. Needs one card; exits non-zero, printing no
@@ -571,7 +595,7 @@ def want_routes(pa, split, prefills, window=0, calls=None):
           "engines counted {}".format(len(calls), prefills))
     owed = {"split": split, "window": window, "tiled": 0}
     for s_q, layers, d in calls:
-        short = 2 <= s_q <= pa.WINDOW_MAX_QUERIES and d in pa.SPLIT_HEAD_DIMS
+        short = 2 <= s_q and pa._route(s_q, d) == "window"
         owed["window" if short else "tiled"] += layers
     return owed
 
@@ -589,14 +613,23 @@ def zero_launches(pa):
 
 def make_case(torch, rng, b, s_q, mb, quant, dev, depths=None,
               overshoot_row=None, scratch_row=None, n=HEADS,
-              d=HIDDEN // HEADS, bs=BLOCK):
+              d=HIDDEN // HEADS, bs=BLOCK, on_device=False):
     """Pools, tables and positions (the serving widths unless ``n``/``d``/
     ``bs`` say otherwise): each row owns distinct pool rows for its live
-    blocks (scratch 0 elsewhere)."""
+    blocks (scratch 0 elsewhere). ``on_device``: q and the pools are drawn
+    on ``dev`` by a torch generator seeded from ``rng`` (phase 18's pools
+    of 8 x 512 heads take seconds each to draw on the host)."""
     pool = b * mb + 1
-    q = torch.from_numpy(rng.randn(b, s_q, n, d).astype("float32"))
-    kp = torch.from_numpy(rng.randn(pool, bs, n, d).astype("float32"))
-    vp = torch.from_numpy(rng.randn(pool, bs, n, d).astype("float32"))
+    if on_device:
+        gen = torch.Generator(device=dev).manual_seed(
+            int(rng.randint(2 ** 31)))
+        q, kp, vp = (torch.randn(shape, generator=gen, device=dev)
+                     for shape in ((b, s_q, n, d), (pool, bs, n, d),
+                                   (pool, bs, n, d)))
+    else:
+        q = torch.from_numpy(rng.randn(b, s_q, n, d).astype("float32"))
+        kp = torch.from_numpy(rng.randn(pool, bs, n, d).astype("float32"))
+        vp = torch.from_numpy(rng.randn(pool, bs, n, d).astype("float32"))
     perm = rng.permutation(pool - 1) + 1
     table = perm[:b * mb].reshape(b, mb).astype("int32")
     if depths is None:
@@ -644,11 +677,13 @@ PAGED_CASES = [(1, HEADS, HIDDEN // HEADS, MAX_LEN // BLOCK),
                (16, 4, 192, 8)]
 
 
-def hold_case(torch, pa, dev, args, scales, s_q, d, quant, bs=BLOCK):
-    """One case of the kernel against ``_blockwise``: the route the shape
-    maps to (split-KV at S_q = 1 and the window kernel at 2 to
-    ``WINDOW_MAX_QUERIES`` queries, at the head dims they are built for;
-    the tensor-core query-tiled route for every other call), finite and
+def hold_case(torch, pa, dev, args, scales, s_q, d, quant, bs=BLOCK,
+              plain="blockwise"):
+    """One case of the kernel against its plain version (``_blockwise``,
+    or ``plain``): the route the shape maps to (split-KV at S_q = 1 and
+    the window kernel at 2 to ``WINDOW_MAX_QUERIES`` queries, at the head
+    dims they are built for and at every head dim above 256; the
+    tensor-core query-tiled route for every other call), finite and
     within
     ``KERNEL_TOL``, a second call bitwise equal to the first, and
     NaN-poisoned dead pool rows leaving the output bitwise unchanged.
@@ -660,13 +695,14 @@ def hold_case(torch, pa, dev, args, scales, s_q, d, quant, bs=BLOCK):
                              k_scale=ks, v_scale=vs)
     route = pa._route(s_q, d)
     dims = (16, 32, 64, 128, 256)
-    check(route == ("split" if s_q == 1 and d in dims else "window"
-                    if 2 <= s_q <= pa.WINDOW_MAX_QUERIES and d in dims
+    split = d in dims or d > 256
+    check(route == ("split" if s_q == 1 and split else "window"
+                    if 2 <= s_q <= pa.WINDOW_MAX_QUERIES and split
                     else "tiled"),
           "s_q={} D={} maps to the {} route".format(s_q, d, route))
     check(pa.route_launches == {r: before[r] + (r == route) for r in before},
           "s_q={} did not take the {} route alone".format(s_q, route))
-    want = pa.paged_attention(*args, scale=scale, impl="blockwise",
+    want = pa.paged_attention(*args, scale=scale, impl=plain,
                               k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()),
@@ -677,8 +713,8 @@ def hold_case(torch, pa, dev, args, scales, s_q, d, quant, bs=BLOCK):
     check(torch.equal(again, got), "two kernel calls on the same "
           "inputs differ (s_q={}, int8={})".format(s_q, quant))
     log("kernel vs plain  int8={!s:<5} s_q={:<3} D={:<3} block={:<2} "
-        "route={:<10} max_abs_err={:.3e} (tol {:.0e})".format(
-            quant, s_q, d, bs, route, err, KERNEL_TOL))
+        "route={:<10} max_abs_err={:.3e} (tol {:.0e}; {})".format(
+            quant, s_q, d, bs, route, err, KERNEL_TOL, plain))
     check(err <= KERNEL_TOL, "kernel disagrees with plain version")
     # never reads a dead pool row: poison them, output unchanged
     table = args[3].cpu().numpy()
@@ -751,7 +787,7 @@ def time_ms(torch, fn, sets, reps=20):
 
 
 def paged_timing(torch, pa, dev, quant, s_q, depths, copies, n=HEADS,
-                 d=HIDDEN // HEADS, bs=BLOCK):
+                 d=HIDDEN // HEADS, bs=BLOCK, on_device=False):
     """Times of one paged-attention call over ``len(depths)`` rows of
     ``s_q`` queries ending at ``depths`` (``n`` heads of ``d``, block
     ``bs``, a table of 1024 tokens), cycling over ``copies`` pools: the
@@ -768,7 +804,8 @@ def paged_timing(torch, pa, dev, quant, s_q, depths, copies, n=HEADS,
     sets = []
     for _ in range(copies):
         args, (ks, vs) = make_case(torch, rng, b, s_q, mb, quant, dev,
-                                   depths=depths, n=n, d=d, bs=bs)
+                                   depths=depths, n=n, d=d, bs=bs,
+                                   on_device=on_device)
         sets.append(args + [ks, vs])
     scale = d ** -0.5
 
@@ -6278,10 +6315,13 @@ def wide_timing(torch, pa, fa, dev):
     return paged, flash
 
 
-def wide_serving(torch, pa, dev, model):
+def wide_serving(torch, pa, dev, model, layers=WIDE_LAYERS, legs=None,
+                 label="D256"):
     """17(b): the D-256 decoder behind ``ModelServer``, the engine at its
     automatic block (16) and 8 slots, phase 4's 16 requests from 4
-    clients at float KV and the first ``WIDE_INT8_REQUESTS`` at int8. Every decode step takes the split
+    clients at float KV and the first ``WIDE_INT8_REQUESTS`` at int8
+    (18(c): the D-512 decoder, ``layers`` deep, the requests of
+    ``legs``). Every decode step takes the split
     route and every prefill the window route (up to
     ``WINDOW_MAX_QUERIES`` queries) or the tensor-core tiled one, once a
     layer, exactly; tokens equal the gather oracle's but at a top-2
@@ -6289,7 +6329,8 @@ def wide_serving(torch, pa, dev, model):
     from tensorflowonspark_tpu_torch import generation, serving
 
     everything = traffic()
-    legs = {None: everything, "int8": everything[:WIDE_INT8_REQUESTS]}
+    if legs is None:
+        legs = {None: everything, "int8": everything[:WIDE_INT8_REQUESTS]}
     runs = {}
     # THE main path of 17(b): counts at zero just before, read just after
     pa.launches = 0
@@ -6310,14 +6351,14 @@ def wide_serving(torch, pa, dev, model):
     route_launches = dict(pa.route_launches)
     steps = sum(r["counts"].get("decode_steps", 0) for r in runs.values())
     prefills = sum(r["counts"].get("prefills", 0) for r in runs.values())
-    log("D256 serving paged launches by route: {} (decode steps {}, "
-        "prefills {}, {} layers)".format(route_launches, steps, prefills,
-                                        WIDE_LAYERS))
-    want = want_routes(pa, WIDE_LAYERS * steps, prefills)
+    log("{} serving paged launches by route: {} (decode steps {}, "
+        "prefills {}, {} layers)".format(label, route_launches, steps,
+                                        prefills, layers))
+    want = want_routes(pa, layers * steps, prefills)
     check(route_launches == want,
-          "D 256: decode steps did not all take the split route and "
+          "{}: decode steps did not all take the split route and "
           "prefills the window or tiled one by query count, once a layer: "
-          "{} vs {}".format(route_launches, want))
+          "{} vs {}".format(label, route_launches, want))
     for kv in (None, "int8"):
         reqs = legs[kv]
         r = runs[kv]
@@ -6332,11 +6373,11 @@ def wide_serving(torch, pa, dev, model):
         r["ties"] = compare_tokens(torch, generation, model, r["out"], gather,
                                    reqs, kv, dev,
                                    tie=WIDE_INT8_TIE_GAP if kv else TIE_GAP)
-        log("D256 serving kv={:<7} tokens/s={:.1f} wall={:.2f}s "
+        log("{} serving kv={:<7} tokens/s={:.1f} wall={:.2f}s "
             "ttft_p50={:.4f}s decode_step_p50={:.4f}s decode_steps={} "
             "prefills={}; fused == gather on {}/{} requests ({} at a tie; "
             "oracle {:.1f}s)".format(
-                kv or "float32", r["tokens_per_s"], r["wall"], r["ttft_p50"],
+                label, kv or "float32", r["tokens_per_s"], r["wall"], r["ttft_p50"],
                 r["step_p50"], r["counts"].get("decode_steps", 0),
                 r["counts"].get("prefills", 0), len(reqs) - r["ties"],
                 len(reqs), r["ties"], r["oracle_wall"]))
@@ -6346,16 +6387,21 @@ def wide_serving(torch, pa, dev, model):
     return route_launches, {kv or "float32": r for kv, r in runs.items()}
 
 
-def wide_training(torch, fa, dev):
+def wide_training(torch, fa, dev, make_model=None, layers=WIDE_LAYERS,
+                  rows=WIDE_BATCH, steps=TRAIN_STEPS, lr=TRAIN_LR,
+                  label="D256"):
     """17(c): 10 ``Trainer`` steps of the D-256 decoder at B 4 x S 1024,
     float32, TF32 off: the losses fall and every step launches each
-    flash kernel once a layer (180 of each in all)."""
+    flash kernel once a layer (180 of each in all). 18(d): ``steps`` of
+    ``make_model``'s decoder, ``layers`` deep, at ``rows`` x 1024 and
+    learning rate ``lr``; with fewer than 6 steps the last loss must be
+    below the first."""
     from tensorflowonspark_tpu_torch import infeed, training
 
-    model = wide_model(torch, dev)
-    trainer = training.Trainer(model, training.adamw(TRAIN_LR), device=dev)
+    model = (make_model or wide_model)(torch, dev)
+    trainer = training.Trainer(model, training.adamw(lr), device=dev)
     state = trainer.init(torch.Generator(device=dev).manual_seed(SEED))
-    batches = motif_batches(TRAIN_STEPS, WIDE_BATCH, TRAIN_SEQ)
+    batches = motif_batches(steps, rows, TRAIN_SEQ)
     losses, step_s, counts = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -6372,23 +6418,24 @@ def wide_training(torch, fa, dev):
     wall = time.monotonic() - t0
     launches = dict(fa.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    log("D256 training losses: " + " ".join("{:.4f}".format(x)
-                                             for x in losses))
-    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
-          "D 256: a training loss is missing or not finite")
-    check(np.mean(losses[-3:]) < losses[0],
-          "D 256: the loss did not fall (first {:.4f}, mean of last 3 "
-          "{:.4f})".format(losses[0], np.mean(losses[-3:])))
+    log("{} training losses: ".format(label) + " ".join(
+        "{:.4f}".format(x) for x in losses))
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          "{}: a training loss is missing or not finite".format(label))
+    tail = losses[-3:] if steps >= 6 else losses[-1:]
+    check(np.mean(tail) < losses[0],
+          "{}: the loss did not fall (first {:.4f}, mean of last {} "
+          "{:.4f})".format(label, losses[0], len(tail), np.mean(tail)))
     for i, c in enumerate(counts):
-        check(all(c[k] == WIDE_LAYERS * (i + 1) for k in c),
-              "D 256 step {}: flash launches {} are not {} per kernel per "
-              "step".format(i + 1, c, WIDE_LAYERS))
-    tokens = WIDE_BATCH * TRAIN_SEQ
+        check(all(c[k] == layers * (i + 1) for k in c),
+              "{} step {}: flash launches {} are not {} per kernel per "
+              "step".format(label, i + 1, c, layers))
+    tokens = rows * TRAIN_SEQ
     p50 = float(np.median(step_s))
-    log("D256 training step p50 {:.4f}s  tokens/s {:.1f} (p50)  {:.1f} "
-        "(10-step wall {:.2f}s)  max_memory_allocated {:.2f} GiB; flash "
-        "launches {}".format(p50, tokens / p50, tokens * TRAIN_STEPS / wall,
-                             wall, peak / 2 ** 30, launches))
+    log("{} training step p50 {:.4f}s  tokens/s {:.1f} (p50)  {:.1f} "
+        "({}-step wall {:.2f}s)  max_memory_allocated {:.2f} GiB; flash "
+        "launches {}".format(label, p50, tokens / p50, tokens * steps / wall,
+                             steps, wall, peak / 2 ** 30, launches))
     return launches, {"losses": losses, "step_s": step_s, "p50_s": p50,
                       "tokens_per_s": tokens / p50, "wall_s": wall,
                       "max_memory_allocated": peak}
@@ -6425,6 +6472,237 @@ def wide_phase(torch, pa, fa, dev):
             "wall_s": wall, "kernels_s": t_a, "serving_s": t_b}
 
 
+# -- phase 18: heads above 256 ------------------------------------------------
+
+#: DeepSeek-V4-Flash's hidden size and head dim (4096 = 8 heads x 512; the
+#: model has 64 query heads over one KV head) on the repo's own
+#: GPT-style block, float32, cut to 4 layers; vocab and max_len as phase
+#: 4's
+WIDER_HIDDEN, WIDER_HEADS, WIDER_LAYERS = 4096, 8, 4
+WIDER_D = WIDER_HIDDEN // WIDER_HEADS
+#: the head dims each kernel of ``csrc/wide_attention.cu`` is held at:
+#: one past the narrow kernels, int8 rows of 300 codes (not a 16-byte
+#: multiple), 384, the model's 512, 576 (512 + 64 latent attention) and
+#: 1024
+WIDER_DIMS = (257, 300, 384, 512, 576, 1024)
+#: training: 3 steps of 2 x 1024. The learning rate is phase 5's over 3:
+#: at hidden 4096 Adam's first step at 3e-4 overshot (the loss went
+#: 11.86, 16.62, 11.00 on the card), as a width 5x phase 5's predicts
+WIDER_BATCH, WIDER_STEPS, WIDER_LR = 2, 3, 1e-4
+#: 18(c): the first requests of phase 4's traffic served at each KV dtype
+WIDER_REQUESTS = 4
+#: 18(a): tokens a row's table holds in the cases away from D 512: three
+#: splits of 256 keys, and room for the 512-token cold prompt
+WIDER_TABLE = 640
+
+
+def wider_model(torch, dev):
+    """The D-512 ``DecoderLM`` on ``dev`` (its weights set by the caller,
+    from the seed)."""
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+    return DecoderLM(VOCAB, hidden=WIDER_HIDDEN, num_heads=WIDER_HEADS,
+                     num_layers=WIDER_LAYERS, max_len=MAX_LEN, device=dev)
+
+
+def wider_kernel_cases(torch, pa, fa, dev):
+    """18(a): each wide kernel against its plain version at every head
+    dim of ``WIDER_DIMS``. Paged, float and int8, block 16: decode (S_q 1,
+    the split kernel and its combine), the verify window (S_q 3; 2 and 4
+    at D 512: the split kernel at 2 and 4 queries a row), a 256-token
+    tail and a cold 512 prompt (the tiled kernel); at D 512 the main
+    path's 8 heads, 8 slots and table of 1024 tokens (a row overshooting
+    the table, an all-scratch slot) against ``_blockwise``, elsewhere 2
+    heads, 4 rows and a table of ``WIDER_TABLE`` tokens (three splits
+    of 256 keys) against the gather oracle (one batched product where
+    the blockwise version walks one block an iteration); then D 512 at
+    blocks of 1 (against the gather oracle) and 64. Each as
+    ``hold_case`` holds it (the route, ``KERNEL_TOL``, a bitwise repeat,
+    NaN-poisoned dead rows).
+    Flash, float32 and bfloat16 at B 2 x 2 heads: causal at S 256 and a
+    key mask at S_q 128 x S_k 320 with a fully masked batch row, forward
+    and backward through the public pair (q, k, v and dO padded to a
+    multiple of 128), and the training shape B 2 x S 1024 x 8 x 512,
+    causal, float32, under phase 3b's limits. Returns the largest errors
+    by route and by head dim."""
+    rng = np.random.RandomState(SEED + 25)
+    worst = {"split": 0.0, "window": 0.0, "tiled": 0.0}
+    seen = set()
+
+    def hold(quant, s_q, d, n, b, bs=BLOCK, depths=None, plain="blockwise",
+             tokens=MAX_LEN):
+        tail = depths is not None
+        args, scales = make_case(
+            torch, rng, b, s_q, tokens // bs, quant, dev,
+            depths=np.array(depths) if tail else None,
+            overshoot_row=None if tail else 1,
+            scratch_row=None if tail else b - 1, n=n, d=d, bs=bs,
+            on_device=True)
+        route, err = hold_case(torch, pa, dev, args, scales, s_q, d, quant,
+                               bs=bs, plain=plain)
+        worst[route] = max(worst[route], err)
+        seen.add(route)
+
+    t0 = time.monotonic()
+    for d in WIDER_DIMS:
+        main = d == WIDER_D
+        n, b = (WIDER_HEADS, SLOTS) if main else (2, 4)
+        kw = {} if main else {"plain": "gather", "tokens": WIDER_TABLE}
+        for quant in (False, True):
+            for s_q in (1, 2, 4) if main else (1, 3):
+                hold(quant, s_q, d, n, b, **kw)
+            for s_q in (256, 512):
+                hold(quant, s_q, d, n, 1, depths=[512], **kw)
+    for bs in (1, 64):
+        for quant in (False, True):
+            plain = "gather" if bs == 1 else "blockwise"
+            hold(quant, 1, WIDER_D, WIDER_HEADS, SLOTS, bs=bs, plain=plain)
+            hold(quant, 256, WIDER_D, WIDER_HEADS, 1, bs=bs, depths=[512],
+                 plain=plain)
+    check(seen == {"split", "window", "tiled"},
+          "the wide cases took the routes {}".format(sorted(seen)))
+    log("D512 paged cases {:.1f}s".format(time.monotonic() - t0))
+    t0 = time.monotonic()
+    flash = {}
+    for d in WIDER_DIMS:
+        cases = [
+            ("c: D{} B2 S256 causal fp32".format(d), 2, 256, 256, True,
+             "float32", None, 128),
+            ("m: D{} S_q128 S_k320 key mask fp32".format(d), 2, 128, 320,
+             False, "float32", 1, 64),
+            ("b: D{} B2 S256 causal bf16".format(d), 2, 256, 256, True,
+             "bfloat16", None, 128),
+            ("n: D{} S_q128 S_k320 key mask bf16".format(d), 2, 128, 320,
+             False, "bfloat16", 1, 64)]
+        flash[d] = flash_cases(torch, fa, dev, cases, n=2, d=d,
+                               seed=SEED + 26 + d)
+    flash["train"] = flash_cases(
+        torch, fa, dev, [("t: D512 B2 S1024 causal fp32", WIDER_BATCH,
+                          TRAIN_SEQ, TRAIN_SEQ, True, "float32", None,
+                          128)], n=WIDER_HEADS, d=WIDER_D, seed=SEED + 27)
+    log("D512 flash cases {:.1f}s".format(time.monotonic() - t0))
+    return worst, flash
+
+
+def wider_budget(torch, fa, pa):
+    """Registers, spills, shared memory and CTAs per SM of every kernel of
+    ``wide_attention.cu`` (the same instantiation at every D above 256):
+    the paged split kernel at 1, 2 and 4 queries a row and the tiled
+    kernel, float and int8 pools; the flash forward, dQ and dK/dV in
+    float32 and bfloat16. Each must be spill-free and fit the card."""
+    out = {}
+    for quant in (False, True):
+        kv = "int8" if quant else "float32"
+        for route, queries in (("split", 1), ("window", 2), ("window", 4),
+                               ("tiled", None)):
+            key = "paged_{} Q{} wide {}".format(route, queries or "-", kv)
+            out[key] = pa.budget(WIDER_D, quant, route=route,
+                                 queries=queries)
+    for kind in ("fwd", "dq", "dkv"):
+        for dtype in ("float32", "bfloat16"):
+            out["{} wide {}".format(kind, dtype)] = fa.budget(
+                kind, WIDER_D, getattr(torch, dtype))
+    for key, got in out.items():
+        log("budget {:<26}: {} registers, {} spill bytes, {} bytes shared, "
+            "{} CTAs/SM".format(key, got["registers"], got["spill_bytes"],
+                                got["smem_bytes"], got["ctas_per_sm"]))
+        check(got["spill_bytes"] == 0 and got["ctas_per_sm"] >= 1
+              and got["smem_bytes"] <= pa.MAX_SMEM_BYTES,
+              "{} spills or does not fit: {}".format(key, got))
+    return out
+
+
+def wider_timing(torch, pa, fa, dev):
+    """The wide rows' times: the split kernel at row 1d's decode shape (8
+    slots at phase 3's depths, 8 heads of 512), float and int8; the tiled
+    kernel at the 256-token tail, float; the flash kernels at B 2 x S
+    1024 x 8 x 512, causal, float32 and bfloat16. Each beside its plain
+    version, SDPA over the same inputs and the bound, with its share of
+    the bound."""
+    depths = np.random.RandomState(SEED + 1).randint(32, 641, size=SLOTS)
+    paged = {}
+    for shape, s_q, rows, quant in (("decode", 1, depths, False),
+                                    ("decode", 1, depths, True),
+                                    ("prefill", 256, np.array([512]),
+                                     False)):
+        # two pool copies: one row-1d call's live K/V at 8 x 512 (59.5
+        # MB float32) already exceeds the 50 MB L2
+        t = paged_timing(torch, pa, dev, quant, s_q, rows, 2,
+                         n=WIDER_HEADS, d=WIDER_D, on_device=True)
+        paged.setdefault(shape, {})["int8" if quant else "float32"] = t
+        log("D512 {} int8={!s:<5} {} kernel {:.4f} ms per eager call "
+            "({:.4f} ms device time)  plain {:.4f} ms  sdpa {:.4f} ms "
+            "({:.4f} ms device time)  bound {:.4f} ms ({}; {:.2f}% of it; "
+            "{} live tokens, {} KV bytes, {:.3g} flop)".format(
+                shape, quant, t["route"], t["ms"], t["device_ms"],
+                t["plain_ms"], t["library_ms"], t["library_device_ms"],
+                t["bound_ms"], t["bound_by"],
+                100.0 * t["bound_ms"] / t["device_ms"], t["live_tokens"],
+                t["kv_bytes"], t["flops"]))
+    check(all(t["route"] == ("split" if shape == "decode" else "tiled")
+              for shape in paged for t in paged[shape].values()),
+          "D 512: decode must take the split route, the tail the tiled one")
+    flash = {}
+    for dtype in ("float32", "bfloat16"):
+        flash[dtype] = flash_timing(torch, fa, dev, WIDER_BATCH, TRAIN_SEQ,
+                                    dtype, n=WIDER_HEADS, d=WIDER_D)
+        for name, ft in flash[dtype].items():
+            log("flash {:<3} D512 B2 S1024 causal {:<8}: kernel {:.4f} ms "
+                "({:.4f} ms device time)  plain {:.4f} ms  sdpa {}  bound "
+                "{:.4f} ms ({}; {:.2f}% of it; {:.3g} flop, {:.3g} B)"
+                .format(name, dtype, ft["ms"], ft["device_ms"],
+                        ft["plain_ms"], library_text(ft), ft["bound_ms"],
+                        ft["bound_by"],
+                        100.0 * ft["bound_ms"] / ft["device_ms"],
+                        ft["flops"], ft["bytes"]))
+    return paged, flash
+
+
+def wider_phase(torch, pa, fa, dev):
+    """Phase 18: heads above 256 — (a) the kernels of
+    ``wide_attention.cu`` against their plain versions at every head dim
+    of ``WIDER_DIMS``, their budgets and times, (b) the D-512 decoder
+    served, (c) trained; (d) its model and engines freed before the phase
+    ends."""
+    t0 = time.monotonic()
+    paged_err, flash_err = wider_kernel_cases(torch, pa, fa, dev)
+    log("D512 kernel cases {:.1f}s".format(time.monotonic() - t0))
+    budget = wider_budget(torch, fa, pa)
+    t_timing = time.monotonic()
+    paged_t, flash_t = wider_timing(torch, pa, fa, dev)
+    log("D512 timing {:.1f}s".format(time.monotonic() - t_timing))
+    t_a = time.monotonic() - t0
+    model = wider_model(torch, dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+    reqs = traffic()[:WIDER_REQUESTS]
+    routes, serve = wide_serving(torch, pa, dev, model, layers=WIDER_LAYERS,
+                                 legs={None: reqs, "int8": reqs},
+                                 label="D512")
+    check(routes["split"] > 0 and routes["tiled"] > 0,
+          "D 512: the split or tiled kernel was not launched: {}".format(
+              routes))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_b = time.monotonic() - t0 - t_a
+    flash_launches, train = wide_training(
+        torch, fa, dev, make_model=wider_model, layers=WIDER_LAYERS,
+        rows=WIDER_BATCH, steps=WIDER_STEPS, lr=WIDER_LR, label="D512")
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.monotonic() - t0
+    log("D512 phase wall {:.1f}s (kernels {:.1f}s, serving {:.1f}s, "
+        "training {:.1f}s); {:.2f} GiB still allocated".format(
+            wall, t_a, t_b, wall - t_a - t_b,
+            torch.cuda.memory_allocated(dev) / 2 ** 30))
+    return {"paged_err": paged_err, "flash_err": flash_err,
+            "budget": budget, "paged_timing": paged_t,
+            "flash_timing": flash_t, "route_launches": routes,
+            "serving": serve, "flash_launches": flash_launches,
+            "training": train, "wall_s": wall, "kernels_s": t_a,
+            "serving_s": t_b}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -6439,7 +6717,8 @@ def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if not all(os.path.isfile(os.path.join(
             here, "tensorflowonspark_tpu_torch", "csrc", name + ".cu"))
-            for name in ("paged_attention", "flash_attention")):
+            for name in ("paged_attention", "flash_attention",
+                         "wide_attention")):
         print("the port's package is not beside chip_smoke.py",
               file=sys.stderr)
         return 2
@@ -6460,14 +6739,15 @@ def main():
     log("card: " + card)
     log("torch {} cuda {}".format(torch.__version__, torch.version.cuda))
 
-    # the flash source builds (the longer) while the paged kernels are
-    # held and timed
+    # the flash and wide sources build (the longer) while the paged
+    # kernels are held and timed
     t0 = time.monotonic()
     flash_build = {}
 
     def build_flash():
         try:
-            flash_build.update(_build.build(["flash_attention"]))
+            flash_build.update(_build.build(["flash_attention",
+                                             "wide_attention"]))
         except Exception as e:  # re-raised on the main thread below
             flash_build["error"] = e
 
@@ -6574,6 +6854,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     wide = wide_phase(torch, pa, fa, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wider = wider_phase(torch, pa, fa, dev)
     t = timing["decode"][False]
     kernels = {"kernels": [{
         "name": "paged_attention",
@@ -6846,6 +7129,85 @@ def main():
                            "TMA, two warpgroups a 64-key tile (S^T, P^T "
                            "and dV; dP^T, dS^T from that P^T and dK), "
                            "64-query Q/dO tiles"}[name]}})
+    # phase 18's rows: the kernels of wide_attention.cu, launches from
+    # 18(c)'s serving (paged: the split kernel also serves the window
+    # route) and 18(d)'s training (flash, float32)
+    for name, routes, shape, note in (
+            ("paged_attention_split_wide", ("split", "window"), "decode",
+             "decode and the verify window above head dim 256 "
+             "(paged_wide_split_kernel<Q, QN>, CUDA cores: a CTA of 8 warps "
+             "per 256 logical keys of a row and head and 1024 output "
+             "columns, scores over all of D a warp a key; then "
+             "paged_wide_combine_kernel merges the splits in order: two "
+             "launches a call); 18(c)'s decode steps at 8 x 512"),
+            ("paged_attention_tiled_wide", ("tiled",), "prefill",
+             "prefill tails and cold prompts above head dim 256 "
+             "(paged_wide_tiled_kernel<Q>: mma.sync 3xTF32, 64 queries and "
+             "128 output columns a CTA, scores over D in 32-column "
+             "chunks, 32-key tiles through the table, columns past D "
+             "predicated); 18(c)'s prefills; the 256-token tail")):
+        t = wider["paged_timing"][shape]["float32"]
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "tensorflowonspark_tpu_torch/csrc/wide_attention.cu",
+            "replaces": "tensorflowonspark_tpu/ops/paged_attention.py:210",
+            "launches": sum(wider["route_launches"][r] for r in routes),
+            "max_abs_err": max(wider["paged_err"][r] for r in routes),
+            "ms": t["ms"],
+            "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "bound_simt_ms": t["bound_simt_ms"],
+            "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "note": note,
+            "head_dims": list(WIDER_DIMS),
+            "budget": {k: v for k, v in wider["budget"].items()
+                       if k.startswith(("paged_split", "paged_window")
+                                       if shape == "decode"
+                                       else ("paged_tiled",))},
+            "by_shape": {kv: wider["paged_timing"][shape][kv]
+                         for kv in wider["paged_timing"][shape]}})
+    for name, replaces in (("fwd", 83), ("dq", 137), ("dkv", 186)):
+        ft = wider["flash_timing"]["float32"][name]
+        bt = wider["flash_timing"]["bfloat16"][name]
+        kernels["kernels"].append({
+            "name": "flash_{}_wide".format(name),
+            "route": "cuda",
+            "source": "tensorflowonspark_tpu_torch/csrc/wide_attention.cu",
+            "replaces": "tensorflowonspark_tpu/ops/flash_attention.py:{}"
+                        .format(replaces),
+            # 18(d): the D-512 decoder's training steps, float32
+            "launches": wider["flash_launches"][name],
+            # the training shape (B 2 x S 1024 x 8 x 512, causal,
+            # float32); every head dim's cases beside it
+            "max_abs_err": wider["flash_err"]["train"]["t"][name],
+            "max_abs_err_by_dim": {
+                str(d): {c: e[name] for c, e in errs.items()}
+                for d, errs in wider["flash_err"].items()},
+            "ms": ft["ms"],
+            "device_ms": ft["device_ms"],
+            "plain_ms": ft["plain_ms"],
+            "bound_ms": ft["bound_ms"],
+            "bound_by": ft["bound_by"],
+            "bound_simt_ms": ft["bound_simt_ms"],
+            "library_ms": ft["library_ms"],
+            "library_device_ms": ft["library_device_ms"],
+            # the bfloat16 instantiation at the same shape
+            "bfloat16": {k: bt[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")},
+            "budget": {dtype: wider["budget"]["{} wide {}".format(
+                name, dtype)] for dtype in ("float32", "bfloat16")},
+            "design": "flash_{}_wide_kernel<T>: mma.sync TF32 (3xTF32 at "
+                      "float32, one pass on bfloat16 operands), one CTA of "
+                      "4 warps over 64 {} and 128 output columns{}, scores "
+                      "summed over D in 32-column chunks, 32-row tiles"
+                      .format(name, "keys" if name == "dkv" else "queries",
+                              " (dK and dV in CTAs of their own)"
+                              if name == "dkv" else "")})
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
@@ -6873,6 +7235,7 @@ def main():
                        "recovery": rec,
                        "tp_decode": tpd,
                        "wide": wide,
+                       "wider": wider,
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     log("total: {:.1f}s".format(time.monotonic() - t_start))
     print(json.dumps(kernels))

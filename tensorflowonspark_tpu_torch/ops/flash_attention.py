@@ -34,7 +34,13 @@ Two formulations share that contract:
   PERF.md. Head dims 16/32/64/128/256 are instantiated; any other head
   dim up to 256 runs zero-padded to the next of them (zero columns add
   nothing to ``q k^T``, so lse and the true columns are unchanged; a
-  192-wide head runs at 256), and
+  192-wide head runs at 256). Above 256 the kernels of
+  ``csrc/wide_attention.cu`` take every head dim, zero-padded to a
+  multiple of :data:`WIDE_CHUNK`: a CTA owns one chunk of that many
+  output columns (a grid axis) and sums the scores (and the backward's
+  dO V^T) over all of D in 32-column chunks (``mma.sync`` TF32, 3xTF32
+  at float32, one pass on bfloat16 operands, which TF32 holds exactly),
+  and
   a batch whose ``B * N`` exceeds one launch's grid runs in slices of
   the batch (:func:`_on_kernels`). Float32 or bfloat16 inputs with
   float32 statistics and accumulators.
@@ -61,9 +67,15 @@ import torch.nn.functional as F
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 
-#: head dims the kernels are instantiated for (a template parameter);
-#: narrower heads run zero-padded to the next of them
+#: head dims the kernels of ``csrc/flash_attention.cu`` are instantiated
+#: for (a template parameter); narrower heads run zero-padded to the next
+#: of them
 HEAD_DIMS = (16, 32, 64, 128, 256)
+
+#: above ``HEAD_DIMS[-1]`` the kernels of ``csrc/wide_attention.cu`` run
+#: at any multiple of this (the output columns one CTA owns), a head dim
+#: in between zero-padded to the next
+WIDE_CHUNK = 128
 
 #: the most ``B * N`` one launch takes (the bfloat16 kernels put it on
 #: grid y); a larger batch is launched in slices
@@ -229,7 +241,9 @@ def _check_inputs(q, k, v, bias, causal, extra=()):
            "k/v batch, heads or head_dim differ from q's")
     _check(q.dtype in DTYPES and k.dtype == v.dtype == q.dtype,
            "q, k, v must share a dtype in {}".format(DTYPES))
-    _check(d in HEAD_DIMS, "head_dim must be one of {}".format(HEAD_DIMS))
+    _check(d in HEAD_DIMS or _wide(d),
+           "head_dim must be one of {} or a multiple of {} above {}".format(
+               HEAD_DIMS, WIDE_CHUNK, HEAD_DIMS[-1]))
     _check(not causal or s_q == s_k, "causal needs equal q/kv lengths")
     _check(bias is None or (bias.dtype == torch.float32
                             and tuple(bias.shape) == (b, s_k)),
@@ -274,16 +288,30 @@ def _stream(t):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _kernel_fwd(q, k, v, bias, causal, scale):
-    """Launch ``tfos_flash_fwd``; returns ``(out, lse [B*N, S_q])``."""
+def _wide(d):
+    """Whether an (instantiated) head dim ``d`` takes the kernels of
+    ``wide_attention.cu``: a multiple of :data:`WIDE_CHUNK` above 256."""
+    return d > HEAD_DIMS[-1] and d % WIDE_CHUNK == 0
+
+
+def _entry(kind, d):
+    """The C function that launches kernel ``kind`` at head dim ``d``."""
     from tensorflowonspark_tpu_torch.ops import _build
 
+    if _wide(d):
+        return getattr(_build.load("wide_attention"),
+                       "tfos_wide_flash_" + kind)
+    return getattr(_build.load("flash_attention"), "tfos_flash_" + kind)
+
+
+def _kernel_fwd(q, k, v, bias, causal, scale):
+    """Launch ``tfos_flash_fwd`` (``tfos_wide_flash_fwd`` above 256);
+    returns ``(out, lse [B*N, S_q])``."""
     b, s_q, s_k, n, d = _check_inputs(q, k, v, bias, causal)
     _check_aligned((q, k, v), "q, k and v")
     out = torch.empty_like(q)
     lse = torch.empty((b * n, s_q), dtype=torch.float32, device=q.device)
-    lib = _build.load("flash_attention")
-    rc = lib.tfos_flash_fwd(
+    rc = _entry("fwd", d)(
         _vp(q), _vp(k), _vp(v), _vp(bias), _vp(out), _vp(lse), b, s_q, s_k,
         n, d, int(causal), ctypes.c_float(scale),
         int(q.dtype == torch.bfloat16), _stream(q))
@@ -292,14 +320,12 @@ def _kernel_fwd(q, k, v, bias, causal, scale):
 
 
 def _kernel_dq(q, k, v, bias, dout, lse, delta, causal, scale):
-    """Launch ``tfos_flash_dq``; returns dq in q's dtype."""
-    from tensorflowonspark_tpu_torch.ops import _build
-
+    """Launch ``tfos_flash_dq`` (``tfos_wide_flash_dq`` above 256); returns
+    dq in q's dtype."""
     b, s_q, s_k, n, d = _check_bwd_inputs(q, k, v, bias, dout, lse, delta,
                                           causal)
     dq = torch.empty_like(q)
-    lib = _build.load("flash_attention")
-    rc = lib.tfos_flash_dq(
+    rc = _entry("dq", d)(
         _vp(q), _vp(k), _vp(v), _vp(bias), _vp(dout), _vp(lse), _vp(delta),
         _vp(dq), b, s_q, s_k, n, d, int(causal), ctypes.c_float(scale),
         int(q.dtype == torch.bfloat16), _stream(q))
@@ -308,15 +334,13 @@ def _kernel_dq(q, k, v, bias, dout, lse, delta, causal, scale):
 
 
 def _kernel_dkv(q, k, v, bias, dout, lse, delta, causal, scale):
-    """Launch ``tfos_flash_dkv``; returns (dk, dv) in k's dtype."""
-    from tensorflowonspark_tpu_torch.ops import _build
-
+    """Launch ``tfos_flash_dkv`` (``tfos_wide_flash_dkv`` above 256);
+    returns (dk, dv) in k's dtype."""
     b, s_q, s_k, n, d = _check_bwd_inputs(q, k, v, bias, dout, lse, delta,
                                           causal)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _build.load("flash_attention")
-    rc = lib.tfos_flash_dkv(
+    rc = _entry("dkv", d)(
         _vp(q), _vp(k), _vp(v), _vp(bias), _vp(dout), _vp(lse), _vp(delta),
         _vp(dk), _vp(dv), b, s_q, s_k, n, d, int(causal),
         ctypes.c_float(scale), int(q.dtype == torch.bfloat16), _stream(q))
@@ -333,14 +357,22 @@ def budget(kind, d, dtype):
     ``{"ctas_per_sm", "registers", "spill_bytes", "smem_bytes"}`` for
     ``kind`` "fwd", "dq" or "dkv", head dim ``d`` and input ``dtype``
     (registers and local-memory bytes per thread as the compiler left
-    them; CTAs per SM from the card's occupancy calculator)."""
+    them; CTAs per SM from the card's occupancy calculator). Above 256
+    (``d`` any multiple of :data:`WIDE_CHUNK`) the wide kernel, the same at
+    every such D, with its static and dynamic shared bytes."""
     from tensorflowonspark_tpu_torch.ops import _build
 
-    _check(kind in BUDGET_KINDS and d in HEAD_DIMS and dtype in DTYPES,
+    _check(kind in BUDGET_KINDS and (d in HEAD_DIMS or _wide(d))
+           and dtype in DTYPES,
            "no kernel {} at head_dim {} in {}".format(kind, d, dtype))
     out = (ctypes.c_int * 4)()
-    rc = _build.load("flash_attention").tfos_flash_budget(
-        BUDGET_KINDS.index(kind), d, int(dtype == torch.bfloat16), out)
+    bf16 = int(dtype == torch.bfloat16)
+    if _wide(d):
+        rc = _build.load("wide_attention").tfos_wide_budget(
+            2 + ("fwd", "dq", "dkv").index(kind), bf16, 0, out)
+    else:
+        rc = _build.load("flash_attention").tfos_flash_budget(
+            BUDGET_KINDS.index(kind), d, bf16, out)
     if rc != 0:
         raise RuntimeError("flash_attention budget query failed: CUDA error "
                            "{}".format(rc))
@@ -353,20 +385,18 @@ def budget(kind, d, dtype):
 
 def padded_head_dim(d):
     """The instantiated head dim a ``d``-wide head runs at on the
-    kernels: the narrowest of :data:`HEAD_DIMS` that holds it."""
+    kernels: the narrowest of :data:`HEAD_DIMS` that holds it, and above
+    256 the next multiple of :data:`WIDE_CHUNK`."""
     for dp in HEAD_DIMS:
         if d <= dp:
             return dp
-    raise ValueError(
-        "flash_attention kernel: head_dim {} is wider than {}, the widest "
-        "instantiation; heads above 256 wait for ROADMAP Queue 2 item 12 "
-        "(head dims above 256)".format(d, HEAD_DIMS[-1]))
+    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
 
 
 def _on_kernels(fns, q, k, v, bias, causal, scale, bwd=()):
     """Call each kernel wrapper of ``fns`` (``_kernel_fwd``, ``_kernel_dq``
     or ``_kernel_dkv``, or a plain version with the same signature) at any
-    head dim up to 256 and any ``B * N``, on inputs padded once for all.
+    head dim and any ``B * N``, on inputs padded once for all.
 
     q, k, v and dO (the first of ``bwd = (dout, lse, delta)``) are
     zero-padded on D to :func:`padded_head_dim`; ``scale`` is the caller's,

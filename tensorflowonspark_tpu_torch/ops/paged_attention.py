@@ -22,10 +22,13 @@ Three formulations share that contract:
   does ~2 flops per K/V byte it reads, so the floor is the live K/V
   (+ scales) over 3.35 TB/s; OPERATIONS at a prefill tail, whose keys
   are each read by hundreds of queries. Three routes, chosen by the
-  call's shape (:func:`_route`), at any block size:
+  call's shape (:func:`_route`), at any block size and any head dim (the
+  kernels of ``csrc/paged_attention.cu`` up to 256, those of
+  ``csrc/wide_attention.cu`` from :data:`WIDE_HEAD_DIM` up):
 
   - **split-KV** (S_q = :data:`SPLIT_MAX_QUERIES` = 1 at a head dim in
-    :data:`SPLIT_HEAD_DIMS`, 16 to 256: every decode step): the flash-decoding
+    :data:`SPLIT_HEAD_DIMS`, 16 to 256, or above 256: every decode
+    step): the flash-decoding
     schedule. One CTA per :data:`SPLIT_BLOCKS` consecutive live pool
     blocks of a (row, head), so a decode step of 8 rows x 12 heads still
     spreads over every SM; 16-byte loads of K/V rows straight into
@@ -35,14 +38,18 @@ Three formulations share that contract:
     splits in split order, so the result is deterministic. At head dim
     256 a kernel of its own keeps 8 keys in flight a warp and merges in
     the CTA that publishes a (row, head)'s last partial (a ticket from
-    :func:`_ticket_ptr`), with no second kernel;
+    :func:`_ticket_ptr`), with no second kernel. Above 256
+    (``paged_wide_split_kernel``, CUDA cores) a CTA takes
+    :data:`WIDE_SPLIT_KEYS` logical keys of a (row, head) and a
+    1024-column chunk of the output, every CTA summing the scores over
+    all of D; a combine kernel merges the splits in split order;
   - **window** (2 to :data:`WINDOW_MAX_QUERIES` queries a row at those
     head dims: the speculative verify window): the same schedule, every
     key row read once and dotted with each query of the row, a mask and
     online-softmax state per query, :data:`WINDOW_BLOCKS` pool blocks a
-    CTA, the merge folded into the last CTA as at D 256;
-  - **tiled** (every other call, head dim up to
-    :data:`TILED_MAX_HEAD_DIM`: prefill tails, cold prompts): tensor
+    CTA, the merge folded into the last CTA as at D 256 (above 256 the
+    split kernel above, at 2 or 4 queries a row, and its combine);
+  - **tiled** (every other call: prefill tails, cold prompts): tensor
     cores. One CTA of 4 warps per
     :data:`QUERY_TILE`-query tile, the warps splitting the keys; key
     tiles that cross pool blocks stream through a two-stage ``cp.async``
@@ -53,7 +60,10 @@ Three formulations share that contract:
     dim in between zero-padded to the next); at 256 its shared memory
     (:func:`tiled_smem_bytes`) is above 48 KB, granted through the
     kernel's attribute; :func:`budget` reads its registers and
-    occupancy.
+    occupancy. Above 256 (``paged_wide_tiled_kernel``) a CTA takes 64
+    queries and a :data:`WIDE_CHUNK`-column chunk of the output, sums
+    the scores over D in 32-column chunks, and predicates every column
+    past D: the pool stays at the model's D and is never padded.
 
   All walk only a row's LIVE keys through the table (dead slots are
   never loaded, so traffic tracks live tokens, not table width) and
@@ -79,9 +89,10 @@ import torch
 #: it) — how a run shows that its path went through the kernels
 launches = 0
 #: the same calls by route: "split" (two kernel launches a call at D <=
-#: 128: the split-KV kernel, then the combine kernel; one at D 256, its
-#: merge folded in), "window" (one launch, its merge folded in) or
-#: "tiled" (one launch of the tensor-core query-tiled kernel)
+#: 128 and above 256: the split-KV kernel, then the combine kernel; one at
+#: D 256, its merge folded in), "window" (one launch, its merge folded in;
+#: two above 256) or "tiled" (one launch of the tensor-core query-tiled
+#: kernel)
 route_launches = {"split": 0, "window": 0, "tiled": 0}
 _launches_lock = threading.Lock()  # engines launch from their own threads
 
@@ -117,14 +128,27 @@ SPLIT_BLOCKS = 4
 
 #: head dims the split-KV kernel is instantiated for (a key row splits
 #: into a power of two of 16-byte lanes; a float32 row of 256 puts two
-#: 16-byte vectors on each lane of the warp); others take a tiled route
+#: 16-byte vectors on each lane of the warp); others up to 256 take the
+#: tiled route (instantiated at 16, 32, 64, 128 and 256, a head dim in
+#: between zero-padded to the next)
 SPLIT_HEAD_DIMS = (16, 32, 64, 128, 256)
 
-#: largest head_dim the kernels take: the tensor-core tiled kernel is
-#: instantiated at 16, 32, 64, 128 and 256, a head dim in between
-#: zero-padded to the next; wider heads wait for ROADMAP Queue 2 item 12
-#: (head dims above 256)
-TILED_MAX_HEAD_DIM = 256
+#: head dims from this one up take the kernels of
+#: ``csrc/wide_attention.cu``, on every route: split and window by
+#: ``paged_wide_split_kernel`` + ``paged_wide_combine_kernel``, tiled by
+#: ``paged_wide_tiled_kernel``. They take any D (columns past D are
+#: predicated, loads are one element wide, so rows need no alignment)
+WIDE_HEAD_DIM = 257
+
+#: logical keys one CTA of the wide split kernel takes (a split): a call
+#: has ceil(table width x block size / this) splits a (row, head), those
+#: past a row's live keys writing an empty partial
+WIDE_SPLIT_KEYS = 256
+
+#: output columns one CTA of the wide tiled kernel owns (a grid axis);
+#: the wide split kernel's CTA owns :data:`WIDE_SPLIT_CHUNK`
+WIDE_CHUNK = 128
+WIDE_SPLIT_CHUNK = 1024
 
 #: the most shared memory one CTA may have on the H100 (227 KB)
 MAX_SMEM_BYTES = 232448
@@ -164,12 +188,19 @@ def _ticket_ptr(device, items):
 
 
 def tiled_smem_bytes(head_dim, quantized=False):
-    """Dynamic shared memory of one tiled launch at the instantiation
-    ``head_dim`` takes (``csrc/paged_attention.cu`` ``tc_smem``): the
-    16-row float32 Q tile, then the ring — two stages of K and V key
+    """Shared memory of one tiled launch at the instantiation ``head_dim``
+    takes. Up to 256 (``csrc/paged_attention.cu`` ``tc_smem``, dynamic):
+    the 16-row float32 Q tile, then the ring — two stages of K and V key
     tiles (64 keys, 32 at 128 and 256; float32 rows, or int8 rows of
     codes and 16 pad bytes with a float32 scale each) — whose space the
-    4 warps' (m, l, acc) reuse for the final merge."""
+    4 warps' (m, l, acc) reuse for the final merge. Above 256
+    (``paged_wide_tiled_kernel``, static, any D and dtype): a 64 x 32
+    chunk of Q, a 32 x 32 chunk of K and a 32 x :data:`WIDE_CHUNK` chunk
+    of V in float32, a row offset and two scales a key, a position a
+    query row, and two ints."""
+    if head_dim >= WIDE_HEAD_DIM:
+        return 4 * (64 * 32 + 32 * 32 + 32 * WIDE_CHUNK) + 32 * 16 \
+            + 64 * 4 + 8
     dp = next(x for x in (16, 32, 64, 128, 256) if head_dim <= x)
     keys = 32 if dp > 64 else 64
     row = dp + 16 if quantized else 4 * dp
@@ -290,10 +321,16 @@ def _check(cond, msg):
         raise ValueError("paged_attention kernel: " + msg)
 
 
+def _wide(head_dim):
+    """Whether ``head_dim`` takes the kernels of ``wide_attention.cu``."""
+    return head_dim >= WIDE_HEAD_DIM
+
+
 def _route(s_q, head_dim):
     """``"split"``, ``"window"`` or ``"tiled"``: the kernel a call with
-    ``s_q`` queries per row at ``head_dim`` launches."""
-    if head_dim in SPLIT_HEAD_DIMS:
+    ``s_q`` queries per row at ``head_dim`` launches (above 256, the wide
+    kernels of that route)."""
+    if head_dim in SPLIT_HEAD_DIMS or _wide(head_dim):
         if s_q <= SPLIT_MAX_QUERIES:
             return "split"
         if s_q <= WINDOW_MAX_QUERIES:
@@ -303,6 +340,9 @@ def _route(s_q, head_dim):
 
 #: the routes :func:`budget` reads, in the C interface's order
 BUDGET_ROUTES = ("tiled", "split", "window")
+#: ``tfos_wide_budget``'s kernel index of each route above 256 (the
+#: window route runs the split kernel at 2 or 4 queries a row)
+WIDE_BUDGET_KERNELS = {"tiled": 0, "split": 1, "window": 1}
 
 
 def budget(head_dim, quantized=False, route="tiled", queries=None):
@@ -315,24 +355,31 @@ def budget(head_dim, quantized=False, route="tiled", queries=None):
     bytes), "split" (the split-KV kernel, static shared bytes) or
     "window" (the window kernel's instantiation for ``queries`` queries a
     row, default :data:`WINDOW_MAX_QUERIES`; static and dynamic shared
-    bytes)."""
+    bytes). Above 256 the route's wide kernel, the same at every D (the
+    split kernel at 1 query a row for "split"; static shared bytes)."""
     from tensorflowonspark_tpu_torch.ops import _build
     import ctypes
 
     _check(route in BUDGET_ROUTES, "no route {!r}".format(route))
     if route == "tiled":
-        _check(1 <= head_dim <= TILED_MAX_HEAD_DIM,
+        _check(head_dim >= 1,
                "no tiled kernel at head_dim {}".format(head_dim))
     else:
-        _check(head_dim in SPLIT_HEAD_DIMS,
+        _check(head_dim in SPLIT_HEAD_DIMS or _wide(head_dim),
                "no {} kernel at head_dim {}".format(route, head_dim))
     queries = WINDOW_MAX_QUERIES if queries is None else int(queries)
     if route == "window":
         _check(2 <= queries <= WINDOW_MAX_QUERIES,
                "no window kernel for {} queries".format(queries))
     out = (ctypes.c_int * 4)()
-    rc = _build.load("paged_attention").tfos_paged_budget(
-        BUDGET_ROUTES.index(route), head_dim, int(quantized), queries, out)
+    if _wide(head_dim):
+        rc = _build.load("wide_attention").tfos_wide_budget(
+            WIDE_BUDGET_KERNELS[route], int(quantized),
+            queries if route == "window" else 1, out)
+    else:
+        rc = _build.load("paged_attention").tfos_paged_budget(
+            BUDGET_ROUTES.index(route), head_dim, int(quantized), queries,
+            out)
     if rc != 0:
         raise RuntimeError("paged_attention budget query failed: CUDA error "
                            "{}".format(rc))
@@ -378,12 +425,13 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
     _check(pos.dtype == torch.int32 and tuple(pos.shape) == (b, s_q),
            "pos must be int32 [B, S_q]")
     _check(bs_blk >= 1, "block_size must be at least 1")
-    _check(1 <= d <= TILED_MAX_HEAD_DIM,
-           "head_dim must be in [1, {}]; wider heads wait for ROADMAP "
-           "Queue 2 item 12 (head dims above 256)".format(TILED_MAX_HEAD_DIM))
+    _check(d >= 1, "head_dim must be at least 1")
     route = _route(s_q, d)
     mb = block_table.shape[1]
-    if route in ("split", "window"):
+    wide = _wide(d)
+    if wide:
+        _check(mb >= 1, "block_table needs at least one column")
+    elif route in ("split", "window"):
         _check(mb >= 1, "block_table needs at least one column")
         _check(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
                "pools must start on a 16-byte boundary (16-byte loads)")
@@ -391,14 +439,26 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _build.load("paged_attention")
+    lib = None if wide else _build.load("paged_attention")
     vp = ctypes.c_void_p
     common = (vp(q.data_ptr()), vp(k_pool.data_ptr()), vp(v_pool.data_ptr()),
               vp(k_scale.data_ptr() if quantized else 0),
               vp(v_scale.data_ptr() if quantized else 0),
               vp(block_table.data_ptr()), vp(pos.data_ptr()))
     stream = vp(torch.cuda.current_stream(q.device).cuda_stream)
-    if route == "split":
+    if wide and route in ("split", "window"):
+        splits = -(-mb * bs_blk // WIDE_SPLIT_KEYS)
+        ws = torch.empty((b, n, s_q, splits, d + 2), dtype=torch.float32,
+                         device=q.device)
+        rc = _build.load("wide_attention").tfos_wide_paged_split(
+            *common, vp(ws.data_ptr()), vp(out.data_ptr()), b, s_q, n, d,
+            bs_blk, mb, splits, ctypes.c_float(scale), int(quantized),
+            stream)
+    elif wide:
+        rc = _build.load("wide_attention").tfos_wide_paged_tiled(
+            *common, vp(out.data_ptr()), b, s_q, n, d, bs_blk, mb,
+            ctypes.c_float(scale), int(quantized), stream)
+    elif route == "split":
         splits = -(-mb // SPLIT_BLOCKS)
         ws = torch.empty((b, n, splits, d + 2), dtype=torch.float32,
                          device=q.device)

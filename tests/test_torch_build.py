@@ -51,3 +51,21 @@ def test_package_sources_share_the_tensor_core_header():
         text = f.read()
     for symbol in _build.KERNELS["paged_attention"]:
         assert 'extern "C" int {}('.format(symbol) in text
+
+
+def test_wide_source_shares_the_header_and_lists_its_symbols():
+    """``wide_attention.cu`` (both ops above head dim 256) includes
+    ``tc_common.cuh`` alone, defines every C symbol the wrappers bind,
+    and hashes apart from the other sources (its own library)."""
+    deps = [os.path.basename(p) for p in
+            _build._sources(_build.source("wide_attention"))]
+    assert deps == ["wide_attention.cu", "tc_common.cuh"]
+    with open(_build.source("wide_attention")) as f:
+        text = f.read()
+    assert set(_build.KERNELS["wide_attention"]) == {
+        "tfos_wide_flash_fwd", "tfos_wide_flash_dq", "tfos_wide_flash_dkv",
+        "tfos_wide_paged_split", "tfos_wide_paged_tiled", "tfos_wide_budget"}
+    for symbol in _build.KERNELS["wide_attention"]:
+        assert 'extern "C" int {}('.format(symbol) in text
+    paths = {_build.library_path(n) for n in _build.KERNELS}
+    assert len(paths) == len(_build.KERNELS) == 3

@@ -23,7 +23,10 @@ attention's kernel route (a 4-way ring in lockstep) against its plain
 route in every schedule and both dtypes; the speculative verify window
 (S_q = k from mid-sequence cursors), a speculative engine's exact
 route counts, two fleet replicas launching from their own threads with
-exact counts, and ``DecodeEngine.measure_attn``'s exact launches.
+exact counts, and ``DecodeEngine.measure_attn``'s exact launches; and
+both ops at head dims above 256 (``csrc/wide_attention.cu``: 257, 300,
+384, 512, 576 and 1024) on every route and in both dtypes, their
+budgets, and a D-512 engine's exact launches by route.
 ``chip_smoke.py`` runs the same comparisons at the main paths' widths; these are the small-shape
 versions for ``pytest -m cuda``."""
 
@@ -79,8 +82,7 @@ def _owed_prefills(calls):
     one."""
     owed = {"window": 0, "tiled": 0}
     for s_q, layers, d in calls:
-        window = 2 <= s_q <= pa.WINDOW_MAX_QUERIES \
-            and d in pa.SPLIT_HEAD_DIMS
+        window = s_q >= 2 and pa._route(s_q, d) == "window"
         owed["window" if window else "tiled"] += layers
     return owed
 
@@ -828,7 +830,7 @@ def _check_against_plain(q, k, v, bias, dout, g_lse, causal, scale, got):
     _assert_close(lse, want_lse.reshape(b * n, s_q))
     for t, want, row in ((out, want_out, pv), (dq, want_dq, None),
                          (dk, want_dk, None), (dv, want_dv, None)):
-        assert t.dtype == q.dtype and t.shape == q.shape
+        assert t.dtype == q.dtype and t.shape == want.shape
         assert torch.isfinite(t).all()
         _assert_close(t, want, row)
 
@@ -1231,3 +1233,175 @@ def test_ring_kernel_route_matches_plain_ring(cuda, dtype, case):
             limit = FLASH_F32_RTOL * max(1.0, top)
         times = 1 if i == 0 else partials
         assert ((gf - wf).abs() <= times * limit).all(), i
+
+
+# -- head dims above 256 (csrc/wide_attention.cu) ---------------------------
+
+#: the head dims the wide kernels are held at: 257 (one column past the
+#: narrow kernels), 300 (int8 rows of 300 codes break 16-byte alignment),
+#: 384, 512 (DeepSeek-V4-Flash), 576 (512 + 64 latent attention, a ragged
+#: last 1024-column chunk of the split kernel is not needed, a ragged
+#: 128-column one of the tiled kernel is) and 1024
+WIDE_DIMS = [257, 300, 384, 512, 576, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("s_q", [1, 2, 3, 40], ids=["split", "window-2",
+                                                   "window-3", "tiled"])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_paged_matches_blockwise(cuda, d, s_q, quant):
+    """Paged attention above 256 on each route (decode and the verify
+    window on the wide split kernel and its combine, a 40-query tail on
+    the wide tiled kernel), block 16: rows mid-table, overshooting the
+    table and all scratch, within TOL of ``_blockwise``, bitwise on a
+    repeat and blind to NaN-poisoned dead pool rows."""
+    rng = np.random.RandomState(d + s_q)
+    bs, mb = 16, 22
+    args, scales = _paged_case(cuda, rng, s_q, quant,
+                               [mb * bs - 5, mb * bs + 5, s_q], n=2, d=d,
+                               bs=bs, mb=mb, scratch_row=2)
+    got, route = _launch(args, scales)
+    assert route == pa._route(s_q, d) == (
+        "split" if s_q == 1 else "window" if s_q <= 4 else "tiled")
+    want = pa.paged_attention(*args, impl="blockwise", **scales)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    again, _ = _launch(args, scales)
+    assert torch.equal(again, got)
+    poisoned, _ = _launch(*_poison_dead(cuda, args, scales, bs))
+    assert torch.equal(poisoned, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("s_q", [1, 4, 256], ids=["split", "window",
+                                                 "tiled"])
+@pytest.mark.parametrize("bs", [1, 64])
+def test_wide_paged_block_sizes(cuda, bs, s_q, quant):
+    """D 512 at pool blocks of 1 and 64 token rows: every key a block of
+    its own, or key tiles inside one block; a 256-query tail deep in the
+    table."""
+    rng = np.random.RandomState(bs + s_q)
+    mb = -(-600 // bs)
+    args, scales = _paged_case(cuda, rng, s_q, quant,
+                               [mb * bs - 3, 300, s_q], n=2, d=512, bs=bs,
+                               mb=mb)
+    got, route = _launch(args, scales)
+    assert route == pa._route(s_q, 512)
+    want = pa.paged_attention(*args, impl="blockwise", **scales)
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,masked,s_k",
+                         [(True, False, 136), (False, True, 136),
+                          (False, True, 200)],
+                         ids=["causal", "key_mask", "rect-mask"])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_flash_matches_plain(cuda, d, causal, masked, s_k, dtype):
+    """The three flash kernels above 256 through the public pair (q, k, v
+    and dO zero-padded to a multiple of 128): ragged tiles, causal, a key
+    mask with a fully masked batch row, S_q != S_k; out, lse, dQ, dK and
+    dV at the true D against the plain versions under the phase-3b
+    limits, one launch of each kernel."""
+    case = (2, 136, s_k, 3, d, causal, masked, dtype)
+    q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
+    scale = d ** -0.5
+    before = dict(fa.launches)
+    got = _pair_through_route(q, k, v, bias, dout, g_lse, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.launches == {k_: before[k_] + 1 for k_ in before}
+    _check_against_plain(q, k, v, bias, dout, g_lse, causal, scale, got)
+    if masked:
+        assert (got[0][-1] == 0).all() and (got[2][-1] == 0).all()
+        assert torch.isneginf(got[1].reshape(2, 3, 136)[-1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wide_flash_is_deterministic(cuda, dtype):
+    """One writer per output tile and column chunk, no atomics: two
+    launches of each wide kernel on the same inputs are bitwise equal."""
+    case = (2, 200, 200, 2, 512, True, False, dtype)
+    q, k, v, dout, g_lse, bias = _flash_inputs(cuda, case)
+    scale = 512 ** -0.5
+    first = _pair_through_route(q, k, v, bias, dout, g_lse, True, scale)
+    second = _pair_through_route(q, k, v, bias, dout, g_lse, True, scale)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+def test_wide_flash_budget(cuda, kind, dtype):
+    """The wide flash kernels keep their 16 x 128 accumulators (two in
+    dK/dV) in registers: no spills, at least one CTA an SM, and the same
+    instantiation at every D above 256."""
+    got = fa.budget(kind, 512, dtype)
+    assert got["spill_bytes"] == 0
+    assert got["ctas_per_sm"] >= 1
+    assert 0 < got["smem_bytes"] <= 227 * 1024
+    assert fa.budget(kind, 1024, dtype) == got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("route,queries", [("split", 1), ("window", 2),
+                                           ("window", 4), ("tiled", None)])
+def test_wide_paged_budget(cuda, route, queries, quant):
+    """The wide paged kernels (split at 1, 2 and 4 queries a row; tiled)
+    keep their state in registers and fit the card; the tiled kernel's
+    shared memory is what ``tiled_smem_bytes`` reckons above 256."""
+    got = pa.budget(512, quant, route=route, queries=queries)
+    assert got["spill_bytes"] == 0
+    assert got["ctas_per_sm"] >= 1
+    assert 0 < got["smem_bytes"] <= 227 * 1024
+    if route == "tiled":
+        assert got["smem_bytes"] == pa.tiled_smem_bytes(512, quant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["fp32", "int8"])
+def test_wide_engine_routes_exact(cuda, prefills, kv_dtype):
+    """A D-512 decoder (2 heads of 512, 2 layers) behind ``DecodeEngine``:
+    every decode step launches the wide split kernel once a layer and
+    every prefill the wide tiled one, exactly; its tokens equal the
+    gather engine's but at a top-2 tie."""
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch.models.decoder import DecoderLM
+
+    model = DecoderLM(128, hidden=1024, num_heads=2, num_layers=2,
+                      max_len=128, device=cuda)
+    model.init_weights(torch.Generator(device=cuda).manual_seed(5))
+    rng = np.random.RandomState(9)
+    reqs = [(rng.randint(0, 128, size=rng.randint(3, 40)).tolist(),
+             int(rng.randint(4, 20))) for _ in range(4)]
+    for route in pa.route_launches:
+        pa.route_launches[route] = 0
+    del prefills[:]
+    with serving.DecodeEngine(model, slots=4, kv_block_size=16,
+                              kv_dtype=kv_dtype, device=cuda) as eng:
+        got = [h.result(300) for h in [eng.submit(p, n) for p, n in reqs]]
+        counts = eng.counters.snapshot()["counts"]
+    assert len(prefills) == counts["prefills"]
+    assert pa.route_launches == {"split": 2 * counts["decode_steps"],
+                                 **_owed_prefills(prefills)}
+    with serving.DecodeEngine(model, slots=4, kv_block_size=16,
+                              kv_dtype=kv_dtype, attn_impl="gather",
+                              device=cuda) as eng:
+        want = [h.result(300) for h in [eng.submit(p, n) for p, n in reqs]]
+    for (prompt, _), g, w in zip(reqs, got, want):
+        if g == w:
+            continue
+        first = next(j for j in range(len(g)) if g[j] != w[j])
+        with torch.no_grad():
+            logits = model(torch.tensor([g[:first]], device=cuda))[0, -1]
+        top = torch.topk(logits, 2).values
+        assert (top[0] - top[1]).item() < (1e-3 if kv_dtype else 1e-4)

@@ -602,16 +602,33 @@ def test_batch_slices_equal_one_launch(monkeypatch):
         assert torch.equal(got, want)
 
 
-def test_head_dim_above_128_raises_naming_the_roadmap_item():
-    """Head dims pad to the next instantiation up to 256 (the widest since
-    D 256 was instantiated); above it the kernel route raises, naming
-    the ROADMAP item that lists wider heads."""
+def test_head_dims_above_256_pad_to_the_wide_chunk():
+    """Head dims pad to the next instantiation up to 256, and above it to
+    the next multiple of ``WIDE_CHUNK`` (the output columns a CTA of the
+    wide kernels owns): ``_on_kernels`` runs D 320 at 384 and slices the
+    outputs back, equal to the unpadded plain version within the
+    padding tests' limit (zero columns add nothing to q k^T)."""
     assert [fa.padded_head_dim(d)
             for d in (1, 16, 17, 64, 65, 128, 129, 192, 256)] == \
         [16, 16, 32, 64, 128, 128, 256, 256, 256]
-    q = torch.zeros(1, 16, 1, 320)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 12"):
-        fa._on_kernels((fa._fwd_plain,), q, q, q, None, False, 320 ** -0.5)
+    assert [fa.padded_head_dim(d) for d in (257, 320, 384, 385, 512, 576,
+                                           1024)] == \
+        [384, 384, 384, 512, 512, 640, 1024]
+    assert all(fa._wide(fa.padded_head_dim(d)) for d in range(257, 1100))
+    rng = np.random.RandomState(11)
+    q, k, v = (torch.from_numpy(rng.randn(1, 16, 1, 320).astype(np.float32))
+               for _ in range(3))
+    seen = []
+
+    def fwd(*a):
+        seen.append(a[0].shape[-1])
+        return fa._fwd_plain(*a)
+
+    (out, lse), = fa._on_kernels((fwd,), q, k, v, None, False, 320 ** -0.5)
+    assert seen == [384] and out.shape == q.shape
+    want_out, want_lse = fa._fwd_plain(q, k, v, None, False, 320 ** -0.5)
+    _pad_close(out, want_out)
+    _pad_close(lse, want_lse)
     empty = torch.zeros(0, 16, 1, 16)
     with pytest.raises(ValueError, match="B must be positive"):
         fa._on_kernels((fa._fwd_plain,), empty, empty, empty, None, False,
@@ -629,7 +646,7 @@ def kernel_route(monkeypatch):
 
     def stand_in(plain):
         def run(q, k, v, bias, *rest):
-            assert q.shape[-1] in fa.HEAD_DIMS
+            assert q.shape[-1] in fa.HEAD_DIMS or fa._wide(q.shape[-1])
             assert q.shape[0] * q.shape[2] <= fa.MAX_BATCH_HEADS
             seen.append(q.shape[-1])
             return plain(q, k, v, bias, *rest)
@@ -643,11 +660,11 @@ def kernel_route(monkeypatch):
     return seen
 
 
-@pytest.mark.parametrize("d", [12, 96])
+@pytest.mark.parametrize("d", [12, 96, 320])
 def test_kernel_route_pads_through_autograd(kernel_route, d):
-    """``flash_attention_lse`` on the kernel route at D 12 and 96 (padded
-    to 16 and 128 inside) against the plain route: out, lse and the
-    gradients through both outputs."""
+    """``flash_attention_lse`` on the kernel route at D 12, 96 and 320
+    (padded to 16, 128 and 384 inside) against the plain route: out, lse
+    and the gradients through both outputs."""
     q, k, v, mask, g, g_lse = _inputs(2, 32, 32, 2, d, True, 9)
     outs = []
     for impl in (None, "plain"):

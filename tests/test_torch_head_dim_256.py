@@ -10,7 +10,9 @@ the widths the kernels now take, with the same seeded numpy inputs:
 
 - planning: a D-256 paged call refuses a CPU tensor for its device
   only, 129-256 pad to 256, decode at D 256 takes the split route and
-  every wider window the tiled one;
+  every wider window the tiled one; above 256 (the kernels of
+  ``csrc/wide_attention.cu``) both ops at D 320, 512 and 576 against
+  the JAX package, and ``tests/test_torch_wide_heads.py`` for the rest;
 - paged attention at D 192 and 256, S_q 8 and 40, blocks 16, 32 and 64
   (the tiled route takes any block size), float and int8, through the
   port's plain route against the JAX gather oracle (and, at block 64,
@@ -103,16 +105,32 @@ def test_d256_kernels_are_planned(bs):
     assert pa._route(8, 256) == "tiled"
 
 
-@pytest.mark.parametrize("d", [257, 384])
-def test_heads_above_256_refuse_with_their_roadmap_item(d):
-    """Above 256 neither op has a kernel: both raise, naming the ROADMAP
-    item that lists head dims above 256 (the reference takes any D)."""
-    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 12"):
-        fa.padded_head_dim(d)
+@pytest.mark.parametrize("d", [320, 512, 576])
+def test_heads_above_256_match_jax(d):
+    """Above 256 both ops run: on the card the kernels of
+    ``csrc/wide_attention.cu``, here the plain versions (every CPU
+    tensor's route). A D-``d`` paged call refuses a CPU tensor for its
+    device alone and plans the wide routes by query count; paged decode
+    and a 40-query tail through ``_blockwise`` agree with the JAX gather
+    oracle, and the flash pair's out and lse with the Pallas kernels in
+    the interpreter, within the D <= 256 tolerances."""
     t = [torch.from_numpy(a)
          for a in _paged_inputs(1, d=d, bs=8, mb=2, pool=5)]
-    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 12"):
+    with pytest.raises(ValueError, match="every tensor must be CUDA"):
         pa.paged_attention(*t, impl="kernel")
+    assert (pa._route(1, d), pa._route(3, d), pa._route(40, d)) == (
+        "split", "window", "tiled")
+    for s_q in (1, 40):
+        case = _paged_inputs(20 + d + s_q, s_q=s_q, d=d, bs=16, mb=4)
+        np.testing.assert_allclose(_torch(case, impl="blockwise"),
+                                   _jax(case, "gather"), atol=FP32_TOL,
+                                   rtol=FP32_TOL)
+    q, k, v, mask, _, _ = _inputs(2, 64, 64, 2, d, True, d)
+    want_out, want_lse = _jax_pair(q, k, v, mask, False)
+    got_out, got_lse = fa.flash_attention_lse(
+        _t(q), _t(k), _t(v), key_mask=_t(mask), block_q=64, block_k=64)
+    _close(got_out, want_out, FLASH_TOL)
+    _close(got_lse, want_lse, FLASH_TOL)
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])

@@ -464,16 +464,56 @@ def test_kernel_module_imports_without_nvcc():
         assert _build._libs == {}
         assert paged_attention.launches == 0
         assert flash_attention.launches == {"fwd": 0, "dq": 0, "dkv": 0}
-        assert set(_build.KERNELS) == {"paged_attention", "flash_attention"}
+        assert set(_build.KERNELS) == {"paged_attention", "flash_attention",
+                                       "wide_attention"}
         assert set(_build.KERNELS["flash_attention"]) == {
             "tfos_flash_fwd", "tfos_flash_dq", "tfos_flash_dkv",
             "tfos_flash_budget"}
+        assert set(_build.KERNELS["wide_attention"]) == {
+            "tfos_wide_flash_fwd", "tfos_wide_flash_dq",
+            "tfos_wide_flash_dkv", "tfos_wide_paged_split",
+            "tfos_wide_paged_tiled", "tfos_wide_budget"}
         for name in _build.KERNELS:
             assert _build.library_path(name).endswith(".so")
         print("OK")
     """)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")
+
+
+#: the concurrency lint's modules (the port's own copy)
+ANALYSIS = ("analysis/__init__", "analysis/__main__", "analysis/core",
+            "analysis/guards", "analysis/lockorder", "analysis/lifecycle",
+            "analysis/racecheck", "analysis/report")
+
+
+def test_analysis_is_the_ports_own_and_lints_with_jax_unimportable():
+    """Every module of the port's concurrency lint exists, imports only
+    the standard library and itself (statically), and ``python -m
+    tensorflowonspark_tpu_torch.analysis`` runs in a process where jax,
+    flax, optax and the JAX package cannot be imported: the port's
+    package against its own baseline, no new finding."""
+    for name in ANALYSIS:
+        path = os.path.join(PORT, name + ".py")
+        assert os.path.isfile(path), path
+        mods = [m.split(".")[0] for m in _imports(path)]
+        assert set(mods) <= {"ast", "argparse", "json", "os", "re", "sys",
+                             "tensorflowonspark_tpu_torch"}, (name, mods)
+    res = _run("""
+        import runpy, sys
+        for name in ("jax", "jaxlib", "flax", "optax",
+                     "tensorflowonspark_tpu", "torch"):
+            sys.modules[name] = None  # any import of them now fails
+        sys.argv = ["analysis"]
+        try:
+            runpy.run_module("tensorflowonspark_tpu_torch.analysis",
+                             run_name="__main__")
+        except SystemExit as e:
+            print("rc", e.code)
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "0 new" in res.stdout and "10 baselined" in res.stdout, res.stdout
+    assert res.stdout.strip().endswith("rc 0"), res.stdout
 
 
 def test_model_modules_are_the_ports_own():

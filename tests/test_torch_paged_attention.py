@@ -479,9 +479,11 @@ def test_route_picks_split_kv_for_decode():
     built for, and 2 to ``WINDOW_MAX_QUERIES`` queries a row (the verify
     window, short prefill tails) the window route there; wider windows,
     prefill tails and every other head dim up to 256 the tensor-core
-    tiled one. On CPU tensors no route launches."""
+    tiled one. Above 256 (``WIDE_HEAD_DIM`` on) the wide kernels take
+    all three routes by query count alone. On CPU tensors no route
+    launches."""
     assert tpa.SPLIT_MAX_QUERIES == 1
-    assert tpa.TILED_MAX_HEAD_DIM == 256
+    assert tpa.WIDE_HEAD_DIM == 257
     w = tpa.WINDOW_MAX_QUERIES
     assert w >= 4                      # chip_smoke.py's SPEC_K
     assert tpa._route(1, 64) == "split"
@@ -497,6 +499,12 @@ def test_route_picks_split_kv_for_decode():
     assert tpa._route(16, 129) == "tiled"
     assert tpa._route(1, 192) == "tiled"
     assert tpa._route(40, 256) == "tiled"
+    assert tpa._route(1, 257) == "split"
+    assert tpa._route(1, 512) == "split"
+    assert tpa._route(2, 300) == "window"
+    assert tpa._route(w, 576) == "window"
+    assert tpa._route(w + 1, 576) == "tiled"
+    assert tpa._route(512, 1024) == "tiled"
     assert set(tpa.route_launches) == {"split", "window", "tiled"}
     before = dict(tpa.route_launches)
     _torch(_case(2, s_q=1))
@@ -511,7 +519,8 @@ def test_tiled_route_takes_every_wide_head_dim(s_q):
     tails, cold prompts, the speculative verify window), and decode at a
     width the split kernel is not built for does too; D 256 takes the
     window route up to ``WINDOW_MAX_QUERIES`` queries and the tiled one
-    above; nothing above 256 has a kernel."""
+    above; every head dim above 256 takes the wide kernels' route for
+    its query count."""
     window = s_q <= tpa.WINDOW_MAX_QUERIES
     for d in range(129, 257):
         assert tpa._route(s_q, d) == (
@@ -519,6 +528,9 @@ def test_tiled_route_takes_every_wide_head_dim(s_q):
         assert tpa._route(1, d) == ("split" if d == 256 else "tiled"), d
     assert {tpa._route(s_q, d) for d in range(1, 257)} == (
         {"window", "tiled"} if window else {"tiled"})
+    for d in range(257, 1200):
+        assert tpa._route(s_q, d) == ("window" if window else "tiled"), d
+        assert tpa._route(1, d) == "split", d
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])

@@ -1,9 +1,10 @@
 """The concurrency lint over the port's threads.
 
-The JAX package's analyzer (``tensorflowonspark_tpu/analysis``,
-stdlib ``ast`` only; run as ``racecheck.run(paths, baseline)``) scans
-``tensorflowonspark_tpu_torch/`` against the port's own baseline,
-``tensorflowonspark_tpu_torch/racecheck_baseline.json``, where each
+The port's own analyzer (``tensorflowonspark_tpu_torch/analysis``, a
+copy of the JAX package's, stdlib ``ast`` only; run as
+``racecheck.run(paths, baseline)``) scans ``tensorflowonspark_tpu_torch/``
+against the port's baseline,
+``tensorflowonspark_tpu_torch/analysis/baseline.json``, where each
 benign finding carries a written reason. A finding that is not in the
 baseline fails; so does a baseline entry without a reason. The
 streaming loop (``engine/streaming.py``) and the Spark adapter's job
@@ -19,11 +20,11 @@ import io
 import json
 import os
 
-from tensorflowonspark_tpu.analysis import racecheck
+from tensorflowonspark_tpu_torch.analysis import racecheck
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "tensorflowonspark_tpu_torch")
-BASELINE = os.path.join(PORT, "racecheck_baseline.json")
+BASELINE = os.path.join(PORT, "analysis", "baseline.json")
 
 
 def _run(paths, baseline):
