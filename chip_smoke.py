@@ -588,14 +588,16 @@ def want_routes(pa, split, prefills, window=0, calls=None):
     ``split`` decode calls, ``window`` verify-window calls, and one call
     a layer for each recorded prefill (``calls``, default all since the
     last reset) — on the window route at 2 to ``WINDOW_MAX_QUERIES``
-    queries and a split head dim, else the tiled one. Checks that the
+    queries and a split head dim or one above 256, else the tiled one.
+    Checks that the
     recorder saw the ``prefills`` prefills the engines counted."""
     calls = PREFILLS.calls() if calls is None else calls
     check(len(calls) == prefills, "recorded {} paged prefills where the "
           "engines counted {}".format(len(calls), prefills))
     owed = {"split": split, "window": window, "tiled": 0}
     for s_q, layers, d in calls:
-        short = 2 <= s_q and pa._route(s_q, d) == "window"
+        short = 2 <= s_q <= pa.WINDOW_MAX_QUERIES \
+            and (d in pa.SPLIT_HEAD_DIMS or d > 256)
         owed["window" if short else "tiled"] += layers
     return owed
 
@@ -766,12 +768,34 @@ def kernel_cases(torch, pa, dev):
     return worst
 
 
+#: the H100's L2 (50 MB); and how many times over a timing's pool
+#: copies must exceed it when the smoke picks their number from the
+#: live bytes (:func:`l2_copies`)
+L2_BYTES = 50 * 2 ** 20
+L2_OVER = 4
+
+
+def live_kv_bytes(depths, n, d, quant, keys):
+    """The K/V bytes one paged call reads: a row ending at depth ``t``
+    reads min(t, ``keys``) keys and values of ``n`` heads of ``d``,
+    float32 or int8 codes with a float32 scale a (key, head)."""
+    live = int(np.minimum(np.asarray(depths), keys).sum())
+    return 2 * live * n * (d * (1 if quant else 4) + (4 if quant else 0))
+
+
+def l2_copies(kv_bytes):
+    """Pool copies whose live K/V together exceed the L2 ``L2_OVER``
+    times, and at least ``L2_OVER`` of them."""
+    return max(L2_OVER, -(-L2_OVER * L2_BYTES // kv_bytes))
+
+
 def time_ms(torch, fn, sets, reps=20):
-    """Mean milliseconds per call, cycling over ``sets`` argument sets
-    whose live K/V together exceed the 50 MB L2 (a layer's pool is cold
-    when the serving step reaches it). Calls are issued from the host one
-    by one, so a call whose host work outlasts its kernels measures the
-    host."""
+    """Mean milliseconds per call, cycling over ``sets`` argument sets.
+    A layer's pool is cold when the serving step reaches it, so sets whose
+    live K/V together stay inside the 50 MB L2 flatter a kernel:
+    :func:`l2_copies` says how many copies keep them out of it. Calls are
+    issued from the host one by one, so a call whose host work outlasts
+    its kernels measures the host."""
     for a in sets:
         fn(*a)
     torch.cuda.synchronize()
@@ -790,7 +814,8 @@ def paged_timing(torch, pa, dev, quant, s_q, depths, copies, n=HEADS,
                  d=HIDDEN // HEADS, bs=BLOCK, on_device=False):
     """Times of one paged-attention call over ``len(depths)`` rows of
     ``s_q`` queries ending at ``depths`` (``n`` heads of ``d``, block
-    ``bs``, a table of 1024 tokens), cycling over ``copies`` pools: the
+    ``bs``, a table of 1024 tokens), cycling over ``copies`` pools (None:
+    as many as :func:`l2_copies` asks of the call's live bytes): the
     kernel's time per eager call (``ms``) and its device time through
     CUDA-graph replays (``device_ms``), the plain version's, an SDPA
     yardstick timed both ways, and the bound."""
@@ -801,6 +826,8 @@ def paged_timing(torch, pa, dev, quant, s_q, depths, copies, n=HEADS,
     rng = np.random.RandomState(SEED + 1 + s_q)
     b = len(depths)
     mb = MAX_LEN // bs
+    if copies is None:
+        copies = l2_copies(live_kv_bytes(depths, n, d, quant, mb * bs))
     sets = []
     for _ in range(copies):
         args, (ks, vs) = make_case(torch, rng, b, s_q, mb, quant, dev,
@@ -840,9 +867,7 @@ def paged_timing(torch, pa, dev, quant, s_q, depths, copies, n=HEADS,
     pos = sets[0][4].cpu().numpy()
     live_tokens = int(sum(min(int(r.max()) + 1, mb * bs) for r in pos))
     pairs = int((np.minimum(pos, mb * bs - 1) + 1).sum())
-    kv_bytes = 2 * live_tokens * n * d * (1 if quant else 4)
-    if quant:
-        kv_bytes += 2 * live_tokens * n * 4
+    kv_bytes = live_kv_bytes(pos.max(1) + 1, n, d, quant, mb * bs)
     io_bytes = 2 * b * s_q * n * d * 4 + b * (mb + s_q) * 4
     flops = 4.0 * pairs * n * d
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
@@ -854,7 +879,7 @@ def paged_timing(torch, pa, dev, quant, s_q, depths, copies, n=HEADS,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_simt_ms": max(t_bytes, flops / FP32_FLOPS * 1e3),
             "live_tokens": live_tokens, "kv_bytes": kv_bytes,
-            "flops": flops}
+            "flops": flops, "copies": copies}
 
 
 def kernel_timing(torch, pa, dev, quant):
@@ -6625,20 +6650,22 @@ def wider_timing(torch, pa, fa, dev):
                                     ("decode", 1, depths, True),
                                     ("prefill", 256, np.array([512]),
                                      False)):
-        # two pool copies: one row-1d call's live K/V at 8 x 512 (59.5
-        # MB float32) already exceeds the 50 MB L2
-        t = paged_timing(torch, pa, dev, quant, s_q, rows, 2,
+        # pool copies from each shape's live bytes: 4 at float decode
+        # (59.5 MB a call), more at int8 decode and the tail (about 15
+        # and 17 MB), so the set stays out of the L2 at every shape
+        t = paged_timing(torch, pa, dev, quant, s_q, rows, None,
                          n=WIDER_HEADS, d=WIDER_D, on_device=True)
         paged.setdefault(shape, {})["int8" if quant else "float32"] = t
         log("D512 {} int8={!s:<5} {} kernel {:.4f} ms per eager call "
             "({:.4f} ms device time)  plain {:.4f} ms  sdpa {:.4f} ms "
             "({:.4f} ms device time)  bound {:.4f} ms ({}; {:.2f}% of it; "
-            "{} live tokens, {} KV bytes, {:.3g} flop)".format(
+            "{} live tokens, {} KV bytes, {:.3g} flop; {} pool copies)"
+            .format(
                 shape, quant, t["route"], t["ms"], t["device_ms"],
                 t["plain_ms"], t["library_ms"], t["library_device_ms"],
                 t["bound_ms"], t["bound_by"],
                 100.0 * t["bound_ms"] / t["device_ms"], t["live_tokens"],
-                t["kv_bytes"], t["flops"]))
+                t["kv_bytes"], t["flops"], t["copies"]))
     check(all(t["route"] == ("split" if shape == "decode" else "tiled")
               for shape in paged for t in paged[shape].values()),
           "D 512: decode must take the split route, the tail the tiled one")

@@ -85,6 +85,10 @@ import threading
 
 import torch
 
+# output columns one CTA of the wide tiled kernel owns (a grid axis): the
+# DC of ``csrc/wide_attention.cu``, which the wide flash kernels share
+from tensorflowonspark_tpu_torch.ops.flash_attention import WIDE_CHUNK
+
 #: calls of :func:`_kernel` that launched (the only place that adds to
 #: it) — how a run shows that its path went through the kernels
 launches = 0
@@ -145,10 +149,6 @@ WIDE_HEAD_DIM = 257
 #: past a row's live keys writing an empty partial
 WIDE_SPLIT_KEYS = 256
 
-#: output columns one CTA of the wide tiled kernel owns (a grid axis);
-#: the wide split kernel's CTA owns :data:`WIDE_SPLIT_CHUNK`
-WIDE_CHUNK = 128
-WIDE_SPLIT_CHUNK = 1024
 
 #: the most shared memory one CTA may have on the H100 (227 KB)
 MAX_SMEM_BYTES = 232448
@@ -429,10 +429,9 @@ def _kernel(q, k_pool, v_pool, block_table, pos, scale, k_scale=None,
     route = _route(s_q, d)
     mb = block_table.shape[1]
     wide = _wide(d)
-    if wide:
+    if wide or route in ("split", "window"):
         _check(mb >= 1, "block_table needs at least one column")
-    elif route in ("split", "window"):
-        _check(mb >= 1, "block_table needs at least one column")
+    if not wide and route in ("split", "window"):
         _check(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
                "pools must start on a 16-byte boundary (16-byte loads)")
     _check(all(t.is_cuda for t in tensors), "every tensor must be CUDA")

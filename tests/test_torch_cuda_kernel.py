@@ -78,11 +78,12 @@ def _paged_case(dev, rng, s_q, quant, depths, b=3, n=4, d=16, bs=8, mb=6,
 def _owed_prefills(calls):
     """The paged launches by route that recorded prefills owe: a prefill
     of S_q queries runs one paged call a layer, on the window route
-    (2 <= S_q <= ``WINDOW_MAX_QUERIES`` at a split head dim) or the tiled
-    one."""
+    (2 <= S_q <= ``WINDOW_MAX_QUERIES`` at a split head dim or one above
+    256) or the tiled one."""
     owed = {"window": 0, "tiled": 0}
     for s_q, layers, d in calls:
-        window = s_q >= 2 and pa._route(s_q, d) == "window"
+        window = 2 <= s_q <= pa.WINDOW_MAX_QUERIES \
+            and (d in pa.SPLIT_HEAD_DIMS or d > 256)
         owed["window" if window else "tiled"] += layers
     return owed
 

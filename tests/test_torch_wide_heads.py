@@ -5,7 +5,7 @@ The JAX package takes any head dim (its Pallas kernels block only the
 sequence). On the card the port runs every head dim above 256 on the
 kernels of ``csrc/wide_attention.cu``, whose one idea is that OUTPUT
 COLUMNS ARE A GRID AXIS: a CTA owns a chunk of output columns (128 for
-the tensor-core kernels, ``WIDE_SPLIT_CHUNK`` for the split kernel) and
+the tensor-core kernels, ``SPLIT_CHUNK`` for the split kernel) and
 sums every score (and the backward's dO V^T) over all of D itself, 32
 columns at a time. These tests model that schedule in plain PyTorch on
 the CPU — the column chunks, the 32-wide contraction chunks added in
@@ -56,6 +56,9 @@ from tensorflowonspark_tpu_torch.ops import paged_attention as pa
 WIDE_DIMS = [320, 512, 576]
 LOG2E = 1.0 / math.log(2.0)
 NEG = float("-inf")
+#: output columns one CTA of the wide split kernel owns
+#: (``csrc/wide_attention.cu`` ``SPLIT_DC``)
+SPLIT_CHUNK = 1024
 #: the kernels' contraction chunk and key / query tile
 DK, TILE = 32, 32
 
@@ -280,7 +283,7 @@ def _wide_split(q, kp, vp, table, pos, scale, scales=None):
     row, ceil(table width x block / WIDE_SPLIT_KEYS) splits of that many
     logical keys (those past the row's live keys empty: m -inf, l 0);
     per split and query the dots scaled by the key's scale, in log2 units,
-    m, l and acc (p times the value's scale, per WIDE_SPLIT_CHUNK-column
+    m, l and acc (p times the value's scale, per SPLIT_CHUNK-column
     chunk); the combine merges the splits in split order. Returns out and
     each row's splits."""
     b, s_q, n, d = q.shape
@@ -309,7 +312,7 @@ def _wide_split(q, kp, vp, table, pos, scale, scales=None):
                                 torch.exp2(x - safe[..., None]))
                 l = p.sum(-1)
                 pv = p * vs.T[None]
-                for c0, w in _chunks(d, pa.WIDE_SPLIT_CHUNK):
+                for c0, w in _chunks(d, SPLIT_CHUNK):
                     acc[..., c0:c0 + w] = torch.einsum(
                         "qnk,knd->qnd", pv, v[..., c0:c0 + w])
             parts.append((m, l, acc))
@@ -343,7 +346,7 @@ def _wide_tiled(q, kp, vp, table, pos, scale, scales=None):
         for i0 in range(0, s_q, 64):
             qt, pt = q[r, i0:i0 + 64].transpose(0, 1), pos[r, i0:i0 + 64]
             kend = min(live, int(pt.max()) + 1)
-            for c0, w in _chunks(d, pa.WIDE_CHUNK):
+            for c0, w in _chunks(d, fa.WIDE_CHUNK):
                 m = torch.full((n, len(pt)), NEG)
                 state = (m, torch.zeros_like(m), torch.zeros(n, len(pt), w))
                 for k0 in range(0, kend, TILE):
@@ -420,7 +423,7 @@ def test_wide_chunks_cover_every_column_once():
     one chunk, and the tiled kernel's shared memory the same at every
     D above 256."""
     for d in (257, 300, 384, 512, 576, 1024, 1100):
-        for width in (fa.WIDE_CHUNK, pa.WIDE_CHUNK, pa.WIDE_SPLIT_CHUNK):
+        for width in (fa.WIDE_CHUNK, SPLIT_CHUNK):
             cols = [c for c0, w in _chunks(d, width)
                     for c in range(c0, c0 + w)]
             assert cols == list(range(d))
@@ -428,8 +431,8 @@ def test_wide_chunks_cover_every_column_once():
         assert dp % fa.WIDE_CHUNK == 0 and 0 <= dp - d < fa.WIDE_CHUNK
         assert pa.tiled_smem_bytes(d) == pa.tiled_smem_bytes(d, True) == \
             pa.tiled_smem_bytes(257) < 48 * 1024
-    assert len(_chunks(576, pa.WIDE_SPLIT_CHUNK)) == 1
-    assert len(_chunks(1100, pa.WIDE_SPLIT_CHUNK)) == 2
+    assert len(_chunks(576, SPLIT_CHUNK)) == 1
+    assert len(_chunks(1100, SPLIT_CHUNK)) == 2
 
 
 # -- the slice: a DecoderLM with 320-wide heads ------------------------------
