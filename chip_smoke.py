@@ -421,10 +421,11 @@ Phases, stopping with a non-zero exit at the first failure:
    in float32 and bfloat16, causal and key-masked, forward and backward,
    and at the training shape, under phase 3b's limits; their budgets
    (spill-free); the split kernel at row 1d's decode shape at 8 x 512,
-   the tiled kernel at the 256-token tail and the flash kernels at B 2 x
-   S 1024 x 8 x 512, causal, each timed beside its plain version, SDPA
-   and its bound; (b) a ``DecoderLM`` of DeepSeek-V4-Flash's hidden size
-   and head dim on the repo's own block (vocab 50257, hidden 4096 = 8
+   the tiled kernel at the 256-token tail (float and int8) and the cold
+   512 prompt and the flash kernels at B 2 x S 1024 x 8 x 512, causal,
+   each timed beside its plain version, SDPA and its bound; (b) a
+   ``DecoderLM`` of DeepSeek-V4-Flash's hidden size and head dim on the
+   repo's own block (vocab 50257, hidden 4096 = 8
    heads x 512, 4 layers, max_len 1024; random weights from the seed)
    behind ``ModelServer``, phase 4's first 4 requests at float and at
    int8 KV: every decode step on the split route and every prefill on
@@ -768,32 +769,12 @@ def kernel_cases(torch, pa, dev):
     return worst
 
 
-#: the H100's L2 (50 MB); and how many times over a timing's pool
-#: copies must exceed it when the smoke picks their number from the
-#: live bytes (:func:`l2_copies`)
-L2_BYTES = 50 * 2 ** 20
-L2_OVER = 4
-
-
-def live_kv_bytes(depths, n, d, quant, keys):
-    """The K/V bytes one paged call reads: a row ending at depth ``t``
-    reads min(t, ``keys``) keys and values of ``n`` heads of ``d``,
-    float32 or int8 codes with a float32 scale a (key, head)."""
-    live = int(np.minimum(np.asarray(depths), keys).sum())
-    return 2 * live * n * (d * (1 if quant else 4) + (4 if quant else 0))
-
-
-def l2_copies(kv_bytes):
-    """Pool copies whose live K/V together exceed the L2 ``L2_OVER``
-    times, and at least ``L2_OVER`` of them."""
-    return max(L2_OVER, -(-L2_OVER * L2_BYTES // kv_bytes))
-
-
 def time_ms(torch, fn, sets, reps=20):
     """Mean milliseconds per call, cycling over ``sets`` argument sets.
     A layer's pool is cold when the serving step reaches it, so sets whose
     live K/V together stay inside the 50 MB L2 flatter a kernel:
-    :func:`l2_copies` says how many copies keep them out of it. Calls are
+    ``profile_paged.l2_copies`` says how many copies keep them out of it.
+    Calls are
     issued from the host one by one, so a call whose host work outlasts
     its kernels measures the host."""
     for a in sets:
@@ -815,13 +796,15 @@ def paged_timing(torch, pa, dev, quant, s_q, depths, copies, n=HEADS,
     """Times of one paged-attention call over ``len(depths)`` rows of
     ``s_q`` queries ending at ``depths`` (``n`` heads of ``d``, block
     ``bs``, a table of 1024 tokens), cycling over ``copies`` pools (None:
-    as many as :func:`l2_copies` asks of the call's live bytes): the
+    as many as ``profile_paged.l2_copies`` asks of the call's live bytes,
+    together 4 x the L2): the
     kernel's time per eager call (``ms``) and its device time through
     CUDA-graph replays (``device_ms``), the plain version's, an SDPA
     yardstick timed both ways, and the bound."""
     import torch.nn.functional as F
 
-    from tensorflowonspark_tpu_torch.profile_paged import graph_ms, sdpa_sets
+    from tensorflowonspark_tpu_torch.profile_paged import (
+        graph_ms, l2_copies, live_kv_bytes, sdpa_sets)
 
     rng = np.random.RandomState(SEED + 1 + s_q)
     b = len(depths)
@@ -857,7 +840,9 @@ def paged_timing(torch, pa, dev, quant, s_q, depths, copies, n=HEADS,
     route = [r for r in before if pa.route_launches[r] != before[r]][0]
     ms = time_ms(torch, kernel, sets)
     device_ms = graph_ms(torch, kernel, sets)
-    plain_ms = time_ms(torch, plain, sets, reps=2)
+    # the plain version is bound by the host's launches, not the L2: its
+    # first 4 sets
+    plain_ms = time_ms(torch, plain, sets[:4], reps=2)
     library_ms = time_ms(torch, library, lib_sets)
     library_device_ms = graph_ms(torch, library, lib_sets)
     # the bound: each input read once (the live K/V and scales, q, the
@@ -885,21 +870,27 @@ def paged_timing(torch, pa, dev, quant, s_q, depths, copies, n=HEADS,
 def kernel_timing(torch, pa, dev, quant):
     """Times at the serving decode shape: 8 slots, S_q = 1, rows at
     depths 32..640 (what the traffic's prompts plus generated tokens
-    reach), over 6 pool copies so the live K/V does not sit in L2."""
+    reach), over as many pool copies, drawn on the card, as keep the
+    live K/V out of the L2 (``profile_paged.l2_copies``)."""
     depths = np.random.RandomState(SEED + 1).randint(32, 641, size=SLOTS)
-    return paged_timing(torch, pa, dev, quant, 1, depths, 6)
+    return paged_timing(torch, pa, dev, quant, 1, depths, None,
+                        on_device=True)
 
 
 def prefill_timing(torch, pa, dev, quant):
     """Times at a prefill shape: one row, a 256-token tail at positions
-    256..511 (a prompt whose first 256 tokens hit the prefix cache)."""
-    return paged_timing(torch, pa, dev, quant, 256, np.array([512]), 6)
+    256..511 (a prompt whose first 256 tokens hit the prefix cache), over
+    pool copies out of the L2 as :func:`kernel_timing`'s."""
+    return paged_timing(torch, pa, dev, quant, 256, np.array([512]), None,
+                        on_device=True)
 
 
 def cold_prefill_timing(torch, pa, dev, quant):
     """Times at the traffic's commonest prefill: one row, a cold
-    512-token prompt at positions 0..511."""
-    return paged_timing(torch, pa, dev, quant, 512, np.array([512]), 6)
+    512-token prompt at positions 0..511, over pool copies out of the L2
+    as :func:`kernel_timing`'s."""
+    return paged_timing(torch, pa, dev, quant, 512, np.array([512]), None,
+                        on_device=True)
 
 
 # -- phase 3b: flash kernels against plain versions ---------------------
@@ -3780,7 +3771,7 @@ def verify_window_leg(torch, pa, dev):
     times = {}
     for quant in (False, True):
         t = times["int8" if quant else "float32"] = paged_timing(
-            torch, pa, dev, quant, SPEC_K, depths, 6)
+            torch, pa, dev, quant, SPEC_K, depths, None, on_device=True)
         check(t["route"] == "window", "the timed verify window took the "
               "{} route".format(t["route"]))
         log("verify window int8={!s:<5} 8 slots S_q {} {} kernel {:.4f} ms "
@@ -6265,8 +6256,8 @@ def wide_timing(torch, pa, fa, dev):
                              ("prefill", 256, np.array([512])),
                              ("prefill_cold", 512, np.array([512]))):
         for quant in (False, True):
-            t = paged_timing(torch, pa, dev, quant, s_q, rows, 6,
-                             n=WIDE_HEADS, d=WIDE_D)
+            t = paged_timing(torch, pa, dev, quant, s_q, rows, None,
+                             n=WIDE_HEADS, d=WIDE_D, on_device=True)
             paged.setdefault(shape, {})["int8" if quant else "float32"] = t
             log("D256 {} shape int8={!s:<5} {} kernel {:.4f} ms per eager "
                 "call ({:.4f} ms device time)  plain {:.4f} ms  sdpa {:.4f} "
@@ -6611,10 +6602,11 @@ def wider_kernel_cases(torch, pa, fa, dev):
 
 def wider_budget(torch, fa, pa):
     """Registers, spills, shared memory and CTAs per SM of every kernel of
-    ``wide_attention.cu`` (the same instantiation at every D above 256):
-    the paged split kernel at 1, 2 and 4 queries a row and the tiled
-    kernel, float and int8 pools; the flash forward, dQ and dK/dV in
-    float32 and bfloat16. Each must be spill-free and fit the card."""
+    ``wide_attention.cu`` (the same instantiation at every D above 256;
+    the forward kernels' shared memory at the model's D 512): the paged
+    split kernel at 1, 2 and 4 queries a row and the tiled kernel, float
+    and int8 pools; the flash forward, dQ and dK/dV in float32 and
+    bfloat16. Each must be spill-free and fit the card."""
     out = {}
     for quant in (False, True):
         kv = "int8" if quant else "float32"
@@ -6640,19 +6632,24 @@ def wider_budget(torch, fa, pa):
 def wider_timing(torch, pa, fa, dev):
     """The wide rows' times: the split kernel at row 1d's decode shape (8
     slots at phase 3's depths, 8 heads of 512), float and int8; the tiled
-    kernel at the 256-token tail, float; the flash kernels at B 2 x S
-    1024 x 8 x 512, causal, float32 and bfloat16. Each beside its plain
-    version, SDPA over the same inputs and the bound, with its share of
-    the bound."""
+    kernel at the 256-token tail, float and int8, and the cold 512-token
+    prompt, float; the flash kernels at B 2 x S 1024 x 8 x 512, causal,
+    float32 and bfloat16. Each beside its plain version, SDPA over the
+    same inputs and the bound, with its share of the bound."""
     depths = np.random.RandomState(SEED + 1).randint(32, 641, size=SLOTS)
     paged = {}
     for shape, s_q, rows, quant in (("decode", 1, depths, False),
                                     ("decode", 1, depths, True),
                                     ("prefill", 256, np.array([512]),
+                                     False),
+                                    ("prefill", 256, np.array([512]),
+                                     True),
+                                    ("prefill_cold", 512, np.array([512]),
                                      False)):
         # pool copies from each shape's live bytes: 4 at float decode
-        # (59.5 MB a call), more at int8 decode and the tail (about 15
-        # and 17 MB), so the set stays out of the L2 at every shape
+        # (59.5 MB a call), more at int8 decode and the prefills (about
+        # 15, 17 and 4.3 MB), so the set stays out of the L2 at every
+        # shape
         t = paged_timing(torch, pa, dev, quant, s_q, rows, None,
                          n=WIDER_HEADS, d=WIDER_D, on_device=True)
         paged.setdefault(shape, {})["int8" if quant else "float32"] = t
@@ -6668,7 +6665,7 @@ def wider_timing(torch, pa, fa, dev):
                 t["kv_bytes"], t["flops"], t["copies"]))
     check(all(t["route"] == ("split" if shape == "decode" else "tiled")
               for shape in paged for t in paged[shape].values()),
-          "D 512: decode must take the split route, the tail the tiled one")
+          "D 512: decode must take the split route, prefills the tiled one")
     flash = {}
     for dtype in ("float32", "bfloat16"):
         flash[dtype] = flash_timing(torch, fa, dev, WIDER_BATCH, TRAIN_SEQ,
@@ -7169,10 +7166,12 @@ def main():
              "launches a call); 18(c)'s decode steps at 8 x 512"),
             ("paged_attention_tiled_wide", ("tiled",), "prefill",
              "prefill tails and cold prompts above head dim 256 "
-             "(paged_wide_tiled_kernel<Q>: mma.sync 3xTF32, 64 queries and "
-             "128 output columns a CTA, scores over D in 32-column "
-             "chunks, 32-key tiles through the table, columns past D "
-             "predicated); 18(c)'s prefills; the 256-token tail")):
+             "(paged_wide_tiled_kernel<Q>: mma.sync 3xTF32, a CTA of 8 "
+             "warps over 16 queries and 512 output columns, each score "
+             "once: four column warps' partial scores summed through "
+             "shared memory, two key groups merged at the end; 32-key "
+             "tiles through the table into a cp.async ring, columns past "
+             "D predicated); 18(c)'s prefills; the 256-token tail")):
         t = wider["paged_timing"][shape]["float32"]
         kernels["kernels"].append({
             "name": name,
@@ -7228,7 +7227,13 @@ def main():
                 "library_ms", "library_device_ms")},
             "budget": {dtype: wider["budget"]["{} wide {}".format(
                 name, dtype)] for dtype in ("float32", "bfloat16")},
-            "design": "flash_{}_wide_kernel<T>: mma.sync TF32 (3xTF32 at "
+            "design": "flash_wide_fwd_kernel<T>: one CTA of 8 warps over "
+                      "32 queries and 512 output columns, each score once "
+                      "(four column warps' partial scores summed through "
+                      "shared memory), K/V through a cp.async ring; "
+                      "mma.sync 3xTF32 at float32, bf16 m16n8k16 at "
+                      "bfloat16" if name == "fwd" else
+                      "flash_{}_wide_kernel<T>: mma.sync TF32 (3xTF32 at "
                       "float32, one pass on bfloat16 operands), one CTA of "
                       "4 warps over 64 {} and 128 output columns{}, scores "
                       "summed over D in 32-column chunks, 32-row tiles"

@@ -15,7 +15,9 @@ is written to a temporary name and renamed into place, so concurrent
 builds never load a half-written file. The hash covers the headers
 a source includes from ``csrc/`` (``#include "name.cuh"``, followed
 through the headers), so an edited header rebuilds every source that
-includes it.
+includes it. :func:`start_variants` / :func:`bind_variants` build other
+copies of the sources (``NAME=DIR``) beside the package's, for the
+profilers' A/B of kernel designs within one run.
 """
 
 import ctypes
@@ -178,3 +180,58 @@ def bind(path, name):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def start_variants(specs, names, flags=()):
+    """Start compiling, for each ``NAME=DIR`` of ``specs``, every source of
+    ``names`` that ``DIR`` holds (``DIR/<name>.cu`` with the headers
+    beside it), with the package's flags and ``flags``, every ``nvcc``
+    together, into the build directory: ``{NAME: {source: (library,
+    process or None when already built)}}``. A source ``DIR`` lacks is
+    the package's own at bind time."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    builds = {}
+    for spec in specs:
+        label, src_dir = spec.split("=", 1)
+        builds[label] = {}
+        for name in names:
+            src = os.path.join(src_dir, name + ".cu")
+            if not os.path.isfile(src):
+                continue
+            h = hashlib.sha256(" ".join(flags).encode())
+            for p in _sources(src):
+                with open(p, "rb") as f:
+                    h.update(f.read())
+            lib = os.path.join(BUILD_DIR, "lib{}-{}-{}.so".format(
+                name, label, h.hexdigest()[:16]))
+            proc = None if os.path.exists(lib) else subprocess.Popen(
+                [nvcc] + list(NVCC_FLAGS) + list(flags) + ["-o", lib, src])
+            builds[label][name] = (lib, proc)
+    return builds
+
+
+def bind_variants(builds, names):
+    """Wait for :func:`start_variants`' builds and load each with the
+    package libraries' C signatures: ``{NAME: {source: library}}``, every
+    source of ``names`` present (the package's where the variant has
+    none)."""
+    out = {}
+    for label, libs in builds.items():
+        out[label] = {}
+        for name in names:
+            if name not in libs:
+                out[label][name] = load(name)
+                continue
+            lib, proc = libs[name]
+            if proc is not None and proc.wait() != 0:
+                raise RuntimeError("variant {} of {} did not build".format(
+                    label, name))
+            out[label][name] = bind(lib, name)
+    return out
+
+
+def use(libraries):
+    """Make ``{source: library}`` the libraries the wrappers launch."""
+    with _lock:
+        _libs.update(libraries)

@@ -36,14 +36,20 @@ Two formulations share that contract:
   nothing to ``q k^T``, so lse and the true columns are unchanged; a
   192-wide head runs at 256). Above 256 the kernels of
   ``csrc/wide_attention.cu`` take every head dim, zero-padded to a
-  multiple of :data:`WIDE_CHUNK`: a CTA owns one chunk of that many
-  output columns (a grid axis) and sums the scores (and the backward's
-  dO V^T) over all of D in 32-column chunks (``mma.sync`` TF32, 3xTF32
-  at float32, one pass on bfloat16 operands, which TF32 holds exactly),
-  and
-  a batch whose ``B * N`` exceeds one launch's grid runs in slices of
-  the batch (:func:`_on_kernels`). Float32 or bfloat16 inputs with
-  float32 statistics and accumulators.
+  multiple of :data:`WIDE_CHUNK`. The forward computes each score once
+  per CTA: 8 warps over 32 query rows, the four warps of a row block
+  each taking a quarter of the contraction and summing their partial
+  scores through shared memory, then each its own :data:`WIDE_CHUNK`
+  output columns of a 512-column group (a grid axis above 512), K and V
+  streamed through a two-stage ``cp.async`` ring (the source's
+  ``fwd_layout``); float32 on ``mma.sync`` TF32 with the 3xTF32
+  split, bfloat16 staged as bfloat16 on ``mma.sync`` bf16. dQ and dK/dV
+  own one chunk of :data:`WIDE_CHUNK` output columns a CTA and sum the
+  scores (and dO V^T) over all of D in 32-column chunks (``mma.sync``
+  TF32, 3xTF32 at float32, one pass on bfloat16 operands, which TF32
+  holds exactly). A batch whose ``B * N`` exceeds one launch's grid
+  runs in slices of the batch (:func:`_on_kernels`). Float32 or
+  bfloat16 inputs with float32 statistics and accumulators.
 - the **plain versions** — :func:`_reference_lse` (forward),
   :func:`_dq_plain` and :func:`_dkv_plain` (backward, the kernels'
   FlashAttention-2 formulas on the whole score matrix), and
@@ -73,8 +79,9 @@ DEFAULT_BLOCK_K = 128
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 #: above ``HEAD_DIMS[-1]`` the kernels of ``csrc/wide_attention.cu`` run
-#: at any multiple of this (the output columns one CTA owns), a head dim
-#: in between zero-padded to the next
+#: at any multiple of this (the output columns one warp of the forward,
+#: or one CTA of dQ and dK/dV, owns), a head dim in between zero-padded
+#: to the next
 WIDE_CHUNK = 128
 
 #: the most ``B * N`` one launch takes (the bfloat16 kernels put it on
@@ -358,8 +365,10 @@ def budget(kind, d, dtype):
     ``kind`` "fwd", "dq" or "dkv", head dim ``d`` and input ``dtype``
     (registers and local-memory bytes per thread as the compiler left
     them; CTAs per SM from the card's occupancy calculator). Above 256
-    (``d`` any multiple of :data:`WIDE_CHUNK`) the wide kernel, the same at
-    every such D, with its static and dynamic shared bytes."""
+    (``d`` any multiple of :data:`WIDE_CHUNK`) the wide kernel: dQ and
+    dK/dV the same at every such D, the forward with the dynamic shared
+    memory it takes at ``d`` (``csrc/wide_attention.cu`` ``fwd_layout``,
+    the layout's one source)."""
     from tensorflowonspark_tpu_torch.ops import _build
 
     _check(kind in BUDGET_KINDS and (d in HEAD_DIMS or _wide(d))
@@ -369,7 +378,7 @@ def budget(kind, d, dtype):
     bf16 = int(dtype == torch.bfloat16)
     if _wide(d):
         rc = _build.load("wide_attention").tfos_wide_budget(
-            2 + ("fwd", "dq", "dkv").index(kind), bf16, 0, out)
+            2 + ("fwd", "dq", "dkv").index(kind), bf16, d, out)
     else:
         rc = _build.load("flash_attention").tfos_flash_budget(
             BUDGET_KINDS.index(kind), d, bf16, out)

@@ -60,10 +60,15 @@ Three formulations share that contract:
     dim in between zero-padded to the next); at 256 its shared memory
     (:func:`tiled_smem_bytes`) is above 48 KB, granted through the
     kernel's attribute; :func:`budget` reads its registers and
-    occupancy. Above 256 (``paged_wide_tiled_kernel``) a CTA takes 64
-    queries and a :data:`WIDE_CHUNK`-column chunk of the output, sums
-    the scores over D in 32-column chunks, and predicates every column
-    past D: the pool stays at the model's D and is never padded.
+    occupancy. Above 256 (``paged_wide_tiled_kernel``) a CTA of 8 warps
+    takes 16 queries and a 512-column group of the output (a grid axis
+    above 512) and computes each score once: two key groups of four
+    column warps, each warp a quarter of the contraction, the partial
+    scores summed through shared memory,
+    then each warp its own 128 output columns; key tiles stream through
+    the table into a two-stage ``cp.async`` ring (int8 as codes), and
+    every column past D is predicated: the pool stays at the model's D
+    and is never padded.
 
   All walk only a row's LIVE keys through the table (dead slots are
   never loaded, so traffic tracks live tokens, not table width) and
@@ -84,10 +89,6 @@ tensor it launches the kernel or raises — there is no fallback.
 import threading
 
 import torch
-
-# output columns one CTA of the wide tiled kernel owns (a grid axis): the
-# DC of ``csrc/wide_attention.cu``, which the wide flash kernels share
-from tensorflowonspark_tpu_torch.ops.flash_attention import WIDE_CHUNK
 
 #: calls of :func:`_kernel` that launched (the only place that adds to
 #: it) — how a run shows that its path went through the kernels
@@ -189,18 +190,16 @@ def _ticket_ptr(device, items):
 
 def tiled_smem_bytes(head_dim, quantized=False):
     """Shared memory of one tiled launch at the instantiation ``head_dim``
-    takes. Up to 256 (``csrc/paged_attention.cu`` ``tc_smem``, dynamic):
+    takes, up to 256 (``csrc/paged_attention.cu`` ``tc_smem``, dynamic):
     the 16-row float32 Q tile, then the ring — two stages of K and V key
     tiles (64 keys, 32 at 128 and 256; float32 rows, or int8 rows of
     codes and 16 pad bytes with a float32 scale each) — whose space the
-    4 warps' (m, l, acc) reuse for the final merge. Above 256
-    (``paged_wide_tiled_kernel``, static, any D and dtype): a 64 x 32
-    chunk of Q, a 32 x 32 chunk of K and a 32 x :data:`WIDE_CHUNK` chunk
-    of V in float32, a row offset and two scales a key, a position a
-    query row, and two ints."""
-    if head_dim >= WIDE_HEAD_DIM:
-        return 4 * (64 * 32 + 32 * 32 + 32 * WIDE_CHUNK) + 32 * 16 \
-            + 64 * 4 + 8
+    4 warps' (m, l, acc) reuse for the final merge. Above 256 the wide
+    tiled kernel's layout is the source's own (``paged_layout``), which
+    :func:`budget` reads on the card."""
+    _check(1 <= head_dim < WIDE_HEAD_DIM,
+           "tiled_smem_bytes covers head dims 1-256, not {}; above, "
+           "budget() reads the wide kernel's".format(head_dim))
     dp = next(x for x in (16, 32, 64, 128, 256) if head_dim <= x)
     keys = 32 if dp > 64 else 64
     row = dp + 16 if quantized else 4 * dp
@@ -355,8 +354,10 @@ def budget(head_dim, quantized=False, route="tiled", queries=None):
     bytes), "split" (the split-KV kernel, static shared bytes) or
     "window" (the window kernel's instantiation for ``queries`` queries a
     row, default :data:`WINDOW_MAX_QUERIES`; static and dynamic shared
-    bytes). Above 256 the route's wide kernel, the same at every D (the
-    split kernel at 1 query a row for "split"; static shared bytes)."""
+    bytes). Above 256 the route's wide kernel: the split kernel (at 1
+    query a row for "split"; static shared bytes) the same at every D,
+    the tiled kernel with the shared memory it takes at ``head_dim``
+    (the source's ``paged_layout``)."""
     from tensorflowonspark_tpu_torch.ops import _build
     import ctypes
 
@@ -375,7 +376,8 @@ def budget(head_dim, quantized=False, route="tiled", queries=None):
     if _wide(head_dim):
         rc = _build.load("wide_attention").tfos_wide_budget(
             WIDE_BUDGET_KERNELS[route], int(quantized),
-            queries if route == "window" else 1, out)
+            head_dim if route == "tiled"
+            else queries if route == "window" else 1, out)
     else:
         rc = _build.load("paged_attention").tfos_paged_budget(
             BUDGET_ROUTES.index(route), head_dim, int(quantized), queries,

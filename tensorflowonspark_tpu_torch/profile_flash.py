@@ -3,8 +3,8 @@
 within one run.
 
     python3 -m tensorflowonspark_tpu_torch.profile_flash \
-        [--shape bert|gpt2|d256|d256bf16] [--variant NAME=DIR ...] \
-        [--reps 20]
+        [--shape bert|gpt2|d256|d256bf16|d512|d512bf16] \
+        [--variant NAME=DIR ...] [--reps 20]
 
 ``--shape bert`` (the default): BERT-base's attention as
 ``chip_smoke.py`` phase 8 trains it, B 32, S 384, 12 heads of 64,
@@ -13,14 +13,20 @@ bfloat16, a key mask with 192-384 live keys a row (seeded), not causal.
 S 1024, 12 heads of 64, float32, causal, no mask. ``--shape d256``: the
 D-256 decoder's as phase 17(c) trains it, B 4, S 1024, 8 heads of 256,
 float32, causal, no mask; ``--shape d256bf16``: the same in bfloat16, as
-phase 17(a) holds the bfloat16 D-256 kernels. For the forward
+phase 17(a) holds the bfloat16 D-256 kernels. ``--shape d512``: the
+D-512 decoder's as phase 18(d) trains it, B 2, S 1024, 8 heads of 512,
+float32, causal (``csrc/wide_attention.cu``; PERF.md rows 2e-4e);
+``--shape d512bf16``: the same in bfloat16 (rows 2f-4f). For the forward
 (``tfos_flash_fwd``), dQ (``tfos_flash_dq``) and dK/dV
 (``tfos_flash_dkv``): device time per call through CUDA-graph replays and
 time per eager call (host work included).
-``--variant NAME=DIR`` builds ``DIR/flash_attention.cu`` (with the
-headers beside it) with the package's nvcc flags, all variants at once,
-and times it in turns with the package's own source — package, variants,
-variants reversed, package — each number the mean of its source's turns,
+``--variant NAME=DIR`` builds ``DIR/flash_attention.cu`` and
+``DIR/wide_attention.cu``, those of them ``DIR`` holds (with the headers
+beside them; the package's source stands in for a missing one), with
+the package's nvcc flags, all variants at once (``ops/_build.py``
+``start_variants``), and times them in turns with the package's own
+sources — package, variants, variants reversed, package — each number
+the mean of its sources' turns,
 so that two designs are compared on one card in one call. Each variant's
 largest difference from the package source's outputs (out, lse, dQ, dK,
 dV) is printed beside its times (a variant that drops work, to see what
@@ -34,9 +40,6 @@ dK/dV over SDPA's backward. Needs one card.
 
 import argparse
 import ctypes
-import hashlib
-import os
-import subprocess
 import sys
 import time
 
@@ -46,45 +49,12 @@ import numpy as np
 SHAPES = {"bert": (32, 384, 12, 64, "bfloat16", False, True),
           "gpt2": (8, 1024, 12, 64, "float32", True, False),
           "d256": (4, 1024, 8, 256, "float32", True, False),
-          "d256bf16": (4, 1024, 8, 256, "bfloat16", True, False)}
+          "d256bf16": (4, 1024, 8, 256, "bfloat16", True, False),
+          "d512": (2, 1024, 8, 512, "float32", True, False),
+          "d512bf16": (2, 1024, 8, 512, "bfloat16", True, False)}
 SEED = 1234
-
-
-def _start_variants(specs):
-    """Start compiling each ``NAME=DIR``'s ``DIR/flash_attention.cu`` into
-    the build directory, every ``nvcc`` together: ``{name: (library,
-    process or None when already built)}``."""
-    from tensorflowonspark_tpu_torch.ops import _build
-
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    builds = {}
-    for spec in specs:
-        name, src_dir = spec.split("=", 1)
-        src = os.path.join(src_dir, "flash_attention.cu")
-        h = hashlib.sha256()
-        for p in _build._sources(src):
-            with open(p, "rb") as f:
-                h.update(f.read())
-        lib = os.path.join(_build.BUILD_DIR,
-                           "libflash_attention-{}-{}.so".format(
-                               name, h.hexdigest()[:16]))
-        proc = None if os.path.exists(lib) else subprocess.Popen(
-            [_build.nvcc_path()] + list(_build.NVCC_FLAGS)
-            + ["-o", lib, src])
-        builds[name] = (lib, proc)
-    return builds
-
-
-def _bind_variants(builds):
-    """Wait for :func:`_start_variants`' builds and load each with the
-    package library's C signatures: ``{name: library}``."""
-    from tensorflowonspark_tpu_torch.ops import _build
-
-    for name, (lib, proc) in builds.items():
-        if proc is not None and proc.wait() != 0:
-            raise RuntimeError("variant {} did not build".format(name))
-    return {name: _build.bind(lib, "flash_attention")
-            for name, (lib, _) in builds.items()}
+#: the sources a variant may replace
+SOURCES = ("flash_attention", "wide_attention")
 
 
 def _inputs(torch, dev, shape):
@@ -177,9 +147,9 @@ def main():
     from tensorflowonspark_tpu_torch.profile_paged import graph_ms
 
     dev = device_info.default_device()
-    pending = _start_variants(args.variant)
-    libs = {"package": _build.load("flash_attention")}
-    libs.update(_bind_variants(pending))
+    pending = _build.start_variants(args.variant, SOURCES)
+    libs = {"package": {name: _build.load(name) for name in SOURCES}}
+    libs.update(_build.bind_variants(pending, SOURCES))
     order = list(libs) + list(libs)[::-1]
     print(device_info.describe().splitlines()[0])
     causal = SHAPES[args.shape][5]
@@ -198,8 +168,7 @@ def main():
     times = {n: {kind: ([], [], []) for kind in kernels} for n in libs}
     diffs, want = {}, None
     for name in order:
-        with _build._lock:
-            _build._libs["flash_attention"] = libs[name]
+        _build.use(libs[name])
         got = sum((fn() for fn in kernels.values()), ())
         if want is None:
             want = got
@@ -211,8 +180,7 @@ def main():
             ms, host_ms = eager_ms(torch, fn, args.reps)
             eager.append(ms)
             host.append(host_ms)
-    with _build._lock:
-        _build._libs["flash_attention"] = libs["package"]
+    _build.use(libs["package"])
     for name in libs:
         print("{:<12} {}  (max diff from package {:.1e})".format(
             name, "  ".join(
@@ -221,10 +189,15 @@ def main():
                 for kind, t in times[name].items()), diffs[name]))
         # CTAs per SM, registers, spill bytes, shared bytes (fa.budget)
         budgets = []
+        d, bf16 = q.shape[-1], int(q.dtype == torch.bfloat16)
         for i, kind in enumerate(fa.BUDGET_KINDS):
             out4 = (ctypes.c_int * 4)()
-            libs[name].tfos_flash_budget(i, q.shape[-1],
-                                         int(q.dtype == torch.bfloat16), out4)
+            if fa._wide(d):
+                libs[name]["wide_attention"].tfos_wide_budget(
+                    2 + ("fwd", "dq", "dkv").index(kind), bf16, d, out4)
+            else:
+                libs[name]["flash_attention"].tfos_flash_budget(i, d, bf16,
+                                                                out4)
             budgets.append("{} {}".format(kind, list(out4)))
         print("{:<12} budget {}".format(name, "  ".join(budgets)))
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()

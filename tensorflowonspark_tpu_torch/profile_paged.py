@@ -8,13 +8,17 @@ and an A/B of kernel sources within one run.
         [--crossover] [--trace] [--out DIR] [--split-blocks C,...]
 
 Shapes (``--shape``, repeatable; default ``tail256`` and ``cold512``),
-each over 6 pool copies so that the K/V is not in L2, block 16, a table
-of 64 blocks:
+each over as many pool copies as :func:`l2_copies` asks of its live K/V
+bytes (at least 4, together 4 times the 50 MB L2), so that the K/V is
+not in L2, block 16, a table of 64 blocks:
 
 - ``tail256``, ``cold512``: the serving model's attention widths (12
   heads of 64), one row: a 256-token tail at positions 256..511 (a
   prompt whose first 256 tokens hit the prefix cache) and a cold
   512-token prompt at 0..511 (the tiled route);
+- ``tail256_d512``, ``cold512_d512``: the same at the D-512 decoder's
+  8 heads of 512 (``csrc/wide_attention.cu``'s tiled kernel; PERF.md row
+  1g);
 - ``verify``: the speculative verify window as ``chip_smoke.py`` 11(a)
   times it: 8 slots of 4 queries ending at its seeded depths, 12 x 64
   (the window route);
@@ -29,13 +33,16 @@ on the pre-gathered view, timed the same way (the yardstick
 source's time by kernel (``torch.profiler`` over eager calls: each
 kernel's device time per call, and the rest of the graph time — the gap
 between a route's two kernels — beside them). ``--variant NAME=DIR``
-builds ``DIR/paged_attention.cu`` (with the headers beside it) with the
-package's nvcc flags, all variants at once, and times it in turns with
-the package's own source — package, variants, variants reversed,
-package — each number the mean of its source's turns, so that two
-designs are compared on one card in one call. Each variant's largest
-difference from the package source's output is printed beside its time
-(a variant that drops work, to see what that work costs, differs).
+builds ``DIR/paged_attention.cu`` and ``DIR/wide_attention.cu``, those
+of them ``DIR`` holds (with the headers beside them; the package's
+source stands in for a missing one), with the package's nvcc flags, all
+variants at once (``ops/_build.py`` ``start_variants``), and times them
+in turns with the package's own sources — package, variants, variants
+reversed, package — each number the mean of its sources' turns, so that
+two designs are compared on one card in one call. Each variant's
+largest difference from the package sources' output is printed beside
+its time (a variant that drops work, to see what that work costs,
+differs).
 
 ``--crossover`` times the window route against the tiled route at 2, 4,
 8 and 16 queries a row (the verify window's depths), at 12 x 64 and 8 x
@@ -55,11 +62,9 @@ the stamps to ``DIR/paged_trace_<shape>_<dtype>.json``. Needs one card.
 """
 
 import argparse
-import hashlib
 import json
 import os
 import re
-import subprocess
 import sys
 
 import numpy as np
@@ -71,6 +76,8 @@ SEED = 1234
 SHAPES = {
     "tail256": (12, 64, 256, np.array([512])),
     "cold512": (12, 64, 512, np.array([512])),
+    "tail256_d512": (8, 512, 256, np.array([512])),
+    "cold512_d512": (8, 512, 512, np.array([512])),
     "verify": (12, 64, 4, np.random.RandomState(SEED + 111).randint(
         4 + 32, 641, size=8)),
     "decode": (12, 64, 1, np.random.RandomState(SEED + 1).randint(
@@ -78,60 +85,44 @@ SHAPES = {
     "decode256": (8, 256, 1, np.random.RandomState(SEED + 1).randint(
         32, 641, size=8)),
 }
-COPIES = 6
+#: the H100's L2 (50 MB); and how many times over a timing's pool
+#: copies must exceed it (:func:`l2_copies`)
+L2_BYTES = 50 * 2 ** 20
+L2_OVER = 4
+#: the sources a variant may replace, and that the paged routes launch
+SOURCES = ("paged_attention", "wide_attention")
 #: the window/tiled crossover's query counts and widths (heads, head dim)
 CROSSOVER_QUERIES = (2, 4, 8, 16)
 CROSSOVER_WIDTHS = ((12, 64), (8, 256))
 
 
-def _start_variants(specs, flags=()):
-    """Start compiling each ``NAME=DIR``'s ``DIR/paged_attention.cu``
-    (with ``flags`` added) into the build directory, every ``nvcc``
-    together: ``{name: (library, process or None when already
-    built)}``."""
-    from tensorflowonspark_tpu_torch.ops import _build
-
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    builds = {}
-    for spec in specs:
-        name, src_dir = spec.split("=", 1)
-        src = os.path.join(src_dir, "paged_attention.cu")
-        h = hashlib.sha256(" ".join(flags).encode())
-        for p in _build._sources(src):
-            with open(p, "rb") as f:
-                h.update(f.read())
-        lib = os.path.join(_build.BUILD_DIR,
-                           "libpaged_attention-{}-{}.so".format(
-                               name, h.hexdigest()[:16]))
-        proc = None if os.path.exists(lib) else subprocess.Popen(
-            [_build.nvcc_path()] + list(_build.NVCC_FLAGS) + list(flags)
-            + ["-o", lib, src])
-        builds[name] = (lib, proc)
-    return builds
+def live_kv_bytes(depths, n, d, quant, keys):
+    """The K/V bytes one paged call reads: a row ending at depth ``t``
+    reads min(t, ``keys``) keys and values of ``n`` heads of ``d``,
+    float32 or int8 codes with a float32 scale a (key, head)."""
+    live = int(np.minimum(np.asarray(depths), keys).sum())
+    return 2 * live * n * (d * (1 if quant else 4) + (4 if quant else 0))
 
 
-def _bind_variants(builds):
-    """Wait for :func:`_start_variants`' builds and load each with the
-    package library's C signatures: ``{name: library}``."""
-    from tensorflowonspark_tpu_torch.ops import _build
-
-    for name, (lib, proc) in builds.items():
-        if proc is not None and proc.wait() != 0:
-            raise RuntimeError("variant {} did not build".format(name))
-    return {name: _build.bind(lib, "paged_attention")
-            for name, (lib, _) in builds.items()}
+def l2_copies(kv_bytes):
+    """Pool copies whose live K/V together exceed the L2 ``L2_OVER``
+    times, and at least ``L2_OVER`` of them: a layer's pool is cold when
+    the serving step reaches it, so copies that stay inside the L2
+    flatter a kernel."""
+    return max(L2_OVER, -(-L2_OVER * L2_BYTES // kv_bytes))
 
 
 def _cases(torch, pa, dev, n, d, s_q, depths, quant, seed):
-    """``COPIES`` argument sets ``(q, k_pool, v_pool, table, pos, k_scale,
-    v_scale)``: ``len(depths)`` rows of ``s_q`` queries ending at
+    """:func:`l2_copies` argument sets ``(q, k_pool, v_pool, table, pos,
+    k_scale, v_scale)``: ``len(depths)`` rows of ``s_q`` queries ending at
     ``depths``, each row owning distinct pool rows for its live blocks
     (scratch row 0 past them)."""
     rng = np.random.RandomState(seed)
     b = len(depths)
     pool = b * TABLE + 1
     sets = []
-    for _ in range(COPIES):
+    for _ in range(l2_copies(live_kv_bytes(depths, n, d, quant,
+                                           TABLE * BLOCK))):
         shape = (pool, BLOCK, n, d)
         q = rng.randn(b, s_q, n, d).astype(np.float32)
         kp = torch.from_numpy(rng.randn(*shape).astype(np.float32))
@@ -264,11 +255,6 @@ def _kernel_fn(pa, scale):
     return kernel
 
 
-def _use(build, lib):
-    with build._lock:
-        build._libs["paged_attention"] = lib
-
-
 def crossover(torch, pa, dev, reps, lib):
     """Window against tiled device ms at ``CROSSOVER_QUERIES`` x
     ``CROSSOVER_WIDTHS`` x (float32, int8) on ``lib`` (a build with the
@@ -279,7 +265,7 @@ def crossover(torch, pa, dev, reps, lib):
     depths = SHAPES["verify"][3]
     limit = pa.WINDOW_MAX_QUERIES
     wins = {}
-    _use(_build, lib)
+    _build.use({"paged_attention": lib})
     try:
         for n, d in CROSSOVER_WIDTHS:
             for quant in (False, True):
@@ -306,7 +292,7 @@ def crossover(torch, pa, dev, reps, lib):
                               win, til, win / til))
     finally:
         pa.WINDOW_MAX_QUERIES = limit
-        _use(_build, _build.load("paged_attention"))
+        _build.use({"paged_attention": _build.load("paged_attention")})
     best = 1
     for s_q in CROSSOVER_QUERIES:
         if not all(wins[s_q]):
@@ -330,7 +316,7 @@ def trace(torch, pa, dev, lib, shapes, out_dir):
     buf = (ctypes.c_ulonglong * (3 * 16384))()
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-    _use(_build, lib)
+    _build.use({"paged_attention": lib})
     try:
         for label in shapes:
             n, d, s_q, depths = SHAPES[label]
@@ -358,7 +344,7 @@ def trace(torch, pa, dev, lib, shapes, out_dir):
                         json.dump({"summary": summary,
                                    "stamps": stamps.tolist()}, f)
     finally:
-        _use(_build, _build.load("paged_attention"))
+        _build.use({"paged_attention": _build.load("paged_attention")})
 
 
 def main():
@@ -385,13 +371,17 @@ def main():
     from tensorflowonspark_tpu_torch.ops import paged_attention as pa
 
     dev = device_info.default_device()
-    pending = _start_variants(args.variant)
-    traced = _start_variants(["trace=" + _build.CSRC],
-                             ("-DTFOS_PAGED_TRACE",)) if args.trace else {}
-    wide = _start_variants(["wide=" + _build.CSRC], ("-DTFOS_WINDOW_WIDE",)) \
+    pending = _build.start_variants(args.variant, SOURCES)
+    traced = _build.start_variants(["trace=" + _build.CSRC],
+                                   ("paged_attention",),
+                                   ("-DTFOS_PAGED_TRACE",)) \
+        if args.trace else {}
+    wide = _build.start_variants(["wide=" + _build.CSRC],
+                                 ("paged_attention",),
+                                 ("-DTFOS_WINDOW_WIDE",)) \
         if args.crossover else {}
-    libs = {"package": _build.load("paged_attention")}
-    libs.update(_bind_variants(pending))
+    libs = {"package": {name: _build.load(name) for name in SOURCES}}
+    libs.update(_build.bind_variants(pending, SOURCES))
     order = list(libs) + list(libs)[::-1]
     print(device_info.describe().splitlines()[0])
     for label in shapes:
@@ -409,13 +399,13 @@ def main():
             times = {name: [] for name in libs}
             errs, want = {}, None
             for name in order:
-                _use(_build, libs[name])
+                _build.use(libs[name])
                 got = kernel(*sets[0])
                 if want is None:
                     want = got
                 errs[name] = (got - want).abs().max().item()
                 times[name].append(graph_ms(torch, kernel, sets, args.reps))
-            _use(_build, libs["package"])
+            _build.use(libs["package"])
             lib_ms = graph_ms(torch, sdpa, sdpa_sets(torch, pa, sets),
                               args.reps)
             kv = "int8" if quant else "float32"
@@ -454,10 +444,12 @@ def main():
         finally:
             pa.SPLIT_BLOCKS, pa.WINDOW_BLOCKS = default
     if args.crossover:
-        crossover(torch, pa, dev, args.reps, _bind_variants(wide)["wide"])
+        crossover(torch, pa, dev, args.reps, _build.bind_variants(
+            wide, ("paged_attention",))["wide"]["paged_attention"])
     if args.trace:
-        trace(torch, pa, dev, _bind_variants(traced)["trace"], shapes,
-              args.out)
+        trace(torch, pa, dev, _build.bind_variants(
+            traced, ("paged_attention",))["trace"]["paged_attention"],
+            shapes, args.out)
     return 0
 
 

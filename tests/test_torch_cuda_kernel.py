@@ -25,8 +25,10 @@ route in every schedule and both dtypes; the speculative verify window
 route counts, two fleet replicas launching from their own threads with
 exact counts, and ``DecodeEngine.measure_attn``'s exact launches; and
 both ops at head dims above 256 (``csrc/wide_attention.cu``: 257, 300,
-384, 512, 576 and 1024) on every route and in both dtypes, their
-budgets, and a D-512 engine's exact launches by route.
+384, 512, 576 and 1024) on every route and in both dtypes, the forward
+kernels with Q streamed beside K (paged at 1536 and int8 3000, flash at
+float32 1024 and bfloat16 2432), their budgets, and a D-512 engine's
+exact launches by route.
 ``chip_smoke.py`` runs the same comparisons at the main paths' widths; these are the small-shape
 versions for ``pytest -m cuda``."""
 
@@ -1238,6 +1240,78 @@ def test_ring_kernel_route_matches_plain_ring(cuda, dtype, case):
 
 # -- head dims above 256 (csrc/wide_attention.cu) ---------------------------
 
+# -- the wide forward kernels' shared memory ----------------------------------
+# A model of ``csrc/wide_attention.cu``'s ``fwd_layout``, the layout's one
+# source: the budget tests below hold it to the kernels' own bytes on the
+# card, and ``test_torch_wide_heads`` takes the contraction chunks of its
+# CPU schedules from it.
+
+#: output columns one CTA of the wide forward kernels owns: four column
+#: warps of ``fa.WIDE_CHUNK``; above it the grid has an axis of groups
+WIDE_GROUP = 4 * fa.WIDE_CHUNK
+#: keys of a tile of the wide forward kernels (one item of their ring)
+WIDE_KEYS = 32
+#: query rows of one CTA of the wide flash forward
+WIDE_FWD_ROWS = 32
+#: query rows of one CTA of the wide tiled kernel (``PAGED_ROWS``)
+WIDE_QUERY_TILE = 16
+#: dynamic shared memory the wide forward kernels may take: the H100's
+#: 227 KB less 1 KB for their static words
+WIDE_SMEM_LIMIT = 232448 - 1024
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def wide_layout(rows, q_bytes, q_row, kv_bytes, pad=0, exch=0, meta=0):
+    """``(contraction chunk, dynamic shared bytes)`` of a wide forward
+    CTA: ``rows`` query rows of ``q_bytes``-byte elements held for the
+    whole CTA in rows of ``q_row`` where that fits under
+    :data:`WIDE_SMEM_LIMIT`, a ring of two items — a 512-column chunk of
+    :data:`WIDE_KEYS` K rows, or the group's V (K/V elements of
+    ``kv_bytes``, ``pad`` more a staged row) — and ``exch`` + ``meta``
+    bytes. Where Q does not fit, each K chunk item carries Q's chunk
+    beside it and chunks are 256 columns."""
+    for resident in (True, False):
+        cw = WIDE_GROUP if resident else WIDE_GROUP // 2
+        k_item = WIDE_KEYS * (cw + pad) * kv_bytes
+        q_item = 0 if resident else rows * cw * q_bytes
+        item = _round_up(max(k_item + q_item,
+                             WIDE_KEYS * (WIDE_GROUP + pad) * kv_bytes), 128)
+        q_tile = _round_up(rows * q_row * q_bytes, 128) if resident else 0
+        total = q_tile + 2 * item + exch + meta
+        if total <= WIDE_SMEM_LIMIT:
+            break
+    return cw, total
+
+
+def wide_fwd_layout(d, dtype):
+    """:func:`wide_layout` of the wide flash forward at the padded head
+    dim ``d`` and ``dtype``: 32 query rows, the partial-score exchange of
+    8 warps x 32 keys."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    return wide_layout(WIDE_FWD_ROWS, es, d, es, exch=8 * WIDE_KEYS * 16 * 4)
+
+
+def wide_tiled_layout(head_dim, quantized=False):
+    """:func:`wide_layout` of the wide tiled kernel at ``head_dim``: Q
+    resident in float32 rows rounded up to 32 columns where it fits, the
+    pool's rows unpadded (int8: codes and 16 pad bytes), the exchange of
+    8 warps x 16 keys and, at int8, the scales of two tiles."""
+    return wide_layout(
+        WIDE_QUERY_TILE, 4, _round_up(head_dim, 32), 1 if quantized else 4,
+        pad=16 if quantized else 0, exch=8 * (WIDE_KEYS // 2) * 16 * 4,
+        meta=4 * WIDE_KEYS * 4 if quantized else 0)
+
+
+def wide_tiled_smem_bytes(head_dim, quantized=False):
+    """Shared memory of one wide tiled launch: the layout's dynamic bytes
+    and 128 static ones (the query positions and two ints, padded to the
+    dynamic base's alignment)."""
+    return wide_tiled_layout(head_dim, quantized)[1] + 128
+
+
 #: the head dims the wide kernels are held at: 257 (one column past the
 #: narrow kernels), 300 (int8 rows of 300 codes break 16-byte alignment),
 #: 384, 512 (DeepSeek-V4-Flash), 576 (512 + 64 latent attention, a ragged
@@ -1276,6 +1350,61 @@ def test_wide_paged_matches_blockwise(cuda, d, s_q, quant):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("s_q", [1, 12, 16], ids=["one", "ragged",
+                                                  "whole"])
+@pytest.mark.parametrize("d", [257, 300, 512, 1024])
+def test_wide_paged_short_tail(cuda, d, s_q, quant):
+    """Tails of 16 queries or fewer above 256 on the tiled kernel (one
+    query tile, ragged or whole; S_q 1 through ``_kernel``'s tiled
+    branch is the split route, so it runs as a 1-query call of the
+    kernel's own entry), block 16: rows mid-table, overshooting it and
+    as shallow as the tail, within TOL of ``_blockwise`` and bitwise on a
+    repeat."""
+    rng = np.random.RandomState(3 * d + s_q)
+    bs, mb = 16, 22
+    args, scales = _paged_case(cuda, rng, s_q, quant,
+                               [mb * bs - 5, mb * bs + 5, max(s_q, 2)],
+                               n=2, d=d, bs=bs, mb=mb)
+    want = pa.paged_attention(*args, impl="blockwise", **scales)
+    if s_q > pa.WINDOW_MAX_QUERIES:
+        got, route = _launch(args, scales)
+        assert route == "tiled"
+    else:
+        got = _wide_tiled_direct(args, scales)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    again = _launch(args, scales)[0] if s_q > pa.WINDOW_MAX_QUERIES \
+        else _wide_tiled_direct(args, scales)
+    assert torch.equal(again, got)
+
+
+def _wide_tiled_direct(args, scales):
+    """``tfos_wide_paged_tiled`` on one call's tensors, whatever its query
+    count (the route a wrapper call takes is by query count)."""
+    import ctypes
+
+    from tensorflowonspark_tpu_torch.ops import _build
+
+    q, kp, vp, table, pos = args[:5]
+    ks, vs = scales.get("k_scale"), scales.get("v_scale")
+    b, s_q, n, d = q.shape
+    out = torch.empty_like(q)
+    vp_ = ctypes.c_void_p
+    rc = _build.load("wide_attention").tfos_wide_paged_tiled(
+        vp_(q.data_ptr()), vp_(kp.data_ptr()), vp_(vp.data_ptr()),
+        vp_(ks.data_ptr() if ks is not None else 0),
+        vp_(vs.data_ptr() if vs is not None else 0),
+        vp_(table.data_ptr()), vp_(pos.data_ptr()), vp_(out.data_ptr()), b,
+        s_q, n, d, kp.shape[1], table.shape[1], ctypes.c_float(d ** -0.5),
+        int(ks is not None),
+        vp_(torch.cuda.current_stream(q.device).cuda_stream))
+    assert rc == 0
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
 @pytest.mark.parametrize("s_q", [1, 4, 256], ids=["split", "window",
                                                  "tiled"])
 @pytest.mark.parametrize("bs", [1, 64])
@@ -1292,6 +1421,36 @@ def test_wide_paged_block_sizes(cuda, bs, s_q, quant):
     assert route == pa._route(s_q, 512)
     want = pa.paged_attention(*args, impl="blockwise", **scales)
     assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_q", [12, 40], ids=["short", "tail"])
+@pytest.mark.parametrize("quant,d", [(False, 1536), (True, 3000)],
+                         ids=["fp32-1536", "int8-3000"])
+def test_wide_paged_tiled_streams_q(cuda, d, quant, s_q):
+    """Above D 1440 (float32) and 2944 (int8) the tiled kernel's Q tile
+    does not fit beside its ring: each K item carries Q's 256-column
+    chunk behind the K rows (int8 rows of 3000 codes, not a 16-byte
+    multiple). A 40-query tail and a 12-query one (through the kernel's
+    own entry), block 16, rows mid-table, overshooting it and all
+    scratch: within TOL of ``_blockwise`` and bitwise on a repeat."""
+    assert wide_tiled_layout(d, quant)[0] == 256
+    rng = np.random.RandomState(d + s_q)
+    bs, mb = 16, 22
+    args, scales = _paged_case(cuda, rng, s_q, quant,
+                               [mb * bs - 5, mb * bs + 5, s_q], n=2, d=d,
+                               bs=bs, mb=mb, scratch_row=2)
+    want = pa.paged_attention(*args, impl="blockwise", **scales)
+    if s_q > pa.WINDOW_MAX_QUERIES:
+        got, route = _launch(args, scales)
+        assert route == "tiled"
+        again = _launch(args, scales)[0]
+    else:
+        got = _wide_tiled_direct(args, scales)
+        again = _wide_tiled_direct(args, scales)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    assert torch.equal(again, got)
 
 
 @pytest.mark.cuda
@@ -1338,18 +1497,55 @@ def test_wide_flash_is_deterministic(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(1024, torch.float32),
+                                     (2432, torch.bfloat16)],
+                         ids=["f32-1024", "bf16-2432"])
+def test_wide_flash_streams_q(cuda, d, dtype):
+    """Above D 640 (float32) and 2304 (bfloat16) the forward's Q tile
+    does not fit beside its ring: each K item carries Q's 256-column
+    chunk. The pair, causal and with a key mask over S_q != S_k, against
+    the plain versions under the phase-3b limits, and bitwise on a
+    repeat."""
+    assert wide_fwd_layout(d, dtype)[0] == 256
+    scale = d ** -0.5
+    for causal, masked, s_k in ((True, False, 136), (False, True, 200)):
+        q, k, v, dout, g_lse, bias = _flash_inputs(
+            cuda, (2, 136, s_k, 3, d, causal, masked, dtype))
+        got = _pair_through_route(q, k, v, bias, dout, g_lse, causal, scale)
+        again = _pair_through_route(q, k, v, bias, dout, g_lse, causal,
+                                    scale)
+        torch.cuda.synchronize()
+        _check_against_plain(q, k, v, bias, dout, g_lse, causal, scale, got)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
 def test_wide_flash_budget(cuda, kind, dtype):
     """The wide flash kernels keep their 16 x 128 accumulators (two in
     dK/dV) in registers: no spills, at least one CTA an SM, and the same
-    instantiation at every D above 256."""
+    instantiation at every D above 256; dQ and dK/dV take the same shared
+    memory at every D, the forward what ``wide_fwd_layout`` reckons (Q
+    resident at 512, streamed beside K at float32 1024 and at 2432)."""
     got = fa.budget(kind, 512, dtype)
     assert got["spill_bytes"] == 0
     assert got["ctas_per_sm"] >= 1
     assert 0 < got["smem_bytes"] <= 227 * 1024
-    assert fa.budget(kind, 1024, dtype) == got
+    wide = fa.budget(kind, 1024, dtype)
+    assert {k: wide[k] for k in ("registers", "spill_bytes")} == \
+        {k: got[k] for k in ("registers", "spill_bytes")}
+    if kind == "fwd":
+        for d, res in ((512, got), (1024, wide),
+                       (2432, fa.budget(kind, 2432, dtype))):
+            # the layout's dynamic bytes and the kernel's few static ones
+            assert 0 <= res["smem_bytes"] - wide_fwd_layout(d, dtype)[1] \
+                < 1024
+            assert res["ctas_per_sm"] >= 1
+    else:
+        assert wide == got
 
 
 @pytest.mark.cuda
@@ -1359,13 +1555,17 @@ def test_wide_flash_budget(cuda, kind, dtype):
 def test_wide_paged_budget(cuda, route, queries, quant):
     """The wide paged kernels (split at 1, 2 and 4 queries a row; tiled)
     keep their state in registers and fit the card; the tiled kernel's
-    shared memory is what ``tiled_smem_bytes`` reckons above 256."""
+    shared memory is what ``wide_tiled_smem_bytes`` reckons."""
     got = pa.budget(512, quant, route=route, queries=queries)
     assert got["spill_bytes"] == 0
     assert got["ctas_per_sm"] >= 1
     assert 0 < got["smem_bytes"] <= 227 * 1024
     if route == "tiled":
-        assert got["smem_bytes"] == pa.tiled_smem_bytes(512, quant)
+        # Q resident at 512, streamed beside K at 1536 and 3000
+        for d in (512, 1536, 3000):
+            at = got if d == 512 else pa.budget(d, quant, route=route)
+            assert at["smem_bytes"] == wide_tiled_smem_bytes(d, quant)
+            assert at["spill_bytes"] == 0 and at["ctas_per_sm"] >= 1
 
 
 @pytest.mark.cuda

@@ -1,28 +1,36 @@
-"""Heads above 256: the wide kernels' schedule and a D-320 decoder, the
+"""Heads above 256: the wide kernels' schedules and a D-320 decoder, the
 port against the JAX package on the CPU.
 
 The JAX package takes any head dim (its Pallas kernels block only the
 sequence). On the card the port runs every head dim above 256 on the
-kernels of ``csrc/wide_attention.cu``, whose one idea is that OUTPUT
-COLUMNS ARE A GRID AXIS: a CTA owns a chunk of output columns (128 for
-the tensor-core kernels, ``SPLIT_CHUNK`` for the split kernel) and
-sums every score (and the backward's dO V^T) over all of D itself, 32
-columns at a time. These tests model that schedule in plain PyTorch on
-the CPU — the column chunks, the 32-wide contraction chunks added in
-float32, the key (query) tiles in order, the online softmax in log2
-units, the wide split kernel's splits of ``WIDE_SPLIT_KEYS`` logical keys
-and their merge in split order — and hold each model against the port's
-plain versions and the JAX package on the same seeded numpy inputs:
+kernels of ``csrc/wide_attention.cu``. Its forward kernels (the flash
+forward and the paged tiled kernel) compute each score once per CTA: the
+four column warps of a row block (or key group) each take a quarter of
+every 512-column contraction chunk, sum their partial scores through
+shared memory in warp order, and own 128 output columns each of a
+512-column group (a grid axis above 512). Its backward and split-KV
+kernels make OUTPUT COLUMNS A GRID AXIS: a CTA owns a chunk of output
+columns (128 for dQ and dK/dV, ``SPLIT_CHUNK`` for the split kernel)
+and sums every score (and the backward's dO V^T) over all of D itself,
+32 columns at a time. These tests model those schedules in plain
+PyTorch on the CPU — the warps' contraction slices and the order their
+partial scores are summed in, the output groups and chunks, the
+32-column contraction chunks added in float32, the key (query) tiles in
+order and the paged key groups merged at the end, the online softmax in
+log2 units, the wide split kernel's splits of ``WIDE_SPLIT_KEYS`` logical
+keys and their merge in split order — and hold each model against the
+port's plain versions and the JAX package on the same seeded numpy
+inputs:
 
 - the flash forward, dQ and dK/dV (dK and dV in CTAs of their own)
   at D 320, 512 and 576 (padded to 384, 512 and 640), causal and
   key-masked, against the Pallas kernels in the interpreter within 2e-4
-  (``tests/test_torch_flash_attention.py``'s limit); every column
-  chunk's lse is the same float32 number;
+  (``tests/test_torch_flash_attention.py``'s limit); every output
+  group's and column chunk's lse is the same float32 number;
 - paged decode and the verify window (1 and 3 queries a row) on the
-  split schedule and prefill tails (70 queries) on the tiled one, block
-  1 and 16, float and int8, at D 300, 512 and 576 (int8 rows of 300
-  codes are not a 16-byte multiple), against the port's gather
+  split schedule and prefill tails (70 queries, and 12) on the tiled
+  one, block 1 and 16, float and int8, at D 300, 512 and 576 (int8 rows
+  of 300 codes are not a 16-byte multiple), against the port's gather
   oracle and the JAX gather oracle within the reference's tolerances
   (2e-6, int8 8e-6);
 - the slice: ``DecoderLM(vocab 64, hidden 640, num_heads 2, layers 2,
@@ -43,6 +51,10 @@ import torch.nn.functional as F
 from test_torch_flash_attention import TOL as FLASH_TOL
 from test_torch_flash_attention import _close, _inputs, _t
 from test_torch_head_dim_256 import _jax_pair
+from test_torch_cuda_kernel import (WIDE_FWD_ROWS, WIDE_GROUP, WIDE_KEYS,
+                                    WIDE_QUERY_TILE, WIDE_SMEM_LIMIT,
+                                    wide_fwd_layout, wide_tiled_layout,
+                                    wide_tiled_smem_bytes)
 from test_torch_paged_attention import FP32_TOL, INT8_TOL, _int8, _jax, _torch
 
 from tensorflowonspark_tpu import generation as jgeneration
@@ -111,29 +123,68 @@ def _key_terms(bias, causal, s_q, k0, k1):
     return add.expand(add.shape[0], 1, s_q, k1 - k0)
 
 
+def _slices(w):
+    """The contraction columns ``(lo, n)`` each of the four column warps
+    takes of a chunk ``w`` wide (``warp_slice``): a quarter each, rounded
+    up to 16 columns; n <= 0 for none."""
+    sl = -(-(-(-w // 4)) // 16) * 16
+    return [(c * sl, min(sl, w - c * sl)) for c in range(4)]
+
+
+def _group_scores(a, b, cw):
+    """``a b^T`` as the four column warps of a wide forward CTA compute it:
+    each warp sums its slice of every ``cw``-column contraction chunk, in
+    chunk order, and the four partials are summed in warp order
+    (``sum_partials``)."""
+    d = a.shape[-1]
+    parts = [torch.zeros(a.shape[:-1] + (b.shape[-2],)) for _ in range(4)]
+    for k0, w in _chunks(d, cw):
+        for c, (lo, n) in enumerate(_slices(w)):
+            if n > 0:
+                cols = slice(k0 + lo, k0 + lo + n)
+                parts[c] = parts[c] + a[..., cols] @ b[..., cols].transpose(
+                    -1, -2)
+    return ((parts[0] + parts[1]) + parts[2]) + parts[3]
+
+
 def _wide_fwd(q, k, v, bias, causal, scale):
-    """``flash_wide_fwd_kernel``'s schedule: per 128-column chunk of the
-    padded D, the 32-key tiles in order, each tile's scores over all of D
-    in DK chunks, the online softmax in log2 units, acc += P V[:, chunk].
-    Returns out [B, S_q, N, D], lse [B, N, S_q] and every chunk's lse."""
-    d, s_k = q.shape[-1], k.shape[1]
+    """``flash_wide_fwd_kernel``'s schedule: per 32-query tile and
+    512-column output group of the padded D, the 32-key tiles in order up
+    to the tile's last visible one, each tile's scores computed once by
+    the four column warps (:func:`_group_scores`, the contraction chunk
+    :func:`wide_fwd_layout` gives), the online softmax in log2 units,
+    acc += P V[:, group]. Returns out [B, S_q, N, D], lse [B, N, S_q] and
+    every group's lse."""
+    d, s_q, s_k = q.shape[-1], q.shape[1], k.shape[1]
     dp = fa.padded_head_dim(d)
+    cw, _ = wide_fwd_layout(dp, torch.float32)
     qh, kh, vh = (_heads_first(t, dp) for t in (q, k, v))
     outs, lses = [], []
-    for c0, w in _chunks(dp, fa.WIDE_CHUNK):
-        m = torch.full(qh.shape[:-1], NEG)
-        state = (m, torch.zeros_like(m), torch.zeros(qh.shape[:-1] + (w,)))
-        for k0 in range(0, s_k, TILE):
-            k1 = min(s_k, k0 + TILE)
-            add = _key_terms(bias, causal, q.shape[1], k0, k1)
-            s = _chunk_scores(qh, kh[:, :, k0:k1]) * (scale * LOG2E)
-            x = torch.where(torch.isneginf(add), torch.full_like(s, NEG),
-                            s + add)
-            state = _online(state, x, vh[:, :, k0:k1, c0:c0 + w])
-        m, l, acc = state
-        outs.append(acc / torch.where(l == 0, torch.ones_like(l), l)[..., None])
-        lses.append(torch.where(l == 0, torch.full_like(l, NEG),
-                                (m + torch.log2(l)) / LOG2E))
+    for c0, w in _chunks(dp, WIDE_GROUP):
+        out = torch.zeros(qh.shape[:-1] + (w,))
+        lse = torch.zeros(qh.shape[:-1])
+        for i0 in range(0, s_q, WIDE_FWD_ROWS):
+            i1 = min(s_q, i0 + WIDE_FWD_ROWS)
+            n_kv = -(-s_k // WIDE_KEYS)
+            if causal:
+                n_kv = min(n_kv, (i1 - 1) // WIDE_KEYS + 1)
+            m = torch.full(qh.shape[:2] + (i1 - i0,), NEG)
+            state = (m, torch.zeros_like(m), torch.zeros(m.shape + (w,)))
+            for kt in range(n_kv):
+                k0, k1 = kt * WIDE_KEYS, min(s_k, (kt + 1) * WIDE_KEYS)
+                add = _key_terms(bias, causal, s_q, k0, k1)[:, :, i0:i1]
+                s = _group_scores(qh[:, :, i0:i1], kh[:, :, k0:k1], cw) \
+                    * (scale * LOG2E)
+                x = torch.where(torch.isneginf(add), torch.full_like(s, NEG),
+                                s + add)
+                state = _online(state, x, vh[:, :, k0:k1, c0:c0 + w])
+            m, l, acc = state
+            out[:, :, i0:i1] = acc / torch.where(
+                l == 0, torch.ones_like(l), l)[..., None]
+            lse[:, :, i0:i1] = torch.where(
+                l == 0, torch.full_like(l, NEG), (m + torch.log2(l)) / LOG2E)
+        outs.append(out)
+        lses.append(lse)
     out = torch.cat(outs, -1)[..., :d].permute(0, 2, 1, 3)
     return out, lses[0], lses
 
@@ -208,13 +259,15 @@ def _wide_dkv(q, k, v, bias, dout, lse, delta, causal, scale):
                          ids=["causal", "key_mask"])
 @pytest.mark.parametrize("d", WIDE_DIMS)
 def test_wide_flash_schedule_matches_interpreted_kernels(d, causal, masked):
-    """The wide kernels' schedule (column chunks of 128 over the padded
-    D, scores summed over all of D in 32-column chunks, 32-key and
-    32-query tiles, dK and dV in CTAs of their own) gives the Pallas
-    kernels' out and lse, and their gradients through both outputs (a
-    nonzero lse cotangent), within 2e-4 at B 2 x S 96 x 2 heads; every
-    column chunk computes the same lse, bit for bit, and a fully masked
-    row has out 0 and lse -inf."""
+    """The wide kernels' schedules (the forward: 32-query tiles, scores
+    once per tile from four warps' partial sums, 512-column output
+    groups over the padded D; dQ and dK/dV: column chunks of 128, scores
+    summed over all of D in 32-column chunks, 32-key and 32-query tiles,
+    dK and dV in CTAs of their own) give the Pallas kernels' out and lse,
+    and their gradients through both outputs (a nonzero lse cotangent),
+    within 2e-4 at B 2 x S 96 x 2 heads; every output group computes the
+    same lse, bit for bit, and a fully masked row has out 0 and lse
+    -inf."""
     b, s, n = 2, 96, 2
     q, k, v, mask, g, g_lse = _inputs(b, s, s, n, d, masked, 40 + d)
     (want_out, want_lse), vjp = jax.vjp(
@@ -225,7 +278,7 @@ def test_wide_flash_schedule_matches_interpreted_kernels(d, causal, masked):
     bias = None if mask is None else fa._mask_to_bias(_t(mask))
     scale = d ** -0.5
     out, lse, lses = _wide_fwd(tq, tk, tv, bias, causal, scale)
-    assert len(lses) == fa.padded_head_dim(d) // fa.WIDE_CHUNK > 2
+    assert len(lses) == -(-fa.padded_head_dim(d) // WIDE_GROUP)
     assert all(torch.equal(x, lses[0]) for x in lses)
     _close(out, want_out, FLASH_TOL)
     _close(lse, want_lse, FLASH_TOL)
@@ -332,35 +385,55 @@ def _wide_split(q, kp, vp, table, pos, scale, scales=None):
 
 
 def _wide_tiled(q, kp, vp, table, pos, scale, scales=None):
-    """``paged_wide_tiled_kernel``: per 64-query tile of a row, the keys up
-    to min(live keys, the tile's highest position + 1) in 32-key tiles
-    through the table (each key's scale folded into its row), scores over
-    D in DK chunks with the last one ragged (no padding), the online
-    softmax in log2 units, acc += P V per 128-column chunk of D (the last
-    one ragged)."""
+    """``paged_wide_tiled_kernel``: per 16-query tile of a row and
+    512-column output group of D (the last one ragged), the keys up to
+    min(live keys, the tile's highest position + 1) in 32-key tiles
+    through the table, keys [16 g, 16 g + 16) of each tile taken by key
+    group g with an online softmax of its own (log2 units); each tile's
+    scores computed once by the group's four column warps
+    (:func:`_group_scores` on the raw pool values, the contraction chunk
+    of the paged layout, no padding), then times each key's scale (int8),
+    P times the value's scale for P V; at the end group 1's (m, l, acc)
+    merged into group 0's."""
     b, s_q, n, d = q.shape
     bs, mb = kp.shape[1], table.shape[1]
+    quant = scales is not None
+    cw, _ = wide_tiled_layout(d, quant)
+    half = WIDE_KEYS // 2
     out = torch.zeros_like(q)
     for r in range(b):
         live = _live(pos[r], bs, mb)
-        for i0 in range(0, s_q, 64):
-            qt, pt = q[r, i0:i0 + 64].transpose(0, 1), pos[r, i0:i0 + 64]
+        for i0 in range(0, s_q, WIDE_QUERY_TILE):
+            qt = q[r, i0:i0 + WIDE_QUERY_TILE].transpose(0, 1)
+            pt = pos[r, i0:i0 + WIDE_QUERY_TILE]
             kend = min(live, int(pt.max()) + 1)
-            for c0, w in _chunks(d, fa.WIDE_CHUNK):
-                m = torch.full((n, len(pt)), NEG)
-                state = (m, torch.zeros_like(m), torch.zeros(n, len(pt), w))
-                for k0 in range(0, kend, TILE):
-                    keys = torch.arange(k0, min(kend, k0 + TILE))
-                    k, v, ks, vs = _keys(kp, vp, scales, table[r], keys)
-                    k = (k * ks[..., None]).transpose(0, 1)
-                    v = (v * vs[..., None]).transpose(0, 1)
-                    x = _chunk_scores(qt, k) * (scale * LOG2E)
-                    vis = keys[None, :] <= pt[:, None]
-                    x = torch.where(vis[None], x, torch.full_like(x, NEG))
-                    state = _online(state, x, v[..., c0:c0 + w])
-                m, l, acc = state
-                out[r, i0:i0 + 64, :, c0:c0 + w] = (acc / torch.where(
-                    l == 0, torch.ones_like(l), l)[..., None]).transpose(0, 1)
+            for c0, w in _chunks(d, WIDE_GROUP):
+                groups = []
+                for kg in range(2):
+                    m = torch.full((n, len(pt)), NEG)
+                    state = (m, torch.zeros_like(m),
+                             torch.zeros(n, len(pt), w))
+                    for k0 in range(kg * half, kend, WIDE_KEYS):
+                        keys = torch.arange(k0, min(kend, k0 + half))
+                        k, v, ks, vs = _keys(kp, vp, scales, table[r], keys)
+                        x = _group_scores(qt, k.transpose(0, 1), cw) \
+                            * ks.T[:, None, :] * (scale * LOG2E)
+                        vis = keys[None, :] <= pt[:, None]
+                        x = torch.where(vis[None], x, torch.full_like(x, NEG))
+                        vv = (v * vs[..., None]).transpose(0, 1)
+                        state = _online(state, x, vv[..., c0:c0 + w])
+                    groups.append(state)
+                (m0, l0, a0), (m1, l1, a1) = groups
+                big = torch.maximum(m0, m1)
+                safe = torch.where(torch.isneginf(big), torch.zeros_like(big),
+                                   big)
+                w0, w1 = (torch.where(torch.isneginf(x), torch.zeros_like(x),
+                                      torch.exp2(x - safe)) for x in (m0, m1))
+                den = l0 * w0 + l1 * w1
+                acc = a0 * w0[..., None] + a1 * w1[..., None]
+                out[r, i0:i0 + WIDE_QUERY_TILE, :, c0:c0 + w] = (
+                    acc / torch.where(den == 0, torch.ones_like(den),
+                                      den)[..., None]).transpose(0, 1)
     return out
 
 
@@ -400,11 +473,12 @@ def test_wide_split_schedule_matches_gather_and_jax(d, s_q, quant):
 @pytest.mark.parametrize("d", [300, 512, 576])
 def test_wide_tiled_schedule_matches_gather_and_jax(d, bs, quant):
     """Prefill tails above 256 as the wide tiled kernel runs them: 70
-    queries a row (a second, ragged 64-query tile), blocks of 1 and 16
-    token rows, rows deep in the table, overshooting it and as shallow
-    as the tail; D 300 and 576 end in a ragged 32-column contraction
-    chunk and a ragged 128-column output chunk; against the port's
-    gather oracle and the JAX gather oracle."""
+    queries a row (five 16-query tiles, the last ragged), blocks of 1 and
+    16 token rows, rows deep in the table, overshooting it and as shallow
+    as the tail; D 300 ends in a ragged contraction slice, D 576 in a
+    ragged 512-column output group (a second CTA) whose one warp has 64
+    columns; against the port's gather oracle and the JAX gather
+    oracle."""
     mb = -(-160 // bs)
     case = _wide_case(7 * d + bs, 70, d, bs, mb, [mb * bs - 3, mb * bs + 9,
                                                   70], quant)
@@ -416,21 +490,62 @@ def test_wide_tiled_schedule_matches_gather_and_jax(d, bs, quant):
     np.testing.assert_allclose(got, _jax(case, "gather"), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("d", [257, 512])
+def test_wide_tiled_schedule_short_tail(d, quant):
+    """A tail of 12 queries (one ragged 16-query tile, fewer queries than
+    a tile) at D 257 and 512, block 16: rows deep in the table and as
+    shallow as the tail, and a row whose first key group sees keys the
+    second does not; against the port's gather oracle and the JAX gather
+    oracle."""
+    bs, mb = 16, 10
+    case = _wide_case(5 * d + quant, 12, d, bs, mb, [mb * bs - 7, 12, 20],
+                      quant)
+    (q, kp, vp, table, pos), scales = _schedule_inputs(case)
+    got = _wide_tiled(q, kp, vp, table, pos, d ** -0.5, scales).numpy()
+    tol = INT8_TOL if quant else FP32_TOL
+    np.testing.assert_allclose(got, _torch(case, "gather"), atol=tol,
+                               rtol=tol)
+    np.testing.assert_allclose(got, _jax(case, "gather"), atol=tol, rtol=tol)
+
+
 def test_wide_chunks_cover_every_column_once():
-    """The grid's column chunks: 128 columns a tensor-core CTA (flash on a
-    D padded to a multiple of 128, paged on the pool's own D with a
-    ragged last chunk), 1024 a split CTA; every column of D in exactly
-    one chunk, and the tiled kernel's shared memory the same at every
-    D above 256."""
-    for d in (257, 300, 384, 512, 576, 1024, 1100):
-        for width in (fa.WIDE_CHUNK, SPLIT_CHUNK):
+    """The grid's and the warps' column ranges: the forward kernels' output
+    groups of 512 and their warps' 128-column chunks, dQ's and dK/dV's
+    128-column CTAs (flash on a D padded to a multiple of 128, paged on
+    the pool's own D with a ragged last group), 1024 a split CTA; every
+    column of D in exactly one of each, and every contraction column in
+    exactly one warp's slice of one chunk (512 columns with Q resident,
+    256 streamed). The forward kernels' shared memory fits the card at
+    every D and dtype; float32 flash holds Q up to D 640 and bfloat16
+    up to 2304, the paged kernel up to 1440 (float32) and 2944 (int8)."""
+    for d in (257, 300, 384, 512, 576, 640, 768, 1024, 1100, 1440, 1472,
+              2304, 2432, 2944, 2976):
+        for width in (fa.WIDE_CHUNK, WIDE_GROUP, SPLIT_CHUNK):
             cols = [c for c0, w in _chunks(d, width)
                     for c in range(c0, c0 + w)]
             assert cols == list(range(d))
+        groups = [c0 + 128 * j + i for c0, w in _chunks(d, WIDE_GROUP)
+                  for j in range(4) if 128 * j < w
+                  for i in range(min(128, w - 128 * j))]
+        assert groups == list(range(d))
         dp = fa.padded_head_dim(d)
         assert dp % fa.WIDE_CHUNK == 0 and 0 <= dp - d < fa.WIDE_CHUNK
-        assert pa.tiled_smem_bytes(d) == pa.tiled_smem_bytes(d, True) == \
-            pa.tiled_smem_bytes(257) < 48 * 1024
+        layouts = [wide_fwd_layout(dp, dt)
+                   for dt in (torch.float32, torch.bfloat16)]
+        layouts += [wide_tiled_layout(d, quant) for quant in (False,
+                                                                 True)]
+        for (cw, smem), width in zip(layouts, (dp, dp, d, d)):
+            assert cw in (512, 256) and smem <= WIDE_SMEM_LIMIT
+            cols = [k0 + lo + i for k0, w in _chunks(width, cw)
+                    for lo, n in _slices(w) for i in range(max(n, 0))]
+            assert cols == list(range(width))
+        assert (layouts[0][0] == 512) == (dp <= 640)
+        assert (layouts[1][0] == 512) == (dp <= 2304)
+        assert (layouts[2][0] == 512) == (d <= 1440)
+        assert (layouts[3][0] == 512) == (d <= 2944)
+        for quant in (False, True):
+            assert wide_tiled_smem_bytes(d, quant) <= pa.MAX_SMEM_BYTES
     assert len(_chunks(576, SPLIT_CHUNK)) == 1
     assert len(_chunks(1100, SPLIT_CHUNK)) == 2
 
